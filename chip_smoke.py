@@ -18,10 +18,33 @@ Phases, each printing one line of numbers:
    teacher-forced decode step through the kernel must agree with the
    same step through the plain attention;
 4. int8 engine: the same trace with ``weight_dtype="int8"``; both kernels
-   must have been launched; greedy agreement with phase 3 is printed.
+   must have been launched; greedy agreement with phase 3 is printed;
+5. training kernels, before any model is built: flash attention forward
+   (out, lse) and backward (dQ, dK, dV, through torch autograd) against
+   their plain versions in bf16 at S = 2048 (GQA 4, head_dim 128, causal),
+   S = 1000 (ragged tail), head_dim 64 with 16/8 heads, one non-causal
+   case and the training shape S = 8192, each 64-row tile held to its own
+   norm, each small case run twice for bit-identical gradients; RMSNorm
+   forward and backward dx at [8192, 4096] and a ragged N. Each is timed
+   at the training shape (S = 8192, [8192, 4096]) beside its bound, its
+   plain version and a PyTorch library yardstick the port never calls
+   (``F.scaled_dot_product_attention``, ``F.rms_norm``);
+6. one training step, kernels against plain: Llama-3-8B widths at 2
+   layers, S = 2048, bf16, the same weights on both paths; the loss and
+   every parameter's gradient agree within stated tolerances, then one
+   ``TrainStep`` (AdamW) on each, whose losses and moments (m, v) agree;
+7. training: Llama-3-8B widths at 4 layers, batch 1 x seq 8192 seeded
+   tokens, bf16, ``AdamW(3e-4, weight_decay=0.1)`` with global-norm
+   clipping in ``TrainStep``: one warm-up and three timed steps, finite
+   losses, exact launch counts (flash forward and backward once per layer
+   per step, RMSNorm forward and backward 2 L + 1 times), step time,
+   tokens/s, model FLOPs share of bf16 peak, peak memory, and one profiled
+   step's device-busy share.
 
 Then the card's name and power limit again, one JSON line with every
-kernel's numbers, and last ``{"ok": true, "device": {...}}``. Any failure
+kernel's numbers (launches from the main path of its own phase: the
+serving runs for the serving kernels, the three timed training steps for
+the training kernels), and last ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
 weights, the kernel inputs and the request trace.
@@ -30,6 +53,7 @@ weights, the kernel inputs and the request trace.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -64,10 +88,55 @@ GEMM_ATOL_FRAC = 1e-3
 LOGITS_TOL_FRAC = 0.05
 LOGITS_NOISE_FACTOR = 2.0
 
+# - flash attention, kernel vs plain on the same bf16 inputs. out, dQ, dK
+#   and dV are held tile by tile (``flash_attention.tile_errors``): over
+#   each 64 rows of one (batch, head), ||got - want|| <= FLASH_TILE_RTOL
+#   (||want|| + FLASH_TILE_FLOOR sqrt(n)) for the tile's n elements. The
+#   limit scales with each tile's own norm, so that an error confined to
+#   the late K tiles, the diagonal or the ragged tail, whose values are far
+#   below the tensor's largest, fails as surely as one in the first tiles;
+#   the floor (an RMS of 1e-5) only matters where a tile is f32 rounding
+#   noise (dQ of a single row). The forward rounds the probabilities to
+#   bf16 on both sides (the kernel against its running row maximum, the
+#   plain version against the row's maximum, 2^-9 rms relative each) and
+#   the output once: about 3e-3 of a tile's norm. The backward is given the
+#   kernel forward's lse and delta on both sides, so it is held alone: P
+#   and dS round at the same places from f32 values that differ by
+#   summation order, then the results round once: about 1e-3. lse is f32
+#   on both sides: 1e-3 absolute.
+FLASH_TILE_RTOL, FLASH_TILE_FLOOR, FLASH_LSE_ATOL = 1e-2, 1e-5, 1e-3
+FLASH_TILE = 64
+# - RMSNorm: the same f32 arithmetic summed in another order, one rounding
+#   to bf16: one bf16 step (2^-7 relative) plus 1e-3 of the largest output.
+NORM_RTOL, NORM_ATOL_FRAC = 2.0 ** -7, 1e-3
+# - one training step at 2 layers, kernels vs plain: bf16 activations
+#   everywhere, the attention's probabilities rounded against different
+#   maxima, carried through 2 layers and a 128256-way softmax: the loss
+#   within 1e-2 relative, every parameter's gradient within 5e-2 of that
+#   tensor's largest magnitude. After one TrainStep (AdamW), the moments
+#   carry the clipped gradients at full scale: m = (1 - b1) g within the
+#   gradient's limit of its tensor's largest |m|, v = (1 - b2) g^2 within
+#   2 f + f^2 of its largest |v| (f the gradient's limit).
+STEP_LOSS_RTOL, STEP_GRAD_FRAC = 1e-2, 5e-2
+
 # the serving trace: more requests than the 8 lanes, prompts of 16-600
 # tokens (chunked prefill of 16), 32 new tokens each
 REQUESTS = 10
 NEW_TOKENS = 32
+
+# training: (label, B, S, H, Hk, head_dim, causal) of the kernel checks;
+# the training shape of the timing, the 2-layer check and the 4-layer run
+FLASH_CASES = (("s2048", 1, 2048, 32, 8, 128, True),
+               ("s1000_ragged", 1, 1000, 32, 8, 128, True),
+               ("s2048_hd64_h16_hk8", 1, 2048, 16, 8, 64, True),
+               ("s2048_noncausal", 1, 2048, 32, 8, 128, False))
+NORM_CASES = ((8192, 4096), (1000, 4096), (37, 4096))
+TRAIN_SEQ = 8192
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 3
+CHECK_SEQ = 2048
+CHECK_LAYERS = 2
+LR = 3e-4
 
 # Llama-3-8B decode shapes: (name, K, N, launches per decode step)
 GEMM_SHAPES = (("q", 4096, 4096, 32), ("k", 4096, 1024, 32), ("v", 4096, 1024, 32),
@@ -340,6 +409,43 @@ def serve(engine, prompts, max_new: int, phase: str):
     return reqs
 
 
+# device kernels of a training step by kind: (kind, name substrings)
+KERNEL_KINDS = (("flash attention (port)", ("flash_fwd_kernel", "flash_bwd_")),
+                ("rms norm (port)", ("rms_fwd_kernel", "rms_bwd_dx_kernel")),
+                ("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+                ("softmax / cross entropy", ("softmax", "nll_loss", "log_softmax")),
+                ("reductions", ("reduce_kernel",)),
+                ("copies and casts", ("copy",)),
+                ("elementwise", ("elementwise",)),
+                ("index / scatter / gather", ("index", "scatter", "gather")))
+
+
+def by_kind(per_kernel: dict) -> dict:
+    """Device milliseconds per KERNEL_KINDS entry (names matched without
+    case; "other" for the rest)."""
+    out: dict = {}
+    for name, us in per_kernel.items():
+        low = name.lower()
+        kind = next((k for k, subs in KERNEL_KINDS if any(sub.lower() in low for sub in subs)),
+                    "other")
+        out[kind] = out.get(kind, 0.0) + us / 1e3
+    return {k: round(v, 3) for k, v in sorted(out.items(), key=lambda kv: -kv[1])}
+
+
+def kernel_times(prof) -> tuple[dict, int]:
+    """({kernel name: device microseconds}, device operations) of a
+    torch.profiler run."""
+    import torch
+
+    per_kernel: dict = {}
+    launches = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            launches += 1
+    return per_kernel, launches
+
+
 def profile_decode(engine, vocab: int, seed: int, phase: str):
     """Device busy share of decode-only steps: 8 one-token requests (no
     prefill), 3 warm-up steps, then 5 steps under torch.profiler. Busy time
@@ -364,12 +470,7 @@ def profile_decode(engine, vocab: int, seed: int, phase: str):
         wall = time.perf_counter() - t0
     for r in reqs:
         engine.cancel(r)
-    per_kernel: dict = {}
-    launches = 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-            launches += 1
+    per_kernel, launches = kernel_times(prof)
     busy = sum(per_kernel.values()) / 1e6
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
     say(phase, profiled_decode_steps=steps, step_ms=round(1e3 * wall / steps, 3),
@@ -433,6 +534,472 @@ def teacher_forced_check(engine, prompts):
         tol=tol, top1_agree=top1)
     if not diff <= tol:
         raise AssertionError(f"teacher-forced logits differ by {diff} > {tol}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def flash_inputs(gen, B, S, H, Hk, hd):
+    import torch
+
+    def draw(heads):
+        return torch.randn((B, S, heads, hd), generator=gen, device="cuda").bfloat16()
+
+    return draw(H), draw(Hk), draw(Hk), draw(H)
+
+
+def flash_counts(causal: bool, B, S, H, Hk, hd):
+    """(bytes, forward FLOPs, backward FLOPs) of one call: every input read
+    once and every output written once; 4 FLOPs per (query, key, dim) pair
+    the mask keeps in the forward (two products), 10 in the backward (five
+    products)."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    qo, kv, stats = B * S * H * hd * 2, B * S * Hk * hd * 2, B * H * S * 4
+    fwd_bytes = 2 * qo + 2 * kv + stats                   # q k v in; o lse out
+    bwd_bytes = 3 * qo + 4 * kv + 2 * stats               # q k v dO lse delta in; dq dk dv out
+    return fwd_bytes, bwd_bytes, 4 * pairs * B * H * hd, 10 * pairs * B * H * hd
+
+
+def hold_flash(label, fwd, ref_fwd, grads, ref_grads) -> dict:
+    """Hold the kernels' (out, lse) and (dq, dk, dv) against the plain
+    versions'; raise past the limits. Returns the errors."""
+    from paddle_tpu_torch.ops.flash_attention import tile_errors
+
+    def tile_err(got, want):
+        return tile_errors(got, want, FLASH_TILE, FLASH_TILE_FLOOR)
+
+    (out, lse), (ref_out, ref_lse) = fwd, ref_fwd
+    out_tile, out_err = tile_err(out, ref_out)
+    lse_err = (lse - ref_lse).abs().max().item()
+    if not (out_tile <= FLASH_TILE_RTOL and lse_err <= FLASH_LSE_ATOL):
+        raise AssertionError(f"flash forward ({label}) differs from its plain version: out "
+                             f"{out_tile} of a tile's norm (tol {FLASH_TILE_RTOL}), lse "
+                             f"{lse_err} (tol {FLASH_LSE_ATOL})")
+    errs = [tile_err(g, w) for g, w in zip(grads, ref_grads)]
+    if not all(t <= FLASH_TILE_RTOL for t, _ in errs):
+        raise AssertionError(f"flash backward ({label}) differs from its plain version: "
+                             f"dq/dk/dv {[t for t, _ in errs]} of a tile's norm "
+                             f"(tol {FLASH_TILE_RTOL})")
+    return {"out_err": out_err, "out_tile_err": out_tile, "lse_err": lse_err,
+            "dq_dk_dv_err": [e for _, e in errs], "dq_dk_dv_tile_err": [t for t, _ in errs],
+            "fwd_err": out_err, "bwd_err": max(e for _, e in errs)}
+
+
+def check_flash(gen):
+    """Every case: forward and backward through torch autograd twice
+    (bit-identical), against the plain versions, the backward on the
+    kernel forward's lse and delta; then the timing and the same checks at
+    the training shape. Returns the forward's and the backward's numbers."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    for label, B, S, H, Hk, hd, causal in FLASH_CASES:
+        q, k, v, do = flash_inputs(gen, B, S, H, Hk, hd)
+        runs = []
+        for _ in range(2):
+            qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+            out = fa.flash_attention(qs, ks, vs, causal)
+            out.backward(do)
+            runs.append((out.detach(), qs.grad, ks.grad, vs.grad))
+        out_k, lse_k = fa.flash_attention_fwd(q, k, v, causal)
+        ref_fwd = fa.flash_attention_fwd_ref(q, k, v, causal)
+        # delta as the autograd op computes it from the kernel's output
+        delta_k = (do.float() * out_k.float()).sum(-1).transpose(1, 2).contiguous()
+        ref_grads = fa.flash_attention_bwd_ref(q, k, v, do, lse_k, delta_k, causal)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"flash attention ({label}) is not deterministic")
+        if not torch.equal(out_k, runs[0][0]):
+            raise AssertionError(f"flash attention ({label}): the autograd op's output "
+                                 "differs from the forward kernel's")
+        errs = hold_flash(label, (out_k, lse_k), ref_fwd, runs[0][1:], ref_grads)
+        nums = dict(case=label, B=B, S=S, H=H, Hk=Hk, hd=hd, causal=causal,
+                    **{k_: v_ for k_, v_ in errs.items() if k_ not in ("fwd_err", "bwd_err")},
+                    bit_identical_grads=True)
+        if label == "s2048":
+            fwd_b, bwd_b, fwd_f, bwd_f = flash_counts(causal, B, S, H, Hk, hd)
+            nums.update(
+                ms_fwd=round(device_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal), 1, 10), 5),
+                plain_ms_fwd=round(eager_ms(lambda i: fa.flash_attention_fwd_ref(q, k, v, causal),
+                                            1, 5, 1), 5),
+                ms_bwd=round(device_ms(lambda i: fa.flash_attention_bwd(
+                    q, k, v, do, lse_k, delta_k, causal), 1, 10), 5),
+                plain_ms_bwd=round(eager_ms(lambda i: fa.flash_attention_bwd_ref(
+                    q, k, v, do, lse_k, delta_k, causal), 1, 5, 1), 5),
+                bound_ms_fwd=round(bound_ms(fwd_b, fwd_f)[0], 5),
+                bound_ms_bwd=round(bound_ms(bwd_b, bwd_f)[0], 5))
+        say("train-kernels", kernel="flash_attention", **nums)
+        del q, k, v, do, runs, ref_grads, ref_fwd
+        torch.cuda.empty_cache()
+    return time_flash(gen)
+
+
+def time_flash(gen):
+    """The kernels at the training shape (B 1, S 8192, H 32, Hk 8, hd 128,
+    causal) on the card, the plain versions on the same inputs (one call
+    per KV-head group, 4 query heads each, so that the S x S scores fit),
+    the kernels held against them, and the library yardstick: SDPA
+    forward, and its backward alone (``torch.autograd.grad`` of one
+    forward kept alive)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, Hk, hd = 1, TRAIN_SEQ, 32, 8, 128
+    rep = H // Hk
+    q, k, v, do = flash_inputs(gen, B, S, H, Hk, hd)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, True)
+
+    def plain_fwd(i):
+        return [fa.flash_attention_fwd_ref(q[:, :, g * rep:(g + 1) * rep], k[:, :, g:g + 1],
+                                           v[:, :, g:g + 1], True) for g in range(Hk)]
+
+    def plain_bwd(i):
+        hs = [slice(g * rep, (g + 1) * rep) for g in range(Hk)]
+        return [fa.flash_attention_bwd_ref(q[:, :, hs[g]], k[:, :, g:g + 1], v[:, :, g:g + 1],
+                                           do[:, :, hs[g]], lse[:, hs[g]], delta[:, hs[g]],
+                                           True) for g in range(Hk)]
+
+    outs, lses = zip(*plain_fwd(0))
+    errs = hold_flash("training_shape", (out, lse), (torch.cat(outs, 2), torch.cat(lses, 1)),
+                      grads, [torch.cat(t, 2) for t in zip(*plain_bwd(0))])
+    del outs, lses, grads
+    ms_fwd = device_ms(lambda i: fa.flash_attention_fwd(q, k, v, True), 1, 5)
+    ms_bwd = device_ms(lambda i: fa.flash_attention_bwd(q, k, v, do, lse, delta, True), 1, 5)
+    plain_fwd_ms = eager_ms(plain_fwd, 1, 2, 1)
+    plain_bwd_ms = eager_ms(plain_bwd, 1, 2, 1)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+
+    def lib_fwd(i):
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    lib_fwd_ms = device_ms(lib_fwd, 1, 5)
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    lib_bwd_ms = eager_ms(lambda i: torch.autograd.grad(lib_out, (ql, kl, vl), dot,
+                                                        retain_graph=True), 1, 5, 2)
+
+    def lib_fwd_bwd(i):
+        o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(o, (ql, kl, vl), dot)
+
+    lib_fwd_bwd_ms = eager_ms(lib_fwd_bwd, 1, 5, 2)
+    fwd_b, bwd_b, fwd_f, bwd_f = flash_counts(True, B, S, H, Hk, hd)
+    bf, byf = bound_ms(fwd_b, fwd_f)
+    bb, byb = bound_ms(bwd_b, bwd_f)
+    say("train-kernels", kernel="flash_attention", case="training_shape", B=B, S=S, H=H,
+        Hk=Hk, hd=hd, causal=True,
+        **{k_: v_ for k_, v_ in errs.items() if k_ not in ("fwd_err", "bwd_err")},
+        ms_fwd=round(ms_fwd, 5), bound_ms_fwd=round(bf, 5),
+        plain_ms_fwd=round(plain_fwd_ms, 5), library_ms_fwd=round(lib_fwd_ms, 5),
+        ms_bwd=round(ms_bwd, 5), bound_ms_bwd=round(bb, 5), plain_ms_bwd=round(plain_bwd_ms, 5),
+        library_ms_bwd=round(lib_bwd_ms, 5), library_ms_fwd_bwd=round(lib_fwd_bwd_ms, 5),
+        TFLOPs_fwd=round(fwd_f / ms_fwd / 1e9, 1), TFLOPs_bwd=round(bwd_f / ms_bwd / 1e9, 1))
+    del q, k, v, do, out, lse, delta, ql, kl, vl, lib_out
+    torch.cuda.empty_cache()
+    at = (f"B1 S{S} H{H} Hk{Hk} hd{hd} causal bf16, max_abs_err and tile_err at this "
+          f"shape; plain version in {Hk} calls of one KV-head group each")
+    return ({"max_abs_err": errs["fwd_err"], "tile_err": errs["out_tile_err"], "ms": ms_fwd,
+             "plain_ms": plain_fwd_ms, "bound_ms": bf, "bound_by": byf, "library_ms": lib_fwd_ms,
+             "at": at + "; library: F.scaled_dot_product_attention(is_causal, enable_gqa)"},
+            {"max_abs_err": errs["bwd_err"], "tile_err": max(errs["dq_dk_dv_tile_err"]),
+             "ms": ms_bwd, "plain_ms": plain_bwd_ms, "bound_ms": bb, "bound_by": byb,
+             "library_ms": lib_bwd_ms,
+             "at": at + "; library: torch.autograd.grad through SDPA's forward (eager)"})
+
+
+def check_rms_norm(gen):
+    """Forward and backward dx against the plain versions at every case;
+    the timing at [8192, 4096] (three buffers cycled to defeat L2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused_norm as fn
+
+    eps = 1e-5
+    err_fwd = err_bwd = 0.0
+    res = {}
+    for N, H in NORM_CASES:
+        n_bufs = 3 if N * H * 2 > L2_BYTES // 4 else 1
+        xs = [(torch.randn((N, H), generator=gen, device="cuda") * 3).bfloat16()
+              for _ in range(n_bufs)]
+        dos = [torch.randn((N, H), generator=gen, device="cuda").bfloat16()
+               for _ in range(n_bufs)]
+        w = (torch.rand((H,), generator=gen, device="cuda") + 0.5).bfloat16()
+        out, inv = fn.rms_norm_fwd(xs[0], w, eps)
+        ref_out, ref_inv = fn.rms_norm_fwd_ref(xs[0], w, eps)
+        dx = fn.rms_norm_bwd_dx(xs[0], w, inv, dos[0])
+        ref_dx = fn.rms_norm_bwd_dx_ref(xs[0], w, ref_inv, dos[0])
+        torch.cuda.synchronize()
+        errs = []
+        for got, want, name in ((out, ref_out, "forward"), (dx, ref_dx, "backward dx")):
+            diff = (got.float() - want.float()).abs()
+            tol = NORM_RTOL * want.float().abs() + NORM_ATOL_FRAC * want.float().abs().max()
+            if not bool((diff <= tol).all()):
+                raise AssertionError(f"RMSNorm {name} [{N}, {H}] differs from its plain "
+                                     f"version: max abs err {diff.max().item()}")
+            errs.append(diff.max().item())
+        if not torch.allclose(inv, ref_inv, rtol=1e-5, atol=0):
+            raise AssertionError(f"RMSNorm inv [{N}, {H}] differs from its plain version")
+        err_fwd, err_bwd = max(err_fwd, errs[0]), max(err_bwd, errs[1])
+        nums = dict(N=N, H=H, fwd_err=errs[0], dx_err=errs[1])
+        if (N, H) == NORM_CASES[0]:
+            invs = [fn.rms_norm_fwd(x, w, eps)[1] for x in xs]
+            row = N * H * 2
+            fwd_bytes, bwd_bytes = 2 * row + H * 2 + N * 4, 3 * row + H * 2 + N * 4
+            fwd_flops, bwd_flops = 4 * N * H, 8 * N * H
+            lib_bwd = None
+            if hasattr(torch.ops.aten, "_fused_rms_norm_backward"):
+                rstds = [torch.ops.aten._fused_rms_norm(x, [H], w, eps)[1] for x in xs]
+
+                def lib_bwd(i):
+                    return torch.ops.aten._fused_rms_norm_backward(
+                        dos[i], xs[i], [H], rstds[i], w, [True, False])
+
+            res["fwd"] = {
+                "max_abs_err": 0.0,
+                "ms": device_ms(lambda i: fn.rms_norm_fwd(xs[i], w, eps), n_bufs),
+                "plain_ms": device_ms(lambda i: fn.rms_norm_fwd_ref(xs[i], w, eps), n_bufs),
+                "library_ms": device_ms(lambda i: F.rms_norm(xs[i], (H,), w, eps), n_bufs),
+                **dict(zip(("bound_ms", "bound_by"), bound_ms(fwd_bytes, fwd_flops))),
+                "at": f"[{N}, {H}] bf16; library: torch.nn.functional.rms_norm"}
+            res["bwd"] = {
+                "max_abs_err": 0.0,
+                "ms": device_ms(lambda i: fn.rms_norm_bwd_dx(xs[i], w, invs[i], dos[i]), n_bufs),
+                "plain_ms": device_ms(lambda i: fn.rms_norm_bwd_dx_ref(xs[i], w, invs[i], dos[i]),
+                                      n_bufs),
+                "library_ms": None if lib_bwd is None else device_ms(lib_bwd, n_bufs),
+                **dict(zip(("bound_ms", "bound_by"), bound_ms(bwd_bytes, bwd_flops))),
+                "at": f"[{N}, {H}] bf16; library: torch.ops.aten._fused_rms_norm_backward "
+                      "(dx only)"}
+            for key in ("fwd", "bwd"):
+                nums.update({f"{k}_{key}": (round(v, 5) if isinstance(v, float) else v)
+                             for k, v in res[key].items()
+                             if k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+        say("train-kernels", kernel="rms_norm", **nums)
+        del xs, dos
+        torch.cuda.empty_cache()
+    res["fwd"]["max_abs_err"], res["bwd"]["max_abs_err"] = err_fwd, err_bwd
+    return res["fwd"], res["bwd"]
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: training
+# ---------------------------------------------------------------------------
+
+def training_wrappers() -> dict:
+    """{name: the kernel wrapper} of the training kernels."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_norm as fn
+
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "rms_norm_fwd": fn.rms_norm_fwd, "rms_norm_bwd_dx": fn.rms_norm_bwd_dx}
+
+
+def expected_launches(layers: int) -> dict:
+    """Per training step: flash forward and backward once per layer,
+    RMSNorm forward and backward twice per layer and once for the final
+    norm."""
+    return {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
+            "rms_norm_fwd": 2 * layers + 1, "rms_norm_bwd_dx": 2 * layers + 1}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the training ops' autograd functions to the plain versions for
+    the reference path of phase 6. The package has no such switch: a CUDA
+    tensor always reaches the kernel."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_norm as fn
+
+    swaps = ((fa, "flash_attention_fwd", fa.flash_attention_fwd_ref),
+             (fa, "flash_attention_bwd", fa.flash_attention_bwd_ref),
+             (fn, "rms_norm_fwd", fn.rms_norm_fwd_ref),
+             (fn, "rms_norm_bwd_dx", fn.rms_norm_bwd_dx_ref))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, kernel in saved:
+            setattr(mod, name, kernel)
+
+
+def token_batch(rng, seq: int, vocab: int):
+    """(input_ids, labels) [1, seq] int64 on the card: seeded tokens and the
+    next token of each."""
+    import torch
+
+    toks = torch.from_numpy(rng.randint(0, vocab, (1, seq + 1)).astype("int64")).cuda()
+    return toks[:, :-1], toks[:, 1:]
+
+
+def make_train_step(model):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(LR, parameters=model.parameters(), weight_decay=0.1,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return TrainStep(model, opt, lambda x, y: model(x, labels=y)[0])
+
+
+def check_train_step(seed: int):
+    """Phase 6: the same 2-layer model and batch through the kernels and
+    through the plain versions."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=CHECK_LAYERS)
+    kern = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    plain = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed + 1)
+    plain.load_state_dict(kern.state_dict())
+    ids, labels = token_batch(np.random.RandomState(seed + 2), CHECK_SEQ, cfg.vocab_size)
+    wrappers = training_wrappers()
+    results = {}
+    for name, model in (("kernel", kern), ("plain", plain)):
+        before = {k: w.launches for k, w in wrappers.items()}
+        with plain_kernels() if name == "plain" else contextlib.nullcontext():
+            loss, _ = model(ids, labels=labels)
+            loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        want = expected_launches(CHECK_LAYERS) if name == "kernel" else dict.fromkeys(wrappers, 0)
+        if launched != want:
+            raise AssertionError(f"{name} path launched {launched}, expected {want}")
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        results[name] = (loss.item(), grads)
+    (loss_k, grads_k), (loss_p, grads_p) = results["kernel"], results["plain"]
+    worst = (0.0, "")
+    for n, gp in grads_p.items():
+        gk = grads_k[n]
+        frac = ((gk.float() - gp.float()).abs().max() / gp.float().abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, (frac, n))
+        if not (math.isfinite(frac) and frac <= STEP_GRAD_FRAC):
+            raise AssertionError(f"gradient of {n}: kernel and plain paths differ by {frac} of "
+                                 f"its largest magnitude (tol {STEP_GRAD_FRAC})")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    if not loss_rel <= STEP_LOSS_RTOL:
+        raise AssertionError(f"loss: kernel path {loss_k}, plain path {loss_p}")
+    del grads_k, grads_p, results
+    steps, losses = {}, {}
+    for name, model in (("kernel", kern), ("plain", plain)):
+        steps[name] = make_train_step(model)
+        with plain_kernels() if name == "plain" else contextlib.nullcontext():
+            losses[name] = steps[name](ids, labels).item()
+    torch.cuda.synchronize()
+    if not abs(losses["kernel"] - losses["plain"]) <= STEP_LOSS_RTOL * abs(losses["plain"]):
+        raise AssertionError(f"TrainStep losses differ: {losses}")
+    # the state is in named_parameters() order on both
+    tols = {"m": STEP_GRAD_FRAC, "v": 2 * STEP_GRAD_FRAC + STEP_GRAD_FRAC ** 2}
+    moment_worst = dict.fromkeys(tols, 0.0)
+    for (n, _), sk, sp in zip(kern.named_parameters(), steps["kernel"]._opt_state,
+                              steps["plain"]._opt_state):
+        for key, tol in tols.items():
+            want = sp[key].float()
+            frac = ((sk[key].float() - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30)).item()
+            moment_worst[key] = max(moment_worst[key], frac)
+            if not (math.isfinite(frac) and frac <= tol):
+                raise AssertionError(f"after one TrainStep, AdamW's {key} of {n} differs by "
+                                     f"{frac} of its largest magnitude (tol {tol})")
+    say("train-step-check", layers=CHECK_LAYERS, seq=CHECK_SEQ, loss_kernel=loss_k,
+        loss_plain=loss_p, loss_rel_diff=loss_rel, loss_tol=STEP_LOSS_RTOL,
+        worst_grad_frac=worst[0], worst_grad=worst[1], grad_tol=STEP_GRAD_FRAC,
+        trainstep_loss_kernel=losses["kernel"], trainstep_loss_plain=losses["plain"],
+        worst_m_frac=moment_worst["m"], m_tol=tols["m"], worst_v_frac=moment_worst["v"],
+        v_tol=tols["v"])
+    del kern, plain, steps
+    torch.cuda.empty_cache()
+
+
+def train(seed: int) -> dict:
+    """Phase 7: the 4-layer training run. Returns the launch counts of the
+    three timed steps."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    n_embed = model.llama.embed_tokens.weight.numel()
+    say("train", layers=TRAIN_LAYERS, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
+        seq=TRAIN_SEQ, params=n_params, model_init_s=round(time.perf_counter() - t0, 2))
+    step = make_train_step(model)
+    rng = np.random.RandomState(seed + 3)
+    wrappers = training_wrappers()
+    per_step = expected_launches(TRAIN_LAYERS)
+
+    def run(n_steps):
+        for w in wrappers.values():
+            w.launches = 0
+        losses, times = [], []
+        for _ in range(n_steps):
+            ids, labels = token_batch(rng, TRAIN_SEQ, cfg.vocab_size)
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            loss = step(ids, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - s0)
+            losses.append(loss.item())
+        counts = {k: w.launches for k, w in wrappers.items()}
+        want = {k: n_steps * v for k, v in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"training launched {counts}, expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"training losses are not finite: {losses}")
+        return losses, times, counts
+
+    warm_losses, warm_times, _ = run(1)
+    losses, times, counts = run(TRAIN_STEPS)
+    step_s = sum(times) / len(times)
+    tokens = TRAIN_SEQ
+    attn_flops = TRAIN_LAYERS * 3.5 * flash_counts(True, 1, TRAIN_SEQ, cfg.num_attention_heads,
+                                                   cfg.num_key_value_heads, 128)[2]
+    model_flops = 6 * (n_params - n_embed) * tokens + attn_flops
+    say("train", warmup_step_ms=round(1e3 * warm_times[0], 3), warmup_loss=warm_losses[0],
+        step_ms=[round(1e3 * t, 3) for t in times], step_ms_mean=round(1e3 * step_s, 3),
+        losses=losses, tokens_per_s=round(tokens / step_s, 1),
+        model_tflop_per_step=round(model_flops / 1e12, 3),
+        bf16_peak_share=round(model_flops / step_s / BF16_FLOP_PER_S, 4),
+        max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        launches=counts)
+    ids, labels = token_batch(rng, TRAIN_SEQ, cfg.vocab_size)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - s0
+    per_kernel, ops = kernel_times(prof)
+    busy = sum(per_kernel.values()) / 1e6
+    say("train", profiled_step_ms=round(1e3 * wall, 3),
+        device_busy_ms=round(1e3 * busy, 3),
+        device_busy_share=round(busy / wall, 4) if busy else "not measured",
+        device_ops=ops)
+    say("train", device_ms_by_kind=json.dumps(by_kind(per_kernel)))
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  train top kernel: {us / 1e3:.4f} ms/step {name[:90]}", flush=True)
+    del step, model
+    torch.cuda.empty_cache()
+    return counts
 
 
 def nvidia_smi() -> str:
@@ -524,6 +1091,11 @@ def main(argv=None) -> int:
     del engine, model
     torch.cuda.empty_cache()
 
+    flash_fwd, flash_bwd = check_flash(gen)
+    norm_fwd, norm_bwd = check_rms_norm(gen)
+    check_train_step(args.seed)
+    train_launches = train(args.seed)
+
     kernels = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -542,6 +1114,18 @@ def main(argv=None) -> int:
          "at": "sum over one Llama-3-8B decode step at M=8 (7 projections x 32 "
                "layers + lm_head); launches from the int8 engine run"},
     ]
+    for name, source, replaces, nums in (
+            ("flash_attention_fwd", "flash_attention.cu", "flash_kernel.py:173", flash_fwd),
+            ("flash_attention_bwd", "flash_attention.cu", "flash_kernel.py:208", flash_bwd),
+            ("rms_norm_fwd", "rms_norm.cu", "fused_norm.py:79", norm_fwd),
+            ("rms_norm_bwd", "rms_norm.cu", "fused_norm.py:79", norm_bwd)):
+        wrapper = name if name != "rms_norm_bwd" else "rms_norm_bwd_dx"
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{source}",
+            "replaces": f"paddle_tpu/ops/pallas/{replaces}",
+            "launches": train_launches[wrapper], **nums})
+        kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
+                              f"({TRAIN_LAYERS} layers)")
     say("done", total_s=round(time.perf_counter() - t_start, 1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,13 +23,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...device import resolve_device
+
 __all__ = ["PagedKVCache"]
 
 
 class PagedKVCache:
     def __init__(self, num_layers: int, num_kv_heads: int, head_dim: int, *,
                  num_blocks: int, block_size: int, num_lanes: int,
-                 max_blocks_per_lane: int, dtype=torch.float32, device="cpu"):
+                 max_blocks_per_lane: int, dtype=torch.float32, device):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is the "
                              "reserved trash block)")
@@ -43,8 +45,9 @@ class PagedKVCache:
         self.max_blocks_per_lane = int(max_blocks_per_lane)
         self.dtype = dtype
         shape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)
-        self.pages_k = torch.zeros(shape, dtype=dtype, device=device)
-        self.pages_v = torch.zeros(shape, dtype=dtype, device=device)
+        dev = resolve_device(device)
+        self.pages_k = torch.zeros(shape, dtype=dtype, device=dev)
+        self.pages_v = torch.zeros(shape, dtype=dtype, device=dev)
         self.block_table = np.zeros((num_lanes, max_blocks_per_lane), np.int32)
         self.lengths = np.zeros((num_lanes,), np.int32)
         self.active = np.zeros((num_lanes,), np.bool_)

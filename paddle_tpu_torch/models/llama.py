@@ -1,16 +1,20 @@
-"""Llama for serving decode, in PyTorch.
+"""Llama in PyTorch: training and serving decode.
 
-Counterpart of ``paddle_tpu/models/llama.py``: the configuration, the
-parameter holder with the reference's parameter names and ``[in, out]``
-weight layout, and the functional single-token decode
-(``decode_weights`` .. ``decode_step``, reference lines 299-526) that both
-the dense greedy generator and the paged serving engine run. Projections
-of an int8 engine go through :func:`decode_matmul` to the int8 kernel;
-every other product stays ``torch.matmul``, as the reference leaves them
-to its compiler.
+Counterpart of ``paddle_tpu/models/llama.py``:
 
-The training forward (flash attention, loss) belongs to the training
-slice of the port and raises until then.
+- the configuration;
+- the training half (reference lines 94-285): ``LlamaAttention`` (GQA,
+  RoPE, flash attention through the gate), ``LlamaMLP`` (SwiGLU),
+  ``LlamaDecoderLayer`` (pre-norm residual blocks, optional recompute),
+  ``LlamaModel`` and ``LlamaForCausalLM`` (untied or tied head, the
+  cross-entropy loss), with the reference's parameter names, ``[in, out]``
+  weight layout and initializers, trained by torch autograd;
+- the functional single-token decode (``decode_weights`` ..
+  ``decode_step``, reference lines 299-526) that both the dense greedy
+  generator and the paged serving engine run. Projections of an int8
+  engine go through :func:`decode_matmul` to the int8 kernel; every other
+  product stays ``torch.matmul``, as the reference leaves them to its
+  compiler.
 """
 
 from __future__ import annotations
@@ -20,28 +24,25 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..device import resolve_device
+from ..incubate.nn.functional import fused_rotary_position_embedding
+from ..nn import functional as F
+from ..nn.functional.norm import rms_norm_composed
+from ..nn.layer import Embedding, Linear, RMSNorm
 from ..ops.quant_matmul import int8_matmul
 
 __all__ = [
-    "LlamaConfig", "LlamaForCausalLM", "LlamaGreedyGenerator", "DenseDecodeKV",
+    "LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
+    "LlamaForCausalLM", "load_reference_state_dict",
+    "LlamaGreedyGenerator", "DenseDecodeKV",
     "decode_weights", "quantize_decode_weights", "weights_from_numpy", "map_weights",
     "decode_matmul", "decode_rms", "rope_tables", "rope_rotate",
     "masked_attend", "decode_step", "resolve_device",
 ]
 
 _PROJ = ("q", "k", "v", "o", "gate", "up", "down")
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist. Entry
-    points default to ``"cuda"`` and run on the CPU only when asked."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available: paddle_tpu_torch runs on the GPU "
-            "by default; pass device='cpu' to run the plain CPU path")
-    return dev
 
 
 @dataclass
@@ -89,77 +90,124 @@ class LlamaConfig:
 
 
 # ---------------------------------------------------------------------------
-# parameter holder
+# training half
 # ---------------------------------------------------------------------------
 
 
-class _Weight(nn.Module):
-    """One parameter named ``weight``, initialised as the reference's
-    layers are: Linear ``[in, out]`` Xavier-uniform, Embedding
-    ``[vocab, hidden]`` normal(0, 1), RMSNorm ``[hidden]`` ones."""
-
-    def __init__(self, shape, init, gen, device, dtype):
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
-        w = torch.empty(shape, device=device, dtype=dtype)
-        if init == "xavier":
-            bound = (6.0 / (shape[0] + shape[1])) ** 0.5
-            w.uniform_(-bound, bound, generator=gen)
-        elif init == "normal":
-            w.normal_(0.0, 1.0, generator=gen)
+        self.config = config
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.hidden_size // config.num_attention_heads
+        hidden, kv = config.hidden_size, self.num_kv_heads * self.head_dim
+        mk = dict(bias_attr=False, device=device, dtype=dtype, generator=generator)
+        self.q_proj = Linear(hidden, hidden, **mk)
+        self.k_proj = Linear(hidden, kv, **mk)
+        self.v_proj = Linear(hidden, kv, **mk)
+        self.o_proj = Linear(hidden, hidden, **mk)
+
+    def forward(self, hidden_states, attention_mask=None, position_ids=None,
+                past_key_value=None):
+        """hidden_states [b, s, hidden]; RoPE over ``arange(s)`` (the
+        reference does not read ``position_ids``); causal flash attention
+        through the gate without a mask, the composed path with one."""
+        b, s = hidden_states.shape[0], hidden_states.shape[1]
+        q = self.q_proj(hidden_states).reshape(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
+        q, k, _ = fused_rotary_position_embedding(q, k, None,
+                                                  rotary_emb_base=self.config.rope_theta)
+        if past_key_value is not None:
+            k = torch.cat([past_key_value[0], k], dim=1)
+            v = torch.cat([past_key_value[1], v], dim=1)
+        causal = past_key_value is None
+        if self.config.use_flash_attention and attention_mask is None:
+            out, _ = F.flash_attention(q, k, v, causal=causal, training=self.training)
         else:
-            w.fill_(1.0)
-        self.weight = nn.Parameter(w, requires_grad=False)
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attention_mask,
+                is_causal=causal and attention_mask is None, training=self.training)
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
-class _Attention(nn.Module):
-    def __init__(self, c, lin):
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
-        hd = c.hidden_size // c.num_attention_heads
-        kv = c.num_key_value_heads * hd
-        self.q_proj = lin(c.hidden_size, c.hidden_size)
-        self.k_proj = lin(c.hidden_size, kv)
-        self.v_proj = lin(c.hidden_size, kv)
-        self.o_proj = lin(c.hidden_size, c.hidden_size)
+        mk = dict(bias_attr=False, device=device, dtype=dtype, generator=generator)
+        self.gate_proj = Linear(config.hidden_size, config.intermediate_size, **mk)
+        self.up_proj = Linear(config.hidden_size, config.intermediate_size, **mk)
+        self.down_proj = Linear(config.intermediate_size, config.hidden_size, **mk)
+
+    def forward(self, x):
+        return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
-class _MLP(nn.Module):
-    def __init__(self, c, lin):
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
-        self.gate_proj = lin(c.hidden_size, c.intermediate_size)
-        self.up_proj = lin(c.hidden_size, c.intermediate_size)
-        self.down_proj = lin(c.intermediate_size, c.hidden_size)
+        mk = dict(device=device, dtype=dtype, generator=generator)
+        self.self_attn = LlamaAttention(config, **mk)
+        self.mlp = LlamaMLP(config, **mk)
+        self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                                       device=device, dtype=dtype)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                                                device=device, dtype=dtype)
+        self._recompute = config.recompute
+
+    def _inner(self, hidden_states, attention_mask=None, position_ids=None):
+        residual = hidden_states
+        hidden_states = self.input_layernorm(hidden_states)
+        hidden_states = self.self_attn(hidden_states, attention_mask, position_ids)
+        hidden_states = residual + hidden_states
+        residual = hidden_states
+        hidden_states = self.post_attention_layernorm(hidden_states)
+        return residual + self.mlp(hidden_states)
+
+    def forward(self, hidden_states, attention_mask=None, position_ids=None):
+        """With ``config.recompute`` in training, the block's activations
+        are recomputed in the backward (``torch.utils.checkpoint``)."""
+        if self._recompute and self.training:
+            return checkpoint(self._inner, hidden_states, attention_mask, position_ids,
+                              use_reentrant=False)
+        return self._inner(hidden_states, attention_mask, position_ids)
 
 
-class _DecoderLayer(nn.Module):
-    def __init__(self, c, lin, norm):
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
-        self.self_attn = _Attention(c, lin)
-        self.mlp = _MLP(c, lin)
-        self.input_layernorm = norm()
-        self.post_attention_layernorm = norm()
-
-
-class _Model(nn.Module):
-    def __init__(self, c, lin, norm, embed):
-        super().__init__()
-        self.embed_tokens = embed
+        self.config = config
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size, device=device,
+                                      dtype=dtype, generator=generator)
         self.layers = nn.ModuleList(
-            [_DecoderLayer(c, lin, norm) for _ in range(c.num_hidden_layers)])
-        self.norm = norm()
+            [LlamaDecoderLayer(config, device=device, dtype=dtype, generator=generator)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device=device,
+                            dtype=dtype)
+
+    def forward(self, input_ids, attention_mask=None, position_ids=None):
+        hidden_states = self.embed_tokens(input_ids)
+        for layer in self.layers:
+            hidden_states = layer(hidden_states, attention_mask, position_ids)
+        return self.norm(hidden_states)
 
 
 class LlamaForCausalLM(nn.Module):
-    """Parameter holder with the reference's names and shapes:
+    """Llama with the reference's parameter names and shapes:
     ``llama.embed_tokens.weight`` ``[vocab, hidden]``,
     ``llama.layers.{i}.self_attn.{q,k,v,o}_proj.weight`` and
     ``mlp.{gate,up,down}_proj.weight`` ``[in, out]``,
     ``input_layernorm``/``post_attention_layernorm``/``llama.norm``
-    ``[hidden]``, and an untied ``lm_head.weight`` ``[hidden, vocab]``.
+    ``[hidden]``, and an untied ``lm_head.weight`` ``[hidden, vocab]`` (a
+    tied head multiplies by the embedding's transpose).
 
     Weights are drawn from a ``torch.Generator`` seeded with ``seed`` on
-    ``device``, with the reference's initializers. Serving reads them
-    through :func:`decode_weights`; tests load the reference's weights
-    with :meth:`load_decode_weights`.
+    ``device``, with the reference's initializers (Xavier-uniform
+    projections, N(0, 1) embedding, ones for norms). They are trainable;
+    serving reads them through :func:`decode_weights` under ``no_grad``.
+    Tests carry the reference's weights across with
+    :func:`load_reference_state_dict` or :meth:`load_decode_weights`.
     """
 
     def __init__(self, config: LlamaConfig, *, device="cuda",
@@ -167,28 +215,42 @@ class LlamaForCausalLM(nn.Module):
         super().__init__()
         if config.moe_num_experts > 0:
             raise NotImplementedError(
-                "MoE decoders wait for a later slice of the port")
+                "MoE decoders wait for the distributed slice of the port")
+        if config.sequence_parallel or config.context_parallel:
+            raise NotImplementedError(
+                "sequence and context parallelism wait for the distributed slice "
+                "of the port")
         self.config = config
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
+        self.llama = LlamaModel(config, device=dev, dtype=dtype, generator=gen)
+        self.lm_head = (None if config.tie_word_embeddings else
+                        Linear(config.hidden_size, config.vocab_size, bias_attr=False,
+                               device=dev, dtype=dtype, generator=gen))
 
-        def lin(i, o):
-            return _Weight((i, o), "xavier", gen, dev, dtype)
+    def forward(self, input_ids, attention_mask=None, position_ids=None, labels=None):
+        """input_ids [b, s] -> logits [b, s, vocab]; with ``labels`` [b, s],
+        ``(loss, logits)`` where loss is the mean cross entropy (f32)."""
+        hidden_states = self.llama(input_ids, attention_mask, position_ids)
+        if self.lm_head is None:
+            logits = torch.matmul(hidden_states, self.llama.embed_tokens.weight.T)
+        else:
+            logits = self.lm_head(hidden_states)
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                               labels.reshape(-1), reduction="mean")
+        return loss, logits
 
-        def norm():
-            return _Weight((config.hidden_size,), "ones", gen, dev, dtype)
+    def num_params(self) -> int:
+        return int(sum(p.numel() for p in self.parameters()))
 
-        embed = _Weight((config.vocab_size, config.hidden_size), "normal",
-                        gen, dev, dtype)
-        self.llama = _Model(config, lin, norm, embed)
-        self.lm_head = (None if config.tie_word_embeddings
-                        else lin(config.hidden_size, config.vocab_size))
-
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LlamaForCausalLM.forward (flash attention, loss) comes with the "
-            "training slice of the port; serving uses decode_step")
+    def flops_per_token(self, seq_len: int) -> float:
+        """Approximate training FLOPs per token (forward and backward,
+        ``6 N + 12 L hidden seq``), as the reference counts them."""
+        c = self.config
+        return 6.0 * self.num_params() + 12 * c.num_hidden_layers * c.hidden_size * seq_len
 
     @torch.no_grad()
     def load_decode_weights(self, w: dict) -> "LlamaForCausalLM":
@@ -212,6 +274,25 @@ def _projections(lyr):
     a, f = lyr.self_attn, lyr.mlp
     return (a.q_proj, a.k_proj, a.v_proj, a.o_proj,
             f.gate_proj, f.up_proj, f.down_proj)
+
+
+@torch.no_grad()
+def load_reference_state_dict(model: nn.Module, state: dict) -> nn.Module:
+    """Load ``{key: array}`` (the reference's ``model.state_dict()`` read as
+    numpy) into ``model`` by key, each array cast to its parameter's dtype
+    and moved to its device. A key that is missing or extra, or a shape that
+    differs, raises."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"state dict keys differ: missing {missing}, extra {extra}")
+    for key, target in own.items():
+        arr = torch.as_tensor(np.array(state[key]))
+        if tuple(arr.shape) != tuple(target.shape):
+            raise ValueError(f"{key}: shape {tuple(arr.shape)} != {tuple(target.shape)}")
+        target.copy_(arr.to(dtype=target.dtype, device=target.device))
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -310,11 +391,9 @@ def decode_matmul(x, w):
     return out.reshape(*lead, out.shape[-1])
 
 
-def decode_rms(x, weight, eps):
-    """RMSNorm with f32 accumulation, cast back before the weight."""
-    x32 = x.float()
-    ms = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(ms + eps)).to(x.dtype) * weight
+#: the decode path's RMSNorm: the composed form (f32 statistics, cast back
+#: before the weight), as the reference's ``decode_rms``
+decode_rms = rms_norm_composed
 
 
 def rope_tables(pos, theta, head_dim):

@@ -27,7 +27,7 @@ __all__ = ["KERNELS", "build", "launch_stream", "load", "nvcc_path"]
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("paged_attention", "quant_matmul")
+KERNELS = ("paged_attention", "quant_matmul", "flash_attention", "rms_norm")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

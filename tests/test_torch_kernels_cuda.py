@@ -6,7 +6,9 @@ Run them on the card with::
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
 They cover shapes chip_smoke.py does not: other block sizes, head dims
-and GQA ratios, f32 attention, ragged M and odd K/N for the GEMM, and the
+and GQA ratios, f32 attention, ragged M and odd K/N for the GEMM, flash
+attention at GQA ratios 1/4/8, head_dim 64 and 128, ragged S, causal or
+not, fp16, and its determinism, RMSNorm at ragged N and several H, and the
 checks that refuse what a kernel does not take.
 """
 
@@ -14,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_norm as fn
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import quant_matmul as qm
 
@@ -24,6 +28,25 @@ pytestmark = pytest.mark.cuda
 ATTN_ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 # GEMM: the same f32 sum in another order, rounded once to bf16.
 GEMM_RTOL, GEMM_ATOL_FRAC = 2.0 ** -7, 1e-3
+# flash attention, kernel vs plain on the same bf16/fp16 inputs, held tile
+# by tile (fa.tile_errors): over each 64 rows of one (batch, head),
+# ||got - want|| <= FLASH_TILE_RTOL (||want|| + FLASH_TILE_FLOOR sqrt(n))
+# for the tile's n elements. The limit scales with each tile's own norm, so
+# that an error confined to the late K tiles, the diagonal or the ragged
+# tail fails as surely as one in the first tiles; the floor (an RMS of
+# 1e-5) only matters where a tile is f32 rounding noise (dQ of a single
+# row). The forward rounds the probabilities to the input type on both
+# sides (the kernel against its running row maximum, the plain version
+# against the row's maximum) and the output once: about 3e-3 of a tile's
+# norm. The backward takes the kernel forward's lse and delta on both
+# sides: P and dS round at the same places from f32 values that differ by
+# summation order, then the results round once: about 1e-3. lse is f32 on
+# both sides.
+FLASH_TILE_RTOL, FLASH_TILE_FLOOR, FLASH_LSE_ATOL, FLASH_TILE = 1e-2, 1e-5, 1e-3, 64
+# RMSNorm: the same f32 arithmetic summed in another order, one rounding to
+# the storage type: one step of that type plus 1e-3 of the largest output.
+NORM_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+NORM_ATOL_FRAC = 1e-3
 
 
 @pytest.fixture
@@ -130,3 +153,118 @@ def test_engine_launches_both_kernels(dev):
         assert (qm.int8_matmul.launches > g0) == (wd == "int8")
         tokens[wd] = [r.generated for r in reqs]
     assert tokens["bf16"] != [] and tokens["int8"] != []
+
+
+def _flash_inputs(dev, B, S, H, Hk, hd, dtype, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, Hk, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, Hk, hd), generator=g, device=dev).to(dtype)
+    do = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def _assert_tiles_close(got, want):
+    worst, _ = fa.tile_errors(got, want, FLASH_TILE, FLASH_TILE_FLOOR)
+    assert worst <= FLASH_TILE_RTOL, worst
+
+
+@pytest.mark.parametrize("B,S,H,Hk,hd,causal,dtype", [
+    (1, 256, 8, 8, 128, True, torch.bfloat16),      # GQA ratio 1
+    (2, 200, 8, 2, 128, True, torch.bfloat16),      # ratio 4, ragged S
+    (1, 333, 16, 2, 64, False, torch.bfloat16),     # ratio 8, hd 64, not causal
+    (1, 64, 16, 8, 64, True, torch.bfloat16),       # one tile
+    (1, 129, 4, 1, 128, False, torch.float16),      # fp16, MQA, ragged
+    (1, 1, 2, 1, 64, True, torch.bfloat16),         # a single row
+])
+def test_flash_attention_matches_plain(dev, B, S, H, Hk, hd, causal, dtype):
+    q, k, v, do = _flash_inputs(dev, B, S, H, Hk, hd, dtype, seed=S + H + hd)
+    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == f0 + 1
+    assert out.dtype == dtype and out.shape == q.shape and lse.shape == (B, H, S)
+    _assert_tiles_close(out, ref_out)
+    assert (lse - ref_lse).abs().max().item() <= FLASH_LSE_ATOL
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    want = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == b0 + 1
+    for g_, w_, t in zip(got, want, (q, k, v)):
+        assert g_.dtype == dtype and g_.shape == t.shape
+        _assert_tiles_close(g_, w_)
+
+
+def test_flash_attention_autograd_and_determinism(dev):
+    q, k, v, do = _flash_inputs(dev, 1, 300, 8, 2, 128, torch.bfloat16, seed=3)
+    grads = []
+    for _ in range(2):
+        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        out = fa.flash_attention(qs, ks, vs, causal=True)
+        out.backward(do)
+        grads.append((out.detach(), qs.grad, ks.grad, vs.grad))
+    torch.cuda.synchronize()
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    # through the gate: f32 and sq != sk stay composed (None)
+    assert fa.flash_attention_bsnd(q.float(), k.float(), v.float(), True) is None
+    assert fa.flash_attention_bsnd(q[:, :10], k, v, False) is None
+    out = fa.flash_attention_bsnd(q, k, v, True)
+    assert torch.equal(out, grads[0][0])
+
+
+def test_flash_attention_refuses(dev):
+    q, k, v, _ = _flash_inputs(dev, 1, 64, 4, 2, 96, torch.bfloat16, seed=1)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q, k, v, True)
+    q, k, v, _ = _flash_inputs(dev, 1, 64, 4, 2, 64, torch.bfloat16, seed=1)
+    padded = torch.zeros((1, 64, 4, 68), dtype=torch.bfloat16, device=dev)[..., :64]
+    padded.copy_(q)
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention_fwd(padded, k, v, True)
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention_fwd(q.transpose(1, 3).contiguous().transpose(1, 3), k, v, True)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.float(), k.float(), v.float(), True)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_fwd(q[:, :, :3], k, v, True)
+
+
+@pytest.mark.parametrize("N,H,dtype", [
+    (8192, 4096, torch.bfloat16), (37, 4096, torch.bfloat16), (1000, 1024, torch.bfloat16),
+    (5, 1024, torch.float32), (3, 1001, torch.bfloat16), (1, 4096, torch.float16),
+])
+def test_rms_norm_matches_plain(dev, N, H, dtype):
+    g = torch.Generator(device=dev)
+    g.manual_seed(N + H)
+    x = (torch.randn((N, H), generator=g, device=dev) * 3).to(dtype)
+    w = torch.rand((H,), generator=g, device=dev).to(dtype) + 0.5
+    do = torch.randn((N, H), generator=g, device=dev).to(dtype)
+    f0, b0 = fn.rms_norm_fwd.launches, fn.rms_norm_bwd_dx.launches
+    out, inv = fn.rms_norm_fwd(x, w, 1e-6)
+    ref_out, ref_inv = fn.rms_norm_fwd_ref(x, w, 1e-6)
+    dx = fn.rms_norm_bwd_dx(x, w, inv, do)
+    ref_dx = fn.rms_norm_bwd_dx_ref(x, w, ref_inv, do)
+    torch.cuda.synchronize()
+    assert fn.rms_norm_fwd.launches == f0 + 1 and fn.rms_norm_bwd_dx.launches == b0 + 1
+    rtol = NORM_RTOL.get(dtype, 2.0 ** -10)
+    for got, want in ((out, ref_out), (dx, ref_dx)):
+        assert got.dtype == dtype and got.shape == x.shape
+        diff = (got.float() - want.float()).abs()
+        tol = rtol * want.float().abs() + NORM_ATOL_FRAC * want.float().abs().max()
+        assert bool((diff <= tol).all()), diff.max().item()
+    assert torch.allclose(inv, ref_inv, rtol=1e-5, atol=0)
+
+
+def test_rms_norm_autograd_and_refusal(dev):
+    x = torch.randn((64, 256), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.ones((256,), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    fn.rms_norm_2d(x, w, 1e-6).float().square().sum().backward()
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape
+    with pytest.raises(ValueError):
+        fn.rms_norm_fwd(x.detach()[:, ::2], w.detach()[:128], 1e-6)  # strided
+    with pytest.raises(TypeError):
+        fn.rms_norm_fwd(x.detach(), w.detach().float(), 1e-6)

@@ -54,13 +54,18 @@ def test_parameter_names_and_layouts_mirror_reference(models):
     assert tuple(names["lm_head.weight"].shape) == (32, VOCAB)
     want = np.asarray(model.llama.layers[1].mlp.gate_proj.weight._data)
     np.testing.assert_array_equal(
-        names["llama.layers.1.mlp.gate_proj.weight"].numpy(), want)
+        names["llama.layers.1.mlp.gate_proj.weight"].detach().numpy(), want)
 
 
 def test_training_forward_waits_for_its_slice(models):
-    _, pmodel = models
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pmodel(torch.zeros((1, 4), dtype=torch.long))
+    """The training forward has landed: on the same weights its logits match
+    the reference model's forward (composed attention, f32)."""
+    model, pmodel = models
+    ids = np.random.RandomState(3).randint(0, VOCAB, (2, 7)).astype(np.int64)
+    want = model(paddle.to_tensor(ids)).numpy()
+    got = pmodel(torch.from_numpy(ids)).detach().numpy()
+    assert got.shape == (2, 7, VOCAB)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=LOGITS_ATOL)
 
 
 @pytest.mark.parametrize("theta,hd", [(10000.0, 8), (500000.0, 128)])

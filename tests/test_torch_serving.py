@@ -95,7 +95,7 @@ def test_matches_dense_generator_oracle(zoo):
 class TestPagedKVCache:
     def _cache(self, num_blocks=10):
         return PagedKVCache(2, 2, 8, num_blocks=num_blocks, block_size=4,
-                            num_lanes=3, max_blocks_per_lane=4)
+                            num_lanes=3, max_blocks_per_lane=4, device="cpu")
 
     def test_block_zero_reserved(self):
         kv = self._cache()
@@ -131,7 +131,7 @@ class TestPagedKVCache:
             kv.allocate_lane(1, 17)
         with pytest.raises(ValueError):
             PagedKVCache(2, 2, 8, num_blocks=1, block_size=4, num_lanes=1,
-                         max_blocks_per_lane=1)
+                         max_blocks_per_lane=1, device="cpu")
 
     def test_device_tables_copy_with_pinned_dtypes(self):
         kv = self._cache()
