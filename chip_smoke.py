@@ -39,12 +39,28 @@ Phases, each printing one line of numbers:
    losses, exact launch counts (flash forward and backward once per layer
    per step, RMSNorm forward and backward 2 L + 1 times), step time,
    tokens/s, model FLOPs share of bf16 peak, peak memory, and one profiled
-   step's device-busy share.
+   step's device-busy share;
+8. fine-tuning kernels: the int8 GEMM's tensor-core forward (M > 64) and
+   its dX against their plain versions in bf16 at the seven Llama-3-8B
+   projection shapes with M = 8192 tokens and a ragged M = 1000, and
+   SwiGLU forward and backward at [8192, 14336] and ragged sizes; each
+   timed beside its bound, its plain version and a PyTorch yardstick;
+9. one int8 fine-tuning step, kernels against plain: phase 6 with every
+   projection swapped for a frozen int8 ``QuantizedLinear`` (the same int8
+   weights and scales on both paths), the int8 forward and dX launched
+   exactly 7 L times;
+10. int8 fine-tuning: phase 7's run with the projections int8-frozen
+   (embedding, norms and head trained): finite losses, exact launch counts
+   (int8 forward and dX 7 L per step, flash and RMSNorm as in phase 7),
+   step time, tokens/s, model FLOPs share, peak memory, trainable
+   parameters, int8 weight bytes and one profiled step's device-busy share.
 
 Then the card's name and power limit again, one JSON line with every
 kernel's numbers (launches from the main path of its own phase: the
 serving runs for the serving kernels, the three timed training steps for
-the training kernels), and last ``{"ok": true, "device": {...}}``. Any failure
+the training kernels, the three timed fine-tuning steps for the int8
+tensor-core kernels, and phase 8 for SwiGLU, which no model path calls),
+and last ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
 weights, the kernel inputs and the request trace.
@@ -118,6 +134,14 @@ NORM_RTOL, NORM_ATOL_FRAC = 2.0 ** -7, 1e-3
 #   gradient's limit of its tensor's largest |m|, v = (1 - b2) g^2 within
 #   2 f + f^2 of its largest |v| (f the gradient's limit).
 STEP_LOSS_RTOL, STEP_GRAD_FRAC = 1e-2, 5e-2
+# - SwiGLU: the same f32 formula (the sigmoid from two exp routines, a few
+#   f32 ulps apart), one rounding to bf16: one bf16 step (2^-7 relative)
+#   plus 1e-3 of the largest output.
+SWIGLU_RTOL, SWIGLU_ATOL_FRAC = 2.0 ** -7, 1e-3
+# - the int8 tensor-core forward and dX: GEMM_RTOL and GEMM_ATOL_FRAC above.
+#   Both sides take the same exact products (dX: the same bf16-rounded
+#   dO * bf16(s)) and differ only in summation order; the plain versions'
+#   f32 products stay full f32 (TF32 off, checked).
 
 # the serving trace: more requests than the 8 lanes, prompts of 16-600
 # tokens (chunked prefill of 16), 32 new tokens each
@@ -137,6 +161,11 @@ TRAIN_STEPS = 3
 CHECK_SEQ = 2048
 CHECK_LAYERS = 2
 LR = 3e-4
+
+# int8 fine-tuning: the kernel checks' token counts (the training shape and a
+# ragged one), and SwiGLU's cases [N, H]
+INT8_TRAIN_M = (TRAIN_SEQ, 1000)
+SWIGLU_CASES = ((TRAIN_SEQ, 14336), (1000, 14336), (37, 1001))
 
 # Llama-3-8B decode shapes: (name, K, N, launches per decode step)
 GEMM_SHAPES = (("q", 4096, 4096, 32), ("k", 4096, 1024, 32), ("v", 4096, 1024, 32),
@@ -412,6 +441,9 @@ def serve(engine, prompts, max_new: int, phase: str):
 # device kernels of a training step by kind: (kind, name substrings)
 KERNEL_KINDS = (("flash attention (port)", ("flash_fwd_kernel", "flash_bwd_")),
                 ("rms norm (port)", ("rms_fwd_kernel", "rms_bwd_dx_kernel")),
+                ("int8 forward (port)", ("int8_fwd_mma_kernel", "int8_gemm_kernel")),
+                ("int8 dX (port)", ("int8_dx_mma_kernel",)),
+                ("swiglu (port)", ("swiglu_fwd_kernel", "swiglu_bwd_kernel")),
                 ("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
                 ("softmax / cross entropy", ("softmax", "nll_loss", "log_softmax")),
                 ("reductions", ("reduce_kernel",)),
@@ -790,39 +822,213 @@ def check_rms_norm(gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: fine-tuning kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def hold_gemm(label, got, want) -> float:
+    """The int8 GEMM limit of phase 2 elementwise; returns the max abs error."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    tol = GEMM_RTOL * want.abs() + GEMM_ATOL_FRAC * want.abs().max()
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"{label} differs from its plain version: max abs err "
+                             f"{diff.max().item()}")
+    return diff.max().item()
+
+
+def check_int8_train(gen):
+    """The tensor-core forward and dX at the seven projection shapes of one
+    Llama-3-8B layer, M = 8192 tokens and a ragged M, against the plain
+    versions; timed at M = 8192 beside the bound, the plain version and the
+    cuBLAS yardstick (``torch.matmul`` on the weights cast to bf16). Returns
+    the sums over one layer's seven projections."""
+    import torch
+
+    from paddle_tpu_torch.ops import quant_matmul as qm
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    say("int8-kernels", allow_tf32=tf32)
+    if tf32:
+        raise AssertionError("TF32 matmuls are on: the plain versions would not be full f32")
+    res = {key: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                 "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0} for key in ("fwd", "dx")}
+    for name, K, N, _ in GEMM_SHAPES[:7]:
+        w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        s = torch.rand((N,), generator=gen, device="cuda") * 0.02 + 1e-3
+        for M in INT8_TRAIN_M:
+            x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+            do = torch.randn((M, N), generator=gen, device="cuda").bfloat16()
+            calls = {
+                "fwd": (lambda i: qm.int8_matmul_large_m(x, w, s),
+                        lambda i: qm.int8_matmul_ref(x, w, s),
+                        lambda i: torch.matmul(x, w.to(torch.bfloat16)) * s,
+                        M * K * 2 + K * N + N * 4 + M * N * 2),
+                "dx": (lambda i: qm.int8_matmul_dx(do, w, s),
+                       lambda i: qm.int8_matmul_dx_ref(do, w, s),
+                       lambda i: torch.matmul(do * s.bfloat16(), w.to(torch.bfloat16).T),
+                       M * N * 2 + K * N + N * 4 + M * K * 2)}
+            nums = {}
+            for key, (kern, plain, library, nbytes) in calls.items():
+                err = hold_gemm(f"int8 {key} {name} M={M}", kern(0), plain(0))
+                torch.cuda.synchronize()
+                r = res[key]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                nums[f"{key}_err"] = err
+                if M != TRAIN_SEQ:
+                    continue
+                flops = 2 * M * K * N
+                b_ms, _ = bound_ms(nbytes, flops)
+                ms = device_ms(kern, 1, 10)
+                plain_ms = device_ms(plain, 1, 2, 1)
+                lib_ms = device_ms(library, 1, 5)
+                for k_, v_ in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                               ("library_ms", lib_ms), ("bytes", nbytes), ("flops", flops)):
+                    r[k_] += v_
+                nums.update({f"{key}_ms": round(ms, 5), f"{key}_bound_ms": round(b_ms, 5),
+                             f"{key}_plain_ms": round(plain_ms, 5),
+                             f"{key}_library_ms": round(lib_ms, 5),
+                             f"{key}_TFLOPs": round(flops / ms / 1e9, 1)})
+            say("int8-kernels", shape=name, M=M, K=K, N=N, **nums)
+            del x, do
+        del w, s
+        torch.cuda.empty_cache()
+    for key, wrapper in (("fwd", "int8_matmul_large_m"), ("dx", "int8_matmul_dx")):
+        r = res[key]
+        r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"))[1]
+        r["at"] = (f"sum over the seven projections of one Llama-3-8B layer at M={TRAIN_SEQ} "
+                   "tokens, bf16 (max_abs_err also over M=1000); library: torch.matmul on "
+                   "the weights cast to bf16" + (" and dO * bf16(s)" if key == "dx" else ""))
+        say("int8-kernels", kernel=wrapper, case="one_layer_M8192",
+            **{k_: (round(v_, 5) if isinstance(v_, float) else v_) for k_, v_ in r.items()
+               if k_ != "at"})
+    return res["fwd"], res["dx"]
+
+
+def check_swiglu(gen):
+    """SwiGLU forward and backward against the plain versions at every case,
+    timed at [8192, 14336]. No single PyTorch call computes either: the
+    yardstick is ``F.silu(a) * b`` (two calls) and its autograd backward.
+    Returns the numbers and the launches of this phase."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import fused_norm as fn
+
+    fn.swiglu_fwd.launches = fn.swiglu_bwd.launches = 0
+    res = {}
+    err_fwd = err_bwd = 0.0
+    for N, H in SWIGLU_CASES:
+        a = (torch.randn((N, H), generator=gen, device="cuda") * 3).bfloat16()
+        b = torch.randn((N, H), generator=gen, device="cuda").bfloat16()
+        do = torch.randn((N, H), generator=gen, device="cuda").bfloat16()
+        pairs = ((fn.swiglu_fwd(a, b), fn.swiglu_fwd_ref(a, b), "forward"),
+                 *zip(fn.swiglu_bwd(a, b, do), fn.swiglu_bwd_ref(a, b, do), ("da", "db")))
+        torch.cuda.synchronize()
+        errs = []
+        for got, want, what in pairs:
+            diff = (got.float() - want.float()).abs()
+            tol = SWIGLU_RTOL * want.float().abs() + SWIGLU_ATOL_FRAC * want.float().abs().max()
+            if not bool((diff <= tol).all()):
+                raise AssertionError(f"SwiGLU {what} [{N}, {H}] differs from its plain "
+                                     f"version: max abs err {diff.max().item()}")
+            errs.append(diff.max().item())
+        err_fwd, err_bwd = max(err_fwd, errs[0]), max(err_bwd, *errs[1:])
+        nums = dict(N=N, H=H, fwd_err=errs[0], da_err=errs[1], db_err=errs[2])
+        if (N, H) == SWIGLU_CASES[0]:
+            al = a.detach().requires_grad_(True)
+            bl = b.detach().requires_grad_(True)
+            lib_out = F.silu(al) * bl
+            n = N * H
+            res["fwd"] = {
+                "ms": device_ms(lambda i: fn.swiglu_fwd(a, b), 1),
+                "plain_ms": device_ms(lambda i: fn.swiglu_fwd_ref(a, b), 1, 5),
+                "library_ms": device_ms(lambda i: F.silu(a) * b, 1),
+                **dict(zip(("bound_ms", "bound_by"), bound_ms(3 * n * 2, 6 * n))),
+                "at": f"[{N}, {H}] bf16; library: F.silu(a) * b, two PyTorch calls; "
+                      "launches from the kernel checks (no model path calls it)"}
+            res["bwd"] = {
+                "ms": device_ms(lambda i: fn.swiglu_bwd(a, b, do), 1),
+                "plain_ms": device_ms(lambda i: fn.swiglu_bwd_ref(a, b, do), 1, 5),
+                "library_ms": eager_ms(lambda i: torch.autograd.grad(
+                    lib_out, (al, bl), do, retain_graph=True), 1, 10, 2),
+                **dict(zip(("bound_ms", "bound_by"), bound_ms(5 * n * 2, 12 * n))),
+                "at": f"[{N}, {H}] bf16; library: torch.autograd.grad through "
+                      "F.silu(a) * b (eager, its two backward calls); launches from the "
+                      "kernel checks (no model path calls it)"}
+            for key in ("fwd", "bwd"):
+                nums.update({f"{k}_{key}": (round(v, 5) if isinstance(v, float) else v)
+                             for k, v in res[key].items()
+                             if k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+            del al, bl, lib_out
+        say("int8-kernels", kernel="swiglu", **nums)
+        del a, b, do, pairs
+        torch.cuda.empty_cache()
+    res["fwd"]["max_abs_err"], res["bwd"]["max_abs_err"] = err_fwd, err_bwd
+    return res["fwd"], res["bwd"], {"swiglu_fwd": fn.swiglu_fwd.launches,
+                                    "swiglu_bwd": fn.swiglu_bwd.launches}
+
+
+# ---------------------------------------------------------------------------
 # phases 6-7: training
 # ---------------------------------------------------------------------------
 
 def training_wrappers() -> dict:
-    """{name: the kernel wrapper} of the training kernels."""
+    """{name: the kernel wrapper} of the training and fine-tuning kernels
+    (the int8 weight stream too, which a training step must not launch)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import quant_matmul as qm
 
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
-            "rms_norm_fwd": fn.rms_norm_fwd, "rms_norm_bwd_dx": fn.rms_norm_bwd_dx}
+            "rms_norm_fwd": fn.rms_norm_fwd, "rms_norm_bwd_dx": fn.rms_norm_bwd_dx,
+            "int8_matmul": qm.int8_matmul, "int8_matmul_large_m": qm.int8_matmul_large_m,
+            "int8_matmul_dx": qm.int8_matmul_dx}
 
 
-def expected_launches(layers: int) -> dict:
+def expected_launches(layers: int, int8: bool = False) -> dict:
     """Per training step: flash forward and backward once per layer,
     RMSNorm forward and backward twice per layer and once for the final
-    norm."""
+    norm; with int8-frozen projections, the tensor-core forward and dX
+    once per projection (7 per layer), and never the weight stream."""
+    proj = 7 * layers if int8 else 0
     return {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
-            "rms_norm_fwd": 2 * layers + 1, "rms_norm_bwd_dx": 2 * layers + 1}
+            "rms_norm_fwd": 2 * layers + 1, "rms_norm_bwd_dx": 2 * layers + 1,
+            "int8_matmul": 0, "int8_matmul_large_m": proj, "int8_matmul_dx": proj}
+
+
+def quantize_projections(model):
+    """Swap every projection of a Llama for a frozen int8 ``QuantizedLinear``
+    (the fine-tuning recipe: the embedding, the norms and the head stay
+    trainable). Returns the number swapped."""
+    from paddle_tpu_torch.nn.quant import QuantizedLinear
+
+    n = 0
+    for lyr in model.llama.layers:
+        for block, names in ((lyr.self_attn, ("q_proj", "k_proj", "v_proj", "o_proj")),
+                             (lyr.mlp, ("gate_proj", "up_proj", "down_proj"))):
+            for name in names:
+                setattr(block, name, QuantizedLinear(getattr(block, name)))
+                n += 1
+    return n
 
 
 @contextlib.contextmanager
 def plain_kernels():
     """Route the training ops' autograd functions to the plain versions for
-    the reference path of phase 6. The package has no such switch: a CUDA
-    tensor always reaches the kernel."""
+    the reference path of phases 6 and 9. The package has no such switch: a
+    CUDA tensor always reaches the kernel."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import quant_matmul as qm
 
     swaps = ((fa, "flash_attention_fwd", fa.flash_attention_fwd_ref),
              (fa, "flash_attention_bwd", fa.flash_attention_bwd_ref),
              (fn, "rms_norm_fwd", fn.rms_norm_fwd_ref),
-             (fn, "rms_norm_bwd_dx", fn.rms_norm_bwd_dx_ref))
+             (fn, "rms_norm_bwd_dx", fn.rms_norm_bwd_dx_ref),
+             (qm, "int8_matmul", qm.int8_matmul_ref),
+             (qm, "int8_matmul_dx", qm.int8_matmul_dx_ref))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -852,17 +1058,22 @@ def make_train_step(model):
     return TrainStep(model, opt, lambda x, y: model(x, labels=y)[0])
 
 
-def check_train_step(seed: int):
-    """Phase 6: the same 2-layer model and batch through the kernels and
-    through the plain versions."""
+def check_train_step(seed: int, int8: bool = False):
+    """Phase 6 (phase 9 with ``int8``: every projection int8-frozen): the
+    same 2-layer model and batch through the kernels and through the plain
+    versions."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
+    phase = "int8-step-check" if int8 else "train-step-check"
     cfg = LlamaConfig.llama3_8b(num_hidden_layers=CHECK_LAYERS)
     kern = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
     plain = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed + 1)
+    if int8:
+        quantize_projections(kern)
+        quantize_projections(plain)
     plain.load_state_dict(kern.state_dict())
     ids, labels = token_batch(np.random.RandomState(seed + 2), CHECK_SEQ, cfg.vocab_size)
     wrappers = training_wrappers()
@@ -874,7 +1085,8 @@ def check_train_step(seed: int):
             loss.backward()
         torch.cuda.synchronize()
         launched = {k: w.launches - before[k] for k, w in wrappers.items()}
-        want = expected_launches(CHECK_LAYERS) if name == "kernel" else dict.fromkeys(wrappers, 0)
+        want = (expected_launches(CHECK_LAYERS, int8) if name == "kernel"
+                else dict.fromkeys(wrappers, 0))
         if launched != want:
             raise AssertionError(f"{name} path launched {launched}, expected {want}")
         grads = {n: p.grad for n, p in model.named_parameters()}
@@ -892,6 +1104,7 @@ def check_train_step(seed: int):
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     if not loss_rel <= STEP_LOSS_RTOL:
         raise AssertionError(f"loss: kernel path {loss_k}, plain path {loss_p}")
+    n_trainable = len(grads_p)
     del grads_k, grads_p, results
     steps, losses = {}, {}
     for name, model in (("kernel", kern), ("plain", plain)):
@@ -914,7 +1127,7 @@ def check_train_step(seed: int):
             if not (math.isfinite(frac) and frac <= tol):
                 raise AssertionError(f"after one TrainStep, AdamW's {key} of {n} differs by "
                                      f"{frac} of its largest magnitude (tol {tol})")
-    say("train-step-check", layers=CHECK_LAYERS, seq=CHECK_SEQ, loss_kernel=loss_k,
+    say(phase, layers=CHECK_LAYERS, seq=CHECK_SEQ, trainable=n_trainable, loss_kernel=loss_k,
         loss_plain=loss_p, loss_rel_diff=loss_rel, loss_tol=STEP_LOSS_RTOL,
         worst_grad_frac=worst[0], worst_grad=worst[1], grad_tol=STEP_GRAD_FRAC,
         trainstep_loss_kernel=losses["kernel"], trainstep_loss_plain=losses["plain"],
@@ -924,28 +1137,39 @@ def check_train_step(seed: int):
     torch.cuda.empty_cache()
 
 
-def train(seed: int) -> dict:
-    """Phase 7: the 4-layer training run. Returns the launch counts of the
-    three timed steps."""
+def train(seed: int, int8: bool = False) -> dict:
+    """Phase 7 (phase 10 with ``int8``: every projection int8-frozen, the
+    embedding, norms and head trained): the 4-layer run. Returns the launch
+    counts of the three timed steps."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn.quant import QuantizedLinear
 
+    phase = "finetune" if int8 else "train"
     cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    extra = {}
+    if int8:
+        quantize_projections(model)
+        frozen = [m for m in model.modules() if isinstance(m, QuantizedLinear)]
+        extra = dict(int8_projections=len(frozen),
+                     int8_weight_bytes=sum(m.weight.numel() for m in frozen),
+                     scale_bytes=sum(4 * m.weight_scale.numel() for m in frozen))
     torch.cuda.synchronize()
     n_params = model.num_params()
     n_embed = model.llama.embed_tokens.weight.numel()
-    say("train", layers=TRAIN_LAYERS, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
-        seq=TRAIN_SEQ, params=n_params, model_init_s=round(time.perf_counter() - t0, 2))
+    say(phase, layers=TRAIN_LAYERS, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
+        seq=TRAIN_SEQ, trainable_params=n_params, **extra,
+        model_init_s=round(time.perf_counter() - t0, 2))
     step = make_train_step(model)
     rng = np.random.RandomState(seed + 3)
     wrappers = training_wrappers()
-    per_step = expected_launches(TRAIN_LAYERS)
+    per_step = expected_launches(TRAIN_LAYERS, int8)
 
     def run(n_steps):
         for w in wrappers.values():
@@ -962,9 +1186,9 @@ def train(seed: int) -> dict:
         counts = {k: w.launches for k, w in wrappers.items()}
         want = {k: n_steps * v for k, v in per_step.items()}
         if counts != want:
-            raise AssertionError(f"training launched {counts}, expected {want}")
+            raise AssertionError(f"{phase} launched {counts}, expected {want}")
         if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"training losses are not finite: {losses}")
+            raise AssertionError(f"{phase} losses are not finite: {losses}")
         return losses, times, counts
 
     warm_losses, warm_times, _ = run(1)
@@ -973,8 +1197,14 @@ def train(seed: int) -> dict:
     tokens = TRAIN_SEQ
     attn_flops = TRAIN_LAYERS * 3.5 * flash_counts(True, 1, TRAIN_SEQ, cfg.num_attention_heads,
                                                    cfg.num_key_value_heads, 128)[2]
-    model_flops = 6 * (n_params - n_embed) * tokens + attn_flops
-    say("train", warmup_step_ms=round(1e3 * warm_times[0], 3), warmup_loss=warm_losses[0],
+    if int8:
+        # frozen projections: forward and dX, no dW (4 FLOPs a weight and
+        # token); the head trains (6); the embedding is a gather
+        head = model.lm_head.weight.numel()
+        model_flops = (4 * extra["int8_weight_bytes"] + 6 * head) * tokens + attn_flops
+    else:
+        model_flops = 6 * (n_params - n_embed) * tokens + attn_flops
+    say(phase, warmup_step_ms=round(1e3 * warm_times[0], 3), warmup_loss=warm_losses[0],
         step_ms=[round(1e3 * t, 3) for t in times], step_ms_mean=round(1e3 * step_s, 3),
         losses=losses, tokens_per_s=round(tokens / step_s, 1),
         model_tflop_per_step=round(model_flops / 1e12, 3),
@@ -990,13 +1220,13 @@ def train(seed: int) -> dict:
         wall = time.perf_counter() - s0
     per_kernel, ops = kernel_times(prof)
     busy = sum(per_kernel.values()) / 1e6
-    say("train", profiled_step_ms=round(1e3 * wall, 3),
+    say(phase, profiled_step_ms=round(1e3 * wall, 3),
         device_busy_ms=round(1e3 * busy, 3),
         device_busy_share=round(busy / wall, 4) if busy else "not measured",
         device_ops=ops)
-    say("train", device_ms_by_kind=json.dumps(by_kind(per_kernel)))
+    say(phase, device_ms_by_kind=json.dumps(by_kind(per_kernel)))
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  train top kernel: {us / 1e3:.4f} ms/step {name[:90]}", flush=True)
+        print(f"  {phase} top kernel: {us / 1e3:.4f} ms/step {name[:90]}", flush=True)
     del step, model
     torch.cuda.empty_cache()
     return counts
@@ -1027,7 +1257,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops.paged_attention import paged_decode_attention
-    from paddle_tpu_torch.ops.quant_matmul import int8_matmul
+    from paddle_tpu_torch.ops.quant_matmul import int8_matmul, int8_matmul_large_m
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -1076,7 +1306,7 @@ def main(argv=None) -> int:
                          for leaf in lw.values()
                          for t in (leaf.values() if isinstance(leaf, dict) else (leaf,))))
     paged_decode_attention.launches = 0
-    int8_matmul.launches = 0
+    int8_matmul.launches = int8_matmul_large_m.launches = 0
     int8_reqs = serve(engine, prompts, NEW_TOKENS, "int8-engine")
     attn_launches_int8 = paged_decode_attention.launches
     gemm_launches = int8_matmul.launches
@@ -1084,9 +1314,13 @@ def main(argv=None) -> int:
              for a, b in zip(r1.generated, r2.generated)]
     say("int8-engine", paged_attention_launches=attn_launches_int8,
         int8_matmul_launches=gemm_launches,
+        int8_matmul_large_m_launches=int8_matmul_large_m.launches,
         greedy_top1_agreement_vs_bf16=round(sum(agree) / len(agree), 4))
     if attn_launches_int8 <= 0 or gemm_launches <= 0:
         raise AssertionError("the int8 engine did not launch both kernels")
+    if int8_matmul_large_m.launches:
+        raise AssertionError("the int8 engine launched the large-M GEMM: serving runs "
+                             "M <= 64 on the weight stream")
     profile_decode(engine, cfg.vocab_size, args.seed, "int8-engine")
     del engine, model
     torch.cuda.empty_cache()
@@ -1095,6 +1329,10 @@ def main(argv=None) -> int:
     norm_fwd, norm_bwd = check_rms_norm(gen)
     check_train_step(args.seed)
     train_launches = train(args.seed)
+    int8_fwd, int8_dx = check_int8_train(gen)
+    swiglu_fwd, swiglu_bwd, swiglu_launches = check_swiglu(gen)
+    check_train_step(args.seed, int8=True)
+    finetune_launches = train(args.seed, int8=True)
 
     kernels = [
         {"name": "paged_decode_attention", "route": "cuda",
@@ -1107,7 +1345,7 @@ def main(argv=None) -> int:
                "from the bf16 engine run"},
         {"name": "int8_matmul", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
-         "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:116",
+         "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:117",
          "launches": gemm_launches, "max_abs_err": gemm["max_abs_err"],
          "ms": gemm["ms"], "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
          "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"],
@@ -1126,6 +1364,21 @@ def main(argv=None) -> int:
             "launches": train_launches[wrapper], **nums})
         kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                               f"({TRAIN_LAYERS} layers)")
+    for name, source, replaces, nums, launches in (
+            ("int8_matmul_large_m", "quant_matmul.cu", "quant_matmul.py:117", int8_fwd,
+             finetune_launches["int8_matmul_large_m"]),
+            ("int8_matmul_dx", "quant_matmul.cu", "quant_matmul.py:143", int8_dx,
+             finetune_launches["int8_matmul_dx"]),
+            ("swiglu_fwd", "swiglu.cu", "fused_norm.py:152", swiglu_fwd,
+             swiglu_launches["swiglu_fwd"]),
+            ("swiglu_bwd", "swiglu.cu", "fused_norm.py:152", swiglu_bwd,
+             swiglu_launches["swiglu_bwd"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{source}",
+            "replaces": f"paddle_tpu/ops/pallas/{replaces}", "launches": launches, **nums})
+        if name.startswith("int8"):
+            kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed int8 fine-tuning "
+                                  f"steps ({TRAIN_LAYERS} layers)")
     say("done", total_s=round(time.perf_counter() - t_start, 1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

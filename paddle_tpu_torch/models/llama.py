@@ -335,12 +335,12 @@ def map_weights(tree: dict, fn) -> dict:
             "layers": [{k: leaf(v) for k, v in lw.items()} for lw in tree["layers"]]}
 
 
-def weights_from_numpy(tree, device="cpu", dtype=None):
+def weights_from_numpy(tree, device="cuda", dtype=None):
     """A :func:`decode_weights` tree of numpy arrays (e.g. the reference's
     ``decode_weights(model)`` read with ``np.asarray``) as torch tensors
     on ``device``; floating arrays are cast to ``dtype`` when given.
     Quantized ``{"qw", "scale"}`` leaves keep their int8/f32 types."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def leaf(a):
         t = torch.tensor(np.asarray(a))

@@ -1,12 +1,18 @@
-"""Fused RMSNorm: the Hopper kernels' wrappers, their plain versions and
-the autograd op.
+"""Fused RMSNorm and SwiGLU: the Hopper kernels' wrappers, their plain
+versions and the autograd ops.
 
-Counterpart of ``paddle_tpu/ops/pallas/fused_norm.py:79`` ``rms_norm_2d``
-(forward ``_rms_fwd_kernel`` :45, backward dx ``_rms_bwd_dx_kernel`` :55;
-dW is a plain row sum there and here). On a CUDA tensor each wrapper
-launches its kernel of ``csrc/rms_norm.cu`` or raises; on a CPU tensor it
-runs the plain version, which repeats the kernel's arithmetic: statistics
-and the product with the weight in f32, one rounding to the storage type.
+Counterpart of ``paddle_tpu/ops/pallas/fused_norm.py``:
+
+- :79 ``rms_norm_2d`` (forward ``_rms_fwd_kernel`` :45, backward dx
+  ``_rms_bwd_dx_kernel`` :55; dW is a plain row sum there and here),
+  kernels in ``csrc/rms_norm.cu``;
+- :152 ``swiglu_2d`` (``_swiglu_fwd_kernel`` :135, ``_swiglu_bwd_kernel``
+  :141), kernels in ``csrc/swiglu.cu``. Like the reference's, it is for
+  explicit use: the Llama MLP and ``nn.functional.swiglu`` stay composed.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs the plain version, which repeats the kernel's arithmetic:
+f32 inside, one rounding of each output to the storage type.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ import torch
 from . import _build
 
 __all__ = ["rms_norm_2d", "rms_norm_fwd", "rms_norm_fwd_ref", "rms_norm_bwd_dx",
-           "rms_norm_bwd_dx_ref", "rms_norm_dw", "DTYPES"]
+           "rms_norm_bwd_dx_ref", "rms_norm_dw", "swiglu_2d", "swiglu_fwd", "swiglu_fwd_ref",
+           "swiglu_bwd", "swiglu_bwd_ref", "DTYPES"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -48,8 +55,8 @@ def rms_norm_dw(x, inv, dout, dtype):
     return (dout.float() * (x.float() * inv[:, None])).sum(dim=0).to(dtype)
 
 
-def _fn(name, argtypes):
-    fn = getattr(_build.load("rms_norm"), name)
+def _fn(name, argtypes, lib="rms_norm"):
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -145,3 +152,99 @@ class _RMSNorm2D(torch.autograd.Function):
 def rms_norm_2d(x, w, eps: float):
     """Differentiable fused RMSNorm: x [N, H], w [H] -> [N, H]."""
     return _RMSNorm2D.apply(x, w, float(eps))
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU
+# ---------------------------------------------------------------------------
+
+
+def swiglu_fwd_ref(a, b):
+    """Plain forward: ``silu(a) * b`` in f32, cast to a's dtype."""
+    a32 = a.float()
+    return (a32 * torch.sigmoid(a32) * b.float()).to(a.dtype)
+
+
+def swiglu_bwd_ref(a, b, dout):
+    """Plain backward in f32: ``da = dO * b * (sig + silu (1 - sig))``,
+    ``db = dO * silu``, each cast to the inputs' dtype."""
+    a32, b32, d32 = a.float(), b.float(), dout.float()
+    sig = torch.sigmoid(a32)
+    silu = a32 * sig
+    return ((d32 * b32 * (sig + silu * (1.0 - sig))).to(a.dtype),
+            (d32 * silu).to(b.dtype))
+
+
+def _check_swiglu(name, *ts):
+    a = ts[0]
+    if a.dtype not in DTYPES:
+        raise TypeError(f"{name} takes float32, bfloat16 or float16, got {a.dtype}")
+    for t in ts:
+        if t.dtype != a.dtype or t.shape != a.shape or t.device != a.device:
+            raise ValueError(f"{name}: inputs differ in dtype, shape or device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+def swiglu_fwd(a, b):
+    """``silu(a) * b`` over same-shaped a and b."""
+    if a.device.type == "cpu":
+        return swiglu_fwd_ref(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"swiglu runs on cuda or cpu, not {a.device}")
+    _check_swiglu("swiglu_fwd", a, b)
+    out = torch.empty_like(a)
+    if a.numel() == 0:
+        return out
+    fn = _fn("swiglu_fwd", [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                     ctypes.c_void_p], lib="swiglu")
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), DTYPES[a.dtype],
+            _build.launch_stream(a.device))
+    if rc != 0:
+        raise RuntimeError(f"swiglu_fwd kernel launch failed: CUDA error {rc}")
+    swiglu_fwd.launches += 1
+    return out
+
+
+def swiglu_bwd(a, b, dout):
+    """``(da, db)`` of ``silu(a) * b``."""
+    if a.device.type == "cpu":
+        return swiglu_bwd_ref(a, b, dout)
+    if a.device.type != "cuda":
+        raise ValueError(f"swiglu runs on cuda or cpu, not {a.device}")
+    _check_swiglu("swiglu_bwd", a, b, dout)
+    da, db = torch.empty_like(a), torch.empty_like(b)
+    if a.numel() == 0:
+        return da, db
+    fn = _fn("swiglu_bwd", [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                                     ctypes.c_void_p], lib="swiglu")
+    rc = fn(a.data_ptr(), b.data_ptr(), dout.data_ptr(), da.data_ptr(), db.data_ptr(),
+            a.numel(), DTYPES[a.dtype], _build.launch_stream(a.device))
+    if rc != 0:
+        raise RuntimeError(f"swiglu_bwd kernel launch failed: CUDA error {rc}")
+    swiglu_bwd.launches += 1
+    return da, db
+
+
+#: kernel launches since the last reset (the CPU path never counts)
+swiglu_fwd.launches = 0
+swiglu_bwd.launches = 0
+
+
+class _SwiGLU2D(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return swiglu_fwd(a, b)
+
+    @staticmethod
+    def backward(ctx, dout):
+        a, b = ctx.saved_tensors
+        return swiglu_bwd(a, b, dout.contiguous())
+
+
+def swiglu_2d(a, b):
+    """Differentiable fused ``silu(a) * b``; a, b [N, H] of one dtype."""
+    return _SwiGLU2D.apply(a, b)

@@ -8,8 +8,10 @@ Run them on the card with::
 They cover shapes chip_smoke.py does not: other block sizes, head dims
 and GQA ratios, f32 attention, ragged M and odd K/N for the GEMM, flash
 attention at GQA ratios 1/4/8, head_dim 64 and 128, ragged S, causal or
-not, fp16, and its determinism, RMSNorm at ragged N and several H, and the
-checks that refuse what a kernel does not take.
+not, fp16, and its determinism, RMSNorm at ragged N and several H, the
+int8 GEMM's tensor-core forward and dX at ragged M, around the M = 64
+switch and at the smallest K and N, dX's determinism, SwiGLU at odd sizes,
+and the checks that refuse what a kernel does not take.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_norm as fn
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import quant_matmul as qm
+from paddle_tpu_torch.nn import quant as nq
 
 pytestmark = pytest.mark.cuda
 
@@ -268,3 +271,114 @@ def test_rms_norm_autograd_and_refusal(dev):
         fn.rms_norm_fwd(x.detach()[:, ::2], w.detach()[:128], 1e-6)  # strided
     with pytest.raises(TypeError):
         fn.rms_norm_fwd(x.detach(), w.detach().float(), 1e-6)
+
+
+def _gemm_inputs(dev, M, K, N, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    dout = torch.randn((M, N), generator=g, device=dev).bfloat16()
+    w = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand((N,), generator=g, device=dev) * 0.02 + 1e-3
+    return x, dout, w, s
+
+
+def _assert_gemm_close(got, want):
+    diff = (got.float() - want.float()).abs()
+    tol = GEMM_RTOL * want.float().abs() + GEMM_ATOL_FRAC * want.float().abs().max()
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 127, 129, 1000])
+@pytest.mark.parametrize("K,N", [(16, 16), (272, 400), (4096, 1024), (1024, 4096)])
+def test_int8_large_m_forward_and_dx_match_plain(dev, M, K, N):
+    """M > 64 takes the tensor-core forward and M <= 64 the weight stream;
+    dX takes any M. Each counts its own launches."""
+    x, dout, w, s = _gemm_inputs(dev, M, K, N, seed=M * 7 + K + N)
+    f0, l0, d0 = qm.int8_matmul.launches, qm.int8_matmul_large_m.launches, \
+        qm.int8_matmul_dx.launches
+    out = qm.int8_matmul(x, w, s)
+    dx = qm.int8_matmul_dx(dout, w, s)
+    torch.cuda.synchronize()
+    large = M > qm.LARGE_M
+    assert qm.int8_matmul.launches == f0 + (not large)
+    assert qm.int8_matmul_large_m.launches == l0 + large
+    assert qm.int8_matmul_dx.launches == d0 + 1
+    assert out.shape == (M, N) and dx.shape == (M, K) and dx.dtype == torch.bfloat16
+    _assert_gemm_close(out, qm.int8_matmul_ref(x, w, s))
+    _assert_gemm_close(dx, qm.int8_matmul_dx_ref(dout, w, s))
+    _assert_gemm_close(qm.int8_matmul_large_m(x, w, s), qm.int8_matmul_ref(x, w, s))
+
+
+def test_int8_dx_is_deterministic_and_the_ops_differentiate(dev):
+    x, dout, w, s = _gemm_inputs(dev, 300, 512, 768, seed=5)
+    a, b = qm.int8_matmul_dx(dout, w, s), qm.int8_matmul_dx(dout, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    xs = x.clone().requires_grad_(True)
+    qm.int8_matmul_frozen(xs, w, s).backward(dout)
+    assert torch.equal(xs.grad, a)
+    # a QuantizedLinear over a 3-D bf16 input: forward and dx through the kernels
+    lin = torch.nn.Module()
+    lin.weight, lin.bias = torch.randn((512, 768), device=dev), None
+    ql = nq.QuantizedLinear(lin)
+    x3 = torch.randn((2, 150, 512), device=dev).bfloat16().requires_grad_(True)
+    l0, d0 = qm.int8_matmul_large_m.launches, qm.int8_matmul_dx.launches
+    ql(x3).float().sum().backward()
+    torch.cuda.synchronize()
+    assert qm.int8_matmul_large_m.launches == l0 + 1 and qm.int8_matmul_dx.launches == d0 + 1
+    assert x3.grad.shape == x3.shape
+
+
+def test_int8_kernels_refuse(dev):
+    x, dout, w, s = _gemm_inputs(dev, 100, 64, 48, seed=1)
+    with pytest.raises(TypeError):
+        qm.int8_matmul(x.float(), w, s)                 # f32 activations, large M
+    with pytest.raises(TypeError):
+        qm.int8_matmul_dx(dout.float(), w, s)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        qm.int8_matmul(x[:, :40].contiguous(), w[:40], s)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        qm.int8_matmul_dx(dout[:, :40].contiguous(), w[:, :40].contiguous(), s[:40])
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.int8_matmul(torch.zeros((64, 100), dtype=torch.bfloat16, device=dev).t(), w, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.int8_matmul_dx(torch.zeros((48, 100), dtype=torch.bfloat16, device=dev).t(), w, s)
+    with pytest.raises(ValueError):
+        qm.int8_matmul_dx(x, w, s)                      # x [M, K] is not dout [M, N]
+
+
+@pytest.mark.parametrize("N,H,dtype", [
+    (8192, 14336, torch.bfloat16), (37, 1001, torch.bfloat16), (1, 7, torch.bfloat16),
+    (5, 33, torch.float32), (3, 129, torch.float16),
+])
+def test_swiglu_matches_plain(dev, N, H, dtype):
+    g = torch.Generator(device=dev)
+    g.manual_seed(N + H)
+    a = (torch.randn((N, H), generator=g, device=dev) * 3).to(dtype)
+    b = torch.randn((N, H), generator=g, device=dev).to(dtype)
+    do = torch.randn((N, H), generator=g, device=dev).to(dtype)
+    f0, b0 = fn.swiglu_fwd.launches, fn.swiglu_bwd.launches
+    out = fn.swiglu_fwd(a, b)
+    da, db = fn.swiglu_bwd(a, b, do)
+    torch.cuda.synchronize()
+    assert fn.swiglu_fwd.launches == f0 + 1 and fn.swiglu_bwd.launches == b0 + 1
+    # the same f32 formula, one rounding each side: one step of the type
+    rtol = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10, torch.float32: 1e-5}[dtype]
+    for got, want in ((out, fn.swiglu_fwd_ref(a, b)), *zip((da, db), fn.swiglu_bwd_ref(a, b, do))):
+        assert got.dtype == dtype and got.shape == a.shape
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= rtol * want.float().abs() + 1e-6).all()), diff.max().item()
+
+
+def test_swiglu_autograd_and_refusal(dev):
+    a = torch.randn((64, 256), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    b = torch.randn((64, 256), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    fn.swiglu_2d(a, b).float().sum().backward()
+    assert a.grad.shape == a.shape and b.grad.shape == b.shape
+    with pytest.raises(ValueError):
+        fn.swiglu_fwd(a.detach()[:, ::2], b.detach()[:, ::2])      # strided
+    with pytest.raises(ValueError):
+        fn.swiglu_fwd(a.detach(), b.detach().float())
+    with pytest.raises(TypeError):
+        fn.swiglu_fwd(a.detach().to(torch.int32), b.detach().to(torch.int32))

@@ -37,7 +37,7 @@ def models():
         vocab_size=VOCAB, hidden_size=32, intermediate_size=84,
         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
     pmodel = port.LlamaForCausalLM(pcfg, device="cpu")
-    pmodel.load_decode_weights(port.weights_from_numpy(tree))
+    pmodel.load_decode_weights(port.weights_from_numpy(tree, device="cpu"))
     return model, pmodel
 
 

@@ -131,7 +131,8 @@ def _tree(seed, dtype=np.float32):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_decode_weights_bit_identical(dtype):
     tree = _tree(5)
-    port_tree = port_llama.weights_from_numpy(tree, dtype=getattr(torch, dtype))
+    port_tree = port_llama.weights_from_numpy(tree, device="cpu",
+                                               dtype=getattr(torch, dtype))
     # the reference sees exactly the (possibly bf16-rounded) same values
     ref_tree = {
         "embed": jnp.asarray(port_tree["embed"].float().numpy(), dtype),

@@ -42,7 +42,7 @@ def zoo():
             vocab_size=VOCAB, hidden_size=32, intermediate_size=84,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2),
         device="cpu")
-    pmodel.load_decode_weights(port_llama.weights_from_numpy(tree))
+    pmodel.load_decode_weights(port_llama.weights_from_numpy(tree, device="cpu"))
     rng = np.random.RandomState(0)
     prompts = [rng.randint(1, VOCAB, n).tolist() for n in (5, 1, 7, 4, 8, 2, 6, 3)]
     return model, pmodel, prompts
