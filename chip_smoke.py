@@ -53,13 +53,38 @@ Phases, each printing one line of numbers:
    (embedding, norms and head trained): finite losses, exact launch counts
    (int8 forward and dX 7 L per step, flash and RMSNorm as in phase 7),
    step time, tokens/s, model FLOPs share, peak memory, trainable
-   parameters, int8 weight bytes and one profiled step's device-busy share.
+   parameters, int8 weight bytes and one profiled step's device-busy share;
+11. ring kernels, bf16: the lse merge against its plain version at the
+   three merges of a causal ring forward at the training shape (3, 2 and 1
+   ranks of [2048, 32, 128] f32, each writing one finished rank) and at two
+   ragged ones (rows merged with lse_b = -1e30 must come back bit for bit),
+   the causal merges timed beside their byte bound and the same merge
+   composed of torch ops; ring flash attention (the ring schedule over the flash
+   kernels and the merge, one process, P virtual ranks) forward and
+   backward through torch autograd at B 1, S 8192, P 4, H 32, Hk 8, hd 128,
+   causal, and at P 2, non-causal, hd 64 with 16/8 heads, S / P = 1000 and
+   B 2, each held tile by tile against the same schedule through the
+   plain versions and against the full-sequence flash kernel, the small
+   cases twice for bit-identical gradients, every call launching the flash
+   forward and backward P times and the merge P - 1 times; timed at the
+   training shape beside the full flash kernel, the bound and SDPA;
+12. one ring step check: Llama-3-8B widths at 2 layers, S = 2048, under a
+   ``ProcessMesh`` whose sep axis has 4 ranks, the same weights with
+   ``context_parallel="ring"`` and without, both through the kernels: the
+   loss and every gradient agree within limits of their own;
+13. ring training: phase 7's run with ``context_parallel="ring"`` under
+   that mesh: finite losses, exact launch counts (flash forward and
+   backward 4 ranks x 4 layers per step, the merge 3 x 4, RMSNorm as in
+   phase 7), step time and its ratio to phase 7's, tokens/s, model FLOPs
+   share, peak memory and one profiled step's device-busy share.
 
 Then the card's name and power limit again, one JSON line with every
 kernel's numbers (launches from the main path of its own phase: the
 serving runs for the serving kernels, the three timed training steps for
 the training kernels, the three timed fine-tuning steps for the int8
-tensor-core kernels, and phase 8 for SwiGLU, which no model path calls),
+tensor-core kernels, phase 8 for SwiGLU, which no model path calls, and
+the three timed ring training steps for the merge and for the ring, whose
+launches are those of the flash and merge kernels its calls made),
 and last ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
@@ -142,6 +167,28 @@ SWIGLU_RTOL, SWIGLU_ATOL_FRAC = 2.0 ** -7, 1e-3
 #   Both sides take the same exact products (dX: the same bf16-rounded
 #   dO * bf16(s)) and differ only in summation order; the plain versions'
 #   f32 products stay full f32 (TF32 off, checked).
+# - the ring's lse merge: the same f32 formula on both sides, each product
+#   and sum rounded on its own; exp and log of two math libraries may differ
+#   by a few ulps: acc within 1e-5 of each element plus 1e-6 of the largest,
+#   lse within 1e-5 absolute (lse of order 10, an ulp 1e-6), the finished
+#   rows' bf16 output within one bf16 step (2^-7 relative) of the plain one.
+#   A row merged with lse_b = -1e30 must come back bit for bit.
+MERGE_RTOL, MERGE_ATOL_FRAC, MERGE_LSE_ATOL = 1e-5, 1e-6, 1e-5
+# - the 2-layer ring step against the same step without the ring, both
+#   through the kernels: every op but the attention is the same arithmetic
+#   on the same inputs, and the ring's attention differs from the full
+#   kernel's only by rounding each partial to bf16 before its merge (2^-9
+#   rms relative of the attention output, measured 8.1e-8 relative on the
+#   loss and 0.0116 of a gradient's largest on the H100). The loss, a mean
+#   over 2048 tokens, within 1e-5 relative; every gradient within 3e-2 of
+#   its tensor's largest magnitude.
+RING_STEP_LOSS_RTOL, RING_STEP_GRAD_FRAC = 1e-5, 3e-2
+# - ring flash attention: FLASH_TILE_RTOL and FLASH_LSE_ATOL above, tile by
+#   tile, against (a) the same schedule through the plain versions (the
+#   backward given the kernel forward's out and lse, as in phase 5) and (b)
+#   the full-sequence flash kernel of phase 5 (the same function, another
+#   decomposition: the ring merges partials each rounded to bf16, 2^-9 rms
+#   relative, and its backward takes its own out and lse).
 
 # the serving trace: more requests than the 8 lanes, prompts of 16-600
 # tokens (chunked prefill of 16), 32 new tokens each
@@ -166,6 +213,24 @@ LR = 3e-4
 # ragged one), and SwiGLU's cases [N, H]
 INT8_TRAIN_M = (TRAIN_SEQ, 1000)
 SWIGLU_CASES = ((TRAIN_SEQ, 14336), (1000, 14336), (37, 1001))
+
+# context parallelism: the ring size of the mesh's sep axis in phases 12-13;
+# (label, B, S, P, H, Hk, head_dim, causal) of the ring checks, the first at
+# the training shape (checked once and timed), the others run twice for
+# bit-identical gradients; the merge's cases (N, S / P, H, D, finished
+# ranks written out), the first three the merges of a causal ring forward
+# at the training shape (step s merges ranks [s, P) and finishes rank s; the
+# first is the kernels line's), then a non-causal middle step (no finished
+# rows) and last step (every rank finished) at ragged sizes
+RING = 4
+RING_CASES = (("s8192_p4", 1, TRAIN_SEQ, RING, 32, 8, 128, True),
+              ("s2048_p2", 1, 2048, 2, 32, 8, 128, True),
+              ("s2048_p4_noncausal", 1, 2048, RING, 32, 8, 128, False),
+              ("s2048_p4_hd64_h16_hk8", 1, 2048, RING, 16, 8, 64, True),
+              ("s4000_p4_ragged", 1, 4000, RING, 32, 8, 128, True),
+              ("b2_s1024_p4", 2, 1024, RING, 32, 8, 128, True))
+MERGE_CASES = tuple((RING - s, TRAIN_SEQ // RING, 32, 128, 1) for s in range(1, RING)) + (
+    (3, 1000, 8, 64, 0), (3, 1000, 8, 64, 3))
 
 # Llama-3-8B decode shapes: (name, K, N, launches per decode step)
 GEMM_SHAPES = (("q", 4096, 4096, 32), ("k", 4096, 1024, 32), ("v", 4096, 1024, 32),
@@ -440,6 +505,7 @@ def serve(engine, prompts, max_new: int, phase: str):
 
 # device kernels of a training step by kind: (kind, name substrings)
 KERNEL_KINDS = (("flash attention (port)", ("flash_fwd_kernel", "flash_bwd_")),
+                ("ring merge (port)", ("ring_merge_kernel",)),
                 ("rms norm (port)", ("rms_fwd_kernel", "rms_bwd_dx_kernel")),
                 ("int8 forward (port)", ("int8_fwd_mma_kernel", "int8_gemm_kernel")),
                 ("int8 dX (port)", ("int8_dx_mma_kernel",)),
@@ -970,6 +1036,193 @@ def check_swiglu(gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the ring's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_ring_merge(gen) -> dict:
+    """The merge kernel against its plain version at every case (a third
+    of the rows merged with lse_b = -1e30, which must come back bit for
+    bit), each causal merge at the training shape timed beside its byte
+    bound and the same merge composed of torch ops (the plain version; no
+    single PyTorch call computes it). Returns the first case's numbers."""
+    import torch
+
+    from paddle_tpu_torch.ops import ring_flash as rf
+
+    res, err_max, causal_ms = None, 0.0, []
+    for N, S, H, D, n_out in MERGE_CASES:
+        acc = torch.randn((N, S, H, D), generator=gen, device="cuda")
+        out_b = torch.randn((N, S, H, D), generator=gen, device="cuda").bfloat16()
+        lse = torch.randn((N, H, S), generator=gen, device="cuda") * 2 + 8
+        lse_b = torch.randn((N, H, S), generator=gen, device="cuda") * 2 + 8
+        lse_b[:, :, ::3] = -1e30
+        got = [acc.clone(), lse.clone(), torch.zeros((n_out, S, H, D), dtype=torch.bfloat16,
+                                                     device="cuda") if n_out else None]
+        want = [None if t is None else t.clone() for t in got]
+        rf.ring_merge(*got[:2], out_b, lse_b, got[2])
+        rf.ring_merge_plain(*want[:2], out_b, lse_b, want[2])
+        torch.cuda.synchronize()
+        (ga, gl, go), (wa, wl, wo) = got, want
+        err = (ga - wa).abs().max().item()
+        lse_err = (gl - wl).abs().max().item()
+        out_err = (go.float() - wo.float()).abs() if n_out else torch.zeros(1, device="cuda")
+        ok = (bool(((ga - wa).abs() <= MERGE_RTOL * wa.abs()
+                    + MERGE_ATOL_FRAC * wa.abs().max()).all())
+              and lse_err <= MERGE_LSE_ATOL
+              and (not n_out or bool((out_err <= 2.0 ** -7 * wo.float().abs() + 1e-6).all())))
+        same = torch.equal(ga[:, ::3], acc[:, ::3]) and torch.equal(gl[:, :, ::3], lse[:, :, ::3])
+        if not (ok and same):
+            raise AssertionError(f"ring_merge [{N}, {S}, {H}, {D}] (finishing {n_out}) differs "
+                                 f"from its plain version: acc {err}, lse {lse_err}, out "
+                                 f"{out_err.max().item()}, masked rows unchanged: {same}")
+        err_max = max(err_max, err)
+        nums = dict(N=N, S=S, H=H, D=D, finished=n_out, acc_err=err, lse_err=lse_err,
+                    out_err=out_err.max().item(), masked_rows_unchanged=same)
+        if S == TRAIN_SEQ // RING:
+            nbytes = N * S * H * D * (4 + 4 + 2) + n_out * S * H * D * 2 + N * H * S * 4 * 3
+            b_ms, b_by = bound_ms(nbytes, 10 * N * S * H * D)
+            ms = device_ms(lambda i: rf.ring_merge(ga, gl, out_b, lse_b, go), 1)
+            plain_ms = device_ms(lambda i: rf.ring_merge_plain(wa, wl, out_b, lse_b, wo), 1, 5)
+            causal_ms.append(ms)
+            if res is None:
+                res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=None,
+                           at=f"acc [{N}, {S}, {H}, {D}] f32, out_b bf16, one finished rank "
+                              "written in bf16 (the first merge of a causal ring forward at "
+                              "the training shape); library: none (plain_ms is the merge "
+                              "composed of torch ops); launches from the timed ring training "
+                              "steps")
+            nums.update(ms=round(ms, 5), bound_ms=round(b_ms, 5), plain_ms=round(plain_ms, 5),
+                        GBps=round(nbytes / ms / 1e6, 1))
+        say("ring-kernels", kernel="ring_merge", **nums)
+        del acc, out_b, lse, lse_b, got, want, ga, gl, go, wa, wl, wo
+        torch.cuda.empty_cache()
+    res.update(max_abs_err=err_max, ms_causal_forward=sum(causal_ms))
+    say("ring-kernels", kernel="ring_merge",
+        ms_of_one_causal_forward=round(sum(causal_ms), 5), merges=len(causal_ms))
+    return res
+
+
+def ring_lse(lse, P: int):
+    """A folded ring's lse [P * B, H, S / P] as the sequence's [B, H, S]."""
+    n, H, Sl = lse.shape
+    return lse.reshape(P, n // P, H, Sl).permute(1, 2, 0, 3).reshape(n // P, H, P * Sl)
+
+
+def check_ring(gen):
+    """Every ring case: forward and backward through torch autograd (twice,
+    bit-identical, for all but the training shape), the launches of one
+    call (flash forward and backward P times, the merge P - 1 times), the
+    forward and backward held against the same schedule through the plain
+    versions and against the full-sequence flash kernel; then, at the
+    training shape, the timing beside the full flash kernel, the bound and
+    the SDPA yardstick. Returns the merge's and the ring's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import ring_flash as rf
+
+    merge = check_ring_merge(gen)
+    wrappers = {"fwd": fa.flash_attention_fwd, "bwd": fa.flash_attention_bwd,
+                "merge": rf.ring_merge}
+    ring = None
+    for label, B, S, P, H, Hk, hd, causal in RING_CASES:
+        timed = label == RING_CASES[0][0]
+        q, k, v, do = flash_inputs(gen, B, S, H, Hk, hd)
+        runs = []
+        for _ in range(1 if timed else 2):
+            before = {key: w.launches for key, w in wrappers.items()}
+            qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+            out = rf.ring_flash_attention(qs, ks, vs, P, causal)
+            out.backward(do)
+            runs.append((out.detach(), qs.grad, ks.grad, vs.grad))
+            launched = {key: w.launches - before[key] for key, w in wrappers.items()}
+            if launched != {"fwd": P, "bwd": P, "merge": P - 1}:
+                raise AssertionError(f"ring ({label}) launched {launched} in one call")
+        fq, fk, fv, fdo = (rf.fold(t, P) for t in (q, k, v, do))
+        out_k, lse_k = rf.ring_flash_fwd(fq, fk, fv, P, causal)
+        grads_k = rf.ring_flash_bwd(fq, fk, fv, out_k, lse_k, fdo, P, causal)
+        with plain_kernels():
+            ref_fwd = rf.ring_flash_fwd(fq, fk, fv, P, causal)
+            ref_grads = rf.ring_flash_bwd(fq, fk, fv, out_k, lse_k, fdo, P, causal)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[-1])):
+            raise AssertionError(f"ring flash attention ({label}) is not deterministic")
+        if not all(torch.equal(rf.unfold(a, P), b) for a, b in zip((out_k, *grads_k), runs[0])):
+            raise AssertionError(f"ring flash attention ({label}): the autograd op differs "
+                                 "from the forward and backward it is made of")
+        plain_errs = hold_flash(f"ring {label}, vs the plain schedule", (out_k, lse_k),
+                                ref_fwd, grads_k, ref_grads)
+        del ref_fwd, ref_grads
+        full_out, full_lse = fa.flash_attention_fwd(q, k, v, causal)
+        qf, kf, vf = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        fa.flash_attention(qf, kf, vf, causal).backward(do)
+        full_errs = hold_flash(f"ring {label}, vs the full flash kernel",
+                               (runs[0][0], ring_lse(lse_k, P)), (full_out, full_lse),
+                               runs[0][1:], (qf.grad, kf.grad, vf.grad))
+        nums = dict(case=label, B=B, S=S, P=P, H=H, Hk=Hk, hd=hd, causal=causal,
+                    bit_identical_grads=not timed or "not repeated",
+                    **{f"plain_{k_}": v_ for k_, v_ in plain_errs.items()
+                       if k_.endswith("tile_err") or k_ == "lse_err"},
+                    **{f"full_{k_}": v_ for k_, v_ in full_errs.items()
+                       if k_.endswith("tile_err") or k_ == "lse_err"})
+        if timed:
+            delta = (do.float() * full_out.float()).sum(-1).transpose(1, 2).contiguous()
+            t = dict(
+                ms_fwd=device_ms(lambda i: rf.ring_flash_fwd(fq, fk, fv, P, causal), 1, 5),
+                ms_bwd=device_ms(lambda i: rf.ring_flash_bwd(fq, fk, fv, out_k, lse_k, fdo, P,
+                                                             causal), 1, 5),
+                full_ms_fwd=device_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal), 1, 5),
+                full_ms_bwd=device_ms(lambda i: fa.flash_attention_bwd(
+                    q, k, v, do, full_lse, delta, causal), 1, 5))
+            with plain_kernels():
+                t["plain_ms_fwd"] = eager_ms(lambda i: rf.ring_flash_fwd(fq, fk, fv, P, causal),
+                                             1, 2, 1)
+                t["plain_ms_bwd"] = eager_ms(lambda i: rf.ring_flash_bwd(
+                    fq, fk, fv, out_k, lse_k, fdo, P, causal), 1, 2, 1)
+            qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+            t["library_ms_fwd"] = device_ms(lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 1, 5)
+            ql, kl, vl = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+
+            def lib_fwd_bwd(i):
+                o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
+                torch.autograd.grad(o, (ql, kl, vl), dot)
+
+            t["library_ms_fwd_bwd"] = eager_ms(lib_fwd_bwd, 1, 5, 2)
+            fwd_b, bwd_b, fwd_f, bwd_f = flash_counts(causal, B, S, H, Hk, hd)
+            t["bound_ms_fwd"], by = bound_ms(fwd_b, fwd_f)
+            t["bound_ms_bwd"], _ = bound_ms(bwd_b, bwd_f)
+            nums.update({k_: round(v_, 5) for k_, v_ in t.items()})
+            nums["ms_fwd_bwd_vs_full_flash"] = round(
+                (t["ms_fwd"] + t["ms_bwd"]) / (t["full_ms_fwd"] + t["full_ms_bwd"]), 4)
+            ring = {"max_abs_err": max(plain_errs["fwd_err"], plain_errs["bwd_err"]),
+                    "tile_err": max(plain_errs["out_tile_err"],
+                                    *plain_errs["dq_dk_dv_tile_err"]),
+                    "full_flash_tile_err": max(full_errs["out_tile_err"],
+                                               *full_errs["dq_dk_dv_tile_err"]),
+                    "ms": t["ms_fwd"] + t["ms_bwd"],
+                    "plain_ms": t["plain_ms_fwd"] + t["plain_ms_bwd"],
+                    "bound_ms": t["bound_ms_fwd"] + t["bound_ms_bwd"], "bound_by": by,
+                    "library_ms": t["library_ms_fwd_bwd"], **t,
+                    "at": f"B{B} S{S} P{P} H{H} Hk{Hk} hd{hd} causal bf16, forward and "
+                          "backward (ms is their sum, the backward from the forward's out "
+                          "and lse); max_abs_err and tile_err against the plain schedule; "
+                          "library: SDPA forward and torch.autograd.grad (eager) over the "
+                          "whole sequence; launches are the flash forward, flash backward "
+                          "and merge launches the ring's calls made in the timed ring "
+                          "training steps (P + P + P - 1 a call, one call a layer)"}
+            del ql, kl, vl, delta
+        say("ring-kernels", kernel="ring_flash_attention", **nums)
+        del q, k, v, do, runs, fq, fk, fv, fdo, out_k, lse_k, grads_k, full_out, full_lse
+        del qf, kf, vf
+        torch.cuda.empty_cache()
+    return merge, ring
+
+
+# ---------------------------------------------------------------------------
 # phases 6-7: training
 # ---------------------------------------------------------------------------
 
@@ -979,23 +1232,28 @@ def training_wrappers() -> dict:
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
     from paddle_tpu_torch.ops import quant_matmul as qm
+    from paddle_tpu_torch.ops import ring_flash as rf
 
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
             "rms_norm_fwd": fn.rms_norm_fwd, "rms_norm_bwd_dx": fn.rms_norm_bwd_dx,
             "int8_matmul": qm.int8_matmul, "int8_matmul_large_m": qm.int8_matmul_large_m,
-            "int8_matmul_dx": qm.int8_matmul_dx}
+            "int8_matmul_dx": qm.int8_matmul_dx, "ring_merge": rf.ring_merge}
 
 
-def expected_launches(layers: int, int8: bool = False) -> dict:
-    """Per training step: flash forward and backward once per layer,
-    RMSNorm forward and backward twice per layer and once for the final
-    norm; with int8-frozen projections, the tensor-core forward and dX
-    once per projection (7 per layer), and never the weight stream."""
+def expected_launches(layers: int, int8: bool = False, ring: int = 0) -> dict:
+    """Per training step: flash forward and backward once per layer (with
+    a ring of P ranks, P times each and the merge P - 1 times, one ring
+    call a layer), RMSNorm forward and backward twice per layer and once
+    for the final norm; with int8-frozen projections, the tensor-core
+    forward and dX once per projection (7 per layer), and never the weight
+    stream."""
     proj = 7 * layers if int8 else 0
-    return {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
+    flash = layers * max(ring, 1)
+    return {"flash_attention_fwd": flash, "flash_attention_bwd": flash,
             "rms_norm_fwd": 2 * layers + 1, "rms_norm_bwd_dx": 2 * layers + 1,
-            "int8_matmul": 0, "int8_matmul_large_m": proj, "int8_matmul_dx": proj}
+            "int8_matmul": 0, "int8_matmul_large_m": proj, "int8_matmul_dx": proj,
+            "ring_merge": layers * max(ring - 1, 0)}
 
 
 def quantize_projections(model):
@@ -1022,13 +1280,15 @@ def plain_kernels():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
     from paddle_tpu_torch.ops import quant_matmul as qm
+    from paddle_tpu_torch.ops import ring_flash as rf
 
     swaps = ((fa, "flash_attention_fwd", fa.flash_attention_fwd_ref),
              (fa, "flash_attention_bwd", fa.flash_attention_bwd_ref),
              (fn, "rms_norm_fwd", fn.rms_norm_fwd_ref),
              (fn, "rms_norm_bwd_dx", fn.rms_norm_bwd_dx_ref),
              (qm, "int8_matmul", qm.int8_matmul_ref),
-             (qm, "int8_matmul_dx", qm.int8_matmul_dx_ref))
+             (qm, "int8_matmul_dx", qm.int8_matmul_dx_ref),
+             (rf, "ring_merge", rf.ring_merge_plain))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -1137,10 +1397,71 @@ def check_train_step(seed: int, int8: bool = False):
     torch.cuda.empty_cache()
 
 
-def train(seed: int, int8: bool = False) -> dict:
+def ring_mesh():
+    """The one-process mesh of phases 12-13: a sep axis of RING ranks."""
+    from paddle_tpu_torch.distributed import ProcessMesh
+
+    return ProcessMesh(shape=[1, RING], dim_names=["dp", "sep"])
+
+
+def check_ring_step(seed: int):
+    """Phase 12: the same 2-layer model and batch through the ring
+    (``context_parallel="ring"`` under a mesh whose sep axis has RING
+    ranks) and without it, both through the kernels: the loss and every
+    parameter's gradient agree within RING_STEP_LOSS_RTOL and
+    RING_STEP_GRAD_FRAC."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    with ring_mesh():
+        ring = LlamaForCausalLM(LlamaConfig.llama3_8b(num_hidden_layers=CHECK_LAYERS,
+                                                      context_parallel="ring"),
+                                device="cuda", dtype=torch.bfloat16, seed=seed)
+        full = LlamaForCausalLM(LlamaConfig.llama3_8b(num_hidden_layers=CHECK_LAYERS),
+                                device="cuda", dtype=torch.bfloat16, seed=seed + 1)
+        full.load_state_dict(ring.state_dict())
+        ids, labels = token_batch(np.random.RandomState(seed + 2), CHECK_SEQ,
+                                  ring.config.vocab_size)
+        wrappers = training_wrappers()
+        results = {}
+        for name, model, p in (("ring", ring, RING), ("full", full, 0)):
+            before = {k: w.launches for k, w in wrappers.items()}
+            loss, _ = model(ids, labels=labels)
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+            if launched != expected_launches(CHECK_LAYERS, ring=p):
+                raise AssertionError(f"{name} path launched {launched}, expected "
+                                     f"{expected_launches(CHECK_LAYERS, ring=p)}")
+            results[name] = (loss.item(), {n: q.grad for n, q in model.named_parameters()})
+    (loss_r, grads_r), (loss_f, grads_f) = results["ring"], results["full"]
+    worst = (0.0, "")
+    for n, gf in grads_f.items():
+        frac = ((grads_r[n].float() - gf.float()).abs().max()
+                / gf.float().abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, (frac, n))
+        if not (math.isfinite(frac) and frac <= RING_STEP_GRAD_FRAC):
+            raise AssertionError(f"gradient of {n}: ring and full attention differ by {frac} "
+                                 f"of its largest magnitude (tol {RING_STEP_GRAD_FRAC})")
+    loss_rel = abs(loss_r - loss_f) / abs(loss_f)
+    if not loss_rel <= RING_STEP_LOSS_RTOL:
+        raise AssertionError(f"loss: ring {loss_r}, full attention {loss_f} "
+                             f"({loss_rel} relative, tol {RING_STEP_LOSS_RTOL})")
+    say("ring-step-check", layers=CHECK_LAYERS, seq=CHECK_SEQ, sep=RING, loss_ring=loss_r,
+        loss_full=loss_f, loss_rel_diff=loss_rel, loss_tol=RING_STEP_LOSS_RTOL,
+        worst_grad_frac=worst[0], worst_grad=worst[1], grad_tol=RING_STEP_GRAD_FRAC)
+    del ring, full, results, grads_r, grads_f
+    torch.cuda.empty_cache()
+
+
+def train(seed: int, int8: bool = False, ring: int = 0) -> dict:
     """Phase 7 (phase 10 with ``int8``: every projection int8-frozen, the
-    embedding, norms and head trained): the 4-layer run. Returns the launch
-    counts of the three timed steps."""
+    embedding, norms and head trained; phase 13 with ``ring``: the ring's
+    context parallelism over that many ranks, under the current mesh): the
+    4-layer run. Returns the launch counts of the three timed steps and
+    the mean step time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1148,8 +1469,9 @@ def train(seed: int, int8: bool = False) -> dict:
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.nn.quant import QuantizedLinear
 
-    phase = "finetune" if int8 else "train"
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS)
+    phase = "finetune" if int8 else "ring-train" if ring else "train"
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS,
+                                context_parallel="ring" if ring else None)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
@@ -1169,7 +1491,7 @@ def train(seed: int, int8: bool = False) -> dict:
     step = make_train_step(model)
     rng = np.random.RandomState(seed + 3)
     wrappers = training_wrappers()
-    per_step = expected_launches(TRAIN_LAYERS, int8)
+    per_step = expected_launches(TRAIN_LAYERS, int8, ring)
 
     def run(n_steps):
         for w in wrappers.values():
@@ -1210,7 +1532,7 @@ def train(seed: int, int8: bool = False) -> dict:
         model_tflop_per_step=round(model_flops / 1e12, 3),
         bf16_peak_share=round(model_flops / step_s / BF16_FLOP_PER_S, 4),
         max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
-        launches=counts)
+        launches=counts, **({"sep": ring} if ring else {}))
     ids, labels = token_batch(rng, TRAIN_SEQ, cfg.vocab_size)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1229,7 +1551,7 @@ def train(seed: int, int8: bool = False) -> dict:
         print(f"  {phase} top kernel: {us / 1e3:.4f} ms/step {name[:90]}", flush=True)
     del step, model
     torch.cuda.empty_cache()
-    return counts
+    return {"launches": counts, "step_ms": 1e3 * step_s, "device_ms_by_kind": by_kind(per_kernel)}
 
 
 def nvidia_smi() -> str:
@@ -1328,11 +1650,28 @@ def main(argv=None) -> int:
     flash_fwd, flash_bwd = check_flash(gen)
     norm_fwd, norm_bwd = check_rms_norm(gen)
     check_train_step(args.seed)
-    train_launches = train(args.seed)
+    trained = train(args.seed)
+    train_launches = trained["launches"]
     int8_fwd, int8_dx = check_int8_train(gen)
     swiglu_fwd, swiglu_bwd, swiglu_launches = check_swiglu(gen)
     check_train_step(args.seed, int8=True)
-    finetune_launches = train(args.seed, int8=True)
+    finetune_launches = train(args.seed, int8=True)["launches"]
+    merge, ring = check_ring(gen)
+    check_ring_step(args.seed)
+    with ring_mesh():
+        ring_trained = train(args.seed, ring=RING)
+    ring_launches = ring_trained["launches"]
+    # the ring's launches: those of the flash and merge kernels its calls
+    # made (every flash launch of phase 13 is a ring's, as its exact counts
+    # show: P per layer, with P - 1 merges)
+    ring_launches["ring_flash_attention"] = sum(
+        ring_launches[k] for k in ("flash_attention_fwd", "flash_attention_bwd", "ring_merge"))
+    per_step = expected_launches(TRAIN_LAYERS, ring=RING)["ring_merge"]
+    merge["profiled_step_ms_per_launch"] = (
+        ring_trained["device_ms_by_kind"].get("ring merge (port)", 0.0) / per_step)
+    say("ring-train", step_ms_ratio_to_train=round(ring_trained["step_ms"] / trained["step_ms"], 4),
+        train_step_ms=round(trained["step_ms"], 3),
+        merge_device_ms_per_launch=round(merge["profiled_step_ms_per_launch"], 5))
 
     kernels = [
         {"name": "paged_decode_attention", "route": "cuda",
@@ -1379,6 +1718,14 @@ def main(argv=None) -> int:
         if name.startswith("int8"):
             kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed int8 fine-tuning "
                                   f"steps ({TRAIN_LAYERS} layers)")
+    for name, source, replaces, nums in (
+            ("ring_merge", "csrc/ring_merge.cu", "ring_flash.py:44", merge),
+            ("ring_flash_attention", "ops/ring_flash.py", "ring_flash.py:145", ring)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"paddle_tpu_torch/{source}",
+            "replaces": f"paddle_tpu/ops/pallas/{replaces}", "launches": ring_launches[name],
+            **nums})
+        kernels[-1]["at"] += (f" ({TRAIN_STEPS} steps, {TRAIN_LAYERS} layers, sep={RING})")
     say("done", total_s=round(time.perf_counter() - t_start, 1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,7 +4,9 @@ Counterpart of ``paddle_tpu/models/llama.py``:
 
 - the configuration;
 - the training half (reference lines 94-285): ``LlamaAttention`` (GQA,
-  RoPE, flash attention through the gate), ``LlamaMLP`` (SwiGLU),
+  RoPE, flash attention through the gate, or with
+  ``context_parallel="ring"`` the ring over the mesh's ``sep`` axis),
+  ``LlamaMLP`` (SwiGLU),
   ``LlamaDecoderLayer`` (pre-norm residual blocks, optional recompute),
   ``LlamaModel`` and ``LlamaForCausalLM`` (untied or tied head, the
   cross-entropy loss), with the reference's parameter names, ``[in, out]``
@@ -27,6 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.fleet.sequence_parallel import ring_context_attention
 from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..nn import functional as F
 from ..nn.functional.norm import rms_norm_composed
@@ -112,7 +115,10 @@ class LlamaAttention(nn.Module):
                 past_key_value=None):
         """hidden_states [b, s, hidden]; RoPE over ``arange(s)`` (the
         reference does not read ``position_ids``); causal flash attention
-        through the gate without a mask, the composed path with one."""
+        through the gate without a mask, the composed path with one. With
+        ``context_parallel="ring"``, causal ring attention over the current
+        mesh's ``sep`` axis (reference lines 134-148): RoPE stays on the
+        global positions, since the ring's ranks live in this process."""
         b, s = hidden_states.shape[0], hidden_states.shape[1]
         q = self.q_proj(hidden_states).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
@@ -123,6 +129,18 @@ class LlamaAttention(nn.Module):
             k = torch.cat([past_key_value[0], k], dim=1)
             v = torch.cat([past_key_value[1], v], dim=1)
         causal = past_key_value is None
+        if self.config.context_parallel == "ring":
+            if attention_mask is not None:
+                raise ValueError(
+                    "context_parallel='ring' computes pure causal attention; "
+                    "padding attention_mask is not supported on the ring path")
+            if past_key_value is not None:
+                raise ValueError(
+                    "context_parallel='ring' is a training-time schedule; cached decode "
+                    "(past_key_value) is not supported; export the model without "
+                    "context_parallel for generation")
+            out = ring_context_attention(q, k, v, causal=True)
+            return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         if self.config.use_flash_attention and attention_mask is None:
             out, _ = F.flash_attention(q, k, v, causal=causal, training=self.training)
         else:
@@ -216,10 +234,10 @@ class LlamaForCausalLM(nn.Module):
         if config.moe_num_experts > 0:
             raise NotImplementedError(
                 "MoE decoders wait for the distributed slice of the port")
-        if config.sequence_parallel or config.context_parallel:
+        if config.sequence_parallel or config.context_parallel not in (None, "ring"):
             raise NotImplementedError(
-                "sequence and context parallelism wait for the distributed slice "
-                "of the port")
+                "sequence parallelism and context parallelism other than the ring wait "
+                "for the distributed slice of the port")
         self.config = config
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)

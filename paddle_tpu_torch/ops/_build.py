@@ -27,7 +27,8 @@ __all__ = ["KERNELS", "build", "launch_stream", "load", "nvcc_path"]
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("paged_attention", "quant_matmul", "flash_attention", "rms_norm", "swiglu")
+KERNELS = ("paged_attention", "quant_matmul", "flash_attention", "rms_norm", "swiglu",
+           "ring_merge")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -11,7 +11,9 @@ attention at GQA ratios 1/4/8, head_dim 64 and 128, ragged S, causal or
 not, fp16, and its determinism, RMSNorm at ragged N and several H, the
 int8 GEMM's tensor-core forward and dX at ragged M, around the M = 64
 switch and at the smallest K and N, dX's determinism, SwiGLU at odd sizes,
-and the checks that refuse what a kernel does not take.
+the ring's lse merge in bf16 and fp16 at head_dim 8 to 256, a small ring
+against the full flash kernel, and the checks that refuse what a kernel
+does not take.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_norm as fn
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import quant_matmul as qm
+from paddle_tpu_torch.ops import ring_flash as rf
 from paddle_tpu_torch.nn import quant as nq
 
 pytestmark = pytest.mark.cuda
@@ -50,6 +53,9 @@ FLASH_TILE_RTOL, FLASH_TILE_FLOOR, FLASH_LSE_ATOL, FLASH_TILE = 1e-2, 1e-5, 1e-3
 # the storage type: one step of that type plus 1e-3 of the largest output.
 NORM_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 NORM_ATOL_FRAC = 1e-3
+# the ring's merge: the same f32 formula on both sides, each product and sum
+# rounded alone; exp and log of two math libraries may differ by a few ulps.
+MERGE_RTOL, MERGE_ATOL = 1e-5, 1e-6
 
 
 @pytest.fixture
@@ -382,3 +388,68 @@ def test_swiglu_autograd_and_refusal(dev):
         fn.swiglu_fwd(a.detach(), b.detach().float())
     with pytest.raises(TypeError):
         fn.swiglu_fwd(a.detach().to(torch.int32), b.detach().to(torch.int32))
+
+
+@pytest.mark.parametrize("N,S,H,D,dtype,n_out", [
+    (4, 256, 8, 128, torch.bfloat16, 1), (3, 37, 4, 64, torch.float16, 3),
+    (2, 5, 3, 8, torch.bfloat16, 0), (1, 9, 2, 256, torch.bfloat16, 1),
+])
+def test_ring_merge_matches_plain(dev, N, S, H, D, dtype, n_out):
+    g = torch.Generator(device=dev)
+    g.manual_seed(N + S + D)
+    acc = torch.randn((N, S, H, D), generator=g, device=dev)
+    out_b = torch.randn((N, S, H, D), generator=g, device=dev).to(dtype)
+    lse = torch.randn((N, H, S), generator=g, device=dev) * 3 + 4
+    lse_b = torch.randn((N, H, S), generator=g, device=dev) * 3 + 4
+    lse_b[:, :, ::2] = -1e30
+    got = [acc.clone(), lse.clone(), torch.zeros((n_out, S, H, D), dtype=dtype, device=dev)]
+    want = [t.clone() for t in got]
+    m0 = rf.ring_merge.launches
+    rf.ring_merge(got[0], got[1], out_b, lse_b, got[2] if n_out else None)
+    rf.ring_merge_plain(want[0], want[1], out_b, lse_b, want[2] if n_out else None)
+    torch.cuda.synchronize()
+    assert rf.ring_merge.launches == m0 + 1
+    assert bool(((got[0] - want[0]).abs() <= MERGE_RTOL * want[0].abs() + MERGE_ATOL).all())
+    assert bool(((got[1] - want[1]).abs() <= MERGE_RTOL * want[1].abs() + MERGE_ATOL).all())
+    step = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}[dtype]
+    assert bool(((got[2].float() - want[2].float()).abs()
+                 <= step * want[2].float().abs() + 1e-6).all())
+    assert torch.equal(got[0][:, ::2], acc[:, ::2]) and torch.equal(got[1][:, :, ::2],
+                                                                     lse[:, :, ::2])
+
+
+def test_ring_merge_refuses(dev):
+    acc = torch.zeros((2, 4, 2, 64), device=dev)
+    lse = torch.zeros((2, 2, 4), device=dev)
+    out_b = torch.zeros((2, 4, 2, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError):
+        rf.ring_merge(acc, lse, out_b.float(), lse)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rf.ring_merge(acc[..., :60].contiguous(), lse, out_b[..., :60].contiguous(), lse)
+    with pytest.raises(ValueError, match="lse"):
+        rf.ring_merge(acc, lse.transpose(1, 2).contiguous(), out_b, lse)
+    with pytest.raises(ValueError, match="contiguous"):
+        rf.ring_merge(acc[:, :, :, ::2], lse, out_b[:, :, :, ::2], lse)
+
+
+@pytest.mark.parametrize("B,S,P,H,Hk,hd,causal", [
+    (1, 512, 4, 8, 2, 128, True), (2, 300, 3, 8, 8, 64, True), (1, 256, 4, 4, 1, 64, False),
+])
+def test_ring_flash_matches_full_flash(dev, B, S, P, H, Hk, hd, causal):
+    q, k, v, do = _flash_inputs(dev, B, S, H, Hk, hd, torch.bfloat16, seed=S + P)
+    f0, b0, m0 = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches,
+                  rf.ring_merge.launches)
+    grads = []
+    for fn in (lambda a, b, c: rf.ring_flash_attention(a, b, c, P, causal),
+               lambda a, b, c: fa.flash_attention(a, b, c, causal)):
+        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        out = fn(qs, ks, vs)
+        out.backward(do)
+        grads.append((out.detach(), qs.grad, ks.grad, vs.grad))
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == f0 + P + 1
+    assert fa.flash_attention_bwd.launches == b0 + P + 1
+    assert rf.ring_merge.launches == m0 + P - 1
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        _assert_tiles_close(got, want)

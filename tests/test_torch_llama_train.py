@@ -118,7 +118,8 @@ def test_state_dict_keys_are_checked():
         port.load_reference_state_dict(pmodel, dict(list(state.items())[1:]))
     with pytest.raises(KeyError, match="extra"):
         port.load_reference_state_dict(pmodel, dict(state, extra=np.zeros(3)))
-    for bad in ({"moe_num_experts": 4}, {"sequence_parallel": True}):
+    for bad in ({"moe_num_experts": 4}, {"sequence_parallel": True},
+                {"context_parallel": "ulysses"}):
         with pytest.raises(NotImplementedError, match="distributed slice"):
             port.LlamaForCausalLM(port.LlamaConfig.tiny(**bad), device="cpu")
 
