@@ -7,7 +7,11 @@ Phases, each printing one line of numbers:
 
 1. setup: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel from ``paddle_tpu_torch/csrc`` (one nvcc per source,
-   started together);
+   started together), and for each library the counts of the tensor-core,
+   TMA and barrier instructions in its SASS (``cuobjdump -sass``, beside
+   nvcc): HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA loads), SYNCS
+   (mbarrier operations). The flash library must hold HGMMA and UTMALDG and
+   no HMMA;
 2. kernels: each kernel against its plain PyTorch version at serving
    shapes in bf16, with the stated tolerance, and timed (CUDA events,
    after warm-up, cycling through enough buffers to defeat the 50 MB L2)
@@ -28,7 +32,8 @@ Phases, each printing one line of numbers:
    forward and backward dx at [8192, 4096] and a ragged N. Each is timed
    at the training shape (S = 8192, [8192, 4096]) beside its bound, its
    plain version and a PyTorch library yardstick the port never calls
-   (``F.scaled_dot_product_attention``, ``F.rms_norm``);
+   (``F.scaled_dot_product_attention``, ``F.rms_norm``); flash's line gives
+   ``ms / library_ms`` and ``bound_ms / ms`` each way;
 6. one training step, kernels against plain: Llama-3-8B widths at 2
    layers, S = 2048, bf16, the same weights on both paths; the loss and
    every parameter's gradient agree within stated tolerances, then one
@@ -97,6 +102,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -798,6 +804,8 @@ def time_flash(gen):
         plain_ms_fwd=round(plain_fwd_ms, 5), library_ms_fwd=round(lib_fwd_ms, 5),
         ms_bwd=round(ms_bwd, 5), bound_ms_bwd=round(bb, 5), plain_ms_bwd=round(plain_bwd_ms, 5),
         library_ms_bwd=round(lib_bwd_ms, 5), library_ms_fwd_bwd=round(lib_fwd_bwd_ms, 5),
+        library_ratio_fwd=round(ms_fwd / lib_fwd_ms, 4), library_ratio_bwd=round(ms_bwd / lib_bwd_ms, 4),
+        bound_share_fwd=round(bf / ms_fwd, 4), bound_share_bwd=round(bb / ms_bwd, 4),
         TFLOPs_fwd=round(fwd_f / ms_fwd / 1e9, 1), TFLOPs_bwd=round(bwd_f / ms_bwd / 1e9, 1))
     del q, k, v, do, out, lse, delta, ql, kl, vl, lib_out
     torch.cuda.empty_cache()
@@ -805,10 +813,12 @@ def time_flash(gen):
           f"shape; plain version in {Hk} calls of one KV-head group each")
     return ({"max_abs_err": errs["fwd_err"], "tile_err": errs["out_tile_err"], "ms": ms_fwd,
              "plain_ms": plain_fwd_ms, "bound_ms": bf, "bound_by": byf, "library_ms": lib_fwd_ms,
+             "library_ratio": ms_fwd / lib_fwd_ms, "bound_share": bf / ms_fwd,
              "at": at + "; library: F.scaled_dot_product_attention(is_causal, enable_gqa)"},
             {"max_abs_err": errs["bwd_err"], "tile_err": max(errs["dq_dk_dv_tile_err"]),
              "ms": ms_bwd, "plain_ms": plain_bwd_ms, "bound_ms": bb, "bound_by": byb,
-             "library_ms": lib_bwd_ms,
+             "library_ms": lib_bwd_ms, "library_ratio": ms_bwd / lib_bwd_ms,
+             "bound_share": bb / ms_bwd,
              "at": at + "; library: torch.autograd.grad through SDPA's forward (eager)"})
 
 
@@ -1554,6 +1564,22 @@ def train(seed: int, int8: bool = False, ring: int = 0) -> dict:
     return {"launches": counts, "step_ms": 1e3 * step_s, "device_ms_by_kind": by_kind(per_kernel)}
 
 
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
+
+
+def sass_counts(name: str):
+    """{opcode: count} of SASS_OPS in the built library of kernel ``name``,
+    or None where the toolkit has no cuobjdump beside nvcc."""
+    from paddle_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                         capture_output=True, text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", out)) for op in SASS_OPS}
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1594,6 +1620,15 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    for name in _build.KERNELS:
+        counts = sass_counts(name)
+        if counts is None:
+            say("setup", sass="no cuobjdump beside nvcc: no SASS counts")
+            break
+        say("setup", sass=name, **counts)
+        if name == "flash_attention" and not (counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
+                                              and counts["HMMA"] == 0):
+            raise AssertionError(f"the flash kernels are not wgmma fed by TMA: {counts}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)

@@ -1,6 +1,7 @@
-// FlashAttention-2 forward and backward for Hopper (sm_90a), bound through a
-// plain C interface and loaded with ctypes by
-// paddle_tpu_torch/ops/flash_attention.py.
+// FlashAttention forward and backward for Hopper (sm_90a): wgmma fed by TMA
+// through mbarrier pipelines, one producer warpgroup and two consumer
+// warpgroups per block. Bound through a plain C interface and loaded with
+// ctypes by paddle_tpu_torch/ops/flash_attention.py.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_kernel.py:173 `flash_fwd_partial`
 // (its body `_fwd_kernel`, :48-85) and :208 `flash_bwd_partial` (the dK/dV
@@ -17,48 +18,84 @@
 // backward takes lse and delta = rowsum(dO * O) (f32), recomputes
 // P = exp(min(s - lse, 60)) (the clamp keeps masked or foreign rows finite),
 // rounds P to the input type for dV += P^T dO and dS = P (dP - delta) scale
-// to the input type for dK += dS^T Q and dQ += dS K.
+// to the input type for dK += dS^T Q and dQ += dS K. Exponentials are taken
+// as exp2 with log2(e) folded into the scale; lse is stored in natural log.
 //
-// Bound on the H100: operations. At Llama-3-8B training shapes (S = 8192,
-// head_dim 128) a causal forward does 4 S^2 H hd / 2 FLOPs against 989
-// TFLOP/s bf16 (0.556 ms per layer), the backward 2.5 times that; the bytes
-// (each input read once) take a tenth of it. So the design keeps every
-// product on the tensor cores, the S x S scores on chip (registers), and
-// does no work above the causal diagonal. The forward runs at about a fifth
-// of the bound's rate and the backward an eighth (PERF.md): mma.sync from
-// shared memory, not wgmma.
+// Bound on the H100: operations. At Llama-3-8B training shapes (B 1, S 8192,
+// H 32, Hk 8, head_dim 128, causal) the forward does 4 FLOPs per kept (query,
+// key, dim): 0.55594 ms at 989 TFLOP/s bf16; the backward counts its five
+// products, 1.38985 ms. The three deterministic passes below compute eight
+// products (S^T in the dV and the dK pass, S and dP again in the dQ pass):
+// 2.224 ms at peak (the reference's two passes, seven: 1.946). The bytes
+// (each input read once) take a tenth of that. So every product runs on
+// the tensor cores through wgmma, the S x S scores stay in registers, and no
+// work is done above the causal diagonal beyond the diagonal tiles.
 //
-// Design, simple and exact first:
-// - Layout: q/o [B, S, H, D] and k/v [B, S, Hk, D] read in place through
-//   their batch/sequence/head strides (the last dimension is contiguous);
-//   query head h reads KV head h / (H / Hk), the head order a repeat of the
-//   KV heads gives. K and V are never repeated in memory.
-// - Forward: one block of 4 warps per (Q tile of 64 rows, head, batch);
-//   each warp owns 16 query rows, held in registers. K/V tiles of 64 rows
-//   are staged in shared memory by 16-byte cp.async in two stages, so the
-//   next tile's copy overlaps this tile's products. Products are mma.sync
-//   m16n8k16 with f32 accumulation, their operands loaded from shared
-//   memory by ldmatrix (.trans where the product needs a tile's columns);
-//   the score tile stays in registers and becomes the A operand of P.V. A
-//   causal block stops at its diagonal tile, and blocks are issued
-//   heaviest first.
-// - Backward, the reference's two passes, deterministic (no atomics):
-//   dK/dV: one block per (K tile, KV head, batch) holds its K and V rows in
-//   shared memory and loops over the query heads of its group and over the
-//   Q tiles from the causal start, so the group sum of dK and dV happens in
-//   the f32 accumulators. dQ: one block per (Q tile, head, batch), its Q and
-//   dO fragments held in registers, loops over the K tiles up to the
-//   diagonal. Score tiles are taken 32 columns at a time to keep the
-//   accumulators within the register file.
-// - Any S: rows past S are zero-filled in shared memory, masked, and never
-//   stored. head_dim 64 and 128 are compiled.
-// Not done yet: wgmma, TMA, warp specialisation, a persistent schedule.
-// Tried and dropped in the forward (each slower on the H100): two 16-row
-// slices per warp (128-row Q tiles, each K/V fragment feeding two products;
-// 255 registers); the Q tile staged in K's second stage (four tiles of
-// shared memory) with exp2 scores, with or without skipping the mask on
-// interior tiles (188-190 registers, so still two blocks per SM).
+// Design:
+// - Layout: q/o [B, S, H, D] and k/v [B, S, Hk, D], read in place. Each
+//   input gets a 4-D TMA tensor map over (D, heads, S, B) with the tensor's
+//   own byte strides, so a ragged S reads zeros past each sequence's end and
+//   never the next batch's rows; head-slices of a fused qkv tensor work as
+//   they are. A box is 64 columns (128 bytes, the most a 128-byte swizzle
+//   takes) by a tile's rows; head_dim 128 arrives as two boxes. The maps are
+//   encoded per call on the host (cuTensorMapEncodeTiled, taken from the
+//   driver through cudaGetDriverEntryPoint, so the library needs no -lcuda)
+//   and passed by value as __grid_constant__ parameters, which a CUDA graph
+//   captures with the launch.
+// - Roles: warpgroup 0 produces (one thread issues every TMA load; in the
+//   dV and dK passes its first warp also copies lse and delta), warpgroups
+//   1 and 2 consume, 64 rows each. Shared-memory stages ring through
+//   full/empty mbarriers: the producer waits for a stage to be empty, sets
+//   the bytes it expects and issues the copy; a consumer waits for it to be
+//   full, runs its products and releases it (one arrival per warp).
+// - Products: wgmma m64nNk16 with f32 accumulators. A score product (S =
+//   Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T) takes both operands from
+//   shared memory, K-major, 128-byte swizzled (a k-step advances the
+//   descriptor by 32 bytes inside the swizzle atom). The accumulator,
+//   rounded to the input type in pairs, is the register A operand of the
+//   next product (P V, dS K, P^T dO, dS^T Q), whose B operand is the
+//   row-major tile read MN-major (transposed), its two 64-column boxes one
+//   leading-byte offset apart.
+// - Registers: 384 threads hold ptxas to 168 registers a thread, and
+//   setmaxnreg does not raise that (a first dK/dV pass spilled 688-704
+//   bytes whether the consumers asked for 232 or 240), so none is used.
+//   Each pass keeps one 64 x D accumulator: the forward O and S, the dQ
+//   pass dQ, S and dP, the dV pass dV and S^T, the dK pass dK, S^T and dP^T.
+// - Forward: one block per (128 query rows, head, batch), heaviest causal
+//   tiles first. Q arrives once; K and V tiles of 128 rows ring through two
+//   stages with their own barriers, so S = Q K^T starts before V lands. The
+//   online softmax runs on the accumulator layout in registers; only the
+//   diagonal tile and the ragged tail are masked.
+// - Backward, deterministic (no atomics), in three passes. dV and dK: one
+//   block per (128 K rows, KV head, batch) holds K and V and loops over the
+//   query heads of its group and the 64-row Q tiles from the causal start,
+//   Q, dO, lse and delta ringing through three stages; the accumulator stays
+//   in f32 registers for the whole loop, so the GQA group sum happens there,
+//   rounded once. The dV pass forms P^T only; the dK pass forms P^T while
+//   dP^T is computed, then dS^T. dQ: one block per (128 Q rows, head,
+//   batch); Q, dO and the row statistics stay, K and V tiles of 64 rows
+//   stream through two stages, P formed while dP is computed.
+// - head_dim 64 and 128, bf16 and fp16 are compiled; any S.
+//
+// Tried on the H100 (80GB HBM3, 700 W) at the shape above, with SDPA's
+// forward at 0.86-0.89 ms and its backward at 2.68-2.88 ms in the same calls:
+// - the first version of this file (mma.sync m16n8k16 from ldmatrix, 64 x 64
+//   tiles on four warps, cp.async in two stages): 3.00156 / 11.12041 ms;
+// - this forward: 1.02-1.03 ms. With one tile's softmax overlapping the
+//   previous tile's P V inside a warpgroup: 1.27-1.30 ms (O, S and P live
+//   together spill 208 bytes and ptxas serializes the wgmma); dropped;
+// - one dK/dV pass holding both accumulators, as the reference: 6.1-6.3 ms
+//   of a 7.53-7.61 ms backward (688 bytes spilled, wgmma serialized); with
+//   each tile's last product left in flight into the next: 8.63-8.66 ms;
+//   with 9 warps (224 registers): 808 bytes spilled; dropped for a dV and a
+//   dK pass, which make the backward 4.12-4.32 ms;
+// - lse and delta by TMA through a one-row tensor map: the pipeline never
+//   completed (the bounded wait trapped); the producer warp copies them.
+//
+// Not done yet: a persistent schedule, a one-pass backward (dQ reduced
+// across blocks in order, FA3-style) and a fused delta = rowsum(dO * O).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -68,73 +105,310 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;       // rows of a Q or K/V tile
-constexpr int kChunk = 32;      // score columns taken at once in the backward
+constexpr int kWG = 128;                  // threads of a warpgroup
+constexpr int kThreads = 3 * kWG;         // producer + two consumers
+constexpr int kConsumerWarps = 8;         // arrivals that empty a stage
+constexpr int kBox = 64;                  // columns of a TMA box
+constexpr int kRowBytes = kBox * 2;       // one swizzled box row
 constexpr float kNegInf = -1e30f;
-constexpr float kClamp = 60.f;
-
-template <int D>
-struct Geo {
-  static constexpr int LD = D + 8;                  // padded row, in elements
-  static constexpr int kTileElems = kTile * LD;
-};
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kClamp2 = 60.f * kLog2e;  // the clamp exp(min(x, 60)) in log2
+constexpr int kTmaError = 10000;          // + CUresult of a failed tensor map
 
 struct Strides {
   long long b, s, h;
 };
 
 struct FwdArgs {
-  const void* q; const void* k; const void* v; void* o; float* lse;
-  Strides sq, sk, sv, so;
+  void* o; float* lse;
+  Strides so;
   int H, Hk, S;
   float scale;
   int causal;
 };
 
 struct BwdArgs {
-  const void* q; const void* k; const void* v; const void* dout;
   const float* lse; const float* delta;
   void* dq; void* dk; void* dv;
-  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
+  Strides sdq, sdk, sdv;
   int H, Hk, S;
   float scale;
   int causal;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// ---------------------------------------------------------------------------
+// shared memory, mbarriers, TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, const uint32_t* b) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+// the 128-byte swizzle repeats every 1024 bytes: tiles start on that
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// arrive and add `bytes` to what the current phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// wait until the phase of parity `parity` has completed. A pipeline fault
+// that would wait forever traps instead (a launch error, not a hung card):
+// a real wait lasts microseconds, the bound is 2^26 tries.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
     asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
   }
 }
+// a consumer warp is done with a stage: one arrival per warp
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// one box of a 4-D tensor map at coordinates (column, head, row, batch)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// byte offset (unused K-major; MN-major, the step between 64-column boxes),
+// stride byte offset (between 8-row groups: 8 rows of 128 bytes).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr) { return desc_sw128(addr, 16); }
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, uint32_t box_bytes) {
+  return desc_sw128(addr, box_bytes);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are in flight
+template <int N = 0>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across a wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], f32 accumulators, T inputs. ss: A and
+// B from shared memory, both K-major. rs: A from registers (four b32 of
+// packed pairs); B transposed (MN-major) when TB is 1. `acc` 0 overwrites D.
+// Accumulator element i of a thread (warp w, lane 4 g + t of its
+// warpgroup) is row 16 w + g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 t +
+// (i & 1); the A fragment of columns 16 k.. is the pairs of elements 8 k..8 k+7.
+template <typename T, int N>
+struct Mma;
+
+template <>
+struct Mma<__nv_bfloat16, 64> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB)
+        : "memory");
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)
+        : "memory");
+  }
+};
+
+template <>
+struct Mma<__nv_bfloat16, 128> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB)
+        : "memory");
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)
+        : "memory");
+  }
+};
+
+template <>
+struct Mma<__half, 64> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB)
+        : "memory");
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)
+        : "memory");
+  }
+};
+
+template <>
+struct Mma<__half, 128> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc), "n"(TB)
+        : "memory");
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)
+        : "memory");
+  }
+};
 
 // two floats rounded to the input type, the lower column in the low half
 template <typename T>
@@ -148,370 +422,395 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// ldmatrix: four 8 x 8 b16 matrices; lanes 8 i .. 8 i + 7 give the row
-// addresses of matrix i, and register i of every lane receives matrix i's
-// fragment (lane 4 g + t: row g, columns 2 t, 2 t + 1; with .trans, of the
-// transposed matrix)
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// Fragments of mma.m16n8k16 (lane = 4 g + t):
-//   A (16 x 16, row major): a0 (g, 2t..2t+1), a1 (g+8, ..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B (16 x 8, k by n):     b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
-//   C (16 x 8, f32):        c0 c1 (g, 2t..2t+1), c2 c3 (g+8, 2t..2t+1)
-// Tiles in shared memory are row major with LD elements per row (a multiple
-// of 8 and not of 64, so the eight 16-byte rows of an 8 x 8 matrix fall in
-// distinct banks).
-
-// A fragment from a row-major tile: rows r0..r0+15, columns c0..c0+15
-template <int LD, typename T>
-__device__ __forceinline__ void frag_a(uint32_t* a, const T* s, int r0, int c0, int lane) {
-  const int mi = lane >> 3, ri = lane & 7;
-  ldsm_x4(a, s + (r0 + ri + (mi & 1) * 8) * LD + c0 + (mi >> 1) * 8);
-}
-
-// B fragments of two n-tiles where B[k][n] = M[n][k] of a row-major tile M:
-// b[0..1] for M's rows n0..n0+7, b[2..3] for rows n0+8..n0+15, k = columns
-// k0..k0+15
-template <int LD, typename T>
-__device__ __forceinline__ void frag_b_rows2(uint32_t* b, const T* s, int n0, int k0, int lane) {
-  const int mi = lane >> 3, ri = lane & 7;
-  ldsm_x4(b, s + (n0 + ri + (mi >> 1) * 8) * LD + k0 + (mi & 1) * 8);
-}
-
-// B fragments of two n-tiles where B[k][n] = M[k][n] of a row-major tile M:
-// k = rows k0..k0+15, b[0..1] for columns n0..n0+7, b[2..3] for n0+8..n0+15
-template <int LD, typename T>
-__device__ __forceinline__ void frag_b_cols2(uint32_t* b, const T* s, int k0, int n0, int lane) {
-  const int mi = lane >> 3, ri = lane & 7;
-  ldsm_x4_trans(b, s + (k0 + ri + (mi & 1) * 8) * LD + n0 + (mi >> 1) * 8);
-}
-
-// A fragment (16 rows x 16 columns) from two 16 x 8 accumulator tiles
-template <typename T>
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c0, const float* c1) {
-  a[0] = pack2<T>(c0[0], c0[1]);
-  a[1] = pack2<T>(c0[2], c0[3]);
-  a[2] = pack2<T>(c1[0], c1[1]);
-  a[3] = pack2<T>(c1[2], c1[3]);
-}
-
-// cp.async a tile of kTile rows x D from global rows row0.. (row stride rs);
-// rows at or past S are zero-filled
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(T* s, const T* g, long long rs, int row0, int S,
-                                          int tid) {
-  constexpr int kCh = D / 8;  // 16-byte chunks per row
+// the A fragments of a 64 x N accumulator, k-step by k-step
+template <typename T, int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
 #pragma unroll
-  for (int c = tid; c < kTile * kCh; c += kThreads) {
-    const int r = c / kCh;
-    const int ch = c - r * kCh;
-    const bool ok = row0 + r < S;
-    const T* src = ok ? g + (long long)(row0 + r) * rs + ch * 8 : g;
-    cp_async16(s + r * Geo<D>::LD + ch * 8, src, ok ? 16 : 0);
-  }
+  for (int k = 0; k < N / 16; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[k][r] = pack2<T>(d[8 * k + 2 * r], d[8 * k + 2 * r + 1]);
 }
 
-// cp.async kTile floats from v[row0..], zeros past S
-__device__ __forceinline__ void load_row_stats(float* s, const float* v, int row0, int S,
-                                               int tid) {
-  if (tid < kTile) {
-    const bool ok = row0 + tid < S;
-    cp_async4(s + tid, ok ? v + row0 + tid : v, ok ? 4 : 0);
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float lo, float hi) {
-  *reinterpret_cast<uint32_t*>(p) = pack2<T>(lo, hi);
+// rows row and row + 8 of a 64 x D accumulator to a [rows, D] slice with
+// row stride rs (elements), rows at or past S skipped
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* g, long long rs, int row, int S, int t4,
+                                           const float (&d)[D / 2], const float* mul) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= S) continue;
+    T* p = g + (long long)(row + 8 * r) * rs + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j) =
+          pack2<T>(d[4 * j + 2 * r] * mul[r], d[4 * j + 2 * r + 1] * mul[r]);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
-  constexpr int LD = Geo<D>::LD;
-  constexpr int KS = D / 16;   // k-steps over head_dim
-  constexpr int NT = D / 8;    // 8-wide column tiles of O
-  extern __shared__ float4 smem4[];
-  T* qs = reinterpret_cast<T*>(smem4);
-  T* ks = qs + Geo<D>::kTileElems;          // [2][kTile][LD]
-  T* vs = ks + 2 * Geo<D>::kTileElems;      // [2][kTile][LD]
+template <int D>
+struct FwdGeo {
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kM = 128;                     // query rows of a block
+  static constexpr int kN = 128;                     // K/V rows of a tile
+  static constexpr int kQBox = kM * kRowBytes;
+  static constexpr int kBoxBytes = kN * kRowBytes;   // one box of a K or V tile
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kBoxes * kQBox;          // [2 stages]
+  static constexpr int kV = kK + 2 * kTileBytes;     // [2 stages]
+  static constexpr int kBar = kV + 2 * kTileBytes;
+  static constexpr int kSmem = kBar + 128 + 1024;    // barriers, alignment slack
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int nq = (a.S + kTile - 1) / kTile;
-  const int qi = nq - 1 - blockIdx.x;       // heaviest causal tiles first
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const FwdArgs a) {
+  using G = FwdGeo<D>;
+  static_assert(G::kM == G::kN, "the causal tile count assumes square tiles");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + G::kBar);
+  uint64_t* k_full = q_full + 1;   // [2]
+  uint64_t* k_empty = q_full + 3;  // [2]
+  uint64_t* v_full = q_full + 5;   // [2]
+  uint64_t* v_empty = q_full + 7;  // [2]
+
+  const int nq = (a.S + G::kM - 1) / G::kM;
+  const int qi = nq - 1 - blockIdx.x;              // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hk);
-  const int q0 = qi * kTile;
-  const T* qg = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const T* kg = static_cast<const T*>(a.k) + b * a.sk.b + hk * a.sk.h;
-  const T* vg = static_cast<const T*>(a.v) + b * a.sv.b + hk * a.sv.h;
+  const int q0 = qi * G::kM;
   const int nk = a.causal ? qi + 1 : nq;
 
-  load_tile<D>(qs, qg, a.sq.s, q0, a.S, tid);
-  cp_async_commit();
-  load_tile<D>(ks, kg, a.sk.s, 0, a.S, tid);
-  load_tile<D>(vs, vg, a.sv.s, 0, a.S, tid);
-  cp_async_commit();
-
-  uint32_t qf[KS][4];
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  for (int it = 0; it < nk; ++it) {
-    if (it + 1 < nk) {
-      const int st = (it + 1) & 1;
-      load_tile<D>(ks + st * Geo<D>::kTileElems, kg, a.sk.s, (it + 1) * kTile, a.S, tid);
-      load_tile<D>(vs + st * Geo<D>::kTileElems, vg, a.sv.s, (it + 1) * kTile, a.S, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) frag_a<LD>(qf[kk], qs, warp * 16, kk * 16, lane);
-    }
-    const T* kt = ks + (it & 1) * Geo<D>::kTileElems;
-    const T* vt = vs + (it & 1) * Geo<D>::kTileElems;
-    const int k0 = it * kTile;
-
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTile / 8; j += 2) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t bf[4];
-        frag_b_rows2<LD>(bf, kt, j * 8, kk * 16, lane);
-        mma16816<T>(s[j], qf[kk], bf);
-        mma16816<T>(s[j + 1], qf[kk], bf + 2);
-      }
-    }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const int r = row[e >> 1];
-        float v = s[j][e] * a.scale;
-        if (col >= a.S || (a.causal && col > r)) v = kNegInf;
-        s[j][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    float alpha[2];
-#pragma unroll
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float mn = fmaxf(m[i], mx[i]);
-      alpha[i] = __expf(m[i] - mn);
-      m[i] = mn;
-      l[i] *= alpha[i];
+      mbar_init(k_full + i, 1);
+      mbar_init(v_full + i, 1);
+      mbar_init(k_empty + i, kConsumerWarps);
+      mbar_init(v_empty + i, kConsumerWarps);
     }
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pf[4];
-      acc_to_a<T>(pf, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t bf[4];
-        frag_b_cols2<LD>(bf, vt, kk * 16, n * 8, lane);
-        mma16816<T>(acc[n], pf, bf);
-        mma16816<T>(acc[n + 1], pf, bf + 2);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration
+    fence_barrier_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  T* og = static_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const float ls = fmaxf(l[i], 1e-30f);
-    if (row[i] < a.S) {
-      const float inv = 1.f / ls;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        store2<T>(og + (long long)row[i] * a.so.s + n * 8 + 2 * t, acc[n][2 * i] * inv,
-                  acc[n][2 * i + 1] * inv);
-      if (t == 0) a.lse[((long long)b * a.H + h) * a.S + row[i]] = m[i] + logf(ls);
+  if (threadIdx.x < kWG) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, G::kBoxes * G::kQBox);
+      for (int x = 0; x < G::kBoxes; ++x)
+        tma_load(sm + G::kQ + x * G::kQBox, &tq, q_full, x * kBox, h, q0, b);
+      for (int it = 0; it < nk; ++it) {
+        const int st = it & 1;
+        const uint32_t ph = (it >> 1) & 1;
+        mbar_wait(k_empty + st, ph ^ 1);
+        mbar_expect_tx(k_full + st, G::kTileBytes);
+        for (int x = 0; x < G::kBoxes; ++x)
+          tma_load(sm + G::kK + st * G::kTileBytes + x * G::kBoxBytes, &tk, k_full + st, x * kBox,
+                   hk, it * G::kN, b);
+        mbar_wait(v_empty + st, ph ^ 1);
+        mbar_expect_tx(v_full + st, G::kTileBytes);
+        for (int x = 0; x < G::kBoxes; ++x)
+          tma_load(sm + G::kV + st * G::kTileBytes + x * G::kBoxBytes, &tv, v_full + st, x * kBox,
+                   hk, it * G::kN, b);
+      }
     }
+  } else {
+    const int c = threadIdx.x / kWG - 1;           // query rows c * 64 .. of the block
+    const int t = threadIdx.x % kWG, t4 = t % 4;
+    const int row = q0 + c * 64 + (t / 32) * 16 + (t % 32) / 4;   // and row + 8
+    const float sl2 = a.scale * kLog2e;
+    const uint32_t qs = smem_u32(sm + G::kQ) + c * 64 * kRowBytes;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int it = 0; it < nk; ++it) {
+      const int st = it & 1;
+      const uint32_t ph = (it >> 1) & 1;
+      const int k0 = it * G::kN;
+      const uint32_t ks = smem_u32(sm + G::kK + st * G::kTileBytes);
+      const uint32_t vs = smem_u32(sm + G::kV + st * G::kTileBytes);
+
+      float s[G::kN / 2];
+      mbar_wait(k_full + st, ph);
+      wg_fence();
+#pragma unroll
+      for (int x = 0; x < G::kBoxes; ++x)
+#pragma unroll
+        for (int kk = 0; kk < kBox / 16; ++kk)
+          Mma<T, G::kN>::template ss<0>(s, kmajor(qs + x * G::kQBox + kk * 32),
+                                        kmajor(ks + x * G::kBoxBytes + kk * 32), x + kk);
+      wg_commit();
+      wg_wait();
+      fence_regs(s);
+      release(k_empty + st);
+
+      // only the diagonal tile and the ragged tail hold masked columns
+      if (k0 + G::kN > a.S || (a.causal && k0 + G::kN - 1 > q0 + c * 64)) {
+#pragma unroll
+        for (int i = 0; i < G::kN / 2; ++i) {
+          const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          if (col >= a.S || (a.causal && col > row + 8 * ((i >> 1) & 1))) s[i] = kNegInf;
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < G::kN / 2; ++i) {
+        s[i] *= sl2;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = ex2(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < G::kN / 2; ++i) {
+        s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+        l[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      uint32_t pa[G::kN / 16][4];
+      to_a<T, G::kN>(pa, s);
+
+      mbar_wait(v_full + st, ph);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < G::kN / 16; ++kk)
+        Mma<T, D>::template rs<1>(o, pa[kk], mnmajor(vs + kk * 16 * kRowBytes, G::kBoxBytes), 1);
+      wg_commit();
+      wg_wait();
+      fence_regs(o);
+      release(v_empty + st);
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+      inv[r] = 1.f / l[r];
+      if (t4 == 0 && row + 8 * r < a.S)
+        a.lse[((long long)b * a.H + h) * a.S + row + 8 * r] = m[r] * kLn2 + logf(l[r]);
+    }
+    store_rows<T, D>(static_cast<T*>(a.o) + b * a.so.b + h * a.so.h, a.so.s, row, a.S, t4, o,
+                     inv);
   }
 }
 
 // ---------------------------------------------------------------------------
-// backward: dK and dV
+// backward: dV, then dK
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
-  constexpr int LD = Geo<D>::LD;
-  constexpr int KS = D / 16;
-  constexpr int NT = D / 8;
-  constexpr int TE = Geo<D>::kTileElems;
-  extern __shared__ float4 smem4[];
-  T* ks = reinterpret_cast<T*>(smem4);
-  T* vs = ks + TE;
-  T* qs = vs + TE;                 // [2][kTile][LD]
-  T* dos = qs + 2 * TE;            // [2][kTile][LD]
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * TE);   // [2][kTile]
-  float* delta_s = lse_s + 2 * kTile;                      // [2][kTile]
+template <int D>
+struct KvGeo {
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kN = 128;                     // K/V rows of a block
+  static constexpr int kM = 64;                      // query rows of a tile
+  static constexpr int kKBox = kN * kRowBytes;
+  static constexpr int kQBox = kM * kRowBytes;
+  static constexpr int kQBytes = kBoxes * kQBox;     // one Q or dO tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kBoxes * kKBox;
+  static constexpr int kStages = 3;
+  static constexpr int kQ = 2 * kV;                        // [kStages]
+  static constexpr int kDO = kQ + kStages * kQBytes;       // [kStages]
+  static constexpr int kStat = kDO + kStages * kQBytes;    // [kStages][lse | delta][kM] f32
+  static constexpr int kStatBytes = 2 * kM * 4;
+  static constexpr int kBar = kStat + kStages * kStatBytes;
+  static constexpr int kSmem = kBar + 128 + 1024;
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int nq = (a.S + kTile - 1) / kTile;
-  const int ki = blockIdx.x;       // low K tiles see the most Q tiles: first
+// kDV: dV += P^T dO (S^T, then one product); else dK += dS^T Q (S^T and
+// dP^T, then one product)
+template <typename T, int D, bool kDV>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_kv_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
+  using G = KvGeo<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + G::kBar);
+  uint64_t* full = kv_full + 1;                 // [kStages]
+  uint64_t* empty = kv_full + 1 + G::kStages;   // [kStages]
+  float* stat = reinterpret_cast<float*>(sm + G::kStat);
+
+  const int ki = blockIdx.x;                       // low K tiles see the most Q tiles: first
   const int hk = blockIdx.y, b = blockIdx.z;
   const int rep = a.H / a.Hk;
-  const int k0 = ki * kTile;
-  const int q_start = a.causal ? ki : 0;
+  const int k0 = ki * G::kN;
+  const int nq = (a.S + G::kM - 1) / G::kM;
+  const int q_start = a.causal ? k0 / G::kM : 0;
   const int per_head = nq - q_start;
   const int total = rep * per_head;
 
-  load_tile<D>(ks, static_cast<const T*>(a.k) + b * a.sk.b + hk * a.sk.h, a.sk.s, k0, a.S, tid);
-  load_tile<D>(vs, static_cast<const T*>(a.v) + b * a.sv.b + hk * a.sv.h, a.sv.s, k0, a.S, tid);
-
-  auto issue = [&](int it, int st) {
-    const int h = hk * rep + it / per_head;
-    const int qrow0 = (q_start + it % per_head) * kTile;
-    load_tile<D>(qs + st * TE, static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h, a.sq.s,
-                 qrow0, a.S, tid);
-    load_tile<D>(dos + st * TE, static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h,
-                 a.sdo.s, qrow0, a.S, tid);
-    const long long off = ((long long)b * a.H + h) * a.S;
-    load_row_stats(lse_s + st * kTile, a.lse + off, qrow0, a.S, tid);
-    load_row_stats(delta_s + st * kTile, a.delta + off, qrow0, a.S, tid);
-  };
-  issue(0, 0);
-  cp_async_commit();
-
-  float dk[NT][4], dv[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const int krow[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-
-  for (int it = 0; it < total; ++it) {
-    if (it + 1 < total) issue(it + 1, (it + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = it & 1;
-    const T* qt = qs + st * TE;
-    const T* dot = dos + st * TE;
-    const float* lt = lse_s + st * kTile;
-    const float* dt = delta_s + st * kTile;
-    const int qrow0 = (q_start + it % per_head) * kTile;
-
-#pragma unroll 1
-    for (int c0 = 0; c0 < kTile; c0 += kChunk) {
-      // S^T and dP^T for 16 K rows x kChunk query columns
-      float p[kChunk / 8][4], dp[kChunk / 8][4];
-#pragma unroll
-      for (int j = 0; j < kChunk / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) p[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t kf[4], vf[4];
-        frag_a<LD>(kf, ks, warp * 16, kk * 16, lane);
-        frag_a<LD>(vf, vs, warp * 16, kk * 16, lane);
-#pragma unroll
-        for (int j = 0; j < kChunk / 8; j += 2) {
-          uint32_t bq[4], bo[4];
-          frag_b_rows2<LD>(bq, qt, c0 + j * 8, kk * 16, lane);
-          frag_b_rows2<LD>(bo, dot, c0 + j * 8, kk * 16, lane);
-          mma16816<T>(p[j], kf, bq);
-          mma16816<T>(p[j + 1], kf, bq + 2);
-          mma16816<T>(dp[j], vf, bo);
-          mma16816<T>(dp[j + 1], vf, bo + 2);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kChunk / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = c0 + j * 8 + 2 * t + (e & 1);
-          const int qrow = qrow0 + qc;
-          const int kr = krow[e >> 1];
-          float pv = 0.f;
-          if (qrow < a.S && kr < a.S && !(a.causal && kr > qrow))
-            pv = __expf(fminf(p[j][e] * a.scale - lt[qc], kClamp));
-          p[j][e] = pv;
-          dp[j][e] = pv * (dp[j][e] - dt[qc]) * a.scale;
-        }
-      // dV += P^T dO and dK += dS^T Q over these kChunk query rows
-#pragma unroll
-      for (int kq = 0; kq < kChunk / 16; ++kq) {
-        uint32_t pf[4], sf[4];
-        acc_to_a<T>(pf, p[2 * kq], p[2 * kq + 1]);
-        acc_to_a<T>(sf, dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-        for (int n = 0; n < NT; n += 2) {
-          uint32_t bo[4], bq[4];
-          frag_b_cols2<LD>(bo, dot, c0 + kq * 16, n * 8, lane);
-          frag_b_cols2<LD>(bq, qt, c0 + kq * 16, n * 8, lane);
-          mma16816<T>(dv[n], pf, bo);
-          mma16816<T>(dv[n + 1], pf, bo + 2);
-          mma16816<T>(dk[n], sf, bq);
-          mma16816<T>(dk[n + 1], sf, bq + 2);
-        }
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < G::kStages; ++i) {
+      mbar_init(full + i, 32);                     // the producer warp's lanes
+      mbar_init(empty + i, kConsumerWarps);
     }
-    __syncthreads();
+    fence_barrier_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  T* dkg = static_cast<T*>(a.dk) + b * a.sdk.b + hk * a.sdk.h;
-  T* dvg = static_cast<T*>(a.dv) + b * a.sdv.b + hk * a.sdv.h;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (krow[i] >= a.S) continue;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      store2<T>(dkg + (long long)krow[i] * a.sdk.s + n * 8 + 2 * t, dk[n][2 * i], dk[n][2 * i + 1]);
-      store2<T>(dvg + (long long)krow[i] * a.sdv.s + n * 8 + 2 * t, dv[n][2 * i], dv[n][2 * i + 1]);
+  if (threadIdx.x < kWG) {
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * G::kBoxes * G::kKBox);
+      for (int x = 0; x < G::kBoxes; ++x) {
+        tma_load(sm + G::kK + x * G::kKBox, &tk, kv_full, x * kBox, hk, k0, b);
+        tma_load(sm + G::kV + x * G::kKBox, &tv, kv_full, x * kBox, hk, k0, b);
+      }
     }
+    if (threadIdx.x < 32) {
+      for (int it = 0; it < total; ++it) {
+        const int st = it % G::kStages;
+        const uint32_t ph = (it / G::kStages) & 1;
+        const int h = hk * rep + it / per_head;
+        const int q0 = (q_start + it % per_head) * G::kM;
+        // lse and delta of the tile's rows, read before the stage is free;
+        // zeros past S
+        const long long off = ((long long)b * a.H + h) * a.S + q0;
+        float lse[2], delta[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const bool ok = q0 + lane + 32 * r < a.S;
+          lse[r] = ok ? a.lse[off + lane + 32 * r] : 0.f;
+          delta[r] = ok ? a.delta[off + lane + 32 * r] : 0.f;
+        }
+        mbar_wait(empty + st, ph ^ 1);
+        float* ls = stat + st * 2 * G::kM;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          ls[lane + 32 * r] = lse[r];
+          ls[G::kM + lane + 32 * r] = delta[r];
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full + st, 2 * G::kQBytes);
+          for (int x = 0; x < G::kBoxes; ++x) {
+            tma_load(sm + G::kQ + st * G::kQBytes + x * G::kQBox, &tq, full + st, x * kBox, h,
+                     q0, b);
+            tma_load(sm + G::kDO + st * G::kQBytes + x * G::kQBox, &tdo, full + st, x * kBox, h,
+                     q0, b);
+          }
+        } else {
+          mbar_arrive(full + st);
+        }
+      }
+    }
+  } else {
+    const int c = threadIdx.x / kWG - 1;           // K rows c * 64 .. of the block
+    const int t = threadIdx.x % kWG, t4 = t % 4;
+    const int krow = k0 + c * 64 + (t / 32) * 16 + (t % 32) / 4;   // and krow + 8
+    const float sl2 = a.scale * kLog2e;
+    const uint32_t ks = smem_u32(sm + G::kK) + c * 64 * kRowBytes;
+    const uint32_t vs = smem_u32(sm + G::kV) + c * 64 * kRowBytes;
+    float acc[D / 2];                              // dV or dK of this warpgroup's rows
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < total; ++it) {
+      const int st = it % G::kStages;
+      const uint32_t ph = (it / G::kStages) & 1;
+      const int q0 = (q_start + it % per_head) * G::kM;
+      const uint32_t qs = smem_u32(sm + G::kQ + st * G::kQBytes);
+      const uint32_t dos = smem_u32(sm + G::kDO + st * G::kQBytes);
+      const float* ls = stat + st * 2 * G::kM;
+
+      // S^T (and dP^T): 64 K rows x kM query columns
+      float s[G::kM / 2], dp[G::kM / 2];
+      mbar_wait(full + st, ph);
+      wg_fence();
+#pragma unroll
+      for (int x = 0; x < G::kBoxes; ++x)
+#pragma unroll
+        for (int kk = 0; kk < kBox / 16; ++kk)
+          Mma<T, G::kM>::template ss<0>(s, kmajor(ks + x * G::kKBox + kk * 32),
+                                        kmajor(qs + x * G::kQBox + kk * 32), x + kk);
+      wg_commit();
+      if constexpr (!kDV) {
+#pragma unroll
+        for (int x = 0; x < G::kBoxes; ++x)
+#pragma unroll
+          for (int kk = 0; kk < kBox / 16; ++kk)
+            Mma<T, G::kM>::template ss<0>(dp, kmajor(vs + x * G::kKBox + kk * 32),
+                                          kmajor(dos + x * G::kQBox + kk * 32), x + kk);
+        wg_commit();
+        wg_wait<1>();                              // P^T while dP^T is computed
+      } else {
+        wg_wait();
+      }
+      fence_regs(s);
+
+#pragma unroll
+      for (int i = 0; i < G::kM / 2; ++i) {
+        const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        s[i] = ex2(fminf(s[i] * sl2 - ls[qc] * kLog2e, kClamp2));
+      }
+      // masked: query rows past S, and K rows after the query (causal)
+      if (q0 + G::kM > a.S || (a.causal && k0 + c * 64 + 63 > q0)) {
+#pragma unroll
+        for (int i = 0; i < G::kM / 2; ++i) {
+          const int q = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          if (q >= a.S || (a.causal && krow + 8 * ((i >> 1) & 1) > q)) s[i] = 0.f;
+        }
+      }
+      uint32_t fa[G::kM / 16][4];                  // P^T or dS^T as the A operand
+      if constexpr (kDV) {
+        to_a<T, G::kM>(fa, s);
+      } else {
+        wg_wait();
+        fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < G::kM / 2; ++i) {
+          const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
+          dp[i] = s[i] * (dp[i] - ls[G::kM + qc]) * a.scale;
+        }
+        to_a<T, G::kM>(fa, dp);
+      }
+
+      // dV += P^T dO, or dK += dS^T Q
+      const uint32_t bs = kDV ? dos : qs;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < G::kM / 16; ++kk)
+        Mma<T, D>::template rs<1>(acc, fa[kk], mnmajor(bs + kk * 16 * kRowBytes, G::kQBox), 1);
+      wg_commit();
+      wg_wait();
+      fence_regs(acc);
+      release(empty + st);
+    }
+
+    const float one[2] = {1.f, 1.f};
+    if constexpr (kDV)
+      store_rows<T, D>(static_cast<T*>(a.dv) + b * a.sdv.b + hk * a.sdv.h, a.sdv.s, krow, a.S, t4,
+                       acc, one);
+    else
+      store_rows<T, D>(static_cast<T*>(a.dk) + b * a.sdk.b + hk * a.sdk.h, a.sdk.s, krow, a.S, t4,
+                       acc, one);
   }
 }
 
@@ -519,163 +818,256 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
 // backward: dQ
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
-  constexpr int LD = Geo<D>::LD;
-  constexpr int KS = D / 16;
-  constexpr int NT = D / 8;
-  constexpr int TE = Geo<D>::kTileElems;
-  extern __shared__ float4 smem4[];
-  T* qs = reinterpret_cast<T*>(smem4);
-  T* dos = qs + TE;
-  T* ks = dos + TE;                // [2][kTile][LD]
-  T* vs = ks + 2 * TE;             // [2][kTile][LD]
+template <int D>
+struct DqGeo {
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kM = 128;                     // query rows of a block
+  static constexpr int kN = 64;                      // K/V rows of a tile
+  static constexpr int kQBox = kM * kRowBytes;
+  static constexpr int kBoxBytes = kN * kRowBytes;   // one box of a K or V tile
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kBoxes * kQBox;
+  static constexpr int kK = 2 * kDO;                 // [2 stages]
+  static constexpr int kV = kK + 2 * kTileBytes;     // [2 stages]
+  static constexpr int kBar = kV + 2 * kTileBytes;
+  static constexpr int kSmem = kBar + 128 + 1024;
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int nq = (a.S + kTile - 1) / kTile;
-  const int qi = nq - 1 - blockIdx.x;
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
+  using G = DqGeo<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(sm + G::kBar);
+  uint64_t* kv_full = qd_full + 1;   // [2]
+  uint64_t* kv_empty = qd_full + 3;  // [2]
+
+  const int nq = (a.S + G::kM - 1) / G::kM;
+  const int qi = nq - 1 - blockIdx.x;              // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hk);
-  const int q0 = qi * kTile;
-  const T* kg = static_cast<const T*>(a.k) + b * a.sk.b + hk * a.sk.h;
-  const T* vg = static_cast<const T*>(a.v) + b * a.sv.b + hk * a.sv.h;
-  const int nk = a.causal ? qi + 1 : nq;
+  const int q0 = qi * G::kM;
+  const int nk_all = (a.S + G::kN - 1) / G::kN;
+  const int nk = a.causal ? min(nk_all, (q0 + G::kM - 1) / G::kN + 1) : nk_all;
 
-  load_tile<D>(qs, static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h, a.sq.s, q0, a.S, tid);
-  load_tile<D>(dos, static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h, a.sdo.s, q0,
-               a.S, tid);
-  cp_async_commit();
-  load_tile<D>(ks, kg, a.sk.s, 0, a.S, tid);
-  load_tile<D>(vs, vg, a.sv.s, 0, a.S, tid);
-  cp_async_commit();
-
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse[2], delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long off = ((long long)b * a.H + h) * a.S + row[i];
-    lse[i] = row[i] < a.S ? a.lse[off] : 0.f;
-    delta[i] = row[i] < a.S ? a.delta[off] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(kv_full + i, 1);
+      mbar_init(kv_empty + i, kConsumerWarps);
+    }
+    fence_barrier_init();
   }
-  float dq[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  __syncthreads();
 
-  // this warp's Q and dO rows stay in registers for the whole K loop
-  uint32_t qf[KS][4], of[KS][4];
-  for (int it = 0; it < nk; ++it) {
-    if (it + 1 < nk) {
-      const int st = (it + 1) & 1;
-      load_tile<D>(ks + st * TE, kg, a.sk.s, (it + 1) * kTile, a.S, tid);
-      load_tile<D>(vs + st * TE, vg, a.sv.s, (it + 1) * kTile, a.S, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        frag_a<LD>(qf[kk], qs, warp * 16, kk * 16, lane);
-        frag_a<LD>(of[kk], dos, warp * 16, kk * 16, lane);
+  if (threadIdx.x < kWG) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qd_full, 2 * G::kBoxes * G::kQBox);
+      for (int x = 0; x < G::kBoxes; ++x) {
+        tma_load(sm + G::kQ + x * G::kQBox, &tq, qd_full, x * kBox, h, q0, b);
+        tma_load(sm + G::kDO + x * G::kQBox, &tdo, qd_full, x * kBox, h, q0, b);
       }
-    }
-    const T* kt = ks + (it & 1) * TE;
-    const T* vt = vs + (it & 1) * TE;
-    const int k0 = it * kTile;
-
-#pragma unroll 1
-    for (int c0 = 0; c0 < kTile; c0 += kChunk) {
-      float p[kChunk / 8][4], dp[kChunk / 8][4];
-#pragma unroll
-      for (int j = 0; j < kChunk / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) p[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-        for (int j = 0; j < kChunk / 8; j += 2) {
-          uint32_t bk[4], bv[4];
-          frag_b_rows2<LD>(bk, kt, c0 + j * 8, kk * 16, lane);
-          frag_b_rows2<LD>(bv, vt, c0 + j * 8, kk * 16, lane);
-          mma16816<T>(p[j], qf[kk], bk);
-          mma16816<T>(p[j + 1], qf[kk], bk + 2);
-          mma16816<T>(dp[j], of[kk], bv);
-          mma16816<T>(dp[j + 1], of[kk], bv + 2);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kChunk / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + c0 + j * 8 + 2 * t + (e & 1);
-          const int r = row[e >> 1];
-          float pv = 0.f;
-          if (r < a.S && col < a.S && !(a.causal && col > r))
-            pv = __expf(fminf(p[j][e] * a.scale - lse[e >> 1], kClamp));
-          dp[j][e] = pv * (dp[j][e] - delta[e >> 1]) * a.scale;
-        }
-#pragma unroll
-      for (int kq = 0; kq < kChunk / 16; ++kq) {
-        uint32_t sf[4];
-        acc_to_a<T>(sf, dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-        for (int n = 0; n < NT; n += 2) {
-          uint32_t bk[4];
-          frag_b_cols2<LD>(bk, kt, c0 + kq * 16, n * 8, lane);
-          mma16816<T>(dq[n], sf, bk);
-          mma16816<T>(dq[n + 1], sf, bk + 2);
+      for (int it = 0; it < nk; ++it) {
+        const int st = it & 1;
+        const uint32_t ph = (it >> 1) & 1;
+        mbar_wait(kv_empty + st, ph ^ 1);
+        mbar_expect_tx(kv_full + st, 2 * G::kTileBytes);
+        for (int x = 0; x < G::kBoxes; ++x) {
+          tma_load(sm + G::kK + st * G::kTileBytes + x * G::kBoxBytes, &tk, kv_full + st,
+                   x * kBox, hk, it * G::kN, b);
+          tma_load(sm + G::kV + st * G::kTileBytes + x * G::kBoxBytes, &tv, kv_full + st,
+                   x * kBox, hk, it * G::kN, b);
         }
       }
     }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
+  } else {
+    const int c = threadIdx.x / kWG - 1;           // query rows c * 64 .. of the block
+    const int t = threadIdx.x % kWG, t4 = t % 4;
+    const int row = q0 + c * 64 + (t / 32) * 16 + (t % 32) / 4;   // and row + 8
+    const float sl2 = a.scale * kLog2e;
+    const uint32_t qs = smem_u32(sm + G::kQ) + c * 64 * kRowBytes;
+    const uint32_t dos = smem_u32(sm + G::kDO) + c * 64 * kRowBytes;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = row + 8 * r < a.S;
+      const long long i = ((long long)b * a.H + h) * a.S + row + 8 * r;
+      lse2[r] = ok ? a.lse[i] * kLog2e : 0.f;
+      dl[r] = ok ? a.delta[i] : 0.f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    mbar_wait(qd_full, 0);
 
-  T* dqg = static_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
+    for (int it = 0; it < nk; ++it) {
+      const int st = it & 1;
+      const uint32_t ph = (it >> 1) & 1;
+      const int k0 = it * G::kN;
+      const uint32_t ks = smem_u32(sm + G::kK + st * G::kTileBytes);
+      const uint32_t vs = smem_u32(sm + G::kV + st * G::kTileBytes);
+
+      float s[G::kN / 2], dp[G::kN / 2];
+      mbar_wait(kv_full + st, ph);
+      wg_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= a.S) continue;
+      for (int x = 0; x < G::kBoxes; ++x)
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      store2<T>(dqg + (long long)row[i] * a.sdq.s + n * 8 + 2 * t, dq[n][2 * i], dq[n][2 * i + 1]);
+        for (int kk = 0; kk < kBox / 16; ++kk)
+          Mma<T, G::kN>::template ss<0>(s, kmajor(qs + x * G::kQBox + kk * 32),
+                                        kmajor(ks + x * G::kBoxBytes + kk * 32), x + kk);
+      wg_commit();
+#pragma unroll
+      for (int x = 0; x < G::kBoxes; ++x)
+#pragma unroll
+        for (int kk = 0; kk < kBox / 16; ++kk)
+          Mma<T, G::kN>::template ss<0>(dp, kmajor(dos + x * G::kQBox + kk * 32),
+                                        kmajor(vs + x * G::kBoxBytes + kk * 32), x + kk);
+      wg_commit();
+      wg_wait<1>();                                // P while dP is computed
+      fence_regs(s);
+
+#pragma unroll
+      for (int i = 0; i < G::kN / 2; ++i)
+        s[i] = ex2(fminf(s[i] * sl2 - lse2[(i >> 1) & 1], kClamp2));
+      if (k0 + G::kN > a.S || (a.causal && k0 + G::kN - 1 > q0 + c * 64)) {
+#pragma unroll
+        for (int i = 0; i < G::kN / 2; ++i) {
+          const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          if (col >= a.S || (a.causal && col > row + 8 * ((i >> 1) & 1))) s[i] = 0.f;
+        }
+      }
+      wg_wait();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < G::kN / 2; ++i)
+        dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]) * a.scale;
+      uint32_t da[G::kN / 16][4];
+      to_a<T, G::kN>(da, dp);
+
+      // dQ += dS K
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < G::kN / 16; ++kk)
+        Mma<T, D>::template rs<1>(dq, da[kk], mnmajor(ks + kk * 16 * kRowBytes, G::kBoxBytes), 1);
+      wg_commit();
+      wg_wait();
+      fence_regs(dq);
+      release(kv_empty + st);
+    }
+
+    const float one[2] = {1.f, 1.f};
+    store_rows<T, D>(static_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h, a.sdq.s, row, a.S, t4, dq,
+                     one);
   }
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps and launches
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over (D, heads, S, B) of a [B, S, heads, D] tensor with element
+// strides st (unit along D), boxes of 64 columns by `rows` rows, 128-byte
+// swizzle; reads past an edge give zeros. A dimension of size 1 gets the
+// packed stride, whatever torch reports for it.
+template <typename T>
+int tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads, int D, Strides st,
+               int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kTmaError + CUDA_ERROR_NOT_FOUND;
+  const long long sh = heads > 1 ? st.h : D;
+  const long long ss = S > 1 ? st.s : sh * heads;
+  const long long sb = B > 1 ? st.b : ss * S;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * sizeof(T), (cuuint64_t)ss * sizeof(T),
+                                 (cuuint64_t)sb * sizeof(T)};
+  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map,
+      std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTmaError + (int)r;
 }
 
 template <typename K>
 int prepare(K kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 Strides strides_of(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
 template <typename T, int D>
-int launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = 5 * Geo<D>::kTileElems * sizeof(T);
-  if (int e = prepare(flash_fwd_kernel<T, D>, smem)) return e;
-  dim3 grid((a.S + kTile - 1) / kTile, a.H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(a);
+int launch_fwd(const void* q, const void* k, const void* v, const long long* st, const FwdArgs& a,
+               int B, cudaStream_t stream) {
+  using G = FwdGeo<D>;
+  CUtensorMap mq, mk, mv;
+  if (int e = tensor_map<T>(&mq, q, B, a.S, a.H, D, strides_of(st, 0), G::kM)) return e;
+  if (int e = tensor_map<T>(&mk, k, B, a.S, a.Hk, D, strides_of(st, 1), G::kN)) return e;
+  if (int e = tensor_map<T>(&mv, v, B, a.S, a.Hk, D, strides_of(st, 2), G::kN)) return e;
+  if (int e = prepare(flash_fwd_kernel<T, D>, G::kSmem)) return e;
+  const dim3 grid((a.S + G::kM - 1) / G::kM, a.H, B);
+  flash_fwd_kernel<T, D><<<grid, kThreads, G::kSmem, stream>>>(mq, mk, mv, a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
-  const int nt = (a.S + kTile - 1) / kTile;
-  const size_t smem_dkv = 6 * Geo<D>::kTileElems * sizeof(T) + 4 * kTile * sizeof(float);
-  if (int e = prepare(flash_bwd_dkv_kernel<T, D>, smem_dkv)) return e;
-  flash_bwd_dkv_kernel<T, D><<<dim3(nt, a.Hk, B), kThreads, smem_dkv, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem_dq = 6 * Geo<D>::kTileElems * sizeof(T);
-  if (int e2 = prepare(flash_bwd_dq_kernel<T, D>, smem_dq)) return e2;
-  flash_bwd_dq_kernel<T, D><<<dim3(nt, a.H, B), kThreads, smem_dq, stream>>>(a);
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const long long* st,
+               const BwdArgs& a, int B, cudaStream_t stream) {
+  // dK/dV: Q and dO boxes of 64 rows, K and V of 128; dQ the other way round
+  using GK = KvGeo<D>;
+  using GQ = DqGeo<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (int e = tensor_map<T>(&mq, q, B, a.S, a.H, D, strides_of(st, 0), GK::kM)) return e;
+  if (int e = tensor_map<T>(&mk, k, B, a.S, a.Hk, D, strides_of(st, 1), GK::kN)) return e;
+  if (int e = tensor_map<T>(&mv, v, B, a.S, a.Hk, D, strides_of(st, 2), GK::kN)) return e;
+  if (int e = tensor_map<T>(&mdo, dout, B, a.S, a.H, D, strides_of(st, 3), GK::kM)) return e;
+  const dim3 grid_kv((a.S + GK::kN - 1) / GK::kN, a.Hk, B);
+  if (int e = prepare(flash_bwd_kv_kernel<T, D, true>, GK::kSmem)) return e;
+  flash_bwd_kv_kernel<T, D, true><<<grid_kv, kThreads, GK::kSmem, stream>>>(mq, mk, mv, mdo, a);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  if (int e = prepare(flash_bwd_kv_kernel<T, D, false>, GK::kSmem)) return e;
+  flash_bwd_kv_kernel<T, D, false><<<grid_kv, kThreads, GK::kSmem, stream>>>(mq, mk, mv, mdo, a);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  if (int e = tensor_map<T>(&mq, q, B, a.S, a.H, D, strides_of(st, 0), GQ::kM)) return e;
+  if (int e = tensor_map<T>(&mk, k, B, a.S, a.Hk, D, strides_of(st, 1), GQ::kN)) return e;
+  if (int e = tensor_map<T>(&mv, v, B, a.S, a.Hk, D, strides_of(st, 2), GQ::kN)) return e;
+  if (int e = tensor_map<T>(&mdo, dout, B, a.S, a.H, D, strides_of(st, 3), GQ::kM)) return e;
+  if (int e = prepare(flash_bwd_dq_kernel<T, D>, GQ::kSmem)) return e;
+  flash_bwd_dq_kernel<T, D><<<dim3((a.S + GQ::kM - 1) / GQ::kM, a.H, B), kThreads, GQ::kSmem,
+                              stream>>>(mq, mk, mv, mdo, a);
   return (int)cudaGetLastError();
 }
 
@@ -693,18 +1085,18 @@ int dispatch(int dtype, int D, F&& f) {
 // q/o [B, S, H, D], k/v [B, S, Hk, D] with unit stride along D; strides holds
 // the (batch, seq, head) element strides of q, k, v, o in that order. lse is
 // f32 [B, H, S], contiguous. dtype 1 is bf16, 2 is fp16; D is 64 or 128. The
-// caller has checked H % Hk == 0, shapes, 16-byte alignment of every row and
-// even strides. Returns the cudaError_t of the launch (0 on success).
+// caller has checked H % Hk == 0, shapes, 16-byte alignment of the data and
+// strides that are positive multiples of 8 (16 bytes, as TMA needs). Returns
+// the cudaError_t of the launch (0 on success), or 10000 + the CUresult of a
+// tensor map the driver refused.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, const long long* strides, int B, int H, int Hk,
                                    int S, int D, float scale, int causal, int dtype,
                                    void* stream) {
-  FwdArgs a{q, k, v, o, static_cast<float*>(lse),
-            strides_of(strides, 0), strides_of(strides, 1), strides_of(strides, 2),
-            strides_of(strides, 3), H, Hk, S, scale, causal};
+  const FwdArgs a{o, static_cast<float*>(lse), strides_of(strides, 3), H, Hk, S, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, D, [&](auto tv, auto dv) {
-    return launch_fwd<decltype(tv), decltype(dv)::value>(a, B, s);
+    return launch_fwd<decltype(tv), decltype(dv)::value>(q, k, v, strides, a, B, s);
   });
 }
 
@@ -715,13 +1107,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    void* dq, void* dk, void* dv, const long long* strides,
                                    int B, int H, int Hk, int S, int D, float scale, int causal,
                                    int dtype, void* stream) {
-  BwdArgs a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-            dq, dk, dv,
-            strides_of(strides, 0), strides_of(strides, 1), strides_of(strides, 2),
-            strides_of(strides, 3), strides_of(strides, 4), strides_of(strides, 5),
-            strides_of(strides, 6), H, Hk, S, scale, causal};
+  const BwdArgs a{static_cast<const float*>(lse), static_cast<const float*>(delta), dq, dk, dv,
+                  strides_of(strides, 4), strides_of(strides, 5), strides_of(strides, 6),
+                  H, Hk, S, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, D, [&](auto tv, auto dv_) {
-    return launch_bwd<decltype(tv), decltype(dv_)::value>(a, B, s);
+    return launch_bwd<decltype(tv), decltype(dv_)::value>(q, k, v, dout, strides, a, B, s);
   });
 }

@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "build", "launch_stream", "load", "nvcc_path"]
+__all__ = ["KERNELS", "build", "launch_stream", "library_path", "load", "nvcc_path"]
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -51,6 +51,11 @@ def _library(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` for the current source is built."""
+    return _library(name)[1]
 
 
 def build(names=KERNELS) -> dict:

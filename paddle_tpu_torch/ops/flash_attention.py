@@ -1,4 +1,4 @@
-"""FlashAttention-2: the Hopper kernels' wrappers, their plain versions,
+"""Flash attention: the Hopper kernels' wrappers, their plain versions,
 the autograd op and the gate.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_kernel.py`` (forward
@@ -123,7 +123,8 @@ def _check(name, q, k, v, *like_q):
     """Raise unless the kernel takes these tensors: bf16/fp16 of one type
     on one device, q [B, S, H, D] and k, v [B, S, Hk, D] with H % Hk == 0,
     D in HEAD_DIMS, unit stride along D, other strides multiples of 8 and
-    16-byte aligned data."""
+    16-byte aligned data, as the kernels' TMA tensor maps need; a stride of
+    0 (a broadcast dimension) only where the dimension has size 1."""
     if q.dtype not in DTYPES:
         raise TypeError(f"{name} on the card takes bf16 or fp16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -141,7 +142,8 @@ def _check(name, q, k, v, *like_q):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name}: inputs must share q's dtype and device")
     for t in (q, k, v, *like_q):
-        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+        if (t.stride(-1) != 1 or t.data_ptr() % 16
+                or any(st % 8 or (st == 0 and n > 1) for st, n in zip(t.stride()[:3], t.shape))):
             raise ValueError(f"{name}: needs unit stride along head_dim, other strides "
                              f"multiples of 8 and 16-byte aligned data, got strides "
                              f"{t.stride()}")

@@ -1,0 +1,1 @@
+"""Developer tools of the port that run on the card."""

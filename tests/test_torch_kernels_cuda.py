@@ -7,8 +7,9 @@ Run them on the card with::
 
 They cover shapes chip_smoke.py does not: other block sizes, head dims
 and GQA ratios, f32 attention, ragged M and odd K/N for the GEMM, flash
-attention at GQA ratios 1/4/8, head_dim 64 and 128, ragged S, causal or
-not, fp16, and its determinism, RMSNorm at ragged N and several H, the
+attention at GQA ratios 1/4/8, head_dim 64 and 128, S below, at and just
+past its 64- and 128-row tiles and ragged, causal or not, B 2, q/k/v as
+head-slices of one fused tensor, fp16, and its determinism, RMSNorm at ragged N and several H, the
 int8 GEMM's tensor-core forward and dX at ragged M, around the M = 64
 switch and at the smallest K and N, dX's determinism, SwiGLU at odd sizes,
 the ring's lse merge in bf16 and fp16 at head_dim 8 to 256, a small ring
@@ -164,12 +165,19 @@ def test_engine_launches_both_kernels(dev):
     assert tokens["bf16"] != [] and tokens["int8"] != []
 
 
-def _flash_inputs(dev, B, S, H, Hk, hd, dtype, seed):
+def _flash_inputs(dev, B, S, H, Hk, hd, dtype, seed, fused=False):
+    """q, k, v, dO; with ``fused``, q, k and v are head-slices of one
+    [B, S, H + 2 Hk, hd] tensor, so the kernels' tensor maps see row
+    strides that are not the packed ones."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
-    k = torch.randn((B, S, Hk, hd), generator=g, device=dev).to(dtype)
-    v = torch.randn((B, S, Hk, hd), generator=g, device=dev).to(dtype)
+    if fused:
+        qkv = torch.randn((B, S, H + 2 * Hk, hd), generator=g, device=dev).to(dtype)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hk], qkv[:, :, H + Hk:]
+    else:
+        q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, S, Hk, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, S, Hk, hd), generator=g, device=dev).to(dtype)
     do = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
     return q, k, v, do
 
@@ -179,16 +187,38 @@ def _assert_tiles_close(got, want):
     assert worst <= FLASH_TILE_RTOL, worst
 
 
-@pytest.mark.parametrize("B,S,H,Hk,hd,causal,dtype", [
-    (1, 256, 8, 8, 128, True, torch.bfloat16),      # GQA ratio 1
-    (2, 200, 8, 2, 128, True, torch.bfloat16),      # ratio 4, ragged S
-    (1, 333, 16, 2, 64, False, torch.bfloat16),     # ratio 8, hd 64, not causal
-    (1, 64, 16, 8, 64, True, torch.bfloat16),       # one tile
-    (1, 129, 4, 1, 128, False, torch.float16),      # fp16, MQA, ragged
-    (1, 1, 2, 1, 64, True, torch.bfloat16),         # a single row
+BF16, FP16 = torch.bfloat16, torch.float16
+
+
+@pytest.mark.parametrize("B,S,H,Hk,hd,causal,dtype,fused", [
+    (1, 256, 8, 8, 128, True, BF16, False),      # GQA ratio 1
+    (2, 200, 8, 2, 128, True, BF16, False),      # ratio 4, ragged S
+    (1, 333, 16, 2, 64, False, BF16, False),     # ratio 8, hd 64, not causal
+    (1, 64, 16, 8, 64, True, BF16, False),       # one tile
+    (1, 129, 4, 1, 128, False, FP16, False),     # fp16, MQA, ragged
+    (1, 1, 2, 1, 64, True, BF16, False),         # a single row
+    # the edges of the 128-row and 64-row tiles, causal and not
+    (1, 1, 4, 2, 128, False, BF16, False),
+    (1, 63, 4, 2, 128, True, BF16, False),
+    (1, 63, 4, 2, 128, False, BF16, False),
+    (1, 127, 8, 2, 128, True, BF16, False),
+    (1, 127, 8, 2, 64, False, BF16, False),
+    (1, 129, 8, 2, 128, True, BF16, False),
+    (1, 129, 8, 2, 64, False, BF16, False),
+    (1, 1000, 8, 2, 128, True, BF16, False),
+    (1, 1000, 8, 2, 128, False, BF16, False),
+    # two sequences: a ragged S must not read the next one's rows
+    (2, 1000, 8, 4, 64, True, BF16, False),
+    (2, 127, 4, 2, 128, False, BF16, False),
+    # head-slices of one fused qkv tensor
+    (1, 300, 8, 2, 128, True, BF16, True),
+    (2, 129, 4, 4, 64, False, BF16, True),
+    # fp16 at head_dim 64
+    (1, 1000, 8, 2, 64, True, FP16, False),
+    (2, 63, 4, 1, 64, False, FP16, False),
 ])
-def test_flash_attention_matches_plain(dev, B, S, H, Hk, hd, causal, dtype):
-    q, k, v, do = _flash_inputs(dev, B, S, H, Hk, hd, dtype, seed=S + H + hd)
+def test_flash_attention_matches_plain(dev, B, S, H, Hk, hd, causal, dtype, fused):
+    q, k, v, do = _flash_inputs(dev, B, S, H, Hk, hd, dtype, seed=S + H + hd, fused=fused)
     f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, causal)
@@ -199,29 +229,45 @@ def test_flash_attention_matches_plain(dev, B, S, H, Hk, hd, causal, dtype):
     assert (lse - ref_lse).abs().max().item() <= FLASH_LSE_ATOL
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     got = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    again = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
     want = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
-    assert fa.flash_attention_bwd.launches == b0 + 1
-    for g_, w_, t in zip(got, want, (q, k, v)):
+    assert fa.flash_attention_bwd.launches == b0 + 2
+    for g_, a_, w_, t in zip(got, again, want, (q, k, v)):
         assert g_.dtype == dtype and g_.shape == t.shape
+        assert torch.equal(g_, a_)
         _assert_tiles_close(g_, w_)
 
 
-def test_flash_attention_autograd_and_determinism(dev):
-    q, k, v, do = _flash_inputs(dev, 1, 300, 8, 2, 128, torch.bfloat16, seed=3)
+@pytest.mark.parametrize("B,S,H,Hk,hd,causal,dtype,fused", [
+    (1, 300, 8, 2, 128, True, BF16, False),
+    (2, 1000, 8, 2, 128, True, BF16, False),
+    (1, 127, 4, 1, 64, False, FP16, False),
+    (2, 129, 8, 2, 128, True, BF16, True),
+])
+def test_flash_attention_autograd_and_determinism(dev, B, S, H, Hk, hd, causal, dtype, fused):
+    q, k, v, do = _flash_inputs(dev, B, S, H, Hk, hd, dtype, seed=3 + S, fused=fused)
     grads = []
     for _ in range(2):
-        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-        out = fa.flash_attention(qs, ks, vs, causal=True)
+        # fresh leaves on the same storage: a fused layout reaches the kernels
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = fa.flash_attention(qs, ks, vs, causal=causal)
         out.backward(do)
         grads.append((out.detach(), qs.grad, ks.grad, vs.grad))
     torch.cuda.synchronize()
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+    # the autograd op against the plain versions, tile by tile
+    ref_out, _ = fa.flash_attention_fwd_ref(q, k, v, causal)
+    _assert_tiles_close(grads[0][0], ref_out)
+    delta = (do.float() * grads[0][0].float()).sum(-1).transpose(1, 2).contiguous()
+    _, lse = fa.flash_attention_fwd(q, k, v, causal)
+    for got, want in zip(grads[0][1:], fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)):
+        _assert_tiles_close(got, want)
     # through the gate: f32 and sq != sk stay composed (None)
-    assert fa.flash_attention_bsnd(q.float(), k.float(), v.float(), True) is None
+    assert fa.flash_attention_bsnd(q.float(), k.float(), v.float(), causal) is None
     assert fa.flash_attention_bsnd(q[:, :10], k, v, False) is None
-    out = fa.flash_attention_bsnd(q, k, v, True)
+    out = fa.flash_attention_bsnd(q, k, v, causal)
     assert torch.equal(out, grads[0][0])
 
 
@@ -240,6 +286,8 @@ def test_flash_attention_refuses(dev):
         fa.flash_attention_fwd(q.float(), k.float(), v.float(), True)
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention_fwd(q[:, :, :3], k, v, True)
+    with pytest.raises(ValueError, match="strides"):             # a broadcast KV head
+        fa.flash_attention_fwd(q, k[:, :, :1].expand(1, 64, 2, 64), v, True)
 
 
 @pytest.mark.parametrize("N,H,dtype", [
