@@ -10,12 +10,13 @@ Phases, each printing one line of numbers:
    started together), and for each library the counts of the tensor-core,
    TMA and barrier instructions in its SASS (``cuobjdump -sass``, beside
    nvcc): HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA loads), SYNCS
-   (mbarrier operations). The flash library must hold HGMMA and UTMALDG and
-   no HMMA;
+   (mbarrier operations). The flash and the quant_matmul libraries must
+   hold HGMMA and UTMALDG and no HMMA;
 2. kernels: each kernel against its plain PyTorch version at serving
    shapes in bf16, with the stated tolerance, and timed (CUDA events,
    after warm-up, cycling through enough buffers to defeat the 50 MB L2)
-   beside its bound, the plain version and one PyTorch library call;
+   beside its bound, the plain version and one PyTorch library call; the
+   int8 weight stream also with f32 activations at M = 8;
 3. bf16 engine: Llama-3-8B at full width, random weights from a seed,
    ``ServingEngine`` serving 10 requests on 8 lanes; every request must
    finish, the paged-attention kernel must have been launched, and one
@@ -33,7 +34,14 @@ Phases, each printing one line of numbers:
    at the training shape (S = 8192, [8192, 4096]) beside its bound, its
    plain version and a PyTorch library yardstick the port never calls
    (``F.scaled_dot_product_attention``, ``F.rms_norm``); flash's line gives
-   ``ms / library_ms`` and ``bound_ms / ms`` each way;
+   ``ms / library_ms`` and ``bound_ms / ms`` each way. Then flash beyond
+   the square bf16 case (FLASH_GENERAL_CASES): sq 1024 / sk 8192 causal
+   (bottom-right) and not, sq 2048 / sk 1000 causal (rows that see no key),
+   f32 at S 2048 and bf16 at head_dim 96 (the SIMT kernels), each held tile
+   by tile (f32 to a tighter limit, which a TF32 control of the plain
+   version must exceed) and timed beside its bound and SDPA
+   (``causal_lower_right`` for bottom-right); and the SIMT kernels' launches through
+   ``nn.functional.flash_attention``;
 6. one training step, kernels against plain: Llama-3-8B widths at 2
    layers, S = 2048, bf16, the same weights on both paths; the loss and
    every parameter's gradient agree within stated tolerances, then one
@@ -45,11 +53,14 @@ Phases, each printing one line of numbers:
    per step, RMSNorm forward and backward 2 L + 1 times), step time,
    tokens/s, model FLOPs share of bf16 peak, peak memory, and one profiled
    step's device-busy share;
-8. fine-tuning kernels: the int8 GEMM's tensor-core forward (M > 64) and
-   its dX against their plain versions in bf16 at the seven Llama-3-8B
-   projection shapes with M = 8192 tokens and a ragged M = 1000, and
-   SwiGLU forward and backward at [8192, 14336] and ragged sizes; each
-   timed beside its bound, its plain version and a PyTorch yardstick;
+8. fine-tuning kernels: the int8 GEMM's tensor-core kernel (wgmma fed by
+   TMA), forward (M > 64) and dX, against their plain versions in bf16 at
+   the seven Llama-3-8B projection shapes with M = 8192 tokens and a ragged
+   M = 1000, and in f32 (through the three-piece bf16 split) at M = 8192,
+   with the split pre-pass alone and an f32 ``QuantizedLinear`` for its
+   launches; SwiGLU forward and backward at [8192, 14336] and ragged
+   sizes; each timed beside its bound, its plain version and a PyTorch
+   yardstick;
 9. one int8 fine-tuning step, kernels against plain: phase 6 with every
    projection swapped for a frozen int8 ``QuantizedLinear`` (the same int8
    weights and scales on both paths), the int8 forward and dX launched
@@ -64,15 +75,18 @@ Phases, each printing one line of numbers:
    ranks of [2048, 32, 128] f32, each writing one finished rank) and at two
    ragged ones (rows merged with lse_b = -1e30 must come back bit for bit),
    the causal merges timed beside their byte bound and the same merge
-   composed of torch ops; ring flash attention (the ring schedule over the flash
-   kernels and the merge, one process, P virtual ranks) forward and
-   backward through torch autograd at B 1, S 8192, P 4, H 32, Hk 8, hd 128,
+   composed of torch ops; ring attention through ``ring_attention``, whose
+   gate sends every case to the ring schedule over the flash kernels and
+   the merge (one process, P virtual ranks), forward and backward through
+   torch autograd at B 1, S 8192, P 4, H 32, Hk 8, hd 128,
    causal, and at P 2, non-causal, hd 64 with 16/8 heads, S / P = 1000 and
    B 2, each held tile by tile against the same schedule through the
    plain versions and against the full-sequence flash kernel, the small
    cases twice for bit-identical gradients, every call launching the flash
    forward and backward P times and the merge P - 1 times; timed at the
-   training shape beside the full flash kernel, the bound and SDPA;
+   training shape beside the full flash kernel, the bound and SDPA; then
+   the ring in f32 through ``ring_attention``'s gate (the SIMT kernels and
+   the merge with an f32 partial) at S 2048, P 4;
 12. one ring step check: Llama-3-8B widths at 2 layers, S = 2048, under a
    ``ProcessMesh`` whose sep axis has 4 ranks, the same weights with
    ``context_parallel="ring"`` and without, both through the kernels: the
@@ -112,6 +126,11 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
+# f32 work at f32 accuracy on the tensor cores takes three products a
+# product: the int8 GEMM's exact three-piece bf16 split (989 / 3), and for
+# attention 3xTF32, the cheapest f32-accurate tensor-core route (494.7 / 3)
+INT8_F32_FLOP_PER_S = BF16_FLOP_PER_S / 3
+ATTN_F32_FLOP_PER_S = 494.7e12 / 3
 L2_BYTES = 50 * 2**20
 
 # kernel vs plain, both on the same bf16 inputs:
@@ -153,6 +172,18 @@ LOGITS_NOISE_FACTOR = 2.0
 #   on both sides: 1e-3 absolute.
 FLASH_TILE_RTOL, FLASH_TILE_FLOOR, FLASH_LSE_ATOL = 1e-2, 1e-5, 1e-3
 FLASH_TILE = 64
+#   A row that sees no key (causal, sk < sq) has lse -1e30 on both sides, to
+#   f32 rounding: lse is held within FLASH_LSE_ATOL plus 1e-6 of its
+#   magnitude.
+FLASH_LSE_RTOL = 1e-6
+#   f32 flash (the SIMT kernels, and the f32 ring over them) rounds nothing
+#   but its f32 sums and exponentials: on the H100 it read 2e-6 of a tile's
+#   norm or less. A kernel that rounded its operands to TF32 (10 mantissa
+#   bits) would read about 4e-4, one that rounded them to bf16 about 3e-3,
+#   so f32 is held to FLASH_F32_TILE_RTOL of a tile's norm. Phase 5 runs the
+#   plain f32 version with TF32 matmuls as such a control and requires it to
+#   exceed the limit.
+FLASH_F32_TILE_RTOL = 1e-4
 # - RMSNorm: the same f32 arithmetic summed in another order, one rounding
 #   to bf16: one bf16 step (2^-7 relative) plus 1e-3 of the largest output.
 NORM_RTOL, NORM_ATOL_FRAC = 2.0 ** -7, 1e-3
@@ -173,6 +204,20 @@ SWIGLU_RTOL, SWIGLU_ATOL_FRAC = 2.0 ** -7, 1e-3
 #   Both sides take the same exact products (dX: the same bf16-rounded
 #   dO * bf16(s)) and differ only in summation order; the plain versions'
 #   f32 products stay full f32 (TF32 off, checked).
+# - the int8 kernels with f32 activations: both sides sum the same exact
+#   products (the weight stream: x * w; the tensor-core kernel: the three
+#   bf16 pieces of the split times w) in f32 in another order and round
+#   nothing after: 1e-5 relative plus 1e-5 of the largest output (an f32 sum
+#   over K <= 14336 carries ~sqrt(K) ulps of its largest partial sum). The
+#   tensor cores add each 16-deep partial product into the f32 accumulator
+#   truncated, not rounded to nearest (on the H100 the q projection's dX,
+#   reduction 4096, came 0.0063 from the plain version, about 2e-5 of its
+#   largest output): up to one ulp of the running sum per step, all of one
+#   sign, so the tensor-core kernel is held to GEMM_F32_TC_ULPS ulp (2^-23)
+#   of the largest output per 16-deep step of its 3 R / 16 steps (R the
+#   reduction length): 9.2e-5 at R = 4096, 3.2e-4 at R = 14336.
+GEMM_F32_RTOL, GEMM_F32_ATOL_FRAC = 1e-5, 1e-5
+GEMM_F32_TC_ULPS = 1
 # - the ring's lse merge: the same f32 formula on both sides, each product
 #   and sum rounded on its own; exp and log of two math libraries may differ
 #   by a few ulps: acc within 1e-5 of each element plus 1e-6 of the largest,
@@ -189,12 +234,13 @@ MERGE_RTOL, MERGE_ATOL_FRAC, MERGE_LSE_ATOL = 1e-5, 1e-6, 1e-5
 #   over 2048 tokens, within 1e-5 relative; every gradient within 3e-2 of
 #   its tensor's largest magnitude.
 RING_STEP_LOSS_RTOL, RING_STEP_GRAD_FRAC = 1e-5, 3e-2
-# - ring flash attention: FLASH_TILE_RTOL and FLASH_LSE_ATOL above, tile by
-#   tile, against (a) the same schedule through the plain versions (the
-#   backward given the kernel forward's out and lse, as in phase 5) and (b)
-#   the full-sequence flash kernel of phase 5 (the same function, another
-#   decomposition: the ring merges partials each rounded to bf16, 2^-9 rms
-#   relative, and its backward takes its own out and lse).
+# - ring flash attention: FLASH_TILE_RTOL (f32: FLASH_F32_TILE_RTOL) and
+#   FLASH_LSE_ATOL above, tile by tile, against (a) the same schedule
+#   through the plain versions (the backward given the kernel forward's
+#   out and lse, as in phase 5) and (b) the full-sequence flash kernel of
+#   phase 5 (the same function, another decomposition: the ring merges
+#   partials each rounded to bf16, 2^-9 rms relative, and its backward
+#   takes its own out and lse).
 
 # the serving trace: more requests than the 8 lanes, prompts of 16-600
 # tokens (chunked prefill of 16), 32 new tokens each
@@ -207,6 +253,15 @@ FLASH_CASES = (("s2048", 1, 2048, 32, 8, 128, True),
                ("s1000_ragged", 1, 1000, 32, 8, 128, True),
                ("s2048_hd64_h16_hk8", 1, 2048, 16, 8, 64, True),
                ("s2048_noncausal", 1, 2048, 32, 8, 128, False))
+# flash beyond the square bf16 case: (label, B, sq, sk, H, Hk, head_dim,
+# causal, dtype); the wgmma kernels with sq != sk (bottom-right causal; the
+# third has 1048 rows that see no key), then the SIMT kernels: f32, and bf16
+# at head_dim 96
+FLASH_GENERAL_CASES = (("sq1024_sk8192_causal", 1, 1024, 8192, 32, 8, 128, True, "bf16"),
+                       ("sq1024_sk8192", 1, 1024, 8192, 32, 8, 128, False, "bf16"),
+                       ("sq2048_sk1000_causal", 1, 2048, 1000, 32, 8, 128, True, "bf16"),
+                       ("f32_s2048_causal", 1, 2048, 2048, 32, 8, 128, True, "f32"),
+                       ("hd96_s2048_causal", 1, 2048, 2048, 32, 8, 96, True, "bf16"))
 NORM_CASES = ((8192, 4096), (1000, 4096), (37, 4096))
 TRAIN_SEQ = 8192
 TRAIN_LAYERS = 4
@@ -248,8 +303,8 @@ def say(phase: str, **nums):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in nums.items()), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -464,7 +519,55 @@ def check_int8(gen):
     say("kernels", kernel="int8_matmul", case="decode_step_M8_225_launches",
         ms=round(total["ms"], 5), bound_ms=round(total["bound_ms"], 5),
         plain_ms=round(total["plain_ms"], 5), library_ms=round(total["library_ms"], 5))
+    check_int8_f32_decode(gen)
     return total
+
+
+def hold_gemm_f32(label, got, want, reduction: int = 0) -> float:
+    """GEMM_F32_RTOL and GEMM_F32_ATOL_FRAC elementwise, or for the
+    tensor-core kernel (``reduction`` its length R) GEMM_F32_TC_ULPS ulps of
+    the largest output per 16-deep step; returns the max abs error."""
+    import torch
+
+    if got.dtype != torch.float32:
+        raise AssertionError(f"{label} returned {got.dtype}, not float32")
+    diff = (got - want).abs()
+    frac = (GEMM_F32_TC_ULPS * 3 * -(-reduction // 16) * 2.0 ** -23 if reduction
+            else GEMM_F32_ATOL_FRAC)
+    if not bool((diff <= GEMM_F32_RTOL * want.abs() + frac * want.abs().max()).all()):
+        raise AssertionError(f"{label} differs from its plain version: max abs err "
+                             f"{diff.max().item()}")
+    return diff.max().item()
+
+
+def check_int8_f32_decode(gen):
+    """The weight stream with f32 activations: one decode step at M = 8 (the
+    eight shapes, 225 launches), each shape held against the plain version
+    and timed beside its bound (bytes), the plain version and cuBLAS in
+    f32 (``torch.matmul`` on the weights cast to f32, TF32 off)."""
+    import torch
+
+    from paddle_tpu_torch.ops import quant_matmul as qm
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    err = 0.0
+    for name, K, N, per_step in GEMM_SHAPES:
+        w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        s = torch.rand((N,), generator=gen, device="cuda") * 0.02 + 1e-3
+        x = torch.randn((8, K), generator=gen, device="cuda")
+        err = max(err, hold_gemm_f32(f"int8_matmul f32 {name} M=8", qm.int8_matmul(x, w, s),
+                                     qm.int8_matmul_ref(x, w, s)))
+        wf = w.float()
+        b_ms, _ = bound_ms(8 * K * 4 + K * N + N * 4 + 8 * N * 4, 2 * 8 * K * N)
+        for key, fn, it in (("ms", lambda i: qm.int8_matmul(x, w, s), 20),
+                            ("plain_ms", lambda i: qm.int8_matmul_ref(x, w, s), 5),
+                            ("library_ms", lambda i: torch.matmul(x, wf) * s, 5)):
+            tot[key] += per_step * device_ms(fn, 1, it)
+        tot["bound_ms"] += per_step * b_ms
+        del w, s, x, wf
+        torch.cuda.empty_cache()
+    say("kernels", kernel="int8_matmul", case="decode_step_M8_f32", max_abs_err=err,
+        **{k: round(v, 5) for k, v in tot.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -510,11 +613,11 @@ def serve(engine, prompts, max_new: int, phase: str):
 
 
 # device kernels of a training step by kind: (kind, name substrings)
-KERNEL_KINDS = (("flash attention (port)", ("flash_fwd_kernel", "flash_bwd_")),
+KERNEL_KINDS = (("flash attention (port)", ("flash_fwd_kernel", "flash_bwd_", "flash_simt_")),
                 ("ring merge (port)", ("ring_merge_kernel",)),
                 ("rms norm (port)", ("rms_fwd_kernel", "rms_bwd_dx_kernel")),
-                ("int8 forward (port)", ("int8_fwd_mma_kernel", "int8_gemm_kernel")),
-                ("int8 dX (port)", ("int8_dx_mma_kernel",)),
+                ("int8 forward (port)", ("int8_tc_kernel<false", "int8_gemm_kernel")),
+                ("int8 dX (port)", ("int8_tc_kernel<true", "prepass_kernel")),
                 ("swiglu (port)", ("swiglu_fwd_kernel", "swiglu_bwd_kernel")),
                 ("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
                 ("softmax / cross entropy", ("softmax", "nll_loss", "log_softmax")),
@@ -668,24 +771,28 @@ def flash_counts(causal: bool, B, S, H, Hk, hd):
 
 def hold_flash(label, fwd, ref_fwd, grads, ref_grads) -> dict:
     """Hold the kernels' (out, lse) and (dq, dk, dv) against the plain
-    versions'; raise past the limits. Returns the errors."""
+    versions'; raise past the limits (FLASH_F32_TILE_RTOL for f32,
+    FLASH_TILE_RTOL otherwise). Returns the errors."""
+    import torch
+
     from paddle_tpu_torch.ops.flash_attention import tile_errors
 
     def tile_err(got, want):
         return tile_errors(got, want, FLASH_TILE, FLASH_TILE_FLOOR)
 
     (out, lse), (ref_out, ref_lse) = fwd, ref_fwd
+    rtol = FLASH_F32_TILE_RTOL if out.dtype == torch.float32 else FLASH_TILE_RTOL
     out_tile, out_err = tile_err(out, ref_out)
-    lse_err = (lse - ref_lse).abs().max().item()
-    if not (out_tile <= FLASH_TILE_RTOL and lse_err <= FLASH_LSE_ATOL):
+    lse_err = ((lse - ref_lse).abs() - FLASH_LSE_RTOL * ref_lse.abs()).clamp_min(0).max().item()
+    if not (out_tile <= rtol and lse_err <= FLASH_LSE_ATOL):
         raise AssertionError(f"flash forward ({label}) differs from its plain version: out "
-                             f"{out_tile} of a tile's norm (tol {FLASH_TILE_RTOL}), lse "
+                             f"{out_tile} of a tile's norm (tol {rtol}), lse "
                              f"{lse_err} (tol {FLASH_LSE_ATOL})")
     errs = [tile_err(g, w) for g, w in zip(grads, ref_grads)]
-    if not all(t <= FLASH_TILE_RTOL for t, _ in errs):
+    if not all(t <= rtol for t, _ in errs):
         raise AssertionError(f"flash backward ({label}) differs from its plain version: "
                              f"dq/dk/dv {[t for t, _ in errs]} of a tile's norm "
-                             f"(tol {FLASH_TILE_RTOL})")
+                             f"(tol {rtol})")
     return {"out_err": out_err, "out_tile_err": out_tile, "lse_err": lse_err,
             "dq_dk_dv_err": [e for _, e in errs], "dq_dk_dv_tile_err": [t for t, _ in errs],
             "fwd_err": out_err, "bwd_err": max(e for _, e in errs)}
@@ -820,6 +927,160 @@ def time_flash(gen):
              "library_ms": lib_bwd_ms, "library_ratio": ms_bwd / lib_bwd_ms,
              "bound_share": bb / ms_bwd,
              "at": at + "; library: torch.autograd.grad through SDPA's forward (eager)"})
+
+
+def general_pairs(B, sq, sk, H, causal) -> int:
+    """The (query, key) pairs a call needs: bottom-right causal rows see
+    ``min(sk, i + sk - sq + 1)`` keys, a row that sees no key is uniform
+    over all sk of them."""
+    if not causal:
+        return B * H * sq * sk
+    off = sk - sq
+    dead = max(0, min(sq, -off))
+    live = sum(min(sk, i + off + 1) for i in range(dead, sq))
+    return B * H * (dead * sk + live)
+
+
+def tf32_control(q, k, v, do, lse, delta, causal, ref_out, ref_grads) -> dict:
+    """The f32 flash limit's control: the plain f32 versions run with TF32
+    matmuls (what a kernel that rounded its operands to TF32 would compute),
+    read tile by tile against the same plain versions in full f32. Raises
+    unless every reading exceeds FLASH_F32_TILE_RTOL, so the limit can fail
+    such a kernel. Returns the readings."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    def tile_err(got, want):
+        return fa.tile_errors(got, want, FLASH_TILE, FLASH_TILE_FLOOR)[0]
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out_t, _ = fa.flash_attention_fwd_ref(q, k, v, causal)
+        grads_t = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    reads = [tile_err(out_t, ref_out), *(tile_err(a, b) for a, b in zip(grads_t, ref_grads))]
+    if not all(r > FLASH_F32_TILE_RTOL for r in reads):
+        raise AssertionError(f"the TF32 control of the f32 flash limit reads {reads}, not all "
+                             f"above FLASH_F32_TILE_RTOL {FLASH_F32_TILE_RTOL}")
+    return {"tf32_control_out_dq_dk_dv_tile_err": reads, "f32_tile_rtol": FLASH_F32_TILE_RTOL}
+
+
+def check_flash_general(gen):
+    """Flash beyond the square bf16 case (FLASH_GENERAL_CASES): forward (out,
+    lse) and backward (dQ, dK, dV, on the kernel forward's lse and delta)
+    against the plain versions tile by tile, each timed beside its bound
+    (bf16 cases at the bf16 peak, f32 at 3xTF32), the plain version and one
+    library call (SDPA over K/V expanded to every head; bottom-right causal
+    through ``causal_lower_right``, since ``is_causal`` aligns top-left; its
+    backward alone by ``torch.autograd.grad``). Then the SIMT kernels' main
+    path: ``nn.functional.flash_attention`` (the user's entry point) on the
+    f32 and the head_dim 96 case, forward and backward, with the launch
+    counts set to 0 just before and read just after. Returns the SIMT
+    forward's and backward's numbers (the f32 case) and those launches."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    res = {}
+    inputs = {}
+    for label, B, sq, sk, H, Hk, hd, causal, dt in FLASH_GENERAL_CASES:
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        q, do = (torch.randn((B, sq, H, hd), generator=gen, device="cuda").to(dtype)
+                 for _ in "qo")
+        k, v = (torch.randn((B, sk, Hk, hd), generator=gen, device="cuda").to(dtype)
+                for _ in "kv")
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+        again = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+        ref_fwd = fa.flash_attention_fwd_ref(q, k, v, causal)
+        ref_grads = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"flash ({label}) backward is not deterministic")
+        errs = hold_flash(label, (out, lse), ref_fwd, grads, ref_grads)
+        control = {}
+        if dt == "f32":
+            control = tf32_control(q, k, v, do, lse, delta, causal, ref_fwd[0], ref_grads)
+        del ref_fwd, ref_grads, again
+        peak = ATTN_F32_FLOP_PER_S if dt == "f32" else BF16_FLOP_PER_S
+        es = q.element_size()
+        pairs = general_pairs(B, sq, sk, H, causal)
+        qo, kv, st = B * sq * H * hd * es, B * sk * Hk * hd * es, B * H * sq * 4
+        bf, byf = bound_ms(2 * qo + 2 * kv + st, 4 * pairs * hd, peak)
+        bb, byb = bound_ms(3 * qo + 4 * kv + 2 * st, 10 * pairs * hd, peak)
+        ms_fwd = device_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal), 1, 5)
+        ms_bwd = device_ms(lambda i: fa.flash_attention_bwd(q, k, v, do, lse, delta, causal),
+                           1, 5)
+        plain_fwd = eager_ms(lambda i: fa.flash_attention_fwd_ref(q, k, v, causal), 1, 1, 1)
+        plain_bwd = eager_ms(lambda i: fa.flash_attention_bwd_ref(q, k, v, do, lse, delta,
+                                                                  causal), 1, 1, 1)
+        rep = H // Hk
+        qt, dot = q.transpose(1, 2), do.transpose(1, 2)
+        kt, vt = (t.repeat_interleave(rep, dim=2).transpose(1, 2) for t in (k, v))
+        mask = causal_lower_right(sq, sk) if causal and sq != sk else None
+        kw = dict(attn_mask=mask) if mask is not None else dict(is_causal=causal)
+        lib_fwd = device_ms(lambda i: F.scaled_dot_product_attention(qt, kt, vt, **kw), 1, 5)
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, **kw)
+        lib_bwd = eager_ms(lambda i: torch.autograd.grad(lib_out, (ql, kl, vl), dot,
+                                                         retain_graph=True), 1, 3, 1)
+        nums = dict(max_abs_err=errs["fwd_err"], tile_err=errs["out_tile_err"], ms=ms_fwd,
+                    plain_ms=plain_fwd, bound_ms=bf, bound_by=byf, library_ms=lib_fwd)
+        nums_b = dict(max_abs_err=errs["bwd_err"], tile_err=max(errs["dq_dk_dv_tile_err"]),
+                      ms=ms_bwd, plain_ms=plain_bwd, bound_ms=bb, bound_by=byb,
+                      library_ms=lib_bwd)
+        say("train-kernels", kernel="flash_attention", case=label, B=B, sq=sq, sk=sk, H=H,
+            Hk=Hk, hd=hd, causal=causal, dtype=dt,
+            route="wgmma" if dt != "f32" and hd in fa.HEAD_DIMS else "simt",
+            out_tile_err=errs["out_tile_err"], lse_err=errs["lse_err"],
+            dq_dk_dv_tile_err=errs["dq_dk_dv_tile_err"], **control, bit_identical_grads=True,
+            ms_fwd=round(ms_fwd, 5), bound_ms_fwd=round(bf, 5),
+            plain_ms_fwd=round(plain_fwd, 5), library_ms_fwd=round(lib_fwd, 5),
+            ms_bwd=round(ms_bwd, 5), bound_ms_bwd=round(bb, 5),
+            plain_ms_bwd=round(plain_bwd, 5), library_ms_bwd=round(lib_bwd, 5),
+            library_ratio_fwd=round(ms_fwd / lib_fwd, 4),
+            library_ratio_bwd=round(ms_bwd / lib_bwd, 4),
+            bound_share_fwd=round(bf / ms_fwd, 4), bound_share_bwd=round(bb / ms_bwd, 4))
+        res[label] = (nums, nums_b)
+        if label.startswith(("f32", "hd96")):
+            inputs[label] = (q, k, v, do, causal, out)
+        del ql, kl, vl, lib_out, qt, kt, vt, dot, grads, delta, lse
+        torch.cuda.empty_cache()
+
+    # the SIMT kernels' main path, through the user's entry point
+    fa.flash_simt_fwd.launches = fa.flash_simt_bwd.launches = 0
+    for label, (q, k, v, do, causal, out) in inputs.items():
+        qs = q.detach().requires_grad_(True)
+        got, _ = PF.flash_attention(qs, k, v, causal=causal)
+        got.backward(do)
+        torch.cuda.synchronize()
+        if not torch.equal(got.detach(), out):
+            raise AssertionError(f"nn.functional.flash_attention ({label}) differs from the "
+                                 "SIMT forward kernel")
+    launches = {"flash_simt_fwd": fa.flash_simt_fwd.launches,
+                "flash_simt_bwd": fa.flash_simt_bwd.launches}
+    say("train-kernels", kernel="flash_simt", main_path="nn.functional.flash_attention on "
+        "the f32 and head_dim 96 cases, forward and backward", **launches)
+    if launches != {"flash_simt_fwd": 2, "flash_simt_bwd": 2}:
+        raise AssertionError(f"the SIMT flash path launched {launches}")
+    del inputs
+    torch.cuda.empty_cache()
+    fwd, bwd = res["f32_s2048_causal"]
+    at = ("B1 S2048 H32 Hk8 hd128 causal f32; bound at 3xTF32 (494.7 / 3 TFLOP/s); library: "
+          "SDPA over K/V expanded to every head (f32)")
+    fwd["at"] = at
+    bwd["at"] = at + ", backward alone by torch.autograd.grad (eager)"
+    for nums in (fwd, bwd):
+        nums["at"] += ("; launches from nn.functional.flash_attention on this case and on "
+                       "B1 S2048 H32 Hk8 hd96 causal bf16")
+    return fwd, bwd, launches
 
 
 def check_rms_norm(gen):
@@ -981,6 +1242,123 @@ def check_int8_train(gen):
     return res["fwd"], res["dx"]
 
 
+def check_int8_f32_train(gen):
+    """f32 activations at one Llama-3-8B layer's seven projections, M =
+    8192: the tensor-core forward and dX (each with its split pre-pass)
+    against the plain versions (the same three-piece products), timed
+    beside the bound (three bf16 products a product: 989 / 3 TFLOP/s), the
+    plain version and cuBLAS in f32 (TF32 off); the split pre-pass alone
+    (the forward's x and dX's dO * s of every projection) against
+    ``split3``, bit for bit, beside its byte bound. Then an f32
+    ``QuantizedLinear`` of the q projection's shape, forward and backward,
+    with the launch counts set to 0 just before: two pre-passes, one
+    forward, one dX."""
+    import torch
+
+    from paddle_tpu_torch.nn import quant as nq
+    from paddle_tpu_torch.ops import quant_matmul as qm
+
+    M = TRAIN_SEQ
+    tot = {key: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                 "max_abs_err": 0.0} for key in ("fwd", "dx")}
+    split = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+    for name, K, N, _ in GEMM_SHAPES[:7]:
+        w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        s = torch.rand((N,), generator=gen, device="cuda") * 0.02 + 1e-3
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        do = torch.randn((M, N), generator=gen, device="cuda")
+        wf = w.float()
+        calls = {"fwd": (lambda i: qm.int8_matmul_large_m(x, w, s),
+                         lambda i: qm.int8_matmul_ref(x, w, s),
+                         lambda i: torch.matmul(x, wf) * s,
+                         M * K * 4 + K * N + N * 4 + M * N * 4),
+                 "dx": (lambda i: qm.int8_matmul_dx(do, w, s),
+                        lambda i: qm.int8_matmul_dx_ref(do, w, s),
+                        lambda i: torch.matmul(do * s, wf.T),
+                        M * N * 4 + K * N + N * 4 + M * K * 4)}
+        for key, (kern, plain, library, nbytes) in calls.items():
+            r = tot[key]
+            r["max_abs_err"] = max(r["max_abs_err"], hold_gemm_f32(
+                f"int8 {key} f32 {name}", kern(0), plain(0), K if key == "fwd" else N))
+            r["bound_ms"] += bound_ms(nbytes, 2 * M * K * N, INT8_F32_FLOP_PER_S)[0]
+            r["ms"] += device_ms(kern, 1, 3)
+            r["plain_ms"] += eager_ms(plain, 1, 1, 1)
+            r["library_ms"] += device_ms(library, 1, 2)
+        for a, sc in ((x, None), (do, s)):
+            got = qm.int8_prepass(a, sc)
+            if not torch.equal(got, qm.split3(a if sc is None else a * sc)):
+                raise AssertionError(f"int8_prepass ({name}) differs from split3")
+            nbytes = a.numel() * (4 + 6) + (0 if sc is None else sc.numel() * 4)
+            split["bytes"] += nbytes
+            split["bound_ms"] += bound_ms(nbytes, a.numel() * 6)[0]
+            split["ms"] += device_ms(lambda i: qm.int8_prepass(a, sc), 1, 10)
+            split["plain_ms"] += device_ms(
+                lambda i: qm.split3(a if sc is None else a * sc), 1, 3)
+        del w, s, x, do, wf, got
+        torch.cuda.empty_cache()
+    for key, r in tot.items():
+        say("int8-kernels", kernel="int8_matmul_large_m" if key == "fwd" else "int8_matmul_dx",
+            case="one_layer_M8192_f32_split", bound_by="operations",
+            **{k_: round(v_, 5) for k_, v_ in r.items()})
+    say("int8-kernels", kernel="int8_prepass", case="one_layer_M8192_f32_split",
+        **{k_: round(v_, 5) if isinstance(v_, float) else v_ for k_, v_ in split.items()})
+
+    # the main path of the split: an f32 QuantizedLinear, forward and backward
+    lin = torch.nn.Module()
+    lin.weight = torch.randn((4096, 4096), generator=gen, device="cuda") * 0.02
+    lin.bias = None
+    ql = nq.QuantizedLinear(lin)
+    x = torch.randn((M, 4096), generator=gen, device="cuda").requires_grad_(True)
+    qm.int8_prepass.launches = qm.int8_matmul_large_m.launches = qm.int8_matmul_dx.launches = 0
+    ql(x).sum().backward()
+    torch.cuda.synchronize()
+    launches = {"int8_prepass": qm.int8_prepass.launches,
+                "int8_matmul_large_m": qm.int8_matmul_large_m.launches,
+                "int8_matmul_dx": qm.int8_matmul_dx.launches}
+    say("int8-kernels", main_path="f32 QuantizedLinear 4096 -> 4096, M 8192, forward and "
+        "backward", **launches)
+    if launches != {"int8_prepass": 2, "int8_matmul_large_m": 1, "int8_matmul_dx": 1}:
+        raise AssertionError(f"the f32 QuantizedLinear launched {launches}")
+    if not bool(torch.isfinite(x.grad).all()):
+        raise AssertionError("the f32 QuantizedLinear's input gradient is not finite")
+    del ql, lin, x
+    torch.cuda.empty_cache()
+
+
+def check_int8_prepass(gen):
+    """The pre-pass on the fine-tuning path: dX's bf16(dO * bf16(s)) at one
+    layer's seven projections, M = 8192, against the plain version bit for
+    bit, timed beside its byte bound; the one PyTorch call computing it
+    (``dO * s.bfloat16()``) is the plain version and the library call
+    both. Returns the numbers, summed over the seven."""
+    import torch
+
+    from paddle_tpu_torch.ops import quant_matmul as qm
+
+    r = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+    for name, K, N, _ in GEMM_SHAPES[:7]:
+        s = torch.rand((N,), generator=gen, device="cuda") * 0.02 + 1e-3
+        do = torch.randn((TRAIN_SEQ, N), generator=gen, device="cuda").bfloat16()
+        if not torch.equal(qm.int8_prepass(do, s), do * s.bfloat16()):
+            raise AssertionError(f"int8_prepass ({name}, bf16) differs from dO * bf16(s)")
+        nbytes = do.numel() * 4 + N * 4
+        r["bytes"] += nbytes
+        r["bound_ms"] += bound_ms(nbytes, do.numel())[0]
+        r["ms"] += device_ms(lambda i: qm.int8_prepass(do, s), 1, 10)
+        r["plain_ms"] += device_ms(lambda i: do * s.bfloat16(), 1, 10)
+        del s, do
+    torch.cuda.empty_cache()
+    say("int8-kernels", kernel="int8_prepass", case="one_layer_M8192_bf16_dx",
+        **{k_: round(v_, 5) if isinstance(v_, float) else v_ for k_, v_ in r.items()})
+    return {"max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["plain_ms"],
+            "at": f"dX's bf16(dO * bf16(s)) summed over the seven projections of one "
+                  f"Llama-3-8B layer at M={TRAIN_SEQ}; max_abs_err against dO * "
+                  "s.bfloat16() (bit for bit), which is also the library call; the f32 "
+                  "split's numbers are phase 8's int8_prepass f32 line; launches from the "
+                  f"{TRAIN_STEPS} timed int8 fine-tuning steps ({TRAIN_LAYERS} layers)"}
+
+
 def check_swiglu(gen):
     """SwiGLU forward and backward against the plain versions at every case,
     timed at [8192, 14336]. No single PyTorch call computes either: the
@@ -1121,7 +1499,9 @@ def ring_lse(lse, P: int):
 
 
 def check_ring(gen):
-    """Every ring case: forward and backward through torch autograd (twice,
+    """Every ring case through ``ring_attention``, the user's entry point
+    (its gate sends every case to the kernels, the ragged shard of 1000
+    positions too): forward and backward through torch autograd (twice,
     bit-identical, for all but the training shape), the launches of one
     call (flash forward and backward P times, the merge P - 1 times), the
     forward and backward held against the same schedule through the plain
@@ -1132,6 +1512,7 @@ def check_ring(gen):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import ring_attention as ra
     from paddle_tpu_torch.ops import ring_flash as rf
 
     merge = check_ring_merge(gen)
@@ -1145,7 +1526,7 @@ def check_ring(gen):
         for _ in range(1 if timed else 2):
             before = {key: w.launches for key, w in wrappers.items()}
             qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-            out = rf.ring_flash_attention(qs, ks, vs, P, causal)
+            out = ra.ring_attention(qs, ks, vs, P, causal)
             out.backward(do)
             runs.append((out.detach(), qs.grad, ks.grad, vs.grad))
             launched = {key: w.launches - before[key] for key, w in wrappers.items()}
@@ -1232,6 +1613,74 @@ def check_ring(gen):
     return merge, ring
 
 
+def check_ring_f32(gen):
+    """The ring in f32 (phase 11): the merge kernel with an f32 partial
+    against its plain version, and ``ring_attention`` (the gate, which sends
+    f32 to the ring schedule over the SIMT flash kernels) at B 1, S 2048,
+    P 4, H 32, Hk 8, hd 128, causal, forward
+    and backward, held tile by tile against the same schedule through the
+    plain versions and against the full-sequence flash kernel, with the
+    launches of one call."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch.ops import ring_flash as rf
+
+    N, S, H, D = 3, 1000, 8, 64
+    acc, out_b = (torch.randn((N, S, H, D), generator=gen, device="cuda") for _ in "ab")
+    lse, lse_b = (torch.randn((N, H, S), generator=gen, device="cuda") * 2 + 8 for _ in "ab")
+    got = [acc.clone(), lse.clone(), torch.zeros((1, S, H, D), device="cuda")]
+    want = [t.clone() for t in got]
+    rf.ring_merge(*got[:2], out_b, lse_b, got[2])
+    rf.ring_merge_plain(*want[:2], out_b, lse_b, want[2])
+    torch.cuda.synchronize()
+    merge_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    if not all(bool(((a - b).abs() <= MERGE_RTOL * b.abs() + MERGE_ATOL_FRAC * b.abs().max()
+                     ).all()) for a, b in zip(got, want)):
+        raise AssertionError(f"ring_merge with an f32 partial differs: {merge_err}")
+
+    B, S, P, H, Hk, hd = 1, 2048, RING, 32, 8, 128
+    q, k, v, do = (torch.randn((B, S, n, hd), generator=gen, device="cuda")
+                   for n in (H, Hk, Hk, H))
+    if not ra.flash_runs(q):
+        raise AssertionError("the ring's gate keeps f32 composed on the card")
+    before = (fa.flash_simt_fwd.launches, fa.flash_simt_bwd.launches, rf.ring_merge.launches)
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = ra.ring_attention(qs, ks, vs, P, True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip(
+        (fa.flash_simt_fwd.launches, fa.flash_simt_bwd.launches, rf.ring_merge.launches),
+        before))
+    if launched != (P, P, P - 1):
+        raise AssertionError(f"the f32 ring launched {launched} (SIMT fwd, bwd, merge)")
+    fq, fk, fv, fdo = (rf.fold(t, P) for t in (q, k, v, do))
+    out_k, lse_k = rf.ring_flash_fwd(fq, fk, fv, P, True)
+    grads_k = rf.ring_flash_bwd(fq, fk, fv, out_k, lse_k, fdo, P, True)
+    with plain_kernels():
+        ref_fwd = rf.ring_flash_fwd(fq, fk, fv, P, True)
+        ref_grads = rf.ring_flash_bwd(fq, fk, fv, out_k, lse_k, fdo, P, True)
+    plain_errs = hold_flash("f32 ring, vs the plain schedule", (out_k, lse_k), ref_fwd,
+                            grads_k, ref_grads)
+    full_out, full_lse = fa.flash_attention_fwd(q, k, v, True)
+    qf, kf, vf = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    fa.flash_attention(qf, kf, vf, True).backward(do)
+    full_errs = hold_flash("f32 ring, vs the full flash kernel",
+                           (out.detach(), ring_lse(lse_k, P)), (full_out, full_lse),
+                           (qs.grad, ks.grad, vs.grad), (qf.grad, kf.grad, vf.grad))
+    say("ring-kernels", kernel="ring_flash_attention", case="f32_s2048_p4", B=B, S=S, P=P,
+        H=H, Hk=Hk, hd=hd, causal=True, launched_simt_fwd_bwd_merge=list(launched),
+        merge_f32_partial_err=merge_err,
+        **{f"plain_{k_}": v_ for k_, v_ in plain_errs.items()
+           if k_.endswith("tile_err") or k_ == "lse_err"},
+        **{f"full_{k_}": v_ for k_, v_ in full_errs.items()
+           if k_.endswith("tile_err") or k_ == "lse_err"})
+    del q, k, v, do, qs, ks, vs, out, fq, fk, fv, fdo, out_k, lse_k, grads_k, ref_fwd
+    del ref_grads, full_out, full_lse, qf, kf, vf
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases 6-7: training
 # ---------------------------------------------------------------------------
@@ -1246,9 +1695,11 @@ def training_wrappers() -> dict:
 
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
+            "flash_simt_fwd": fa.flash_simt_fwd, "flash_simt_bwd": fa.flash_simt_bwd,
             "rms_norm_fwd": fn.rms_norm_fwd, "rms_norm_bwd_dx": fn.rms_norm_bwd_dx,
             "int8_matmul": qm.int8_matmul, "int8_matmul_large_m": qm.int8_matmul_large_m,
-            "int8_matmul_dx": qm.int8_matmul_dx, "ring_merge": rf.ring_merge}
+            "int8_matmul_dx": qm.int8_matmul_dx, "int8_prepass": qm.int8_prepass,
+            "ring_merge": rf.ring_merge}
 
 
 def expected_launches(layers: int, int8: bool = False, ring: int = 0) -> dict:
@@ -1257,13 +1708,14 @@ def expected_launches(layers: int, int8: bool = False, ring: int = 0) -> dict:
     call a layer), RMSNorm forward and backward twice per layer and once
     for the final norm; with int8-frozen projections, the tensor-core
     forward and dX once per projection (7 per layer), and never the weight
-    stream."""
+    stream; in bf16, never the SIMT flash kernels or the f32 split."""
     proj = 7 * layers if int8 else 0
     flash = layers * max(ring, 1)
     return {"flash_attention_fwd": flash, "flash_attention_bwd": flash,
+            "flash_simt_fwd": 0, "flash_simt_bwd": 0,
             "rms_norm_fwd": 2 * layers + 1, "rms_norm_bwd_dx": 2 * layers + 1,
             "int8_matmul": 0, "int8_matmul_large_m": proj, "int8_matmul_dx": proj,
-            "ring_merge": layers * max(ring - 1, 0)}
+            "int8_prepass": proj, "ring_merge": layers * max(ring - 1, 0)}
 
 
 def quantize_projections(model):
@@ -1626,9 +2078,9 @@ def main(argv=None) -> int:
             say("setup", sass="no cuobjdump beside nvcc: no SASS counts")
             break
         say("setup", sass=name, **counts)
-        if name == "flash_attention" and not (counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
-                                              and counts["HMMA"] == 0):
-            raise AssertionError(f"the flash kernels are not wgmma fed by TMA: {counts}")
+        if name in ("flash_attention", "quant_matmul") and not (
+                counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["HMMA"] == 0):
+            raise AssertionError(f"the {name} kernels are not wgmma fed by TMA: {counts}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
@@ -1683,15 +2135,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     flash_fwd, flash_bwd = check_flash(gen)
+    simt_fwd, simt_bwd, simt_launches = check_flash_general(gen)
     norm_fwd, norm_bwd = check_rms_norm(gen)
     check_train_step(args.seed)
     trained = train(args.seed)
     train_launches = trained["launches"]
     int8_fwd, int8_dx = check_int8_train(gen)
+    prepass = check_int8_prepass(gen)
+    check_int8_f32_train(gen)
     swiglu_fwd, swiglu_bwd, swiglu_launches = check_swiglu(gen)
     check_train_step(args.seed, int8=True)
     finetune_launches = train(args.seed, int8=True)["launches"]
     merge, ring = check_ring(gen)
+    check_ring_f32(gen)
     check_ring_step(args.seed)
     with ring_mesh():
         ring_trained = train(args.seed, ring=RING)
@@ -1739,10 +2195,16 @@ def main(argv=None) -> int:
         kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                               f"({TRAIN_LAYERS} layers)")
     for name, source, replaces, nums, launches in (
+            ("flash_simt_fwd", "flash_simt.cu", "flash_attention.py:112", simt_fwd,
+             simt_launches["flash_simt_fwd"]),
+            ("flash_simt_bwd", "flash_simt.cu", "flash_attention.py:112", simt_bwd,
+             simt_launches["flash_simt_bwd"]),
             ("int8_matmul_large_m", "quant_matmul.cu", "quant_matmul.py:117", int8_fwd,
              finetune_launches["int8_matmul_large_m"]),
             ("int8_matmul_dx", "quant_matmul.cu", "quant_matmul.py:143", int8_dx,
              finetune_launches["int8_matmul_dx"]),
+            ("int8_prepass", "quant_matmul.cu", "quant_matmul.py:143", prepass,
+             finetune_launches["int8_prepass"]),
             ("swiglu_fwd", "swiglu.cu", "fused_norm.py:152", swiglu_fwd,
              swiglu_launches["swiglu_fwd"]),
             ("swiglu_bwd", "swiglu.cu", "fused_norm.py:152", swiglu_bwd,
@@ -1750,7 +2212,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": f"paddle_tpu/ops/pallas/{replaces}", "launches": launches, **nums})
-        if name.startswith("int8"):
+        if name in ("int8_matmul_large_m", "int8_matmul_dx"):
             kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed int8 fine-tuning "
                                   f"steps ({TRAIN_LAYERS} layers)")
     for name, source, replaces, nums in (

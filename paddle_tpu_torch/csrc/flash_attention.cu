@@ -8,11 +8,18 @@
 // pass `_bwd_dkv_kernel`, :88-129, and the dQ pass `_bwd_dq_kernel`,
 // :132-160), which every Llama attention call reaches through
 // `flash_attention_bsnd` and the `custom_vjp` of `flash_attention_bhsd`.
-// The same function stands for the bundled TPU kernel the gate used when
-// its own kernel failed a probe (ops/pallas/flash_attention.py:115-132).
+// With Sq != Sk it also stands for the bundled Mosaic kernel the reference's
+// gate sends those calls to (ops/pallas/flash_attention.py:112-133), which
+// aligns its causal mask top-left, unlike the reference's composed path.
 //
 // Semantics, as the TPU kernels: scores q.k in f32 from bf16 (or fp16)
-// products, times `scale`; causal rows see columns <= row; online softmax
+// products, times `scale`; causal rows align bottom-right, as the composed
+// `_sdpa_ref` (paddle_tpu/nn/functional/attention.py:38-41): query row i sees
+// keys j <= i + (Sk - Sq), the TPU kernels' rule when Sq == Sk. A masked
+// score is -1e30, as the composed path masks, so a row that sees no key
+// (causal, Sk < Sq) is uniform over all Sk keys: its output is the mean of
+// V and its lse -1e30; the backward gives it dQ = 0 and dV += dO / Sk on
+// every key (the composed path's gradient does not pass its mask); online softmax
 // statistics (m, l) in f32; the probabilities are rounded to the input type
 // before the P.V product; O in the input type, lse = m + log(l) in f32. The
 // backward takes lse and delta = rowsum(dO * O) (f32), recomputes
@@ -75,7 +82,8 @@
 //   dP^T is computed, then dS^T. dQ: one block per (128 Q rows, head,
 //   batch); Q, dO and the row statistics stay, K and V tiles of 64 rows
 //   stream through two stages, P formed while dP is computed.
-// - head_dim 64 and 128, bf16 and fp16 are compiled; any S.
+// - head_dim 64 and 128, bf16 and fp16 are compiled; any Sq and Sk.
+//   flash_simt.cu takes f32 and the other head dims.
 //
 // Tried on the H100 (80GB HBM3, 700 W) at the shape above, with SDPA's
 // forward at 0.86-0.89 ms and its backward at 2.68-2.88 ms in the same calls:
@@ -95,13 +103,7 @@
 // Not done yet: a persistent schedule, a one-pass backward (dQ reduced
 // across blocks in order, FA3-style) and a fused delta = rowsum(dO * O).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
 
@@ -112,6 +114,13 @@ constexpr int kBox = 64;                  // columns of a TMA box
 constexpr int kRowBytes = kBox * 2;       // one swizzled box row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+// scores in log2 units: a masked one is -1e30 in natural units, as the
+// composed path masks (a row that sees no key is uniform over all Sk keys,
+// lse -1e30); a key past Sk weighs nothing even there; the running maximum
+// starts below both
+constexpr float kMask2 = kNegInf * kLog2e;
+constexpr float kPad2 = 2.f * kMask2;
+constexpr float kInit2 = 4.f * kMask2;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kClamp2 = 60.f * kLog2e;  // the clamp exp(min(x, 60)) in log2
 constexpr int kTmaError = 10000;          // + CUresult of a failed tensor map
@@ -123,7 +132,7 @@ struct Strides {
 struct FwdArgs {
   void* o; float* lse;
   Strides so;
-  int H, Hk, S;
+  int H, Hk, Sq, Sk;
   float scale;
   int causal;
 };
@@ -132,295 +141,11 @@ struct BwdArgs {
   const float* lse; const float* delta;
   void* dq; void* dk; void* dv;
   Strides sdq, sdk, sdv;
-  int H, Hk, S;
+  int H, Hk, Sq, Sk;
   float scale;
   int causal;
 };
 
-// ---------------------------------------------------------------------------
-// shared memory, mbarriers, TMA
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the 128-byte swizzle repeats every 1024 bytes: tiles start on that
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// arrive and add `bytes` to what the current phase waits for
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// wait until the phase of parity `parity` has completed. A pipeline fault
-// that would wait forever traps instead (a launch error, not a hung card):
-// a real wait lasts microseconds, the bound is 2^26 tries.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  for (uint32_t tries = 0;; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == (1u << 26)) __trap();
-  }
-}
-// a consumer warp is done with a stage: one arrival per warp
-__device__ __forceinline__ void release(uint64_t* bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
-}
-
-// one box of a 4-D tensor map at coordinates (column, head, row, batch)
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// wgmma
-// ---------------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// byte offset (unused K-major; MN-major, the step between 64-column boxes),
-// stride byte offset (between 8-row groups: 8 rows of 128 bytes).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ uint64_t kmajor(uint32_t addr) { return desc_sw128(addr, 16); }
-__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, uint32_t box_bytes) {
-  return desc_sw128(addr, box_bytes);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups are in flight
-template <int N = 0>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator reads or writes across a wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&r)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// D[64 x N] (+)= A[64 x 16] B[16 x N], f32 accumulators, T inputs. ss: A and
-// B from shared memory, both K-major. rs: A from registers (four b32 of
-// packed pairs); B transposed (MN-major) when TB is 1. `acc` 0 overwrites D.
-// Accumulator element i of a thread (warp w, lane 4 g + t of its
-// warpgroup) is row 16 w + g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 t +
-// (i & 1); the A fragment of columns 16 k.. is the pairs of elements 8 k..8 k+7.
-template <typename T, int N>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16, 64> {
-  template <int TB>
-  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, %35;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc), "n"(TB)
-        : "memory");
-  }
-  template <int TB>
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)
-        : "memory");
-  }
-};
-
-template <>
-struct Mma<__nv_bfloat16, 128> {
-  template <int TB>
-  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, %67;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(acc), "n"(TB)
-        : "memory");
-  }
-  template <int TB>
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)
-        : "memory");
-  }
-};
-
-template <>
-struct Mma<__half, 64> {
-  template <int TB>
-  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, %35;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc), "n"(TB)
-        : "memory");
-  }
-  template <int TB>
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)
-        : "memory");
-  }
-};
-
-template <>
-struct Mma<__half, 128> {
-  template <int TB>
-  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, %67;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(acc), "n"(TB)
-        : "memory");
-  }
-  template <int TB>
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)
-        : "memory");
-  }
-};
-
-// two floats rounded to the input type, the lower column in the low half
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  } else {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-}
 
 // the A fragments of a 64 x N accumulator, k-step by k-step
 template <typename T, int N>
@@ -477,7 +202,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const FwdArgs a) {
   using G = FwdGeo<D>;
-  static_assert(G::kM == G::kN, "the causal tile count assumes square tiles");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + G::kBar);
@@ -486,12 +210,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* v_full = q_full + 5;   // [2]
   uint64_t* v_empty = q_full + 7;  // [2]
 
-  const int nq = (a.S + G::kM - 1) / G::kM;
+  const int nq = (a.Sq + G::kM - 1) / G::kM;
   const int qi = nq - 1 - blockIdx.x;              // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hk);
   const int q0 = qi * G::kM;
-  const int nk = a.causal ? qi + 1 : nq;
+  const int off = a.Sk - a.Sq;                     // row i sees keys j <= i + off (causal)
+  const int nk_all = (a.Sk + G::kN - 1) / G::kN;
+  // a tile with a row that sees no key walks all keys: that row is uniform
+  const int nk = !a.causal || q0 + off < 0 ? nk_all
+                                           : min(nk_all, (q0 + G::kM - 1 + off) / G::kN + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -534,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float m[2] = {kInit2, kInit2}, l[2] = {0.f, 0.f};
     mbar_wait(q_full, 0);
 
     for (int it = 0; it < nk; ++it) {
@@ -558,20 +286,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(s);
       release(k_empty + st);
 
-      // only the diagonal tile and the ragged tail hold masked columns
-      if (k0 + G::kN > a.S || (a.causal && k0 + G::kN - 1 > q0 + c * 64)) {
+#pragma unroll
+      for (int i = 0; i < G::kN / 2; ++i) s[i] *= sl2;
+      // only the diagonal tiles and the ragged tail hold masked columns
+      if (k0 + G::kN > a.Sk || (a.causal && k0 + G::kN - 1 > q0 + c * 64 + off)) {
 #pragma unroll
         for (int i = 0; i < G::kN / 2; ++i) {
           const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
-          if (col >= a.S || (a.causal && col > row + 8 * ((i >> 1) & 1))) s[i] = kNegInf;
+          if (col >= a.Sk)
+            s[i] = kPad2;
+          else if (a.causal && col > row + 8 * ((i >> 1) & 1) + off)
+            s[i] = kMask2;
         }
       }
       float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int i = 0; i < G::kN / 2; ++i) {
-        s[i] *= sl2;
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-      }
+      for (int i = 0; i < G::kN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
       float alpha[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -609,10 +339,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       l[r] = fmaxf(l[r], 1e-30f);
       inv[r] = 1.f / l[r];
-      if (t4 == 0 && row + 8 * r < a.S)
-        a.lse[((long long)b * a.H + h) * a.S + row + 8 * r] = m[r] * kLn2 + logf(l[r]);
+      if (t4 == 0 && row + 8 * r < a.Sq)
+        a.lse[((long long)b * a.H + h) * a.Sq + row + 8 * r] = m[r] * kLn2 + logf(l[r]);
     }
-    store_rows<T, D>(static_cast<T*>(a.o) + b * a.so.b + h * a.so.h, a.so.s, row, a.S, t4, o,
+    store_rows<T, D>(static_cast<T*>(a.o) + b * a.so.b + h * a.so.h, a.so.s, row, a.Sq, t4, o,
                      inv);
   }
 }
@@ -660,10 +390,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hk = blockIdx.y, b = blockIdx.z;
   const int rep = a.H / a.Hk;
   const int k0 = ki * G::kN;
-  const int nq = (a.S + G::kM - 1) / G::kM;
-  const int q_start = a.causal ? k0 / G::kM : 0;
-  const int per_head = nq - q_start;
+  const int off = a.Sk - a.Sq;                     // query i sees keys j <= i + off (causal)
+  const int nq = (a.Sq + G::kM - 1) / G::kM;
+  // the Q tiles that see this block's keys; in the dV pass, when some rows
+  // see no key (causal, Sk < Sq), all of them: such a row gives dV 1 / Sk of
+  // its dO
+  const int q_start = !a.causal || (kDV && off < 0) ? 0 : max(0, k0 - off) / G::kM;
+  const int per_head = max(0, nq - q_start);
   const int total = rep * per_head;
+  const float inv_sk = 1.f / a.Sk;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -692,13 +427,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int q0 = (q_start + it % per_head) * G::kM;
         // lse and delta of the tile's rows, read before the stage is free;
         // zeros past S
-        const long long off = ((long long)b * a.H + h) * a.S + q0;
+        const long long so = ((long long)b * a.H + h) * a.Sq + q0;
         float lse[2], delta[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const bool ok = q0 + lane + 32 * r < a.S;
-          lse[r] = ok ? a.lse[off + lane + 32 * r] : 0.f;
-          delta[r] = ok ? a.delta[off + lane + 32 * r] : 0.f;
+          const bool ok = q0 + lane + 32 * r < a.Sq;
+          lse[r] = ok ? a.lse[so + lane + 32 * r] : 0.f;
+          delta[r] = ok ? a.delta[so + lane + 32 * r] : 0.f;
         }
         mbar_wait(empty + st, ph ^ 1);
         float* ls = stat + st * 2 * G::kM;
@@ -770,12 +505,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
         s[i] = ex2(fminf(s[i] * sl2 - ls[qc] * kLog2e, kClamp2));
       }
-      // masked: query rows past S, and K rows after the query (causal)
-      if (q0 + G::kM > a.S || (a.causal && k0 + c * 64 + 63 > q0)) {
+      // masked: query rows past Sq, and K rows after the query's last key
+      // (causal); dV gives a row that sees no key 1 / Sk on every key
+      if (q0 + G::kM > a.Sq || (a.causal && k0 + c * 64 + 63 > q0 + off)) {
 #pragma unroll
         for (int i = 0; i < G::kM / 2; ++i) {
           const int q = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
-          if (q >= a.S || (a.causal && krow + 8 * ((i >> 1) & 1) > q)) s[i] = 0.f;
+          if constexpr (kDV) {
+            if (q >= a.Sq)
+              s[i] = 0.f;
+            else if (a.causal && krow + 8 * ((i >> 1) & 1) > q + off)
+              s[i] = q + off < 0 ? inv_sk : 0.f;
+          } else if (q >= a.Sq || (a.causal && krow + 8 * ((i >> 1) & 1) > q + off)) {
+            s[i] = 0.f;
+          }
         }
       }
       uint32_t fa[G::kM / 16][4];                  // P^T or dS^T as the A operand
@@ -806,11 +549,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     const float one[2] = {1.f, 1.f};
     if constexpr (kDV)
-      store_rows<T, D>(static_cast<T*>(a.dv) + b * a.sdv.b + hk * a.sdv.h, a.sdv.s, krow, a.S, t4,
-                       acc, one);
+      store_rows<T, D>(static_cast<T*>(a.dv) + b * a.sdv.b + hk * a.sdv.h, a.sdv.s, krow, a.Sk,
+                       t4, acc, one);
     else
-      store_rows<T, D>(static_cast<T*>(a.dk) + b * a.sdk.b + hk * a.sdk.h, a.sdk.s, krow, a.S, t4,
-                       acc, one);
+      store_rows<T, D>(static_cast<T*>(a.dk) + b * a.sdk.b + hk * a.sdk.h, a.sdk.s, krow, a.Sk,
+                       t4, acc, one);
   }
 }
 
@@ -847,13 +590,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* kv_full = qd_full + 1;   // [2]
   uint64_t* kv_empty = qd_full + 3;  // [2]
 
-  const int nq = (a.S + G::kM - 1) / G::kM;
+  const int nq = (a.Sq + G::kM - 1) / G::kM;
   const int qi = nq - 1 - blockIdx.x;              // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hk);
   const int q0 = qi * G::kM;
-  const int nk_all = (a.S + G::kN - 1) / G::kN;
-  const int nk = a.causal ? min(nk_all, (q0 + G::kM - 1) / G::kN + 1) : nk_all;
+  const int off = a.Sk - a.Sq;                     // row i sees keys j <= i + off (causal)
+  const int last = q0 + G::kM - 1 + off;           // the block's last visible key
+  const int nk_all = (a.Sk + G::kN - 1) / G::kN;
+  // a row that sees no key has dQ = 0: a block of such rows loads no key
+  const int nk = !a.causal ? nk_all : last < 0 ? 0 : min(nk_all, last / G::kN + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(qd_full, 1);
@@ -895,8 +641,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     float lse2[2], dl[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const bool ok = row + 8 * r < a.S;
-      const long long i = ((long long)b * a.H + h) * a.S + row + 8 * r;
+      const bool ok = row + 8 * r < a.Sq;
+      const long long i = ((long long)b * a.H + h) * a.Sq + row + 8 * r;
       lse2[r] = ok ? a.lse[i] * kLog2e : 0.f;
       dl[r] = ok ? a.delta[i] : 0.f;
     }
@@ -935,11 +681,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < G::kN / 2; ++i)
         s[i] = ex2(fminf(s[i] * sl2 - lse2[(i >> 1) & 1], kClamp2));
-      if (k0 + G::kN > a.S || (a.causal && k0 + G::kN - 1 > q0 + c * 64)) {
+      if (k0 + G::kN > a.Sk || (a.causal && k0 + G::kN - 1 > q0 + c * 64 + off)) {
 #pragma unroll
         for (int i = 0; i < G::kN / 2; ++i) {
           const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
-          if (col >= a.S || (a.causal && col > row + 8 * ((i >> 1) & 1))) s[i] = 0.f;
+          if (col >= a.Sk || (a.causal && col > row + 8 * ((i >> 1) & 1) + off)) s[i] = 0.f;
         }
       }
       wg_wait();
@@ -962,8 +708,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     const float one[2] = {1.f, 1.f};
-    store_rows<T, D>(static_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h, a.sdq.s, row, a.S, t4, dq,
-                     one);
+    store_rows<T, D>(static_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h, a.sdq.s, row, a.Sq, t4,
+                     dq, one);
   }
 }
 
@@ -971,29 +717,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // host: tensor maps and launches
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // A 4-D map over (D, heads, S, B) of a [B, S, heads, D] tensor with element
 // strides st (unit along D), boxes of 64 columns by `rows` rows, 128-byte
@@ -1034,11 +757,11 @@ int launch_fwd(const void* q, const void* k, const void* v, const long long* st,
                int B, cudaStream_t stream) {
   using G = FwdGeo<D>;
   CUtensorMap mq, mk, mv;
-  if (int e = tensor_map<T>(&mq, q, B, a.S, a.H, D, strides_of(st, 0), G::kM)) return e;
-  if (int e = tensor_map<T>(&mk, k, B, a.S, a.Hk, D, strides_of(st, 1), G::kN)) return e;
-  if (int e = tensor_map<T>(&mv, v, B, a.S, a.Hk, D, strides_of(st, 2), G::kN)) return e;
+  if (int e = tensor_map<T>(&mq, q, B, a.Sq, a.H, D, strides_of(st, 0), G::kM)) return e;
+  if (int e = tensor_map<T>(&mk, k, B, a.Sk, a.Hk, D, strides_of(st, 1), G::kN)) return e;
+  if (int e = tensor_map<T>(&mv, v, B, a.Sk, a.Hk, D, strides_of(st, 2), G::kN)) return e;
   if (int e = prepare(flash_fwd_kernel<T, D>, G::kSmem)) return e;
-  const dim3 grid((a.S + G::kM - 1) / G::kM, a.H, B);
+  const dim3 grid((a.Sq + G::kM - 1) / G::kM, a.H, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, G::kSmem, stream>>>(mq, mk, mv, a);
   return (int)cudaGetLastError();
 }
@@ -1050,23 +773,23 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   using GK = KvGeo<D>;
   using GQ = DqGeo<D>;
   CUtensorMap mq, mk, mv, mdo;
-  if (int e = tensor_map<T>(&mq, q, B, a.S, a.H, D, strides_of(st, 0), GK::kM)) return e;
-  if (int e = tensor_map<T>(&mk, k, B, a.S, a.Hk, D, strides_of(st, 1), GK::kN)) return e;
-  if (int e = tensor_map<T>(&mv, v, B, a.S, a.Hk, D, strides_of(st, 2), GK::kN)) return e;
-  if (int e = tensor_map<T>(&mdo, dout, B, a.S, a.H, D, strides_of(st, 3), GK::kM)) return e;
-  const dim3 grid_kv((a.S + GK::kN - 1) / GK::kN, a.Hk, B);
+  if (int e = tensor_map<T>(&mq, q, B, a.Sq, a.H, D, strides_of(st, 0), GK::kM)) return e;
+  if (int e = tensor_map<T>(&mk, k, B, a.Sk, a.Hk, D, strides_of(st, 1), GK::kN)) return e;
+  if (int e = tensor_map<T>(&mv, v, B, a.Sk, a.Hk, D, strides_of(st, 2), GK::kN)) return e;
+  if (int e = tensor_map<T>(&mdo, dout, B, a.Sq, a.H, D, strides_of(st, 3), GK::kM)) return e;
+  const dim3 grid_kv((a.Sk + GK::kN - 1) / GK::kN, a.Hk, B);
   if (int e = prepare(flash_bwd_kv_kernel<T, D, true>, GK::kSmem)) return e;
   flash_bwd_kv_kernel<T, D, true><<<grid_kv, kThreads, GK::kSmem, stream>>>(mq, mk, mv, mdo, a);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
   if (int e = prepare(flash_bwd_kv_kernel<T, D, false>, GK::kSmem)) return e;
   flash_bwd_kv_kernel<T, D, false><<<grid_kv, kThreads, GK::kSmem, stream>>>(mq, mk, mv, mdo, a);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
-  if (int e = tensor_map<T>(&mq, q, B, a.S, a.H, D, strides_of(st, 0), GQ::kM)) return e;
-  if (int e = tensor_map<T>(&mk, k, B, a.S, a.Hk, D, strides_of(st, 1), GQ::kN)) return e;
-  if (int e = tensor_map<T>(&mv, v, B, a.S, a.Hk, D, strides_of(st, 2), GQ::kN)) return e;
-  if (int e = tensor_map<T>(&mdo, dout, B, a.S, a.H, D, strides_of(st, 3), GQ::kM)) return e;
+  if (int e = tensor_map<T>(&mq, q, B, a.Sq, a.H, D, strides_of(st, 0), GQ::kM)) return e;
+  if (int e = tensor_map<T>(&mk, k, B, a.Sk, a.Hk, D, strides_of(st, 1), GQ::kN)) return e;
+  if (int e = tensor_map<T>(&mv, v, B, a.Sk, a.Hk, D, strides_of(st, 2), GQ::kN)) return e;
+  if (int e = tensor_map<T>(&mdo, dout, B, a.Sq, a.H, D, strides_of(st, 3), GQ::kM)) return e;
   if (int e = prepare(flash_bwd_dq_kernel<T, D>, GQ::kSmem)) return e;
-  flash_bwd_dq_kernel<T, D><<<dim3((a.S + GQ::kM - 1) / GQ::kM, a.H, B), kThreads, GQ::kSmem,
+  flash_bwd_dq_kernel<T, D><<<dim3((a.Sq + GQ::kM - 1) / GQ::kM, a.H, B), kThreads, GQ::kSmem,
                               stream>>>(mq, mk, mv, mdo, a);
   return (int)cudaGetLastError();
 }
@@ -1082,34 +805,37 @@ int dispatch(int dtype, int D, F&& f) {
 
 }  // namespace
 
-// q/o [B, S, H, D], k/v [B, S, Hk, D] with unit stride along D; strides holds
-// the (batch, seq, head) element strides of q, k, v, o in that order. lse is
-// f32 [B, H, S], contiguous. dtype 1 is bf16, 2 is fp16; D is 64 or 128. The
-// caller has checked H % Hk == 0, shapes, 16-byte alignment of the data and
-// strides that are positive multiples of 8 (16 bytes, as TMA needs). Returns
-// the cudaError_t of the launch (0 on success), or 10000 + the CUresult of a
-// tensor map the driver refused.
+// q/o [B, Sq, H, D], k/v [B, Sk, Hk, D] with unit stride along D; strides
+// holds the (batch, seq, head) element strides of q, k, v, o in that order.
+// lse is f32 [B, H, Sq], contiguous. dtype 1 is bf16, 2 is fp16; D is 64 or
+// 128. Causal rows align bottom-right (row i sees keys j <= i + Sk - Sq).
+// The caller has checked H % Hk == 0, shapes, 16-byte alignment of the data
+// and strides that are positive multiples of 8 (16 bytes, as TMA needs).
+// Returns the cudaError_t of the launch (0 on success), or 10000 + the
+// CUresult of a tensor map the driver refused.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, const long long* strides, int B, int H, int Hk,
-                                   int S, int D, float scale, int causal, int dtype,
+                                   int Sq, int Sk, int D, float scale, int causal, int dtype,
                                    void* stream) {
-  const FwdArgs a{o, static_cast<float*>(lse), strides_of(strides, 3), H, Hk, S, scale, causal};
+  const FwdArgs a{o, static_cast<float*>(lse), strides_of(strides, 3), H, Hk, Sq, Sk, scale,
+                  causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, D, [&](auto tv, auto dv) {
     return launch_fwd<decltype(tv), decltype(dv)::value>(q, k, v, strides, a, B, s);
   });
 }
 
-// The backward's two passes. dout/dq like q, dk/dv like k; lse and delta f32
-// [B, H, S]; strides holds (batch, seq, head) of q, k, v, dout, dq, dk, dv.
+// The backward's three passes. dout/dq like q, dk/dv like k; lse and delta
+// f32 [B, H, Sq]; strides holds (batch, seq, head) of q, k, v, dout, dq, dk,
+// dv.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dq, void* dk, void* dv, const long long* strides,
-                                   int B, int H, int Hk, int S, int D, float scale, int causal,
-                                   int dtype, void* stream) {
+                                   int B, int H, int Hk, int Sq, int Sk, int D, float scale,
+                                   int causal, int dtype, void* stream) {
   const BwdArgs a{static_cast<const float*>(lse), static_cast<const float*>(delta), dq, dk, dv,
                   strides_of(strides, 4), strides_of(strides, 5), strides_of(strides, 6),
-                  H, Hk, S, scale, causal};
+                  H, Hk, Sq, Sk, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, D, [&](auto tv, auto dv_) {
     return launch_bwd<decltype(tv), decltype(dv_)::value>(q, k, v, dout, strides, a, B, s);

@@ -6,7 +6,7 @@
 // arithmetic the ring adds to the FA2 kernels (the TPU leaves it to its
 // compiler's fusion). Per row (batch n, position s, head h) of a running f32
 // accumulator `acc` [N, S, H, D] with its lse [N, H, S], and a new normalized
-// partial `out_b` [N, S, H, D] (bf16/fp16) with lse_b [N, H, S]:
+// partial `out_b` [N, S, H, D] (bf16, fp16 or f32) with lse_b [N, H, S]:
 //   m = max(lse, lse_b),  w = exp(lse - m),  w_b = exp(lse_b - m)
 //   d = max(w + w_b, 1e-30)
 //   acc = (acc * w + f32(out_b) * w_b) / d,   lse = m + log(d)
@@ -19,7 +19,8 @@
 // (plus 2 for a finished row) against a handful of f32 operations, far
 // under the ridge point. So the design is one pass: each thread takes 8
 // consecutive elements of one row (two 16-byte loads and stores of acc, one
-// 16-byte load of out_b), D / 8 threads a row, whole rows a block. Every
+// 16-byte load of a 16-bit out_b, two of an f32 one), D / 8 threads a row,
+// whole rows a block. Every
 // thread of a row computes the row's weights from the two lse values (a
 // broadcast load); the block reads all its lse values before its first lane
 // of each row writes the new one back.
@@ -34,6 +35,7 @@ namespace {
 constexpr int kVec = 8;          // elements a thread
 constexpr int kThreads = 256;    // at most, per block
 
+__device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
@@ -45,6 +47,30 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 }
 template <>
 __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+
+// kVec consecutive elements of T: 16 bytes each for 16-bit types, 32 for f32
+template <typename T>
+struct alignas(16) Vec {
+  T e[kVec];
+};
+template <typename T>
+__device__ __forceinline__ Vec<T> load_vec(const T* p) {
+  Vec<T> v;
+  const uint4* s = reinterpret_cast<const uint4*>(p);
+  uint4* d = reinterpret_cast<uint4*>(&v);
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(Vec<T>) / 16); ++i) d[i] = __ldg(s + i);
+  return v;
+}
+template <typename T>
+__device__ __forceinline__ void store_vec(T* p, const Vec<T>& v) {
+  uint4* d = reinterpret_cast<uint4*>(p);
+  const uint4* s = reinterpret_cast<const uint4*>(&v);
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(Vec<T>) / 16); ++i) d[i] = s[i];
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -76,13 +102,13 @@ ring_merge_kernel(float* __restrict__ acc, float* __restrict__ lse, const T* __r
 
   const long long base = row * D + (long long)lane * kVec;
   float4* a4 = reinterpret_cast<float4*>(acc + base);
-  const uint4 vb = __ldg(reinterpret_cast<const uint4*>(out_b + base));
-  const T* eb = reinterpret_cast<const T*>(&vb);
+  const Vec<T> vb = load_vec(out_b + base);
+  const T* eb = vb.e;
   float va[kVec];
   *reinterpret_cast<float4*>(va) = a4[0];
   *reinterpret_cast<float4*>(va + 4) = a4[1];
-  uint4 vo;
-  T* eo = reinterpret_cast<T*>(&vo);
+  Vec<T> vo;
+  T* eo = vo.e;
 #pragma unroll
   for (int e = 0; e < kVec; ++e) {
     va[e] = __fdiv_rn(__fadd_rn(__fmul_rn(va[e], w), __fmul_rn(to_f(eb[e]), wb)), d);
@@ -90,7 +116,7 @@ ring_merge_kernel(float* __restrict__ acc, float* __restrict__ lse, const T* __r
   }
   a4[0] = *reinterpret_cast<float4*>(va);
   a4[1] = *reinterpret_cast<float4*>(va + 4);
-  if (row < out_rows) *reinterpret_cast<uint4*>(out + base) = vo;
+  if (row < out_rows) store_vec(out + base, vo);
 }
 
 template <typename T>
@@ -110,7 +136,7 @@ int merge(void* acc, void* lse, const void* out_b, const void* lse_b, void* out,
 }  // namespace
 
 // acc f32 [N, S, H, D] and lse f32 [N, H, S] are updated in place from
-// out_b [N, S, H, D] (dtype 1 bf16, 2 fp16) and lse_b f32 [N, H, S]; the
+// out_b [N, S, H, D] (dtype 1 bf16, 2 fp16, 3 f32) and lse_b f32 [N, H, S]; the
 // first out_rows rows (of N * S * H) are also written, rounded, to out (of
 // out_b's type; may be null when out_rows is 0). Everything contiguous,
 // acc, out_b and out 16-byte aligned, D a multiple of 8 up to 2048 (checked
@@ -123,6 +149,7 @@ extern "C" int ring_merge(void* acc, void* lse, const void* out_b, const void* l
   switch (dtype) {
     case 1: return merge<__nv_bfloat16>(acc, lse, out_b, lse_b, out, out_rows, N, S, H, D, st);
     case 2: return merge<__half>(acc, lse, out_b, lse_b, out, out_rows, N, S, H, D, st);
+    case 3: return merge<float>(acc, lse, out_b, lse_b, out, out_rows, N, S, H, D, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

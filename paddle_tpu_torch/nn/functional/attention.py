@@ -49,8 +49,9 @@ def flash_attention(query, key, value, dropout=0.0, causal=False, return_softmax
                     fixed_seed_offset=None, rng_name="", training=True, name=None, *,
                     generator=None):
     """Paddle's ``flash_attention``: returns ``(out, None)``. Without
-    dropout the flash gate takes the call (the kernel for bf16/fp16 with
-    ``sq == sk``); f32, ``sq != sk`` and dropout in training go to the
+    dropout the flash gate takes the call (bf16, fp16 and f32 with a
+    head_dim that is a multiple of 8, any ``sq`` and ``sk``, causal aligned
+    bottom-right); other head dims and dropout in training go to the
     composed path."""
     if dropout == 0.0:
         out = flash_attention_bsnd(query, key, value, causal=causal)

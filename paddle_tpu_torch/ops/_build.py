@@ -5,7 +5,8 @@ compiled on its own by ``nvcc`` into ``paddle_tpu_torch/_build/``, the
 first time a kernel is used (or when :func:`build` is called first, as
 ``chip_smoke.py`` does). The library's file name carries a digest of its
 source and flags, so an edited source is rebuilt and never mixed with an
-old library. Nothing is built when a module is imported: the CPU tests
+old library; the shared headers ``csrc/*.cuh`` count as part of every
+source. Nothing is built when a module is imported: the CPU tests
 import every module, and a machine without a card has no ``nvcc``.
 
 A failed build raises with the compiler's output; there is no fallback.
@@ -27,8 +28,8 @@ __all__ = ["KERNELS", "build", "launch_stream", "library_path", "load", "nvcc_pa
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("paged_attention", "quant_matmul", "flash_attention", "rms_norm", "swiglu",
-           "ring_merge")
+KERNELS = ("paged_attention", "quant_matmul", "flash_attention", "flash_simt", "rms_norm",
+           "swiglu", "ring_merge")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +51,8 @@ def nvcc_path() -> str:
 def _library(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -74,7 +77,7 @@ def build(names=KERNELS) -> dict:
             nvcc = nvcc or nvcc_path()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *FLAGS, "-o", str(tmp), str(src)]
+            cmd = [nvcc, *FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True), tmp, lib)

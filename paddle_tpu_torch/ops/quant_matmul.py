@@ -16,8 +16,17 @@ Counterpart of ``paddle_tpu/ops/pallas/quant_matmul.py:116-201``:
   gradient).
 
 On a CUDA tensor each wrapper launches its kernel or raises: it takes bf16
-activations of any M, with K and N multiples of 16, and never declines to
-a composed path. On a CPU tensor it runs the plain version.
+or f32 activations of any M, with K and N multiples of 16, and never
+declines to a composed path. On a CPU tensor it runs the plain version.
+
+f32 activations (the reference's ``_dot`` at ``Precision.HIGHEST``) reach
+the tensor-core kernel through an exact split (:func:`split3`): x = h + m
++ l in three bf16 pieces, summed as three bf16 products into one f32
+accumulator. The plain versions compute the same three products, so the
+CPU tests hold the split; the weight stream (M <= 64) reads f32 directly.
+A pre-pass kernel (:func:`int8_prepass`) writes the split, and for dX the
+scaled ``dout * scales`` (in bf16, rounded as the reference rounds it)
+that the tensor-core kernel then reduces.
 """
 
 from __future__ import annotations
@@ -30,28 +39,51 @@ from . import _build
 
 __all__ = ["int8_matmul", "int8_matmul_ref", "int8_matmul_large_m", "int8_matmul_dx",
            "int8_matmul_dx_ref", "int8_matmul_frozen", "int8_matmul_train_scales",
-           "split_plan", "LARGE_M"]
+           "int8_prepass", "split3", "split_plan", "LARGE_M", "DTYPES"]
 
 _COLS = 128          # output columns per block (csrc/quant_matmul.cu kCols)
 _X_TILE = 32 * 1024  # bytes of the f32 x tile a block keeps in shared memory
 _MIN_KC = 256
 LARGE_M = 64         # M above this runs the tensor-core forward
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def split3(x):
+    """The exact split of f32 ``x`` into bf16 ``[3, *x.shape]``: h =
+    bf16(x), m = bf16(x - h), l = bf16(x - h - m), each difference exact in
+    f32, so that h + m + l == x."""
+    h = x.bfloat16()
+    r = x - h.float()
+    m = r.bfloat16()
+    return torch.stack((h, m, (r - m.float()).bfloat16()))
+
+
+def _split_matmul(a, b):
+    """f32 ``a @ b`` as the kernel computes it: the three bf16 pieces of
+    ``a`` against ``b`` (exact in bf16), each product in f32, summed."""
+    h, m, l = (p.float() for p in split3(a))
+    return torch.matmul(h, b) + torch.matmul(m, b) + torch.matmul(l, b)
 
 
 def int8_matmul_ref(x, w_int8, scales):
     """Plain version: ``x [M, K] @ w_int8 [K, N]`` with f32 accumulation,
     times the per-output-channel ``scales [N]`` in f32, cast to x's
-    dtype."""
-    out = torch.matmul(x.float(), w_int8.float())
+    dtype; f32 x through its three bf16 pieces (:func:`split3`)."""
+    w = w_int8.float()
+    out = _split_matmul(x, w) if x.dtype == torch.float32 else torch.matmul(x.float(), w)
     return (out * scales.float()[None, :]).to(x.dtype)
 
 
 def int8_matmul_dx_ref(dout, w_int8, scales):
     """Plain dX: ``bf16(dout * bf16(scales)) @ w_int8.T`` summed in f32 and
     cast to dout's dtype. The scale is cast to dout's dtype and the product
-    rounds there before the sum, as ``_bwd_dx_kernel`` does."""
-    scaled = (dout * scales.to(dout.dtype)).float()
-    return torch.matmul(scaled, w_int8.float().T).to(dout.dtype)
+    rounds there before the sum, as ``_bwd_dx_kernel`` does; in f32 the
+    product ``dout * scales`` goes through its three bf16 pieces."""
+    scaled = dout * scales.to(dout.dtype)
+    w_t = w_int8.float().T
+    if dout.dtype == torch.float32:
+        return _split_matmul(scaled, w_t)
+    return torch.matmul(scaled.float(), w_t).to(dout.dtype)
 
 
 def split_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int]:
@@ -80,8 +112,8 @@ def _fn(name, argtypes):
 def _check(x, w_int8, scales, name="int8_matmul", along=0):
     """Refuse what the kernels do not take. ``x``'s columns run along
     ``w_int8``'s dimension ``along``: 0 (K) for the forward, 1 (N) for dX."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name} on the card takes bf16 activations, got {x.dtype}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"{name} on the card takes bf16 or f32 activations, got {x.dtype}")
     if w_int8.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError(f"{name}: weights must be int8 and scales float32")
     if x.dim() != 2 or w_int8.dim() != 2 or scales.dim() != 1:
@@ -128,54 +160,120 @@ def int8_matmul(x, w_int8, scales):
     mt, kc, ksplit = split_plan(M, K, N, _sms[dev])
     partial = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
                if ksplit > 1 else None)
-    fn = _fn("int8_matmul", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn = _fn("int8_matmul", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     rc = fn(x.data_ptr(), w_int8.data_ptr(), scales.data_ptr(),
             partial.data_ptr() if partial is not None else None,
-            out.data_ptr(), M, K, N, mt, kc, ksplit, _build.launch_stream(x.device))
+            out.data_ptr(), M, K, N, mt, kc, ksplit, DTYPES[x.dtype],
+            _build.launch_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {rc}")
     int8_matmul.launches += 1
     return out
 
 
+def _check_prepass(x, scales):
+    if x.dtype not in DTYPES:
+        raise TypeError(f"int8_prepass takes bf16 or f32, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"int8_prepass: x must be [rows, C], got {tuple(x.shape)}")
+    if scales is None:
+        if x.dtype != torch.float32:
+            raise ValueError("int8_prepass: bf16 x (dX's dout) needs its scales")
+    elif scales.dtype != torch.float32 or tuple(scales.shape) != (x.shape[1],):
+        raise ValueError(f"int8_prepass: scales must be float32 [{x.shape[1]}], got "
+                         f"{scales.dtype} {tuple(scales.shape)}")
+    if x.device.type == "cpu":
+        return
+    _device_check(x, "int8_prepass")
+    if x.shape[1] % 8:
+        raise ValueError(f"int8_prepass: C={x.shape[1]} must be a multiple of 8")
+    for arg, t in (("x", x), ("scales", scales)):
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(f"int8_prepass: {arg} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"int8_prepass: {arg} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"int8_prepass: {arg} must be 16-byte aligned")
+
+
+def int8_prepass(x, scales=None):
+    """The pre-pass of the tensor-core kernel on the card. f32 ``x [rows,
+    C]`` (times ``scales [C]`` in f32 when given) -> its split, bf16 ``[3,
+    rows, C]``, equal to :func:`split3`; bf16 ``x`` (dX's dout) -> bf16
+    ``x * bf16(scales)`` ``[rows, C]``, each product rounded once. On a CPU
+    tensor it runs those plain expressions. It refuses what the kernel does
+    not take: another dtype, bf16 without scales, scales that are not
+    float32 ``[C]``, and on the card a tensor that is not contiguous,
+    16-byte aligned and on x's device, or C not a multiple of 8."""
+    _check_prepass(x, scales)
+    f32 = x.dtype == torch.float32
+    if x.device.type == "cpu":
+        if f32:
+            return split3(x if scales is None else x * scales)
+        return x * scales.to(x.dtype)
+    shape = (3, *x.shape) if f32 else tuple(x.shape)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    fn = _fn("int8_prepass", [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                      ctypes.c_int, ctypes.c_void_p])
+    rc = fn(x.data_ptr(), scales.data_ptr() if scales is not None else None, out.data_ptr(),
+            x.shape[0], x.shape[1], DTYPES[x.dtype], _build.launch_stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"int8_prepass kernel launch failed: CUDA error {rc}")
+    int8_prepass.launches += 1
+    return out
+
+
+def _tensor_core(act, w_int8, scales, out, dx: bool):
+    """Launch the tensor-core kernel on ``act``: its pre-pass first for f32
+    (the split) and for dX (the scaled dout)."""
+    if dx:
+        pieces = int8_prepass(act, scales)
+    else:
+        pieces = int8_prepass(act) if act.dtype == torch.float32 else act
+    K, N = w_int8.shape
+    fn = _fn("int8_matmul_tc", [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    rc = fn(pieces.data_ptr(), 3 if pieces.dim() == 3 else 1, w_int8.data_ptr(),
+            scales.data_ptr(), out.data_ptr(), act.shape[0], K, N, int(dx),
+            int(out.dtype == torch.float32), _build.launch_stream(act.device))
+    if rc != 0:
+        name = "int8_matmul_dx" if dx else "int8_matmul_large_m"
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
 def int8_matmul_large_m(x, w_int8, scales):
     """The tensor-core forward of :func:`int8_matmul` at any M
-    (:func:`int8_matmul` sends it M > 64)."""
+    (:func:`int8_matmul` sends it M > 64); f32 x runs as its three bf16
+    pieces, after the split pre-pass."""
     if x.device.type == "cpu":
         return int8_matmul_ref(x, w_int8, scales)
     _device_check(x, "int8_matmul_large_m")
     _check(x, w_int8, scales, "int8_matmul_large_m")
-    M, K = x.shape
-    N = w_int8.shape[1]
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    M = x.shape[0]
+    out = torch.empty((M, w_int8.shape[1]), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
-    fn = _fn("int8_matmul_mma", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), w_int8.data_ptr(), scales.data_ptr(), out.data_ptr(), M, K, N,
-            _build.launch_stream(x.device))
-    if rc != 0:
-        raise RuntimeError(f"int8_matmul_large_m kernel launch failed: CUDA error {rc}")
+    _tensor_core(x, w_int8, scales, out, dx=False)
     int8_matmul_large_m.launches += 1
     return out
 
 
 def int8_matmul_dx(dout, w_int8, scales):
     """dX of ``x @ dequant(w_int8, scales)``: ``dout [M, N]`` against
-    ``w_int8 [K, N]`` and ``scales [N]`` -> ``[M, K]`` in dout's dtype."""
+    ``w_int8 [K, N]`` and ``scales [N]`` -> ``[M, K]`` in dout's dtype; the
+    pre-pass forms ``dout * scales`` first (in bf16, or in f32 as its three
+    bf16 pieces)."""
     if dout.device.type == "cpu":
         return int8_matmul_dx_ref(dout, w_int8, scales)
     _device_check(dout, "int8_matmul_dx")
     _check(dout, w_int8, scales, "int8_matmul_dx", along=1)
     M = dout.shape[0]
-    K, N = w_int8.shape
-    dx = torch.empty((M, K), dtype=dout.dtype, device=dout.device)
+    dx = torch.empty((M, w_int8.shape[0]), dtype=dout.dtype, device=dout.device)
     if M == 0:
         return dx
-    fn = _fn("int8_matmul_dx", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    rc = fn(dout.data_ptr(), w_int8.data_ptr(), scales.data_ptr(), dx.data_ptr(), M, K, N,
-            _build.launch_stream(dout.device))
-    if rc != 0:
-        raise RuntimeError(f"int8_matmul_dx kernel launch failed: CUDA error {rc}")
+    _tensor_core(dout, w_int8, scales, dx, dx=True)
     int8_matmul_dx.launches += 1
     return dx
 
@@ -184,6 +282,7 @@ def int8_matmul_dx(dout, w_int8, scales):
 int8_matmul.launches = 0
 int8_matmul_large_m.launches = 0
 int8_matmul_dx.launches = 0
+int8_prepass.launches = 0
 
 
 # The ops call the wrappers through this module's globals, so that a test

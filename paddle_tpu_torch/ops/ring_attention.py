@@ -8,16 +8,20 @@ ranks of S / P positions in one process: the reference's per-device
 ``shard_map`` body becomes a leading rank axis, and the ``ppermute``
 rotation a roll along it.
 
-The gate follows the reference's rule of "flash where the kernel runs":
-a CUDA tensor of bf16/fp16 with head_dim in ``flash_attention.HEAD_DIMS``
-(:func:`flash_runs`) takes the ring schedule over the flash kernels
-(:func:`~paddle_tpu_torch.ops.ring_flash.ring_flash_attention`); f32, other
-head dims and CPU tensors take the blockwise ring in torch ops (block
-logits, running max and running sum), which torch autograd differentiates
-as the reference's VJP does, as the reference keeps it composed off the
-TPU. There is no probe and no fallback: a tensor sent to the kernels
-launches them or raises (the kernels' own checks name what they refuse,
-the counterpart of the reference's ValueError at :67-74).
+The gate follows the reference's rule of "flash where the kernel runs"
+(:54-66 on a TPU): a CUDA tensor of bf16, fp16 or f32 with ``head_dim %
+8 == 0`` (:func:`flash_runs`) takes the ring schedule over the flash
+kernels (:func:`~paddle_tpu_torch.ops.ring_flash.ring_flash_attention`: the
+wgmma kernels for bf16/fp16 at head_dim 64 or 128, the SIMT kernels
+otherwise). The reference's ``S / P % 128 == 0`` is the TPU kernel's tiling
+limit; the port's kernels take a shard of any length, so a ragged shard
+runs them too. Other dtypes and head dims, and CPU tensors, take the
+blockwise ring in torch ops (block logits, running max and running sum),
+which torch autograd differentiates as the reference's VJP does. There is
+no probe and no fallback: a tensor sent to the kernels launches them or
+raises (a head_dim past ``flash_attention.MAX_HEAD_DIM``; the kernels' own
+checks name what they refuse, the counterpart of the reference's
+ValueError at :67-74).
 """
 
 from __future__ import annotations
@@ -35,8 +39,10 @@ NEG_INF = -1e30
 
 
 def flash_runs(q) -> bool:
-    """Whether :func:`ring_attention` sends q to the ring-flash kernels."""
-    return q.device.type == "cuda" and q.dtype in fa.DTYPES and q.shape[-1] in fa.HEAD_DIMS
+    """Whether :func:`ring_attention` sends q to the ring-flash kernels:
+    a CUDA tensor of a kernel dtype whose head_dim is a multiple of 8, the
+    rule of the flash gate (``flash_attention.flash_attention_bsnd``)."""
+    return q.device.type == "cuda" and q.dtype in fa.DTYPES and q.shape[-1] % 8 == 0
 
 
 def _block(q, k, v, scale, mask):

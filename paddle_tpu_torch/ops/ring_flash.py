@@ -106,7 +106,7 @@ def _check_merge(acc, lse, out_b, lse_b, out):
         raise ValueError(f"ring_merge: acc must be [N, S, H, D], got {tuple(acc.shape)}")
     N, S, H, D = acc.shape
     if acc.dtype != torch.float32 or out_b.dtype not in fa.DTYPES:
-        raise TypeError(f"ring_merge takes an f32 acc and a bf16/fp16 partial, got "
+        raise TypeError(f"ring_merge takes an f32 acc and a bf16/fp16/f32 partial, got "
                         f"{acc.dtype} and {out_b.dtype}")
     if out_b.shape != acc.shape:
         raise ValueError("ring_merge: out_b must be shaped like acc")
@@ -132,7 +132,7 @@ def ring_merge(acc, lse, out_b, lse_b, out=None):
     """Merge a new partial ``(out_b, lse_b)`` into the running ``(acc,
     lse)`` in place (the reference's ``_merge``); ``out``, when given, also
     receives the first ``out.shape[0]`` batch entries of the merged acc
-    rounded to its dtype. acc f32 [N, S, H, D], out_b bf16/fp16 like acc,
+    rounded to its dtype. acc f32 [N, S, H, D], out_b bf16/fp16/f32 like acc,
     lse and lse_b f32 [N, H, S]."""
     if acc.device.type == "cpu":
         ring_merge_plain(acc, lse, out_b, lse_b, out)

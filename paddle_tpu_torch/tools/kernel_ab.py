@@ -1,8 +1,20 @@
-"""Compare variants of ``csrc/flash_attention.cu`` on one GPU, in one run.
+"""Compare variants of ``csrc/flash_attention.cu`` or of
+``csrc/quant_matmul.cu`` on one GPU, in one run.
 
 Usage, from the root of a checkout on a machine with a card::
 
     python -m paddle_tpu_torch.tools.kernel_ab VARIANT.cu [VARIANT.cu ...]
+    python -m paddle_tpu_torch.tools.kernel_ab --quant [--no-check] VARIANT.cu [...]
+
+The second form takes copies of ``csrc/quant_matmul.cu``, checks each
+library's tensor-core forward and dX (bf16 at a ragged M, held as phase 8
+of chip_smoke.py holds bf16; f32 through the split, held to its
+tensor-core limit for the reduction's length) against the plain versions,
+and times both in bf16 over the seven projections of one Llama-3-8B layer
+at M = 8192, with cuBLAS (``torch.matmul`` on the weights cast to bf16)
+timed before and after as the yardstick. ``--no-check`` times every
+variant without the check: for diagnostic copies that skip part of the
+work to show what bounds the rest.
 
 Each variant is a copy of ``paddle_tpu_torch/csrc/flash_attention.cu``
 with the same C interface. All are compiled together with the build's own
@@ -51,8 +63,8 @@ def build(sources, out_dir: Path) -> dict:
     procs = {}
     for src in sources:
         lib = out_dir / f"{Path(src).stem}.so"
-        procs[src] = (subprocess.Popen([nvcc, *_build.FLAGS, "-o", str(lib), src],
-                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        cmd = [nvcc, *_build.FLAGS, "-I", str(_build.CSRC), "-o", str(lib), src]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), lib)
     libs = {}
     cuobjdump = Path(nvcc).parent / "cuobjdump"
@@ -66,6 +78,8 @@ def build(sources, out_dir: Path) -> dict:
                 fn = _kernel(m.group(1))
             elif "C75" in line:
                 print(f"   {_kernel(line)}: {line.split('due to')[-1].split(' for ')[0].strip()}")
+            elif "Used" in line:
+                print(f"   {fn}: {line.strip()[:120]}")
             elif ("spill stores" in line and not line.strip().startswith("0 bytes")) or "error" in line:
                 print(f"   {fn}: {line.strip()[:200]}")
         if proc.returncode == 0:
@@ -141,10 +155,76 @@ def run_variant(lib: str):
               f"fwd_ms {fwd:.5f} bwd_ms {bwd:.5f} bwd_kernels_ms {per}", flush=True)
 
 
+def _int8_layer(gen):
+    """The seven projections of one layer at M = 8192: [(x, dO, w, s)]."""
+    import chip_smoke as cs
+    import torch
+
+    M = cs.TRAIN_SEQ
+    out = []
+    for _, K, N, _ in cs.GEMM_SHAPES[:7]:
+        out.append((torch.randn((M, K), generator=gen, device="cuda").bfloat16(),
+                    torch.randn((M, N), generator=gen, device="cuda").bfloat16(),
+                    torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                                  dtype=torch.int8),
+                    torch.rand((N,), generator=gen, device="cuda") * 0.02 + 1e-3))
+    return out
+
+
+def cublas_ms(gen):
+    """cuBLAS over one layer's projections, forward and dX shapes."""
+    import chip_smoke as cs
+    import torch
+
+    fwd = dx = 0.0
+    for x, do, w, s in _int8_layer(gen):
+        wb = w.to(torch.bfloat16)
+        fwd += cs.device_ms(lambda i: torch.matmul(x, wb), 1, 10)
+        dx += cs.device_ms(lambda i: torch.matmul(do, wb.T), 1, 10)
+    return round(fwd, 5), round(dx, 5)
+
+
+def run_quant_variant(lib: str, check: bool = True):
+    """Check (unless ``check`` is false) and time one quant_matmul library
+    (in a child process)."""
+    import chip_smoke as cs
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import quant_matmul as qm
+
+    _build._loaded["quant_matmul"] = ctypes.CDLL(lib)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    errs = [0.0]
+    checks = ((1000, 4096, 1024, torch.bfloat16), (300, 14336, 4096, torch.float32))
+    for M, K, N, dt in checks if check else ():
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+        do = torch.randn((M, N), generator=gen, device="cuda").to(dt)
+        w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        s = torch.rand((N,), generator=gen, device="cuda") * 0.02 + 1e-3
+        got = (qm.int8_matmul_large_m(x, w, s), qm.int8_matmul_dx(do, w, s))
+        want = (qm.int8_matmul_ref(x, w, s), qm.int8_matmul_dx_ref(do, w, s))
+        for label, g, ref, red in zip(("fwd", "dx"), got, want, (K, N)):
+            if dt == torch.float32:
+                errs.append(cs.hold_gemm_f32(f"{label} f32", g, ref, red))
+            else:
+                errs.append(cs.hold_gemm(f"{label} bf16", g, ref))
+    fwd = dx = 0.0
+    for x, do, w, s in _int8_layer(gen):
+        fwd += cs.device_ms(lambda i: qm.int8_matmul_large_m(x, w, s), 1, 10)
+        dx += cs.device_ms(lambda i: qm.int8_matmul_dx(do, w, s), 1, 10)
+    print(f"{Path(lib).name}: max_abs_err {max(errs) if check else 'not checked'} "
+          f"fwd_ms {fwd:.5f} dx_ms {dx:.5f}", flush=True)
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     if argv[:1] == ["--run"]:
         run_variant(argv[1])
+        return 0
+    if argv[:1] == ["--run-quant"]:
+        run_quant_variant(argv[-1], check=argv[1] != "--no-check")
         return 0
     import chip_smoke as cs
     import torch
@@ -154,6 +234,21 @@ def main(argv) -> int:
 
     out_dir = _build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
+    if argv[:1] == ["--quant"]:
+        flags = ["--no-check"] if argv[1:2] == ["--no-check"] else []
+        libs = build(argv[1 + len(flags):], out_dir)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        print("cublas fwd/dx ms", cublas_ms(gen), flush=True)
+        for src, lib in libs.items():
+            r = subprocess.run(["timeout", "-k", "5", "300", sys.executable, "-m",
+                                "paddle_tpu_torch.tools.kernel_ab", "--run-quant", *flags,
+                                str(lib)],
+                               capture_output=True, text=True, cwd=str(ROOT))
+            print(r.stdout.strip() or f"{src}: exit {r.returncode}\n{r.stderr[-800:]}",
+                  flush=True)
+        print("cublas fwd/dx ms", cublas_ms(gen), flush=True)
+        return 0
     libs = build(argv, out_dir)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

@@ -156,16 +156,18 @@ def test_sdpa_with_mask_matches_reference(mask_kind):
 
 def test_gate_routes_by_the_reference_rules():
     q = torch.zeros((1, 8, 2, 16))
-    # f32 and sq != sk stay composed
-    assert fa.flash_attention_bsnd(q, q, q, True) is None
+    # what the reference keeps composed: a head_dim that is not a multiple
+    # of 8, and dtypes outside bf16/fp16/f32
+    assert fa.flash_attention_bsnd(q[..., :12], q[..., :12], q[..., :12], True) is None
+    assert fa.flash_attention_bsnd(q.double(), q.double(), q.double(), True) is None
+    # bf16 and f32, sq == sk or not, are the flash op; on the CPU its plain
+    # version, which never counts a kernel launch
     qb = q.bfloat16()
-    assert fa.flash_attention_bsnd(qb[:, :4], qb, qb, False) is None
-    # bf16 with sq == sk is the flash op; on the CPU its plain version,
-    # which never counts a kernel launch
-    before = fa.flash_attention_fwd.launches
-    out = fa.flash_attention_bsnd(qb, qb, qb, True)
-    assert out.shape == qb.shape and out.dtype == torch.bfloat16
-    assert fa.flash_attention_fwd.launches == before
+    before = (fa.flash_attention_fwd.launches, fa.flash_simt_fwd.launches)
+    for args in ((qb, qb, qb), (q, q, q), (qb[:, :4], qb, qb), (q, q[:, :3], q[:, :3])):
+        out = fa.flash_attention_bsnd(*args, True)
+        assert out.shape == args[0].shape and out.dtype == args[0].dtype
+    assert (fa.flash_attention_fwd.launches, fa.flash_simt_fwd.launches) == before
 
 
 def test_bf16_plain_forward_rounds_probabilities_like_the_kernel():

@@ -9,12 +9,18 @@ They cover shapes chip_smoke.py does not: other block sizes, head dims
 and GQA ratios, f32 attention, ragged M and odd K/N for the GEMM, flash
 attention at GQA ratios 1/4/8, head_dim 64 and 128, S below, at and just
 past its 64- and 128-row tiles and ragged, causal or not, B 2, q/k/v as
-head-slices of one fused tensor, fp16, and its determinism, RMSNorm at ragged N and several H, the
-int8 GEMM's tensor-core forward and dX at ragged M, around the M = 64
-switch and at the smallest K and N, dX's determinism, SwiGLU at odd sizes,
-the ring's lse merge in bf16 and fp16 at head_dim 8 to 256, a small ring
-against the full flash kernel, and the checks that refuse what a kernel
-does not take.
+head-slices of one fused tensor, fp16, and its determinism, flash with
+sq != sk (bottom-right causal, rows that see no key), f32 and head dims
+other than 64 and 128 (the SIMT kernels), and the functional gate sending
+those to the kernels and never to the composed path, RMSNorm at ragged N
+and several H, the int8 GEMM's tensor-core forward and dX at ragged M,
+around the M = 64 switch and at the smallest K and N, dX's determinism,
+f32 activations on all three int8 kernels (the weight stream, and the
+split into three bf16 pieces), SwiGLU at odd sizes, the ring's lse merge
+in bf16, fp16 and f32 at head_dim 8 to 256, small rings against the full
+flash kernel (bf16, and f32 and ragged shards through the gate), and the
+checks that refuse
+what a kernel does not take.
 """
 
 import numpy as np
@@ -35,6 +41,16 @@ pytestmark = pytest.mark.cuda
 ATTN_ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 # GEMM: the same f32 sum in another order, rounded once to bf16.
 GEMM_RTOL, GEMM_ATOL_FRAC = 2.0 ** -7, 1e-3
+# GEMM in f32: the same exact products (the f32 split's three bf16 pieces on
+# both sides) summed in f32 in another order, no rounding after: 1e-5
+# relative plus 1e-5 of the largest output (an f32 sum over K <= 4096 of
+# partial sums up to the largest carries ~sqrt(K) ulps of it). The tensor
+# cores add each 16-deep partial product into the f32 accumulator
+# truncated, up to one ulp of the running sum per step, all of one sign:
+# their kernel is held to one ulp (2^-23) of the largest output per step of
+# its 3 R / 16 steps (R the reduction length) where that is larger, as
+# chip_smoke.py holds it.
+GEMM_F32_RTOL, GEMM_F32_ATOL_FRAC = 1e-5, 1e-5
 # flash attention, kernel vs plain on the same bf16/fp16 inputs, held tile
 # by tile (fa.tile_errors): over each 64 rows of one (batch, head),
 # ||got - want|| <= FLASH_TILE_RTOL (||want|| + FLASH_TILE_FLOOR sqrt(n))
@@ -50,6 +66,11 @@ GEMM_RTOL, GEMM_ATOL_FRAC = 2.0 ** -7, 1e-3
 # summation order, then the results round once: about 1e-3. lse is f32 on
 # both sides.
 FLASH_TILE_RTOL, FLASH_TILE_FLOOR, FLASH_LSE_ATOL, FLASH_TILE = 1e-2, 1e-5, 1e-3, 64
+# f32 flash (the SIMT kernels) rounds nothing but its f32 sums and
+# exponentials: 2e-6 of a tile's norm or less on the H100. Operands rounded
+# to TF32 would read about 4e-4, to bf16 about 3e-3: f32 is held to 1e-4,
+# as chip_smoke.py holds it.
+FLASH_F32_TILE_RTOL = 1e-4
 # RMSNorm: the same f32 arithmetic summed in another order, one rounding to
 # the storage type: one step of that type plus 1e-3 of the largest output.
 NORM_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
@@ -130,7 +151,7 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     w = torch.zeros((32, 16), dtype=torch.int8, device=dev)
     s = torch.ones((16,), device=dev)
     with pytest.raises(TypeError):
-        qm.int8_matmul(x, w, s)                     # f32 activations
+        qm.int8_matmul(x.half(), w, s)              # fp16 activations
     with pytest.raises(ValueError):
         qm.int8_matmul(x.bfloat16(), w[:24], s)     # K mismatch
     q = torch.zeros((2, 4, 48), dtype=torch.bfloat16, device=dev)
@@ -184,7 +205,8 @@ def _flash_inputs(dev, B, S, H, Hk, hd, dtype, seed, fused=False):
 
 def _assert_tiles_close(got, want):
     worst, _ = fa.tile_errors(got, want, FLASH_TILE, FLASH_TILE_FLOOR)
-    assert worst <= FLASH_TILE_RTOL, worst
+    assert worst <= (FLASH_F32_TILE_RTOL if want.dtype == torch.float32 else FLASH_TILE_RTOL), \
+        worst
 
 
 BF16, FP16 = torch.bfloat16, torch.float16
@@ -264,15 +286,21 @@ def test_flash_attention_autograd_and_determinism(dev, B, S, H, Hk, hd, causal, 
     _, lse = fa.flash_attention_fwd(q, k, v, causal)
     for got, want in zip(grads[0][1:], fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)):
         _assert_tiles_close(got, want)
-    # through the gate: f32 and sq != sk stay composed (None)
-    assert fa.flash_attention_bsnd(q.float(), k.float(), v.float(), causal) is None
-    assert fa.flash_attention_bsnd(q[:, :10], k, v, False) is None
+    # through the gate: f32 and sq != sk are the flash op too
+    f0, s0 = fa.flash_attention_fwd.launches, fa.flash_simt_fwd.launches
+    assert fa.flash_attention_bsnd(q.float(), k.float(), v.float(), causal).dtype == torch.float32
+    assert fa.flash_attention_bsnd(q[:, :10], k, v, False).shape == q[:, :10].shape
+    torch.cuda.synchronize()
+    assert fa.flash_simt_fwd.launches == s0 + 1 and fa.flash_attention_fwd.launches == f0 + 1
     out = fa.flash_attention_bsnd(q, k, v, causal)
     assert torch.equal(out, grads[0][0])
 
 
 def test_flash_attention_refuses(dev):
-    q, k, v, _ = _flash_inputs(dev, 1, 64, 4, 2, 96, torch.bfloat16, seed=1)
+    q, k, v, _ = _flash_inputs(dev, 1, 64, 4, 2, 100, torch.bfloat16, seed=1)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q, k, v, True)
+    q, k, v, _ = _flash_inputs(dev, 1, 64, 4, 2, 264, torch.float32, seed=1)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, k, v, True)
     q, k, v, _ = _flash_inputs(dev, 1, 64, 4, 2, 64, torch.bfloat16, seed=1)
@@ -283,7 +311,7 @@ def test_flash_attention_refuses(dev):
     with pytest.raises(ValueError, match="strides"):
         fa.flash_attention_fwd(q.transpose(1, 3).contiguous().transpose(1, 3), k, v, True)
     with pytest.raises(TypeError):
-        fa.flash_attention_fwd(q.float(), k.float(), v.float(), True)
+        fa.flash_attention_fwd(q.double(), k.double(), v.double(), True)
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention_fwd(q[:, :, :3], k, v, True)
     with pytest.raises(ValueError, match="strides"):             # a broadcast KV head
@@ -387,9 +415,9 @@ def test_int8_dx_is_deterministic_and_the_ops_differentiate(dev):
 def test_int8_kernels_refuse(dev):
     x, dout, w, s = _gemm_inputs(dev, 100, 64, 48, seed=1)
     with pytest.raises(TypeError):
-        qm.int8_matmul(x.float(), w, s)                 # f32 activations, large M
+        qm.int8_matmul(x.half(), w, s)                  # fp16 activations, large M
     with pytest.raises(TypeError):
-        qm.int8_matmul_dx(dout.float(), w, s)
+        qm.int8_matmul_dx(dout.half(), w, s)
     with pytest.raises(ValueError, match="multiples of 16"):
         qm.int8_matmul(x[:, :40].contiguous(), w[:40], s)
     with pytest.raises(ValueError, match="multiples of 16"):
@@ -400,6 +428,19 @@ def test_int8_kernels_refuse(dev):
         qm.int8_matmul_dx(torch.zeros((48, 100), dtype=torch.bfloat16, device=dev).t(), w, s)
     with pytest.raises(ValueError):
         qm.int8_matmul_dx(x, w, s)                      # x [M, K] is not dout [M, N]
+    # the pre-pass, called on its own
+    with pytest.raises(TypeError):
+        qm.int8_prepass(dout.half(), s)
+    with pytest.raises(ValueError, match="needs its scales"):
+        qm.int8_prepass(dout)
+    with pytest.raises(ValueError, match="scales must be"):
+        qm.int8_prepass(dout, s[:40])                   # a short scales
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qm.int8_prepass(x.float()[:, :44].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.int8_prepass(torch.zeros((48, 100), dtype=torch.bfloat16, device=dev).t(), s)
+    with pytest.raises(ValueError, match="aligned"):
+        qm.int8_prepass(x.float().reshape(-1)[2:2 + 64 * 99].reshape(99, 64))
 
 
 @pytest.mark.parametrize("N,H,dtype", [
@@ -471,7 +512,7 @@ def test_ring_merge_refuses(dev):
     lse = torch.zeros((2, 2, 4), device=dev)
     out_b = torch.zeros((2, 4, 2, 64), dtype=torch.bfloat16, device=dev)
     with pytest.raises(TypeError):
-        rf.ring_merge(acc, lse, out_b.float(), lse)
+        rf.ring_merge(acc, lse, out_b.double(), lse)
     with pytest.raises(ValueError, match="multiple of 8"):
         rf.ring_merge(acc[..., :60].contiguous(), lse, out_b[..., :60].contiguous(), lse)
     with pytest.raises(ValueError, match="lse"):
@@ -500,4 +541,188 @@ def test_ring_flash_matches_full_flash(dev, B, S, P, H, Hk, hd, causal):
     assert rf.ring_merge.launches == m0 + P - 1
     for got, want in zip(*grads):
         assert got.dtype == want.dtype and got.shape == want.shape
+        _assert_tiles_close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# sq != sk, f32 and other head dims; f32 int8; the f32 ring
+# ---------------------------------------------------------------------------
+
+
+def _general_inputs(dev, B, sq, sk, H, Hk, hd, dtype, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q, do = (torch.randn((B, sq, H, hd), generator=g, device=dev).to(dtype) for _ in "qo")
+    k, v = (torch.randn((B, sk, Hk, hd), generator=g, device=dev).to(dtype) for _ in "kv")
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("B,sq,sk,H,Hk,hd,causal,dtype", [
+    (1, 256, 1024, 8, 2, 128, True, BF16),       # wgmma, more keys than queries
+    (1, 256, 1000, 8, 2, 64, False, BF16),
+    (2, 1000, 300, 8, 2, 128, True, BF16),       # 700 rows that see no key
+    (1, 129, 64, 4, 4, 64, True, FP16),
+    (1, 300, 500, 8, 2, 128, True, torch.float32),   # SIMT
+    (1, 500, 200, 8, 2, 96, True, torch.float32),    # SIMT, no key for 300 rows
+    (1, 512, 512, 8, 2, 96, True, BF16),         # SIMT in bf16
+    (2, 200, 77, 4, 1, 256, False, torch.float32),
+    (1, 333, 100, 4, 4, 40, True, BF16),
+    (1, 65, 65, 2, 1, 8, True, FP16),
+])
+def test_flash_general_matches_plain(dev, B, sq, sk, H, Hk, hd, causal, dtype):
+    q, k, v, do = _general_inputs(dev, B, sq, sk, H, Hk, hd, dtype, seed=sq + sk + hd)
+    simt = not (dtype in (BF16, FP16) and hd in fa.HEAD_DIMS)
+    f0, b0 = fa.flash_simt_fwd.launches, fa.flash_simt_bwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    again = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    want = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_simt_fwd.launches == f0 + simt and fa.flash_simt_bwd.launches == b0 + 2 * simt
+    assert out.shape == q.shape and lse.shape == (B, H, sq)
+    _assert_tiles_close(out, ref_out)
+    # a row that sees no key has lse -1e30 on both sides (to f32 rounding)
+    assert bool(((lse - ref_lse).abs() <= FLASH_LSE_ATOL + 1e-6 * ref_lse.abs()).all())
+    for g_, a_, w_, t in zip(got, again, want, (q, k, v)):
+        assert g_.dtype == dtype and g_.shape == t.shape
+        assert torch.equal(g_, a_)
+        _assert_tiles_close(g_, w_)
+
+
+def test_functional_sends_f32_sq_ne_sk_and_hd96_to_kernels(dev, monkeypatch):
+    """``nn.functional.flash_attention`` on f32, sq != sk and head_dim 96:
+    every call launches a flash kernel (the counters move) and none reaches
+    the composed ``sdpa_ref``."""
+    import paddle_tpu_torch.nn.functional.attention as attn
+    from paddle_tpu_torch.nn import functional as F
+
+    def composed(*a, **kw):
+        raise AssertionError("a flash call reached the composed path on the card")
+
+    monkeypatch.setattr(attn, "sdpa_ref", composed)
+    cases = ((1, 256, 256, 8, 2, 128, torch.float32), (1, 128, 512, 8, 2, 128, BF16),
+             (1, 256, 256, 8, 2, 96, BF16))
+    for B, sq, sk, H, Hk, hd, dtype in cases:
+        q, k, v, do = _general_inputs(dev, B, sq, sk, H, Hk, hd, dtype, seed=hd)
+        counts = (fa.flash_attention_fwd.launches + fa.flash_simt_fwd.launches,
+                  fa.flash_attention_bwd.launches + fa.flash_simt_bwd.launches)
+        qs = q.requires_grad_(True)
+        out, _ = F.flash_attention(qs, k, v, causal=True)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert (fa.flash_attention_fwd.launches + fa.flash_simt_fwd.launches,
+                fa.flash_attention_bwd.launches + fa.flash_simt_bwd.launches) == \
+            (counts[0] + 1, counts[1] + 1)
+        assert torch.isfinite(qs.grad).all()
+
+
+def _assert_gemm_f32_close(got, want, reduction=0):
+    assert got.dtype == torch.float32
+    diff = (got - want).abs()
+    frac = max(GEMM_F32_ATOL_FRAC, 3 * -(-reduction // 16) * 2.0 ** -23)
+    tol = GEMM_F32_RTOL * want.abs() + frac * want.abs().max()
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.parametrize("M", [1, 8, 64, 65, 300, 1000])
+@pytest.mark.parametrize("K,N", [(272, 400), (4096, 1024)])
+def test_int8_f32_activations_match_plain(dev, M, K, N):
+    """f32 on all three kernels: M <= 64 on the weight stream, M > 64 and
+    every dX on the tensor-core kernel through the split pre-pass."""
+    x, dout, w, s = _gemm_inputs(dev, M, K, N, seed=M + K + N)
+    x, dout = x.float(), dout.float()
+    counts = (qm.int8_matmul.launches, qm.int8_matmul_large_m.launches,
+              qm.int8_matmul_dx.launches, qm.int8_prepass.launches)
+    out = qm.int8_matmul(x, w, s)
+    dx = qm.int8_matmul_dx(dout, w, s)
+    torch.cuda.synchronize()
+    large = M > qm.LARGE_M
+    assert (qm.int8_matmul.launches, qm.int8_matmul_large_m.launches,
+            qm.int8_matmul_dx.launches, qm.int8_prepass.launches) == \
+        (counts[0] + (not large), counts[1] + large, counts[2] + 1, counts[3] + 1 + large)
+    _assert_gemm_f32_close(out, qm.int8_matmul_ref(x, w, s), K if large else 0)
+    _assert_gemm_f32_close(dx, qm.int8_matmul_dx_ref(dout, w, s), N)
+    pieces = qm.int8_prepass(dout, s)
+    assert torch.equal(pieces, qm.split3(dout * s))
+
+
+def test_int8_dx_prepass_rounds_like_plain(dev):
+    """bf16 dX's pre-pass writes bf16(dO * bf16(s)) bit for bit as the plain
+    version, one launch per dX."""
+    _, dout, w, s = _gemm_inputs(dev, 300, 512, 768, seed=9)
+    p0 = qm.int8_prepass.launches
+    got = qm.int8_prepass(dout, s)
+    qm.int8_matmul_dx(dout, w, s)
+    torch.cuda.synchronize()
+    assert qm.int8_prepass.launches == p0 + 2
+    assert torch.equal(got, dout * s.bfloat16())
+
+
+def test_ring_merge_takes_an_f32_partial(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    N, S, H, D = 3, 100, 4, 64
+    acc = torch.randn((N, S, H, D), generator=g, device=dev)
+    out_b = torch.randn((N, S, H, D), generator=g, device=dev)
+    lse, lse_b = (torch.randn((N, H, S), generator=g, device=dev) * 3 for _ in "ab")
+    got = [acc.clone(), lse.clone(), torch.zeros((2, S, H, D), device=dev)]
+    want = [t.clone() for t in got]
+    rf.ring_merge(got[0], got[1], out_b, lse_b, got[2])
+    rf.ring_merge_plain(want[0], want[1], out_b, lse_b, want[2])
+    torch.cuda.synchronize()
+    for a_, b_ in zip(got, want):
+        assert bool(((a_ - b_).abs() <= MERGE_RTOL * b_.abs() + MERGE_ATOL).all())
+
+
+@pytest.mark.parametrize("B,S,P,hd,dtype", [
+    (2, 300, 3, 128, BF16), (1, 4000, 4, 64, FP16), (1, 300, 3, 96, torch.float32),
+])
+def test_ring_attention_takes_the_kernels_at_a_ragged_shard(dev, B, S, P, hd, dtype):
+    """S / P not a multiple of 128 (100 or 1000 positions a rank): the
+    gate still sends the call to the ring schedule over the flash kernels
+    (wgmma for bf16/fp16 at head_dim 64/128, SIMT otherwise) and the merge,
+    and the result agrees with full flash."""
+    from paddle_tpu_torch.ops import ring_attention as ra
+
+    q, k, v, do = _flash_inputs(dev, B, S, 8, 2, hd, dtype, seed=S + hd)
+    simt = not (dtype in (BF16, FP16) and hd in fa.HEAD_DIMS)
+    fwd, bwd = ((fa.flash_simt_fwd, fa.flash_simt_bwd) if simt
+                else (fa.flash_attention_fwd, fa.flash_attention_bwd))
+    f0, b0, m0 = fwd.launches, bwd.launches, rf.ring_merge.launches
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = ra.ring_attention(qs, ks, vs, P, True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches, rf.ring_merge.launches) == \
+        (f0 + P, b0 + P, m0 + P - 1)
+    qf, kf, vf = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    full = fa.flash_attention(qf, kf, vf, True)
+    full.backward(do)
+    for got, want in zip((out, qs.grad, ks.grad, vs.grad), (full, qf.grad, kf.grad, vf.grad)):
+        assert got.dtype == dtype and got.shape == want.shape
+        _assert_tiles_close(got.detach(), want.detach())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_ring_takes_the_kernels_through_the_gate(dev, causal):
+    """f32 with S / P a multiple of 128: ``ring_attention`` takes the ring
+    schedule over the (SIMT) flash kernels and agrees with full flash."""
+    from paddle_tpu_torch.ops import ring_attention as ra
+
+    P = 4
+    q, k, v, do = _flash_inputs(dev, 1, 1024, 8, 2, 128, torch.float32, seed=11)
+    assert ra.flash_runs(q)
+    s0, m0 = fa.flash_simt_fwd.launches, rf.ring_merge.launches
+    grads = []
+    for fn in (lambda a, b, c: ra.ring_attention(a, b, c, P, causal),
+               lambda a, b, c: fa.flash_attention(a, b, c, causal)):
+        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        out = fn(qs, ks, vs)
+        out.backward(do)
+        grads.append((out.detach(), qs.grad, ks.grad, vs.grad))
+    torch.cuda.synchronize()
+    assert fa.flash_simt_fwd.launches == s0 + P + 1 and rf.ring_merge.launches == m0 + P - 1
+    for got, want in zip(*grads):
         _assert_tiles_close(got, want)

@@ -160,7 +160,7 @@ def test_wrappers_on_cpu_run_plain_versions_and_count_nothing():
 
 
 @pytest.mark.parametrize("bad, err", [
-    (dict(dtype=torch.float32), TypeError),
+    (dict(dtype=torch.float16), TypeError),
     (dict(k=24), ValueError),
     (dict(n=40), ValueError),
     (dict(width=48), ValueError),
