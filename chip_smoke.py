@@ -7,7 +7,9 @@ Phases, each printing one line of numbers:
 
 1. setup: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel from ``paddle_tpu_torch/csrc`` (one nvcc per source,
-   started together), and for each library the counts of the tensor-core,
+   started together; the seconds to each library's end), each kernel
+   instantiation's registers and spilled bytes (``-Xptxas -v``), and for
+   each library the counts of the tensor-core,
    TMA and barrier instructions in its SASS (``cuobjdump -sass``, beside
    nvcc): HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA loads), SYNCS
    (mbarrier operations). The flash and the quant_matmul libraries must
@@ -37,11 +39,15 @@ Phases, each printing one line of numbers:
    ``ms / library_ms`` and ``bound_ms / ms`` each way. Then flash beyond
    the square bf16 case (FLASH_GENERAL_CASES): sq 1024 / sk 8192 causal
    (bottom-right) and not, sq 2048 / sk 1000 causal (rows that see no key),
-   f32 at S 2048 and bf16 at head_dim 96 (the SIMT kernels), each held tile
-   by tile (f32 to a tighter limit, which a TF32 control of the plain
+   f32 at S 2048 (the f32 route: two bf16 pieces an operand) and bf16 at
+   head_dim 96, 80 and 256 (the padded route), each with its route, held
+   tile by tile (f32 to a tighter limit, which a TF32 control of the plain
    version must exceed) and timed beside its bound and SDPA
-   (``causal_lower_right`` for bottom-right); and the SIMT kernels' launches through
-   ``nn.functional.flash_attention``;
+   (``causal_lower_right`` for bottom-right) with the ratio; and the padded
+   route's launches through ``nn.functional.flash_attention``; then the f32
+   route at phase 14's own shape (S 8192, H 32, Hk 8, hd 128, causal) held
+   tile by tile against the plain f32 version one KV-head group at a time,
+   with its TF32 control, and timed beside its bound and SDPA in f32;
 6. one training step, kernels against plain: Llama-3-8B widths at 2
    layers, S = 2048, bf16, the same weights on both paths; the loss and
    every parameter's gradient agree within stated tolerances, then one
@@ -85,7 +91,7 @@ Phases, each printing one line of numbers:
    cases twice for bit-identical gradients, every call launching the flash
    forward and backward P times and the merge P - 1 times; timed at the
    training shape beside the full flash kernel, the bound and SDPA; then
-   the ring in f32 through ``ring_attention``'s gate (the SIMT kernels and
+   the ring in f32 through ``ring_attention``'s gate (flash's f32 route and
    the merge with an f32 partial) at S 2048, P 4;
 12. one ring step check: Llama-3-8B widths at 2 layers, S = 2048, under a
    ``ProcessMesh`` whose sep axis has 4 ranks, the same weights with
@@ -95,16 +101,31 @@ Phases, each printing one line of numbers:
    that mesh: finite losses, exact launch counts (flash forward and
    backward 4 ranks x 4 layers per step, the merge 3 x 4, RMSNorm as in
    phase 7), step time and its ratio to phase 7's, tokens/s, model FLOPs
-   share, peak memory and one profiled step's device-busy share.
+   share, peak memory and one profiled step's device-busy share;
+14. f32 training, Llama at its default dtype: first the step check of
+   phase 6 in f32 (2 layers, S 2048, TF32 off, asserted and printed: the
+   loss and every gradient, then one TrainStep's moments, kernels against
+   plain within F32_STEP_*; the plain path once more with its flash in
+   TF32, a control whose gradients must exceed the limit), then
+   Llama-3-8B widths at F32_LAYERS layers,
+   batch 1 x 8192, phase 7's optimizer: one warm-up and three timed steps,
+   finite losses, exact launch counts (flash forward and backward once per
+   layer per step, all on the f32 route; RMSNorm 2 L + 1 each way), step
+   time, tokens/s, peak memory, and one profiled step's busy share and
+   device ms by kind.
 
-Then the card's name and power limit again, one JSON line with every
+Then the total seconds and each phase's, the card's name and power limit
+again, one JSON line with every
 kernel's numbers (launches from the main path of its own phase: the
 serving runs for the serving kernels, the three timed training steps for
 the training kernels, the three timed fine-tuning steps for the int8
 tensor-core kernels, phase 8 for SwiGLU, which no model path calls, and
 the three timed ring training steps for the merge and for the ring, whose
-launches are those of the flash and merge kernels its calls made),
-and last ``{"ok": true, "device": {...}}``. Any failure
+launches are those of the flash and merge kernels its calls made; flash's
+f32 route from the three timed steps of phase 14, with its numbers from
+phase 5's check at that shape, its padded route from phase 5's calls
+through ``nn.functional.flash_attention``), and last ``{"ok": true,
+"device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
 weights, the kernel inputs and the request trace.
@@ -126,11 +147,13 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
-# f32 work at f32 accuracy on the tensor cores takes three products a
-# product: the int8 GEMM's exact three-piece bf16 split (989 / 3), and for
-# attention 3xTF32, the cheapest f32-accurate tensor-core route (494.7 / 3)
+# f32 work on the tensor cores takes three bf16 products a product: the int8
+# GEMM's exact three-piece split of x (W is exact in bf16), and f32 flash's
+# two bf16 pieces of each operand, h.h' + h.l' + l.h' (989 / 3; 3xTF32, the
+# other f32 route within FLASH_F32_TILE_RTOL, peaks at 494.7 / 3)
 INT8_F32_FLOP_PER_S = BF16_FLOP_PER_S / 3
-ATTN_F32_FLOP_PER_S = 494.7e12 / 3
+ATTN_F32_FLOP_PER_S = BF16_FLOP_PER_S / 3
+F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores (cuBLAS f32, TF32 off)
 L2_BYTES = 50 * 2**20
 
 # kernel vs plain, both on the same bf16 inputs:
@@ -176,13 +199,14 @@ FLASH_TILE = 64
 #   f32 rounding: lse is held within FLASH_LSE_ATOL plus 1e-6 of its
 #   magnitude.
 FLASH_LSE_RTOL = 1e-6
-#   f32 flash (the SIMT kernels, and the f32 ring over them) rounds nothing
-#   but its f32 sums and exponentials: on the H100 it read 2e-6 of a tile's
-#   norm or less. A kernel that rounded its operands to TF32 (10 mantissa
-#   bits) would read about 4e-4, one that rounded them to bf16 about 3e-3,
-#   so f32 is held to FLASH_F32_TILE_RTOL of a tile's norm. Phase 5 runs the
-#   plain f32 version with TF32 matmuls as such a control and requires it to
-#   exceed the limit.
+#   f32 flash (and the f32 ring over it) takes every operand as two bf16
+#   pieces (16 significant bits) and each product as three piece products:
+#   about 2^-17 relative a product, 6e-6 (forward) to 1.4e-5 (backward) of a
+#   tile's norm in its CPU emulation. A kernel that rounded its operands to
+#   TF32 (10 mantissa bits) would read about 4e-4, one that rounded them to
+#   bf16 about 3e-3, so f32 is held to FLASH_F32_TILE_RTOL of a tile's
+#   norm. Phase 5 runs the plain f32 version with TF32 matmuls as such a
+#   control and requires it to exceed the limit.
 FLASH_F32_TILE_RTOL = 1e-4
 # - RMSNorm: the same f32 arithmetic summed in another order, one rounding
 #   to bf16: one bf16 step (2^-7 relative) plus 1e-3 of the largest output.
@@ -234,6 +258,16 @@ MERGE_RTOL, MERGE_ATOL_FRAC, MERGE_LSE_ATOL = 1e-5, 1e-6, 1e-5
 #   over 2048 tokens, within 1e-5 relative; every gradient within 3e-2 of
 #   its tensor's largest magnitude.
 RING_STEP_LOSS_RTOL, RING_STEP_GRAD_FRAC = 1e-5, 3e-2
+# - the 2-layer f32 step (phase 14), kernels against plain: every op but
+#   flash and RMSNorm is the same f32 arithmetic on both paths (TF32 off);
+#   RMSNorm differs by summation order (a few f32 ulps) and flash by its
+#   split, about 1e-5 of a tile's norm. The loss within 1e-5 relative;
+#   every gradient within 1e-4 of its tensor's largest magnitude, between
+#   what the kernel path reads (1.1e-5 on the H100, the q/k projections'
+#   gradients) and what the plain path reads with its flash in TF32 (6.9e-4,
+#   q_proj), the control the check runs and requires to exceed the limit;
+#   AdamW's m and v after one TrainStep as in phase 6, from that limit.
+F32_STEP_LOSS_RTOL, F32_STEP_GRAD_FRAC = 1e-5, 1e-4
 # - ring flash attention: FLASH_TILE_RTOL (f32: FLASH_F32_TILE_RTOL) and
 #   FLASH_LSE_ATOL above, tile by tile, against (a) the same schedule
 #   through the plain versions (the backward given the kernel forward's
@@ -254,18 +288,24 @@ FLASH_CASES = (("s2048", 1, 2048, 32, 8, 128, True),
                ("s2048_hd64_h16_hk8", 1, 2048, 16, 8, 64, True),
                ("s2048_noncausal", 1, 2048, 32, 8, 128, False))
 # flash beyond the square bf16 case: (label, B, sq, sk, H, Hk, head_dim,
-# causal, dtype); the wgmma kernels with sq != sk (bottom-right causal; the
-# third has 1048 rows that see no key), then the SIMT kernels: f32, and bf16
-# at head_dim 96
+# causal, dtype); sq != sk (bottom-right causal; the third has 1048 rows
+# that see no key), then the f32 route (two bf16 pieces) and the padded
+# route (bf16 at head_dim 96, 80 and 256, run as 128, 128 and 256 columns)
 FLASH_GENERAL_CASES = (("sq1024_sk8192_causal", 1, 1024, 8192, 32, 8, 128, True, "bf16"),
                        ("sq1024_sk8192", 1, 1024, 8192, 32, 8, 128, False, "bf16"),
                        ("sq2048_sk1000_causal", 1, 2048, 1000, 32, 8, 128, True, "bf16"),
                        ("f32_s2048_causal", 1, 2048, 2048, 32, 8, 128, True, "f32"),
-                       ("hd96_s2048_causal", 1, 2048, 2048, 32, 8, 96, True, "bf16"))
+                       ("hd96_s2048_causal", 1, 2048, 2048, 32, 8, 96, True, "bf16"),
+                       ("hd80_s2048_causal", 1, 2048, 2048, 32, 8, 80, True, "bf16"),
+                       ("hd256_s2048_causal", 1, 2048, 2048, 32, 8, 256, True, "bf16"))
 NORM_CASES = ((8192, 4096), (1000, 4096), (37, 4096))
 TRAIN_SEQ = 8192
 TRAIN_LAYERS = 4
 TRAIN_STEPS = 3
+# f32 training (phase 14): Llama-3-8B widths at its default f32, 2 layers
+# (parameters, gradients and AdamW's moments in f32 take 16 bytes a
+# parameter: 23.8 GB at 1.487 B)
+F32_LAYERS = 2
 CHECK_SEQ = 2048
 CHECK_LAYERS = 2
 LR = 3e-4
@@ -613,7 +653,7 @@ def serve(engine, prompts, max_new: int, phase: str):
 
 
 # device kernels of a training step by kind: (kind, name substrings)
-KERNEL_KINDS = (("flash attention (port)", ("flash_fwd_kernel", "flash_bwd_", "flash_simt_")),
+KERNEL_KINDS = (("flash attention (port)", ("flash_", "split_kernel")),
                 ("ring merge (port)", ("ring_merge_kernel",)),
                 ("rms norm (port)", ("rms_fwd_kernel", "rms_bwd_dx_kernel")),
                 ("int8 forward (port)", ("int8_tc_kernel<false", "int8_gemm_kernel")),
@@ -748,22 +788,23 @@ def teacher_forced_check(engine, prompts):
 # ---------------------------------------------------------------------------
 
 
-def flash_inputs(gen, B, S, H, Hk, hd):
+def flash_inputs(gen, B, S, H, Hk, hd, f32: bool = False):
     import torch
 
     def draw(heads):
-        return torch.randn((B, S, heads, hd), generator=gen, device="cuda").bfloat16()
+        x = torch.randn((B, S, heads, hd), generator=gen, device="cuda")
+        return x if f32 else x.bfloat16()
 
     return draw(H), draw(Hk), draw(Hk), draw(H)
 
 
-def flash_counts(causal: bool, B, S, H, Hk, hd):
-    """(bytes, forward FLOPs, backward FLOPs) of one call: every input read
-    once and every output written once; 4 FLOPs per (query, key, dim) pair
-    the mask keeps in the forward (two products), 10 in the backward (five
-    products)."""
+def flash_counts(causal: bool, B, S, H, Hk, hd, es: int = 2):
+    """(forward bytes, backward bytes, forward FLOPs, backward FLOPs) of one
+    call on ``es``-byte elements: every input read once and every output
+    written once; 4 FLOPs per (query, key, dim) pair the mask keeps in the
+    forward (two products), 10 in the backward (five products)."""
     pairs = S * (S + 1) // 2 if causal else S * S
-    qo, kv, stats = B * S * H * hd * 2, B * S * Hk * hd * 2, B * H * S * 4
+    qo, kv, stats = B * S * H * hd * es, B * S * Hk * hd * es, B * H * S * 4
     fwd_bytes = 2 * qo + 2 * kv + stats                   # q k v in; o lse out
     bwd_bytes = 3 * qo + 4 * kv + 2 * stats               # q k v dO lse delta in; dq dk dv out
     return fwd_bytes, bwd_bytes, 4 * pairs * B * H * hd, 10 * pairs * B * H * hd
@@ -848,13 +889,16 @@ def check_flash(gen):
     return time_flash(gen)
 
 
-def time_flash(gen):
+def time_flash(gen, f32: bool = False):
     """The kernels at the training shape (B 1, S 8192, H 32, Hk 8, hd 128,
-    causal) on the card, the plain versions on the same inputs (one call
-    per KV-head group, 4 query heads each, so that the S x S scores fit),
-    the kernels held against them, and the library yardstick: SDPA
-    forward, and its backward alone (``torch.autograd.grad`` of one
-    forward kept alive)."""
+    causal) on the card, in bf16 (phase 7's calls) or in f32 (phase 14's:
+    the f32 route), the plain versions on the same inputs (one call per
+    KV-head group, 4 query heads each, so that the S x S scores fit), the
+    kernels held against them (f32 with its TF32 control), and the library
+    yardstick: SDPA forward, and its backward alone (``torch.autograd.grad``
+    of one forward kept alive); bf16 through ``enable_gqa``, f32 over K/V
+    expanded to every head, as phase 5's f32 case (faster in f32 than
+    ``enable_gqa`` at S 2048 on the H100)."""
     import torch
     import torch.nn.functional as F
 
@@ -862,7 +906,7 @@ def time_flash(gen):
 
     B, S, H, Hk, hd = 1, TRAIN_SEQ, 32, 8, 128
     rep = H // Hk
-    q, k, v, do = flash_inputs(gen, B, S, H, Hk, hd)
+    q, k, v, do = flash_inputs(gen, B, S, H, Hk, hd, f32)
     out, lse = fa.flash_attention_fwd(q, k, v, True)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, True)
@@ -877,36 +921,55 @@ def time_flash(gen):
                                            do[:, :, hs[g]], lse[:, hs[g]], delta[:, hs[g]],
                                            True) for g in range(Hk)]
 
-    outs, lses = zip(*plain_fwd(0))
-    errs = hold_flash("training_shape", (out, lse), (torch.cat(outs, 2), torch.cat(lses, 1)),
-                      grads, [torch.cat(t, 2) for t in zip(*plain_bwd(0))])
-    del outs, lses, grads
+    def plain():
+        """((out, lse), (dq, dk, dv)) of the plain versions, group by group."""
+        outs, lses = zip(*plain_fwd(0))
+        return (torch.cat(outs, 2), torch.cat(lses, 1)), [torch.cat(t, 2)
+                                                          for t in zip(*plain_bwd(0))]
+
+    def plain_out_grads():
+        (o, _), g = plain()
+        return o, g
+
+    ref_fwd, ref_grads = plain()
+    errs = hold_flash("training_shape" + ("_f32" if f32 else ""), (out, lse), ref_fwd, grads,
+                      ref_grads)
+    control = tf32_control(plain_out_grads, ref_fwd[0], ref_grads) if f32 else {}
+    del ref_fwd, ref_grads, grads
     ms_fwd = device_ms(lambda i: fa.flash_attention_fwd(q, k, v, True), 1, 5)
     ms_bwd = device_ms(lambda i: fa.flash_attention_bwd(q, k, v, do, lse, delta, True), 1, 5)
     plain_fwd_ms = eager_ms(plain_fwd, 1, 2, 1)
     plain_bwd_ms = eager_ms(plain_bwd, 1, 2, 1)
-    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    qt, dot = q.transpose(1, 2), do.transpose(1, 2)
+    if f32:
+        kt, vt = (t.repeat_interleave(rep, dim=2).transpose(1, 2) for t in (k, v))
+        gqa = {}
+    else:
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        gqa = {"enable_gqa": True}
 
     def lib_fwd(i):
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
 
     lib_fwd_ms = device_ms(lib_fwd, 1, 5)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, **gqa)
     lib_bwd_ms = eager_ms(lambda i: torch.autograd.grad(lib_out, (ql, kl, vl), dot,
                                                         retain_graph=True), 1, 5, 2)
 
     def lib_fwd_bwd(i):
-        o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+        o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, **gqa)
         torch.autograd.grad(o, (ql, kl, vl), dot)
 
     lib_fwd_bwd_ms = eager_ms(lib_fwd_bwd, 1, 5, 2)
-    fwd_b, bwd_b, fwd_f, bwd_f = flash_counts(True, B, S, H, Hk, hd)
-    bf, byf = bound_ms(fwd_b, fwd_f)
-    bb, byb = bound_ms(bwd_b, bwd_f)
+    fwd_b, bwd_b, fwd_f, bwd_f = flash_counts(True, B, S, H, Hk, hd, q.element_size())
+    peak = ATTN_F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S
+    bf, byf = bound_ms(fwd_b, fwd_f, peak)
+    bb, byb = bound_ms(bwd_b, bwd_f, peak)
+    dt = "f32" if f32 else "bf16"
     say("train-kernels", kernel="flash_attention", case="training_shape", B=B, S=S, H=H,
-        Hk=Hk, hd=hd, causal=True,
-        **{k_: v_ for k_, v_ in errs.items() if k_ not in ("fwd_err", "bwd_err")},
+        Hk=Hk, hd=hd, causal=True, dtype=dt, route=fa.route(q),
+        **{k_: v_ for k_, v_ in errs.items() if k_ not in ("fwd_err", "bwd_err")}, **control,
         ms_fwd=round(ms_fwd, 5), bound_ms_fwd=round(bf, 5),
         plain_ms_fwd=round(plain_fwd_ms, 5), library_ms_fwd=round(lib_fwd_ms, 5),
         ms_bwd=round(ms_bwd, 5), bound_ms_bwd=round(bb, 5), plain_ms_bwd=round(plain_bwd_ms, 5),
@@ -914,19 +977,23 @@ def time_flash(gen):
         library_ratio_fwd=round(ms_fwd / lib_fwd_ms, 4), library_ratio_bwd=round(ms_bwd / lib_bwd_ms, 4),
         bound_share_fwd=round(bf / ms_fwd, 4), bound_share_bwd=round(bb / ms_bwd, 4),
         TFLOPs_fwd=round(fwd_f / ms_fwd / 1e9, 1), TFLOPs_bwd=round(bwd_f / ms_bwd / 1e9, 1))
-    del q, k, v, do, out, lse, delta, ql, kl, vl, lib_out
+    del q, k, v, do, out, lse, delta, qt, kt, vt, dot, ql, kl, vl, lib_out
     torch.cuda.empty_cache()
-    at = (f"B1 S{S} H{H} Hk{Hk} hd{hd} causal bf16, max_abs_err and tile_err at this "
+    at = (f"B1 S{S} H{H} Hk{Hk} hd{hd} causal {dt}, max_abs_err and tile_err at this "
           f"shape; plain version in {Hk} calls of one KV-head group each")
+    if f32:
+        at += ("; bound at 989 / 3 TFLOP/s (two bf16 pieces, three products); library: SDPA "
+               "over K/V expanded to every head (f32)")
+    else:
+        at += "; library: F.scaled_dot_product_attention(is_causal, enable_gqa)"
     return ({"max_abs_err": errs["fwd_err"], "tile_err": errs["out_tile_err"], "ms": ms_fwd,
              "plain_ms": plain_fwd_ms, "bound_ms": bf, "bound_by": byf, "library_ms": lib_fwd_ms,
-             "library_ratio": ms_fwd / lib_fwd_ms, "bound_share": bf / ms_fwd,
-             "at": at + "; library: F.scaled_dot_product_attention(is_causal, enable_gqa)"},
+             "library_ratio": ms_fwd / lib_fwd_ms, "bound_share": bf / ms_fwd, "at": at},
             {"max_abs_err": errs["bwd_err"], "tile_err": max(errs["dq_dk_dv_tile_err"]),
              "ms": ms_bwd, "plain_ms": plain_bwd_ms, "bound_ms": bb, "bound_by": byb,
              "library_ms": lib_bwd_ms, "library_ratio": ms_bwd / lib_bwd_ms,
              "bound_share": bb / ms_bwd,
-             "at": at + "; library: torch.autograd.grad through SDPA's forward (eager)"})
+             "at": at + ", backward alone by torch.autograd.grad (eager)"})
 
 
 def general_pairs(B, sq, sk, H, causal) -> int:
@@ -941,26 +1008,33 @@ def general_pairs(B, sq, sk, H, causal) -> int:
     return B * H * (dead * sk + live)
 
 
-def tf32_control(q, k, v, do, lse, delta, causal, ref_out, ref_grads) -> dict:
-    """The f32 flash limit's control: the plain f32 versions run with TF32
-    matmuls (what a kernel that rounded its operands to TF32 would compute),
-    read tile by tile against the same plain versions in full f32. Raises
-    unless every reading exceeds FLASH_F32_TILE_RTOL, so the limit can fail
-    such a kernel. Returns the readings."""
+@contextlib.contextmanager
+def tf32_matmuls():
+    """f32 matrix products in TF32 (10 mantissa bits) for the controls."""
     import torch
 
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def tf32_control(plain, ref_out, ref_grads) -> dict:
+    """The f32 flash limit's control: ``plain()``, the plain f32 versions'
+    ``(out, (dq, dk, dv))``, run with TF32 matmuls (what a kernel that
+    rounded its operands to TF32 would compute), read tile by tile against
+    the same plain versions in full f32. Raises unless every reading
+    exceeds FLASH_F32_TILE_RTOL, so the limit can fail such a kernel.
+    Returns the readings."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     def tile_err(got, want):
         return fa.tile_errors(got, want, FLASH_TILE, FLASH_TILE_FLOOR)[0]
 
-    was = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        out_t, _ = fa.flash_attention_fwd_ref(q, k, v, causal)
-        grads_t = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = was
+    with tf32_matmuls():
+        out_t, grads_t = plain()
     reads = [tile_err(out_t, ref_out), *(tile_err(a, b) for a, b in zip(grads_t, ref_grads))]
     if not all(r > FLASH_F32_TILE_RTOL for r in reads):
         raise AssertionError(f"the TF32 control of the f32 flash limit reads {reads}, not all "
@@ -972,14 +1046,16 @@ def check_flash_general(gen):
     """Flash beyond the square bf16 case (FLASH_GENERAL_CASES): forward (out,
     lse) and backward (dQ, dK, dV, on the kernel forward's lse and delta)
     against the plain versions tile by tile, each timed beside its bound
-    (bf16 cases at the bf16 peak, f32 at 3xTF32), the plain version and one
+    (bf16 cases at the bf16 peak, f32 at 989 / 3), the plain version and one
     library call (SDPA over K/V expanded to every head; bottom-right causal
     through ``causal_lower_right``, since ``is_causal`` aligns top-left; its
-    backward alone by ``torch.autograd.grad``). Then the SIMT kernels' main
+    backward alone by ``torch.autograd.grad``). Then the padded route's main
     path: ``nn.functional.flash_attention`` (the user's entry point) on the
-    f32 and the head_dim 96 case, forward and backward, with the launch
-    counts set to 0 just before and read just after. Returns the SIMT
-    forward's and backward's numbers (the f32 case) and those launches."""
+    head_dim 96, 80 and 256 cases, forward and backward, with the launch
+    counts set to 0 just before and read just after. Returns the numbers of
+    the head_dim 96 case, forward and backward, and those launches (the f32
+    route's kernels line comes from ``time_flash(gen, f32=True)`` and phase
+    14)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
@@ -1007,7 +1083,9 @@ def check_flash_general(gen):
         errs = hold_flash(label, (out, lse), ref_fwd, grads, ref_grads)
         control = {}
         if dt == "f32":
-            control = tf32_control(q, k, v, do, lse, delta, causal, ref_fwd[0], ref_grads)
+            control = tf32_control(lambda: (
+                fa.flash_attention_fwd_ref(q, k, v, causal)[0],
+                fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)), ref_fwd[0], ref_grads)
         del ref_fwd, ref_grads, again
         peak = ATTN_F32_FLOP_PER_S if dt == "f32" else BF16_FLOP_PER_S
         es = q.element_size()
@@ -1038,7 +1116,7 @@ def check_flash_general(gen):
                       library_ms=lib_bwd)
         say("train-kernels", kernel="flash_attention", case=label, B=B, sq=sq, sk=sk, H=H,
             Hk=Hk, hd=hd, causal=causal, dtype=dt,
-            route="wgmma" if dt != "f32" and hd in fa.HEAD_DIMS else "simt",
+            route=fa.route(q),
             out_tile_err=errs["out_tile_err"], lse_err=errs["lse_err"],
             dq_dk_dv_tile_err=errs["dq_dk_dv_tile_err"], **control, bit_identical_grads=True,
             ms_fwd=round(ms_fwd, 5), bound_ms_fwd=round(bf, 5),
@@ -1049,13 +1127,14 @@ def check_flash_general(gen):
             library_ratio_bwd=round(ms_bwd / lib_bwd, 4),
             bound_share_fwd=round(bf / ms_fwd, 4), bound_share_bwd=round(bb / ms_bwd, 4))
         res[label] = (nums, nums_b)
-        if label.startswith(("f32", "hd96")):
+        if label.startswith("hd"):
             inputs[label] = (q, k, v, do, causal, out)
         del ql, kl, vl, lib_out, qt, kt, vt, dot, grads, delta, lse
         torch.cuda.empty_cache()
 
-    # the SIMT kernels' main path, through the user's entry point
-    fa.flash_simt_fwd.launches = fa.flash_simt_bwd.launches = 0
+    # the padded route's main path, through the user's entry point
+    for w in (fa.flash_attention_fwd, fa.flash_attention_bwd):
+        w.by_route.update(dict.fromkeys(fa.ROUTES, 0))
     for label, (q, k, v, do, causal, out) in inputs.items():
         qs = q.detach().requires_grad_(True)
         got, _ = PF.flash_attention(qs, k, v, causal=causal)
@@ -1063,24 +1142,22 @@ def check_flash_general(gen):
         torch.cuda.synchronize()
         if not torch.equal(got.detach(), out):
             raise AssertionError(f"nn.functional.flash_attention ({label}) differs from the "
-                                 "SIMT forward kernel")
-    launches = {"flash_simt_fwd": fa.flash_simt_fwd.launches,
-                "flash_simt_bwd": fa.flash_simt_bwd.launches}
-    say("train-kernels", kernel="flash_simt", main_path="nn.functional.flash_attention on "
-        "the f32 and head_dim 96 cases, forward and backward", **launches)
-    if launches != {"flash_simt_fwd": 2, "flash_simt_bwd": 2}:
-        raise AssertionError(f"the SIMT flash path launched {launches}")
+                                 "padded route's forward kernel")
+    launches = {"fwd": dict(fa.flash_attention_fwd.by_route),
+                "bwd": dict(fa.flash_attention_bwd.by_route)}
+    say("train-kernels", kernel="flash_attention", main_path="nn.functional.flash_attention "
+        "on the head_dim 96, 80 and 256 cases, forward and backward",
+        launches_by_route=json.dumps(launches))
+    want = {"wgmma": 0, "padded": len(inputs), "f32": 0}
+    if launches != {"fwd": want, "bwd": want}:
+        raise AssertionError(f"the padded flash path launched {launches}, expected {want}")
     del inputs
     torch.cuda.empty_cache()
-    fwd, bwd = res["f32_s2048_causal"]
-    at = ("B1 S2048 H32 Hk8 hd128 causal f32; bound at 3xTF32 (494.7 / 3 TFLOP/s); library: "
-          "SDPA over K/V expanded to every head (f32)")
-    fwd["at"] = at
-    bwd["at"] = at + ", backward alone by torch.autograd.grad (eager)"
-    for nums in (fwd, bwd):
-        nums["at"] += ("; launches from nn.functional.flash_attention on this case and on "
-                       "B1 S2048 H32 Hk8 hd96 causal bf16")
-    return fwd, bwd, launches
+    fwd, bwd = res["hd96_s2048_causal"]
+    fwd["at"] = ("B1 S2048 H32 Hk8 hd96 causal bf16; bound at 989 TFLOP/s on the true head_dim; "
+                 "library: SDPA over K/V expanded to every head (bf16)")
+    bwd["at"] = fwd["at"] + ", backward alone by torch.autograd.grad (eager)"
+    return (fwd, bwd), launches["fwd"]["padded"]
 
 
 def check_rms_norm(gen):
@@ -1516,20 +1593,21 @@ def check_ring(gen):
     from paddle_tpu_torch.ops import ring_flash as rf
 
     merge = check_ring_merge(gen)
-    wrappers = {"fwd": fa.flash_attention_fwd, "bwd": fa.flash_attention_bwd,
-                "merge": rf.ring_merge}
+    counters = {"fwd": (fa.flash_attention_fwd.by_route, "wgmma"),
+                "bwd": (fa.flash_attention_bwd.by_route, "wgmma"),
+                "merge": (vars(rf.ring_merge), "launches")}
     ring = None
     for label, B, S, P, H, Hk, hd, causal in RING_CASES:
         timed = label == RING_CASES[0][0]
         q, k, v, do = flash_inputs(gen, B, S, H, Hk, hd)
         runs = []
         for _ in range(1 if timed else 2):
-            before = {key: w.launches for key, w in wrappers.items()}
+            before = read_counts(counters)
             qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
             out = ra.ring_attention(qs, ks, vs, P, causal)
             out.backward(do)
             runs.append((out.detach(), qs.grad, ks.grad, vs.grad))
-            launched = {key: w.launches - before[key] for key, w in wrappers.items()}
+            launched = {key: n - before[key] for key, n in read_counts(counters).items()}
             if launched != {"fwd": P, "bwd": P, "merge": P - 1}:
                 raise AssertionError(f"ring ({label}) launched {launched} in one call")
         fq, fk, fv, fdo = (rf.fold(t, P) for t in (q, k, v, do))
@@ -1616,7 +1694,7 @@ def check_ring(gen):
 def check_ring_f32(gen):
     """The ring in f32 (phase 11): the merge kernel with an f32 partial
     against its plain version, and ``ring_attention`` (the gate, which sends
-    f32 to the ring schedule over the SIMT flash kernels) at B 1, S 2048,
+    f32 to the ring schedule over flash's f32 route) at B 1, S 2048,
     P 4, H 32, Hk 8, hd 128, causal, forward
     and backward, held tile by tile against the same schedule through the
     plain versions and against the full-sequence flash kernel, with the
@@ -1645,16 +1723,18 @@ def check_ring_f32(gen):
                    for n in (H, Hk, Hk, H))
     if not ra.flash_runs(q):
         raise AssertionError("the ring's gate keeps f32 composed on the card")
-    before = (fa.flash_simt_fwd.launches, fa.flash_simt_bwd.launches, rf.ring_merge.launches)
+    def counts():
+        return (fa.flash_attention_fwd.by_route["f32"], fa.flash_attention_bwd.by_route["f32"],
+                rf.ring_merge.launches)
+
+    before = counts()
     qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     out = ra.ring_attention(qs, ks, vs, P, True)
     out.backward(do)
     torch.cuda.synchronize()
-    launched = tuple(a - b for a, b in zip(
-        (fa.flash_simt_fwd.launches, fa.flash_simt_bwd.launches, rf.ring_merge.launches),
-        before))
+    launched = tuple(a - b for a, b in zip(counts(), before))
     if launched != (P, P, P - 1):
-        raise AssertionError(f"the f32 ring launched {launched} (SIMT fwd, bwd, merge)")
+        raise AssertionError(f"the f32 ring launched {launched} (f32 flash fwd, bwd, merge)")
     fq, fk, fv, fdo = (rf.fold(t, P) for t in (q, k, v, do))
     out_k, lse_k = rf.ring_flash_fwd(fq, fk, fv, P, True)
     grads_k = rf.ring_flash_bwd(fq, fk, fv, out_k, lse_k, fdo, P, True)
@@ -1670,7 +1750,7 @@ def check_ring_f32(gen):
                            (out.detach(), ring_lse(lse_k, P)), (full_out, full_lse),
                            (qs.grad, ks.grad, vs.grad), (qf.grad, kf.grad, vf.grad))
     say("ring-kernels", kernel="ring_flash_attention", case="f32_s2048_p4", B=B, S=S, P=P,
-        H=H, Hk=Hk, hd=hd, causal=True, launched_simt_fwd_bwd_merge=list(launched),
+        H=H, Hk=Hk, hd=hd, causal=True, launched_f32_fwd_bwd_merge=list(launched),
         merge_f32_partial_err=merge_err,
         **{f"plain_{k_}": v_ for k_, v_ in plain_errs.items()
            if k_.endswith("tile_err") or k_ == "lse_err"},
@@ -1685,34 +1765,48 @@ def check_ring_f32(gen):
 # phases 6-7: training
 # ---------------------------------------------------------------------------
 
-def training_wrappers() -> dict:
-    """{name: the kernel wrapper} of the training and fine-tuning kernels
-    (the int8 weight stream too, which a training step must not launch)."""
+def training_counters() -> dict:
+    """{name: (dict, key)}: where the launch count of each training and
+    fine-tuning kernel lives (the int8 weight stream too, which a training
+    step must not launch): a wrapper's ``launches`` among its attributes,
+    flash's under each route of its ``by_route``."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
     from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops import ring_flash as rf
 
-    return {"flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_bwd": fa.flash_attention_bwd,
-            "flash_simt_fwd": fa.flash_simt_fwd, "flash_simt_bwd": fa.flash_simt_bwd,
-            "rms_norm_fwd": fn.rms_norm_fwd, "rms_norm_bwd_dx": fn.rms_norm_bwd_dx,
-            "int8_matmul": qm.int8_matmul, "int8_matmul_large_m": qm.int8_matmul_large_m,
-            "int8_matmul_dx": qm.int8_matmul_dx, "int8_prepass": qm.int8_prepass,
-            "ring_merge": rf.ring_merge}
+    return {**{f"flash_{r}_{d}": (w.by_route, r) for r in fa.ROUTES
+               for d, w in (("fwd", fa.flash_attention_fwd), ("bwd", fa.flash_attention_bwd))},
+            **{name: (vars(w), "launches") for name, w in (
+                ("rms_norm_fwd", fn.rms_norm_fwd), ("rms_norm_bwd_dx", fn.rms_norm_bwd_dx),
+                ("int8_matmul", qm.int8_matmul), ("int8_matmul_large_m", qm.int8_matmul_large_m),
+                ("int8_matmul_dx", qm.int8_matmul_dx), ("int8_prepass", qm.int8_prepass),
+                ("ring_merge", rf.ring_merge))}}
 
 
-def expected_launches(layers: int, int8: bool = False, ring: int = 0) -> dict:
+def read_counts(counters: dict) -> dict:
+    return {name: d[key] for name, (d, key) in counters.items()}
+
+
+def zero_counts(counters: dict):
+    for d, key in counters.values():
+        d[key] = 0
+
+
+def expected_launches(layers: int, int8: bool = False, ring: int = 0,
+                      f32: bool = False) -> dict:
     """Per training step: flash forward and backward once per layer (with
     a ring of P ranks, P times each and the merge P - 1 times, one ring
-    call a layer), RMSNorm forward and backward twice per layer and once
-    for the final norm; with int8-frozen projections, the tensor-core
-    forward and dX once per projection (7 per layer), and never the weight
-    stream; in bf16, never the SIMT flash kernels or the f32 split."""
+    call a layer), all on flash's f32 route in f32, else all on its wgmma
+    route (head_dim 128); RMSNorm forward and backward twice per
+    layer and once for the final norm; with int8-frozen projections, the
+    tensor-core forward and dX once per projection (7 per layer), and never
+    the weight stream."""
     proj = 7 * layers if int8 else 0
     flash = layers * max(ring, 1)
-    return {"flash_attention_fwd": flash, "flash_attention_bwd": flash,
-            "flash_simt_fwd": 0, "flash_simt_bwd": 0,
+    route = "f32" if f32 else "wgmma"
+    return {**{f"flash_{r}_{d}": flash if r == route else 0
+               for r in ("wgmma", "padded", "f32") for d in ("fwd", "bwd")},
             "rms_norm_fwd": 2 * layers + 1, "rms_norm_bwd_dx": 2 * layers + 1,
             "int8_matmul": 0, "int8_matmul_large_m": proj, "int8_matmul_dx": proj,
             "int8_prepass": proj, "ring_merge": layers * max(ring - 1, 0)}
@@ -1735,17 +1829,28 @@ def quantize_projections(model):
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(tf32_flash: bool = False):
     """Route the training ops' autograd functions to the plain versions for
-    the reference path of phases 6 and 9. The package has no such switch: a
-    CUDA tensor always reaches the kernel."""
+    the reference path of phases 6, 9 and 14. The package has no such
+    switch: a CUDA tensor always reaches the kernel. With ``tf32_flash`` the
+    plain flash versions take their f32 products in TF32 (phase 14's
+    control)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
     from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops import ring_flash as rf
 
-    swaps = ((fa, "flash_attention_fwd", fa.flash_attention_fwd_ref),
-             (fa, "flash_attention_bwd", fa.flash_attention_bwd_ref),
+    def in_tf32(fn):
+        def run(*args, **kwargs):
+            with tf32_matmuls():
+                return fn(*args, **kwargs)
+        return run
+
+    fwd, bwd = fa.flash_attention_fwd_ref, fa.flash_attention_bwd_ref
+    if tf32_flash:
+        fwd, bwd = in_tf32(fwd), in_tf32(bwd)
+    swaps = ((fa, "flash_attention_fwd", fwd),
+             (fa, "flash_attention_bwd", bwd),
              (fn, "rms_norm_fwd", fn.rms_norm_fwd_ref),
              (fn, "rms_norm_bwd_dx", fn.rms_norm_bwd_dx_ref),
              (qm, "int8_matmul", qm.int8_matmul_ref),
@@ -1780,52 +1885,84 @@ def make_train_step(model):
     return TrainStep(model, opt, lambda x, y: model(x, labels=y)[0])
 
 
-def check_train_step(seed: int, int8: bool = False):
-    """Phase 6 (phase 9 with ``int8``: every projection int8-frozen): the
+def f32_matmuls() -> str:
+    """Raise unless f32 matrix products run in full f32 (torch's default:
+    TF32 off, precision "highest"); returns the setting."""
+    import torch
+
+    prec = torch.get_float32_matmul_precision()
+    if torch.backends.cuda.matmul.allow_tf32 or prec != "highest":
+        raise AssertionError(f"f32 matmuls run in TF32 (precision {prec!r})")
+    return prec
+
+
+def check_train_step(seed: int, int8: bool = False, f32: bool = False):
+    """Phase 6 (phase 9 with ``int8``: every projection int8-frozen; phase 14
+    with ``f32``: the model at its default f32, flash on its f32 route): the
     same 2-layer model and batch through the kernels and through the plain
-    versions."""
+    versions. In f32 the plain path runs once more with its flash in TF32,
+    a control that the gradient limit must fail."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
-    phase = "int8-step-check" if int8 else "train-step-check"
+    phase = "int8-step-check" if int8 else "f32-step-check" if f32 else "train-step-check"
+    loss_tol, grad_tol = (F32_STEP_LOSS_RTOL, F32_STEP_GRAD_FRAC) if f32 else (
+        STEP_LOSS_RTOL, STEP_GRAD_FRAC)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    extra = {"f32_matmul_precision": f32_matmuls()} if f32 else {}
     cfg = LlamaConfig.llama3_8b(num_hidden_layers=CHECK_LAYERS)
-    kern = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
-    plain = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed + 1)
+    kern = LlamaForCausalLM(cfg, device="cuda", dtype=dtype, seed=seed)
+    plain = LlamaForCausalLM(cfg, device="cuda", dtype=dtype, seed=seed + 1)
     if int8:
         quantize_projections(kern)
         quantize_projections(plain)
     plain.load_state_dict(kern.state_dict())
     ids, labels = token_batch(np.random.RandomState(seed + 2), CHECK_SEQ, cfg.vocab_size)
-    wrappers = training_wrappers()
+    counters = training_counters()
     results = {}
-    for name, model in (("kernel", kern), ("plain", plain)):
-        before = {k: w.launches for k, w in wrappers.items()}
-        with plain_kernels() if name == "plain" else contextlib.nullcontext():
+    runs = (("kernel", kern), ("plain", plain)) + ((("tf32_control", plain),) if f32 else ())
+    for name, model in runs:
+        before = read_counts(counters)
+        with (plain_kernels(tf32_flash=name == "tf32_control") if name != "kernel"
+              else contextlib.nullcontext()):
             loss, _ = model(ids, labels=labels)
             loss.backward()
         torch.cuda.synchronize()
-        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
-        want = (expected_launches(CHECK_LAYERS, int8) if name == "kernel"
-                else dict.fromkeys(wrappers, 0))
+        launched = {k: n - before[k] for k, n in read_counts(counters).items()}
+        want = (expected_launches(CHECK_LAYERS, int8, f32=f32) if name == "kernel"
+                else dict.fromkeys(counters, 0))
         if launched != want:
             raise AssertionError(f"{name} path launched {launched}, expected {want}")
         grads = {n: p.grad for n, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
         results[name] = (loss.item(), grads)
     (loss_k, grads_k), (loss_p, grads_p) = results["kernel"], results["plain"]
+
+    def grad_frac(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max().clamp_min(1e-30)).item()
+
     worst = (0.0, "")
     for n, gp in grads_p.items():
-        gk = grads_k[n]
-        frac = ((gk.float() - gp.float()).abs().max() / gp.float().abs().max().clamp_min(1e-30)).item()
+        frac = grad_frac(grads_k[n], gp)
         worst = max(worst, (frac, n))
-        if not (math.isfinite(frac) and frac <= STEP_GRAD_FRAC):
+        if not (math.isfinite(frac) and frac <= grad_tol):
             raise AssertionError(f"gradient of {n}: kernel and plain paths differ by {frac} of "
-                                 f"its largest magnitude (tol {STEP_GRAD_FRAC})")
+                                 f"its largest magnitude (tol {grad_tol})")
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    if not loss_rel <= STEP_LOSS_RTOL:
+    if not loss_rel <= loss_tol:
         raise AssertionError(f"loss: kernel path {loss_k}, plain path {loss_p}")
+    if f32:
+        loss_c, grads_c = results.pop("tf32_control")
+        ctrl = max((grad_frac(grads_c[n], gp), n) for n, gp in grads_p.items())
+        extra.update(control_worst_grad_frac=ctrl[0], control_worst_grad=ctrl[1],
+                     control_loss_rel_diff=abs(loss_c - loss_p) / abs(loss_p))
+        if not ctrl[0] > grad_tol:
+            raise AssertionError(f"the TF32 control of the f32 step reads {ctrl[0]} ({ctrl[1]}), "
+                                 f"not above the gradient limit {grad_tol}")
+        del grads_c
     n_trainable = len(grads_p)
     del grads_k, grads_p, results
     steps, losses = {}, {}
@@ -1834,10 +1971,10 @@ def check_train_step(seed: int, int8: bool = False):
         with plain_kernels() if name == "plain" else contextlib.nullcontext():
             losses[name] = steps[name](ids, labels).item()
     torch.cuda.synchronize()
-    if not abs(losses["kernel"] - losses["plain"]) <= STEP_LOSS_RTOL * abs(losses["plain"]):
+    if not abs(losses["kernel"] - losses["plain"]) <= loss_tol * abs(losses["plain"]):
         raise AssertionError(f"TrainStep losses differ: {losses}")
     # the state is in named_parameters() order on both
-    tols = {"m": STEP_GRAD_FRAC, "v": 2 * STEP_GRAD_FRAC + STEP_GRAD_FRAC ** 2}
+    tols = {"m": grad_tol, "v": 2 * grad_tol + grad_tol ** 2}
     moment_worst = dict.fromkeys(tols, 0.0)
     for (n, _), sk, sp in zip(kern.named_parameters(), steps["kernel"]._opt_state,
                               steps["plain"]._opt_state):
@@ -1849,9 +1986,9 @@ def check_train_step(seed: int, int8: bool = False):
             if not (math.isfinite(frac) and frac <= tol):
                 raise AssertionError(f"after one TrainStep, AdamW's {key} of {n} differs by "
                                      f"{frac} of its largest magnitude (tol {tol})")
-    say(phase, layers=CHECK_LAYERS, seq=CHECK_SEQ, trainable=n_trainable, loss_kernel=loss_k,
-        loss_plain=loss_p, loss_rel_diff=loss_rel, loss_tol=STEP_LOSS_RTOL,
-        worst_grad_frac=worst[0], worst_grad=worst[1], grad_tol=STEP_GRAD_FRAC,
+    say(phase, layers=CHECK_LAYERS, seq=CHECK_SEQ, trainable=n_trainable, **extra,
+        loss_kernel=loss_k, loss_plain=loss_p, loss_rel_diff=loss_rel, loss_tol=loss_tol,
+        worst_grad_frac=worst[0], worst_grad=worst[1], grad_tol=grad_tol,
         trainstep_loss_kernel=losses["kernel"], trainstep_loss_plain=losses["plain"],
         worst_m_frac=moment_worst["m"], m_tol=tols["m"], worst_v_frac=moment_worst["v"],
         v_tol=tols["v"])
@@ -1886,14 +2023,14 @@ def check_ring_step(seed: int):
         full.load_state_dict(ring.state_dict())
         ids, labels = token_batch(np.random.RandomState(seed + 2), CHECK_SEQ,
                                   ring.config.vocab_size)
-        wrappers = training_wrappers()
+        counters = training_counters()
         results = {}
         for name, model, p in (("ring", ring, RING), ("full", full, 0)):
-            before = {k: w.launches for k, w in wrappers.items()}
+            before = read_counts(counters)
             loss, _ = model(ids, labels=labels)
             loss.backward()
             torch.cuda.synchronize()
-            launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+            launched = {k: n - before[k] for k, n in read_counts(counters).items()}
             if launched != expected_launches(CHECK_LAYERS, ring=p):
                 raise AssertionError(f"{name} path launched {launched}, expected "
                                      f"{expected_launches(CHECK_LAYERS, ring=p)}")
@@ -1918,12 +2055,16 @@ def check_ring_step(seed: int):
     torch.cuda.empty_cache()
 
 
-def train(seed: int, int8: bool = False, ring: int = 0) -> dict:
+def train(seed: int, int8: bool = False, ring: int = 0, f32: bool = False,
+          count: bool = True) -> dict:
     """Phase 7 (phase 10 with ``int8``: every projection int8-frozen, the
     embedding, norms and head trained; phase 13 with ``ring``: the ring's
     context parallelism over that many ranks, under the current mesh): the
-    4-layer run. Returns the launch counts of the three timed steps and
-    the mean step time."""
+    4-layer run; phase 14 with ``f32``: the model at its default f32 with
+    F32_LAYERS layers. Returns the launch counts of the three timed steps,
+    the mean step time and the profiled step's device ms by kind. Without
+    ``count`` it reads no launch counter, so that ``tools/train_ab.py`` can
+    time an older checkout's package with it."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1931,13 +2072,15 @@ def train(seed: int, int8: bool = False, ring: int = 0) -> dict:
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.nn.quant import QuantizedLinear
 
-    phase = "finetune" if int8 else "ring-train" if ring else "train"
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS,
+    phase = "finetune" if int8 else "ring-train" if ring else "f32-train" if f32 else "train"
+    layers = F32_LAYERS if f32 else TRAIN_LAYERS
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers,
                                 context_parallel="ring" if ring else None)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
-    extra = {}
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float32 if f32 else torch.bfloat16,
+                             seed=seed)
+    extra = {"dtype": "float32", "f32_matmul_precision": f32_matmuls()} if f32 else {}
     if int8:
         quantize_projections(model)
         frozen = [m for m in model.modules() if isinstance(m, QuantizedLinear)]
@@ -1947,17 +2090,16 @@ def train(seed: int, int8: bool = False, ring: int = 0) -> dict:
     torch.cuda.synchronize()
     n_params = model.num_params()
     n_embed = model.llama.embed_tokens.weight.numel()
-    say(phase, layers=TRAIN_LAYERS, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
+    say(phase, layers=layers, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
         seq=TRAIN_SEQ, trainable_params=n_params, **extra,
         model_init_s=round(time.perf_counter() - t0, 2))
     step = make_train_step(model)
     rng = np.random.RandomState(seed + 3)
-    wrappers = training_wrappers()
-    per_step = expected_launches(TRAIN_LAYERS, int8, ring)
+    counters = training_counters() if count else {}
+    per_step = expected_launches(layers, int8, ring, f32) if count else {}
 
     def run(n_steps):
-        for w in wrappers.values():
-            w.launches = 0
+        zero_counts(counters)
         losses, times = [], []
         for _ in range(n_steps):
             ids, labels = token_batch(rng, TRAIN_SEQ, cfg.vocab_size)
@@ -1967,7 +2109,7 @@ def train(seed: int, int8: bool = False, ring: int = 0) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - s0)
             losses.append(loss.item())
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts(counters)
         want = {k: n_steps * v for k, v in per_step.items()}
         if counts != want:
             raise AssertionError(f"{phase} launched {counts}, expected {want}")
@@ -1979,8 +2121,8 @@ def train(seed: int, int8: bool = False, ring: int = 0) -> dict:
     losses, times, counts = run(TRAIN_STEPS)
     step_s = sum(times) / len(times)
     tokens = TRAIN_SEQ
-    attn_flops = TRAIN_LAYERS * 3.5 * flash_counts(True, 1, TRAIN_SEQ, cfg.num_attention_heads,
-                                                   cfg.num_key_value_heads, 128)[2]
+    attn_flops = layers * 3.5 * flash_counts(True, 1, TRAIN_SEQ, cfg.num_attention_heads,
+                                             cfg.num_key_value_heads, 128)[2]
     if int8:
         # frozen projections: forward and dX, no dW (4 FLOPs a weight and
         # token); the head trains (6); the embedding is a gather
@@ -1993,6 +2135,7 @@ def train(seed: int, int8: bool = False, ring: int = 0) -> dict:
         losses=losses, tokens_per_s=round(tokens / step_s, 1),
         model_tflop_per_step=round(model_flops / 1e12, 3),
         bf16_peak_share=round(model_flops / step_s / BF16_FLOP_PER_S, 4),
+        **({"f32_peak_share": round(model_flops / step_s / F32_FLOP_PER_S, 4)} if f32 else {}),
         max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
         launches=counts, **({"sep": ring} if ring else {}))
     ids, labels = token_batch(rng, TRAIN_SEQ, cfg.vocab_size)
@@ -2013,23 +2156,65 @@ def train(seed: int, int8: bool = False, ring: int = 0) -> dict:
         print(f"  {phase} top kernel: {us / 1e3:.4f} ms/step {name[:90]}", flush=True)
     del step, model
     torch.cuda.empty_cache()
-    return {"launches": counts, "step_ms": 1e3 * step_s, "device_ms_by_kind": by_kind(per_kernel)}
+    return {"launches": counts, "step_ms": 1e3 * step_s, "device_ms_by_kind": by_kind(per_kernel),
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "device_busy_share": busy / wall if busy else None}
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
 
 
-def sass_counts(name: str):
-    """{opcode: count} of SASS_OPS in the built library of kernel ``name``,
-    or None where the toolkit has no cuobjdump beside nvcc."""
+def ptxas_kernels(log: str) -> list:
+    """``[(kernel, registers, spill store bytes, spill load bytes)]`` of
+    every kernel in an ``nvcc -Xptxas -v`` log, names demangled by
+    ``cu++filt`` beside nvcc where there is one."""
+    from paddle_tpu_torch.ops import _build
+
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), *spill])
+            name = None
+    tool = Path(_build.nvcc_path()).parent / "cu++filt"
+    if rows and tool.is_file():
+        names = subprocess.run([str(tool)], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                n = n.split(">(")[0] + ">" if ">(" in n else n
+                r[0] = re.sub(r"\((?:int|bool)\)|void |<unnamed>::|\(anonymous namespace\)::| ",
+                              "", n)
+    return [tuple(r) for r in rows]
+
+
+def sass_counts(names) -> dict | None:
+    """{name: {opcode: count}} of SASS_OPS in the built library of each
+    kernel in ``names`` (one cuobjdump each, run together), or None where
+    the toolkit has no cuobjdump beside nvcc."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from paddle_tpu_torch.ops import _build
 
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     if not tool.is_file():
         return None
-    out = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
-                         capture_output=True, text=True, timeout=300, check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", out)) for op in SASS_OPS}
+    pattern = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+
+    def count(name):
+        out = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                             capture_output=True, text=True, timeout=300, check=True).stdout
+        found = pattern.findall(out)
+        return {op: found.count(op) for op in SASS_OPS}
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(count, names)))
 
 
 def nvidia_smi() -> str:
@@ -2060,6 +2245,13 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.ops.quant_matmul import int8_matmul, int8_matmul_large_m
 
     t_start = time.perf_counter()
+    marks, phase_s = [t_start], {}
+
+    def lap(phase: str):
+        """Seconds since the end of the phase before (the done line)."""
+        marks.append(time.perf_counter())
+        phase_s[phase] = round(marks[-1] - marks[-2], 1)
+
     smi = nvidia_smi()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -2067,25 +2259,27 @@ def main(argv=None) -> int:
         cuda=torch.version.cuda, device=repr(kind), count=torch.cuda.device_count())
     t0 = time.perf_counter()
     logs = _build.build()
-    say("setup", build_s=round(time.perf_counter() - t0, 2), built=sorted(logs))
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
-    for name in _build.KERNELS:
-        counts = sass_counts(name)
-        if counts is None:
-            say("setup", sass="no cuobjdump beside nvcc: no SASS counts")
-            break
+    say("setup", build_s=round(time.perf_counter() - t0, 2), built=sorted(logs),
+        **{f"build_s_{k}": round(v[1], 2) for k, v in logs.items()})
+    for name, (log, _) in logs.items():
+        for kernel, regs, stores, loads in ptxas_kernels(log):
+            say("setup", ptxas=name, kernel=kernel, registers=regs, spill_stores=stores,
+                spill_loads=loads)
+    sass = sass_counts(_build.KERNELS)
+    if sass is None:
+        say("setup", sass="no cuobjdump beside nvcc: no SASS counts")
+    for name, counts in (sass or {}).items():
         say("setup", sass=name, **counts)
         if name in ("flash_attention", "quant_matmul") and not (
                 counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["HMMA"] == 0):
             raise AssertionError(f"the {name} kernels are not wgmma fed by TMA: {counts}")
+    lap("1")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     attn = check_attention(gen)
     gemm = check_int8(gen)
+    lap("2")
 
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -2108,6 +2302,7 @@ def main(argv=None) -> int:
     profile_decode(engine, cfg.vocab_size, args.seed, "bf16-engine")
     del engine
     torch.cuda.empty_cache()
+    lap("3")
 
     engine = ServingEngine(model, ServeConfig(weight_dtype="int8", **serve_cfg))
     say("int8-engine", layers=model.config.num_hidden_layers,
@@ -2133,22 +2328,32 @@ def main(argv=None) -> int:
     profile_decode(engine, cfg.vocab_size, args.seed, "int8-engine")
     del engine, model
     torch.cuda.empty_cache()
+    lap("4")
 
     flash_fwd, flash_bwd = check_flash(gen)
-    simt_fwd, simt_bwd, simt_launches = check_flash_general(gen)
+    padded, padded_launches = check_flash_general(gen)
+    f32_fwd, f32_bwd = time_flash(gen, f32=True)
     norm_fwd, norm_bwd = check_rms_norm(gen)
+    lap("5")
     check_train_step(args.seed)
+    lap("6")
     trained = train(args.seed)
     train_launches = trained["launches"]
+    lap("7")
     int8_fwd, int8_dx = check_int8_train(gen)
     prepass = check_int8_prepass(gen)
     check_int8_f32_train(gen)
     swiglu_fwd, swiglu_bwd, swiglu_launches = check_swiglu(gen)
+    lap("8")
     check_train_step(args.seed, int8=True)
+    lap("9")
     finetune_launches = train(args.seed, int8=True)["launches"]
+    lap("10")
     merge, ring = check_ring(gen)
     check_ring_f32(gen)
+    lap("11")
     check_ring_step(args.seed)
+    lap("12")
     with ring_mesh():
         ring_trained = train(args.seed, ring=RING)
     ring_launches = ring_trained["launches"]
@@ -2156,13 +2361,17 @@ def main(argv=None) -> int:
     # made (every flash launch of phase 13 is a ring's, as its exact counts
     # show: P per layer, with P - 1 merges)
     ring_launches["ring_flash_attention"] = sum(
-        ring_launches[k] for k in ("flash_attention_fwd", "flash_attention_bwd", "ring_merge"))
+        ring_launches[k] for k in ("flash_wgmma_fwd", "flash_wgmma_bwd", "ring_merge"))
     per_step = expected_launches(TRAIN_LAYERS, ring=RING)["ring_merge"]
     merge["profiled_step_ms_per_launch"] = (
         ring_trained["device_ms_by_kind"].get("ring merge (port)", 0.0) / per_step)
     say("ring-train", step_ms_ratio_to_train=round(ring_trained["step_ms"] / trained["step_ms"], 4),
         train_step_ms=round(trained["step_ms"], 3),
         merge_device_ms_per_launch=round(merge["profiled_step_ms_per_launch"], 5))
+    lap("13")
+    check_train_step(args.seed, f32=True)
+    f32_launches = train(args.seed, f32=True)["launches"]
+    lap("14")
 
     kernels = [
         {"name": "paged_decode_attention", "route": "cuda",
@@ -2187,7 +2396,8 @@ def main(argv=None) -> int:
             ("flash_attention_bwd", "flash_attention.cu", "flash_kernel.py:208", flash_bwd),
             ("rms_norm_fwd", "rms_norm.cu", "fused_norm.py:79", norm_fwd),
             ("rms_norm_bwd", "rms_norm.cu", "fused_norm.py:79", norm_bwd)):
-        wrapper = name if name != "rms_norm_bwd" else "rms_norm_bwd_dx"
+        wrapper = {"flash_attention_fwd": "flash_wgmma_fwd", "flash_attention_bwd":
+                   "flash_wgmma_bwd", "rms_norm_bwd": "rms_norm_bwd_dx"}.get(name, name)
         kernels.append({
             "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": f"paddle_tpu/ops/pallas/{replaces}",
@@ -2195,10 +2405,14 @@ def main(argv=None) -> int:
         kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                               f"({TRAIN_LAYERS} layers)")
     for name, source, replaces, nums, launches in (
-            ("flash_simt_fwd", "flash_simt.cu", "flash_attention.py:112", simt_fwd,
-             simt_launches["flash_simt_fwd"]),
-            ("flash_simt_bwd", "flash_simt.cu", "flash_attention.py:112", simt_bwd,
-             simt_launches["flash_simt_bwd"]),
+            ("flash_attention_fwd_f32", "flash_attention.cu", "flash_attention.py:112",
+             f32_fwd, f32_launches["flash_f32_fwd"]),
+            ("flash_attention_bwd_f32", "flash_attention.cu", "flash_attention.py:112",
+             f32_bwd, f32_launches["flash_f32_bwd"]),
+            ("flash_attention_fwd_padded", "flash_attention.cu", "flash_attention.py:112",
+             padded[0], padded_launches),
+            ("flash_attention_bwd_padded", "flash_attention.cu", "flash_attention.py:112",
+             padded[1], padded_launches),
             ("int8_matmul_large_m", "quant_matmul.cu", "quant_matmul.py:117", int8_fwd,
              finetune_launches["int8_matmul_large_m"]),
             ("int8_matmul_dx", "quant_matmul.cu", "quant_matmul.py:143", int8_dx,
@@ -2215,6 +2429,12 @@ def main(argv=None) -> int:
         if name in ("int8_matmul_large_m", "int8_matmul_dx"):
             kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed int8 fine-tuning "
                                   f"steps ({TRAIN_LAYERS} layers)")
+        elif name.endswith("_f32"):
+            kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed f32 training steps "
+                                  f"({F32_LAYERS} layers)")
+        elif name.endswith("_padded"):
+            kernels[-1]["at"] += ("; launches from nn.functional.flash_attention on the head_dim "
+                                  "96, 80 and 256 cases")
     for name, source, replaces, nums in (
             ("ring_merge", "csrc/ring_merge.cu", "ring_flash.py:44", merge),
             ("ring_flash_attention", "ops/ring_flash.py", "ring_flash.py:145", ring)):
@@ -2223,7 +2443,7 @@ def main(argv=None) -> int:
             "replaces": f"paddle_tpu/ops/pallas/{replaces}", "launches": ring_launches[name],
             **nums})
         kernels[-1]["at"] += (f" ({TRAIN_STEPS} steps, {TRAIN_LAYERS} layers, sep={RING})")
-    say("done", total_s=round(time.perf_counter() - t_start, 1))
+    say("done", total_s=round(time.perf_counter() - t_start, 1), phase_s=json.dumps(phase_s))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
 // FlashAttention forward and backward for Hopper (sm_90a): wgmma fed by TMA
-// through mbarrier pipelines, one producer warpgroup and two consumer
+// through mbarrier pipelines, one producer warpgroup and one or two consumer
 // warpgroups per block. Bound through a plain C interface and loaded with
 // ctypes by paddle_tpu_torch/ops/flash_attention.py.
 //
@@ -8,9 +8,10 @@
 // pass `_bwd_dkv_kernel`, :88-129, and the dQ pass `_bwd_dq_kernel`,
 // :132-160), which every Llama attention call reaches through
 // `flash_attention_bsnd` and the `custom_vjp` of `flash_attention_bhsd`.
-// With Sq != Sk it also stands for the bundled Mosaic kernel the reference's
-// gate sends those calls to (ops/pallas/flash_attention.py:112-133), which
-// aligns its causal mask top-left, unlike the reference's composed path.
+// It also stands for the bundled Mosaic kernel the reference's gate sends
+// every other call to (ops/pallas/flash_attention.py:112-133): Sq != Sk
+// (that kernel aligns its causal mask top-left, unlike the reference's
+// composed path), f32, and any head_dim that is a multiple of 8.
 //
 // Semantics, as the TPU kernels: scores q.k in f32 from bf16 (or fp16)
 // products, times `scale`; causal rows align bottom-right, as the composed
@@ -27,6 +28,11 @@
 // rounds P to the input type for dV += P^T dO and dS = P (dP - delta) scale
 // to the input type for dK += dS^T Q and dQ += dS K. Exponentials are taken
 // as exp2 with log2(e) folded into the scale; lse is stored in natural log.
+// f32 inputs round nothing to a narrower type: every operand (Q, K, V, dO,
+// and P and dS in registers) is split into two bf16 pieces, x = h + l with
+// h = bf16(x) and l = bf16(x - h) (16 significant bits), and each product
+// is the three products h.h' + h.l' + l.h' (about 2^-17 relative); O, dQ,
+// dK and dV are f32. dK and dV sum each KV head's group in f32 in both.
 //
 // Bound on the H100: operations. At Llama-3-8B training shapes (B 1, S 8192,
 // H 32, Hk 8, head_dim 128, causal) the forward does 4 FLOPs per kept (query,
@@ -36,7 +42,8 @@
 // 2.224 ms at peak (the reference's two passes, seven: 1.946). The bytes
 // (each input read once) take a tenth of that. So every product runs on
 // the tensor cores through wgmma, the S x S scores stay in registers, and no
-// work is done above the causal diagonal beyond the diagonal tiles.
+// work is done above the causal diagonal beyond the diagonal tiles. In f32
+// every product is three bf16 products: the bound is 989 / 3 TFLOP/s.
 //
 // Design:
 // - Layout: q/o [B, S, H, D] and k/v [B, S, Hk, D], read in place. Each
@@ -49,9 +56,23 @@
 //   driver through cudaGetDriverEntryPoint, so the library needs no -lcuda)
 //   and passed by value as __grid_constant__ parameters, which a CUDA graph
 //   captures with the launch.
+// - Head dims: a head_dim D runs as Dp = 64 ceil(D / 64) columns (64, 128,
+//   192 or 256). The maps keep D as the innermost extent, so TMA fills the
+//   box columns past D with zeros on every load and the products are
+//   unchanged; the outputs' register stores mask the columns past D. At D
+//   == Dp the mask is compiled out (kPad).
+// - f32: a pre-pass kernel (split_kernel) writes the two bf16 pieces of each
+//   input as a packed [2 B, S, heads, D] tensor, the pieces walked as
+//   batches B apart; the kernels load both pieces of every tile and issue
+//   each product as its three piece products, smallest first. The register
+//   operand (P or dS) is split where it is formed. Where the registers
+//   allow (Dp <= 128), each tile's product accumulates from zero and is
+//   added to the running f32 sum in registers (kPromote): the tensor cores
+//   truncate their f32 sums at each 16-deep step, and a sum over thousands
+//   of keys or queries would carry that bias.
 // - Roles: warpgroup 0 produces (one thread issues every TMA load; in the
-//   dV and dK passes its first warp also copies lse and delta), warpgroups
-//   1 and 2 consume, 64 rows each. Shared-memory stages ring through
+//   dV and dK passes its first warp also copies lse and delta), the others
+//   consume, 64 rows each. Shared-memory stages ring through
 //   full/empty mbarriers: the producer waits for a stage to be empty, sets
 //   the bytes it expects and issues the copy; a consumer waits for it to be
 //   full, runs its products and releases it (one arrival per warp).
@@ -61,29 +82,35 @@
 //   descriptor by 32 bytes inside the swizzle atom). The accumulator,
 //   rounded to the input type in pairs, is the register A operand of the
 //   next product (P V, dS K, P^T dO, dS^T Q), whose B operand is the
-//   row-major tile read MN-major (transposed), its two 64-column boxes one
-//   leading-byte offset apart.
+//   row-major tile read MN-major (transposed), its 64-column boxes one
+//   leading-byte offset apart (n64 or n128 per product, two of them past
+//   128 columns).
 // - Registers: 384 threads hold ptxas to 168 registers a thread, and
 //   setmaxnreg does not raise that (a first dK/dV pass spilled 688-704
 //   bytes whether the consumers asked for 232 or 240), so none is used.
-//   Each pass keeps one 64 x D accumulator: the forward O and S, the dQ
+//   Each pass keeps one 64 x Dp accumulator: the forward O and S, the dQ
 //   pass dQ, S and dP, the dV pass dV and S^T, the dK pass dK, S^T and dP^T.
-// - Forward: one block per (128 query rows, head, batch), heaviest causal
-//   tiles first. Q arrives once; K and V tiles of 128 rows ring through two
+//   bf16 and fp16 up to Dp 128 run two consumer warpgroups (384 threads);
+//   Dp 192 and 256, and f32 (two pieces and a second accumulator), one
+//   consumer warpgroup (256 threads, 255 registers), with key or query
+//   tiles of 32 to 128 rows and 1 to 3 stages, as shared memory allows
+//   (the Geo structs below).
+// - Forward: one block per (64 or 128 query rows, head, batch), heaviest
+//   causal tiles first. Q arrives once; K and V tiles ring through two
 //   stages with their own barriers, so S = Q K^T starts before V lands. The
 //   online softmax runs on the accumulator layout in registers; only the
 //   diagonal tile and the ragged tail are masked.
 // - Backward, deterministic (no atomics), in three passes. dV and dK: one
-//   block per (128 K rows, KV head, batch) holds K and V and loops over the
-//   query heads of its group and the 64-row Q tiles from the causal start,
-//   Q, dO, lse and delta ringing through three stages; the accumulator stays
+//   block per (64 or 128 K rows, KV head, batch) holds K and V and loops
+//   over the query heads of its group and the Q tiles from the causal start,
+//   Q, dO, lse and delta ringing through the stages; the accumulator stays
 //   in f32 registers for the whole loop, so the GQA group sum happens there,
 //   rounded once. The dV pass forms P^T only; the dK pass forms P^T while
-//   dP^T is computed, then dS^T. dQ: one block per (128 Q rows, head,
-//   batch); Q, dO and the row statistics stay, K and V tiles of 64 rows
-//   stream through two stages, P formed while dP is computed.
-// - head_dim 64 and 128, bf16 and fp16 are compiled; any Sq and Sk.
-//   flash_simt.cu takes f32 and the other head dims.
+//   dP^T is computed, then dS^T. dQ: one block per (64 or 128 Q rows, head,
+//   batch); Q, dO and the row statistics stay, K and V tiles stream through
+//   the stages, P formed while dP is computed.
+// - bf16, fp16 and f32; every head_dim that is a multiple of 8 up to 256;
+//   any Sq and Sk.
 //
 // Tried on the H100 (80GB HBM3, 700 W) at the shape above, with SDPA's
 // forward at 0.86-0.89 ms and its backward at 2.68-2.88 ms in the same calls:
@@ -99,17 +126,32 @@
 //   dK pass, which make the backward 4.12-4.32 ms;
 // - lse and delta by TMA through a one-row tensor map: the pipeline never
 //   completed (the bounded wait trapped); the producer warp copies them.
+// - f32 and other head dims on SIMT kernels (FMA, no tensor cores): f32 at
+//   S 2048 3.38 / 13.14 ms, bf16 at head_dim 96 2.92 / 11.24 ms; replaced
+//   by the pieces and the padding above.
 //
 // Not done yet: a persistent schedule, a one-pass backward (dQ reduced
 // across blocks in order, FA3-style) and a fused delta = rowsum(dO * O).
 
 #include "hopper.cuh"
 
-namespace {
+// The build compiles this file in parts, one nvcc each, started together,
+// and links them (ops/_build.py PARTS): part 0 (-DKERNEL_PART=0) holds the
+// C interface, the dispatch and the split pre-pass; parts 1 to 5 each
+// instantiate the launches of the configurations listed for them after the
+// kernels. Compiled whole (no KERNEL_PART), as tools/kernel_ab.py builds a
+// variant, it is all of them in one library.
+#ifdef KERNEL_PART
+#define FLASH_HOST (KERNEL_PART == 0)
+#define FLASH_KERNELS (KERNEL_PART != 0)
+#else
+#define FLASH_HOST 1
+#define FLASH_KERNELS 1
+#endif
+
+namespace flash {
 
 constexpr int kWG = 128;                  // threads of a warpgroup
-constexpr int kThreads = 3 * kWG;         // producer + two consumers
-constexpr int kConsumerWarps = 8;         // arrivals that empty a stage
 constexpr int kBox = 64;                  // columns of a TMA box
 constexpr int kRowBytes = kBox * 2;       // one swizzled box row
 constexpr float kNegInf = -1e30f;
@@ -129,10 +171,12 @@ struct Strides {
   long long b, s, h;
 };
 
+// B is the batch of the call (piece p of an f32 input is batch b + p B of
+// its packed pieces); D the true head_dim
 struct FwdArgs {
   void* o; float* lse;
   Strides so;
-  int H, Hk, Sq, Sk;
+  int B, H, Hk, Sq, Sk, D;
   float scale;
   int causal;
 };
@@ -141,19 +185,73 @@ struct BwdArgs {
   const float* lse; const float* delta;
   void* dq; void* dk; void* dv;
   Strides sdq, sdk, sdv;
-  int H, Hk, Sq, Sk;
+  int B, H, Hk, Sq, Sk, D;
   float scale;
   int causal;
 };
 
+inline Strides strides_of(const long long* s, int i) {
+  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+}
 
-// the A fragments of a 64 x N accumulator, k-step by k-step
-template <typename T, int N>
-__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
+// one kernel configuration: product type T, output type TO, padded head dim
+// Dp, pieces NP, whether D < Dp is possible (kPad)
+template <typename T_, typename TO_, int Dp_, int NP_, bool kPad_>
+struct Cfg {
+  using T = T_;
+  using TO = TO_;
+  static constexpr int Dp = Dp_, NP = NP_;
+  static constexpr bool kPad = kPad_;
+};
+
+using bf = __nv_bfloat16;
+
+// a configuration's launches: defined with the kernels, instantiated by the
+// part that builds that configuration
+template <typename C>
+int launch_fwd(const void* q, const void* k, const void* v, const long long* st, const FwdArgs& a,
+               cudaStream_t stream);
+template <typename C>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const long long* st,
+               const BwdArgs& a, cudaStream_t stream);
+
+#if FLASH_KERNELS
+
+// A block of one pass: a producer warpgroup and kC consumer warpgroups for
+// head dim Dp (a multiple of 64) with operands in NP bf16/fp16 pieces (1:
+// the input itself; 2: an f32 input's split)
+template <int Dp, int NP>
+struct Shape {
+  static_assert(Dp % kBox == 0 && Dp <= 256 && (NP == 1 || NP == 2), "tile shape");
+  static constexpr int kC = NP == 1 && Dp <= 128 ? 2 : 1;
+  static constexpr int kThreads = kWG * (1 + kC);
+  static constexpr int kConsumerWarps = 4 * kC;   // arrivals that empty a stage
+  static constexpr int kBoxes = Dp / kBox;
+  static constexpr bool kPromote = NP > 1 && Dp <= 128;
+};
+
+// the pairs of pieces (i, j), i + j < NP, of a split product, smallest first
+__host__ __device__ constexpr int npairs(int np) { return np == 1 ? 1 : 3; }
+__host__ __device__ constexpr int pair_a(int np, int p) { return np == 1 ? 0 : p == 0; }
+__host__ __device__ constexpr int pair_b(int np, int p) { return np == 1 ? 0 : p == 1; }
+
+// the A fragments of a 64 x N accumulator, k-step by k-step, in NP pieces:
+// piece 0 rounds to T, piece 1 rounds what piece 0 missed
+template <typename T, int N, int NP>
+__device__ __forceinline__ void to_a(uint32_t (&a)[NP][N / 16][4], const float (&d)[N / 2]) {
 #pragma unroll
   for (int k = 0; k < N / 16; ++k)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) a[k][r] = pack2<T>(d[8 * k + 2 * r], d[8 * k + 2 * r + 1]);
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = d[8 * k + 2 * r], x1 = d[8 * k + 2 * r + 1];
+      a[0][k][r] = pack2<T>(x0, x1);
+      if constexpr (NP == 2) {
+        static_assert(std::is_same<T, __nv_bfloat16>::value, "pieces are bf16");
+        const float h0 = __uint_as_float(a[0][k][r] << 16);
+        const float h1 = __uint_as_float(a[0][k][r] & 0xFFFF0000u);
+        a[1][k][r] = pack2<T>(x0 - h0, x1 - h1);
+      }
+    }
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -162,19 +260,67 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// rows row and row + 8 of a 64 x D accumulator to a [rows, D] slice with
-// row stride rs (elements), rows at or past S skipped
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* g, long long rs, int row, int S, int t4,
-                                           const float (&d)[D / 2], const float* mul) {
+// S[64 x N] = A B^T over Dp columns: A and B K-major tiles of Dp / 64 boxes
+// (a_box, b_box bytes apart), their pieces a_piece, b_piece bytes apart
+template <typename T, int N, int Dp, int NP>
+__device__ __forceinline__ void mma_scores(float* s, uint32_t a, uint32_t a_box, uint32_t a_piece,
+                                           uint32_t b, uint32_t b_box, uint32_t b_piece) {
+#pragma unroll
+  for (int p = 0; p < npairs(NP); ++p)
+#pragma unroll
+    for (int x = 0; x < Dp / kBox; ++x)
+#pragma unroll
+      for (int kk = 0; kk < kBox / 16; ++kk)
+        Mma<T, N>::template ss<0>(s, kmajor(a + pair_a(NP, p) * a_piece + x * a_box + kk * 32),
+                                  kmajor(b + pair_b(NP, p) * b_piece + x * b_box + kk * 32),
+                                  p + x + kk);
+}
+
+// D[64 x Dp] (+)= A[64 x 16] B[16 x Dp], B MN-major in boxes box_bytes apart
+template <typename T, int Dp>
+__device__ __forceinline__ void mma_cols(float* d, const uint32_t* a, uint32_t b,
+                                         uint32_t box_bytes, int acc) {
+  if constexpr (Dp <= 128) {
+    Mma<T, Dp>::template rs<1>(d, a, mnmajor(b, box_bytes), acc);
+  } else {
+    Mma<T, 128>::template rs<1>(d, a, mnmajor(b, box_bytes), acc);
+    Mma<T, Dp - 128>::template rs<1>(d + 64, a, mnmajor(b + 2 * box_bytes, box_bytes), acc);
+  }
+}
+
+// D[64 x Dp] (+)= A B over 16 KS rows: A the register fragments in NP
+// pieces, B an MN-major tile (pieces b_piece bytes apart); acc 0 starts
+// from zero
+template <typename T, int KS, int Dp, int NP>
+__device__ __forceinline__ void mma_rows(float* d, const uint32_t (&a)[NP][KS][4], uint32_t b,
+                                         uint32_t box_bytes, uint32_t b_piece, int acc) {
+#pragma unroll
+  for (int p = 0; p < npairs(NP); ++p)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      mma_cols<T, Dp>(d, a[pair_a(NP, p)][kk], b + pair_b(NP, p) * b_piece + kk * 16 * kRowBytes,
+                      box_bytes, acc | p | kk);
+}
+
+// rows row and row + 8 of a 64 x Dp accumulator to a [rows, D] slice with
+// row stride rs (elements), rows at or past S skipped, columns past D too
+// (kPad)
+template <typename TO, int Dp, bool kPad>
+__device__ __forceinline__ void store_rows(TO* g, long long rs, int row, int S, int D, int t4,
+                                           const float (&d)[Dp / 2], const float* mul) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row + 8 * r >= S) continue;
-    T* p = g + (long long)(row + 8 * r) * rs + 2 * t4;
+    TO* p = g + (long long)(row + 8 * r) * rs + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(p + 8 * j) =
-          pack2<T>(d[4 * j + 2 * r] * mul[r], d[4 * j + 2 * r + 1] * mul[r]);
+    for (int j = 0; j < Dp / 8; ++j) {
+      if (kPad && 8 * j >= D) continue;
+      const float x0 = d[4 * j + 2 * r] * mul[r], x1 = d[4 * j + 2 * r + 1] * mul[r];
+      if constexpr (std::is_same<TO, float>::value)
+        *reinterpret_cast<float2*>(p + 8 * j) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<uint32_t*>(p + 8 * j) = pack2<TO>(x0, x1);
+    }
   }
 }
 
@@ -182,33 +328,38 @@ __device__ __forceinline__ void store_rows(T* g, long long rs, int row, int S, i
 // forward
 // ---------------------------------------------------------------------------
 
-template <int D>
-struct FwdGeo {
-  static constexpr int kBoxes = D / kBox;
-  static constexpr int kM = 128;                     // query rows of a block
-  static constexpr int kN = 128;                     // K/V rows of a tile
+template <int Dp, int NP>
+struct FwdGeo : Shape<Dp, NP> {
+  using S = Shape<Dp, NP>;
+  static constexpr int kM = 64 * S::kC;              // query rows of a block
+  static constexpr int kN =                          // K/V rows of a tile
+      NP == 1 ? (Dp <= 192 ? 128 : 64) : (Dp == 64 ? 128 : Dp == 128 ? 64 : 32);
+  static constexpr int kStages = 2;
   static constexpr int kQBox = kM * kRowBytes;
+  static constexpr int kQPiece = S::kBoxes * kQBox;
   static constexpr int kBoxBytes = kN * kRowBytes;   // one box of a K or V tile
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kPiece = S::kBoxes * kBoxBytes;
+  static constexpr int kTileBytes = NP * kPiece;
   static constexpr int kQ = 0;
-  static constexpr int kK = kBoxes * kQBox;          // [2 stages]
-  static constexpr int kV = kK + 2 * kTileBytes;     // [2 stages]
-  static constexpr int kBar = kV + 2 * kTileBytes;
+  static constexpr int kK = NP * kQPiece;            // [kStages]
+  static constexpr int kV = kK + kStages * kTileBytes;   // [kStages]
+  static constexpr int kBar = kV + kStages * kTileBytes;
   static constexpr int kSmem = kBar + 128 + 1024;    // barriers, alignment slack
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
+template <typename T, typename TO, int Dp, int NP, bool kPad>
+__global__ void __launch_bounds__(Shape<Dp, NP>::kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const FwdArgs a) {
-  using G = FwdGeo<D>;
+  using G = FwdGeo<Dp, NP>;
+  constexpr int kS = G::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + G::kBar);
-  uint64_t* k_full = q_full + 1;   // [2]
-  uint64_t* k_empty = q_full + 3;  // [2]
-  uint64_t* v_full = q_full + 5;   // [2]
-  uint64_t* v_empty = q_full + 7;  // [2]
+  uint64_t* k_full = q_full + 1;            // [kS]
+  uint64_t* k_empty = q_full + 1 + kS;      // [kS]
+  uint64_t* v_full = q_full + 1 + 2 * kS;   // [kS]
+  uint64_t* v_empty = q_full + 1 + 3 * kS;  // [kS]
 
   const int nq = (a.Sq + G::kM - 1) / G::kM;
   const int qi = nq - 1 - blockIdx.x;              // heaviest causal tiles first
@@ -223,11 +374,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kS; ++i) {
       mbar_init(k_full + i, 1);
       mbar_init(v_full + i, 1);
-      mbar_init(k_empty + i, kConsumerWarps);
-      mbar_init(v_empty + i, kConsumerWarps);
+      mbar_init(k_empty + i, G::kConsumerWarps);
+      mbar_init(v_empty + i, G::kConsumerWarps);
     }
     fence_barrier_init();
   }
@@ -235,22 +386,26 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x < kWG) {
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, G::kBoxes * G::kQBox);
-      for (int x = 0; x < G::kBoxes; ++x)
-        tma_load(sm + G::kQ + x * G::kQBox, &tq, q_full, x * kBox, h, q0, b);
+      mbar_expect_tx(q_full, NP * G::kQPiece);
+      for (int p = 0; p < NP; ++p)
+        for (int x = 0; x < G::kBoxes; ++x)
+          tma_load(sm + G::kQ + p * G::kQPiece + x * G::kQBox, &tq, q_full, x * kBox, h, q0,
+                   b + p * a.B);
       for (int it = 0; it < nk; ++it) {
-        const int st = it & 1;
-        const uint32_t ph = (it >> 1) & 1;
+        const int st = it % kS;
+        const uint32_t ph = (it / kS) & 1;
         mbar_wait(k_empty + st, ph ^ 1);
         mbar_expect_tx(k_full + st, G::kTileBytes);
-        for (int x = 0; x < G::kBoxes; ++x)
-          tma_load(sm + G::kK + st * G::kTileBytes + x * G::kBoxBytes, &tk, k_full + st, x * kBox,
-                   hk, it * G::kN, b);
+        for (int p = 0; p < NP; ++p)
+          for (int x = 0; x < G::kBoxes; ++x)
+            tma_load(sm + G::kK + st * G::kTileBytes + p * G::kPiece + x * G::kBoxBytes, &tk,
+                     k_full + st, x * kBox, hk, it * G::kN, b + p * a.B);
         mbar_wait(v_empty + st, ph ^ 1);
         mbar_expect_tx(v_full + st, G::kTileBytes);
-        for (int x = 0; x < G::kBoxes; ++x)
-          tma_load(sm + G::kV + st * G::kTileBytes + x * G::kBoxBytes, &tv, v_full + st, x * kBox,
-                   hk, it * G::kN, b);
+        for (int p = 0; p < NP; ++p)
+          for (int x = 0; x < G::kBoxes; ++x)
+            tma_load(sm + G::kV + st * G::kTileBytes + p * G::kPiece + x * G::kBoxBytes, &tv,
+                     v_full + st, x * kBox, hk, it * G::kN, b + p * a.B);
       }
     }
   } else {
@@ -259,15 +414,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = q0 + c * 64 + (t / 32) * 16 + (t % 32) / 4;   // and row + 8
     const float sl2 = a.scale * kLog2e;
     const uint32_t qs = smem_u32(sm + G::kQ) + c * 64 * kRowBytes;
-    float o[D / 2];
+    float o[Dp / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < Dp / 2; ++i) o[i] = 0.f;
     float m[2] = {kInit2, kInit2}, l[2] = {0.f, 0.f};
     mbar_wait(q_full, 0);
 
     for (int it = 0; it < nk; ++it) {
-      const int st = it & 1;
-      const uint32_t ph = (it >> 1) & 1;
+      const int st = it % kS;
+      const uint32_t ph = (it / kS) & 1;
       const int k0 = it * G::kN;
       const uint32_t ks = smem_u32(sm + G::kK + st * G::kTileBytes);
       const uint32_t vs = smem_u32(sm + G::kV + st * G::kTileBytes);
@@ -275,12 +430,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       float s[G::kN / 2];
       mbar_wait(k_full + st, ph);
       wg_fence();
-#pragma unroll
-      for (int x = 0; x < G::kBoxes; ++x)
-#pragma unroll
-        for (int kk = 0; kk < kBox / 16; ++kk)
-          Mma<T, G::kN>::template ss<0>(s, kmajor(qs + x * G::kQBox + kk * 32),
-                                        kmajor(ks + x * G::kBoxBytes + kk * 32), x + kk);
+      mma_scores<T, G::kN, Dp, NP>(s, qs, G::kQBox, G::kQPiece, ks, G::kBoxBytes, G::kPiece);
       wg_commit();
       wg_wait();
       fence_regs(s);
@@ -316,19 +466,29 @@ __global__ void __launch_bounds__(kThreads, 1)
         s[i] = ex2(s[i] - m[(i >> 1) & 1]);
         l[(i >> 1) & 1] += s[i];
       }
+      if constexpr (!G::kPromote) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-      uint32_t pa[G::kN / 16][4];
-      to_a<T, G::kN>(pa, s);
+        for (int i = 0; i < Dp / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      }
+      uint32_t pa[NP][G::kN / 16][4];
+      to_a<T, G::kN, NP>(pa, s);
 
       mbar_wait(v_full + st, ph);
       wg_fence();
+      if constexpr (G::kPromote) {
+        float pv[Dp / 2];                          // this tile's P V, then O = O alpha + P V
+        mma_rows<T, G::kN / 16, Dp, NP>(pv, pa, vs, G::kBoxBytes, G::kPiece, 0);
+        wg_commit();
+        wg_wait();
+        fence_regs(pv);
 #pragma unroll
-      for (int kk = 0; kk < G::kN / 16; ++kk)
-        Mma<T, D>::template rs<1>(o, pa[kk], mnmajor(vs + kk * 16 * kRowBytes, G::kBoxBytes), 1);
-      wg_commit();
-      wg_wait();
-      fence_regs(o);
+        for (int i = 0; i < Dp / 2; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], pv[i]);
+      } else {
+        mma_rows<T, G::kN / 16, Dp, NP>(o, pa, vs, G::kBoxBytes, G::kPiece, 1);
+        wg_commit();
+        wg_wait();
+        fence_regs(o);
+      }
       release(v_empty + st);
     }
 
@@ -342,8 +502,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (t4 == 0 && row + 8 * r < a.Sq)
         a.lse[((long long)b * a.H + h) * a.Sq + row + 8 * r] = m[r] * kLn2 + logf(l[r]);
     }
-    store_rows<T, D>(static_cast<T*>(a.o) + b * a.so.b + h * a.so.h, a.so.s, row, a.Sq, t4, o,
-                     inv);
+    store_rows<TO, Dp, kPad>(static_cast<TO*>(a.o) + b * a.so.b + h * a.so.h, a.so.s, row, a.Sq,
+                             a.D, t4, o, inv);
   }
 }
 
@@ -351,17 +511,20 @@ __global__ void __launch_bounds__(kThreads, 1)
 // backward: dV, then dK
 // ---------------------------------------------------------------------------
 
-template <int D>
-struct KvGeo {
-  static constexpr int kBoxes = D / kBox;
-  static constexpr int kN = 128;                     // K/V rows of a block
-  static constexpr int kM = 64;                      // query rows of a tile
+template <int Dp, int NP>
+struct KvGeo : Shape<Dp, NP> {
+  using S = Shape<Dp, NP>;
+  static constexpr int kN = 64 * S::kC;              // K/V rows of a block
+  static constexpr int kM = NP == 2 && Dp >= 192 ? 32 : 64;   // query rows of a tile
+  static constexpr int kStages =
+      NP == 1 ? (Dp <= 192 ? 3 : 2) : (Dp == 64 ? 3 : Dp <= 192 ? 2 : 1);
   static constexpr int kKBox = kN * kRowBytes;
+  static constexpr int kKPiece = S::kBoxes * kKBox;
   static constexpr int kQBox = kM * kRowBytes;
-  static constexpr int kQBytes = kBoxes * kQBox;     // one Q or dO tile
+  static constexpr int kQPiece = S::kBoxes * kQBox;
+  static constexpr int kQBytes = NP * kQPiece;       // one Q or dO tile
   static constexpr int kK = 0;
-  static constexpr int kV = kBoxes * kKBox;
-  static constexpr int kStages = 3;
+  static constexpr int kV = NP * kKPiece;
   static constexpr int kQ = 2 * kV;                        // [kStages]
   static constexpr int kDO = kQ + kStages * kQBytes;       // [kStages]
   static constexpr int kStat = kDO + kStages * kQBytes;    // [kStages][lse | delta][kM] f32
@@ -372,18 +535,19 @@ struct KvGeo {
 
 // kDV: dV += P^T dO (S^T, then one product); else dK += dS^T Q (S^T and
 // dP^T, then one product)
-template <typename T, int D, bool kDV>
-__global__ void __launch_bounds__(kThreads, 1)
+template <typename T, typename TO, int Dp, int NP, bool kPad, bool kDV>
+__global__ void __launch_bounds__(Shape<Dp, NP>::kThreads, 1)
     flash_bwd_kv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
-  using G = KvGeo<D>;
+  using G = KvGeo<Dp, NP>;
+  constexpr int kS = G::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + G::kBar);
-  uint64_t* full = kv_full + 1;                 // [kStages]
-  uint64_t* empty = kv_full + 1 + G::kStages;   // [kStages]
+  uint64_t* full = kv_full + 1;          // [kS]
+  uint64_t* empty = kv_full + 1 + kS;    // [kS]
   float* stat = reinterpret_cast<float*>(sm + G::kStat);
 
   const int ki = blockIdx.x;                       // low K tiles see the most Q tiles: first
@@ -402,9 +566,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int i = 0; i < G::kStages; ++i) {
+    for (int i = 0; i < kS; ++i) {
       mbar_init(full + i, 32);                     // the producer warp's lanes
-      mbar_init(empty + i, kConsumerWarps);
+      mbar_init(empty + i, G::kConsumerWarps);
     }
     fence_barrier_init();
   }
@@ -413,24 +577,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x < kWG) {
     const int lane = threadIdx.x;
     if (lane == 0) {
-      mbar_expect_tx(kv_full, 2 * G::kBoxes * G::kKBox);
-      for (int x = 0; x < G::kBoxes; ++x) {
-        tma_load(sm + G::kK + x * G::kKBox, &tk, kv_full, x * kBox, hk, k0, b);
-        tma_load(sm + G::kV + x * G::kKBox, &tv, kv_full, x * kBox, hk, k0, b);
-      }
+      mbar_expect_tx(kv_full, 2 * NP * G::kKPiece);
+      for (int p = 0; p < NP; ++p)
+        for (int x = 0; x < G::kBoxes; ++x) {
+          tma_load(sm + G::kK + p * G::kKPiece + x * G::kKBox, &tk, kv_full, x * kBox, hk, k0,
+                   b + p * a.B);
+          tma_load(sm + G::kV + p * G::kKPiece + x * G::kKBox, &tv, kv_full, x * kBox, hk, k0,
+                   b + p * a.B);
+        }
     }
     if (threadIdx.x < 32) {
+      constexpr int kR = G::kM / 32;               // rows a lane copies
       for (int it = 0; it < total; ++it) {
-        const int st = it % G::kStages;
-        const uint32_t ph = (it / G::kStages) & 1;
+        const int st = it % kS;
+        const uint32_t ph = (it / kS) & 1;
         const int h = hk * rep + it / per_head;
         const int q0 = (q_start + it % per_head) * G::kM;
         // lse and delta of the tile's rows, read before the stage is free;
         // zeros past S
         const long long so = ((long long)b * a.H + h) * a.Sq + q0;
-        float lse[2], delta[2];
+        float lse[kR], delta[kR];
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
+        for (int r = 0; r < kR; ++r) {
           const bool ok = q0 + lane + 32 * r < a.Sq;
           lse[r] = ok ? a.lse[so + lane + 32 * r] : 0.f;
           delta[r] = ok ? a.delta[so + lane + 32 * r] : 0.f;
@@ -438,18 +606,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(empty + st, ph ^ 1);
         float* ls = stat + st * 2 * G::kM;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
+        for (int r = 0; r < kR; ++r) {
           ls[lane + 32 * r] = lse[r];
           ls[G::kM + lane + 32 * r] = delta[r];
         }
         if (lane == 0) {
           mbar_expect_tx(full + st, 2 * G::kQBytes);
-          for (int x = 0; x < G::kBoxes; ++x) {
-            tma_load(sm + G::kQ + st * G::kQBytes + x * G::kQBox, &tq, full + st, x * kBox, h,
-                     q0, b);
-            tma_load(sm + G::kDO + st * G::kQBytes + x * G::kQBox, &tdo, full + st, x * kBox, h,
-                     q0, b);
-          }
+          for (int p = 0; p < NP; ++p)
+            for (int x = 0; x < G::kBoxes; ++x) {
+              tma_load(sm + G::kQ + st * G::kQBytes + p * G::kQPiece + x * G::kQBox, &tq,
+                       full + st, x * kBox, h, q0, b + p * a.B);
+              tma_load(sm + G::kDO + st * G::kQBytes + p * G::kQPiece + x * G::kQBox, &tdo,
+                       full + st, x * kBox, h, q0, b + p * a.B);
+            }
         } else {
           mbar_arrive(full + st);
         }
@@ -462,14 +631,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float sl2 = a.scale * kLog2e;
     const uint32_t ks = smem_u32(sm + G::kK) + c * 64 * kRowBytes;
     const uint32_t vs = smem_u32(sm + G::kV) + c * 64 * kRowBytes;
-    float acc[D / 2];                              // dV or dK of this warpgroup's rows
+    float acc[Dp / 2];                             // dV or dK of this warpgroup's rows
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < Dp / 2; ++i) acc[i] = 0.f;
     mbar_wait(kv_full, 0);
 
     for (int it = 0; it < total; ++it) {
-      const int st = it % G::kStages;
-      const uint32_t ph = (it / G::kStages) & 1;
+      const int st = it % kS;
+      const uint32_t ph = (it / kS) & 1;
       const int q0 = (q_start + it % per_head) * G::kM;
       const uint32_t qs = smem_u32(sm + G::kQ + st * G::kQBytes);
       const uint32_t dos = smem_u32(sm + G::kDO + st * G::kQBytes);
@@ -479,20 +648,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       float s[G::kM / 2], dp[G::kM / 2];
       mbar_wait(full + st, ph);
       wg_fence();
-#pragma unroll
-      for (int x = 0; x < G::kBoxes; ++x)
-#pragma unroll
-        for (int kk = 0; kk < kBox / 16; ++kk)
-          Mma<T, G::kM>::template ss<0>(s, kmajor(ks + x * G::kKBox + kk * 32),
-                                        kmajor(qs + x * G::kQBox + kk * 32), x + kk);
+      mma_scores<T, G::kM, Dp, NP>(s, ks, G::kKBox, G::kKPiece, qs, G::kQBox, G::kQPiece);
       wg_commit();
       if constexpr (!kDV) {
-#pragma unroll
-        for (int x = 0; x < G::kBoxes; ++x)
-#pragma unroll
-          for (int kk = 0; kk < kBox / 16; ++kk)
-            Mma<T, G::kM>::template ss<0>(dp, kmajor(vs + x * G::kKBox + kk * 32),
-                                          kmajor(dos + x * G::kQBox + kk * 32), x + kk);
+        mma_scores<T, G::kM, Dp, NP>(dp, vs, G::kKBox, G::kKPiece, dos, G::kQBox, G::kQPiece);
         wg_commit();
         wg_wait<1>();                              // P^T while dP^T is computed
       } else {
@@ -521,9 +680,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
-      uint32_t fa[G::kM / 16][4];                  // P^T or dS^T as the A operand
+      uint32_t fa[NP][G::kM / 16][4];              // P^T or dS^T as the A operand
       if constexpr (kDV) {
-        to_a<T, G::kM>(fa, s);
+        to_a<T, G::kM, NP>(fa, s);
       } else {
         wg_wait();
         fence_regs(dp);
@@ -532,28 +691,36 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
           dp[i] = s[i] * (dp[i] - ls[G::kM + qc]) * a.scale;
         }
-        to_a<T, G::kM>(fa, dp);
+        to_a<T, G::kM, NP>(fa, dp);
       }
 
       // dV += P^T dO, or dK += dS^T Q
       const uint32_t bs = kDV ? dos : qs;
       wg_fence();
+      if constexpr (G::kPromote) {
+        float part[Dp / 2];                        // this tile's product, added in f32
+        mma_rows<T, G::kM / 16, Dp, NP>(part, fa, bs, G::kQBox, G::kQPiece, 0);
+        wg_commit();
+        wg_wait();
+        fence_regs(part);
 #pragma unroll
-      for (int kk = 0; kk < G::kM / 16; ++kk)
-        Mma<T, D>::template rs<1>(acc, fa[kk], mnmajor(bs + kk * 16 * kRowBytes, G::kQBox), 1);
-      wg_commit();
-      wg_wait();
-      fence_regs(acc);
+        for (int i = 0; i < Dp / 2; ++i) acc[i] += part[i];
+      } else {
+        mma_rows<T, G::kM / 16, Dp, NP>(acc, fa, bs, G::kQBox, G::kQPiece, 1);
+        wg_commit();
+        wg_wait();
+        fence_regs(acc);
+      }
       release(empty + st);
     }
 
     const float one[2] = {1.f, 1.f};
     if constexpr (kDV)
-      store_rows<T, D>(static_cast<T*>(a.dv) + b * a.sdv.b + hk * a.sdv.h, a.sdv.s, krow, a.Sk,
-                       t4, acc, one);
+      store_rows<TO, Dp, kPad>(static_cast<TO*>(a.dv) + b * a.sdv.b + hk * a.sdv.h, a.sdv.s,
+                               krow, a.Sk, a.D, t4, acc, one);
     else
-      store_rows<T, D>(static_cast<T*>(a.dk) + b * a.sdk.b + hk * a.sdk.h, a.sdk.s, krow, a.Sk,
-                       t4, acc, one);
+      store_rows<TO, Dp, kPad>(static_cast<TO*>(a.dk) + b * a.sdk.b + hk * a.sdk.h, a.sdk.s,
+                               krow, a.Sk, a.D, t4, acc, one);
   }
 }
 
@@ -561,34 +728,38 @@ __global__ void __launch_bounds__(kThreads, 1)
 // backward: dQ
 // ---------------------------------------------------------------------------
 
-template <int D>
-struct DqGeo {
-  static constexpr int kBoxes = D / kBox;
-  static constexpr int kM = 128;                     // query rows of a block
-  static constexpr int kN = 64;                      // K/V rows of a tile
+template <int Dp, int NP>
+struct DqGeo : Shape<Dp, NP> {
+  using S = Shape<Dp, NP>;
+  static constexpr int kM = 64 * S::kC;              // query rows of a block
+  static constexpr int kN = NP == 2 && Dp >= 192 ? 32 : 64;   // K/V rows of a tile
+  static constexpr int kStages = NP == 2 && Dp == 256 ? 1 : 2;
   static constexpr int kQBox = kM * kRowBytes;
+  static constexpr int kQPiece = S::kBoxes * kQBox;
   static constexpr int kBoxBytes = kN * kRowBytes;   // one box of a K or V tile
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kPiece = S::kBoxes * kBoxBytes;
+  static constexpr int kTileBytes = NP * kPiece;
   static constexpr int kQ = 0;
-  static constexpr int kDO = kBoxes * kQBox;
-  static constexpr int kK = 2 * kDO;                 // [2 stages]
-  static constexpr int kV = kK + 2 * kTileBytes;     // [2 stages]
-  static constexpr int kBar = kV + 2 * kTileBytes;
+  static constexpr int kDO = NP * kQPiece;
+  static constexpr int kK = 2 * kDO;                 // [kStages]
+  static constexpr int kV = kK + kStages * kTileBytes;   // [kStages]
+  static constexpr int kBar = kV + kStages * kTileBytes;
   static constexpr int kSmem = kBar + 128 + 1024;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
+template <typename T, typename TO, int Dp, int NP, bool kPad>
+__global__ void __launch_bounds__(Shape<Dp, NP>::kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
-  using G = DqGeo<D>;
+  using G = DqGeo<Dp, NP>;
+  constexpr int kS = G::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   uint64_t* qd_full = reinterpret_cast<uint64_t*>(sm + G::kBar);
-  uint64_t* kv_full = qd_full + 1;   // [2]
-  uint64_t* kv_empty = qd_full + 3;  // [2]
+  uint64_t* kv_full = qd_full + 1;         // [kS]
+  uint64_t* kv_empty = qd_full + 1 + kS;   // [kS]
 
   const int nq = (a.Sq + G::kM - 1) / G::kM;
   const int qi = nq - 1 - blockIdx.x;              // heaviest causal tiles first
@@ -603,9 +774,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(qd_full, 1);
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kS; ++i) {
       mbar_init(kv_full + i, 1);
-      mbar_init(kv_empty + i, kConsumerWarps);
+      mbar_init(kv_empty + i, G::kConsumerWarps);
     }
     fence_barrier_init();
   }
@@ -613,22 +784,26 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x < kWG) {
     if (threadIdx.x == 0) {
-      mbar_expect_tx(qd_full, 2 * G::kBoxes * G::kQBox);
-      for (int x = 0; x < G::kBoxes; ++x) {
-        tma_load(sm + G::kQ + x * G::kQBox, &tq, qd_full, x * kBox, h, q0, b);
-        tma_load(sm + G::kDO + x * G::kQBox, &tdo, qd_full, x * kBox, h, q0, b);
-      }
+      mbar_expect_tx(qd_full, 2 * NP * G::kQPiece);
+      for (int p = 0; p < NP; ++p)
+        for (int x = 0; x < G::kBoxes; ++x) {
+          tma_load(sm + G::kQ + p * G::kQPiece + x * G::kQBox, &tq, qd_full, x * kBox, h, q0,
+                   b + p * a.B);
+          tma_load(sm + G::kDO + p * G::kQPiece + x * G::kQBox, &tdo, qd_full, x * kBox, h, q0,
+                   b + p * a.B);
+        }
       for (int it = 0; it < nk; ++it) {
-        const int st = it & 1;
-        const uint32_t ph = (it >> 1) & 1;
+        const int st = it % kS;
+        const uint32_t ph = (it / kS) & 1;
         mbar_wait(kv_empty + st, ph ^ 1);
         mbar_expect_tx(kv_full + st, 2 * G::kTileBytes);
-        for (int x = 0; x < G::kBoxes; ++x) {
-          tma_load(sm + G::kK + st * G::kTileBytes + x * G::kBoxBytes, &tk, kv_full + st,
-                   x * kBox, hk, it * G::kN, b);
-          tma_load(sm + G::kV + st * G::kTileBytes + x * G::kBoxBytes, &tv, kv_full + st,
-                   x * kBox, hk, it * G::kN, b);
-        }
+        for (int p = 0; p < NP; ++p)
+          for (int x = 0; x < G::kBoxes; ++x) {
+            tma_load(sm + G::kK + st * G::kTileBytes + p * G::kPiece + x * G::kBoxBytes, &tk,
+                     kv_full + st, x * kBox, hk, it * G::kN, b + p * a.B);
+            tma_load(sm + G::kV + st * G::kTileBytes + p * G::kPiece + x * G::kBoxBytes, &tv,
+                     kv_full + st, x * kBox, hk, it * G::kN, b + p * a.B);
+          }
       }
     }
   } else {
@@ -646,14 +821,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       lse2[r] = ok ? a.lse[i] * kLog2e : 0.f;
       dl[r] = ok ? a.delta[i] : 0.f;
     }
-    float dq[D / 2];
+    float dq[Dp / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < Dp / 2; ++i) dq[i] = 0.f;
     mbar_wait(qd_full, 0);
 
     for (int it = 0; it < nk; ++it) {
-      const int st = it & 1;
-      const uint32_t ph = (it >> 1) & 1;
+      const int st = it % kS;
+      const uint32_t ph = (it / kS) & 1;
       const int k0 = it * G::kN;
       const uint32_t ks = smem_u32(sm + G::kK + st * G::kTileBytes);
       const uint32_t vs = smem_u32(sm + G::kV + st * G::kTileBytes);
@@ -661,19 +836,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       float s[G::kN / 2], dp[G::kN / 2];
       mbar_wait(kv_full + st, ph);
       wg_fence();
-#pragma unroll
-      for (int x = 0; x < G::kBoxes; ++x)
-#pragma unroll
-        for (int kk = 0; kk < kBox / 16; ++kk)
-          Mma<T, G::kN>::template ss<0>(s, kmajor(qs + x * G::kQBox + kk * 32),
-                                        kmajor(ks + x * G::kBoxBytes + kk * 32), x + kk);
+      mma_scores<T, G::kN, Dp, NP>(s, qs, G::kQBox, G::kQPiece, ks, G::kBoxBytes, G::kPiece);
       wg_commit();
-#pragma unroll
-      for (int x = 0; x < G::kBoxes; ++x)
-#pragma unroll
-        for (int kk = 0; kk < kBox / 16; ++kk)
-          Mma<T, G::kN>::template ss<0>(dp, kmajor(dos + x * G::kQBox + kk * 32),
-                                        kmajor(vs + x * G::kBoxBytes + kk * 32), x + kk);
+      mma_scores<T, G::kN, Dp, NP>(dp, dos, G::kQBox, G::kQPiece, vs, G::kBoxBytes, G::kPiece);
       wg_commit();
       wg_wait<1>();                                // P while dP is computed
       fence_regs(s);
@@ -693,23 +858,31 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < G::kN / 2; ++i)
         dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]) * a.scale;
-      uint32_t da[G::kN / 16][4];
-      to_a<T, G::kN>(da, dp);
+      uint32_t da[NP][G::kN / 16][4];
+      to_a<T, G::kN, NP>(da, dp);
 
       // dQ += dS K
       wg_fence();
+      if constexpr (G::kPromote) {
+        float part[Dp / 2];                        // this tile's product, added in f32
+        mma_rows<T, G::kN / 16, Dp, NP>(part, da, ks, G::kBoxBytes, G::kPiece, 0);
+        wg_commit();
+        wg_wait();
+        fence_regs(part);
 #pragma unroll
-      for (int kk = 0; kk < G::kN / 16; ++kk)
-        Mma<T, D>::template rs<1>(dq, da[kk], mnmajor(ks + kk * 16 * kRowBytes, G::kBoxBytes), 1);
-      wg_commit();
-      wg_wait();
-      fence_regs(dq);
+        for (int i = 0; i < Dp / 2; ++i) dq[i] += part[i];
+      } else {
+        mma_rows<T, G::kN / 16, Dp, NP>(dq, da, ks, G::kBoxBytes, G::kPiece, 1);
+        wg_commit();
+        wg_wait();
+        fence_regs(dq);
+      }
       release(kv_empty + st);
     }
 
     const float one[2] = {1.f, 1.f};
-    store_rows<T, D>(static_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h, a.sdq.s, row, a.Sq, t4,
-                     dq, one);
+    store_rows<TO, Dp, kPad>(static_cast<TO*>(a.dq) + b * a.sdq.b + h * a.sdq.h, a.sdq.s, row,
+                             a.Sq, a.D, t4, dq, one);
   }
 }
 
@@ -720,8 +893,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // A 4-D map over (D, heads, S, B) of a [B, S, heads, D] tensor with element
 // strides st (unit along D), boxes of 64 columns by `rows` rows, 128-byte
-// swizzle; reads past an edge give zeros. A dimension of size 1 gets the
-// packed stride, whatever torch reports for it.
+// swizzle; reads past an edge (columns past D too) give zeros. A dimension
+// of size 1 gets the packed stride, whatever torch reports for it.
 template <typename T>
 int tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads, int D, Strides st,
                int rows) {
@@ -750,94 +923,269 @@ int prepare(K kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-Strides strides_of(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
-
-template <typename T, int D>
+// the maps read q, k, v (the inputs, or an f32 call's pieces: NP B batches)
+// with the (batch, seq, head) element strides st of q, k, v
+template <typename C>
 int launch_fwd(const void* q, const void* k, const void* v, const long long* st, const FwdArgs& a,
-               int B, cudaStream_t stream) {
-  using G = FwdGeo<D>;
+               cudaStream_t stream) {
+  using T = typename C::T;
+  using G = FwdGeo<C::Dp, C::NP>;
+  const int nb = C::NP * a.B;
   CUtensorMap mq, mk, mv;
-  if (int e = tensor_map<T>(&mq, q, B, a.Sq, a.H, D, strides_of(st, 0), G::kM)) return e;
-  if (int e = tensor_map<T>(&mk, k, B, a.Sk, a.Hk, D, strides_of(st, 1), G::kN)) return e;
-  if (int e = tensor_map<T>(&mv, v, B, a.Sk, a.Hk, D, strides_of(st, 2), G::kN)) return e;
-  if (int e = prepare(flash_fwd_kernel<T, D>, G::kSmem)) return e;
-  const dim3 grid((a.Sq + G::kM - 1) / G::kM, a.H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, G::kSmem, stream>>>(mq, mk, mv, a);
+  if (int e = tensor_map<T>(&mq, q, nb, a.Sq, a.H, a.D, strides_of(st, 0), G::kM)) return e;
+  if (int e = tensor_map<T>(&mk, k, nb, a.Sk, a.Hk, a.D, strides_of(st, 1), G::kN)) return e;
+  if (int e = tensor_map<T>(&mv, v, nb, a.Sk, a.Hk, a.D, strides_of(st, 2), G::kN)) return e;
+  auto kernel = flash_fwd_kernel<T, typename C::TO, C::Dp, C::NP, C::kPad>;
+  if (int e = prepare(kernel, G::kSmem)) return e;
+  const dim3 grid((a.Sq + G::kM - 1) / G::kM, a.H, a.B);
+  kernel<<<grid, G::kThreads, G::kSmem, stream>>>(mq, mk, mv, a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename C>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const long long* st,
-               const BwdArgs& a, int B, cudaStream_t stream) {
-  // dK/dV: Q and dO boxes of 64 rows, K and V of 128; dQ the other way round
-  using GK = KvGeo<D>;
-  using GQ = DqGeo<D>;
+               const BwdArgs& a, cudaStream_t stream) {
+  // dK/dV: Q and dO boxes of kM rows, K and V of kN; dQ the other way round
+  using T = typename C::T;
+  using TO = typename C::TO;
+  using GK = KvGeo<C::Dp, C::NP>;
+  using GQ = DqGeo<C::Dp, C::NP>;
+  const int nb = C::NP * a.B;
   CUtensorMap mq, mk, mv, mdo;
-  if (int e = tensor_map<T>(&mq, q, B, a.Sq, a.H, D, strides_of(st, 0), GK::kM)) return e;
-  if (int e = tensor_map<T>(&mk, k, B, a.Sk, a.Hk, D, strides_of(st, 1), GK::kN)) return e;
-  if (int e = tensor_map<T>(&mv, v, B, a.Sk, a.Hk, D, strides_of(st, 2), GK::kN)) return e;
-  if (int e = tensor_map<T>(&mdo, dout, B, a.Sq, a.H, D, strides_of(st, 3), GK::kM)) return e;
-  const dim3 grid_kv((a.Sk + GK::kN - 1) / GK::kN, a.Hk, B);
-  if (int e = prepare(flash_bwd_kv_kernel<T, D, true>, GK::kSmem)) return e;
-  flash_bwd_kv_kernel<T, D, true><<<grid_kv, kThreads, GK::kSmem, stream>>>(mq, mk, mv, mdo, a);
+  if (int e = tensor_map<T>(&mq, q, nb, a.Sq, a.H, a.D, strides_of(st, 0), GK::kM)) return e;
+  if (int e = tensor_map<T>(&mk, k, nb, a.Sk, a.Hk, a.D, strides_of(st, 1), GK::kN)) return e;
+  if (int e = tensor_map<T>(&mv, v, nb, a.Sk, a.Hk, a.D, strides_of(st, 2), GK::kN)) return e;
+  if (int e = tensor_map<T>(&mdo, dout, nb, a.Sq, a.H, a.D, strides_of(st, 3), GK::kM)) return e;
+  const dim3 grid_kv((a.Sk + GK::kN - 1) / GK::kN, a.Hk, a.B);
+  auto kv_dv = flash_bwd_kv_kernel<T, TO, C::Dp, C::NP, C::kPad, true>;
+  auto kv_dk = flash_bwd_kv_kernel<T, TO, C::Dp, C::NP, C::kPad, false>;
+  if (int e = prepare(kv_dv, GK::kSmem)) return e;
+  kv_dv<<<grid_kv, GK::kThreads, GK::kSmem, stream>>>(mq, mk, mv, mdo, a);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
-  if (int e = prepare(flash_bwd_kv_kernel<T, D, false>, GK::kSmem)) return e;
-  flash_bwd_kv_kernel<T, D, false><<<grid_kv, kThreads, GK::kSmem, stream>>>(mq, mk, mv, mdo, a);
+  if (int e = prepare(kv_dk, GK::kSmem)) return e;
+  kv_dk<<<grid_kv, GK::kThreads, GK::kSmem, stream>>>(mq, mk, mv, mdo, a);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
-  if (int e = tensor_map<T>(&mq, q, B, a.Sq, a.H, D, strides_of(st, 0), GQ::kM)) return e;
-  if (int e = tensor_map<T>(&mk, k, B, a.Sk, a.Hk, D, strides_of(st, 1), GQ::kN)) return e;
-  if (int e = tensor_map<T>(&mv, v, B, a.Sk, a.Hk, D, strides_of(st, 2), GQ::kN)) return e;
-  if (int e = tensor_map<T>(&mdo, dout, B, a.Sq, a.H, D, strides_of(st, 3), GQ::kM)) return e;
-  if (int e = prepare(flash_bwd_dq_kernel<T, D>, GQ::kSmem)) return e;
-  flash_bwd_dq_kernel<T, D><<<dim3((a.Sq + GQ::kM - 1) / GQ::kM, a.H, B), kThreads, GQ::kSmem,
-                              stream>>>(mq, mk, mv, mdo, a);
+  if (int e = tensor_map<T>(&mq, q, nb, a.Sq, a.H, a.D, strides_of(st, 0), GQ::kM)) return e;
+  if (int e = tensor_map<T>(&mk, k, nb, a.Sk, a.Hk, a.D, strides_of(st, 1), GQ::kN)) return e;
+  if (int e = tensor_map<T>(&mv, v, nb, a.Sk, a.Hk, a.D, strides_of(st, 2), GQ::kN)) return e;
+  if (int e = tensor_map<T>(&mdo, dout, nb, a.Sq, a.H, a.D, strides_of(st, 3), GQ::kM)) return e;
+  auto dq = flash_bwd_dq_kernel<T, TO, C::Dp, C::NP, C::kPad>;
+  if (int e = prepare(dq, GQ::kSmem)) return e;
+  dq<<<dim3((a.Sq + GQ::kM - 1) / GQ::kM, a.H, a.B), GQ::kThreads, GQ::kSmem, stream>>>(
+      mq, mk, mv, mdo, a);
   return (int)cudaGetLastError();
 }
 
+#ifdef KERNEL_PART
+// the configurations of each part (dispatch, below, takes every one): the
+// main path's, bf16 padded, fp16 padded, f32 up to 128 columns, f32 past
+#define FLASH_INSTANTIATE(T, TO, Dp, NP, kPad)                                             \
+  template int launch_fwd<Cfg<T, TO, Dp, NP, kPad>>(const void*, const void*, const void*,  \
+                                                    const long long*, const FwdArgs&,       \
+                                                    cudaStream_t);                          \
+  template int launch_bwd<Cfg<T, TO, Dp, NP, kPad>>(const void*, const void*, const void*,  \
+                                                    const void*, const long long*,          \
+                                                    const BwdArgs&, cudaStream_t);
+#if KERNEL_PART == 1
+FLASH_INSTANTIATE(bf, bf, 128, 1, false)
+FLASH_INSTANTIATE(bf, bf, 64, 1, false)
+FLASH_INSTANTIATE(__half, __half, 128, 1, false)
+FLASH_INSTANTIATE(__half, __half, 64, 1, false)
+#elif KERNEL_PART == 2
+FLASH_INSTANTIATE(bf, bf, 64, 1, true)
+FLASH_INSTANTIATE(bf, bf, 128, 1, true)
+FLASH_INSTANTIATE(bf, bf, 192, 1, true)
+FLASH_INSTANTIATE(bf, bf, 256, 1, true)
+#elif KERNEL_PART == 3
+FLASH_INSTANTIATE(__half, __half, 64, 1, true)
+FLASH_INSTANTIATE(__half, __half, 128, 1, true)
+FLASH_INSTANTIATE(__half, __half, 192, 1, true)
+FLASH_INSTANTIATE(__half, __half, 256, 1, true)
+#elif KERNEL_PART == 4
+FLASH_INSTANTIATE(bf, float, 64, 2, true)
+FLASH_INSTANTIATE(bf, float, 128, 2, true)
+#elif KERNEL_PART == 5
+FLASH_INSTANTIATE(bf, float, 192, 2, true)
+FLASH_INSTANTIATE(bf, float, 256, 2, true)
+#endif
+#undef FLASH_INSTANTIATE
+#endif  // KERNEL_PART
+#endif  // FLASH_KERNELS
+
+#if FLASH_HOST
+
+// ---------------------------------------------------------------------------
+// f32: the split pre-pass
+// ---------------------------------------------------------------------------
+
+// up to four f32 [B, S, heads, D] tensors (strided, unit along D) to their
+// two bf16 pieces, packed as [2, B, S, heads, D]: h = bf16(x), l = bf16(x - h)
+struct SplitArgs {
+  const float* x[4];
+  __nv_bfloat16* out[4];
+  Strides st[4];
+  int S[4], heads[4];
+  int B, D;
+};
+
+__global__ void __launch_bounds__(256) split_kernel(const SplitArgs a) {
+  const int j = blockIdx.y;
+  const float* x = a.x[j];
+  const Strides st = a.st[j];
+  const int S = a.S[j], heads = a.heads[j], d4 = a.D / 4;
+  const long long n = (long long)a.B * S * heads * d4;   // groups of 4 columns
+  __nv_bfloat16* hi = a.out[j];
+  __nv_bfloat16* lo = hi + 4 * n;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    long long r = i / d4;
+    const int d = 4 * (int)(i - r * d4);
+    const int h = (int)(r % heads);
+    r /= heads;
+    const int s = (int)(r % S);
+    const long long b = r / S;
+    const float4 v = *reinterpret_cast<const float4*>(x + b * st.b + s * st.s + h * st.h + d);
+    const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
+    const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+    const __nv_bfloat162 l01 = __floats2bfloat162_rn(v.x - f01.x, v.y - f01.y);
+    const __nv_bfloat162 l23 = __floats2bfloat162_rn(v.z - f23.x, v.w - f23.y);
+    __nv_bfloat162* ph = reinterpret_cast<__nv_bfloat162*>(hi + 4 * i);
+    __nv_bfloat162* pl = reinterpret_cast<__nv_bfloat162*>(lo + 4 * i);
+    ph[0] = h01;
+    ph[1] = h23;
+    pl[0] = l01;
+    pl[1] = l23;
+  }
+}
+
+// the configuration of (dtype, D): bf16 or fp16 at D 64 or 128 as they are,
+// other D padded; f32 (dtype 3) as two bf16 pieces
 template <typename F>
 int dispatch(int dtype, int D, F&& f) {
-  if (dtype == 1 && D == 128) return f(__nv_bfloat16{}, std::integral_constant<int, 128>{});
-  if (dtype == 1 && D == 64) return f(__nv_bfloat16{}, std::integral_constant<int, 64>{});
-  if (dtype == 2 && D == 128) return f(__half{}, std::integral_constant<int, 128>{});
-  if (dtype == 2 && D == 64) return f(__half{}, std::integral_constant<int, 64>{});
+  const int Dp = (D + kBox - 1) / kBox * kBox;
+  if (dtype == 1) {
+    if (D == 128) return f(Cfg<bf, bf, 128, 1, false>{});
+    if (D == 64) return f(Cfg<bf, bf, 64, 1, false>{});
+    if (Dp == 64) return f(Cfg<bf, bf, 64, 1, true>{});
+    if (Dp == 128) return f(Cfg<bf, bf, 128, 1, true>{});
+    if (Dp == 192) return f(Cfg<bf, bf, 192, 1, true>{});
+    if (Dp == 256) return f(Cfg<bf, bf, 256, 1, true>{});
+  }
+  if (dtype == 2) {
+    if (D == 128) return f(Cfg<__half, __half, 128, 1, false>{});
+    if (D == 64) return f(Cfg<__half, __half, 64, 1, false>{});
+    if (Dp == 64) return f(Cfg<__half, __half, 64, 1, true>{});
+    if (Dp == 128) return f(Cfg<__half, __half, 128, 1, true>{});
+    if (Dp == 192) return f(Cfg<__half, __half, 192, 1, true>{});
+    if (Dp == 256) return f(Cfg<__half, __half, 256, 1, true>{});
+  }
+  if (dtype == 3) {
+    if (Dp == 64) return f(Cfg<bf, float, 64, 2, true>{});
+    if (Dp == 128) return f(Cfg<bf, float, 128, 2, true>{});
+    if (Dp == 192) return f(Cfg<bf, float, 192, 2, true>{});
+    if (Dp == 256) return f(Cfg<bf, float, 256, 2, true>{});
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
+// the split of n f32 tensors (q, k, v[, dout]) into `work`, tensor j taking
+// 2 B S_j heads_j D elements after the ones before it; fills `packed` with
+// the pieces' (batch, seq, head) strides
+int split(int n, const void* const* xs, const long long* strides, const int* S,
+          const int* heads, int B, int D, void* work, long long* packed, cudaStream_t stream) {
+  if (work == nullptr || D % 8) return (int)cudaErrorInvalidValue;
+  SplitArgs sa{};
+  sa.B = B;
+  sa.D = D;
+  __nv_bfloat16* w = static_cast<__nv_bfloat16*>(work);
+  long long most = 0;
+  for (int j = 0; j < n; ++j) {
+    const long long numel = (long long)B * S[j] * heads[j] * D;
+    sa.x[j] = static_cast<const float*>(xs[j]);
+    sa.out[j] = w;
+    sa.st[j] = strides_of(strides, j);
+    sa.S[j] = S[j];
+    sa.heads[j] = heads[j];
+    packed[3 * j] = (long long)S[j] * heads[j] * D;
+    packed[3 * j + 1] = (long long)heads[j] * D;
+    packed[3 * j + 2] = D;
+    w += 2 * numel;
+    most = numel > most ? numel : most;
+  }
+  const long long blocks = (most / 4 + 255) / 256;
+  const dim3 grid((unsigned)(blocks < 1056 ? (blocks > 0 ? blocks : 1) : 1056), n);
+  split_kernel<<<grid, 256, 0, stream>>>(sa);
+  return (int)cudaGetLastError();
+}
+
+#endif  // FLASH_HOST
+
+}  // namespace flash
+
+#if FLASH_HOST
+using namespace flash;
 
 // q/o [B, Sq, H, D], k/v [B, Sk, Hk, D] with unit stride along D; strides
 // holds the (batch, seq, head) element strides of q, k, v, o in that order.
-// lse is f32 [B, H, Sq], contiguous. dtype 1 is bf16, 2 is fp16; D is 64 or
-// 128. Causal rows align bottom-right (row i sees keys j <= i + Sk - Sq).
-// The caller has checked H % Hk == 0, shapes, 16-byte alignment of the data
-// and strides that are positive multiples of 8 (16 bytes, as TMA needs).
-// Returns the cudaError_t of the launch (0 on success), or 10000 + the
-// CUresult of a tensor map the driver refused.
+// lse is f32 [B, H, Sq], contiguous. dtype 1 is bf16, 2 is fp16, 3 is f32;
+// D is a multiple of 8 up to 256. f32 needs `work`: bf16 scratch of 2 (B Sq
+// H + 2 B Sk Hk) D elements for the pieces, 16-byte aligned. Causal rows
+// align bottom-right (row i sees keys j <= i + Sk - Sq). The caller has
+// checked H % Hk == 0, shapes, 16-byte alignment of the data and strides
+// that are positive multiples of 8 (16 bytes, as TMA needs). Returns the
+// cudaError_t of the launch (0 on success), or 10000 + the CUresult of a
+// tensor map the driver refused.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, const long long* strides, int B, int H, int Hk,
                                    int Sq, int Sk, int D, float scale, int causal, int dtype,
-                                   void* stream) {
-  const FwdArgs a{o, static_cast<float*>(lse), strides_of(strides, 3), H, Hk, Sq, Sk, scale,
-                  causal};
+                                   void* stream, void* work) {
+  const FwdArgs a{o, static_cast<float*>(lse), strides_of(strides, 3), B, H, Hk, Sq, Sk, D,
+                  scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, D, [&](auto tv, auto dv) {
-    return launch_fwd<decltype(tv), decltype(dv)::value>(q, k, v, strides, a, B, s);
+  const void* in[3] = {q, k, v};
+  long long packed[9];
+  if (dtype == 3) {
+    const int S[3] = {Sq, Sk, Sk}, heads[3] = {H, Hk, Hk};
+    if (int e = split(3, in, strides, S, heads, B, D, work, packed, s)) return e;
+    const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(work);
+    in[0] = w;
+    in[1] = w + 2LL * B * Sq * H * D;
+    in[2] = w + 2LL * B * (Sq * H + Sk * Hk) * D;
+  }
+  const long long* st = dtype == 3 ? packed : strides;
+  return dispatch(dtype, D, [&](auto c) {
+    return launch_fwd<decltype(c)>(in[0], in[1], in[2], st, a, s);
   });
 }
 
 // The backward's three passes. dout/dq like q, dk/dv like k; lse and delta
 // f32 [B, H, Sq]; strides holds (batch, seq, head) of q, k, v, dout, dq, dk,
-// dv.
+// dv. f32 needs `work` of 4 (B Sq H + B Sk Hk) D bf16 elements.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dq, void* dk, void* dv, const long long* strides,
                                    int B, int H, int Hk, int Sq, int Sk, int D, float scale,
-                                   int causal, int dtype, void* stream) {
+                                   int causal, int dtype, void* stream, void* work) {
   const BwdArgs a{static_cast<const float*>(lse), static_cast<const float*>(delta), dq, dk, dv,
                   strides_of(strides, 4), strides_of(strides, 5), strides_of(strides, 6),
-                  H, Hk, Sq, Sk, scale, causal};
+                  B, H, Hk, Sq, Sk, D, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, D, [&](auto tv, auto dv_) {
-    return launch_bwd<decltype(tv), decltype(dv_)::value>(q, k, v, dout, strides, a, B, s);
+  const void* in[4] = {q, k, v, dout};
+  long long packed[12];
+  if (dtype == 3) {
+    const int S[4] = {Sq, Sk, Sk, Sq}, heads[4] = {H, Hk, Hk, H};
+    if (int e = split(4, in, strides, S, heads, B, D, work, packed, s)) return e;
+    const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(work);
+    const long long nq = 2LL * B * Sq * H * D, nk = 2LL * B * Sk * Hk * D;
+    in[0] = w;
+    in[1] = w + nq;
+    in[2] = w + nq + nk;
+    in[3] = w + nq + 2 * nk;
+  }
+  const long long* st = dtype == 3 ? packed : strides;
+  return dispatch(dtype, D, [&](auto c) {
+    return launch_bwd<decltype(c)>(in[0], in[1], in[2], in[3], st, a, s);
   });
 }
+#endif  // FLASH_HOST

@@ -3,7 +3,10 @@
 Each ``paddle_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled on its own by ``nvcc`` into ``paddle_tpu_torch/_build/``, the
 first time a kernel is used (or when :func:`build` is called first, as
-``chip_smoke.py`` does). The library's file name carries a digest of its
+``chip_smoke.py`` does). A source listed in ``PARTS`` is compiled as that
+many translation units (``-DKERNEL_PART=0 .. n - 1``, one nvcc each,
+started with the others) and linked into one library, so that its many
+kernel instantiations do not hold the build up on one core. The library's file name carries a digest of its
 source and flags, so an edited source is rebuilt and never mixed with an
 old library; the shared headers ``csrc/*.cuh`` count as part of every
 source. Nothing is built when a module is imported: the CPU tests
@@ -19,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -28,10 +32,12 @@ __all__ = ["KERNELS", "build", "launch_stream", "library_path", "load", "nvcc_pa
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("paged_attention", "quant_matmul", "flash_attention", "flash_simt", "rms_norm",
-           "swiglu", "ring_merge")
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNELS = ("paged_attention", "quant_matmul", "flash_attention", "rms_norm", "swiglu",
+           "ring_merge")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = (*ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# sources compiled in parts: {name: number of parts}
+PARTS = {"flash_attention": 6}
 
 _loaded: dict = {}
 
@@ -50,7 +56,8 @@ def nvcc_path() -> str:
 
 def _library(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()
+                            + str(PARTS.get(name, 0)).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
@@ -61,14 +68,29 @@ def library_path(name: str) -> Path:
     return _library(name)[1]
 
 
+def _compiles(nvcc: str, name: str, src: Path, tmp: Path) -> tuple[list, list]:
+    """(commands, objects) that compile one source: one nvcc into the
+    library, or one per part into objects that :func:`build` links."""
+    n = PARTS.get(name, 0)
+    if not n:
+        return [[nvcc, *FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]], []
+    flags = [f for f in FLAGS if f != "-shared"]
+    objs = [tmp.with_name(f"{tmp.name}.{p}.o") for p in range(n)]
+    return [[nvcc, *flags, "-c", f"-DKERNEL_PART={p}", "-I", str(CSRC), "-o", str(obj),
+             str(src)] for p, obj in enumerate(objs)], objs
+
+
 def build(names=KERNELS) -> dict:
     """Compile every named kernel that has no current library, one
-    ``nvcc`` per source, all started together. Returns ``{name: compiler
-    output}`` (``-Xptxas -v``: registers, shared memory, spills) for the
-    sources compiled by this call."""
+    ``nvcc`` per source or part, all started together. Returns ``{name:
+    (compiler output, seconds)}`` for the sources compiled by this call:
+    the output of ``-Xptxas -v`` (registers, shared memory, spills) of
+    every part, and the wall time from the start of the call to the end of
+    that source's compile and link."""
     nvcc = None
-    procs = {}
+    jobs = {}
     logs = {}
+    t0 = time.perf_counter()
     try:
         for name in names:
             src, lib = _library(name)
@@ -77,23 +99,43 @@ def build(names=KERNELS) -> dict:
             nvcc = nvcc or nvcc_path()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True), tmp, lib)
-        for name, (proc, tmp, lib) in procs.items():
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{out}")
-            os.replace(tmp, lib)
-            logs[name] = out
+            cmds, objs = _compiles(nvcc, name, src, tmp)
+            procs = []
+            for i, cmd in enumerate(cmds):
+                log = open(tmp.with_name(f"{tmp.name}.{i}.log"), "w+")
+                procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                               text=True), log))
+            jobs[name] = (procs, tmp, lib, objs)
+        while len(logs) < len(jobs):
+            for name, (procs, tmp, lib, objs) in jobs.items():
+                if name in logs or any(proc.poll() is None for proc, _ in procs):
+                    continue
+                out = ""
+                for proc, log in procs:
+                    log.seek(0)
+                    out += log.read()
+                    if proc.returncode != 0:
+                        raise RuntimeError(
+                            f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{out}")
+                if objs:
+                    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                           *map(str, objs)], capture_output=True, text=True)
+                    if link.returncode != 0:
+                        raise RuntimeError(f"linking {name} failed (exit {link.returncode}):\n"
+                                           f"{link.stdout}{link.stderr}")
+                os.replace(tmp, lib)
+                logs[name] = (out, time.perf_counter() - t0)
+            time.sleep(0.05)
     finally:
-        for proc, tmp, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            tmp.unlink(missing_ok=True)
+        for procs, tmp, _, objs in jobs.values():
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+                Path(log.name).unlink(missing_ok=True)
+            for path in (tmp, *objs):
+                path.unlink(missing_ok=True)
     return logs
 
 

@@ -16,16 +16,20 @@ rows align bottom-right, as the composed path (query row i sees keys
 keys, as the composed path's -1e30 mask makes it: out is the mean of V, dQ
 is 0 and dV gets ``dO / Sk`` on every key.
 
-On a CUDA tensor each wrapper launches a kernel or raises: bf16 and fp16
-with head_dim 64 or 128 run the wgmma kernels of
-``csrc/flash_attention.cu``; f32, and the other head dims that are
-multiples of 8 up to 256, the SIMT kernels of ``csrc/flash_simt.cu``
-(:func:`flash_simt_fwd`, :func:`flash_simt_bwd`); any Sq and Sk. On a CPU
-tensor it runs the plain version, which repeats the kernels' arithmetic in
-whole rows: f32 scores, probabilities rounded to the input type before the
-products with V (forward) and dO, dS rounded before the products with Q
-and K, the ``exp(min(s - lse, 60))`` clamp, and the GQA group sum of dK
-and dV in f32.
+On a CUDA tensor each wrapper launches a kernel of
+``csrc/flash_attention.cu`` (wgmma fed by TMA) or raises, by one of three
+routes (:func:`route`): ``wgmma``, bf16 and fp16 at head_dim 64 or 128;
+``padded``, bf16 and fp16 at the other head dims that are multiples of 8
+up to 256, run zero-padded to the next multiple of 64; ``f32``, f32 inputs
+split into two bf16 pieces each (:func:`split2`) by a pre-pass kernel in
+the same call, every product taken as three piece products. Any Sq and Sk.
+On a CPU tensor it runs the plain version, which repeats the kernels'
+arithmetic in whole rows: f32 scores, probabilities rounded to the input
+type before the products with V (forward) and dO, dS rounded before the
+products with Q and K, the ``exp(min(s - lse, 60))`` clamp, and the GQA
+group sum of dK and dV in f32. In f32 the plain version rounds nothing;
+:func:`flash_attention_fwd_split` and :func:`flash_attention_bwd_split`
+repeat the f32 route's products on the pieces, to hold its rounding.
 """
 
 from __future__ import annotations
@@ -39,12 +43,14 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bsnd", "flash_attention_fwd",
            "flash_attention_fwd_ref", "flash_attention_bwd", "flash_attention_bwd_ref",
-           "flash_simt_fwd", "flash_simt_bwd", "tile_errors", "HEAD_DIMS", "DTYPES",
-           "MAX_HEAD_DIM"]
+           "flash_attention_fwd_split", "flash_attention_bwd_split", "route", "split2",
+           "tile_errors", "HEAD_DIMS", "DTYPES", "MAX_HEAD_DIM", "ROUTES"]
 
 DTYPES = {torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
-HEAD_DIMS = (64, 128)        # the wgmma kernels' head dims, in bf16 and fp16
-MAX_HEAD_DIM = 256           # the SIMT kernels': multiples of 8 up to this
+HEAD_DIMS = (64, 128)        # head dims the bf16/fp16 kernels take unpadded
+MAX_HEAD_DIM = 256           # every head dim: multiples of 8 up to this
+ROUTES = ("wgmma", "padded", "f32")
+PIECES = 2                   # bf16 pieces of an f32 operand on the f32 route
 NEG_INF = -1e30
 CLAMP = 60.0
 
@@ -115,6 +121,65 @@ def flash_attention_bwd_ref(q, k, v, dout, lse, delta, causal: bool = False, sca
     return dq.to(dt), group_sum(dk), group_sum(dv)
 
 
+def split2(x):
+    """The f32 route's split of ``x`` into two bf16 pieces, as f32 tensors:
+    ``h = bf16(x)``, ``l = bf16(x - h)`` (16 significant bits of x)."""
+    h = x.float().to(torch.bfloat16).float()
+    return h, (x.float() - h).to(torch.bfloat16).float()
+
+
+def _split_einsum(eq: str, a, b):
+    """``einsum(eq, a, b)`` as the f32 route computes it: the pieces' three
+    products ``h.h' + h.l' + l.h'``, each exact, summed in f32."""
+    (ah, al), (bh, bl) = split2(a), split2(b)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + torch.einsum(eq, ah, bh)
+
+
+def flash_attention_fwd_split(q, k, v, causal: bool = False, scale=None):
+    """:func:`flash_attention_fwd_ref` for f32 inputs with the f32 route's
+    products: q.k and P.V over the two-piece split of both operands
+    (:func:`split2`), the probabilities split where they are formed."""
+    rep = q.shape[2] // k.shape[2]
+    s = _split_einsum("bqhd,bkhd->bhqk", q, _expand(k, rep)) * _scale(q.shape[-1], scale)
+    if causal:
+        s = s.masked_fill(~_keep(q, k), NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    pv = _split_einsum("bhqk,bkhd->bhqd", p, _expand(v, rep))
+    return (pv / l).transpose(1, 2), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_bwd_split(q, k, v, dout, lse, delta, causal: bool = False, scale=None):
+    """:func:`flash_attention_bwd_ref` for f32 inputs with the f32 route's
+    products (:func:`_split_einsum`), P and dS split where they are formed."""
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    rep = H // Hk
+    sc = _scale(D, scale)
+    ke, ve = _expand(k, rep), _expand(v, rep)
+    s = _split_einsum("bqhd,bkhd->bhqk", q, ke) * sc
+    if causal:
+        s = s.masked_fill(~_keep(q, k), NEG_INF)
+    p = torch.exp(torch.clamp_max(s - lse[..., None], CLAMP))
+    pv = p
+    if causal:
+        keep = _keep(q, k)
+        p = p.masked_fill(~keep, 0.0)
+        dead = ~keep.any(dim=1, keepdim=True)
+        pv = torch.where(keep, p, torch.where(dead, 1.0 / Sk, 0.0))
+    dv = _split_einsum("bhqk,bqhd->bkhd", pv, dout)
+    dp = _split_einsum("bqhd,bkhd->bhqk", dout, ve)
+    ds = p * (dp - delta[..., None]) * sc
+    dq = _split_einsum("bhqk,bkhd->bqhd", ds, ke)
+    dk = _split_einsum("bhqk,bqhd->bkhd", ds, q)
+
+    def group_sum(t):
+        return t.reshape(B, Sk, Hk, rep, D).sum(dim=3)
+
+    return dq, group_sum(dk), group_sum(dv)
+
+
 def tile_errors(got, want, tile: int = 64, floor: float = 1e-5):
     """How far two ``[B, S, heads, D]`` tensors differ, tile by tile, as
     the kernels are held against their plain versions: ``(the largest
@@ -133,27 +198,31 @@ def tile_errors(got, want, tile: int = 64, floor: float = 1e-5):
     return (d.square().sum((2, 4)).sqrt() / den).max().item(), d.abs().max().item()
 
 
-def _fn(library, name, n_ptrs):
-    fn = getattr(_build.load(library), name)
+def _fn(name, n_ptrs):
+    fn = getattr(_build.load("flash_attention"), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _wgmma(q) -> bool:
-    """Whether q goes to the wgmma kernels (else to the SIMT kernels)."""
-    return q.dtype in (torch.bfloat16, torch.float16) and q.shape[-1] in HEAD_DIMS
+def route(q) -> str:
+    """The route a call on q takes (ROUTES): ``f32`` for f32, ``wgmma`` for
+    bf16 and fp16 at a head_dim in HEAD_DIMS, ``padded`` for the others."""
+    if q.dtype == torch.float32:
+        return "f32"
+    return "wgmma" if q.shape[-1] in HEAD_DIMS else "padded"
 
 
 def _check(name, q, k, v, *like_q):
     """Raise unless a kernel takes these tensors: bf16, fp16 or f32 of one
     type on one device, q [B, Sq, H, D] and k, v [B, Sk, Hk, D] with
     H % Hk == 0, D a multiple of 8 up to MAX_HEAD_DIM, unit stride along D,
-    other strides multiples of 8 and 16-byte aligned data, as the wgmma
-    kernels' TMA tensor maps need; a stride of 0 (a broadcast dimension)
-    only where the dimension has size 1."""
+    other strides multiples of 8 and 16-byte aligned data, as the kernels'
+    TMA tensor maps need; a stride of 0 (a broadcast dimension) only where
+    the dimension has size 1."""
     if q.dtype not in DTYPES:
         raise TypeError(f"{name} on the card takes bf16, fp16 or f32, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -190,110 +259,84 @@ def _cuda(q, name):
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
 
 
-def _launch_fwd(library, name, q, k, v, causal, scale):
-    B, Sq, H, D = q.shape
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    if B * Sq * H == 0:
-        return out, lse, False
-    rc = _fn(library, name, 6)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        _strides(q, k, v, out), B, H, k.shape[2], Sq, k.shape[1], D, _scale(D, scale),
-        int(bool(causal)), DTYPES[q.dtype], _build.launch_stream(q.device))
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    return out, lse, True
+def _work(q, *ts):
+    """The f32 route's scratch for the two bf16 pieces of each input (None
+    on the other routes)."""
+    if q.dtype != torch.float32:
+        return None
+    n = sum(t.numel() for t in (q, *ts))
+    return torch.empty(PIECES * n, dtype=torch.bfloat16, device=q.device)
 
 
-def _launch_bwd(library, name, q, k, v, dout, lse, delta, causal, scale):
-    B, Sq, H, D = q.shape
-    for arg, t in (("lse", lse), ("delta", delta)):
-        if (t.dtype != torch.float32 or t.shape != (B, H, Sq) or not t.is_contiguous()
-                or t.device != q.device):
-            raise ValueError(f"{name}: {arg} must be contiguous float32 [B, H, Sq] on "
-                             f"{q.device}")
-    if dout.shape != q.shape:
-        raise ValueError(f"{name}: dout must be shaped like q")
-    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    if B * Sq * H == 0 or k.shape[1] == 0:
-        return (dq.zero_(), dk.zero_(), dv.zero_()), False
-    rc = _fn(library, name, 10)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _strides(q, k, v, dout, dq, dk, dv), B, H, k.shape[2], Sq, k.shape[1], D,
-        _scale(D, scale), int(bool(causal)), DTYPES[q.dtype], _build.launch_stream(q.device))
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    return (dq, dk, dv), True
-
-
-def flash_simt_fwd(q, k, v, causal: bool = False, scale=None):
-    """:func:`flash_attention_fwd` on the SIMT kernel of
-    ``csrc/flash_simt.cu``, which takes every dtype and head dim of
-    :func:`_check` (the wrapper routes f32 and head dims outside HEAD_DIMS
-    here)."""
-    if q.device.type == "cpu":
-        return flash_attention_fwd_ref(q, k, v, causal, scale)
-    _cuda(q, "flash_simt_fwd")
-    _check("flash_simt_fwd", q, k, v)
-    out, lse, launched = _launch_fwd("flash_simt", "flash_simt_fwd", q, k, v, causal, scale)
-    flash_simt_fwd.launches += launched
-    return out, lse
-
-
-def flash_simt_bwd(q, k, v, dout, lse, delta, causal: bool = False, scale=None):
-    """:func:`flash_attention_bwd` on the SIMT kernels (a dK/dV kernel and a
-    dQ kernel, one launch)."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, dout, lse, delta, causal, scale)
-    _cuda(q, "flash_simt_bwd")
-    _check("flash_simt_bwd", q, k, v, dout)
-    grads, launched = _launch_bwd("flash_simt", "flash_simt_bwd", q, k, v, dout, lse, delta,
-                                  causal, scale)
-    flash_simt_bwd.launches += launched
-    return grads
+def _count(fn, q):
+    fn.by_route[route(q)] += 1
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
-    """``(out [B, Sq, H, D], lse f32 [B, H, Sq])`` of softmax attention: the
-    wgmma kernel for bf16/fp16 with head_dim in HEAD_DIMS (counted here),
-    else :func:`flash_simt_fwd` (counted there)."""
+    """``(out [B, Sq, H, D], lse f32 [B, H, Sq])`` of softmax attention: one
+    kernel launch on the card (with the f32 route's split pre-pass),
+    counted in ``by_route`` under its route."""
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal, scale)
     _cuda(q, "flash_attention_fwd")
     _check("flash_attention_fwd", q, k, v)
-    if not _wgmma(q):
-        return flash_simt_fwd(q, k, v, causal, scale)
-    out, lse, launched = _launch_fwd("flash_attention", "flash_attention_fwd", q, k, v, causal,
-                                     scale)
-    flash_attention_fwd.launches += launched
+    B, Sq, H, D = q.shape
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if B * Sq * H == 0:
+        return out, lse
+    work = _work(q, k, v)
+    rc = _fn("flash_attention_fwd", 6)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        _strides(q, k, v, out), B, H, k.shape[2], Sq, k.shape[1], D, _scale(D, scale),
+        int(bool(causal)), DTYPES[q.dtype], _build.launch_stream(q.device),
+        None if work is None else work.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")
+    _count(flash_attention_fwd, q)
     return out, lse
 
 
 def flash_attention_bwd(q, k, v, dout, lse, delta, causal: bool = False, scale=None):
     """``(dq, dk, dv)`` from the forward's lse and ``delta = rowsum(dO * O)``
-    (f32 [B, H, Sq]); dk and dv are summed over each KV head's group. Routed
-    as :func:`flash_attention_fwd`."""
+    (f32 [B, H, Sq]); dk and dv are summed over each KV head's group. One
+    launch on the card runs the dK/dV pass and the dQ pass (and the f32
+    route's split pre-pass), counted as :func:`flash_attention_fwd`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, dout, lse, delta, causal, scale)
     _cuda(q, "flash_attention_bwd")
     _check("flash_attention_bwd", q, k, v, dout)
-    if not _wgmma(q):
-        return flash_simt_bwd(q, k, v, dout, lse, delta, causal, scale)
-    grads, launched = _launch_bwd("flash_attention", "flash_attention_bwd", q, k, v, dout, lse,
-                                  delta, causal, scale)
-    flash_attention_bwd.launches += launched
-    return grads
+    B, Sq, H, D = q.shape
+    for arg, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.shape != (B, H, Sq) or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"flash_attention_bwd: {arg} must be contiguous float32 "
+                             f"[B, H, Sq] on {q.device}")
+    if dout.shape != q.shape:
+        raise ValueError("flash_attention_bwd: dout must be shaped like q")
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    if B * Sq * H == 0 or k.shape[1] == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    work = _work(q, k, v, dout)
+    rc = _fn("flash_attention_bwd", 10)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(q, k, v, dout, dq, dk, dv), B, H, k.shape[2], Sq, k.shape[1], D,
+        _scale(D, scale), int(bool(causal)), DTYPES[q.dtype], _build.launch_stream(q.device),
+        None if work is None else work.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
+    _count(flash_attention_bwd, q)
+    return dq, dk, dv
 
 
-#: kernel launches since the last reset (the CPU path never counts); one
-#: backward launch runs the dK/dV pass and the dQ pass
-flash_attention_fwd.launches = 0
-flash_attention_bwd.launches = 0
-flash_simt_fwd.launches = 0
-flash_simt_bwd.launches = 0
+#: kernel launches since the last reset, by route (the CPU path never
+#: counts); one backward launch runs the dK/dV pass and the dQ pass
+for _w in (flash_attention_fwd, flash_attention_bwd):
+    _w.by_route = dict.fromkeys(ROUTES, 0)
+del _w
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -11,9 +11,9 @@ rotation a roll along it.
 The gate follows the reference's rule of "flash where the kernel runs"
 (:54-66 on a TPU): a CUDA tensor of bf16, fp16 or f32 with ``head_dim %
 8 == 0`` (:func:`flash_runs`) takes the ring schedule over the flash
-kernels (:func:`~paddle_tpu_torch.ops.ring_flash.ring_flash_attention`: the
-wgmma kernels for bf16/fp16 at head_dim 64 or 128, the SIMT kernels
-otherwise). The reference's ``S / P % 128 == 0`` is the TPU kernel's tiling
+kernels (:func:`~paddle_tpu_torch.ops.ring_flash.ring_flash_attention`:
+wgmma kernels on every route, bf16/fp16 at head_dim 64 or 128, other head
+dims padded, f32 in two bf16 pieces). The reference's ``S / P % 128 == 0`` is the TPU kernel's tiling
 limit; the port's kernels take a shard of any length, so a ragged shard
 runs them too. Other dtypes and head dims, and CPU tensors, take the
 blockwise ring in torch ops (block logits, running max and running sum),

@@ -4,7 +4,15 @@
 Usage, from the root of a checkout on a machine with a card::
 
     python -m paddle_tpu_torch.tools.kernel_ab VARIANT.cu [VARIANT.cu ...]
+    python -m paddle_tpu_torch.tools.kernel_ab --f32 VARIANT.cu [VARIANT.cu ...]
     python -m paddle_tpu_torch.tools.kernel_ab --quant [--no-check] VARIANT.cu [...]
+
+The ``--f32`` form takes copies of ``csrc/flash_attention.cu`` and holds
+each on flash's f32 route at chip_smoke.py phase 5's f32 case (B 1, S
+2048, H 32, Hk 8, head_dim 128, causal): out, dQ, dK and dV tile errors
+against the plain versions in full f32 (TF32 off), two backward calls bit
+for bit, and the forward and backward timed twice, SDPA in f32 before and
+after as the yardstick.
 
 The second form takes copies of ``csrc/quant_matmul.cu``, checks each
 library's tensor-core forward and dX (bf16 at a ragged M, held as phase 8
@@ -17,7 +25,9 @@ variant without the check: for diagnostic copies that skip part of the
 work to show what bounds the rest.
 
 Each variant is a copy of ``paddle_tpu_torch/csrc/flash_attention.cu``
-with the same C interface. All are compiled together with the build's own
+with the same C interface (an older source without the f32 route's
+trailing scratch pointer loads as it is: it ignores that argument). All
+are compiled together with the build's own
 flags into ``paddle_tpu_torch/_build/ab/``; the compiler's spill and wgmma-serialization notes and each
 library's SASS counts (HGMMA, HMMA, UTMALDG, SYNCS) are printed. Then each
 variant runs in a child process of its own (a fault in one does not stop
@@ -42,6 +52,7 @@ ROOT = Path(__file__).resolve().parents[2]
 SHAPE = (1, 8192, 32, 8, 128)          # B, S, H, Hk, head_dim of the timing
 CHECKS = ((1, 2048, 32, 8, 128, True, "bf16"), (2, 1000, 8, 2, 64, False, "fp16"),
           (1, 127, 4, 1, 128, True, "bf16"))
+F32_SHAPE = (1, 2048, 32, 8, 128)      # B, S, H, Hk, head_dim of the f32 form
 
 
 def _kernel(name: str) -> str:
@@ -92,14 +103,15 @@ def build(sources, out_dir: Path) -> dict:
     return libs
 
 
-def sdpa_ms(gen):
+def sdpa_ms(gen, shape=SHAPE, dtype=None):
     import chip_smoke as cs
     import torch
     import torch.nn.functional as F
 
-    B, S, H, Hk, hd = SHAPE
-    q, do = (torch.randn((B, H, S, hd), generator=gen, device="cuda").bfloat16() for _ in "ab")
-    k, v = (torch.randn((B, Hk, S, hd), generator=gen, device="cuda").bfloat16() for _ in "ab")
+    B, S, H, Hk, hd = shape
+    dtype = dtype or torch.bfloat16
+    q, do = (torch.randn((B, H, S, hd), generator=gen, device="cuda").to(dtype) for _ in "ab")
+    k, v = (torch.randn((B, Hk, S, hd), generator=gen, device="cuda").to(dtype) for _ in "ab")
     fwd = cs.device_ms(lambda i: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                 enable_gqa=True), 1, 5)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -153,6 +165,36 @@ def run_variant(lib: str):
                 per[key] = round(per.get(key, 0.0) + ev.time_range.elapsed_us() / 1e3, 4)
         print(f"{Path(lib).name}: worst_tile_err {worst:.5f} bit_identical {same} "
               f"fwd_ms {fwd:.5f} bwd_ms {bwd:.5f} bwd_kernels_ms {per}", flush=True)
+
+
+def run_f32_variant(lib: str):
+    """Check and time one library on flash's f32 route (in a child process)."""
+    import chip_smoke as cs
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    _build._loaded["flash_attention"] = ctypes.CDLL(lib)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    B, S, H, Hk, hd = F32_SHAPE
+    q, k, v, do = (torch.randn((B, S, n, hd), generator=gen, device="cuda")
+                   for n in (H, Hk, Hk, H))
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    got = fa.flash_attention_bwd(q, k, v, do, lse, delta, True)
+    again = fa.flash_attention_bwd(q, k, v, do, lse, delta, True)
+    ref_out, _ = fa.flash_attention_fwd_ref(q, k, v, True)
+    want = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, True)
+    errs = [fa.tile_errors(out, ref_out)[0]] + [fa.tile_errors(a, b)[0]
+                                                for a, b in zip(got, want)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    for _ in range(2):
+        fwd = cs.device_ms(lambda i: fa.flash_attention_fwd(q, k, v, True), 1, 5)
+        bwd = cs.device_ms(lambda i: fa.flash_attention_bwd(q, k, v, do, lse, delta, True), 1, 5)
+        print(f"{Path(lib).name}: f32 out/dq/dk/dv tile_err {[f'{e:.3g}' for e in errs]} "
+              f"bit_identical {same} fwd_ms {fwd:.5f} bwd_ms {bwd:.5f}", flush=True)
 
 
 def _int8_layer(gen):
@@ -226,6 +268,9 @@ def main(argv) -> int:
     if argv[:1] == ["--run-quant"]:
         run_quant_variant(argv[-1], check=argv[1] != "--no-check")
         return 0
+    if argv[:1] == ["--run-f32"]:
+        run_f32_variant(argv[1])
+        return 0
     import chip_smoke as cs
     import torch
 
@@ -249,16 +294,19 @@ def main(argv) -> int:
                   flush=True)
         print("cublas fwd/dx ms", cublas_ms(gen), flush=True)
         return 0
-    libs = build(argv, out_dir)
+    f32 = argv[:1] == ["--f32"]
+    libs = build(argv[f32:], out_dir)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    print("sdpa fwd/bwd ms", sdpa_ms(gen), flush=True)
+    yardstick = (lambda: sdpa_ms(gen, F32_SHAPE, torch.float32)) if f32 else (lambda: sdpa_ms(gen))
+    print(f"sdpa{' f32' if f32 else ''} fwd/bwd ms", yardstick(), flush=True)
     for src, lib in libs.items():
         r = subprocess.run(["timeout", "-k", "5", "150", sys.executable, "-m",
-                            "paddle_tpu_torch.tools.kernel_ab", "--run", str(lib)],
+                            "paddle_tpu_torch.tools.kernel_ab", "--run-f32" if f32 else "--run",
+                            str(lib)],
                            capture_output=True, text=True, cwd=str(ROOT))
         print(r.stdout.strip() or f"{src}: exit {r.returncode}\n{r.stderr[-800:]}", flush=True)
-    print("sdpa fwd/bwd ms", sdpa_ms(gen), flush=True)
+    print(f"sdpa{' f32' if f32 else ''} fwd/bwd ms", yardstick(), flush=True)
     return 0
 
 

@@ -163,11 +163,11 @@ def test_gate_routes_by_the_reference_rules():
     # bf16 and f32, sq == sk or not, are the flash op; on the CPU its plain
     # version, which never counts a kernel launch
     qb = q.bfloat16()
-    before = (fa.flash_attention_fwd.launches, fa.flash_simt_fwd.launches)
+    before = dict(fa.flash_attention_fwd.by_route)
     for args in ((qb, qb, qb), (q, q, q), (qb[:, :4], qb, qb), (q, q[:, :3], q[:, :3])):
         out = fa.flash_attention_bsnd(*args, True)
         assert out.shape == args[0].shape and out.dtype == args[0].dtype
-    assert (fa.flash_attention_fwd.launches, fa.flash_simt_fwd.launches) == before
+    assert fa.flash_attention_fwd.by_route == before
 
 
 def test_bf16_plain_forward_rounds_probabilities_like_the_kernel():

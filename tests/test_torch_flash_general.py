@@ -119,8 +119,8 @@ def test_rows_that_see_no_key_are_uniform_like_the_composed_path():
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dim_96_under_gqa(causal):
-    """A head dim the wgmma kernels do not take (the SIMT kernels do on the
-    card): H 8 over Hk 2, sq != sk."""
+    """A head dim the kernels run padded on the card (to 128 columns): H 8
+    over Hk 2, sq != sk."""
     q, k, v, do = _draw(96 + causal, 1, 40, 64, 8, 2, 96)
     want = _reference(q, k, v, do, causal)
     _check(_port(q, k, v, do, causal, fa.flash_attention), want)

@@ -11,7 +11,8 @@ attention at GQA ratios 1/4/8, head_dim 64 and 128, S below, at and just
 past its 64- and 128-row tiles and ragged, causal or not, B 2, q/k/v as
 head-slices of one fused tensor, fp16, and its determinism, flash with
 sq != sk (bottom-right causal, rows that see no key), f32 and head dims
-other than 64 and 128 (the SIMT kernels), and the functional gate sending
+other than 64 and 128 (the f32 route's two bf16 pieces and the padded
+route, at every head dim from 8 to 256 by route), and the functional gate sending
 those to the kernels and never to the composed path, RMSNorm at ragged N
 and several H, the int8 GEMM's tensor-core forward and dX at ragged M,
 around the M = 64 switch and at the smallest K and N, dX's determinism,
@@ -66,10 +67,11 @@ GEMM_F32_RTOL, GEMM_F32_ATOL_FRAC = 1e-5, 1e-5
 # summation order, then the results round once: about 1e-3. lse is f32 on
 # both sides.
 FLASH_TILE_RTOL, FLASH_TILE_FLOOR, FLASH_LSE_ATOL, FLASH_TILE = 1e-2, 1e-5, 1e-3, 64
-# f32 flash (the SIMT kernels) rounds nothing but its f32 sums and
-# exponentials: 2e-6 of a tile's norm or less on the H100. Operands rounded
-# to TF32 would read about 4e-4, to bf16 about 3e-3: f32 is held to 1e-4,
-# as chip_smoke.py holds it.
+# f32 flash takes each operand as two bf16 pieces (16 significant bits) and
+# each product as three piece products: about 2^-17 relative a product, 1e-5
+# to 2e-5 of a tile's norm on the H100. Operands rounded to TF32 would read
+# about 4e-4, to bf16 about 3e-3: f32 is held to 1e-4, as chip_smoke.py
+# holds it.
 FLASH_F32_TILE_RTOL = 1e-4
 # RMSNorm: the same f32 arithmetic summed in another order, one rounding to
 # the storage type: one step of that type plus 1e-3 of the largest output.
@@ -203,6 +205,12 @@ def _flash_inputs(dev, B, S, H, Hk, hd, dtype, seed, fused=False):
     return q, k, v, do
 
 
+def _flash_launches():
+    """(forward, backward) flash launches over every route."""
+    return (sum(fa.flash_attention_fwd.by_route.values()),
+            sum(fa.flash_attention_bwd.by_route.values()))
+
+
 def _assert_tiles_close(got, want):
     worst, _ = fa.tile_errors(got, want, FLASH_TILE, FLASH_TILE_FLOOR)
     assert worst <= (FLASH_F32_TILE_RTOL if want.dtype == torch.float32 else FLASH_TILE_RTOL), \
@@ -241,11 +249,11 @@ BF16, FP16 = torch.bfloat16, torch.float16
 ])
 def test_flash_attention_matches_plain(dev, B, S, H, Hk, hd, causal, dtype, fused):
     q, k, v, do = _flash_inputs(dev, B, S, H, Hk, hd, dtype, seed=S + H + hd, fused=fused)
-    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    f0, b0 = _flash_launches()
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, causal)
     torch.cuda.synchronize()
-    assert fa.flash_attention_fwd.launches == f0 + 1
+    assert _flash_launches()[0] == f0 + 1
     assert out.dtype == dtype and out.shape == q.shape and lse.shape == (B, H, S)
     _assert_tiles_close(out, ref_out)
     assert (lse - ref_lse).abs().max().item() <= FLASH_LSE_ATOL
@@ -254,7 +262,7 @@ def test_flash_attention_matches_plain(dev, B, S, H, Hk, hd, causal, dtype, fuse
     again = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
     want = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
-    assert fa.flash_attention_bwd.launches == b0 + 2
+    assert _flash_launches()[1] == b0 + 2
     for g_, a_, w_, t in zip(got, again, want, (q, k, v)):
         assert g_.dtype == dtype and g_.shape == t.shape
         assert torch.equal(g_, a_)
@@ -287,11 +295,12 @@ def test_flash_attention_autograd_and_determinism(dev, B, S, H, Hk, hd, causal, 
     for got, want in zip(grads[0][1:], fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)):
         _assert_tiles_close(got, want)
     # through the gate: f32 and sq != sk are the flash op too
-    f0, s0 = fa.flash_attention_fwd.launches, fa.flash_simt_fwd.launches
+    f0, r0 = _flash_launches()[0], fa.flash_attention_fwd.by_route["f32"]
     assert fa.flash_attention_bsnd(q.float(), k.float(), v.float(), causal).dtype == torch.float32
     assert fa.flash_attention_bsnd(q[:, :10], k, v, False).shape == q[:, :10].shape
     torch.cuda.synchronize()
-    assert fa.flash_simt_fwd.launches == s0 + 1 and fa.flash_attention_fwd.launches == f0 + 1
+    assert fa.flash_attention_fwd.by_route["f32"] == r0 + 1
+    assert _flash_launches()[0] == f0 + 2
     out = fa.flash_attention_bsnd(q, k, v, causal)
     assert torch.equal(out, grads[0][0])
 
@@ -526,8 +535,7 @@ def test_ring_merge_refuses(dev):
 ])
 def test_ring_flash_matches_full_flash(dev, B, S, P, H, Hk, hd, causal):
     q, k, v, do = _flash_inputs(dev, B, S, H, Hk, hd, torch.bfloat16, seed=S + P)
-    f0, b0, m0 = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches,
-                  rf.ring_merge.launches)
+    (f0, b0), m0 = _flash_launches(), rf.ring_merge.launches
     grads = []
     for fn in (lambda a, b, c: rf.ring_flash_attention(a, b, c, P, causal),
                lambda a, b, c: fa.flash_attention(a, b, c, causal)):
@@ -536,8 +544,7 @@ def test_ring_flash_matches_full_flash(dev, B, S, P, H, Hk, hd, causal):
         out.backward(do)
         grads.append((out.detach(), qs.grad, ks.grad, vs.grad))
     torch.cuda.synchronize()
-    assert fa.flash_attention_fwd.launches == f0 + P + 1
-    assert fa.flash_attention_bwd.launches == b0 + P + 1
+    assert _flash_launches() == (f0 + P + 1, b0 + P + 1)
     assert rf.ring_merge.launches == m0 + P - 1
     for got, want in zip(*grads):
         assert got.dtype == want.dtype and got.shape == want.shape
@@ -562,17 +569,17 @@ def _general_inputs(dev, B, sq, sk, H, Hk, hd, dtype, seed):
     (1, 256, 1000, 8, 2, 64, False, BF16),
     (2, 1000, 300, 8, 2, 128, True, BF16),       # 700 rows that see no key
     (1, 129, 64, 4, 4, 64, True, FP16),
-    (1, 300, 500, 8, 2, 128, True, torch.float32),   # SIMT
-    (1, 500, 200, 8, 2, 96, True, torch.float32),    # SIMT, no key for 300 rows
-    (1, 512, 512, 8, 2, 96, True, BF16),         # SIMT in bf16
+    (1, 300, 500, 8, 2, 128, True, torch.float32),   # the f32 route
+    (1, 500, 200, 8, 2, 96, True, torch.float32),    # f32, no key for 300 rows
+    (1, 512, 512, 8, 2, 96, True, BF16),         # the padded route
     (2, 200, 77, 4, 1, 256, False, torch.float32),
     (1, 333, 100, 4, 4, 40, True, BF16),
     (1, 65, 65, 2, 1, 8, True, FP16),
 ])
 def test_flash_general_matches_plain(dev, B, sq, sk, H, Hk, hd, causal, dtype):
     q, k, v, do = _general_inputs(dev, B, sq, sk, H, Hk, hd, dtype, seed=sq + sk + hd)
-    simt = not (dtype in (BF16, FP16) and hd in fa.HEAD_DIMS)
-    f0, b0 = fa.flash_simt_fwd.launches, fa.flash_simt_bwd.launches
+    route = fa.route(q)
+    f0, b0 = fa.flash_attention_fwd.by_route[route], fa.flash_attention_bwd.by_route[route]
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, causal)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -580,10 +587,46 @@ def test_flash_general_matches_plain(dev, B, sq, sk, H, Hk, hd, causal, dtype):
     again = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
     want = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
-    assert fa.flash_simt_fwd.launches == f0 + simt and fa.flash_simt_bwd.launches == b0 + 2 * simt
+    assert fa.flash_attention_fwd.by_route[route] == f0 + 1
+    assert fa.flash_attention_bwd.by_route[route] == b0 + 2
     assert out.shape == q.shape and lse.shape == (B, H, sq)
     _assert_tiles_close(out, ref_out)
     # a row that sees no key has lse -1e30 on both sides (to f32 rounding)
+    assert bool(((lse - ref_lse).abs() <= FLASH_LSE_ATOL + 1e-6 * ref_lse.abs()).all())
+    for g_, a_, w_, t in zip(got, again, want, (q, k, v)):
+        assert g_.dtype == dtype and g_.shape == t.shape
+        assert torch.equal(g_, a_)
+        _assert_tiles_close(g_, w_)
+
+
+@pytest.mark.parametrize("dtype,hd", [(BF16, d) for d in (8, 40, 80, 96, 192, 256)]
+                         + [(FP16, d) for d in (8, 40, 80, 96, 192, 256)]
+                         + [(torch.float32, d) for d in (64, 96, 128, 256)])
+@pytest.mark.parametrize("B,sq,sk,H,Hk,causal", [
+    (1, 300, 500, 8, 2, True),          # more keys than queries, GQA 4
+    (2, 500, 200, 4, 4, True),          # 300 rows that see no key
+    (1, 129, 129, 4, 1, False),         # just past a 64- and 128-row tile
+])
+def test_flash_tensor_core_routes(dev, dtype, hd, B, sq, sk, H, Hk, causal):
+    """Every (dtype, head_dim) the check takes launches a tensor-core kernel
+    on the route :func:`route` names (padded for bf16/fp16 outside 64 and
+    128, the two-piece split for f32), held tile by tile against the plain
+    versions, the backward twice bit for bit."""
+    q, k, v, do = _general_inputs(dev, B, sq, sk, H, Hk, hd, dtype, seed=sq + hd)
+    route = fa.route(q)
+    assert route == ("f32" if dtype == torch.float32 else "padded" if hd not in fa.HEAD_DIMS
+                     else "wgmma")
+    before = (fa.flash_attention_fwd.by_route[route], fa.flash_attention_bwd.by_route[route])
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    again = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, causal)
+    want = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.by_route[route],
+            fa.flash_attention_bwd.by_route[route]) == (before[0] + 1, before[1] + 2)
+    _assert_tiles_close(out, ref_out)
     assert bool(((lse - ref_lse).abs() <= FLASH_LSE_ATOL + 1e-6 * ref_lse.abs()).all())
     for g_, a_, w_, t in zip(got, again, want, (q, k, v)):
         assert g_.dtype == dtype and g_.shape == t.shape
@@ -606,15 +649,15 @@ def test_functional_sends_f32_sq_ne_sk_and_hd96_to_kernels(dev, monkeypatch):
              (1, 256, 256, 8, 2, 96, BF16))
     for B, sq, sk, H, Hk, hd, dtype in cases:
         q, k, v, do = _general_inputs(dev, B, sq, sk, H, Hk, hd, dtype, seed=hd)
-        counts = (fa.flash_attention_fwd.launches + fa.flash_simt_fwd.launches,
-                  fa.flash_attention_bwd.launches + fa.flash_simt_bwd.launches)
+        route = fa.route(q)
+        counts = (*_flash_launches(), fa.flash_attention_fwd.by_route[route],
+                  fa.flash_attention_bwd.by_route[route])
         qs = q.requires_grad_(True)
         out, _ = F.flash_attention(qs, k, v, causal=True)
         out.backward(do)
         torch.cuda.synchronize()
-        assert (fa.flash_attention_fwd.launches + fa.flash_simt_fwd.launches,
-                fa.flash_attention_bwd.launches + fa.flash_simt_bwd.launches) == \
-            (counts[0] + 1, counts[1] + 1)
+        assert (*_flash_launches(), fa.flash_attention_fwd.by_route[route],
+                fa.flash_attention_bwd.by_route[route]) == tuple(c + 1 for c in counts)
         assert torch.isfinite(qs.grad).all()
 
 
@@ -682,21 +725,23 @@ def test_ring_merge_takes_an_f32_partial(dev):
 def test_ring_attention_takes_the_kernels_at_a_ragged_shard(dev, B, S, P, hd, dtype):
     """S / P not a multiple of 128 (100 or 1000 positions a rank): the
     gate still sends the call to the ring schedule over the flash kernels
-    (wgmma for bf16/fp16 at head_dim 64/128, SIMT otherwise) and the merge,
-    and the result agrees with full flash."""
+    (its wgmma, padded or f32 route) and the merge, and the result agrees
+    with full flash."""
     from paddle_tpu_torch.ops import ring_attention as ra
 
     q, k, v, do = _flash_inputs(dev, B, S, 8, 2, hd, dtype, seed=S + hd)
-    simt = not (dtype in (BF16, FP16) and hd in fa.HEAD_DIMS)
-    fwd, bwd = ((fa.flash_simt_fwd, fa.flash_simt_bwd) if simt
-                else (fa.flash_attention_fwd, fa.flash_attention_bwd))
-    f0, b0, m0 = fwd.launches, bwd.launches, rf.ring_merge.launches
+    route = fa.route(q)
+
+    def counts():
+        return (fa.flash_attention_fwd.by_route[route], fa.flash_attention_bwd.by_route[route],
+                rf.ring_merge.launches)
+
+    f0, b0, m0 = counts()
     qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     out = ra.ring_attention(qs, ks, vs, P, True)
     out.backward(do)
     torch.cuda.synchronize()
-    assert (fwd.launches, bwd.launches, rf.ring_merge.launches) == \
-        (f0 + P, b0 + P, m0 + P - 1)
+    assert counts() == (f0 + P, b0 + P, m0 + P - 1)
     qf, kf, vf = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     full = fa.flash_attention(qf, kf, vf, True)
     full.backward(do)
@@ -708,13 +753,13 @@ def test_ring_attention_takes_the_kernels_at_a_ragged_shard(dev, B, S, P, hd, dt
 @pytest.mark.parametrize("causal", [True, False])
 def test_f32_ring_takes_the_kernels_through_the_gate(dev, causal):
     """f32 with S / P a multiple of 128: ``ring_attention`` takes the ring
-    schedule over the (SIMT) flash kernels and agrees with full flash."""
+    schedule over flash's f32 route and agrees with full flash."""
     from paddle_tpu_torch.ops import ring_attention as ra
 
     P = 4
     q, k, v, do = _flash_inputs(dev, 1, 1024, 8, 2, 128, torch.float32, seed=11)
     assert ra.flash_runs(q)
-    s0, m0 = fa.flash_simt_fwd.launches, rf.ring_merge.launches
+    s0, m0 = fa.flash_attention_fwd.by_route["f32"], rf.ring_merge.launches
     grads = []
     for fn in (lambda a, b, c: ra.ring_attention(a, b, c, P, causal),
                lambda a, b, c: fa.flash_attention(a, b, c, causal)):
@@ -723,6 +768,7 @@ def test_f32_ring_takes_the_kernels_through_the_gate(dev, causal):
         out.backward(do)
         grads.append((out.detach(), qs.grad, ks.grad, vs.grad))
     torch.cuda.synchronize()
-    assert fa.flash_simt_fwd.launches == s0 + P + 1 and rf.ring_merge.launches == m0 + P - 1
+    assert fa.flash_attention_fwd.by_route["f32"] == s0 + P + 1
+    assert rf.ring_merge.launches == m0 + P - 1
     for got, want in zip(*grads):
         _assert_tiles_close(got, want)

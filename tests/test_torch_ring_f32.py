@@ -5,8 +5,8 @@ On a TPU the reference's ring takes its ring-flash kernels for any dtype
 when ``s_local % 128 == 0`` and ``head_dim % 8 == 0``
 (``paddle_tpu/ops/pallas/ring_attention.py:54-66``); the port's gate
 follows the head_dim rule on the card, for a shard of any length (the
-128 is the TPU kernel's tiling limit), with the SIMT flash kernels for f32
-and the other head dims, and the merge kernel takes an f32 partial. Here, on the
+128 is the TPU kernel's tiling limit), with the flash kernels' f32 and
+padded routes, and the merge kernel takes an f32 partial. Here, on the
 CPU, with the same numpy inputs:
 
 - the gate's rule, on stand-ins for CUDA tensors;
