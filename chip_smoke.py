@@ -13,17 +13,27 @@ Phases, each printing one line of numbers:
    TMA and barrier instructions in its SASS (``cuobjdump -sass``, beside
    nvcc): HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA loads), SYNCS
    (mbarrier operations). The flash and the quant_matmul libraries must
-   hold HGMMA and UTMALDG and no HMMA;
+   hold HGMMA and UTMALDG and no HMMA, the paged-attention library UTMALDG
+   and HMMA (TMA page ring, mma.sync consumers);
 2. kernels: each kernel against its plain PyTorch version at serving
    shapes in bf16, with the stated tolerance, and timed (CUDA events,
    after warm-up, cycling through enough buffers to defeat the 50 MB L2)
    beside its bound, the plain version and one PyTorch library call; the
-   int8 weight stream also with f32 activations at M = 8;
+   int8 weight stream also with f32 activations at M = 8. Paged attention
+   is timed at three length mixes (PAGED_TIMED: ragged, full, skewed) and
+   held at more (PAGED_CASES: fp16, f32, head_dim 64/80/96/256, pages of
+   8, 32 and 256 slots, a GQA group of 12 heads, one of 1, every lane
+   inactive) with every hidden slot poisoned with NaN and +-Inf against
+   the plain version on the same pools poisoned with 100.0; two calls bit
+   for bit; one captured CUDA graph replayed after ``lengths`` and the
+   block table change in place; one kernel a call in a profiler trace;
 3. bf16 engine: Llama-3-8B at full width, random weights from a seed,
    ``ServingEngine`` serving 10 requests on 8 lanes; every request must
-   finish, the paged-attention kernel must have been launched, and one
-   teacher-forced decode step through the kernel must agree with the
-   same step through the plain attention;
+   finish, the paged-attention kernel must have been launched, once a
+   layer a decode step, and one teacher-forced decode step through the
+   kernel must agree with the same step through the plain attention; five
+   profiled decode steps give the busy share and the device ms a step by
+   kind of kernel (KERNEL_KINDS);
 4. int8 engine: the same trace with ``weight_dtype="int8"``; both kernels
    must have been launched; greedy agreement with phase 3 is printed;
 5. training kernels, before any model is built: flash attention forward
@@ -156,12 +166,14 @@ ATTN_F32_FLOP_PER_S = BF16_FLOP_PER_S / 3
 F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores (cuBLAS f32, TF32 off)
 L2_BYTES = 50 * 2**20
 
-# kernel vs plain, both on the same bf16 inputs:
-# - paged attention: the plain version rounds the probabilities to bf16
-#   before the weighted sum and the kernel keeps them in f32; outputs are
-#   convex combinations of N(0, 1) rows, so 2^-8-relative rounding of
-#   probabilities and the output gives well under 2e-2 absolute.
-ATTN_ATOL = 2e-2
+# kernel vs plain, both on the same inputs:
+# - paged attention: the plain version rounds the probabilities to q's
+#   dtype before the weighted sum and the kernel keeps them in f32; outputs
+#   are convex combinations of N(0, 1) rows (|out| < 5), so rounding the
+#   probabilities and the output once gives, in bf16 (2^-8 relative), well
+#   under 2e-2 absolute, in fp16 (2^-11) under 5e-3; in f32 both sides sum
+#   the same f32 products in another order: 1e-5.
+ATTN_ATOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-5}
 # - int8 GEMM: identical exact products, f32 sums in another order, then
 #   one bf16 rounding: two bf16 steps (2^-7 relative) plus 1e-3 of the
 #   output's largest magnitude for the summation order.
@@ -400,7 +412,26 @@ def device_ms(fn, n_bufs: int, iters: int = 20, replays: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 
-def attention_inputs(gen, lengths, layers=4, H=32, Hk=8, hd=128, bs=16, MB=64):
+RAGGED = [0, 1, 17, 250, 511, 700, 1000, 1023]
+# timed at the serving shape (8 lanes, H 32, Hk 8, hd 128, bs 16, MB 64, bf16)
+PAGED_TIMED = (("ragged", RAGGED), ("full", [1023] * 8), ("skewed", [1023] + [31] * 7))
+# held only: (label, lengths, H, Hk, hd, bs, MB, dtype)
+PAGED_CASES = (("fp16", RAGGED, 32, 8, 128, 16, 64, "float16"),
+               ("f32", RAGGED, 32, 8, 128, 16, 64, "float32"),
+               ("hd64_bs8", RAGGED, 32, 8, 64, 8, 128, "bfloat16"),
+               ("hd80_bs32", RAGGED, 32, 8, 80, 32, 32, "bfloat16"),
+               ("hd96", RAGGED, 32, 8, 96, 16, 64, "bfloat16"),
+               ("hd256", RAGGED, 32, 8, 256, 16, 64, "bfloat16"),
+               ("f32_hd256_bs32", RAGGED, 16, 4, 256, 32, 32, "float32"),
+               ("fp16_hd80_bs8", [3, 0, 77, 1023], 32, 8, 80, 8, 128, "float16"),
+               ("gqa12", RAGGED, 24, 2, 128, 16, 64, "bfloat16"),
+               ("mha_hd64", RAGGED, 8, 8, 64, 16, 64, "bfloat16"),
+               ("bs256", [0, 255, 256, 1023], 32, 8, 128, 256, 4, "bfloat16"),
+               ("inactive", [0] * 8, 32, 8, 128, 16, 64, "bfloat16"))
+
+
+def attention_inputs(gen, lengths, layers=4, H=32, Hk=8, hd=128, bs=16, MB=64,
+                     dtype="bfloat16"):
     """Pools of ``layers`` layers (cycled when timing, so that the working
     set exceeds L2), a fragmented block table and ragged lengths. Lane i
     sees slots 0..lengths[i]; a length-0 lane with an all-zero row stands
@@ -409,13 +440,14 @@ def attention_inputs(gen, lengths, layers=4, H=32, Hk=8, hd=128, bs=16, MB=64):
     block 0) holds 100.0, so a kernel that read one would miss by far."""
     import torch
 
+    dt = getattr(torch, dtype)
     lanes = len(lengths)
     need = [-(-(n + 1) // bs) for n in lengths]
     stale_pages = 4
     nb = 1 + sum(need) + stale_pages
     dev = "cuda"
-    pk = torch.randn((layers, nb, bs, Hk, hd), generator=gen, device=dev).bfloat16()
-    pv = torch.randn((layers, nb, bs, Hk, hd), generator=gen, device=dev).bfloat16()
+    pk = torch.randn((layers, nb, bs, Hk, hd), generator=gen, device=dev).to(dt)
+    pv = torch.randn((layers, nb, bs, Hk, hd), generator=gen, device=dev).to(dt)
     perm = torch.randperm(nb - 1 - stale_pages, generator=gen, device=dev) + 1 + stale_pages
     table = torch.zeros((lanes, MB), dtype=torch.int32, device=dev)
     pos = 0
@@ -434,71 +466,169 @@ def attention_inputs(gen, lengths, layers=4, H=32, Hk=8, hd=128, bs=16, MB=64):
     pv[:, 1:1 + stale_pages] = 100.0
     pk[:, 0, 1:] = 100.0
     pv[:, 0, 1:] = 100.0
-    q = torch.randn((layers, lanes, H, hd), generator=gen, device=dev).bfloat16()
+    q = torch.randn((layers, lanes, H, hd), generator=gen, device=dev).to(dt)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return q, pk, pv, table, ln
 
 
-def check_attention(gen):
+def poisoned(pages, table, ln):
+    """A copy of a pool [..., nb, bs, Hk, hd] whose slots no lane sees hold
+    NaN, +Inf and -Inf in turn (a torch.empty pool may hold any of them)."""
+    import torch
+
+    bs, mb = pages.shape[-3], table.shape[1]
+    slots = torch.arange(mb * bs, device=pages.device)
+    seen = slots[None, :] <= ln[:, None].long()
+    vis = torch.zeros(pages.shape[-4:-2], dtype=torch.bool, device=pages.device)
+    vis[table.long()[:, slots // bs][seen], (slots % bs).expand(len(ln), -1)[seen]] = True
+    bad = torch.tensor([float("nan"), float("inf"), float("-inf")], device=pages.device)
+    fill = bad[torch.arange(vis.numel(), device=pages.device) % 3].reshape(vis.shape)
+    fill = fill[..., None, None].expand(pages.shape[-4:]).to(pages.dtype)
+    return torch.where(vis[..., None, None], pages, fill)
+
+
+def hold_paged(label, got, want, dtype) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    tol = ATTN_ATOL[dtype]
+    if not err <= tol:  # NaN fails too
+        raise AssertionError(f"paged attention ({label}) differs from its plain version by "
+                             f"{err} > {tol}")
+    return err
+
+
+def check_paged_cases(gen):
+    """PAGED_CASES with poisoned hidden slots; two calls bit for bit; a
+    captured graph replayed after lengths and the table change in place;
+    one kernel a call in a profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    errs = {}
+    for label, lengths, H, Hk, hd, bs, MB, dtype in PAGED_CASES:
+        q, pk, pv, table, ln = attention_inputs(gen, lengths, 1, H, Hk, hd, bs, MB, dtype)
+        want = pa.paged_decode_attention_ref(q[0], pk[0], pv[0], table, ln)
+        pk, pv = poisoned(pk[0], table, ln), poisoned(pv[0], table, ln)
+        got = pa.paged_decode_attention(q[0], pk, pv, table, ln)
+        errs[label] = hold_paged(label, got, want, dtype)
+    say("kernels", kernel="paged_attention", cases=json.dumps(
+        {k: float(f"{v:.3g}") for k, v in errs.items()}))
+
+    q, pk, pv, table, ln = attention_inputs(gen, [1023] * 8, 1)
+    q, pk, pv = q[0], pk[0], pv[0]
+
+    def kern():
+        return pa.paged_decode_attention(q, pk, pv, table, ln)
+
+    first, again = kern(), kern()
+    if not torch.equal(first, again):
+        raise AssertionError("two paged-attention calls differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kern()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kern()
+    graph.replay()
+    before = hold_paged("graph", out, pa.paged_decode_attention_ref(q, pk, pv, table, ln),
+                        "bfloat16")
+    ln.copy_(torch.tensor(RAGGED, dtype=torch.int32, device="cuda"))
+    table.copy_(table.flip(0))
+    graph.replay()
+    after = hold_paged("graph, new lengths and table", out,
+                       pa.paged_decode_attention_ref(q, pk, pv, table, ln), "bfloat16")
+    del graph
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kern()
+        torch.cuda.synchronize()
+    kernels = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if len(kernels) != 1:
+        raise AssertionError(f"one paged-attention call ran {len(kernels)} kernels: {kernels}")
+    say("kernels", kernel="paged_attention", bit_identical=True, graph_err=before,
+        graph_err_after_update=after, kernels_per_call=len(kernels), kernel_name=kernels[0][:60],
+        smem_bytes=pa.smem_bytes(8, 32, 8, 128, 16, torch.bfloat16),
+        grid=pa.grid_size(8, 32, 8, 64, torch.cuda.get_device_properties(0).multi_processor_count))
+
+
+def paged_bound(lengths, lanes, H, Hk, hd, bs, MB, es=2):
+    """(bytes, FLOPs) one call must move and do: q and out once, each
+    visible K and V row once, the visible table entries and the lengths."""
+    n_vis = [min(n + 1, MB * bs) for n in lengths]
+    nbytes = (lanes * H * hd * es * 2 + sum(n_vis) * Hk * hd * es * 2
+              + sum(-(-n // bs) for n in n_vis) * 4 + lanes * 4)
+    return nbytes, sum(n_vis) * H * hd * 4
+
+
+def time_paged(gen, label, lengths, kern=None, yardsticks: bool = True, hold: bool = True):
+    """Hold (unless ``hold`` is false) and time one PAGED_TIMED case (4
+    layers of pools, cycled): the kernel (``kern(q, pk, pv, table, ln)``,
+    the wrapper by default) and, with ``yardsticks``, its plain version
+    and SDPA over the gathered window."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    results = {}
-    for label, lengths in (("ragged", [0, 1, 17, 250, 511, 700, 1000, 1023]),
-                           ("full", [1023] * 8)):
-        q, pk, pv, table, ln = attention_inputs(gen, lengths)
-        layers, lanes, H, hd = q.shape
-        _, nb, bs, Hk, _ = pk.shape
+    kern = kern or pa.paged_decode_attention
+    q, pk, pv, table, ln = attention_inputs(gen, lengths)
+    layers, lanes, H, hd = q.shape
+    _, nb, bs, Hk, _ = pk.shape
 
-        def kern(i):
-            return pa.paged_decode_attention(q[i], pk[i], pv[i], table, ln)
+    def run(i):
+        return kern(q[i], pk[i], pv[i], table, ln)
 
-        def plain(i):
-            return pa.paged_decode_attention_ref(q[i], pk[i], pv[i], table, ln)
+    def plain(i):
+        return pa.paged_decode_attention_ref(q[i], pk[i], pv[i], table, ln)
 
-        err = max((kern(i).float() - plain(i).float()).abs().max().item()
+    err = max(hold_paged(label, run(i), plain(i), "bfloat16") for i in range(layers)) \
+        if hold else float("nan")
+    nbytes, flops = paged_bound(lengths, lanes, H, Hk, hd, bs, table.shape[1])
+    b_ms, b_by = bound_ms(nbytes, flops)
+    ms = device_ms(run, layers)
+    out = {"max_abs_err": err, "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    if not yardsticks:
+        return out
+    # yardstick: one SDPA call over the gathered window (gather not timed)
+    S = table.shape[1] * bs
+    kw = [pk[i][table.long()].reshape(lanes, S, Hk, hd).transpose(1, 2) for i in range(layers)]
+    vw = [pv[i][table.long()].reshape(lanes, S, Hk, hd).transpose(1, 2) for i in range(layers)]
+    mask = (torch.arange(S, device="cuda")[None, :] <= ln[:, None])[:, None, None, :]
+
+    gqa = tuple(int(v) for v in torch.__version__.split(".")[:2]) >= (2, 5)
+    if not gqa:  # older torch: expand the KV heads outside the timing
+        kw = [k.repeat_interleave(H // Hk, dim=1) for k in kw]
+        vw = [v.repeat_interleave(H // Hk, dim=1) for v in vw]
+    extra = {"enable_gqa": True} if gqa else {}
+
+    def library(i):
+        return F.scaled_dot_product_attention(q[i][:, :, None, :], kw[i], vw[i],
+                                              attn_mask=mask, **extra)
+
+    lib_err = max((library(i)[:, :, 0].float() - plain(i).float()).abs().max().item()
                   for i in range(layers))
-        torch.cuda.synchronize()
-        if not err <= ATTN_ATOL:
-            raise AssertionError(f"paged attention ({label}) differs from its "
-                                 f"plain version by {err} > {ATTN_ATOL}")
-        # yardstick: one SDPA call over the gathered window (gather not timed)
-        S = table.shape[1] * bs
-        kw = [pk[i][table.long()].reshape(lanes, S, Hk, hd).transpose(1, 2)
-              for i in range(layers)]
-        vw = [pv[i][table.long()].reshape(lanes, S, Hk, hd).transpose(1, 2)
-              for i in range(layers)]
-        mask = (torch.arange(S, device="cuda")[None, :] <= ln[:, None])[:, None, None, :]
+    return {**out, "plain_ms": device_ms(plain, layers), "library_ms": device_ms(library, layers),
+            "eager_ms": eager_ms(run, layers), "library_max_abs_err": lib_err}
 
-        gqa = tuple(int(v) for v in torch.__version__.split(".")[:2]) >= (2, 5)
-        if not gqa:  # older torch: expand the KV heads outside the timing
-            kw = [k.repeat_interleave(H // Hk, dim=1) for k in kw]
-            vw = [v.repeat_interleave(H // Hk, dim=1) for v in vw]
-        extra = {"enable_gqa": True} if gqa else {}
 
-        def library(i):
-            return F.scaled_dot_product_attention(q[i][:, :, None, :], kw[i], vw[i],
-                                                  attn_mask=mask, **extra)
-
-        lib_err = max((library(i)[:, :, 0].float() - plain(i).float()).abs().max().item()
-                      for i in range(layers))
-        n_vis = [min(n + 1, table.shape[1] * bs) for n in lengths]
-        nbytes = (lanes * H * hd * 2 * 2 + sum(n_vis) * Hk * hd * 2 * 2
-                  + sum(-(-n // bs) for n in n_vis) * 4 + lanes * 4)
-        flops = sum(n_vis) * H * hd * 4
-        b_ms, b_by = bound_ms(nbytes, flops)
-        ms = device_ms(kern, layers)
-        plain_ms = device_ms(plain, layers)
-        lib_ms = device_ms(library, layers)
+def check_attention(gen):
+    results = {}
+    for label, lengths in PAGED_TIMED:
+        r = time_paged(gen, label, lengths)
         say("kernels", kernel="paged_attention", case=label, lengths=lengths,
-            max_abs_err=err, tol=ATTN_ATOL, ms=round(ms, 5), bound_ms=round(b_ms, 5),
-            bound_by=b_by, plain_ms=round(plain_ms, 5), library_ms=round(lib_ms, 5),
-            eager_ms=round(eager_ms(kern, layers), 5), library_max_abs_err=lib_err,
-            bytes=nbytes, GBps=round(nbytes / ms / 1e6, 1))
-        results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            max_abs_err=r["max_abs_err"], tol=ATTN_ATOL["bfloat16"], ms=round(r["ms"], 5),
+            bound_ms=round(r["bound_ms"], 5), bound_by=r["bound_by"],
+            bound_share=round(r["bound_ms"] / r["ms"], 4), plain_ms=round(r["plain_ms"], 5),
+            library_ms=round(r["library_ms"], 5),
+            library_ratio=round(r["ms"] / r["library_ms"], 4),
+            eager_ms=round(r["eager_ms"], 5), library_max_abs_err=r["library_max_abs_err"],
+            bytes=r["bytes"], GBps=round(r["bytes"] / r["ms"] / 1e6, 1))
+        results[label] = r
+    check_paged_cases(gen)
     return results["ragged"]
 
 
@@ -653,7 +783,8 @@ def serve(engine, prompts, max_new: int, phase: str):
 
 
 # device kernels of a training step by kind: (kind, name substrings)
-KERNEL_KINDS = (("flash attention (port)", ("flash_", "split_kernel")),
+KERNEL_KINDS = (("paged attention (port)", ("paged_decode_kernel",)),
+                ("flash attention (port)", ("flash_", "split_kernel")),
                 ("ring merge (port)", ("ring_merge_kernel",)),
                 ("rms norm (port)", ("rms_fwd_kernel", "rms_bwd_dx_kernel")),
                 ("int8 forward (port)", ("int8_tc_kernel<false", "int8_gemm_kernel")),
@@ -697,7 +828,8 @@ def profile_decode(engine, vocab: int, seed: int, phase: str):
     """Device busy share of decode-only steps: 8 one-token requests (no
     prefill), 3 warm-up steps, then 5 steps under torch.profiler. Busy time
     is the sum of the kernels' device intervals (one stream, so they do not
-    overlap); the rest of the wall time the card waits for the host."""
+    overlap); the rest of the wall time the card waits for the host. Also
+    the device ms a decode step by KERNEL_KINDS kind."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -724,6 +856,8 @@ def profile_decode(engine, vocab: int, seed: int, phase: str):
         device_busy_ms_per_step=round(1e3 * busy / steps, 3),
         device_busy_share=round(busy / wall, 4) if busy else "not measured",
         device_ops_per_step=launches / steps)
+    say(phase, device_ms_per_step_by_kind=json.dumps(
+        {k: round(v / steps, 4) for k, v in by_kind(per_kernel).items()}))
     for name, us in top:
         print(f"  {phase} top kernel: {us / 1e3 / steps:.4f} ms/step {name[:90]}", flush=True)
 
@@ -2273,6 +2407,9 @@ def main(argv=None) -> int:
         if name in ("flash_attention", "quant_matmul") and not (
                 counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["HMMA"] == 0):
             raise AssertionError(f"the {name} kernels are not wgmma fed by TMA: {counts}")
+        if name == "paged_attention" and not (counts["UTMALDG"] > 0 and counts["HMMA"] > 0):
+            raise AssertionError(f"the paged-attention kernel is not mma.sync fed by TMA: "
+                                 f"{counts}")
     lap("1")
 
     gen = torch.Generator(device="cuda")
@@ -2296,8 +2433,10 @@ def main(argv=None) -> int:
     attn_launches = paged_decode_attention.launches
     say("bf16-engine", paged_attention_launches=attn_launches,
         int8_matmul_launches=int8_matmul.launches)
-    if attn_launches <= 0:
-        raise AssertionError("the bf16 engine never launched the paged-attention kernel")
+    if attn_launches <= 0 or attn_launches % cfg.num_hidden_layers:
+        raise AssertionError(f"the bf16 engine launched the paged-attention kernel "
+                             f"{attn_launches} times, not a positive multiple of "
+                             f"{cfg.num_hidden_layers} (one a layer a decode step)")
     teacher_forced_check(engine, prompts)
     profile_decode(engine, cfg.vocab_size, args.seed, "bf16-engine")
     del engine
@@ -2322,6 +2461,10 @@ def main(argv=None) -> int:
         greedy_top1_agreement_vs_bf16=round(sum(agree) / len(agree), 4))
     if attn_launches_int8 <= 0 or gemm_launches <= 0:
         raise AssertionError("the int8 engine did not launch both kernels")
+    if attn_launches_int8 % cfg.num_hidden_layers:
+        raise AssertionError(f"the int8 engine launched the paged-attention kernel "
+                             f"{attn_launches_int8} times, not a multiple of "
+                             f"{cfg.num_hidden_layers}")
     if int8_matmul_large_m.launches:
         raise AssertionError("the int8 engine launched the large-M GEMM: serving runs "
                              "M <= 64 on the weight stream")
@@ -2380,8 +2523,8 @@ def main(argv=None) -> int:
          "launches": attn_launches, "max_abs_err": attn["max_abs_err"],
          "ms": attn["ms"], "plain_ms": attn["plain_ms"], "bound_ms": attn["bound_ms"],
          "bound_by": attn["bound_by"], "library_ms": attn["library_ms"],
-         "at": "8 lanes, H32 Hk8 hd128 bs16 MB64, ragged lengths, bf16; launches "
-               "from the bf16 engine run"},
+         "at": "8 lanes, H32 Hk8 hd128 bs16 MB64, ragged lengths, bf16 (full and skewed "
+               "lengths on the kernels lines of phase 2); launches from the bf16 engine run"},
         {"name": "int8_matmul", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:117",

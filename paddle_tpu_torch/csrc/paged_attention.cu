@@ -8,276 +8,874 @@
 // `gather_lane_window`, paddle_tpu/models/llama.py:446 and
 // paddle_tpu/inference/serving/paged_attention.py:88): logits scaled by
 // 1/sqrt(hd), slots 0..lengths[lane] visible, query head h reads KV head
-// h / (H/Hk), softmax in f32, output in q's dtype. The bundled TPU kernel
-// applies no 1/sqrt(hd) scale; this kernel does.
+// h / (H/Hk), softmax in f32, output in q's dtype; an inactive lane (length
+// 0 on trash block 0) sees exactly one slot. The bundled TPU kernel applies
+// no 1/sqrt(hd) scale; this kernel does. bf16, fp16 and f32, any head_dim %
+// 8 == 0 up to 256, any page size up to 256 slots, any H % Hk == 0.
 //
-// Bound on the H100: bytes. Each visible K and V row is read once
-// (lanes x visible slots x Hk x hd x 2 tensors x 2 B in bf16) against
-// 3.35 TB/s; the arithmetic is 4 FLOPs per element read, far below the
-// ridge point.
+// Bound on the H100: bytes. Each visible K and V row is read once (lanes x
+// visible slots x Hk x hd x 2 tensors x 2 B in bf16) against 3.35 TB/s; the
+// arithmetic is 4 FLOPs per element read, far below the ridge point. At the
+// serving shape (8 lanes, H 32, Hk 8, hd 128) a call moves ~14 MB: 4.3 us,
+// so the fixed costs of a launch are of the same order as the stream.
 //
-// Design (split-KV, as in flash-decoding): the TPU kernel walks a lane's
-// pages in order on one core; here the visible slots of a lane are cut
-// into tiles of whole pages and every (KV head, lane, tile) is its own
-// block, so a few lanes still fill the 132 SMs. A block reads its lane's
-// block-table row itself and copies the tile's K and V rows into shared
-// memory with 16-byte cp.async (K and V in two groups, so the scores run
-// while V is still landing); rows past the last visible slot are never
-// read, so stale bytes in a last page or in pages past the length never
-// enter the sum, and tiles wholly past the length return at once. One warp
-// per query head of the GQA group: the group's H/Hk heads share every
-// staged row. Scores are one slot per lane (rows padded by 16 bytes so the
-// lanes' vector reads hit distinct banks), the tile's softmax is in f32,
-// and each lane accumulates hd/32 output elements. Each tile leaves its
-// (max, sum, f32 accumulator); a second kernel merges the tiles of a lane
-// in order, so the result does not depend on scheduling. Inactive lanes
-// (length 0, table row on trash block 0) see exactly one slot, as in the
-// composed path. Not done yet: TMA, keeping K/V in bf16 through
-// tensor-core products, one pass without the merge kernel.
+// Design: one launch per call, its grid fixed by the shapes (the wrapper
+// passes two blocks an SM), so a CUDA graph can hold it.
+// - Length-balanced split-KV. Each (lane, KV head, pass) pair's visible
+//   pages are cut into chunks of at most Kc pages, Kc the fewest that fit
+//   the chunks to the grid, so no block streams more than Kc pages whatever
+//   the skew between lanes; block j takes chunks j, j + grid, ... (one,
+//   unless the pairs outnumber the blocks). Every block reads `lengths`
+//   itself and finds Kc and its chunk on the device: no host read of
+//   `lengths`, ever. (A first design gave each block an equal contiguous
+//   share of the page list; blocks over short lanes then walked up to seven
+//   one-page pairs in series, each with its own fixed costs: PERF.md.)
+// - A page ring fed by TMA. A 4-D tensor map over the pool [nb, bs, Hk, hd]
+//   loads one KV head's rows of one page, K and V, per stage (a page of more
+//   than 8 KB as several boxes of rows); the block-table entry is the page
+//   coordinate. Each box row is read 8 elements wider than hd (the map's
+//   extent is hd, so TMA fills them with zeros): rows 16 bytes apart from
+//   a power of two keep ldmatrix free of bank conflicts. One producer warp
+//   (one thread issues, the warp reads the table 32 pages at a time) keeps
+//   up to 64 KB in flight, through full/empty mbarriers with bounded waits.
+// - Consumers, bf16 and fp16: tensor cores (mma.sync m16n8k16). Each of the
+//   four consumer warps takes every fourth stage and keeps its own online
+//   softmax: S = Q K^T for the GQA group's query heads (up to 8 a pass, the
+//   rows of M = 16; a larger group takes more passes, each a pair of its
+//   own) over 16 slots at a time, then O += P V with P rounded to the input
+//   type as the plain version rounds it. SIMT arithmetic took ~2000 cycles
+//   a 16-slot page against ~1000 for the page's share of the stream
+//   (PERF.md), so the consumers, not the loads, had set the pace.
+//   f32: every warp reads every stage, a row split over up to 32 lanes (16
+//   bytes each), two rows a slot group at a time, f32 FMAs.
+// - Stale bytes never enter the result: TMA loads whole boxes of rows, but
+//   a slot past the lane's length is masked out of the scores before the
+//   max, and its V row (NaN or Inf in a torch.empty pool) is zeroed in
+//   registers before the product (SIMT: never read). Pages past the length
+//   are never loaded.
+// - One launch, no merge kernel and no memset: a pair cut into several
+//   chunks leaves each chunk's (max, sum, f32 accumulator) in scratch at
+//   slot = chunk; the block that finishes the pair last, found through a
+//   per-pair atomic ticket, merges the partials in chunk order, so the
+//   result does not depend on scheduling, writes the output and resets the
+//   ticket to zero for the next call. A pair of one chunk writes its output
+//   directly.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
-namespace {
+namespace paged {
 
-constexpr int kMaxPerLane = 8;  // hd <= 256
+constexpr int kConsumerWarps = 4;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;  // + the producer warp
+constexpr int kMaxStages = 16;
+constexpr int kE = 8;              // f32 elements of a row a SIMT thread holds (two 16-byte chunks)
+constexpr int kBoxBytes = 8192;    // rows of one box (K or V) at most
+constexpr int kRingBytes = 64 * 1024;
+constexpr int kTmaError = 10000;   // + CUresult of a refused tensor map
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+struct Args {
+  const void* q;          // [lanes, H, hd]
+  void* out;              // [lanes, H, hd]
+  const int* table;       // [lanes, MB]
+  const int* lengths;     // [lanes]
+  float* part;            // [slots, hp, hd] accumulators, then [slots, hp, 2] (max, sum)
+  int* tickets;           // [pairs], zero between calls
+  int lanes, H, Hk, hd, bs, MB, grid;
+  int rows;               // rows of a box, a divisor of bs
+  int pitch;              // elements of a row in shared memory: hd + 8 (hd up to 248)
+  int stages;             // boxes of K and V in the ring
+  int hp;                 // query heads a pass: a power of two up to 8
+  int npass;              // passes over a GQA group of H / Hk heads
+  int T;                  // f32: lanes sharing a row
+  float scale2;           // log2(e) / sqrt(hd)
+};
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// 16 bytes of T widened to floats
-__device__ __forceinline__ void widen16(uint4 u, float* f, float) {
-  f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void widen16(uint4 u, float* f, __nv_bfloat16) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+// shared memory in bytes from a 128-byte aligned base (host and device); a
+// box holds whole 16-row groups, so the tensor cores' reads past its rows
+// stay inside it
+struct Layout {
+  int box, stage, bars, prefix, red, flag, total;
+  __host__ __device__ Layout(const Args& a, int es) {
+    box = ((a.rows + 15) / 16 * 16 * a.pitch * es + 127) / 128 * 128;
+    stage = 2 * box;                                   // K box, then V box
+    bars = a.stages * stage;                           // full[stages], empty[stages]
+    prefix = bars + 2 * a.stages * 8;                  // chunks before lane [lanes + 1], slots [lanes]
+    red = (prefix + 4 * (2 * a.lanes + 1) + 15) / 16 * 16;  // [warps][hp][hd], [warps][hp][2]
+    flag = red + kConsumerWarps * a.hp * (a.hd + 2) * 4;
+    total = flag + 16;                                 // the ticket's verdict, Kc
   }
-}
+};
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__host__ __device__ inline int visible_slots(int length, int cap) {
-  int n = length + 1;  // slots 0..length
-  return n > cap ? cap : (n < 1 ? 1 : n);
-}
-
+// 16 bytes of T as floats, and back
 template <typename T>
-__global__ void paged_decode_kernel(const T* __restrict__ q,            // [lanes, H, hd]
-                                    const T* __restrict__ pages_k,      // [nb, bs, Hk, hd]
-                                    const T* __restrict__ pages_v,      // [nb, bs, Hk, hd]
-                                    const int* __restrict__ block_table,  // [lanes, MB]
-                                    const int* __restrict__ lengths,      // [lanes]
-                                    float* __restrict__ part_acc,  // [lanes, H, splits, hd]
-                                    float* __restrict__ part_ml,   // [lanes, H, splits, 2]
-                                    T* __restrict__ out,           // [lanes, H, hd]
-                                    int H, int Hk, int hd, int bs, int MB, int tile, int splits,
-                                    float scale) {
-  const int g = blockIdx.x;   // KV head
-  const int b = blockIdx.y;   // lane
-  const int sp = blockIdx.z;  // tile of the lane's slots
-  const int n = visible_slots(lengths[b], MB * bs);
-  const int base = sp * tile;
-  const int rows = min(tile, n - base);
-  if (rows <= 0) return;  // the merge reads only tiles below the length
-
-  const int rep = H / Hk;
-  const int warp = threadIdx.x >> 5;  // query head within the group
-  const int lane = threadIdx.x & 31;
-  const int h = g * rep + warp;
-  const int per = hd >> 5;
-  constexpr int kVec = 16 / sizeof(T);
-  const int ld = hd + kVec;  // padded row, in elements
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);                             // [tile, ld]
-  T* vs = ks + (size_t)tile * ld;                                 // [tile, ld]
-  float* qs = reinterpret_cast<float*>(vs + (size_t)tile * ld);   // [rep, hd]
-  float* ps = qs + rep * hd;                                      // [rep, tile]
-
-  const int* bt = block_table + (size_t)b * MB;
-  const int vec_per_row = hd / kVec;
-  const size_t row_stride = (size_t)Hk * hd;
-  for (int i = threadIdx.x; i < rows * vec_per_row; i += blockDim.x) {
-    const int s = i / vec_per_row;
-    const int c = i - s * vec_per_row;
-    const int slot = base + s;
-    const size_t src = ((size_t)bt[slot / bs] * bs + slot % bs) * row_stride + (size_t)g * hd;
-    cp_async16(ks + (size_t)s * ld + c * kVec, pages_k + src + c * kVec);
+struct Chunk;
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int V = 8;
+  static __device__ __forceinline__ uint4 narrow(const float* f) {
+    return make_uint4(pack2<__nv_bfloat16>(f[0], f[1]), pack2<__nv_bfloat16>(f[2], f[3]),
+                      pack2<__nv_bfloat16>(f[4], f[5]), pack2<__nv_bfloat16>(f[6], f[7]));
   }
-  cp_async_commit();
-  for (int i = threadIdx.x; i < rows * vec_per_row; i += blockDim.x) {
-    const int s = i / vec_per_row;
-    const int c = i - s * vec_per_row;
-    const int slot = base + s;
-    const size_t src = ((size_t)bt[slot / bs] * bs + slot % bs) * row_stride + (size_t)g * hd;
-    cp_async16(vs + (size_t)s * ld + c * kVec, pages_v + src + c * kVec);
+};
+template <>
+struct Chunk<__half> {
+  static constexpr int V = 8;
+  static __device__ __forceinline__ uint4 narrow(const float* f) {
+    return make_uint4(pack2<__half>(f[0], f[1]), pack2<__half>(f[2], f[3]),
+                      pack2<__half>(f[4], f[5]), pack2<__half>(f[6], f[7]));
   }
-  cp_async_commit();
-  const T* qg = q + ((size_t)b * H + (size_t)g * rep) * hd;
-  for (int i = threadIdx.x; i < rep * hd; i += blockDim.x) qs[i] = to_f(qg[i]) * scale;
-  cp_async_wait<1>();  // this thread's K rows have landed
-  __syncthreads();     // everyone's K rows and q
+};
+template <>
+struct Chunk<float> {
+  static constexpr int V = 4;
+  static __device__ __forceinline__ void widen(uint4 u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 narrow(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
 
-  // scores: one slot per lane
-  const float* qh = qs + warp * hd;
-  float* pw = ps + warp * tile;
-  float m = -CUDART_INF_F;
-  for (int s = lane; s < rows; s += 32) {
-    const T* kr = ks + (size_t)s * ld;
-    float acc = 0.f;
-    for (int d = 0; d < hd; d += kVec) {
-      float kf[kVec];
-      widen16(*reinterpret_cast<const uint4*>(kr + d), kf, T());
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// weight of a partial with max m in a merge whose max is mm (a partial that
+// saw no slot has m = -inf and weighs nothing)
+__device__ __forceinline__ float weight(float m, float mm) {
+  return m == neg_inf() ? 0.f : exp2f(m - mm);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// D[16 x 8] += A[16 x 16] B[16 x 8], f32 sums. A: rows g and g + 8 of lane
+// 4 g + t, columns 2t, 2t + 1 (a0) and 2t + 8, 2t + 9 (a2); this kernel's
+// rows g + 8 are zero. B: rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of
+// column g. D: row g columns 2t, 2t + 1 (d0, d1), row g + 8 (d2, d3).
+template <typename T>
+__device__ __forceinline__ void mma16816(float* d, uint32_t a0, uint32_t a2, uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+  }
+}
+
+// the low or high 16 bits of a pair zeroed where a slot is not visible
+__device__ __forceinline__ uint32_t keep(uint32_t v, bool lo, bool hi) {
+  return v & ((lo ? 0x0000ffffu : 0u) | (hi ? 0xffff0000u : 0u));
+}
+
+// chunk c -> lane b, pair within the lane, chunk within the pair (of cpp)
+__device__ __forceinline__ void locate(const int* cpre, int lanes, int per_lane, int c, int& b,
+                                       int& sub, int& ci, int& cpp) {
+  int lo = 0, hi = lanes - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (cpre[mid] * per_lane <= c) lo = mid; else hi = mid - 1;
+  }
+  b = lo;
+  cpp = cpre[b + 1] - cpre[b];
+  const int r = c - cpre[b] * per_lane;
+  sub = r / cpp;
+  ci = r - sub * cpp;
+}
+
+// SIMT (f32): the 16-byte chunks t, t + TL of row s of a staged box as
+// floats (zeros for a chunk past the row or a row that is not read)
+__device__ __forceinline__ void load_row(const float* box, int s, bool ok, int t, int TL, int C,
+                                         int pitch, float* f) {
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) acc = fmaf(qh[d + j], kf[j], acc);
+  for (int k = 0; k < 2; ++k) {
+    const int ch = t + k * TL;
+    if (ok && ch < C) {
+      Chunk<float>::widen(*reinterpret_cast<const uint4*>(box + (size_t)s * pitch + ch * 4),
+                          f + k * 4);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[k * 4 + i] = 0.f;
     }
-    pw[s] = acc;
-    m = fmaxf(m, acc);
   }
-  m = warp_max(m);
-  float l = 0.f;
-  for (int s = lane; s < rows; s += 32) {
-    const float e = expf(pw[s] - m);
-    pw[s] = e;
-    l += e;
-  }
-  l = warp_sum(l);
-  cp_async_wait<0>();
-  __syncthreads();  // V rows have landed; the warp's probabilities are visible
+}
 
-  float acc[kMaxPerLane];
+// Tensor cores (bf16, fp16): DP >= hd rounded up to 16 columns.
+template <typename T, int DP>
+struct MmaConsumer {
+  static constexpr int kNT = DP / 8;  // n-tiles of the output
+  uint32_t qa[DP / 16][2];            // A fragments of q, rows g (heads), per 16 columns
+  float o[kNT][4];
+  float m, l;                         // row g: running max (log2 units), this thread's sum
+
+  __device__ __forceinline__ void start(const Args& a, const T* qrow, bool head_ok, int t) {
 #pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i) acc[i] = 0.f;
-  for (int s = 0; s < rows; ++s) {
-    const float p = pw[s];
-    const T* vr = vs + (size_t)s * ld + lane * per;
+    for (int kk = 0; kk < DP / 16; ++kk) {
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i)
-      if (i < per) acc[i] = fmaf(p, to_f(vr[i]), acc[i]);
+      for (int hf = 0; hf < 2; ++hf) {
+        const int col = kk * 16 + hf * 8 + 2 * t;
+        qa[kk][hf] = head_ok && col < a.hd ? *reinterpret_cast<const uint32_t*>(qrow + col) : 0u;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+    m = neg_inf();
+    l = 0.f;
   }
 
-  const size_t row = (size_t)b * H + h;
-  if (splits == 1) {
-    const float inv = 1.f / l;
-    T* oh = out + row * hd + lane * per;
+  // rows 0 .. rv - 1 of a staged box (K at ks, V at vs)
+  __device__ __forceinline__ void box(const Args& a, uint32_t ks, uint32_t vs, int rv, int lane) {
+    const int t = lane & 3, i4 = lane >> 3, r8 = lane & 7;
+    const uint32_t row_bytes = a.pitch * sizeof(T);
+    for (int s16 = 0; s16 < rv; s16 += 16) {
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      // S = Q K^T over slots s16 .. s16 + 15: matrices (slots 0-7 | 8-15) x (k 0-7 | 8-15)
+      const uint32_t kaddr = ks + (s16 + (i4 >> 1) * 8 + r8) * row_bytes + (i4 & 1) * 16;
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i)
-      if (i < per) oh[i] = from_f<T>(acc[i] * inv);
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        if (kk * 16 < a.hd) {
+          uint32_t b[4];
+          ldsm_x4(kaddr + kk * 32, b);
+          mma16816<T>(s[0], qa[kk][0], qa[kk][1], b[0], b[1]);
+          mma16816<T>(s[1], qa[kk][0], qa[kk][1], b[2], b[3]);
+        }
+      }
+      // online softmax of row g over this thread's slots 2t, 2t + 1, 8 + 2t, 9 + 2t
+      const int n = rv - s16;  // visible slots of this group
+      float x[4];
+      float mx = neg_inf();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int slot = (i >> 1) * 8 + 2 * t + (i & 1);
+        x[i] = slot < n ? s[i >> 1][i & 1] * a.scale2 : neg_inf();
+        mx = fmaxf(mx, x[i]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m, mx);  // finite: slot s16 is visible
+      const float al = weight(m, mn);
+      m = mn;
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = x[i] == neg_inf() ? 0.f : exp2f(x[i] - mn);
+      l = l * al + (p[0] + p[1]) + (p[2] + p[3]);
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        o[nt][0] *= al;
+        o[nt][1] *= al;
+      }
+      const uint32_t pa0 = pack2<T>(p[0], p[1]), pa2 = pack2<T>(p[2], p[3]);
+      // O += P V: matrices (slots 0-7 | 8-15) x (columns n0 .. n0 + 7 | + 8 .. 15), transposed
+      const uint32_t vaddr = vs + (s16 + (i4 & 1) * 8 + r8) * row_bytes + (i4 >> 1) * 16;
+      const bool partial = n < 16;
+      const bool v0 = 2 * t < n, v1 = 2 * t + 1 < n, v8 = 2 * t + 8 < n, v9 = 2 * t + 9 < n;
+#pragma unroll
+      for (int n0 = 0; n0 < DP; n0 += 16) {
+        if (n0 < a.hd) {
+          uint32_t b[4];
+          ldsm_x4_t(vaddr + n0 * sizeof(T), b);
+          if (partial) {  // a V row past the length may hold NaN: 0 * NaN is NaN
+            b[0] = keep(b[0], v0, v1);
+            b[1] = keep(b[1], v8, v9);
+            b[2] = keep(b[2], v0, v1);
+            b[3] = keep(b[3], v8, v9);
+          }
+          mma16816<T>(o[n0 / 8], pa0, pa2, b[0], b[1]);
+          mma16816<T>(o[n0 / 8 + 1], pa0, pa2, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // this warp's (max, sum, accumulator) of heads g < nh into red
+  __device__ __forceinline__ void reduce(const Args& a, float* red_acc, float* red_ml, int warp,
+                                         int lane, int nh) {
+    const int g = lane >> 2, t = lane & 3;
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (g < nh) {
+      float* dst = red_acc + (warp * a.hp + g) * a.hd;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int col = nt * 8 + 2 * t;
+        if (col < a.hd) {
+          dst[col] = o[nt][0];
+          dst[col + 1] = o[nt][1];
+        }
+      }
+      if (t == 0) {
+        red_ml[(warp * a.hp + g) * 2] = m;
+        red_ml[(warp * a.hp + g) * 2 + 1] = l;
+      }
+    }
+  }
+};
+
+// SIMT (f32): slot group sg of TL lanes; lane t holds chunks t, t + TL of a row
+template <int HP>
+struct SimtConsumer {
+  float qv[HP][kE], acc[HP][kE], m[HP], l[HP];
+
+  __device__ __forceinline__ void start(const Args& a, const float* q0, int nh, int t) {
+    const int TL = a.T, C = a.hd / 4;
+#pragma unroll
+    for (int h = 0; h < HP; ++h) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int ch = t + k * TL;
+        if (h < nh && ch < C) {
+          Chunk<float>::widen(*reinterpret_cast<const uint4*>(q0 + h * a.hd + ch * 4),
+                              &qv[h][k * 4]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qv[h][k * 4 + i] *= a.scale2;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qv[h][k * 4 + i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[h][e] = 0.f;
+      m[h] = neg_inf();
+      l[h] = 0.f;
+    }
+  }
+
+  __device__ __forceinline__ void box(const Args& a, const float* ks, const float* vs, int rv,
+                                      int tid) {
+    const int TL = a.T, t = tid & (TL - 1), sg = tid / TL, SG = kConsumers / TL;
+    const int C = a.hd / 4;
+    // two rows a slot group at a time; the loop is uniform over the warp (shuffles)
+    for (int s0 = 0; s0 < rv; s0 += 2 * SG) {
+      const int sa = s0 + sg, sb = sa + SG;
+      const bool va = sa < rv, vb = sb < rv;
+      float ka[kE], kb[kE];
+      load_row(ks, sa, va, t, TL, C, a.pitch, ka);
+      load_row(ks, sb, vb, t, TL, C, a.pitch, kb);
+      float xa[HP], xb[HP];
+#pragma unroll
+      for (int h = 0; h < HP; ++h) {
+        float da = 0.f, db = 0.f;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          da = fmaf(qv[h][e], ka[e], da);
+          db = fmaf(qv[h][e], kb[e], db);
+        }
+        xa[h] = da;
+        xb[h] = db;
+      }
+      for (int o = TL >> 1; o > 0; o >>= 1) {
+#pragma unroll
+        for (int h = 0; h < HP; ++h) {
+          xa[h] += __shfl_xor_sync(0xffffffffu, xa[h], o);
+          xb[h] += __shfl_xor_sync(0xffffffffu, xb[h], o);
+        }
+      }
+      if (va) {  // vb implies va; a row that is not visible is never read
+        float wa[kE], wb[kE];
+        load_row(vs, sa, true, t, TL, C, a.pitch, wa);
+        load_row(vs, sb, vb, t, TL, C, a.pitch, wb);
+#pragma unroll
+        for (int h = 0; h < HP; ++h) {
+          const float mx = vb ? fmaxf(xa[h], xb[h]) : xa[h];
+          if (mx > m[h]) {
+            const float al = exp2f(m[h] - mx);
+            l[h] *= al;
+#pragma unroll
+            for (int e = 0; e < kE; ++e) acc[h][e] *= al;
+            m[h] = mx;
+          }
+          const float pa = exp2f(xa[h] - m[h]);
+          const float pb = vb ? exp2f(xb[h] - m[h]) : 0.f;
+          l[h] += pa + pb;
+#pragma unroll
+          for (int e = 0; e < kE; ++e) acc[h][e] = fmaf(pa, wa[e], fmaf(pb, wb[e], acc[h][e]));
+        }
+      }
+    }
+  }
+
+  // the slot groups of a warp merged by shuffles, then into red
+  __device__ __forceinline__ void reduce(const Args& a, float* red_acc, float* red_ml, int warp,
+                                         int lane, int nh) {
+    const int TL = a.T, t = lane & (TL - 1), C = a.hd / 4;
+    for (int o = TL; o < 32; o <<= 1) {
+#pragma unroll
+      for (int h = 0; h < HP; ++h) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[h], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[h], o);
+        const float mm = fmaxf(m[h], mo);
+        const float wa = weight(m[h], mm), wb = weight(mo, mm);
+        l[h] = l[h] * wa + lo * wb;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[h][e], o);
+          acc[h][e] = acc[h][e] * wa + ao * wb;
+        }
+        m[h] = mm;
+      }
+    }
+    if (lane < TL) {
+#pragma unroll
+      for (int h = 0; h < HP; ++h) {
+        if (h >= nh) continue;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int ch = t + k * TL;
+          if (ch < C) {
+            float* dst = red_acc + (warp * a.hp + h) * a.hd + ch * 4;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) dst[i] = acc[h][k * 4 + i];
+          }
+        }
+        if (t == 0) {
+          red_ml[(warp * a.hp + h) * 2] = m[h];
+          red_ml[(warp * a.hp + h) * 2 + 1] = l[h];
+        }
+      }
+    }
+  }
+};
+
+// HP: SIMT heads a pass (f32); DP: tensor-core columns (bf16, fp16)
+template <typename T, int HP, int DP>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_kernel(const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const Args a) {
+  constexpr bool kMma = !std::is_same<T, float>::value;
+  constexpr int V = Chunk<T>::V;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u);
+  const Layout lay(a, sizeof(T));
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + lay.bars);
+  uint64_t* empty = full + a.stages;
+  int* cpre = reinterpret_cast<int*>(sm + lay.prefix);  // chunks of a pair, summed over lanes < b
+  int* nvis = cpre + a.lanes + 1;                        // visible slots of lane b
+  float* red_acc = reinterpret_cast<float*>(sm + lay.red);
+  float* red_ml = red_acc + kConsumerWarps * a.hp * a.hd;
+  int* flag = reinterpret_cast<int*>(sm + lay.flag);     // the ticket's verdict, then Kc
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cap = a.MB * a.bs;
+  const int per_lane = a.Hk * a.npass;  // pairs (KV head, pass) of a lane
+  if (tid == 0) {
+    for (int i = 0; i < a.stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kMma ? 1 : kConsumerWarps);  // tensor cores: one warp a stage
+    }
+    fence_barrier_init();
+  }
+  if (tid == kConsumers) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tk)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
+  }
+  if (warp == 0) {
+    // visible slots and pages of every lane (pages parked in cpre[b + 1])
+    int most = 0, total = 0;
+    for (int base = 0; base < a.lanes; base += 32) {
+      const int b = base + lane;
+      if (b < a.lanes) {
+        const int n = min(max(a.lengths[b], 0), cap - 1) + 1;
+        const int p = (n + a.bs - 1) / a.bs;
+        nvis[b] = n;
+        cpre[b + 1] = p;
+        most = max(most, p);
+        total += p;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
+      total += __shfl_xor_sync(0xffffffffu, total, o);
+    }
+    __syncwarp();
+    // Kc: the fewest pages a chunk such that the chunks fit the grid (or
+    // whole pairs, where the pairs outnumber the blocks); 32 candidates a
+    // round, one a lane, from the balanced share up
+    int kc = 0;
+    for (int lo = max(1, (total * per_lane + a.grid - 1) / a.grid); kc == 0; lo += 32) {
+      const int mine = lo + lane;
+      int n = 0;
+      for (int b = 0; b < a.lanes; ++b) n += (cpre[b + 1] + mine - 1) / mine;
+      const unsigned ok = __ballot_sync(0xffffffffu, n * per_lane <= a.grid || mine >= most);
+      if (ok) kc = min(lo + __ffs(ok) - 1, most);
+    }
+    __syncwarp();
+    int carry = 0;
+    for (int base = 0; base < a.lanes; base += 32) {
+      const int b = base + lane;
+      int p = b < a.lanes ? (cpre[b + 1] + kc - 1) / kc : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, p, o);
+        if (lane >= o) p += y;
+      }
+      if (b < a.lanes) cpre[b + 1] = carry + p;
+      carry += __shfl_sync(0xffffffffu, p, 31);
+    }
+    if (lane == 0) {
+      cpre[0] = 0;
+      flag[1] = kc;
+    }
+  }
+  __syncthreads();
+
+  const int Kc = flag[1];
+  const int nchunks = cpre[a.lanes] * per_lane;
+  const int j = blockIdx.x;
+  if (j >= nchunks) return;
+  const uint32_t stage_tx = 2u * a.rows * a.pitch * sizeof(T);
+
+  if (warp == kConsumerWarps) {  // producer: the warp reads the table, one thread loads
+    int it = 0;
+    for (int c = j; c < nchunks; c += a.grid) {
+      int b, sub, ci, cpp;
+      locate(cpre, a.lanes, per_lane, c, b, sub, ci, cpp);
+      const int g = sub / a.npass;
+      const int p0 = ci * Kc;
+      const int np = min((nvis[b] + a.bs - 1) / a.bs, p0 + Kc) - p0;
+      for (int base = 0; base < np; base += 32) {
+        int phys = 0, rows = 0;
+        if (base + lane < np) {
+          const int pi = p0 + base + lane;
+          phys = a.table[(size_t)b * a.MB + pi];
+          rows = min(a.bs, nvis[b] - pi * a.bs);
+        }
+        const int cnt = min(32, np - base);
+        for (int k = 0; k < cnt; ++k) {
+          const int pk = __shfl_sync(0xffffffffu, phys, k);
+          const int rk = __shfl_sync(0xffffffffu, rows, k);
+          if (lane == 0) {
+            for (int row0 = 0; row0 < rk; row0 += a.rows, ++it) {
+              const int st = it % a.stages;
+              const uint32_t ph = (it / a.stages) & 1;
+              mbar_wait(empty + st, ph ^ 1);
+              mbar_expect_tx(full + st, stage_tx);
+              unsigned char* dst = sm + st * lay.stage;
+              tma_load(dst, &tk, full + st, 0, g, row0, pk);
+              tma_load(dst + lay.box, &tv, full + st, 0, g, row0, pk);
+            }
+          }
+        }
+      }
+    }
     return;
   }
-  float* pa = part_acc + (row * splits + sp) * hd + lane * per;
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i)
-    if (i < per) pa[i] = acc[i];
-  if (lane == 0) {
-    part_ml[(row * splits + sp) * 2] = m;
-    part_ml[(row * splits + sp) * 2 + 1] = l;
-  }
-}
 
-// out[lane, h, :] from the lane's tiles, merged in tile order
-template <typename T>
-__global__ void merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                             const int* __restrict__ lengths, T* __restrict__ out, int H, int hd,
-                             int cap, int tile, int splits) {
-  const size_t row = blockIdx.x;  // lane * H + head
-  const int b = (int)(row / H);
-  const int used = (visible_slots(lengths[b], cap) + tile - 1) / tile;
-  const float* ml = part_ml + row * splits * 2;
-  float mstar = -CUDART_INF_F;
-  for (int s = 0; s < used; ++s) mstar = fmaxf(mstar, ml[2 * s]);
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float l = 0.f, acc = 0.f;
-    for (int s = 0; s < used; ++s) {
-      const float w = expf(ml[2 * s] - mstar);
-      l = fmaf(ml[2 * s + 1], w, l);
-      acc = fmaf(part_acc[(row * splits + s) * hd + d], w, acc);
+  // consumers
+  const int rep = a.H / a.Hk;
+  const T* qg = static_cast<const T*>(a.q);
+  T* out = static_cast<T*>(a.out);
+  const int C = a.hd / V;  // 16-byte chunks of an output row
+  const int nslots = a.grid + a.lanes * per_lane;
+  float* part_acc = a.part;
+  float* part_ml = a.part + (size_t)nslots * a.hp * a.hd;
+  using Consumer = typename std::conditional<kMma, MmaConsumer<T, DP>, SimtConsumer<HP>>::type;
+  Consumer cs;
+  int it = 0;
+  for (int c = j; c < nchunks; c += a.grid) {
+    int b, sub, ci, nsplit;
+    locate(cpre, a.lanes, per_lane, c, b, sub, ci, nsplit);
+    const int g = sub / a.npass, pass = sub - g * a.npass;
+    const int p0 = ci * Kc;
+    const int np = min((nvis[b] + a.bs - 1) / a.bs, p0 + Kc) - p0;
+    const int first = c - ci;  // the pair's chunks are first .. first + nsplit - 1
+    const int pair = b * per_lane + sub;
+    const int h0 = g * rep + pass * a.hp;  // first query head of this pass
+    const int nh = min(a.hp, rep - pass * a.hp);
+    const T* q0 = qg + ((size_t)b * a.H + h0) * a.hd;
+    if constexpr (kMma) {
+      cs.start(a, q0 + (lane >> 2) * a.hd, (lane >> 2) < nh, lane & 3);
+    } else {
+      cs.start(a, q0, nh, lane & (a.T - 1));
     }
-    out[row * hd + d] = from_f<T>(acc / l);
+
+    for (int pi = p0; pi < p0 + np; ++pi) {
+      const int rows = min(a.bs, nvis[b] - pi * a.bs);
+      for (int row0 = 0; row0 < rows; row0 += a.rows, ++it) {
+        const int st = it % a.stages;
+        if (kMma && (it & (kConsumerWarps - 1)) != warp) continue;  // another warp's stage
+        const uint32_t ph = (it / a.stages) & 1;
+        mbar_wait(full + st, ph);
+        const int rv = min(a.rows, rows - row0);  // rows of this box that are visible
+        if constexpr (kMma) {
+          const uint32_t ks = smem_u32(sm + st * lay.stage);
+          cs.box(a, ks, ks + lay.box, rv, lane);
+        } else {
+          const float* ks = reinterpret_cast<const float*>(sm + st * lay.stage);
+          cs.box(a, ks, ks + lay.box / 4, rv, tid);
+        }
+        release(empty + st);
+      }
+    }
+    cs.reduce(a, red_acc, red_ml, warp, lane, nh);
+    consumers_sync();
+
+    // the warps merged in order, per (head, chunk): the output, or a partial
+    const size_t slot = c;
+    for (int idx = tid; idx < nh * C; idx += kConsumers) {
+      const int h = idx / C, ch = idx - h * C;
+      float mm = neg_inf();
+      for (int w = 0; w < kConsumerWarps; ++w) mm = fmaxf(mm, red_ml[(w * a.hp + h) * 2]);
+      float ls = 0.f, av[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) av[i] = 0.f;
+      for (int w = 0; w < kConsumerWarps; ++w) {
+        const float wt = weight(red_ml[(w * a.hp + h) * 2], mm);
+        if (wt == 0.f) continue;  // a warp that saw no slot of this chunk
+        ls += red_ml[(w * a.hp + h) * 2 + 1] * wt;
+        const float* src = red_acc + (w * a.hp + h) * a.hd + ch * V;
+#pragma unroll
+        for (int i = 0; i < V; ++i) av[i] += src[i] * wt;
+      }
+      if (nsplit == 1) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) av[i] /= ls;
+        *reinterpret_cast<uint4*>(out + ((size_t)b * a.H + h0 + h) * a.hd + ch * V) =
+            Chunk<T>::narrow(av);
+      } else {
+        float4* dst = reinterpret_cast<float4*>(part_acc + (slot * a.hp + h) * a.hd + ch * V);
+#pragma unroll
+        for (int i = 0; i < V / 4; ++i)
+          dst[i] = make_float4(av[4 * i], av[4 * i + 1], av[4 * i + 2], av[4 * i + 3]);
+        if (ch == 0) {
+          part_ml[(slot * a.hp + h) * 2] = mm;
+          part_ml[(slot * a.hp + h) * 2 + 1] = ls;
+        }
+      }
+    }
+    consumers_sync();
+    if (nsplit == 1) continue;
+
+    // the last block of the pair merges its partials in chunk order (the
+    // barrier above orders every thread's partial before this fence)
+    if (tid == 0) {
+      __threadfence();
+      const int old = atomicAdd(a.tickets + pair, 1);
+      *flag = old == nsplit - 1;
+      __threadfence();
+    }
+    consumers_sync();
+    if (*flag) {
+      // split k of this pair at slot first + k; loads batched ahead of
+      // their use (the sums stay in split order)
+      const float* ml0 = part_ml + (size_t)first * a.hp * 2;
+      const float* acc0 = part_acc + (size_t)first * a.hp * a.hd;
+      for (int idx = tid; idx < nh * C; idx += kConsumers) {
+        const int h = idx / C, ch = idx - h * C;
+        float mm = neg_inf();
+        for (int k0 = 0; k0 < nsplit; k0 += 8) {
+          float mk[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            mk[u] = k0 + u < nsplit ? __ldcg(ml0 + (size_t)(k0 + u) * a.hp * 2 + h * 2)
+                                    : neg_inf();
+#pragma unroll
+          for (int u = 0; u < 8; ++u) mm = fmaxf(mm, mk[u]);
+        }
+        float ls = 0.f, av[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) av[i] = 0.f;
+        for (int k0 = 0; k0 < nsplit; k0 += 4) {
+          float mk[4], lk[4], ak[4][V];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const bool in = k0 + u < nsplit;
+            const size_t k = in ? k0 + u : 0;
+            mk[u] = in ? __ldcg(ml0 + k * a.hp * 2 + h * 2) : neg_inf();
+            lk[u] = __ldcg(ml0 + k * a.hp * 2 + h * 2 + 1);
+            const float4* src =
+                reinterpret_cast<const float4*>(acc0 + (k * a.hp + h) * a.hd + ch * V);
+#pragma unroll
+            for (int i = 0; i < V / 4; ++i) {
+              const float4 f = __ldcg(src + i);
+              ak[u][4 * i] = f.x;
+              ak[u][4 * i + 1] = f.y;
+              ak[u][4 * i + 2] = f.z;
+              ak[u][4 * i + 3] = f.w;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float wt = weight(mk[u], mm);
+            ls += lk[u] * wt;
+#pragma unroll
+            for (int i = 0; i < V; ++i) av[i] += ak[u][i] * wt;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < V; ++i) av[i] /= ls;
+        *reinterpret_cast<uint4*>(out + ((size_t)b * a.H + h0 + h) * a.hd + ch * V) =
+            Chunk<T>::narrow(av);
+      }
+      if (tid == 0) a.tickets[pair] = 0;
+    }
+    consumers_sync();  // the flag and the reduction buffers are reused
   }
 }
 
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
+
 template <typename T>
-int launch(const void* q, const void* pages_k, const void* pages_v, const int* block_table,
-           const int* lengths, void* part_acc, void* part_ml, void* out, int lanes, int H, int Hk,
-           int hd, int bs, int MB, int tile, float scale, cudaStream_t stream) {
-  const int rep = H / Hk;
-  const int ld = hd + 16 / (int)sizeof(T);
-  const int splits = (MB * bs + tile - 1) / tile;
-  const size_t smem = 2 * (size_t)tile * ld * sizeof(T) + (size_t)rep * hd * sizeof(float) +
-                      (size_t)rep * tile * sizeof(float);
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// a 4-D map over (hd, Hk, bs, nb) of a pool [nb, bs, Hk, hd], boxes of one
+// KV head's `rows` rows of one page, `pitch` >= hd columns wide (columns
+// past hd read as zeros)
+template <typename T>
+int pool_map(CUtensorMap* map, const void* pool, int nb, int bs, int Hk, int hd, int rows,
+             int pitch) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kTmaError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)Hk, (cuuint64_t)bs, (cuuint64_t)nb};
+  const cuuint64_t row = (cuuint64_t)hd * sizeof(T);
+  const cuuint64_t strides[3] = {row, row * Hk, row * Hk * bs};
+  const cuuint32_t box[4] = {(cuuint32_t)pitch, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, map_type<T>(), 4, const_cast<void*>(pool), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTmaError + (int)r;
+}
+
+template <typename T, int HP, int DP>
+int launch(const void* pages_k, const void* pages_v, int nb, const Args& a, cudaStream_t stream) {
+  CUtensorMap mk, mv;
+  if (int e = pool_map<T>(&mk, pages_k, nb, a.bs, a.Hk, a.hd, a.rows, a.pitch)) return e;
+  if (int e = pool_map<T>(&mv, pages_v, nb, a.bs, a.Hk, a.hd, a.rows, a.pitch)) return e;
+  const int smem = Layout(a, sizeof(T)).total + 128;
+  auto kernel = paged_decode_kernel<T, HP, DP>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(Hk, lanes, splits);
-  paged_decode_kernel<T><<<grid, 32 * rep, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pages_k), static_cast<const T*>(pages_v),
-      block_table, lengths, static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-      static_cast<T*>(out), H, Hk, hd, bs, MB, tile, splits, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  merge_kernel<T><<<lanes * H, hd < 128 ? hd : 128, 0, stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml), lengths,
-      static_cast<T*>(out), H, hd, MB * bs, tile, splits);
+  kernel<<<a.grid, kThreads, smem, stream>>>(mk, mv, a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+template <typename T>
+int dispatch(const void* pk, const void* pv, int nb, const Args& a, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    switch (a.hp) {
+      case 1: return launch<T, 1, 0>(pk, pv, nb, a, s);
+      case 2: return launch<T, 2, 0>(pk, pv, nb, a, s);
+      case 4: return launch<T, 4, 0>(pk, pv, nb, a, s);
+      case 8: return launch<T, 8, 0>(pk, pv, nb, a, s);
+    }
+  } else {
+    if (a.hd <= 64) return launch<T, 0, 64>(pk, pv, nb, a, s);
+    if (a.hd <= 128) return launch<T, 0, 128>(pk, pv, nb, a, s);
+    return launch<T, 0, 256>(pk, pv, nb, a, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
-// dtype: 0 = float32, 1 = bfloat16. tile: slots per block, a multiple of
-// bs; with splits = ceil(MB * bs / tile) > 1 the caller passes f32 scratch
-// part_acc [lanes, H, splits, hd] and part_ml [lanes, H, splits, 2]. The
-// caller has checked shapes, dtypes and alignment: H % Hk == 0,
-// H / Hk <= 32, hd % 32 == 0, hd <= 256. Returns the cudaError_t of the
-// launches (0 on success).
+// rows of a box (the largest divisor of bs within kBoxBytes, so a box never
+// reaches past its page), its pitch and the stages of the ring
+inline void geometry(Args* a, int es) {
+  a->pitch = a->hd + 8 <= 256 ? a->hd + 8 : a->hd;
+  const int most = kBoxBytes / (a->pitch * es) > 0 ? kBoxBytes / (a->pitch * es) : 1;
+  int r = 1;
+  for (int d = 1; d <= a->bs && d <= most; ++d)
+    if (a->bs % d == 0) r = d;
+  a->rows = r;
+  a->stages = 2;  // Layout's box does not depend on the stages
+  const int s = kRingBytes / Layout(*a, es).stage;
+  a->stages = s < 2 ? 2 : (s > kMaxStages ? kMaxStages : s);
+}
+
+}  // namespace paged
+
+// The interface version: kernel_ab tells this source from the earlier
+// two-kernel one (a decode kernel, then a merge kernel) by it.
+extern "C" int paged_attention_abi() { return 2; }
+
+namespace paged {
+// the arguments of a call, the pointers aside
+inline Args shape(int lanes, int H, int Hk, int hd, int bs, int MB, int grid, int hp, int es) {
+  Args a{};
+  a.lanes = lanes;
+  a.H = H;
+  a.Hk = Hk;
+  a.hd = hd;
+  a.bs = bs;
+  a.MB = MB;
+  a.grid = grid;
+  a.hp = hp;
+  a.npass = (H / Hk + hp - 1) / hp;
+  geometry(&a, es);
+  int T = 1;  // f32: lanes a row takes, two 16-byte chunks each
+  while (T * 2 < hd / 4) T <<= 1;
+  a.T = T;
+  return a;
+}
+}  // namespace paged
+
+// Dynamic shared memory of one block, in bytes.
+extern "C" int paged_attention_smem(int lanes, int hd, int bs, int hp, int dtype) {
+  const int es = dtype == 0 ? 4 : 2;
+  return paged::Layout(paged::shape(lanes, hp, 1, hd, bs, 1, 1, hp, es), es).total + 128;
+}
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. hp: the query heads a
+// pass, 1, 2, 4 or 8; a GQA group of H / Hk heads takes passes = ceil(H /
+// Hk / hp). part: f32 scratch of (grid + lanes * Hk * passes) * hp * (hd +
+// 2) floats; tickets: int32 [lanes * Hk * passes], zero before the first
+// call (each call leaves them zero). The caller has checked shapes, dtypes
+// and alignment: H % Hk == 0, hd % 8 == 0, hd <= 256, bs <= 256, every
+// pointer 16-byte aligned. Returns the cudaError_t of the launch, or 10000
+// + the CUresult of a refused tensor map (0 on success).
 extern "C" int paged_decode_attention(const void* q, const void* pages_k, const void* pages_v,
-                                      const void* block_table, const void* lengths,
-                                      void* part_acc, void* part_ml, void* out, int lanes, int H,
-                                      int Hk, int hd, int bs, int MB, int tile, float scale,
+                                      const void* block_table, const void* lengths, void* part,
+                                      void* tickets, void* out, int lanes, int H, int Hk, int hd,
+                                      int bs, int MB, int nb, int grid, int hp, float scale,
                                       int dtype, void* stream) {
+  if (hp != 1 && hp != 2 && hp != 4 && hp != 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_table);
-  const int* ln = static_cast<const int*>(lengths);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, pages_k, pages_v, bt, ln, part_acc, part_ml, out, lanes, H,
-                                 Hk, hd, bs, MB, tile, scale, s);
-  if (dtype == 0)
-    return launch<float>(q, pages_k, pages_v, bt, ln, part_acc, part_ml, out, lanes, H, Hk, hd,
-                         bs, MB, tile, scale, s);
+  const int es = dtype == 0 ? 4 : 2;
+  paged::Args a = paged::shape(lanes, H, Hk, hd, bs, MB, grid, hp, es);
+  a.q = q;
+  a.out = out;
+  a.table = static_cast<const int*>(block_table);
+  a.lengths = static_cast<const int*>(lengths);
+  a.part = static_cast<float*>(part);
+  a.tickets = static_cast<int*>(tickets);
+  a.scale2 = scale * paged::kLog2e;
+  if (dtype == 1) return paged::dispatch<__nv_bfloat16>(pages_k, pages_v, nb, a, s);
+  if (dtype == 2) return paged::dispatch<__half>(pages_k, pages_v, nb, a, s);
+  if (dtype == 0) return paged::dispatch<float>(pages_k, pages_v, nb, a, s);
   return (int)cudaErrorInvalidValue;
 }

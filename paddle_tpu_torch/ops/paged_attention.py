@@ -7,6 +7,14 @@ composed path. On a CPU tensor it runs :func:`paged_decode_attention_ref`,
 the reference's composed semantics (gather the lane's pages through its
 block-table row, then ``masked_attend``), which the CPU tests hold against
 the reference package.
+
+The kernel is one launch with a grid fixed by the shapes (:func:`grid_size`):
+each (lane, KV head, pass) pair's visible pages are cut into chunks of at
+most Kc pages, Kc the fewest that fit the chunks to the grid, one chunk a
+block; a pair cut into several chunks is merged, in chunk order, by the
+block that finishes it last. :func:`split_schedule` and
+:func:`paged_decode_attention_split` repeat that schedule and merge on the
+CPU, so the tests hold them against the plain version and the reference.
 """
 
 from __future__ import annotations
@@ -19,12 +27,14 @@ import torch
 from ..models.llama import masked_attend
 from . import _build
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
+__all__ = ["grid_size", "heads_per_pass", "paged_decode_attention",
+           "paged_decode_attention_ref", "paged_decode_attention_split", "split_schedule"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_BUDGET = 40 * 1024   # shared memory a block aims for
-_SMEM_MAX = 227 * 1024     # what a Hopper block may opt into
-_TILE_TARGET = 64          # KV slots per block
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+BLOCKS_PER_SM = 2          # the grid: this many blocks an SM, at most one a work item
+_MAX_HEADS_PER_PASS = 8    # query heads a pass of the kernel takes
+_MAX_PAGE = 256            # slots of a page (a TMA box dimension)
+_MAX_HEAD_DIM = 256
 
 
 def paged_decode_attention_ref(q, pages_k, pages_v, block_table, lengths):
@@ -41,33 +51,123 @@ def paged_decode_attention_ref(q, pages_k, pages_v, block_table, lengths):
     return masked_attend(q, kc, vc, visible)
 
 
+def heads_per_pass(H: int, Hk: int) -> int:
+    """Query heads one pass of the kernel takes: the GQA group's H / Hk
+    rounded up to a power of two, at most 8; a larger group takes
+    ceil(H / Hk / 8) passes, each a work item of its own."""
+    rep, hp = H // Hk, 1
+    while hp < rep and hp < _MAX_HEADS_PER_PASS:
+        hp *= 2
+    return hp
+
+
+def grid_size(lanes: int, H: int, Hk: int, mb: int, sms: int) -> int:
+    """Blocks of one launch, from the shapes alone (so a CUDA graph can
+    hold the call): BLOCKS_PER_SM an SM, at most one per work item the
+    largest lengths could give."""
+    passes = -(-(H // Hk) // heads_per_pass(H, Hk))
+    return max(1, min(BLOCKS_PER_SM * sms, lanes * Hk * passes * mb))
+
+
+def split_schedule(lengths, bs: int, mb: int, H: int, Hk: int, grid: int) -> list:
+    """The kernel's schedule, as the kernel computes it from ``lengths``.
+    Each (lane, KV head, pass) pair's visible pages are cut into chunks of
+    at most Kc pages, Kc the fewest that make the chunks fit the grid (one
+    chunk a block; pairs beyond the grid get whole-pair chunks and the
+    blocks loop). Chunks are numbered by lane, pair, then page, and block
+    j takes chunks j, j + grid, ... Returns one dict a chunk, in chunk
+    order: ``chunk``, ``block``, ``lane``, ``kv_head``, ``pass``, ``pair``
+    (lane * Hk * passes + kv_head * passes + pass), ``pages`` (first, end)
+    within the lane's visible pages, ``first`` (the pair's first chunk, so
+    split k of a pair is chunk first + k) and ``splits`` (its chunks)."""
+    cap = mb * bs
+    passes = -(-(H // Hk) // heads_per_pass(H, Hk))
+    per_lane = Hk * passes
+    npages = [-(-(min(max(int(n), 0), cap - 1) + 1) // bs) for n in lengths]
+    lo, hi = 1, max(npages)
+    while lo < hi:
+        kc = (lo + hi) // 2
+        if per_lane * sum(-(-p // kc) for p in npages) <= grid:
+            hi = kc
+        else:
+            lo = kc + 1
+    chunks = []
+    for b, p in enumerate(npages):
+        cpp = -(-p // lo)
+        for sub in range(per_lane):
+            first = len(chunks)
+            for ci in range(cpp):
+                c = len(chunks)
+                chunks.append({"chunk": c, "block": c % grid, "lane": b,
+                               "kv_head": sub // passes, "pass": sub % passes,
+                               "pair": b * per_lane + sub,
+                               "pages": (ci * lo, min(p, (ci + 1) * lo)), "first": first,
+                               "splits": cpp})
+    return chunks
+
+
+def paged_decode_attention_split(q, pages_k, pages_v, block_table, lengths, grid: int):
+    """The kernel's arithmetic on the CPU: each chunk of
+    :func:`split_schedule` leaves (max, sum, f32 accumulator) per query
+    head over its pages, and each (lane, KV head, pass) merges its chunks
+    in split order. Same arguments and result as
+    :func:`paged_decode_attention_ref`."""
+    lanes, H, hd = q.shape
+    _, bs, Hk, _ = pages_k.shape
+    mb = block_table.shape[1]
+    rep, hp = H // Hk, heads_per_pass(H, Hk)
+    scale = 1.0 / math.sqrt(hd)
+    segs = split_schedule(lengths.tolist(), bs, mb, H, Hk, grid)
+    nvis = [min(max(int(n), 0), mb * bs - 1) + 1 for n in lengths.tolist()]
+    parts: dict = {}
+    for s in segs:
+        b, g, c = s["lane"], s["kv_head"], s["pass"]
+        heads = slice(g * rep + c * hp, min(g * rep + (c + 1) * hp, (g + 1) * rep))
+        pages = block_table[b, s["pages"][0]:s["pages"][1]].long()
+        k = pages_k[pages, :, g].reshape(-1, hd).float()
+        v = pages_v[pages, :, g].reshape(-1, hd).float()
+        n = min(nvis[b] - s["pages"][0] * bs, k.shape[0])    # visible rows of the segment
+        logits = (q[b, heads].float() @ k[:n].T) * scale
+        m = logits.max(-1).values
+        p = torch.exp(logits - m[:, None])
+        parts.setdefault(s["pair"], []).append((m, p.sum(-1), p @ v[:n]))
+    out = torch.empty_like(q)
+    for s in segs:
+        if s["chunk"] != s["first"]:
+            continue
+        b, g, c = s["lane"], s["kv_head"], s["pass"]
+        heads = slice(g * rep + c * hp, min(g * rep + (c + 1) * hp, (g + 1) * rep))
+        ms, ls, accs = zip(*parts[s["pair"]])                # in split (block) order
+        mm = torch.stack(ms).max(0).values
+        w = [torch.exp(m - mm) for m in ms]
+        total = sum(wi * li for wi, li in zip(w, ls))
+        acc = sum(wi[:, None] * ai for wi, ai in zip(w, accs))
+        out[b, heads] = (acc / total[:, None]).to(q.dtype)
+    return out
+
+
 def _lib():
     lib = _build.load("paged_attention")
     fn = lib.paged_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        lib.paged_attention_smem.argtypes = [ctypes.c_int] * 5
+        lib.paged_attention_smem.restype = ctypes.c_int
+    return lib
 
 
-def tile_slots(bs: int, hd: int, rep: int, esize: int) -> int:
-    """KV slots one block attends over: whole pages, up to
-    ``_TILE_TARGET`` slots and the shared-memory budget (K and V rows
-    padded by 16 bytes, one score per query head, plus q in f32)."""
-    per_slot = 2 * (hd * esize + 16) + 4 * rep
-    fit = (_SMEM_BUDGET - 4 * rep * hd) // per_slot
-    return max(1, min(_TILE_TARGET, fit) // bs) * bs
-
-
-def smem_bytes(tile: int, hd: int, rep: int, esize: int) -> int:
-    """Dynamic shared memory of one block (csrc/paged_attention.cu)."""
-    return 2 * tile * (hd * esize + 16) + 4 * rep * hd + 4 * rep * tile
+def smem_bytes(lanes: int, H: int, Hk: int, hd: int, bs: int, dtype) -> int:
+    """Dynamic shared memory of one block of the kernel (built on first
+    use): the page ring, its barriers, two ints a lane and the warps'
+    partial results."""
+    return _lib().paged_attention_smem(lanes, hd, bs, heads_per_pass(H, Hk), _DTYPES[dtype])
 
 
 def _check(q, pages_k, pages_v, block_table, lengths):
     if q.dtype not in _DTYPES:
-        raise TypeError(f"paged_decode_attention takes bf16 or f32 q, got {q.dtype}")
+        raise TypeError(f"paged_decode_attention takes bf16, fp16 or f32 q, got {q.dtype}")
     if pages_k.dtype != q.dtype or pages_v.dtype != q.dtype:
         raise TypeError("paged_decode_attention: pages must have q's dtype")
     if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
@@ -83,19 +183,38 @@ def _check(q, pages_k, pages_v, block_table, lengths):
     if q.dim() != 3 or pages_k.dim() != 4 or pages_k.shape != pages_v.shape:
         raise ValueError("paged_decode_attention: q [lanes, H, hd], pages [nb, bs, Hk, hd]")
     lanes, H, hd = q.shape
-    _, _, Hk, phd = pages_k.shape
-    if phd != hd or H % Hk or H // Hk > 32:
+    _, bs, Hk, phd = pages_k.shape
+    if phd != hd or H % Hk:
         raise ValueError(f"paged_decode_attention: H={H}, Hk={Hk}, hd={hd}/{phd} "
-                         "need H % Hk == 0, H // Hk <= 32 and equal head dims")
-    if hd % 32 or hd > 256:
-        raise ValueError(f"paged_decode_attention: hd={hd} must be a multiple of 32, <= 256")
+                         "need H % Hk == 0 and equal head dims")
+    if hd % 8 or hd > _MAX_HEAD_DIM:
+        raise ValueError(f"paged_decode_attention: hd={hd} must be a multiple of 8, "
+                         f"<= {_MAX_HEAD_DIM}")
+    if bs > _MAX_PAGE:
+        raise ValueError(f"paged_decode_attention: pages of {bs} slots; the kernel takes "
+                         f"up to {_MAX_PAGE}")
     if block_table.dim() != 2 or block_table.shape[0] != lanes or lengths.shape != (lanes,):
         raise ValueError("paged_decode_attention: block_table [lanes, MB], lengths [lanes]")
-    bs, rep = pages_k.shape[1], H // Hk
-    if smem_bytes(tile_slots(bs, hd, rep, q.element_size()), hd, rep,
-                  q.element_size()) > _SMEM_MAX:
-        raise ValueError(f"paged_decode_attention: a page of {bs} slots at hd={hd} "
-                         "does not fit one block's shared memory")
+
+
+_scratch: dict = {}
+
+
+def _scratch_for(device, lanes, H, Hk, hd, grid):
+    """(partials, tickets) of one shape, allocated once a (device, shape)
+    and kept: the kernel leaves the tickets zero after every call. Calls of
+    one shape on one device share them, so they must not run concurrently
+    on two streams."""
+    key = (device.index, lanes, H, Hk, hd, grid)
+    got = _scratch.get(key)
+    if got is None:
+        hp = heads_per_pass(H, Hk)
+        pairs = lanes * Hk * -(-(H // Hk) // hp)
+        got = (torch.empty(((grid + pairs) * hp * (hd + 2),), dtype=torch.float32,
+                           device=device),
+               torch.zeros((pairs,), dtype=torch.int32, device=device))
+        _scratch[key] = got
+    return got
 
 
 def paged_decode_attention(q, pages_k, pages_v, block_table, lengths):
@@ -108,25 +227,30 @@ def paged_decode_attention(q, pages_k, pages_v, block_table, lengths):
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
     _check(q, pages_k, pages_v, block_table, lengths)
     lanes, H, hd = q.shape
-    _, bs, Hk, _ = pages_k.shape
+    nb, bs, Hk, _ = pages_k.shape
     mb = block_table.shape[1]
-    tile = tile_slots(bs, hd, H // Hk, q.element_size())
-    splits = -(-mb * bs // tile)
+    grid = grid_size(lanes, H, Hk, mb, _sm_count(q.device))
+    part, tickets = _scratch_for(q.device, lanes, H, Hk, hd, grid)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if splits > 1:  # per-tile partial results, merged by a second kernel
-        part_acc = torch.empty((lanes, H, splits, hd), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((lanes, H, splits, 2), dtype=torch.float32, device=q.device)
-    rc = _lib()(q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-                block_table.data_ptr(), lengths.data_ptr(),
-                None if part_acc is None else part_acc.data_ptr(),
-                None if part_ml is None else part_ml.data_ptr(), out.data_ptr(),
-                lanes, H, Hk, hd, bs, mb, tile, 1.0 / math.sqrt(hd),
-                _DTYPES[q.dtype], _build.launch_stream(q.device))
+    rc = _lib().paged_decode_attention(
+        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(), block_table.data_ptr(),
+        lengths.data_ptr(), part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+        lanes, H, Hk, hd, bs, mb, nb, grid, heads_per_pass(H, Hk), 1.0 / math.sqrt(hd),
+        _DTYPES[q.dtype], _build.launch_stream(q.device))
     if rc != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"paged_decode_attention kernel launch failed: error {rc}")
     paged_decode_attention.launches += 1
     return out
+
+
+_sms: dict = {}
+
+
+def _sm_count(device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
 
 
 #: kernel launches since the last reset (the CPU path never counts)

@@ -1,11 +1,27 @@
-"""Compare variants of ``csrc/flash_attention.cu`` or of
-``csrc/quant_matmul.cu`` on one GPU, in one run.
+"""Compare variants of ``csrc/flash_attention.cu``, ``csrc/quant_matmul.cu``
+or ``csrc/paged_attention.cu`` on one GPU, in one run.
 
 Usage, from the root of a checkout on a machine with a card::
 
     python -m paddle_tpu_torch.tools.kernel_ab VARIANT.cu [VARIANT.cu ...]
     python -m paddle_tpu_torch.tools.kernel_ab --f32 VARIANT.cu [VARIANT.cu ...]
     python -m paddle_tpu_torch.tools.kernel_ab --quant [--no-check] VARIANT.cu [...]
+    python -m paddle_tpu_torch.tools.kernel_ab --paged VARIANT.cu [VARIANT.cu ...]
+
+The ``--paged`` form takes copies of ``csrc/paged_attention.cu``: the
+current interface (one launch; it exports ``paged_attention_abi``) or the
+first one (a decode kernel and a merge kernel over per-call scratch,
+called as that source's wrapper called it; ``git show <commit>:<path>``
+gives one).
+Each runs in a child process, in the order given (the same source may be
+named twice, e.g. parent, new, new, parent): held against the plain
+version at chip_smoke.py's three timed cases (PAGED_TIMED: ragged, full
+and skewed lengths at the serving shape, bf16), two calls bit for bit,
+then timed at each case with chip_smoke.py's CUDA-graph timing. SDPA over
+the gathered window is timed at each case before and after the variants.
+``VARIANT.cu@N`` runs a copy with N blocks an SM (the wrapper's
+``BLOCKS_PER_SM``); ``--paged --no-check`` times copies that skip part of
+the work without the check.
 
 The ``--f32`` form takes copies of ``csrc/flash_attention.cu`` and holds
 each on flash's f32 route at chip_smoke.py phase 5's f32 case (B 1, S
@@ -260,8 +276,85 @@ def run_quant_variant(lib: str, check: bool = True):
           f"fwd_ms {fwd:.5f} dx_ms {dx:.5f}", flush=True)
 
 
+def _legacy_paged(lib):
+    """``kern(q, pk, pv, table, ln)`` over a library of the first interface:
+    its tile rule (whole pages, up to 64 slots and 40 KB of shared memory)
+    and its f32 merge scratch allocated per call, as its wrapper did."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+
+    fn = lib.paged_decode_attention
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def kern(q, pk, pv, table, ln):
+        lanes, H, hd = q.shape
+        _, bs, Hk, _ = pk.shape
+        mb = table.shape[1]
+        rep, es = H // Hk, q.element_size()
+        fit = (40 * 1024 - 4 * rep * hd) // (2 * (hd * es + 16) + 4 * rep)
+        tile = max(1, min(64, fit) // bs) * bs
+        splits = -(-mb * bs // tile)
+        out = torch.empty_like(q)
+        acc = torch.empty((lanes, H, splits, hd), dtype=torch.float32, device=q.device)
+        ml = torch.empty((lanes, H, splits, 2), dtype=torch.float32, device=q.device)
+        rc = fn(q.data_ptr(), pk.data_ptr(), pv.data_ptr(), table.data_ptr(), ln.data_ptr(),
+                acc.data_ptr(), ml.data_ptr(), out.data_ptr(), lanes, H, Hk, hd, bs, mb, tile,
+                1.0 / math.sqrt(hd), 1 if q.dtype == torch.bfloat16 else 0,
+                _build.launch_stream(q.device))
+        if rc:
+            raise RuntimeError(f"legacy paged kernel: error {rc}")
+        return out
+
+    return kern
+
+
+def run_paged_variant(lib: str, check: bool = True, per_sm: int = 0):
+    """Check (unless ``check`` is false) and time one paged_attention
+    library (in a child process), with ``per_sm`` blocks an SM if given."""
+    import chip_smoke as cs
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    if per_sm:
+        pa.BLOCKS_PER_SM = per_sm
+    cdll = ctypes.CDLL(lib)
+    if hasattr(cdll, "paged_attention_abi"):
+        _build._loaded["paged_attention"] = cdll
+        kern = pa.paged_decode_attention
+    else:
+        kern = _legacy_paged(cdll)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    line = []
+    for label, lengths in cs.PAGED_TIMED:
+        q, pk, pv, table, ln = cs.attention_inputs(gen, lengths, 1)
+        same = torch.equal(kern(q[0], pk[0], pv[0], table, ln), kern(q[0], pk[0], pv[0], table, ln))
+        r = cs.time_paged(gen, label, lengths, kern, yardsticks=False, hold=check)
+        line.append(f"{label} {r['ms']:.5f} ms (err {r['max_abs_err']:.3g}, bit_identical {same}, "
+                    f"bound {r['bound_ms']:.5f})")
+    print(f"{Path(lib).name}: " + "; ".join(line), flush=True)
+
+
+def paged_sdpa_ms(gen) -> str:
+    """SDPA over the gathered window at each PAGED_TIMED case."""
+    import chip_smoke as cs
+
+    return "; ".join(f"{label} {cs.time_paged(gen, label, lengths)['library_ms']:.5f}"
+                     for label, lengths in cs.PAGED_TIMED)
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
+    if argv[:1] == ["--run-paged"]:
+        run_paged_variant(argv[-2], check=argv[1] != "--no-check", per_sm=int(argv[-1]))
+        return 0
     if argv[:1] == ["--run"]:
         run_variant(argv[1])
         return 0
@@ -293,6 +386,34 @@ def main(argv) -> int:
             print(r.stdout.strip() or f"{src}: exit {r.returncode}\n{r.stderr[-800:]}",
                   flush=True)
         print("cublas fwd/dx ms", cublas_ms(gen), flush=True)
+        return 0
+    if argv[:1] == ["--paged"]:
+        flags = ["--no-check"] if argv[1:2] == ["--no-check"] else []
+        variants = [(str(Path(a.split("@")[0]).resolve()), int(a.split("@")[1]) if "@" in a else 0)
+                    for a in argv[1 + len(flags):]]
+        sources = list(dict.fromkeys(src for src, _ in variants))
+        paged_dir = out_dir / "paged"
+        paged_dir.mkdir(exist_ok=True)
+        libs = {}
+        for i, src in enumerate(sources):  # one directory a source: equal stems do not clash
+            d = paged_dir / str(i)
+            d.mkdir(exist_ok=True)
+            libs.update(build([src], d))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        print("sdpa ms", paged_sdpa_ms(gen), flush=True)
+        for a, (src, per_sm) in zip(argv[1 + len(flags):], variants):
+            lib = libs.get(src)
+            if lib is None:
+                print(f"{a}: did not build", flush=True)
+                continue
+            r = subprocess.run(["timeout", "-k", "5", "150", sys.executable, "-m",
+                                "paddle_tpu_torch.tools.kernel_ab", "--run-paged", *flags,
+                                str(lib), str(per_sm)],
+                               capture_output=True, text=True, cwd=str(ROOT))
+            print(f"{a}: " + (r.stdout.strip() or f"exit {r.returncode}\n{r.stderr[-800:]}"),
+                  flush=True)
+        print("sdpa ms", paged_sdpa_ms(gen), flush=True)
         return 0
     f32 = argv[:1] == ["--f32"]
     libs = build(argv[f32:], out_dir)

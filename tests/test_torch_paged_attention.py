@@ -137,25 +137,137 @@ def test_prefill_attend_matches_reference(start, C):
 
 
 @pytest.mark.parametrize("bad, err", [
-    (dict(hd=24), ValueError),                 # not a multiple of 32
+    (dict(hd=20), ValueError),                 # not a multiple of 8
+    (dict(hd=264), ValueError),                # past the kernel's 256
     (dict(hk=3), ValueError),                  # H % Hk != 0
+    (dict(bs=512), ValueError),                # a page past 256 slots
     (dict(table_dtype=torch.int64), TypeError),
-    (dict(q_dtype=torch.float16), TypeError),
+    (dict(lengths_dtype=torch.int64), TypeError),
+    (dict(q_dtype=torch.int8), TypeError),
 ])
 def test_card_checks_reject_what_the_kernel_does_not_take(bad, err):
-    hd, hk = bad.get("hd", 64), bad.get("hk", 2)
+    hd, hk, bs = bad.get("hd", 64), bad.get("hk", 2), bad.get("bs", 4)
     q = torch.zeros((2, 4, hd), dtype=bad.get("q_dtype", torch.bfloat16))
-    pages = torch.zeros((3, 4, hk, hd), dtype=torch.bfloat16)
+    pages = torch.zeros((3, bs, hk, hd), dtype=torch.bfloat16)
     table = torch.zeros((2, 2), dtype=bad.get("table_dtype", torch.int32))
-    lengths = torch.zeros((2,), dtype=torch.int32)
+    lengths = torch.zeros((2,), dtype=bad.get("lengths_dtype", torch.int32))
     with pytest.raises(err):
         port_ops._check(q, pages, pages, table, lengths)
 
 
-@pytest.mark.parametrize("bs,hd,rep,esize", [(16, 128, 4, 2), (4, 64, 2, 4),
-                                             (16, 256, 32, 4), (128, 128, 1, 2)])
-def test_tile_is_whole_pages_within_shared_memory(bs, hd, rep, esize):
-    ts = port_ops.tile_slots(bs, hd, rep, esize)
-    assert ts % bs == 0 and ts >= bs and (ts <= 64 or ts == bs)
-    assert ts == bs or port_ops.smem_bytes(ts, hd, rep, esize) <= 40 * 1024
-    assert port_ops.tile_slots(16, 128, 4, 2) == 64   # Llama-3-8B serving shape
+@pytest.mark.parametrize("dtype,hd", [(torch.float16, 128), (torch.float16, 80),
+                                      (torch.float32, 80), (torch.float32, 96),
+                                      (torch.bfloat16, 96), (torch.float16, 8)])
+def test_card_checks_take_what_the_reference_serves(dtype, hd):
+    """bf16, fp16 and f32 at any head_dim % 8 == 0: the reference's
+    composed path serves them all, so the card takes them too."""
+    q = torch.zeros((2, 8, hd), dtype=dtype)
+    pages = torch.zeros((3, 16, 2, hd), dtype=dtype)
+    port_ops._check(q, pages, pages, torch.zeros((2, 2), dtype=torch.int32),
+                    torch.zeros((2,), dtype=torch.int32))
+
+
+def _composed_reference(q, pk, pv, table, ln):
+    """The reference's composed path: gather_lane_window + masked_attend."""
+    from paddle_tpu.models.llama import masked_attend
+
+    S = table.shape[1] * pk.shape[1]
+    kc = ref_pa.gather_lane_window(jnp.asarray(pk), jnp.asarray(table))
+    vc = ref_pa.gather_lane_window(jnp.asarray(pv), jnp.asarray(table))
+    vis = jnp.arange(S)[None, :] <= jnp.asarray(ln)[:, None]
+    return np.asarray(masked_attend(jnp.asarray(q), kc, vc, vis).astype(jnp.float32))
+
+
+# fp16 on both sides: the same einsums and f32 softmax, rounded to fp16 at
+# the same places (logits, probabilities, output) from f32 sums taken in
+# another order; outputs mix N(0, 1) rows (|out| < 4), so a rounding step
+# of the output (2^-9 at 2-4) and of a probability apart: 4e-3.
+PARITY_TOL = {np.float16: 4e-3, np.float32: 1e-5}
+
+
+@pytest.mark.parametrize("np_dtype,hd", [(np.float16, 128), (np.float16, 80),
+                                         (np.float32, 80), (np.float32, 96),
+                                         (np.float16, 96)])
+def test_plain_matches_reference_in_fp16_and_other_head_dims(np_dtype, hd):
+    """The plain version against the reference's composed path in fp16
+    and at head_dim 80 and 96, which the card now takes."""
+    rng = np.random.RandomState(hd)
+    lengths = [0, 19, 7, MB * BS - 1]
+    lanes, nb = len(lengths), 1 + len(lengths) * MB
+    pk = rng.randn(nb, BS, HK, hd).astype(np_dtype)
+    pv = rng.randn(nb, BS, HK, hd).astype(np_dtype)
+    table = rng.permutation(np.arange(1, nb))[:lanes * MB].reshape(lanes, MB).astype(np.int32)
+    ln = np.asarray(lengths, np.int32)
+    q = rng.randn(lanes, H, hd).astype(np_dtype)
+    want = _composed_reference(q, pk, pv, table, ln)
+    got = port_ops.paged_decode_attention(*(torch.from_numpy(x) for x in (q, pk, pv, table, ln)))
+    assert got.dtype == torch.from_numpy(q).dtype
+    tol = PARITY_TOL[np_dtype]
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+# (lengths, H, Hk): ragged, skewed (one long lane), full, every lane
+# inactive; the last shape has 12 query heads a KV head: two passes
+SCHEDULE_CASES = [([0, 1, 17, 250, 511, 700, 1000, 1023], 32, 8),
+                  ([1023] + [31] * 7, 32, 8),
+                  ([1023] * 8, 32, 8),
+                  ([0] * 8, 32, 8),
+                  ([0, 77, 1023, 5], 24, 2)]
+
+
+@pytest.mark.parametrize("lengths,H,Hk", SCHEDULE_CASES)
+@pytest.mark.parametrize("grid", [264, 37])
+def test_every_visible_page_falls_to_exactly_one_block(lengths, H, Hk, grid):
+    """The kernel's schedule: every visible (lane, KV head, pass, page)
+    in exactly one chunk, one chunk a block where the pairs fit the grid,
+    no chunk longer than Kc pages, Kc the fewest pages that fit, and each
+    pair's chunks consecutive so its merge reads them in order."""
+    bs, mb = 16, 64
+    segs = port_ops.split_schedule(lengths, bs, mb, H, Hk, grid)
+    passes = -(-(H // Hk) // port_ops.heads_per_pass(H, Hk))
+    seen = {}
+    for s in segs:
+        for page in range(*s["pages"]):
+            key = (s["lane"], s["kv_head"], s["pass"], page)
+            seen[key] = seen.get(key, 0) + 1
+    want = {(b, g, c, page) for b, n in enumerate(lengths) for g in range(Hk)
+            for c in range(passes) for page in range(-(-(min(n, mb * bs - 1) + 1) // bs))}
+    assert set(seen) == want and set(seen.values()) == {1}
+    pairs = len(lengths) * Hk * passes
+    blocks = [s["block"] for s in segs]
+    if pairs <= grid:
+        assert len(segs) <= grid and len(set(blocks)) == len(blocks)
+    kc = max(s["pages"][1] - s["pages"][0] for s in segs)
+    npages = [-(-(n + 1) // bs) for n in lengths]
+    assert kc == max(npages) or sum(-(-p // (kc - 1)) for p in npages) * Hk * passes > grid
+    for s in segs:
+        assert s["chunk"] - s["first"] < s["splits"]
+        assert segs[s["first"]]["pair"] == s["pair"]
+
+
+@pytest.mark.parametrize("lengths,H,Hk", SCHEDULE_CASES)
+def test_split_emulation_matches_plain_and_reference(lengths, H, Hk):
+    """The kernel's chunks and their merge in split order, on the CPU in
+    f32, against the plain version and the reference's composed path."""
+    bs, mb, hd = 16, 64, 16
+    rng = np.random.RandomState(len(lengths) + H)
+    lanes, nb = len(lengths), 1 + len(lengths) * mb
+    pk = rng.randn(nb, bs, Hk, hd).astype(np.float32)
+    pv = rng.randn(nb, bs, Hk, hd).astype(np.float32)
+    table = rng.permutation(np.arange(1, nb))[:lanes * mb].reshape(lanes, mb).astype(np.int32)
+    table[[b for b, n in enumerate(lengths) if n == 0]] = 0   # inactive lanes: trash block
+    ln = np.asarray(lengths, np.int32)
+    q = rng.randn(lanes, H, hd).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (q, pk, pv, table, ln)]
+    plain = port_ops.paged_decode_attention_ref(*args)
+    for grid in (264, 37, 1):
+        got = port_ops.paged_decode_attention_split(*args, grid)
+        torch.testing.assert_close(got, plain, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), _composed_reference(q, pk, pv, table, ln),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_grid_depends_on_shapes_only():
+    assert port_ops.grid_size(8, 32, 8, 64, 132) == 264       # Llama-3-8B serving shape
+    assert port_ops.grid_size(1, 4, 4, 2, 132) == 8           # one block a possible page
+    assert port_ops.grid_size(2, 24, 2, 3, 132) == 24         # two passes a KV head
