@@ -12,18 +12,25 @@ Phases, each printing one line of numbers:
    each library the counts of the tensor-core,
    TMA and barrier instructions in its SASS (``cuobjdump -sass``, beside
    nvcc): HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA loads), SYNCS
-   (mbarrier operations). The flash and the quant_matmul libraries must
-   hold HGMMA and UTMALDG and no HMMA, the paged-attention library UTMALDG
-   and HMMA (TMA page ring, mma.sync consumers);
+   (mbarrier operations). The flash library must hold HGMMA and UTMALDG
+   and no HMMA; in the quant_matmul library the weight stream's kernels
+   (``int8_stream_kernel``) HMMA and UTMALDG and no HGMMA, the tensor-core
+   kernels (``int8_tc_kernel``) HGMMA and UTMALDG and no HMMA; the
+   paged-attention library UTMALDG and HMMA (TMA page ring, mma.sync
+   consumers);
 2. kernels: each kernel against its plain PyTorch version at serving
    shapes in bf16, with the stated tolerance, and timed (CUDA events,
    after warm-up, cycling through enough buffers to defeat the 50 MB L2)
    beside its bound, the plain version and one PyTorch library call; the
-   int8 weight stream also with f32 activations at M = 8. Paged attention
+   int8 weight stream at M = 1, 8, 16 and 64 a shape, with the decode
+   step's sum (225 calls) at each M, and a second yardstick, the bf16
+   engine's own call (``torch.matmul`` on weights dequantized before the
+   timing, twice the bytes), then with f32 activations at M = 8. Paged attention
    is timed at three length mixes (PAGED_TIMED: ragged, full, skewed) and
    held at more (PAGED_CASES: fp16, f32, head_dim 64/80/96/256, pages of
    8, 32 and 256 slots, a GQA group of 12 heads, one of 1, every lane
-   inactive) with every hidden slot poisoned with NaN and +-Inf against
+   inactive; head_dims 20, 100 and 6, whose rows TMA cannot map) with
+   every hidden slot poisoned with NaN and +-Inf against
    the plain version on the same pools poisoned with 100.0; two calls bit
    for bit; one captured CUDA graph replayed after ``lengths`` and the
    block table change in place; one kernel a call in a profiler trace;
@@ -35,7 +42,9 @@ Phases, each printing one line of numbers:
    profiled decode steps give the busy share and the device ms a step by
    kind of kernel (KERNEL_KINDS);
 4. int8 engine: the same trace with ``weight_dtype="int8"``; both kernels
-   must have been launched; greedy agreement with phase 3 is printed;
+   must have been launched; greedy agreement with phase 3 is printed; the
+   profiled decode steps must run the weight stream as one kernel a call
+   (225 a step) and no other kernel of it;
 5. training kernels, before any model is built: flash attention forward
    (out, lse) and backward (dQ, dK, dV, through torch autograd) against
    their plain versions in bf16 at S = 2048 (GQA 4, head_dim 128, causal),
@@ -427,7 +436,11 @@ PAGED_CASES = (("fp16", RAGGED, 32, 8, 128, 16, 64, "float16"),
                ("gqa12", RAGGED, 24, 2, 128, 16, 64, "bfloat16"),
                ("mha_hd64", RAGGED, 8, 8, 64, 16, 64, "bfloat16"),
                ("bs256", [0, 255, 256, 1023], 32, 8, 128, 256, 4, "bfloat16"),
-               ("inactive", [0] * 8, 32, 8, 128, 16, 64, "bfloat16"))
+               ("inactive", [0] * 8, 32, 8, 128, 16, 64, "bfloat16"),
+               # rows that are no multiple of 16 bytes: the copying producer
+               ("hd20", RAGGED, 32, 8, 20, 16, 64, "bfloat16"),
+               ("fp16_hd100_bs8", RAGGED, 32, 8, 100, 8, 128, "float16"),
+               ("f32_hd6", RAGGED, 32, 8, 6, 16, 64, "float32"))
 
 
 def attention_inputs(gen, lengths, layers=4, H=32, Hk=8, hd=128, bs=16, MB=64,
@@ -497,9 +510,9 @@ def hold_paged(label, got, want, dtype) -> float:
 
 
 def check_paged_cases(gen):
-    """PAGED_CASES with poisoned hidden slots; two calls bit for bit; a
-    captured graph replayed after lengths and the table change in place;
-    one kernel a call in a profiler trace."""
+    """PAGED_CASES with poisoned hidden slots, each called twice bit for
+    bit and counted; a captured graph replayed after lengths and the table
+    change in place; one kernel a call in a profiler trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -510,7 +523,12 @@ def check_paged_cases(gen):
         q, pk, pv, table, ln = attention_inputs(gen, lengths, 1, H, Hk, hd, bs, MB, dtype)
         want = pa.paged_decode_attention_ref(q[0], pk[0], pv[0], table, ln)
         pk, pv = poisoned(pk[0], table, ln), poisoned(pv[0], table, ln)
+        before = pa.paged_decode_attention.launches
         got = pa.paged_decode_attention(q[0], pk, pv, table, ln)
+        if not torch.equal(got, pa.paged_decode_attention(q[0], pk, pv, table, ln)):
+            raise AssertionError(f"two paged-attention calls ({label}) differ")
+        if pa.paged_decode_attention.launches != before + 2:
+            raise AssertionError(f"paged attention ({label}) did not launch its kernel")
         errs[label] = hold_paged(label, got, want, dtype)
     say("kernels", kernel="paged_attention", cases=json.dumps(
         {k: float(f"{v:.3g}") for k, v in errs.items()}))
@@ -632,13 +650,23 @@ def check_attention(gen):
     return results["ragged"]
 
 
+# the weight stream's lane counts held and timed a shape: one lane, the
+# serving engine's 8 and a 16-token prefill chunk, and the largest M it takes
+STREAM_M = (1, 8, 16, 64)
+
+
 def check_int8(gen):
+    """The weight stream at each GEMM_SHAPES shape and STREAM_M, held against
+    the plain version and timed beside its bound, the plain version, the
+    dequantize-then-matmul call (``library_ms``) and the bf16 engine's own
+    call on weights dequantized before the timing (``bf16_gemm_ms``); the
+    decode step (225 calls) summed at each M. Returns M = 8's step."""
     import torch
 
     from paddle_tpu_torch.ops import quant_matmul as qm
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-             "bytes": 0.0, "flops": 0.0}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bf16_gemm_ms", "bytes", "flops")
+    steps = {M: dict.fromkeys(keys, 0.0) for M in STREAM_M}
     max_err = 0.0
     for name, K, N, per_step in GEMM_SHAPES:
         n_bufs = max(1, min(8, math.ceil(3 * L2_BYTES / (K * N))))
@@ -646,7 +674,8 @@ def check_int8(gen):
                             dtype=torch.int8) for _ in range(n_bufs)]
         ss = [torch.rand((N,), generator=gen, device="cuda") * 0.02 + 1e-3
               for _ in range(n_bufs)]
-        for M in (1, 8, 16):
+        w16 = [w.to(torch.bfloat16) for w in ws]
+        for M in STREAM_M:
             x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
 
             def kern(i):
@@ -657,6 +686,9 @@ def check_int8(gen):
 
             def library(i):
                 return torch.matmul(x, ws[i].to(torch.bfloat16)) * ss[i]
+
+            def bf16_gemm(i):
+                return torch.matmul(x, w16[i]) * ss[i]
 
             out, ref = kern(0).float(), plain(0).float()
             torch.cuda.synchronize()
@@ -673,22 +705,28 @@ def check_int8(gen):
             ms = device_ms(kern, n_bufs)
             plain_ms = device_ms(plain, n_bufs, iters=5)
             lib_ms = device_ms(library, n_bufs, iters=5)
+            gemm_ms = device_ms(bf16_gemm, n_bufs)
             say("kernels", kernel="int8_matmul", shape=name, M=M, K=K, N=N,
                 max_abs_err=err, rel_err=rel, ms=round(ms, 5), bound_ms=round(b_ms, 5),
-                bound_by=b_by, plain_ms=round(plain_ms, 5), library_ms=round(lib_ms, 5),
+                bound_by=b_by, bound_share=round(b_ms / ms, 4), plain_ms=round(plain_ms, 5),
+                library_ms=round(lib_ms, 5), bf16_gemm_ms=round(gemm_ms, 5),
                 eager_ms=round(eager_ms(kern, n_bufs), 5), GBps=round(nbytes / ms / 1e6, 1))
-            if M == 8:  # the decode step at 8 lanes
-                for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                                 ("library_ms", lib_ms), ("bytes", nbytes),
-                                 ("flops", flops)):
-                    total[key] += per_step * val
-        del ws, ss
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                             ("library_ms", lib_ms), ("bf16_gemm_ms", gemm_ms),
+                             ("bytes", nbytes), ("flops", flops)):
+                steps[M][key] += per_step * val
+        del ws, ss, w16
         torch.cuda.empty_cache()
+    for M, tot in steps.items():
+        say("kernels", kernel="int8_matmul", case=f"decode_step_M{M}_225_launches",
+            ms=round(tot["ms"], 5), bound_ms=round(tot["bound_ms"], 5),
+            bound_share=round(tot["bound_ms"] / tot["ms"], 4),
+            plain_ms=round(tot["plain_ms"], 5), library_ms=round(tot["library_ms"], 5),
+            bf16_gemm_ms=round(tot["bf16_gemm_ms"], 5),
+            ratio_to_M8=round(tot["ms"] / steps[8]["ms"], 4))
+    total = steps[8]
     total["max_abs_err"] = max_err
     total["bound_by"] = bound_ms(total["bytes"], total["flops"])[1]
-    say("kernels", kernel="int8_matmul", case="decode_step_M8_225_launches",
-        ms=round(total["ms"], 5), bound_ms=round(total["bound_ms"], 5),
-        plain_ms=round(total["plain_ms"], 5), library_ms=round(total["library_ms"], 5))
     check_int8_f32_decode(gen)
     return total
 
@@ -787,7 +825,8 @@ KERNEL_KINDS = (("paged attention (port)", ("paged_decode_kernel",)),
                 ("flash attention (port)", ("flash_", "split_kernel")),
                 ("ring merge (port)", ("ring_merge_kernel",)),
                 ("rms norm (port)", ("rms_fwd_kernel", "rms_bwd_dx_kernel")),
-                ("int8 forward (port)", ("int8_tc_kernel<false", "int8_gemm_kernel")),
+                ("int8 weight stream (port)", ("int8_stream_kernel",)),
+                ("int8 forward (port)", ("int8_tc_kernel<false",)),
                 ("int8 dX (port)", ("int8_tc_kernel<true", "prepass_kernel")),
                 ("swiglu (port)", ("swiglu_fwd_kernel", "swiglu_bwd_kernel")),
                 ("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -810,9 +849,9 @@ def by_kind(per_kernel: dict) -> dict:
     return {k: round(v, 3) for k, v in sorted(out.items(), key=lambda kv: -kv[1])}
 
 
-def kernel_times(prof) -> tuple[dict, int]:
+def kernel_times(prof, counts: dict | None = None) -> tuple[dict, int]:
     """({kernel name: device microseconds}, device operations) of a
-    torch.profiler run."""
+    torch.profiler run; ``counts``, where given, gets each name's launches."""
     import torch
 
     per_kernel: dict = {}
@@ -821,6 +860,8 @@ def kernel_times(prof) -> tuple[dict, int]:
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
             launches += 1
+            if counts is not None:
+                counts[ev.name] = counts.get(ev.name, 0) + 1
     return per_kernel, launches
 
 
@@ -829,7 +870,8 @@ def profile_decode(engine, vocab: int, seed: int, phase: str):
     prefill), 3 warm-up steps, then 5 steps under torch.profiler. Busy time
     is the sum of the kernels' device intervals (one stream, so they do not
     overlap); the rest of the wall time the card waits for the host. Also
-    the device ms a decode step by KERNEL_KINDS kind."""
+    the device ms a decode step by KERNEL_KINDS kind, and returns the
+    launches a decode step of each kernel name."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -849,7 +891,8 @@ def profile_decode(engine, vocab: int, seed: int, phase: str):
         wall = time.perf_counter() - t0
     for r in reqs:
         engine.cancel(r)
-    per_kernel, launches = kernel_times(prof)
+    counts: dict = {}
+    per_kernel, launches = kernel_times(prof, counts)
     busy = sum(per_kernel.values()) / 1e6
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
     say(phase, profiled_decode_steps=steps, step_ms=round(1e3 * wall / steps, 3),
@@ -860,6 +903,7 @@ def profile_decode(engine, vocab: int, seed: int, phase: str):
         {k: round(v / steps, 4) for k, v in by_kind(per_kernel).items()}))
     for name, us in top:
         print(f"  {phase} top kernel: {us / 1e3 / steps:.4f} ms/step {name[:90]}", flush=True)
+    return {name: n / steps for name, n in counts.items()}
 
 
 def teacher_forced_check(engine, prompts):
@@ -2351,6 +2395,33 @@ def sass_counts(names) -> dict | None:
         return dict(zip(names, pool.map(count, names)))
 
 
+def check_quant_sass():
+    """SASS counts of each kernel of the quant_matmul library: the weight
+    stream's (``int8_stream_kernel``) must hold HMMA (mma.sync) and UTMALDG
+    and no HGMMA, the tensor-core kernel's (``int8_tc_kernel``) HGMMA and
+    UTMALDG and no HMMA."""
+    from paddle_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(_build.library_path("quant_matmul"))],
+                         capture_output=True, text=True, timeout=300, check=True).stdout
+    pattern = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+    found = {"int8_stream_kernel": [], "int8_tc_kernel": []}
+    for part in out.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        for kernel in found:
+            if kernel in name:
+                ops = pattern.findall(part)
+                found[kernel].append({op: ops.count(op) for op in SASS_OPS})
+    for kernel, rows in found.items():
+        say("setup", sass_kernel=kernel, instantiations=len(rows),
+            **{op: sum(r[op] for r in rows) for op in SASS_OPS})
+        want, none = ("HMMA", "HGMMA") if kernel == "int8_stream_kernel" else ("HGMMA", "HMMA")
+        if not rows or not all(r[want] > 0 and r["UTMALDG"] > 0 and r[none] == 0 for r in rows):
+            raise AssertionError(f"{kernel}: each instantiation must hold {want} and UTMALDG "
+                                 f"and no {none}: {rows}")
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2404,9 +2475,11 @@ def main(argv=None) -> int:
         say("setup", sass="no cuobjdump beside nvcc: no SASS counts")
     for name, counts in (sass or {}).items():
         say("setup", sass=name, **counts)
-        if name in ("flash_attention", "quant_matmul") and not (
+        if name == "flash_attention" and not (
                 counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["HMMA"] == 0):
             raise AssertionError(f"the {name} kernels are not wgmma fed by TMA: {counts}")
+        if name == "quant_matmul":
+            check_quant_sass()
         if name == "paged_attention" and not (counts["UTMALDG"] > 0 and counts["HMMA"] > 0):
             raise AssertionError(f"the paged-attention kernel is not mma.sync fed by TMA: "
                                  f"{counts}")
@@ -2468,7 +2541,15 @@ def main(argv=None) -> int:
     if int8_matmul_large_m.launches:
         raise AssertionError("the int8 engine launched the large-M GEMM: serving runs "
                              "M <= 64 on the weight stream")
-    profile_decode(engine, cfg.vocab_size, args.seed, "int8-engine")
+    per_step = profile_decode(engine, cfg.vocab_size, args.seed, "int8-engine")
+    stream = sum(n for k, n in per_step.items() if "int8_stream_kernel" in k)
+    other = sorted(k for k in per_step if "finalize" in k or "int8_gemm_kernel" in k)
+    want = 7 * cfg.num_hidden_layers + 1
+    say("int8-engine", int8_stream_kernels_per_decode_step=stream, want=want,
+        other_stream_kernels=json.dumps(other))
+    if stream != want or other:
+        raise AssertionError(f"a decode step ran {stream} weight-stream kernels (want {want}, "
+                             f"one a projection) and {other}")
     del engine, model
     torch.cuda.empty_cache()
     lap("4")
@@ -2531,8 +2612,11 @@ def main(argv=None) -> int:
          "launches": gemm_launches, "max_abs_err": gemm["max_abs_err"],
          "ms": gemm["ms"], "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
          "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"],
+         "bf16_gemm_ms": gemm["bf16_gemm_ms"],
          "at": "sum over one Llama-3-8B decode step at M=8 (7 projections x 32 "
-               "layers + lm_head); launches from the int8 engine run"},
+               "layers + lm_head), bf16; library_ms dequantizes then multiplies, "
+               "bf16_gemm_ms multiplies weights dequantized before the timing (the bf16 "
+               "engine's call); launches from the int8 engine run"},
     ]
     for name, source, replaces, nums in (
             ("flash_attention_fwd", "flash_attention.cu", "flash_kernel.py:173", flash_fwd),

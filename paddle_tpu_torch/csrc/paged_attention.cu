@@ -10,8 +10,8 @@
 // 1/sqrt(hd), slots 0..lengths[lane] visible, query head h reads KV head
 // h / (H/Hk), softmax in f32, output in q's dtype; an inactive lane (length
 // 0 on trash block 0) sees exactly one slot. The bundled TPU kernel applies
-// no 1/sqrt(hd) scale; this kernel does. bf16, fp16 and f32, any head_dim %
-// 8 == 0 up to 256, any page size up to 256 slots, any H % Hk == 0.
+// no 1/sqrt(hd) scale; this kernel does. bf16, fp16 and f32, any head_dim
+// up to 256, any page size up to 256 slots, any H % Hk == 0.
 //
 // Bound on the H100: bytes. Each visible K and V row is read once (lanes x
 // visible slots x Hk x hd x 2 tensors x 2 B in bf16) against 3.35 TB/s; the
@@ -38,6 +38,15 @@
 //   a power of two keep ldmatrix free of bank conflicts. One producer warp
 //   (one thread issues, the warp reads the table 32 pages at a time) keeps
 //   up to 64 KB in flight, through full/empty mbarriers with bounded waits.
+//   A pool whose rows are not a multiple of 16 bytes (hd % 8 != 0 in
+//   bf16/fp16, hd % 4 != 0 in f32) has no tensor map: there the whole
+//   producer warp copies each box with plain loads, at the widest unit
+//   (8, 4 or 2 bytes) that divides a row, into the same ring slot at a
+//   pitch of round_up(hd, 8) + 8, zero-fills the columns past hd and
+//   arrives on the stage's full barrier, one arrival a lane (the kernel's
+//   kTma = false instantiations, so the TMA ones hold no copy code). A
+//   partial's row is then round_up(hd, 8) floats, and q and out rows that
+//   are not whole 16-byte chunks are read and written element by element.
 // - Consumers, bf16 and fp16: tensor cores (mma.sync m16n8k16). Each of the
 //   four consumer warps takes every fourth stage and keeps its own online
 //   softmax: S = Q K^T for the GQA group's query heads (up to 8 a pass, the
@@ -80,11 +89,16 @@ struct Args {
   void* out;              // [lanes, H, hd]
   const int* table;       // [lanes, MB]
   const int* lengths;     // [lanes]
-  float* part;            // [slots, hp, hd] accumulators, then [slots, hp, 2] (max, sum)
+  float* part;            // [slots, hp, hdp] accumulators, then [slots, hp, 2] (max, sum)
   int* tickets;           // [pairs], zero between calls
+  const void* pool_k;     // [nb, bs, Hk, hd]: read directly where tma is 0 (kTma false)
+  const void* pool_v;
   int lanes, H, Hk, hd, bs, MB, grid;
+  int hdp;                // hd rounded up to 8: a partial row's floats
+  int tma;                // 1: TMA boxes; 0: rows not 16-byte multiples, the warp copies
   int rows;               // rows of a box, a divisor of bs
-  int pitch;              // elements of a row in shared memory: hd + 8 (hd up to 248)
+  int pitch;              // elements of a row in shared memory: hd + 8 (TMA; hd up to
+                          // 248), round_up(hd, 8) + 8 (copies)
   int stages;             // boxes of K and V in the ring
   int hp;                 // query heads a pass: a power of two up to 8
   int npass;              // passes over a GQA group of H / Hk heads
@@ -102,8 +116,8 @@ struct Layout {
     stage = 2 * box;                                   // K box, then V box
     bars = a.stages * stage;                           // full[stages], empty[stages]
     prefix = bars + 2 * a.stages * 8;                  // chunks before lane [lanes + 1], slots [lanes]
-    red = (prefix + 4 * (2 * a.lanes + 1) + 15) / 16 * 16;  // [warps][hp][hd], [warps][hp][2]
-    flag = red + kConsumerWarps * a.hp * (a.hd + 2) * 4;
+    red = (prefix + 4 * (2 * a.lanes + 1) + 15) / 16 * 16;  // [warps][hp][hdp], [warps][hp][2]
+    flag = red + kConsumerWarps * a.hp * (a.hdp + 2) * 4;
     total = flag + 16;                                 // the ticket's verdict, Kc
   }
 };
@@ -143,6 +157,58 @@ struct Chunk<float> {
 };
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
+
+template <typename T>
+__device__ __forceinline__ T to_type(float v);
+template <>
+__device__ __forceinline__ float to_type<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_type<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half to_type<__half>(float v) { return __float2half_rn(v); }
+
+// V output values from column col of a row: one 16-byte store where the row
+// holds whole chunks, else element by element up to hd
+template <typename T>
+__device__ __forceinline__ void store_chunk(T* row, int col, int hd, const float* av) {
+  constexpr int V = Chunk<T>::V;
+  if (hd % V == 0) {
+    *reinterpret_cast<uint4*>(row + col) = Chunk<T>::narrow(av);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (col + i < hd) row[col + i] = to_type<T>(av[i]);
+  }
+}
+
+// the warp copies rows [row0, row0 + a.rows) of KV head g of page pk into a
+// ring slot, U bytes a load, zeros past hd (pools that TMA cannot map)
+template <typename U>
+__device__ __forceinline__ void copy_box(unsigned char* dst, const void* pool, const Args& a,
+                                         int es, int pk, int g, int row0, int lane) {
+  const size_t row_stride = (size_t)a.Hk * a.hd * es;
+  const unsigned char* src =
+      static_cast<const unsigned char*>(pool) + ((size_t)pk * a.bs + row0) * row_stride +
+      (size_t)g * a.hd * es;
+  const int data = a.hd * es / (int)sizeof(U), per_row = a.pitch * es / (int)sizeof(U);
+  const int n = a.rows * per_row;
+  for (int i0 = lane; i0 < n; i0 += 4 * 32) {
+    U v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + 32 * u, r = i / per_row, c = i - r * per_row;
+      v[u] = U{};
+      if (i < n && c < data) v[u] = reinterpret_cast<const U*>(src + r * row_stride)[c];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + 32 * u;
+      if (i < n) reinterpret_cast<U*>(dst)[i] = v[u];
+    }
+  }
+}
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
@@ -233,12 +299,19 @@ struct MmaConsumer {
   float m, l;                         // row g: running max (log2 units), this thread's sum
 
   __device__ __forceinline__ void start(const Args& a, const T* qrow, bool head_ok, int t) {
+    const uint16_t* q16 = reinterpret_cast<const uint16_t*>(qrow);
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int col = kk * 16 + hf * 8 + 2 * t;
-        qa[kk][hf] = head_ok && col < a.hd ? *reinterpret_cast<const uint32_t*>(qrow + col) : 0u;
+        if (a.hd % 2 == 0) {  // a pair a load; an odd head dim's rows are 2-byte aligned
+          qa[kk][hf] = head_ok && col < a.hd ? *reinterpret_cast<const uint32_t*>(q16 + col) : 0u;
+        } else {
+          const uint32_t lo = head_ok && col < a.hd ? q16[col] : 0u;
+          const uint32_t hi = head_ok && col + 1 < a.hd ? q16[col + 1] : 0u;
+          qa[kk][hf] = lo | hi << 16;
+        }
       }
     }
 #pragma unroll
@@ -320,11 +393,11 @@ struct MmaConsumer {
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     if (g < nh) {
-      float* dst = red_acc + (warp * a.hp + g) * a.hd;
+      float* dst = red_acc + (warp * a.hp + g) * a.hdp;
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
         const int col = nt * 8 + 2 * t;
-        if (col < a.hd) {
+        if (col < a.hdp) {
           dst[col] = o[nt][0];
           dst[col + 1] = o[nt][1];
         }
@@ -343,15 +416,20 @@ struct SimtConsumer {
   float qv[HP][kE], acc[HP][kE], m[HP], l[HP];
 
   __device__ __forceinline__ void start(const Args& a, const float* q0, int nh, int t) {
-    const int TL = a.T, C = a.hd / 4;
+    const int TL = a.T, C = (a.hd + 3) / 4;
 #pragma unroll
     for (int h = 0; h < HP; ++h) {
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         const int ch = t + k * TL;
         if (h < nh && ch < C) {
-          Chunk<float>::widen(*reinterpret_cast<const uint4*>(q0 + h * a.hd + ch * 4),
-                              &qv[h][k * 4]);
+          const float* src = q0 + h * a.hd + ch * 4;
+          if (a.hd % 4 == 0) {
+            Chunk<float>::widen(*reinterpret_cast<const uint4*>(src), &qv[h][k * 4]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) qv[h][k * 4 + i] = ch * 4 + i < a.hd ? src[i] : 0.f;
+          }
 #pragma unroll
           for (int i = 0; i < 4; ++i) qv[h][k * 4 + i] *= a.scale2;
         } else {
@@ -369,7 +447,7 @@ struct SimtConsumer {
   __device__ __forceinline__ void box(const Args& a, const float* ks, const float* vs, int rv,
                                       int tid) {
     const int TL = a.T, t = tid & (TL - 1), sg = tid / TL, SG = kConsumers / TL;
-    const int C = a.hd / 4;
+    const int C = (a.hd + 3) / 4;
     // two rows a slot group at a time; the loop is uniform over the warp (shuffles)
     for (int s0 = 0; s0 < rv; s0 += 2 * SG) {
       const int sa = s0 + sg, sb = sa + SG;
@@ -423,7 +501,7 @@ struct SimtConsumer {
   // the slot groups of a warp merged by shuffles, then into red
   __device__ __forceinline__ void reduce(const Args& a, float* red_acc, float* red_ml, int warp,
                                          int lane, int nh) {
-    const int TL = a.T, t = lane & (TL - 1), C = a.hd / 4;
+    const int TL = a.T, t = lane & (TL - 1), C = (a.hd + 3) / 4;
     for (int o = TL; o < 32; o <<= 1) {
 #pragma unroll
       for (int h = 0; h < HP; ++h) {
@@ -448,7 +526,7 @@ struct SimtConsumer {
         for (int k = 0; k < 2; ++k) {
           const int ch = t + k * TL;
           if (ch < C) {
-            float* dst = red_acc + (warp * a.hp + h) * a.hd + ch * 4;
+            float* dst = red_acc + (warp * a.hp + h) * a.hdp + ch * 4;
 #pragma unroll
             for (int i = 0; i < 4; ++i) dst[i] = acc[h][k * 4 + i];
           }
@@ -462,8 +540,9 @@ struct SimtConsumer {
   }
 };
 
-// HP: SIMT heads a pass (f32); DP: tensor-core columns (bf16, fp16)
-template <typename T, int HP, int DP>
+// HP: SIMT heads a pass (f32); DP: tensor-core columns (bf16, fp16); kTma:
+// the pool's rows are 16-byte multiples (else the producer warp copies)
+template <typename T, int HP, int DP, bool kTma>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv, const Args a) {
@@ -477,7 +556,7 @@ __global__ void __launch_bounds__(kThreads)
   int* cpre = reinterpret_cast<int*>(sm + lay.prefix);  // chunks of a pair, summed over lanes < b
   int* nvis = cpre + a.lanes + 1;                        // visible slots of lane b
   float* red_acc = reinterpret_cast<float*>(sm + lay.red);
-  float* red_ml = red_acc + kConsumerWarps * a.hp * a.hd;
+  float* red_ml = red_acc + kConsumerWarps * a.hp * a.hdp;
   int* flag = reinterpret_cast<int*>(sm + lay.flag);     // the ticket's verdict, then Kc
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -485,12 +564,12 @@ __global__ void __launch_bounds__(kThreads)
   const int per_lane = a.Hk * a.npass;  // pairs (KV head, pass) of a lane
   if (tid == 0) {
     for (int i = 0; i < a.stages; ++i) {
-      mbar_init(full + i, 1);
+      mbar_init(full + i, kTma ? 1 : 32);               // copies: one arrival a lane
       mbar_init(empty + i, kMma ? 1 : kConsumerWarps);  // tensor cores: one warp a stage
     }
     fence_barrier_init();
   }
-  if (tid == kConsumers) {
+  if (tid == kConsumers && kTma) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tk)) : "memory");
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
   }
@@ -570,16 +649,38 @@ __global__ void __launch_bounds__(kThreads)
         for (int k = 0; k < cnt; ++k) {
           const int pk = __shfl_sync(0xffffffffu, phys, k);
           const int rk = __shfl_sync(0xffffffffu, rows, k);
-          if (lane == 0) {
-            for (int row0 = 0; row0 < rk; row0 += a.rows, ++it) {
-              const int st = it % a.stages;
-              const uint32_t ph = (it / a.stages) & 1;
-              mbar_wait(empty + st, ph ^ 1);
-              mbar_expect_tx(full + st, stage_tx);
-              unsigned char* dst = sm + st * lay.stage;
-              tma_load(dst, &tk, full + st, 0, g, row0, pk);
-              tma_load(dst + lay.box, &tv, full + st, 0, g, row0, pk);
+          if constexpr (kTma) {
+            if (lane == 0) {
+              for (int row0 = 0; row0 < rk; row0 += a.rows, ++it) {
+                const int st = it % a.stages;
+                const uint32_t ph = (it / a.stages) & 1;
+                mbar_wait(empty + st, ph ^ 1);
+                mbar_expect_tx(full + st, stage_tx);
+                unsigned char* dst = sm + st * lay.stage;
+                tma_load(dst, &tk, full + st, 0, g, row0, pk);
+                tma_load(dst + lay.box, &tv, full + st, 0, g, row0, pk);
+              }
             }
+            continue;
+          }
+          constexpr int es = (int)sizeof(T);
+          const int rb = a.hd * es;  // bytes of a pool row
+          for (int row0 = 0; row0 < rk; row0 += a.rows, ++it) {
+            const int st = it % a.stages;
+            const uint32_t ph = (it / a.stages) & 1;
+            mbar_wait(empty + st, ph ^ 1);
+            unsigned char* dst = sm + st * lay.stage;
+            if (rb % 8 == 0) {
+              copy_box<uint2>(dst, a.pool_k, a, es, pk, g, row0, lane);
+              copy_box<uint2>(dst + lay.box, a.pool_v, a, es, pk, g, row0, lane);
+            } else if (rb % 4 == 0) {
+              copy_box<uint32_t>(dst, a.pool_k, a, es, pk, g, row0, lane);
+              copy_box<uint32_t>(dst + lay.box, a.pool_v, a, es, pk, g, row0, lane);
+            } else {
+              copy_box<uint16_t>(dst, a.pool_k, a, es, pk, g, row0, lane);
+              copy_box<uint16_t>(dst + lay.box, a.pool_v, a, es, pk, g, row0, lane);
+            }
+            mbar_arrive(full + st);
           }
         }
       }
@@ -591,10 +692,10 @@ __global__ void __launch_bounds__(kThreads)
   const int rep = a.H / a.Hk;
   const T* qg = static_cast<const T*>(a.q);
   T* out = static_cast<T*>(a.out);
-  const int C = a.hd / V;  // 16-byte chunks of an output row
+  const int C = (a.hd + V - 1) / V;  // 16-byte chunks of an output row, the last maybe partial
   const int nslots = a.grid + a.lanes * per_lane;
   float* part_acc = a.part;
-  float* part_ml = a.part + (size_t)nslots * a.hp * a.hd;
+  float* part_ml = a.part + (size_t)nslots * a.hp * a.hdp;
   using Consumer = typename std::conditional<kMma, MmaConsumer<T, DP>, SimtConsumer<HP>>::type;
   Consumer cs;
   int it = 0;
@@ -649,17 +750,16 @@ __global__ void __launch_bounds__(kThreads)
         const float wt = weight(red_ml[(w * a.hp + h) * 2], mm);
         if (wt == 0.f) continue;  // a warp that saw no slot of this chunk
         ls += red_ml[(w * a.hp + h) * 2 + 1] * wt;
-        const float* src = red_acc + (w * a.hp + h) * a.hd + ch * V;
+        const float* src = red_acc + (w * a.hp + h) * a.hdp + ch * V;
 #pragma unroll
         for (int i = 0; i < V; ++i) av[i] += src[i] * wt;
       }
       if (nsplit == 1) {
 #pragma unroll
         for (int i = 0; i < V; ++i) av[i] /= ls;
-        *reinterpret_cast<uint4*>(out + ((size_t)b * a.H + h0 + h) * a.hd + ch * V) =
-            Chunk<T>::narrow(av);
+        store_chunk<T>(out + ((size_t)b * a.H + h0 + h) * a.hd, ch * V, a.hd, av);
       } else {
-        float4* dst = reinterpret_cast<float4*>(part_acc + (slot * a.hp + h) * a.hd + ch * V);
+        float4* dst = reinterpret_cast<float4*>(part_acc + (slot * a.hp + h) * a.hdp + ch * V);
 #pragma unroll
         for (int i = 0; i < V / 4; ++i)
           dst[i] = make_float4(av[4 * i], av[4 * i + 1], av[4 * i + 2], av[4 * i + 3]);
@@ -685,7 +785,7 @@ __global__ void __launch_bounds__(kThreads)
       // split k of this pair at slot first + k; loads batched ahead of
       // their use (the sums stay in split order)
       const float* ml0 = part_ml + (size_t)first * a.hp * 2;
-      const float* acc0 = part_acc + (size_t)first * a.hp * a.hd;
+      const float* acc0 = part_acc + (size_t)first * a.hp * a.hdp;
       for (int idx = tid; idx < nh * C; idx += kConsumers) {
         const int h = idx / C, ch = idx - h * C;
         float mm = neg_inf();
@@ -710,7 +810,7 @@ __global__ void __launch_bounds__(kThreads)
             mk[u] = in ? __ldcg(ml0 + k * a.hp * 2 + h * 2) : neg_inf();
             lk[u] = __ldcg(ml0 + k * a.hp * 2 + h * 2 + 1);
             const float4* src =
-                reinterpret_cast<const float4*>(acc0 + (k * a.hp + h) * a.hd + ch * V);
+                reinterpret_cast<const float4*>(acc0 + (k * a.hp + h) * a.hdp + ch * V);
 #pragma unroll
             for (int i = 0; i < V / 4; ++i) {
               const float4 f = __ldcg(src + i);
@@ -730,8 +830,7 @@ __global__ void __launch_bounds__(kThreads)
         }
 #pragma unroll
         for (int i = 0; i < V; ++i) av[i] /= ls;
-        *reinterpret_cast<uint4*>(out + ((size_t)b * a.H + h0 + h) * a.hd + ch * V) =
-            Chunk<T>::narrow(av);
+        store_chunk<T>(out + ((size_t)b * a.H + h0 + h) * a.hd, ch * V, a.hd, av);
       }
       if (tid == 0) a.tickets[pair] = 0;
     }
@@ -770,13 +869,15 @@ int pool_map(CUtensorMap* map, const void* pool, int nb, int bs, int Hk, int hd,
   return r == CUDA_SUCCESS ? 0 : kTmaError + (int)r;
 }
 
-template <typename T, int HP, int DP>
+template <typename T, int HP, int DP, bool kTma>
 int launch(const void* pages_k, const void* pages_v, int nb, const Args& a, cudaStream_t stream) {
-  CUtensorMap mk, mv;
-  if (int e = pool_map<T>(&mk, pages_k, nb, a.bs, a.Hk, a.hd, a.rows, a.pitch)) return e;
-  if (int e = pool_map<T>(&mv, pages_v, nb, a.bs, a.Hk, a.hd, a.rows, a.pitch)) return e;
+  CUtensorMap mk{}, mv{};  // no map where the rows are not 16-byte multiples: the warp copies
+  if (kTma) {
+    if (int e = pool_map<T>(&mk, pages_k, nb, a.bs, a.Hk, a.hd, a.rows, a.pitch)) return e;
+    if (int e = pool_map<T>(&mv, pages_v, nb, a.bs, a.Hk, a.hd, a.rows, a.pitch)) return e;
+  }
   const int smem = Layout(a, sizeof(T)).total + 128;
-  auto kernel = paged_decode_kernel<T, HP, DP>;
+  auto kernel = paged_decode_kernel<T, HP, DP, kTma>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -786,27 +887,35 @@ int launch(const void* pages_k, const void* pages_v, int nb, const Args& a, cuda
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kTma>
 int dispatch(const void* pk, const void* pv, int nb, const Args& a, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     switch (a.hp) {
-      case 1: return launch<T, 1, 0>(pk, pv, nb, a, s);
-      case 2: return launch<T, 2, 0>(pk, pv, nb, a, s);
-      case 4: return launch<T, 4, 0>(pk, pv, nb, a, s);
-      case 8: return launch<T, 8, 0>(pk, pv, nb, a, s);
+      case 1: return launch<T, 1, 0, kTma>(pk, pv, nb, a, s);
+      case 2: return launch<T, 2, 0, kTma>(pk, pv, nb, a, s);
+      case 4: return launch<T, 4, 0, kTma>(pk, pv, nb, a, s);
+      case 8: return launch<T, 8, 0, kTma>(pk, pv, nb, a, s);
     }
   } else {
-    if (a.hd <= 64) return launch<T, 0, 64>(pk, pv, nb, a, s);
-    if (a.hd <= 128) return launch<T, 0, 128>(pk, pv, nb, a, s);
-    return launch<T, 0, 256>(pk, pv, nb, a, s);
+    if (a.hd <= 64) return launch<T, 0, 64, kTma>(pk, pv, nb, a, s);
+    if (a.hd <= 128) return launch<T, 0, 128, kTma>(pk, pv, nb, a, s);
+    return launch<T, 0, 256, kTma>(pk, pv, nb, a, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T>
+int dispatch(const void* pk, const void* pv, int nb, const Args& a, cudaStream_t s) {
+  return a.tma ? dispatch<T, true>(pk, pv, nb, a, s) : dispatch<T, false>(pk, pv, nb, a, s);
+}
+
 // rows of a box (the largest divisor of bs within kBoxBytes, so a box never
-// reaches past its page), its pitch and the stages of the ring
+// reaches past its page), its pitch and the stages of the ring; TMA only
+// where a pool row is a multiple of 16 bytes (its strides must be)
 inline void geometry(Args* a, int es) {
-  a->pitch = a->hd + 8 <= 256 ? a->hd + 8 : a->hd;
+  a->hdp = (a->hd + 7) / 8 * 8;
+  a->tma = a->hd * es % 16 == 0;
+  a->pitch = !a->tma ? a->hdp + 8 : a->hd + 8 <= 256 ? a->hd + 8 : a->hd;
   const int most = kBoxBytes / (a->pitch * es) > 0 ? kBoxBytes / (a->pitch * es) : 1;
   int r = 1;
   for (int d = 1; d <= a->bs && d <= most; ++d)
@@ -838,7 +947,7 @@ inline Args shape(int lanes, int H, int Hk, int hd, int bs, int MB, int grid, in
   a.npass = (H / Hk + hp - 1) / hp;
   geometry(&a, es);
   int T = 1;  // f32: lanes a row takes, two 16-byte chunks each
-  while (T * 2 < hd / 4) T <<= 1;
+  while (T * 2 < (hd + 3) / 4) T <<= 1;
   a.T = T;
   return a;
 }
@@ -852,11 +961,11 @@ extern "C" int paged_attention_smem(int lanes, int hd, int bs, int hp, int dtype
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. hp: the query heads a
 // pass, 1, 2, 4 or 8; a GQA group of H / Hk heads takes passes = ceil(H /
-// Hk / hp). part: f32 scratch of (grid + lanes * Hk * passes) * hp * (hd +
-// 2) floats; tickets: int32 [lanes * Hk * passes], zero before the first
-// call (each call leaves them zero). The caller has checked shapes, dtypes
-// and alignment: H % Hk == 0, hd % 8 == 0, hd <= 256, bs <= 256, every
-// pointer 16-byte aligned. Returns the cudaError_t of the launch, or 10000
+// Hk / hp). part: f32 scratch of (grid + lanes * Hk * passes) * hp *
+// (round_up(hd, 8) + 2) floats; tickets: int32 [lanes * Hk * passes], zero
+// before the first call (each call leaves them zero). The caller has
+// checked shapes, dtypes and alignment: H % Hk == 0, hd <= 256, bs <= 256,
+// every pointer 16-byte aligned. Returns the cudaError_t of the launch, or 10000
 // + the CUresult of a refused tensor map (0 on success).
 extern "C" int paged_decode_attention(const void* q, const void* pages_k, const void* pages_v,
                                       const void* block_table, const void* lengths, void* part,
@@ -869,6 +978,8 @@ extern "C" int paged_decode_attention(const void* q, const void* pages_k, const 
   paged::Args a = paged::shape(lanes, H, Hk, hd, bs, MB, grid, hp, es);
   a.q = q;
   a.out = out;
+  a.pool_k = pages_k;
+  a.pool_v = pages_v;
   a.table = static_cast<const int*>(block_table);
   a.lengths = static_cast<const int*>(lengths);
   a.part = static_cast<float*>(part);

@@ -20,52 +20,6 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// the weight stream, M <= 64
-// ---------------------------------------------------------------------------
-//
-// Bound on the H100: bytes. At decode sizes (M = lanes, or a prefill chunk)
-// the weight matrix is the traffic, one byte per element against
-// 3.35 TB/s; 2 x M FLOPs per weight byte stays far under the ridge point.
-//
-// Design: a block of 256 threads owns 128 output columns for a tile of MT
-// rows of x and one slice of K. W streams through a ring of shared-memory
-// stages (64 rows x 128 columns, 16-byte cp.async per thread, several
-// stages in flight), so the loads in flight do not depend on registers,
-// which the MT x 4 f32 sums of each thread need. The x tile is widened to
-// f32 once (a copy for f32 x), into shared memory, transposed so the MT
-// values of one k are vector loads. Each thread takes 4 columns of a W row
-// per step (a warp reads one 128-byte row segment, conflict-free), widens
-// the bytes to f32 with a byte-permute into the mantissa of 2^23 (exact for
-// int8, no int-to-float conversions) and accumulates with FMAs. The 8 row
-// groups (one per warp) of a block are summed through shared memory in a
-// fixed order. When K is split over several blocks to fill the SMs, each
-// slice writes an f32 partial and a second kernel adds the slices in order,
-// applies the scale and casts, so the result does not depend on
-// scheduling. Rows of x past M and rows of W past K are zeros in shared
-// memory and never stored, so any M is taken. Not done yet: TMA, a
-// persistent schedule.
-
-constexpr int kThreads = 256;
-constexpr int kCols = 128;       // output columns per block
-constexpr int kColThreads = 32;  // threads across one row segment, 4 columns each
-constexpr int kRowGroups = kThreads / kColThreads;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBK = 64;          // W rows per pipeline stage (8 KB)
-constexpr int kStages = 4;
-constexpr int kCopies = kBK * kCols / 16 / kThreads;  // 16-byte copies per thread per stage
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // int8 byte i of v -> exact float, via 0x4B0000xx = 2^23 + xx with the
 // byte biased to unsigned (x ^ 0x80 == x + 128).
 __device__ __forceinline__ void widen4(uint32_t v, float* f) {
@@ -76,193 +30,489 @@ __device__ __forceinline__ void widen4(uint32_t v, float* f) {
   f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// ---------------------------------------------------------------------------
+// the weight stream, M <= 64
+// ---------------------------------------------------------------------------
+//
+// Replaces `_fwd_kernel` (:56-70) at M <= 64, the `m <= 64` branch of
+// `_fwd_blocks` (:98-113), which widens each W block to x's dtype and runs one
+// `_dot` on the matrix unit with f32 accumulation. Here too the products run
+// on the tensor cores: outT[N, M] = WT[N, K] . xT[K, M], the weight as the
+// 16-row side of `mma.sync m16n8k16` and the lanes, padded to a multiple of
+// 8 (up to 64), as its n side.
+//
+// Bound on the H100: bytes. The int8 weight is the traffic, one byte an
+// element against 3.35 TB/s; 2 M FLOPs a weight byte stays far under the
+// ridge point even at M = 64. What bounds this kernel at the decode shapes
+// is what a call costs besides its stream: between its first and last stage
+// the stream runs at 3.0-3.3 TB/s (tools/stream_trace.py), but each call
+// also pays its launch (~1.2 us in a CUDA graph), one DRAM round trip before
+// the first stage lands (~1.3 us) and the clusters' reduction (~1.5 us), and
+// the SMs do not get equal shares of the bandwidth, so the last blocks of a
+// large call trail the median by several us (PERF.md, PR 10).
+//
+// Design:
+// - A block owns 128 output columns and one K slice. One producer thread
+//   keeps a ring of stages in flight by TMA: the W box [BK k][128 n] int8
+//   and the x box [MP lanes][BK k] (bf16, or f32 in boxes of 32 k), both
+//   with the 128-byte swizzle, on one full barrier. No register holds a load.
+// - Consumer warps take one 16-deep step each of a stage: eight warps and
+//   128-row stages up to 8 lanes (16 of bf16 x), else four warps and 64-row
+//   stages (past 32 lanes two warps share a step, each for half the lanes).
+//   A thread reads its four W rows (2t, 2t + 1, 2t + 8, 2t + 9 of the step)
+//   as 16-byte loads of columns 16 g .. 16 g + 15 (conflict-free under the
+//   swizzle) and widens them straight into A fragments, exactly, two weights
+//   an instruction group: a byte permute puts the bytes of two rows into the
+//   low bytes of a bf16 pair, one LOP3 makes 128 + (b & 127) (0x43 in the
+//   high byte), one makes -(128 + (b & 128)), and one bf16x2 add gives
+//   b - 256 (b >> 7), the int8 value. Output column order within a tile is
+//   free: the m16 tile j of a warp holds columns 16 g + 2 j (rows g) and
+//   16 g + 2 j + 1 (rows g + 8), so each 16-byte load feeds eight tiles and
+//   no widened copy of W is written to shared memory. x's B fragments come
+//   by ldmatrix (bf16); f32 x is split in registers into its three exact
+//   bf16 pieces h, m, l (as `split3`), three products a fragment.
+// - Sums: bf16 x accumulates in the tensor cores' f32 sum. f32 x adds each
+//   16-deep step's three piece products into f32 registers, since the
+//   tensor cores truncate their running sum (about an ulp a step, PERF.md).
+// - One launch, no scratch: where the column tiles leave more than a quarter
+//   of the SMs idle, K is cut into ksplit <= 8 slices (at most 1.75 blocks
+//   an SM: clusters of eight then fit one wave), one thread-block cluster of
+//   ksplit blocks a column tile. Each block adds its warps in a fixed order
+//   and sends each four outputs to the rank that owns them (distributed
+//   shared memory); after one cluster barrier each rank adds its outputs
+//   over the slices in slice order, applies the scale and casts once.
+//   Deterministic, no finalize kernel, no memset, nothing allocated: one
+//   CUDA graph holds the call.
+// - Programmatic dependent launch: the producer issues the first two W
+//   stages, which no kernel writes, before `griddepcontrol.wait`, then x;
+//   once it has issued its last stage it lets the next kernel on the stream
+//   start its blocks, which do the same during this call's tail.
+// - Rows past M and past K are zero-filled by TMA and never stored.
+// Tried on the H100 (80GB HBM3, 700 W), a Llama-3-8B decode step at M = 8
+// (225 calls, kernel_ab --stream; PR 9's SIMT stream 6.88 ms in the same
+// calls, its byte bound 2.26 ms):
+// - four warps, 64-row stages, the slices' partials pulled by each rank over
+//   distributed shared memory one load after another, two cluster barriers:
+//   4.45 ms; copies without the products 3.83, without the loads 3.86,
+//   without the cluster reduction 3.94, without all three 1.55, a kernel
+//   that returns at once 0.29;
+// - the tiles' stages shared evenly by two blocks an SM (stream-K) with a
+//   ticketed reduction: the SMs streamed equal shares at unequal rates (the
+//   median block of `gate` 21.5 us, the slowest 35), slower than above;
+// - test_wait spinning instead of try_wait: no change; 128-row stages with
+//   four warps: 4.73;
+// - sums pushed to their rank, one cluster barrier, no dependent launch:
+//   4.53; with it, the next kernel started at once: 4.35, after the last
+//   stage is issued: 4.10 (2 W stages ahead; 4: 4.05, the ring: 4.13), once
+//   the stages are consumed: 4.31; pulled in one batch instead: 4.20;
+// - a 72 KB ring (two blocks an SM at most): 4.29; 144 KB, one block an SM:
+//   5.50;
+// - eight warps and 128-row stages: 4.02; with the grid at 1.75 blocks an
+//   SM: 3.65; with gate and up unsplit: 3.51 (kept); 16-block clusters for
+//   k and v: 3.58; three blocks an SM: 3.83;
+// - eight warps at 16 lanes: M = 16 4.45 ms against 4.68; for f32 at 8
+//   lanes: 4.20 ms against 4.89.
+
+namespace ws {
+
+constexpr int kCols = 128;                    // output columns of a block
+constexpr int kSliceRows = 128;               // a K slice holds a multiple of this
+constexpr int kMaxStages = 8;
+constexpr int kMaxSplit = 8;                  // a portable cluster
+constexpr int kTmaError = 10000;              // + CUresult of a refused tensor map
+
+struct Args {
+  const float* scales;
+  void* out;
+  int M, K, N;
+  int kc;       // K rows of a slice, a multiple of kSliceRows
+  int ksplit;   // slices of K: the blocks of a cluster
+  int stages;
+};
+
+// shared memory from a 1024-byte aligned base: the ring (reused for the
+// warps' sums), the receive buffer of the slices' sums, the barriers
+template <typename T, int NTW, int LG>
+struct Geometry {
+  // up to 8 lanes, or 16 of bf16 x: eight consumer warps, each one
+  // 16-deep step of a 128-row stage; more lanes: four (their accumulators
+  // take the registers)
+  static constexpr int kWarps =
+      LG == 1 && (NTW == 1 || (NTW == 2 && std::is_same<T, __nv_bfloat16>::value)) ? 8 : 4;
+  static constexpr int kThreads = 32 * (kWarps + 1);  // + the producer warp
+  static constexpr int kBK = 16 * kWarps;             // K rows of a stage
+  static constexpr int kWBytes = kBK * kCols;         // the W box, int8, swizzled
+  static constexpr int kRingBytes = (kWarps == 8 ? 80 : 64) * 1024;
+  static constexpr int MP = 8 * NTW * LG;
+  static constexpr int kXBoxes = kBK * (int)sizeof(T) / 128;   // x boxes of 128-byte rows
+  static constexpr int kXBytes = kXBoxes * MP * 128;
+  static constexpr int kStage = kWBytes + kXBytes;
+  static constexpr int kRed = kWarps * NTW * 8 * kCols * 4;  // each warp's lanes
+  __host__ __device__ static int stages() {
+    const int s = (kRingBytes > kRed ? kRingBytes : kRed) / kStage;
+    return s < 2 ? 2 : s > kMaxStages ? kMaxStages : s;
+  }
+  __host__ __device__ static int ring(int stages) {
+    const int r = stages * kStage;
+    return r > kRed ? r : kRed;
+  }
+  __host__ __device__ static int smem(int stages) {
+    return ring(stages) + (MP * kCols + 4 * kMaxSplit) * 4 + 2 * stages * 8 + 1024;
+  }
+};
+
+// two weights of rows u and v (byte b of each) -> a bf16 pair, exactly:
+// (128 + (b & 127)) - (128 + (b & 128)) == b as an int8
+template <int B>
+__device__ __forceinline__ uint32_t widen2(uint32_t u, uint32_t v) {
+  const uint32_t p = __byte_perm(u, v, B | B << 4 | (4 + B) << 8 | (4 + B) << 12);
+  const uint32_t x = (p & 0x007F007Fu) | 0x43004300u;
+  const uint32_t c = (p & 0x00800080u) | 0xC300C300u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(x), "r"(0x3F803F80u), "r"(c));
+  return r;
 }
 
-template <int MT>
-__device__ __forceinline__ void load_x(const float* p, float* xv) {
-  if constexpr (MT % 4 == 0) {
+// D[16 x 8] (+)= A[16 x 16] B[16 x 8], bf16 inputs, f32 sums. A: a0 (row g,
+// k 2t..2t+1), a1 (row g + 8), a2 (row g, k 2t+8..2t+9), a3 (row g + 8).
+// B: b0 (k 2t..2t+1 of column g), b1 (k 2t+8..2t+9). D: d0, d1 row g
+// columns 2t, 2t + 1; d2, d3 row g + 8.
+__device__ __forceinline__ void mma_acc(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+
+// f32 pair -> its three exact bf16 pieces, each a packed pair (low = first)
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t* piece) {
 #pragma unroll
-    for (int i = 0; i < MT; i += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + i);
-      xv[i] = v.x; xv[i + 1] = v.y; xv[i + 2] = v.z; xv[i + 3] = v.w;
+  for (int p = 0; p < 3; ++p) {
+    uint32_t h;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(h) : "f"(x1), "f"(x0));
+    piece[p] = h;
+    x0 = __fsub_rn(x0, __uint_as_float(h << 16));
+    x1 = __fsub_rn(x1, __uint_as_float(h & 0xFFFF0000u));
+  }
+}
+
+template <int kWarps>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kWarps) : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// 16 bytes to the same offset of the shared memory of block `rank` of the
+// cluster (visible there after the next cluster barrier)
+__device__ __forceinline__ void st_cluster(float* p, int rank, float4 v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)),
+               "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(remote), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void add4(float4& v, const float4& x) {
+  v.x += x.x;
+  v.y += x.y;
+  v.z += x.z;
+  v.w += x.w;
+}
+
+// NTW: n tiles of 8 lanes a warp; LG: lane groups (warps that share a step)
+template <typename T, int NTW, int LG>
+__global__ void __launch_bounds__(Geometry<T, NTW, LG>::kThreads, 2)
+    int8_stream_kernel(const __grid_constant__ CUtensorMap tw,
+                       const __grid_constant__ CUtensorMap tx, const Args a) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  using G = Geometry<T, NTW, LG>;
+  constexpr int MP = G::MP;                       // lanes of the x box
+  constexpr int kWarps = G::kWarps, kBK = G::kBK, kWBytes = G::kWBytes;
+  constexpr int kClass = kWarps / LG;             // warps of one lane group
+  constexpr int kSteps = kBK / 16 / kClass;       // steps a warp takes a stage
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const int S = a.stages;
+  // the slices' sums of this block's share of the tile: [ks][share] float4
+  float* recv = reinterpret_cast<float*>(sm + G::ring(S));
+  uint64_t* full = reinterpret_cast<uint64_t*>(recv + MP * kCols + 4 * kMaxSplit);
+  uint64_t* empty = full + S;
+
+  const int ks = a.ksplit;
+  const int slice = blockIdx.x % ks;              // the block's rank in its cluster
+  const int c0 = blockIdx.x / ks * kCols;
+  const int k0 = slice * a.kc;
+  const int nst = (min(a.kc, a.K - k0) + kBK - 1) / kBK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int units = a.M * (kCols / 4), share = (units + ks - 1) / ks;
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kWarps);
     }
-  } else if constexpr (MT == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    xv[0] = v.x; xv[1] = v.y;
-  } else {
-    xv[0] = p[0];
+    fence_barrier_init();
   }
-}
-
-__host__ __device__ inline int stages_of(int klen) { return (klen + kBK - 1) / kBK; }
-
-template <int MT>
-__host__ __device__ inline size_t smem_of(int kc) {
-  const size_t main = (size_t)stages_of(kc) * kBK * MT * sizeof(float) +
-                      (size_t)kStages * kBK * kCols;
-  const size_t red = (size_t)kWarps * MT * kCols * sizeof(float);
-  return main > red ? main : red;
-}
-
-template <typename T, int MT>
-__global__ void __launch_bounds__(kThreads)
-int8_gemm_kernel(const T* __restrict__ x,               // [M, K]
-                 const int8_t* __restrict__ w,          // [K, N]
-                 const float* __restrict__ scales,      // [N]
-                 float* __restrict__ partial,           // [ksplit, M, N] or null
-                 T* __restrict__ out,                   // [M, N]
-                 int M, int K, int N, int kc) {
-  const int tid = threadIdx.x;
-  const int c = tid % kColThreads;
-  const int r = tid / kColThreads;
-  const int n_blk = blockIdx.x * kCols;
-  const int split = blockIdx.y;
-  const int m0 = blockIdx.z * MT;
-  const int k0 = split * kc;
-  const int klen = min(kc, K - k0);
-  const int nst = stages_of(klen);
-  const int rows = nst * kBK;
-
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);                     // [rows][MT]
-  int8_t* ws = reinterpret_cast<int8_t*>(xs + (size_t)rows * MT);  // [kStages][kBK][kCols]
-
-  // W stage copy: thread -> rows tid / 8 + 32 i, 16-byte chunk tid % 8;
-  // rows past the slice and columns past N are zero-filled
-  const int cr = tid >> 3;
-  const int cc = (tid & 7) * 16;
-  const bool col_in = n_blk + cc < N;
-  auto issue = [&](int st) {
-#pragma unroll
-    for (int i = 0; i < kCopies; ++i) {
-      const int row = cr + i * (kThreads / 8);
-      const int kr = st * kBK + row;
-      const bool ok = col_in && kr < klen;
-      const int8_t* src = ok ? w + (size_t)(k0 + kr) * N + n_blk + cc : w;
-      cp_async16(ws + ((size_t)(st % kStages) * kBK + row) * kCols + cc, src, ok ? 16 : 0);
-    }
-  };
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nst) issue(st);
-    cp_async_commit();
-  }
-
-  // x tile, widened and transposed; zeros past M and past the slice
-  for (int i = tid; i < MT * rows; i += kThreads) {
-    const int mm = i / rows;
-    const int kk = i - mm * rows;
-    const int m = m0 + mm;
-    xs[kk * MT + mm] = (m < M && kk < klen) ? to_f32(x[(size_t)m * K + k0 + kk]) : 0.f;
-  }
-
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  for (int st = 0; st < nst; ++st) {
-    cp_async_wait<kStages - 2>();  // stage st has landed (this thread's part)
-    __syncthreads();               // ... everyone's; slot of stage st - 1 is free
-    if (st + kStages - 1 < nst) issue(st + kStages - 1);
-    cp_async_commit();
-    const int8_t* wst = ws + (size_t)(st % kStages) * kBK * kCols;
-#pragma unroll
-    for (int j = 0; j < kBK / kRowGroups; ++j) {
-      const int row = r + j * kRowGroups;
-      float wf[4];
-      widen4(*reinterpret_cast<const uint32_t*>(wst + row * kCols + c * 4), wf);
-      float xv[MT];
-      load_x<MT>(xs + (size_t)(st * kBK + row) * MT, xv);
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[m][q] = fmaf(xv[m], wf[q], acc[m][q]);
-    }
-  }
-  cp_async_wait<0>();
-
-  __syncthreads();  // the tiles are dead; reuse shared memory for the reduction
-  float* red = reinterpret_cast<float*>(smem4);  // [kWarps][MT][kCols]
-  const int warp = tid / 32;
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[(warp * MT + m) * kCols + c * 4 + j] = acc[m][j];
   __syncthreads();
 
-  for (int o = tid; o < MT * kCols; o += kThreads) {
-    const int m = o / kCols;
-    const int col = o - m * kCols;
-    float s = 0.f;
+  if (warp == kWarps) {
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tw)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tx)) : "memory");
+      // the weights do not depend on the kernel before: the first stages'
+      // W boxes go out before waiting for it, their x boxes after
+      const int pre = nst < 2 ? nst : 2;
+      for (int it = 0; it < pre; ++it) {
+        mbar_expect_tx(full + it, G::kStage);
+        tma_load_2d(sm + it * G::kStage, &tw, full + it, c0, k0 + it * kBK);
+      }
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      for (int it = 0; it < nst; ++it) {
+        const int st = it % S;
+        const uint32_t ph = (it / S) & 1;
+        unsigned char* base = sm + st * G::kStage;
+        const int k = k0 + it * kBK;
+        if (it >= pre) {
+          mbar_wait(empty + st, ph ^ 1);
+          mbar_expect_tx(full + st, G::kStage);
+          tma_load_2d(base, &tw, full + st, c0, k);
+        }
 #pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) s += red[(wi * MT + m) * kCols + col];
-    const int gm = m0 + m;
-    const int gn = n_blk + col;
-    if (gm < M && gn < N) {
-      if (partial != nullptr)
-        partial[((size_t)split * M + gm) * N + gn] = s;
+        for (int b = 0; b < G::kXBoxes; ++b)
+          tma_load_2d(base + kWBytes + b * MP * 128, &tx, full + st, k + b * 128 / (int)sizeof(T),
+                      0);
+      }
+      asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    }
+    __syncwarp();
+  } else {
+    // x and the output only once the kernel before has finished
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    const int lg = warp / kClass, sc = warp % kClass;
+    const int g = lane >> 2, t = lane & 3;
+    float acc[8][NTW][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int n = 0; n < NTW; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][n][i] = 0.f;
+
+    for (int it = 0; it < nst; ++it) {
+      const int st = it % S;
+      const uint32_t ph = (it / S) & 1;
+      const unsigned char* base = sm + st * G::kStage;
+      mbar_wait(full + st, ph);
+#pragma unroll
+      for (int p = 0; p < kSteps; ++p) {
+        const int s = sc + p * kClass;            // the 16-deep step of the stage
+        // W rows 16 s + {2t, 2t + 1, 2t + 8, 2t + 9}, columns 16 g .. 16 g + 15
+        uint4 w[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = 16 * s + 2 * t + (r & 1) + 8 * (r >> 1);
+          w[r] = *reinterpret_cast<const uint4*>(base + row * 128 + ((g ^ (row & 7)) << 4));
+        }
+        // x's B fragments of each n tile: lanes 8 nt + g, k 16 s + 2t.. (+8)
+        uint32_t b[NTW][kF32 ? 3 : 1][2];
+#pragma unroll
+        for (int n = 0; n < NTW; ++n) {
+          const int nt = lg * NTW + n;
+          if constexpr (kF32) {
+            const int r = 8 * nt + g;
+            const unsigned char* xb = base + kWBytes + (s >> 1) * MP * 128 + r * 128;  // 32 k a box
+            const int ch = 4 * (s & 1) + (t >> 1);
+            const float2 lo = *reinterpret_cast<const float2*>(
+                xb + ((ch ^ (r & 7)) << 4) + (t & 1) * 8);
+            const float2 hi = *reinterpret_cast<const float2*>(
+                xb + (((ch + 2) ^ (r & 7)) << 4) + (t & 1) * 8);
+            uint32_t pl[3], ph3[3];
+            split_pair(lo.x, lo.y, pl);
+            split_pair(hi.x, hi.y, ph3);
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+              b[n][q][0] = pl[q];
+              b[n][q][1] = ph3[q];
+            }
+          } else {
+            const int r = 8 * nt + (lane & 7);                  // 64 k a box
+            const int ch = 2 * (s & 3) + ((lane >> 3) & 1);
+            ldsm_x2(smem_u32(base + kWBytes + (s >> 2) * MP * 128 + r * 128 +
+                             ((ch ^ (r & 7)) << 4)),
+                    b[n][0][0], b[n][0][1]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&w[0]) + (j >> 1);
+          const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&w[1]) + (j >> 1);
+          const uint32_t* w2 = reinterpret_cast<const uint32_t*>(&w[2]) + (j >> 1);
+          const uint32_t* w3 = reinterpret_cast<const uint32_t*>(&w[3]) + (j >> 1);
+          uint32_t af[4];
+          if (j & 1) {
+            af[0] = widen2<2>(*w0, *w1);
+            af[1] = widen2<3>(*w0, *w1);
+            af[2] = widen2<2>(*w2, *w3);
+            af[3] = widen2<3>(*w2, *w3);
+          } else {
+            af[0] = widen2<0>(*w0, *w1);
+            af[1] = widen2<1>(*w0, *w1);
+            af[2] = widen2<0>(*w2, *w3);
+            af[3] = widen2<1>(*w2, *w3);
+          }
+#pragma unroll
+          for (int n = 0; n < NTW; ++n) {
+            if constexpr (kF32) {
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int q = 0; q < 3; ++q) mma_acc(d, af, b[n][q][0], b[n][q][1]);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[j][n][i] += d[i];
+            } else {
+              mma_acc(acc[j][n], af, b[n][0][0], b[n][0][1]);
+            }
+          }
+        }
+      }
+      release(empty + st);
+    }
+
+    // the warps' sums, in a fixed order: each warp's tile into the dead ring,
+    // then lane group by lane group, class 0 .. kClass - 1, summed per unit
+    consumers_sync<kWarps>();
+    float* red = reinterpret_cast<float*>(sm) + warp * (NTW * 8) * kCols;  // [NTW * 8][kCols]
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        float* row = red + (n * 8 + 2 * t) * kCols + 16 * g + 2 * j;
+        *reinterpret_cast<float2*>(row) = make_float2(acc[j][n][0], acc[j][n][2]);
+        *reinterpret_cast<float2*>(row + kCols) = make_float2(acc[j][n][1], acc[j][n][3]);
+      }
+    consumers_sync<kWarps>();
+    // the block's sums, four outputs a unit, each sent to the rank that adds
+    // them: units [q share, (q + 1) share) of the tile's M x kCols outputs to
+    // rank q, into slot `slice` of its receive buffer
+    for (int u = tid; u < units; u += 32 * kWarps) {
+      const int m = u / (kCols / 4), c = (u % (kCols / 4)) * 4;
+      const int grp = m / (NTW * 8), lm = m % (NTW * 8);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < kClass; ++w)
+        add4(v, *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(sm) +
+                                                 ((grp * kClass + w) * NTW * 8 + lm) * kCols + c));
+      const int q = u / share;
+      float* dst = recv + ((size_t)slice * share + (u - q * share)) * 4;
+      if (ks > 1)
+        st_cluster(dst, q, v);
       else
-        out[(size_t)gm * N + gn] = from_f32<T>(s * scales[gn]);
+        *reinterpret_cast<float4*>(dst) = v;
+    }
+  }
+
+  // rank `slice` adds its units over the slices in order, scales and stores;
+  // after the barrier no block reads another's shared memory
+  if (ks > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+  T* out = static_cast<T*>(a.out);
+  const int u0 = slice * share;
+  for (int j = tid; j < share && u0 + j < units; j += G::kThreads) {
+    const int u = u0 + j, m = u / (kCols / 4), c = (u % (kCols / 4)) * 4;
+    const int col = c0 + c;
+    if (col >= a.N) continue;
+    float4 v = *reinterpret_cast<const float4*>(recv + (size_t)j * 4);
+    for (int q = 1; q < ks; ++q)
+      add4(v, *reinterpret_cast<const float4*>(recv + ((size_t)q * share + j) * 4));
+    const float4 sc = *reinterpret_cast<const float4*>(a.scales + col);
+    v.x *= sc.x;
+    v.y *= sc.y;
+    v.z *= sc.z;
+    v.w *= sc.w;
+    if constexpr (kF32) {
+      *reinterpret_cast<float4*>(out + (size_t)m * a.N + col) = v;
+    } else {
+      *reinterpret_cast<uint2*>(out + (size_t)m * a.N + col) =
+          make_uint2(pack2<__nv_bfloat16>(v.x, v.y), pack2<__nv_bfloat16>(v.z, v.w));
     }
   }
 }
 
-template <typename T>
-__global__ void finalize_kernel(const float* __restrict__ partial, const float* __restrict__ scales,
-                                T* __restrict__ out, int M, int N, int ksplit) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)M * N;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int sp = 0; sp < ksplit; ++sp) s += partial[(size_t)sp * total + i];
-  out[i] = from_f32<T>(s * scales[i % N]);
+// W [K, N] int8 as (N, K), boxes of 128 columns x a stage's rows; x [M, K]
+// as (K, M), boxes of 64 (bf16) or 32 (f32) columns x MP rows; 128-byte
+// swizzle, zeros past every edge
+int map_stream(CUtensorMap* map, const void* base, CUtensorMapDataType type, int es, int cols,
+               int rows, int box_cols, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kTmaError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * es};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTmaError + (int)r;
 }
 
-template <typename T, int MT>
-int launch(const void* x, const void* w, const void* scales, void* partial, void* out, int M,
-           int K, int N, int kc, int ksplit, cudaStream_t stream) {
-  const size_t smem = smem_of<MT>(kc);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(int8_gemm_kernel<T, MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((N + kCols - 1) / kCols, ksplit, (M + MT - 1) / MT);
-  float* part = ksplit > 1 ? static_cast<float*>(partial) : nullptr;
-  int8_gemm_kernel<T, MT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scales), part, static_cast<T*>(out), M, K, N, kc);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || ksplit == 1) return (int)e;
-  const size_t total = (size_t)M * N;
-  const int threads = 256;
-  finalize_kernel<T><<<(unsigned)((total + threads - 1) / threads), threads, 0, stream>>>(
-      part, static_cast<const float*>(scales), static_cast<T*>(out), M, N, ksplit);
+template <typename T, int NTW, int LG>
+int launch(const void* x, const void* w, const void* scales, void* out, int M, int K, int N,
+           int kc, int ksplit, cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  using G = Geometry<T, NTW, LG>;
+  CUtensorMap mw, mx;
+  if (int e = map_stream(&mw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, kCols, G::kBK))
+    return e;
+  if (int e = map_stream(&mx, x,
+                         kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         sizeof(T), K, M, kF32 ? 32 : 64, G::MP))
+    return e;
+  const Args a{static_cast<const float*>(scales), out, M, K, N, kc, ksplit, G::stages()};
+  const int smem = G::smem(a.stages);
+  auto kernel = int8_stream_kernel<T, NTW, LG>;
+  if (cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((N + kCols - 1) / kCols * ksplit));
+  cfg.blockDim = dim3(G::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ksplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  // programmatic dependent launch: the blocks may start while the kernel
+  // before finishes (griddepcontrol.wait guards what depends on it)
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  if (cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, mw, mx, a)) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_stream(const void* x, const void* w, const void* scales, void* partial, void* out,
-                  int M, int K, int N, int mt, int kc, int ksplit, cudaStream_t s) {
-  switch (mt) {
-    case 1: return launch<T, 1>(x, w, scales, partial, out, M, K, N, kc, ksplit, s);
-    case 2: return launch<T, 2>(x, w, scales, partial, out, M, K, N, kc, ksplit, s);
-    case 4: return launch<T, 4>(x, w, scales, partial, out, M, K, N, kc, ksplit, s);
-    case 8: return launch<T, 8>(x, w, scales, partial, out, M, K, N, kc, ksplit, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int dispatch(const void* x, const void* w, const void* scales, void* out, int M, int K, int N,
+             int kc, int ksplit, cudaStream_t s) {
+  if (M <= 8) return launch<T, 1, 1>(x, w, scales, out, M, K, N, kc, ksplit, s);
+  if (M <= 16) return launch<T, 2, 1>(x, w, scales, out, M, K, N, kc, ksplit, s);
+  if (M <= 32) return launch<T, 4, 1>(x, w, scales, out, M, K, N, kc, ksplit, s);
+  return launch<T, 4, 2>(x, w, scales, out, M, K, N, kc, ksplit, s);
 }
+
+}  // namespace ws
 
 // ---------------------------------------------------------------------------
 // the tensor-core kernel: the forward for M > 64 and the backward dX
@@ -714,19 +964,24 @@ extern "C" int int8_prepass(const void* x, const void* scales, void* out, long l
   return (int)cudaGetLastError();
 }
 
+// The interface version: kernel_ab tells this source from the earlier
+// stream (a K-split kernel writing f32 partials, then a finalize kernel) by it.
+extern "C" int int8_stream_abi() { return 2; }
+
 // The weight stream: x [M, K] (dtype 0 f32, 1 bf16), w int8 [K, N], scales
-// f32 [N], out [M, N] of x's type; partial is f32 [ksplit, M, N] scratch
-// when ksplit > 1. mt is the row tile (1, 2, 4 or 8); kc is the K slice per
-// block (kc * ksplit >= K). The caller has checked K % 16 == 0,
-// N % 16 == 0, 16-byte alignment, contiguity and dtypes. Returns the
-// cudaError_t of the launches (0 on success).
-extern "C" int int8_matmul(const void* x, const void* w, const void* scales, void* partial,
-                           void* out, int M, int K, int N, int mt, int kc, int ksplit, int dtype,
-                           void* stream) {
+// f32 [N], out [M, N] of x's type, 1 <= M <= 64. kc: K rows a slice, a
+// multiple of 64; ksplit: slices, 1..8 (one cluster of ksplit blocks a
+// column tile of 128), kc * (ksplit - 1) < K <= kc * ksplit. The caller has
+// checked K % 16 == 0, N % 16 == 0, 16-byte alignment, contiguity and
+// dtypes. Returns the cudaError_t of the launch (0 on success), or 10000 +
+// the CUresult of a tensor map the driver refused.
+extern "C" int int8_matmul(const void* x, const void* w, const void* scales, void* out, int M,
+                           int K, int N, int kc, int ksplit, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_stream<float>(x, w, scales, partial, out, M, K, N, mt, kc, ksplit, s);
-  if (dtype == 1)
-    return launch_stream<__nv_bfloat16>(x, w, scales, partial, out, M, K, N, mt, kc, ksplit, s);
+  if (M < 1 || M > 64 || ksplit < 1 || ksplit > ws::kMaxSplit || kc < ws::kSliceRows ||
+      kc % ws::kSliceRows || (long long)kc * (ksplit - 1) >= K || (long long)kc * ksplit < K)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return ws::dispatch<float>(x, w, scales, out, M, K, N, kc, ksplit, s);
+  if (dtype == 1) return ws::dispatch<__nv_bfloat16>(x, w, scales, out, M, K, N, kc, ksplit, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -187,9 +187,9 @@ def _check(q, pages_k, pages_v, block_table, lengths):
     if phd != hd or H % Hk:
         raise ValueError(f"paged_decode_attention: H={H}, Hk={Hk}, hd={hd}/{phd} "
                          "need H % Hk == 0 and equal head dims")
-    if hd % 8 or hd > _MAX_HEAD_DIM:
-        raise ValueError(f"paged_decode_attention: hd={hd} must be a multiple of 8, "
-                         f"<= {_MAX_HEAD_DIM}")
+    if hd > _MAX_HEAD_DIM:
+        raise ValueError(f"paged_decode_attention: hd={hd}; the kernel takes up to "
+                         f"{_MAX_HEAD_DIM}")
     if bs > _MAX_PAGE:
         raise ValueError(f"paged_decode_attention: pages of {bs} slots; the kernel takes "
                          f"up to {_MAX_PAGE}")
@@ -210,7 +210,8 @@ def _scratch_for(device, lanes, H, Hk, hd, grid):
     if got is None:
         hp = heads_per_pass(H, Hk)
         pairs = lanes * Hk * -(-(H // Hk) // hp)
-        got = (torch.empty(((grid + pairs) * hp * (hd + 2),), dtype=torch.float32,
+        hdp = -(-hd // 8) * 8   # a partial row's floats
+        got = (torch.empty(((grid + pairs) * hp * (hdp + 2),), dtype=torch.float32,
                            device=device),
                torch.zeros((pairs,), dtype=torch.int32, device=device))
         _scratch[key] = got

@@ -5,10 +5,12 @@ Counterpart of ``paddle_tpu/ops/pallas/quant_matmul.py:116-201``:
 
 - ``int8_matmul`` (:117, reached through ``matmul_gate``, :255) with
   ``int8_matmul_ref`` standing for the composed ``int8_matmul_xla``
-  (:234). M <= 64 runs the weight stream of ``csrc/quant_matmul.cu``; a
-  larger M goes to :func:`int8_matmul_large_m`, the tensor-core kernel, as
-  the reference's ``_fwd_blocks`` (:98-113) switches to compute-shaped
-  blocks past M = 64;
+  (:234). M <= 64 runs the weight stream of ``csrc/quant_matmul.cu`` (one
+  launch; :func:`stream_plan` cuts K into slices where the column tiles
+  leave a quarter of the SMs idle, and :func:`int8_matmul_blocked` repeats
+  its sum order on the CPU); a larger M goes to
+  :func:`int8_matmul_large_m`, the tensor-core kernel, as the reference's
+  ``_fwd_blocks`` (:98-113) switches to compute-shaped blocks past M = 64;
 - ``int8_matmul_dx`` (``_dx_pallas``, :143) with ``int8_matmul_dx_ref``;
 - the differentiable ops: :func:`int8_matmul_frozen` (``_fwd_vjp`` /
   ``_bwd_vjp``, :139-176: dx only, the weights and scales are frozen) and
@@ -23,10 +25,11 @@ f32 activations (the reference's ``_dot`` at ``Precision.HIGHEST``) reach
 the tensor-core kernel through an exact split (:func:`split3`): x = h + m
 + l in three bf16 pieces, summed as three bf16 products into one f32
 accumulator. The plain versions compute the same three products, so the
-CPU tests hold the split; the weight stream (M <= 64) reads f32 directly.
-A pre-pass kernel (:func:`int8_prepass`) writes the split, and for dX the
-scaled ``dout * scales`` (in bf16, rounded as the reference rounds it)
-that the tensor-core kernel then reduces.
+CPU tests hold the split. A pre-pass kernel (:func:`int8_prepass`) writes
+the split, and for dX the scaled ``dout * scales`` (in bf16, rounded as
+the reference rounds it) that the tensor-core kernel then reduces. The
+weight stream splits f32 x the same way, in registers as it stages x, and
+adds each 16-deep step's three products in f32.
 """
 
 from __future__ import annotations
@@ -39,11 +42,14 @@ from . import _build
 
 __all__ = ["int8_matmul", "int8_matmul_ref", "int8_matmul_large_m", "int8_matmul_dx",
            "int8_matmul_dx_ref", "int8_matmul_frozen", "int8_matmul_train_scales",
-           "int8_prepass", "split3", "split_plan", "LARGE_M", "DTYPES"]
+           "int8_prepass", "int8_matmul_blocked", "split3", "stream_plan", "stream_warps",
+           "LARGE_M", "DTYPES"]
 
-_COLS = 128          # output columns per block (csrc/quant_matmul.cu kCols)
-_X_TILE = 32 * 1024  # bytes of the f32 x tile a block keeps in shared memory
-_MIN_KC = 256
+_COLS = 128          # output columns of a block of the weight stream (csrc kCols)
+_SLICE_ROWS = 128    # K rows a slice holds a multiple of (csrc kSliceRows: whole stages)
+_MAX_SPLIT = 8       # K slices of a column tile: the blocks of a cluster
+_BLOCKS_PER_SM = 1.75  # the grid a split aims at (clusters of eight then fit one wave)
+_FILL = 0.75         # column tiles that fill this share of the SMs are not split
 LARGE_M = 64         # M above this runs the tensor-core forward
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -86,16 +92,60 @@ def int8_matmul_dx_ref(dout, w_int8, scales):
     return torch.matmul(scaled.float(), w_t).to(dout.dtype)
 
 
-def split_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int]:
-    """``(mt, kc, ksplit)``: rows of x per block, K rows per block, and the
-    number of K slices, chosen so that about two blocks per SM are in
-    flight."""
-    mt = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
-    blocks = -(-N // _COLS) * -(-M // mt)
-    want = max(1, -(-2 * sms // blocks))
-    kc = max(_MIN_KC, -(-K // want))
-    kc = min(_X_TILE // (4 * mt), -(-kc // 16) * 16)
-    return mt, kc, -(-K // kc)
+def stream_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int]:
+    """``(kc, ksplit, blocks)`` of the weight stream: K rows of a slice (a
+    multiple of 128, so of the kernel's stage), the slices, and the blocks
+    of the launch (128 output columns each, ksplit of them a column tile:
+    one thread-block cluster). K is cut only where the column tiles leave
+    more than a quarter of the ``sms`` SMs idle, into at most 8 slices (a
+    portable cluster) and at most 1.75 blocks an SM (two blocks share an
+    SM, and clusters of eight then fit one wave); every slice holds rows.
+    The plan does not depend on M."""
+    tiles = -(-N // _COLS)
+    blocks = -(-K // _SLICE_ROWS)
+    ksplit = 1 if tiles >= _FILL * sms else max(
+        1, min(_MAX_SPLIT, int(_BLOCKS_PER_SM * sms // tiles), blocks))
+    kc = -(-blocks // ksplit) * _SLICE_ROWS
+    ksplit = -(-K // kc)
+    return kc, ksplit, tiles * ksplit
+
+
+def stream_warps(M: int, dtype) -> int:
+    """Consumer warps of a weight-stream block (csrc ``Geometry::kWarps``):
+    eight up to 8 lanes, or 16 of bf16 x, each one 16-deep step of a
+    128-row stage; else four, each one step of a 64-row stage (past 32
+    lanes two warps share a step, each for half the lanes)."""
+    return 8 if M <= 8 or (dtype == torch.bfloat16 and M <= 16) else 4
+
+
+def int8_matmul_blocked(x, w_int8, scales, sms: int = 132):
+    """The weight stream's sum order on the CPU: the K slices of
+    :func:`stream_plan`, each summed as the kernel's consumer warps sum it
+    (:func:`stream_warps`; warp class c takes the 16-deep steps c, c +
+    classes, ... of K; past 32 lanes two warps a class), each 16-deep
+    step's product one f32 term (for f32 x the three bf16 pieces'
+    products, added together first), the classes then the slices added in
+    order, times the scales, cast once. Same arguments and result as
+    :func:`int8_matmul_ref`; M <= 64."""
+    M, K = x.shape
+    N = w_int8.shape[1]
+    kc, ksplit, _ = stream_plan(M, K, N, sms)
+    classes = stream_warps(M, x.dtype) // (2 if M > 32 else 1)
+    w = w_int8.float()
+    pieces = [p.float() for p in split3(x)] if x.dtype == torch.float32 else [x.float()]
+    total = None
+    for q in range(ksplit):
+        sums = [torch.zeros((M, N), dtype=torch.float32) for _ in range(classes)]
+        for k in range(q * kc, min(K, (q + 1) * kc), 16):
+            d = pieces[0][:, k:k + 16] @ w[k:k + 16]
+            for p in pieces[1:]:
+                d = d + p[:, k:k + 16] @ w[k:k + 16]
+            sums[k // 16 % classes] = sums[k // 16 % classes] + d
+        part = sums[0]
+        for s_ in sums[1:]:
+            part = part + s_
+        total = part if total is None else total + part
+    return (total * scales.float()[None, :]).to(x.dtype)
 
 
 _sms: dict = {}
@@ -140,9 +190,9 @@ def _device_check(x, name):
 
 def int8_matmul(x, w_int8, scales):
     """``x [M, K] @ dequant(w_int8 [K, N], scales [N]) -> [M, N]`` in x's
-    dtype. Counts launches of the weight stream (M <= 64) in
-    ``int8_matmul.launches``; a larger M is launched, and counted, by
-    :func:`int8_matmul_large_m`."""
+    dtype. Counts launches of the weight stream (M <= 64, one kernel a
+    call, nothing allocated but the output) in ``int8_matmul.launches``; a
+    larger M is launched, and counted, by :func:`int8_matmul_large_m`."""
     if x.device.type == "cpu":
         return int8_matmul_ref(x, w_int8, scales)
     _device_check(x, "int8_matmul")
@@ -157,14 +207,10 @@ def int8_matmul(x, w_int8, scales):
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
     if dev not in _sms:
         _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    mt, kc, ksplit = split_plan(M, K, N, _sms[dev])
-    partial = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
-               if ksplit > 1 else None)
-    fn = _fn("int8_matmul", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), w_int8.data_ptr(), scales.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            out.data_ptr(), M, K, N, mt, kc, ksplit, DTYPES[x.dtype],
-            _build.launch_stream(x.device))
+    kc, ksplit, _ = stream_plan(M, K, N, _sms[dev])
+    fn = _fn("int8_matmul", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), w_int8.data_ptr(), scales.data_ptr(), out.data_ptr(), M, K, N, kc,
+            ksplit, DTYPES[x.dtype], _build.launch_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {rc}")
     int8_matmul.launches += 1

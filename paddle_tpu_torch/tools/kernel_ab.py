@@ -7,6 +7,25 @@ Usage, from the root of a checkout on a machine with a card::
     python -m paddle_tpu_torch.tools.kernel_ab --f32 VARIANT.cu [VARIANT.cu ...]
     python -m paddle_tpu_torch.tools.kernel_ab --quant [--no-check] VARIANT.cu [...]
     python -m paddle_tpu_torch.tools.kernel_ab --paged VARIANT.cu [VARIANT.cu ...]
+    python -m paddle_tpu_torch.tools.kernel_ab --stream [--no-check] VARIANT.cu [...]
+
+The ``--stream`` form takes copies of ``csrc/quant_matmul.cu`` for the
+weight stream (M <= 64): the current interface (it exports
+``int8_stream_abi``: one launch, K cut into slices that a thread-block
+cluster adds) or the SIMT one before it (a K-split kernel writing f32
+partials into per-call scratch, then a finalize kernel, called as its
+wrapper called it; ``git show <commit>:<path>`` gives one). Each runs in a
+child process, in the order given (the same source may be named twice):
+held against the plain version at the eight Llama-3-8B decode shapes
+(chip_smoke.py's GEMM_SHAPES) at M = 8 in bf16 and f32 and two calls bit
+for bit, then timed at each shape at M = 1, 8, 16 and 64 with
+chip_smoke.py's CUDA-graph timing (weights cycled past the L2), with the
+decode step's sum (225 calls) at each M. The bf16 GEMM on weights
+dequantized before timing (the bf16 engine's own call) is timed before
+and after as the yardstick; ``--no-check`` times copies that skip part
+of the work; ``VARIANT.cu@NAME=VALUE,...`` plans the calls with the
+wrapper's plan constants so set (``_BLOCKS_PER_SM``, ``_FILL``,
+``_MAX_SPLIT``: how finely K is cut).
 
 The ``--paged`` form takes copies of ``csrc/paged_attention.cu``: the
 current interface (one launch; it exports ``paged_attention_abi``) or the
@@ -59,6 +78,7 @@ backward are timed before and after, in the same run, as the yardstick.
 from __future__ import annotations
 
 import ctypes
+import json
 import re
 import subprocess
 import sys
@@ -276,6 +296,130 @@ def run_quant_variant(lib: str, check: bool = True):
           f"fwd_ms {fwd:.5f} dx_ms {dx:.5f}", flush=True)
 
 
+STREAM_M = (1, 8, 16, 64)
+
+
+def _legacy_split_plan(M: int, K: int, N: int, sms: int):
+    """The earlier stream's plan (rows of x a block, K rows a block, K
+    slices), as its wrapper computed it."""
+    mt = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
+    blocks = -(-N // 128) * -(-M // mt)
+    want = max(1, -(-2 * sms // blocks))
+    kc = max(256, -(-K // want))
+    kc = min(32 * 1024 // (4 * mt), -(-kc // 16) * 16)
+    return mt, kc, -(-K // kc)
+
+
+def _legacy_stream(lib):
+    """``kern(x, w, s)`` over a library of the earlier stream interface,
+    its f32 partials allocated per call as its wrapper did."""
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+
+    fn = lib.int8_matmul
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def kern(x, w, s):
+        M, K = x.shape
+        N = w.shape[1]
+        mt, kc, ksplit = _legacy_split_plan(M, K, N, sms)
+        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+        part = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
+                if ksplit > 1 else None)
+        rc = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(),
+                part.data_ptr() if part is not None else None, out.data_ptr(), M, K, N, mt, kc,
+                ksplit, 0 if x.dtype == torch.float32 else 1, _build.launch_stream(x.device))
+        if rc:
+            raise RuntimeError(f"legacy weight stream: error {rc}")
+        return out
+
+    return kern
+
+
+def stream_times(gen, kern) -> dict:
+    """{M: (decode step ms, {shape: ms})} of ``kern(x, w, s)`` at the
+    decode shapes, CUDA-graph timed with weights cycled past the L2."""
+    import math
+
+    import chip_smoke as cs
+    import torch
+
+    out = {M: [0.0, {}] for M in STREAM_M}
+    for name, K, N, per_step in cs.GEMM_SHAPES:
+        n_bufs = max(1, min(8, math.ceil(3 * cs.L2_BYTES / (K * N))))
+        ws = [torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+              for _ in range(n_bufs)]
+        ss = [torch.rand((N,), generator=gen, device="cuda") * 0.02 + 1e-3
+              for _ in range(n_bufs)]
+        for M in STREAM_M:
+            x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+            ms = cs.device_ms(lambda i: kern(x, ws[i], ss[i]), n_bufs)
+            out[M][0] += per_step * ms
+            out[M][1][name] = round(ms, 5)
+        del ws, ss
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_gemm_ms(gen) -> str:
+    """The decode step at M = 8 through ``torch.matmul`` on bf16 weights
+    (dequantized before timing) times the scales: the bf16 engine's call."""
+    import chip_smoke as cs
+    import torch
+
+    total = 0.0
+    for _, K, N, per_step in cs.GEMM_SHAPES:
+        w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8).to(torch.bfloat16)
+        s = torch.rand((N,), generator=gen, device="cuda") * 0.02 + 1e-3
+        x = torch.randn((8, K), generator=gen, device="cuda").bfloat16()
+        total += per_step * cs.device_ms(lambda i: torch.matmul(x, w) * s, 1)
+        del w
+        torch.cuda.empty_cache()
+    return f"{total:.5f}"
+
+
+def run_stream_variant(lib: str, check: bool = True, plan: str = ""):
+    """Check (unless ``check`` is false) and time one weight-stream library
+    (in a child process), with the plan constants ``plan`` sets
+    (``NAME=VALUE,...``)."""
+    import chip_smoke as cs
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import quant_matmul as qm
+
+    for item in filter(None, plan.split(",")):
+        name, value = item.split("=")
+        setattr(qm, name, type(getattr(qm, name))(float(value)))
+    cdll = ctypes.CDLL(lib)
+    if hasattr(cdll, "int8_stream_abi"):
+        _build._loaded["quant_matmul"] = cdll
+        kern = qm.int8_matmul
+    else:
+        kern = _legacy_stream(cdll)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    err, same = 0.0, True
+    for name, K, N, _ in cs.GEMM_SHAPES if check else ():
+        w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        s = torch.rand((N,), generator=gen, device="cuda") * 0.02 + 1e-3
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((8, K), generator=gen, device="cuda").to(dt)
+            got, want = kern(x, w, s), qm.int8_matmul_ref(x, w, s)
+            same = same and torch.equal(got, kern(x, w, s))
+            err = max(err, cs.hold_gemm_f32(f"{name} f32", got, want) if dt == torch.float32
+                      else cs.hold_gemm(f"{name} bf16", got, want))
+        del w
+    times = stream_times(gen, kern)
+    line = "; ".join(f"M{M} step {t[0]:.5f} ms {json.dumps(t[1])}" for M, t in times.items())
+    print(f"{Path(lib).name}: max_abs_err {err if check else 'not checked'} bit_identical "
+          f"{same}; {line}", flush=True)
+
+
 def _legacy_paged(lib):
     """``kern(q, pk, pv, table, ln)`` over a library of the first interface:
     its tile rule (whole pages, up to 64 slots and 40 KB of shared memory)
@@ -364,6 +508,9 @@ def main(argv) -> int:
     if argv[:1] == ["--run-f32"]:
         run_f32_variant(argv[1])
         return 0
+    if argv[:1] == ["--run-stream"]:
+        run_stream_variant(argv[-2], check=argv[1] != "--no-check", plan=argv[-1])
+        return 0
     import chip_smoke as cs
     import torch
 
@@ -386,6 +533,31 @@ def main(argv) -> int:
             print(r.stdout.strip() or f"{src}: exit {r.returncode}\n{r.stderr[-800:]}",
                   flush=True)
         print("cublas fwd/dx ms", cublas_ms(gen), flush=True)
+        return 0
+    if argv[:1] == ["--stream"]:
+        flags = ["--no-check"] if argv[1:2] == ["--no-check"] else []
+        variants = [(str(Path(a.split("@")[0]).resolve()), a.split("@")[1] if "@" in a else "")
+                    for a in argv[1 + len(flags):]]
+        libs = {}
+        for i, src in enumerate(dict.fromkeys(src for src, _ in variants)):  # stems may clash
+            d = out_dir / "stream" / str(i)
+            d.mkdir(parents=True, exist_ok=True)
+            libs.update(build([src], d))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        print("bf16 gemm decode step M8 ms", bf16_gemm_ms(gen), flush=True)
+        for a, (src, plan) in zip(argv[1 + len(flags):], variants):
+            lib = libs.get(src)
+            if lib is None:
+                print(f"{a}: did not build", flush=True)
+                continue
+            r = subprocess.run(["timeout", "-k", "5", "300", sys.executable, "-m",
+                                "paddle_tpu_torch.tools.kernel_ab", "--run-stream", *flags,
+                                str(lib), plan],
+                               capture_output=True, text=True, cwd=str(ROOT))
+            print(f"{a}: " + (r.stdout.strip() or f"exit {r.returncode}\n{r.stderr[-800:]}"),
+                  flush=True)
+        print("bf16 gemm decode step M8 ms", bf16_gemm_ms(gen), flush=True)
         return 0
     if argv[:1] == ["--paged"]:
         flags = ["--no-check"] if argv[1:2] == ["--no-check"] else []

@@ -134,6 +134,11 @@ def _attention_case(dev, lengths, H, Hk, hd, bs, MB, dtype, seed):
     (24, 2, 128, 16, 7, torch.bfloat16),             # 12 heads a KV head: two passes
     (6, 2, 8, 256, 2, torch.bfloat16),               # the smallest head dim, the largest page
     (20, 4, 40, 5, 13, torch.float16),               # 5 heads a KV head, pages of 5 slots
+    # rows that are no multiple of 16 bytes: no tensor map, the warp copies
+    (32, 8, 20, 16, 10, torch.bfloat16),
+    (32, 8, 100, 8, 12, torch.float16),
+    (32, 8, 6, 16, 10, torch.float32),
+    (8, 2, 7, 4, 9, torch.bfloat16),                 # an odd head dim: 2-byte copies
 ])
 def test_paged_attention_matches_plain(dev, H, Hk, hd, bs, MB, dtype):
     cap = MB * bs
@@ -188,8 +193,14 @@ def test_paged_attention_is_one_kernel(dev):
     assert len(ran) == 1 and "paged_decode_kernel" in ran[0], ran
 
 
-@pytest.mark.parametrize("M", [1, 2, 3, 5, 8, 13, 16, 33, 64])
-@pytest.mark.parametrize("K,N", [(32, 16), (272, 400), (4096, 1024), (1024, 4096)])
+# the weight stream's shapes: Llama-3-8B's projections and head, the
+# smallest K and N, and a K that ends a quarter into a 64-row stage
+STREAM_SHAPES = [(16, 16), (4112, 400), (4096, 4096), (4096, 1024), (4096, 14336),
+                 (14336, 4096), (4096, 128256)]
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 8, 9, 16, 33, 63, 64])
+@pytest.mark.parametrize("K,N", STREAM_SHAPES)
 def test_int8_matmul_matches_plain(dev, M, K, N):
     g = torch.Generator(device=dev)
     g.manual_seed(M * 31 + K + N)
@@ -215,8 +226,8 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         qm.int8_matmul(x.half(), w, s)              # fp16 activations
     with pytest.raises(ValueError):
         qm.int8_matmul(x.bfloat16(), w[:24], s)     # K mismatch
-    q = torch.zeros((2, 4, 44), dtype=torch.bfloat16, device=dev)
-    pages = torch.zeros((3, 4, 2, 44), dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((2, 4, 264), dtype=torch.bfloat16, device=dev)     # head_dim past 256
+    pages = torch.zeros((3, 4, 2, 264), dtype=torch.bfloat16, device=dev)
     table = torch.zeros((2, 2), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         pa.paged_decode_attention(q, pages, pages, table,
@@ -748,6 +759,70 @@ def test_int8_f32_activations_match_plain(dev, M, K, N):
     _assert_gemm_f32_close(dx, qm.int8_matmul_dx_ref(dout, w, s), N)
     pieces = qm.int8_prepass(dout, s)
     assert torch.equal(pieces, qm.split3(dout * s))
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 33, 64])
+@pytest.mark.parametrize("K,N", STREAM_SHAPES)
+def test_int8_stream_f32_matches_plain(dev, M, K, N):
+    """f32 x on the weight stream at its present elementwise limit: each
+    16-deep step's three piece products are added in f32 registers."""
+    x, _, w, s = _gemm_inputs(dev, M, K, N, seed=M + K + N)
+    x = x.float() + 1e-3 * torch.randn_like(x.float())    # all 24 bits in use
+    before = qm.int8_matmul.launches
+    out = qm.int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert qm.int8_matmul.launches == before + 1
+    _assert_gemm_f32_close(out, qm.int8_matmul_ref(x, w, s))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (64, 4096, 1024), (8, 4096, 128256),
+                                   (16, 14336, 4096)])
+def test_int8_stream_is_one_deterministic_capturable_kernel(dev, M, K, N):
+    """A profiler trace shows one kernel a call (no finalize kernel, no
+    memset), two calls agree bit for bit (the K slices are reduced in
+    order in the launch) and one captured CUDA graph replays it on new
+    inputs."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    # the trace in a process of its own: after some of this file's tests the
+    # profiler of this process records no kernel of the stream (alone, and
+    # in chip_smoke.py, it records each)
+    code = ("import sys, torch; sys.path.insert(0, sys.argv[1]); "
+            "from torch.profiler import ProfilerActivity, profile; "
+            "from paddle_tpu_torch.ops import quant_matmul as qm; "
+            "M, K, N = map(int, sys.argv[2:]); "
+            "x = torch.randn((M, K), device='cuda').bfloat16(); "
+            "w = torch.randint(-127, 128, (K, N), device='cuda', dtype=torch.int8); "
+            "s = torch.rand((N,), device='cuda'); qm.int8_matmul(x, w, s); "
+            "torch.cuda.synchronize()\n"
+            "with profile(activities=[ProfilerActivity.CUDA]) as prof:\n"
+            "    qm.int8_matmul(x, w, s); torch.cuda.synchronize()\n"
+            "import json; print(json.dumps([e.name for e in prof.events() "
+            "if e.device_type == torch.autograd.DeviceType.CUDA]))")
+    root = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", code, root, str(M), str(K), str(N)],
+                         capture_output=True, text=True, timeout=300)
+    ran = json.loads(out.stdout.strip().splitlines()[-1]) if out.stdout.strip() else out.stderr
+    assert len(ran) == 1 and "int8_stream_kernel" in ran[0], ran
+
+    x, _, w, s = _gemm_inputs(dev, M, K, N, seed=M + N)
+    first = qm.int8_matmul(x, w, s)
+    assert torch.equal(first, qm.int8_matmul(x, w, s))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qm.int8_matmul(x, w, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qm.int8_matmul(x, w, s)
+    x.copy_(torch.randn_like(x.float()).bfloat16())
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_gemm_close(out, qm.int8_matmul_ref(x, w, s))
 
 
 def test_int8_dx_prepass_rounds_like_plain(dev):

@@ -137,7 +137,7 @@ def test_prefill_attend_matches_reference(start, C):
 
 
 @pytest.mark.parametrize("bad, err", [
-    (dict(hd=20), ValueError),                 # not a multiple of 8
+    (dict(hd=257), ValueError),                # past the kernel's 256 by one
     (dict(hd=264), ValueError),                # past the kernel's 256
     (dict(hk=3), ValueError),                  # H % Hk != 0
     (dict(bs=512), ValueError),                # a page past 256 slots
@@ -157,10 +157,14 @@ def test_card_checks_reject_what_the_kernel_does_not_take(bad, err):
 
 @pytest.mark.parametrize("dtype,hd", [(torch.float16, 128), (torch.float16, 80),
                                       (torch.float32, 80), (torch.float32, 96),
-                                      (torch.bfloat16, 96), (torch.float16, 8)])
+                                      (torch.bfloat16, 96), (torch.float16, 8),
+                                      (torch.bfloat16, 20), (torch.float16, 100),
+                                      (torch.float32, 6)])
 def test_card_checks_take_what_the_reference_serves(dtype, hd):
-    """bf16, fp16 and f32 at any head_dim % 8 == 0: the reference's
-    composed path serves them all, so the card takes them too."""
+    """bf16, fp16 and f32 at any head_dim up to 256: the reference's
+    composed path serves them all, so the card takes them too (a head_dim
+    whose rows TMA cannot map, such as 20, 100 or 6, through the kernel's
+    copying producer)."""
     q = torch.zeros((2, 8, hd), dtype=dtype)
     pages = torch.zeros((3, 16, 2, hd), dtype=dtype)
     port_ops._check(q, pages, pages, torch.zeros((2, 2), dtype=torch.int32),
@@ -187,10 +191,13 @@ PARITY_TOL = {np.float16: 4e-3, np.float32: 1e-5}
 
 @pytest.mark.parametrize("np_dtype,hd", [(np.float16, 128), (np.float16, 80),
                                          (np.float32, 80), (np.float32, 96),
-                                         (np.float16, 96)])
+                                         (np.float16, 96), (np.float16, 20),
+                                         (np.float32, 20), (np.float32, 6)])
 def test_plain_matches_reference_in_fp16_and_other_head_dims(np_dtype, hd):
     """The plain version against the reference's composed path in fp16
-    and at head_dim 80 and 96, which the card now takes."""
+    and at head_dims 80, 96, 20 and 6, which the card takes (the last two
+    are served by the reference's composed path only: its kernel gate
+    declines them)."""
     rng = np.random.RandomState(hd)
     lengths = [0, 19, 7, MB * BS - 1]
     lanes, nb = len(lengths), 1 + len(lengths) * MB

@@ -100,11 +100,60 @@ def test_card_checks_reject_what_the_kernel_does_not_take(bad, err):
 @pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (4096, 14336),
                                  (14336, 4096), (4096, 128256), (32, 16)])
 def test_split_plan_covers_k_once(M, K, N):
-    mt, kc, ksplit = port_qm.split_plan(M, K, N, sms=132)
-    assert mt in (1, 2, 4, 8) and (mt >= M or mt == 8)
-    assert kc % 16 == 0
-    assert kc * ksplit >= K > kc * (ksplit - 1)   # every slice non-empty
-    assert mt * kc * 4 <= 32 * 1024                 # f32 x tile fits its smem
+    """The weight stream's schedule (``stream_plan``): every K row in exactly
+    one slice of whole 128-row blocks, every slice non-empty, at most 8
+    slices (one portable cluster a column tile), K cut only where the
+    column tiles leave more than a quarter of the 132 SMs idle, and then
+    the grid at most 1.75 blocks an SM."""
+    kc, ksplit, blocks = port_qm.stream_plan(M, K, N, sms=132)
+    tiles = -(-N // 128)
+    assert kc % 128 == 0 and 1 <= ksplit <= 8
+    assert kc * ksplit >= K > kc * (ksplit - 1)      # every row once, every slice non-empty
+    rows = sorted(r for q in range(ksplit) for r in range(q * kc, min(K, (q + 1) * kc)))
+    assert rows == list(range(K))
+    assert blocks == tiles * ksplit
+    if tiles >= 0.75 * 132:
+        assert ksplit == 1
+    else:
+        assert blocks <= 1.75 * 132
+
+
+# the weight stream's sum order (int8_matmul_blocked) against the reference:
+# f32 x sums the same exact products (its three bf16 pieces' products add
+# up to x * w exactly) in another order: an f32 sum over K = 1040 carries a
+# few ulps of its largest partial sums, so 1e-5 relative plus 1e-5 of the
+# largest output (chip_smoke.py's GEMM_F32_RTOL / GEMM_F32_ATOL_FRAC).
+# bf16 x: one bf16 rounding of f32 sums taken in another order on each side,
+# a step apart at most (2^-7 relative), plus 1e-3 of the largest output for
+# the sums that cancel near zero (GEMM_RTOL / GEMM_ATOL_FRAC).
+BLOCKED_F32_ATOL_FRAC, BLOCKED_ATOL_FRAC = 1e-5, 1e-3
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 33, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stream_sum_order_matches_reference(M, dtype):
+    """K = 1040, N = 384: three column tiles, so the plan cuts K into 5
+    slices of 256 rows, the last of 16 (a quarter of a 64-row stage); the
+    reference's Pallas kernel (interpret mode) takes M % 8 == 0, its
+    composed int8_matmul_xla the other M."""
+    K, N = 1040, 384
+    x, w, s = _case(M, K, N, seed=M + (dtype == "float32"))
+    kc, ksplit, _ = port_qm.stream_plan(M, K, N, sms=132)
+    assert (kc, ksplit) == (256, 5)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = port_qm.int8_matmul_blocked(xt, torch.from_numpy(w), torch.from_numpy(s)).float()
+    xj = jnp.asarray(xt.float().numpy(), getattr(jnp, dtype))
+    ref = ref_qm.int8_matmul if M % 8 == 0 else ref_qm.int8_matmul_xla
+    want = np.asarray(ref(xj, jnp.asarray(w), jnp.asarray(s)).astype(jnp.float32))
+    plain = port_qm.int8_matmul_ref(xt, torch.from_numpy(w), torch.from_numpy(s)).float()
+    if dtype == "float32":
+        atol = BLOCKED_F32_ATOL_FRAC * np.abs(want).max()
+        np.testing.assert_allclose(got.numpy(), want, rtol=F32_RTOL, atol=atol)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=F32_RTOL, atol=atol)
+    else:
+        atol = BLOCKED_ATOL_FRAC * np.abs(want).max()
+        np.testing.assert_allclose(got.numpy(), want, rtol=BF16_RTOL, atol=atol)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=BF16_RTOL, atol=atol)
 
 
 def _tree(seed, dtype=np.float32):
