@@ -7,9 +7,10 @@
 // int8 engine, and which `nn.quant` fine-tuning reaches for every frozen
 // projection, and `_dx_pallas` (:143-162, body `_bwd_dx_kernel` :73-87),
 // its backward dX. Computes out[M, N] = T((x[M, K] @ W[K, N]) * scales[N])
-// for x of type T (bf16 or f32): each product is exact in f32, products are
-// summed in f32 over K, the sum is multiplied by the per-output-channel
-// scale in f32 and cast to T once.
+// for x of type T (bf16, fp16 or f32; the reference's `matmul_gate` sends
+// an fp16 serving engine's projections here too): each product is exact in
+// f32, products are summed in f32 over K, the sum is multiplied by the
+// per-output-channel scale in f32 and cast to T once. dX takes bf16 or f32.
 //
 // Two designs, switched by M as the reference's `_fwd_blocks` (:98-113)
 // switches to compute-shaped blocks past M = 64:
@@ -65,7 +66,10 @@ __device__ __forceinline__ void widen4(uint32_t v, float* f) {
 //   an instruction group: a byte permute puts the bytes of two rows into the
 //   low bytes of a bf16 pair, one LOP3 makes 128 + (b & 127) (0x43 in the
 //   high byte), one makes -(128 + (b & 128)), and one bf16x2 add gives
-//   b - 256 (b >> 7), the int8 value. Output column order within a tile is
+//   b - 256 (b >> 7), the int8 value. For fp16 x the weights widen to fp16
+//   pairs, as exactly: one LOP3 puts the byte, biased to unsigned, into
+//   the mantissa of 1024 (0x6400: 1024 + (b + 128)), and one f16x2 add of
+//   -1152 gives b; the products then run as `mma.sync` f16 with f32 sums. Output column order within a tile is
 //   free: the m16 tile j of a warp holds columns 16 g + 2 j (rows g) and
 //   16 g + 2 j + 1 (rows g + 8), so each 16-byte load feeds eight tiles and
 //   no widened copy of W is written to shared memory. x's B fragments come
@@ -137,8 +141,7 @@ struct Geometry {
   // up to 8 lanes, or 16 of bf16 x: eight consumer warps, each one
   // 16-deep step of a 128-row stage; more lanes: four (their accumulators
   // take the registers)
-  static constexpr int kWarps =
-      LG == 1 && (NTW == 1 || (NTW == 2 && std::is_same<T, __nv_bfloat16>::value)) ? 8 : 4;
+  static constexpr int kWarps = LG == 1 && (NTW == 1 || (NTW == 2 && sizeof(T) == 2)) ? 8 : 4;
   static constexpr int kThreads = 32 * (kWarps + 1);  // + the producer warp
   static constexpr int kBK = 16 * kWarps;             // K rows of a stage
   static constexpr int kWBytes = kBK * kCols;         // the W box, int8, swizzled
@@ -161,27 +164,41 @@ struct Geometry {
   }
 };
 
-// two weights of rows u and v (byte b of each) -> a bf16 pair, exactly:
-// (128 + (b & 127)) - (128 + (b & 128)) == b as an int8
-template <int B>
+// two weights of rows u and v (byte b of each) -> a pair of x's 16-bit
+// type (bf16 for bf16 and f32 x, fp16 for fp16 x), exactly. bf16:
+// (128 + (b & 127)) - (128 + (b & 128)) == b as an int8; fp16: (1024 +
+// (b ^ 0x80)) - 1152 == b.
+template <typename T, int B>
 __device__ __forceinline__ uint32_t widen2(uint32_t u, uint32_t v) {
   const uint32_t p = __byte_perm(u, v, B | B << 4 | (4 + B) << 8 | (4 + B) << 12);
-  const uint32_t x = (p & 0x007F007Fu) | 0x43004300u;
-  const uint32_t c = (p & 0x00800080u) | 0xC300C300u;
   uint32_t r;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(x), "r"(0x3F803F80u), "r"(c));
+  if constexpr (std::is_same<T, __half>::value) {
+    const uint32_t x = (p & 0x00FF00FFu) ^ 0x64806480u;
+    asm("add.rn.f16x2 %0, %1, %2;\n" : "=r"(r) : "r"(x), "r"(0xE480E480u));
+  } else {
+    const uint32_t x = (p & 0x007F007Fu) | 0x43004300u;
+    const uint32_t c = (p & 0x00800080u) | 0xC300C300u;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(x), "r"(0x3F803F80u), "r"(c));
+  }
   return r;
 }
 
-// D[16 x 8] (+)= A[16 x 16] B[16 x 8], bf16 inputs, f32 sums. A: a0 (row g,
-// k 2t..2t+1), a1 (row g + 8), a2 (row g, k 2t+8..2t+9), a3 (row g + 8).
-// B: b0 (k 2t..2t+1 of column g), b1 (k 2t+8..2t+9). D: d0, d1 row g
-// columns 2t, 2t + 1; d2, d3 row g + 8.
+// D[16 x 8] (+)= A[16 x 16] B[16 x 8], bf16 (or, for fp16 x, f16) inputs,
+// f32 sums. A: a0 (row g, k 2t..2t+1), a1 (row g + 8), a2 (row g, k
+// 2t+8..2t+9), a3 (row g + 8). B: b0 (k 2t..2t+1 of column g), b1 (k
+// 2t+8..2t+9). D: d0, d1 row g columns 2t, 2t + 1; d2, d3 row g + 8.
+template <typename T>
 __device__ __forceinline__ void mma_acc(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same<T, __half>::value)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
@@ -234,6 +251,8 @@ __global__ void __launch_bounds__(Geometry<T, NTW, LG>::kThreads, 2)
     int8_stream_kernel(const __grid_constant__ CUtensorMap tw,
                        const __grid_constant__ CUtensorMap tx, const Args a) {
   constexpr bool kF32 = std::is_same<T, float>::value;
+  using W = typename std::conditional<std::is_same<T, __half>::value, __half,
+                                      __nv_bfloat16>::type;   // the widened weights' type
   using G = Geometry<T, NTW, LG>;
   constexpr int MP = G::MP;                       // lanes of the x box
   constexpr int kWarps = G::kWarps, kBK = G::kBK, kWBytes = G::kWBytes;
@@ -359,26 +378,26 @@ __global__ void __launch_bounds__(Geometry<T, NTW, LG>::kThreads, 2)
           const uint32_t* w3 = reinterpret_cast<const uint32_t*>(&w[3]) + (j >> 1);
           uint32_t af[4];
           if (j & 1) {
-            af[0] = widen2<2>(*w0, *w1);
-            af[1] = widen2<3>(*w0, *w1);
-            af[2] = widen2<2>(*w2, *w3);
-            af[3] = widen2<3>(*w2, *w3);
+            af[0] = widen2<W, 2>(*w0, *w1);
+            af[1] = widen2<W, 3>(*w0, *w1);
+            af[2] = widen2<W, 2>(*w2, *w3);
+            af[3] = widen2<W, 3>(*w2, *w3);
           } else {
-            af[0] = widen2<0>(*w0, *w1);
-            af[1] = widen2<1>(*w0, *w1);
-            af[2] = widen2<0>(*w2, *w3);
-            af[3] = widen2<1>(*w2, *w3);
+            af[0] = widen2<W, 0>(*w0, *w1);
+            af[1] = widen2<W, 1>(*w0, *w1);
+            af[2] = widen2<W, 0>(*w2, *w3);
+            af[3] = widen2<W, 1>(*w2, *w3);
           }
 #pragma unroll
           for (int n = 0; n < NTW; ++n) {
             if constexpr (kF32) {
               float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-              for (int q = 0; q < 3; ++q) mma_acc(d, af, b[n][q][0], b[n][q][1]);
+              for (int q = 0; q < 3; ++q) mma_acc<W>(d, af, b[n][q][0], b[n][q][1]);
 #pragma unroll
               for (int i = 0; i < 4; ++i) acc[j][n][i] += d[i];
             } else {
-              mma_acc(acc[j][n], af, b[n][0][0], b[n][0][1]);
+              mma_acc<W>(acc[j][n], af, b[n][0][0], b[n][0][1]);
             }
           }
         }
@@ -443,13 +462,13 @@ __global__ void __launch_bounds__(Geometry<T, NTW, LG>::kThreads, 2)
       *reinterpret_cast<float4*>(out + (size_t)m * a.N + col) = v;
     } else {
       *reinterpret_cast<uint2*>(out + (size_t)m * a.N + col) =
-          make_uint2(pack2<__nv_bfloat16>(v.x, v.y), pack2<__nv_bfloat16>(v.z, v.w));
+          make_uint2(pack2<T>(v.x, v.y), pack2<T>(v.z, v.w));
     }
   }
 }
 
 // W [K, N] int8 as (N, K), boxes of 128 columns x a stage's rows; x [M, K]
-// as (K, M), boxes of 64 (bf16) or 32 (f32) columns x MP rows; 128-byte
+// as (K, M), boxes of 64 (bf16, fp16) or 32 (f32) columns x MP rows; 128-byte
 // swizzle, zeros past every edge
 int map_stream(CUtensorMap* map, const void* base, CUtensorMapDataType type, int es, int cols,
                int rows, int box_cols, int box_rows) {
@@ -473,9 +492,10 @@ int launch(const void* x, const void* w, const void* scales, void* out, int M, i
   CUtensorMap mw, mx;
   if (int e = map_stream(&mw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, kCols, G::kBK))
     return e;
-  if (int e = map_stream(&mx, x,
-                         kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                         sizeof(T), K, M, kF32 ? 32 : 64, G::MP))
+  const CUtensorMapDataType xt = kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (int e = map_stream(&mx, x, xt, sizeof(T), K, M, kF32 ? 32 : 64, G::MP))
     return e;
   const Args a{static_cast<const float*>(scales), out, M, K, N, kc, ksplit, G::stages()};
   const int smem = G::smem(a.stages);
@@ -637,8 +657,10 @@ struct Args {
   int pieces;    // activation pieces summed (1, or 3 for the f32 split)
 };
 
-// 16 int8 -> 16 bf16 (exact), in order, as two 16-byte vectors. The f32
-// value of an int8 has its low 16 bits zero, so its bf16 is its high half.
+// 16 int8 -> 16 of type In (exact), in order, as two 16-byte vectors. The
+// f32 value of an int8 has its low 16 bits zero, so its bf16 is its high
+// half; an int8 is exact in fp16 too.
+template <typename In>
 __device__ __forceinline__ void widen16(const uint4& v, uint4* out) {
   const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
   uint32_t* o = reinterpret_cast<uint32_t*>(out);
@@ -646,8 +668,13 @@ __device__ __forceinline__ void widen16(const uint4& v, uint4* out) {
   for (int i = 0; i < 4; ++i) {
     float f[4];
     widen4(w[i], f);
-    o[2 * i] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-    o[2 * i + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+    if constexpr (std::is_same<In, __half>::value) {
+      o[2 * i] = pack2<__half>(f[0], f[1]);
+      o[2 * i + 1] = pack2<__half>(f[2], f[3]);
+    } else {
+      o[2 * i] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+      o[2 * i + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+    }
   }
 }
 
@@ -656,7 +683,7 @@ __device__ __forceinline__ void widen16(const uint4& v, uint4* out) {
 // 64 columns c by 64 rows r; dX: one box of 128 rows c by 64 columns r),
 // pieces t, t + kHelpers, ... of 16 int8 each; every load is issued before
 // the first store.
-template <bool kDx>
+template <bool kDx, typename In>
 __device__ __forceinline__ void widen_tile(const unsigned char* raw, unsigned char* b, int t) {
   constexpr int kPerRow = kDx ? kBK / 16 : kBN / 16;
   constexpr int kStride = kHelpers;
@@ -673,7 +700,7 @@ __device__ __forceinline__ void widen_tile(const unsigned char* raw, unsigned ch
     if (u >= kUnits) break;
     const int row = u / kPerRow, col16 = u % kPerRow;
     uint4 h[2];
-    widen16(v[i], h);
+    widen16<In>(v[i], h);
     unsigned char* rp = b + (kDx ? 0 : (col16 >> 2) * (kBK * 128)) + row * 128;
     const int ch = (col16 & 3) * 2, sw = row & 7;
     *reinterpret_cast<uint4*>(rp + ((ch ^ sw) << 4)) = h[0];
@@ -686,8 +713,14 @@ __device__ __forceinline__ void store2(OutT* p, float a, float b) {
   if constexpr (std::is_same<OutT, float>::value)
     *reinterpret_cast<float2*>(p) = make_float2(a, b);
   else
-    *reinterpret_cast<uint32_t*>(p) = pack2<__nv_bfloat16>(a, b);
+    *reinterpret_cast<uint32_t*>(p) = pack2<OutT>(a, b);
 }
+
+// The activation type of an output type: fp16 runs fp16 products, bf16 and
+// f32 (as its split) bf16 ones.
+template <typename OutT>
+using InOf = typename std::conditional<std::is_same<OutT, __half>::value, __half,
+                                       __nv_bfloat16>::type;
 
 template <bool kDx, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -746,7 +779,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t ph = (it / kStages) & 1;
       unsigned char* base = sm + st * kStageBytes;
       mbar_wait(full + st, ph);
-      widen_tile<kDx>(base + kABytes + kBBytes, base + kABytes, ht);
+      widen_tile<kDx, InOf<OutT>>(base + kABytes + kBBytes, base + kABytes, ht);
       fence_proxy_async();
       __syncwarp();
       if (lane == 0) mbar_arrive(ready + st);
@@ -772,7 +805,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint64_t db = kDx ? kmajor(bs + kk * 32) : mnmajor(bs + kk * 16 * 128, kBK * 128);
 #pragma unroll
         for (int h = 0; h < kHalves; ++h)
-          Mma<__nv_bfloat16, kBN>::template ss<kDx ? 0 : 1>(
+          Mma<InOf<OutT>, kBN>::template ss<kDx ? 0 : 1>(
               acc[h], kmajor(as + h * 64 * 128 + kk * 32), db, 1);
       }
       wg_commit();
@@ -808,18 +841,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The activation map: [pieces, rows, R] bf16 as (R, rows, pieces), boxes of
-// 64 x 256 x 1, 128-byte swizzle. The W map: [K, N] int8 as (N, K), boxes
+// The activation map: [pieces, rows, R] bf16 (or fp16) as (R, rows,
+// pieces), boxes of 64 x 256 x 1, 128-byte swizzle. The W map: [K, N] int8 as (N, K), boxes
 // of 128 x 64 (forward: 64 rows of W, 128 columns) or 64 x 128 (dX: 128
 // rows of W, 64 columns), unswizzled. Reads past an edge give zeros.
-int map_a(CUtensorMap* map, const void* base, int pieces, int rows, int R) {
+int map_a(CUtensorMap* map, const void* base, int pieces, int rows, int R, bool f16) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kTmaError + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[3] = {(cuuint64_t)R, (cuuint64_t)rows, (cuuint64_t)pieces};
   const cuuint64_t strides[2] = {(cuuint64_t)R * 2, (cuuint64_t)rows * R * 2};
   const cuuint32_t box[3] = {kBK, kBM, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  const CUresult r = encode(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            3, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -846,7 +880,7 @@ int launch_tc(const void* act, int pieces, const void* w, const void* scales, vo
               int K, int N, cudaStream_t stream) {
   const int R = kDx ? N : K, C = kDx ? K : N;
   CUtensorMap ma, mw;
-  if (int e = map_a(&ma, act, pieces, M, R)) return e;
+  if (int e = map_a(&ma, act, pieces, M, R, std::is_same<OutT, __half>::value)) return e;
   if (int e = map_w(&mw, w, K, N, kDx)) return e;
   auto kernel = int8_tc_kernel<kDx, OutT>;
   if (cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -921,22 +955,28 @@ __global__ void prepass_kernel(const T* __restrict__ x, const float* __restrict_
 
 }  // namespace
 
-// The tensor-core kernel. Forward (dx 0): act [pieces, M, K] bf16, w int8
-// [K, N], scales f32 [N] -> out [M, N]. dX (dx 1): act [pieces, M, N] bf16,
-// already scaled by the pre-pass -> out [M, K]. out is f32 when out_f32 is
-// set, else bf16. The caller has checked K % 16 == 0, N % 16 == 0, 16-byte
-// alignment, contiguity and dtypes. Returns the cudaError_t of the launch
-// (0 on success), or 10000 + the CUresult of a tensor map the driver
-// refused.
+// The tensor-core kernel. Forward (dx 0): act [pieces, M, K] bf16 (fp16
+// when out is), w int8 [K, N], scales f32 [N] -> out [M, N]. dX (dx 1): act
+// [pieces, M, N] bf16, already scaled by the pre-pass -> out [M, K]. out is
+// bf16 (out_type 0), f32 (1) or, for the forward, fp16 (2). The caller has
+// checked K % 16 == 0, N % 16 == 0, 16-byte alignment, contiguity and
+// dtypes. Returns the cudaError_t of the launch (0 on success), or 10000 +
+// the CUresult of a tensor map cuTensorMapEncodeTiled refused.
 extern "C" int int8_matmul_tc(const void* act, int pieces, const void* w, const void* scales,
-                              void* out, int M, int K, int N, int dx, int out_f32, void* stream) {
+                              void* out, int M, int K, int N, int dx, int out_type,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pieces < 1) return (int)cudaErrorInvalidValue;
+  if (pieces < 1 || out_type < 0 || out_type > 2 || (dx && out_type == 2))
+    return (int)cudaErrorInvalidValue;
   if (dx)
-    return out_f32 ? tc::launch_tc<true, float>(act, pieces, w, scales, out, M, K, N, s)
-                   : tc::launch_tc<true, __nv_bfloat16>(act, pieces, w, scales, out, M, K, N, s);
-  return out_f32 ? tc::launch_tc<false, float>(act, pieces, w, scales, out, M, K, N, s)
-                 : tc::launch_tc<false, __nv_bfloat16>(act, pieces, w, scales, out, M, K, N, s);
+    return out_type == 1 ? tc::launch_tc<true, float>(act, pieces, w, scales, out, M, K, N, s)
+                         : tc::launch_tc<true, __nv_bfloat16>(act, pieces, w, scales, out, M, K,
+                                                              N, s);
+  if (out_type == 2)
+    return tc::launch_tc<false, __half>(act, pieces, w, scales, out, M, K, N, s);
+  return out_type == 1 ? tc::launch_tc<false, float>(act, pieces, w, scales, out, M, K, N, s)
+                       : tc::launch_tc<false, __nv_bfloat16>(act, pieces, w, scales, out, M, K,
+                                                             N, s);
 }
 
 // The pre-pass: x [rows, C] (dtype 0 f32: the split into out bf16 [3, rows,
@@ -968,7 +1008,7 @@ extern "C" int int8_prepass(const void* x, const void* scales, void* out, long l
 // stream (a K-split kernel writing f32 partials, then a finalize kernel) by it.
 extern "C" int int8_stream_abi() { return 2; }
 
-// The weight stream: x [M, K] (dtype 0 f32, 1 bf16), w int8 [K, N], scales
+// The weight stream: x [M, K] (dtype 0 f32, 1 bf16, 2 fp16), w int8 [K, N], scales
 // f32 [N], out [M, N] of x's type, 1 <= M <= 64. kc: K rows a slice, a
 // multiple of 64; ksplit: slices, 1..8 (one cluster of ksplit blocks a
 // column tile of 128), kc * (ksplit - 1) < K <= kc * ksplit. The caller has
@@ -983,5 +1023,6 @@ extern "C" int int8_matmul(const void* x, const void* w, const void* scales, voi
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return ws::dispatch<float>(x, w, scales, out, M, K, N, kc, ksplit, s);
   if (dtype == 1) return ws::dispatch<__nv_bfloat16>(x, w, scales, out, M, K, N, kc, ksplit, s);
+  if (dtype == 2) return ws::dispatch<__half>(x, w, scales, out, M, K, N, kc, ksplit, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,6 +11,15 @@
 // dW (a plain column sum over rows) stays outside the kernel, as the
 // reference leaves it to its compiler.
 //
+// A second mode (`round_first`) is the reference's composed form
+// (paddle_tpu/nn/functional/norm.py:80-94), which every traced call takes,
+// the whole compiled TrainStep included: n = T(x * inv) is rounded to the
+// storage type first, then out = T(n * w) (a product of two values of T,
+// exact in f32, rounded once: T's own multiply). Its backward is that
+// form's gradient: dn = T(dO * w), rounded as the composed multiply's
+// transpose rounds it, then dx = inv * dn - x * inv^3 * sum(dn * x) / H in
+// f32; dW = sum over rows of dO * n, outside the kernel.
+//
 // Bound on the H100: bytes. The forward reads x and writes out (two rows of
 // traffic per row), the backward reads x and dO and writes dx (three),
 // against 3.35 TB/s: 0.040 and 0.060 ms at [8192, 4096] bf16. A few FLOPs
@@ -104,7 +113,14 @@ __device__ __forceinline__ void store(T* p, const float* f) {
   }
 }
 
-template <typename T, bool VEC>
+// v rounded to T and back, where the mode rounds first
+template <typename T, bool ROUND>
+__device__ __forceinline__ float first(float v) {
+  if constexpr (ROUND) return to_f(from_f<T>(v));
+  else return v;
+}
+
+template <typename T, bool VEC, bool ROUND>
 __global__ void __launch_bounds__(kThreads)
 rms_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
                float* __restrict__ inv, int H, float eps) {
@@ -125,12 +141,12 @@ rms_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
     load<T, VEC>(x + base + i, N, f);
     load<T, VEC>(w + i, N, wf);
 #pragma unroll
-    for (int j = 0; j < N; ++j) f[j] = f[j] * r * wf[j];
+    for (int j = 0; j < N; ++j) f[j] = first<T, ROUND>(f[j] * r) * wf[j];
     store<T, VEC>(out + base + i, f);
   });
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool ROUND>
 __global__ void __launch_bounds__(kThreads)
 rms_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const float* __restrict__ inv, const T* __restrict__ dout,
@@ -145,7 +161,7 @@ rms_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
     load<T, VEC>(w + i, N, wf);
     load<T, VEC>(dout + base + i, N, d);
 #pragma unroll
-    for (int j = 0; j < N; ++j) proj += d[j] * wf[j] * f[j];
+    for (int j = 0; j < N; ++j) proj += first<T, ROUND>(d[j] * wf[j]) * f[j];
   });
   const float r = inv[blockIdx.x];
   const float c = r * r * r * (block_sum(proj, red) / H);
@@ -155,14 +171,14 @@ rms_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
     load<T, VEC>(w + i, N, wf);
     load<T, VEC>(dout + base + i, N, d);
 #pragma unroll
-    for (int j = 0; j < N; ++j) f[j] = r * (d[j] * wf[j]) - f[j] * c;
+    for (int j = 0; j < N; ++j) f[j] = r * first<T, ROUND>(d[j] * wf[j]) - f[j] * c;
     store<T, VEC>(dx + base + i, f);
   });
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T>
+template <typename T, bool ROUND>
 int fwd(const void* x, const void* w, void* out, void* inv, int rows, int H, float eps,
         cudaStream_t s) {
   const bool vec = H % Vec<T>::N == 0 && aligned16(x) && aligned16(w) && aligned16(out);
@@ -171,13 +187,13 @@ int fwd(const void* x, const void* w, void* out, void* inv, int rows, int H, flo
   auto* op = static_cast<T*>(out);
   auto* ip = static_cast<float*>(inv);
   if (vec)
-    rms_fwd_kernel<T, true><<<rows, kThreads, 0, s>>>(xp, wp, op, ip, H, eps);
+    rms_fwd_kernel<T, true, ROUND><<<rows, kThreads, 0, s>>>(xp, wp, op, ip, H, eps);
   else
-    rms_fwd_kernel<T, false><<<rows, kThreads, 0, s>>>(xp, wp, op, ip, H, eps);
+    rms_fwd_kernel<T, false, ROUND><<<rows, kThreads, 0, s>>>(xp, wp, op, ip, H, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool ROUND>
 int bwd(const void* x, const void* w, const void* inv, const void* dout, void* dx, int rows,
         int H, cudaStream_t s) {
   const bool vec = H % Vec<T>::N == 0 && aligned16(x) && aligned16(w) && aligned16(dout) &&
@@ -188,35 +204,51 @@ int bwd(const void* x, const void* w, const void* inv, const void* dout, void* d
   auto* dp = static_cast<const T*>(dout);
   auto* dxp = static_cast<T*>(dx);
   if (vec)
-    rms_bwd_dx_kernel<T, true><<<rows, kThreads, 0, s>>>(xp, wp, ip, dp, dxp, H);
+    rms_bwd_dx_kernel<T, true, ROUND><<<rows, kThreads, 0, s>>>(xp, wp, ip, dp, dxp, H);
   else
-    rms_bwd_dx_kernel<T, false><<<rows, kThreads, 0, s>>>(xp, wp, ip, dp, dxp, H);
+    rms_bwd_dx_kernel<T, false, ROUND><<<rows, kThreads, 0, s>>>(xp, wp, ip, dp, dxp, H);
   return (int)cudaGetLastError();
+}
+
+template <bool ROUND>
+int fwd_any(const void* x, const void* w, void* out, void* inv, int rows, int H, float eps,
+            int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case 0: return fwd<float, ROUND>(x, w, out, inv, rows, H, eps, s);
+    case 1: return fwd<__nv_bfloat16, ROUND>(x, w, out, inv, rows, H, eps, s);
+    case 2: return fwd<__half, ROUND>(x, w, out, inv, rows, H, eps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool ROUND>
+int bwd_any(const void* x, const void* w, const void* inv, const void* dout, void* dx, int rows,
+            int H, int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case 0: return bwd<float, ROUND>(x, w, inv, dout, dx, rows, H, s);
+    case 1: return bwd<__nv_bfloat16, ROUND>(x, w, inv, dout, dx, rows, H, s);
+    case 2: return bwd<__half, ROUND>(x, w, inv, dout, dx, rows, H, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // x, out [rows, H] contiguous, w [H], inv f32 [rows]; dtype 0 f32, 1 bf16,
-// 2 fp16. Returns the cudaError_t of the launch (0 on success).
+// 2 fp16; round_first 1 for the composed form's rounding. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int rms_norm_fwd(const void* x, const void* w, void* out, void* inv, int rows, int H,
-                            float eps, int dtype, void* stream) {
+                            float eps, int dtype, int round_first, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return fwd<float>(x, w, out, inv, rows, H, eps, s);
-    case 1: return fwd<__nv_bfloat16>(x, w, out, inv, rows, H, eps, s);
-    case 2: return fwd<__half>(x, w, out, inv, rows, H, eps, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return round_first ? fwd_any<true>(x, w, out, inv, rows, H, eps, dtype, s)
+                     : fwd_any<false>(x, w, out, inv, rows, H, eps, dtype, s);
 }
 
 // dx [rows, H] from x, w, the forward's inv and dout, all contiguous.
 extern "C" int rms_norm_bwd_dx(const void* x, const void* w, const void* inv, const void* dout,
-                               void* dx, int rows, int H, int dtype, void* stream) {
+                               void* dx, int rows, int H, int dtype, int round_first,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return bwd<float>(x, w, inv, dout, dx, rows, H, s);
-    case 1: return bwd<__nv_bfloat16>(x, w, inv, dout, dx, rows, H, s);
-    case 2: return bwd<__half>(x, w, inv, dout, dx, rows, H, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return round_first ? bwd_any<true>(x, w, inv, dout, dx, rows, H, dtype, s)
+                     : bwd_any<false>(x, w, inv, dout, dx, rows, H, dtype, s);
 }

@@ -3,8 +3,11 @@
 engine).
 
 - :mod:`engine`: ServeConfig and ServingEngine, the submit/step/run/cancel
-  API with chunked prefill and one decode step per scheduler iteration;
-- :mod:`kv_cache`: PagedKVCache, the page pool and block allocator;
+  API with chunked prefill and one decode step per scheduler iteration,
+  the two programs (decode, prefill) as CUDA graphs on the card;
+- :mod:`kv_cache`: PagedKVCache, the page pool and block allocator, and
+  Staged, the programs' static input buffers;
+- :mod:`sampling`: the per-lane sampling head of the decode program;
 - :mod:`paged_attention`: PagedKVView, gather_lane_window, prefill_attend;
 - :mod:`scheduler`: admission and retirement policy;
 - :mod:`request`: the Request lifecycle handle and SamplingParams.

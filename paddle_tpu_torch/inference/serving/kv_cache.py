@@ -7,8 +7,9 @@ pages for K and one for V, on the device. Each lane owns an ordered list
 of physical block ids, its row of the int32 block table ``[lanes, MB]``:
 logical position ``p`` lives in page ``block_table[lane, p // bs]`` at
 offset ``p % bs``. This module owns the host side: the free list, the
-per-lane block lists and the numpy block table, lengths and active mask
-that the engine copies to the device every step.
+per-lane block lists and the numpy block table, lengths and active mask,
+and the static device buffers those are copied into every step (a CUDA
+graph of a serving program holds their addresses).
 
 Physical block 0 is reserved as the trash block: inactive lanes still run
 the fixed-shape scatter, and pointing them at block 0 makes their writes
@@ -25,7 +26,7 @@ import torch
 
 from ...device import resolve_device
 
-__all__ = ["PagedKVCache"]
+__all__ = ["PagedKVCache", "Staged"]
 
 
 class PagedKVCache:
@@ -54,6 +55,9 @@ class PagedKVCache:
         # LIFO free list; block 0 is never handed out
         self._free = list(range(num_blocks - 1, 0, -1))
         self._lane_blocks: list = [[] for _ in range(num_lanes)]
+        # the slot state's static device buffers, refreshed by device_tables()
+        self._staged = Staged(dev, block_table=self.block_table, lengths=self.lengths,
+                              active=self.active)
 
     @property
     def free_blocks(self) -> int:
@@ -103,9 +107,52 @@ class PagedKVCache:
 
     def device_tables(self):
         """(block_table, lengths, active) on the pool's device, int32,
-        int32 and bool: the slot-state inputs of one decode step. Always
-        copies, so later host edits never reach a step in flight."""
-        dev = self.pages_k.device
-        return (torch.tensor(self.block_table, device=dev),
-                torch.tensor(self.lengths, device=dev),
-                torch.tensor(self.active, device=dev))
+        int32 and bool: the slot-state inputs of the serving programs.
+        The same static buffers every call, refreshed from the host arrays
+        in stream order (through pinned snapshots on the card, so later
+        host edits never reach a step in flight)."""
+        self._staged.push()
+        return self.tables
+
+    @property
+    def tables(self):
+        """The static device buffers of :meth:`device_tables`, as its last
+        call left them (no copy): what a serving program reads."""
+        d = self._staged.dev
+        return d["block_table"], d["lengths"], d["active"]
+
+
+_TORCH = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+          np.dtype(np.bool_): torch.bool, np.dtype(np.float32): torch.float32}
+
+
+class Staged:
+    """Host numpy arrays and their static device buffers, allocated once:
+    the inputs a CUDA graph of a serving program reads by address.
+    :meth:`push` copies host arrays into their buffers, in stream order; on
+    the card each goes through a pinned snapshot, and a push first waits
+    for the copies of the push before, so it never writes a snapshot that
+    a queued copy still reads. ``host[name]`` may be edited freely between
+    pushes."""
+
+    def __init__(self, device, **arrays):
+        self.host = arrays
+        self.dev = {n: torch.zeros(a.shape, dtype=_TORCH[a.dtype], device=device)
+                    for n, a in arrays.items()}
+        pin = device.type == "cuda"
+        self._snap = {n: torch.empty(a.shape, dtype=_TORCH[a.dtype], pin_memory=pin)
+                      for n, a in arrays.items()} if pin else None
+        self._copied = torch.cuda.Event() if pin else None
+
+    def push(self, *names):
+        """Copy the named arrays (all by default) to their buffers."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        for n in names or tuple(self.host):
+            if self._snap is None:
+                self.dev[n].copy_(torch.from_numpy(self.host[n]))
+            else:
+                self._snap[n].numpy()[...] = self.host[n]
+                self.dev[n].copy_(self._snap[n], non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()

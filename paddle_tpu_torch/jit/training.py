@@ -14,7 +14,11 @@ mean; the calls in between leave the parameters, the step count and the
 learning rate alone.
 
 PyTorch runs eagerly, so there is nothing to compile: ``donate`` means the
-parameters are updated in place, which they always are.
+parameters are updated in place, which they always are. A step runs as
+the port's counterpart of the reference's traced program
+(:func:`paddle_tpu_torch.tracing.traced`), and so does an ``EvalStep``
+call, so the functionals that pick their form by tracing (``rms_norm``)
+take the compiled steps'.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..nn.clip import clip_grads
+from ..tracing import traced
 
 __all__ = ["TrainStep", "EvalStep"]
 
@@ -75,8 +80,9 @@ class TrainStep:
         return [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
 
     def _loss_and_grads(self, params, batch):
-        loss = self.loss_fn(*batch).float()
-        grads = torch.autograd.grad(loss, [p for _, p in params], allow_unused=True)
+        with traced():
+            loss = self.loss_fn(*batch).float()
+            grads = torch.autograd.grad(loss, [p for _, p in params], allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for (_, p), g in zip(params, grads)]
         return loss.detach(), grads
 
@@ -110,7 +116,9 @@ class TrainStep:
 
 
 class EvalStep:
-    """``fn(*batch)`` without gradients; returns its tensors as a list."""
+    """``fn(*batch)`` without gradients, as a traced call (the reference's
+    ``EvalStep`` is a compiled program too); returns its tensors as a
+    list."""
 
     def __init__(self, model, fn):
         self.model = model
@@ -118,7 +126,8 @@ class EvalStep:
 
     @torch.no_grad()
     def __call__(self, *batch):
-        out = self.fn(*batch)
+        with traced():
+            out = self.fn(*batch)
         if torch.is_tensor(out):
             return [out]
         if isinstance(out, dict):

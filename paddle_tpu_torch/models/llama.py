@@ -28,6 +28,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import random as R
 from ..device import resolve_device
 from ..distributed.fleet.sequence_parallel import ring_context_attention
 from ..incubate.nn.functional import fused_rotary_position_embedding
@@ -501,20 +502,41 @@ def decode_step(config: LlamaConfig, w: dict, tok, kv, pos):
 
 
 class LlamaGreedyGenerator:
-    """Greedy decoding over dense caches, one token per step for prompt
-    and generation alike: the oracle the serving engine is held against.
+    """Decoding over dense caches, one token per step for prompt and
+    generation alike: the oracle the serving engine is held against.
     Lanes that emit ``eos_token_id`` keep writing it; the loop stops when
-    every lane has finished or ``max_len`` is reached. Sampling comes with
-    the sampling slice of the port."""
+    every lane has finished or ``max_len`` is reached. Greedy argmax, or
+    with ``do_sample`` temperature, top-k and top-p sampling from one
+    threefry key ``PRNGKey(seed)`` split once a step, as the reference's
+    ``_pick_token``."""
 
     def __init__(self, model: LlamaForCausalLM, max_len: int,
-                 eos_token_id: int | None = None, do_sample: bool = False):
-        if do_sample:
-            raise NotImplementedError(
-                "sampled generation comes with the sampling slice of the port")
+                 eos_token_id: int | None = None, do_sample: bool = False,
+                 top_k: int = 0, top_p: float = 1.0, temperature: float = 1.0,
+                 seed: int = 0):
         self.model = model
         self.max_len = int(max_len)
         self.eos_token_id = -1 if eos_token_id is None else int(eos_token_id)
+        self.do_sample = bool(do_sample)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.temperature = float(temperature)
+        self.seed = int(seed)
+
+    def _pick_token(self, logits, key):
+        """logits [b, V] -> (token [b], new key): the top-k and top-p
+        filter of :func:`paddle_tpu_torch.random.filter_logits` with this
+        generator's settings on every row; the draw is ``categorical`` over
+        the whole [b, V] under the step's split key."""
+        if not self.do_sample:
+            return torch.argmax(logits, dim=-1).to(torch.int32), key
+        lg = logits.float() / max(self.temperature, 1e-6)
+        rows = (lg.shape[0],)
+        lg = R.filter_logits(
+            lg, torch.full(rows, self.top_k, device=lg.device),
+            torch.full(rows, self.top_p, dtype=torch.float32, device=lg.device))
+        key, sub = R.split(key)
+        return R.categorical(sub, lg).to(torch.int32), key
 
     @torch.no_grad()
     def __call__(self, input_ids, prompt_len):
@@ -537,13 +559,14 @@ class LlamaGreedyGenerator:
         finished = torch.zeros((b,), dtype=torch.bool, device=dev)
         flen = torch.zeros((b,), dtype=torch.int32, device=dev)
         eos = torch.tensor(self.eos_token_id, dtype=torch.int32, device=dev)
+        key = R.prng_key(self.seed, device=dev)
         pos = 0
         while pos < self.max_len - 1 and not bool(finished.all()):
             tok = ids[:, pos]
             kv = DenseDecodeKV(caches, pos, self.max_len)
             logits = decode_step(cfg, w, tok, kv,
                                  torch.full((b,), pos, dtype=torch.int32, device=dev))
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt, key = self._pick_token(logits, key)
             in_prompt = (pos + 1) < plen
             tok_next = torch.where(in_prompt, ids[:, pos + 1],
                                    torch.where(finished, eos, nxt))

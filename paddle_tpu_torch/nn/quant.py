@@ -11,8 +11,13 @@ of ``paddle_tpu/nn/quant.py``).
   reference).
 - :func:`weight_only_linear` runs int8 through the Hopper kernels of
   ``ops.quant_matmul`` (forward and dX; the weights and, by default, the
-  scales are frozen) and int4 and fp8 composed, dequantized inside the
-  matmul operand, as the reference's ``_wol_xla_generic`` does.
+  scales are frozen) where the reference's gate sends a call to its
+  kernel (f32 or bf16 x, shapes the kernels take:
+  ``quant_matmul.kernel_takes``), and every other int8 call composed, as
+  the reference's ``_wol_xla``: the weights cast to x's dtype, the matmul
+  summed in f32, times the scales in f32, cast once. int4 and fp8 run
+  composed, dequantized inside the matmul operand, as the reference's
+  ``_wol_xla_generic`` does.
 - :class:`QuantizedLinear` swaps a ``Linear``: its quantized weight,
   ``weight_scale`` and bias are buffers, so ``state_dict()`` has the
   reference's keys and an optimizer sees no parameter in it.
@@ -99,9 +104,12 @@ def weight_only_linear(x, weight, bias=None, weight_scale=None, weight_dtype: st
     x, w, s = _as_tensor(x), _as_tensor(weight), _as_tensor(weight_scale)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if weight_dtype == "int8":
+    if weight_dtype == "int8" and QM.kernel_takes(x2, *w.shape):
         op = QM.int8_matmul_train_scales if train_scales else QM.int8_matmul_frozen
         out = op(x2, w, s)
+    elif weight_dtype == "int8":
+        sc = s if train_scales else s.detach()
+        out = (x2.float() @ w.float() * sc.float()[None, :]).to(x2.dtype)
     else:
         wq = _unpack_int4(w) if weight_dtype == "int4" else w
         sc = s if train_scales else s.detach()

@@ -16,13 +16,17 @@ rows align bottom-right, as the composed path (query row i sees keys
 keys, as the composed path's -1e30 mask makes it: out is the mean of V, dQ
 is 0 and dV gets ``dO / Sk`` on every key.
 
-On a CUDA tensor each wrapper launches a kernel of
-``csrc/flash_attention.cu`` (wgmma fed by TMA) or raises, by one of three
-routes (:func:`route`): ``wgmma``, bf16 and fp16 at head_dim 64 or 128;
-``padded``, bf16 and fp16 at the other head dims that are multiples of 8
-up to 256, run zero-padded to the next multiple of 64; ``f32``, f32 inputs
-split into two bf16 pieces each (:func:`split2`) by a pre-pass kernel in
-the same call, every product taken as three piece products. Any Sq and Sk.
+On a CUDA tensor each wrapper launches a kernel or raises, by one of four
+routes (:func:`route`). Three run ``csrc/flash_attention.cu`` (wgmma fed
+by TMA, up to 256 columns): ``wgmma``, bf16 and fp16 at head_dim 64 or
+128; ``padded``, bf16 and fp16 at the other head dims that are multiples
+of 8 up to 256, run zero-padded to the next multiple of 64; ``f32``, f32
+inputs split into two bf16 pieces each (:func:`split2`) by a pre-pass
+kernel in the same call, every product taken as three piece products.
+``simt`` runs ``csrc/attention_wide.cu`` (the CUDA cores, the head dim
+walked in chunks of 128 columns) for any dtype at head dims past 256, up
+to MAX_WIDE_HEAD_DIM, as the reference's gate sends any multiple of 8 to
+its bundled kernel. Any Sq and Sk.
 On a CPU tensor it runs the plain version, which repeats the kernels'
 arithmetic in whole rows: f32 scores, probabilities rounded to the input
 type before the products with V (forward) and dO, dS rounded before the
@@ -48,8 +52,9 @@ __all__ = ["flash_attention", "flash_attention_bsnd", "flash_attention_fwd",
 
 DTYPES = {torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
 HEAD_DIMS = (64, 128)        # head dims the bf16/fp16 kernels take unpadded
-MAX_HEAD_DIM = 256           # every head dim: multiples of 8 up to this
-ROUTES = ("wgmma", "padded", "f32")
+MAX_HEAD_DIM = 256           # the tensor-core routes: multiples of 8 up to this
+MAX_WIDE_HEAD_DIM = 1024     # the simt route: multiples of 8 past 256 up to this
+ROUTES = ("wgmma", "padded", "f32", "simt")
 PIECES = 2                   # bf16 pieces of an f32 operand on the f32 route
 NEG_INF = -1e30
 CLAMP = 60.0
@@ -198,19 +203,24 @@ def tile_errors(got, want, tile: int = 64, floor: float = 1e-5):
     return (d.square().sum((2, 4)).sqrt() / den).max().item(), d.abs().max().item()
 
 
-def _fn(name, n_ptrs):
-    fn = getattr(_build.load("flash_attention"), name)
+def _fn(name, n_ptrs, lib="flash_attention"):
+    """A kernel's C entry: n_ptrs pointers, the six sizes, scale, causal,
+    dtype, stream and (flash_attention's) the f32 route's scratch."""
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_void_p] * (lib == "flash_attention"))
         fn.restype = ctypes.c_int
     return fn
 
 
 def route(q) -> str:
-    """The route a call on q takes (ROUTES): ``f32`` for f32, ``wgmma`` for
-    bf16 and fp16 at a head_dim in HEAD_DIMS, ``padded`` for the others."""
+    """The route a call on q takes (ROUTES): ``simt`` past MAX_HEAD_DIM,
+    else ``f32`` for f32, ``wgmma`` for bf16 and fp16 at a head_dim in
+    HEAD_DIMS, ``padded`` for the others."""
+    if q.shape[-1] > MAX_HEAD_DIM:
+        return "simt"
     if q.dtype == torch.float32:
         return "f32"
     return "wgmma" if q.shape[-1] in HEAD_DIMS else "padded"
@@ -219,7 +229,7 @@ def route(q) -> str:
 def _check(name, q, k, v, *like_q):
     """Raise unless a kernel takes these tensors: bf16, fp16 or f32 of one
     type on one device, q [B, Sq, H, D] and k, v [B, Sk, Hk, D] with
-    H % Hk == 0, D a multiple of 8 up to MAX_HEAD_DIM, unit stride along D,
+    H % Hk == 0, D a multiple of 8 up to MAX_WIDE_HEAD_DIM, unit stride along D,
     other strides multiples of 8 and 16-byte aligned data, as the kernels'
     TMA tensor maps need; a stride of 0 (a broadcast dimension) only where
     the dimension has size 1."""
@@ -234,8 +244,9 @@ def _check(name, q, k, v, *like_q):
                          f"{tuple(v.shape)}")
     if Hk == 0 or H % Hk:
         raise ValueError(f"{name}: {H} query heads are not a multiple of {Hk} KV heads")
-    if D <= 0 or D % 8 or D > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D} is not a multiple of 8 up to {MAX_HEAD_DIM}")
+    if D <= 0 or D % 8 or D > MAX_WIDE_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {D} is not a multiple of 8 up to "
+                         f"{MAX_WIDE_HEAD_DIM}")
     for t in (k, v, *like_q):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name}: inputs must share q's dtype and device")
@@ -285,12 +296,14 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if B * Sq * H == 0:
         return out, lse
-    work = _work(q, k, v)
-    rc = _fn("flash_attention_fwd", 6)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        _strides(q, k, v, out), B, H, k.shape[2], Sq, k.shape[1], D, _scale(D, scale),
-        int(bool(causal)), DTYPES[q.dtype], _build.launch_stream(q.device),
-        None if work is None else work.data_ptr())
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _strides(q, k, v, out), B, H, k.shape[2], Sq, k.shape[1], D, _scale(D, scale),
+            int(bool(causal)), DTYPES[q.dtype], _build.launch_stream(q.device))
+    if route(q) == "simt":
+        rc = _fn("flash_wide_fwd", 6, "attention_wide")(*args)
+    else:
+        work = _work(q, k, v)
+        rc = _fn("flash_attention_fwd", 6)(*args, None if work is None else work.data_ptr())
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")
     _count(flash_attention_fwd, q)
@@ -319,13 +332,16 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, causal: bool = False, scale=N
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     if B * Sq * H == 0 or k.shape[1] == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    work = _work(q, k, v, dout)
-    rc = _fn("flash_attention_bwd", 10)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _strides(q, k, v, dout, dq, dk, dv), B, H, k.shape[2], Sq, k.shape[1], D,
-        _scale(D, scale), int(bool(causal)), DTYPES[q.dtype], _build.launch_stream(q.device),
-        None if work is None else work.data_ptr())
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _strides(q, k, v, dout, dq, dk, dv), B, H, k.shape[2], Sq, k.shape[1], D,
+            _scale(D, scale), int(bool(causal)), DTYPES[q.dtype],
+            _build.launch_stream(q.device))
+    if route(q) == "simt":
+        rc = _fn("flash_wide_bwd", 10, "attention_wide")(*args)
+    else:
+        work = _work(q, k, v, dout)
+        rc = _fn("flash_attention_bwd", 10)(*args, None if work is None else work.data_ptr())
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
     _count(flash_attention_bwd, q)

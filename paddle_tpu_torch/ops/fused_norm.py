@@ -13,6 +13,14 @@ Counterpart of ``paddle_tpu/ops/pallas/fused_norm.py``:
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version, which repeats the kernel's arithmetic:
 f32 inside, one rounding of each output to the storage type.
+
+RMSNorm has two modes. The fused one (the reference's Pallas kernel, which
+its eager calls reach) applies the weight in f32 before the one rounding.
+``round_first`` is the reference's composed form (``norm.py:80-94``, what
+its traced calls and its compiled ``TrainStep`` run): the normalised row is
+rounded to the storage type, then multiplied by the weight in that type;
+the backward is that form's gradient (``dO * w`` rounded before the
+reduction, dW from the rounded row).
 """
 
 from __future__ import annotations
@@ -28,31 +36,40 @@ __all__ = ["rms_norm_2d", "rms_norm_fwd", "rms_norm_fwd_ref", "rms_norm_bwd_dx",
            "swiglu_bwd", "swiglu_bwd_ref", "DTYPES"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MODES = {False: "fused", True: "round_first"}   # RMSNorm's two roundings, by round_first
 
 
-def rms_norm_fwd_ref(x, w, eps: float):
+def _first(v, dtype, round_first: bool):
+    """v rounded to ``dtype`` and back to f32 where the mode rounds first."""
+    return v.to(dtype).float() if round_first else v
+
+
+def rms_norm_fwd_ref(x, w, eps: float, round_first: bool = False):
     """Plain forward: x [N, H], w [H] -> (out [N, H] in x's dtype, inv f32
     [N]) with ``inv = rsqrt(mean(x^2) + eps)`` and ``out = x * inv * w``
-    in f32."""
+    in f32 (``round_first``: ``x * inv`` rounded to x's dtype first)."""
     x32 = x.float()
     inv = torch.rsqrt(x32.square().mean(dim=-1) + eps)
-    return (x32 * inv[:, None] * w.float()).to(x.dtype), inv
+    return (_first(x32 * inv[:, None], x.dtype, round_first) * w.float()).to(x.dtype), inv
 
 
-def rms_norm_bwd_dx_ref(x, w, inv, dout):
-    """Plain backward dx: ``inv * dO * w - x * inv^3 * sum(dO * w * x) / H``
-    in f32, cast to x's dtype."""
+def rms_norm_bwd_dx_ref(x, w, inv, dout, round_first: bool = False):
+    """Plain backward dx: ``inv * g - x * inv^3 * sum(g * x) / H`` in f32
+    with ``g = dO * w`` (``round_first``: rounded to x's dtype), cast to
+    x's dtype."""
     x32 = x.float()
-    dow = dout.float() * w.float()
+    dow = _first(dout.float() * w.float(), x.dtype, round_first)
     proj = (dow * x32).sum(dim=-1, keepdim=True)
     r = inv[:, None]
     return (r * dow - x32 * r ** 3 * (proj / x.shape[-1])).to(x.dtype)
 
 
-def rms_norm_dw(x, inv, dout, dtype):
-    """dW = sum over rows of dO * x * inv in f32, cast to ``dtype`` (plain
-    on every device, as the reference leaves it to its compiler)."""
-    return (dout.float() * (x.float() * inv[:, None])).sum(dim=0).to(dtype)
+def rms_norm_dw(x, inv, dout, dtype, round_first: bool = False):
+    """dW = sum over rows of dO * x * inv in f32 (``round_first``: ``x *
+    inv`` rounded to x's dtype), cast to ``dtype`` (plain on every device,
+    as the reference leaves it to its compiler)."""
+    return (dout.float() * _first(x.float() * inv[:, None], x.dtype, round_first)
+            ).sum(dim=0).to(dtype)
 
 
 def _fn(name, argtypes, lib="rms_norm"):
@@ -81,10 +98,11 @@ def _check(name, x, w, *others):
         raise ValueError(f"{name}: at most 2^31 - 1 rows")
 
 
-def rms_norm_fwd(x, w, eps: float):
-    """``(out, inv)`` of RMSNorm over the rows of x [N, H]."""
+def rms_norm_fwd(x, w, eps: float, round_first: bool = False):
+    """``(out, inv)`` of RMSNorm over the rows of x [N, H], in the fused
+    mode or (``round_first``) the composed form's."""
     if x.device.type == "cpu":
-        return rms_norm_fwd_ref(x, w, eps)
+        return rms_norm_fwd_ref(x, w, eps, round_first)
     if x.device.type != "cuda":
         raise ValueError(f"rms_norm runs on cuda or cpu, not {x.device}")
     _check("rms_norm_fwd", x, w)
@@ -94,19 +112,20 @@ def rms_norm_fwd(x, w, eps: float):
     if n == 0:
         return out, inv
     fn = _fn("rms_norm_fwd", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), inv.data_ptr(), n, h,
-            float(eps), DTYPES[x.dtype], _build.launch_stream(x.device))
+            float(eps), DTYPES[x.dtype], int(round_first), _build.launch_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"rms_norm_fwd kernel launch failed: CUDA error {rc}")
     rms_norm_fwd.launches += 1
+    rms_norm_fwd.by_mode[MODES[round_first]] += 1
     return out, inv
 
 
-def rms_norm_bwd_dx(x, w, inv, dout):
-    """dx of RMSNorm from the forward's ``inv``."""
+def rms_norm_bwd_dx(x, w, inv, dout, round_first: bool = False):
+    """dx of RMSNorm from the forward's ``inv``, in the forward's mode."""
     if x.device.type == "cpu":
-        return rms_norm_bwd_dx_ref(x, w, inv, dout)
+        return rms_norm_bwd_dx_ref(x, w, inv, dout, round_first)
     if x.device.type != "cuda":
         raise ValueError(f"rms_norm runs on cuda or cpu, not {x.device}")
     _check("rms_norm_bwd_dx", x, w, inv, dout)
@@ -118,40 +137,47 @@ def rms_norm_bwd_dx(x, w, inv, dout):
     dx = torch.empty_like(x)
     if n == 0:
         return dx
-    fn = _fn("rms_norm_bwd_dx", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    fn = _fn("rms_norm_bwd_dx", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_void_p])
     rc = fn(x.data_ptr(), w.data_ptr(), inv.data_ptr(), dout.data_ptr(), dx.data_ptr(),
-            n, h, DTYPES[x.dtype], _build.launch_stream(x.device))
+            n, h, DTYPES[x.dtype], int(round_first), _build.launch_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"rms_norm_bwd_dx kernel launch failed: CUDA error {rc}")
     rms_norm_bwd_dx.launches += 1
+    rms_norm_bwd_dx.by_mode[MODES[round_first]] += 1
     return dx
 
 
-#: kernel launches since the last reset (the CPU path never counts)
+#: kernel launches since the last reset (the CPU path never counts), in
+#: all and by mode
 rms_norm_fwd.launches = 0
 rms_norm_bwd_dx.launches = 0
+rms_norm_fwd.by_mode = dict.fromkeys(MODES.values(), 0)
+rms_norm_bwd_dx.by_mode = dict.fromkeys(MODES.values(), 0)
 
 
 class _RMSNorm2D(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, eps):
-        out, inv = rms_norm_fwd(x, w, eps)
+    def forward(ctx, x, w, eps, round_first):
+        out, inv = rms_norm_fwd(x, w, eps, round_first)
         ctx.save_for_backward(x, w, inv)
+        ctx.round_first = round_first
         return out
 
     @staticmethod
     def backward(ctx, dout):
         x, w, inv = ctx.saved_tensors
+        rf = ctx.round_first
         dout = dout.contiguous()
-        dx = rms_norm_bwd_dx(x, w, inv, dout) if ctx.needs_input_grad[0] else None
-        dw = rms_norm_dw(x, inv, dout, w.dtype) if ctx.needs_input_grad[1] else None
-        return dx, dw, None
+        dx = rms_norm_bwd_dx(x, w, inv, dout, rf) if ctx.needs_input_grad[0] else None
+        dw = rms_norm_dw(x, inv, dout, w.dtype, rf) if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None
 
 
-def rms_norm_2d(x, w, eps: float):
-    """Differentiable fused RMSNorm: x [N, H], w [H] -> [N, H]."""
-    return _RMSNorm2D.apply(x, w, float(eps))
+def rms_norm_2d(x, w, eps: float, round_first: bool = False):
+    """Differentiable RMSNorm through the kernels: x [N, H], w [H] ->
+    [N, H], in the fused mode or (``round_first``) the composed form's."""
+    return _RMSNorm2D.apply(x, w, float(eps), bool(round_first))
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,12 @@ block; a pair cut into several chunks is merged, in chunk order, by the
 block that finishes it last. :func:`split_schedule` and
 :func:`paged_decode_attention_split` repeat that schedule and merge on the
 CPU, so the tests hold them against the plain version and the reference.
+
+Head dims or pages past 256 (the TMA boxes' limit) go to
+:func:`paged_decode_attention_wide`, a SIMT kernel of
+``csrc/attention_wide.cu`` (a block per lane and query head, four warps
+each keeping an online softmax over every fourth visible slot, merged in
+warp order), as the reference's composed path serves any size.
 """
 
 from __future__ import annotations
@@ -28,13 +34,15 @@ from ..models.llama import masked_attend
 from . import _build
 
 __all__ = ["grid_size", "heads_per_pass", "paged_decode_attention",
-           "paged_decode_attention_ref", "paged_decode_attention_split", "split_schedule"]
+           "paged_decode_attention_ref", "paged_decode_attention_split",
+           "paged_decode_attention_wide", "split_schedule", "takes"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 BLOCKS_PER_SM = 2          # the grid: this many blocks an SM, at most one a work item
 _MAX_HEADS_PER_PASS = 8    # query heads a pass of the kernel takes
 _MAX_PAGE = 256            # slots of a page (a TMA box dimension)
 _MAX_HEAD_DIM = 256
+MAX_WIDE_HEAD_DIM = 1024   # the wide kernel's head dims
 
 
 def paged_decode_attention_ref(q, pages_k, pages_v, block_table, lengths):
@@ -187,12 +195,9 @@ def _check(q, pages_k, pages_v, block_table, lengths):
     if phd != hd or H % Hk:
         raise ValueError(f"paged_decode_attention: H={H}, Hk={Hk}, hd={hd}/{phd} "
                          "need H % Hk == 0 and equal head dims")
-    if hd > _MAX_HEAD_DIM:
-        raise ValueError(f"paged_decode_attention: hd={hd}; the kernel takes up to "
-                         f"{_MAX_HEAD_DIM}")
-    if bs > _MAX_PAGE:
-        raise ValueError(f"paged_decode_attention: pages of {bs} slots; the kernel takes "
-                         f"up to {_MAX_PAGE}")
+    if hd > MAX_WIDE_HEAD_DIM:
+        raise ValueError(f"paged_decode_attention: hd={hd}; the kernels take up to "
+                         f"{MAX_WIDE_HEAD_DIM}")
     if block_table.dim() != 2 or block_table.shape[0] != lanes or lengths.shape != (lanes,):
         raise ValueError("paged_decode_attention: block_table [lanes, MB], lengths [lanes]")
 
@@ -218,15 +223,24 @@ def _scratch_for(device, lanes, H, Hk, hd, grid):
     return got
 
 
+def takes(hd: int, bs: int) -> bool:
+    """Whether the TMA kernel takes a head dim and a page size (else the
+    wide kernel runs the call)."""
+    return hd <= _MAX_HEAD_DIM and bs <= _MAX_PAGE
+
+
 def paged_decode_attention(q, pages_k, pages_v, block_table, lengths):
     """Attention of one query per lane over its KV pages. Same arguments
     and result as :func:`paged_decode_attention_ref`; on the card every
-    tensor must be contiguous, block_table and lengths int32."""
+    tensor must be contiguous, block_table and lengths int32. Head dims or
+    pages past 256 run :func:`paged_decode_attention_wide`."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, pages_k, pages_v, block_table, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
     _check(q, pages_k, pages_v, block_table, lengths)
+    if not takes(q.shape[2], pages_k.shape[1]):
+        return paged_decode_attention_wide(q, pages_k, pages_v, block_table, lengths)
     lanes, H, hd = q.shape
     nb, bs, Hk, _ = pages_k.shape
     mb = block_table.shape[1]
@@ -244,6 +258,32 @@ def paged_decode_attention(q, pages_k, pages_v, block_table, lengths):
     return out
 
 
+def paged_decode_attention_wide(q, pages_k, pages_v, block_table, lengths):
+    """The wide kernel (any page size, head dims up to 1024): same
+    arguments and result as :func:`paged_decode_attention_ref`; one launch
+    on the card, counted in its own ``launches``."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, pages_k, pages_v, block_table, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
+    _check(q, pages_k, pages_v, block_table, lengths)
+    lanes, H, hd = q.shape
+    _, bs, Hk, _ = pages_k.shape
+    out = torch.empty_like(q)
+    fn = _build.load("attention_wide").paged_wide
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rc = fn(q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(), block_table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), lanes, H, Hk, hd, bs, block_table.shape[1],
+            1.0 / math.sqrt(hd), _DTYPES[q.dtype], _build.launch_stream(q.device))
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention_wide kernel launch failed: error {rc}")
+    paged_decode_attention_wide.launches += 1
+    return out
+
+
 _sms: dict = {}
 
 
@@ -256,3 +296,4 @@ def _sm_count(device) -> int:
 
 #: kernel launches since the last reset (the CPU path never counts)
 paged_decode_attention.launches = 0
+paged_decode_attention_wide.launches = 0

@@ -17,9 +17,13 @@ Counterpart of ``paddle_tpu/ops/pallas/quant_matmul.py:116-201``:
   :func:`int8_matmul_train_scales` (:179-201: dx and the scales'
   gradient).
 
-On a CUDA tensor each wrapper launches its kernel or raises: it takes bf16
-or f32 activations of any M, with K and N multiples of 16, and never
-declines to a composed path. On a CPU tensor it runs the plain version.
+On a CUDA tensor each wrapper launches its kernel or raises: the forward
+takes bf16, fp16 or f32 activations of any M, dX bf16 or f32, with K and
+N multiples of 16, and never declines to a composed path (which calls
+reach a wrapper is the callers' rule: ``nn.quant.weight_only_linear``'s
+gate, :func:`kernel_takes`). On a CPU tensor it runs the plain version.
+fp16 activations run fp16 products with f32 sums (the weights widen to
+fp16 exactly), as bf16 ones run bf16 products.
 
 f32 activations (the reference's ``_dot`` at ``Precision.HIGHEST``) reach
 the tensor-core kernel through an exact split (:func:`split3`): x = h + m
@@ -51,7 +55,18 @@ _MAX_SPLIT = 8       # K slices of a column tile: the blocks of a cluster
 _BLOCKS_PER_SM = 1.75  # the grid a split aims at (clusters of eight then fit one wave)
 _FILL = 0.75         # column tiles that fill this share of the SMs are not split
 LARGE_M = 64         # M above this runs the tensor-core forward
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}   # the forward's
+DX_DTYPES = (torch.float32, torch.bfloat16)
+_OUT_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+
+
+def kernel_takes(x, K: int, N: int) -> bool:
+    """The rule by which ``weight_only_linear`` sends an int8 call to the
+    kernels, as the reference's gate (``nn/quant.py:158-164``) sends f32
+    and bf16 calls whose shapes its kernel takes: f32 or bf16 x, and K and
+    N multiples of 16. fp16 and other shapes stay on the composed
+    dequantize-then-matmul."""
+    return x.dtype in DX_DTYPES and K % 16 == 0 and N % 16 == 0
 
 
 def split3(x):
@@ -112,10 +127,10 @@ def stream_plan(M: int, K: int, N: int, sms: int) -> tuple[int, int, int]:
 
 def stream_warps(M: int, dtype) -> int:
     """Consumer warps of a weight-stream block (csrc ``Geometry::kWarps``):
-    eight up to 8 lanes, or 16 of bf16 x, each one 16-deep step of a
+    eight up to 8 lanes, or 16 of bf16 or fp16 x, each one 16-deep step of a
     128-row stage; else four, each one step of a 64-row stage (past 32
     lanes two warps share a step, each for half the lanes)."""
-    return 8 if M <= 8 or (dtype == torch.bfloat16 and M <= 16) else 4
+    return 8 if M <= 8 or (dtype != torch.float32 and M <= 16) else 4
 
 
 def int8_matmul_blocked(x, w_int8, scales, sms: int = 132):
@@ -162,8 +177,10 @@ def _fn(name, argtypes):
 def _check(x, w_int8, scales, name="int8_matmul", along=0):
     """Refuse what the kernels do not take. ``x``'s columns run along
     ``w_int8``'s dimension ``along``: 0 (K) for the forward, 1 (N) for dX."""
-    if x.dtype not in DTYPES:
-        raise TypeError(f"{name} on the card takes bf16 or f32 activations, got {x.dtype}")
+    if x.dtype not in (DTYPES if along == 0 else DX_DTYPES):
+        raise TypeError(f"{name} on the card takes "
+                        f"{'bf16, fp16' if along == 0 else 'bf16'} or f32 activations, "
+                        f"got {x.dtype}")
     if w_int8.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError(f"{name}: weights must be int8 and scales float32")
     if x.dim() != 2 or w_int8.dim() != 2 or scales.dim() != 1:
@@ -218,7 +235,7 @@ def int8_matmul(x, w_int8, scales):
 
 
 def _check_prepass(x, scales):
-    if x.dtype not in DTYPES:
+    if x.dtype not in DX_DTYPES:
         raise TypeError(f"int8_prepass takes bf16 or f32, got {x.dtype}")
     if x.dim() != 2:
         raise ValueError(f"int8_prepass: x must be [rows, C], got {tuple(x.shape)}")
@@ -283,7 +300,7 @@ def _tensor_core(act, w_int8, scales, out, dx: bool):
              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     rc = fn(pieces.data_ptr(), 3 if pieces.dim() == 3 else 1, w_int8.data_ptr(),
             scales.data_ptr(), out.data_ptr(), act.shape[0], K, N, int(dx),
-            int(out.dtype == torch.float32), _build.launch_stream(act.device))
+            _OUT_TYPES[out.dtype], _build.launch_stream(act.device))
     if rc != 0:
         name = "int8_matmul_dx" if dx else "int8_matmul_large_m"
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -292,7 +309,7 @@ def _tensor_core(act, w_int8, scales, out, dx: bool):
 def int8_matmul_large_m(x, w_int8, scales):
     """The tensor-core forward of :func:`int8_matmul` at any M
     (:func:`int8_matmul` sends it M > 64); f32 x runs as its three bf16
-    pieces, after the split pre-pass."""
+    pieces, after the split pre-pass; fp16 x as fp16 products."""
     if x.device.type == "cpu":
         return int8_matmul_ref(x, w_int8, scales)
     _device_check(x, "int8_matmul_large_m")

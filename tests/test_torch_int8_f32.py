@@ -114,13 +114,16 @@ def test_f32_dx_matches_jax_vjp_through_the_pallas_kernel(m, k, n):
 
 
 def test_card_checks_take_f32_and_refuse_fp16():
-    """The wrappers' checks (run before any launch) now take f32."""
+    """The wrappers' checks (run before any launch) take f32; the forward
+    takes fp16 too, dX refuses it."""
     w = torch.zeros((32, 32), dtype=torch.int8)
     s = torch.ones(32)
     port_qm._check(torch.zeros((4, 32)), w, s)
     port_qm._check(torch.zeros((4, 32)), w, s, "int8_matmul_dx", along=1)
+    port_qm._check(torch.zeros((4, 32), dtype=torch.float16), w, s)
     with pytest.raises(TypeError):
-        port_qm._check(torch.zeros((4, 32), dtype=torch.float16), w, s)
+        port_qm._check(torch.zeros((4, 32), dtype=torch.float16), w, s, "int8_matmul_dx",
+                       along=1)
 
 
 def test_prepass_refuses_what_its_kernel_does_not_take():

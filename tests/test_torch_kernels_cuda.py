@@ -83,6 +83,12 @@ FLASH_F32_TILE_RTOL = 1e-4
 # the storage type: one step of that type plus 1e-3 of the largest output.
 NORM_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 NORM_ATOL_FRAC = 1e-3
+# the round_first forward's bits may differ from its plain version's on at
+# most this share of the elements (another summation order moves inv-rms by
+# an f32 ulp or two, which flips a rounding on about 2^-15 of them); the
+# plain fused version, held the same way, must fail (the roundings differ on
+# about a quarter of the elements in bf16 and fp16)
+ROUND_MISMATCH_MAX = 1e-3
 # the ring's merge: the same f32 formula on both sides, each product and sum
 # rounded alone; exp and log of two math libraries may differ by a few ulps.
 MERGE_RTOL, MERGE_ATOL = 1e-5, 1e-6
@@ -223,11 +229,11 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     w = torch.zeros((32, 16), dtype=torch.int8, device=dev)
     s = torch.ones((16,), device=dev)
     with pytest.raises(TypeError):
-        qm.int8_matmul(x.half(), w, s)              # fp16 activations
+        qm.int8_matmul_dx(x.half()[:, :16], w, s)   # fp16 dO: dX takes bf16 or f32
     with pytest.raises(ValueError):
         qm.int8_matmul(x.bfloat16(), w[:24], s)     # K mismatch
-    q = torch.zeros((2, 4, 264), dtype=torch.bfloat16, device=dev)     # head_dim past 256
-    pages = torch.zeros((3, 4, 2, 264), dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((2, 4, 1032), dtype=torch.bfloat16, device=dev)    # head_dim past 1024
+    pages = torch.zeros((3, 4, 2, 1032), dtype=torch.bfloat16, device=dev)
     table = torch.zeros((2, 2), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         pa.paged_decode_attention(q, pages, pages, table,
@@ -379,7 +385,7 @@ def test_flash_attention_refuses(dev):
     q, k, v, _ = _flash_inputs(dev, 1, 64, 4, 2, 100, torch.bfloat16, seed=1)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, k, v, True)
-    q, k, v, _ = _flash_inputs(dev, 1, 64, 4, 2, 264, torch.float32, seed=1)
+    q, k, v, _ = _flash_inputs(dev, 1, 64, 4, 2, 1032, torch.float32, seed=1)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, k, v, True)
     q, k, v, _ = _flash_inputs(dev, 1, 64, 4, 2, 64, torch.bfloat16, seed=1)
@@ -494,7 +500,7 @@ def test_int8_dx_is_deterministic_and_the_ops_differentiate(dev):
 def test_int8_kernels_refuse(dev):
     x, dout, w, s = _gemm_inputs(dev, 100, 64, 48, seed=1)
     with pytest.raises(TypeError):
-        qm.int8_matmul(x.half(), w, s)                  # fp16 activations, large M
+        qm.int8_matmul(x.double(), w, s)                # f64 activations, large M
     with pytest.raises(TypeError):
         qm.int8_matmul_dx(dout.half(), w, s)
     with pytest.raises(ValueError, match="multiples of 16"):
@@ -906,3 +912,222 @@ def test_f32_ring_takes_the_kernels_through_the_gate(dev, causal):
     assert rf.ring_merge.launches == m0 + P - 1
     for got, want in zip(*grads):
         _assert_tiles_close(got, want)
+
+
+# -- the eleventh slice: fp16 int8, RMSNorm's rounding mode, attention past
+# 256 columns, and the serving engine's programs as CUDA graphs ------------
+
+# fp16 GEMM: the same exact products (fp16 x int8 is exact in f32) summed in
+# f32 in another order, rounded once to fp16: one fp16 step relative plus
+# 1e-3 of the largest output.
+GEMM_FP16_RTOL = 2.0 ** -10
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 64, 65, 8192])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (14336, 4096), (272, 400)])
+def test_int8_fp16_matches_plain(dev, M, K, N):
+    """fp16 activations: the weight stream's fp16 instantiation (M <= 64)
+    and the tensor-core kernel's (M > 64), each counted once."""
+    if M == 8192 and K * N > 4096 * 4096:
+        pytest.skip("one large-M shape a K, N class is enough")
+    x, _, w, s = _gemm_inputs(dev, M, K, N, seed=M + 3 * K + N)
+    x = x.half()
+    counts = (qm.int8_matmul.launches, qm.int8_matmul_large_m.launches)
+    out = qm.int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    large = M > qm.LARGE_M
+    assert (qm.int8_matmul.launches, qm.int8_matmul_large_m.launches) == \
+        (counts[0] + (not large), counts[1] + large)
+    want = qm.int8_matmul_ref(x, w, s)
+    assert out.dtype == torch.float16 and out.shape == (M, N)
+    diff = (out.float() - want.float()).abs()
+    tol = GEMM_FP16_RTOL * want.float().abs() + GEMM_ATOL_FRAC * want.float().abs().max()
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.parametrize("N,H,dtype", [
+    (8192, 4096, torch.bfloat16), (37, 4096, torch.bfloat16), (3, 1001, torch.bfloat16),
+    (5, 1024, torch.float32), (7, 1024, torch.float16),
+])
+def test_rms_norm_round_first_matches_plain(dev, N, H, dtype):
+    """The kernel's composed-form mode (what a TrainStep reaches): forward
+    and dx against the plain versions of the same mode, and the autograd op
+    against autograd through the composed form."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(N + H + 1)
+    x = (torch.randn((N, H), generator=g, device=dev) * 3).to(dtype)
+    w = (torch.rand((H,), generator=g, device=dev) + 0.5).to(dtype)
+    do = torch.randn((N, H), generator=g, device=dev).to(dtype)
+    out, inv = fn.rms_norm_fwd(x, w, 1e-6, round_first=True)
+    ref_out, ref_inv = fn.rms_norm_fwd_ref(x, w, 1e-6, round_first=True)
+    dx = fn.rms_norm_bwd_dx(x, w, inv, do, round_first=True)
+    ref_dx = fn.rms_norm_bwd_dx_ref(x, w, ref_inv, do, round_first=True)
+    rtol = NORM_RTOL.get(dtype, 2.0 ** -10)
+    for got, want in ((out, ref_out), (dx, ref_dx)):
+        diff = (got.float() - want.float()).abs()
+        tol = rtol * want.float().abs() + NORM_ATOL_FRAC * want.float().abs().max()
+        assert bool((diff <= tol).all()), diff.max().item()
+    if dtype != torch.float32:     # f32 has no narrower rounding to hold bits to
+        assert (out != ref_out).float().mean().item() <= ROUND_MISMATCH_MAX
+        fused = fn.rms_norm_fwd_ref(x, w, 1e-6)[0]
+        assert (out != fused).float().mean().item() > ROUND_MISMATCH_MAX     # the control
+
+
+def _wide_flash_case(dev, B, sq, sk, H, Hk, D, dtype, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q = torch.randn((B, sq, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, sk, Hk, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, sk, Hk, D), generator=g, device=dev).to(dtype)
+    do = torch.randn((B, sq, H, D), generator=g, device=dev).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("B,sq,sk,H,Hk,D,causal,dtype", [
+    (1, 256, 256, 4, 2, 320, True, BF16),
+    (1, 100, 300, 4, 1, 512, True, BF16),       # sq != sk, bottom-right
+    (2, 129, 129, 2, 2, 264, False, FP16),
+    (1, 200, 70, 4, 2, 384, True, torch.float32),   # rows that see no key
+    (1, 64, 64, 2, 1, 1024, False, BF16),
+])
+def test_flash_simt_route_matches_plain(dev, B, sq, sk, H, Hk, D, causal, dtype):
+    """Past 256 columns the flash op takes its simt route (one launch each
+    way, counted there), held tile by tile against the plain versions."""
+    q, k, v, do = _wide_flash_case(dev, B, sq, sk, H, Hk, D, dtype, seed=D + sq)
+    f0, b0 = fa.flash_attention_fwd.by_route["simt"], fa.flash_attention_bwd.by_route["simt"]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    ref_grads = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.by_route["simt"], fa.flash_attention_bwd.by_route["simt"]) \
+        == (f0 + 1, b0 + 1)
+    _assert_tiles_close(out, ref_out)
+    live = ref_lse > -1e29
+    assert torch.allclose(lse[live], ref_lse[live], rtol=1e-6, atol=FLASH_LSE_ATOL)
+    for got, want in zip(grads, ref_grads):
+        _assert_tiles_close(got, want)
+    again = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("H,Hk,hd,bs,MB,dtype", [
+    (8, 2, 320, 16, 6, torch.bfloat16), (4, 4, 512, 8, 5, torch.float32),
+    (8, 2, 128, 512, 2, torch.float16), (6, 2, 1024, 16, 3, torch.bfloat16),
+])
+def test_paged_attention_wide_matches_plain(dev, H, Hk, hd, bs, MB, dtype):
+    """Head dims or pages past 256: the wide kernel, one launch counted in
+    its own wrapper, every hidden slot NaN or Inf; capturable, its replay
+    after lengths change matching the plain version."""
+    cap = MB * bs
+    lengths = [0, 1, bs, cap // 2 + 3, cap - 1]
+    q, pk, pv, table, ln, pk_bad, pv_bad = _attention_case(dev, lengths, H, Hk, hd, bs, MB,
+                                                           dtype, seed=hd + bs)
+    w0, t0 = pa.paged_decode_attention_wide.launches, pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(q, pk_bad, pv_bad, table, ln)
+    torch.cuda.synchronize()
+    assert (pa.paged_decode_attention_wide.launches, pa.paged_decode_attention.launches) == \
+        (w0 + 1, t0)
+    want = pa.paged_decode_attention_ref(q, pk, pv, table, ln)
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_ATOL[dtype]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_decode_attention(q, pk, pv, table, ln)
+    # shorter lengths: each lane still sees only slots the pools hold values in
+    ln.copy_(torch.tensor([0, 1, bs - 1, 7, cap // 2], dtype=torch.int32, device=dev))
+    graph.replay()
+    want = pa.paged_decode_attention_ref(q, pk, pv, table, ln)
+    assert (out.float() - want.float()).abs().max().item() <= ATTN_ATOL[dtype]
+
+
+def _tiny_engine_model(dev, dtype=torch.bfloat16):
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_size=256, intermediate_size=512,
+                           num_hidden_layers=2, num_attention_heads=4,
+                           num_key_value_heads=2)
+    return LlamaForCausalLM(cfg, device=dev, dtype=dtype, seed=1)
+
+
+def _serve(model, eager, **cfg):
+    """A staggered trace of mixed greedy and sampled requests; returns the
+    streams and the engine."""
+    from paddle_tpu_torch.inference.serving import SamplingParams, ServeConfig, ServingEngine
+
+    eng = ServingEngine(model, ServeConfig(num_lanes=3, block_size=16, max_seq_len=96,
+                                           prefill_chunk=16, **cfg), eager=eager)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 512, n).tolist() for n in (3, 40, 1, 20, 7)]
+
+    def params(i):
+        if not cfg.get("sampling") or i % 2:
+            return None
+        return SamplingParams(temperature=0.8, top_k=(0, 20)[i % 4 // 2], top_p=0.9,
+                              seed=10 + i)
+
+    reqs = [eng.submit(p, 8, sampling=params(i)) for i, p in enumerate(prompts[:3])]
+    for _ in range(3):
+        eng.step()
+    reqs += [eng.submit(p, 8, sampling=params(i + 3)) for i, p in enumerate(prompts[3:])]
+    eng.run()
+    return [(r.status, r.generated) for r in reqs], eng
+
+
+@pytest.mark.parametrize("cfg", [dict(), dict(weight_dtype="int8"),
+                                 dict(sampling=True), dict(sampling=True, nan_guard=True,
+                                                           weight_dtype="int8")])
+def test_graphed_engine_matches_the_eager_engine(dev, cfg):
+    """The engine's two programs as CUDA graphs (one capture each) against
+    the same programs run eagerly: identical streams, bit for bit, greedy
+    and sampled, bf16 and int8. A replay runs kernels that no wrapper
+    counts, so the kernels the device ran are read from a device trace:
+    paged attention once a layer in each decode call, and with int8 the
+    weight stream once a projection in each call of either program."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _tiny_engine_model(dev)
+    want, eager = _serve(model, eager=True, **cfg)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got, eng = _serve(model, eager=False, **cfg)
+        torch.cuda.synchronize()
+    assert got == want and all(s == "done" for s, _ in got)
+    assert eng.stats()["captures"] == {"decode": 1, "prefill": 1}
+    assert eager.stats()["captures"] == {"decode": 0, "prefill": 0}
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls, layers = eng.stats()["program_calls"], model.config.num_hidden_layers
+    assert calls == eager.stats()["program_calls"]
+    assert sum("paged_decode_kernel" in n for n in names) == layers * calls["decode"]
+    head = int(isinstance(eng._w["lm_head"], dict))
+    want_stream = ((7 * layers + head) * calls["decode"] + 7 * layers * calls["prefill"]
+                   if cfg.get("weight_dtype") == "int8" else 0)
+    assert sum("int8_stream_kernel" in n for n in names) == want_stream
+
+
+def test_graphed_engine_nan_guard_and_fp16_int8(dev):
+    """The guard inside the decode graph: one lane's pages poisoned, that
+    request fails with "nonfinite logits", the others keep the clean run's
+    streams; and an fp16 int8 engine serves through the fp16 kernels."""
+    from paddle_tpu_torch.inference.serving import ServeConfig, ServingEngine
+
+    model = _tiny_engine_model(dev)
+
+    def run(poison):
+        eng = ServingEngine(model, ServeConfig(num_lanes=3, block_size=16, max_seq_len=64,
+                                               nan_guard=True))
+        reqs = [eng.submit([5 + i, 9, 11, 13, 2][: 5 - i], 8) for i in range(3)]
+        for i in range(4):
+            if i == 3 and poison:
+                eng._kv.pages_k[:, eng._kv.lane_blocks(reqs[1].lane)] = float("nan")
+            eng.step()
+        eng.run()
+        return reqs
+
+    bad, clean = run(True), run(False)
+    assert bad[1].status == "failed" and bad[1].error == "nonfinite logits"
+    assert [r.generated for r in (bad[0], bad[2])] == [r.generated for r in (clean[0], clean[2])]
+    m16 = _tiny_engine_model(dev, torch.float16)
+    s0 = qm.int8_matmul.launches
+    got, eng = _serve(m16, eager=False, weight_dtype="int8")
+    want, _ = _serve(m16, eager=True, weight_dtype="int8")
+    assert got == want and qm.int8_matmul.launches > s0

@@ -168,5 +168,7 @@ def test_generator_eos_and_sampling_guard(models):
     # the lane finished at its first generated token, so the loop stopped
     assert int(glen2[0]) == 3 and int(out2[0, 2]) == eos
     assert out2[0, :3].tolist() == out[0, :3].tolist()
-    with pytest.raises(NotImplementedError, match="sampling slice"):
-        port.LlamaGreedyGenerator(pmodel, max_len=10, do_sample=True)
+    # sampling with top_k=1 keeps only the largest logit: greedy again
+    out3, glen3 = port.LlamaGreedyGenerator(pmodel, max_len=10, do_sample=True, top_k=1,
+                                            seed=3)(ids, np.array([2]))
+    assert out3.tolist() == out.tolist() and glen3.tolist() == glen.tolist()

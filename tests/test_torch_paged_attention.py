@@ -137,10 +137,10 @@ def test_prefill_attend_matches_reference(start, C):
 
 
 @pytest.mark.parametrize("bad, err", [
-    (dict(hd=257), ValueError),                # past the kernel's 256 by one
-    (dict(hd=264), ValueError),                # past the kernel's 256
+    (dict(hd=1025), ValueError),               # past the wide kernel's 1024 by one
+    (dict(hd=1032), ValueError),               # past the wide kernel's 1024
     (dict(hk=3), ValueError),                  # H % Hk != 0
-    (dict(bs=512), ValueError),                # a page past 256 slots
+    (dict(phd=32), ValueError),                # pages of another head dim
     (dict(table_dtype=torch.int64), TypeError),
     (dict(lengths_dtype=torch.int64), TypeError),
     (dict(q_dtype=torch.int8), TypeError),
@@ -148,7 +148,7 @@ def test_prefill_attend_matches_reference(start, C):
 def test_card_checks_reject_what_the_kernel_does_not_take(bad, err):
     hd, hk, bs = bad.get("hd", 64), bad.get("hk", 2), bad.get("bs", 4)
     q = torch.zeros((2, 4, hd), dtype=bad.get("q_dtype", torch.bfloat16))
-    pages = torch.zeros((3, bs, hk, hd), dtype=torch.bfloat16)
+    pages = torch.zeros((3, bs, hk, bad.get("phd", hd)), dtype=torch.bfloat16)
     table = torch.zeros((2, 2), dtype=bad.get("table_dtype", torch.int32))
     lengths = torch.zeros((2,), dtype=bad.get("lengths_dtype", torch.int32))
     with pytest.raises(err):
@@ -159,16 +159,19 @@ def test_card_checks_reject_what_the_kernel_does_not_take(bad, err):
                                       (torch.float32, 80), (torch.float32, 96),
                                       (torch.bfloat16, 96), (torch.float16, 8),
                                       (torch.bfloat16, 20), (torch.float16, 100),
-                                      (torch.float32, 6)])
+                                      (torch.float32, 6), (torch.bfloat16, 320),
+                                      (torch.float32, 512), (torch.float16, 257)])
 def test_card_checks_take_what_the_reference_serves(dtype, hd):
-    """bf16, fp16 and f32 at any head_dim up to 256: the reference's
+    """bf16, fp16 and f32 at any head_dim up to 1024: the reference's
     composed path serves them all, so the card takes them too (a head_dim
     whose rows TMA cannot map, such as 20, 100 or 6, through the kernel's
-    copying producer)."""
+    copying producer; past 256 through the wide kernel)."""
     q = torch.zeros((2, 8, hd), dtype=dtype)
     pages = torch.zeros((3, 16, 2, hd), dtype=dtype)
     port_ops._check(q, pages, pages, torch.zeros((2, 2), dtype=torch.int32),
                     torch.zeros((2,), dtype=torch.int32))
+    assert port_ops.takes(hd, 16) == (hd <= 256)
+    assert not port_ops.takes(64, 512)
 
 
 def _composed_reference(q, pk, pv, table, ln):

@@ -77,7 +77,7 @@ def test_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
 
 
 @pytest.mark.parametrize("bad, err", [
-    (dict(x_dtype=torch.float16), TypeError),
+    (dict(x_dtype=torch.float64), TypeError),
     (dict(k=24), ValueError),
     (dict(n=40), ValueError),
     (dict(transpose_x=True), ValueError),

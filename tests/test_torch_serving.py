@@ -6,8 +6,9 @@ to the port through numpy) on the CPU, in f32, over one seeded staggered
 trace: more requests than lanes, prompts whose prefill ends in a partial
 chunk, admissions between steps and a cancel mid-flight. Greedy tokens
 must be IDENTICAL for ``weight_dtype="bf16"`` (no quantization) and
-``"int8"``. Plus the allocator, cancel, submit validation, the fields
-that later slices serve, and the default device.
+``"int8"``. Plus the allocator, cancel, submit validation (a non-greedy
+request needs a sampling engine), the fields that later slices serve, and
+the default device.
 """
 
 import jax
@@ -209,7 +210,7 @@ class TestValidation:
             eng.submit([])
         with pytest.raises(ValueError):
             eng.submit([1, 2], 0)
-        with pytest.raises(NotImplementedError, match="sampling slice"):
+        with pytest.raises(ValueError, match="sampling=True"):
             eng.submit([1, 2], 3, sampling=SamplingParams(temperature=0.8))
         greedy = eng.submit([1, 2], 3, sampling=SamplingParams(do_sample=False))
         eng.run()
@@ -224,7 +225,6 @@ class TestValidation:
 
     @pytest.mark.parametrize("field, value, slice_name", [
         ("lane_shards", 2, "sharding"), ("weight_shards", 2, "sharding"),
-        ("sampling", True, "sampling"), ("nan_guard", True, "numerics"),
         ("draft", object(), "speculative"), ("prefix_cache", True, "prefix-cache"),
         ("host_kv_blocks", 4, "prefix-cache"),
     ])
