@@ -39,8 +39,9 @@ Phases, each printing one line of numbers:
    step at M = 8 timed beside cuBLAS on fp16 weights; the tensor-core
    kernel at M = 8192 over one layer's projections), RMSNorm's
    composed-form mode (``round_first``) at [8192, 4096], flash attention's
-   simt route at head dims 320 and 512 (beside SDPA with the backend it
-   picks, and its launches through ``nn.functional.flash_attention``) and
+   wide route at head dims 320, 512 and 1024 (its output in chunks of at
+   most 256 columns; beside SDPA with the backend it picks, and its
+   launches through ``nn.functional.flash_attention``) and
    the wide paged kernel at head dims 320 and 512 and pages of 512 slots
    (held against the plain version in f32), and one decode step's 225
    weight-stream calls captured as one graph, its programmatic
@@ -1359,9 +1360,11 @@ def teacher_forced_check(engine, prompts):
 # sum them in f32 in another order and round once to fp16: one fp16 step
 # relative plus GEMM_ATOL_FRAC of the largest output
 GEMM_FP16_RTOL = 2.0 ** -10
-# flash past 256 columns (the simt route): (label, B, S, H, Hk, hd, causal)
-WIDE_FLASH_CASES = (("hd320_s2048_causal", 1, 2048, 8, 2, 320, True),
-                    ("hd512_s1024", 1, 1024, 8, 2, 512, False))
+# flash past 256 columns (the wide route): (label, B, Sq, Sk, H, Hk, hd,
+# causal); the last case streams the most boxes (16) into four chunks
+WIDE_FLASH_CASES = (("hd320_s2048_causal", 1, 2048, 2048, 8, 2, 320, True),
+                    ("hd512_s1024", 1, 1024, 1024, 8, 2, 512, False),
+                    ("hd1024_sq512_sk1024_causal", 1, 512, 1024, 4, 1, 1024, True))
 # paged attention past 256 (the wide kernel), timed at ragged lengths:
 # (label, lengths, attention_inputs shape)
 WIDE_PAGED_CASES = (("hd320", RAGGED, dict(H=16, Hk=4, hd=320)),
@@ -1536,10 +1539,11 @@ def sdpa_backend(q, k, v, **kw) -> str:
 
 
 def check_wide_attention(gen):
-    """Attention past 256 columns. Flash's simt route (WIDE_FLASH_CASES,
+    """Attention past 256 columns. Flash's wide route (WIDE_FLASH_CASES,
     bf16): forward and backward against the plain versions tile by tile,
     timed beside the bound (bf16 peak), the plain version and SDPA with the
-    backend it picks (K/V expanded to every head); then its main path,
+    backend it picks (K/V expanded to every head; causal with Sq != Sk as a
+    bottom-right mask, ``causal_lower_right``); then its main path,
     ``nn.functional.flash_attention`` forward and backward on each case, the
     launch counts set to 0 before. Paged attention's wide kernel
     (WIDE_PAGED_CASES) through ``paged_decode_attention``, held and timed as
@@ -1548,36 +1552,38 @@ def check_wide_attention(gen):
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
 
     from paddle_tpu_torch.nn import functional as PF
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
 
     res, inputs = {}, {}
-    for label, B, S, H, Hk, hd, causal in WIDE_FLASH_CASES:
+    for label, B, S, Sk, H, Hk, hd, causal in WIDE_FLASH_CASES:
         q, do = (torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
                  for _ in "qo")
-        k, v = (torch.randn((B, S, Hk, hd), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((B, Sk, Hk, hd), generator=gen, device="cuda").bfloat16()
                 for _ in "kv")
-        if fa.route(q) != "simt":
-            raise AssertionError(f"flash {label} takes route {fa.route(q)}, not simt")
+        if fa.route(q) != "wide":
+            raise AssertionError(f"flash {label} takes route {fa.route(q)}, not wide")
         out, lse = fa.flash_attention_fwd(q, k, v, causal)
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
         errs = hold_flash(label, (out, lse), fa.flash_attention_fwd_ref(q, k, v, causal), grads,
                           fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal))
-        pairs = general_pairs(B, S, S, H, causal)
-        qo, kv, st = B * S * H * hd * 2, B * S * Hk * hd * 2, B * H * S * 4
+        pairs = general_pairs(B, S, Sk, H, causal)
+        qo, kv, st = B * S * H * hd * 2, B * Sk * Hk * hd * 2, B * H * S * 4
         bf, byf = bound_ms(2 * qo + 2 * kv + st, 4 * pairs * hd)
         bb, byb = bound_ms(3 * qo + 4 * kv + 2 * st, 10 * pairs * hd)
         qt, dot = q.transpose(1, 2), do.transpose(1, 2)
         kt, vt = (t.repeat_interleave(H // Hk, dim=2).transpose(1, 2) for t in (k, v))
-        backend = sdpa_backend(qt, kt, vt, is_causal=causal)
+        kw = (dict(attn_mask=causal_lower_right(S, Sk)) if causal and S != Sk
+              else dict(is_causal=causal))
+        backend = sdpa_backend(qt, kt, vt, **kw)
         with sdpa_kernel([getattr(SDPBackend, backend)]):
-            lib_fwd = device_ms(lambda i: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                         is_causal=causal), 1, 3)
+            lib_fwd = device_ms(lambda i: F.scaled_dot_product_attention(qt, kt, vt, **kw), 1, 3)
             ql, kl, vl = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
-            lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, **kw)
             lib_bwd = eager_ms(lambda i: torch.autograd.grad(lib_out, (ql, kl, vl), dot,
                                                              retain_graph=True), 1, 2, 1)
         fwd = dict(max_abs_err=errs["fwd_err"], tile_err=errs["out_tile_err"],
@@ -1592,10 +1598,12 @@ def check_wide_attention(gen):
                        q, k, v, do, lse, delta, causal), 1, 1, 1),
                    bound_ms=bb, bound_by=byb, library_ms=lib_bwd, library_backend=backend)
         for key, nums in (("fwd", fwd), ("bwd", bwd)):
-            say("kernels", kernel=f"flash_attention_{key}", route="simt", case=label,
+            say("kernels", kernel=f"flash_attention_{key}", route="wide", case=label,
+                chunks=list(fa.chunk_plan(hd)),
                 **{k2: (round(v2, 5) if isinstance(v2, float) and "err" not in k2 else v2)
                    for k2, v2 in nums.items()},
-                bound_share=round(nums["bound_ms"] / nums["ms"], 4))
+                bound_share=round(nums["bound_ms"] / nums["ms"], 4),
+                library_ratio=round(nums["ms"] / nums["library_ms"], 4))
         res[label] = (fwd, bwd)
         inputs[label] = (q, k, v, do, causal, out)
         del ql, kl, vl, lib_out, qt, kt, vt, dot, grads, delta, lse
@@ -1609,13 +1617,13 @@ def check_wide_attention(gen):
         torch.cuda.synchronize()
         if not torch.equal(got.detach(), out):
             raise AssertionError(f"nn.functional.flash_attention ({label}) differs from the "
-                                 "simt route's forward kernel")
+                                 "wide route's forward kernel")
     launches = {"fwd": dict(fa.flash_attention_fwd.by_route),
                 "bwd": dict(fa.flash_attention_bwd.by_route)}
     want = dict.fromkeys(fa.ROUTES, 0)
-    want["simt"] = len(inputs)
+    want["wide"] = len(inputs)
     if launches != {"fwd": want, "bwd": want}:
-        raise AssertionError(f"the simt flash path launched {launches}, expected {want}")
+        raise AssertionError(f"the wide flash path launched {launches}, expected {want}")
     say("kernels", kernel="flash_attention", main_path="nn.functional.flash_attention past 256 "
         "columns, forward and backward", launches_by_route=json.dumps(launches))
     del inputs
@@ -1635,13 +1643,14 @@ def check_wide_attention(gen):
         raise AssertionError(f"wide paged cases launched the wide kernel {paged_launches} "
                              f"times and the TMA kernel {pa.paged_decode_attention.launches}")
     fwd, bwd = res[WIDE_FLASH_CASES[0][0]]
-    fwd["at"] = ("B1 S2048 H8 Hk2 hd320 causal bf16, the simt route; bound at 989 TFLOP/s; "
-                 f"library: SDPA ({fwd['library_backend']}) over K/V expanded to every head")
+    fwd["at"] = ("B1 S2048 H8 Hk2 hd320 causal bf16, the wide route (chunks of 192 and 128 "
+                 "columns); bound at 989 TFLOP/s; library: SDPA "
+                 f"({fwd['library_backend']}) over K/V expanded to every head")
     bwd["at"] = fwd["at"] + ", backward alone by torch.autograd.grad (eager)"
     nums = dict(paged["hd320"])
     nums["at"] = ("8 lanes, H16 Hk4 hd320 bs16 MB64, ragged lengths, bf16; library: SDPA over "
                   "the gathered window")
-    return (fwd, bwd), launches["fwd"]["simt"], nums, paged_launches
+    return (fwd, bwd), launches["fwd"]["wide"], nums, paged_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3384,10 +3393,10 @@ def main(argv=None) -> int:
             ("rms_norm_bwd_round_first", "rms_norm.cu", "fused_norm.py:79", rms_rf[1],
              train_launches["rms_norm_bwd_dx_round_first"],
              f"the {TRAIN_STEPS} timed training steps"),
-            ("flash_attention_fwd_simt", "attention_wide.cu", "flash_attention.py:112",
+            ("flash_attention_fwd_wide", "flash_attention.cu", "flash_attention.py:112",
              wide_flash[0], wide_flash_launches,
              "nn.functional.flash_attention past 256 columns (no model path runs them)"),
-            ("flash_attention_bwd_simt", "attention_wide.cu", "flash_attention.py:112",
+            ("flash_attention_bwd_wide", "flash_attention.cu", "flash_attention.py:112",
              wide_flash[1], wide_flash_launches, "the same calls' backward"),
             ("paged_decode_attention_wide", "attention_wide.cu", "paged_attention.py:68",
              wide_paged, wide_paged_launches,

@@ -109,8 +109,37 @@
 //   dP^T is computed, then dS^T. dQ: one block per (64 or 128 Q rows, head,
 //   batch); Q, dO and the row statistics stay, K and V tiles stream through
 //   the stages, P formed while dP is computed.
-// - bf16, fp16 and f32; every head_dim that is a multiple of 8 up to 256;
-//   any Sq and Sk.
+// - bf16, fp16 and f32; every head_dim that is a multiple of 8 up to 1024
+//   (past 256 the wide kernels below); any Sq and Sk.
+// - Past 256 columns (wide_fwd_kernel, wide_bwd_kernel): the two widths of
+//   a product are split. The score products (S = Q K^T, dP = dO V^T, S^T =
+//   K Q^T, dP^T = V dO^T) contract over the whole Dp = 64 ceil(D / 64), up
+//   to 1024, their operands streaming through the contraction stages in
+//   64-column boxes (a stage holds box x of each operand of the pass's one
+//   or two score products, so shared memory does not grow with D; Q, or K
+//   and V, is read again from L2 for every tile). The products that write
+//   the output (O = P V, dQ = dS K, dK = dS^T Q, dV = P^T dO) write one
+//   chunk of at most 256 columns, a multiple of 64: a block owns one (query
+//   or key tile of 64 rows, chunk, head, batch) and its accumulator,
+//   registers and epilogue are those of a Dp <= 256 block with one consumer
+//   warpgroup. The chunk plan (wide_plan; ops/flash_attention.py
+//   chunk_plan) cuts Dp into c = ceil(Dp / 256) chunks of whole boxes, the
+//   widest at most one box wider than the rest: 192 + 128 at D 320, 4 x 256
+//   at 1024. The blocks of one tile's chunks compute S in the same order, so
+//   m, l and lse agree bit for bit; the first chunk's blocks write lse. The
+//   backward's three passes (dV, dK, dQ; GQA sums in f32 registers, no
+//   atomics, the exp(min(s - lse, 60)) clamp, bottom-right causal rows)
+//   run as one launch, heaviest blocks first, so the few dK and dV blocks
+//   (Sk / 64 x Hk x c) share the card with the dQ blocks; the forward is one
+//   launch too. Every chunk recomputes the scores: with c chunks the forward
+//   does (c + 1) / 2 of its 4-FLOP bound's work and the backward (5 c + 3) /
+//   5 of its 10-FLOP bound's (1.5x and 2.6x at c = 2, 2.5x and 4.6x at c =
+//   4). The alternative, two consumer warpgroups each holding half of the
+//   output columns and sharing one P tile through shared memory, removes the
+//   recompute only at c = 2 and needs 384 threads, which ptxas holds to 168
+//   registers, below the 202-251 these blocks use. f32 runs through the
+//   same split pre-pass and two pieces (one chunk stage in the dK and dQ
+//   passes).
 //
 // Tried on the H100 (80GB HBM3, 700 W) at the shape above, with SDPA's
 // forward at 0.86-0.89 ms and its backward at 2.68-2.88 ms in the same calls:
@@ -129,9 +158,21 @@
 // - f32 and other head dims on SIMT kernels (FMA, no tensor cores): f32 at
 //   S 2048 3.38 / 13.14 ms, bf16 at head_dim 96 2.92 / 11.24 ms; replaced
 //   by the pieces and the padding above.
+// - Past 256 columns, at head_dim 320, S 2048, H 8, Hk 2, causal, bf16
+//   (SDPA's memory-efficient kernel 0.282-0.285 / 4.40-4.55 ms): SIMT
+//   kernels, 128-column chunks in f32 shared memory, 8.17 / 33.04 ms;
+//   these kernels with the backward as six launches (three passes x two
+//   chunk widths, 64 dK or dV blocks a launch) 0.184 / 1.676 ms; with one
+//   launch each way 0.150 / 0.630 ms; with each pass's A operands (Q; K
+//   and V; Q and dO) resident in shared memory where they fit, only the B
+//   side streamed, 0.144 / 0.628 ms (hd 1024 forward 0.074 -> 0.068):
+//   the bytes from L2 are not what bounds them, and a second
+//   instantiation of every kernel was not worth 5%; dropped.
 //
 // Not done yet: a persistent schedule, a one-pass backward (dQ reduced
-// across blocks in order, FA3-style) and a fused delta = rowsum(dO * O).
+// across blocks in order, FA3-style) and a fused delta = rowsum(dO * O);
+// past 256 columns, more than one commit group of score products in flight
+// and wider score tiles.
 
 #include "hopper.cuh"
 
@@ -166,6 +207,7 @@ constexpr float kInit2 = 4.f * kMask2;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kClamp2 = 60.f * kLog2e;  // the clamp exp(min(x, 60)) in log2
 constexpr int kTmaError = 10000;          // + CUresult of a failed tensor map
+constexpr int kMaxSmem = 232448;          // dynamic shared memory a block can have
 
 struct Strides {
   long long b, s, h;
@@ -215,6 +257,28 @@ template <typename C>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const long long* st,
                const BwdArgs& a, cudaStream_t stream);
 
+// past 256 columns: a configuration of the wide kernels (product type T,
+// output type TO, pieces NP) and a call's plan: the score products contract
+// over nbox boxes of 64 columns; the output is n0 chunks of Dc0 columns,
+// then n1 chunks of Dc0 - 64 (wide_plan)
+template <typename T_, typename TO_, int NP_>
+struct WideCfg {
+  using T = T_;
+  using TO = TO_;
+  static constexpr int NP = NP_;
+};
+
+struct WidePlan {
+  int nbox, n0, n1;
+};
+
+template <typename C, int Dc0>
+int launch_wide_fwd(const void* q, const void* k, const void* v, const long long* st,
+                    const FwdArgs& a, WidePlan w, cudaStream_t stream);
+template <typename C, int Dc0>
+int launch_wide_bwd(const void* q, const void* k, const void* v, const void* dout,
+                    const long long* st, const BwdArgs& a, WidePlan w, cudaStream_t stream);
+
 #if FLASH_KERNELS
 
 // A block of one pass: a producer warpgroup and kC consumer warpgroups for
@@ -261,10 +325,12 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // S[64 x N] = A B^T over Dp columns: A and B K-major tiles of Dp / 64 boxes
-// (a_box, b_box bytes apart), their pieces a_piece, b_piece bytes apart
+// (a_box, b_box bytes apart), their pieces a_piece, b_piece bytes apart;
+// acc != 0 adds to S
 template <typename T, int N, int Dp, int NP>
 __device__ __forceinline__ void mma_scores(float* s, uint32_t a, uint32_t a_box, uint32_t a_piece,
-                                           uint32_t b, uint32_t b_box, uint32_t b_piece) {
+                                           uint32_t b, uint32_t b_box, uint32_t b_piece,
+                                           int acc = 0) {
 #pragma unroll
   for (int p = 0; p < npairs(NP); ++p)
 #pragma unroll
@@ -273,7 +339,7 @@ __device__ __forceinline__ void mma_scores(float* s, uint32_t a, uint32_t a_box,
       for (int kk = 0; kk < kBox / 16; ++kk)
         Mma<T, N>::template ss<0>(s, kmajor(a + pair_a(NP, p) * a_piece + x * a_box + kk * 32),
                                   kmajor(b + pair_b(NP, p) * b_piece + x * b_box + kk * 32),
-                                  p + x + kk);
+                                  acc + p + x + kk);
 }
 
 // D[64 x Dp] (+)= A[64 x 16] B[16 x Dp], B MN-major in boxes box_bytes apart
@@ -321,6 +387,123 @@ __device__ __forceinline__ void store_rows(TO* g, long long rs, int row, int S, 
       else
         *reinterpret_cast<uint32_t*>(p + 8 * j) = pack2<TO>(x0, x1);
     }
+  }
+}
+
+// The scores of one tile to probabilities, on the accumulator layout: a
+// warpgroup's 64 rows start at r0 (this thread's rows are row and row + 8),
+// its N or M columns at k0 or q0; causal row i sees keys j <= i + Sk - Sq.
+
+// forward: the scores s to log2 units, masked past Sk (kPad2) and, causal,
+// past the row's last key (kMask2; only the diagonal tiles and the ragged
+// tail hold such columns); the running maximum m and sum l updated; P left
+// in s, and in alpha the factor that rescales the rows' earlier sums
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], const FwdArgs& a, int k0, int r0,
+                                             int row, int t4) {
+  const float sl2 = a.scale * kLog2e;
+  const int off = a.Sk - a.Sq;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] *= sl2;
+  if (k0 + N > a.Sk || (a.causal && k0 + N - 1 > r0 + off)) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (col >= a.Sk)
+        s[i] = kPad2;
+      else if (a.causal && col > row + 8 * ((i >> 1) & 1) + off)
+        s[i] = kMask2;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2(m[r] - mx[r]);
+    m[r] = mx[r];
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+    l[(i >> 1) & 1] += s[i];
+  }
+}
+
+// the rows' lse in log2 units and delta (zeros past Sq)
+__device__ __forceinline__ void row_stats(float (&lse2)[2], float (&dl)[2], const BwdArgs& a,
+                                          int b, int h, int row) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = row + 8 * r < a.Sq;
+    const long long i = ((long long)b * a.H + h) * a.Sq + row + 8 * r;
+    lse2[r] = ok ? a.lse[i] * kLog2e : 0.f;
+    dl[r] = ok ? a.delta[i] : 0.f;
+  }
+}
+
+// dQ pass: P = exp(min(s - lse, 60)) (lse2 in log2 units), zero past Sk
+// and, causal, past the row's last key
+template <int N>
+__device__ __forceinline__ void probs(float (&s)[N / 2], const BwdArgs& a, const float (&lse2)[2],
+                                      int k0, int r0, int row, int t4) {
+  const float sl2 = a.scale * kLog2e;
+  const int off = a.Sk - a.Sq;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] = ex2(fminf(s[i] * sl2 - lse2[(i >> 1) & 1], kClamp2));
+  if (k0 + N > a.Sk || (a.causal && k0 + N - 1 > r0 + off)) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (col >= a.Sk || (a.causal && col > row + 8 * ((i >> 1) & 1) + off)) s[i] = 0.f;
+    }
+  }
+}
+
+// dK and dV passes, transposed (rows are keys from r0, this thread's krow
+// and krow + 8; M query columns from q0, their lse at ls and delta at ls +
+// M): P^T = exp(min(s - lse, 60)), zero for queries past Sq and, causal,
+// keys after the query's last; in the dV pass (kDV) a query that sees no
+// key gives 1 / Sk to every key
+template <int M, bool kDV>
+__device__ __forceinline__ void probs_t(float (&s)[M / 2], const BwdArgs& a, const float* ls,
+                                        int q0, int r0, int krow, int t4) {
+  const float sl2 = a.scale * kLog2e;
+  const int off = a.Sk - a.Sq;
+#pragma unroll
+  for (int i = 0; i < M / 2; ++i) {
+    const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
+    s[i] = ex2(fminf(s[i] * sl2 - ls[qc] * kLog2e, kClamp2));
+  }
+  if (q0 + M > a.Sq || (a.causal && r0 + 63 > q0 + off)) {
+    const float inv_sk = 1.f / a.Sk;
+#pragma unroll
+    for (int i = 0; i < M / 2; ++i) {
+      const int q = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if constexpr (kDV) {
+        if (q >= a.Sq)
+          s[i] = 0.f;
+        else if (a.causal && krow + 8 * ((i >> 1) & 1) > q + off)
+          s[i] = q + off < 0 ? inv_sk : 0.f;
+      } else if (q >= a.Sq || (a.causal && krow + 8 * ((i >> 1) & 1) > q + off)) {
+        s[i] = 0.f;
+      }
+    }
+  }
+}
+
+// dK pass: dS^T = P^T (dP^T - delta) scale, in dp
+template <int M>
+__device__ __forceinline__ void ds_t(float (&dp)[M / 2], const float (&s)[M / 2],
+                                     const BwdArgs& a, const float* ls, int t4) {
+#pragma unroll
+  for (int i = 0; i < M / 2; ++i) {
+    const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
+    dp[i] = s[i] * (dp[i] - ls[M + qc]) * a.scale;
   }
 }
 
@@ -412,7 +595,6 @@ __global__ void __launch_bounds__(Shape<Dp, NP>::kThreads, 1)
     const int c = threadIdx.x / kWG - 1;           // query rows c * 64 .. of the block
     const int t = threadIdx.x % kWG, t4 = t % 4;
     const int row = q0 + c * 64 + (t / 32) * 16 + (t % 32) / 4;   // and row + 8
-    const float sl2 = a.scale * kLog2e;
     const uint32_t qs = smem_u32(sm + G::kQ) + c * 64 * kRowBytes;
     float o[Dp / 2];
 #pragma unroll
@@ -436,36 +618,8 @@ __global__ void __launch_bounds__(Shape<Dp, NP>::kThreads, 1)
       fence_regs(s);
       release(k_empty + st);
 
-#pragma unroll
-      for (int i = 0; i < G::kN / 2; ++i) s[i] *= sl2;
-      // only the diagonal tiles and the ragged tail hold masked columns
-      if (k0 + G::kN > a.Sk || (a.causal && k0 + G::kN - 1 > q0 + c * 64 + off)) {
-#pragma unroll
-        for (int i = 0; i < G::kN / 2; ++i) {
-          const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
-          if (col >= a.Sk)
-            s[i] = kPad2;
-          else if (a.causal && col > row + 8 * ((i >> 1) & 1) + off)
-            s[i] = kMask2;
-        }
-      }
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int i = 0; i < G::kN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
       float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        alpha[r] = ex2(m[r] - mx[r]);
-        m[r] = mx[r];
-        l[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int i = 0; i < G::kN / 2; ++i) {
-        s[i] = ex2(s[i] - m[(i >> 1) & 1]);
-        l[(i >> 1) & 1] += s[i];
-      }
+      softmax_tile<G::kN>(s, m, l, alpha, a, k0, q0 + c * 64, row, t4);
       if constexpr (!G::kPromote) {
 #pragma unroll
         for (int i = 0; i < Dp / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
@@ -562,7 +716,6 @@ __global__ void __launch_bounds__(Shape<Dp, NP>::kThreads, 1)
   const int q_start = !a.causal || (kDV && off < 0) ? 0 : max(0, k0 - off) / G::kM;
   const int per_head = max(0, nq - q_start);
   const int total = rep * per_head;
-  const float inv_sk = 1.f / a.Sk;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -628,7 +781,6 @@ __global__ void __launch_bounds__(Shape<Dp, NP>::kThreads, 1)
     const int c = threadIdx.x / kWG - 1;           // K rows c * 64 .. of the block
     const int t = threadIdx.x % kWG, t4 = t % 4;
     const int krow = k0 + c * 64 + (t / 32) * 16 + (t % 32) / 4;   // and krow + 8
-    const float sl2 = a.scale * kLog2e;
     const uint32_t ks = smem_u32(sm + G::kK) + c * 64 * kRowBytes;
     const uint32_t vs = smem_u32(sm + G::kV) + c * 64 * kRowBytes;
     float acc[Dp / 2];                             // dV or dK of this warpgroup's rows
@@ -659,38 +811,14 @@ __global__ void __launch_bounds__(Shape<Dp, NP>::kThreads, 1)
       }
       fence_regs(s);
 
-#pragma unroll
-      for (int i = 0; i < G::kM / 2; ++i) {
-        const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
-        s[i] = ex2(fminf(s[i] * sl2 - ls[qc] * kLog2e, kClamp2));
-      }
-      // masked: query rows past Sq, and K rows after the query's last key
-      // (causal); dV gives a row that sees no key 1 / Sk on every key
-      if (q0 + G::kM > a.Sq || (a.causal && k0 + c * 64 + 63 > q0 + off)) {
-#pragma unroll
-        for (int i = 0; i < G::kM / 2; ++i) {
-          const int q = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
-          if constexpr (kDV) {
-            if (q >= a.Sq)
-              s[i] = 0.f;
-            else if (a.causal && krow + 8 * ((i >> 1) & 1) > q + off)
-              s[i] = q + off < 0 ? inv_sk : 0.f;
-          } else if (q >= a.Sq || (a.causal && krow + 8 * ((i >> 1) & 1) > q + off)) {
-            s[i] = 0.f;
-          }
-        }
-      }
+      probs_t<G::kM, kDV>(s, a, ls, q0, k0 + c * 64, krow, t4);
       uint32_t fa[NP][G::kM / 16][4];              // P^T or dS^T as the A operand
       if constexpr (kDV) {
         to_a<T, G::kM, NP>(fa, s);
       } else {
         wg_wait();
         fence_regs(dp);
-#pragma unroll
-        for (int i = 0; i < G::kM / 2; ++i) {
-          const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
-          dp[i] = s[i] * (dp[i] - ls[G::kM + qc]) * a.scale;
-        }
+        ds_t<G::kM>(dp, s, a, ls, t4);
         to_a<T, G::kM, NP>(fa, dp);
       }
 
@@ -810,17 +938,10 @@ __global__ void __launch_bounds__(Shape<Dp, NP>::kThreads, 1)
     const int c = threadIdx.x / kWG - 1;           // query rows c * 64 .. of the block
     const int t = threadIdx.x % kWG, t4 = t % 4;
     const int row = q0 + c * 64 + (t / 32) * 16 + (t % 32) / 4;   // and row + 8
-    const float sl2 = a.scale * kLog2e;
     const uint32_t qs = smem_u32(sm + G::kQ) + c * 64 * kRowBytes;
     const uint32_t dos = smem_u32(sm + G::kDO) + c * 64 * kRowBytes;
     float lse2[2], dl[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const bool ok = row + 8 * r < a.Sq;
-      const long long i = ((long long)b * a.H + h) * a.Sq + row + 8 * r;
-      lse2[r] = ok ? a.lse[i] * kLog2e : 0.f;
-      dl[r] = ok ? a.delta[i] : 0.f;
-    }
+    row_stats(lse2, dl, a, b, h, row);
     float dq[Dp / 2];
 #pragma unroll
     for (int i = 0; i < Dp / 2; ++i) dq[i] = 0.f;
@@ -843,16 +964,7 @@ __global__ void __launch_bounds__(Shape<Dp, NP>::kThreads, 1)
       wg_wait<1>();                                // P while dP is computed
       fence_regs(s);
 
-#pragma unroll
-      for (int i = 0; i < G::kN / 2; ++i)
-        s[i] = ex2(fminf(s[i] * sl2 - lse2[(i >> 1) & 1], kClamp2));
-      if (k0 + G::kN > a.Sk || (a.causal && k0 + G::kN - 1 > q0 + c * 64 + off)) {
-#pragma unroll
-        for (int i = 0; i < G::kN / 2; ++i) {
-          const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
-          if (col >= a.Sk || (a.causal && col > row + 8 * ((i >> 1) & 1) + off)) s[i] = 0.f;
-        }
-      }
+      probs<G::kN>(s, a, lse2, k0, q0 + c * 64, row, t4);
       wg_wait();
       fence_regs(dp);
 #pragma unroll
@@ -883,6 +995,466 @@ __global__ void __launch_bounds__(Shape<Dp, NP>::kThreads, 1)
     const float one[2] = {1.f, 1.f};
     store_rows<TO, Dp, kPad>(static_cast<TO*>(a.dq) + b * a.sdq.b + h * a.sdq.h, a.sdq.s, row,
                              a.Sq, a.D, t4, dq, one);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// past 256 columns: the contraction streamed in boxes, the output in chunks
+// ---------------------------------------------------------------------------
+
+// A block of a wide kernel: a producer and one consumer warpgroup, query and
+// key tiles of 64 rows. A contraction stage holds one 64-column box (NP
+// pieces) of each operand of kPairs score products, operand j's piece p
+// (j NP + p) boxes in (A0 B0 A1 B1); a chunk stage the Dc columns of one
+// tile of the chunk product's B operand (NP pieces of Dc / 64 boxes) and
+// the tile's lse and delta. The chunk stages take their share first; the
+// contraction stages (at most 4) what shared memory is left.
+template <int Dc, int NP, int kPairs>
+struct WideGeo {
+  static_assert(Dc % kBox == 0 && Dc <= 256 && (NP == 1 || NP == 2), "chunk shape");
+  static constexpr int kConsumerWarps = 4;
+  static constexpr int kR = 64;                                // rows of a tile
+  static constexpr bool kPromote = NP > 1 && Dc <= 128;
+  static constexpr int kBoxBytes = kR * kRowBytes;
+  static constexpr int kCBytes = 2 * kPairs * NP * kBoxBytes;  // a contraction stage
+  static constexpr int kTPiece = Dc / kBox * kBoxBytes;
+  static constexpr int kTBytes = NP * kTPiece;                 // a chunk stage
+  static constexpr int kStatBytes = 2 * kR * 4;                // lse | delta, f32
+  static constexpr int kTStages = NP == 2 && kPairs == 2 ? 1 : 2;
+  static constexpr int kLeft = 230400 - kTStages * (kTBytes + kStatBytes);
+  static constexpr int kCStages = kLeft / kCBytes < 4 ? kLeft / kCBytes : 4;
+  static_assert(kCStages >= 2, "contraction stages");
+  static constexpr int kC = 0;                                 // [kCStages]
+  static constexpr int kT = kCStages * kCBytes;                // [kTStages]
+  static constexpr int kStat = kT + kTStages * kTBytes;        // [kTStages]
+  static constexpr int kBar = kStat + kTStages * kStatBytes;
+  static constexpr int kSmem = kBar + 128 + 1024;
+  static_assert(kSmem <= kMaxSmem, "shared memory");
+};
+
+// The score products (S, and with kPairs 2 dP) of one tile: the nbox boxes
+// of the contraction stream through the contraction stages, n counting the
+// stages the block has taken. A box's products are one commit group; a
+// stage is released once the next box's group is issued and its own done.
+template <typename T, typename G, int NP, int kPairs>
+__device__ __forceinline__ void contract(float* s, float* dp, unsigned char* sm, uint64_t* full,
+                                         uint64_t* empty, int& n, int nbox) {
+  constexpr int kB = G::kBoxBytes, kA = NP * kB;
+  for (int x = 0; x < nbox; ++x, ++n) {
+    const int st = n % G::kCStages;
+    mbar_wait(full + st, (n / G::kCStages) & 1);
+    const uint32_t c = smem_u32(sm + G::kC + st * G::kCBytes);
+    wg_fence();
+    mma_scores<T, G::kR, kBox, NP>(s, c, 0, kB, c + kA, 0, kB, x);
+    if constexpr (kPairs == 2)
+      mma_scores<T, G::kR, kBox, NP>(dp, c + 2 * kA, 0, kB, c + 3 * kA, 0, kB, x);
+    wg_commit();
+    if (x > 0) {
+      wg_wait<1>();
+      release(empty + (n - 1) % G::kCStages);
+    }
+  }
+  wg_wait();
+  release(empty + (n - 1) % G::kCStages);
+}
+
+// the producer's loads of one tile's contraction: each box x of the 2
+// kPairs operands j (map[j] at head[j], rows from row[j]), NP pieces each
+template <typename G, int NP, int kPairs>
+__device__ __forceinline__ void load_contraction(unsigned char* sm, uint64_t* full,
+                                                 uint64_t* empty, int& n, int nbox,
+                                                 const CUtensorMap* const* map, const int* head,
+                                                 const int* row, int b, int B) {
+  for (int x = 0; x < nbox; ++x, ++n) {
+    const int st = n % G::kCStages;
+    mbar_wait(empty + st, ((n / G::kCStages) & 1) ^ 1);
+    mbar_expect_tx(full + st, G::kCBytes);
+    unsigned char* c = sm + G::kC + st * G::kCBytes;
+    for (int j = 0; j < 2 * kPairs; ++j)
+      for (int p = 0; p < NP; ++p)
+        tma_load(c + (j * NP + p) * G::kBoxBytes, map[j], full + st, x * kBox, head[j], row[j],
+                 b + p * B);
+  }
+}
+
+// the producer's load of one chunk stage: rows row.. of head `head`,
+// columns c0 .. c0 + Dc, NP pieces
+template <typename G, int NP, int Dc>
+__device__ __forceinline__ void load_chunk(unsigned char* dst, const CUtensorMap* map,
+                                           uint64_t* full, int c0, int head, int row, int b,
+                                           int B) {
+  mbar_expect_tx(full, G::kTBytes);
+  for (int p = 0; p < NP; ++p)
+    for (int j = 0; j < Dc / kBox; ++j)
+      tma_load(dst + p * G::kTPiece + j * G::kBoxBytes, map, full, c0 + j * kBox, head, row,
+               b + p * B);
+}
+
+// D[64 x Dc] += A B over one 64-row tile (A the register fragments, B a
+// chunk stage); with kPromote the tile's product starts from zero and is
+// added in f32
+template <typename T, typename G, int Dc, int NP>
+__device__ __forceinline__ void chunk_product(float (&d)[Dc / 2],
+                                              const uint32_t (&fa)[NP][G::kR / 16][4],
+                                              uint32_t bs) {
+  wg_fence();
+  if constexpr (G::kPromote) {
+    float part[Dc / 2];
+    mma_rows<T, G::kR / 16, Dc, NP>(part, fa, bs, G::kBoxBytes, G::kTPiece, 0);
+    wg_commit();
+    wg_wait();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < Dc / 2; ++i) d[i] += part[i];
+  } else {
+    mma_rows<T, G::kR / 16, Dc, NP>(d, fa, bs, G::kBoxBytes, G::kTPiece, 1);
+    wg_commit();
+    wg_wait();
+    fence_regs(d);
+  }
+}
+
+// The blocks of the wide kernels, each one (tile, output chunk, head,
+// batch): the tile's 64 rows from q0 or k0, the chunk's Dc columns from c0,
+// the contraction over nbox boxes; sm is the block's shared memory, laid
+// out by WideGeo.
+
+// forward: O of the chunk and (the first chunk's blocks) lse
+template <typename T, typename TO, int Dc, int NP>
+__device__ __forceinline__ void fwd_block(const CUtensorMap* tq, const CUtensorMap* tk,
+                                          const CUtensorMap* tv, const FwdArgs& a, int nbox,
+                                          int q0, int c0, int h, int b, unsigned char* sm) {
+  using G = WideGeo<Dc, NP, 1>;
+  constexpr int kCS = G::kCStages, kTS = G::kTStages, kR = G::kR;
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(sm + G::kBar);   // [kCS]
+  uint64_t* c_empty = c_full + kCS;                                // [kCS]
+  uint64_t* t_full = c_full + 2 * kCS;                             // [kTS]
+  uint64_t* t_empty = t_full + kTS;                                // [kTS]
+  const int hk = h / (a.H / a.Hk);
+  const int off = a.Sk - a.Sq;
+  const int nk_all = (a.Sk + kR - 1) / kR;
+  // a tile with a row that sees no key walks all keys: that row is uniform
+  const int nk = !a.causal || q0 + off < 0 ? nk_all : min(nk_all, (q0 + kR - 1 + off) / kR + 1);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kCS; ++i) {
+      mbar_init(c_full + i, 1);
+      mbar_init(c_empty + i, G::kConsumerWarps);
+    }
+    for (int i = 0; i < kTS; ++i) {
+      mbar_init(t_full + i, 1);
+      mbar_init(t_empty + i, G::kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    if (threadIdx.x == 0) {
+      const CUtensorMap* const maps[2] = {tq, tk};
+      const int heads[2] = {h, hk};
+      int n = 0;
+      for (int it = 0; it < nk; ++it) {
+        // V's chunk first: its stage was freed two tiles ago
+        const int ts = it % kTS;
+        mbar_wait(t_empty + ts, ((it / kTS) & 1) ^ 1);
+        load_chunk<G, NP, Dc>(sm + G::kT + ts * G::kTBytes, tv, t_full + ts, c0, hk, it * kR, b,
+                              a.B);
+        const int rows[2] = {q0, it * kR};
+        load_contraction<G, NP, 1>(sm, c_full, c_empty, n, nbox, maps, heads, rows, b, a.B);
+      }
+    }
+  } else {
+    const int t = threadIdx.x - kWG, t4 = t % 4;
+    const int row = q0 + (t / 32) * 16 + (t % 32) / 4;   // and row + 8
+    float o[Dc / 2];
+#pragma unroll
+    for (int i = 0; i < Dc / 2; ++i) o[i] = 0.f;
+    float m[2] = {kInit2, kInit2}, l[2] = {0.f, 0.f};
+    int n = 0;
+    for (int it = 0; it < nk; ++it) {
+      float s[kR / 2];
+      contract<T, G, NP, 1>(s, s, sm, c_full, c_empty, n, nbox);
+      fence_regs(s);
+      float alpha[2];
+      softmax_tile<kR>(s, m, l, alpha, a, it * kR, q0, row, t4);
+#pragma unroll
+      for (int i = 0; i < Dc / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      uint32_t pa[NP][kR / 16][4];
+      to_a<T, kR, NP>(pa, s);
+      const int ts = it % kTS;
+      mbar_wait(t_full + ts, (it / kTS) & 1);
+      chunk_product<T, G, Dc, NP>(o, pa, smem_u32(sm + G::kT + ts * G::kTBytes));
+      release(t_empty + ts);
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+      inv[r] = 1.f / l[r];
+      // every chunk's block has the same m and l: the first chunk's writes lse
+      if (c0 == 0 && t4 == 0 && row + 8 * r < a.Sq)
+        a.lse[((long long)b * a.H + h) * a.Sq + row + 8 * r] = m[r] * kLn2 + logf(l[r]);
+    }
+    store_rows<TO, Dc, true>(static_cast<TO*>(a.o) + b * a.so.b + h * a.so.h + c0, a.so.s, row,
+                             a.Sq, a.D - c0, t4, o, inv);
+  }
+}
+
+// dV (kDV) or dK of one key tile's chunk, summed over the KV head hk's group
+template <typename T, typename TO, int Dc, int NP, bool kDV>
+__device__ __forceinline__ void kv_block(const CUtensorMap* tq, const CUtensorMap* tk,
+                                         const CUtensorMap* tv, const CUtensorMap* tdo,
+                                         const BwdArgs& a, int nbox, int k0, int c0, int hk,
+                                         int b, unsigned char* sm) {
+  constexpr int kPairs = kDV ? 1 : 2;
+  using G = WideGeo<Dc, NP, kPairs>;
+  constexpr int kCS = G::kCStages, kTS = G::kTStages, kR = G::kR;
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(sm + G::kBar);
+  uint64_t* c_empty = c_full + kCS;
+  uint64_t* t_full = c_full + 2 * kCS;
+  uint64_t* t_empty = t_full + kTS;
+  float* stat = reinterpret_cast<float*>(sm + G::kStat);
+
+  const int rep = a.H / a.Hk;
+  const int off = a.Sk - a.Sq;
+  const int nq = (a.Sq + kR - 1) / kR;
+  // the Q tiles that see this block's keys; in the dV pass, when some rows
+  // see no key (causal, Sk < Sq), all of them
+  const int q_start = !a.causal || (kDV && off < 0) ? 0 : max(0, k0 - off) / kR;
+  const int per_head = max(0, nq - q_start);
+  const int total = rep * per_head;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kCS; ++i) {
+      mbar_init(c_full + i, 1);
+      mbar_init(c_empty + i, G::kConsumerWarps);
+    }
+    for (int i = 0; i < kTS; ++i) {
+      mbar_init(t_full + i, 32);                  // the producer warp's lanes
+      mbar_init(t_empty + i, G::kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const CUtensorMap* const maps[4] = {tk, tq, tv, tdo};
+    int n = 0;
+    for (int it = 0; it < total; ++it) {
+      const int h = hk * rep + it / per_head;
+      const int q0 = (q_start + it % per_head) * kR;
+      // the chunk stage: lse and delta of the tile's rows (zeros past Sq),
+      // then dO's (dV) or Q's (dK) chunk
+      const long long so = ((long long)b * a.H + h) * a.Sq + q0;
+      float lse[2], delta[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const bool ok = q0 + lane + 32 * r < a.Sq;
+        lse[r] = ok ? a.lse[so + lane + 32 * r] : 0.f;
+        delta[r] = ok ? a.delta[so + lane + 32 * r] : 0.f;
+      }
+      const int ts = it % kTS;
+      mbar_wait(t_empty + ts, ((it / kTS) & 1) ^ 1);
+      float* ls = stat + ts * 2 * kR;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ls[lane + 32 * r] = lse[r];
+        ls[kR + lane + 32 * r] = delta[r];
+      }
+      if (lane == 0) {
+        load_chunk<G, NP, Dc>(sm + G::kT + ts * G::kTBytes, kDV ? tdo : tq, t_full + ts, c0, h,
+                              q0, b, a.B);
+        const int heads[4] = {hk, h, hk, h}, rows[4] = {k0, q0, k0, q0};
+        load_contraction<G, NP, kPairs>(sm, c_full, c_empty, n, nbox, maps, heads, rows, b, a.B);
+      } else {
+        mbar_arrive(t_full + ts);
+      }
+    }
+  } else if (threadIdx.x >= kWG) {
+    const int t = threadIdx.x - kWG, t4 = t % 4;
+    const int krow = k0 + (t / 32) * 16 + (t % 32) / 4;   // and krow + 8
+    float acc[Dc / 2];                                    // dV or dK of the chunk
+#pragma unroll
+    for (int i = 0; i < Dc / 2; ++i) acc[i] = 0.f;
+    int n = 0;
+    for (int it = 0; it < total; ++it) {
+      const int q0 = (q_start + it % per_head) * kR;
+      float s[kR / 2], dp[kR / 2];                        // S^T (and dP^T)
+      contract<T, G, NP, kPairs>(s, dp, sm, c_full, c_empty, n, nbox);
+      fence_regs(s);
+      const int ts = it % kTS;
+      mbar_wait(t_full + ts, (it / kTS) & 1);
+      const float* ls = stat + ts * 2 * kR;
+      probs_t<kR, kDV>(s, a, ls, q0, k0, krow, t4);
+      uint32_t fa[NP][kR / 16][4];                       // P^T or dS^T
+      if constexpr (kDV) {
+        to_a<T, kR, NP>(fa, s);
+      } else {
+        fence_regs(dp);
+        ds_t<kR>(dp, s, a, ls, t4);
+        to_a<T, kR, NP>(fa, dp);
+      }
+      chunk_product<T, G, Dc, NP>(acc, fa, smem_u32(sm + G::kT + ts * G::kTBytes));
+      release(t_empty + ts);
+    }
+    const float one[2] = {1.f, 1.f};
+    if constexpr (kDV)
+      store_rows<TO, Dc, true>(static_cast<TO*>(a.dv) + b * a.sdv.b + hk * a.sdv.h + c0,
+                               a.sdv.s, krow, a.Sk, a.D - c0, t4, acc, one);
+    else
+      store_rows<TO, Dc, true>(static_cast<TO*>(a.dk) + b * a.sdk.b + hk * a.sdk.h + c0,
+                               a.sdk.s, krow, a.Sk, a.D - c0, t4, acc, one);
+  }
+}
+
+// dQ of one query tile's chunk
+template <typename T, typename TO, int Dc, int NP>
+__device__ __forceinline__ void dq_block(const CUtensorMap* tq, const CUtensorMap* tk,
+                                         const CUtensorMap* tv, const CUtensorMap* tdo,
+                                         const BwdArgs& a, int nbox, int q0, int c0, int h, int b,
+                                         unsigned char* sm) {
+  using G = WideGeo<Dc, NP, 2>;
+  constexpr int kCS = G::kCStages, kTS = G::kTStages, kR = G::kR;
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(sm + G::kBar);
+  uint64_t* c_empty = c_full + kCS;
+  uint64_t* t_full = c_full + 2 * kCS;
+  uint64_t* t_empty = t_full + kTS;
+
+  const int hk = h / (a.H / a.Hk);
+  const int last = q0 + kR - 1 + a.Sk - a.Sq;              // the block's last visible key
+  const int nk_all = (a.Sk + kR - 1) / kR;
+  // a row that sees no key has dQ = 0: a block of such rows loads no key
+  const int nk = !a.causal ? nk_all : last < 0 ? 0 : min(nk_all, last / kR + 1);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kCS; ++i) {
+      mbar_init(c_full + i, 1);
+      mbar_init(c_empty + i, G::kConsumerWarps);
+    }
+    for (int i = 0; i < kTS; ++i) {
+      mbar_init(t_full + i, 1);
+      mbar_init(t_empty + i, G::kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    if (threadIdx.x == 0) {
+      const CUtensorMap* const maps[4] = {tq, tk, tdo, tv};
+      const int heads[4] = {h, hk, h, hk};
+      int n = 0;
+      for (int it = 0; it < nk; ++it) {
+        const int ts = it % kTS;
+        mbar_wait(t_empty + ts, ((it / kTS) & 1) ^ 1);
+        load_chunk<G, NP, Dc>(sm + G::kT + ts * G::kTBytes, tk, t_full + ts, c0, hk, it * kR, b,
+                              a.B);
+        const int rows[4] = {q0, it * kR, q0, it * kR};
+        load_contraction<G, NP, 2>(sm, c_full, c_empty, n, nbox, maps, heads, rows, b, a.B);
+      }
+    }
+  } else {
+    const int t = threadIdx.x - kWG, t4 = t % 4;
+    const int row = q0 + (t / 32) * 16 + (t % 32) / 4;   // and row + 8
+    float lse2[2], dl[2];
+    row_stats(lse2, dl, a, b, h, row);
+    float dq[Dc / 2];
+#pragma unroll
+    for (int i = 0; i < Dc / 2; ++i) dq[i] = 0.f;
+    int n = 0;
+    for (int it = 0; it < nk; ++it) {
+      float s[kR / 2], dp[kR / 2];
+      contract<T, G, NP, 2>(s, dp, sm, c_full, c_empty, n, nbox);
+      fence_regs(s);
+      fence_regs(dp);
+      probs<kR>(s, a, lse2, it * kR, q0, row, t4);
+#pragma unroll
+      for (int i = 0; i < kR / 2; ++i) dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]) * a.scale;
+      uint32_t da[NP][kR / 16][4];
+      to_a<T, kR, NP>(da, dp);
+      const int ts = it % kTS;
+      mbar_wait(t_full + ts, (it / kTS) & 1);
+      chunk_product<T, G, Dc, NP>(dq, da, smem_u32(sm + G::kT + ts * G::kTBytes));
+      release(t_empty + ts);
+    }
+    const float one[2] = {1.f, 1.f};
+    store_rows<TO, Dc, true>(static_cast<TO*>(a.dq) + b * a.sdq.b + h * a.sdq.h + c0, a.sdq.s,
+                             row, a.Sq, a.D - c0, t4, dq, one);
+  }
+}
+
+// the first column of chunk ci of a plan whose widest chunks are dc0
+__device__ __forceinline__ int chunk_col(const WidePlan& w, int ci, int dc0) {
+  return ci < w.n0 ? ci * dc0 : w.n0 * dc0 + (ci - w.n0) * (dc0 - kBox);
+}
+
+// a launch's shared memory: the larger of its chunk widths' layouts
+template <int Dc0, int NP, int kPairs>
+constexpr int wide_smem() {
+  using G0 = WideGeo<Dc0, NP, kPairs>;
+  using G1 = WideGeo<Dc0 - kBox, NP, kPairs>;
+  return G0::kSmem > G1::kSmem ? G0::kSmem : G1::kSmem;
+}
+
+// the forward: a block per (query tile, chunk, head, batch), the heaviest
+// causal tiles first, every chunk of a tile together
+template <typename T, typename TO, int NP, int Dc0>
+__global__ void __launch_bounds__(2 * kWG, 1)
+    wide_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const FwdArgs a, const WidePlan w) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const int nc = w.n0 + w.n1, ci = (int)blockIdx.x % nc;
+  const int q0 = ((a.Sq + 63) / 64 - 1 - (int)blockIdx.x / nc) * 64;
+  const int c0 = chunk_col(w, ci, Dc0);
+  if (ci < w.n0)
+    fwd_block<T, TO, Dc0, NP>(&tq, &tk, &tv, a, w.nbox, q0, c0, blockIdx.y, blockIdx.z, sm);
+  else
+    fwd_block<T, TO, Dc0 - kBox, NP>(&tq, &tk, &tv, a, w.nbox, q0, c0, blockIdx.y, blockIdx.z,
+                                     sm);
+}
+
+// the backward's three passes in one launch, a block per (tile, chunk,
+// head, batch), heaviest first: the dK blocks, then the dV blocks (low key
+// tiles see the most query tiles), then the dQ blocks (high query tiles see
+// the most keys); chunks and heads innermost
+template <typename T, typename TO, int NP, int Dc0>
+__global__ void __launch_bounds__(2 * kWG, 1)
+    wide_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, const BwdArgs a, const WidePlan w) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  constexpr int Dc1 = Dc0 - kBox;
+  const int nc = w.n0 + w.n1, b = blockIdx.z;
+  const int kv = (a.Sk + 63) / 64 * nc * a.Hk;     // the blocks of the dK or the dV pass
+  int i = blockIdx.x;
+  if (i < 2 * kv) {
+    const bool dv = i >= kv;
+    i -= dv ? kv : 0;
+    const int k0 = i / (nc * a.Hk) * 64, ci = i / a.Hk % nc, hk = i % a.Hk;
+    const int c0 = chunk_col(w, ci, Dc0);
+    if (dv && ci < w.n0)
+      kv_block<T, TO, Dc0, NP, true>(&tq, &tk, &tv, &tdo, a, w.nbox, k0, c0, hk, b, sm);
+    else if (dv)
+      kv_block<T, TO, Dc1, NP, true>(&tq, &tk, &tv, &tdo, a, w.nbox, k0, c0, hk, b, sm);
+    else if (ci < w.n0)
+      kv_block<T, TO, Dc0, NP, false>(&tq, &tk, &tv, &tdo, a, w.nbox, k0, c0, hk, b, sm);
+    else
+      kv_block<T, TO, Dc1, NP, false>(&tq, &tk, &tv, &tdo, a, w.nbox, k0, c0, hk, b, sm);
+  } else {
+    i -= 2 * kv;
+    const int q0 = ((a.Sq + 63) / 64 - 1 - i / (nc * a.H)) * 64, ci = i / a.H % nc, h = i % a.H;
+    const int c0 = chunk_col(w, ci, Dc0);
+    if (ci < w.n0)
+      dq_block<T, TO, Dc0, NP>(&tq, &tk, &tv, &tdo, a, w.nbox, q0, c0, h, b, sm);
+    else
+      dq_block<T, TO, Dc1, NP>(&tq, &tk, &tv, &tdo, a, w.nbox, q0, c0, h, b, sm);
   }
 }
 
@@ -976,6 +1548,44 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
+// past 256 columns: one launch each way, every map with boxes of 64 rows
+template <typename C, int Dc0>
+int launch_wide_fwd(const void* q, const void* k, const void* v, const long long* st,
+                    const FwdArgs& a, WidePlan w, cudaStream_t stream) {
+  using T = typename C::T;
+  const int nb = C::NP * a.B;
+  CUtensorMap mq, mk, mv;
+  if (int e = tensor_map<T>(&mq, q, nb, a.Sq, a.H, a.D, strides_of(st, 0), 64)) return e;
+  if (int e = tensor_map<T>(&mk, k, nb, a.Sk, a.Hk, a.D, strides_of(st, 1), 64)) return e;
+  if (int e = tensor_map<T>(&mv, v, nb, a.Sk, a.Hk, a.D, strides_of(st, 2), 64)) return e;
+  auto kernel = wide_fwd_kernel<T, typename C::TO, C::NP, Dc0>;
+  constexpr int smem = wide_smem<Dc0, C::NP, 1>();
+  if (int e = prepare(kernel, smem)) return e;
+  const dim3 grid((a.Sq + 63) / 64 * (w.n0 + w.n1), a.H, a.B);
+  kernel<<<grid, 2 * kWG, smem, stream>>>(mq, mk, mv, a, w);
+  return (int)cudaGetLastError();
+}
+
+template <typename C, int Dc0>
+int launch_wide_bwd(const void* q, const void* k, const void* v, const void* dout,
+                    const long long* st, const BwdArgs& a, WidePlan w, cudaStream_t stream) {
+  using T = typename C::T;
+  const int nb = C::NP * a.B;
+  CUtensorMap mq, mk, mv, mdo;
+  if (int e = tensor_map<T>(&mq, q, nb, a.Sq, a.H, a.D, strides_of(st, 0), 64)) return e;
+  if (int e = tensor_map<T>(&mk, k, nb, a.Sk, a.Hk, a.D, strides_of(st, 1), 64)) return e;
+  if (int e = tensor_map<T>(&mv, v, nb, a.Sk, a.Hk, a.D, strides_of(st, 2), 64)) return e;
+  if (int e = tensor_map<T>(&mdo, dout, nb, a.Sq, a.H, a.D, strides_of(st, 3), 64)) return e;
+  auto kernel = wide_bwd_kernel<T, typename C::TO, C::NP, Dc0>;
+  constexpr int smem = wide_smem<Dc0, C::NP, 1>() > wide_smem<Dc0, C::NP, 2>()
+                           ? wide_smem<Dc0, C::NP, 1>() : wide_smem<Dc0, C::NP, 2>();
+  if (int e = prepare(kernel, smem)) return e;
+  const int nc = w.n0 + w.n1;
+  const dim3 grid(2 * ((a.Sk + 63) / 64) * nc * a.Hk + (a.Sq + 63) / 64 * nc * a.H, 1, a.B);
+  kernel<<<grid, 2 * kWG, smem, stream>>>(mq, mk, mv, mdo, a, w);
+  return (int)cudaGetLastError();
+}
+
 #ifdef KERNEL_PART
 // the configurations of each part (dispatch, below, takes every one): the
 // main path's, bf16 padded, fp16 padded, f32 up to 128 columns, f32 past
@@ -1009,6 +1619,25 @@ FLASH_INSTANTIATE(bf, float, 192, 2, true)
 FLASH_INSTANTIATE(bf, float, 256, 2, true)
 #endif
 #undef FLASH_INSTANTIATE
+// parts 6 to 8: past 256 columns, bf16, fp16 and f32, for the widest
+// chunk of 192 and of 256 columns
+#define WIDE_INSTANTIATE(T, TO, NP, Dc0)                                                 \
+  template int launch_wide_fwd<WideCfg<T, TO, NP>, Dc0>(                                 \
+      const void*, const void*, const void*, const long long*, const FwdArgs&, WidePlan, \
+      cudaStream_t);                                                                     \
+  template int launch_wide_bwd<WideCfg<T, TO, NP>, Dc0>(                                 \
+      const void*, const void*, const void*, const void*, const long long*,              \
+      const BwdArgs&, WidePlan, cudaStream_t);
+#define WIDE_WIDTHS(T, TO, NP) WIDE_INSTANTIATE(T, TO, NP, 192) WIDE_INSTANTIATE(T, TO, NP, 256)
+#if KERNEL_PART == 6
+WIDE_WIDTHS(bf, bf, 1)
+#elif KERNEL_PART == 7
+WIDE_WIDTHS(__half, __half, 1)
+#elif KERNEL_PART == 8
+WIDE_WIDTHS(bf, float, 2)
+#endif
+#undef WIDE_WIDTHS
+#undef WIDE_INSTANTIATE
 #endif  // KERNEL_PART
 #endif  // FLASH_KERNELS
 
@@ -1089,6 +1718,30 @@ int dispatch(int dtype, int D, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
+// past 256 columns (D up to 1024): the configuration of the dtype
+template <typename F>
+int wide_dispatch(int dtype, F&& f) {
+  if (dtype == 1) return f(WideCfg<bf, bf, 1>{});
+  if (dtype == 2) return f(WideCfg<__half, __half, 1>{});
+  if (dtype == 3) return f(WideCfg<bf, float, 2>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// The chunk plan (ops/flash_attention.py chunk_plan): the Dp / 64 boxes of
+// the output go into c = ceil(Dp / 256) chunks, the first (Dp / 64) mod c
+// of them one box wider than the rest, so the chunks cover Dp exactly; the
+// widest chunk has 3 or 4 boxes for every D in (256, 1024]. f(widest
+// chunk's columns, plan).
+template <typename F>
+int wide_plan(int D, F&& f) {
+  if (D <= 4 * kBox || D > 16 * kBox) return (int)cudaErrorInvalidValue;
+  const int boxes = (D + kBox - 1) / kBox, c = (boxes + 3) / 4;
+  const int base = boxes / c, extra = boxes % c;
+  const WidePlan w = extra ? WidePlan{boxes, extra, c - extra} : WidePlan{boxes, c, 0};
+  if ((extra ? base + 1 : base) == 3) return f(std::integral_constant<int, 3 * kBox>{}, w);
+  return f(std::integral_constant<int, 4 * kBox>{}, w);
+}
+
 // the split of n f32 tensors (q, k, v[, dout]) into `work`, tensor j taking
 // 2 B S_j heads_j D elements after the ones before it; fills `packed` with
 // the pieces' (batch, seq, head) strides
@@ -1129,7 +1782,7 @@ using namespace flash;
 // q/o [B, Sq, H, D], k/v [B, Sk, Hk, D] with unit stride along D; strides
 // holds the (batch, seq, head) element strides of q, k, v, o in that order.
 // lse is f32 [B, H, Sq], contiguous. dtype 1 is bf16, 2 is fp16, 3 is f32;
-// D is a multiple of 8 up to 256. f32 needs `work`: bf16 scratch of 2 (B Sq
+// D is a multiple of 8 up to 1024 (past 256 the wide kernels). f32 needs `work`: bf16 scratch of 2 (B Sq
 // H + 2 B Sk Hk) D elements for the pieces, 16-byte aligned. Causal rows
 // align bottom-right (row i sees keys j <= i + Sk - Sq). The caller has
 // checked H % Hk == 0, shapes, 16-byte alignment of the data and strides
@@ -1154,6 +1807,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     in[2] = w + 2LL * B * (Sq * H + Sk * Hk) * D;
   }
   const long long* st = dtype == 3 ? packed : strides;
+  if (D > 4 * kBox)
+    return wide_dispatch(dtype, [&](auto c) {
+      return wide_plan(D, [&](auto dc, WidePlan w) {
+        return launch_wide_fwd<decltype(c), decltype(dc)::value>(in[0], in[1], in[2], st, a, w,
+                                                                  s);
+      });
+    });
   return dispatch(dtype, D, [&](auto c) {
     return launch_fwd<decltype(c)>(in[0], in[1], in[2], st, a, s);
   });
@@ -1184,6 +1844,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     in[3] = w + nq + 2 * nk;
   }
   const long long* st = dtype == 3 ? packed : strides;
+  if (D > 4 * kBox)
+    return wide_dispatch(dtype, [&](auto c) {
+      return wide_plan(D, [&](auto dc, WidePlan w) {
+        return launch_wide_bwd<decltype(c), decltype(dc)::value>(in[0], in[1], in[2], in[3], st,
+                                                                  a, w, s);
+      });
+    });
   return dispatch(dtype, D, [&](auto c) {
     return launch_bwd<decltype(c)>(in[0], in[1], in[2], in[3], st, a, s);
   });

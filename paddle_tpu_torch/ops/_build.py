@@ -37,7 +37,7 @@ KERNELS = ("paged_attention", "quant_matmul", "flash_attention", "rms_norm", "sw
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # sources compiled in parts: {name: number of parts}
-PARTS = {"flash_attention": 6}
+PARTS = {"flash_attention": 9}
 
 _loaded: dict = {}
 

@@ -16,17 +16,19 @@ rows align bottom-right, as the composed path (query row i sees keys
 keys, as the composed path's -1e30 mask makes it: out is the mean of V, dQ
 is 0 and dV gets ``dO / Sk`` on every key.
 
-On a CUDA tensor each wrapper launches a kernel or raises, by one of four
-routes (:func:`route`). Three run ``csrc/flash_attention.cu`` (wgmma fed
-by TMA, up to 256 columns): ``wgmma``, bf16 and fp16 at head_dim 64 or
-128; ``padded``, bf16 and fp16 at the other head dims that are multiples
-of 8 up to 256, run zero-padded to the next multiple of 64; ``f32``, f32
-inputs split into two bf16 pieces each (:func:`split2`) by a pre-pass
-kernel in the same call, every product taken as three piece products.
-``simt`` runs ``csrc/attention_wide.cu`` (the CUDA cores, the head dim
-walked in chunks of 128 columns) for any dtype at head dims past 256, up
-to MAX_WIDE_HEAD_DIM, as the reference's gate sends any multiple of 8 to
-its bundled kernel. Any Sq and Sk.
+On a CUDA tensor each wrapper launches a kernel of
+``csrc/flash_attention.cu`` (wgmma fed by TMA) or raises, by one of four
+routes (:func:`route`): ``wgmma``, bf16 and fp16 at head_dim 64 or 128;
+``padded``, bf16 and fp16 at the other head dims that are multiples of 8
+up to 256, run zero-padded to the next multiple of 64; ``f32``, f32 inputs
+up to 256 split into two bf16 pieces each (:func:`split2`) by a pre-pass
+kernel in the same call, every product taken as three piece products;
+``wide``, every dtype at head dims past 256 up to MAX_WIDE_HEAD_DIM (the
+reference's gate sends any multiple of 8 to its bundled kernel): the
+score products contract over the whole padded head dim in 64-column TMA
+boxes, and each block writes one output chunk of :func:`chunk_plan` (at
+most 256 columns), recomputing the scores in the same order as the other
+chunks' blocks (f32 through the same split). Any Sq and Sk.
 On a CPU tensor it runs the plain version, which repeats the kernels'
 arithmetic in whole rows: f32 scores, probabilities rounded to the input
 type before the products with V (forward) and dO, dS rounded before the
@@ -47,14 +49,15 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bsnd", "flash_attention_fwd",
            "flash_attention_fwd_ref", "flash_attention_bwd", "flash_attention_bwd_ref",
-           "flash_attention_fwd_split", "flash_attention_bwd_split", "route", "split2",
-           "tile_errors", "HEAD_DIMS", "DTYPES", "MAX_HEAD_DIM", "ROUTES"]
+           "flash_attention_fwd_split", "flash_attention_bwd_split", "chunk_plan", "route",
+           "split2", "tile_errors", "HEAD_DIMS", "DTYPES", "MAX_HEAD_DIM", "ROUTES"]
 
 DTYPES = {torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
 HEAD_DIMS = (64, 128)        # head dims the bf16/fp16 kernels take unpadded
-MAX_HEAD_DIM = 256           # the tensor-core routes: multiples of 8 up to this
-MAX_WIDE_HEAD_DIM = 1024     # the simt route: multiples of 8 past 256 up to this
-ROUTES = ("wgmma", "padded", "f32", "simt")
+MAX_HEAD_DIM = 256           # the wgmma, padded and f32 routes: multiples of 8 up to this
+MAX_WIDE_HEAD_DIM = 1024     # the wide route: multiples of 8 past 256 up to this
+MAX_CHUNK = 256              # the wide route's output columns a block
+ROUTES = ("wgmma", "padded", "f32", "wide")
 PIECES = 2                   # bf16 pieces of an f32 operand on the f32 route
 NEG_INF = -1e30
 CLAMP = 60.0
@@ -203,24 +206,38 @@ def tile_errors(got, want, tile: int = 64, floor: float = 1e-5):
     return (d.square().sum((2, 4)).sqrt() / den).max().item(), d.abs().max().item()
 
 
-def _fn(name, n_ptrs, lib="flash_attention"):
+def _fn(name, n_ptrs):
     """A kernel's C entry: n_ptrs pointers, the six sizes, scale, causal,
-    dtype, stream and (flash_attention's) the f32 route's scratch."""
-    fn = getattr(_build.load(lib), name)
+    dtype, stream and the f32 pieces' scratch."""
+    fn = getattr(_build.load("flash_attention"), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_void_p] * (lib == "flash_attention"))
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
+def chunk_plan(D: int) -> tuple[int, ...]:
+    """The wide route's output chunks at head_dim D, in column order (the
+    kernels' ``wide_plan``): the padded head dim Dp = 64 ceil(D / 64) cut
+    into c = ceil(Dp / 256) chunks of whole 64-column boxes, the first
+    (Dp / 64) mod c of them one box wider than the rest, so each chunk is a
+    multiple of 64 of at most 256 columns and together they cover Dp. Each
+    chunk's blocks recompute the scores: with c chunks the forward does
+    (c + 1) / 2 and the backward (5 c + 3) / 5 of their FLOP bounds' work."""
+    boxes = -(-D // 64)
+    c = -(-boxes // (MAX_CHUNK // 64))
+    base, extra = divmod(boxes, c)
+    return (64 * (base + 1),) * extra + (64 * base,) * (c - extra)
+
+
 def route(q) -> str:
-    """The route a call on q takes (ROUTES): ``simt`` past MAX_HEAD_DIM,
+    """The route a call on q takes (ROUTES): ``wide`` past MAX_HEAD_DIM,
     else ``f32`` for f32, ``wgmma`` for bf16 and fp16 at a head_dim in
     HEAD_DIMS, ``padded`` for the others."""
     if q.shape[-1] > MAX_HEAD_DIM:
-        return "simt"
+        return "wide"
     if q.dtype == torch.float32:
         return "f32"
     return "wgmma" if q.shape[-1] in HEAD_DIMS else "padded"
@@ -271,8 +288,8 @@ def _cuda(q, name):
 
 
 def _work(q, *ts):
-    """The f32 route's scratch for the two bf16 pieces of each input (None
-    on the other routes)."""
+    """The scratch for the two bf16 pieces of each f32 input (None for
+    bf16 and fp16)."""
     if q.dtype != torch.float32:
         return None
     n = sum(t.numel() for t in (q, *ts))
@@ -285,8 +302,8 @@ def _count(fn, q):
 
 def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     """``(out [B, Sq, H, D], lse f32 [B, H, Sq])`` of softmax attention: one
-    kernel launch on the card (with the f32 route's split pre-pass),
-    counted in ``by_route`` under its route."""
+    kernel launch on the card (with f32's split pre-pass), counted in
+    ``by_route`` under its route."""
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal, scale)
     _cuda(q, "flash_attention_fwd")
@@ -299,11 +316,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _strides(q, k, v, out), B, H, k.shape[2], Sq, k.shape[1], D, _scale(D, scale),
             int(bool(causal)), DTYPES[q.dtype], _build.launch_stream(q.device))
-    if route(q) == "simt":
-        rc = _fn("flash_wide_fwd", 6, "attention_wide")(*args)
-    else:
-        work = _work(q, k, v)
-        rc = _fn("flash_attention_fwd", 6)(*args, None if work is None else work.data_ptr())
+    work = _work(q, k, v)
+    rc = _fn("flash_attention_fwd", 6)(*args, None if work is None else work.data_ptr())
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")
     _count(flash_attention_fwd, q)
@@ -312,9 +326,10 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
 
 def flash_attention_bwd(q, k, v, dout, lse, delta, causal: bool = False, scale=None):
     """``(dq, dk, dv)`` from the forward's lse and ``delta = rowsum(dO * O)``
-    (f32 [B, H, Sq]); dk and dv are summed over each KV head's group. One
-    launch on the card runs the dK/dV pass and the dQ pass (and the f32
-    route's split pre-pass), counted as :func:`flash_attention_fwd`."""
+    (f32 [B, H, Sq]); dk and dv are summed over each KV head's group. A
+    call on the card runs the dV, dK and dQ passes (one launch past 256
+    columns, a launch a pass up to 256; and f32's split pre-pass), counted
+    once as :func:`flash_attention_fwd`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, dout, lse, delta, causal, scale)
     _cuda(q, "flash_attention_bwd")
@@ -337,19 +352,16 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, causal: bool = False, scale=N
             _strides(q, k, v, dout, dq, dk, dv), B, H, k.shape[2], Sq, k.shape[1], D,
             _scale(D, scale), int(bool(causal)), DTYPES[q.dtype],
             _build.launch_stream(q.device))
-    if route(q) == "simt":
-        rc = _fn("flash_wide_bwd", 10, "attention_wide")(*args)
-    else:
-        work = _work(q, k, v, dout)
-        rc = _fn("flash_attention_bwd", 10)(*args, None if work is None else work.data_ptr())
+    work = _work(q, k, v, dout)
+    rc = _fn("flash_attention_bwd", 10)(*args, None if work is None else work.data_ptr())
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
     _count(flash_attention_bwd, q)
     return dq, dk, dv
 
 
-#: kernel launches since the last reset, by route (the CPU path never
-#: counts); one backward launch runs the dK/dV pass and the dQ pass
+#: calls that launched the kernels since the last reset, by route (the CPU
+#: path never counts)
 for _w in (flash_attention_fwd, flash_attention_bwd):
     _w.by_route = dict.fromkeys(ROUTES, 0)
 del _w
@@ -382,8 +394,8 @@ def flash_attention_bsnd(q, k, v, causal: bool = False, sm_scale=None):
     to a kernel (bf16 and f32, here also fp16, with a head_dim that is a
     multiple of 8; any Sq and Sk), None for what they keep composed (other
     dtypes and head dims). On the card a call sent to the op launches a
-    kernel or raises (a head_dim past MAX_HEAD_DIM); there is no probe and
-    no fallback."""
+    kernel or raises (a head_dim past MAX_WIDE_HEAD_DIM); there is no probe
+    and no fallback."""
     if q.dtype not in DTYPES or q.shape[-1] % 8:
         return None
     return flash_attention(q, k, v, causal, sm_scale)

@@ -19,7 +19,7 @@ runs them too. Other dtypes and head dims, and CPU tensors, take the
 blockwise ring in torch ops (block logits, running max and running sum),
 which torch autograd differentiates as the reference's VJP does. There is
 no probe and no fallback: a tensor sent to the kernels launches them or
-raises (a head_dim past ``flash_attention.MAX_HEAD_DIM``; the kernels' own
+raises (a head_dim past ``flash_attention.MAX_WIDE_HEAD_DIM``; the kernels' own
 checks name what they refuse, the counterpart of the reference's
 ValueError at :67-74).
 """

@@ -184,7 +184,7 @@ class _CudaLike:
 def test_router_sends_every_accepted_call_to_a_tensor_core_route(dtype):
     """Every head_dim up to 256 has a tensor-core route: f32 the split,
     bf16/fp16 unpadded at 64 and 128 and padded elsewhere; past 256, up to
-    1024, the simt route; the check refuses the rest (not multiples of 8,
+    1024, the wide route, every dtype; the check refuses the rest (not multiples of 8,
     past 1024), so no call is left without a kernel."""
     for D in range(8, fa.MAX_HEAD_DIM + 1, 8):
         q = _CudaLike(dtype, (2, 33, 8, D))
@@ -197,7 +197,7 @@ def test_router_sends_every_accepted_call_to_a_tensor_core_route(dtype):
     for D in (264, 320, 512, 1024):
         q = _CudaLike(dtype, (2, 33, 8, D))
         fa._check("flash_attention_fwd", q, q, q)
-        assert fa.route(q) == "simt"
+        assert fa.route(q) == "wide"
     for D in (4, 12, 100, 1032):
         q = _CudaLike(dtype, (2, 33, 8, D))
         with pytest.raises(ValueError):

@@ -3,9 +3,10 @@
 The reference's gate sends any head_dim that is a multiple of 8 to its
 bundled flash kernel (``paddle_tpu/ops/pallas/flash_attention.py:91``), and
 its composed paged path serves any head dim and page size. The port's
-tensor-core kernels stop at 256 columns (tiles, TMA boxes); past that the
-flash op takes its ``simt`` route and paged attention its wide kernel
-(``csrc/attention_wide.cu``). On the CPU every route runs the plain
+paged tensor-core kernel stops at 256 columns (tiles, TMA boxes); past
+that the flash op takes its ``wide`` route (``csrc/flash_attention.cu``'s
+wide kernels: the output in chunks of :func:`fa.chunk_plan`) and paged
+attention its wide kernel (``csrc/attention_wide.cu``). On the CPU every route runs the plain
 version, so these tests hold what the card's wide kernels are held to
 (tests/test_torch_kernels_cuda.py and chip_smoke.py hold the kernels
 against these plain versions):
@@ -16,7 +17,8 @@ against these plain versions):
 - paged decode attention at head dims 320 and 512 and at pages of 512
   slots against the reference's composed path (``gather_lane_window`` +
   ``masked_attend``), in f32 and fp16;
-- the routes: the router's ``simt`` past 256 and ``takes`` for paged.
+- the routes: the router's ``wide`` past 256 and ``takes`` for paged;
+- the wide route's chunk plan at every head dim it takes.
 
 Tolerances: f32 sums in another order over up to 512 columns and 96 keys
 of order-1 terms: 5e-5 on outputs and 2e-4 on gradients (the scores grow
@@ -92,7 +94,7 @@ def test_the_gate_sends_head_dim_320_to_the_flash_op(monkeypatch):
     got = _port(q, k, v, do, True,
                 lambda a, b, c, causal: PF.flash_attention(a, b, c, causal=causal)[0])
     _check(got, want)
-    assert fa.route(torch.zeros((1, 1, 1, 320))) == "simt"
+    assert fa.route(torch.zeros((1, 1, 1, 320))) == "wide"
     assert fa.route(torch.zeros((1, 1, 1, 256), dtype=torch.bfloat16)) == "padded"
 
 
@@ -124,3 +126,19 @@ def test_paged_past_256_matches_the_composed_reference(np_dtype, hd, bs):
         tol = PAGED_TOL[np_dtype]
         np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
     assert pa.takes(hd, bs) == (hd <= 256 and bs <= 256)
+
+
+def test_chunk_plan_covers_the_padded_head_dim():
+    """At every head dim the wide route takes (264 to 1024 in steps of 8):
+    the chunks are whole 64-column boxes of at most 256 columns, in one or
+    two widths a box apart, widest first, covering Dp = 64 ceil(D / 64)
+    exactly; there are ceil(Dp / 256) of them (the count the kernels' cost
+    note gives: (c + 1) / 2 and (5 c + 3) / 5 of the FLOP bounds)."""
+    for D in range(264, fa.MAX_WIDE_HEAD_DIM + 1, 8):
+        plan = fa.chunk_plan(D)
+        dp = 64 * -(-D // 64)
+        assert all(c % 64 == 0 and 0 < c <= fa.MAX_CHUNK for c in plan), (D, plan)
+        assert sum(plan) == dp and len(plan) == -(-dp // 256), (D, plan)
+        assert list(plan) == sorted(plan, reverse=True) and plan[0] - plan[-1] <= 64, (D, plan)
+    assert fa.chunk_plan(320) == (192, 128) and fa.chunk_plan(1024) == (256,) * 4
+    assert fa.chunk_plan(576) == (192,) * 3 and fa.chunk_plan(640) == (256, 192, 192)

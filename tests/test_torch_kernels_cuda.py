@@ -988,24 +988,30 @@ def _wide_flash_case(dev, B, sq, sk, H, Hk, D, dtype, seed):
     (1, 100, 300, 4, 1, 512, True, BF16),       # sq != sk, bottom-right
     (2, 129, 129, 2, 2, 264, False, FP16),
     (1, 200, 70, 4, 2, 384, True, torch.float32),   # rows that see no key
+    (1, 130, 190, 4, 2, 320, True, torch.float32),  # f32, chunks of 192 + 128
     (1, 64, 64, 2, 1, 1024, False, BF16),
+    (1, 160, 330, 4, 1, 1024, True, BF16),      # four chunks, sq != sk, causal
 ])
-def test_flash_simt_route_matches_plain(dev, B, sq, sk, H, Hk, D, causal, dtype):
-    """Past 256 columns the flash op takes its simt route (one launch each
-    way, counted there), held tile by tile against the plain versions."""
+def test_flash_wide_route_matches_plain(dev, B, sq, sk, H, Hk, D, causal, dtype):
+    """Past 256 columns the flash op takes its wide route (one launch each
+    way, counted there), held tile by tile against the plain versions; lse,
+    which only the first chunk's blocks write, against the plain lse; the
+    backward bit for bit again."""
+    assert len(fa.chunk_plan(D)) > 1
     q, k, v, do = _wide_flash_case(dev, B, sq, sk, H, Hk, D, dtype, seed=D + sq)
-    f0, b0 = fa.flash_attention_fwd.by_route["simt"], fa.flash_attention_bwd.by_route["simt"]
+    f0, b0 = fa.flash_attention_fwd.by_route["wide"], fa.flash_attention_bwd.by_route["wide"]
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, causal)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
     ref_grads = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
-    assert (fa.flash_attention_fwd.by_route["simt"], fa.flash_attention_bwd.by_route["simt"]) \
+    assert (fa.flash_attention_fwd.by_route["wide"], fa.flash_attention_bwd.by_route["wide"]) \
         == (f0 + 1, b0 + 1)
     _assert_tiles_close(out, ref_out)
     live = ref_lse > -1e29
     assert torch.allclose(lse[live], ref_lse[live], rtol=1e-6, atol=FLASH_LSE_ATOL)
+    assert torch.allclose(lse[~live], ref_lse[~live], rtol=1e-6)
     for got, want in zip(grads, ref_grads):
         _assert_tiles_close(got, want)
     again = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
