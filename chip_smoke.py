@@ -549,6 +549,34 @@ def hold_paged(label, got, want, dtype) -> float:
     return err
 
 
+def hold_paged_cases(gen, cases, wide: bool = False):
+    """Cases of PAGED_CASES' form with poisoned hidden slots, each called
+    twice bit for bit and counted in its mode; the wide mode's held against
+    the plain version evaluated in f32 (``time_paged``'s ``hold_f32``)."""
+    import torch
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    errs = {}
+    for label, lengths, H, Hk, hd, bs, MB, dtype in cases:
+        q, pk, pv, table, ln = attention_inputs(gen, lengths, 1, H, Hk, hd, bs, MB, dtype)
+        want = pa.paged_decode_attention_ref(*((q[0].float(), pk[0].float(), pv[0].float())
+                                               if wide else (q[0], pk[0], pv[0])), table, ln)
+        pk, pv = poisoned(pk[0], table, ln), poisoned(pv[0], table, ln)
+        before = dict(pa.paged_decode_attention.by_route)
+        got = pa.paged_decode_attention(q[0], pk, pv, table, ln)
+        if not torch.equal(got, pa.paged_decode_attention(q[0], pk, pv, table, ln)):
+            raise AssertionError(f"two paged-attention calls ({label}) differ")
+        mode = pa.mode(hd, bs)
+        if mode != ("wide" if wide else "narrow") or \
+                pa.paged_decode_attention.by_route[mode] != before[mode] + 2:
+            raise AssertionError(f"paged attention ({label}) did not launch its kernel's "
+                                 f"{mode} mode twice")
+        errs[label] = hold_paged(label, got, want, dtype)
+    say("kernels", kernel="paged_attention", mode="wide" if wide else "narrow",
+        cases=json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+
+
 def check_paged_cases(gen):
     """PAGED_CASES with poisoned hidden slots, each called twice bit for
     bit and counted; a captured graph replayed after lengths and the table
@@ -558,20 +586,7 @@ def check_paged_cases(gen):
 
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    errs = {}
-    for label, lengths, H, Hk, hd, bs, MB, dtype in PAGED_CASES:
-        q, pk, pv, table, ln = attention_inputs(gen, lengths, 1, H, Hk, hd, bs, MB, dtype)
-        want = pa.paged_decode_attention_ref(q[0], pk[0], pv[0], table, ln)
-        pk, pv = poisoned(pk[0], table, ln), poisoned(pv[0], table, ln)
-        before = pa.paged_decode_attention.launches
-        got = pa.paged_decode_attention(q[0], pk, pv, table, ln)
-        if not torch.equal(got, pa.paged_decode_attention(q[0], pk, pv, table, ln)):
-            raise AssertionError(f"two paged-attention calls ({label}) differ")
-        if pa.paged_decode_attention.launches != before + 2:
-            raise AssertionError(f"paged attention ({label}) did not launch its kernel")
-        errs[label] = hold_paged(label, got, want, dtype)
-    say("kernels", kernel="paged_attention", cases=json.dumps(
-        {k: float(f"{v:.3g}") for k, v in errs.items()}))
+    hold_paged_cases(gen, PAGED_CASES)
 
     q, pk, pv, table, ln = attention_inputs(gen, [1023] * 8, 1)
     q, pk, pv = q[0], pk[0], pv[0]
@@ -980,21 +995,25 @@ def serve(engine, prompts, max_new: int, phase: str, params=None):
 
 def serving_kernels(counts: dict) -> dict:
     """Launches of the serving path's kernels in a device trace's
-    {kernel name: launches}: paged attention and the int8 weight stream,
-    and the int8 tensor-core forward, which serving must not run."""
+    {kernel name: launches}: paged attention's two modes (narrow and wide)
+    and the int8 weight stream, and the int8 tensor-core forward, which
+    serving must not run."""
     return {kind: sum(n for name, n in counts.items() if sub in name)
             for kind, sub in (("paged", "paged_decode_kernel"),
+                              ("paged_wide", "paged_decode_wide_kernel"),
                               ("stream", "int8_stream_kernel"),
                               ("large_m", "int8_tc_kernel<false"))}
 
 
-def trace_launches(engine, phase: str, seed: int, int8: bool = False) -> dict:
+def trace_launches(engine, phase: str, seed: int, int8: bool = False,
+                   wide: bool = False) -> dict:
     """The kernels a graphed engine's device ran, read from a device trace
     (a replay runs kernels that no wrapper counts): under torch.profiler
     the engine serves 7 one-token requests and one whose prompt takes 3
     prefill chunks, 4 tokens each, to the end. Holds the traced launches
     exactly against the programs' calls in that window: paged attention
-    once a layer in each decode call; with int8 the weight stream once a
+    once a layer in each decode call (in its wide mode with ``wide``: pages
+    past 256 slots); with int8 the weight stream once a
     projection in each call (7 a layer in either program, and the lm_head
     in decode), the tensor-core forward never; without, the stream never.
     Returns the traced launches."""
@@ -1017,7 +1036,8 @@ def trace_launches(engine, phase: str, seed: int, int8: bool = False) -> dict:
     kernel_times(prof, counts)
     traced = serving_kernels(counts)
     head = 1 if engine._w["lm_head"] is not None else 0
-    want = {"paged": layers * calls["decode"],
+    paged = layers * calls["decode"]
+    want = {"paged": 0 if wide else paged, "paged_wide": paged if wide else 0,
             "stream": (7 * layers + head) * calls["decode"] + 7 * layers * calls["prefill"]
             if int8 else 0, "large_m": 0}
     say(phase, traced_program_calls=json.dumps(calls), traced_launches=json.dumps(traced),
@@ -1028,12 +1048,14 @@ def trace_launches(engine, phase: str, seed: int, int8: bool = False) -> dict:
     return traced
 
 
-def hold_decode_step(per_step: dict, layers: int, int8: bool, phase: str):
+def hold_decode_step(per_step: dict, layers: int, int8: bool, phase: str, wide: bool = False):
     """A profiled graphed decode step (profile_decode's launches a step by
-    kernel name) runs paged attention once a layer and, with int8, the
-    weight stream once a projection (7 a layer and the lm_head)."""
+    kernel name) runs paged attention once a layer (in its wide mode with
+    ``wide``, the narrow one never) and, with int8, the weight stream once a
+    projection (7 a layer and the lm_head)."""
     got = serving_kernels(per_step)
-    want = {"paged": layers, "stream": 7 * layers + 1 if int8 else 0, "large_m": 0}
+    want = {"paged": 0 if wide else layers, "paged_wide": layers if wide else 0,
+            "stream": 7 * layers + 1 if int8 else 0, "large_m": 0}
     other = sorted(k for k in per_step if "finalize" in k or "int8_gemm_kernel" in k)
     say(phase, kernels_per_decode_step=json.dumps(got), want=json.dumps(want),
         other_stream_kernels=json.dumps(other))
@@ -1162,6 +1184,42 @@ def check_fp16_int8_engine(seed: int, serve_cfg: dict, prompts):
     return launches
 
 
+WIDE_ENGINE_LAYERS = 2
+WIDE_ENGINE_CFG = dict(num_lanes=8, block_size=512, max_seq_len=1024, prefill_chunk=16)
+
+
+def check_wide_engine(seed: int, prompts):
+    """Serving with pages of 512 slots, the paged kernel's wide mode on the
+    serving path: Llama-3-8B widths cut to WIDE_ENGINE_LAYERS layers, bf16,
+    WIDE_ENGINE_CFG, graphed, against the eager engine on the trace (greedy
+    tokens identical); a profiled decode step runs the wide mode once a
+    layer and the narrow one never. Returns the wide mode's launches in the
+    graphed engine's traced window."""
+    import torch
+
+    from paddle_tpu_torch.inference.serving import ServeConfig, ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=WIDE_ENGINE_LAYERS)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    engine = ServingEngine(model, ServeConfig(**WIDE_ENGINE_CFG))
+    got = [r.generated for r in serve(engine, prompts, NEW_TOKENS, "wide-engine")]
+    hold_captures(engine, "wide-engine")
+    hold_decode_step(profile_decode(engine, cfg.vocab_size, seed, "wide-engine"),
+                     WIDE_ENGINE_LAYERS, False, "wide-engine", wide=True)
+    launches = trace_launches(engine, "wide-engine", seed, wide=True)["paged_wide"]
+    del engine
+    eager = ServingEngine(model, ServeConfig(**WIDE_ENGINE_CFG), eager=True)
+    want = [r.generated for r in serve(eager, prompts, NEW_TOKENS, "wide-eager")]
+    del eager, model
+    torch.cuda.empty_cache()
+    say("wide-engine", layers=WIDE_ENGINE_LAYERS, block_size=WIDE_ENGINE_CFG["block_size"],
+        graphed_equals_eager=got == want)
+    if got != want:
+        raise AssertionError("the wide-page engine: graphed tokens differ from eager")
+    return launches
+
+
 def compare_eager(model, serve_cfg: dict, prompts, graphed_reqs, phase: str):
     """The same trace through the eager engine (the plain version of the two
     programs): every request's greedy tokens must equal the graphed
@@ -1184,7 +1242,7 @@ def compare_eager(model, serve_cfg: dict, prompts, graphed_reqs, phase: str):
 
 # device kernels of a training step by kind: (kind, name substrings)
 KERNEL_KINDS = (("paged attention (port)", ("paged_decode_kernel",)),
-                ("paged attention wide (port)", ("paged_wide_kernel",)),
+                ("paged attention wide (port)", ("paged_decode_wide_kernel",)),
                 ("flash attention (port)", ("flash_", "split_kernel")),
                 ("ring merge (port)", ("ring_merge_kernel",)),
                 ("rms norm (port)", ("rms_fwd_kernel", "rms_bwd_dx_kernel")),
@@ -1365,11 +1423,26 @@ GEMM_FP16_RTOL = 2.0 ** -10
 WIDE_FLASH_CASES = (("hd320_s2048_causal", 1, 2048, 2048, 8, 2, 320, True),
                     ("hd512_s1024", 1, 1024, 1024, 8, 2, 512, False),
                     ("hd1024_sq512_sk1024_causal", 1, 512, 1024, 4, 1, 1024, True))
-# paged attention past 256 (the wide kernel), timed at ragged lengths:
-# (label, lengths, attention_inputs shape)
+# paged attention past 256 (the kernel's wide mode), timed at ragged
+# lengths: (label, lengths, attention_inputs shape)
 WIDE_PAGED_CASES = (("hd320", RAGGED, dict(H=16, Hk=4, hd=320)),
                     ("hd512", RAGGED, dict(H=8, Hk=2, hd=512)),
-                    ("bs512_hd128", [0, 300, 511, 1023, 17, 700, 1000, 5], dict(bs=512, MB=2)))
+                    ("bs512_hd128", [0, 300, 511, 1023, 17, 700, 1000, 5], dict(bs=512, MB=2)),
+                    ("hd1024", RAGGED, dict(H=8, Hk=2, hd=1024)))
+# held only, as PAGED_CASES: every dtype at head dims 520 and 1024, pages of
+# 300 slots, the copying producer (hd 300 in bf16) and two passes
+WIDE_PAGED_HELD = (("fp16_hd320", RAGGED, 16, 4, 320, 16, 64, "float16"),
+                   ("f32_hd320", RAGGED, 16, 4, 320, 16, 64, "float32"),
+                   ("hd520", RAGGED, 8, 2, 520, 16, 64, "bfloat16"),
+                   ("f32_hd512_bs8", RAGGED, 8, 2, 512, 8, 128, "float32"),
+                   ("fp16_hd1024", RAGGED, 8, 2, 1024, 16, 64, "float16"),
+                   ("f32_hd1024", RAGGED, 4, 1, 1024, 16, 64, "float32"),
+                   ("bs300", [0, 299, 300, 1023, 17, 700, 899, 5], 32, 8, 128, 300, 4,
+                    "bfloat16"),
+                   ("f32_bs300_hd64", [0, 299, 300, 1023, 17, 700, 899, 5], 32, 8, 64, 300, 4,
+                    "float32"),
+                   ("hd300_copies", RAGGED, 16, 4, 300, 16, 64, "bfloat16"),
+                   ("gqa12_hd320", RAGGED, 24, 2, 320, 16, 64, "bfloat16"))
 
 
 def hold_fp16_gemm(label, got, want) -> float:
@@ -1545,10 +1618,12 @@ def check_wide_attention(gen):
     backend it picks (K/V expanded to every head; causal with Sq != Sk as a
     bottom-right mask, ``causal_lower_right``); then its main path,
     ``nn.functional.flash_attention`` forward and backward on each case, the
-    launch counts set to 0 before. Paged attention's wide kernel
-    (WIDE_PAGED_CASES) through ``paged_decode_attention``, held and timed as
-    phase 2's paged cases, counted. Returns ((flash fwd, flash bwd), flash
-    launches, paged numbers, paged launches)."""
+    launch counts set to 0 before. Paged attention's wide mode through
+    ``paged_decode_attention``: WIDE_PAGED_CASES held and timed as phase 2's
+    paged cases, WIDE_PAGED_HELD held as PAGED_CASES (both against the plain
+    version in f32), every call counted under the wide mode (the engine of
+    phase 4 reads the kernel's name from a device trace). Returns ((flash fwd, flash bwd),
+    flash launches, the hd 320 paged case's numbers)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1630,27 +1705,33 @@ def check_wide_attention(gen):
     torch.cuda.empty_cache()
 
     paged = {}
-    pa.paged_decode_attention_wide.launches = pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.by_route.update(dict.fromkeys(pa.MODES, 0))
     for label, lengths, shape in WIDE_PAGED_CASES:
         r = time_paged(gen, label, lengths, shape=shape, hold_f32=True)
         say("kernels", kernel="paged_attention_wide", case=label, lengths=lengths,
             held_against="the plain version in f32",
             **{k: (round(v, 5) if isinstance(v, float) and "err" not in k else v)
-               for k, v in r.items()}, bound_share=round(r["bound_ms"] / r["ms"], 4))
+               for k, v in r.items()}, bound_share=round(r["bound_ms"] / r["ms"], 4),
+            library_ratio=round(r["ms"] / r["library_ms"], 4))
         paged[label] = r
-    paged_launches = pa.paged_decode_attention_wide.launches
-    if paged_launches <= 0 or pa.paged_decode_attention.launches:
-        raise AssertionError(f"wide paged cases launched the wide kernel {paged_launches} "
-                             f"times and the TMA kernel {pa.paged_decode_attention.launches}")
+    hold_paged_cases(gen, WIDE_PAGED_HELD, wide=True)
+    launches_by_mode = dict(pa.paged_decode_attention.by_route)
+    say("kernels", kernel="paged_attention", mode="wide",
+        launches_by_mode=json.dumps(launches_by_mode))
+    if launches_by_mode["narrow"] or launches_by_mode["wide"] <= 0 or \
+            launches_by_mode["wide"] != pa.paged_decode_attention.launches:
+        raise AssertionError(f"the wide paged cases launched {launches_by_mode}: want the wide "
+                             "mode only")
     fwd, bwd = res[WIDE_FLASH_CASES[0][0]]
     fwd["at"] = ("B1 S2048 H8 Hk2 hd320 causal bf16, the wide route (chunks of 192 and 128 "
                  "columns); bound at 989 TFLOP/s; library: SDPA "
                  f"({fwd['library_backend']}) over K/V expanded to every head")
     bwd["at"] = fwd["at"] + ", backward alone by torch.autograd.grad (eager)"
     nums = dict(paged["hd320"])
-    nums["at"] = ("8 lanes, H16 Hk4 hd320 bs16 MB64, ragged lengths, bf16; library: SDPA over "
-                  "the gathered window")
-    return (fwd, bwd), launches["fwd"]["wide"], nums, paged_launches
+    nums["at"] = ("8 lanes, H16 Hk4 hd320 bs16 MB64, ragged lengths, bf16, the kernel's wide "
+                  "mode; library: SDPA over the gathered window")
+    return (fwd, bwd), launches["fwd"]["wide"], nums
 
 
 # ---------------------------------------------------------------------------
@@ -3174,6 +3255,8 @@ def main(argv=None) -> int:
         for kernel, regs, stores, loads in ptxas_kernels(log):
             say("setup", ptxas=name, kernel=kernel, registers=regs, spill_stores=stores,
                 spill_loads=loads)
+            if "paged_decode_wide_kernel" in kernel and (stores or loads):
+                raise AssertionError(f"{kernel} spills {stores} / {loads} bytes")
     sass = sass_counts(_build.KERNELS)
     if sass is None:
         say("setup", sass="no cuobjdump beside nvcc: no SASS counts")
@@ -3195,7 +3278,7 @@ def main(argv=None) -> int:
     gemm = check_int8(gen)
     fp16_step, fp16_layer, fp16_tc_launches = check_int8_fp16(gen)
     rms_rf = check_rms_round_first(gen)
-    wide_flash, wide_flash_launches, wide_paged, wide_paged_launches = check_wide_attention(gen)
+    wide_flash, wide_flash_launches, wide_paged = check_wide_attention(gen)
     lap("2")
 
     cfg = LlamaConfig.llama3_8b()
@@ -3250,6 +3333,7 @@ def main(argv=None) -> int:
     del engine, model
     torch.cuda.empty_cache()
     fp16_launches = check_fp16_int8_engine(args.seed, serve_cfg, prompts)
+    wide_paged_launches = check_wide_engine(args.seed, prompts)
     lap("4")
 
     flash_fwd, flash_bwd = check_flash(gen)
@@ -3398,10 +3482,10 @@ def main(argv=None) -> int:
              "nn.functional.flash_attention past 256 columns (no model path runs them)"),
             ("flash_attention_bwd_wide", "flash_attention.cu", "flash_attention.py:112",
              wide_flash[1], wide_flash_launches, "the same calls' backward"),
-            ("paged_decode_attention_wide", "attention_wide.cu", "paged_attention.py:68",
+            ("paged_decode_attention_wide", "paged_attention.cu", "paged_attention.py:68",
              wide_paged, wide_paged_launches,
-             "phase 2's wide cases through paged_decode_attention (no model config here has "
-             "a head dim or page past 256)")):
+             f"the traced window of the graphed {WIDE_ENGINE_LAYERS}-layer engine with pages "
+             f"of {WIDE_ENGINE_CFG['block_size']} slots (its wide mode)")):
         kernels.append({
             "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": f"paddle_tpu/ops/pallas/{replaces}", "launches": launches,

@@ -11,7 +11,7 @@
 // h / (H/Hk), softmax in f32, output in q's dtype; an inactive lane (length
 // 0 on trash block 0) sees exactly one slot. The bundled TPU kernel applies
 // no 1/sqrt(hd) scale; this kernel does. bf16, fp16 and f32, any head_dim
-// up to 256, any page size up to 256 slots, any H % Hk == 0.
+// up to 1024, any page size, any H % Hk == 0.
 //
 // Bound on the H100: bytes. Each visible K and V row is read once (lanes x
 // visible slots x Hk x hd x 2 tensors x 2 B in bf16) against 3.35 TB/s; the
@@ -20,16 +20,18 @@
 // so the fixed costs of a launch are of the same order as the stream.
 //
 // Design: one launch per call, its grid fixed by the shapes (the wrapper
-// passes two blocks an SM), so a CUDA graph can hold it.
+// passes two blocks an SM, one past 256 columns), so a CUDA graph can hold
+// it.
 // - Length-balanced split-KV. Each (lane, KV head, pass) pair's visible
-//   pages are cut into chunks of at most Kc pages, Kc the fewest that fit
-//   the chunks to the grid, so no block streams more than Kc pages whatever
-//   the skew between lanes; block j takes chunks j, j + grid, ... (one,
-//   unless the pairs outnumber the blocks). Every block reads `lengths`
-//   itself and finds Kc and its chunk on the device: no host read of
-//   `lengths`, ever. (A first design gave each block an equal contiguous
-//   share of the page list; blocks over short lanes then walked up to seven
-//   one-page pairs in series, each with its own fixed costs: PERF.md.)
+//   units (pages; in the wide mode below, boxes of rows of a page) are cut
+//   into chunks of at most Kc units, Kc the fewest that fit the chunks to
+//   the grid, so no block streams more than Kc units whatever the skew
+//   between lanes; block j takes chunks j, j + grid, ... (one, unless the
+//   pairs outnumber the blocks). Every block reads `lengths` itself and
+//   finds Kc and its chunk on the device: no host read of `lengths`, ever.
+//   (A first design gave each block an equal contiguous share of the page
+//   list; blocks over short lanes then walked up to seven one-page pairs in
+//   series, each with its own fixed costs: PERF.md.)
 // - A page ring fed by TMA. A 4-D tensor map over the pool [nb, bs, Hk, hd]
 //   loads one KV head's rows of one page, K and V, per stage (a page of more
 //   than 8 KB as several boxes of rows); the block-table entry is the page
@@ -69,6 +71,31 @@
 //   result does not depend on scheduling, writes the output and resets the
 //   ticket to zero for the next call. A pair of one chunk writes its output
 //   directly.
+//
+// The wide mode (`paged_decode_wide_kernel`): head dims past 256 or pages
+// past 256 slots. A box's inner dimension stops at 256 elements, and so
+// does a warp's f32 accumulator at 256 columns; a page of 512 slots as the
+// schedule's unit leaves the longest lane two chunks of 512 rows.
+// - Column split: each of the four consumer warps owns one slice of
+//   wc = round_up(ceil(hd / 4), 8) columns (80 at hd 320, 256 at 1024) and
+//   reads every stage; a stage holds one K box and one V box per slice, each
+//   wc + 8 columns wide (wc at wc 256) at column w * wc. Each warp's score
+//   product covers its slice (its Q fragment is zero past it); the four
+//   partial scores are added in warp order through shared memory, behind a
+//   named barrier of the consumers, so every warp holds the same S, running
+//   max and sum bit for bit, and adds P V over its own columns. The block's
+//   reduction area is then one row a query head (33 KB at hd 1024, hp 8).
+// - O is kept transposed: O^T += V^T P^T (m16n8k16 with V's 16 columns as
+//   the rows, P^T's 16 slots x 8 heads as B), so a slice of 256 columns
+//   holds 64 accumulators a thread, where Q's 16-row side would hold 128
+//   with half of them the zero rows past 8 heads.
+// - Units: boxes of `rows` rows of a page (16 at most widths, so a 512-slot
+//   page is 32 units and a long lane spreads over many blocks); a box may
+//   reach past its page's end, where TMA reads zeros (the map's page extent
+//   is bs) and the copying producer stops. Any page size, prime ones too.
+// - f32: the same slices on the CUDA cores, two rows at a time, each warp's
+//   partial dot products reduced by shuffles and added in warp order
+//   through shared memory.
 
 #include "hopper.cuh"
 
@@ -83,6 +110,9 @@ constexpr int kBoxBytes = 8192;    // rows of one box (K or V) at most
 constexpr int kRingBytes = 64 * 1024;
 constexpr int kTmaError = 10000;   // + CUresult of a refused tensor map
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kNarrow = 256;       // head dims and page sizes of the narrow mode
+constexpr int kSlices = kConsumerWarps;  // wide: column slices, one a consumer warp
+constexpr int kXsBytes = 2 * kSlices * 32 * 16;  // wide: partial scores, two parities
 
 struct Args {
   const void* q;          // [lanes, H, hd]
@@ -96,9 +126,11 @@ struct Args {
   int lanes, H, Hk, hd, bs, MB, grid;
   int hdp;                // hd rounded up to 8: a partial row's floats
   int tma;                // 1: TMA boxes; 0: rows not 16-byte multiples, the warp copies
-  int rows;               // rows of a box, a divisor of bs
+  int rows;               // rows of a box: a divisor of bs (narrow), at most bs (wide)
   int pitch;              // elements of a row in shared memory: hd + 8 (TMA; hd up to
-                          // 248), round_up(hd, 8) + 8 (copies)
+                          // 248), round_up(hd, 8) + 8 (copies); wide: wc + 8 (wc at 256)
+  int wc;                 // wide: columns of a warp's slice, a multiple of 8; narrow: 0
+  int upp;                // the schedule's units a page: 1 (narrow), ceil(bs / rows) (wide)
   int stages;             // boxes of K and V in the ring
   int hp;                 // query heads a pass: a power of two up to 8
   int npass;              // passes over a GQA group of H / Hk heads
@@ -108,17 +140,22 @@ struct Args {
 
 // shared memory in bytes from a 128-byte aligned base (host and device); a
 // box holds whole 16-row groups, so the tensor cores' reads past its rows
-// stay inside it
+// stay inside it. Wide: a stage is kSlices K boxes, then kSlices V boxes
+// (f32 boxes are not padded), one reduction row a query head, and the
+// exchange of partial scores.
 struct Layout {
-  int box, stage, bars, prefix, red, flag, total;
+  int box, stage, bars, prefix, red, flag, xs, total;
   __host__ __device__ Layout(const Args& a, int es) {
-    box = ((a.rows + 15) / 16 * 16 * a.pitch * es + 127) / 128 * 128;
-    stage = 2 * box;                                   // K box, then V box
+    const bool wide = a.wc > 0;
+    const int brows = wide && es == 4 ? a.rows : (a.rows + 15) / 16 * 16;
+    box = (brows * a.pitch * es + 127) / 128 * 128;
+    stage = (wide ? 2 * kSlices : 2) * box;            // K box(es), then V box(es)
     bars = a.stages * stage;                           // full[stages], empty[stages]
     prefix = bars + 2 * a.stages * 8;                  // chunks before lane [lanes + 1], slots [lanes]
     red = (prefix + 4 * (2 * a.lanes + 1) + 15) / 16 * 16;  // [warps][hp][hdp], [warps][hp][2]
-    flag = red + kConsumerWarps * a.hp * (a.hdp + 2) * 4;
-    total = flag + 16;                                 // the ticket's verdict, Kc
+    flag = red + (wide ? 1 : kConsumerWarps) * a.hp * (a.hdp + 2) * 4;
+    xs = (flag + 16 + 15) / 16 * 16;                   // after the ticket's verdict, Kc
+    total = wide ? xs + kXsBytes : flag + 16;
   }
 };
 
@@ -183,17 +220,19 @@ __device__ __forceinline__ void store_chunk(T* row, int col, int hd, const float
   }
 }
 
-// the warp copies rows [row0, row0 + a.rows) of KV head g of page pk into a
-// ring slot, U bytes a load, zeros past hd (pools that TMA cannot map)
+// the warp copies rows [row0, row0 + nrows) of KV head g of page pk, columns
+// [col0, col0 + cols), into a ring slot, U bytes a load, zeros past them up
+// to the pitch (pools that TMA cannot map)
 template <typename U>
 __device__ __forceinline__ void copy_box(unsigned char* dst, const void* pool, const Args& a,
-                                         int es, int pk, int g, int row0, int lane) {
+                                         int es, int pk, int g, int row0, int lane, int col0,
+                                         int cols, int nrows) {
   const size_t row_stride = (size_t)a.Hk * a.hd * es;
   const unsigned char* src =
       static_cast<const unsigned char*>(pool) + ((size_t)pk * a.bs + row0) * row_stride +
-      (size_t)g * a.hd * es;
-  const int data = a.hd * es / (int)sizeof(U), per_row = a.pitch * es / (int)sizeof(U);
-  const int n = a.rows * per_row;
+      ((size_t)g * a.hd + col0) * es;
+  const int data = cols * es / (int)sizeof(U), per_row = a.pitch * es / (int)sizeof(U);
+  const int n = nrows * per_row;
   for (int i0 = lane; i0 < n; i0 += 4 * 32) {
     U v[4];
 #pragma unroll
@@ -250,6 +289,26 @@ __device__ __forceinline__ void mma16816(float* d, uint32_t a0, uint32_t a2, uin
         "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+  }
+}
+
+// D[16 x 8] += A[16 x 16] B[16 x 8] with all 16 rows of A: a0 (row g,
+// columns 2t, 2t + 1), a1 (row g + 8), a2 (row g, columns 2t + 8, 2t + 9),
+// a3 (row g + 8, columns 2t + 8, 2t + 9); B and D as mma16816
+template <typename T>
+__device__ __forceinline__ void mma_full(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
 }
 
@@ -540,13 +599,350 @@ struct SimtConsumer {
   }
 };
 
-// HP: SIMT heads a pass (f32); DP: tensor-core columns (bf16, fp16); kTma:
-// the pool's rows are 16-byte multiples (else the producer warp copies)
-template <typename T, int HP, int DP, bool kTma>
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv, const Args a) {
+// Wide, tensor cores (bf16, fp16): this warp's slice of a.wc columns at
+// column col0, DP >= wc rounded up to 16. S's partials go through xs
+// ([2][warps][32] float4: a parity, a warp, a lane), so every warp adds the
+// four in warp order and holds the same S. O is kept transposed: o[mt] is
+// O^T over columns mt * 16 + g (d0, d1: heads 2t, 2t + 1) and + 8 (d2, d3).
+template <typename T, int DP>
+struct SplitConsumer {
+  static constexpr int kKT = DP / 16;  // 16-column steps of a slice, at most
+  uint32_t qa[kKT][2];                 // A fragments of q, rows g (heads), per 16 columns
+  float o[kKT][4];
+  float m, l;                          // head g: running max (log2 units), this thread's sum
+
+  __device__ __forceinline__ void start(const Args& a, const T* qrow, bool head_ok, int t,
+                                        int col0) {
+    const uint16_t* q16 = reinterpret_cast<const uint16_t*>(qrow);
+#pragma unroll
+    for (int kk = 0; kk < kKT; ++kk) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int col = kk * 16 + hf * 8 + 2 * t, gc = col0 + col;
+        const bool ok = head_ok && col < a.wc && gc < a.hd;
+        if (a.hd % 2 == 0) {  // col0 is even: a pair a load
+          qa[kk][hf] = ok ? *reinterpret_cast<const uint32_t*>(q16 + gc) : 0u;
+        } else {
+          const uint32_t lo = ok ? q16[gc] : 0u;
+          const uint32_t hi = ok && gc + 1 < a.hd ? q16[gc + 1] : 0u;
+          qa[kk][hf] = lo | hi << 16;
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kKT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+    m = neg_inf();
+    l = 0.f;
+  }
+
+  // rows 0 .. rv - 1 of this warp's staged slice (K at ks, V at vs)
+  __device__ __forceinline__ void box(const Args& a, uint32_t ks, uint32_t vs, int rv, int lane,
+                                      int warp, float4* xs, int& ex) {
+    const int t = lane & 3, i4 = lane >> 3, r8 = lane & 7;
+    const uint32_t row_bytes = a.pitch * sizeof(T);
+    const int kt = (a.wc + 15) / 16;
+    for (int s16 = 0; s16 < rv; s16 += 16) {
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      // this slice's S = Q K^T over slots s16 .. s16 + 15, as MmaConsumer
+      const uint32_t kaddr = ks + (s16 + (i4 >> 1) * 8 + r8) * row_bytes + (i4 & 1) * 16;
+#pragma unroll
+      for (int kk = 0; kk < kKT; ++kk) {
+        if (kk < kt) {
+          uint32_t b[4];
+          ldsm_x4(kaddr + kk * 32, b);
+          mma16816<T>(s[0], qa[kk][0], qa[kk][1], b[0], b[1]);
+          mma16816<T>(s[1], qa[kk][0], qa[kk][1], b[2], b[3]);
+        }
+      }
+      // the slices' partials added in warp order (the parities alternate, so
+      // one barrier a group keeps a write from overtaking the last read)
+      xs[(ex * kSlices + warp) * 32 + lane] = make_float4(s[0][0], s[0][1], s[1][0], s[1][1]);
+      consumers_sync();
+      const float4* all = xs + ex * kSlices * 32 + lane;
+      float4 sum = all[0];
+#pragma unroll
+      for (int w = 1; w < kSlices; ++w) {
+        const float4 p = all[w * 32];
+        sum.x += p.x;
+        sum.y += p.y;
+        sum.z += p.z;
+        sum.w += p.w;
+      }
+      ex ^= 1;
+      // online softmax of head g over this thread's slots 2t, 2t + 1, 8 + 2t, 9 + 2t
+      const int n = rv - s16;
+      const float sv[4] = {sum.x, sum.y, sum.z, sum.w};
+      float x[4];
+      float mx = neg_inf();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int slot = (i >> 1) * 8 + 2 * t + (i & 1);
+        x[i] = slot < n ? sv[i] * a.scale2 : neg_inf();
+        mx = fmaxf(mx, x[i]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m, mx);  // finite: slot s16 is visible
+      const float al = weight(m, mn);
+      m = mn;
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = x[i] == neg_inf() ? 0.f : exp2f(x[i] - mn);
+      l = l * al + (p[0] + p[1]) + (p[2] + p[3]);
+      // O^T's columns hold heads 2t, 2t + 1: their factors from groups 2t, 2t + 1
+      const float al0 = __shfl_sync(0xffffffffu, al, 8 * t);
+      const float al1 = __shfl_sync(0xffffffffu, al, 8 * t + 4);
+#pragma unroll
+      for (int mt = 0; mt < kKT; ++mt) {
+        o[mt][0] *= al0;
+        o[mt][1] *= al1;
+        o[mt][2] *= al0;
+        o[mt][3] *= al1;
+      }
+      // P^T as B: head g's slots 2t, 2t + 1 (b0) and 8 + 2t, 9 + 2t (b1)
+      const uint32_t pb0 = pack2<T>(p[0], p[1]), pb1 = pack2<T>(p[2], p[3]);
+      // O^T += V^T P^T: A = V^T, matrices (columns 0-7 | 8-15) x (slots 0-7 | 8-15)
+      const uint32_t vaddr = vs + (s16 + (i4 >> 1) * 8 + r8) * row_bytes + (i4 & 1) * 16;
+      const bool partial = n < 16;
+      const bool v0 = 2 * t < n, v1 = 2 * t + 1 < n, v8 = 2 * t + 8 < n, v9 = 2 * t + 9 < n;
+#pragma unroll
+      for (int mt = 0; mt < kKT; ++mt) {
+        if (mt < kt) {
+          uint32_t va[4];
+          ldsm_x4_t(vaddr + mt * 32, va);
+          if (partial) {  // a V row past the length may hold NaN: 0 * NaN is NaN
+            va[0] = keep(va[0], v0, v1);
+            va[1] = keep(va[1], v0, v1);
+            va[2] = keep(va[2], v8, v9);
+            va[3] = keep(va[3], v8, v9);
+          }
+          mma_full<T>(o[mt], va, pb0, pb1);
+        }
+      }
+    }
+  }
+
+  // this warp's columns of heads < nh into red (one row a head); every warp
+  // holds the same max and sum, warp 0 writes them
+  __device__ __forceinline__ void reduce(const Args& a, float* red_acc, float* red_ml, int warp,
+                                         int lane, int nh) {
+    const int g = lane >> 2, t = lane & 3, col0 = warp * a.wc;
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+#pragma unroll
+    for (int mt = 0; mt < kKT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = 2 * t + (e & 1), col = mt * 16 + g + (e >> 1) * 8;
+        if (h < nh && col < a.wc && col0 + col < a.hdp) red_acc[h * a.hdp + col0 + col] = o[mt][e];
+      }
+    }
+    if (warp == 0 && t == 0 && g < nh) {
+      red_ml[g * 2] = m;
+      red_ml[g * 2 + 1] = l;
+    }
+  }
+};
+
+// Wide, SIMT (f32): this warp's slice of a.wc columns at column col0; lane
+// holds the 16-byte chunks lane, lane + 32 of it. Two rows at a time: the
+// warp's partial dot products reduced by shuffles, added in warp order
+// through xs ([2][warps][HP][2] floats), so every thread holds the same
+// scores and softmax state.
+template <int HP>
+struct SimtSplit {
+  float qv[HP][kE], acc[HP][kE], m[HP], l[HP];
+
+  __device__ __forceinline__ void start(const Args& a, const float* q0, int nh, int lane,
+                                        int col0) {
+    const int C = a.wc / 4;
+#pragma unroll
+    for (int h = 0; h < HP; ++h) {
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int ch = lane + (e / 4) * 32, gc = col0 + ch * 4 + e % 4;
+        qv[h][e] = h < nh && ch < C && gc < a.hd ? q0[h * a.hd + gc] * a.scale2 : 0.f;
+        acc[h][e] = 0.f;
+      }
+      m[h] = neg_inf();
+      l[h] = 0.f;
+    }
+  }
+
+  __device__ __forceinline__ void box(const Args& a, const float* ks, const float* vs, int rv,
+                                      int lane, int warp, float* xs, int& ex) {
+    const int C = a.wc / 4;
+    for (int s0 = 0; s0 < rv; s0 += 2) {
+      const int sb = s0 + 1;
+      const bool vb = sb < rv;
+      float ka[kE], kb[kE];
+      load_row(ks, s0, true, lane, 32, C, a.pitch, ka);
+      load_row(ks, sb, vb, lane, 32, C, a.pitch, kb);
+      float xa[HP], xb[HP];
+#pragma unroll
+      for (int h = 0; h < HP; ++h) {
+        float da = 0.f, db = 0.f;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          da = fmaf(qv[h][e], ka[e], da);
+          db = fmaf(qv[h][e], kb[e], db);
+        }
+        xa[h] = da;
+        xb[h] = db;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int h = 0; h < HP; ++h) {
+          xa[h] += __shfl_xor_sync(0xffffffffu, xa[h], o);
+          xb[h] += __shfl_xor_sync(0xffffffffu, xb[h], o);
+        }
+      }
+      float* mine = xs + (ex * kSlices + warp) * HP * 2;
+      if (lane == 0) {
+#pragma unroll
+        for (int h = 0; h < HP; ++h) {
+          mine[h * 2] = xa[h];
+          mine[h * 2 + 1] = xb[h];
+        }
+      }
+      consumers_sync();
+      const float* all = xs + ex * kSlices * HP * 2;
+#pragma unroll
+      for (int h = 0; h < HP; ++h) {
+        xa[h] = all[h * 2];
+        xb[h] = all[h * 2 + 1];
+#pragma unroll
+        for (int w = 1; w < kSlices; ++w) {
+          xa[h] += all[(w * HP + h) * 2];
+          xb[h] += all[(w * HP + h) * 2 + 1];
+        }
+      }
+      ex ^= 1;
+      float wa[kE], wb[kE];  // a row that is not visible is never read
+      load_row(vs, s0, true, lane, 32, C, a.pitch, wa);
+      load_row(vs, sb, vb, lane, 32, C, a.pitch, wb);
+#pragma unroll
+      for (int h = 0; h < HP; ++h) {
+        const float mx = vb ? fmaxf(xa[h], xb[h]) : xa[h];
+        if (mx > m[h]) {
+          const float al = exp2f(m[h] - mx);
+          l[h] *= al;
+#pragma unroll
+          for (int e = 0; e < kE; ++e) acc[h][e] *= al;
+          m[h] = mx;
+        }
+        const float pa = exp2f(xa[h] - m[h]);
+        const float pb = vb ? exp2f(xb[h] - m[h]) : 0.f;
+        l[h] += pa + pb;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) acc[h][e] = fmaf(pa, wa[e], fmaf(pb, wb[e], acc[h][e]));
+      }
+    }
+  }
+
+  __device__ __forceinline__ void reduce(const Args& a, float* red_acc, float* red_ml, int warp,
+                                         int lane, int nh) {
+    const int C = a.wc / 4, col0 = warp * a.wc;
+#pragma unroll
+    for (int h = 0; h < HP; ++h) {
+      if (h >= nh) continue;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int ch = lane + (e / 4) * 32, col = col0 + ch * 4 + e % 4;
+        if (ch < C && col < a.hdp) red_acc[h * a.hdp + col] = acc[h][e];
+      }
+      if (warp == 0 && lane == 0) {
+        red_ml[h * 2] = m[h];
+        red_ml[h * 2 + 1] = l[h];
+      }
+    }
+  }
+};
+
+// the schedule's units of a lane that sees n slots: its pages (narrow), or
+// boxes of a.rows rows of a page, a.upp a page, the last page's cut short
+template <bool kWide>
+__device__ __forceinline__ int units(const Args& a, int n) {
+  if constexpr (kWide) {
+    const int whole = n / a.bs;
+    return whole * a.upp + (n - whole * a.bs + a.rows - 1) / a.rows;
+  } else {
+    return (n + a.bs - 1) / a.bs;
+  }
+}
+
+// the warp's copies of one slice's K and V boxes, U bytes a load
+template <typename U>
+__device__ __forceinline__ void copy_slice(unsigned char* k, unsigned char* v, const Args& a,
+                                           int es, int pk, int g, int r0, int lane, int col0) {
+  const int cols = max(0, min(a.pitch, a.hd - col0)), nrows = min(a.rows, a.bs - r0);
+  copy_box<U>(k, a.pool_k, a, es, pk, g, r0, lane, col0, cols, nrows);
+  copy_box<U>(v, a.pool_v, a, es, pk, g, r0, lane, col0, cols, nrows);
+}
+
+// wide producer: one stage a unit (a box of rows of a page), each slice's K
+// and V boxes at column w * wc; units u of lane b's pages from p0, np of them
+template <typename T, bool kTma>
+__device__ __forceinline__ void produce_wide(const Args& a, const Layout& lay, unsigned char* sm,
+                                             uint64_t* full, uint64_t* empty,
+                                             const CUtensorMap* tk, const CUtensorMap* tv,
+                                             uint32_t stage_tx, int b, int g, int p0, int np,
+                                             int lane, int& it) {
+  for (int base = 0; base < np; base += 32) {
+    int phys = 0, first = 0;
+    if (base + lane < np) {
+      const int u = p0 + base + lane, pi = u / a.upp;
+      phys = a.table[(size_t)b * a.MB + pi];
+      first = (u - pi * a.upp) * a.rows;
+    }
+    const int cnt = min(32, np - base);
+    for (int k = 0; k < cnt; ++k, ++it) {
+      const int pk = __shfl_sync(0xffffffffu, phys, k);
+      const int r0 = __shfl_sync(0xffffffffu, first, k);
+      const int st = it % a.stages;
+      const uint32_t ph = (it / a.stages) & 1;
+      unsigned char* dst = sm + st * lay.stage;
+      if constexpr (kTma) {
+        if (lane == 0) {
+          mbar_wait(empty + st, ph ^ 1);
+          mbar_expect_tx(full + st, stage_tx);
+          for (int w = 0; w < kSlices; ++w) {  // rows past the page's end read as zeros
+            tma_load(dst + w * lay.box, tk, full + st, w * a.wc, g, r0, pk);
+            tma_load(dst + (kSlices + w) * lay.box, tv, full + st, w * a.wc, g, r0, pk);
+          }
+        }
+      } else {
+        constexpr int es = (int)sizeof(T);
+        const int rb = a.hd * es;  // bytes of a pool row
+        mbar_wait(empty + st, ph ^ 1);
+        for (int w = 0; w < kSlices; ++w) {
+          unsigned char* kd = dst + w * lay.box;
+          unsigned char* vd = dst + (kSlices + w) * lay.box;
+          if (rb % 8 == 0) {
+            copy_slice<uint2>(kd, vd, a, es, pk, g, r0, lane, w * a.wc);
+          } else if (rb % 4 == 0) {
+            copy_slice<uint32_t>(kd, vd, a, es, pk, g, r0, lane, w * a.wc);
+          } else {
+            copy_slice<uint16_t>(kd, vd, a, es, pk, g, r0, lane, w * a.wc);
+          }
+        }
+        mbar_arrive(full + st);
+      }
+    }
+  }
+}
+
+// HP: SIMT heads a pass (f32); DP: tensor-core columns (bf16, fp16; wide: of
+// a slice); kTma: the pool's rows are 16-byte multiples (else the producer
+// warp copies); kWide: head dims or pages past 256 (the column split)
+template <typename T, int HP, int DP, bool kTma, bool kWide>
+__device__ __forceinline__ void decode(const CUtensorMap& tk, const CUtensorMap& tv,
+                                       const Args& a) {
   constexpr bool kMma = !std::is_same<T, float>::value;
+  constexpr int kSets = kWide ? 1 : kConsumerWarps;  // partial results merged in the block
   constexpr int V = Chunk<T>::V;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u);
@@ -556,8 +952,9 @@ __global__ void __launch_bounds__(kThreads)
   int* cpre = reinterpret_cast<int*>(sm + lay.prefix);  // chunks of a pair, summed over lanes < b
   int* nvis = cpre + a.lanes + 1;                        // visible slots of lane b
   float* red_acc = reinterpret_cast<float*>(sm + lay.red);
-  float* red_ml = red_acc + kConsumerWarps * a.hp * a.hdp;
+  float* red_ml = red_acc + kSets * a.hp * a.hdp;
   int* flag = reinterpret_cast<int*>(sm + lay.flag);     // the ticket's verdict, then Kc
+  float* xs = reinterpret_cast<float*>(sm + lay.xs);     // wide: the slices' partial scores
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cap = a.MB * a.bs;
@@ -565,7 +962,8 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) {
     for (int i = 0; i < a.stages; ++i) {
       mbar_init(full + i, kTma ? 1 : 32);               // copies: one arrival a lane
-      mbar_init(empty + i, kMma ? 1 : kConsumerWarps);  // tensor cores: one warp a stage
+      mbar_init(empty + i, kMma && !kWide ? 1 : kConsumerWarps);  // narrow tensor cores:
+                                                                  // one warp a stage
     }
     fence_barrier_init();
   }
@@ -574,13 +972,13 @@ __global__ void __launch_bounds__(kThreads)
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
   }
   if (warp == 0) {
-    // visible slots and pages of every lane (pages parked in cpre[b + 1])
+    // visible slots and units of every lane (units parked in cpre[b + 1])
     int most = 0, total = 0;
     for (int base = 0; base < a.lanes; base += 32) {
       const int b = base + lane;
       if (b < a.lanes) {
         const int n = min(max(a.lengths[b], 0), cap - 1) + 1;
-        const int p = (n + a.bs - 1) / a.bs;
+        const int p = units<kWide>(a, n);
         nvis[b] = n;
         cpre[b + 1] = p;
         most = max(most, p);
@@ -593,7 +991,7 @@ __global__ void __launch_bounds__(kThreads)
       total += __shfl_xor_sync(0xffffffffu, total, o);
     }
     __syncwarp();
-    // Kc: the fewest pages a chunk such that the chunks fit the grid (or
+    // Kc: the fewest units a chunk such that the chunks fit the grid (or
     // whole pairs, where the pairs outnumber the blocks); 32 candidates a
     // round, one a lane, from the balanced share up
     int kc = 0;
@@ -628,7 +1026,7 @@ __global__ void __launch_bounds__(kThreads)
   const int nchunks = cpre[a.lanes] * per_lane;
   const int j = blockIdx.x;
   if (j >= nchunks) return;
-  const uint32_t stage_tx = 2u * a.rows * a.pitch * sizeof(T);
+  const uint32_t stage_tx = (kWide ? 2u * kSlices : 2u) * a.rows * a.pitch * sizeof(T);
 
   if (warp == kConsumerWarps) {  // producer: the warp reads the table, one thread loads
     int it = 0;
@@ -637,50 +1035,58 @@ __global__ void __launch_bounds__(kThreads)
       locate(cpre, a.lanes, per_lane, c, b, sub, ci, cpp);
       const int g = sub / a.npass;
       const int p0 = ci * Kc;
-      const int np = min((nvis[b] + a.bs - 1) / a.bs, p0 + Kc) - p0;
-      for (int base = 0; base < np; base += 32) {
-        int phys = 0, rows = 0;
-        if (base + lane < np) {
-          const int pi = p0 + base + lane;
-          phys = a.table[(size_t)b * a.MB + pi];
-          rows = min(a.bs, nvis[b] - pi * a.bs);
-        }
-        const int cnt = min(32, np - base);
-        for (int k = 0; k < cnt; ++k) {
-          const int pk = __shfl_sync(0xffffffffu, phys, k);
-          const int rk = __shfl_sync(0xffffffffu, rows, k);
-          if constexpr (kTma) {
-            if (lane == 0) {
-              for (int row0 = 0; row0 < rk; row0 += a.rows, ++it) {
-                const int st = it % a.stages;
-                const uint32_t ph = (it / a.stages) & 1;
-                mbar_wait(empty + st, ph ^ 1);
-                mbar_expect_tx(full + st, stage_tx);
-                unsigned char* dst = sm + st * lay.stage;
-                tma_load(dst, &tk, full + st, 0, g, row0, pk);
-                tma_load(dst + lay.box, &tv, full + st, 0, g, row0, pk);
-              }
-            }
-            continue;
+      const int np = min(units<kWide>(a, nvis[b]), p0 + Kc) - p0;
+      if constexpr (kWide) {
+        produce_wide<T, kTma>(a, lay, sm, full, empty, &tk, &tv, stage_tx, b, g, p0, np, lane,
+                              it);
+      } else {
+        for (int base = 0; base < np; base += 32) {
+          int phys = 0, rows = 0;
+          if (base + lane < np) {
+            const int pi = p0 + base + lane;
+            phys = a.table[(size_t)b * a.MB + pi];
+            rows = min(a.bs, nvis[b] - pi * a.bs);
           }
-          constexpr int es = (int)sizeof(T);
-          const int rb = a.hd * es;  // bytes of a pool row
-          for (int row0 = 0; row0 < rk; row0 += a.rows, ++it) {
-            const int st = it % a.stages;
-            const uint32_t ph = (it / a.stages) & 1;
-            mbar_wait(empty + st, ph ^ 1);
-            unsigned char* dst = sm + st * lay.stage;
-            if (rb % 8 == 0) {
-              copy_box<uint2>(dst, a.pool_k, a, es, pk, g, row0, lane);
-              copy_box<uint2>(dst + lay.box, a.pool_v, a, es, pk, g, row0, lane);
-            } else if (rb % 4 == 0) {
-              copy_box<uint32_t>(dst, a.pool_k, a, es, pk, g, row0, lane);
-              copy_box<uint32_t>(dst + lay.box, a.pool_v, a, es, pk, g, row0, lane);
-            } else {
-              copy_box<uint16_t>(dst, a.pool_k, a, es, pk, g, row0, lane);
-              copy_box<uint16_t>(dst + lay.box, a.pool_v, a, es, pk, g, row0, lane);
+          const int cnt = min(32, np - base);
+          for (int k = 0; k < cnt; ++k) {
+            const int pk = __shfl_sync(0xffffffffu, phys, k);
+            const int rk = __shfl_sync(0xffffffffu, rows, k);
+            if constexpr (kTma) {
+              if (lane == 0) {
+                for (int row0 = 0; row0 < rk; row0 += a.rows, ++it) {
+                  const int st = it % a.stages;
+                  const uint32_t ph = (it / a.stages) & 1;
+                  mbar_wait(empty + st, ph ^ 1);
+                  mbar_expect_tx(full + st, stage_tx);
+                  unsigned char* dst = sm + st * lay.stage;
+                  tma_load(dst, &tk, full + st, 0, g, row0, pk);
+                  tma_load(dst + lay.box, &tv, full + st, 0, g, row0, pk);
+                }
+              }
+              continue;
             }
-            mbar_arrive(full + st);
+            constexpr int es = (int)sizeof(T);
+            const int rb = a.hd * es;  // bytes of a pool row
+            for (int row0 = 0; row0 < rk; row0 += a.rows, ++it) {
+              const int st = it % a.stages;
+              const uint32_t ph = (it / a.stages) & 1;
+              mbar_wait(empty + st, ph ^ 1);
+              unsigned char* dst = sm + st * lay.stage;
+              if (rb % 8 == 0) {
+                copy_box<uint2>(dst, a.pool_k, a, es, pk, g, row0, lane, 0, a.hd, a.rows);
+                copy_box<uint2>(dst + lay.box, a.pool_v, a, es, pk, g, row0, lane, 0, a.hd,
+                                a.rows);
+              } else if (rb % 4 == 0) {
+                copy_box<uint32_t>(dst, a.pool_k, a, es, pk, g, row0, lane, 0, a.hd, a.rows);
+                copy_box<uint32_t>(dst + lay.box, a.pool_v, a, es, pk, g, row0, lane, 0, a.hd,
+                                   a.rows);
+              } else {
+                copy_box<uint16_t>(dst, a.pool_k, a, es, pk, g, row0, lane, 0, a.hd, a.rows);
+                copy_box<uint16_t>(dst + lay.box, a.pool_v, a, es, pk, g, row0, lane, 0, a.hd,
+                                   a.rows);
+              }
+              mbar_arrive(full + st);
+            }
           }
         }
       }
@@ -696,42 +1102,67 @@ __global__ void __launch_bounds__(kThreads)
   const int nslots = a.grid + a.lanes * per_lane;
   float* part_acc = a.part;
   float* part_ml = a.part + (size_t)nslots * a.hp * a.hdp;
-  using Consumer = typename std::conditional<kMma, MmaConsumer<T, DP>, SimtConsumer<HP>>::type;
-  Consumer cs;
-  int it = 0;
+  using Narrow = typename std::conditional<kMma, MmaConsumer<T, DP>, SimtConsumer<HP>>::type;
+  using Wide = typename std::conditional<kMma, SplitConsumer<T, DP>, SimtSplit<HP>>::type;
+  typename std::conditional<kWide, Wide, Narrow>::type cs;
+  int it = 0, ex = 0;
   for (int c = j; c < nchunks; c += a.grid) {
     int b, sub, ci, nsplit;
     locate(cpre, a.lanes, per_lane, c, b, sub, ci, nsplit);
     const int g = sub / a.npass, pass = sub - g * a.npass;
     const int p0 = ci * Kc;
-    const int np = min((nvis[b] + a.bs - 1) / a.bs, p0 + Kc) - p0;
+    const int np = min(units<kWide>(a, nvis[b]), p0 + Kc) - p0;
     const int first = c - ci;  // the pair's chunks are first .. first + nsplit - 1
     const int pair = b * per_lane + sub;
     const int h0 = g * rep + pass * a.hp;  // first query head of this pass
     const int nh = min(a.hp, rep - pass * a.hp);
     const T* q0 = qg + ((size_t)b * a.H + h0) * a.hd;
-    if constexpr (kMma) {
+    if constexpr (kWide && kMma) {
+      cs.start(a, q0 + (lane >> 2) * a.hd, (lane >> 2) < nh, lane & 3, warp * a.wc);
+    } else if constexpr (kWide) {
+      cs.start(a, q0, nh, lane, warp * a.wc);
+    } else if constexpr (kMma) {
       cs.start(a, q0 + (lane >> 2) * a.hd, (lane >> 2) < nh, lane & 3);
     } else {
       cs.start(a, q0, nh, lane & (a.T - 1));
     }
 
-    for (int pi = p0; pi < p0 + np; ++pi) {
-      const int rows = min(a.bs, nvis[b] - pi * a.bs);
-      for (int row0 = 0; row0 < rows; row0 += a.rows, ++it) {
+    if constexpr (kWide) {  // every warp reads every unit, its own slice of each stage
+      for (int u = p0; u < p0 + np; ++u, ++it) {
+        const int pi = u / a.upp, r0 = (u - pi * a.upp) * a.rows;
+        const int rv = min(min(a.rows, a.bs - r0), nvis[b] - pi * a.bs - r0);
         const int st = it % a.stages;
-        if (kMma && (it & (kConsumerWarps - 1)) != warp) continue;  // another warp's stage
         const uint32_t ph = (it / a.stages) & 1;
         mbar_wait(full + st, ph);
-        const int rv = min(a.rows, rows - row0);  // rows of this box that are visible
+        unsigned char* stage = sm + st * lay.stage;
         if constexpr (kMma) {
-          const uint32_t ks = smem_u32(sm + st * lay.stage);
-          cs.box(a, ks, ks + lay.box, rv, lane);
+          const uint32_t ks = smem_u32(stage + warp * lay.box);
+          cs.box(a, ks, ks + kSlices * lay.box, rv, lane, warp, reinterpret_cast<float4*>(xs),
+                 ex);
         } else {
-          const float* ks = reinterpret_cast<const float*>(sm + st * lay.stage);
-          cs.box(a, ks, ks + lay.box / 4, rv, tid);
+          const float* ks = reinterpret_cast<const float*>(stage + warp * lay.box);
+          cs.box(a, ks, ks + kSlices * lay.box / 4, rv, lane, warp, xs, ex);
         }
         release(empty + st);
+      }
+    } else {
+      for (int pi = p0; pi < p0 + np; ++pi) {
+        const int rows = min(a.bs, nvis[b] - pi * a.bs);
+        for (int row0 = 0; row0 < rows; row0 += a.rows, ++it) {
+          const int st = it % a.stages;
+          if (kMma && (it & (kConsumerWarps - 1)) != warp) continue;  // another warp's stage
+          const uint32_t ph = (it / a.stages) & 1;
+          mbar_wait(full + st, ph);
+          const int rv = min(a.rows, rows - row0);  // rows of this box that are visible
+          if constexpr (kMma) {
+            const uint32_t ks = smem_u32(sm + st * lay.stage);
+            cs.box(a, ks, ks + lay.box, rv, lane);
+          } else {
+            const float* ks = reinterpret_cast<const float*>(sm + st * lay.stage);
+            cs.box(a, ks, ks + lay.box / 4, rv, tid);
+          }
+          release(empty + st);
+        }
       }
     }
     cs.reduce(a, red_acc, red_ml, warp, lane, nh);
@@ -742,11 +1173,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int idx = tid; idx < nh * C; idx += kConsumers) {
       const int h = idx / C, ch = idx - h * C;
       float mm = neg_inf();
-      for (int w = 0; w < kConsumerWarps; ++w) mm = fmaxf(mm, red_ml[(w * a.hp + h) * 2]);
+      for (int w = 0; w < kSets; ++w) mm = fmaxf(mm, red_ml[(w * a.hp + h) * 2]);
       float ls = 0.f, av[V];
 #pragma unroll
       for (int i = 0; i < V; ++i) av[i] = 0.f;
-      for (int w = 0; w < kConsumerWarps; ++w) {
+      for (int w = 0; w < kSets; ++w) {
         const float wt = weight(red_ml[(w * a.hp + h) * 2], mm);
         if (wt == 0.f) continue;  // a warp that saw no slot of this chunk
         ls += red_ml[(w * a.hp + h) * 2 + 1] * wt;
@@ -838,6 +1269,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// the narrow mode: head dims and pages up to 256
+template <typename T, int HP, int DP, bool kTma>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_kernel(const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const Args a) {
+  decode<T, HP, DP, kTma, false>(tk, tv, a);
+}
+
+// the wide mode: head dims or pages past 256 (column split, units of boxes)
+// (one block an SM at least: ptxas then keeps every instantiation's
+// registers without spills)
+template <typename T, int HP, int DP, bool kTma>
+__global__ void __launch_bounds__(kThreads, 1)
+    paged_decode_wide_kernel(const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const Args a) {
+  decode<T, HP, DP, kTma, true>(tk, tv, a);
+}
+
 // ---------------------------------------------------------------------------
 // host
 // ---------------------------------------------------------------------------
@@ -850,11 +1299,11 @@ constexpr CUtensorMapDataType map_type() {
 }
 
 // a 4-D map over (hd, Hk, bs, nb) of a pool [nb, bs, Hk, hd], boxes of one
-// KV head's `rows` rows of one page, `pitch` >= hd columns wide (columns
-// past hd read as zeros)
+// KV head's `rows` rows of one page, `pitch` columns wide (columns past hd,
+// and rows past bs, read as zeros)
 template <typename T>
-int pool_map(CUtensorMap* map, const void* pool, int nb, int bs, int Hk, int hd, int rows,
-             int pitch) {
+static int pool_map(CUtensorMap* map, const void* pool, int nb, int bs, int Hk, int hd, int rows,
+                    int pitch) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kTmaError + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)Hk, (cuuint64_t)bs, (cuuint64_t)nb};
@@ -869,15 +1318,21 @@ int pool_map(CUtensorMap* map, const void* pool, int nb, int bs, int Hk, int hd,
   return r == CUDA_SUCCESS ? 0 : kTmaError + (int)r;
 }
 
-template <typename T, int HP, int DP, bool kTma>
-int launch(const void* pages_k, const void* pages_v, int nb, const Args& a, cudaStream_t stream) {
+template <typename T, int HP, int DP, bool kTma, bool kWide>
+static int launch(const void* pages_k, const void* pages_v, int nb, const Args& a,
+                  cudaStream_t stream) {
   CUtensorMap mk{}, mv{};  // no map where the rows are not 16-byte multiples: the warp copies
   if (kTma) {
     if (int e = pool_map<T>(&mk, pages_k, nb, a.bs, a.Hk, a.hd, a.rows, a.pitch)) return e;
     if (int e = pool_map<T>(&mv, pages_v, nb, a.bs, a.Hk, a.hd, a.rows, a.pitch)) return e;
   }
   const int smem = Layout(a, sizeof(T)).total + 128;
-  auto kernel = paged_decode_kernel<T, HP, DP, kTma>;
+  void (*kernel)(CUtensorMap, CUtensorMap, Args);
+  if constexpr (kWide) {
+    kernel = paged_decode_wide_kernel<T, HP, DP, kTma>;
+  } else {
+    kernel = paged_decode_kernel<T, HP, DP, kTma>;
+  }
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -887,40 +1342,75 @@ int launch(const void* pages_k, const void* pages_v, int nb, const Args& a, cuda
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kTma>
-int dispatch(const void* pk, const void* pv, int nb, const Args& a, cudaStream_t s) {
+// DP: the narrow mode's head dim, or the wide mode's slice, rounded up
+template <typename T, bool kTma, bool kWide>
+static int dispatch(const void* pk, const void* pv, int nb, const Args& a, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
     switch (a.hp) {
-      case 1: return launch<T, 1, 0, kTma>(pk, pv, nb, a, s);
-      case 2: return launch<T, 2, 0, kTma>(pk, pv, nb, a, s);
-      case 4: return launch<T, 4, 0, kTma>(pk, pv, nb, a, s);
-      case 8: return launch<T, 8, 0, kTma>(pk, pv, nb, a, s);
+      case 1: return launch<T, 1, 0, kTma, kWide>(pk, pv, nb, a, s);
+      case 2: return launch<T, 2, 0, kTma, kWide>(pk, pv, nb, a, s);
+      case 4: return launch<T, 4, 0, kTma, kWide>(pk, pv, nb, a, s);
+      case 8: return launch<T, 8, 0, kTma, kWide>(pk, pv, nb, a, s);
     }
   } else {
-    if (a.hd <= 64) return launch<T, 0, 64, kTma>(pk, pv, nb, a, s);
-    if (a.hd <= 128) return launch<T, 0, 128, kTma>(pk, pv, nb, a, s);
-    return launch<T, 0, 256, kTma>(pk, pv, nb, a, s);
+    const int cols = kWide ? a.wc : a.hd;
+    if (cols <= 64) return launch<T, 0, 64, kTma, kWide>(pk, pv, nb, a, s);
+    if (cols <= 128) return launch<T, 0, 128, kTma, kWide>(pk, pv, nb, a, s);
+    return launch<T, 0, 256, kTma, kWide>(pk, pv, nb, a, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int dispatch(const void* pk, const void* pv, int nb, const Args& a, cudaStream_t s) {
-  return a.tma ? dispatch<T, true>(pk, pv, nb, a, s) : dispatch<T, false>(pk, pv, nb, a, s);
+template <typename T, bool kWide>
+static int dispatch(const void* pk, const void* pv, int nb, const Args& a, cudaStream_t s) {
+  return a.tma ? dispatch<T, true, kWide>(pk, pv, nb, a, s)
+               : dispatch<T, false, kWide>(pk, pv, nb, a, s);
 }
 
-// rows of a box (the largest divisor of bs within kBoxBytes, so a box never
-// reaches past its page), its pitch and the stages of the ring; TMA only
-// where a pool row is a multiple of 16 bytes (its strides must be)
+// the mode of a call's dtype (0 f32, 1 bf16, 2 fp16); the build may compile
+// the two modes apart (ops/_build.py PARTS: -DKERNEL_PART=0 the interface and
+// the narrow kernels, 1 the wide ones)
+int dispatch_wide(const void* pk, const void* pv, int nb, const Args& a, int dtype,
+                  cudaStream_t s);
+
+#if !defined(KERNEL_PART) || KERNEL_PART == 1
+int dispatch_wide(const void* pk, const void* pv, int nb, const Args& a, int dtype,
+                  cudaStream_t s) {
+  if (dtype == 1) return dispatch<__nv_bfloat16, true>(pk, pv, nb, a, s);
+  if (dtype == 2) return dispatch<__half, true>(pk, pv, nb, a, s);
+  if (dtype == 0) return dispatch<float, true>(pk, pv, nb, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+#endif
+
+// narrow: rows of a box (the largest divisor of bs within kBoxBytes, so a
+// box never reaches past its page), its pitch and the stages of the ring;
+// TMA only where a pool row is a multiple of 16 bytes (its strides must
+// be). Wide: the slice, its pitch, boxes of whole 16-row groups (f32: 8)
+// within kBoxBytes a slice, at least one group and at most a page (a box
+// may reach past the page's end), ceil(bs / rows) units a page, and at
+// least two stages however large.
 inline void geometry(Args* a, int es) {
   a->hdp = (a->hd + 7) / 8 * 8;
   a->tma = a->hd * es % 16 == 0;
-  a->pitch = !a->tma ? a->hdp + 8 : a->hd + 8 <= 256 ? a->hd + 8 : a->hd;
-  const int most = kBoxBytes / (a->pitch * es) > 0 ? kBoxBytes / (a->pitch * es) : 1;
-  int r = 1;
-  for (int d = 1; d <= a->bs && d <= most; ++d)
-    if (a->bs % d == 0) r = d;
-  a->rows = r;
+  if (a->hd > kNarrow || a->bs > kNarrow) {
+    a->wc = ((a->hd + kSlices - 1) / kSlices + 7) / 8 * 8;
+    a->pitch = a->tma && a->wc + 8 > 256 ? a->wc : a->wc + 8;
+    const int group = es == 2 ? 16 : 8;
+    const int fit = kBoxBytes / (kSlices * a->pitch * es) / group * group;
+    a->rows = fit > group ? fit : group;
+    if (a->rows > a->bs) a->rows = a->bs;
+    a->upp = (a->bs + a->rows - 1) / a->rows;
+  } else {
+    a->wc = 0;
+    a->upp = 1;
+    a->pitch = !a->tma ? a->hdp + 8 : a->hd + 8 <= 256 ? a->hd + 8 : a->hd;
+    const int most = kBoxBytes / (a->pitch * es) > 0 ? kBoxBytes / (a->pitch * es) : 1;
+    int r = 1;
+    for (int d = 1; d <= a->bs && d <= most; ++d)
+      if (a->bs % d == 0) r = d;
+    a->rows = r;
+  }
   a->stages = 2;  // Layout's box does not depend on the stages
   const int s = kRingBytes / Layout(*a, es).stage;
   a->stages = s < 2 ? 2 : (s > kMaxStages ? kMaxStages : s);
@@ -928,6 +1418,7 @@ inline void geometry(Args* a, int es) {
 
 }  // namespace paged
 
+#if !defined(KERNEL_PART) || KERNEL_PART == 0
 // The interface version: kernel_ab tells this source from the earlier
 // two-kernel one (a decode kernel, then a merge kernel) by it.
 extern "C" int paged_attention_abi() { return 2; }
@@ -964,8 +1455,9 @@ extern "C" int paged_attention_smem(int lanes, int hd, int bs, int hp, int dtype
 // Hk / hp). part: f32 scratch of (grid + lanes * Hk * passes) * hp *
 // (round_up(hd, 8) + 2) floats; tickets: int32 [lanes * Hk * passes], zero
 // before the first call (each call leaves them zero). The caller has
-// checked shapes, dtypes and alignment: H % Hk == 0, hd <= 256, bs <= 256,
-// every pointer 16-byte aligned. Returns the cudaError_t of the launch, or 10000
+// checked shapes, dtypes and alignment: H % Hk == 0, hd <= 1024, any bs,
+// every pointer 16-byte aligned. Head dims or pages past 256 run the wide
+// mode. Returns the cudaError_t of the launch, or 10000
 // + the CUresult of a refused tensor map (0 on success).
 extern "C" int paged_decode_attention(const void* q, const void* pages_k, const void* pages_v,
                                       const void* block_table, const void* lengths, void* part,
@@ -985,8 +1477,10 @@ extern "C" int paged_decode_attention(const void* q, const void* pages_k, const 
   a.part = static_cast<float*>(part);
   a.tickets = static_cast<int*>(tickets);
   a.scale2 = scale * paged::kLog2e;
-  if (dtype == 1) return paged::dispatch<__nv_bfloat16>(pages_k, pages_v, nb, a, s);
-  if (dtype == 2) return paged::dispatch<__half>(pages_k, pages_v, nb, a, s);
-  if (dtype == 0) return paged::dispatch<float>(pages_k, pages_v, nb, a, s);
+  if (a.wc > 0) return paged::dispatch_wide(pages_k, pages_v, nb, a, dtype, s);
+  if (dtype == 1) return paged::dispatch<__nv_bfloat16, false>(pages_k, pages_v, nb, a, s);
+  if (dtype == 2) return paged::dispatch<__half, false>(pages_k, pages_v, nb, a, s);
+  if (dtype == 0) return paged::dispatch<float, false>(pages_k, pages_v, nb, a, s);
   return (int)cudaErrorInvalidValue;
 }
+#endif  // KERNEL_PART

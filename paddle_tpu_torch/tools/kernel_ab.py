@@ -6,7 +6,7 @@ Usage, from the root of a checkout on a machine with a card::
     python -m paddle_tpu_torch.tools.kernel_ab VARIANT.cu [VARIANT.cu ...]
     python -m paddle_tpu_torch.tools.kernel_ab --f32 VARIANT.cu [VARIANT.cu ...]
     python -m paddle_tpu_torch.tools.kernel_ab --quant [--no-check] VARIANT.cu [...]
-    python -m paddle_tpu_torch.tools.kernel_ab --paged VARIANT.cu [VARIANT.cu ...]
+    python -m paddle_tpu_torch.tools.kernel_ab --paged [--wide] VARIANT.cu [VARIANT.cu ...]
     python -m paddle_tpu_torch.tools.kernel_ab --stream [--no-check] VARIANT.cu [...]
 
 The ``--stream`` form takes copies of ``csrc/quant_matmul.cu`` for the
@@ -40,7 +40,9 @@ then timed at each case with chip_smoke.py's CUDA-graph timing. SDPA over
 the gathered window is timed at each case before and after the variants.
 ``VARIANT.cu@N`` runs a copy with N blocks an SM (the wrapper's
 ``BLOCKS_PER_SM``); ``--paged --no-check`` times copies that skip part of
-the work without the check.
+the work without the check; ``--paged --wide`` holds (against the plain
+version in f32) and times the kernel's wide mode at chip_smoke.py's
+WIDE_PAGED_CASES (head dims 320 to 1024, pages of 512 slots) instead.
 
 The ``--f32`` form takes copies of ``csrc/flash_attention.cu`` and holds
 each on flash's f32 route at chip_smoke.py phase 5's f32 case (B 1, S
@@ -457,9 +459,11 @@ def _legacy_paged(lib):
     return kern
 
 
-def run_paged_variant(lib: str, check: bool = True, per_sm: int = 0):
+def run_paged_variant(lib: str, check: bool = True, per_sm: int = 0, wide: bool = False):
     """Check (unless ``check`` is false) and time one paged_attention
-    library (in a child process), with ``per_sm`` blocks an SM if given."""
+    library (in a child process), with ``per_sm`` blocks an SM if given; with
+    ``wide`` at the wide mode's cases (chip_smoke.py's WIDE_PAGED_CASES, held
+    against the plain version in f32)."""
     import chip_smoke as cs
     import torch
 
@@ -467,7 +471,7 @@ def run_paged_variant(lib: str, check: bool = True, per_sm: int = 0):
     from paddle_tpu_torch.ops import paged_attention as pa
 
     if per_sm:
-        pa.BLOCKS_PER_SM = per_sm
+        pa.BLOCKS_PER_SM = pa.WIDE_BLOCKS_PER_SM = per_sm
     cdll = ctypes.CDLL(lib)
     if hasattr(cdll, "paged_attention_abi"):
         _build._loaded["paged_attention"] = cdll
@@ -477,27 +481,39 @@ def run_paged_variant(lib: str, check: bool = True, per_sm: int = 0):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     line = []
-    for label, lengths in cs.PAGED_TIMED:
-        q, pk, pv, table, ln = cs.attention_inputs(gen, lengths, 1)
+    for label, lengths, shape in _paged_cases(wide):
+        q, pk, pv, table, ln = cs.attention_inputs(gen, lengths, 1, **shape)
         same = torch.equal(kern(q[0], pk[0], pv[0], table, ln), kern(q[0], pk[0], pv[0], table, ln))
-        r = cs.time_paged(gen, label, lengths, kern, yardsticks=False, hold=check)
+        r = cs.time_paged(gen, label, lengths, kern, yardsticks=False, hold=check, shape=shape,
+                          hold_f32=wide)
         line.append(f"{label} {r['ms']:.5f} ms (err {r['max_abs_err']:.3g}, bit_identical {same}, "
                     f"bound {r['bound_ms']:.5f})")
     print(f"{Path(lib).name}: " + "; ".join(line), flush=True)
 
 
-def paged_sdpa_ms(gen) -> str:
-    """SDPA over the gathered window at each PAGED_TIMED case."""
+def _paged_cases(wide: bool) -> list:
+    """(label, lengths, attention_inputs shape) of the timed paged cases."""
     import chip_smoke as cs
 
-    return "; ".join(f"{label} {cs.time_paged(gen, label, lengths)['library_ms']:.5f}"
-                     for label, lengths in cs.PAGED_TIMED)
+    if wide:
+        return list(cs.WIDE_PAGED_CASES)
+    return [(label, lengths, {}) for label, lengths in cs.PAGED_TIMED]
+
+
+def paged_sdpa_ms(gen, wide: bool = False) -> str:
+    """SDPA over the gathered window at each timed case."""
+    import chip_smoke as cs
+
+    ms = [(label, cs.time_paged(gen, label, lengths, shape=shape, hold_f32=wide)["library_ms"])
+          for label, lengths, shape in _paged_cases(wide)]
+    return "; ".join(f"{label} {t:.5f}" for label, t in ms)
 
 
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     if argv[:1] == ["--run-paged"]:
-        run_paged_variant(argv[-2], check=argv[1] != "--no-check", per_sm=int(argv[-1]))
+        run_paged_variant(argv[-2], check="--no-check" not in argv, per_sm=int(argv[-1]),
+                          wide="--wide" in argv)
         return 0
     if argv[:1] == ["--run"]:
         run_variant(argv[1])
@@ -560,7 +576,8 @@ def main(argv) -> int:
         print("bf16 gemm decode step M8 ms", bf16_gemm_ms(gen), flush=True)
         return 0
     if argv[:1] == ["--paged"]:
-        flags = ["--no-check"] if argv[1:2] == ["--no-check"] else []
+        flags = [a for a in argv[1:3] if a in ("--no-check", "--wide")]
+        wide = "--wide" in flags
         variants = [(str(Path(a.split("@")[0]).resolve()), int(a.split("@")[1]) if "@" in a else 0)
                     for a in argv[1 + len(flags):]]
         sources = list(dict.fromkeys(src for src, _ in variants))
@@ -573,7 +590,7 @@ def main(argv) -> int:
             libs.update(build([src], d))
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
-        print("sdpa ms", paged_sdpa_ms(gen), flush=True)
+        print("sdpa ms", paged_sdpa_ms(gen, wide), flush=True)
         for a, (src, per_sm) in zip(argv[1 + len(flags):], variants):
             lib = libs.get(src)
             if lib is None:
@@ -585,7 +602,7 @@ def main(argv) -> int:
                                capture_output=True, text=True, cwd=str(ROOT))
             print(f"{a}: " + (r.stdout.strip() or f"exit {r.returncode}\n{r.stderr[-800:]}"),
                   flush=True)
-        print("sdpa ms", paged_sdpa_ms(gen), flush=True)
+        print("sdpa ms", paged_sdpa_ms(gen, wide), flush=True)
         return 0
     f32 = argv[:1] == ["--f32"]
     libs = build(argv[f32:], out_dir)

@@ -2,7 +2,7 @@
 
 Usage, from the root of a checkout on a machine with a card::
 
-    python -m paddle_tpu_torch.tools.paged_trace [--no-compute] [SOURCE.cu ...]
+    python -m paddle_tpu_torch.tools.paged_trace [--wide] [--no-compute] [SOURCE.cu ...]
 
 Each source (default: ``csrc/paged_attention.cu``) is copied with probes
 inserted: the consumer's first thread of every block writes ``clock64``
@@ -15,7 +15,8 @@ clock. The marks go to scratch past the partials (the wrapper's scratch is
 replaced by a larger one). ``--no-compute`` also drops the consumers' work
 on a box, so the copy shows what the loads alone take. The copy is built
 with the build's own flags and run at chip_smoke.py's PAGED_TIMED cases
-(8 calls each, the last one read); for each case it prints the median and
+(``--wide``: WIDE_PAGED_CASES, the kernel's wide mode) (8 calls each, the
+last one read); for each case it prints the median and
 the largest mark over the blocks, and the consumers' wait and time a box.
 """
 
@@ -32,9 +33,9 @@ MARKS = ("schedule (lengths, Kc)", "first TMA issued (producer)", "first box lan
          "last box done", "flush done", "ticket", "merge done")
 
 
-def _sub(src: str, pattern: str, repl: str, count: int = 1) -> str:
+def _sub(src: str, pattern: str, repl: str, count=(1,)) -> str:
     out, n = re.subn(pattern, repl, src)
-    if n != count:
+    if n not in count:
         raise ValueError(f"paged_trace: anchor {pattern!r} found {n} times, not {count}")
     return out
 
@@ -61,13 +62,13 @@ __device__ __forceinline__ unsigned long long gtime() {
                "if (j >= nchunks) { if (tid == 0) tr[9] = gtime(); return; }")
     src = _sub(src, r"(tma_load\(dst \+ lay\.box, &tv, full \+ st, 0, g, row0, pk\);\n)",
                r"\1              if (it == 0) tr[2] = clock64() - c0;\n")
-    src = _sub(src, r"  int it = 0;\n  for \(int c = j; c < nchunks; c \+= a\.grid\) \{\n    int b, sub, ci, nsplit;",
-               "  int it = 0;\n  long long waited = 0, boxes = 0;\n"
-               "  for (int c = j; c < nchunks; c += a.grid) {\n    int b, sub, ci, nsplit;")
-    src = _sub(src, r"(\n        )(mbar_wait\(full \+ st, ph\);\n)",
+    src = _sub(src, r"(  int it = 0(?:, ex = 0)?;\n)(  for \(int c = j; c < nchunks; c \+= a\.grid\) "
+               r"\{\n    int b, sub, ci, nsplit;)", r"\1  long long waited = 0, boxes = 0;\n\2")
+    src = _sub(src, r"(\n +)(mbar_wait\(full \+ st, ph\);\n)",
                r"\1const long long w0 = clock64();\1\2"
                r"        waited += clock64() - w0;\n"
-               r"        if (tid == 0 && boxes++ == 0) tr[3] = clock64() - c0;\n")
+               r"        if (tid == 0 && boxes++ == 0) tr[3] = clock64() - c0;\n",
+               count=(1, 2))  # the narrow and the wide mode's consumer loops
     src = _sub(src, r"(\n    )(cs\.reduce\(|// the slot groups of a warp, merged by shuffles)",
                r"\1if (tid == 0) { tr[4] = clock64() - c0; tr[11] = waited; tr[12] = boxes; }\1\2")
     src = _sub(src, r"(    consumers_sync\(\);\n)(    if \(nsplit == 1\) continue;)",
@@ -83,7 +84,7 @@ __device__ __forceinline__ unsigned long long gtime() {
     return src
 
 
-def run(lib: str):
+def run(lib: str, wide: bool = False):
     """Trace one instrumented library (in a child process)."""
     import chip_smoke as cs
     import torch
@@ -94,11 +95,12 @@ def run(lib: str):
     _build._loaded["paged_attention"] = ctypes.CDLL(lib)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    for label, lengths in cs.PAGED_TIMED:
-        q, pk, pv, table, ln = cs.attention_inputs(gen, lengths)
+    cases = cs.WIDE_PAGED_CASES if wide else [(label, ln, {}) for label, ln in cs.PAGED_TIMED]
+    for label, lengths, shape in cases:
+        q, pk, pv, table, ln = cs.attention_inputs(gen, lengths, **shape)
         layers, lanes, H, hd = q.shape
         Hk = pk.shape[3]
-        grid = pa.grid_size(lanes, H, Hk, table.shape[1], pa._sm_count(q.device))
+        grid = pa._grid_for(q[0], pk[0], table)
         pairs = lanes * Hk * -(-(H // Hk) // pa.heads_per_pass(H, Hk))
         n = (grid + pairs) * 8 * (hd + 2)
         part = torch.zeros(n + grid * 32, dtype=torch.float32, device="cuda")
@@ -130,15 +132,16 @@ def run(lib: str):
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     if argv[:1] == ["--run"]:
-        run(argv[1])
+        run(argv[-1], wide="--wide" in argv)
         return 0
     import chip_smoke as cs
 
     from paddle_tpu_torch.ops import _build
 
     print(cs.nvidia_smi(), flush=True)
-    no_compute = argv[:1] == ["--no-compute"]
-    sources = argv[no_compute:] or [str(_build.CSRC / "paged_attention.cu")]
+    flags = [a for a in argv[:2] if a in ("--wide", "--no-compute")]
+    no_compute = "--no-compute" in flags
+    sources = argv[len(flags):] or [str(_build.CSRC / "paged_attention.cu")]
     out = _build.BUILD_DIR / "trace"
     out.mkdir(parents=True, exist_ok=True)
     for i, src in enumerate(sources):
@@ -149,7 +152,8 @@ def main(argv) -> int:
                         str(lib), str(copy)], check=True, capture_output=True)
         print(f"== {src}{' (no compute)' if no_compute else ''}", flush=True)
         r = subprocess.run(["timeout", "-k", "5", "150", sys.executable, "-m",
-                            "paddle_tpu_torch.tools.paged_trace", "--run", str(lib)],
+                            "paddle_tpu_torch.tools.paged_trace", "--run",
+                            *[f for f in flags if f == "--wide"], str(lib)],
                            capture_output=True, text=True, cwd=str(ROOT))
         print(r.stdout.strip() or f"exit {r.returncode}\n{r.stderr[-800:]}", flush=True)
     return 0

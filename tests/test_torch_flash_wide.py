@@ -3,27 +3,33 @@
 The reference's gate sends any head_dim that is a multiple of 8 to its
 bundled flash kernel (``paddle_tpu/ops/pallas/flash_attention.py:91``), and
 its composed paged path serves any head dim and page size. The port's
-paged tensor-core kernel stops at 256 columns (tiles, TMA boxes); past
-that the flash op takes its ``wide`` route (``csrc/flash_attention.cu``'s
-wide kernels: the output in chunks of :func:`fa.chunk_plan`) and paged
-attention its wide kernel (``csrc/attention_wide.cu``). On the CPU every route runs the plain
-version, so these tests hold what the card's wide kernels are held to
-(tests/test_torch_kernels_cuda.py and chip_smoke.py hold the kernels
-against these plain versions):
+flash kernels' tiles stop at 256 columns; past that the flash op takes its
+``wide`` route (``csrc/flash_attention.cu``'s wide kernels: the output in
+chunks of :func:`fa.chunk_plan`), and paged attention its kernel's wide mode
+(``csrc/paged_attention.cu``: four column slices whose partial scores are
+added in warp order, units of boxes of rows of a page). On the CPU every
+route runs the plain version, so these tests hold what the card's wide
+kernels are held to (tests/test_torch_kernels_cuda.py and chip_smoke.py
+hold the kernels against these plain versions), and the paged kernel's
+arithmetic through its CPU emulation (``paged_decode_attention_split``):
 
 - the flash op at head dims 320 and 512, causal or not, ``sq != sk``, GQA,
   forward and gradients, and through ``nn.functional.flash_attention``'s
   gate, against the reference's composed ``_sdpa_ref`` with ``jax.grad``;
-- paged decode attention at head dims 320 and 512 and at pages of 512
-  slots against the reference's composed path (``gather_lane_window`` +
+- paged decode attention at head dims 320, 512, 520 and 1024 and at pages
+  of 300 and 512 slots, the plain version and the wide mode's emulation,
+  against the reference's composed path (``gather_lane_window`` +
   ``masked_attend``), in f32 and fp16;
-- the routes: the router's ``wide`` past 256 and ``takes`` for paged;
+- the routes: the router's ``wide`` past 256 and paged attention's ``mode``;
 - the wide route's chunk plan at every head dim it takes.
 
 Tolerances: f32 sums in another order over up to 512 columns and 96 keys
 of order-1 terms: 5e-5 on outputs and 2e-4 on gradients (the scores grow
 with the head dim); fp16 paged as tests/test_torch_paged_attention.py
-holds it (4e-3).
+holds it (4e-3: a rounding step of the output and of a probability apart),
+the wide mode's emulation too (it keeps f32 scores and probabilities where
+the reference rounds them to fp16; outputs stay below 4 here, where an fp16
+step is 2^-9 at most).
 """
 
 import jax
@@ -111,8 +117,14 @@ def _paged_case(np_dtype, hd, bs, lengths, seed, H=4, Hk=2, MB=3):
 @pytest.mark.parametrize("np_dtype,hd,bs", [
     (np.float32, 320, 16), (np.float32, 512, 8), (np.float16, 320, 16),
     (np.float32, 64, 512), (np.float16, 128, 512), (np.float32, 520, 300),
+    (np.float16, 512, 16), (np.float16, 520, 8), (np.float32, 1024, 16),
+    (np.float16, 1024, 8), (np.float32, 128, 300), (np.float16, 64, 300),
+    (np.float16, 320, 512), (np.float32, 256, 512),
 ])
 def test_paged_past_256_matches_the_composed_reference(np_dtype, hd, bs):
+    """The plain version (the wrapper on CPU tensors) and the wide mode's
+    emulation at three grids against the reference's composed path; the
+    mode is ``wide`` for every shape here."""
     cap = 3 * bs
     q, pk, pv, table, ln = _paged_case(np_dtype, hd, bs, [0, 7, cap // 2, cap - 1], hd + bs)
     kc = ref_pa.gather_lane_window(jnp.asarray(pk), jnp.asarray(table))
@@ -120,12 +132,15 @@ def test_paged_past_256_matches_the_composed_reference(np_dtype, hd, bs):
     vis = jnp.arange(cap)[None, :] <= jnp.asarray(ln)[:, None]
     want = np.asarray(masked_attend(jnp.asarray(q), kc, vc, vis).astype(jnp.float32))
     args = [torch.from_numpy(a) for a in (q, pk, pv, table, ln)]
-    for fn in (pa.paged_decode_attention, pa.paged_decode_attention_wide):
-        got = fn(*args)
+    got = pa.paged_decode_attention(*args)
+    assert got.dtype == args[0].dtype
+    tol = PAGED_TOL[np_dtype]
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    for grid in (264, 37, 1):
+        got = pa.paged_decode_attention_split(*args, grid)
         assert got.dtype == args[0].dtype
-        tol = PAGED_TOL[np_dtype]
         np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
-    assert pa.takes(hd, bs) == (hd <= 256 and bs <= 256)
+    assert pa.mode(hd, bs) == "wide"
 
 
 def test_chunk_plan_covers_the_padded_head_dim():

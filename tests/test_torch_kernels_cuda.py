@@ -6,10 +6,11 @@ Run them on the card with::
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
 They cover shapes chip_smoke.py does not: paged attention at other page
-sizes (5 to 256 slots), head dims (8 to 256) and GQA ratios (1 to 12
-heads a KV head), in bf16, fp16 and f32, with every hidden slot holding
-NaN or Inf, its determinism, a captured CUDA graph replayed after the
-lengths and the block table change, and one kernel a call; ragged M and
+sizes (5 to 512 slots, 300 among them), head dims (6 to 1024, the wide
+mode past 256) and GQA ratios (1 to 12 heads a KV head), in bf16, fp16
+and f32, with every hidden slot holding NaN or Inf, its determinism, a
+captured CUDA graph replayed after the lengths and the block table
+change, and one kernel a call; ragged M and
 odd K/N for the GEMM, flash
 attention at GQA ratios 1/4/8, head_dim 64 and 128, S below, at and just
 past its 64- and 128-row tiles and ragged, causal or not, B 2, q/k/v as
@@ -1021,30 +1022,96 @@ def test_flash_wide_route_matches_plain(dev, B, sq, sk, H, Hk, D, causal, dtype)
 @pytest.mark.parametrize("H,Hk,hd,bs,MB,dtype", [
     (8, 2, 320, 16, 6, torch.bfloat16), (4, 4, 512, 8, 5, torch.float32),
     (8, 2, 128, 512, 2, torch.float16), (6, 2, 1024, 16, 3, torch.bfloat16),
+    (8, 2, 320, 16, 6, torch.float16), (8, 2, 320, 16, 6, torch.float32),
+    (8, 2, 512, 16, 5, torch.bfloat16), (8, 2, 512, 8, 5, torch.float16),
+    (4, 1, 520, 16, 4, torch.bfloat16), (4, 1, 520, 16, 4, torch.float16),
+    (4, 1, 520, 16, 4, torch.float32), (6, 2, 1024, 16, 3, torch.float16),
+    (4, 2, 1024, 8, 3, torch.float32),
+    (8, 2, 128, 300, 3, torch.bfloat16), (8, 2, 64, 300, 3, torch.float32),
+    (8, 2, 128, 512, 2, torch.bfloat16), (8, 4, 256, 512, 2, torch.float32),
+    (4, 4, 8, 512, 2, torch.bfloat16),               # slices 1-3 wholly past the head dim
+    (24, 2, 320, 16, 5, torch.bfloat16),             # 12 heads a KV head: two passes
+    # rows that are no multiple of 16 bytes: no tensor map, the warp copies
+    (8, 2, 300, 16, 6, torch.bfloat16), (6, 2, 7, 300, 3, torch.float16),
+    (8, 2, 6, 300, 3, torch.float32),
 ])
 def test_paged_attention_wide_matches_plain(dev, H, Hk, hd, bs, MB, dtype):
-    """Head dims or pages past 256: the wide kernel, one launch counted in
-    its own wrapper, every hidden slot NaN or Inf; capturable, its replay
-    after lengths change matching the plain version."""
+    """Head dims or pages past 256: the kernel's wide mode, one launch a
+    call counted under ``wide``, every hidden slot NaN or Inf, two calls bit
+    for bit, held against the plain version evaluated in f32 on the same
+    inputs (the kernel keeps f32 scores and sums and rounds its
+    probabilities once, where the plain version in bf16 also rounds its
+    normalised probabilities: two roundings of an output in [4, 8) can sit
+    a bf16 step, 0.03125, apart); captured in a graph and replayed after
+    lengths and the block table change in place."""
+    assert pa.mode(hd, bs) == "wide"
     cap = MB * bs
     lengths = [0, 1, bs, cap // 2 + 3, cap - 1]
     q, pk, pv, table, ln, pk_bad, pv_bad = _attention_case(dev, lengths, H, Hk, hd, bs, MB,
                                                            dtype, seed=hd + bs)
-    w0, t0 = pa.paged_decode_attention_wide.launches, pa.paged_decode_attention.launches
+    n0, w0 = pa.paged_decode_attention.launches, pa.paged_decode_attention.by_route["wide"]
     got = pa.paged_decode_attention(q, pk_bad, pv_bad, table, ln)
+    again = pa.paged_decode_attention(q, pk_bad, pv_bad, table, ln)
     torch.cuda.synchronize()
-    assert (pa.paged_decode_attention_wide.launches, pa.paged_decode_attention.launches) == \
-        (w0 + 1, t0)
-    want = pa.paged_decode_attention_ref(q, pk, pv, table, ln)
-    assert (got.float() - want.float()).abs().max().item() <= ATTN_ATOL[dtype]
+    assert pa.paged_decode_attention.launches == n0 + 2
+    assert pa.paged_decode_attention.by_route["wide"] == w0 + 2
+    assert torch.equal(got, again)
+    want = pa.paged_decode_attention_ref(q.float(), pk.float(), pv.float(), table, ln)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want).abs().max().item()
+    assert err <= ATTN_ATOL[dtype], err
+
+    # a graph over pools every lane sees whole, replayed after the lengths
+    # shrink and the table's rows rotate (each lane then sees another lane's
+    # pages: every slot it sees holds values)
+    q, pk, pv, table, ln, _, _ = _attention_case(dev, [cap - 1] * 5, H, Hk, hd, bs, MB, dtype,
+                                                 seed=hd + bs + 1)
+    pa.paged_decode_attention(q, pk, pv, table, ln)
+    torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = pa.paged_decode_attention(q, pk, pv, table, ln)
-    # shorter lengths: each lane still sees only slots the pools hold values in
     ln.copy_(torch.tensor([0, 1, bs - 1, 7, cap // 2], dtype=torch.int32, device=dev))
+    table.copy_(table.roll(1, 0))
     graph.replay()
-    want = pa.paged_decode_attention_ref(q, pk, pv, table, ln)
-    assert (out.float() - want.float()).abs().max().item() <= ATTN_ATOL[dtype]
+    want = pa.paged_decode_attention_ref(q.float(), pk.float(), pv.float(), table, ln)
+    assert (out.float() - want).abs().max().item() <= ATTN_ATOL[dtype]
+
+
+def test_paged_attention_wide_is_one_kernel(dev):
+    """A profiler trace of five calls (head dims past 256 through TMA and
+    through copies, pages past 256 slots, f32) shows five
+    ``paged_decode_wide_kernel`` launches: one a call. The trace runs in a
+    process of its own, as the weight stream's test takes it (after some
+    of this file's tests this process's profiler records no kernel)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import sys, torch; sys.path.insert(0, sys.argv[1]); "
+            "from torch.profiler import ProfilerActivity, profile; "
+            "from paddle_tpu_torch.ops import paged_attention as pa\n"
+            "calls = []\n"
+            "for H, Hk, hd, bs, dt in ((8, 2, 320, 16, torch.bfloat16), "
+            "(4, 2, 1024, 16, torch.float32), (8, 2, 128, 512, torch.float16), "
+            "(8, 2, 300, 16, torch.bfloat16), (6, 2, 7, 300, torch.float16)):\n"
+            "    q = torch.randn((3, H, hd), device='cuda').to(dt)\n"
+            "    pk = torch.randn((7, bs, Hk, hd), device='cuda').to(dt)\n"
+            "    table = torch.arange(1, 7, device='cuda', dtype=torch.int32).reshape(3, 2)\n"
+            "    ln = torch.tensor([0, bs, 2 * bs - 1], device='cuda', dtype=torch.int32)\n"
+            "    calls.append((q, pk, table, ln)); pa.paged_decode_attention(q, pk, pk, table, ln)\n"
+            "torch.cuda.synchronize()\n"
+            "with profile(activities=[ProfilerActivity.CUDA]) as prof:\n"
+            "    for q, pk, table, ln in calls:\n"
+            "        pa.paged_decode_attention(q, pk, pk, table, ln); torch.cuda.synchronize()\n"
+            "import json; print(json.dumps([e.name for e in prof.events() "
+            "if e.device_type == torch.autograd.DeviceType.CUDA]))")
+    root = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", code, root], capture_output=True, text=True,
+                         timeout=300)
+    ran = json.loads(out.stdout.strip().splitlines()[-1]) if out.stdout.strip() else out.stderr
+    assert len(ran) == 5 and all("paged_decode_wide_kernel" in n for n in ran), ran
 
 
 def _tiny_engine_model(dev, dtype=torch.bfloat16):

@@ -165,13 +165,44 @@ def test_card_checks_take_what_the_reference_serves(dtype, hd):
     """bf16, fp16 and f32 at any head_dim up to 1024: the reference's
     composed path serves them all, so the card takes them too (a head_dim
     whose rows TMA cannot map, such as 20, 100 or 6, through the kernel's
-    copying producer; past 256 through the wide kernel)."""
+    copying producer; past 256 in the kernel's wide mode)."""
     q = torch.zeros((2, 8, hd), dtype=dtype)
     pages = torch.zeros((3, 16, 2, hd), dtype=dtype)
     port_ops._check(q, pages, pages, torch.zeros((2, 2), dtype=torch.int32),
                     torch.zeros((2,), dtype=torch.int32))
-    assert port_ops.takes(hd, 16) == (hd <= 256)
-    assert not port_ops.takes(64, 512)
+    assert port_ops.mode(hd, 16) == ("narrow" if hd <= 256 else "wide")
+    assert port_ops.mode(64, 512) == "wide"
+
+
+@pytest.mark.parametrize("hd,bs,want", [
+    (128, 16, "narrow"), (256, 256, "narrow"), (6, 1, "narrow"), (257, 16, "wide"),
+    (1024, 8, "wide"), (128, 257, "wide"), (128, 300, "wide"), (8, 512, "wide"),
+    (520, 512, "wide"),
+])
+def test_mode_of_each_shape(hd, bs, want):
+    """The wrapper's routing: head dims and pages up to 256 take the narrow
+    mode, past either the wide one (both one launch of
+    ``csrc/paged_attention.cu``, counted in ``by_route``)."""
+    assert port_ops.mode(hd, bs) == want
+    assert set(port_ops.paged_decode_attention.by_route) == set(port_ops.MODES)
+
+
+# (hd, bs, element size) -> (slice columns, box rows): the card's geometry
+@pytest.mark.parametrize("hd,bs,es,want", [
+    (320, 16, 2, (80, 16)), (512, 16, 2, (128, 16)), (520, 16, 2, (136, 16)),
+    (1024, 16, 2, (256, 16)), (1024, 8, 2, (256, 8)), (128, 512, 2, (32, 16)),
+    (64, 512, 2, (16, 32)), (128, 300, 2, (32, 16)), (300, 16, 2, (80, 16)),
+    (8, 512, 2, (8, 64)), (1024, 16, 4, (256, 8)), (128, 512, 4, (32, 8)),
+    (6, 300, 4, (8, 32)),
+])
+def test_wide_geometry(hd, bs, es, want):
+    """Each of the four slices is a multiple of 8 columns and together they
+    cover the head dim; a box's width stays within TMA's 256; a box is whole
+    16-row groups (f32: 8) unless the page is shorter."""
+    wc, rows = port_ops.wide_geometry(hd, bs, es)
+    assert (wc, rows) == want
+    assert wc % 8 == 0 and port_ops.SLICES * wc >= hd and wc - 8 < -(-hd // port_ops.SLICES)
+    assert rows == bs or rows % (16 if es == 2 else 8) == 0
 
 
 def _composed_reference(q, pk, pv, table, ln):
@@ -237,7 +268,7 @@ def test_every_visible_page_falls_to_exactly_one_block(lengths, H, Hk, grid):
     passes = -(-(H // Hk) // port_ops.heads_per_pass(H, Hk))
     seen = {}
     for s in segs:
-        for page in range(*s["pages"]):
+        for page in range(*s["units"]):
             key = (s["lane"], s["kv_head"], s["pass"], page)
             seen[key] = seen.get(key, 0) + 1
     want = {(b, g, c, page) for b, n in enumerate(lengths) for g in range(Hk)
@@ -247,7 +278,7 @@ def test_every_visible_page_falls_to_exactly_one_block(lengths, H, Hk, grid):
     blocks = [s["block"] for s in segs]
     if pairs <= grid:
         assert len(segs) <= grid and len(set(blocks)) == len(blocks)
-    kc = max(s["pages"][1] - s["pages"][0] for s in segs)
+    kc = max(s["units"][1] - s["units"][0] for s in segs)
     npages = [-(-(n + 1) // bs) for n in lengths]
     assert kc == max(npages) or sum(-(-p // (kc - 1)) for p in npages) * Hk * passes > grid
     for s in segs:
@@ -281,3 +312,76 @@ def test_grid_depends_on_shapes_only():
     assert port_ops.grid_size(8, 32, 8, 64, 132) == 264       # Llama-3-8B serving shape
     assert port_ops.grid_size(1, 4, 4, 2, 132) == 8           # one block a possible page
     assert port_ops.grid_size(2, 24, 2, 3, 132) == 24         # two passes a KV head
+    assert port_ops.grid_size(8, 16, 4, 64, 132, hd=320) == 132      # past 256 columns: one an SM
+    assert port_ops.grid_size(8, 32, 8, 64, 132, hd=256) == 264
+    assert port_ops.grid_size(1, 4, 4, 2, 132, hd=1024) == 8
+
+
+# (lengths, bs, rows): pages past 256 slots cut into boxes of `rows` rows,
+# the last box of a page reaching past its end where rows does not divide bs
+UNIT_CASES = [([0, 300, 511, 1023, 17, 700, 1000, 5], 512, 16),
+              ([0, 299, 300, 899, 5], 300, 16),
+              ([256, 1, 770], 257, 16),
+              ([1023] * 4, 512, 32)]
+
+
+@pytest.mark.parametrize("lengths,bs,rows", UNIT_CASES)
+@pytest.mark.parametrize("grid", [264, 37])
+def test_every_visible_slot_falls_to_exactly_one_unit(lengths, bs, rows, grid):
+    """The wide mode's schedule: units are boxes of rows of a page; every
+    visible (lane, KV head, slot) lies in exactly one unit of exactly one
+    chunk, and no chunk holds more than Kc units."""
+    H, Hk, mb = 8, 2, -(-1024 // bs)
+    segs = port_ops.split_schedule(lengths, bs, mb, H, Hk, grid, rows)
+    upp = -(-bs // rows)
+    seen = {}
+    for s in segs:
+        for u in range(*s["units"]):
+            page, r0 = divmod(u, upp)
+            for r in range(r0 * rows, min((r0 + 1) * rows, bs)):
+                key = (s["lane"], s["kv_head"], page * bs + r)
+                seen[key] = seen.get(key, 0) + 1
+    nvis = [min(n, mb * bs - 1) + 1 for n in lengths]
+    visible = {(b, g, slot) for b, n in enumerate(nvis) for g in range(Hk) for slot in range(n)}
+    assert visible <= set(seen) and {seen[k] for k in visible} == {1}
+    # the units reach no further than the last visible slot's box
+    assert all(slot < -(-nvis[b] // rows) * rows + bs for b, _, slot in seen)
+    if len(lengths) * Hk <= grid:
+        assert len({s["block"] for s in segs}) == len(segs) <= grid
+
+
+@pytest.mark.parametrize("np_dtype,hd,bs,H,Hk", [
+    (np.float32, 320, 16, 8, 2), (np.float16, 320, 16, 8, 2),
+    (np.float32, 512, 16, 8, 2), (np.float16, 512, 8, 8, 2),
+    (np.float32, 520, 16, 4, 1), (np.float16, 520, 16, 4, 1),
+    (np.float32, 1024, 8, 4, 2), (np.float16, 1024, 16, 4, 2),
+    (np.float32, 128, 300, 8, 2), (np.float16, 128, 300, 8, 2),
+    (np.float32, 128, 512, 8, 2), (np.float16, 64, 512, 8, 2),
+    (np.float16, 300, 16, 8, 2), (np.float32, 320, 16, 24, 2),
+])
+def test_wide_emulation_matches_the_composed_reference(np_dtype, hd, bs, H, Hk):
+    """The wide mode's arithmetic on the CPU (four column slices' partial
+    scores added in warp order, units of boxes of rows of a page, chunks
+    merged in split order) against the reference's composed path at ragged,
+    one-slot and full lengths and at three grids; fp16 as the plain
+    version's parity holds it (4e-3), f32 at 1e-5 (sums of up to 1024
+    order-1 products in another order: 1e-5 holds with a decade to spare
+    at these sizes)."""
+    mb = 3
+    cap = mb * bs
+    lengths = [0, 1, bs - 1, cap // 2, cap - 1]
+    rng = np.random.RandomState(hd + bs + H)
+    lanes, nb = len(lengths), 1 + len(lengths) * mb
+    pk = rng.randn(nb, bs, Hk, hd).astype(np_dtype)
+    pv = rng.randn(nb, bs, Hk, hd).astype(np_dtype)
+    table = rng.permutation(np.arange(1, nb))[:lanes * mb].reshape(lanes, mb).astype(np.int32)
+    table[0] = 0                                    # an inactive lane on trash block 0
+    ln = np.asarray(lengths, np.int32)
+    q = rng.randn(lanes, H, hd).astype(np_dtype)
+    want = _composed_reference(q, pk, pv, table, ln)
+    args = [torch.from_numpy(x) for x in (q, pk, pv, table, ln)]
+    tol = PARITY_TOL[np_dtype]
+    for grid in (264, 37, 1):
+        got = port_ops.paged_decode_attention_split(*args, grid)
+        assert got.dtype == args[0].dtype
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
