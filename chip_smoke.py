@@ -22,8 +22,9 @@ Phases, each printing one line of numbers:
    shapes in bf16, with the stated tolerance, and timed (CUDA events,
    after warm-up, cycling through enough buffers to defeat the 50 MB L2)
    beside its bound, the plain version and one PyTorch library call; the
-   int8 weight stream at M = 1, 8, 16 and 64 a shape, with the decode
-   step's sum (225 calls) at each M, and a second yardstick, the bf16
+   int8 weight stream at M = 1, 8, 16, 40 (the speculative verify's rows)
+   and 64 a shape, with the decode step's sum (225 calls, as one verify
+   call's at M = 40) at each M, and a second yardstick, the bf16
    engine's own call (``torch.matmul`` on weights dequantized before the
    timing, twice the bytes), then with f32 activations at M = 8. Paged attention
    is timed at three length mixes (PAGED_TIMED: ragged, full, skewed) and
@@ -159,7 +160,44 @@ Phases, each printing one line of numbers:
    finite losses, exact launch counts (flash forward and backward once per
    layer per step, all on the f32 route; RMSNorm 2 L + 1 each way), step
    time, tokens/s, peak memory, and one profiled step's busy share and
-   device ms by kind.
+   device ms by kind;
+15. the prefix cache at Llama-3-8B width (32 layers, bf16, random weights
+   from the seed; 8 lanes, pages of 16 slots, 1024 slots a lane, chunks of
+   16): first the paged kernel over the prefix cache's tables (every lane's
+   first 32 pages shared, one lane holding a fork of the last) held
+   against its plain version, twice bit for bit, timed beside a bound
+   that reads each shared row once, the plain version and SDPA; then a
+   trace of 16 requests, 13 opening with one shared 512-token system
+   prompt (12 with a private tail of 16-128 tokens, one with none: a COW
+   fork), 32 tokens each, submitted at once to a cold engine and to a
+   ``prefix_cache=True`` engine: hits, hit fraction, forks, the peak of
+   shared blocks, TTFT p50 of each, and (printed, not held) how many
+   requests equal the cold engine's; one decode and one prefill capture;
+   a traced window of 8 hits (one a fork) where the device must run paged
+   attention once a layer in each decode call. Then the trace in waves of
+   8 whose prefill ends in one step (so both engines decode the same
+   batches: the kernel's split schedule depends on every lane's length),
+   greedy tokens bit for bit equal to the cold engine's; three system
+   prompts in rotation, one request at a time, in a pool of 96 usable
+   blocks with a host tier of 96 blocks (evictions to the host and
+   restores) and without one (drops), each bit for bit equal to the cold
+   engine; the waves with int8 weights against the int8 cold engine;
+16. speculative decoding: the target of phase 15 and a draft at Meta's
+   Llama-3.2-1B widths (16 layers, hidden 2048, tied embeddings, random
+   weights from seed 1, its rope_scaling left out), ``DraftConfig(k=4)``,
+   8 lanes, 8 requests of 16-256 prompt tokens, 32 tokens each: the graphed
+   engine (one capture each of draft decode, verify and prefill; each
+   program's calls and device span, tokens/s, the accept rate) against
+   the eager one, greedy tokens identical; one round's 5 verify logits a
+   lane against the decode step's fed the same tokens, within
+   SPEC_LOGITS_TOL_FRAC; greedy agreement with the non-speculative engine
+   printed per request (not held: the verify's products run at M = 40,
+   decode's at M = 8); the trace with every other request sampled, served
+   twice bit for bit; an int8 target, graphed against eager, whose traced
+   window runs the weight stream exactly 225 times a verify call and no
+   other int8 kernel; and the f32 self-draft control (draft = target, 2
+   layers of full width, TF32 off): tokens equal to the non-speculative
+   f32 engine's at an accept rate of at least 0.95.
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -175,7 +213,9 @@ phase 5's check at that shape, its padded route from phase 5's calls
 through ``nn.functional.flash_attention``; the fp16 weight stream from
 the fp16 int8 engine, the fp16 tensor-core kernel and the wide kernels
 from phase 2's calls, RMSNorm's ``round_first`` mode from the three timed
-training steps), and last ``{"ok": true,
+training steps; paged attention over the prefix cache's tables from phase
+15's traced window, the weight stream at the verify's M = 40 from phase
+16's), and last ``{"ok": true,
 "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
@@ -628,17 +668,36 @@ def check_paged_cases(gen):
         grid=pa.grid_size(8, 32, 8, 64, torch.cuda.get_device_properties(0).multi_processor_count))
 
 
-def paged_bound(lengths, lanes, H, Hk, hd, bs, MB, es=2):
+def paged_bound(lengths, lanes, H, Hk, hd, bs, MB, es=2, kv_rows=None):
     """(bytes, FLOPs) one call must move and do: q and out once, each
-    visible K and V row once, the visible table entries and the lengths."""
+    visible K and V row once (``kv_rows``: the distinct visible rows where
+    lanes share pages), the visible table entries and the lengths."""
     n_vis = [min(n + 1, MB * bs) for n in lengths]
-    nbytes = (lanes * H * hd * es * 2 + sum(n_vis) * Hk * hd * es * 2
+    rows = sum(n_vis) if kv_rows is None else kv_rows
+    nbytes = (lanes * H * hd * es * 2 + rows * Hk * hd * es * 2
               + sum(-(-n // bs) for n in n_vis) * 4 + lanes * 4)
     return nbytes, sum(n_vis) * H * hd * 4
 
 
+def alias_pages(table, shared: int):
+    """Make ``table`` the prefix cache's, in place: every lane's first
+    ``shared`` entries lane 0's pages, lane 1's last shared entry its own
+    page (a COW fork)."""
+    own = int(table[1, shared - 1])
+    table[1:, :shared] = table[0, :shared]
+    table[1, shared - 1] = own
+
+
+def distinct_rows(table, lengths, bs: int) -> int:
+    """The distinct (page, slot) pairs the lanes see: the K and V rows a
+    call must read where lanes share pages."""
+    rows = table.cpu().numpy()
+    return len({(int(rows[b, s // bs]), s % bs) for b, n in enumerate(lengths)
+                for s in range(n + 1)})
+
+
 def time_paged(gen, label, lengths, kern=None, yardsticks: bool = True, hold: bool = True,
-               shape=None, hold_f32: bool = False):
+               shape=None, hold_f32: bool = False, alias: int = 0):
     """Hold (unless ``hold`` is false) and time one PAGED_TIMED case (4
     layers of pools, cycled; ``shape``: other ``attention_inputs`` sizes):
     the kernel (``kern(q, pk, pv, table, ln)``, the wrapper by default)
@@ -647,7 +706,10 @@ def time_paged(gen, label, lengths, kern=None, yardsticks: bool = True, hold: bo
     evaluated in f32 on the same inputs, for a kernel that keeps its
     probabilities and sums in f32 and rounds once (the plain version in
     bf16 rounds its probabilities and its output: at hd 512 an output in
-    [4, 8) may then differ by one bf16 step, 0.03125, past ATTN_ATOL)."""
+    [4, 8) may then differ by one bf16 step, 0.03125, past ATTN_ATOL).
+    With ``alias`` every lane's first ``alias`` table entries are the same
+    pages, one lane holding a fork of the last (``alias_pages``), and the
+    bound counts each shared row once."""
     import torch
     import torch.nn.functional as F
 
@@ -657,6 +719,10 @@ def time_paged(gen, label, lengths, kern=None, yardsticks: bool = True, hold: bo
     q, pk, pv, table, ln = attention_inputs(gen, lengths, **(shape or {}))
     layers, lanes, H, hd = q.shape
     _, nb, bs, Hk, _ = pk.shape
+    kv_rows = None
+    if alias:
+        alias_pages(table, alias)
+        kv_rows = distinct_rows(table, lengths, bs)
 
     def run(i):
         return kern(q[i], pk[i], pv[i], table, ln)
@@ -671,7 +737,7 @@ def time_paged(gen, label, lengths, kern=None, yardsticks: bool = True, hold: bo
     want = plain32 if hold_f32 else plain
     err = max(hold_paged(label, run(i), want(i), "bfloat16") for i in range(layers)) \
         if hold else float("nan")
-    nbytes, flops = paged_bound(lengths, lanes, H, Hk, hd, bs, table.shape[1])
+    nbytes, flops = paged_bound(lengths, lanes, H, Hk, hd, bs, table.shape[1], kv_rows=kv_rows)
     b_ms, b_by = bound_ms(nbytes, flops)
     ms = device_ms(run, layers)
     out = {"max_abs_err": err, "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
@@ -717,8 +783,10 @@ def check_attention(gen):
 
 
 # the weight stream's lane counts held and timed a shape: one lane, the
-# serving engine's 8 and a 16-token prefill chunk, and the largest M it takes
-STREAM_M = (1, 8, 16, 64)
+# serving engine's 8, a 16-token prefill chunk, the speculative verify's 40
+# (8 lanes x k + 1 = 5 positions) and the largest M it takes
+STREAM_M = (1, 8, 16, 40, 64)
+VERIFY_M = 40
 
 
 def check_int8(gen):
@@ -726,14 +794,16 @@ def check_int8(gen):
     the plain version and timed beside its bound, the plain version, the
     dequantize-then-matmul call (``library_ms``) and the bf16 engine's own
     call on weights dequantized before the timing (``bf16_gemm_ms``); the
-    decode step (225 calls) summed at each M. Returns M = 8's step."""
+    decode step (225 calls) summed at each M. Returns M = 8's step (the
+    decode step) and M = VERIFY_M's (one verify call of the speculative
+    engine, 225 calls too)."""
     import torch
 
     from paddle_tpu_torch.ops import quant_matmul as qm
 
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bf16_gemm_ms", "bytes", "flops")
     steps = {M: dict.fromkeys(keys, 0.0) for M in STREAM_M}
-    max_err = 0.0
+    max_err = dict.fromkeys(STREAM_M, 0.0)
     for name, K, N, per_step in GEMM_SHAPES:
         n_bufs = max(1, min(8, math.ceil(3 * L2_BYTES / (K * N))))
         ws = [torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
@@ -764,7 +834,7 @@ def check_int8(gen):
                 raise AssertionError(f"int8 GEMM {name} M={M} differs from its plain "
                                      f"version: max abs err {err}")
             rel = err / max(ref.abs().max().item(), 1e-30)
-            max_err = max(max_err, err)
+            max_err[M] = max(max_err[M], err)
             nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
             flops = 2 * M * K * N
             b_ms, b_by = bound_ms(nbytes, flops)
@@ -790,12 +860,12 @@ def check_int8(gen):
             plain_ms=round(tot["plain_ms"], 5), library_ms=round(tot["library_ms"], 5),
             bf16_gemm_ms=round(tot["bf16_gemm_ms"], 5),
             ratio_to_M8=round(tot["ms"] / steps[8]["ms"], 4))
-    total = steps[8]
-    total["max_abs_err"] = max_err
-    total["bound_by"] = bound_ms(total["bytes"], total["flops"])[1]
+    for M in (8, VERIFY_M):
+        steps[M]["max_abs_err"] = max_err[M]
+        steps[M]["bound_by"] = bound_ms(steps[M]["bytes"], steps[M]["flops"])[1]
     check_int8_f32_decode(gen)
     stream_dependent_launch_in_graph(gen)
-    return total
+    return steps[8], steps[VERIFY_M]
 
 
 def graph_edges(graph) -> tuple:
@@ -951,9 +1021,13 @@ def serve(engine, prompts, max_new: int, phase: str, params=None):
     steps = []
     cuda = engine.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    # each program call's device span (CUDA events just before and after it)
-    spans: dict = {"decode": [], "prefill": []}
-    progs = {"decode": engine._decode_prog, "prefill": engine._prefill_prog}
+    # each program call's device span (CUDA events just before and after
+    # it): decode and prefill, or a speculative engine's draft decode,
+    # verify and prefill
+    attrs = {p.name: a for a in ("_decode_prog", "_draft_prog", "_verify_prog", "_prefill_prog")
+             if (p := getattr(engine, a, None)) is not None}
+    progs = {name: getattr(engine, a) for name, a in attrs.items()}
+    spans: dict = {name: [] for name in attrs}
 
     def timed(name):
         def call():
@@ -965,7 +1039,8 @@ def serve(engine, prompts, max_new: int, phase: str, params=None):
         return call
 
     if cuda:
-        engine._decode_prog, engine._prefill_prog = timed("decode"), timed("prefill")
+        for name, a in attrs.items():
+            setattr(engine, a, timed(name))
     t0 = time.perf_counter()
     while engine.pending():
         s0 = time.perf_counter()
@@ -973,7 +1048,8 @@ def serve(engine, prompts, max_new: int, phase: str, params=None):
         sync()
         steps.append(time.perf_counter() - s0)
     wall = time.perf_counter() - t0
-    engine._decode_prog, engine._prefill_prog = progs["decode"], progs["prefill"]
+    for name, a in attrs.items():
+        setattr(engine, a, progs[name])
     device = {f"{k}_calls": len(v) for k, v in spans.items()}
     device.update({f"{k}_device_ms_mean": round(sum(a.elapsed_time(b) for a, b in v) / len(v), 3)
                    for k, v in spans.items() if v})
@@ -1006,12 +1082,13 @@ def serving_kernels(counts: dict) -> dict:
 
 
 def trace_launches(engine, phase: str, seed: int, int8: bool = False,
-                   wide: bool = False) -> dict:
+                   wide: bool = False, prompts=None) -> dict:
     """The kernels a graphed engine's device ran, read from a device trace
     (a replay runs kernels that no wrapper counts): under torch.profiler
     the engine serves 7 one-token requests and one whose prompt takes 3
     prefill chunks, 4 tokens each, to the end. Holds the traced launches
-    exactly against the programs' calls in that window: paged attention
+    exactly against the programs' calls in that window (``prompts``, where
+    given, are served instead, 4 tokens each): paged attention
     once a layer in each decode call (in its wide mode with ``wide``: pages
     past 256 slots); with int8 the weight stream once a
     projection in each call (7 a layer in either program, and the lm_head
@@ -1024,9 +1101,12 @@ def trace_launches(engine, phase: str, seed: int, int8: bool = False,
     layers = engine.model.config.num_hidden_layers
     vocab, C = engine.model.config.vocab_size, engine.config.prefill_chunk
     rng = np.random.RandomState(seed + 2)
-    reqs = [engine.submit([int(rng.randint(1, vocab))], 4)
-            for _ in range(engine.config.num_lanes - 1)]
-    reqs.append(engine.submit(rng.randint(1, vocab, 3 * C + 1).tolist(), 4))
+    if prompts is None:
+        reqs = [engine.submit([int(rng.randint(1, vocab))], 4)
+                for _ in range(engine.config.num_lanes - 1)]
+        reqs.append(engine.submit(rng.randint(1, vocab, 3 * C + 1).tolist(), 4))
+    else:
+        reqs = [engine.submit(p, 4) for p in prompts]
     before = engine.stats()["program_calls"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         engine.run()
@@ -1042,7 +1122,8 @@ def trace_launches(engine, phase: str, seed: int, int8: bool = False,
             if int8 else 0, "large_m": 0}
     say(phase, traced_program_calls=json.dumps(calls), traced_launches=json.dumps(traced),
         want=json.dumps(want))
-    if any(r.status != "done" for r in reqs) or calls["prefill"] < 3 or traced != want:
+    if any(r.status != "done" for r in reqs) or traced != want or \
+            calls["prefill"] < (3 if prompts is None else 1):
         raise AssertionError(f"{phase}: the traced graphed programs {calls} launched {traced} "
                              f"(want {want})")
     return traced
@@ -1238,6 +1319,452 @@ def compare_eager(model, serve_cfg: dict, prompts, graphed_reqs, phase: str):
         raise AssertionError(f"{phase}: the graphed engine's greedy tokens differ from the "
                              "eager engine's for requests "
                              f"{[i for i, s in enumerate(same) if not s]}")
+
+
+# ---------------------------------------------------------------------------
+# phases 15-16: the prefix cache and speculative decoding
+# ---------------------------------------------------------------------------
+
+PREFIX_CFG = dict(num_lanes=8, block_size=16, max_seq_len=1024, prefill_chunk=16)
+PREFIX_SYSTEM = 512               # the shared system prompt: 32 blocks
+PREFIX_REQUESTS = 16
+PREFIX_PRIVATE = (4, 9, 14)       # requests with a private prompt (13 of 16 share)
+PREFIX_FORK = 11                  # the request whose prompt is the system prompt alone
+# the pressure runs: 96 usable blocks (a request reserves 35-42) and the
+# host tier's budget. A pool of 128 usable blocks holds the three system
+# prompts' chains (about 108 blocks) beside one request and never evicts
+# in this rotation
+PRESSURE_BLOCKS, PRESSURE_HOST = 97, 96
+# a wave's prefill budget: every admitted prompt is prefilled in its
+# admission step, so two engines decode the same batches step for step
+WAVE_PREFILL = 4096
+# the paged kernel over the prefix cache's tables: 8 lanes past the shared
+# 512 slots (the trace's tails), timed with aliased pages
+PREFIX_LENGTHS = [527, 560, 511, 600, 639, 530, 545, 620]
+
+
+def prefix_trace(seed: int, vocab: int):
+    """(system prompt, prompts): 13 of 16 requests open with one shared
+    512-token system prompt, 12 of them followed by a private tail of
+    16-128 tokens and request PREFIX_FORK by nothing (its hit covers the
+    block its first decode step writes: a COW fork); PREFIX_PRIVATE are
+    private prompts of 16-600 tokens."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed + 15)
+    system = rng.randint(1, vocab, PREFIX_SYSTEM).tolist()
+    prompts = []
+    for i in range(PREFIX_REQUESTS):
+        if i in PREFIX_PRIVATE:
+            prompts.append(rng.randint(1, vocab, int(rng.randint(16, 601))).tolist())
+        elif i == PREFIX_FORK:
+            prompts.append(list(system))
+        else:
+            prompts.append(system + rng.randint(1, vocab, int(rng.randint(16, 129))).tolist())
+    return system, prompts
+
+
+def peak_shared(engine) -> list:
+    """Wrap ``engine.step`` to keep the most blocks held by more than one
+    lane after any step, in the returned list's one element."""
+    peak, step = [0], engine.step
+
+    def wrapped():
+        n = step()
+        peak[0] = max(peak[0], engine._kv.shared_blocks)
+        return n
+
+    engine.step = wrapped
+    return peak
+
+
+def ttft_p50_ms(reqs) -> float:
+    ttft = sorted(r.first_token_time - r.submit_time for r in reqs)
+    return round(1e3 * ttft[len(ttft) // 2], 2)
+
+
+def serve_waves(model, prompts, phase: str, wave: int = 8, **cfg):
+    """The trace in waves of ``wave`` requests, each wave run to its end
+    with WAVE_PREFILL chunks a step: every engine decodes the same batches,
+    so greedy tokens can be held bit for bit across engines (the paged
+    kernel's split schedule, and so its rounding, depends on every lane's
+    length). Returns (tokens, the engine's stats)."""
+    import torch
+
+    from paddle_tpu_torch.inference.serving import ServeConfig, ServingEngine
+
+    engine = ServingEngine(model, ServeConfig(max_prefill_chunks_per_step=WAVE_PREFILL,
+                                              **PREFIX_CFG, **cfg))
+    out = []
+    for i in range(0, len(prompts), wave):
+        out += [r.generated for r in serve(engine, prompts[i:i + wave], NEW_TOKENS,
+                                           f"{phase}-wave{i // wave}")]
+    hold_captures(engine, phase)
+    st = engine.stats()
+    del engine
+    torch.cuda.empty_cache()
+    return out, st
+
+
+def serve_one_by_one(model, prompts, phase: str, **cfg):
+    """Each request alone, run to its end (the decode batches of any two
+    engines match). Returns (tokens, the engine's stats)."""
+    import torch
+
+    from paddle_tpu_torch.inference.serving import ServeConfig, ServingEngine
+
+    engine = ServingEngine(model, ServeConfig(**PREFIX_CFG, **cfg))
+    out = [serve(engine, [p], NEW_TOKENS, f"{phase}-{i}")[0].generated
+           for i, p in enumerate(prompts)]
+    hold_captures(engine, phase)
+    st = engine.stats()
+    del engine
+    torch.cuda.empty_cache()
+    return out, st
+
+
+def check_prefix_cache(model, seed: int, gen):
+    """Phase 15: the prefix cache at Llama-3-8B width (``model``, bf16,
+    PREFIX_CFG). Returns (the paged kernel's numbers over aliased tables,
+    its launches in the cached engine's traced window)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.serving import ServeConfig, ServingEngine
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    vocab = model.config.vocab_size
+    system, prompts = prefix_trace(seed, vocab)
+    # the kernel over the prefix cache's tables (32 shared pages, a fork)
+    kern = time_paged(gen, "prefix_aliased", PREFIX_LENGTHS, alias=PREFIX_SYSTEM // 16)
+    q, pk, pv, table, ln = attention_inputs(gen, PREFIX_LENGTHS, 1)
+    alias_pages(table, PREFIX_SYSTEM // 16)
+    first = pa.paged_decode_attention(q[0], pk[0], pv[0], table, ln)
+    if not torch.equal(first, pa.paged_decode_attention(q[0], pk[0], pv[0], table, ln)):
+        raise AssertionError("two paged-attention calls over aliased pages differ")
+    say("prefix-cache", kernel="paged_attention", case="aliased_pages", lengths=PREFIX_LENGTHS,
+        shared_pages=PREFIX_SYSTEM // 16, max_abs_err=kern["max_abs_err"],
+        tol=ATTN_ATOL["bfloat16"], bit_identical=True, ms=round(kern["ms"], 5),
+        bound_ms=round(kern["bound_ms"], 5), bound_by=kern["bound_by"],
+        bound_share=round(kern["bound_ms"] / kern["ms"], 4),
+        plain_ms=round(kern["plain_ms"], 5), library_ms=round(kern["library_ms"], 5),
+        bytes=kern["bytes"])
+    del q, pk, pv, table, ln, first
+    # the trace submitted at once, cold then cached: TTFT, hits, forks
+    cold_eng = ServingEngine(model, ServeConfig(**PREFIX_CFG))
+    cold = serve(cold_eng, prompts, NEW_TOKENS, "prefix-cold")
+    hold_captures(cold_eng, "prefix-cold")
+    del cold_eng
+    engine = ServingEngine(model, ServeConfig(prefix_cache=True, **PREFIX_CFG))
+    peak = peak_shared(engine)
+    hot = serve(engine, prompts, NEW_TOKENS, "prefix-cached")
+    hold_captures(engine, "prefix-cached")
+    st = engine.stats()["prefix_cache"]
+    same = sum(a.generated == b.generated for a, b in zip(cold, hot))
+    say("prefix-cache", hits=st["hits"], misses=st["misses"], hit_frac=round(st["hit_frac"], 4),
+        forks=st["forks"], shared_blocks_peak=peak[0], entries=st["entries"],
+        ttft_ms_p50_cached=ttft_p50_ms(hot), ttft_ms_p50_cold=ttft_p50_ms(cold),
+        requests_equal_cold_when_served_at_once=f"{same}/{len(hot)}")
+    if st["hits"] < 1 or st["forks"] < 1 or peak[0] < 1:
+        raise AssertionError(f"the prefix-cache engine saw no hit, fork or shared block: {st}")
+    # a traced window of hits on the cached system prompt (one of them the
+    # fork): paged attention once a layer in each decode call
+    rng = np.random.RandomState(seed + 18)
+    window = [system + rng.randint(1, vocab, 5).tolist() for _ in range(7)] + [list(system)]
+    launches = trace_launches(engine, "prefix-cache", seed, prompts=window)["paged"]
+    del engine
+    torch.cuda.empty_cache()
+    # bit for bit against the cold engine, the trace in waves
+    want, _ = serve_waves(model, prompts, "prefix-cold-waves")
+    got, st = serve_waves(model, prompts, "prefix-cached-waves", prefix_cache=True)
+    pc = st["prefix_cache"]
+    say("prefix-cache", waves_tokens_equal_cold=got == want, hits=pc["hits"], forks=pc["forks"],
+        kv_calls=json.dumps(st["kv_calls"]))
+    if got != want or pc["hits"] < 1 or pc["forks"] < 1:
+        raise AssertionError("the prefix-cache engine's tokens differ from the cold engine's, "
+                             f"or it saw no hit or fork: {pc}")
+    # pressure: three system prompts in rotation, a pool that must evict
+    rng = np.random.RandomState(seed + 16)
+    systems = [rng.randint(1, vocab, PREFIX_SYSTEM).tolist() for _ in range(3)]
+    rotation = [systems[i % 3] + rng.randint(1, vocab, int(rng.randint(16, 129))).tolist()
+                for i in range(6)]
+    cold_r, _ = serve_one_by_one(model, rotation, "pressure-cold", num_blocks=PRESSURE_BLOCKS)
+    for host, tier in ((PRESSURE_HOST, "evictions_host"), (0, "evictions_drop")):
+        got, st = serve_one_by_one(model, rotation, f"pressure-host{host}", prefix_cache=True,
+                                   num_blocks=PRESSURE_BLOCKS, host_kv_blocks=host)
+        pc = st["prefix_cache"]
+        say("prefix-cache", pressure_host_blocks=host, tokens_equal_cold=got == cold_r,
+            evictions_host=pc["evictions_host"], evictions_drop=pc["evictions_drop"],
+            restores=pc["restores"], restore_ms=pc["restore_ms"], hits=pc["hits"],
+            kv_calls=json.dumps(st["kv_calls"]))
+        if got != cold_r or pc[tier] < 1 or (host and pc["restores"] < 1) or \
+                st["kv_calls"]["kv_offload"] != pc["evictions_host"] or \
+                st["kv_calls"]["kv_restore"] != pc["restores"]:
+            raise AssertionError(f"the prefix cache under pressure (host {host}): tokens "
+                                 f"equal {got == cold_r}, {pc}, {st['kv_calls']}")
+    # int8 weights
+    want, _ = serve_waves(model, prompts, "prefix-int8-cold-waves", weight_dtype="int8")
+    got, st = serve_waves(model, prompts, "prefix-int8-cached-waves", prefix_cache=True,
+                          weight_dtype="int8")
+    say("prefix-cache", int8_waves_tokens_equal_cold=got == want,
+        hits=st["prefix_cache"]["hits"])
+    if got != want or st["prefix_cache"]["hits"] < 1:
+        raise AssertionError("the int8 prefix-cache engine's tokens differ from the int8 cold "
+                             "engine's")
+    return kern, launches
+
+
+SPEC_K = 4
+SPEC_REQUESTS = 8
+SPEC_CFG = dict(num_lanes=8, block_size=16, max_seq_len=1024, prefill_chunk=16)
+SELF_DRAFT_LAYERS = 2
+SELF_DRAFT_ACCEPT = 0.95
+# the teacher-forced verify (phase 16): the verify's k + 1 logits a lane
+# against the decode step's fed the same tokens. The verify attends through
+# the composed window attention (probabilities rounded to bf16) at M = 40,
+# the decode step through the kernel (f32 probabilities) at M = 8, so every
+# layer rounds its outputs at other places: held, as phase 3's check, to
+# LOGITS_TOL_FRAC of the logits' largest magnitude.
+SPEC_LOGITS_TOL_FRAC = LOGITS_TOL_FRAC
+
+
+def draft_config():
+    """Meta's Llama-3.2-1B widths (its config.json): vocab 128256, hidden
+    2048, FFN 8192, 16 layers, 32 heads, 8 KV heads (head dim 64), tied
+    embeddings, rope theta 5e5, RMSNorm eps 1e-5. Its llama3 rope_scaling
+    is left out: the port, like the reference, has none."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+                       num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+                       max_position_embeddings=131072, rms_norm_eps=1e-5,
+                       rope_theta=500000.0, tie_word_embeddings=True)
+
+
+def hold_spec_captures(engine, phase: str):
+    caps = engine.stats()["captures"]
+    say(phase, captures=json.dumps(caps))
+    if caps != {"draft_decode": 1, "verify": 1, "prefill": 1}:
+        raise AssertionError(f"{phase}: the speculative engine captured {caps}, not one "
+                             "draft-decode, one verify and one prefill program")
+
+
+def spec_teacher_forced(engine, prompts, seed: int):
+    """One round's k + 1 verify logits a lane against the non-speculative
+    decode step's logits fed the same tokens (the committed token and k
+    seeded ones), each path on its own copy of the page pool, within
+    SPEC_LOGITS_TOL_FRAC of the largest magnitude."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.serving import PagedKVView, speculative
+    from paddle_tpu_torch.models.llama import decode_step
+
+    L, K = engine.config.num_lanes, engine._spec_k
+    # room for every lane to keep running while the others prefill: a
+    # round emits up to k + 1 tokens a lane
+    reqs = [engine.submit(p[:64], 512) for p in prompts[:L]]
+    while not all(r.status == "running" for r in reqs):
+        if any(r.finished for r in reqs):
+            raise AssertionError("a teacher-forced request finished before all ran")
+        engine.step()
+    kv, bs, mcfg = engine._kv, engine.config.block_size, engine.model.config
+    kv.active[...] = False
+    kv.active[[r.lane for r in reqs]] = True
+    bt, ln, ac = kv.device_tables()
+    rng = np.random.RandomState(seed + 19)
+    toks = np.concatenate([engine._lane_tok[:, None],
+                           rng.randint(1, mcfg.vocab_size, (L, K))], axis=1)
+    toks = torch.tensor(toks, dtype=torch.int64, device=engine.device)
+    d = engine._in.dev
+    verify = speculative.build_verify_fn(mcfg, K, bs, kv.max_blocks_per_lane)
+    accept = speculative.accept
+    speculative.accept = lambda lg, *a: (lg, None)      # the logits, not the tokens
+    try:
+        with torch.no_grad():
+            lg_v = verify(engine._w, toks, kv.pages_k.clone(), kv.pages_v.clone(), bt, ln, ac,
+                          d["seed_keys"], engine._qbuf, engine._dr.dev["n_draft"], d["temp"],
+                          d["topk"], d["topp"], d["do"])[0].float()
+    finally:
+        speculative.accept = accept
+    pk, pv = kv.pages_k.clone(), kv.pages_v.clone()
+    with torch.no_grad():
+        lg_d = torch.stack([decode_step(mcfg, engine._w, toks[:, c],
+                                        PagedKVView(pk, pv, bt, ln + c, ac, bs), ln + c).float()
+                            for c in range(K + 1)], dim=1)
+    del pk, pv
+    for r in reqs:
+        engine.cancel(r)
+    act = ac.bool()
+    diff = (lg_v[act] - lg_d[act]).abs().max().item()
+    scale = lg_d[act].abs().max().item()
+    tol = SPEC_LOGITS_TOL_FRAC * scale
+    top1 = (lg_v[act].argmax(-1) == lg_d[act].argmax(-1)).float().mean().item()
+    say("speculative", teacher_forced_max_abs_diff=diff, logits_max_abs=scale, tol=tol,
+        top1_agree=top1, columns=K + 1)
+    if not diff <= tol:
+        raise AssertionError(f"verify logits differ from the decode step's by {diff} > {tol}")
+
+
+def profile_spec(engine, seed: int, phase: str):
+    """Device ms a speculative round by KERNEL_KINDS kind: 8 one-token
+    requests (no prefill), 2 rounds of warm-up, then 3 rounds under
+    torch.profiler, with each program's calls in that window and the
+    busiest kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(seed + 21)
+    vocab = engine.model.config.vocab_size
+    reqs = [engine.submit([int(rng.randint(1, vocab))], 64)
+            for _ in range(engine.config.num_lanes)]
+    for _ in range(2):
+        engine.step()
+    torch.cuda.synchronize()
+    rounds, before = 3, engine.stats()["program_calls"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            engine.step()
+        torch.cuda.synchronize()
+    calls = {k: v - before[k] for k, v in engine.stats()["program_calls"].items()}
+    for r in reqs:
+        engine.cancel(r)
+    per_kernel, launches = kernel_times(prof)
+    say(phase, profiled_rounds=rounds, program_calls=json.dumps(calls),
+        device_ms_per_round=round(sum(per_kernel.values()) / 1e3 / rounds, 3),
+        device_ops_per_round=launches / rounds)
+    say(phase, device_ms_per_round_by_kind=json.dumps(
+        {k: round(v / rounds, 4) for k, v in by_kind(per_kernel).items()}))
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {phase} top kernel: {us / 1e3 / rounds:.4f} ms/round {name[:90]}", flush=True)
+
+
+def trace_spec_window(engine, phase: str, seed: int) -> int:
+    """Under torch.profiler, 8 one-token requests (no prefill) through the
+    graphed int8 speculative engine, 8 tokens each: the weight stream runs
+    exactly 225 times a verify call (7 a layer and the lm_head; the draft
+    stays unquantized), no other int8 kernel and no paged attention.
+    Returns the stream's launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    vocab, layers = engine.model.config.vocab_size, engine.model.config.num_hidden_layers
+    rng = np.random.RandomState(seed + 20)
+    before = engine.stats()["program_calls"]
+    reqs = [engine.submit([int(rng.randint(1, vocab))], 8)
+            for _ in range(engine.config.num_lanes)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.run()
+        torch.cuda.synchronize()
+    calls = {k: v - before[k] for k, v in engine.stats()["program_calls"].items()}
+    counts: dict = {}
+    kernel_times(prof, counts)
+    traced = serving_kernels(counts)
+    other = sorted(k for k in counts if "finalize" in k or "int8_tc_kernel" in k)
+    want = {"paged": 0, "paged_wide": 0, "stream": (7 * layers + 1) * calls["verify"],
+            "large_m": 0}
+    say(phase, traced_program_calls=json.dumps(calls), traced_launches=json.dumps(traced),
+        want=json.dumps(want), stream_per_verify=traced["stream"] / max(calls["verify"], 1))
+    if any(r.status != "done" for r in reqs) or traced != want or other or calls["prefill"]:
+        raise AssertionError(f"{phase}: the traced speculative programs {calls} launched "
+                             f"{traced} and {other} (want {want})")
+    return traced["stream"]
+
+
+def check_speculative(model, seed: int):
+    """Phase 16: speculative decoding, the target ``model`` (Llama-3-8B
+    widths, bf16) and a draft at Llama-3.2-1B widths (random weights from
+    seed 1), DraftConfig(k=SPEC_K). Returns the weight stream's launches in
+    the int8 engine's traced window."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.serving import ServeConfig, ServingEngine
+    from paddle_tpu_torch.inference.serving.speculative import DraftConfig
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(seed + 17)
+    prompts = [rng.randint(1, vocab, int(rng.randint(16, 257))).tolist()
+               for _ in range(SPEC_REQUESTS)]
+    dcfg = draft_config()
+    draft = LlamaForCausalLM(dcfg, device="cuda", dtype=torch.bfloat16, seed=1)
+    say("speculative", target_layers=model.config.num_hidden_layers,
+        draft_layers=dcfg.num_hidden_layers, draft_hidden=dcfg.hidden_size,
+        draft_params=draft.num_params(), k=SPEC_K,
+        cut="draft without Llama-3.2-1B's rope_scaling (the port has none)")
+    cfg = dict(draft=DraftConfig(draft, SPEC_K), **SPEC_CFG)
+    engine = ServingEngine(model, ServeConfig(**cfg))
+    graphed = [r.generated for r in serve(engine, prompts, NEW_TOKENS, "spec")]
+    hold_spec_captures(engine, "spec")
+    say("spec", **engine.stats()["spec"])
+    profile_spec(engine, seed, "spec")
+    spec_teacher_forced(engine, prompts, seed)
+    del engine
+    eager = ServingEngine(model, ServeConfig(**cfg), eager=True)
+    want = [r.generated for r in serve(eager, prompts, NEW_TOKENS, "spec-eager")]
+    del eager
+    plain = ServingEngine(model, ServeConfig(**SPEC_CFG))
+    base = [r.generated for r in serve(plain, prompts, NEW_TOKENS, "spec-plain")]
+    del plain
+    torch.cuda.empty_cache()
+    say("speculative", graphed_tokens_equal_eager=graphed == want,
+        greedy_equal_plain_engine=json.dumps([a == b for a, b in zip(graphed, base)]),
+        token_agreement_with_plain=round(sum(x == y for a, b in zip(graphed, base)
+                                              for x, y in zip(a, b)) / sum(map(len, base)), 4))
+    if graphed != want:
+        raise AssertionError("the graphed speculative engine's tokens differ from eager")
+    # sampled: every other request, the trace served twice
+    params = sampled_params(len(prompts), seed)
+    runs = []
+    for run in range(2):
+        engine = ServingEngine(model, ServeConfig(**cfg))
+        runs.append([r.generated for r in serve(engine, prompts, NEW_TOKENS,
+                                                f"spec-sampled-run{run}", params)])
+        hold_spec_captures(engine, "spec-sampled")
+        del engine
+    say("speculative", sampled_replay_bit_identical=runs[0] == runs[1],
+        sampled_requests_differing_from_greedy=sum(
+            runs[0][i] != graphed[i] for i, p in enumerate(params) if p))
+    if runs[0] != runs[1]:
+        raise AssertionError("two sampled speculative runs of one trace differ")
+    # int8 target: graphed against eager, the stream 225 times a verify call
+    cfg8 = dict(weight_dtype="int8", **cfg)
+    engine = ServingEngine(model, ServeConfig(**cfg8))
+    got = [r.generated for r in serve(engine, prompts, NEW_TOKENS, "spec-int8")]
+    hold_spec_captures(engine, "spec-int8")
+    say("spec-int8", **engine.stats()["spec"])
+    launches = trace_spec_window(engine, "spec-int8", seed)
+    del engine
+    eager = ServingEngine(model, ServeConfig(**cfg8), eager=True)
+    want = [r.generated for r in serve(eager, prompts, NEW_TOKENS, "spec-int8-eager")]
+    del eager, draft, cfg, cfg8
+    torch.cuda.empty_cache()
+    say("spec-int8", graphed_tokens_equal_eager=got == want)
+    if got != want:
+        raise AssertionError("the graphed int8 speculative engine's tokens differ from eager")
+    # the self-draft control: draft = target, f32, TF32 off
+    prec = f32_matmuls()
+    m32 = LlamaForCausalLM(LlamaConfig.llama3_8b(num_hidden_layers=SELF_DRAFT_LAYERS),
+                           device="cuda", dtype=torch.float32, seed=seed)
+    plain = ServingEngine(m32, ServeConfig(**SPEC_CFG))
+    base = [r.generated for r in serve(plain, prompts, NEW_TOKENS, "self-draft-plain")]
+    del plain
+    engine = ServingEngine(m32, ServeConfig(draft=DraftConfig(m32, SPEC_K), **SPEC_CFG))
+    got = [r.generated for r in serve(engine, prompts, NEW_TOKENS, "self-draft")]
+    hold_spec_captures(engine, "self-draft")
+    sp = engine.stats()["spec"]
+    del engine, m32
+    torch.cuda.empty_cache()
+    say("self-draft", layers=SELF_DRAFT_LAYERS, precision=prec, tokens_equal_plain=got == base,
+        **sp)
+    if got != base or sp["accept_rate"] < SELF_DRAFT_ACCEPT:
+        raise AssertionError(f"the f32 self-draft: tokens equal {got == base}, accept rate "
+                             f"{sp['accept_rate']} (want >= {SELF_DRAFT_ACCEPT})")
+    return launches
+
 
 
 # device kernels of a training step by kind: (kind, name substrings)
@@ -1506,7 +2033,7 @@ def check_int8_fp16(gen):
         torch.cuda.empty_cache()
     step.update(max_abs_err=err_s, bound_by=bound_ms(nbytes, flops)[1],
                 at="fp16 x, sum over one Llama-3-8B decode step at M=8 (225 calls); held at "
-                   "M 1, 8, 16, 64; library: cuBLAS on fp16 weights dequantized before the "
+                   "M 1, 8, 16, 40, 64; library: cuBLAS on fp16 weights dequantized before the "
                    "timing, times the scales")
     layer.update(max_abs_err=err_t, bound_by=bound_ms(lbytes, lflops)[1],
                  at="fp16 x, one Llama-3-8B layer's 7 projections at M=8192; library: cuBLAS "
@@ -3275,7 +3802,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     attn = check_attention(gen)
-    gemm = check_int8(gen)
+    gemm, gemm_verify = check_int8(gen)
     fp16_step, fp16_layer, fp16_tc_launches = check_int8_fp16(gen)
     rms_rf = check_rms_round_first(gen)
     wide_flash, wide_flash_launches, wide_paged = check_wide_attention(gen)
@@ -3384,6 +3911,13 @@ def main(argv=None) -> int:
     check_train_step(args.seed, f32=True)
     f32_launches = train(args.seed, f32=True)["launches"]
     lap("14")
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=args.seed)
+    prefix_kern, prefix_launches = check_prefix_cache(model, args.seed, gen)
+    lap("15")
+    verify_launches = check_speculative(model, args.seed)
+    del model
+    torch.cuda.empty_cache()
+    lap("16")
 
     kernels = [
         {"name": "paged_decode_attention", "route": "cuda",
@@ -3492,6 +4026,26 @@ def main(argv=None) -> int:
             **{k: v for k, v in nums.items() if k not in ("tile_err", "eager_ms",
                                                           "library_max_abs_err", "bytes")}})
         kernels[-1]["at"] = kernels[-1].get("at", "") + f"; launches from {where}"
+    kernels.append({
+        "name": "paged_decode_attention_prefix_cache", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:68", "launches": prefix_launches,
+        **{k: prefix_kern[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")},
+        "at": f"8 lanes, H32 Hk8 hd128 bs16 MB64, bf16, lengths {PREFIX_LENGTHS}, the first "
+              f"{PREFIX_SYSTEM // 16} pages of every lane shared (one lane holds a fork of the "
+              "last), the bound counting each shared row once; launches traced on the device "
+              "in the graphed prefix-cache engine's window of 8 hits (phase 15)"})
+    kernels.append({
+        "name": "int8_matmul_verify", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:117", "launches": verify_launches,
+        **{k: gemm_verify[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "bf16_gemm_ms")},
+        "at": f"sum over one verify call of the speculative engine at M={VERIFY_M} (8 lanes x "
+              f"k + 1 = {SPEC_K + 1} positions; 7 projections x 32 layers + lm_head), bf16, "
+              "the weight stream; launches traced on the device in the graphed int8 "
+              "speculative engine's window (phase 16)"})
     say("done", total_s=round(time.perf_counter() - t_start, 1), phase_s=json.dumps(phase_s))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,16 +35,28 @@ the CPU, and on the card with ``ServingEngine(..., eager=True)`` (the plain
 version of the two programs, for tests and ``chip_smoke.py``), the same
 program functions run eagerly on the same buffers.
 
-With ``weight_dtype="int8"`` every projection of decode and prefill goes
-through the int8 weight-only kernel. Sharding, speculative decoding and
-the prefix cache come with later slices of the port: their
-``ServeConfig`` fields raise unless left at the default. Telemetry, spans,
-chaos sites and autopilot knobs of the reference are left out;
-:meth:`ServingEngine.stats` reports the host-side counts and the captures.
+With ``weight_dtype="int8"`` every projection of decode, prefill and
+verify goes through the int8 weight-only kernel.
+
+With ``ServeConfig(prefix_cache=True)`` admission matches each prompt
+against :class:`~.prefix_cache.PrefixCache` and splices cached blocks into
+the lane's table (a hit prefills only its tail); retirement donates the
+lane's prefill-written blocks. The copy-on-write fork, the host tier's
+offload and its restore are indexed copies on the engine's stream between
+the programs (counted in ``stats()["kv_calls"]``); the programs and their
+graphs do not change. With ``ServeConfig(draft=DraftConfig(...))`` the
+decode program gives way to :mod:`.speculative`'s draft decode and verify,
+each one CUDA graph beside prefill.
+
+Sharding comes with a later slice of the port: ``lane_shards`` and
+``weight_shards`` raise unless 1. Telemetry, spans, chaos sites and
+autopilot knobs of the reference are left out; :meth:`ServingEngine.stats`
+reports the host-side counts and the captures.
 """
 
 from __future__ import annotations
 
+import os
 import time
 import weakref
 from dataclasses import dataclass
@@ -59,12 +71,14 @@ from ...models.llama import (
 )
 from .kv_cache import PagedKVCache, Staged
 from .paged_attention import PagedKVView, gather_lane_window, prefill_attend
+from .prefix_cache import PrefixCache
 from .request import (
     CANCELLED, DONE, FAILED, PREFILLING, RUNNING, WAITING, Request,
     SamplingParams,
 )
 from .sampling import sample_tokens
 from .scheduler import Scheduler
+from .speculative import DraftConfig, build_draft_fn, build_verify_fn
 
 __all__ = ["ServeConfig", "ServingEngine"]
 
@@ -72,10 +86,14 @@ __all__ = ["ServeConfig", "ServingEngine"]
 _LATER = {
     "lane_shards": (1, "the sharding slice (serving/sharding.py)"),
     "weight_shards": (1, "the sharding slice (serving/sharding.py)"),
-    "draft": (None, "the speculative-decoding slice (serving/speculative.py)"),
-    "prefix_cache": (False, "the prefix-cache slice (serving/prefix_cache.py)"),
-    "host_kv_blocks": (None, "the prefix-cache slice (serving/prefix_cache.py)"),
 }
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
 
 
 @dataclass
@@ -104,8 +122,19 @@ class ServeConfig:
     #: "int8" quantizes every 2-D projection per output channel once at
     #: engine build and runs them through the int8 weight-only kernel
     weight_dtype: str = "bf16"
+    #: speculative decoding: a :class:`.speculative.DraftConfig` (a small
+    #: draft model and its lookahead k) replaces the decode program with
+    #: draft decode and verify; greedy tokens stay the non-speculative
+    #: engine's, sampled ones replay bit for bit
     draft: object | None = None
+    #: the global prefix cache (:mod:`.prefix_cache`): block-aligned prompt
+    #: prefixes deduplicated over the paged pool with copy-on-write block
+    #: counts; greedy tokens stay those of a cache-cold run
     prefix_cache: bool = False
+    #: host-memory budget, in KV blocks, of the prefix cache's cold tier:
+    #: evicted blocks go to host memory (bitwise) and come back on a later
+    #: hit. None reads ``PADDLE_KV_HOST_BLOCKS`` (default 0: the tier is
+    #: off and evictions drop). Ignored unless ``prefix_cache``.
     host_kv_blocks: int | None = None
 
     def __post_init__(self):
@@ -120,12 +149,21 @@ class ServeConfig:
                 "ServeConfig(nan_guard=True, draft=...) is unsupported: the nan "
                 "guard instruments the single decode program, which a "
                 "speculative engine does not run")
+        if self.draft is not None and not isinstance(self.draft, DraftConfig):
+            raise ValueError("ServeConfig.draft must be a speculative.DraftConfig "
+                             f"(got {type(self.draft).__name__})")
         for name, (default, later) in _LATER.items():
             value = getattr(self, name)
             if value != default:
                 raise NotImplementedError(
                     f"ServeConfig.{name}={value!r} comes with {later} of the "
                     f"PyTorch port; this slice serves {name}={default!r}")
+
+
+def _weak(method):
+    """``method`` called through a weak reference to its object."""
+    ref = weakref.WeakMethod(method)
+    return lambda *args: ref()(*args)
 
 
 class _Program:
@@ -176,8 +214,9 @@ class ServingEngine:
     point, :meth:`drain` stops admitting and finishes what is in flight.
     The engine runs on ``device`` (the card unless the caller asks for
     the CPU); the model's weights are moved there if needed. On the card
-    its two programs run as CUDA graphs; ``eager=True`` runs them eagerly
-    instead, as the CPU always does.
+    its programs (decode and prefill; draft decode, verify and prefill
+    for a speculative engine) run as CUDA graphs; ``eager=True`` runs them
+    eagerly instead, as the CPU always does.
     """
 
     def __init__(self, model, config: ServeConfig | None = None, *,
@@ -209,14 +248,25 @@ class ServingEngine:
             dtype=w["embed"].dtype, device=self.device)
         self._sched = Scheduler(cfg.num_lanes)
         L = cfg.num_lanes
+        self._spec = cfg.draft is not None
+        if self._spec and cfg.draft.model.config.vocab_size != m.vocab_size:
+            raise ValueError(
+                f"ServeConfig.draft.model vocab_size ({cfg.draft.model.config.vocab_size}) "
+                f"must match the target's ({m.vocab_size}): the verify compares token "
+                "distributions index for index")
+        # a speculative engine always carries the per-lane sampling state:
+        # its acceptance needs every lane's strategy and seed key
+        self._has_sampling = cfg.sampling or self._spec
         # the programs' own static inputs; the next-token ids are the host
         # mirror the scheduler edits
         lane_in = {"tok": np.zeros((L,), np.int64)}
-        if cfg.sampling:
+        if self._has_sampling:
             lane_in.update(
                 temp=np.ones((L,), np.float32), topk=np.zeros((L,), np.int32),
                 topp=np.ones((L,), np.float32), do=np.zeros((L,), np.bool_),
-                seed_keys=np.zeros((L, 2), np.int64), reseed=np.zeros((L,), np.bool_))
+                seed_keys=np.zeros((L, 2), np.int64))
+        if cfg.sampling and not self._spec:
+            lane_in["reseed"] = np.zeros((L,), np.bool_)
             # each lane's threefry key: lane state the decode program advances
             self._keys = torch.zeros((L, 2), dtype=torch.int64, device=self.device)
         self._in = Staged(self.device, **lane_in)
@@ -232,7 +282,13 @@ class ServingEngine:
         self._out_host = torch.zeros((2, L), dtype=torch.int64, pin_memory=pin)
         self._read = torch.cuda.Event() if pin else None
         graphed = self.device.type == "cuda" and not eager
-        self._decode_prog = _Program("decode", self._decode_fn, graphed)
+        if self._spec:
+            # three programs, draft decode, verify and prefill; the plain
+            # decode program is never built
+            self._init_spec(cfg.draft, graphed)
+            self._decode_prog = None
+        else:
+            self._decode_prog = _Program("decode", self._decode_fn, graphed)
         self._prefill_prog = _Program("prefill", self._prefill_fn, graphed)
         self._eos = -1 if cfg.eos_token_id is None else int(cfg.eos_token_id)
         self._requests: list = []
@@ -240,8 +296,71 @@ class ServingEngine:
         self._steps = 0
         self._prefill_chunks = 0
         self._tokens = 0
+        # the prefix cache: its fork, offload and restore are indexed
+        # copies on the engine's stream, outside the two programs' graphs
+        self._prefix = None
+        self._kv_calls = {"kv_copy": 0, "kv_offload": 0, "kv_restore": 0}
+        if cfg.prefix_cache:
+            hb = cfg.host_kv_blocks
+            if hb is None:
+                hb = max(_env_int("PADDLE_KV_HOST_BLOCKS", 0), 0)
+            self._host_kv_blocks = int(hb)
+            self._prefix = PrefixCache(self._kv, cfg.prefill_chunk,
+                                       host_blocks=self._host_kv_blocks)
+            # weakly, as the programs: no cycle keeps the pool alive
+            self._prefix.copy = _weak(self._fork_copy)
+            if self._host_kv_blocks > 0:
+                self._prefix.offload = _weak(self._offload_block)
+                self._prefix.restore = _weak(self._restore_block)
+            self._prefix_hits = self._prefix_misses = 0
 
-    # -- the two programs --------------------------------------------------
+    def _init_spec(self, draft: DraftConfig, graphed: bool):
+        cfg, dev, L = self.config, self.device, self.config.num_lanes
+        dcfg = draft.model.config
+        self._draft_cfg = dcfg
+        # the draft's weights stay unquantized, as in the reference
+        self._draft_w = map_weights(decode_weights(draft.model), lambda t: t.to(dev))
+        K = self._spec_k = draft.k
+        dhd = dcfg.hidden_size // dcfg.num_attention_heads
+        self._draft_max_len = cfg.max_seq_len + K
+        shape = (L, self._draft_max_len, dcfg.num_key_value_heads, dhd)
+        ddt = self._draft_w["embed"].dtype
+        self._draft_kv = [(torch.zeros(shape, dtype=ddt, device=dev),
+                           torch.zeros(shape, dtype=ddt, device=dev))
+                          for _ in range(dcfg.num_hidden_layers)]
+        # round state on the device: the lookahead's tokens and q, which
+        # the host never reads
+        self._toks = torch.zeros((L, K + 1), dtype=torch.int64, device=dev)
+        self._qbuf = torch.zeros((L, K, self._mcfg.vocab_size), dtype=torch.float32,
+                                 device=dev)
+        #: each lane's draft-cache depth: committed positions the dense
+        #: draft cache holds
+        self._draft_len = np.zeros((L,), np.int32)
+        # the draft program's static inputs (catch-up and every column
+        # share one graph) and the verify's live lookahead, k
+        self._dr = Staged(dev, tok_push=np.zeros((L,), np.int64), pos=np.zeros((L,), np.int64),
+                          advance=np.zeros((L,), np.bool_),
+                          round_start=np.zeros((L,), np.int64), j=np.zeros((1,), np.int64),
+                          n_draft=np.full((1,), K, np.int64))
+        # the verify's outputs, read back in one copy: k+1 tokens and the
+        # emitted count a lane
+        self._spec_out = torch.zeros((L, K + 2), dtype=torch.int64, device=dev)
+        pin = dev.type == "cuda"
+        self._spec_out_host = torch.zeros((L, K + 2), dtype=torch.int64, pin_memory=pin)
+        self._draft_step = build_draft_fn(dcfg, K, self._draft_max_len)
+        self._verify_step = build_verify_fn(self._mcfg, K, cfg.block_size,
+                                            self._kv.max_blocks_per_lane)
+        self._draft_prog = _Program("draft_decode", self._draft_fn, graphed)
+        self._verify_prog = _Program("verify", self._verify_fn, graphed)
+        self._spec_counts = {"rounds": 0, "proposed": 0, "accepted": 0}
+
+    @property
+    def _programs(self) -> list:
+        if self._spec:
+            return [self._draft_prog, self._verify_prog, self._prefill_prog]
+        return [self._decode_prog, self._prefill_prog]
+
+    # -- the programs ------------------------------------------------------
 
     def _decode_fn(self):
         """The decode program (reference ``_make_decode_fn``): one token for
@@ -264,6 +383,28 @@ class ServingEngine:
         self._out[0].copy_(nxt)
         if cfg.nan_guard:
             self._out[1].copy_(torch.isfinite(logits.float()).all(dim=-1))
+
+    def _draft_fn(self):
+        """The draft-decode program (reference ``_make_draft_fn``): one
+        draft step at the static column ``j`` for every lane."""
+        d, r = self._in.dev, self._dr.dev
+        self._draft_step(self._draft_w, r["tok_push"], self._toks, self._qbuf, self._draft_kv,
+                         r["pos"], r["advance"], d["seed_keys"], r["round_start"], r["j"],
+                         d["temp"], d["topk"], d["topp"], d["do"])
+
+    def _verify_fn(self):
+        """The verify program (reference ``_make_verify_fn``): all k+1
+        round positions of every lane in one target step over the paged
+        pool, acceptance on the device, tokens and counts to the static
+        output."""
+        d = self._in.dev
+        bt, ln, ac = self._kv.tables
+        out, n = self._verify_step(self._w, self._toks, self._kv.pages_k, self._kv.pages_v,
+                                   bt, ln, ac, d["seed_keys"], self._qbuf,
+                                   self._dr.dev["n_draft"], d["temp"], d["topk"],
+                                   d["topp"], d["do"])
+        self._spec_out[:, :-1].copy_(out)
+        self._spec_out[:, -1].copy_(n)
 
     def _prefill_fn(self):
         """The prefill program (reference ``_make_prefill_fn``): one chunk of
@@ -306,6 +447,41 @@ class ServingEngine:
                 torch.nn.functional.silu(decode_matmul(x, lw["gate"]))
                 * decode_matmul(x, lw["up"]), lw["down"])
 
+    # -- the prefix cache's device side -----------------------------------
+
+    @torch.no_grad()
+    def _fork_copy(self, shard: int, src: int, dst: int):
+        """The COW fork (``PrefixCache.copy``): block ``src`` copied into
+        ``dst`` in every layer's K and V pages, in stream order."""
+        for pages in (self._kv.pages_k, self._kv.pages_v):
+            pages[:, dst].copy_(pages[:, src])
+        self._kv_calls["kv_copy"] += 1
+
+    @torch.no_grad()
+    def _offload_block(self, shard: int, block: int):
+        """``PrefixCache.offload``: block ``block`` of every layer's K and V
+        pages copied to host memory (pinned on the card), waited for
+        before the block returns to the free list; bitwise exact."""
+        pin = self.device.type == "cuda"
+        pay = []
+        for pages in (self._kv.pages_k, self._kv.pages_v):
+            host = torch.empty(pages[:, block].shape, dtype=pages.dtype, pin_memory=pin)
+            host.copy_(pages[:, block], non_blocking=pin)
+            pay.append(host)
+        if pin:
+            torch.cuda.current_stream(self.device).synchronize()
+        self._kv_calls["kv_offload"] += 1
+        return tuple(pay)
+
+    @torch.no_grad()
+    def _restore_block(self, shard: int, payload, block: int):
+        """``PrefixCache.restore``: an offloaded payload written back into
+        block ``block``, in stream order."""
+        pin = self.device.type == "cuda"
+        for pages, host in zip((self._kv.pages_k, self._kv.pages_v), payload):
+            pages[:, block].copy_(host, non_blocking=pin)
+        self._kv_calls["kv_restore"] += 1
+
     # -- public API --------------------------------------------------------
 
     def _validate(self, prompt, max_new_tokens: int, sampling) -> None:
@@ -313,7 +489,7 @@ class ServingEngine:
             raise ValueError("prompt must hold at least one token")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if sampling is not None and not sampling.greedy and not self.config.sampling:
+        if sampling is not None and not sampling.greedy and not self._has_sampling:
             raise ValueError(
                 "non-greedy SamplingParams need an engine built with "
                 "ServeConfig(sampling=True): the sampling head is part of the "
@@ -380,7 +556,7 @@ class ServingEngine:
         step. Returns the number of tokens emitted."""
         self._admit()
         self._prefill()
-        emitted = self._decode()
+        emitted = self._decode_spec() if self._spec else self._decode()
         self._steps += 1
         return emitted
 
@@ -423,7 +599,7 @@ class ServingEngine:
         return self._steps
 
     def stats(self) -> dict:
-        return {
+        out = {
             "steps": self._steps,
             "waiting": len(self._sched.waiting),
             "occupied_lanes": len(self._sched.occupied_lanes()),
@@ -433,33 +609,70 @@ class ServingEngine:
             "tokens": self._tokens,
             "weight_dtype": self.config.weight_dtype,
             "device": str(self.device),
-            "captures": {p.name: p.captures
-                         for p in (self._decode_prog, self._prefill_prog)},
-            "program_calls": {p.name: p.calls
-                              for p in (self._decode_prog, self._prefill_prog)},
+            "captures": {p.name: p.captures for p in self._programs},
+            "program_calls": {p.name: p.calls for p in self._programs},
         }
+        if self._spec:
+            sc = self._spec_counts
+            out["spec"] = dict(sc, k=self._spec_k, accept_rate=(
+                sc["accepted"] / sc["proposed"] if sc["proposed"] else 0.0))
+        if self._prefix is not None:
+            looked = self._prefix_hits + self._prefix_misses
+            out["prefix_cache"] = dict(
+                self._prefix.stats(), shared_blocks=self._kv.shared_blocks,
+                host_budget=self._host_kv_blocks, hits=self._prefix_hits,
+                misses=self._prefix_misses,
+                hit_frac=self._prefix_hits / looked if looked else 0.0)
+            out["kv_calls"] = dict(self._kv_calls)
+        return out
 
     # -- scheduler phases --------------------------------------------------
 
     def _admit(self):
+        pc = self._prefix
+
         def can(req, lane):
-            return self._kv.can_admit(len(req.prompt) + req.max_new_tokens)
+            # full reservation; with the prefix cache a matched chain's
+            # resident blocks cost no fresh block, so a hit admits where a
+            # cold request of its length could not
+            total = len(req.prompt) + req.max_new_tokens
+            s = self._kv.shard_of(lane)
+            if pc is not None:
+                plan = pc.match(req.prompt, total, s)
+                if plan is not None:
+                    return pc.admissible(plan, total)
+            return self._kv.can_admit(total, shard=s)
 
         for req, lane in self._sched.pick_admissions(can):
             total = len(req.prompt) + req.max_new_tokens
-            if not self._kv.can_admit(total):
+            s = self._kv.shard_of(lane)
+            # match again: the probe judged the whole batch before any
+            # allocation, so its verdicts can be stale within the batch
+            plan = pc.match(req.prompt, total, s) if pc is not None else None
+            ok = (pc.admissible(plan, total) if plan is not None
+                  else self._kv.can_admit(total, shard=s))
+            if not ok:
                 # an earlier admission of this batch took the blocks the
                 # probe counted on: requeue untouched
                 self._sched.release(lane)
                 self._sched.submit(req)
                 continue
-            self._kv.allocate_lane(lane, total)
-            req.prefill_pos = 0
+            if plan is not None:
+                prefix_blocks, owned = pc.take(plan)
+                self._kv.allocate_lane(lane, total, prefix=prefix_blocks,
+                                       prefix_owned=owned)
+                req.prefill_pos = min(plan.tokens, len(req.prompt) - 1)
+                self._prefix_hits += 1
+            else:
+                self._kv.allocate_lane(lane, total)
+                req.prefill_pos = 0
+                if pc is not None:
+                    self._prefix_misses += 1
             req.status = PREFILLING
             req.admit_time = time.perf_counter()
-            if self.config.sampling:
+            if self._has_sampling:
                 self._seed_lane(lane, req)
-            if len(req.prompt) == 1:
+            if req.prefill_pos >= len(req.prompt) - 1:
                 self._activate(lane, req)
 
     def _seed_lane(self, lane: int, req: Request):
@@ -474,7 +687,8 @@ class ServingEngine:
         h["topk"][lane] = 0 if greedy else int(sp.top_k)
         h["topp"][lane] = 1.0 if greedy else float(sp.top_p)
         h["seed_keys"][lane] = R.prng_key(0 if sp is None else sp.seed).numpy()
-        h["reseed"][lane] = True
+        if "reseed" in h:
+            h["reseed"][lane] = True
         self._samp_dirty = True
 
     def _activate(self, lane: int, req: Request):
@@ -484,6 +698,11 @@ class ServingEngine:
         req.status = RUNNING
         self._kv.lengths[lane] = len(req.prompt) - 1
         self._lane_tok[lane] = req.prompt[-1]
+        if self._spec:
+            # the dense draft cache is rebuilt from position 0 by the
+            # catch-up replay; a former occupant's bytes lie past every
+            # query's mask
+            self._draft_len[lane] = 0
 
     def _prefill(self):
         budget = int(self.config.max_prefill_chunks_per_step)
@@ -556,10 +775,108 @@ class ServingEngine:
         self._tokens += emitted
         return emitted
 
+    def _dispatch_draft(self, tok_push, adv, pos, j: int, round_start):
+        """One draft-decode call: the same graph for catch-up and every
+        lookahead column (``j`` is a static input buffer)."""
+        h = self._dr.host
+        h["tok_push"][...] = tok_push
+        h["advance"][...] = adv
+        h["pos"][...] = pos
+        h["round_start"][...] = round_start
+        h["j"][0] = j
+        self._dr.push()
+        self._draft_prog()
+
+    @torch.no_grad()
+    def _decode_spec(self) -> int:
+        """One speculative round (reference ``_decode_spec``): catch-up
+        replays until each lane's draft cache holds its committed length,
+        k draft calls ahead, one verify of all k+1 positions, then the host
+        harvest. ``lengths`` advances by the accepted count only: that is
+        the rollback. The live lookahead is ``DraftConfig.k``, the
+        reference's value when its ``serve.spec_k`` autopilot knob is unset
+        (the port has no autopilot)."""
+        running = self._sched.running_lanes()
+        if not running:
+            return 0
+        kv = self._kv
+        kv.active[...] = False
+        kv.active[running] = True
+        if self._samp_dirty:
+            self._in.push()
+            self._samp_dirty = False
+        K = nd = self._spec_k
+        L = self.config.num_lanes
+        # catch-up: committed tokens stream through the draft program until
+        # each lane's dense cache reaches its round-start length (a fresh
+        # admission replays its prompt; after a round that accepted
+        # everything the deficit is the bonus token alone)
+        while True:
+            adv = np.zeros((L,), np.bool_)
+            tok_push = np.zeros((L,), np.int64)
+            pos = np.zeros((L,), np.int64)
+            for lane in running:
+                dl = int(self._draft_len[lane])
+                if dl < int(kv.lengths[lane]):
+                    req = self._sched.lanes[lane]
+                    tok_push[lane] = (req.prompt + req.generated)[dl]
+                    pos[lane] = dl
+                    adv[lane] = True
+            if not adv.any():
+                break
+            self._dispatch_draft(tok_push, adv, pos, 0, kv.lengths)
+            self._draft_len[adv] += 1
+        # k steps ahead: step j reads step j-1's proposal on the device
+        L0 = kv.lengths.astype(np.int64)
+        for j in range(nd):
+            self._dispatch_draft(self._lane_tok, kv.active, L0 + j, j, L0)
+        kv.device_tables()
+        self._verify_prog()
+        self._spec_out_host.copy_(self._spec_out, non_blocking=self._read is not None)
+        if self._read is not None:
+            self._read.record()
+            self._read.synchronize()
+        res = self._spec_out_host.numpy()
+        now = time.perf_counter()
+        emitted = accepted = 0
+        for lane in running:
+            req = self._sched.lanes[lane]
+            m = int(res[lane, K + 1])
+            accepted += m - 1
+            took, last, retired = 0, 0, False
+            for t in res[lane, :m]:
+                t = int(t)
+                req.generated.append(t)
+                took += 1
+                last = t
+                if len(req.generated) == 1:
+                    req.first_token_time = now
+                if t == self._eos or len(req.generated) >= req.max_new_tokens:
+                    retired = True
+                    break
+            emitted += took
+            if retired:
+                self._retire(lane, req)
+            else:
+                kv.lengths[lane] += took
+                self._draft_len[lane] = int(L0[lane]) + min(nd, took)
+                self._lane_tok[lane] = last
+        sc = self._spec_counts
+        sc["rounds"] += 1
+        sc["proposed"] += nd * len(running)
+        sc["accepted"] += max(accepted, 0)
+        self._tokens += emitted
+        return emitted
+
     def _retire(self, lane: int, req: Request):
         req.status = DONE
         req.finished_step = self._steps
         req.finish_time = time.perf_counter()
+        if self._prefix is not None:
+            # donate the lane's prefill-written blocks before their counts
+            # drop: the cache retains them as they reach 0
+            self._prefix.insert(req.prompt, self._kv.shard_of(lane),
+                                self._kv.lane_blocks(lane))
         self._kv.free_lane(lane)
         self._sched.release(lane)
 

@@ -10,6 +10,15 @@
 - :func:`prefill_attend` is the multi-query flavour of chunked prefill:
   the C tokens of one lane's chunk attend causally over that lane's
   gathered window. It stays composed, as in the reference.
+- :func:`window_attend` is the speculative verify's flavour: every lane's
+  C positions attend over its own gathered window at once (composed, as
+  in the reference).
+
+The pool is read only through the block tables, so lanes whose tables
+alias the same pages (prefix-cache hits) read them as their own; the only
+writes are ``append`` at each lane's ``lengths`` and the prefill and
+verify scatters past every shared block (the engine forks a shared block
+a lane would write before the lane activates).
 """
 
 from __future__ import annotations
@@ -18,7 +27,7 @@ import torch
 
 from ...ops.paged_attention import paged_decode_attention
 
-__all__ = ["PagedKVView", "gather_lane_window", "prefill_attend"]
+__all__ = ["PagedKVView", "gather_lane_window", "prefill_attend", "window_attend"]
 
 
 def gather_lane_window(pages, block_table):
@@ -77,5 +86,22 @@ def prefill_attend(q, kc, vc, qpos):
     s = torch.arange(kc.shape[1], device=q.device)
     visible = s[None, :] <= qpos[:, None]                     # [C, S]
     logits = logits.masked_fill(~visible[None, None, :, :], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", probs, vfull)
+
+
+def window_attend(q, kc, vc, visible):
+    """Multi-query attention for every lane at once: each lane's C
+    positions against its own gathered window. q [b, C, H, hd]; kc/vc
+    [b, S, Hk, hd]; visible [b, C, S] bool. Logits scaled by 1/sqrt(hd),
+    softmax in f32, probabilities cast to q's dtype. Returns
+    [b, C, H, hd]."""
+    H, hd = q.shape[2], q.shape[3]
+    rep = H // kc.shape[2]
+    kfull = kc.repeat_interleave(rep, dim=2) if rep > 1 else kc
+    vfull = vc.repeat_interleave(rep, dim=2) if rep > 1 else vc
+    scale = 1.0 / float(hd) ** 0.5
+    logits = torch.einsum("bqhd,bshd->bhqs", q, kfull).float() * scale
+    logits = logits.masked_fill(~visible[:, None, :, :], -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqs,bshd->bqhd", probs, vfull)

@@ -21,8 +21,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["prng_key", "split", "threefry2x32", "random_bits", "uniform", "gumbel",
-           "categorical", "filter_logits"]
+__all__ = ["prng_key", "split", "fold_in", "threefry2x32", "random_bits", "uniform",
+           "gumbel", "categorical", "filter_logits"]
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -70,6 +70,22 @@ def split(key, num: int = 2) -> torch.Tensor:
     hi, lo = _counters(num, key.device)
     b1, b2 = threefry2x32(key[..., 0:1], key[..., 1:2], hi, lo)
     return torch.stack((b1, b2), dim=-1)
+
+
+def fold_in(key, data) -> torch.Tensor:
+    """``fold_in``: keys ``[..., 2]`` and 32-bit data (an int, or a tensor
+    broadcast against ``key.shape[:-1]``) -> new keys: the hash of the
+    counter pair (0, data mod 2^32) under each key, the reference's bits
+    for every (key, data). An int stays a Python scalar (no host-to-device
+    copy, so a CUDA graph can hold the fold)."""
+    if isinstance(data, int):
+        hi = 0
+        data &= M32
+    else:
+        data = data.long() & M32
+        hi = torch.zeros_like(data)
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], hi, data)
+    return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
 def random_bits(key, shape) -> torch.Tensor:

@@ -24,9 +24,12 @@ around the M = 64 switch and at the smallest K and N, dX's determinism,
 f32 activations on all three int8 kernels (the weight stream, and the
 split into three bf16 pieces), SwiGLU at odd sizes, the ring's lse merge
 in bf16, fp16 and f32 at head_dim 8 to 256, small rings against the full
-flash kernel (bf16, and f32 and ragged shards through the gate), and the
+flash kernel (bf16, and f32 and ragged shards through the gate), the
 checks that refuse
-what a kernel does not take.
+what a kernel does not take; and the paths of the prefix cache and of
+speculative decoding: paged attention over block tables whose lanes alias
+pages, the weight stream at the speculative verify's M = 40, and both
+engines graphed against eager.
 """
 
 import numpy as np
@@ -1204,3 +1207,189 @@ def test_graphed_engine_nan_guard_and_fp16_int8(dev):
     got, eng = _serve(m16, eager=False, weight_dtype="int8")
     want, _ = _serve(m16, eager=True, weight_dtype="int8")
     assert got == want and qm.int8_matmul.launches > s0
+
+
+def _aliased_tables(dev, lanes, MB, shared, nb, seed):
+    """Block tables as the prefix cache leaves them: the first ``shared``
+    entries of every lane are the same pages, lane 1 holds a private fork
+    of the last shared page, the rest of each row is private."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    pages = torch.randperm(nb - 1, generator=g, device=dev) + 1
+    table = torch.zeros((lanes, MB), dtype=torch.int32, device=dev)
+    table[:, :shared] = pages[:shared].int()
+    rest = pages[shared:]
+    for b in range(lanes):
+        table[b, shared:] = rest[b * (MB - shared):(b + 1) * (MB - shared)].int()
+    table[1, shared - 1] = int(rest[lanes * (MB - shared)])
+    return table
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("lengths", [[600, 511, 700, 531, 1000, 520, 512, 640],
+                                     [511, 40, 511, 600, 0, 1023, 512, 513]])
+def test_paged_attention_over_aliased_pages(dev, dtype, lengths):
+    """The prefix cache's tables: 8 lanes share a 32-page system prompt,
+    one lane holds a fork of its last page. The kernel reads pages only
+    through the table and keys its split scratch and tickets by (lane, KV
+    head, pass), so it gives the plain version's output within ATTN_ATOL,
+    twice bit for bit, and inside a captured graph."""
+    lanes, H, Hk, hd, bs, MB = 8, 32, 8, 128, 16, 64
+    nb = 1 + 32 + lanes * (MB - 32) + 1
+    g = torch.Generator(device=dev)
+    g.manual_seed(len(lengths) + hd)
+    pk = torch.randn((nb, bs, Hk, hd), generator=g, device=dev).to(dtype)
+    pv = torch.randn((nb, bs, Hk, hd), generator=g, device=dev).to(dtype)
+    table = _aliased_tables(dev, lanes, MB, 32, nb, seed=3)
+    q = torch.randn((lanes, H, hd), generator=g, device=dev).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    first = pa.paged_decode_attention(q, pk, pv, table, ln)
+    again = pa.paged_decode_attention(q, pk, pv, table, ln)
+    want = pa.paged_decode_attention_ref(q, pk, pv, table, ln)
+    assert torch.equal(first, again)
+    assert (first.float() - want.float()).abs().max().item() <= ATTN_ATOL[dtype]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_decode_attention(q, pk, pv, table, ln)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_decode_attention(q, pk, pv, table, ln)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("K,N", STREAM_SHAPES)
+def test_int8_stream_at_the_verify_rows(dev, dtype, K, N):
+    """M = 40: the verify program's rows (8 lanes x (k + 1), k = 4), one
+    weight-stream launch a call, against the plain version."""
+    M = 40
+    g = torch.Generator(device=dev)
+    g.manual_seed(K + N + (dtype == torch.float16))
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    w = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand((N,), generator=g, device=dev) * 0.02 + 1e-3
+    before = (qm.int8_matmul.launches, qm.int8_matmul_large_m.launches)
+    got = qm.int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert (qm.int8_matmul.launches, qm.int8_matmul_large_m.launches) == \
+        (before[0] + 1, before[1])
+    want = qm.int8_matmul_ref(x, w, s)
+    rtol = GEMM_RTOL if dtype == torch.bfloat16 else GEMM_FP16_RTOL
+    diff = (got.float() - want.float()).abs()
+    tol = rtol * want.float().abs() + GEMM_ATOL_FRAC * want.float().abs().max()
+    assert got.dtype == dtype and bool((diff <= tol).all()), diff.max().item()
+
+
+def _device_kernels(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _prefix_trace(model, eager, **cfg):
+    """A shared 48-token prompt (3 blocks) opened by most requests, one
+    that is the shared prompt alone (a COW fork), a 100-token unrelated
+    prompt between (in a pool of 8 blocks it pushes the cache out);
+    requests served one at a time, so the decode batches of any two
+    engines match (the kernel's split schedule depends on every lane's
+    length)."""
+    from paddle_tpu_torch.inference.serving import ServeConfig, ServingEngine
+
+    eng = ServingEngine(model, ServeConfig(num_lanes=3, block_size=16, max_seq_len=128,
+                                           prefill_chunk=16, **cfg), eager=eager)
+    rng = np.random.RandomState(1)
+    shared = rng.randint(1, 512, 48).tolist()
+    prompts = [shared + rng.randint(1, 512, n).tolist() for n in (5, 17)]
+    prompts += [rng.randint(1, 512, 100).tolist(), shared, shared + [7, 8]]
+    out = []
+    for p in prompts:
+        r = eng.submit(p, 8)
+        eng.run()
+        out.append((r.status, r.generated))
+    return out, eng
+
+
+@pytest.mark.parametrize("cfg", [dict(), dict(weight_dtype="int8"),
+                                 dict(num_blocks=9, host_kv_blocks=8),
+                                 dict(num_blocks=9, host_kv_blocks=0)])
+def test_graphed_prefix_cache_engine(dev, cfg):
+    """The prefix cache on the card: hits, a fork, and with an 8-block pool
+    evictions to the host and restores (or drops), through the two graphs
+    (one capture each), bit for bit equal to the eager engine and to a
+    cache-cold graphed engine; paged attention once a layer a decode call
+    (device trace)."""
+    model = _tiny_engine_model(dev)
+    cold, _ = _prefix_trace(model, eager=False, **{k: v for k, v in cfg.items()
+                                                   if k != "host_kv_blocks"})
+    want, eager = _prefix_trace(model, eager=True, prefix_cache=True, **cfg)
+    got, ks = _device_kernels(lambda: _prefix_trace(model, eager=False, prefix_cache=True,
+                                                    **cfg))
+    got, eng = got
+    assert got == want == cold and all(s == "done" for s, _ in got)
+    st = eng.stats()
+    assert st["captures"] == {"decode": 1, "prefill": 1}
+    pc = st["prefix_cache"]
+    assert pc["hits"] >= 3 and (pc["forks"] >= 1 or cfg.get("host_kv_blocks") == 0)
+    assert st["kv_calls"]["kv_restore"] == pc["restores"]
+    assert st["kv_calls"]["kv_offload"] == pc["evictions_host"]
+    if cfg.get("host_kv_blocks"):
+        assert pc["evictions_host"] >= 1 and pc["restores"] >= 1
+    elif "num_blocks" in cfg:
+        assert pc["evictions_drop"] >= 1
+    layers = model.config.num_hidden_layers
+    assert sum("paged_decode_kernel" in n for n in ks) == layers * st["program_calls"]["decode"]
+    eng._kv.audit(eng._prefix.cached_blocks)
+
+
+@pytest.mark.parametrize("cfg", [dict(), dict(sampling=True), dict(weight_dtype="int8")])
+def test_graphed_speculative_engine(dev, cfg):
+    """Draft decode, verify and prefill as CUDA graphs (one capture each)
+    against the same programs run eagerly: identical streams; greedy
+    tokens equal to the non-speculative graphed engine's in f32 (TF32
+    off); with int8 the weight stream once a projection in each verify and
+    prefill call (the draft stays unquantized) and no other int8 kernel."""
+    from paddle_tpu_torch.inference.serving.speculative import DraftConfig
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    model = _tiny_engine_model(dev)
+    draft = LlamaForCausalLM(LlamaConfig.tiny(vocab_size=512, hidden_size=128,
+                                              intermediate_size=256, num_hidden_layers=1,
+                                              num_attention_heads=2, num_key_value_heads=1),
+                             device=dev, dtype=torch.bfloat16, seed=2)
+    dc = DraftConfig(draft, 3)
+    want, eager = _serve(model, eager=True, draft=dc, **cfg)
+    (got, eng), ks = _device_kernels(lambda: _serve(model, eager=False, draft=dc, **cfg))
+    assert got == want and all(s == "done" for s, _ in got)
+    assert eng.stats()["captures"] == {"draft_decode": 1, "verify": 1, "prefill": 1}
+    calls = eng.stats()["program_calls"]
+    assert calls == eager.stats()["program_calls"]
+    assert not any("paged_decode" in n for n in ks)
+    layers = model.config.num_hidden_layers
+    head = int(isinstance(eng._w["lm_head"], dict))
+    want_stream = ((7 * layers + head) * calls["verify"] + 7 * layers * calls["prefill"]
+                   if cfg.get("weight_dtype") == "int8" else 0)
+    assert sum("int8_stream_kernel" in n for n in ks) == want_stream
+    assert not any("int8_tc_kernel" in n for n in ks)
+
+
+def test_speculative_f32_greedy_equals_the_plain_engine(dev):
+    from paddle_tpu_torch.inference.serving.speculative import DraftConfig
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = _tiny_engine_model(dev, torch.float32)
+        base, _ = _serve(model, eager=False)
+        spec, eng = _serve(model, eager=False, draft=DraftConfig(model, 4))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert spec == base
+    assert eng.stats()["spec"]["accept_rate"] >= 0.9

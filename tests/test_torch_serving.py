@@ -225,8 +225,6 @@ class TestValidation:
 
     @pytest.mark.parametrize("field, value, slice_name", [
         ("lane_shards", 2, "sharding"), ("weight_shards", 2, "sharding"),
-        ("draft", object(), "speculative"), ("prefix_cache", True, "prefix-cache"),
-        ("host_kv_blocks", 4, "prefix-cache"),
     ])
     def test_later_slice_fields_raise(self, field, value, slice_name):
         with pytest.raises(NotImplementedError, match=slice_name):
