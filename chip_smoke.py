@@ -104,7 +104,8 @@ Phases, each printing one line of numbers:
    tokens, bf16, ``AdamW(3e-4, weight_decay=0.1)`` with global-norm
    clipping in ``TrainStep``: one warm-up and three timed steps, finite
    losses, exact launch counts (flash forward and backward once per layer
-   per step, RMSNorm forward and backward 2 L + 1 times), step time,
+   per step, RMSNorm forward and backward 2 L + 1 times, the fused
+   optimizer once per step, as in phases 10, 13 and 14), step time,
    tokens/s, model FLOPs share of bf16 peak, peak memory, and one profiled
    step's device-busy share;
 8. fine-tuning kernels: the int8 GEMM's tensor-core kernel (wgmma fed by
@@ -197,7 +198,16 @@ Phases, each printing one line of numbers:
    window runs the weight stream exactly 225 times a verify call and no
    other int8 kernel; and the f32 self-draft control (draft = target, 2
    layers of full width, TF32 off): tokens equal to the non-speculative
-   f32 engine's at an accept rate of at least 0.95.
+   f32 engine's at an accept rate of at least 0.95;
+17. the fused optimizer step: phase 7's AdamW (weight decay 0.1,
+   global-norm clip 1.0) over phase 7's 39 bf16 tensors (1,923,125,248
+   parameters), the same seeded gradients to ``Optimizer.step()`` in its
+   fused regime (the multi-tensor kernel, ``csrc/fused_optimizer.cu``) and
+   in the per-parameter regime (``PADDLE_OPT_FUSED=0``, the card's
+   composed update): parameters and moments bit for bit after each of 3
+   steps, one launch a step; then the update alone timed (CUDA events
+   around eager calls) beside its byte bound, its plain version, both
+   whole steps and ``torch.optim.AdamW(fused=True)`` on the same tensors.
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -215,7 +225,8 @@ the fp16 int8 engine, the fp16 tensor-core kernel and the wide kernels
 from phase 2's calls, RMSNorm's ``round_first`` mode from the three timed
 training steps; paged attention over the prefix cache's tables from phase
 15's traced window, the weight stream at the verify's M = 40 from phase
-16's), and last ``{"ok": true,
+16's; the fused optimizer from the three timed training steps of phase 7,
+with its numbers from phase 17), and last ``{"ok": true,
 "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
@@ -1777,6 +1788,7 @@ KERNEL_KINDS = (("paged attention (port)", ("paged_decode_kernel",)),
                 ("int8 forward (port)", ("int8_tc_kernel<false",)),
                 ("int8 dX (port)", ("int8_tc_kernel<true", "prepass_kernel")),
                 ("swiglu (port)", ("swiglu_fwd_kernel", "swiglu_bwd_kernel")),
+                ("fused optimizer (port)", ("multi_tensor_update_kernel",)),
                 ("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
                 ("sort (sampling)", ("sort",)),
                 ("softmax / cross entropy", ("softmax", "nll_loss", "log_softmax")),
@@ -3252,6 +3264,7 @@ def training_counters() -> dict:
     rounding mode of its ``by_mode``."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import fused_optimizer as fo
     from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops import ring_flash as rf
 
@@ -3264,7 +3277,8 @@ def training_counters() -> dict:
                 ("rms_norm_fwd", fn.rms_norm_fwd), ("rms_norm_bwd_dx", fn.rms_norm_bwd_dx),
                 ("int8_matmul", qm.int8_matmul), ("int8_matmul_large_m", qm.int8_matmul_large_m),
                 ("int8_matmul_dx", qm.int8_matmul_dx), ("int8_prepass", qm.int8_prepass),
-                ("ring_merge", rf.ring_merge))}}
+                ("ring_merge", rf.ring_merge),
+                ("multi_tensor_update", fo.multi_tensor_update))}}
 
 
 def read_counts(counters: dict) -> dict:
@@ -3284,11 +3298,16 @@ def expected_launches(layers: int, int8: bool = False, ring: int = 0,
     route (head_dim 128); RMSNorm forward and backward twice per
     layer and once for the final norm; with int8-frozen projections, the
     tensor-core forward and dX once per projection (7 per layer), and never
-    the weight stream. ``traced``: the step is a TrainStep (RMSNorm in its
-    round_first mode), not an eager forward and backward."""
+    the weight stream; a TrainStep's AdamW one fused optimizer launch for
+    every MAX_TENSORS trainable tensors (9 a layer, the embedding, the final
+    norm and the head; with int8-frozen projections 2 a layer and those 3).
+    ``traced``: the step is a TrainStep (RMSNorm in its round_first mode,
+    the optimizer's update), not an eager forward and backward."""
     from paddle_tpu_torch.ops.flash_attention import ROUTES
+    from paddle_tpu_torch.ops.fused_optimizer import MAX_TENSORS
 
     proj = 7 * layers if int8 else 0
+    tensors = (2 if int8 else 9) * layers + 3
     flash = layers * max(ring, 1)
     route = "f32" if f32 else "wgmma"
     return {**{f"flash_{r}_{d}": flash if r == route else 0
@@ -3299,7 +3318,8 @@ def expected_launches(layers: int, int8: bool = False, ring: int = 0,
             **{f"rms_norm_{d}_{mode}": (2 * layers + 1) * (traced == (mode == "round_first"))
                for d in ("fwd", "bwd_dx") for mode in ("fused", "round_first")},
             "int8_matmul": 0, "int8_matmul_large_m": proj, "int8_matmul_dx": proj,
-            "int8_prepass": proj, "ring_merge": layers * max(ring - 1, 0)}
+            "int8_prepass": proj, "ring_merge": layers * max(ring - 1, 0),
+            "multi_tensor_update": math.ceil(tensors / MAX_TENSORS) if traced else 0}
 
 
 def quantize_projections(model):
@@ -3320,13 +3340,15 @@ def quantize_projections(model):
 
 @contextlib.contextmanager
 def plain_kernels(tf32_flash: bool = False):
-    """Route the training ops' autograd functions to the plain versions for
-    the reference path of phases 6, 9 and 14. The package has no such
+    """Route the training ops' autograd functions, and the fused optimizer
+    update, to the plain versions for the reference path of phases 6, 9
+    and 14. The package has no such
     switch: a CUDA tensor always reaches the kernel. With ``tf32_flash`` the
     plain flash versions take their f32 products in TF32 (phase 14's
     control)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import fused_optimizer as fo
     from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops import ring_flash as rf
 
@@ -3345,7 +3367,8 @@ def plain_kernels(tf32_flash: bool = False):
              (fn, "rms_norm_bwd_dx", fn.rms_norm_bwd_dx_ref),
              (qm, "int8_matmul", qm.int8_matmul_ref),
              (qm, "int8_matmul_dx", qm.int8_matmul_dx_ref),
-             (rf, "ring_merge", rf.ring_merge_plain))
+             (rf, "ring_merge", rf.ring_merge_plain),
+             (fo, "multi_tensor_update", fo.multi_tensor_update_plain))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -3651,6 +3674,163 @@ def train(seed: int, int8: bool = False, ring: int = 0, f32: bool = False,
             "device_busy_share": busy / wall if busy else None}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the fused optimizer step at phase 7's tensors
+# ---------------------------------------------------------------------------
+
+OPT_STEPS = 3
+OPT_WD, OPT_CLIP = 0.1, 1.0
+# the seeded gradients' scale: their global norm (~4.4 over phase 7's 1.9e9
+# parameters) exceeds OPT_CLIP, so the clip's scale is applied
+OPT_GRAD_STD = 1e-4
+# f32 operations an element of the AdamW update with the clip: the clip's
+# product, the decay's, 3 for m, 4 for v, then v / c2, sqrt, + eps, m / c1,
+# * lr, / den and p - step
+OPT_FLOPS_PER_ELEMENT = 16
+
+
+def llama_shapes(cfg) -> list:
+    """The trainable tensors' shapes of a Llama of ``cfg`` (untied head),
+    in ``named_parameters()`` order."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * (h // cfg.num_attention_heads)
+    layer = [(h, h), (h, kv), (h, kv), (h, h), (h, f), (h, f), (f, h), (h,), (h,)]
+    return [(cfg.vocab_size, h)] + layer * cfg.num_hidden_layers + [(h,), (h, cfg.vocab_size)]
+
+
+@contextlib.contextmanager
+def opt_regime(value: str):
+    """``PADDLE_OPT_FUSED=value`` inside the block: "1" the fused step,
+    "0" the per-parameter loop."""
+    import os
+
+    saved = os.environ.get("PADDLE_OPT_FUSED")
+    os.environ["PADDLE_OPT_FUSED"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("PADDLE_OPT_FUSED", None)
+        else:
+            os.environ["PADDLE_OPT_FUSED"] = saved
+
+
+def update_bytes(entries) -> int:
+    """Bytes one multi-tensor update must move: every operand read once,
+    every result written once (parameter, state, low-precision copy)."""
+    total = 0
+    for e in entries:
+        state = sum(v.element_size() for v in e.state.values())
+        low = 0 if e.low is None else e.low.element_size()
+        total += e.param.numel() * (2 * e.param.element_size() + e.grad.element_size()
+                                    + 2 * state + low)
+    return total
+
+
+def check_fused_optimizer(seed: int) -> dict:
+    """Phase 17: phase 7's AdamW (LR, weight decay OPT_WD, global-norm clip
+    OPT_CLIP) over phase 7's trainable tensors in bf16, the same seeded
+    gradients to two optimizers: ``Optimizer.step()`` in the fused regime
+    (the multi-tensor kernel) against the per-parameter regime
+    (``PADDLE_OPT_FUSED=0``, the card's composed update), parameters and
+    moments equal bit for bit after each of OPT_STEPS steps, with the
+    kernel's launches. Then the update alone is timed (CUDA events around
+    eager calls: its metadata goes through pinned memory each call, so it
+    is not replayed as a graph) beside its byte bound, its plain version on
+    the same entries, the whole fused step and the per-parameter step
+    (clip included), and ``torch.optim.AdamW(fused=True)`` on the same
+    tensors (timed only: it rounds each element once, not per op)."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.clip import global_norm_scale
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    from paddle_tpu_torch.optimizer import AdamW
+
+    shapes = llama_shapes(LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 17)
+    kern = [torch.nn.Parameter((0.02 * torch.randn(s, generator=gen, device="cuda")).bfloat16())
+            for s in shapes]
+    comp = [torch.nn.Parameter(p.detach().clone()) for p in kern]
+    n_params = sum(p.numel() for p in kern)
+
+    def make(ps):
+        return AdamW(LR, parameters=ps, weight_decay=OPT_WD,
+                     grad_clip=ClipGradByGlobalNorm(OPT_CLIP))
+
+    opts = {"kernel": make(kern), "composed": make(comp)}
+    launched = []
+    for _ in range(OPT_STEPS):
+        for pk, pc in zip(kern, comp):
+            pk.grad = (OPT_GRAD_STD * torch.randn(pk.shape, generator=gen,
+                                                  device="cuda")).bfloat16()
+            pc.grad = pk.grad.clone()
+        before = fo.multi_tensor_update.launches
+        with opt_regime("1"):
+            opts["kernel"].step()
+        launched.append(fo.multi_tensor_update.launches - before)
+        with opt_regime("0"):
+            opts["composed"].step()
+        if fo.multi_tensor_update.launches - before != launched[-1]:
+            raise AssertionError("the per-parameter regime launched the fused kernel")
+        torch.cuda.synchronize()
+        for i, (pk, pc) in enumerate(zip(kern, comp)):
+            sk, sc = opts["kernel"]._accumulators[id(pk)], opts["composed"]._accumulators[id(pc)]
+            for name, a, b in (("param", pk, pc), ("m", sk["m"], sc["m"]), ("v", sk["v"], sc["v"])):
+                if not torch.equal(a.detach().view(torch.int16), b.detach().view(torch.int16)):
+                    raise AssertionError(f"fused optimizer: {name} of tensor {i} "
+                                         f"{tuple(pk.shape)} differs from the composed update "
+                                         f"after step {len(launched)}")
+    want = math.ceil(len(kern) / fo.MAX_TENSORS)
+    if launched != [want] * OPT_STEPS:
+        raise AssertionError(f"fused optimizer launched {launched} a step, expected {want}")
+    max_err = max((pk.detach().float() - pc.detach().float()).abs().max().item()
+                  for pk, pc in zip(kern, comp))
+
+    # timing: the per-parameter and the fused step, then the update alone
+    opt = opts["kernel"]
+    with opt_regime("0"):
+        composed_step = eager_ms(lambda i: opts["composed"].step(), 1, iters=5, warmup=1)
+    for p in comp:
+        p.grad = None
+    del opts["composed"], comp
+    torch.cuda.empty_cache()
+    with opt_regime("1"):
+        fused_step_ms = eager_ms(lambda i: opt.step(), 1, iters=10, warmup=2)
+    scale = global_norm_scale(OPT_CLIP, [p.grad for p in kern], [True] * len(kern))
+    entries = [fo.Entry(p.detach(), p.grad, opt._accumulators[id(p)], LR, opt._hyper(), scale)
+               for p in kern]
+    lay = fo.layout(AdamW, entries)
+    t = opt._step_count + 1
+    ms = eager_ms(lambda i: fo.multi_tensor_update(AdamW, entries, t, lay), 1, iters=10,
+                  warmup=2)
+    plain = eager_ms(lambda i: fo.multi_tensor_update_plain(AdamW, entries, t), 1, iters=5,
+                     warmup=1)
+    nbytes = update_bytes(entries)
+    bound, bound_by = bound_ms(nbytes, OPT_FLOPS_PER_ELEMENT * n_params, F32_FLOP_PER_S)
+    del entries, lay, opt, opts
+    lib = torch.optim.AdamW(kern, lr=LR, weight_decay=OPT_WD, fused=True)
+    library = eager_ms(lambda i: lib.step(), 1, iters=10, warmup=2)
+    out = {"max_abs_err": max_err, "ms": round(ms, 5), "plain_ms": round(plain, 5),
+           "bound_ms": round(bound, 5), "bound_by": bound_by, "library_ms": round(library, 5),
+           "at": f"one AdamW update (lr {LR}, weight decay {OPT_WD}, the global-norm clip's "
+                 f"scale applied) of phase 7's {len(kern)} bf16 tensors ({n_params} "
+                 f"parameters, {TRAIN_LAYERS} layers at Llama-3-8B widths); held bit for bit "
+                 f"against the composed per-parameter update over {OPT_STEPS} steps; "
+                 "library_ms is torch.optim.AdamW(fused=True) on the same tensors"}
+    say("fused-optimizer", tensors=len(kern), params=n_params, steps_held_bit_for_bit=OPT_STEPS,
+        launches_per_step=json.dumps(launched), max_abs_err=max_err, ms=out["ms"],
+        bound_ms=out["bound_ms"], bound_by=bound_by, bound_share=round(bound / ms, 4),
+        update_gb=round(nbytes / 1e9, 3), plain_ms=out["plain_ms"],
+        fused_step_ms=round(fused_step_ms, 5), composed_step_ms=round(composed_step, 5),
+        library_ms=out["library_ms"], library_ratio=round(ms / library, 4))
+    del lib, kern
+    torch.cuda.empty_cache()
+    return out
+
+
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
 
 
@@ -3918,6 +4098,8 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
     lap("16")
+    fused_opt = check_fused_optimizer(args.seed)
+    lap("17")
 
     kernels = [
         {"name": "paged_decode_attention", "route": "cuda",
@@ -4046,6 +4228,13 @@ def main(argv=None) -> int:
               f"k + 1 = {SPEC_K + 1} positions; 7 projections x 32 layers + lm_head), bf16, "
               "the weight stream; launches traced on the device in the graphed int8 "
               "speculative engine's window (phase 16)"})
+    kernels.append({
+        "name": "multi_tensor_update", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
+        "replaces": "paddle_tpu/optimizer/fused_step.py:105 (an XLA program: no TPU kernel)",
+        "launches": train_launches["multi_tensor_update"], **fused_opt})
+    kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
+                          f"({TRAIN_LAYERS} layers, one AdamW update a step)")
     say("done", total_s=round(time.perf_counter() - t_start, 1), phase_s=json.dumps(phase_s))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,7 +7,11 @@ trainable parameter by torch autograd, clips it with the optimizer's
 clipper, and applies ``opt_cls.update(p, g.to(p.dtype), state, lr, t,
 hyper)`` to each parameter in its own dtype, with state from
 ``opt_cls.init_state(p)``: no master weights, and one hyperparameter tuple
-for every parameter, as the reference's compiled step has. The step count
+for every parameter, as the reference's compiled step has. The update is
+one multi-tensor update in place (``optimizer/fused_step.py``
+``apply_update``: on the card SGD, Momentum, Adam and AdamW are one kernel
+launch for up to 128 tensors, the global-norm clip's scale applied inside
+it), so the state is allocated once and updated in place. The step count
 and the learning rate come from the optimizer. With ``accumulate_steps=k``
 the gradients of k calls are summed in f32 and the k-th call applies their
 mean; the calls in between leave the parameters, the step count and the
@@ -25,7 +29,9 @@ from __future__ import annotations
 
 import torch
 
-from ..nn.clip import clip_grads
+from ..nn.clip import clip_descriptor
+from ..ops import fused_optimizer
+from ..optimizer import fused_step
 from ..tracing import traced
 
 __all__ = ["TrainStep", "EvalStep"]
@@ -75,6 +81,7 @@ class TrainStep:
         self._micro = 0
         self._acc = None
         self._opt_state = None
+        self._layout = (None, None)   # (signature, layout) of the update
 
     def _params(self):
         return [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
@@ -105,13 +112,19 @@ class TrainStep:
         t = opt._step_count
         if self._opt_state is None:
             self._opt_state = [type(opt).init_state(p.detach()) for _, p in params]
-        grads = clip_grads(opt._grad_clip, grads)
+        desc = clip_descriptor(opt._grad_clip)
+        if desc is NotImplemented:
+            raise TypeError(f"unknown gradient clipper {type(opt._grad_clip).__name__}")
+        grads, scale = fused_step.clip(desc, grads, [True] * len(grads))
         hyper = opt._hyper()
+        cls = type(opt)
+        entries = [fused_optimizer.Entry(p.detach(), g, state, lr, hyper, scale)
+                   for (_, p), g, state in zip(params, grads, self._opt_state)]
+        sig = tuple(map(fused_optimizer.signature, entries))
+        if self._layout[0] != sig:
+            self._layout = (sig, fused_step.layout_of(cls, entries))
         with torch.no_grad():
-            for i, ((_, p), g) in enumerate(zip(params, grads)):
-                new_p, self._opt_state[i] = type(opt).update(
-                    p.detach(), g.to(p.dtype), self._opt_state[i], lr, t, hyper)
-                p.copy_(new_p)
+            fused_step.apply_update(cls, entries, t, self._layout[1])
         return loss
 
 

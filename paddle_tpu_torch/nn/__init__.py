@@ -4,8 +4,8 @@ on torch tensors, the gradient clippers, and weight-only quantization
 (``nn.quant``)."""
 
 from . import functional, quant
-from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue, clip_grad_norm_
 from .layer import Embedding, Linear, RMSNorm
 
 __all__ = ["functional", "quant", "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
-           "Embedding", "Linear", "RMSNorm"]
+           "clip_grad_norm_", "Embedding", "Linear", "RMSNorm"]

@@ -1,12 +1,18 @@
 """Learning-rate schedulers (counterpart of ``paddle_tpu/optimizer/lr.py``):
-the base class, linear warmup and cosine annealing, the usual pretraining
-schedule. Host-side Python, as in the reference."""
+host-side Python floats, with the reference's arithmetic in the
+reference's order, so each rate is the reference's to the last bit."""
 
 from __future__ import annotations
 
 import math
 
-__all__ = ["LRScheduler", "LinearWarmup", "CosineAnnealingDecay"]
+import torch
+
+__all__ = ["LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay", "InverseTimeDecay",
+           "PolynomialDecay", "LinearWarmup", "ExponentialDecay", "MultiStepDecay", "StepDecay",
+           "LambdaDecay", "MultiplicativeDecay", "CosineAnnealingDecay",
+           "CosineAnnealingWarmRestarts", "ReduceOnPlateau", "OneCycleLR", "CyclicLR",
+           "LinearLR"]
 
 
 class LRScheduler:
@@ -44,6 +50,81 @@ class LRScheduler:
     state_keys = state_dict
 
 
+class NoamDecay(LRScheduler):
+    """``base * d_model^-0.5 * min(step^-0.5, step * warmup^-1.5)``."""
+
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1, verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return self.base_lr * (self.d_model ** -0.5) * min(step ** -0.5,
+                                                           step * self.warmup_steps ** -1.5)
+
+
+class PiecewiseDecay(LRScheduler):
+    """``values[i]`` before ``boundaries[i]``, the last value after them."""
+
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for b, v in zip(self.boundaries, self.values):
+            if self.last_epoch < b:
+                return v
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    """``base * exp(-gamma * epoch)``."""
+
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    """``base / (1 + gamma * epoch)``."""
+
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    """``(base - end) (1 - step / decay_steps)^power + end``; with
+    ``cycle`` the decay restarts at every multiple of ``decay_steps``."""
+
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0, cycle=False,
+                 last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / float(self.decay_steps)) if step > 0 else 1
+            decay_steps = self.decay_steps * max(div, 1)
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, decay_steps)
+        return ((self.base_lr - self.end_lr) * ((1 - step / decay_steps) ** self.power)
+                + self.end_lr)
+
+
 class LinearWarmup(LRScheduler):
     """From ``start_lr`` to ``end_lr`` linearly over ``warmup_steps``, then
     ``learning_rate`` (a number, or a scheduler stepped from 0)."""
@@ -67,6 +148,67 @@ class LinearWarmup(LRScheduler):
         return self.final_lr
 
 
+class ExponentialDecay(LRScheduler):
+    """``base * gamma^epoch``."""
+
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * (self.gamma ** self.last_epoch)
+
+
+class MultiStepDecay(LRScheduler):
+    """``base * gamma^n``, ``n`` the milestones reached."""
+
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1, verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * (self.gamma ** n)
+
+
+class StepDecay(LRScheduler):
+    """``base * gamma^(epoch // step_size)``."""
+
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1, verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * (self.gamma ** (self.last_epoch // self.step_size))
+
+
+class LambdaDecay(LRScheduler):
+    """``base * lr_lambda(epoch)``."""
+
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    """The previous rate times ``lr_lambda(epoch)`` at every epoch past 0."""
+
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = float(learning_rate)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
 class CosineAnnealingDecay(LRScheduler):
     """``eta_min + (base - eta_min) (1 + cos(pi epoch / T_max)) / 2``."""
 
@@ -78,3 +220,150 @@ class CosineAnnealingDecay(LRScheduler):
     def get_lr(self):
         return self.eta_min + (self.base_lr - self.eta_min) * (
             1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    """Cosine annealing over periods ``T_0``, ``T_0 T_mult``, ... each
+    restarting at ``base``."""
+
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1, verbose=False):
+        self.T_0 = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        t_i = self.T_0
+        while t >= t_i:
+            t -= t_i
+            t_i *= self.T_mult
+        return self.eta_min + (self.base_lr - self.eta_min) * (1 + math.cos(math.pi * t / t_i)) / 2
+
+
+class ReduceOnPlateau(LRScheduler):
+    """Multiply the rate by ``factor`` (not below ``min_lr``) once the
+    metric given to :meth:`step` has not improved by ``threshold`` for more
+    than ``patience`` epochs, then wait ``cooldown`` epochs."""
+
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10, threshold=1e-4,
+                 threshold_mode="rel", cooldown=0, min_lr=0, epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = float(learning_rate)
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def get_lr(self):
+        return self.last_lr
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        cur = float(metrics.item() if torch.is_tensor(metrics) else metrics)
+        self.last_epoch += 1
+        if self.best is None:
+            self.best = cur
+            return
+        margin = (abs(self.best) * self.threshold if self.threshold_mode == "rel"
+                  else self.threshold)
+        better = cur < self.best - margin if self.mode == "min" else cur > self.best + margin
+        if better:
+            self.best = cur
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > self.epsilon:
+                self.last_lr = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+
+
+class OneCycleLR(LRScheduler):
+    """Up from ``max / divide_factor`` to ``max`` over ``phase_pct`` of
+    ``total_steps``, then down to ``end_learning_rate``, by cosine or
+    linear steps."""
+
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3, anneal_strategy="cos",
+                 three_phase=False, last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _interp(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) * (1 + math.cos(math.pi * pct)) / 2
+        return (end - start) * pct + start
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up = int(self.phase_pct * self.total_steps)
+        if step <= up and up > 0:
+            return self._interp(self.initial_lr, self.max_lr, step / up)
+        down = self.total_steps - up
+        return self._interp(self.max_lr, self.end_lr, (step - up) / max(down, 1))
+
+
+class CyclicLR(LRScheduler):
+    """Triangular cycles between ``base_learning_rate`` and
+    ``max_learning_rate`` (``triangular2`` halves the amplitude each cycle,
+    ``exp_range`` scales it by ``exp_gamma^epoch``)."""
+
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up, step_size_down=None,
+                 mode="triangular", exp_gamma=1.0, scale_fn=None, scale_mode="cycle",
+                 last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_up = step_size_up
+        self.step_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        cycle_len = self.step_up + self.step_down
+        cycle = 1 + self.last_epoch // cycle_len
+        x = self.last_epoch % cycle_len
+        scale = x / self.step_up if x < self.step_up else 1 - (x - self.step_up) / self.step_down
+        amp = (self.max_lr - self.base_lr) * scale
+        if self.mode == "triangular2":
+            amp = amp / (2 ** (cycle - 1))
+        elif self.mode == "exp_range":
+            amp = amp * (self.exp_gamma ** self.last_epoch)
+        return self.base_lr + amp
+
+
+class LinearLR(LRScheduler):
+    """``base`` times a factor going linearly from ``start_factor`` to
+    ``end_factor`` over ``total_steps``."""
+
+    def __init__(self, learning_rate, total_steps, start_factor=1.0 / 3, end_factor=1.0,
+                 last_epoch=-1, verbose=False):
+        self.total_steps = total_steps
+        self.start_factor = start_factor
+        self.end_factor = end_factor
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        pct = min(self.last_epoch / self.total_steps, 1.0)
+        factor = self.start_factor + (self.end_factor - self.start_factor) * pct
+        return self.base_lr * factor

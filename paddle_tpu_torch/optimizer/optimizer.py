@@ -5,10 +5,13 @@ Every optimizer is a functional core on torch tensors,
     init_state(param)                    -> {name: tensor}
     update(p, g, state, lr, t, hyper)    -> (new_p, new_state)
 
-which the eager :meth:`Optimizer.step` applies per parameter (the
-reference's per-parameter regime; its fused whole-step program is an XLA
-program and has no kernel to port) and ``jit.TrainStep`` applies to its own
-state. ``lr`` is a Python float; ``update`` rounds it, and every other
+which :meth:`Optimizer.step` applies to every parameter group at once, as
+one multi-tensor update in place (``fused_step.py``: the hand-written
+kernel for SGD, Momentum, Adam and AdamW, the composed update for the
+others), or, with ``PADDLE_OPT_FUSED=0``, per parameter (the reference's
+per-parameter regime, each update composed of torch ops); and which
+``jit.TrainStep`` applies to its own state through the same multi-tensor
+update. ``lr`` is a Python float; ``update`` rounds it, and every other
 scalar it uses, to the parameter's dtype before the arithmetic, as the
 reference's typed arrays do. Parameters are ``torch.nn.Parameter``s. A
 parameter's Paddle name is its ``paddle_name`` attribute (torch keeps
@@ -24,6 +27,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import fused_step as _fused
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "as_dtype", "param_name"]
@@ -92,8 +96,12 @@ class Optimizer:
     def step(self):
         """One update of every parameter with a gradient: per group, clip
         the group's gradients, then update each parameter with the group's
-        ``learning_rate`` and ``weight_decay`` where given."""
+        ``learning_rate`` and ``weight_decay`` where given; as one fused
+        multi-tensor update unless ``PADDLE_OPT_FUSED=0`` or the clip is a
+        callable of its own, else parameter by parameter."""
         self._step_count += 1
+        if _fused.fused_enabled() and _fused.run_fused_step(self):
+            return
         for group in self._param_groups:
             params_grads = [(p, p.grad) for p in group["params"]
                             if p.grad is not None and p.requires_grad]
@@ -107,8 +115,9 @@ class Optimizer:
             for p, g in params_grads:
                 self._apply_one(p, g, base_lr, wd)
 
-    def _apply_one(self, p, g, lr: float, wd=None):
-        wd = self._resolve_wd(p, wd)
+    def _state_of(self, p) -> dict:
+        """``p``'s state, made on first use (with its f32 master copy under
+        ``multi_precision`` for a bf16 or fp16 parameter)."""
         pid = id(p)
         if pid not in self._accumulators:
             master = p.detach()
@@ -116,10 +125,21 @@ class Optimizer:
                 master = p.detach().float()
                 self._master_weights[pid] = master
             self._accumulators[pid] = self.init_state(master)
+        return self._accumulators[pid]
+
+    @staticmethod
+    def _lr_of(p, lr: float) -> float:
+        """The group's rate times ``p.optimize_attr["learning_rate"]``."""
+        return lr * getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+
+    def _apply_one(self, p, g, lr: float, wd=None):
+        wd = self._resolve_wd(p, wd)
+        pid = id(p)
+        state = self._state_of(p)
         param = self._master_weights.get(pid, p.detach())
-        lr_eff = lr * getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+        _fused.count_dispatch()
         new_p, self._accumulators[pid] = type(self).update(
-            param, g.to(param.dtype), self._accumulators[pid], lr_eff, self._step_count,
+            param, g.to(param.dtype), state, self._lr_of(p, lr), self._step_count,
             self._hyper(wd))
         if pid in self._master_weights:
             self._master_weights[pid] = new_p

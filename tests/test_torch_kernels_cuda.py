@@ -29,7 +29,12 @@ checks that refuse
 what a kernel does not take; and the paths of the prefix cache and of
 speculative decoding: paged attention over block tables whose lanes alias
 pages, the weight stream at the speculative verify's M = 40, and both
-engines graphed against eager.
+engines graphed against eager; and the fused optimizer step's multi-tensor
+kernel against the card's composed per-parameter update, bit for bit over
+3 steps (SGD, Momentum with and without Nesterov, Adam, AdamW in f32, bf16
+and fp16; master weights; the global-norm clip with mixed need_clip; decay
+exemptions and two parameter groups; numels 1, 4097 and 2^20 + 3; more
+tensors than one launch holds; f32 gradients on bf16 parameters).
 """
 
 import numpy as np
@@ -1393,3 +1398,171 @@ def test_speculative_f32_greedy_equals_the_plain_engine(dev):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert spec == base
     assert eng.stats()["spec"]["accept_rate"] >= 0.9
+
+
+# ---------------------------------------------------------------------------
+# the fused optimizer step: the multi-tensor kernel against the card's
+# composed per-parameter update (PADDLE_OPT_FUSED=0), bit for bit
+# ---------------------------------------------------------------------------
+
+# numels 1, 4097 (a ragged vector tail), 2^20 + 3 (many chunks, a tail),
+# one tensor smaller than a block and a 2-D one
+FO_SHAPES = [(1,), (4097,), (2 ** 20 + 3,), (3,), (64, 33)]
+
+
+def _bits(t):
+    """The tensor's bit pattern (NaNs compare by payload)."""
+    return t.detach().view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _fo_run(make, dtype, regime, monkeypatch, shapes=FO_SHAPES, clipped=(), steps=3):
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+
+    monkeypatch.setenv("PADDLE_OPT_FUSED", regime)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    ps = []
+    for i, s in enumerate(shapes):
+        p = torch.nn.Parameter(torch.randn(s, generator=g, device="cuda").to(dtype))
+        p.paddle_name = f"w{i}" if i % 2 else f"b{i}"
+        if i in clipped:
+            p.need_clip = False
+        ps.append(p)
+    o = make(ps)
+    launches = fo.multi_tensor_update.launches
+    for t in range(steps):
+        for p in ps:
+            p.grad = (torch.randn(p.shape, generator=g, device="cuda") * 0.1).to(dtype)
+        o.step()
+    torch.cuda.synchronize()
+    return ps, o, fo.multi_tensor_update.launches - launches
+
+
+def _fo_same(kern, plain):
+    (pk, ok, _), (pp, op, launched) = kern, plain
+    assert launched == 0
+    for a, b in zip(pk, pp):
+        assert torch.equal(_bits(a), _bits(b))
+        sa, sb = ok._accumulators[id(a)], op._accumulators[id(b)]
+        assert sorted(sa) == sorted(sb)
+        for k in sa:
+            assert torch.equal(_bits(sa[k]), _bits(sb[k])), k
+        assert (id(a) in ok._master_weights) == (id(b) in op._master_weights)
+        if id(a) in ok._master_weights:
+            assert torch.equal(_bits(ok._master_weights[id(a)]),
+                               _bits(op._master_weights[id(b)]))
+
+
+FO_CASES = {
+    "sgd_l2": lambda o, ps: o.SGD(0.1, parameters=ps, weight_decay=0.01),
+    "momentum": lambda o, ps: o.Momentum(0.1, 0.9, parameters=ps),
+    "momentum_nesterov_l2": lambda o, ps: o.Momentum(0.1, 0.9, parameters=ps,
+                                                     use_nesterov=True, weight_decay=0.01),
+    "adam_l2": lambda o, ps: o.Adam(1e-3, parameters=ps, weight_decay=0.01),
+    "adamw": lambda o, ps: o.AdamW(1e-3, parameters=ps, weight_decay=0.1),
+}
+
+
+@pytest.mark.parametrize("case", list(FO_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_fused_optimizer_matches_composed_update(dev, monkeypatch, case, dtype):
+    from paddle_tpu_torch import optimizer as popt
+
+    def make(ps):
+        return FO_CASES[case](popt, ps)
+
+    kern = _fo_run(make, dtype, "1", monkeypatch)
+    assert kern[2] == 3
+    _fo_same(kern, _fo_run(make, dtype, "0", monkeypatch))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fused_optimizer_master_weights_and_mixed_need_clip(dev, monkeypatch, dtype):
+    """f32 masters written back to bf16 / fp16, the global-norm clip's
+    scale applied in the kernel to the gradients with need_clip only."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer as popt
+
+    def make(ps):
+        return popt.AdamW(1e-3, parameters=ps, weight_decay=0.1, multi_precision=True,
+                          grad_clip=pnn.ClipGradByGlobalNorm(0.5))
+
+    kern = _fo_run(make, dtype, "1", monkeypatch, clipped=(1, 3))
+    _fo_same(kern, _fo_run(make, dtype, "0", monkeypatch, clipped=(1, 3)))
+    assert all(p.dtype == dtype for p in kern[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_optimizer_decay_exemptions_and_param_groups(dev, monkeypatch, dtype):
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer as popt
+
+    def make(ps):
+        return popt.AdamW(1e-3, weight_decay=0.1, apply_decay_param_fun=lambda n: "w" in n,
+                          grad_clip=pnn.ClipGradByGlobalNorm(1.0), parameters=[
+                              {"params": ps[:2], "learning_rate": 3e-3, "weight_decay": 0.3},
+                              {"params": ps[2:]}])
+
+    kern = _fo_run(make, dtype, "1", monkeypatch, clipped=(2,))
+    _fo_same(kern, _fo_run(make, dtype, "0", monkeypatch, clipped=(2,)))
+
+
+def test_fused_optimizer_more_tensors_than_one_launch(dev, monkeypatch):
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+
+    shapes = [((i * 37) % 5000 + 1,) for i in range(2 * fo.MAX_TENSORS + 44)]
+
+    def make(ps):
+        return popt.Momentum(0.1, 0.9, parameters=ps, use_nesterov=True)
+
+    kern = _fo_run(make, torch.bfloat16, "1", monkeypatch, shapes=shapes)
+    assert kern[2] == 3 * 3
+    _fo_same(kern, _fo_run(make, torch.bfloat16, "0", monkeypatch, shapes=shapes))
+
+
+@pytest.mark.parametrize("clip", [False, True])
+def test_fused_optimizer_f32_gradients_on_bf16_parameters(dev, clip):
+    """TrainStep's accumulated gradients: an f32 mean on bf16 parameters,
+    clipped in f32 and then rounded to bf16 inside the kernel, as the
+    composed path's clip and g.to(p.dtype) do."""
+    from paddle_tpu_torch.nn.clip import global_norm_scale
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    from paddle_tpu_torch.optimizer import AdamW
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    runs = []
+    for update in (fo.multi_tensor_update, fo.multi_tensor_update_plain):
+        g.manual_seed(1)
+        params = [torch.randn(s, generator=g, device="cuda").bfloat16() for s in FO_SHAPES]
+        states = [AdamW.init_state(p) for p in params]
+        for t in range(1, 4):
+            grads = [torch.randn(p.shape, generator=g, device="cuda") for p in params]
+            scale = global_norm_scale(1.0, grads, [True] * len(grads)) if clip else None
+            entries = [fo.Entry(p, gr, s, 3e-4, (0.1, 0.9, 0.999, 1e-8), scale)
+                       for p, gr, s in zip(params, grads, states)]
+            update(AdamW, entries, t)
+        torch.cuda.synchronize()
+        runs.append((params, states))
+    (params_k, states_k), (params_p, states_p) = runs
+    for pk, pp, sk, sp in zip(params_k, params_p, states_k, states_p):
+        assert torch.equal(_bits(pk), _bits(pp))
+        for k in sk:
+            assert torch.equal(_bits(sk[k]), _bits(sp[k]))
+
+
+def test_fused_optimizer_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    from paddle_tpu_torch.optimizer import SGD, Lamb
+
+    p = torch.zeros(8, device="cuda")
+    with pytest.raises(TypeError):
+        fo.multi_tensor_update(Lamb, [fo.Entry(p, p, {}, 0.1, (0.0,))], 1)
+    with pytest.raises(ValueError):
+        fo.multi_tensor_update(SGD, [fo.Entry(p, torch.zeros(9, device="cuda"), {}, 0.1,
+                                              (0.0,))], 1)
+    with pytest.raises(ValueError):
+        fo.multi_tensor_update(SGD, [fo.Entry(torch.zeros(8, 2, device="cuda").t(),
+                                              torch.zeros(2, 8, device="cuda"), {}, 0.1,
+                                              (0.0,))], 1)
