@@ -33,7 +33,9 @@ Phases, each printing one line of numbers:
    inactive; head_dims 20, 100 and 6, whose rows TMA cannot map) with
    every hidden slot poisoned with NaN and +-Inf against
    the plain version on the same pools poisoned with 100.0; two calls bit
-   for bit; one captured CUDA graph replayed after ``lengths`` and the
+   for bit; lane 0's bits unchanged while the other lanes hold 1, 30 or
+   1000 tokens, narrow and wide, each call against the CPU emulation of
+   the kernel's schedule; one captured CUDA graph replayed after ``lengths`` and the
    block table change in place; one kernel a call in a profiler trace.
    Then the eleventh slice's kernels: the int8 kernels with fp16
    activations (the weight stream at every decode shape and M, its decode
@@ -172,13 +174,13 @@ Phases, each printing one line of numbers:
    prompt (12 with a private tail of 16-128 tokens, one with none: a COW
    fork), 32 tokens each, submitted at once to a cold engine and to a
    ``prefix_cache=True`` engine: hits, hit fraction, forks, the peak of
-   shared blocks, TTFT p50 of each, and (printed, not held) how many
-   requests equal the cold engine's; one decode and one prefill capture;
+   shared blocks, TTFT p50 of each, and every request's greedy tokens
+   equal to the cold engine's (the paged kernel's split schedule depends
+   on each lane's own length only); one decode and one prefill capture;
    a traced window of 8 hits (one a fork) where the device must run paged
    attention once a layer in each decode call. Then the trace in waves of
-   8 whose prefill ends in one step (so both engines decode the same
-   batches: the kernel's split schedule depends on every lane's length),
-   greedy tokens bit for bit equal to the cold engine's; three system
+   8 whose prefill ends in one step, greedy tokens bit for bit equal to
+   the cold engine's; three system
    prompts in rotation, one request at a time, in a pool of 96 usable
    blocks with a host tier of 96 blocks (evictions to the host and
    restores) and without one (drops), each bit for bit equal to the cold
@@ -207,7 +209,27 @@ Phases, each printing one line of numbers:
    composed update): parameters and moments bit for bit after each of 3
    steps, one launch a step; then the update alone timed (CUDA events
    around eager calls) beside its byte bound, its plain version, both
-   whole steps and ``torch.optim.AdamW(fused=True)`` on the same tensors.
+   whole steps and ``torch.optim.AdamW(fused=True)`` on the same tensors;
+18. mixed-precision training, Paddle's eager AMP loop
+   (``paddle_tpu_torch.amp``: forward and loss under ``auto_cast``,
+   ``GradScaler`` scale, backward, step, update, ``clear_grad``) with
+   phase 7's AdamW and clip at Llama-3-8B widths, the model built in f32:
+   (18a) the training cell (4 layers, batch 1 x 8192) at O2 bf16,
+   ``decorate``-d (bf16 parameters, f32 masters), and (18b) at O1 (f32
+   parameters, bf16 products), each one warm-up and 3 timed steps: step
+   ms, tokens/s, share of the bf16 peak, peak memory, exact launches a
+   step by kernel and mode (flash on its wgmma route, RMSNorm fused in
+   f32, the fused optimizer once a step, in its master mode at O2), one
+   profiled step's device ms by kind and the unscale's device ms; (18c) 2
+   layers at seq 2048, 3 steps through the kernels against the same steps
+   through the plain versions at O2 bf16, O1 bf16 and O2 fp16 with
+   ``GradScaler(init_loss_scaling=1000.0)``: losses, masters, scaler
+   state; then an fp16 step with an infinite gradient, skipped on both
+   paths (state bit for bit, the scale halved, the step count unmoved);
+   (18d) phase 17 with f32 masters: the kernel's master mode bit for bit
+   against the composed update over 3 steps, timed beside its byte bound
+   (28 bytes a parameter), its plain version and
+   ``torch.optim.AdamW(fused=True)`` over f32 copies of the masters.
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -225,8 +247,10 @@ the fp16 int8 engine, the fp16 tensor-core kernel and the wide kernels
 from phase 2's calls, RMSNorm's ``round_first`` mode from the three timed
 training steps; paged attention over the prefix cache's tables from phase
 15's traced window, the weight stream at the verify's M = 40 from phase
-16's; the fused optimizer from the three timed training steps of phase 7,
-with its numbers from phase 17), and last ``{"ok": true,
+16's; the fused optimizer from the three timed training steps of phase 7
+and phase 18's O1 steps, with its numbers from phase 17, and in its master
+mode from phase 18's O2 steps, with its numbers from 18d; flash and
+RMSNorm also count phase 18's timed steps), and last ``{"ok": true,
 "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
@@ -628,16 +652,69 @@ def hold_paged_cases(gen, cases, wide: bool = False):
         cases=json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
 
 
+# (label, head_dim, bs, MB): the serving shape (narrow), and the wide mode
+# past 256 columns and past 256 slots a page
+LANE_BITS_CASES = (("narrow", 128, 16, 64), ("wide_hd320", 320, 16, 64),
+                   ("wide_pages512", 128, 512, 2))
+LANE_BITS_OTHERS = (1, 30, 1000)
+# (lanes, the lane held): the first lane, the last, and the last of 40
+# lanes, whose 320 pairs outnumber the grid, so blocks take its chunks as
+# their second, after another lane's first
+LANE_BITS_HELD = ((8, 0), (8, 7), (40, 39))
+
+
+def hold_lane_bits(gen):
+    """A lane's bits do not depend on the other lanes' lengths: each
+    LANE_BITS_HELD lane (length 600) through the kernel while the others
+    hold each of LANE_BITS_OTHERS tokens, bit for bit, in both modes; every
+    call held against the kernel's schedule and merge emulated on the CPU
+    (``paged_decode_attention_split`` at the launch's grid) within
+    ATTN_ATOL (the card's tensor-core sums and exp2 round apart from the
+    CPU's f32)."""
+    import torch
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    errs = {}
+    for label, hd, bs, mb in LANE_BITS_CASES:
+        for lanes, held in LANE_BITS_HELD:
+            # pools valid up to the longest length, so no lane sees a poisoned slot
+            q, pk, pv, table, ln = attention_inputs(gen, [max(LANE_BITS_OTHERS)] * lanes, 1,
+                                                    hd=hd, bs=bs, MB=mb)
+            q, pk, pv = q[0], pk[0], pv[0]
+            grid = pa._plan_for(q, pk, table)[0]
+            cpu = [t.cpu() for t in (q, pk, pv, table)]
+            held_out, err = [], 0.0
+            for other in LANE_BITS_OTHERS:
+                lengths = [other] * lanes
+                lengths[held] = 600
+                ln.copy_(torch.tensor(lengths, dtype=torch.int32))
+                got = pa.paged_decode_attention(q, pk, pv, table, ln)
+                emu = pa.paged_decode_attention_split(*cpu, ln.cpu(), grid)
+                err = max(err, hold_paged(f"{label} vs the emulation", got, emu.cuda(),
+                                          "bfloat16"))
+                held_out.append(got[held])
+            if not all(torch.equal(f, held_out[0]) for f in held_out[1:]):
+                raise AssertionError(f"paged attention ({label}, {lanes} lanes): lane {held}'s "
+                                     "output moved with the other lanes' lengths")
+            errs[f"{label}_lane{held}of{lanes}"] = err
+    say("kernels", kernel="paged_attention", lane_bits_independent=True,
+        held=json.dumps(LANE_BITS_HELD), others=list(LANE_BITS_OTHERS),
+        emulation_err=json.dumps(errs))
+
+
 def check_paged_cases(gen):
     """PAGED_CASES with poisoned hidden slots, each called twice bit for
-    bit and counted; a captured graph replayed after lengths and the table
-    change in place; one kernel a call in a profiler trace."""
+    bit and counted; a lane's bits across the other lanes' lengths; a
+    captured graph replayed after lengths and the table change in place;
+    one kernel a call in a profiler trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.ops import paged_attention as pa
 
     hold_paged_cases(gen, PAGED_CASES)
+    hold_lane_bits(gen)
 
     q, pk, pv, table, ln = attention_inputs(gen, [1023] * 8, 1)
     q, pk, pv = q[0], pk[0], pv[0]
@@ -1092,6 +1169,68 @@ def serving_kernels(counts: dict) -> dict:
                               ("large_m", "int8_tc_kernel<false"))}
 
 
+@contextlib.contextmanager
+def recording_decode(engine):
+    """Yields a list that gets, before each call of ``engine``'s decode
+    program, the lanes' lengths and block table (host copies) that the
+    call's paged-attention launches read."""
+    prog, kv, got = engine._decode_prog, engine._kv, []
+
+    def call():
+        got.append((kv.lengths.copy(), kv.block_table.copy()))
+        prog()
+
+    call.name = prog.name
+    engine._decode_prog = call
+    try:
+        yield got
+    finally:
+        engine._decode_prog = prog
+
+
+# the narrow mode's FILL values timed on served traffic, in this order
+TRAFFIC_FILLS = (1, 2, 2, 1)
+
+
+def time_decode_traffic(gen, traffic: str, batches, num_blocks: int):
+    """The paged-attention kernel over the decode calls an engine served
+    (``batches``, from :func:`recording_decode`: each call's lengths and
+    block table, aliased pages and all) at the serving shape (H 32, Hk 8,
+    hd 128, pages of 16, bf16, random pools of ``num_blocks`` pages): the
+    mean device ms a call, every call once in one CUDA graph, with the
+    narrow mode's FILL at each of TRAFFIC_FILLS in turn. Prints and
+    returns {FILL: [ms, ...]}."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    lanes, _ = batches[0][1].shape
+    q = torch.randn((lanes, 32, 128), generator=gen, device="cuda").bfloat16()
+    pk, pv = (torch.randn((num_blocks, 16, 8, 128), generator=gen, device="cuda").bfloat16()
+              for _ in range(2))
+    lens = torch.from_numpy(np.stack([ln for ln, _ in batches])).cuda()
+    tabs = torch.from_numpy(np.stack([t for _, t in batches])).cuda()
+
+    def run(i):
+        return pa.paged_decode_attention(q, pk, pv, tabs[i], lens[i])
+
+    kept, times = pa.FILL, {}
+    try:
+        for fill in TRAFFIC_FILLS:
+            pa.FILL = fill
+            times.setdefault(fill, []).append(round(device_ms(run, len(batches),
+                                                              iters=len(batches)), 5))
+    finally:
+        pa.FILL = kept
+    n = lens.cpu().numpy()
+    say("paged-traffic", traffic=traffic, calls=len(batches), lanes=lanes,
+        length_mean=round(float(n.mean()), 1), length_max=int(n.max()),
+        length_spread_mean=round(float((n.max(1) - n.min(1)).mean()), 1),
+        **{f"fill{f}_ms": ts for f, ts in times.items()}, fill=kept)
+    return times
+
+
 def trace_launches(engine, phase: str, seed: int, int8: bool = False,
                    wide: bool = False, prompts=None) -> dict:
     """The kernels a graphed engine's device ran, read from a device trace
@@ -1396,10 +1535,8 @@ def ttft_p50_ms(reqs) -> float:
 
 def serve_waves(model, prompts, phase: str, wave: int = 8, **cfg):
     """The trace in waves of ``wave`` requests, each wave run to its end
-    with WAVE_PREFILL chunks a step: every engine decodes the same batches,
-    so greedy tokens can be held bit for bit across engines (the paged
-    kernel's split schedule, and so its rounding, depends on every lane's
-    length). Returns (tokens, the engine's stats)."""
+    with WAVE_PREFILL chunks a step. Returns (tokens, the engine's
+    stats)."""
     import torch
 
     from paddle_tpu_torch.inference.serving import ServeConfig, ServingEngine
@@ -1418,8 +1555,8 @@ def serve_waves(model, prompts, phase: str, wave: int = 8, **cfg):
 
 
 def serve_one_by_one(model, prompts, phase: str, **cfg):
-    """Each request alone, run to its end (the decode batches of any two
-    engines match). Returns (tokens, the engine's stats)."""
+    """Each request alone, run to its end. Returns (tokens, the engine's
+    stats)."""
     import torch
 
     from paddle_tpu_torch.inference.serving import ServeConfig, ServingEngine
@@ -1468,7 +1605,9 @@ def check_prefix_cache(model, seed: int, gen):
     del cold_eng
     engine = ServingEngine(model, ServeConfig(prefix_cache=True, **PREFIX_CFG))
     peak = peak_shared(engine)
-    hot = serve(engine, prompts, NEW_TOKENS, "prefix-cached")
+    with recording_decode(engine) as decoded:
+        hot = serve(engine, prompts, NEW_TOKENS, "prefix-cached")
+    time_decode_traffic(gen, "phase15", decoded, engine._kv.num_blocks)
     hold_captures(engine, "prefix-cached")
     st = engine.stats()["prefix_cache"]
     same = sum(a.generated == b.generated for a, b in zip(cold, hot))
@@ -1478,6 +1617,9 @@ def check_prefix_cache(model, seed: int, gen):
         requests_equal_cold_when_served_at_once=f"{same}/{len(hot)}")
     if st["hits"] < 1 or st["forks"] < 1 or peak[0] < 1:
         raise AssertionError(f"the prefix-cache engine saw no hit, fork or shared block: {st}")
+    if same != len(hot):
+        raise AssertionError(f"served at once, {len(hot) - same} of {len(hot)} requests of the "
+                             "prefix-cache engine differ from the cold engine's")
     # a traced window of hits on the cached system prompt (one of them the
     # fork): paged attention once a layer in each decode call
     rng = np.random.RandomState(seed + 18)
@@ -3261,7 +3403,9 @@ def training_counters() -> dict:
     fine-tuning kernel lives (the int8 weight stream too, which a training
     step must not launch): a wrapper's ``launches`` among its attributes,
     flash's under each route of its ``by_route``, RMSNorm's also under each
-    rounding mode of its ``by_mode``."""
+    rounding mode of its ``by_mode`` and each dtype of its ``by_dtype``, the
+    fused optimizer's under each mode of its ``by_mode`` (f32 masters with
+    a low-precision copy, or not)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
     from paddle_tpu_torch.ops import fused_optimizer as fo
@@ -3273,6 +3417,11 @@ def training_counters() -> dict:
             **{f"{name}_{m}": (w.by_mode, m) for m in fn.MODES.values()
                for name, w in (("rms_norm_fwd", fn.rms_norm_fwd),
                                ("rms_norm_bwd_dx", fn.rms_norm_bwd_dx))},
+            **{f"{name}_{d}": (w.by_dtype, d) for d in ("float32", "bfloat16")
+               for name, w in (("rms_norm_fwd", fn.rms_norm_fwd),
+                               ("rms_norm_bwd_dx", fn.rms_norm_bwd_dx))},
+            **{f"multi_tensor_update_{m}": (fo.multi_tensor_update.by_mode, m)
+               for m in ("direct", "master")},
             **{name: (vars(w), "launches") for name, w in (
                 ("rms_norm_fwd", fn.rms_norm_fwd), ("rms_norm_bwd_dx", fn.rms_norm_bwd_dx),
                 ("int8_matmul", qm.int8_matmul), ("int8_matmul_large_m", qm.int8_matmul_large_m),
@@ -3291,7 +3440,7 @@ def zero_counts(counters: dict):
 
 
 def expected_launches(layers: int, int8: bool = False, ring: int = 0,
-                      f32: bool = False, traced: bool = True) -> dict:
+                      f32: bool = False, traced: bool = True, amp: str | None = None) -> dict:
     """Per training step: flash forward and backward once per layer (with
     a ring of P ranks, P times each and the merge P - 1 times, one ring
     call a layer), all on flash's f32 route in f32, else all on its wgmma
@@ -3302,7 +3451,11 @@ def expected_launches(layers: int, int8: bool = False, ring: int = 0,
     every MAX_TENSORS trainable tensors (9 a layer, the embedding, the final
     norm and the head; with int8-frozen projections 2 a layer and those 3).
     ``traced``: the step is a TrainStep (RMSNorm in its round_first mode,
-    the optimizer's update), not an eager forward and backward."""
+    the optimizer's update), not an eager forward and backward. ``amp``
+    ("O1" or "O2"): an eager step of the AMP loop under ``auto_cast``
+    (phase 18): RMSNorm in its fused mode in f32 (a black-list op), flash
+    on its wgmma route, and ``Optimizer.step``'s update, with f32 masters
+    at O2."""
     from paddle_tpu_torch.ops.flash_attention import ROUTES
     from paddle_tpu_torch.ops.fused_optimizer import MAX_TENSORS
 
@@ -3310,16 +3463,23 @@ def expected_launches(layers: int, int8: bool = False, ring: int = 0,
     tensors = (2 if int8 else 9) * layers + 3
     flash = layers * max(ring, 1)
     route = "f32" if f32 else "wgmma"
+    norms = 2 * layers + 1
+    norm_dtype = "float32" if f32 or amp else "bfloat16"
+    updates = math.ceil(tensors / MAX_TENSORS) if traced or amp else 0
     return {**{f"flash_{r}_{d}": flash if r == route else 0
                for r in ROUTES for d in ("fwd", "bwd")},
-            "rms_norm_fwd": 2 * layers + 1, "rms_norm_bwd_dx": 2 * layers + 1,
+            "rms_norm_fwd": norms, "rms_norm_bwd_dx": norms,
             # a TrainStep runs the composed form's rounding (a traced call);
             # an eager forward and backward the fused one
-            **{f"rms_norm_{d}_{mode}": (2 * layers + 1) * (traced == (mode == "round_first"))
+            **{f"rms_norm_{d}_{mode}": norms * (traced == (mode == "round_first"))
                for d in ("fwd", "bwd_dx") for mode in ("fused", "round_first")},
+            **{f"rms_norm_{d}_{dt}": norms * (dt == norm_dtype)
+               for d in ("fwd", "bwd_dx") for dt in ("float32", "bfloat16")},
             "int8_matmul": 0, "int8_matmul_large_m": proj, "int8_matmul_dx": proj,
             "int8_prepass": proj, "ring_merge": layers * max(ring - 1, 0),
-            "multi_tensor_update": math.ceil(tensors / MAX_TENSORS) if traced else 0}
+            "multi_tensor_update": updates,
+            "multi_tensor_update_master": updates * (amp == "O2"),
+            "multi_tensor_update_direct": updates * (amp != "O2")}
 
 
 def quantize_projections(model):
@@ -3727,7 +3887,7 @@ def update_bytes(entries) -> int:
     return total
 
 
-def check_fused_optimizer(seed: int) -> dict:
+def check_fused_optimizer(seed: int, master: bool = False) -> dict:
     """Phase 17: phase 7's AdamW (LR, weight decay OPT_WD, global-norm clip
     OPT_CLIP) over phase 7's trainable tensors in bf16, the same seeded
     gradients to two optimizers: ``Optimizer.step()`` in the fused regime
@@ -3739,7 +3899,13 @@ def check_fused_optimizer(seed: int) -> dict:
     is not replayed as a graph) beside its byte bound, its plain version on
     the same entries, the whole fused step and the per-parameter step
     (clip included), and ``torch.optim.AdamW(fused=True)`` on the same
-    tensors (timed only: it rounds each element once, not per op)."""
+    tensors (timed only: it rounds each element once, not per op).
+    With ``master`` (phase 18d) the optimizers keep f32 master weights
+    (``multi_precision``, as ``amp.decorate`` sets it): the kernel's master
+    mode updates the f32 master, moments and writes the bf16 parameter,
+    masters held bit for bit too; ``torch.optim.AdamW(fused=True)`` then
+    runs over f32 copies of the masters with f32 gradients, another
+    function (no bf16 copy written), timed only."""
     import torch
 
     from paddle_tpu_torch.models.llama import LlamaConfig
@@ -3758,7 +3924,7 @@ def check_fused_optimizer(seed: int) -> dict:
 
     def make(ps):
         return AdamW(LR, parameters=ps, weight_decay=OPT_WD,
-                     grad_clip=ClipGradByGlobalNorm(OPT_CLIP))
+                     grad_clip=ClipGradByGlobalNorm(OPT_CLIP), multi_precision=master)
 
     opts = {"kernel": make(kern), "composed": make(comp)}
     launched = []
@@ -3768,9 +3934,14 @@ def check_fused_optimizer(seed: int) -> dict:
                                                   device="cuda")).bfloat16()
             pc.grad = pk.grad.clone()
         before = fo.multi_tensor_update.launches
+        mode_before = fo.multi_tensor_update.by_mode["master" if master else "direct"]
         with opt_regime("1"):
             opts["kernel"].step()
         launched.append(fo.multi_tensor_update.launches - before)
+        if fo.multi_tensor_update.by_mode["master" if master else "direct"] - mode_before != \
+                launched[-1]:
+            raise AssertionError(f"the fused optimizer's launches were not all in the "
+                                 f"{'master' if master else 'direct'} mode")
         with opt_regime("0"):
             opts["composed"].step()
         if fo.multi_tensor_update.launches - before != launched[-1]:
@@ -3778,8 +3949,14 @@ def check_fused_optimizer(seed: int) -> dict:
         torch.cuda.synchronize()
         for i, (pk, pc) in enumerate(zip(kern, comp)):
             sk, sc = opts["kernel"]._accumulators[id(pk)], opts["composed"]._accumulators[id(pc)]
-            for name, a, b in (("param", pk, pc), ("m", sk["m"], sc["m"]), ("v", sk["v"], sc["v"])):
-                if not torch.equal(a.detach().view(torch.int16), b.detach().view(torch.int16)):
+            held = [("param", pk, pc), ("m", sk["m"], sc["m"]), ("v", sk["v"], sc["v"])]
+            if master:
+                held.append(("master", opts["kernel"]._master_weights[id(pk)],
+                             opts["composed"]._master_weights[id(pc)]))
+            for name, a, b in held:
+                bits = torch.int16 if a.element_size() == 2 else torch.int32
+                if a.dtype != b.dtype or not torch.equal(a.detach().view(bits),
+                                                         b.detach().view(bits)):
                     raise AssertionError(f"fused optimizer: {name} of tensor {i} "
                                          f"{tuple(pk.shape)} differs from the composed update "
                                          f"after step {len(launched)}")
@@ -3791,8 +3968,11 @@ def check_fused_optimizer(seed: int) -> dict:
 
     # timing: the per-parameter and the fused step, then the update alone
     opt = opts["kernel"]
-    with opt_regime("0"):
-        composed_step = eager_ms(lambda i: opts["composed"].step(), 1, iters=5, warmup=1)
+    composed_step = "not measured: two optimizers with masters fill the card"
+    if not master:
+        with opt_regime("0"):
+            composed_step = round(eager_ms(lambda i: opts["composed"].step(), 1, iters=5,
+                                           warmup=1), 5)
     for p in comp:
         p.grad = None
     del opts["composed"], comp
@@ -3800,7 +3980,9 @@ def check_fused_optimizer(seed: int) -> dict:
     with opt_regime("1"):
         fused_step_ms = eager_ms(lambda i: opt.step(), 1, iters=10, warmup=2)
     scale = global_norm_scale(OPT_CLIP, [p.grad for p in kern], [True] * len(kern))
-    entries = [fo.Entry(p.detach(), p.grad, opt._accumulators[id(p)], LR, opt._hyper(), scale)
+    entries = [fo.Entry(opt._master_weights[id(p)] if master else p.detach(), p.grad,
+                        opt._accumulators[id(p)], LR, opt._hyper(), scale,
+                        low=p.detach() if master else None)
                for p in kern]
     lay = fo.layout(AdamW, entries)
     t = opt._step_count + 1
@@ -3810,25 +3992,397 @@ def check_fused_optimizer(seed: int) -> dict:
                      warmup=1)
     nbytes = update_bytes(entries)
     bound, bound_by = bound_ms(nbytes, OPT_FLOPS_PER_ELEMENT * n_params, F32_FLOP_PER_S)
+    if master:  # f32 copies of the masters, f32 gradients: the library's own function
+        lib_params = [torch.nn.Parameter(opt._master_weights[id(p)].clone()) for p in kern]
     del entries, lay, opt, opts
+    if master:
+        for lp, p in zip(lib_params, kern):
+            lp.grad = p.grad.float()
+            p.grad = None
+        kern = lib_params
     lib = torch.optim.AdamW(kern, lr=LR, weight_decay=OPT_WD, fused=True)
     library = eager_ms(lambda i: lib.step(), 1, iters=10, warmup=2)
+    what = ("bf16 tensors with f32 masters (the kernel's master mode: master, m and v f32, "
+            "the bf16 parameter written)") if master else "bf16 tensors"
     out = {"max_abs_err": max_err, "ms": round(ms, 5), "plain_ms": round(plain, 5),
            "bound_ms": round(bound, 5), "bound_by": bound_by, "library_ms": round(library, 5),
            "at": f"one AdamW update (lr {LR}, weight decay {OPT_WD}, the global-norm clip's "
-                 f"scale applied) of phase 7's {len(kern)} bf16 tensors ({n_params} "
+                 f"scale applied) of phase 7's {len(kern)} {what} ({n_params} "
                  f"parameters, {TRAIN_LAYERS} layers at Llama-3-8B widths); held bit for bit "
                  f"against the composed per-parameter update over {OPT_STEPS} steps; "
-                 "library_ms is torch.optim.AdamW(fused=True) on the same tensors"}
-    say("fused-optimizer", tensors=len(kern), params=n_params, steps_held_bit_for_bit=OPT_STEPS,
+                 + ("library_ms is torch.optim.AdamW(fused=True) over f32 copies of the "
+                    "masters with f32 gradients, another function (no bf16 copy written)"
+                    if master else
+                    "library_ms is torch.optim.AdamW(fused=True) on the same tensors")}
+    say("fused-optimizer-master" if master else "fused-optimizer", tensors=len(kern),
+        params=n_params, steps_held_bit_for_bit=OPT_STEPS,
         launches_per_step=json.dumps(launched), max_abs_err=max_err, ms=out["ms"],
         bound_ms=out["bound_ms"], bound_by=bound_by, bound_share=round(bound / ms, 4),
         update_gb=round(nbytes / 1e9, 3), plain_ms=out["plain_ms"],
-        fused_step_ms=round(fused_step_ms, 5), composed_step_ms=round(composed_step, 5),
+        fused_step_ms=round(fused_step_ms, 5), composed_step_ms=composed_step,
         library_ms=out["library_ms"], library_ratio=round(ms / library, 4))
     del lib, kern
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: mixed-precision training (amp)
+# ---------------------------------------------------------------------------
+
+# the O1 run's depth: the f32 model, its f32 gradients and moments and the
+# bf16 casts its products save (about 48 GiB at 4 layers) fit the card
+AMP_O1_LAYERS = TRAIN_LAYERS
+# the fp16 check's loss scale: not a power of two, so 1/scale rounds in the
+# unscale (to each gradient's dtype first, as the reference does)
+AMP_FP16_SCALE = 1000.0
+AMP_CHECK_STEPS = 3
+# - the 2-layer AMP steps (18c), kernels against plain: every op but flash
+#   and RMSNorm is the same arithmetic on the same inputs, and the fused
+#   optimizer's kernel equals its plain version bit for bit (phase 17), so
+#   the paths part only by those kernels' rounding. Held where a wrong
+#   kernel shows, a leaf (parameter) at a time: step 1's unscaled gradient,
+#   ||g_kernel - g_plain|| / ||g_plain||, within AMP_GRAD_RTOL; the f32
+#   master's change (O1: the f32 parameter's) over AMP_CHECK_STEPS steps,
+#   ||d_kernel - d_plain|| / ||d_plain||, within AMP_MASTER_RTOL. Each limit
+#   lies between the sound runs' largest reading and a control: step 2's
+#   gradient against step 1's (another batch, what a kernel that read the
+#   wrong rows would give), read in every run and held above AMP_GRAD_RTOL;
+#   a master left unchanged reads 1. AdamW moves a weight by about lr a
+#   step whatever its gradient's size, so a gradient near 0 that the paths
+#   round apart flips its weight's step: the masters' limit sits well above
+#   the gradients'. On an H100, sound runs read at most 0.009 (gradients)
+#   and 0.063 (masters; the card test's small width), the control 1.37 to
+#   1.44. Each step's loss within STEP_LOSS_RTOL and the scalers' states
+#   equal.
+AMP_GRAD_RTOL = 0.05
+AMP_MASTER_RTOL = 0.2
+
+
+def make_amp(model, level: str, dtype: str = "bfloat16", scale: float | None = None):
+    """(model, optimizer, scaler) of the AMP loop: phase 7's AdamW (LR, weight
+    decay 0.1, global-norm clip 1.0); at O2 ``amp.decorate`` casts the model
+    to ``dtype`` and keeps f32 masters; a ``GradScaler`` with its defaults
+    or ``init_loss_scaling=scale``."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(LR, parameters=model.parameters(), weight_decay=0.1,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    if level == "O2":
+        model, opt = amp.decorate(model, opt, level="O2", dtype=dtype)
+    scaler = amp.GradScaler() if scale is None else amp.GradScaler(init_loss_scaling=scale)
+    return model, opt, scaler
+
+
+def amp_step(model, opt, scaler, level: str, dtype: str, ids, labels, poison=None,
+             unscale_ms=None, inspect=None):
+    """One step of Paddle's AMP loop: forward and loss under
+    ``auto_cast(level, dtype)``, ``scaler.scale(loss).backward()``,
+    ``scaler.step``, ``scaler.update``, ``clear_grad``. ``poison(model)``
+    runs after the backward (a gradient made infinite); ``unscale_ms``, a
+    list, gets the unscale's device ms (CUDA events around it);
+    ``inspect(model)`` runs after the unscale, on the unscaled gradients.
+    Returns the f32 loss."""
+    import torch
+
+    from paddle_tpu_torch import amp
+
+    with amp.auto_cast(level=level, dtype=dtype):
+        loss, _ = model(ids, labels=labels)
+    scaler.scale(loss).backward()
+    if poison is not None:
+        poison(model)
+    if unscale_ms is not None:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        scaler.unscale_(opt)
+        ev[1].record()
+        torch.cuda.synchronize()
+        unscale_ms.append(ev[0].elapsed_time(ev[1]))
+    if inspect is not None:
+        scaler.unscale_(opt)
+        inspect(model)
+    scaler.step(opt)
+    scaler.update()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def hold_amp_state(model, opt, level: str, phase: str):
+    """At O2 every parameter low precision with an f32 master in the
+    optimizer; at O1 every parameter f32 and no master."""
+    import torch
+
+    params = list(model.parameters())
+    masters = [opt._master_weights.get(id(p)) for p in params]
+    if level == "O2":
+        ok = all(p.dtype in (torch.bfloat16, torch.float16) for p in params) and all(
+            m is not None and m.dtype == torch.float32 for m in masters)
+    else:
+        ok = all(p.dtype == torch.float32 for p in params) and not opt._master_weights
+    if not ok:
+        raise AssertionError(f"{phase}: parameters {sorted({str(p.dtype) for p in params})}, "
+                             f"{len(opt._master_weights)} masters")
+
+
+def train_amp(seed: int, level: str, layers: int) -> dict:
+    """Phase 18a (``level`` O2) and 18b (O1): the training cell (Llama-3-8B
+    widths, ``layers`` layers, batch 1 x TRAIN_SEQ, phase 7's AdamW and
+    clip) through Paddle's eager AMP loop in bf16: the model built in f32,
+    at O2 ``decorate``-d to bf16 with f32 masters. One warm-up step and
+    TRAIN_STEPS timed ones (host clock, synchronised), exact launches a
+    step, then one profiled step's device ms by kind with the unscale's
+    device ms on its own. Returns the launches, step ms and peak memory."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    phase = f"amp-{level}"
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=seed)
+    model, opt, scaler = make_amp(model, level)
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    n_embed = model.llama.embed_tokens.weight.numel()
+    say(phase, layers=layers, hidden=cfg.hidden_size, vocab=cfg.vocab_size, seq=TRAIN_SEQ,
+        trainable_params=n_params, level=level, amp_dtype="bfloat16",
+        param_dtype=str(next(model.parameters()).dtype),
+        model_init_s=round(time.perf_counter() - t0, 2))
+    rng = np.random.RandomState(seed + 18)
+    counters = training_counters()
+    per_step = expected_launches(layers, traced=False, amp=level)
+
+    def run(n_steps):
+        zero_counts(counters)
+        losses, times = [], []
+        for _ in range(n_steps):
+            ids, labels = token_batch(rng, TRAIN_SEQ, cfg.vocab_size)
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            loss = amp_step(model, opt, scaler, level, "bfloat16", ids, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - s0)
+            losses.append(loss.item())
+        counts = read_counts(counters)
+        want = {k: n_steps * v for k, v in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"{phase} launched {counts}, expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{phase} losses are not finite: {losses}")
+        return losses, times, counts
+
+    warm_losses, warm_times, _ = run(1)
+    losses, times, counts = run(TRAIN_STEPS)
+    hold_amp_state(model, opt, level, phase)
+    if opt._step_count != 1 + TRAIN_STEPS:
+        raise AssertionError(f"{phase}: {opt._step_count} optimizer steps (the scaler skipped "
+                             "one: a gradient overflowed at the default scale)")
+    step_s = sum(times) / len(times)
+    attn_flops = layers * 3.5 * flash_counts(True, 1, TRAIN_SEQ, cfg.num_attention_heads,
+                                             cfg.num_key_value_heads, 128)[2]
+    model_flops = 6 * (n_params - n_embed) * TRAIN_SEQ + attn_flops
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(phase, warmup_step_ms=round(1e3 * warm_times[0], 3), warmup_loss=warm_losses[0],
+        step_ms=[round(1e3 * t, 3) for t in times], step_ms_mean=round(1e3 * step_s, 3),
+        losses=losses, tokens_per_s=round(TRAIN_SEQ / step_s, 1),
+        model_tflop_per_step=round(model_flops / 1e12, 3),
+        bf16_peak_share=round(model_flops / step_s / BF16_FLOP_PER_S, 4),
+        max_memory_allocated_gib=round(peak, 3), scale=scaler.get_scale_ratio(),
+        launches=json.dumps(counts))
+    ids, labels = token_batch(rng, TRAIN_SEQ, cfg.vocab_size)
+    unscale = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        amp_step(model, opt, scaler, level, "bfloat16", ids, labels, unscale_ms=unscale)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - s0
+    per_kernel, ops = kernel_times(prof)
+    busy = sum(per_kernel.values()) / 1e6
+    say(phase, profiled_step_ms=round(1e3 * wall, 3), device_busy_ms=round(1e3 * busy, 3),
+        device_busy_share=round(busy / wall, 4) if busy else "not measured", device_ops=ops)
+    say(phase, device_ms_by_kind=json.dumps(by_kind(per_kernel)))
+    say(phase, unscale_device_ms=round(unscale[0], 4),
+        unscale_note="CUDA events around scaler.unscale_ in the profiled step: a multiply "
+                     "and a min/max a gradient, one host read")
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {phase} top kernel: {us / 1e3:.4f} ms/step {name[:90]}", flush=True)
+    del model, opt, scaler
+    torch.cuda.empty_cache()
+    return {"launches": counts, "step_ms": 1e3 * step_s, "max_memory_allocated_gib": peak}
+
+
+def amp_paths(runs: dict, level: str, dtype: str, batches, counters=None,
+              per_step=None, phase: str = "amp") -> dict:
+    """``len(batches)`` steps of the AMP loop on each of ``runs``
+    ({"kernel": (model, opt, scaler), "plain": ...}, built from the same
+    weights), the plain one under ``plain_kernels()``. With ``counters``,
+    the kernel path's launches must be ``per_step`` a step and the plain
+    path's none. Returns each path's losses and, by leaf (parameter name),
+    ``grad_gap`` (step 1's unscaled gradients, ||kernel - plain|| /
+    ||plain||), ``grad_control`` (the kernel path's step-2 gradient against
+    its step-1 one, the same norm) and ``master_gap`` (the masters' change,
+    O1: the parameters', ||d_kernel - d_plain|| / ||d_plain||)."""
+    import torch
+
+    (mk, ok, _), (mp, op, _) = runs["kernel"], runs["plain"]
+    names = [n for n, _ in mk.named_parameters()]
+    init = [p.detach().clone() for p in mp.parameters()]
+    first, gaps, control = [], {}, {}
+
+    def rel(a, b) -> float:
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    def inspect(name, step):
+        def read(model):
+            grads = [p.grad for p in model.parameters()]
+            if name == "kernel" and step == 0:
+                first.extend(g.clone() for g in grads)
+            elif name == "kernel" and step == 1:
+                control.update((n, rel(g, f)) for n, g, f in zip(names, grads, first))
+            elif name == "plain" and step == 0:
+                gaps.update((n, rel(f, g)) for n, f, g in zip(names, first, grads))
+                first.clear()
+        return read
+
+    losses = {}
+    for name, (model, opt, scaler) in runs.items():
+        before = read_counts(counters) if counters else None
+        with plain_kernels() if name == "plain" else contextlib.nullcontext():
+            losses[name] = [amp_step(model, opt, scaler, level, dtype, ids, labels,
+                                     inspect=inspect(name, i)).item()
+                            for i, (ids, labels) in enumerate(batches)]
+        torch.cuda.synchronize()
+        if counters:
+            launched = {k: n - before[k] for k, n in read_counts(counters).items()}
+            want = ({k: len(batches) * v for k, v in per_step.items()} if name == "kernel"
+                    else dict.fromkeys(counters, 0))
+            if launched != want:
+                raise AssertionError(f"{phase}: the {name} path launched {launched}, "
+                                     f"expected {want}")
+        hold_amp_state(model, opt, level, phase)
+    masters = {}
+    for n, pk, pp, p0 in zip(names, mk.parameters(), mp.parameters(), init):
+        a = ok._master_weights.get(id(pk), pk.detach()).float()
+        b = op._master_weights.get(id(pp), pp.detach()).float()
+        masters[n] = rel(a - p0.float(), b - p0.float())
+    del init
+    return {"losses": losses, "grad_gap": gaps, "grad_control": control, "master_gap": masters}
+
+
+def hold_amp_paths(got: dict, phase: str) -> dict:
+    """:func:`amp_paths`' readings within their limits: each loss within
+    STEP_LOSS_RTOL, every leaf's gradient within AMP_GRAD_RTOL and its
+    master's change within AMP_MASTER_RTOL, and every leaf's control
+    reading above AMP_GRAD_RTOL (the limit tells a wrong gradient apart).
+    Returns the readings' extremes."""
+    losses = got["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernel"], losses["plain"]))
+    worst = {k: max(got[k].items(), key=lambda kv: kv[1]) for k in ("grad_gap", "master_gap")}
+    least = min(got["grad_control"].items(), key=lambda kv: kv[1])
+    out = {"loss_rel_diff": loss_rel, "grad_gap_max": worst["grad_gap"][1],
+           "grad_gap_leaf": worst["grad_gap"][0], "grad_control_min": least[1],
+           "grad_control_leaf": least[0], "master_gap_max": worst["master_gap"][1],
+           "master_gap_leaf": worst["master_gap"][0]}
+    if not (loss_rel <= STEP_LOSS_RTOL and worst["grad_gap"][1] <= AMP_GRAD_RTOL
+            and worst["master_gap"][1] <= AMP_MASTER_RTOL and least[1] > AMP_GRAD_RTOL):
+        raise AssertionError(f"{phase}: kernels against plain {out} (limits: loss "
+                             f"{STEP_LOSS_RTOL}, gradients {AMP_GRAD_RTOL}, masters "
+                             f"{AMP_MASTER_RTOL}; the control must exceed {AMP_GRAD_RTOL}); "
+                             f"losses {losses}")
+    return out
+
+
+def check_amp(seed: int):
+    """Phase 18c: 2 layers at seq CHECK_SEQ, AMP_CHECK_STEPS steps of the AMP
+    loop through the kernels and through the plain versions
+    (``plain_kernels()``, the fused optimizer's too), the same weights and
+    batches: O2 bf16, O1 bf16, and O2 fp16 with
+    ``GradScaler(init_loss_scaling=AMP_FP16_SCALE)``, held by
+    :func:`hold_amp_paths` (losses, each leaf's gradient and master
+    change, the control), the scalers' state dicts and step counts equal,
+    the kernel path's launches exact and the plain path's none. Then one
+    more fp16 step on both, one gradient made infinite after the backward:
+    it must be skipped, parameters, masters and moments bit for bit as they
+    were, the step count unmoved, the scale halved."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=CHECK_LAYERS)
+    rng = np.random.RandomState(seed + 19)
+    batches = [token_batch(rng, CHECK_SEQ, cfg.vocab_size) for _ in range(AMP_CHECK_STEPS + 1)]
+    counters = training_counters()
+    for level, dtype, scale in (("O2", "bfloat16", None), ("O1", "bfloat16", None),
+                                ("O2", "float16", AMP_FP16_SCALE)):
+        phase = f"amp-check-{level}-{dtype}"
+        kern = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=seed)
+        plain = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=seed + 1)
+        plain.load_state_dict(kern.state_dict())
+        runs = {"kernel": make_amp(kern, level, dtype, scale),
+                "plain": make_amp(plain, level, dtype, scale)}
+        del kern, plain
+        got = amp_paths(runs, level, dtype, batches[:AMP_CHECK_STEPS], counters,
+                        expected_launches(CHECK_LAYERS, traced=False, amp=level), phase)
+        held = hold_amp_paths(got, phase)
+        (_, ok, sk), (_, op, sp) = runs["kernel"], runs["plain"]
+        if sk.state_dict() != sp.state_dict() or ok._step_count != op._step_count:
+            raise AssertionError(f"{phase}: scalers {sk.state_dict()} / {sp.state_dict()}, "
+                                 f"steps {ok._step_count} / {op._step_count}")
+        extra = {}
+        if dtype == "float16":
+            extra = hold_skip(runs, level, dtype, batches[-1], phase)
+        say(phase, layers=CHECK_LAYERS, seq=CHECK_SEQ, steps=AMP_CHECK_STEPS,
+            losses_kernel=got["losses"]["kernel"], losses_plain=got["losses"]["plain"],
+            loss_tol=STEP_LOSS_RTOL, **held, grad_rtol=AMP_GRAD_RTOL,
+            master_rtol=AMP_MASTER_RTOL, scaler_state=json.dumps(sk.state_dict()),
+            scaler_state_equal=True, **extra)
+        del runs, ok, sk, op, sp, got
+        torch.cuda.empty_cache()
+
+
+def hold_skip(runs: dict, level: str, dtype: str, batch, phase: str) -> dict:
+    """One more step on each run, the first parameter's gradient made
+    infinite after the backward: skipped (parameters, masters and moments
+    bit for bit, the step count unmoved), the scale halved, the scalers
+    equal."""
+    import torch
+
+    def poison(model):
+        g = next(model.parameters()).grad
+        g.view(-1)[0] = float("inf")
+
+    def state(model, opt):  # every tensor the step may touch, in a fixed order
+        return ([p.detach() for p in model.parameters()] + list(opt._master_weights.values())
+                + [x for s in opt._accumulators.values() for x in s.values()])
+
+    out = {}
+    for name, (model, opt, scaler) in runs.items():
+        snap = [t.cpu() for t in state(model, opt)]   # host copies: both runs fill the card
+        count, scale = opt._step_count, scaler.get_scale_ratio()
+        with plain_kernels() if name == "plain" else contextlib.nullcontext():
+            amp_step(model, opt, scaler, level, dtype, *batch, poison=poison)
+        torch.cuda.synchronize()
+        after = state(model, opt)
+        same = len(after) == len(snap) and all(torch.equal(a, b.cpu())
+                                               for a, b in zip(snap, after))
+        del snap, after
+        if not same or opt._step_count != count or scaler.get_scale_ratio() != scale / 2:
+            raise AssertionError(f"{phase}: the {name} path's step with an infinite gradient "
+                                 f"was not skipped: state kept {same}, steps {count} -> "
+                                 f"{opt._step_count}, scale {scale} -> "
+                                 f"{scaler.get_scale_ratio()}")
+        out[f"skip_{name}_scale"] = f"{scale} -> {scaler.get_scale_ratio()}"
+    if runs["kernel"][2].state_dict() != runs["plain"][2].state_dict():
+        raise AssertionError(f"{phase}: the scalers differ after the skipped step")
+    return {**out, "skipped_step_state_bit_for_bit": True}
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
@@ -4025,7 +4579,9 @@ def main(argv=None) -> int:
                          for t in (leaf.values() if isinstance(leaf, dict) else (leaf,))))
     paged_decode_attention.launches = 0
     int8_matmul.launches = int8_matmul_large_m.launches = 0
-    int8_reqs = serve(engine, prompts, NEW_TOKENS, "int8-engine")
+    with recording_decode(engine) as decoded:
+        int8_reqs = serve(engine, prompts, NEW_TOKENS, "int8-engine")
+    time_decode_traffic(gen, "phase4", decoded, engine._kv.num_blocks)
     agree = [a == b for r1, r2 in zip(bf16_reqs, int8_reqs)
              for a, b in zip(r1.generated, r2.generated)]
     say("int8-engine", greedy_top1_agreement_vs_bf16=round(sum(agree) / len(agree), 4))
@@ -4100,6 +4656,17 @@ def main(argv=None) -> int:
     lap("16")
     fused_opt = check_fused_optimizer(args.seed)
     lap("17")
+    amp_o2 = train_amp(args.seed, "O2", TRAIN_LAYERS)
+    amp_o1 = train_amp(args.seed, "O1", AMP_O1_LAYERS)
+    say("amp", o2_step_ms=round(amp_o2["step_ms"], 3), o1_step_ms=round(amp_o1["step_ms"], 3),
+        train_step_ms=round(trained["step_ms"], 3),
+        o2_step_ms_ratio_to_train=round(amp_o2["step_ms"] / trained["step_ms"], 4),
+        o2_max_memory_allocated_gib=round(amp_o2["max_memory_allocated_gib"], 3),
+        o1_max_memory_allocated_gib=round(amp_o1["max_memory_allocated_gib"], 3))
+    check_amp(args.seed)
+    fused_master = check_fused_optimizer(args.seed, master=True)
+    lap("18")
+    amp_launches = {k: amp_o2["launches"][k] + amp_o1["launches"][k] for k in amp_o2["launches"]}
 
     kernels = [
         {"name": "paged_decode_attention", "route": "cuda",
@@ -4132,16 +4699,21 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": f"paddle_tpu/ops/pallas/{replaces}",
-            "launches": train_launches[wrapper], **nums})
+            "launches": train_launches[wrapper] + amp_launches[wrapper], **nums})
         kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
-                              f"({TRAIN_LAYERS} layers)")
-    for name, nums, launches in (("rms_norm_fwd", norm_fwd, norm_launches["fwd"]),
-                                 ("rms_norm_bwd", norm_bwd, norm_launches["bwd"])):
+                              f"({TRAIN_LAYERS} layers) and the {TRAIN_STEPS} timed AMP steps "
+                              "of each level (phase 18, bf16)")
+    for name, nums, launches in (
+            ("rms_norm_fwd", norm_fwd, norm_launches["fwd"] + amp_launches["rms_norm_fwd_fused"]),
+            ("rms_norm_bwd", norm_bwd,
+             norm_launches["bwd"] + amp_launches["rms_norm_bwd_dx_fused"])):
         kernels.append({
             "name": name, "route": "cuda", "source": "paddle_tpu_torch/csrc/rms_norm.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_norm.py:79", "launches": launches, **nums})
         kernels[-1]["at"] += ("; the fused rounding, which eager calls take (a TrainStep "
-                              "takes round_first): launches from phase 5's checks")
+                              "takes round_first): launches from phase 5's checks and, in f32 "
+                              "(amp casts a norm's inputs to f32), the timed AMP steps of "
+                              "phase 18")
     for name, source, replaces, nums, launches in (
             ("flash_attention_fwd_f32", "flash_attention.cu", "flash_attention.py:112",
              f32_fwd, f32_launches["flash_f32_fwd"]),
@@ -4232,9 +4804,18 @@ def main(argv=None) -> int:
         "name": "multi_tensor_update", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
         "replaces": "paddle_tpu/optimizer/fused_step.py:105 (an XLA program: no TPU kernel)",
-        "launches": train_launches["multi_tensor_update"], **fused_opt})
+        "launches": (train_launches["multi_tensor_update"]
+                     + amp_launches["multi_tensor_update_direct"]), **fused_opt})
     kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
-                          f"({TRAIN_LAYERS} layers, one AdamW update a step)")
+                          f"({TRAIN_LAYERS} layers, one AdamW update a step) and the "
+                          f"{TRAIN_STEPS} timed O1 AMP steps (f32 parameters)")
+    kernels.append({
+        "name": "multi_tensor_update_master", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
+        "replaces": "paddle_tpu/optimizer/fused_step.py:142 (an XLA program: no TPU kernel)",
+        "launches": amp_launches["multi_tensor_update_master"], **fused_master})
+    kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed O2 AMP steps of phase 18 "
+                          "(the kernel's master mode, one a step)")
     say("done", total_s=round(time.perf_counter() - t_start, 1), phase_s=json.dumps(phase_s))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

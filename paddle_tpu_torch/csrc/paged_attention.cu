@@ -22,16 +22,16 @@
 // Design: one launch per call, its grid fixed by the shapes (the wrapper
 // passes two blocks an SM, one past 256 columns), so a CUDA graph can hold
 // it.
-// - Length-balanced split-KV. Each (lane, KV head, pass) pair's visible
-//   units (pages; in the wide mode below, boxes of rows of a page) are cut
-//   into chunks of at most Kc units, Kc the fewest that fit the chunks to
-//   the grid, so no block streams more than Kc units whatever the skew
-//   between lanes; block j takes chunks j, j + grid, ... (one, unless the
-//   pairs outnumber the blocks). Every block reads `lengths` itself and
-//   finds Kc and its chunk on the device: no host read of `lengths`, ever.
-//   (A first design gave each block an equal contiguous share of the page
-//   list; blocks over short lanes then walked up to seven one-page pairs in
-//   series, each with its own fixed costs: PERF.md.)
+// - Split-KV, each lane on its own. Each (lane, KV head, pass) pair's
+//   visible units (pages; in the wide mode below, boxes of rows of a page)
+//   are cut into chunks of Kc units, Kc passed by the wrapper from the
+//   shapes alone (ops/paged_attention.py chunk_units), so a lane's split
+//   points, and its result's bits, depend on its own length only; block j
+//   takes chunks j, j + grid, ..., and a block's warps take a chunk's
+//   stages counted from the chunk's first. Every block reads `lengths`
+//   itself and finds its chunk on the device: no host read of `lengths`,
+//   ever. (A Kc found from this call's lengths balanced skewed lanes, but
+//   moved one lane's split points when another lane grew: PERF.md.)
 // - A page ring fed by TMA. A 4-D tensor map over the pool [nb, bs, Hk, hd]
 //   loads one KV head's rows of one page, K and V, per stage (a page of more
 //   than 8 KB as several boxes of rows); the block-table entry is the page
@@ -119,11 +119,13 @@ struct Args {
   void* out;              // [lanes, H, hd]
   const int* table;       // [lanes, MB]
   const int* lengths;     // [lanes]
-  float* part;            // [slots, hp, hdp] accumulators, then [slots, hp, 2] (max, sum)
+  float* part;            // [slots, hp, hdp] accumulators, then [slots, hp, 2] (max, sum);
+                          // slots: pairs x ceil(units a full lane / kc)
   int* tickets;           // [pairs], zero between calls
   const void* pool_k;     // [nb, bs, Hk, hd]: read directly where tma is 0 (kTma false)
   const void* pool_v;
   int lanes, H, Hk, hd, bs, MB, grid;
+  int kc;                 // units a chunk (the wrapper's, from the shapes)
   int hdp;                // hd rounded up to 8: a partial row's floats
   int tma;                // 1: TMA boxes; 0: rows not 16-byte multiples, the warp copies
   int rows;               // rows of a box: a divisor of bs (narrow), at most bs (wide)
@@ -154,7 +156,7 @@ struct Layout {
     prefix = bars + 2 * a.stages * 8;                  // chunks before lane [lanes + 1], slots [lanes]
     red = (prefix + 4 * (2 * a.lanes + 1) + 15) / 16 * 16;  // [warps][hp][hdp], [warps][hp][2]
     flag = red + (wide ? 1 : kConsumerWarps) * a.hp * (a.hdp + 2) * 4;
-    xs = (flag + 16 + 15) / 16 * 16;                   // after the ticket's verdict, Kc
+    xs = (flag + 16 + 15) / 16 * 16;                   // after the ticket's verdict
     total = wide ? xs + kXsBytes : flag + 16;
   }
 };
@@ -953,7 +955,7 @@ __device__ __forceinline__ void decode(const CUtensorMap& tk, const CUtensorMap&
   int* nvis = cpre + a.lanes + 1;                        // visible slots of lane b
   float* red_acc = reinterpret_cast<float*>(sm + lay.red);
   float* red_ml = red_acc + kSets * a.hp * a.hdp;
-  int* flag = reinterpret_cast<int*>(sm + lay.flag);     // the ticket's verdict, then Kc
+  int* flag = reinterpret_cast<int*>(sm + lay.flag);     // the ticket's verdict
   float* xs = reinterpret_cast<float*>(sm + lay.xs);     // wide: the slices' partial scores
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -971,42 +973,19 @@ __device__ __forceinline__ void decode(const CUtensorMap& tk, const CUtensorMap&
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tk)) : "memory");
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
   }
+  const int Kc = a.kc;
   if (warp == 0) {
-    // visible slots and units of every lane (units parked in cpre[b + 1])
-    int most = 0, total = 0;
-    for (int base = 0; base < a.lanes; base += 32) {
-      const int b = base + lane;
-      if (b < a.lanes) {
-        const int n = min(max(a.lengths[b], 0), cap - 1) + 1;
-        const int p = units<kWide>(a, n);
-        nvis[b] = n;
-        cpre[b + 1] = p;
-        most = max(most, p);
-        total += p;
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
-      total += __shfl_xor_sync(0xffffffffu, total, o);
-    }
-    __syncwarp();
-    // Kc: the fewest units a chunk such that the chunks fit the grid (or
-    // whole pairs, where the pairs outnumber the blocks); 32 candidates a
-    // round, one a lane, from the balanced share up
-    int kc = 0;
-    for (int lo = max(1, (total * per_lane + a.grid - 1) / a.grid); kc == 0; lo += 32) {
-      const int mine = lo + lane;
-      int n = 0;
-      for (int b = 0; b < a.lanes; ++b) n += (cpre[b + 1] + mine - 1) / mine;
-      const unsigned ok = __ballot_sync(0xffffffffu, n * per_lane <= a.grid || mine >= most);
-      if (ok) kc = min(lo + __ffs(ok) - 1, most);
-    }
-    __syncwarp();
+    // visible slots of every lane, and a pair's chunks summed over the
+    // lanes before lane b (cpre[b])
     int carry = 0;
     for (int base = 0; base < a.lanes; base += 32) {
       const int b = base + lane;
-      int p = b < a.lanes ? (cpre[b + 1] + kc - 1) / kc : 0;
+      int p = 0;
+      if (b < a.lanes) {
+        const int n = min(max(a.lengths[b], 0), cap - 1) + 1;
+        nvis[b] = n;
+        p = (units<kWide>(a, n) + Kc - 1) / Kc;
+      }
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
         const int y = __shfl_up_sync(0xffffffffu, p, o);
@@ -1015,14 +994,10 @@ __device__ __forceinline__ void decode(const CUtensorMap& tk, const CUtensorMap&
       if (b < a.lanes) cpre[b + 1] = carry + p;
       carry += __shfl_sync(0xffffffffu, p, 31);
     }
-    if (lane == 0) {
-      cpre[0] = 0;
-      flag[1] = kc;
-    }
+    if (lane == 0) cpre[0] = 0;
   }
   __syncthreads();
 
-  const int Kc = flag[1];
   const int nchunks = cpre[a.lanes] * per_lane;
   const int j = blockIdx.x;
   if (j >= nchunks) return;
@@ -1099,7 +1074,7 @@ __device__ __forceinline__ void decode(const CUtensorMap& tk, const CUtensorMap&
   const T* qg = static_cast<const T*>(a.q);
   T* out = static_cast<T*>(a.out);
   const int C = (a.hd + V - 1) / V;  // 16-byte chunks of an output row, the last maybe partial
-  const int nslots = a.grid + a.lanes * per_lane;
+  const int nslots = a.lanes * per_lane * ((units<kWide>(a, cap) + Kc - 1) / Kc);
   float* part_acc = a.part;
   float* part_ml = a.part + (size_t)nslots * a.hp * a.hdp;
   using Narrow = typename std::conditional<kMma, MmaConsumer<T, DP>, SimtConsumer<HP>>::type;
@@ -1107,6 +1082,7 @@ __device__ __forceinline__ void decode(const CUtensorMap& tk, const CUtensorMap&
   typename std::conditional<kWide, Wide, Narrow>::type cs;
   int it = 0, ex = 0;
   for (int c = j; c < nchunks; c += a.grid) {
+    const int it0 = it;  // the chunk's first stage: its warps count from there
     int b, sub, ci, nsplit;
     locate(cpre, a.lanes, per_lane, c, b, sub, ci, nsplit);
     const int g = sub / a.npass, pass = sub - g * a.npass;
@@ -1150,7 +1126,7 @@ __device__ __forceinline__ void decode(const CUtensorMap& tk, const CUtensorMap&
         const int rows = min(a.bs, nvis[b] - pi * a.bs);
         for (int row0 = 0; row0 < rows; row0 += a.rows, ++it) {
           const int st = it % a.stages;
-          if (kMma && (it & (kConsumerWarps - 1)) != warp) continue;  // another warp's stage
+          if (kMma && ((it - it0) & (kConsumerWarps - 1)) != warp) continue;  // another warp's
           const uint32_t ph = (it / a.stages) & 1;
           mbar_wait(full + st, ph);
           const int rv = min(a.rows, rows - row0);  // rows of this box that are visible
@@ -1420,8 +1396,9 @@ inline void geometry(Args* a, int es) {
 
 #if !defined(KERNEL_PART) || KERNEL_PART == 0
 // The interface version: kernel_ab tells this source from the earlier
-// two-kernel one (a decode kernel, then a merge kernel) by it.
-extern "C" int paged_attention_abi() { return 2; }
+// ones by it (1: two kernels, a decode then a merge; 2: Kc found on the
+// device from the lengths; 3: Kc passed from the shapes).
+extern "C" int paged_attention_abi() { return 3; }
 
 namespace paged {
 // the arguments of a call, the pointers aside
@@ -1452,8 +1429,10 @@ extern "C" int paged_attention_smem(int lanes, int hd, int bs, int hp, int dtype
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. hp: the query heads a
 // pass, 1, 2, 4 or 8; a GQA group of H / Hk heads takes passes = ceil(H /
-// Hk / hp). part: f32 scratch of (grid + lanes * Hk * passes) * hp *
-// (round_up(hd, 8) + 2) floats; tickets: int32 [lanes * Hk * passes], zero
+// Hk / hp). kc: units a chunk (pages; wide: boxes of rows of a page), from
+// the shapes alone. part: f32 scratch of lanes * Hk * passes * ceil(units a
+// full lane / kc) * hp * (round_up(hd, 8) + 2) floats; tickets: int32
+// [lanes * Hk * passes], zero
 // before the first call (each call leaves them zero). The caller has
 // checked shapes, dtypes and alignment: H % Hk == 0, hd <= 1024, any bs,
 // every pointer 16-byte aligned. Head dims or pages past 256 run the wide
@@ -1462,9 +1441,10 @@ extern "C" int paged_attention_smem(int lanes, int hd, int bs, int hp, int dtype
 extern "C" int paged_decode_attention(const void* q, const void* pages_k, const void* pages_v,
                                       const void* block_table, const void* lengths, void* part,
                                       void* tickets, void* out, int lanes, int H, int Hk, int hd,
-                                      int bs, int MB, int nb, int grid, int hp, float scale,
-                                      int dtype, void* stream) {
+                                      int bs, int MB, int nb, int grid, int hp, int kc,
+                                      float scale, int dtype, void* stream) {
   if (hp != 1 && hp != 2 && hp != 4 && hp != 8) return (int)cudaErrorInvalidValue;
+  if (kc < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int es = dtype == 0 ? 4 : 2;
   paged::Args a = paged::shape(lanes, H, Hk, hd, bs, MB, grid, hp, es);
@@ -1476,6 +1456,7 @@ extern "C" int paged_decode_attention(const void* q, const void* pages_k, const 
   a.lengths = static_cast<const int*>(lengths);
   a.part = static_cast<float*>(part);
   a.tickets = static_cast<int*>(tickets);
+  a.kc = kc;
   a.scale2 = scale * paged::kLog2e;
   if (a.wc > 0) return paged::dispatch_wide(pages_k, pages_v, nb, a, dtype, s);
   if (dtype == 1) return paged::dispatch<__nv_bfloat16, false>(pages_k, pages_v, nb, a, s);

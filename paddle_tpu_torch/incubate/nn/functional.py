@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import cast_inputs
 from ...nn.functional import swiglu  # noqa: F401 (re-export, as the reference does)
 
 __all__ = ["fused_rotary_position_embedding", "rotary_tables", "swiglu"]
@@ -30,7 +31,9 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     - sin and cos are cast to the activation's dtype before the products
       (in bf16 this rounding shows at large positions);
     - neox style rotates the halves ``[:d/2]``, ``[d/2:]``; otherwise the
-      interleaved pairs ``(0::2, 1::2)``.
+      interleaved pairs ``(0::2, 1::2)``;
+    - under ``amp.auto_cast`` q, k and v are first cast as the op
+      ``fused_rope``.
     """
     if time_major:
         raise NotImplementedError("time_major rotary embedding comes with a later slice "
@@ -51,4 +54,4 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
         a1, a2 = a[..., 0::2], a[..., 1::2]
         return torch.stack([a1 * c - a2 * s, a2 * c + a1 * s], dim=-1).reshape(a.shape)
 
-    return tuple(None if t is None else rope(t) for t in (q, k, v))
+    return tuple(None if t is None else rope(t) for t in cast_inputs("fused_rope", q, k, v))

@@ -37,19 +37,18 @@ from ..tracing import traced
 __all__ = ["TrainStep", "EvalStep"]
 
 
-# keyword -> the later slice of the port (ROADMAP queue 1) that brings it
-_LATER = {"cast_fn": "amp (item 10)",
-          "telemetry_export_every": "observability (item 12)",
-          "telemetry_logdir": "observability (item 12)",
-          "numerics": "observability (item 12)",
-          "recompute_policy": "distributed (item 11, recompute and autopilot)",
-          "offload_optimizer": "distributed (item 11, autopilot)",
-          "checkpoint_root": "distributed (item 11, checkpoint)"}
+# keyword -> the module of the port that brings it (the reference's module)
+_LATER = {"telemetry_export_every": "profiler.telemetry",
+          "telemetry_logdir": "profiler.telemetry",
+          "numerics": "profiler.numerics",
+          "recompute_policy": "autopilot (with distributed.recompute)",
+          "offload_optimizer": "autopilot",
+          "checkpoint_root": "distributed.checkpoint"}
 
 
 def _later(name):
-    return NotImplementedError(f"TrainStep({name}=...) comes with the {_LATER[name]} slice "
-                               "of the port")
+    return NotImplementedError(f"TrainStep({name}=...) comes with the port's "
+                               f"{_LATER[name]} module")
 
 
 class TrainStep:
@@ -64,8 +63,7 @@ class TrainStep:
                  offload_optimizer: bool | None = None,
                  numerics: str | None = None,
                  checkpoint_root: str | None = None):
-        for name, value in (("cast_fn", cast_fn),
-                            ("telemetry_export_every", telemetry_export_every),
+        for name, value in (("telemetry_export_every", telemetry_export_every),
                             ("telemetry_logdir", telemetry_logdir),
                             ("recompute_policy", recompute_policy),
                             ("offload_optimizer", offload_optimizer),
@@ -77,6 +75,7 @@ class TrainStep:
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
+        self._cast_fn = cast_fn  # stored and never read, as in the reference
         self._accum_k = int(accumulate_steps or 1)
         self._micro = 0
         self._acc = None

@@ -29,6 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import random as R
+from ..amp import cast_inputs
 from ..device import resolve_device
 from ..distributed.fleet.sequence_parallel import ring_context_attention
 from ..incubate.nn.functional import fused_rotary_position_embedding
@@ -253,7 +254,8 @@ class LlamaForCausalLM(nn.Module):
         ``(loss, logits)`` where loss is the mean cross entropy (f32)."""
         hidden_states = self.llama(input_ids, attention_mask, position_ids)
         if self.lm_head is None:
-            logits = torch.matmul(hidden_states, self.llama.embed_tokens.weight.T)
+            h, w = cast_inputs("matmul", hidden_states, self.llama.embed_tokens.weight)
+            logits = torch.matmul(h, w.T)
         else:
             logits = self.lm_head(hidden_states)
         if labels is None:

@@ -119,11 +119,10 @@ class ClipGradByNorm(_ClipBase):
 class ClipGradByGlobalNorm(_ClipBase):
     """Scale every gradient by ``clip_norm / max(global_norm, clip_norm)``,
     the global norm taken in f32 over the gradients whose parameter has
-    ``need_clip`` (default True)."""
+    ``need_clip`` (default True). ``group_name`` and ``auto_skip_clip`` are
+    taken and ignored, as in the reference."""
 
     def __init__(self, clip_norm=1.0, group_name="default_group", auto_skip_clip=False):
-        if auto_skip_clip:
-            raise NotImplementedError("auto_skip_clip comes with a later slice of the port")
         self.clip_norm = float(clip_norm)
 
 

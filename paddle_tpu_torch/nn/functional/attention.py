@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from ...amp import cast_inputs
 from ...ops.flash_attention import flash_attention_bsnd
 
 __all__ = ["flash_attention", "scaled_dot_product_attention", "sdpa_ref"]
@@ -52,7 +53,9 @@ def flash_attention(query, key, value, dropout=0.0, causal=False, return_softmax
     dropout the flash gate takes the call (bf16, fp16 and f32 with a
     head_dim that is a multiple of 8, any ``sq`` and ``sk``, causal aligned
     bottom-right); other head dims and dropout in training go to the
-    composed path."""
+    composed path. Under ``amp.auto_cast`` q, k and v are first cast as
+    the op ``flash_attention``."""
+    query, key, value = cast_inputs("flash_attention", query, key, value)
     if dropout == 0.0:
         out = flash_attention_bsnd(query, key, value, causal=causal)
         if out is not None:
@@ -65,7 +68,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
                                  is_causal=False, training=True, name=None, *,
                                  generator=None):
     """Paddle's ``scaled_dot_product_attention``: a mask or dropout goes to
-    the composed path, anything else through the flash gate."""
+    the composed path, anything else through the flash gate. Under
+    ``amp.auto_cast`` the inputs are first cast as the op ``sdpa``."""
+    query, key, value, attn_mask = cast_inputs("sdpa", query, key, value, attn_mask)
     p = dropout_p if training else 0.0
     if attn_mask is None and dropout_p == 0.0:
         out = flash_attention_bsnd(query, key, value, causal=is_causal)

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import cast_inputs
+
 __all__ = ["cross_entropy"]
 
 
@@ -25,7 +27,10 @@ def cross_entropy(input, label, weight=None, ignore_index=-100, reduction="mean"
     kept labels), uniform ``label_smoothing``; or ``soft_label``
     distributions. The hard-label loss gathers the label's column instead of
     building the reference's one-hot, which gives the same value and saves
-    an [N, classes] f32 tensor."""
+    an [N, classes] f32 tensor. Under ``amp.auto_cast`` the input and the
+    class weights are first cast as the op ``cross_entropy`` (black list:
+    to f32)."""
+    input, weight = cast_inputs("cross_entropy", input, weight)
     if use_softmax:
         logp = torch.log_softmax(input.float(), dim=axis)
     else:

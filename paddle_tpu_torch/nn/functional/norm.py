@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import cast_inputs
 from ...ops import fused_norm
 from ...tracing import is_traced
 
@@ -27,7 +28,9 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     the kernel's ``round_first`` mode, the reference's composed form that
     its traced calls run. Every other call, fp16 included, is the composed
     form (``norm.py:83-94``): normalise in f32, cast, then multiply by the
-    weight in x's dtype."""
+    weight in x's dtype. Under ``amp.auto_cast`` the inputs are first cast
+    as the op ``rms_norm`` (a black-list op: to f32)."""
+    x, weight = cast_inputs("rms_norm", x, weight)
     h = x.shape[-1]
     if (weight is not None and weight.dtype == x.dtype and x.dtype in KERNEL_DTYPES
             and tuple(weight.shape) == (h,)):

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..amp import cast_inputs
 from ..ops import quant_matmul as QM
 
 __all__ = ["weight_quantize", "weight_dequantize", "weight_only_linear", "QuantizedLinear"]
@@ -83,10 +84,10 @@ def weight_dequantize(quant_weight, scales, algo: str = "weight_only_int8"):
     """The f32 weight ``q * scales`` of a :func:`weight_quantize` result."""
     if algo not in _ALGOS:
         raise ValueError(f"unsupported quant algo {algo!r}")
-    q = _as_tensor(quant_weight)
+    q, s = cast_inputs("weight_dequantize", _as_tensor(quant_weight), _as_tensor(scales))
     if algo == "weight_only_int4":
         q = _unpack_int4(q)
-    return q.to(torch.float32) * _as_tensor(scales)[None, :]
+    return q.to(torch.float32) * s[None, :]
 
 
 def weight_only_linear(x, weight, bias=None, weight_scale=None, weight_dtype: str = "int8",
@@ -101,12 +102,13 @@ def weight_only_linear(x, weight, bias=None, weight_scale=None, weight_dtype: st
         raise ValueError("group-wise scales are not supported; use per-channel (group_size=-1)")
     if weight_scale is None:
         raise ValueError("weight_scale is required (from weight_quantize)")
-    x, w, s = _as_tensor(x), _as_tensor(weight), _as_tensor(weight_scale)
+    x, w, s = cast_inputs("weight_only_linear", _as_tensor(x), _as_tensor(weight),
+                          _as_tensor(weight_scale))
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if weight_dtype == "int8" and QM.kernel_takes(x2, *w.shape):
         op = QM.int8_matmul_train_scales if train_scales else QM.int8_matmul_frozen
-        out = op(x2, w, s)
+        out = op(x2, w, s.float())   # the kernels take f32 scales (amp's O2 casts them)
     elif weight_dtype == "int8":
         sc = s if train_scales else s.detach()
         out = (x2.float() @ w.float() * sc.float()[None, :]).to(x2.dtype)

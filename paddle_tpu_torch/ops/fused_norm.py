@@ -119,6 +119,7 @@ def rms_norm_fwd(x, w, eps: float, round_first: bool = False):
         raise RuntimeError(f"rms_norm_fwd kernel launch failed: CUDA error {rc}")
     rms_norm_fwd.launches += 1
     rms_norm_fwd.by_mode[MODES[round_first]] += 1
+    rms_norm_fwd.by_dtype[str(x.dtype).removeprefix("torch.")] += 1
     return out, inv
 
 
@@ -145,15 +146,18 @@ def rms_norm_bwd_dx(x, w, inv, dout, round_first: bool = False):
         raise RuntimeError(f"rms_norm_bwd_dx kernel launch failed: CUDA error {rc}")
     rms_norm_bwd_dx.launches += 1
     rms_norm_bwd_dx.by_mode[MODES[round_first]] += 1
+    rms_norm_bwd_dx.by_dtype[str(x.dtype).removeprefix("torch.")] += 1
     return dx
 
 
 #: kernel launches since the last reset (the CPU path never counts), in
-#: all and by mode
+#: all, by mode and by dtype
 rms_norm_fwd.launches = 0
 rms_norm_bwd_dx.launches = 0
 rms_norm_fwd.by_mode = dict.fromkeys(MODES.values(), 0)
 rms_norm_bwd_dx.by_mode = dict.fromkeys(MODES.values(), 0)
+rms_norm_fwd.by_dtype = dict.fromkeys((str(d).removeprefix("torch.") for d in DTYPES), 0)
+rms_norm_bwd_dx.by_dtype = dict.fromkeys((str(d).removeprefix("torch.") for d in DTYPES), 0)
 
 
 class _RMSNorm2D(torch.autograd.Function):

@@ -264,11 +264,16 @@ def multi_tensor_update(cls, entries, t: int, lay: Layout | None = None):
         if rc != 0:
             raise RuntimeError(f"multi_tensor_update kernel launch failed: CUDA error {rc}")
         multi_tensor_update.launches += 1
+        master = any(entries[i].low is not None for i in range(a, b))
+        multi_tensor_update.by_mode["master" if master else "direct"] += 1
     return lay
 
 
-#: kernel launches since the last reset (the CPU path never counts)
+#: kernel launches since the last reset (the CPU path never counts), in all
+#: and by mode: "master" where an entry updates an f32 master and writes
+#: its low-precision copy, else "direct"
 multi_tensor_update.launches = 0
+multi_tensor_update.by_mode = {"direct": 0, "master": 0}
 
 
 def multi_tensor_update_plain(cls, entries, t: int, lay: Layout | None = None):

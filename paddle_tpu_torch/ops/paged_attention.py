@@ -9,9 +9,10 @@ block-table row, then ``masked_attend``), which the CPU tests hold against
 the reference package.
 
 The kernel is one launch with a grid fixed by the shapes (:func:`grid_size`):
-each (lane, KV head, pass) pair's visible units are cut into chunks of at
-most Kc units, Kc the fewest that fit the chunks to the grid, one chunk a
-block; a pair cut into several chunks is merged, in chunk order, by the
+each (lane, KV head, pass) pair's visible units are cut into chunks of Kc
+units, Kc fixed by the shapes (:func:`chunk_units`), so a lane's split
+points depend on its own length only; block j takes chunks j, j + grid,
+...; a pair cut into several chunks is merged, in chunk order, by the
 block that finishes it last. :func:`split_schedule` and
 :func:`paged_decode_attention_split` repeat that schedule and merge on the
 CPU, so the tests hold them against the plain version and the reference.
@@ -35,13 +36,17 @@ import torch
 from ..models.llama import masked_attend
 from . import _build
 
-__all__ = ["MODES", "grid_size", "heads_per_pass", "mode", "paged_decode_attention",
-           "paged_decode_attention_ref", "paged_decode_attention_split", "split_schedule",
-           "wide_geometry"]
+__all__ = ["MODES", "chunk_units", "grid_size", "heads_per_pass", "mode",
+           "paged_decode_attention", "paged_decode_attention_ref",
+           "paged_decode_attention_split", "split_schedule", "wide_geometry"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 BLOCKS_PER_SM = 2          # the grid: this many blocks an SM, at most one a work item
 WIDE_BLOCKS_PER_SM = 1     # head dims past 256: half as many splits of a pair to merge
+# chunks a block takes with every lane full (chunk_units): 2 runs the
+# engine's decode traffic, where most lanes are short or idle, faster than 1
+# (chip_smoke.py's paged-traffic lines time both); lanes all long run slower
+FILL = 2
 _MAX_HEADS_PER_PASS = 8    # query heads a pass of the kernel takes
 NARROW = 256               # head dims and page sizes of the narrow mode (a TMA box's width)
 MAX_HEAD_DIM = 1024        # the kernel's head dims
@@ -85,6 +90,16 @@ def grid_size(lanes: int, H: int, Hk: int, mb: int, sms: int, hd: int = 0) -> in
     return max(1, min(per_sm * sms, lanes * Hk * passes * mb))
 
 
+def chunk_units(lanes: int, H: int, Hk: int, units: int, grid: int) -> int:
+    """Kc, the units (pages; wide: boxes of rows of a page) of a chunk, from
+    the shapes alone (``units``: those of a full lane): the fewest that fit
+    every pair's chunks to FILL times the grid with every lane full, or
+    whole pairs where the pairs outnumber that. A lane's split points then
+    depend on its own length only."""
+    pairs = lanes * Hk * -(-(H // Hk) // heads_per_pass(H, Hk))
+    return -(-units // max(1, FILL * grid // pairs))
+
+
 def mode(hd: int, bs: int) -> str:
     """The kernel's mode for a head dim and a page size: ``narrow`` up to
     NARROW in both, else ``wide``."""
@@ -119,10 +134,11 @@ def split_schedule(lengths, bs: int, mb: int, H: int, Hk: int, grid: int,
     """The kernel's schedule, as the kernel computes it from ``lengths``.
     Each (lane, KV head, pass) pair's visible units (pages, or with
     ``rows`` boxes of that many rows of a page: the wide mode's) are cut
-    into chunks of at most Kc units, Kc the fewest that make the chunks fit
-    the grid (one chunk a block; pairs beyond the grid get whole-pair
-    chunks and the blocks loop). Chunks are numbered by lane, pair, then
-    unit, and block j takes chunks j, j + grid, ... Returns one dict a
+    into chunks of Kc units (:func:`chunk_units`: FILL chunks a block with
+    every lane full; pairs beyond that get whole-pair chunks), so a lane's
+    chunks depend on its own length only. Chunks are numbered by lane,
+    pair, then unit, and block j takes chunks j, j + grid, ... Returns one
+    dict a
     chunk, in chunk order: ``chunk``, ``block``, ``lane``, ``kv_head``,
     ``pass``, ``pair`` (lane * Hk * passes + kv_head * passes + pass),
     ``units`` (first, end) within the lane's visible units, ``first`` (the
@@ -132,13 +148,7 @@ def split_schedule(lengths, bs: int, mb: int, H: int, Hk: int, grid: int,
     passes = -(-(H // Hk) // heads_per_pass(H, Hk))
     per_lane = Hk * passes
     nunits = [_units(min(max(int(n), 0), cap - 1) + 1, bs, rows) for n in lengths]
-    lo, hi = 1, max(nunits)
-    while lo < hi:
-        kc = (lo + hi) // 2
-        if per_lane * sum(-(-p // kc) for p in nunits) <= grid:
-            hi = kc
-        else:
-            lo = kc + 1
+    lo = chunk_units(len(lengths), H, Hk, _units(cap, bs, rows), grid)
     chunks = []
     for b, p in enumerate(nunits):
         cpp = -(-p // lo)
@@ -212,7 +222,7 @@ def _lib():
     lib = _build.load("paged_attention")
     fn = lib.paged_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.paged_attention_smem.argtypes = [ctypes.c_int] * 5
@@ -259,30 +269,34 @@ def _check(q, pages_k, pages_v, block_table, lengths):
 _scratch: dict = {}
 
 
-def _grid_for(q, pages_k, block_table) -> int:
-    """The launch's grid for these tensors (:func:`grid_size` over the
-    mode's units a lane)."""
+def _plan_for(q, pages_k, block_table) -> tuple:
+    """(grid, Kc, partial slots) of the launch for these tensors:
+    :func:`grid_size` and :func:`chunk_units` over the mode's units a full
+    lane, and every pair's chunks with every lane full."""
     lanes, H, hd = q.shape
     _, bs, Hk, _ = pages_k.shape
     units = block_table.shape[1]
     if mode(hd, bs) == "wide":
         units *= -(-bs // wide_geometry(hd, bs, q.element_size())[1])
-    return grid_size(lanes, H, Hk, units, _sm_count(q.device), hd)
+    grid = grid_size(lanes, H, Hk, units, _sm_count(q.device), hd)
+    kc = chunk_units(lanes, H, Hk, units, grid)
+    pairs = lanes * Hk * -(-(H // Hk) // heads_per_pass(H, Hk))
+    return grid, kc, pairs * -(-units // kc)
 
 
-def _scratch_for(device, lanes, H, Hk, hd, grid):
+def _scratch_for(device, lanes, H, Hk, hd, slots):
     """(partials, tickets) of one shape, allocated once a (device, shape)
-    and kept: the kernel leaves the tickets zero after every call. Calls of
+    and kept: ``slots`` partials, and tickets the kernel leaves zero after
+    every call. Calls of
     one shape on one device share them, so they must not run concurrently
     on two streams."""
-    key = (device.index, lanes, H, Hk, hd, grid)
+    key = (device.index, lanes, H, Hk, hd, slots)
     got = _scratch.get(key)
     if got is None:
         hp = heads_per_pass(H, Hk)
         pairs = lanes * Hk * -(-(H // Hk) // hp)
         hdp = -(-hd // 8) * 8   # a partial row's floats
-        got = (torch.empty(((grid + pairs) * hp * (hdp + 2),), dtype=torch.float32,
-                           device=device),
+        got = (torch.empty((slots * hp * (hdp + 2),), dtype=torch.float32, device=device),
                torch.zeros((pairs,), dtype=torch.int32, device=device))
         _scratch[key] = got
     return got
@@ -303,13 +317,13 @@ def paged_decode_attention(q, pages_k, pages_v, block_table, lengths):
     nb, bs, Hk, _ = pages_k.shape
     mb = block_table.shape[1]
     route = mode(hd, bs)
-    grid = _grid_for(q, pages_k, block_table)
-    part, tickets = _scratch_for(q.device, lanes, H, Hk, hd, grid)
+    grid, kc, slots = _plan_for(q, pages_k, block_table)
+    part, tickets = _scratch_for(q.device, lanes, H, Hk, hd, slots)
     out = torch.empty_like(q)
     rc = _lib().paged_decode_attention(
         q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(), block_table.data_ptr(),
         lengths.data_ptr(), part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
-        lanes, H, Hk, hd, bs, mb, nb, grid, heads_per_pass(H, Hk), 1.0 / math.sqrt(hd),
+        lanes, H, Hk, hd, bs, mb, nb, grid, heads_per_pass(H, Hk), kc, 1.0 / math.sqrt(hd),
         _DTYPES[q.dtype], _build.launch_stream(q.device))
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: error {rc}")

@@ -88,13 +88,14 @@ class Momentum(Optimizer):
 
 
 class Adam(Optimizer):
+    """Bias-corrected Adam; ``lazy_mode`` is taken and ignored (every row
+    updated), as in the reference."""
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
                  parameters=None, weight_decay=None, grad_clip=None, lazy_mode=False,
                  multi_precision=False, name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision, name)
-        if lazy_mode:
-            raise NotImplementedError("lazy_mode comes with the sparse slice of the port")
         self._beta1, self._beta2, self._epsilon = float(beta1), float(beta2), float(epsilon)
 
     def _hyper(self, wd=None):
@@ -117,15 +118,13 @@ class AdamW(Optimizer):
     """Adam with decoupled weight decay: ``p * (1 - lr * wd)`` first, then
     the bias-corrected Adam step. ``apply_decay_param_fun(name)`` False,
     for the parameter's Paddle name (``param_name``), exempts it from the
-    decay."""
+    decay. ``lr_ratio`` and ``lazy_mode`` are taken and ignored, as in the
+    reference."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
                  parameters=None, weight_decay=0.01, lr_ratio=None, apply_decay_param_fun=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False, name=None):
         super().__init__(learning_rate, parameters, None, grad_clip, multi_precision, name)
-        if lr_ratio is not None or lazy_mode:
-            raise NotImplementedError("lr_ratio and lazy_mode come with a later slice of "
-                                      "the port")
         self._beta1, self._beta2, self._epsilon = float(beta1), float(beta2), float(epsilon)
         self._wd = (float(weight_decay) if isinstance(weight_decay, (int, float))
                     else float(getattr(weight_decay, "_coeff", 0.01)))

@@ -28,10 +28,11 @@ wrapper's plan constants so set (``_BLOCKS_PER_SM``, ``_FILL``,
 ``_MAX_SPLIT``: how finely K is cut).
 
 The ``--paged`` form takes copies of ``csrc/paged_attention.cu``: the
-current interface (one launch; it exports ``paged_attention_abi``) or the
-first one (a decode kernel and a merge kernel over per-call scratch,
-called as that source's wrapper called it; ``git show <commit>:<path>``
-gives one).
+current interface (one launch, Kc passed from the shapes;
+``paged_attention_abi`` 3), the one before it (Kc found on the device from
+the lengths; ``paged_attention_abi`` 2), or the first one (a decode kernel
+and a merge kernel over per-call scratch), each called as its source's
+wrapper called it (``git show <commit>:<path>`` gives one).
 Each runs in a child process, in the order given (the same source may be
 named twice, e.g. parent, new, new, parent): held against the plain
 version at chip_smoke.py's three timed cases (PAGED_TIMED: ragged, full
@@ -39,7 +40,9 @@ and skewed lengths at the serving shape, bf16), two calls bit for bit,
 then timed at each case with chip_smoke.py's CUDA-graph timing. SDPA over
 the gathered window is timed at each case before and after the variants.
 ``VARIANT.cu@N`` runs a copy with N blocks an SM (the wrapper's
-``BLOCKS_PER_SM``); ``--paged --no-check`` times copies that skip part of
+``BLOCKS_PER_SM``), ``VARIANT.cu@fill=F`` one of the current interface
+with chunks F times the grid with every lane full (the wrapper's ``FILL``:
+blocks loop over the chunks); ``--paged --no-check`` times copies that skip part of
 the work without the check; ``--paged --wide`` holds (against the plain
 version in f32) and times the kernel's wide mode at chip_smoke.py's
 WIDE_PAGED_CASES (head dims 320 to 1024, pages of 512 slots) instead.
@@ -459,11 +462,53 @@ def _legacy_paged(lib):
     return kern
 
 
-def run_paged_variant(lib: str, check: bool = True, per_sm: int = 0, wide: bool = False):
+def _abi2_paged(lib):
+    """``kern(q, pk, pv, table, ln)`` over a library of the second
+    interface: Kc found on the device from the lengths, so no Kc argument,
+    and scratch of grid + pairs partials, as its wrapper allocated it."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    fn = lib.paged_decode_attention
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    scratch = {}
+
+    def kern(q, pk, pv, table, ln):
+        lanes, H, hd = q.shape
+        nb, bs, Hk, _ = pk.shape
+        grid, hp = pa._plan_for(q, pk, table)[0], pa.heads_per_pass(H, Hk)
+        pairs = lanes * Hk * -(-(H // Hk) // hp)
+        key = (lanes, H, Hk, hd, grid)
+        if key not in scratch:
+            scratch[key] = (torch.empty((grid + pairs) * hp * (-(-hd // 8) * 8 + 2),
+                                        dtype=torch.float32, device=q.device),
+                            torch.zeros(pairs, dtype=torch.int32, device=q.device))
+        part, tickets = scratch[key]
+        out = torch.empty_like(q)
+        rc = fn(q.data_ptr(), pk.data_ptr(), pv.data_ptr(), table.data_ptr(), ln.data_ptr(),
+                part.data_ptr(), tickets.data_ptr(), out.data_ptr(), lanes, H, Hk, hd, bs,
+                table.shape[1], nb, grid, hp, 1.0 / math.sqrt(hd), pa._DTYPES[q.dtype],
+                _build.launch_stream(q.device))
+        if rc:
+            raise RuntimeError(f"abi 2 paged kernel: error {rc}")
+        return out
+
+    return kern
+
+
+def run_paged_variant(lib: str, check: bool = True, per_sm: int = 0, wide: bool = False,
+                      fill: int = 0):
     """Check (unless ``check`` is false) and time one paged_attention
-    library (in a child process), with ``per_sm`` blocks an SM if given; with
-    ``wide`` at the wide mode's cases (chip_smoke.py's WIDE_PAGED_CASES, held
-    against the plain version in f32)."""
+    library (in a child process), with ``per_sm`` blocks an SM and the
+    wrapper's ``FILL`` if given; with ``wide`` at the wide mode's cases
+    (chip_smoke.py's WIDE_PAGED_CASES, held against the plain version in
+    f32)."""
     import chip_smoke as cs
     import torch
 
@@ -472,10 +517,15 @@ def run_paged_variant(lib: str, check: bool = True, per_sm: int = 0, wide: bool 
 
     if per_sm:
         pa.BLOCKS_PER_SM = pa.WIDE_BLOCKS_PER_SM = per_sm
+    if fill:
+        pa.FILL = fill
     cdll = ctypes.CDLL(lib)
-    if hasattr(cdll, "paged_attention_abi"):
+    abi = cdll.paged_attention_abi() if hasattr(cdll, "paged_attention_abi") else 1
+    if abi >= 3:
         _build._loaded["paged_attention"] = cdll
         kern = pa.paged_decode_attention
+    elif abi == 2:
+        kern = _abi2_paged(cdll)
     else:
         kern = _legacy_paged(cdll)
     gen = torch.Generator(device="cuda")
@@ -512,8 +562,8 @@ def paged_sdpa_ms(gen, wide: bool = False) -> str:
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     if argv[:1] == ["--run-paged"]:
-        run_paged_variant(argv[-2], check="--no-check" not in argv, per_sm=int(argv[-1]),
-                          wide="--wide" in argv)
+        run_paged_variant(argv[-3], check="--no-check" not in argv, per_sm=int(argv[-2]),
+                          wide="--wide" in argv, fill=int(argv[-1]))
         return 0
     if argv[:1] == ["--run"]:
         run_variant(argv[1])
@@ -578,7 +628,7 @@ def main(argv) -> int:
     if argv[:1] == ["--paged"]:
         flags = [a for a in argv[1:3] if a in ("--no-check", "--wide")]
         wide = "--wide" in flags
-        variants = [(str(Path(a.split("@")[0]).resolve()), int(a.split("@")[1]) if "@" in a else 0)
+        variants = [(str(Path(a.split("@")[0]).resolve()), a.split("@")[1] if "@" in a else "")
                     for a in argv[1 + len(flags):]]
         sources = list(dict.fromkeys(src for src, _ in variants))
         paged_dir = out_dir / "paged"
@@ -591,14 +641,16 @@ def main(argv) -> int:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
         print("sdpa ms", paged_sdpa_ms(gen, wide), flush=True)
-        for a, (src, per_sm) in zip(argv[1 + len(flags):], variants):
+        for a, (src, spec) in zip(argv[1 + len(flags):], variants):
             lib = libs.get(src)
             if lib is None:
                 print(f"{a}: did not build", flush=True)
                 continue
+            fill = spec[5:] if spec.startswith("fill=") else "0"
+            per_sm = spec if spec and fill == "0" else "0"
             r = subprocess.run(["timeout", "-k", "5", "150", sys.executable, "-m",
                                 "paddle_tpu_torch.tools.kernel_ab", "--run-paged", *flags,
-                                str(lib), str(per_sm)],
+                                str(lib), per_sm, fill],
                                capture_output=True, text=True, cwd=str(ROOT))
             print(f"{a}: " + (r.stdout.strip() or f"exit {r.returncode}\n{r.stderr[-800:]}"),
                   flush=True)

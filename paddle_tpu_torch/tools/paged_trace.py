@@ -7,7 +7,7 @@ Usage, from the root of a checkout on a machine with a card::
 Each source (default: ``csrc/paged_attention.cu``) is copied with probes
 inserted: the consumer's first thread of every block writes ``clock64``
 marks (cycles since the block started) at the end of the schedule
-(reading ``lengths``, Kc), at the first box landing, after the last box,
+(reading ``lengths``), at the first box landing, after the last box,
 after the flush of its partial, after the ticket and after the merge, and
 the cycles it spent waiting for boxes; the producer's thread marks its
 first TMA issue; ``%globaltimer`` gives each block's start and end on one
@@ -29,7 +29,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-MARKS = ("schedule (lengths, Kc)", "first TMA issued (producer)", "first box landed",
+MARKS = ("schedule (lengths)", "first TMA issued (producer)", "first box landed",
          "last box done", "flush done", "ticket", "merge done")
 
 
@@ -41,8 +41,8 @@ def _sub(src: str, pattern: str, repl: str, count=(1,)) -> str:
 
 
 def instrument(src: str, no_compute: bool) -> str:
-    """The source with probes; the trace of block j is 16 int64 at
-    ``part + (grid + pairs) * 8 * (hd + 2)`` floats, + 16 j."""
+    """The source with probes; the trace of block j is 16 int64 past the
+    partials (``slots * hp * (hdp + 2)`` floats), + 16 j."""
     src = _sub(src, r"(__device__ __forceinline__ float neg_inf\(\))", r"""
 __device__ __forceinline__ unsigned long long gtime() {
   unsigned long long t;
@@ -52,7 +52,9 @@ __device__ __forceinline__ unsigned long long gtime() {
 \1""")
     src = _sub(src, r"(  const int tid = threadIdx\.x, warp = tid >> 5, lane = tid & 31;\n)", r"""\1
   long long* tr = reinterpret_cast<long long*>(
-      a.part + (size_t)(a.grid + a.lanes * a.Hk * a.npass) * 8 * (a.hd + 2)) + blockIdx.x * 16;
+      a.part + (size_t)a.lanes * a.Hk * a.npass * ((units<kWide>(a, a.MB * a.bs) + a.kc - 1)
+                                                   / a.kc) * a.hp * (a.hdp + 2))
+      + blockIdx.x * 16;
   const long long c0 = clock64();
   if (tid == 0) tr[0] = gtime();
 """)
@@ -63,7 +65,8 @@ __device__ __forceinline__ unsigned long long gtime() {
     src = _sub(src, r"(tma_load\(dst \+ lay\.box, &tv, full \+ st, 0, g, row0, pk\);\n)",
                r"\1              if (it == 0) tr[2] = clock64() - c0;\n")
     src = _sub(src, r"(  int it = 0(?:, ex = 0)?;\n)(  for \(int c = j; c < nchunks; c \+= a\.grid\) "
-               r"\{\n    int b, sub, ci, nsplit;)", r"\1  long long waited = 0, boxes = 0;\n\2")
+               r"\{\n(?:    const int it0 = it;[^\n]*\n)?    int b, sub, ci, nsplit;)",
+               r"\1  long long waited = 0, boxes = 0;\n\2")
     src = _sub(src, r"(\n +)(mbar_wait\(full \+ st, ph\);\n)",
                r"\1const long long w0 = clock64();\1\2"
                r"        waited += clock64() - w0;\n"
@@ -100,11 +103,12 @@ def run(lib: str, wide: bool = False):
         q, pk, pv, table, ln = cs.attention_inputs(gen, lengths, **shape)
         layers, lanes, H, hd = q.shape
         Hk = pk.shape[3]
-        grid = pa._grid_for(q[0], pk[0], table)
-        pairs = lanes * Hk * -(-(H // Hk) // pa.heads_per_pass(H, Hk))
-        n = (grid + pairs) * 8 * (hd + 2)
+        grid, _, slots = pa._plan_for(q[0], pk[0], table)
+        hp = pa.heads_per_pass(H, Hk)
+        pairs = lanes * Hk * -(-(H // Hk) // hp)
+        n = slots * hp * (-(-hd // 8) * 8 + 2)  # the partials, then the trace
         part = torch.zeros(n + grid * 32, dtype=torch.float32, device="cuda")
-        pa._scratch[(q.device.index, lanes, H, Hk, hd, grid)] = (
+        pa._scratch[(q.device.index, lanes, H, Hk, hd, slots)] = (
             part, torch.zeros(pairs, dtype=torch.int32, device="cuda"))
         for i in range(8):
             pa.paged_decode_attention(q[i % layers], pk[i % layers], pv[i % layers], table, ln)

@@ -34,8 +34,13 @@ kernel against the card's composed per-parameter update, bit for bit over
 3 steps (SGD, Momentum with and without Nesterov, Adam, AdamW in f32, bf16
 and fp16; master weights; the global-norm clip with mixed need_clip; decay
 exemptions and two parameter groups; numels 1, 4097 and 2^20 + 3; more
-tensors than one launch holds; f32 gradients on bf16 parameters).
+tensors than one launch holds; f32 gradients on bf16 parameters); one
+paged-attention lane's bits across the other lanes' lengths, narrow and
+wide; and the AMP loop (O2 bf16, O1, O2 fp16 with a skipped step) through
+the kernels against its plain versions.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -192,6 +197,37 @@ def test_paged_attention_is_deterministic_and_graph_capturable(dev):
         graph.replay()
         want = pa.paged_decode_attention_ref(q, pk, pv, table, ln)
         assert (out.float() - want.float()).abs().max().item() <= ATTN_ATOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("lanes,held", [(8, 0), (8, 7), (40, 39)])
+@pytest.mark.parametrize("hd,bs,MB", [(128, 16, 64), (320, 16, 64), (128, 512, 2)])
+def test_paged_attention_lane_bits_do_not_depend_on_other_lanes(dev, hd, bs, MB, lanes, held):
+    """The held lane (length 600) gives the same bits while the other
+    lanes hold 1, 30 or 1000 tokens, narrow and in the wide mode (hd 320,
+    pages of 512): Kc, and with it a lane's split points, come from the
+    shapes. The last of 40 lanes: its pairs' chunks are their blocks'
+    second, after the first lanes' chunks. Each call within ATTN_ATOL of
+    the CPU emulation of its schedule."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(hd + bs)
+    nb = 1 + lanes * MB
+    pk, pv = (torch.randn((nb, bs, 8, hd), generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    table = (torch.randperm(nb - 1, generator=g, device=dev) + 1).reshape(lanes, MB).int()
+    q = torch.randn((lanes, 32, hd), generator=g, device=dev).bfloat16()
+    ln = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    grid = pa._plan_for(q, pk, table)[0]
+    cpu = [t.cpu() for t in (q, pk, pv, table)]
+    outs = []
+    for other in (1, 30, 1000):
+        lengths = [other] * lanes
+        lengths[held] = 600
+        ln.copy_(torch.tensor(lengths, dtype=torch.int32))
+        got = pa.paged_decode_attention(q, pk, pv, table, ln)
+        emu = pa.paged_decode_attention_split(*cpu, ln.cpu(), grid)
+        assert (got.cpu().float() - emu.float()).abs().max().item() <= ATTN_ATOL[torch.bfloat16]
+        outs.append(got[held])
+    assert all(torch.equal(f, outs[0]) for f in outs[1:])
 
 
 def test_paged_attention_is_one_kernel(dev):
@@ -1303,9 +1339,7 @@ def _prefix_trace(model, eager, **cfg):
     """A shared 48-token prompt (3 blocks) opened by most requests, one
     that is the shared prompt alone (a COW fork), a 100-token unrelated
     prompt between (in a pool of 8 blocks it pushes the cache out);
-    requests served one at a time, so the decode batches of any two
-    engines match (the kernel's split schedule depends on every lane's
-    length)."""
+    requests served one at a time."""
     from paddle_tpu_torch.inference.serving import ServeConfig, ServingEngine
 
     eng = ServingEngine(model, ServeConfig(num_lanes=3, block_size=16, max_seq_len=128,
@@ -1566,3 +1600,35 @@ def test_fused_optimizer_refuses_what_it_does_not_take(dev):
         fo.multi_tensor_update(SGD, [fo.Entry(torch.zeros(8, 2, device="cuda").t(),
                                               torch.zeros(2, 8, device="cuda"), {}, 0.1,
                                               (0.0,))], 1)
+
+
+# the AMP loop (amp.auto_cast, decorate, GradScaler) through the kernels
+# against the same loop through the plain versions: chip_smoke.py phase
+# 18c's check at a small width (hidden 512, head_dim 128, 2 layers, seq
+# 256), with its limits (hold_amp_paths: STEP_LOSS_RTOL on each loss,
+# AMP_GRAD_RTOL on each leaf's step-1 gradient, AMP_MASTER_RTOL on each
+# master's change after 3 steps, the control above AMP_GRAD_RTOL); the
+# readings are printed
+@pytest.mark.parametrize("level,dtype,scale", [("O2", "bfloat16", None),
+                                               ("O1", "bfloat16", None),
+                                               ("O2", "float16", 1000.0)])
+def test_amp_steps_match_the_plain_versions(dev, level, dtype, scale):
+    import chip_smoke as cs
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(hidden_size=512, num_attention_heads=4, num_key_value_heads=2,
+                           intermediate_size=1024, vocab_size=4096)
+    kern = LlamaForCausalLM(cfg, device=dev, seed=0)
+    plain = LlamaForCausalLM(cfg, device=dev, seed=1)
+    plain.load_state_dict(kern.state_dict())
+    rng = np.random.RandomState(2)
+    batches = [cs.token_batch(rng, 256, cfg.vocab_size) for _ in range(4)]
+    runs = {"kernel": cs.make_amp(kern, level, dtype, scale),
+            "plain": cs.make_amp(plain, level, dtype, scale)}
+    held = cs.hold_amp_paths(cs.amp_paths(runs, level, dtype, batches[:3]), "card test")
+    print(f"amp card test {level} {dtype}: {held}")
+    (_, ok, sk), (_, op, sp) = runs["kernel"], runs["plain"]
+    assert sk.state_dict() == sp.state_dict() and ok._step_count == op._step_count == 3
+    if dtype == "float16":
+        assert cs.hold_skip(runs, level, dtype, batches[3], "fp16")[
+            "skipped_step_state_bit_for_bit"]

@@ -244,8 +244,8 @@ def test_train_step_refuses_what_it_does_not_do_and_eval_step_runs():
     opt = AdamW(parameters=pmodel.parameters())
     for kw in ({"telemetry_export_every": 5}, {"recompute_policy": "full"},
                {"offload_optimizer": True}, {"numerics": "summary"},
-               {"checkpoint_root": "ckpt"}, {"cast_fn": float}):
-        with pytest.raises(NotImplementedError, match="slice of the port"):
+               {"checkpoint_root": "ckpt"}):
+        with pytest.raises(NotImplementedError, match="comes with the port's .* module"):
             TrainStep(pmodel, opt, lambda: None, **kw)
     TrainStep(pmodel, opt, lambda: None, donate=False, numerics="off")
     ids, labels = _batch(4, 1024)
@@ -271,3 +271,19 @@ def test_trained_model_still_serves():
     # and the decode path agrees with the training forward on the prefix
     logits = pmodel(torch.from_numpy(ids.astype(np.int64))).detach()
     assert int(logits[0, -1].argmax()) == int(a[0, 3])
+
+
+def test_train_step_accepts_cast_fn_and_ignores_it():
+    """``cast_fn`` is stored and never read, as in the reference
+    (``paddle_tpu/jit/training.py:127``): two steps with it equal two
+    steps without it, bit for bit."""
+    batches = [_batch(40 + i, 1024) for i in range(2)]
+    out = []
+    for cast_fn in (None, lambda t: t.to(torch.bfloat16)):
+        _, pmodel = _pair(seed=6)
+        opt = AdamW(learning_rate=1e-3, parameters=pmodel.parameters(), weight_decay=0.1)
+        step = TrainStep(pmodel, opt, lambda x, y: pmodel(x, labels=y)[0], cast_fn=cast_fn)
+        losses = [float(step(torch.from_numpy(x), torch.from_numpy(y))) for x, y in batches]
+        out.append((losses, [p.detach().clone() for p in pmodel.parameters()]))
+    assert out[0][0] == out[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))

@@ -280,3 +280,48 @@ def test_lr_schedulers_match_reference():
         assert port() == ref()
         state = port.state_dict()
         assert state == {k: v for k, v in ref.state_dict().items()}
+
+
+# keywords the reference takes and ignores (ROADMAP queue 3): the port takes
+# them too, and trains as the reference does with them set
+IGNORED_KEYWORDS = {
+    "adam_lazy_mode": ("Adam", dict(weight_decay=0.01, lazy_mode=True), None),
+    "adamw_lr_ratio_lazy_mode": ("AdamW", dict(weight_decay=0.1, lazy_mode=True,
+                                               lr_ratio=lambda p: 0.5), None),
+    "clip_auto_skip_clip": ("AdamW", dict(weight_decay=0.1), "auto_skip"),
+}
+
+
+@pytest.mark.parametrize("case", list(IGNORED_KEYWORDS))
+def test_ignored_keywords_match_reference(case):
+    algo, kw, clip = IGNORED_KEYWORDS[case]
+
+    def make(lib, nn_lib):
+        def build(model):
+            gc = nn_lib.ClipGradByGlobalNorm(0.5, auto_skip_clip=True) if clip else None
+            return getattr(lib, algo)(learning_rate=0.05, parameters=model.parameters(),
+                                      grad_clip=gc, **kw)
+        return build
+
+    _run(make(paddle.optimizer, paddle.nn), make(popt, pnn), steps=4)
+
+
+def test_sparse_embedding_matches_reference():
+    """``F.embedding(sparse=True)``: the reference takes the dense
+    scatter-add gradient; so does the port. Output and gradient (repeated
+    ids add up, the padding row gets none) to 1e-6."""
+    from paddle_tpu.nn import functional as RF
+    from paddle_tpu_torch.nn import functional as PF
+
+    rng = np.random.RandomState(4)
+    w = rng.randn(10, 6).astype(np.float32)
+    ids = np.array([[1, 3, 3, 0], [9, 1, 2, 3]], np.int64)
+    r = rng.randn(2, 4, 6).astype(np.float32)
+    wr = paddle.to_tensor(w, stop_gradient=False)
+    out_r = RF.embedding(paddle.to_tensor(ids), wr, padding_idx=0, sparse=True)
+    (out_r * paddle.to_tensor(r)).sum().backward()
+    wp = torch.from_numpy(w).requires_grad_()
+    out_p = PF.embedding(torch.from_numpy(ids), wp, padding_idx=0, sparse=True)
+    (out_p * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(out_p.detach().numpy(), np.asarray(out_r._data), atol=1e-6)
+    np.testing.assert_allclose(wp.grad.numpy(), np.asarray(wr.grad._data), atol=1e-6)

@@ -260,8 +260,9 @@ SCHEDULE_CASES = [([0, 1, 17, 250, 511, 700, 1000, 1023], 32, 8),
 @pytest.mark.parametrize("grid", [264, 37])
 def test_every_visible_page_falls_to_exactly_one_block(lengths, H, Hk, grid):
     """The kernel's schedule: every visible (lane, KV head, pass, page)
-    in exactly one chunk, one chunk a block where the pairs fit the grid,
-    no chunk longer than Kc pages, Kc the fewest pages that fit, and each
+    in exactly one chunk, at most FILL chunks a block where the pairs fit
+    the grid, chunks of Kc pages (a pair's last one shorter), Kc the fewest
+    pages that fit FILL times the grid with every lane full, and each
     pair's chunks consecutive so its merge reads them in order."""
     bs, mb = 16, 64
     segs = port_ops.split_schedule(lengths, bs, mb, H, Hk, grid)
@@ -276,14 +277,17 @@ def test_every_visible_page_falls_to_exactly_one_block(lengths, H, Hk, grid):
     assert set(seen) == want and set(seen.values()) == {1}
     pairs = len(lengths) * Hk * passes
     blocks = [s["block"] for s in segs]
+    fill = port_ops.FILL
     if pairs <= grid:
-        assert len(segs) <= grid and len(set(blocks)) == len(blocks)
-    kc = max(s["units"][1] - s["units"][0] for s in segs)
-    npages = [-(-(n + 1) // bs) for n in lengths]
-    assert kc == max(npages) or sum(-(-p // (kc - 1)) for p in npages) * Hk * passes > grid
+        assert len(segs) <= fill * grid and max(blocks.count(b) for b in blocks) <= fill
+    kc = port_ops.chunk_units(len(lengths), H, Hk, mb, grid)
+    assert kc == mb or pairs * -(-mb // (kc - 1)) > fill * grid >= pairs * -(-mb // kc)
     for s in segs:
         assert s["chunk"] - s["first"] < s["splits"]
         assert segs[s["first"]]["pair"] == s["pair"]
+        k = s["chunk"] - s["first"]
+        assert s["units"][0] == k * kc
+        assert s["units"][1] - s["units"][0] == kc or k == s["splits"] - 1
 
 
 @pytest.mark.parametrize("lengths,H,Hk", SCHEDULE_CASES)
@@ -306,6 +310,46 @@ def test_split_emulation_matches_plain_and_reference(lengths, H, Hk):
         torch.testing.assert_close(got, plain, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got.numpy(), _composed_reference(q, pk, pv, table, ln),
                                rtol=RTOL, atol=ATOL)
+
+
+# (head_dim, bs, MB): the Llama-3-8B serving shape (narrow), and the wide
+# mode past 256 columns and past 256 slots a page
+LANE_CASES = [(128, 16, 64), (320, 16, 64), (128, 512, 2)]
+# (lanes, the lane held): the first lane, the last, and the last of 40
+# lanes, whose 320 pairs outnumber the grid, so blocks take a second chunk
+# after another lane's first (the kernel's warps count a chunk's stages
+# from its own first)
+LANE_HELD = [(8, 0), (8, 7), (40, 39)]
+
+
+@pytest.mark.parametrize("lanes,held", LANE_HELD)
+@pytest.mark.parametrize("hd,bs,mb", LANE_CASES)
+def test_a_lanes_bits_do_not_depend_on_the_other_lanes(hd, bs, mb, lanes, held):
+    """The held lane (length 600) gives the same bits, through the
+    kernel's schedule and merge on the CPU, whether the other lanes hold
+    1, 30 or 1000 tokens: its chunks depend on its own length and the
+    shapes only. H 32, Hk 8, bf16 pages, the grid of 132 SMs."""
+    H, Hk = 32, 8
+    rng = np.random.RandomState(hd + bs)
+    nb = 1 + lanes * mb
+    pk, pv = (torch.from_numpy(rng.randn(nb, bs, Hk, hd).astype(np.float32)).bfloat16()
+              for _ in range(2))
+    table = torch.from_numpy(rng.permutation(np.arange(1, nb)).reshape(lanes, mb)
+                             .astype(np.int32))
+    q = torch.from_numpy(rng.randn(lanes, H, hd).astype(np.float32)).bfloat16()
+    units = mb
+    if port_ops.mode(hd, bs) == "wide":
+        units *= -(-bs // port_ops.wide_geometry(hd, bs, 2)[1])
+    grid = port_ops.grid_size(lanes, H, Hk, units, 132, hd)
+    outs = []
+    for other in (1, 30, 1000):
+        ln = torch.full((lanes,), other, dtype=torch.int32)
+        ln[held] = 600
+        outs.append(port_ops.paged_decode_attention_split(q, pk, pv, table, ln, grid)[held])
+    for got in outs[1:]:
+        assert torch.equal(got, outs[0])
+    plain = port_ops.paged_decode_attention_ref(q, pk, pv, table, ln)[held]
+    torch.testing.assert_close(outs[0].float(), plain.float(), rtol=0, atol=8e-3)
 
 
 def test_grid_depends_on_shapes_only():
@@ -347,7 +391,9 @@ def test_every_visible_slot_falls_to_exactly_one_unit(lengths, bs, rows, grid):
     # the units reach no further than the last visible slot's box
     assert all(slot < -(-nvis[b] // rows) * rows + bs for b, _, slot in seen)
     if len(lengths) * Hk <= grid:
-        assert len({s["block"] for s in segs}) == len(segs) <= grid
+        blocks = [s["block"] for s in segs]
+        assert len(segs) <= port_ops.FILL * grid
+        assert max(blocks.count(b) for b in blocks) <= port_ops.FILL
 
 
 @pytest.mark.parametrize("np_dtype,hd,bs,H,Hk", [
