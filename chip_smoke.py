@@ -229,7 +229,28 @@ Phases, each printing one line of numbers:
    (18d) phase 17 with f32 masters: the kernel's master mode bit for bit
    against the composed update over 3 steps, timed beside its byte bound
    (28 bytes a parameter), its plain version and
-   ``torch.optim.AdamW(fused=True)`` over f32 copies of the masters.
+   ``torch.optim.AdamW(fused=True)`` over f32 copies of the masters;
+19. ERNIE-3.0 base (``ErnieConfig.base()``: vocab 40000, hidden 768, 12
+   layers, 12 heads, FFN 3072), the sequence classifier (2 classes) in
+   bf16, ``bench.py``'s ERNIE headline with ragged rows (each row's real
+   length drawn from 16 to 128, pad id 0 after it): (19a) finetune, AdamW
+   5e-5 through ``TrainStep`` at batch 32 x 128, dropout 0, 2 warm-up and 6
+   timed steps: step ms, tokens/s padded and real, the bf16 peak share,
+   peak memory, exact launches (the fused optimizer twice a step for 201
+   tensors, no other kernel: the mask sends attention to the composed
+   path), one profiled step's device ms by kind and top kernels, the
+   masked attention's share (its own forward and backward timed at the
+   step's shapes) and the optimizer's; (19d) ``EvalStep`` forwards at 32 x
+   128 and 8 x 512: ms a batch and sequences/s; (19b) the config's dropout
+   0.1 / 0.1: step ms, and from one set of weights two steps from one
+   state of the model's generator give one loss, another state another;
+   (19c) 3 steps of 19a twice, through the fused optimizer's kernel and
+   through its plain version: parameters and moments bit for bit; (19e)
+   the reference's separable task (class 1 rows start with token 1) at
+   full width and the test's 2 layers under ``amp`` O2 (f32 masters,
+   ``GradScaler``, the config's dropout) for 200 steps: the step at which
+   the last 5 losses first average below 0.6 of the first 5, and below it
+   at the end (the test's criterion).
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -247,9 +268,10 @@ the fp16 int8 engine, the fp16 tensor-core kernel and the wide kernels
 from phase 2's calls, RMSNorm's ``round_first`` mode from the three timed
 training steps; paged attention over the prefix cache's tables from phase
 15's traced window, the weight stream at the verify's M = 40 from phase
-16's; the fused optimizer from the three timed training steps of phase 7
-and phase 18's O1 steps, with its numbers from phase 17, and in its master
-mode from phase 18's O2 steps, with its numbers from 18d; flash and
+16's; the fused optimizer from the three timed training steps of phase 7,
+phase 18's O1 steps and phase 19a's six, with its numbers from phase 17,
+and in its master mode from phase 18's O2 steps and phase 19e's, with its
+numbers from 18d; flash and
 RMSNorm also count phase 18's timed steps), and last ``{"ok": true,
 "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
@@ -4385,6 +4407,463 @@ def hold_skip(runs: dict, level: str, dtype: str, batch, phase: str) -> dict:
     return {**out, "skipped_step_state_bit_for_bit": True}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: ERNIE-3.0 base, finetune and inference
+# ---------------------------------------------------------------------------
+
+# bench.py's ERNIE headline (ernie_finetune_bench): ErnieConfig.base() in
+# bf16, batch 32 x 128, AdamW 5e-5 through TrainStep, 2 warm-up and 6
+# timed steps; here every row's real length is drawn from
+# ERNIE_MIN_LEN..seq and the rest is pad id 0, so the mask has work to do
+ERNIE_BATCH, ERNIE_SEQ = 32, 128
+ERNIE_MIN_LEN = 16
+ERNIE_LR = 5e-5
+ERNIE_WARMUP, ERNIE_STEPS = 2, 6
+# the sequence classifier's trainable tensors: 5 in the embeddings, 16 a
+# layer, 2 in the pooler, 2 in the classifier
+ERNIE_TENSORS = 5 + 16 * 12 + 2 + 2
+ERNIE_CHECK_STEPS = 3
+ERNIE_EVAL = ((32, 128), (8, 512))
+ERNIE_EVAL_CALLS = 10
+# 19e: the reference's separable task (tests/test_ernie.py: the class is
+# whether token 1 leads the text) under amp O2 for ERNIE_LEARN_STEPS steps;
+# the mean of the last 5 losses must end below ERNIE_LEARN_RATIO of the
+# first 5's (the test's criterion). At full width and the test's depth
+# (ErnieConfig.tiny()'s 2 layers): from random weights at lr 5e-5 the
+# 12-layer encoder does not learn the task in 200 steps on an H100 (its
+# loss stays near 0.73, above ln 2, while the first 5 losses' mean of
+# about 1.2 lets the criterion hold by chance at times), so at 12 layers
+# the phase could not tell a sound step from a broken one
+ERNIE_LEARN_STEPS = 200
+ERNIE_LEARN_RATIO = 0.6
+ERNIE_LEARN_LAYERS = 2
+
+
+def ernie_batch(rng, batch: int, seq: int, vocab: int, task: bool = False):
+    """(ids [batch, seq] int64, labels [batch], real tokens) on the card:
+    seeded ids from 1 (2 with ``task``) up, each row's real length drawn
+    from ERNIE_MIN_LEN..seq and the rest pad id 0; random labels, and with
+    ``task`` token 1 first exactly in the rows labelled 1."""
+    import numpy as np
+    import torch
+
+    ids = rng.randint(2 if task else 1, vocab, (batch, seq)).astype("int64")
+    lengths = rng.randint(ERNIE_MIN_LEN, seq + 1, batch)
+    ids[np.arange(seq)[None, :] >= lengths[:, None]] = 0
+    labels = rng.randint(0, 2, batch).astype("int64")
+    if task:
+        ids[labels == 1, 0] = 1
+    return (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda(),
+            int(lengths.sum()))
+
+
+def ernie_model(seed: int, dropout: bool, dtype, **widths):
+    """ErnieForSequenceClassification (2 classes) at ErnieConfig.base()
+    widths (or ``widths`` over them) on the card, weights from ``seed``;
+    without ``dropout`` the bench's 0 / 0, else the config's 0.1 / 0.1."""
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForSequenceClassification
+
+    if not dropout:
+        widths.update(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    return ErnieForSequenceClassification(ErnieConfig.base(**widths), num_classes=2,
+                                          device="cuda", dtype=dtype, seed=seed)
+
+
+def ernie_train_step(model):
+    """bench.py's step: AdamW(5e-5) (its default weight decay) and the
+    cross entropy of the classifier's logits, through TrainStep."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(ERNIE_LR, parameters=model.parameters())
+    return TrainStep(model, opt, lambda ids, y: F.cross_entropy(model(ids), y))
+
+
+def ernie_expected(steps: int, master: bool = False, tensors: int | None = None) -> dict:
+    """Launches of ``steps`` ERNIE steps: the fused optimizer once for every
+    MAX_TENSORS trainable tensors (ERNIE_TENSORS, 201, at 12 layers: 2 a
+    step), in master mode under amp O2; no flash (the mask sends attention
+    to the composed path) and no RMSNorm, int8 or ring kernel."""
+    from paddle_tpu_torch.ops.fused_optimizer import MAX_TENSORS
+
+    updates = steps * math.ceil((tensors or ERNIE_TENSORS) / MAX_TENSORS)
+    want = {k: 0 for k in training_counters()}
+    want.update({"multi_tensor_update": updates,
+                 f"multi_tensor_update_{'master' if master else 'direct'}": updates})
+    return want
+
+
+
+def ernie_attention_ms(model, ids, calls: int = 5) -> float:
+    """Device ms of one layer's masked attention, forward and backward
+    (the composed ``sdpa_ref``), at this batch's shapes and mask: the sum
+    of the kernels of ``calls`` calls in a profiler trace, a call (host
+    issue gaps left out, as in the step's device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.nn import functional as F
+
+    cfg = model.ernie.config
+    b, s = ids.shape
+    h, d = cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
+    dtype = next(model.parameters()).dtype
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+               .requires_grad_(True) for _ in range(3))
+    mask = model.ernie._additive_mask(ids, None)
+    do = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+
+    def call():
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        torch.autograd.grad(out, (q, k, v), do)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    per_kernel, _ = kernel_times(prof)
+    return sum(per_kernel.values()) / 1e3 / calls
+
+
+def ernie_flops(model, tokens: int, b: int, s: int) -> float:
+    """A training step's model FLOPs: 6 x non-embedding parameters x
+    tokens, plus the masked attention's products over every (query, key)
+    of the padded batch, 4 b h s^2 d forward and twice that backward."""
+    from paddle_tpu_torch.nn import Embedding
+
+    cfg = model.ernie.config
+    n_embed = sum(m.weight.numel() for m in model.modules() if isinstance(m, Embedding))
+    n = sum(p.numel() for p in model.parameters()) - n_embed
+    attn = 3 * 4 * b * s * s * cfg.hidden_size * cfg.num_hidden_layers
+    return 6 * n * tokens + attn
+
+
+def ernie_finetune(seed: int, smi: str) -> dict:
+    """Phase 19a: bench.py's ERNIE finetune on the card with ragged rows:
+    ERNIE_WARMUP and ERNIE_STEPS timed steps (host clock, synchronised):
+    step ms, tokens/s (padded and real), model FLOPs share of the bf16
+    peak, peak memory, exact launches (the fused optimizer twice a step);
+    then one profiled step's device ms by kind and top kernels, the masked
+    attention's share (its own device ms a layer, forward and backward, x
+    layers, over the profiled step's device time) and the optimizer
+    kernel's. Returns the model, its launches and numbers."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    phase = "ernie-finetune"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ernie_model(seed, dropout=False, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    cfg = model.ernie.config
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    if n_tensors != ERNIE_TENSORS:
+        raise AssertionError(f"{phase}: {n_tensors} trainable tensors, not {ERNIE_TENSORS}")
+    say(phase, card=repr(smi), layers=cfg.num_hidden_layers, hidden=cfg.hidden_size,
+        heads=cfg.num_attention_heads, ffn=cfg.intermediate_size, vocab=cfg.vocab_size,
+        params=n_params, tensors=n_tensors, batch=ERNIE_BATCH, seq=ERNIE_SEQ,
+        model_init_s=round(time.perf_counter() - t0, 2))
+    step = ernie_train_step(model)
+    rng = np.random.RandomState(seed + 19)
+    counters = training_counters()
+
+    def run(n_steps):
+        zero_counts(counters)
+        losses, times, real = [], [], 0
+        for _ in range(n_steps):
+            ids, labels, n_real = ernie_batch(rng, ERNIE_BATCH, ERNIE_SEQ, cfg.vocab_size)
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            loss = step(ids, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - s0)
+            losses.append(loss.item())
+            real += n_real
+        counts = read_counts(counters)
+        want = ernie_expected(n_steps)
+        if counts != want:
+            raise AssertionError(f"{phase} launched {counts}, expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{phase} losses are not finite: {losses}")
+        return losses, times, counts, real
+
+    warm_losses, warm_times, _, _ = run(ERNIE_WARMUP)
+    losses, times, counts, real = run(ERNIE_STEPS)
+    step_s = sum(times) / len(times)
+    padded = ERNIE_BATCH * ERNIE_SEQ
+    flops = ernie_flops(model, padded, ERNIE_BATCH, ERNIE_SEQ)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(phase, warmup_step_ms=[round(1e3 * t, 3) for t in warm_times],
+        step_ms=[round(1e3 * t, 3) for t in times], step_ms_mean=round(1e3 * step_s, 3),
+        losses=losses, tokens_per_s_padded=round(padded / step_s, 1),
+        tokens_per_s_real=round(real / ERNIE_STEPS / step_s, 1),
+        real_token_share=round(real / ERNIE_STEPS / padded, 4),
+        model_tflop_per_step=round(flops / 1e12, 4),
+        bf16_peak_share=round(flops / step_s / BF16_FLOP_PER_S, 4),
+        max_memory_allocated_gib=round(peak, 3),
+        fused_optimizer_launches_per_step=counts["multi_tensor_update"] / ERNIE_STEPS,
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    ids, labels, _ = ernie_batch(rng, ERNIE_BATCH, ERNIE_SEQ, cfg.vocab_size)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - s0
+    per_kernel, ops = kernel_times(prof)
+    busy = sum(per_kernel.values()) / 1e3
+    kinds = by_kind(per_kernel)
+    attn_ms = ernie_attention_ms(model, ids)
+    say(phase, profiled_step_ms=round(1e3 * wall, 3), device_busy_ms=round(busy, 3),
+        device_busy_share=round(busy / 1e3 / wall, 4) if busy else "not measured",
+        device_ops=ops, device_ms_by_kind=json.dumps(kinds))
+    opt_ms = kinds.get("fused optimizer (port)", 0.0)
+    say(phase, masked_attention_ms_per_layer=round(attn_ms, 4),
+        masked_attention_share=(round(cfg.num_hidden_layers * attn_ms / busy, 4) if busy
+                                else "not measured"),
+        fused_optimizer_device_ms=opt_ms,
+        fused_optimizer_share=round(opt_ms / busy, 4) if busy else "not measured",
+        note="attention: the kernels of forward+backward calls of the composed masked "
+             "attention alone at this batch's shapes (profiler), x layers, over the "
+             "profiled step's device ms")
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {phase} top kernel: {us / 1e3:.4f} ms/step {name[:90]}", flush=True)
+    del step
+    return {"model": model, "launches": counts, "step_ms": 1e3 * step_s, "peak_gib": peak}
+
+
+def ernie_dropout(seed: int):
+    """Phase 19b: the same steps with the config's 0.1 / 0.1 dropout (the
+    model's one generator draws every mask): step ms; then from one set of
+    weights and one batch, two steps from the same generator state give
+    the same loss and a third from another state a different one."""
+    import numpy as np
+    import torch
+
+    phase = "ernie-dropout"
+    model = ernie_model(seed, dropout=True, dtype=torch.bfloat16)
+    cfg = model.ernie.config
+    step = ernie_train_step(model)
+    rng = np.random.RandomState(seed + 19)
+    counters = training_counters()
+    zero_counts(counters)
+    times = []
+    for i in range(ERNIE_WARMUP + ERNIE_STEPS):
+        ids, labels, _ = ernie_batch(rng, ERNIE_BATCH, ERNIE_SEQ, cfg.vocab_size)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        if i >= ERNIE_WARMUP:
+            times.append(time.perf_counter() - s0)
+    counts = read_counts(counters)
+    if counts != ernie_expected(ERNIE_WARMUP + ERNIE_STEPS) or not math.isfinite(loss.item()):
+        raise AssertionError(f"{phase} launched {counts}, loss {loss.item()}")
+    start = [p.detach().clone() for p in model.parameters()]
+    state = model.generator.get_state()
+
+    def loss_from(gen_state):
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), start):
+                p.copy_(p0)
+        model.generator.set_state(gen_state)
+        return step(ids, labels).item()
+
+    same = [loss_from(state), loss_from(state)]
+    other_gen = torch.Generator(device="cuda")
+    other_gen.manual_seed(seed + 1)
+    other = loss_from(other_gen.get_state())
+    say(phase, dropout=cfg.hidden_dropout_prob,
+        attention_dropout=cfg.attention_probs_dropout_prob,
+        step_ms=[round(1e3 * t, 3) for t in times],
+        step_ms_mean=round(1e3 * sum(times) / len(times), 3),
+        same_state_losses=same, other_state_loss=other)
+    if same[0] != same[1] or other == same[0]:
+        raise AssertionError(f"{phase}: losses from one generator state {same}, from another "
+                             f"{other}")
+    del step, model
+    torch.cuda.empty_cache()
+    return 1e3 * sum(times) / len(times)
+
+
+def ernie_check(seed: int, batch: int = ERNIE_BATCH, seq: int = ERNIE_SEQ,
+                phase: str = "ernie-check", **widths) -> dict:
+    """Phase 19c: ERNIE_CHECK_STEPS steps of 19a from one state twice, once
+    as it runs and once with the fused optimizer's plain version (the same
+    forward and backward code): every parameter and optimizer moment bit
+    for bit. Prints and returns the largest difference, the losses and the
+    share of weight elements the steps moved. ``widths`` override
+    ErnieConfig.base()'s (the card test's small model)."""
+    import numpy as np
+    import torch
+
+    runs = {}
+    for name in ("kernel", "plain"):
+        model = ernie_model(seed, dropout=False, dtype=torch.bfloat16, **widths)
+        n_tensors = len(list(model.parameters()))
+        start = [p.detach().clone() for p in model.parameters()]
+        step = ernie_train_step(model)
+        rng = np.random.RandomState(seed + 190)
+        counters = training_counters()
+        zero_counts(counters)
+        losses = []
+        with plain_kernels() if name == "plain" else contextlib.nullcontext():
+            for _ in range(ERNIE_CHECK_STEPS):
+                ids, labels, _ = ernie_batch(rng, batch, seq, model.ernie.config.vocab_size)
+                losses.append(step(ids, labels).item())
+        launched = read_counts(counters)["multi_tensor_update"]
+        want = ernie_expected(ERNIE_CHECK_STEPS, tensors=n_tensors)["multi_tensor_update"]
+        if launched != (want if name == "kernel" else 0):
+            raise AssertionError(f"{phase}: the {name} path launched the optimizer kernel "
+                                 f"{launched} times")
+        params = [p.detach().clone() for p in model.parameters()]
+        moved = sum(int((p != p0).sum()) for p, p0 in zip(params, start))
+        moments = [t.clone() for state in step._opt_state for t in state.values()
+                   if torch.is_tensor(t)]
+        runs[name] = (losses, params, moments, moved)
+        del step, model
+        torch.cuda.empty_cache()
+    (lk, pk, mk, moved), (lp, pp, mp, _) = runs["kernel"], runs["plain"]
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(pk + mk, pp + mp))
+    same = all(torch.equal(a, b) for a, b in zip(pk + mk, pp + mp)) and lk == lp
+    out = dict(steps=ERNIE_CHECK_STEPS, kernel_losses=lk, plain_losses=lp, max_abs_diff=diff,
+               bit_for_bit=same, tensors=len(pk), moment_tensors=len(mk), moved_elements=moved,
+               moved_share=round(moved / sum(p.numel() for p in pk), 5))
+    say(phase, **out)
+    if not same or not mk:
+        raise AssertionError(f"{phase}: the kernel path differs from the plain path "
+                             f"(max abs {diff}, losses {lk} / {lp})")
+    return out
+
+
+def ernie_inference(model, seed: int) -> dict:
+    """Phase 19d: EvalStep forwards of the classifier at each ERNIE_EVAL
+    shape with ragged rows: ms a batch (host clock over ERNIE_EVAL_CALLS
+    synchronised calls after 2 warm-up calls) and sequences/s."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.jit import EvalStep
+
+    model.eval()
+    run = EvalStep(model, lambda ids: model(ids))
+    rng = np.random.RandomState(seed + 191)
+    out = {}
+    for b, s in ERNIE_EVAL:
+        ids, _, real = ernie_batch(rng, b, s, model.ernie.config.vocab_size)
+        for _ in range(2):
+            logits = run(ids)[0]
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        for _ in range(ERNIE_EVAL_CALLS):
+            logits = run(ids)[0]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - s0) / ERNIE_EVAL_CALLS
+        if tuple(logits.shape) != (b, 2) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"ernie-eval: logits {tuple(logits.shape)} at {b} x {s}")
+        say("ernie-eval", batch=b, seq=s, ms_per_batch=round(ms, 3),
+            sequences_per_s=round(b / ms * 1e3, 1), real_token_share=round(real / (b * s), 4))
+        out[f"{b}x{s}"] = ms
+    model.train()
+    return out
+
+
+def ernie_learns(seed: int) -> dict:
+    """Phase 19e: the reference's separable task (the class is whether
+    token 1 leads the text) at full width and ERNIE_LEARN_LAYERS layers,
+    batch ERNIE_BATCH x ERNIE_SEQ with ragged rows, AdamW 5e-5, the way a
+    finetune recipe runs: built in
+    f32, ``amp.decorate``-d at O2 (bf16 weights, f32 masters), the config's
+    dropout, the eager AMP loop (``auto_cast`` O2, ``GradScaler``), for
+    ERNIE_LEARN_STEPS steps: prints the first step at which the mean of
+    the last 5 losses fell below ERNIE_LEARN_RATIO of the first 5's and
+    fails unless it is below at the end. The fused optimizer runs in its
+    master mode."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    phase = "ernie-learns"
+    model = ernie_model(seed, dropout=True, dtype=torch.float32,
+                        num_hidden_layers=ERNIE_LEARN_LAYERS)
+    n_tensors = len(list(model.parameters()))
+    opt = AdamW(ERNIE_LR, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    scaler = amp.GradScaler()
+    rng = np.random.RandomState(seed + 192)
+    counters = training_counters()
+    zero_counts(counters)
+    losses, times, first_held = [], [], None
+    while len(losses) < ERNIE_LEARN_STEPS:
+        ids, labels, _ = ernie_batch(rng, ERNIE_BATCH, ERNIE_SEQ, model.ernie.config.vocab_size,
+                                     task=True)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = F.cross_entropy(model(ids), labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        losses.append(loss.item())
+        times.append(time.perf_counter() - s0)
+        if (first_held is None and len(losses) >= 10
+                and np.mean(losses[-5:]) < ERNIE_LEARN_RATIO * np.mean(losses[:5])):
+            first_held = len(losses)
+    counts = read_counts(counters)
+    steps = len(losses)
+    hold_amp_state(model, opt, "O2", phase)
+    ratio = float(np.mean(losses[-5:]) / np.mean(losses[:5]))
+    say(phase, layers=ERNIE_LEARN_LAYERS, steps=steps, criterion_first_held_at_step=first_held,
+        first_losses=[round(x, 5) for x in losses[:5]],
+        last_losses=[round(x, 5) for x in losses[-5:]], ratio=round(ratio, 4),
+        mean_loss_by_20_steps=[round(float(np.mean(losses[i:i + 20])), 4)
+                               for i in range(0, steps, 20)],
+        limit=ERNIE_LEARN_RATIO, step_ms_mean=round(1e3 * sum(times[1:]) / (steps - 1), 3),
+        optimizer_steps=opt._step_count, scale=scaler.get_scale_ratio(),
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    if ratio >= ERNIE_LEARN_RATIO:
+        raise AssertionError(f"{phase}: after {steps} steps the last 5 losses average "
+                             f"{ratio:.4f} of the first 5 (limit {ERNIE_LEARN_RATIO}; first "
+                             f"below it at step {first_held})")
+    want = ernie_expected(opt._step_count, master=True, tensors=n_tensors)
+    if counts != want:
+        raise AssertionError(f"{phase} launched {counts}, expected {want}")
+    del model, opt, scaler
+    torch.cuda.empty_cache()
+    return {"launches": counts, "steps": first_held}
+
+
+def ernie(seed: int, smi: str) -> dict:
+    """Phase 19: ERNIE-3.0 base (ErnieConfig.base(): vocab 40000, hidden 768,
+    12 layers, 12 heads, FFN 3072) in bf16 on the card: 19a finetune,
+    19b dropout, 19c kernel against plain, 19d inference, 19e learns under
+    amp O2 (at 2 layers). Returns the fused optimizer's launches of 19a (direct mode) and
+    19e (master mode)."""
+    import torch
+
+    tuned = ernie_finetune(seed, smi)
+    ernie_inference(tuned.pop("model"), seed)
+    torch.cuda.empty_cache()
+    ernie_dropout(seed)
+    ernie_check(seed)
+    learned = ernie_learns(seed)
+    say("ernie", card=repr(smi), finetune_step_ms=round(tuned["step_ms"], 3),
+        learn_criterion_first_held_at_step=learned["steps"])
+    return {"direct": tuned["launches"]["multi_tensor_update_direct"],
+            "master": learned["launches"]["multi_tensor_update_master"]}
+
+
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
 
 
@@ -4666,6 +5145,8 @@ def main(argv=None) -> int:
     check_amp(args.seed)
     fused_master = check_fused_optimizer(args.seed, master=True)
     lap("18")
+    ernie_launches = ernie(args.seed, smi)
+    lap("19")
     amp_launches = {k: amp_o2["launches"][k] + amp_o1["launches"][k] for k in amp_o2["launches"]}
 
     kernels = [
@@ -4805,17 +5286,24 @@ def main(argv=None) -> int:
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
         "replaces": "paddle_tpu/optimizer/fused_step.py:105 (an XLA program: no TPU kernel)",
         "launches": (train_launches["multi_tensor_update"]
-                     + amp_launches["multi_tensor_update_direct"]), **fused_opt})
+                     + amp_launches["multi_tensor_update_direct"] + ernie_launches["direct"]),
+        **fused_opt})
     kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
-                          f"({TRAIN_LAYERS} layers, one AdamW update a step) and the "
-                          f"{TRAIN_STEPS} timed O1 AMP steps (f32 parameters)")
+                          f"({TRAIN_LAYERS} layers, one AdamW update a step), the "
+                          f"{TRAIN_STEPS} timed O1 AMP steps (f32 parameters) and the "
+                          f"{ERNIE_STEPS} timed ERNIE-3.0 base finetune steps of phase 19a "
+                          f"({ernie_launches['direct']}: {ERNIE_TENSORS} bf16 tensors, two "
+                          "launches a step)")
     kernels.append({
         "name": "multi_tensor_update_master", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
         "replaces": "paddle_tpu/optimizer/fused_step.py:142 (an XLA program: no TPU kernel)",
-        "launches": amp_launches["multi_tensor_update_master"], **fused_master})
+        "launches": amp_launches["multi_tensor_update_master"] + ernie_launches["master"],
+        **fused_master})
     kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed O2 AMP steps of phase 18 "
-                          "(the kernel's master mode, one a step)")
+                          "(the kernel's master mode, one a step) and the ERNIE steps of "
+                          f"phase 19e under amp O2 ({ernie_launches['master']}, "
+                          f"{ERNIE_LEARN_LAYERS} layers: one a step)")
     say("done", total_s=round(time.perf_counter() - t_start, 1), phase_s=json.dumps(phase_s))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

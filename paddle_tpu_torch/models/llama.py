@@ -37,6 +37,7 @@ from ..nn import functional as F
 from ..nn.functional.norm import rms_norm_composed
 from ..nn.layer import Embedding, Linear, RMSNorm
 from ..ops.quant_matmul import int8_matmul
+from ._weights import load_reference_state_dict
 
 __all__ = [
     "LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
@@ -295,25 +296,6 @@ def _projections(lyr):
     a, f = lyr.self_attn, lyr.mlp
     return (a.q_proj, a.k_proj, a.v_proj, a.o_proj,
             f.gate_proj, f.up_proj, f.down_proj)
-
-
-@torch.no_grad()
-def load_reference_state_dict(model: nn.Module, state: dict) -> nn.Module:
-    """Load ``{key: array}`` (the reference's ``model.state_dict()`` read as
-    numpy) into ``model`` by key, each array cast to its parameter's dtype
-    and moved to its device. A key that is missing or extra, or a shape that
-    differs, raises."""
-    own = model.state_dict()
-    missing = sorted(set(own) - set(state))
-    extra = sorted(set(state) - set(own))
-    if missing or extra:
-        raise KeyError(f"state dict keys differ: missing {missing}, extra {extra}")
-    for key, target in own.items():
-        arr = torch.as_tensor(np.array(state[key]))
-        if tuple(arr.shape) != tuple(target.shape):
-            raise ValueError(f"{key}: shape {tuple(arr.shape)} != {tuple(target.shape)}")
-        target.copy_(arr.to(dtype=target.dtype, device=target.device))
-    return model
 
 
 # ---------------------------------------------------------------------------

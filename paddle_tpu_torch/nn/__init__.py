@@ -5,7 +5,8 @@ on torch tensors, the gradient clippers, and weight-only quantization
 
 from . import functional, quant
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue, clip_grad_norm_
-from .layer import Embedding, Linear, RMSNorm
+from .layer import *  # noqa: F403
+from .layer import __all__ as _layers
 
 __all__ = ["functional", "quant", "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
-           "clip_grad_norm_", "Embedding", "Linear", "RMSNorm"]
+           "clip_grad_norm_", *_layers]

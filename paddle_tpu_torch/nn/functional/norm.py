@@ -9,7 +9,30 @@ from ...amp import cast_inputs
 from ...ops import fused_norm
 from ...tracing import is_traced
 
-__all__ = ["rms_norm", "rms_norm_composed"]
+__all__ = ["layer_norm", "rms_norm", "rms_norm_composed"]
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5, name=None):
+    """LayerNorm over the trailing ``normalized_shape`` axes with the
+    reference's rounding (``norm.py:19-47``): mean and population variance
+    in f32, ``(x - mean) * rsqrt(var + epsilon)`` in f32, cast to x's
+    dtype, then ``* weight`` and ``+ bias`` in that dtype (each absent when
+    None). Composed on purpose: ``torch.nn.functional.layer_norm`` applies
+    the weight and bias before its one rounding, which in bf16 is another
+    result. Under ``amp.auto_cast`` the inputs are first cast as the op
+    ``layer_norm`` (a black-list op: to f32)."""
+    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
+    n = 1 if isinstance(normalized_shape, int) else len(tuple(normalized_shape))
+    dims = tuple(range(x.dim() - n, x.dim()))
+    x32 = x.float()
+    centered = x32 - x32.mean(dim=dims, keepdim=True)
+    var = centered.square().mean(dim=dims, keepdim=True)
+    out = (centered * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
 
 
 #: what the reference's rule sends to its kernel (``norm.py:67-78``)

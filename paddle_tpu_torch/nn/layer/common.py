@@ -1,6 +1,14 @@
-"""Linear and Embedding layers (counterpart of
+"""Linear, Embedding and the dropout layers (counterpart of
 ``paddle_tpu/nn/layer/common.py``), with Paddle's parameter names, layouts
-and initializers, drawn from an explicit ``torch.Generator``."""
+and initializers, drawn from an explicit ``torch.Generator``.
+
+A dropout layer draws its masks from the ``generator`` it was given (None:
+torch's default generator of the device). A model hands every dropout
+layer one generator that it owns, so its layers draw different masks from
+one stream, as the reference's draw from its one global key.
+``copy.deepcopy`` clones a generator with its state, and clones would
+repeat each other's masks: ``nn.layer.transformer`` copies layers with
+their generators shared (``clones``)."""
 
 from __future__ import annotations
 
@@ -10,7 +18,8 @@ from torch import nn
 from ...device import resolve_device
 from .. import functional as F
 
-__all__ = ["Linear", "Embedding", "make_parameter"]
+__all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D", "AlphaDropout",
+           "make_parameter"]
 
 
 def make_parameter(shape, init, *, device, dtype, generator=None):
@@ -84,3 +93,63 @@ class Embedding(nn.Module):
 
     def extra_repr(self):
         return f"{self.weight.shape[0]}, {self.weight.shape[1]}"
+
+
+class Dropout(nn.Module):
+    """``F.dropout`` with this layer's ``p``, ``axis`` and ``mode``, in
+    training mode only as the module's ``training`` says."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None, *,
+                 generator=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training, mode=self.mode,
+                         generator=self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class Dropout2D(nn.Module):
+    """``F.dropout2d``: whole channels of a 4-D input."""
+
+    def __init__(self, p=0.5, data_format="NCHW", name=None, *, generator=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training, data_format=self.data_format,
+                           generator=self.generator)
+
+
+class Dropout3D(nn.Module):
+    """``F.dropout3d``: whole channels of a 5-D input."""
+
+    def __init__(self, p=0.5, data_format="NCDHW", name=None, *, generator=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=self.training, data_format=self.data_format,
+                           generator=self.generator)
+
+
+class AlphaDropout(nn.Module):
+    """``F.alpha_dropout``, for SELU networks."""
+
+    def __init__(self, p=0.5, name=None, *, generator=None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, training=self.training, generator=self.generator)

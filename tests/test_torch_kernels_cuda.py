@@ -36,8 +36,9 @@ and fp16; master weights; the global-norm clip with mixed need_clip; decay
 exemptions and two parameter groups; numels 1, 4097 and 2^20 + 3; more
 tensors than one launch holds; f32 gradients on bf16 parameters); one
 paged-attention lane's bits across the other lanes' lengths, narrow and
-wide; and the AMP loop (O2 bf16, O1, O2 fp16 with a skipped step) through
-the kernels against its plain versions.
+wide; the AMP loop (O2 bf16, O1, O2 fp16 with a skipped step) through
+the kernels against its plain versions; and an ERNIE TrainStep through the
+fused optimizer against its plain version, bit for bit.
 """
 
 import contextlib
@@ -1632,3 +1633,18 @@ def test_amp_steps_match_the_plain_versions(dev, level, dtype, scale):
     if dtype == "float16":
         assert cs.hold_skip(runs, level, dtype, batches[3], "fp16")[
             "skipped_step_state_bit_for_bit"]
+
+
+# an ERNIE TrainStep (post-LN encoder, masked composed attention, AdamW in
+# bf16) through the fused optimizer's kernel against the same steps with its
+# plain version: chip_smoke.py phase 19c at a small width (hidden 256, 4
+# heads, 2 layers, batch 8 x 64 with ragged rows), every parameter and
+# moment bit for bit (the forward and backward are the same code)
+def test_ernie_train_step_matches_the_plain_optimizer(dev):
+    import chip_smoke as cs
+
+    out = cs.ernie_check(0, batch=8, seq=64, phase="card test", vocab_size=1000,
+                         hidden_size=256, num_hidden_layers=2, num_attention_heads=4,
+                         intermediate_size=512)
+    assert out["bit_for_bit"] and out["tensors"] == 5 + 16 * 2 + 2 + 2
+    assert out["moved_elements"] > 0
