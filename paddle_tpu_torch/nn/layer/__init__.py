@@ -6,8 +6,13 @@ from .activation import (CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigmoid, Ha
                          ReLU, ReLU6, RReLU, Sigmoid, Silu, Softmax, Softplus, Softshrink,
                          Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU)
 from .common import AlphaDropout, Dropout, Dropout2D, Dropout3D, Embedding, Linear
+from .conv import Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D, Conv3DTranspose
 from .layers import Identity, LayerList, Sequential
-from .norm import LayerNorm, RMSNorm
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm, RMSNorm,
+                   SyncBatchNorm)
+from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
+                      AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
+                      AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
 from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,
                           TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer)
 
@@ -16,6 +21,12 @@ __all__ = ["CELU", "ELU", "GELU", "GLU", "SELU", "Hardshrink", "Hardsigmoid", "H
            "ReLU", "ReLU6", "RReLU", "Sigmoid", "Silu", "Softmax", "Softplus", "Softshrink",
            "Softsign", "Swish", "Tanh", "Tanhshrink", "ThresholdedReLU",
            "AlphaDropout", "Dropout", "Dropout2D", "Dropout3D", "Embedding", "Linear",
-           "Identity", "LayerList", "Sequential", "LayerNorm", "RMSNorm",
+           "Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D", "Conv3DTranspose",
+           "Identity", "LayerList", "Sequential",
+           "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "LayerNorm", "RMSNorm",
+           "SyncBatchNorm",
+           "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D", "AdaptiveMaxPool1D",
+           "AdaptiveMaxPool2D", "AdaptiveMaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
+           "MaxPool1D", "MaxPool2D", "MaxPool3D",
            "MultiHeadAttention", "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
            "TransformerEncoder", "TransformerEncoderLayer"]

@@ -22,13 +22,16 @@ __all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D", "AlphaDro
            "make_parameter"]
 
 
-def make_parameter(shape, init, *, device, dtype, generator=None):
+def make_parameter(shape, init, *, device, dtype, generator=None, bound=None):
     """A trainable parameter: ``"xavier"`` uniform over
     ``+-sqrt(6 / (fan_in + fan_out))`` of a 2-D ``[in, out]`` shape,
-    ``"normal"`` N(0, 1), ``"ones"`` or ``"zeros"``."""
+    ``"uniform"`` over ``+-bound``, ``"normal"`` N(0, 1), ``"ones"`` or
+    ``"zeros"``."""
     w = torch.empty(shape, device=resolve_device(device), dtype=dtype)
     if init == "xavier":
         bound = (6.0 / (shape[0] + shape[1])) ** 0.5
+        w.uniform_(-bound, bound, generator=generator)
+    elif init == "uniform":
         w.uniform_(-bound, bound, generator=generator)
     elif init == "normal":
         w.normal_(0.0, 1.0, generator=generator)
