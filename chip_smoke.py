@@ -275,7 +275,29 @@ Phases, each printing one line of numbers:
    50 steps the last loss below 0.8 of the first and the accuracy on 256
    training images above 0.5 (``tests/test_train_lenet.py``'s criteria),
    then a 200-step run with the accuracy on the training split printed,
-   and how many of seeds 0-7 meet the criteria.
+   and how many of seeds 0-7 meet the criteria; its batches come from the
+   port's ``io.DataLoader`` on the card;
+21. ``paddle.Model`` on the card (``hapi``, ``io``, ``vision.transforms``,
+   ``metric``, ``save``/``load``): (21a) Paddle's quick start,
+   ``Model(LeNet())`` with ``Adam(1e-3)``, ``nn.CrossEntropyLoss()`` and
+   ``metric.Accuracy()``, ``fit`` one epoch of the synthetic MNIST
+   normalised by 127.5 (the model's own loader on the card), a second
+   epoch timed alone, ``evaluate`` and ``predict``: ``test_hapi_model_fit``'s criteria, predict's accuracy
+   equal to evaluate's, the fused optimizer once a step; (21b) that fit
+   for 20 steps over a ``shuffle=False`` loader on the card and on the
+   CPU from one state, each loss within 16 times the CPU's own difference
+   with every batch reversed; (21c) ``resnet50(num_classes=102)`` in f32
+   on Flowers-102 (the synthetic surrogate) through ``fit``, the loader
+   ``ToTensor``, ``Resize(224)``, ``RandomHorizontalFlip``, ``Normalize``
+   on 4 worker processes, ``Momentum(0.01, momentum=0.9)``, one epoch of
+   15 steps: ms a step, images/s, the consumer's wait for the loader, the
+   device's busy share and ms by kind, peak memory, exact launches; then
+   ``evaluate`` and ``predict`` on the test split, the loader alone (an
+   epoch with no model) and the same steps through ``TrainStep`` over
+   batches already on the card; (21d) an epoch of the device loader with
+   0 and 4 workers equal to the CPU loader's bit for bit, and an
+   exception in a worker raised in the consumer; (21e) ``Model.save`` on
+   the card and ``Model.load`` into a fresh model: equal logits.
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -294,8 +316,9 @@ from phase 2's calls, RMSNorm's ``round_first`` mode from the three timed
 training steps; paged attention over the prefix cache's tables from phase
 15's traced window, the weight stream at the verify's M = 40 from phase
 16's; the fused optimizer from the three timed training steps of phase 7,
-phase 18's O1 steps, phase 19a's six, phase 20a's six and phase 20e's
-first 50, with its numbers from phase 17,
+phase 18's O1 steps, phase 19a's six, phase 20a's six, phase 20e's
+first 50 and phase 21's fits (21a's two epochs, 21b's card steps, 21c's
+epoch), with its numbers from phase 17,
 and in its master mode from phase 18's O2 steps and phase 19e's, with its
 numbers from 18d; flash and
 RMSNorm also count phase 18's timed steps), and last ``{"ok": true,
@@ -309,6 +332,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import math
 import re
@@ -5277,9 +5301,11 @@ def vision_eval(model, x) -> dict:
 def lenet_run(seed: int, steps: int, train):
     """(model, step, losses) of ``steps`` LeNet TrainStep calls with Adam
     on the card: the initial weights drawn on the CPU from ``seed`` (the
-    CPU test's draw), the batches from a shuffling loader seeded alike."""
+    CPU test's draw), the batches from the port's shuffling loader on the
+    card, seeded alike."""
     import torch
 
+    from paddle_tpu_torch.io import DataLoader
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.optimizer import Adam
@@ -5292,8 +5318,8 @@ def lenet_run(seed: int, steps: int, train):
                      lambda x, y: F.cross_entropy(model(x), y))
     shuffle = torch.Generator()
     shuffle.manual_seed(seed)
-    loader = torch.utils.data.DataLoader(train, batch_size=LENET_BATCH, shuffle=True,
-                                         generator=shuffle, drop_last=True)
+    loader = DataLoader(train, batch_size=LENET_BATCH, shuffle=True, generator=shuffle,
+                        drop_last=True, device="cuda")
     losses, batches = [], iter(loader)
     while len(losses) < steps:
         try:
@@ -5301,7 +5327,7 @@ def lenet_run(seed: int, steps: int, train):
         except StopIteration:
             batches = iter(loader)
             continue
-        losses.append(step(x.cuda(), y.cuda()).item())
+        losses.append(step(x, y).item())
     return model, step, losses
 
 
@@ -5382,6 +5408,495 @@ def vision(seed: int, smi: str) -> dict:
         resnet50_images_per_s=round(VISION_BATCH / trained["step_ms"] * 1e3, 1),
         resnet50_eval_ms=round(ev["ms"], 3))
     return {"resnet50": trained["launches"]["multi_tensor_update"], "lenet": lenet["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: paddle.Model on the card (hapi, io, transforms, metric, save/load)
+# ---------------------------------------------------------------------------
+
+# 21a: Paddle's quick start, as tests/test_train_lenet.py's test_hapi_model_fit
+# runs it: Model(LeNet()), Adam(1e-3), CrossEntropyLoss, Accuracy, one epoch
+# of the synthetic MNIST at batch 64 normalised by mean 127.5, std 127.5
+QUICKSTART_LR, QUICKSTART_BATCH = 1e-3, 64
+# 21b: that fit on the card and on the CPU from one initial state over a
+# shuffle=False loader, HAPI_CHECK_STEPS steps; each step's loss held to
+# VISION_F32_FACTOR times the CPU's own difference when every batch is
+# reversed (the same sums in another order), at least one f32 ulp
+HAPI_CHECK_STEPS = 20
+# 21c: ResNet-50 at the published widths on Flowers-102 (the synthetic
+# surrogate: 1000 training images of 3 x 64 x 64), f32 (a paddle.Model
+# user's default: fit takes no amp configuration), the reference's image
+# pipeline on 4 worker processes, Momentum(0.01, momentum=0.9), one epoch
+# (15 steps), the first FLOWERS_WARMUP of them outside the timing
+FLOWERS_BATCH, FLOWERS_HW, FLOWERS_CLASSES, FLOWERS_WORKERS = 64, 224, 102, 4
+FLOWERS_LR, FLOWERS_MOMENTUM, FLOWERS_WARMUP = 0.01, 0.9, 2
+FLOWERS_MEAN, FLOWERS_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+
+
+def flowers_transform(train: bool):
+    """The ImageNet-style pipeline on the host: to f32 in [0, 1], resized
+    to 224 x 224, flipped at random (training only), normalised."""
+    from paddle_tpu_torch.vision import transforms as T
+
+    flip = [T.RandomHorizontalFlip()] if train else []
+    return T.Compose([T.ToTensor(), T.Resize(FLOWERS_HW), *flip,
+                      T.Normalize(FLOWERS_MEAN, FLOWERS_STD)])
+
+
+def lenet_model(seed: int, device: str):
+    """``paddle.Model(LeNet())`` prepared as Paddle's quick start prepares
+    it, the weights drawn on the CPU from ``seed`` (phase 20e's draw)."""
+    import torch
+
+    from paddle_tpu_torch import Model, metric, nn
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision import LeNet
+
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    net = LeNet(device="cpu", generator=gen).to(device)
+    return Model(net).prepare(Adam(QUICKSTART_LR, parameters=net.parameters()),
+                              nn.CrossEntropyLoss(), metric.Accuracy())
+
+
+def quickstart_mnist():
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.transforms import Normalize
+
+    return MNIST(mode="train", transform=Normalize(mean=[127.5], std=[127.5]))
+
+
+def hapi_quickstart(seed: int) -> dict:
+    """Phase 21a: Paddle's quick start on the card. ``fit`` one epoch of
+    the synthetic MNIST (the model's own shuffling loader on the card),
+    then a second epoch timed alone, ``evaluate`` on the training split,
+    ``predict(stack_outputs=True)``;
+    ``test_hapi_model_fit``'s criteria (the last loss below the first,
+    ``acc`` among the results), predict's argmax accuracy equal to
+    evaluate's, and the fused optimizer once a step (10 tensors)."""
+    import numpy as np
+    import torch
+
+    phase = "hapi-quickstart"
+    model = lenet_model(seed, "cuda")
+    train = quickstart_mnist()
+    counters = training_counters()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    hist = model.fit(train, batch_size=QUICKSTART_BATCH, epochs=1, verbose=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()        # a second epoch: no first call's set-up
+    again = model.fit(train, batch_size=QUICKSTART_BATCH, epochs=1, verbose=0)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    counts = read_counts(counters)
+    steps = len(hist["loss"])
+    t0 = time.perf_counter()
+    res = model.evaluate(train, batch_size=QUICKSTART_BATCH, verbose=0)
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (logits,) = model.predict(train, batch_size=QUICKSTART_BATCH, stack_outputs=True)
+    predict_s = time.perf_counter() - t0
+    labels = np.asarray(train.labels)
+    predicted_acc = float((logits.argmax(1) == labels).mean())
+    say(phase, steps=steps, first_loss=hist["loss"][0], last_loss=hist["loss"][-1],
+        fit_ms_per_step=round(1e3 * fit_s / steps, 3),
+        second_epoch_ms_per_step=round(1e3 * again_s / len(again["loss"]), 3),
+        second_epoch_last_loss=again["loss"][-1], eval_loss=res["loss"],
+        eval_acc=res["acc"], predict_acc=predicted_acc, eval_s=round(eval_s, 3),
+        predict_s=round(predict_s, 3), predict_shape=list(logits.shape),
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    want = optimizer_launches(2 * steps, tensors=len(list(model.parameters())))
+    if counts != want or len(again["loss"]) != steps:
+        raise AssertionError(f"{phase} launched {counts}, expected {want}")
+    if steps != -(-len(train) // QUICKSTART_BATCH) or not hist["loss"][-1] < hist["loss"][0]:
+        raise AssertionError(f"{phase}: {steps} steps, losses {hist['loss'][0]} -> "
+                             f"{hist['loss'][-1]}")
+    if "acc" not in res or logits.shape != (len(train), 10) or not np.isfinite(logits).all():
+        raise AssertionError(f"{phase}: evaluate gave {res}, predict {logits.shape}")
+    if abs(predicted_acc - res["acc"]) > 1e-9:
+        raise AssertionError(f"{phase}: predict's accuracy {predicted_acc} != evaluate's "
+                             f"{res['acc']}")
+    return {"launches": counts["multi_tensor_update"], "acc": res["acc"],
+            "fit_ms_per_step": 1e3 * fit_s / steps}
+
+
+def hapi_card_vs_cpu(seed: int) -> dict:
+    """Phase 21b: 21a's fit for HAPI_CHECK_STEPS steps over a
+    ``shuffle=False`` loader, on the card and on the CPU from one initial
+    state; each step's loss on the card within VISION_F32_FACTOR times the
+    CPU's own largest relative difference when every batch is reversed
+    (at least 2^-23); the fused optimizer once a step on the card."""
+    import numpy as np
+
+    from paddle_tpu_torch.io import DataLoader, default_collate_fn
+
+    phase = "hapi-card-vs-cpu"
+    train = quickstart_mnist()
+
+    def losses(device, collate=None):
+        model = lenet_model(seed, device)
+        loader = DataLoader(train, batch_size=QUICKSTART_BATCH, shuffle=False,
+                            collate_fn=collate, device=device)
+        return np.asarray(model.fit(loader, num_iters=HAPI_CHECK_STEPS, verbose=0)["loss"])
+
+    cpu = losses("cpu")
+    reversed_ = losses("cpu", lambda batch: default_collate_fn(batch[::-1]))
+    counters = training_counters()
+    zero_counts(counters)
+    card = losses("cuda")
+    counts = read_counts(counters)
+    noise = float(np.max(np.abs(reversed_ - cpu) / np.abs(cpu)))
+    diff = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    limit = VISION_F32_FACTOR * max(noise, 2.0 ** -23)
+    say(phase, steps=HAPI_CHECK_STEPS, card_losses=[round(float(v), 6) for v in card],
+        max_rel_diff=diff, cpu_batch_reversal_rel_diff=noise, limit=limit,
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    want = optimizer_launches(HAPI_CHECK_STEPS, tensors=10)
+    if counts != want:
+        raise AssertionError(f"{phase} launched {counts}, expected {want}")
+    if not diff <= limit:
+        raise AssertionError(f"{phase}: the card's losses differ by {diff} of the CPU's, "
+                             f"limit {limit}")
+    return {"launches": counts["multi_tensor_update"], "max_rel_diff": diff, "limit": limit}
+
+
+def make_timed_loader(*args, warmup: int, **kwargs):
+    """A port ``DataLoader`` whose epoch records each batch's arrival at
+    the consumer and the time the consumer waited for it (``waits``), and
+    profiles the device from batch ``warmup`` to the epoch's end (``prof``,
+    over ``window_s``), the profiler started after the workers were
+    forked."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.io import DataLoader
+
+    class TimedLoader(DataLoader):
+        def __iter__(self):
+            it = super().__iter__()
+            self.waits, self.prof = [], profile(activities=[ProfilerActivity.CUDA])
+            started = None
+            try:
+                while True:
+                    if len(self.waits) == warmup:
+                        torch.cuda.synchronize()
+                        self.prof.start()
+                        started = time.perf_counter()
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    self.waits.append(time.perf_counter() - t0)
+                    yield batch
+            finally:
+                if started is not None:
+                    torch.cuda.synchronize()
+                    self.window_s = time.perf_counter() - started
+                    self.prof.stop()
+
+    return TimedLoader(*args, **kwargs)
+
+
+def host_rss_gib() -> float:
+    """This process's resident host memory (``VmRSS``), GiB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def flowers_epoch(seed: int, workers: int = FLOWERS_WORKERS) -> dict:
+    """One epoch of ResNet-50 (f32, weights from ``seed``) on the Flowers
+    surrogate through ``Model.fit`` on the card, its loader
+    (``make_timed_loader``) on ``workers`` worker processes: the model,
+    the network, a copy of its initial state (``twin``), the training
+    split, the loader's arguments, the history and launches, and over the
+    steps after FLOWERS_WARMUP the seconds a step, the consumer's wait for
+    the loader, the device's busy seconds and kernel times; peak memory;
+    the step's convolution and fc FLOPs."""
+    import torch
+
+    from paddle_tpu_torch import Model, metric, nn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import resnet50
+    from paddle_tpu_torch.vision.datasets import Flowers
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    net = resnet50(num_classes=FLOWERS_CLASSES, device="cuda", generator=gen)
+    model = Model(net).prepare(
+        Momentum(FLOWERS_LR, momentum=FLOWERS_MOMENTUM, parameters=net.parameters()),
+        nn.CrossEntropyLoss(), metric.Accuracy(topk=(1, 5)))
+    train = Flowers(mode="train", transform=flowers_transform(True))
+    loader_kw = dict(batch_size=FLOWERS_BATCH, shuffle=True, drop_last=True,
+                     num_workers=workers)
+    loader = make_timed_loader(train, warmup=FLOWERS_WARMUP, **loader_kw)
+    twin = copy.deepcopy(net)
+    net.eval()      # the running statistics stay as they are
+    x1 = torch.zeros((1, 3, FLOWERS_HW, FLOWERS_HW), device=next(net.parameters()).device)
+    flops = 3 * FLOWERS_BATCH * conv_flops(net, x1)
+    counters = training_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    hist = model.fit(loader, epochs=1, verbose=0)
+    counts = read_counts(counters)
+    timed = len(hist["loss"]) - FLOWERS_WARMUP
+    per_kernel, ops = kernel_times(loader.prof)
+    return {"model": model, "net": net, "twin": twin, "train": train, "loader_kw": loader_kw,
+            "hist": hist, "counts": counts, "timed": timed, "flops": flops,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "step_s": loader.window_s / timed, "window_s": loader.window_s,
+            "first_wait_s": loader.waits[0], "wait_s": sum(loader.waits[FLOWERS_WARMUP:]),
+            "busy_s": sum(per_kernel.values()) / 1e6, "per_kernel": per_kernel, "ops": ops}
+
+
+def flowers_fit(seed: int, smi: str) -> dict:
+    """Phase 21c: ResNet-50 on Flowers-102 through ``Model.fit`` on the
+    card: one epoch from a ``DataLoader`` with 4 worker processes (the
+    reference's pipeline, shuffled, last batch dropped:
+    ``flowers_epoch``), then ``evaluate`` and ``predict`` on the test
+    split (predict's top-1 accuracy equal to evaluate's). Prints ms a step
+    and images/s over the epoch's steps after FLOWERS_WARMUP, the
+    consumer's wait for the loader, the device's busy share and ms by kind
+    over those steps, peak memory, the f32 FLOPs' share of the f32 peak
+    and the launches (the fused optimizer twice a step, nothing else);
+    then the loader alone (an epoch with no model) and the same steps
+    through ``TrainStep`` over batches already on the card (from the
+    fit's initial state), the cost of the loader and of ``Model`` beside
+    the step. Returns the model, its test split and the numbers."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.datasets import Flowers
+
+    phase = "flowers-fit"
+    ep = flowers_epoch(seed)
+    model, net, twin, train, hist, counts = (ep[k] for k in ("model", "net", "twin", "train",
+                                                             "hist", "counts"))
+    test = Flowers(mode="test", transform=flowers_transform(False))
+    steps, timed, step_s, busy = len(hist["loss"]), ep["timed"], ep["step_s"], ep["busy_s"]
+    say(phase, card=repr(smi), params=sum(p.numel() for p in net.parameters()),
+        dtype="float32", batch=FLOWERS_BATCH, image=FLOWERS_HW, workers=FLOWERS_WORKERS,
+        steps=steps, timed_steps=timed, losses=[round(v, 5) for v in hist["loss"]],
+        first_step_wait_ms=round(1e3 * ep["first_wait_s"], 3),
+        step_ms=round(1e3 * step_s, 3), images_per_s=round(FLOWERS_BATCH / step_s, 1),
+        loader_wait_ms_per_step=round(1e3 * ep["wait_s"] / timed, 3),
+        loader_wait_share=round(ep["wait_s"] / ep["window_s"], 4),
+        device_busy_share=round(busy / ep["window_s"], 4) if busy else "not measured",
+        device_ms_per_step=round(1e3 * busy / timed, 3), device_ops_per_step=ep["ops"] // timed,
+        f32_peak_share=round(ep["flops"] / step_s / F32_FLOP_PER_S, 4),
+        max_memory_allocated_gib=round(ep["peak_gib"], 3), host_rss_gib=round(host_rss_gib(), 3),
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    kinds = {k: round(v / timed, 3) for k, v in by_kind(ep["per_kernel"]).items()}
+    say(phase, device_ms_per_step_by_kind=json.dumps(kinds))
+    want = optimizer_launches(steps, tensors=RESNET50_TENSORS)
+    if counts != want:
+        raise AssertionError(f"{phase} launched {counts}, expected {want}")
+    if steps != len(train) // FLOWERS_BATCH or not all(math.isfinite(v) for v in hist["loss"]):
+        raise AssertionError(f"{phase}: {steps} steps, losses {hist['loss']}")
+
+    t0 = time.perf_counter()
+    res = model.evaluate(test, batch_size=FLOWERS_BATCH, verbose=0)
+    eval_s = time.perf_counter() - t0
+    (logits,) = model.predict(test, batch_size=FLOWERS_BATCH, stack_outputs=True)
+    top1 = float((logits.argmax(1) == np.asarray(test.labels)).mean())
+    say(phase, eval=json.dumps(res), eval_s=round(eval_s, 3), predict_top1=top1,
+        predict_shape=list(logits.shape))
+    if sorted(res) != ["acc_top1", "acc_top5", "loss"] or not math.isfinite(res["loss"]):
+        raise AssertionError(f"{phase}: evaluate gave {res}")
+    if logits.shape != (len(test), FLOWERS_CLASSES) or not np.isfinite(logits).all():
+        raise AssertionError(f"{phase}: predict gave {logits.shape}")
+    if abs(top1 - res["acc_top1"]) > 1e-9:
+        raise AssertionError(f"{phase}: predict's top-1 {top1} != evaluate's "
+                             f"{res['acc_top1']}")
+
+    # the loader alone, then TrainStep over its batches already on the card
+    torch.cuda.synchronize()
+    t_alone = time.perf_counter()
+    batches, arrivals = [], []
+    for batch in DataLoader(train, **ep["loader_kw"]):
+        batches.append(batch)
+        arrivals.append(time.perf_counter())
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t_alone
+    steady = (len(batches) - 1) / (arrivals[-1] - arrivals[0])
+    step = TrainStep(twin, Momentum(FLOWERS_LR, momentum=FLOWERS_MOMENTUM,
+                                    parameters=twin.parameters()),
+                     lambda x, y: F.cross_entropy(twin(x), y))
+    for x, y in batches[:FLOWERS_WARMUP]:
+        step(x, y).item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in batches[FLOWERS_WARMUP:]:
+        step(x, y).item()
+    torch.cuda.synchronize()
+    direct_s = (time.perf_counter() - t0) / timed
+    say(phase, loader_alone_batches_per_s=round(len(batches) / alone_s, 3),
+        loader_alone_first_batch_s=round(arrivals[0] - t_alone, 3),
+        loader_alone_steady_batches_per_s=round(steady, 3),
+        trainstep_on_card_batches_step_ms=round(1e3 * direct_s, 3),
+        fit_step_ms=round(1e3 * step_s, 3),
+        fit_minus_trainstep_ms=round(1e3 * (step_s - direct_s), 3))
+    del batches, step, twin, ep
+    return {"model": model, "net": net, "test": test, "launches": counts["multi_tensor_update"],
+            "step_ms": 1e3 * step_s, "direct_ms": 1e3 * direct_s}
+
+
+class FailingItems:
+    """Items 0, 1, ... as f32 scalars; item ``bad`` raises ValueError."""
+
+    def __init__(self, n: int, bad: int):
+        self.n, self.bad = n, bad
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        if i == self.bad:
+            raise ValueError(f"item {i} is unreadable")
+        return np.float32(i)
+
+    def __len__(self):
+        return self.n
+
+
+def loader_bits(seed: int) -> dict:
+    """Phase 21d: an epoch of Flowers (21c's pipeline without the random
+    flip, shuffled from a seeded generator) through ``DataLoader`` on the
+    card with 0 and FLOWERS_WORKERS workers equals the CPU loader's, bit
+    for bit, dtype and shape too. The consumer copies each batch on its
+    own stream the moment it arrives and drops it, so a copy that it did
+    not wait for, or memory reused under its pending reads, would show.
+    Then an exception in a worker (and in the thread) reaches the
+    consumer."""
+    import torch
+
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision.datasets import Flowers
+
+    phase = "loader-bits"
+    ds = Flowers(mode="train", transform=flowers_transform(False))
+
+    def epoch(device, workers):
+        gen = torch.Generator()
+        gen.manual_seed(seed)
+        out = []
+        t0 = time.perf_counter()
+        for batch in DataLoader(ds, batch_size=FLOWERS_BATCH, shuffle=True, generator=gen,
+                                num_workers=workers, device=device):
+            if device == "cuda" and not all(t.is_cuda for t in batch):
+                raise AssertionError(f"{phase}: a batch left the card")
+            out.append([t.clone() for t in batch])
+        torch.cuda.synchronize()
+        return [[t.cpu() for t in b] for b in out], time.perf_counter() - t0
+
+    want, cpu_s = epoch("cpu", 0)
+    seconds = {"cpu_workers_0": round(cpu_s, 3)}
+    for workers in (0, FLOWERS_WORKERS):
+        got, s = epoch("cuda", workers)
+        seconds[f"cuda_workers_{workers}"] = round(s, 3)
+        same = len(got) == len(want) and all(
+            g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+            for gb, wb in zip(got, want) for g, w in zip(gb, wb))
+        if not same:
+            raise AssertionError(f"{phase}: {workers} workers on the card gave other batches "
+                                 "than the CPU loader")
+    failures = {}
+    for workers in (0, 2):
+        seen = 0
+        try:
+            for _ in DataLoader(FailingItems(20, 13), batch_size=4, num_workers=workers,
+                                device="cuda"):
+                seen += 1
+        except ValueError as e:
+            failures[workers] = (seen, "item 13 is unreadable" in str(e))
+        if failures.get(workers) != (3, True):
+            raise AssertionError(f"{phase}: the failing item with {workers} workers gave "
+                                 f"{failures.get(workers)} after {seen} batches")
+    say(phase, batches=len(want), batch_shapes=[list(t.shape) for t in want[0]],
+        dtypes=[str(t.dtype) for t in want[0]], bit_equal="cuda workers 0 and "
+        f"{FLOWERS_WORKERS} against the CPU", epoch_s=json.dumps(seconds),
+        worker_error_reached_the_consumer=True)
+    return seconds
+
+
+def hapi_save_load(fitted: dict, seed: int) -> dict:
+    """Phase 21e: ``Model.save`` of 21c's model on the card, then
+    ``Model.load`` into a fresh ResNet-50 on the card (other weights):
+    equal logits in eval mode, bit for bit, where the fresh model's
+    differed before the load."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import Model, load
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.jit import EvalStep
+    from paddle_tpu_torch.vision import resnet50
+
+    phase = "hapi-save-load"
+    x, _ = next(iter(DataLoader(fitted["test"], batch_size=FLOWERS_BATCH)))
+
+    def logits(net):
+        net.eval()
+        return EvalStep(net, lambda a: net(a))(x)[0]
+
+    want = logits(fitted["net"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    fresh = Model(resnet50(num_classes=FLOWERS_CLASSES, device="cuda", generator=gen))
+    before = logits(fresh.network)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        fitted["model"].save(f"{d}/resnet50")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh.load(f"{d}/resnet50")
+        load_s = time.perf_counter() - t0
+        opt = load(f"{d}/resnet50.pdopt")
+        nbytes = Path(f"{d}/resnet50.pdparams").stat().st_size
+    got = logits(fresh.network)
+    say(phase, pdparams_bytes=nbytes, save_s=round(save_s, 3), load_s=round(load_s, 3),
+        pdopt_keys=sorted(opt), equal_logits=bool(torch.equal(got, want)),
+        before_load_equal=bool(torch.equal(before, want)))
+    if not bool(torch.isfinite(want).all()):
+        raise AssertionError(f"{phase}: the saved model's logits are not finite")
+    if not torch.equal(got, want) or torch.equal(before, want):
+        raise AssertionError(f"{phase}: logits after the load differ from the saved model's")
+    return {"save_s": save_s, "load_s": load_s}
+
+
+def hapi(seed: int, smi: str) -> dict:
+    """Phase 21: ``paddle.Model`` on the card: 21a Paddle's quick start,
+    21b the same fit on the card against the CPU, 21c ResNet-50 on
+    Flowers-102 through ``fit`` with 4 worker processes, 21d the device
+    loader's bits, 21e save and load. Returns the fused optimizer's
+    launches of 21a, 21b and 21c's fits."""
+    import torch
+
+    quick = hapi_quickstart(seed)
+    check = hapi_card_vs_cpu(seed)
+    fitted = flowers_fit(seed, smi)
+    loader_bits(seed)
+    hapi_save_load(fitted, seed)
+    say("hapi", card=repr(smi), quickstart_acc=quick["acc"],
+        quickstart_ms_per_step=round(quick["fit_ms_per_step"], 3),
+        lenet_card_vs_cpu_max_rel_diff=check["max_rel_diff"],
+        resnet50_flowers_step_ms=round(fitted["step_ms"], 3),
+        resnet50_flowers_images_per_s=round(FLOWERS_BATCH / fitted["step_ms"] * 1e3, 1),
+        resnet50_trainstep_step_ms=round(fitted["direct_ms"], 3))
+    launches = {"quickstart": quick["launches"], "check": check["launches"],
+                "flowers": fitted["launches"]}
+    del fitted
+    torch.cuda.empty_cache()
+    return launches
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
@@ -5669,6 +6184,8 @@ def main(argv=None) -> int:
     lap("19")
     vision_launches = vision(args.seed, smi)
     lap("20")
+    hapi_launches = hapi(args.seed, smi)
+    lap("21")
     amp_launches = {k: amp_o2["launches"][k] + amp_o1["launches"][k] for k in amp_o2["launches"]}
 
     kernels = [
@@ -5809,7 +6326,8 @@ def main(argv=None) -> int:
         "replaces": "paddle_tpu/optimizer/fused_step.py:105 (an XLA program: no TPU kernel)",
         "launches": (train_launches["multi_tensor_update"]
                      + amp_launches["multi_tensor_update_direct"] + ernie_launches["direct"]
-                     + vision_launches["resnet50"] + vision_launches["lenet"]),
+                     + vision_launches["resnet50"] + vision_launches["lenet"]
+                     + sum(hapi_launches.values())),
         **fused_opt})
     kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                           f"({TRAIN_LAYERS} layers, one AdamW update a step), the "
@@ -5820,7 +6338,12 @@ def main(argv=None) -> int:
                           f"20a ({vision_launches['resnet50']}: Momentum over "
                           f"{RESNET50_TENSORS} bf16 tensors, two launches a step) and the "
                           f"{LENET_STEPS} counted LeNet steps of phase 20e "
-                          f"({vision_launches['lenet']}: Adam over 10 f32 tensors, one a step)")
+                          f"({vision_launches['lenet']}: Adam over 10 f32 tensors, one a step) "
+                          f"and phase 21's Model.fit runs: the quick start's two epochs "
+                          f"({hapi_launches['quickstart']}), the {HAPI_CHECK_STEPS} card steps "
+                          f"of 21b ({hapi_launches['check']}) and ResNet-50's Flowers epoch "
+                          f"({hapi_launches['flowers']}: Momentum over {RESNET50_TENSORS} f32 "
+                          "tensors, two launches a step)")
     kernels.append({
         "name": "multi_tensor_update_master", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",

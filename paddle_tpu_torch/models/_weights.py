@@ -6,7 +6,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_reference_state_dict", "reference_state_dict"]
+__all__ = ["load_reference_state_dict", "reference_state_dict", "set_state_dict"]
 
 
 def reference_state_dict(model: nn.Module) -> dict:
@@ -24,19 +24,34 @@ def reference_state_dict(model: nn.Module) -> dict:
 
 
 @torch.no_grad()
+def set_state_dict(model: nn.Module, state: dict) -> tuple[list, list]:
+    """Load ``{key: array or tensor}`` into ``model`` by the keys of
+    :func:`reference_state_dict`, each value cast to its target's dtype
+    and moved to its device; a shape that differs raises. Returns the
+    model's keys missing from ``state`` and the keys of ``state`` the model
+    lacks, both left alone (the reference's ``Layer.set_state_dict``)."""
+    own = reference_state_dict(model)
+    missing = []
+    for key, target in own.items():
+        if key not in state:
+            missing.append(key)
+            continue
+        value = state[key]
+        value = value if torch.is_tensor(value) else torch.as_tensor(np.array(value))
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(f"{key}: shape {tuple(value.shape)} != {tuple(target.shape)}")
+        target.copy_(value.to(dtype=target.dtype, device=target.device))
+    return missing, [k for k in state if k not in own]
+
+
 def load_reference_state_dict(model: nn.Module, state: dict) -> nn.Module:
     """Load ``{key: array}`` (the reference's ``model.state_dict()`` read as
-    numpy) into ``model`` by key (:func:`reference_state_dict`), each array
-    cast to its parameter's dtype and moved to its device. A key that is
+    numpy) into ``model`` by key (:func:`set_state_dict`). A key that is
     missing or extra, or a shape that differs, raises."""
     own = reference_state_dict(model)
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:
         raise KeyError(f"state dict keys differ: missing {missing}, extra {extra}")
-    for key, target in own.items():
-        arr = torch.as_tensor(np.array(state[key]))
-        if tuple(arr.shape) != tuple(target.shape):
-            raise ValueError(f"{key}: shape {tuple(arr.shape)} != {tuple(target.shape)}")
-        target.copy_(arr.to(dtype=target.dtype, device=target.device))
+    set_state_dict(model, state)
     return model

@@ -1,9 +1,10 @@
 """Vision datasets of the port (counterpart of
-``paddle_tpu/vision/datasets.py``): MNIST, FashionMNIST, Cifar10 and
-Cifar100 as ``torch.utils.data.Dataset``s of numpy arrays.
+``paddle_tpu/vision/datasets.py``): MNIST, FashionMNIST, Cifar10,
+Cifar100 and Flowers as ``torch.utils.data.Dataset``s of numpy arrays.
 
 Each reads local files when given (IDX files for MNIST, the python
-pickle tarball for Cifar) and otherwise synthesizes the reference's
+pickle tarball for Cifar, the distribution's tarball and ``.mat`` files
+for Flowers) and otherwise synthesizes the reference's
 class-separable surrogate: the same numpy draws from the same seeds, so
 its images and labels equal the reference's. Nothing is downloaded.
 """
@@ -17,7 +18,7 @@ import struct
 import numpy as np
 from torch.utils.data import Dataset
 
-__all__ = ["MNIST", "FashionMNIST", "Cifar10", "Cifar100"]
+__all__ = ["MNIST", "FashionMNIST", "Cifar10", "Cifar100", "Flowers"]
 
 
 def _synthetic_images(n, shape, num_classes, seed):
@@ -134,3 +135,64 @@ class Cifar100(Cifar10):
     _TRAIN_RE = r"(^|/)train$"
     _TEST_RE = r"(^|/)test$"
     _LABEL_KEY = b"fine_labels"
+
+
+class Flowers(Dataset):
+    """``paddle.vision.datasets.Flowers`` (Oxford 102 flowers): the
+    images of ``data_file`` (102flowers.tgz, ``jpg/image_NNNNN.jpg``) with
+    the labels of ``label_file`` (imagelabels.mat) and the split of
+    ``setid_file`` (setid.mat) when all three are given, else 1000 (train)
+    or 200 (test, valid) synthetic 3x64x64 uint8 images of 102 classes
+    (seed 11). As in the reference, "train" reads the split the files call
+    ``tstid`` and "test" the one they call ``trnid`` (the larger and the
+    smaller). An item is ``(image, label [1] int64)``: the image as HWC
+    uint8 (a PIL image with ``backend="pil"``) from the files, CHW from
+    the surrogate, ``transform`` applied. scipy and PIL are imported only
+    to read the files."""
+
+    _MODE_FLAG = {"train": "tstid", "test": "trnid", "valid": "valid"}
+
+    def __init__(self, data_file=None, label_file=None, setid_file=None, mode="train",
+                 transform=None, download=True, backend=None):
+        if mode not in self._MODE_FLAG:
+            raise ValueError(f"mode must be train/test/valid, got {mode!r}")
+        if backend not in (None, "pil", "cv2"):
+            raise ValueError(f"backend must be pil or cv2, got {backend!r}")
+        self.mode = mode
+        self.transform = transform
+        self.backend = backend or "cv2"
+        self._tar = None
+        if data_file and label_file and setid_file and os.path.exists(data_file):
+            import tarfile
+
+            import scipy.io as sio
+
+            labels = sio.loadmat(label_file)["labels"].ravel()   # 1-based, by image id
+            self._ids = sio.loadmat(setid_file)[self._MODE_FLAG[mode]].ravel().astype(np.int64)
+            self.labels = labels[self._ids - 1].astype(np.int64) - 1
+            self._tar = tarfile.open(data_file, "r")
+            self._members = {m.name: m for m in self._tar.getmembers()
+                             if m.name.endswith(".jpg")}
+            self.images = None
+        else:
+            n = 1000 if mode == "train" else 200
+            self.images, self.labels = _synthetic_images(n, (3, 64, 64), 102, seed=11)
+
+    def _load_image(self, i):
+        import io
+
+        from PIL import Image
+
+        member = self._members[f"jpg/image_{int(self._ids[i]):05d}.jpg"]
+        img = Image.open(io.BytesIO(self._tar.extractfile(member).read())).convert("RGB")
+        return img if self.backend == "pil" else np.asarray(img)
+
+    def __getitem__(self, i):
+        img = self._load_image(i) if self._tar is not None else self.images[i]
+        label = np.array([self.labels[i]]).astype(np.int64)
+        if self.transform is not None:
+            img = self.transform(img)
+        return img, label
+
+    def __len__(self):
+        return len(self.labels)

@@ -40,7 +40,11 @@ wide; the AMP loop (O2 bf16, O1, O2 fp16 with a skipped step) through
 the kernels against its plain versions; an ERNIE TrainStep through the
 fused optimizer against its plain version, bit for bit; and the vision
 path: f32 convolutions in full f32 (with a TF32 control), bf16 batch norm
-against the CPU's bits, and two resnet18 TrainStep calls.
+against the CPU's bits, and two resnet18 TrainStep calls; and the
+high-level API: an epoch of the device loader (0 and 4 workers) bit for
+bit against the CPU loader, a worker's exception raised in the consumer,
+and LeNet's ``Model.fit`` on the card against the CPU with the fused
+optimizer once a step.
 """
 
 import contextlib
@@ -1802,3 +1806,17 @@ def test_resnet18_train_step_on_the_card(dev):
     stats = cs.bn_buffers(model)
     assert len(stats) == 40 and all(bool(torch.isfinite(t).all()) for t in stats)
     assert all(not torch.equal(m, torch.zeros_like(m)) for m in stats[0::2])
+
+
+def test_device_loader_equals_the_cpu_loader(dev):
+    import chip_smoke as cs
+
+    seconds = cs.loader_bits(0)
+    assert set(seconds) == {"cpu_workers_0", "cuda_workers_0", f"cuda_workers_{cs.FLOWERS_WORKERS}"}
+
+
+def test_model_fit_on_the_card(dev):
+    import chip_smoke as cs
+
+    got = cs.hapi_card_vs_cpu(0)
+    assert got["launches"] == cs.HAPI_CHECK_STEPS and got["max_rel_diff"] <= got["limit"]

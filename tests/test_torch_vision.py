@@ -61,6 +61,7 @@ from paddle_tpu import vision as rvision
 from paddle_tpu.io import DataLoader
 from paddle_tpu.nn import functional as RF
 from paddle_tpu_torch import amp as pamp
+from paddle_tpu_torch import io as pio
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch import vision as pvision
 from paddle_tpu_torch.jit import EvalStep, TrainStep
@@ -327,7 +328,7 @@ def test_lenet_learns_the_synthetic_mnist():
     model = pvision.LeNet(device="cpu", generator=gen)
     step = TrainStep(model, Adam(3e-3, parameters=model.parameters()),
                      lambda x, y: PF.cross_entropy(model(x), y))
-    loader = torch.utils.data.DataLoader(ds, batch_size=64, shuffle=True, generator=gen)
+    loader = pio.DataLoader(ds, batch_size=64, shuffle=True, generator=gen, device="cpu")
     batches = iter(loader)
     losses = [float(step(*next(batches))) for _ in range(50)]
     assert losses[-1] < 0.8 * losses[0], losses
