@@ -297,7 +297,28 @@ Phases, each printing one line of numbers:
    batches already on the card; (21d) an epoch of the device loader with
    0 and 4 workers equal to the CPU loader's bit for bit, and an
    exception in a worker raised in the consumer; (21e) ``Model.save`` on
-   the card and ``Model.load`` into a fresh model: equal logits.
+   the card and ``Model.load`` into a fresh model: equal logits;
+22. a Mixture-of-Experts Llama at Mixtral-8x7B's widths (vocab 32000,
+   hidden 4096, FFN 14336, 32 / 8 heads, 8 experts, top-2, GShard routing
+   with capacity factor 1.5) through ``distributed.fleet.MoELayer``: (22b)
+   2 layers at seq 2048, each MoE layer on its own input through dense and
+   sort dispatch (truncation decisions, combine weights, aux losses and two
+   sort runs bit for bit in bf16; outputs and gradients in f32 within
+   MOE_PATH_F32_FRAC), phase 6's kernels-against-plain step check with the
+   routers' aux losses, and a 1-layer f32 MoE Llama at small widths on the
+   card against the CPU; (22a) 4 layers, batch 1 x 4096, bf16, phase 7's
+   AdamW and clip in ``TrainStep``, the loss with 0.02 times the aux
+   losses, 2 warm-up and 6 timed steps: step ms, tokens/s, the share of the
+   bf16 peak counting active parameters, peak memory, exact launches, one
+   profiled step's busy share and device ms by kind (expert GEMMs, the
+   dispatch and combine products, routing, flash, RMSNorm, the optimizer,
+   cross entropy), the dispatch the measured policy chose with its probe's
+   two times; (22c) step 1's gradients under ``recompute_policy``
+   ``every_layer`` and ``selective`` against ``none`` (bit for bit, or the
+   largest difference), then each policy's step ms and peak memory; (22d)
+   ``bench.py``'s MoE step (``MoELayer`` alone, T 16384, d 1024, dh 2816,
+   8 experts, SGD) under the policy, sort and dense, round-robin best of
+   2: tokens/s, dense over sort, the policy's efficiency.
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -321,7 +342,9 @@ first 50 and phase 21's fits (21a's two epochs, 21b's card steps, 21c's
 epoch), with its numbers from phase 17,
 and in its master mode from phase 18's O2 steps and phase 19e's, with its
 numbers from 18d; flash and
-RMSNorm also count phase 18's timed steps), and last ``{"ok": true,
+RMSNorm also count phase 18's timed steps, flash, RMSNorm's ``round_first``
+mode and the fused optimizer phase 22a's timed steps, the optimizer 22d's
+steps too), and last ``{"ok": true,
 "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
@@ -3517,7 +3540,8 @@ def zero_counts(counters: dict):
 
 
 def expected_launches(layers: int, int8: bool = False, ring: int = 0,
-                      f32: bool = False, traced: bool = True, amp: str | None = None) -> dict:
+                      f32: bool = False, traced: bool = True, amp: str | None = None,
+                      moe: bool = False, recompute: bool = False) -> dict:
     """Per training step: flash forward and backward once per layer (with
     a ring of P ranks, P times each and the merge P - 1 times, one ring
     call a layer), all on flash's f32 route in f32, else all on its wgmma
@@ -3526,7 +3550,11 @@ def expected_launches(layers: int, int8: bool = False, ring: int = 0,
     tensor-core forward and dX once per projection (7 per layer), and never
     the weight stream; a TrainStep's AdamW one fused optimizer launch for
     every MAX_TENSORS trainable tensors (9 a layer, the embedding, the final
-    norm and the head; with int8-frozen projections 2 a layer and those 3).
+    norm and the head; with int8-frozen projections 2 a layer and those 3;
+    an MoE decoder 10 a layer: the router and three stacked expert weights
+    in place of three projections). ``recompute``: every decoder layer is
+    recomputed in the backward (phase 22c's policies), so flash's forward
+    and the layers' two RMSNorm forwards run twice.
     ``traced``: the step is a TrainStep (RMSNorm in its round_first mode,
     the optimizer's update), not an eager forward and backward. ``amp``
     ("O1" or "O2"): an eager step of the AMP loop under ``auto_cast``
@@ -3537,20 +3565,21 @@ def expected_launches(layers: int, int8: bool = False, ring: int = 0,
     from paddle_tpu_torch.ops.fused_optimizer import MAX_TENSORS
 
     proj = 7 * layers if int8 else 0
-    tensors = (2 if int8 else 9) * layers + 3
-    flash = layers * max(ring, 1)
+    tensors = (2 if int8 else 10 if moe else 9) * layers + 3
+    runs = 2 if recompute else 1
+    flash = {"fwd": layers * max(ring, 1) * runs, "bwd": layers * max(ring, 1)}
     route = "f32" if f32 else "wgmma"
-    norms = 2 * layers + 1
+    norms = {"fwd": 2 * layers * runs + 1, "bwd_dx": 2 * layers + 1}
     norm_dtype = "float32" if f32 or amp else "bfloat16"
     updates = math.ceil(tensors / MAX_TENSORS) if traced or amp else 0
-    return {**{f"flash_{r}_{d}": flash if r == route else 0
+    return {**{f"flash_{r}_{d}": flash[d] if r == route else 0
                for r in ROUTES for d in ("fwd", "bwd")},
-            "rms_norm_fwd": norms, "rms_norm_bwd_dx": norms,
+            "rms_norm_fwd": norms["fwd"], "rms_norm_bwd_dx": norms["bwd_dx"],
             # a TrainStep runs the composed form's rounding (a traced call);
             # an eager forward and backward the fused one
-            **{f"rms_norm_{d}_{mode}": norms * (traced == (mode == "round_first"))
+            **{f"rms_norm_{d}_{mode}": norms[d] * (traced == (mode == "round_first"))
                for d in ("fwd", "bwd_dx") for mode in ("fused", "round_first")},
-            **{f"rms_norm_{d}_{dt}": norms * (dt == norm_dtype)
+            **{f"rms_norm_{d}_{dt}": norms[d] * (dt == norm_dtype)
                for d in ("fwd", "bwd_dx") for dt in ("float32", "bfloat16")},
             "int8_matmul": 0, "int8_matmul_large_m": proj, "int8_matmul_dx": proj,
             "int8_prepass": proj, "ring_merge": layers * max(ring - 1, 0),
@@ -3625,14 +3654,53 @@ def token_batch(rng, seq: int, vocab: int):
     return toks[:, :-1], toks[:, 1:]
 
 
-def make_train_step(model):
+@contextlib.contextmanager
+def moe_routing(model, logits: dict, flips: dict | None = None):
+    """Record each MoE layer's router logits into ``logits`` (``flips``
+    None), or route each layer from the recorded ones: the router's output
+    takes the recorded values (exactly: the difference is added in f32) and
+    keeps its own gradient; ``flips`` gets, per layer, the tokens whose
+    top-k experts from the model's own logits differ from the recorded
+    logits' choice."""
+    from paddle_tpu_torch.distributed.fleet import moe as M
+
+    def hook(mod, inp, out, i, k):
+        if flips is None:
+            logits[i] = out.detach()
+            return None
+        rec = logits[i]
+        flips[i] = int((M.topk_routing(out.detach(), k)[0]
+                        != M.topk_routing(rec, k)[0]).any(0).sum())
+        return (out.float() + (rec.float() - out.detach().float())).to(out.dtype)
+
+    hooks = [lyr.mlp.gate.register_forward_hook(
+        lambda mod, inp, out, i=i, k=lyr.mlp.top_k: hook(mod, inp, out, i, k))
+        for i, lyr in enumerate(model.llama.layers)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def llama_loss(model, ids, labels, aux: float = 0.0):
+    """The model's mean cross entropy, plus ``aux`` times the sum of the
+    decoder layers' MoE load-balance losses where ``aux`` is given."""
+    loss = model(ids, labels=labels)[0]
+    if aux:
+        loss = loss + aux * sum(lyr.mlp.aux_loss for lyr in model.llama.layers)
+    return loss
+
+
+def make_train_step(model, aux: float = 0.0, recompute_policy: str | None = None):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
 
     opt = AdamW(LR, parameters=model.parameters(), weight_decay=0.1,
                 grad_clip=ClipGradByGlobalNorm(1.0))
-    return TrainStep(model, opt, lambda x, y: model(x, labels=y)[0])
+    return TrainStep(model, opt, lambda x, y: llama_loss(model, x, y, aux),
+                     recompute_policy=recompute_policy)
 
 
 def f32_matmuls() -> str:
@@ -3646,23 +3714,28 @@ def f32_matmuls() -> str:
     return prec
 
 
-def check_train_step(seed: int, int8: bool = False, f32: bool = False):
+def check_train_step(seed: int, int8: bool = False, f32: bool = False, moe: bool = False):
     """Phase 6 (phase 9 with ``int8``: every projection int8-frozen; phase 14
-    with ``f32``: the model at its default f32, flash on its f32 route): the
-    same 2-layer model and batch through the kernels and through the plain
-    versions. In f32 the plain path runs once more with its flash in TF32,
-    a control that the gradient limit must fail."""
+    with ``f32``: the model at its default f32, flash on its f32 route;
+    phase 22b with ``moe``: Mixtral-8x7B's widths, the loss with the
+    routers' aux losses): the same 2-layer model and batch through the
+    kernels and through the plain versions. In f32 the plain path runs
+    once more with its flash in TF32, a control that the gradient limit
+    must fail."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
-    phase = "int8-step-check" if int8 else "f32-step-check" if f32 else "train-step-check"
+    phase = ("int8-step-check" if int8 else "f32-step-check" if f32 else
+             "moe-step-check" if moe else "train-step-check")
     loss_tol, grad_tol = (F32_STEP_LOSS_RTOL, F32_STEP_GRAD_FRAC) if f32 else (
         STEP_LOSS_RTOL, STEP_GRAD_FRAC)
     dtype = torch.float32 if f32 else torch.bfloat16
     extra = {"f32_matmul_precision": f32_matmuls()} if f32 else {}
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=CHECK_LAYERS)
+    aux = MOE_AUX_COEF if moe else 0.0
+    cfg = (mixtral_config(CHECK_LAYERS) if moe else
+           LlamaConfig.llama3_8b(num_hidden_layers=CHECK_LAYERS))
     kern = LlamaForCausalLM(cfg, device="cuda", dtype=dtype, seed=seed)
     plain = LlamaForCausalLM(cfg, device="cuda", dtype=dtype, seed=seed + 1)
     if int8:
@@ -3672,16 +3745,26 @@ def check_train_step(seed: int, int8: bool = False, f32: bool = False):
     ids, labels = token_batch(np.random.RandomState(seed + 2), CHECK_SEQ, cfg.vocab_size)
     counters = training_counters()
     results = {}
+    # an MoE model's plain path routes from the kernel path's logits (see
+    # moe_routing): rounding would otherwise move a token near a tie to
+    # another expert, a discrete change no rounding limit describes
+    logits, flips = {"eager": {}, "step": {}}, {"eager": {}, "step": {}}
+
+    def routed(name, model, kind):
+        if not moe:
+            return contextlib.nullcontext()
+        return moe_routing(model, logits[kind], None if name == "kernel" else flips[kind])
+
     runs = (("kernel", kern), ("plain", plain)) + ((("tf32_control", plain),) if f32 else ())
     for name, model in runs:
         before = read_counts(counters)
         with (plain_kernels(tf32_flash=name == "tf32_control") if name != "kernel"
-              else contextlib.nullcontext()):
-            loss, _ = model(ids, labels=labels)
+              else contextlib.nullcontext()), routed(name, model, "eager"):
+            loss = llama_loss(model, ids, labels, aux)
             loss.backward()
         torch.cuda.synchronize()
         launched = {k: n - before[k] for k, n in read_counts(counters).items()}
-        want = (expected_launches(CHECK_LAYERS, int8, f32=f32, traced=False)
+        want = (expected_launches(CHECK_LAYERS, int8, f32=f32, traced=False, moe=moe)
                 if name == "kernel" else dict.fromkeys(counters, 0))
         if launched != want:
             raise AssertionError(f"{name} path launched {launched}, expected {want}")
@@ -3717,8 +3800,9 @@ def check_train_step(seed: int, int8: bool = False, f32: bool = False):
     del grads_k, grads_p, results
     steps, losses = {}, {}
     for name, model in (("kernel", kern), ("plain", plain)):
-        steps[name] = make_train_step(model)
-        with plain_kernels() if name == "plain" else contextlib.nullcontext():
+        steps[name] = make_train_step(model, aux)
+        with (plain_kernels() if name == "plain" else contextlib.nullcontext()), \
+                routed(name, model, "step"):
             losses[name] = steps[name](ids, labels).item()
     torch.cuda.synchronize()
     if not abs(losses["kernel"] - losses["plain"]) <= loss_tol * abs(losses["plain"]):
@@ -3741,7 +3825,7 @@ def check_train_step(seed: int, int8: bool = False, f32: bool = False):
         worst_grad_frac=worst[0], worst_grad=worst[1], grad_tol=grad_tol,
         trainstep_loss_kernel=losses["kernel"], trainstep_loss_plain=losses["plain"],
         worst_m_frac=moment_worst["m"], m_tol=tols["m"], worst_v_frac=moment_worst["v"],
-        v_tol=tols["v"])
+        v_tol=tols["v"], **({"tokens_routed_otherwise_unpinned": flips} if moe else {}))
     del kern, plain, steps
     torch.cuda.empty_cache()
 
@@ -5899,6 +5983,611 @@ def hapi(seed: int, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: a Mixture-of-Experts Llama at Mixtral-8x7B's widths
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1 config.json,
+# arXiv 2401.04088): 8 experts, top-2. The router is GShard's top-2 (a
+# softmax over every expert, the pair renormalised), Mixtral's router, but
+# each expert's buffer is bounded at capacity factor 1.5 (the reference's
+# default) where Mixtral drops no token. Depth is cut from 32 to MOE_LAYERS
+# (6.07e9 parameters: bf16 parameters, gradients and AdamW moments fit one
+# card), batch 1 x MOE_SEQ.
+MIXTRAL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+               num_attention_heads=32, num_key_value_heads=8, max_position_embeddings=32768,
+               rms_norm_eps=1e-5, rope_theta=1e6, tie_word_embeddings=False,
+               moe_num_experts=8, moe_top_k=2, moe_capacity_factor=1.5)
+MOE_LAYERS = 4
+MOE_SEQ = 4096
+MOE_WARMUP, MOE_STEPS = 2, 6
+# 22c: one warm-up and MOE_POLICY_STEPS timed steps under each other policy
+MOE_POLICY_STEPS = 3
+MOE_POLICIES = ("none", "every_layer", "selective")
+# Mixtral's router_aux_loss_coef: the loss is the cross entropy plus this
+# times the sum of the layers' load-balance losses
+MOE_AUX_COEF = 0.02
+# 22b, dense against sort dispatch: each MoE layer of a 2-layer model on
+# its own input from one forward, with one seeded gradient of its output.
+# Both formulations route from the same f32 logits by the same argmax and
+# cumulative sums, so their truncation decisions, combine weights and aux
+# losses are held bit for bit, in bf16; two bf16 sort runs too (each
+# token's two bf16 addends onto zero commute, whatever order the
+# scatter-add takes). Their values differ by rounding: in bf16 the
+# combine's (dense sums a token's two products in f32 and rounds once, sort
+# rounds each product and adds them) and the router gradient's (dense
+# reduces over the hidden axis in f32 inside a GEMM, sort rounds each
+# product to bf16 first, and the pair's renormalisation subtracts two such
+# sums), so bf16 is printed, not held. The layer cast to f32 (TF32 off)
+# differs by summation order alone: its output and the gradients of x, the
+# router and the three expert weights are held within MOE_PATH_F32_FRAC of
+# each tensor's largest magnitude, the limit phase 14 holds f32 gradients to.
+MOE_PATH_F32_FRAC = F32_STEP_GRAD_FRAC
+# 22b, the card against the CPU in f32 (TF32 off), 1 layer at small widths
+# (head_dim 64): step 1's loss and every gradient within phase 14's
+# F32_STEP_LOSS_RTOL and F32_STEP_GRAD_FRAC (flash's f32 route, ~1e-5 of a
+# tile's norm, and RMSNorm's summation order are the only differences),
+# then MOE_F32_STEPS TrainStep losses within MOE_F32_TRAJ_RTOL: AdamW turns
+# a gradient difference near zero into up to a whole step (lr 3e-4) on the
+# few elements that have one
+MOE_F32_CFG = dict(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                   num_hidden_layers=1, num_attention_heads=4, num_key_value_heads=2,
+                   moe_num_experts=4)
+MOE_F32_SEQ, MOE_F32_STEPS = 256, 3
+MOE_F32_TRAJ_RTOL = 1e-4
+# 22d, bench.py's moe_bench on the card: MoELayer alone (capacity factor
+# 1.25, its default), top-2, bf16, SGD(1e-3) through TrainStep, loss
+# mean(out) + aux_loss; T tokens, widths d / dh, E experts, steps a timed pass
+MOE_BENCH = dict(T=16384, d=1024, dh=2816, E=8, steps=8)
+MOE_BENCH_TENSORS = 4
+
+
+def mixtral_config(layers: int):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(num_hidden_layers=layers, **MIXTRAL)
+
+
+def moe_active_params(cfg) -> int:
+    """Parameters a token runs through, the embedding left out: attention,
+    the router, top_k of the E experts and the head."""
+    h = cfg.hidden_size
+    kv = cfg.num_key_value_heads * (h // cfg.num_attention_heads)
+    layer = (2 * h * h + 2 * h * kv + h * cfg.moe_num_experts
+             + 3 * h * cfg.intermediate_size * cfg.moe_top_k)
+    return cfg.num_hidden_layers * layer + h * cfg.vocab_size
+
+
+def moe_key(mlp, tokens: int, dtype) -> tuple:
+    """The dispatch policy's cache key of an MoE layer's call on ``tokens``."""
+    from paddle_tpu_torch.dtype import dtype_name
+
+    return (tokens, mlp.num_experts, mlp.capacity(tokens), mlp.d_model, dtype_name(dtype),
+            mlp.d_hidden, mlp.top_k)
+
+
+def moe_policy_line(key: tuple) -> dict:
+    """The policy's choice for ``key`` and its probe's times."""
+    from paddle_tpu_torch.distributed.fleet import moe as M
+
+    times = M._PROBE_TIMES.get(key, {})
+    return {"dispatch": M._DISPATCH_CHOICE.get(key, "not chosen"),
+            "probe_dense_ms": round(1e3 * times["dense_s"], 3) if "dense_s" in times else
+            "not measured", "probe_sort_ms": round(1e3 * times["sort_s"], 3)
+            if "sort_s" in times else "not measured"}
+
+
+def moe_decisions(mlp, x) -> dict:
+    """The dense and the sort formulations' truncation decisions and
+    combine weights from one MoE layer's logits on its input ``x``, held
+    bit for bit; returns the share of choices dropped."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet import moe as M
+
+    with torch.no_grad():
+        x2 = x.reshape(-1, x.shape[-1])
+        logits = mlp.gate(x2)
+        T, E, C = x2.shape[0], mlp.num_experts, mlp.capacity(x2.shape[0])
+        combine, dispatch, _ = (M.top1_gating if mlp.top_k == 1 else M.top2_gating)(logits, C)
+        ids, gates, _ = M.topk_routing(logits, mlp.top_k)
+        order, se, stok, cpos, valid = M.sort_slots(ids, E, C)
+        kept = torch.zeros_like(dispatch)
+        kept[stok[valid], se[valid], cpos[valid]] = True
+        if not torch.equal(kept, dispatch):
+            raise AssertionError(f"dense and sort dispatch keep different slots: "
+                                 f"{int((kept != dispatch).sum())} of {dispatch.numel()}")
+        sg = M.sort_gates(gates, order, valid)
+        if not torch.equal(combine[stok[valid], se[valid], cpos[valid]], sg[valid]):
+            raise AssertionError("dense and sort dispatch combine with different weights")
+    return {"dropped_share": round(1.0 - valid.float().mean().item(), 5), "capacity": C}
+
+
+# the tensors held in 22b: the layer's input and its four parameters
+MOE_GRADS = ("x", "gate.gate.weight", "w_up", "w_gate", "w_down")
+
+
+def moe_paths(mlp, x, g_out) -> dict:
+    """One MoE layer on ``x`` with the output's gradient ``g_out`` (and 1
+    for its aux loss) through dense dispatch and twice through sort:
+    ``{path: (out, aux, [grad of x, router, w_up, w_gate, w_down])}``."""
+    import torch
+
+    params = dict(mlp.named_parameters())
+    runs = {}
+    for name in ("dense", "sort", "sort_again"):
+        mlp.dispatch = name.removesuffix("_again")
+        xi = x.clone().requires_grad_(True)
+        out = mlp(xi)
+        torch.autograd.backward([out, mlp.aux_loss], [g_out, torch.ones_like(mlp.aux_loss)])
+        runs[name] = (out.detach(), mlp.aux_loss.detach(),
+                      [xi.grad] + [params[n].grad for n in MOE_GRADS[1:]])
+        mlp.zero_grad(set_to_none=True)
+    mlp.dispatch = None
+    torch.cuda.synchronize()
+    return runs
+
+
+def path_fracs(runs) -> dict:
+    """Sort against dense: each tensor's largest difference over its
+    largest magnitude."""
+    (out_d, _, grads_d), (out_s, _, grads_s) = runs["dense"], runs["sort"]
+    return {n: ((got.float() - want.float()).abs().max()
+                / want.float().abs().max().clamp_min(1e-30)).item()
+            for n, got, want in zip(("out",) + MOE_GRADS, [out_s] + grads_s, [out_d] + grads_d)}
+
+
+def moe_dispatch_check(seed: int, cfg=None, seq: int = CHECK_SEQ,
+                       phase: str = "moe-dispatch-check") -> dict:
+    """Phase 22b: a model at Mixtral's widths (CHECK_LAYERS layers by
+    default) runs one forward on seeded tokens; each MoE layer then runs on
+    its own input through :func:`moe_paths`, in bf16 and cast to f32:
+    decisions and combine weights from one set of logits
+    (:func:`moe_decisions`), the aux losses and the two sort runs bit for
+    bit in bf16, the f32 outputs and gradients within MOE_PATH_F32_FRAC."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    precision = f32_matmuls()
+    cfg = cfg or mixtral_config(CHECK_LAYERS)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    ids, _ = token_batch(np.random.RandomState(seed + 2), seq, cfg.vocab_size)
+    mlps = [lyr.mlp for lyr in model.llama.layers]
+    inputs = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, inp, i=i: inputs.__setitem__(i, inp[0]))
+             for i, m in enumerate(mlps)]
+    for m in mlps:
+        m.dispatch = "dense"
+    try:
+        with torch.no_grad():
+            model(ids)
+    finally:
+        for h in hooks:
+            h.remove()
+        for m in mlps:
+            m.dispatch = None
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 4)
+    worst = {"bf16": (0.0, ""), "f32": (0.0, "")}
+    decisions = []
+    for i, mlp in enumerate(mlps):
+        x = inputs[i]
+        decisions.append(moe_decisions(mlp, x))
+        g_out = torch.randn(x.shape, generator=gen, device="cuda")
+        runs = moe_paths(mlp, x, g_out.to(x.dtype))
+        (_, aux_d, _), (out_s, aux_s, grads_s) = runs["dense"], runs["sort"]
+        out_a, _, grads_a = runs["sort_again"]
+        if not torch.equal(aux_d, aux_s):
+            raise AssertionError(f"layer {i}: aux losses differ: dense {aux_d}, sort {aux_s}")
+        if not (torch.equal(out_a, out_s) and all(map(torch.equal, grads_a, grads_s))):
+            raise AssertionError(f"layer {i}: two sort-dispatch runs differ")
+        worst["bf16"] = max([worst["bf16"]] + [(f, f"layer {i} {n}")
+                                               for n, f in path_fracs(runs).items()])
+        del runs
+        mlp.aux_loss = None
+        m32 = copy.deepcopy(mlp).float()
+        for n, f in path_fracs(moe_paths(m32, x.float(), g_out)).items():
+            worst["f32"] = max(worst["f32"], (f, f"layer {i} {n}"))
+            if not (math.isfinite(f) and f <= MOE_PATH_F32_FRAC):
+                raise AssertionError(f"layer {i} {n} in f32: sort and dense differ by {f} of "
+                                     f"its largest magnitude (tol {MOE_PATH_F32_FRAC})")
+        del m32
+    out = {"layers": cfg.num_hidden_layers, "seq": seq, "f32_matmul_precision": precision,
+           "decisions_bit_for_bit": True, "aux_bit_for_bit": True,
+           "sort_twice_bit_for_bit": True,
+           "dropped_share": [d["dropped_share"] for d in decisions],
+           "capacity": decisions[0]["capacity"], "f32_worst_frac": worst["f32"][0],
+           "f32_worst": worst["f32"][1], "f32_tol": MOE_PATH_F32_FRAC,
+           "bf16_worst_frac": worst["bf16"][0], "bf16_worst": worst["bf16"][1]}
+    say(phase, **out)
+    del model, inputs
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_card_vs_cpu(seed: int, phase: str = "moe-card-vs-cpu") -> dict:
+    """Phase 22b: a 1-layer MoE Llama at MOE_F32_CFG's widths in f32 (TF32
+    off) on the card and on the CPU from one state: step 1's loss and every
+    gradient, then MOE_F32_STEPS TrainStep losses, within the limits above;
+    the card's launches exact (flash on its f32 route, RMSNorm, the
+    optimizer once a step)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    precision = f32_matmuls()
+    cfg = LlamaConfig.tiny(**MOE_F32_CFG)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    card = LlamaForCausalLM(cfg, device="cuda", seed=seed + 1)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(seed + 2)
+    toks = [torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, MOE_F32_SEQ + 1)))
+            for _ in range(MOE_F32_STEPS)]
+    counters = training_counters()
+    per_call = expected_launches(cfg.num_hidden_layers, f32=True, moe=True)
+    runs = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        batches = [(t[:, :-1].to(dev), t[:, 1:].to(dev)) for t in toks]
+        step = make_train_step(model, MOE_AUX_COEF)
+        zero_counts(counters)
+        loss1, grads = step._loss_and_grads(step._params(), batches[0])
+        losses = [step(*b).item() for b in batches]
+        counts = read_counts(counters)
+        calls = MOE_F32_STEPS + 1
+        want = ({k: v * (MOE_F32_STEPS if k.startswith("multi_tensor") else calls)
+                 for k, v in per_call.items()} if dev == "cuda"
+                else dict.fromkeys(counters, 0))
+        if counts != want:
+            raise AssertionError(f"{phase} on the {name} launched {counts}, expected {want}")
+        runs[name] = (loss1.item(), {n: g.cpu() for (n, _), g in zip(step._params(), grads)},
+                      losses)
+    (loss_c, grads_c, traj_c), (loss_g, grads_g, traj_g) = runs["cpu"], runs["card"]
+    worst = max((((grads_g[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item(), n)
+                for n, g in grads_c.items())
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    traj_rel = max(abs(a - b) / abs(b) for a, b in zip(traj_g, traj_c))
+    if not (loss_rel <= F32_STEP_LOSS_RTOL and worst[0] <= F32_STEP_GRAD_FRAC
+            and traj_rel <= MOE_F32_TRAJ_RTOL):
+        raise AssertionError(f"{phase}: loss {loss_rel} (tol {F32_STEP_LOSS_RTOL}), gradient "
+                             f"{worst} (tol {F32_STEP_GRAD_FRAC}), trajectory {traj_rel} "
+                             f"(tol {MOE_F32_TRAJ_RTOL})")
+    out = {"f32_matmul_precision": precision, "loss_rel_diff": loss_rel,
+           "loss_tol": F32_STEP_LOSS_RTOL, "worst_grad_frac": worst[0], "worst_grad": worst[1],
+           "grad_tol": F32_STEP_GRAD_FRAC, "trajectory_card": traj_g, "trajectory_cpu": traj_c,
+           "trajectory_rel_diff": traj_rel, "trajectory_tol": MOE_F32_TRAJ_RTOL}
+    say(phase, **out)
+    return out
+
+
+# the device ms of an MoE step by kind: the hand-written kernels by name,
+# the others by the aten operation that launched them
+MOE_KINDS = (("flash attention (port)", ("flash_", "split_kernel")),
+             ("rms norm (port)", ("rms_fwd_kernel", "rms_bwd_dx_kernel")),
+             ("fused optimizer (port)", ("multi_tensor_update_kernel",)))
+MOE_SCATTER_OPS = ("aten::index", "aten::index_put_", "aten::_index_put_impl_",
+                   "aten::index_add", "aten::index_add_", "aten::index_select", "aten::gather")
+MOE_ROUTING_OPS = ("aten::sort", "aten::bincount", "aten::cumsum", "aten::argmax",
+                   "aten::_softmax", "aten::_softmax_backward_data")
+MOE_CLIP_OPS = ("aten::linalg_vector_norm", "aten::norm")
+
+
+def moe_kind(op: str, shapes, kernel: str, E: int, C: int) -> str:
+    low = kernel.lower()
+    for kind, subs in MOE_KINDS:
+        if any(sub in low for sub in subs):
+            return kind
+    shapes = [s for s in shapes or () if isinstance(s, (list, tuple)) and s]
+    dims = {d for s in shapes for d in s}
+    if op in ("aten::bmm", "aten::baddbmm"):
+        return "expert GEMMs (cuBLAS)"
+    if op in ("aten::mm", "aten::addmm"):
+        return ("dispatch and combine products (cuBLAS)" if E * C in dims
+                else "projection and head GEMMs (cuBLAS)")
+    if "log_softmax" in op or "nll_loss" in op or "cross_entropy" in op:
+        return "cross entropy"
+    if op in MOE_CLIP_OPS:
+        return "global-norm clip (norms)"
+    if op in MOE_SCATTER_OPS:
+        return "dispatch and combine scatters (sort)"
+    if op in MOE_ROUTING_OPS or any(s[-1] in (E, C) for s in shapes) or E * C in dims:
+        return "routing elementwise"
+    return "other"
+
+
+def moe_device_ms(prof, E: int, C: int) -> tuple[dict, dict]:
+    """Device ms by kind (:func:`moe_kind`) of a profiled MoE step
+    (``record_shapes=True``): each kernel under the operation whose
+    correlation launched it; kernels no operation launched (the hand
+    kernels' ctypes launches) by their names. Also the device ms of the
+    kind "other" by operation, the largest first."""
+    import torch
+
+    out: dict = {}
+    attached: dict = {}
+    other: dict = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in ev.kernels:
+            attached[k.name] = attached.get(k.name, 0.0) + k.duration
+            kind = moe_kind(ev.name, ev.input_shapes, k.name, E, C)
+            out[kind] = out.get(kind, 0.0) + k.duration
+            if kind == "other":
+                other[ev.name] = other.get(ev.name, 0.0) + k.duration
+    per_kernel, _ = kernel_times(prof)
+    for name, us in per_kernel.items():
+        rest = us - attached.get(name, 0.0)
+        if rest > 0.0:
+            kind = moe_kind("", (), name, E, C)
+            out[kind] = out.get(kind, 0.0) + rest
+
+    def ms(d):
+        return {k: round(v / 1e3, 3) for k, v in sorted(d.items(), key=lambda kv: -kv[1])}
+
+    return ms(out), dict(list(ms(other).items())[:8])
+
+
+def moe_recompute_grads(model, batch) -> dict:
+    """Phase 22c's first part: step 1's loss and gradients under each
+    policy of MOE_POLICIES from one state and batch, each call's launches
+    exact (a recomputed layer runs flash's forward and its two RMSNorm
+    forwards twice), the memory its forward keeps for the backward, and
+    its peak above what was held before it (the gradients and what is
+    kept at once); each policy's against "none":
+    bit for bit, or the largest difference, held to phase 6's limits."""
+    import torch
+
+    counters = training_counters()
+    base, out = None, {}
+    for policy in MOE_POLICIES:
+        step = make_train_step(model, MOE_AUX_COEF, policy)
+        forward = step.loss_fn
+        kept = {}
+
+        def loss_fn(*b, forward=forward, kept=kept):
+            loss = forward(*b)
+            torch.cuda.synchronize()
+            kept["gib"] = (torch.cuda.memory_allocated() - held) / 2**30
+            return loss
+
+        step.loss_fn = loss_fn
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        loss, grads = step._loss_and_grads(step._params(), batch)
+        torch.cuda.synchronize()
+        above = (torch.cuda.max_memory_allocated() - held) / 2**30
+        mem = {"kept_for_backward_gib": round(kept["gib"], 3),
+               "peak_above_weights_gib": round(above, 3)}
+        want = expected_launches(len(model.llama.layers), moe=True, recompute=policy != "none")
+        want.update({k: 0 for k in want if k.startswith("multi_tensor_update")})
+        if read_counts(counters) != want:
+            raise AssertionError(f"policy {policy} launched {read_counts(counters)}, "
+                                 f"expected {want}")
+        if base is None:
+            base = (loss.item(), grads)
+            out[policy] = mem
+            continue
+        worst = (0.0, 0.0, "")
+        for (n, _), g, g0 in zip(step._params(), grads, base[1]):
+            d = (g.float() - g0.float()).abs().max().item()
+            worst = max(worst, (d / g0.float().abs().max().clamp_min(1e-30).item(), d, n))
+        bits = loss.item() == base[0] and all(torch.equal(g, g0) for g, g0 in
+                                              zip(grads, base[1]))
+        loss_rel = abs(loss.item() - base[0]) / abs(base[0])
+        if not (loss_rel <= STEP_LOSS_RTOL and worst[0] <= STEP_GRAD_FRAC):
+            raise AssertionError(f"policy {policy}: loss {loss_rel} from none's, gradient "
+                                 f"{worst}")
+        out[policy] = {**mem, "bit_for_bit": bits, "loss_rel_diff": loss_rel,
+                       "max_abs_grad_diff": worst[1], "worst_grad_frac": worst[0],
+                       "worst_grad": worst[2]}
+        del grads
+    del base
+    return out
+
+
+def moe_train(seed: int, smi: str) -> dict:
+    """Phases 22a and 22c: the Mixtral cell (MOE_LAYERS layers, batch 1 x
+    MOE_SEQ, bf16, AdamW with phase 7's clip in TrainStep): step 1's
+    gradients under each policy (:func:`moe_recompute_grads`), then
+    MOE_WARMUP warm-up and MOE_STEPS timed steps with no recompute (step ms,
+    tokens/s, the active-parameter FLOPs share of the bf16 peak, peak
+    memory, exact launches, one profiled step's busy share and device ms by
+    kind, the dispatch the policy chose with its probe's times), then one
+    warm-up and MOE_POLICY_STEPS timed steps under each other policy."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = mixtral_config(MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    torch.cuda.synchronize()
+    active = moe_active_params(cfg)
+    mlp = model.llama.layers[0].mlp
+    say("moe-train", card=repr(smi), layers=MOE_LAYERS, hidden=cfg.hidden_size,
+        ffn=cfg.intermediate_size, experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+        capacity_factor=cfg.moe_capacity_factor, capacity=mlp.capacity(MOE_SEQ), seq=MOE_SEQ,
+        params=model.num_params(), active_params=active,
+        model_init_s=round(time.perf_counter() - t0, 2))
+    rng = np.random.RandomState(seed + 3)
+    bits = moe_recompute_grads(model, token_batch(rng, MOE_SEQ, cfg.vocab_size))
+    policy = moe_policy_line(moe_key(mlp, MOE_SEQ, torch.bfloat16))
+    say("moe-dispatch", **policy)
+    for name, b in bits.items():
+        say("moe-recompute-grads", policy=name, **b)
+    counters = training_counters()
+    attn_flops = MOE_LAYERS * 3.5 * flash_counts(True, 1, MOE_SEQ, cfg.num_attention_heads,
+                                                 cfg.num_key_value_heads, 128)[2]
+    model_flops = 6 * active * MOE_SEQ + attn_flops
+    runs = {}
+    for name in MOE_POLICIES:
+        step = make_train_step(model, MOE_AUX_COEF, name)
+        warm, timed = (MOE_WARMUP, MOE_STEPS) if name == "none" else (1, MOE_POLICY_STEPS)
+        for _ in range(warm):
+            step(*token_batch(rng, MOE_SEQ, cfg.vocab_size))
+        per_step = expected_launches(MOE_LAYERS, moe=True, recompute=name != "none")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        losses, times = [], []
+        for _ in range(timed):
+            batch = token_batch(rng, MOE_SEQ, cfg.vocab_size)
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            loss = step(*batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - s0)
+            losses.append(loss.item())
+        counts = read_counts(counters)
+        want = {k: timed * v for k, v in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"moe-train ({name}) launched {counts}, expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"moe-train ({name}) losses are not finite: {losses}")
+        step_s = sum(times) / len(times)
+        runs[name] = {"step_ms": 1e3 * step_s, "launches": counts,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        say("moe-train", policy=name, step_ms=[round(1e3 * t, 3) for t in times],
+            step_ms_mean=round(1e3 * step_s, 3), losses=losses,
+            tokens_per_s=round(MOE_SEQ / step_s, 1),
+            model_tflop_per_step=round(model_flops / 1e12, 3),
+            bf16_peak_share=round(model_flops / step_s / BF16_FLOP_PER_S, 4),
+            max_memory_allocated_gib=round(runs[name]["peak_gib"], 3), launches=counts)
+        batch = token_batch(rng, MOE_SEQ, cfg.vocab_size)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            s0 = time.perf_counter()
+            step(*batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
+        per_kernel, ops = kernel_times(prof)
+        busy = sum(per_kernel.values()) / 1e6
+        kinds, other = moe_device_ms(prof, cfg.moe_num_experts, mlp.capacity(MOE_SEQ))
+        runs[name].update(device_busy_share=busy / wall if busy else None,
+                          device_ms_by_kind=kinds)
+        say("moe-train", policy=name, profiled_step_ms=round(1e3 * wall, 3),
+            device_busy_ms=round(1e3 * busy, 3),
+            device_busy_share=round(busy / wall, 4) if busy else "not measured",
+            device_ops=ops)
+        say("moe-train", policy=name, device_ms_by_kind=json.dumps(kinds),
+            other_ms_by_op=json.dumps(other))
+        if name == "none":
+            for kname, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
+                print(f"  moe-train top kernel: {us / 1e3:.4f} ms/step {kname[:90]}", flush=True)
+        del step
+        torch.cuda.empty_cache()
+    none = runs["none"]
+    for name in MOE_POLICIES[1:]:
+        say("moe-recompute", policy=name, step_ms=round(runs[name]["step_ms"], 3),
+            step_ms_ratio_to_none=round(runs[name]["step_ms"] / none["step_ms"], 4),
+            peak_gib=round(runs[name]["peak_gib"], 3), none_peak_gib=round(none["peak_gib"], 3),
+            kept_for_backward_gib=bits[name]["kept_for_backward_gib"],
+            none_kept_for_backward_gib=bits["none"]["kept_for_backward_gib"],
+            peak_above_weights_gib=bits[name]["peak_above_weights_gib"],
+            none_peak_above_weights_gib=bits["none"]["peak_above_weights_gib"],
+            busy_share=round(runs[name]["device_busy_share"] or 0.0, 4),
+            none_busy_share=round(none["device_busy_share"] or 0.0, 4))
+    del model
+    torch.cuda.empty_cache()
+    return {"runs": runs, "policy": policy, "recompute_grads": bits,
+            "bf16_peak_share": model_flops / (none["step_ms"] / 1e3) / BF16_FLOP_PER_S}
+
+
+def moe_bench(seed: int) -> dict:
+    """Phase 22d, ``bench.py``'s MoE step on the card: ``MoELayer`` alone at
+    MOE_BENCH's shape under the measured policy, sort and dense, each
+    warmed by 2 steps, then timed round-robin, best of 2 passes of
+    ``steps`` steps (a pass ends with a host read of the loss): tokens/s
+    under the policy, dense time over sort time, and the policy's
+    efficiency ``min(sort, dense) / auto``; the fused optimizer's SGD once
+    a step."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet import MoELayer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import SGD
+
+    T, d, dh, E, steps = (MOE_BENCH[k] for k in ("T", "d", "dh", "E", "steps"))
+    x = torch.from_numpy(np.random.RandomState(0).randn(T, d).astype(np.float32))
+    x = x.cuda().to(torch.bfloat16)
+    counters = training_counters()
+    zero_counts(counters)
+    layers = {}
+
+    def run(dispatch):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        moe = MoELayer(d, dh, E, top_k=2, dispatch=dispatch, device="cuda",
+                       dtype=torch.bfloat16, generator=gen)
+        layers[dispatch] = moe
+        step = TrainStep(moe, SGD(1e-3, parameters=moe.parameters()),
+                         lambda a: moe(a).float().mean() + moe.aux_loss)
+        for _ in range(2):
+            loss = step(x)
+        loss.item()
+
+        def timed_pass():
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                loss = step(x)
+            loss.item()
+            return (time.perf_counter() - t0) / steps
+
+        return timed_pass
+
+    modes = (None, "sort", "dense")
+    passes = {m: run(m) for m in modes}
+    times = dict.fromkeys(modes, float("inf"))
+    for _ in range(2):
+        for m in modes:
+            times[m] = min(times[m], passes[m]())
+    want = optimizer_launches(len(modes) * (2 + 2 * steps), tensors=MOE_BENCH_TENSORS)
+    counts = read_counts(counters)
+    if counts != want:
+        raise AssertionError(f"moe-bench launched {counts}, expected {want}")
+    t_auto, t_sort, t_dense = times[None], times["sort"], times["dense"]
+    policy = moe_policy_line(moe_key(layers[None], T, torch.bfloat16))
+    out = {"tokens": T, "d": d, "dh": dh, "experts": E, "capacity": layers[None].capacity(T),
+           **policy, "auto_ms": round(1e3 * t_auto, 3), "sort_ms": round(1e3 * t_sort, 3),
+           "dense_ms": round(1e3 * t_dense, 3), "tokens_per_s": round(T / t_auto, 1),
+           "dense_over_sort": round(t_dense / t_sort, 4),
+           "policy_efficiency": round(min(t_sort, t_dense) / t_auto, 4),
+           "launches": counts["multi_tensor_update"]}
+    say("moe-bench", **out)
+    del layers, passes
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe(seed: int, smi: str) -> dict:
+    """Phase 22: 22b the checks (dense against sort, kernels against plain,
+    the card against the CPU), 22a and 22c the Mixtral cell with and
+    without recompute, 22d bench.py's MoE step. Returns the launches of
+    22a's timed steps and 22d's optimizer launches."""
+    moe_dispatch_check(seed)
+    check_train_step(seed, moe=True)
+    moe_card_vs_cpu(seed)
+    trained = moe_train(seed, smi)
+    bench = moe_bench(seed)
+    none = trained["runs"]["none"]
+    say("moe", card=repr(smi), step_ms=round(none["step_ms"], 3),
+        tokens_per_s=round(MOE_SEQ / none["step_ms"] * 1e3, 1),
+        bf16_peak_share=round(trained["bf16_peak_share"], 4),
+        peak_gib=round(none["peak_gib"], 3), dispatch=trained["policy"]["dispatch"],
+        bench_tokens_per_s=bench["tokens_per_s"],
+        bench_policy_efficiency=bench["policy_efficiency"])
+    return {"train": none["launches"], "bench": bench["launches"]}
+
+
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
 
 
@@ -6186,6 +6875,8 @@ def main(argv=None) -> int:
     lap("20")
     hapi_launches = hapi(args.seed, smi)
     lap("21")
+    moe_launches = moe(args.seed, smi)
+    lap("22")
     amp_launches = {k: amp_o2["launches"][k] + amp_o1["launches"][k] for k in amp_o2["launches"]}
 
     kernels = [
@@ -6219,10 +6910,13 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": f"paddle_tpu/ops/pallas/{replaces}",
-            "launches": train_launches[wrapper] + amp_launches[wrapper], **nums})
+            "launches": (train_launches[wrapper] + amp_launches[wrapper]
+                         + moe_launches["train"][wrapper]), **nums})
         kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
-                              f"({TRAIN_LAYERS} layers) and the {TRAIN_STEPS} timed AMP steps "
-                              "of each level (phase 18, bf16)")
+                              f"({TRAIN_LAYERS} layers), the {TRAIN_STEPS} timed AMP steps "
+                              f"of each level (phase 18, bf16) and the {MOE_STEPS} timed steps "
+                              f"of the Mixtral cell (phase 22a, {MOE_LAYERS} layers, S "
+                              f"{MOE_SEQ})")
     for name, nums, launches in (
             ("rms_norm_fwd", norm_fwd, norm_launches["fwd"] + amp_launches["rms_norm_fwd_fused"]),
             ("rms_norm_bwd", norm_bwd,
@@ -6280,11 +6974,15 @@ def main(argv=None) -> int:
             ("int8_matmul_large_m_fp16", "quant_matmul.cu", "quant_matmul.py:117", fp16_layer,
              fp16_tc_launches, "phase 2's held calls (no serving path runs M > 64)"),
             ("rms_norm_fwd_round_first", "rms_norm.cu", "fused_norm.py:79", rms_rf[0],
-             train_launches["rms_norm_fwd_round_first"], f"the {TRAIN_STEPS} timed training "
-             "steps (TrainStep runs the composed form's rounding)"),
+             train_launches["rms_norm_fwd_round_first"]
+             + moe_launches["train"]["rms_norm_fwd_round_first"],
+             f"the {TRAIN_STEPS} timed training steps (TrainStep runs the composed form's "
+             f"rounding) and the {MOE_STEPS} timed steps of the Mixtral cell (phase 22a)"),
             ("rms_norm_bwd_round_first", "rms_norm.cu", "fused_norm.py:79", rms_rf[1],
-             train_launches["rms_norm_bwd_dx_round_first"],
-             f"the {TRAIN_STEPS} timed training steps"),
+             train_launches["rms_norm_bwd_dx_round_first"]
+             + moe_launches["train"]["rms_norm_bwd_dx_round_first"],
+             f"the {TRAIN_STEPS} timed training steps and the {MOE_STEPS} timed steps of the "
+             "Mixtral cell (phase 22a)"),
             ("flash_attention_fwd_wide", "flash_attention.cu", "flash_attention.py:112",
              wide_flash[0], wide_flash_launches,
              "nn.functional.flash_attention past 256 columns (no model path runs them)"),
@@ -6327,7 +7025,8 @@ def main(argv=None) -> int:
         "launches": (train_launches["multi_tensor_update"]
                      + amp_launches["multi_tensor_update_direct"] + ernie_launches["direct"]
                      + vision_launches["resnet50"] + vision_launches["lenet"]
-                     + sum(hapi_launches.values())),
+                     + sum(hapi_launches.values()) + moe_launches["train"]["multi_tensor_update"]
+                     + moe_launches["bench"]),
         **fused_opt})
     kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                           f"({TRAIN_LAYERS} layers, one AdamW update a step), the "
@@ -6343,7 +7042,11 @@ def main(argv=None) -> int:
                           f"({hapi_launches['quickstart']}), the {HAPI_CHECK_STEPS} card steps "
                           f"of 21b ({hapi_launches['check']}) and ResNet-50's Flowers epoch "
                           f"({hapi_launches['flowers']}: Momentum over {RESNET50_TENSORS} f32 "
-                          "tensors, two launches a step)")
+                          "tensors, two launches a step), and phase 22: the Mixtral cell's "
+                          f"{MOE_STEPS} timed steps ({moe_launches['train']['multi_tensor_update']}"
+                          f": AdamW over {10 * MOE_LAYERS + 3} bf16 tensors, one a step) and the "
+                          f"MoE bench's SGD steps ({moe_launches['bench']}: "
+                          f"{MOE_BENCH_TENSORS} tensors, one a step)")
     kernels.append({
         "name": "multi_tensor_update_master", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",

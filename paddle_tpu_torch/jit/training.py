@@ -17,6 +17,12 @@ the gradients of k calls are summed in f32 and the k-th call applies their
 mean; the calls in between leave the parameters, the step count and the
 learning rate alone.
 
+``recompute_policy`` ("none", "every_layer" or "selective", see
+``distributed.recompute``) recomputes every repeated block of the model
+in the backward: the loss runs inside ``remat_scope(model, policy)``. The
+policy is resolved at every call, as the reference's: the keyword, else
+``PADDLE_REMAT_POLICY``, else "none".
+
 PyTorch runs eagerly, so there is nothing to compile: ``donate`` means the
 parameters are updated in place, which they always are. A step runs as
 the port's counterpart of the reference's traced program
@@ -27,8 +33,11 @@ take the compiled steps'.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
+from ..distributed.recompute import remat_scope
 from ..nn.clip import clip_descriptor
 from ..ops import fused_optimizer
 from ..optimizer import fused_step
@@ -41,7 +50,6 @@ __all__ = ["TrainStep", "EvalStep"]
 _LATER = {"telemetry_export_every": "profiler.telemetry",
           "telemetry_logdir": "profiler.telemetry",
           "numerics": "profiler.numerics",
-          "recompute_policy": "autopilot (with distributed.recompute)",
           "offload_optimizer": "autopilot",
           "checkpoint_root": "distributed.checkpoint"}
 
@@ -65,7 +73,6 @@ class TrainStep:
                  checkpoint_root: str | None = None):
         for name, value in (("telemetry_export_every", telemetry_export_every),
                             ("telemetry_logdir", telemetry_logdir),
-                            ("recompute_policy", recompute_policy),
                             ("offload_optimizer", offload_optimizer),
                             ("checkpoint_root", checkpoint_root)):
             if value is not None:
@@ -76,6 +83,7 @@ class TrainStep:
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self._cast_fn = cast_fn  # stored and never read, as in the reference
+        self._ctor_policy = recompute_policy
         self._accum_k = int(accumulate_steps or 1)
         self._micro = 0
         self._acc = None
@@ -85,9 +93,15 @@ class TrainStep:
     def _params(self):
         return [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
 
+    def _policy(self) -> str:
+        """The recompute policy of the next call: the keyword, else
+        ``PADDLE_REMAT_POLICY``, else "none"."""
+        return self._ctor_policy or os.environ.get("PADDLE_REMAT_POLICY") or "none"
+
     def _loss_and_grads(self, params, batch):
         with traced():
-            loss = self.loss_fn(*batch).float()
+            with remat_scope(self.model, self._policy()):
+                loss = self.loss_fn(*batch).float()
             grads = torch.autograd.grad(loss, [p for _, p in params], allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for (_, p), g in zip(params, grads)]
         return loss.detach(), grads

@@ -1,4 +1,9 @@
-"""Weights carried from the reference into the port's models by key."""
+"""Weights carried from the reference into the port's models by key.
+
+The port's modules keep the reference's parameter names, so a key maps to
+the same key: ``llama.layers.N.self_attn.q_proj.weight``, an MoE decoder's
+``llama.layers.N.mlp.gate.gate.weight`` and ``mlp.{w_up,w_gate,w_down}``,
+ERNIE's heads, the vision models' convolutions and batch norms."""
 
 from __future__ import annotations
 

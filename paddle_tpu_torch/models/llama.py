@@ -6,8 +6,10 @@ Counterpart of ``paddle_tpu/models/llama.py``:
 - the training half (reference lines 94-285): ``LlamaAttention`` (GQA,
   RoPE, flash attention through the gate, or with
   ``context_parallel="ring"`` the ring over the mesh's ``sep`` axis),
-  ``LlamaMLP`` (SwiGLU),
-  ``LlamaDecoderLayer`` (pre-norm residual blocks, optional recompute),
+  ``LlamaMLP`` (SwiGLU) or, with ``moe_num_experts``, the
+  Mixture-of-Experts ``fleet.MoELayer``,
+  ``LlamaDecoderLayer`` (pre-norm residual blocks, optional recompute
+  through ``distributed.recompute``),
   ``LlamaModel`` and ``LlamaForCausalLM`` (untied or tied head, the
   cross-entropy loss), with the reference's parameter names, ``[in, out]``
   weight layout and initializers, trained by torch autograd;
@@ -26,12 +28,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from .. import random as R
 from ..amp import cast_inputs
 from ..device import resolve_device
+from ..distributed.fleet.moe import MoELayer
 from ..distributed.fleet.sequence_parallel import ring_context_attention
+from ..distributed.recompute import recompute
 from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..nn import functional as F
 from ..nn.functional.norm import rms_norm_composed
@@ -170,7 +173,12 @@ class LlamaDecoderLayer(nn.Module):
         super().__init__()
         mk = dict(device=device, dtype=dtype, generator=generator)
         self.self_attn = LlamaAttention(config, **mk)
-        self.mlp = LlamaMLP(config, **mk)
+        if config.moe_num_experts > 0:
+            self.mlp = MoELayer(config.hidden_size, config.intermediate_size,
+                                config.moe_num_experts, top_k=config.moe_top_k,
+                                capacity_factor=config.moe_capacity_factor, **mk)
+        else:
+            self.mlp = LlamaMLP(config, **mk)
         self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                                        device=device, dtype=dtype)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
@@ -188,10 +196,9 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, hidden_states, attention_mask=None, position_ids=None):
         """With ``config.recompute`` in training, the block's activations
-        are recomputed in the backward (``torch.utils.checkpoint``)."""
+        are recomputed in the backward (``distributed.recompute``)."""
         if self._recompute and self.training:
-            return checkpoint(self._inner, hidden_states, attention_mask, position_ids,
-                              use_reentrant=False)
+            return recompute(self._inner, hidden_states, attention_mask, position_ids)
         return self._inner(hidden_states, attention_mask, position_ids)
 
 
@@ -218,7 +225,9 @@ class LlamaForCausalLM(nn.Module):
     """Llama with the reference's parameter names and shapes:
     ``llama.embed_tokens.weight`` ``[vocab, hidden]``,
     ``llama.layers.{i}.self_attn.{q,k,v,o}_proj.weight`` and
-    ``mlp.{gate,up,down}_proj.weight`` ``[in, out]``,
+    ``mlp.{gate,up,down}_proj.weight`` ``[in, out]`` (an MoE decoder's
+    ``mlp.gate.gate.weight`` ``[hidden, E]``, ``mlp.{w_up,w_gate}``
+    ``[E, hidden, ffn]`` and ``mlp.w_down`` ``[E, ffn, hidden]``),
     ``input_layernorm``/``post_attention_layernorm``/``llama.norm``
     ``[hidden]``, and an untied ``lm_head.weight`` ``[hidden, vocab]`` (a
     tied head multiplies by the embedding's transpose).
@@ -234,9 +243,6 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, *, device="cuda",
                  dtype=torch.float32, seed: int = 0):
         super().__init__()
-        if config.moe_num_experts > 0:
-            raise NotImplementedError(
-                "MoE decoders wait for the distributed slice of the port")
         if config.sequence_parallel or config.context_parallel not in (None, "ring"):
             raise NotImplementedError(
                 "sequence parallelism and context parallelism other than the ring wait "
@@ -307,7 +313,11 @@ def decode_weights(model: LlamaForCausalLM) -> dict:
     """Weight tree for :func:`decode_step` (the reference's layout):
     ``{"embed", "norm", "lm_head" (None when tied), "layers": [{"input_ln",
     "post_ln", "q", "k", "v", "o", "gate", "up", "down"}]}``, tensors
-    shared with the module."""
+    shared with the module. An MoE decoder raises ``ValueError``, as the
+    reference's: decode (and so serving) takes dense MLP decoders only."""
+    if model.config.moe_num_experts > 0:
+        raise ValueError("functional decode_step supports dense MLP decoders "
+                         "only (MoE decode is a future serving workload)")
     m = model.llama
     return {
         "embed": m.embed_tokens.weight.detach(),

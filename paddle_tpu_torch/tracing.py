@@ -13,7 +13,7 @@ from __future__ import annotations
 import contextlib
 import threading
 
-__all__ = ["traced", "is_traced"]
+__all__ = ["traced", "is_traced", "marked"]
 
 _state = threading.local()
 
@@ -26,6 +26,19 @@ def traced():
         yield
     finally:
         _state.depth -= 1
+
+
+@contextlib.contextmanager
+def marked(flag: bool):
+    """Run the body traced if ``flag`` is true and untraced if not, whatever
+    this thread's mark (a recomputed forward runs in autograd's thread and
+    takes the mark of the forward it repeats)."""
+    depth = getattr(_state, "depth", 0)
+    _state.depth = int(bool(flag))
+    try:
+        yield
+    finally:
+        _state.depth = depth
 
 
 def is_traced() -> bool:

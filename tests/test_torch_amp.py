@@ -75,7 +75,8 @@ def regime(value: str):
 # policy
 # ---------------------------------------------------------------------------
 
-OPS = sorted(ramp.WHITE_LIST | ramp.BLACK_LIST | {"swiglu", "embedding", "fused_rope", "add"})
+OPS = sorted(ramp.WHITE_LIST | ramp.BLACK_LIST | {"swiglu", "embedding", "fused_rope", "moe",
+                                                  "add"})
 CUSTOM = {"none": (None, None),
           "custom": ({"swiglu", "softmax"}, {"linear", "embedding"})}
 

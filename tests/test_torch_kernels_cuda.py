@@ -44,7 +44,11 @@ against the CPU's bits, and two resnet18 TrainStep calls; and the
 high-level API: an epoch of the device loader (0 and 4 workers) bit for
 bit against the CPU loader, a worker's exception raised in the consumer,
 and LeNet's ``Model.fit`` on the card against the CPU with the fused
-optimizer once a step.
+optimizer once a step; and the Mixture-of-Experts layer: dense and sort
+dispatch on the card (decisions, aux losses and two sort runs bit for bit,
+values in f32), an MoE Llama on the card against the CPU in f32, and step
+1's gradients under each recompute policy against none's with the
+recomputed forwards' launches counted.
 """
 
 import contextlib
@@ -1820,3 +1824,42 @@ def test_model_fit_on_the_card(dev):
 
     got = cs.hapi_card_vs_cpu(0)
     assert got["launches"] == cs.HAPI_CHECK_STEPS and got["max_rel_diff"] <= got["limit"]
+
+
+# Mixture of Experts, chip_smoke.py phase 22b-c at small widths (hidden 512,
+# head_dim 128, 4 experts, 2 layers): dense against sort dispatch on each
+# layer's own input (decisions, combine weights, aux losses and two sort runs
+# bit for bit in bf16; outputs and gradients within MOE_PATH_F32_FRAC in
+# f32), a 1-layer MoE Llama in f32 on the card against the CPU, and step 1's
+# loss and gradients under each recompute policy against "none" (within
+# phase 6's limits; bit for bit printed) with the recomputed forwards'
+# flash and RMSNorm launches counted
+MOE_CARD_CFG = dict(hidden_size=512, intermediate_size=1024, num_attention_heads=4,
+                    num_key_value_heads=2, vocab_size=4096, moe_num_experts=4)
+
+
+def test_moe_dense_and_sort_dispatch_agree_on_the_card(dev):
+    import chip_smoke as cs
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    out = cs.moe_dispatch_check(0, cfg=LlamaConfig.tiny(**MOE_CARD_CFG), seq=512,
+                                phase="card test")
+    assert out["decisions_bit_for_bit"] and out["f32_worst_frac"] <= out["f32_tol"]
+
+
+def test_moe_llama_on_the_card_matches_the_cpu(dev):
+    import chip_smoke as cs
+
+    out = cs.moe_card_vs_cpu(0, phase="card test")
+    assert out["worst_grad_frac"] <= out["grad_tol"]
+
+
+def test_moe_recompute_policies_on_the_card(dev):
+    import chip_smoke as cs
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    model = LlamaForCausalLM(LlamaConfig.tiny(**MOE_CARD_CFG), device=dev,
+                             dtype=torch.bfloat16, seed=0)
+    out = cs.moe_recompute_grads(model, cs.token_batch(np.random.RandomState(1), 512, 4096))
+    print(f"moe recompute card test: {out}")
+    assert set(out) == {"none", "every_layer", "selective"}

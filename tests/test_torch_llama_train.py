@@ -118,8 +118,7 @@ def test_state_dict_keys_are_checked():
         port.load_reference_state_dict(pmodel, dict(list(state.items())[1:]))
     with pytest.raises(KeyError, match="extra"):
         port.load_reference_state_dict(pmodel, dict(state, extra=np.zeros(3)))
-    for bad in ({"moe_num_experts": 4}, {"sequence_parallel": True},
-                {"context_parallel": "ulysses"}):
+    for bad in ({"sequence_parallel": True}, {"context_parallel": "ulysses"}):
         with pytest.raises(NotImplementedError, match="distributed slice"):
             port.LlamaForCausalLM(port.LlamaConfig.tiny(**bad), device="cpu")
 
@@ -242,7 +241,7 @@ def test_train_step_trajectory_matches_reference():
 def test_train_step_refuses_what_it_does_not_do_and_eval_step_runs():
     _, pmodel = _pair()
     opt = AdamW(parameters=pmodel.parameters())
-    for kw in ({"telemetry_export_every": 5}, {"recompute_policy": "full"},
+    for kw in ({"telemetry_export_every": 5}, {"offload_optimizer": False},
                {"offload_optimizer": True}, {"numerics": "summary"},
                {"checkpoint_root": "ckpt"}):
         with pytest.raises(NotImplementedError, match="comes with the port's .* module"):
