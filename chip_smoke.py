@@ -318,7 +318,29 @@ Phases, each printing one line of numbers:
    largest difference), then each policy's step ms and peak memory; (22d)
    ``bench.py``'s MoE step (``MoELayer`` alone, T 16384, d 1024, dh 2816,
    8 experts, SGD) under the policy, sort and dense, round-robin best of
-   2: tokens/s, dense over sort, the policy's efficiency.
+   2: tokens/s, dense over sort, the policy's efficiency;
+23. the op surface and ``nn.Layer``: (23a) ``OpsLlama`` (``ops_llama_class``),
+   Llama written as a Paddle user writes it (``nn.Layer`` subclasses,
+   ``create_parameter`` with ``ParamAttr(initializer=Normal(0, 0.02))``,
+   a forward of public ops: ``matmul``, ``reshape``, ``split`` /
+   ``concat`` RoPE, ``nn.functional.rms_norm``,
+   ``scaled_dot_product_attention(is_causal=True)``, ``silu``,
+   ``cross_entropy``) at phase 7's cell, its weights carried from
+   ``LlamaForCausalLM`` by ``set_state_dict``: step 1's loss and every
+   gradient against that model's eager forward and backward (OPS_LOSS_RTOL,
+   OPS_GRAD_FRAC), then Paddle's eager loop with phase 7's AdamW and clip,
+   3 timed steps after step 1 on one batch: finite, falling losses, exact
+   launches (flash forward and backward 4 a step, RMSNorm fused 9 each way,
+   the fused update 1), step ms beside phase 7's ``TrainStep``, tokens/s,
+   peak memory, one profiled step's busy share; (23b) every op of the
+   registry at small shapes (``paddle_tpu_torch.tools.op_cases``) on the
+   card against the CPU, within each dtype class's tolerance, drawing ops
+   by shape, dtype, range and replay, and the host microseconds of the
+   registry's ``add`` beside ``torch.add``; (23c) ``seed(0)`` twice gives
+   bit-identical ``create_parameter`` draws, layers' default draws and
+   dropout masks on the card,
+   ``get_cuda_rng_state`` / ``set_cuda_rng_state`` replay, and a
+   ``PyLayer``'s gradient equals the plain composition's.
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -338,11 +360,11 @@ training steps; paged attention over the prefix cache's tables from phase
 15's traced window, the weight stream at the verify's M = 40 from phase
 16's; the fused optimizer from the three timed training steps of phase 7,
 phase 18's O1 steps, phase 19a's six, phase 20a's six, phase 20e's
-first 50 and phase 21's fits (21a's two epochs, 21b's card steps, 21c's
-epoch), with its numbers from phase 17,
+first 50, phase 21's fits (21a's two epochs, 21b's card steps, 21c's
+epoch) and phase 23a's eager steps, with its numbers from phase 17,
 and in its master mode from phase 18's O2 steps and phase 19e's, with its
 numbers from 18d; flash and
-RMSNorm also count phase 18's timed steps, flash, RMSNorm's ``round_first``
+RMSNorm also count phase 18's and phase 23a's timed steps, flash, RMSNorm's ``round_first``
 mode and the fused optimizer phase 22a's timed steps, the optimizer 22d's
 steps too), and last ``{"ok": true,
 "device": {...}}``. Any failure
@@ -4313,7 +4335,7 @@ def train_amp(seed: int, level: str, layers: int) -> dict:
     n_embed = model.llama.embed_tokens.weight.numel()
     say(phase, layers=layers, hidden=cfg.hidden_size, vocab=cfg.vocab_size, seq=TRAIN_SEQ,
         trainable_params=n_params, level=level, amp_dtype="bfloat16",
-        param_dtype=str(next(model.parameters()).dtype),
+        param_dtype=str(model.parameters()[0].dtype),
         model_init_s=round(time.perf_counter() - t0, 2))
     rng = np.random.RandomState(seed + 18)
     counters = training_counters()
@@ -4517,7 +4539,7 @@ def hold_skip(runs: dict, level: str, dtype: str, batch, phase: str) -> dict:
     import torch
 
     def poison(model):
-        g = next(model.parameters()).grad
+        g = model.parameters()[0].grad
         g.view(-1)[0] = float("inf")
 
     def state(model, opt):  # every tensor the step may touch, in a fixed order
@@ -4648,7 +4670,7 @@ def ernie_attention_ms(model, ids, calls: int = 5) -> float:
     cfg = model.ernie.config
     b, s = ids.shape
     h, d = cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
-    dtype = next(model.parameters()).dtype
+    dtype = model.parameters()[0].dtype
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
@@ -5720,7 +5742,7 @@ def flowers_epoch(seed: int, workers: int = FLOWERS_WORKERS) -> dict:
     loader = make_timed_loader(train, warmup=FLOWERS_WARMUP, **loader_kw)
     twin = copy.deepcopy(net)
     net.eval()      # the running statistics stay as they are
-    x1 = torch.zeros((1, 3, FLOWERS_HW, FLOWERS_HW), device=next(net.parameters()).device)
+    x1 = torch.zeros((1, 3, FLOWERS_HW, FLOWERS_HW), device=net.parameters()[0].device)
     flops = 3 * FLOWERS_BATCH * conv_flops(net, x1)
     counters = training_counters()
     torch.cuda.synchronize()
@@ -6588,6 +6610,383 @@ def moe(seed: int, smi: str) -> dict:
     return {"train": none["launches"], "bench": bench["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the op surface and nn.Layer
+# ---------------------------------------------------------------------------
+
+OPS_INIT_STD = 0.02
+# step 1 of OpsLlama against LlamaForCausalLM, bf16: the same kernels in the
+# same order give the same bits; the limits allow an op of another rounding
+OPS_LOSS_RTOL = 1e-3
+OPS_GRAD_FRAC = 2e-2          # a gradient's largest difference / its largest entry
+OPS_DISPATCH_CALLS = 2000
+_OPS_LLAMA: dict = {}
+
+
+def ops_llama_class():
+    """``OpsLlama``: Llama written the way a Paddle user writes it, as a
+    user script and not a package feature: ``nn.Layer`` subclasses, every
+    weight from ``create_parameter`` with ``ParamAttr(name=...,
+    initializer=nn.initializer.Normal(0.0, 0.02))``, and a forward of public
+    functions only (``matmul``, ``reshape``, ``split``, ``concat``,
+    ``multiply``, ``add``, ``subtract``, ``cast``, ``nn.functional``'s
+    ``embedding``, ``rms_norm``, ``scaled_dot_product_attention`` with
+    ``is_causal=True`` and the op's own GQA broadcast, ``silu`` and
+    ``cross_entropy``), with neox-half RoPE from ``split`` / ``concat``.
+    Its parameter names are ``LlamaForCausalLM``'s, so ``set_state_dict``
+    carries weights between the two. Built on the default device
+    (``paddle_tpu_torch.set_device``)."""
+    if _OPS_LLAMA:
+        return _OPS_LLAMA["cls"]
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+
+    F = nn.functional
+
+    def attr(name):
+        return paddle.ParamAttr(name=name,
+                                initializer=nn.initializer.Normal(0.0, OPS_INIT_STD))
+
+    class Weight(nn.Layer):
+        def __init__(self, shape, name, dtype):
+            super().__init__(dtype=dtype)
+            self.weight = self.create_parameter(shape, attr=attr(name + ".weight"))
+
+    class Proj(Weight):
+        def forward(self, x):
+            return paddle.matmul(x, self.weight)
+
+    class Norm(Weight):
+        def __init__(self, hidden, eps, name, dtype):
+            super().__init__([hidden], name, dtype)
+            self.eps = eps
+
+        def forward(self, x):
+            return F.rms_norm(x, self.weight, self.eps)
+
+    class Embed(Weight):
+        def forward(self, ids):
+            return F.embedding(ids, self.weight)
+
+    def rope_tables(seq, dim, theta, dtype):
+        exps = paddle.divide(paddle.arange(0, dim, 2, dtype="float32"), float(dim))
+        inv = paddle.reciprocal(paddle.pow(theta, exps))
+        freqs = paddle.outer(paddle.arange(seq, dtype="float32"), inv)
+        return tuple(paddle.cast(paddle.reshape(t, [1, seq, 1, dim // 2]), dtype)
+                     for t in (paddle.sin(freqs), paddle.cos(freqs)))
+
+    def rope(x, sin, cos):
+        x1, x2 = paddle.split(x, 2, axis=-1)
+        return paddle.concat([paddle.subtract(paddle.multiply(x1, cos), paddle.multiply(x2, sin)),
+                              paddle.add(paddle.multiply(x2, cos), paddle.multiply(x1, sin))],
+                             axis=-1)
+
+    class Attention(nn.Layer):
+        def __init__(self, cfg, name, dtype):
+            super().__init__(dtype=dtype)
+            h = cfg.hidden_size
+            self.heads, self.kv_heads = cfg.num_attention_heads, cfg.num_key_value_heads
+            self.head_dim, self.theta = h // self.heads, cfg.rope_theta
+            kv = self.kv_heads * self.head_dim
+            for proj, n_out in (("q_proj", h), ("k_proj", kv), ("v_proj", kv), ("o_proj", h)):
+                setattr(self, proj, Proj([h, n_out], f"{name}.{proj}", dtype))
+
+        def forward(self, x):
+            b, s, h = x.shape
+            q = paddle.reshape(self.q_proj(x), [b, s, self.heads, self.head_dim])
+            k = paddle.reshape(self.k_proj(x), [b, s, self.kv_heads, self.head_dim])
+            v = paddle.reshape(self.v_proj(x), [b, s, self.kv_heads, self.head_dim])
+            sin, cos = rope_tables(s, self.head_dim, self.theta, q.dtype)
+            out = F.scaled_dot_product_attention(rope(q, sin, cos), rope(k, sin, cos), v,
+                                                 is_causal=True)
+            return self.o_proj(paddle.reshape(out, [b, s, h]))
+
+    class MLP(nn.Layer):
+        def __init__(self, cfg, name, dtype):
+            super().__init__(dtype=dtype)
+            h, f = cfg.hidden_size, cfg.intermediate_size
+            self.gate_proj = Proj([h, f], f"{name}.gate_proj", dtype)
+            self.up_proj = Proj([h, f], f"{name}.up_proj", dtype)
+            self.down_proj = Proj([f, h], f"{name}.down_proj", dtype)
+
+        def forward(self, x):
+            return self.down_proj(paddle.multiply(F.silu(self.gate_proj(x)), self.up_proj(x)))
+
+    class Decoder(nn.Layer):
+        def __init__(self, cfg, name, dtype):
+            super().__init__(dtype=dtype)
+            self.self_attn = Attention(cfg, f"{name}.self_attn", dtype)
+            self.mlp = MLP(cfg, f"{name}.mlp", dtype)
+            self.input_layernorm = Norm(cfg.hidden_size, cfg.rms_norm_eps,
+                                        f"{name}.input_layernorm", dtype)
+            self.post_attention_layernorm = Norm(cfg.hidden_size, cfg.rms_norm_eps,
+                                                 f"{name}.post_attention_layernorm", dtype)
+
+        def forward(self, x):
+            x = paddle.add(x, self.self_attn(self.input_layernorm(x)))
+            return paddle.add(x, self.mlp(self.post_attention_layernorm(x)))
+
+    class Body(nn.Layer):
+        def __init__(self, cfg, dtype):
+            super().__init__(dtype=dtype)
+            self.embed_tokens = Embed([cfg.vocab_size, cfg.hidden_size], "llama.embed_tokens",
+                                      dtype)
+            self.layers = nn.LayerList([Decoder(cfg, f"llama.layers.{i}", dtype)
+                                        for i in range(cfg.num_hidden_layers)])
+            self.norm = Norm(cfg.hidden_size, cfg.rms_norm_eps, "llama.norm", dtype)
+
+        def forward(self, ids):
+            x = self.embed_tokens(ids)
+            for layer in self.layers:
+                x = layer(x)
+            return self.norm(x)
+
+    class OpsLlama(nn.Layer):
+        def __init__(self, cfg, dtype="float32"):
+            super().__init__(dtype=dtype)
+            self.vocab = cfg.vocab_size
+            self.llama = Body(cfg, dtype)
+            self.lm_head = Proj([cfg.hidden_size, cfg.vocab_size], "lm_head", dtype)
+
+        def forward(self, input_ids, labels=None):
+            logits = self.lm_head(self.llama(input_ids))
+            if labels is None:
+                return logits
+            loss = F.cross_entropy(paddle.reshape(logits, [-1, self.vocab]),
+                                   paddle.reshape(labels, [-1]))
+            return loss, logits
+
+    _OPS_LLAMA["cls"] = OpsLlama
+    return OpsLlama
+
+
+def grad_fracs(got: dict, want: dict) -> dict:
+    """Each gradient's largest difference over its largest entry."""
+    out = {}
+    for name, w in want.items():
+        g = got[name]
+        out[name] = float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(
+            1e-30))
+    return out
+
+
+def ops_llama_train(seed: int, train_step_ms: float) -> dict:
+    """Phase 23a: OpsLlama at phase 7's cell (Llama-3-8B widths, 4 layers,
+    bf16, batch 1 x 8192) with LlamaForCausalLM's weights carried by
+    ``set_state_dict``; step 1's loss and every gradient against that
+    model's eager forward and backward; then Paddle's eager loop (``loss.
+    backward(); opt.step(); opt.clear_grad()``) with phase 7's AdamW and
+    clip, 3 timed steps after step 1 on one batch: finite, falling losses,
+    exact launches, step ms, tokens/s, peak memory, one profiled step's
+    busy share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    phase = "ops-llama"
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    paddle.seed(seed)
+    model = ops_llama_class()(cfg, dtype="bfloat16")
+    ref = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    missing, unexpected = model.set_state_dict(ref.state_dict())
+    if missing or unexpected or len(model.state_dict()) != len(ref.state_dict()):
+        raise AssertionError(f"{phase}: set_state_dict missing {missing}, unexpected "
+                             f"{unexpected}")
+    torch.cuda.synchronize()
+    say(phase, layers=TRAIN_LAYERS, hidden=cfg.hidden_size, vocab=cfg.vocab_size, seq=TRAIN_SEQ,
+        tensors=len(model.parameters()), params=sum(p.numel() for p in model.parameters()),
+        is_layer=isinstance(model, paddle.nn.Layer), model_init_s=round(time.perf_counter() - t0,
+                                                                        2))
+    ids, labels = token_batch(np.random.RandomState(seed + 23), TRAIN_SEQ, cfg.vocab_size)
+    loss_ref = ref(ids, labels=labels)[0]
+    loss_ref.backward()
+    ref_grads = {n: p.grad for n, p in ref.named_parameters()}
+    del ref
+    counters = training_counters()
+    per_step = expected_launches(TRAIN_LAYERS, traced=False)
+    per_step.update(multi_tensor_update=1, multi_tensor_update_direct=1)
+    opt = AdamW(LR, parameters=model.parameters(), weight_decay=0.1,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+
+    def step():
+        loss = model(ids, labels=labels)[0]
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    zero_counts(counters)
+    loss = model(ids, labels=labels)[0]
+    loss.backward()
+    fracs = grad_fracs({n: p.grad for n, p in model.named_parameters()}, ref_grads)
+    worst = max(fracs, key=fracs.get)
+    loss_err = abs(loss.item() - loss_ref.item()) / abs(loss_ref.item())
+    say(phase, step1_loss=loss.item(), step1_ref_loss=loss_ref.item(), loss_rel_err=loss_err,
+        loss_rtol=OPS_LOSS_RTOL, grads=len(fracs), worst_grad=worst,
+        worst_grad_frac=fracs[worst], grad_frac_limit=OPS_GRAD_FRAC,
+        bit_identical=sum(v == 0.0 for v in fracs.values()))
+    if loss_err > OPS_LOSS_RTOL or fracs[worst] > OPS_GRAD_FRAC or len(fracs) != len(ref_grads):
+        raise AssertionError(f"{phase}: step 1 against LlamaForCausalLM: loss {loss_err}, "
+                             f"{worst} {fracs[worst]}")
+    del ref_grads, loss_ref
+    opt.step()
+    opt.clear_grad()
+    counts = read_counts(counters)
+    if counts != per_step:
+        raise AssertionError(f"{phase} step 1 launched {counts}, expected {per_step}")
+    losses, times = [loss.item()], []
+    zero_counts(counters)
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - s0)
+        losses.append(loss.item())
+    counts = read_counts(counters)
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"{phase} launched {counts}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{phase}: losses not finite and falling: {losses}")
+    step_s = sum(times) / len(times)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - s0
+    per_kernel, ops = kernel_times(prof)
+    busy = sum(per_kernel.values()) / 1e6
+    say(phase, losses=losses, step_ms=[round(1e3 * t, 3) for t in times],
+        step_ms_mean=round(1e3 * step_s, 3), tokens_per_s=round(TRAIN_SEQ / step_s, 1),
+        train_step_ms=round(train_step_ms, 3),
+        step_ms_ratio_to_train=round(1e3 * step_s / train_step_ms, 4),
+        max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        profiled_step_ms=round(1e3 * wall, 3), device_busy_ms=round(1e3 * busy, 3),
+        device_busy_share=round(busy / wall, 4) if busy else "not measured",
+        device_ops=ops, launches=json.dumps(counts))
+    say(phase, device_ms_by_kind=json.dumps(by_kind(per_kernel)))
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ops_surface(seed: int) -> dict:
+    """Phase 23b: every case of ``paddle_tpu_torch.tools.op_cases`` (every
+    op of the registry at small shapes) through the port on the card and on
+    the CPU, within each dtype class's tolerance (integer and boolean
+    results exactly; a drawing op by shape, dtype, its check of values and
+    replay from one generator state on the card); then the host
+    microseconds a call of the registry's ``add`` beside ``torch.add`` on
+    the card."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import op_cases
+
+    phase = "ops-surface"
+    t0 = time.perf_counter()
+    res = op_cases.card_vs_cpu(seed)
+    say(phase, cases_run=res["run"], cases_held=res["held"], ops=res["ops"],
+        tolerance=json.dumps(op_cases.TOLERANCE),
+        worst_error_in_tolerances=json.dumps({k: round(v, 4) for k, v in res["worst"].items()}),
+        worst_cases=json.dumps(res["worst_case"]),
+        seconds=round(time.perf_counter() - t0, 2))
+    if res["failures"]:
+        for line in res["failures"]:
+            print(f"  {phase} FAILED {line}", flush=True)
+        raise AssertionError(f"{phase}: {len(res['failures'])} cases failed on the card")
+    x = torch.randn(1024, device="cuda")
+    y = torch.randn(1024, device="cuda")
+    per_call = {}
+    for label, fn in (("registry_add", paddle.add), ("torch_add", torch.add),
+                      ("registry_add", paddle.add), ("torch_add", torch.add)):
+        for _ in range(100):
+            fn(x, y)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        for _ in range(OPS_DISPATCH_CALLS):
+            fn(x, y)
+        torch.cuda.synchronize()
+        per_call[label] = 1e6 * (time.perf_counter() - s0) / OPS_DISPATCH_CALLS
+    say(phase, add_host_us=round(per_call["registry_add"], 3),
+        torch_add_host_us=round(per_call["torch_add"], 3),
+        dispatch_overhead_us=round(per_call["registry_add"] - per_call["torch_add"], 3),
+        calls=OPS_DISPATCH_CALLS, shape="[1024] f32")
+    return {"dispatch_us": per_call["registry_add"] - per_call["torch_add"], **res}
+
+
+def ops_seeds() -> None:
+    """Phase 23c: ``seed(0)`` twice gives bit-identical ``create_parameter``
+    draws, layers' default draws and dropout masks on the card; ``get_cuda_rng_state`` /
+    ``set_cuda_rng_state`` replay; a ``PyLayer``'s gradient equals the
+    plain composition's."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+
+    def draws():
+        paddle.seed(0)
+        w = paddle.create_parameter([512, 512], attr=paddle.ParamAttr(
+            initializer=nn.initializer.Normal(0.0, 0.02)))
+        mask = nn.functional.dropout(paddle.ones([4096]), 0.5)
+        defaults = [t.detach() for m in (nn.Linear(512, 256), nn.Conv2D(16, 32, 3))
+                    for t in m.state_dict().values()]
+        return w.detach(), mask, defaults
+
+    (w1, m1, d1), (w2, m2, d2) = draws(), draws()
+    state = paddle.get_cuda_rng_state()
+    a = paddle.randn([4096])
+    paddle.set_cuda_rng_state(state)
+    b = paddle.randn([4096])
+
+    class Cube(paddle.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return x * x * x
+
+        @staticmethod
+        def backward(ctx, dy):
+            (x,) = ctx.saved_tensor()
+            return 3.0 * x * x * dy
+
+    x = paddle.to_tensor(torch.randn(1000), stop_gradient=False)
+    (g_layer,) = paddle.grad(paddle.sum(Cube.apply(x)), x)
+    (g_plain,) = paddle.grad(paddle.sum(x * x * x), x)
+    held = dict(params_bit_identical=bool(torch.equal(w1, w2)),
+                masks_bit_identical=bool(torch.equal(m1, m2)),
+                layer_defaults_bit_identical=all(map(torch.equal, d1, d2)),
+                mask_keep=round(float(m1.mean()) / 2, 4),
+                rng_state_replays=bool(torch.equal(a, b)),
+                pylayer_grad_max_err=float((g_layer - g_plain).abs().max()),
+                device=str(w1.device))
+    say("ops-seeds", **held)
+    if not (held["params_bit_identical"] and held["masks_bit_identical"]
+            and held["layer_defaults_bit_identical"] and held["rng_state_replays"]
+            and held["pylayer_grad_max_err"] <= 1e-5 and w1.is_cuda):
+        raise AssertionError(f"ops-seeds: {held}")
+
+
+def ops_phase(seed: int, train_step_ms: float) -> dict:
+    """Phase 23 (23a, b, c): returns 23a's launches."""
+    launches = ops_llama_train(seed, train_step_ms)
+    ops_surface(seed)
+    ops_seeds()
+    return launches
+
+
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
 
 
@@ -6877,6 +7276,8 @@ def main(argv=None) -> int:
     lap("21")
     moe_launches = moe(args.seed, smi)
     lap("22")
+    ops_launches = ops_phase(args.seed, trained["step_ms"])
+    lap("23")
     amp_launches = {k: amp_o2["launches"][k] + amp_o1["launches"][k] for k in amp_o2["launches"]}
 
     kernels = [
@@ -6911,23 +7312,26 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": f"paddle_tpu/ops/pallas/{replaces}",
             "launches": (train_launches[wrapper] + amp_launches[wrapper]
-                         + moe_launches["train"][wrapper]), **nums})
+                         + moe_launches["train"][wrapper] + ops_launches[wrapper]), **nums})
         kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                               f"({TRAIN_LAYERS} layers), the {TRAIN_STEPS} timed AMP steps "
-                              f"of each level (phase 18, bf16) and the {MOE_STEPS} timed steps "
+                              f"of each level (phase 18, bf16), the {MOE_STEPS} timed steps "
                               f"of the Mixtral cell (phase 22a, {MOE_LAYERS} layers, S "
-                              f"{MOE_SEQ})")
+                              f"{MOE_SEQ}) and the {TRAIN_STEPS} timed eager steps of "
+                              f"OpsLlama (phase 23a: scaled_dot_product_attention)")
     for name, nums, launches in (
-            ("rms_norm_fwd", norm_fwd, norm_launches["fwd"] + amp_launches["rms_norm_fwd_fused"]),
-            ("rms_norm_bwd", norm_bwd,
-             norm_launches["bwd"] + amp_launches["rms_norm_bwd_dx_fused"])):
+            ("rms_norm_fwd", norm_fwd, norm_launches["fwd"] + amp_launches["rms_norm_fwd_fused"]
+             + ops_launches["rms_norm_fwd_fused"]),
+            ("rms_norm_bwd", norm_bwd, norm_launches["bwd"] + amp_launches["rms_norm_bwd_dx_fused"]
+             + ops_launches["rms_norm_bwd_dx_fused"])):
         kernels.append({
             "name": name, "route": "cuda", "source": "paddle_tpu_torch/csrc/rms_norm.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_norm.py:79", "launches": launches, **nums})
         kernels[-1]["at"] += ("; the fused rounding, which eager calls take (a TrainStep "
-                              "takes round_first): launches from phase 5's checks and, in f32 "
-                              "(amp casts a norm's inputs to f32), the timed AMP steps of "
-                              "phase 18")
+                              "takes round_first): launches from phase 5's checks, in f32 "
+                              "(amp casts a norm's inputs to f32) the timed AMP steps of "
+                              "phase 18, and in bf16 the timed eager steps of OpsLlama (phase "
+                              "23a: nn.functional.rms_norm)")
     for name, source, replaces, nums, launches in (
             ("flash_attention_fwd_f32", "flash_attention.cu", "flash_attention.py:112",
              f32_fwd, f32_launches["flash_f32_fwd"]),
@@ -7026,7 +7430,7 @@ def main(argv=None) -> int:
                      + amp_launches["multi_tensor_update_direct"] + ernie_launches["direct"]
                      + vision_launches["resnet50"] + vision_launches["lenet"]
                      + sum(hapi_launches.values()) + moe_launches["train"]["multi_tensor_update"]
-                     + moe_launches["bench"]),
+                     + moe_launches["bench"] + ops_launches["multi_tensor_update"]),
         **fused_opt})
     kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                           f"({TRAIN_LAYERS} layers, one AdamW update a step), the "
@@ -7046,7 +7450,10 @@ def main(argv=None) -> int:
                           f"{MOE_STEPS} timed steps ({moe_launches['train']['multi_tensor_update']}"
                           f": AdamW over {10 * MOE_LAYERS + 3} bf16 tensors, one a step) and the "
                           f"MoE bench's SGD steps ({moe_launches['bench']}: "
-                          f"{MOE_BENCH_TENSORS} tensors, one a step)")
+                          f"{MOE_BENCH_TENSORS} tensors, one a step), and phase 23a: OpsLlama's "
+                          f"{TRAIN_STEPS} timed eager steps ({ops_launches['multi_tensor_update']}"
+                          f": opt.step() of AdamW over {9 * TRAIN_LAYERS + 3} bf16 tensors, one "
+                          "a step)")
     kernels.append({
         "name": "multi_tensor_update_master", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",

@@ -29,13 +29,12 @@ import time
 
 import numpy as np
 import torch
-from torch import nn
 
 from ... import flags
 from ...amp import cast_inputs
 from ...device import resolve_device
 from ...dtype import dtype_name
-from ...nn.layer import Linear
+from ...nn.layer import Layer, Linear
 
 __all__ = ["top2_gating", "top1_gating", "topk_routing", "sort_slots", "sort_gates",
            "sort_dispatch_moe", "dispatch_mode", "NaiveGate", "MoELayer"]
@@ -293,7 +292,7 @@ def dispatch_mode(T: int, E: int, C: int, H: int, dtype=torch.float32, dh: int |
     return _DISPATCH_CHOICE[key]
 
 
-class NaiveGate(nn.Module):
+class NaiveGate(Layer):
     """The router: a bias-free ``Linear(d_model, num_experts)``."""
 
     def __init__(self, d_model, num_experts, *, device="cuda", dtype=torch.float32,
@@ -307,20 +306,17 @@ class NaiveGate(nn.Module):
         return self.gate(x)
 
 
-def _expert_weight(shape, *, device, dtype, generator):
-    """Xavier-uniform with Paddle's receptive-field rule for a 3-D shape
-    ``[E, a, b]``: fan_in ``a b``, fan_out ``E b``."""
-    fan_in, fan_out = shape[1] * shape[2], shape[0] * shape[2]
-    bound = (6.0 / (fan_in + fan_out)) ** 0.5
-    w = torch.empty(shape, device=resolve_device(device), dtype=dtype)
-    w.uniform_(-bound, bound, generator=generator)
-    p = nn.Parameter(w)
+def _expert_weight(layer, shape, *, device, dtype, generator):
+    """``layer.create_parameter``'s default, Xavier-uniform with Paddle's
+    receptive-field rule for a 3-D shape ``[E, a, b]``: fan_in ``a b``,
+    fan_out ``E b``; sharded over its expert axis."""
+    p = layer.create_parameter(shape, dtype=dtype, device=device, generator=generator)
     # the expert axis over 'ep' where a mesh names it, else over 'dp'
     p.shard_axes = {0: ("ep", "dp")}
     return p
 
 
-class MoELayer(nn.Module):
+class MoELayer(Layer):
     """Paddle's ``MoELayer`` in the GShard formulation: the router
     ``gate.gate.weight [d_model, E]`` and the stacked SwiGLU experts
     ``w_up``, ``w_gate [E, d_model, d_hidden]`` and ``w_down [E, d_hidden,
@@ -346,9 +342,9 @@ class MoELayer(nn.Module):
         self.dispatch = dispatch
         mk = dict(device=device, dtype=dtype, generator=generator)
         self.gate = NaiveGate(d_model, num_experts, **mk)
-        self.w_up = _expert_weight((num_experts, d_model, d_hidden), **mk)
-        self.w_gate = _expert_weight((num_experts, d_model, d_hidden), **mk)
-        self.w_down = _expert_weight((num_experts, d_hidden, d_model), **mk)
+        self.w_up = _expert_weight(self, (num_experts, d_model, d_hidden), **mk)
+        self.w_gate = _expert_weight(self, (num_experts, d_model, d_hidden), **mk)
+        self.w_down = _expert_weight(self, (num_experts, d_hidden, d_model), **mk)
         self.aux_loss = None
 
     def capacity(self, tokens: int) -> int:

@@ -176,7 +176,9 @@ class Model:
         set_state_dict(self.network, _load(path + ".pdparams"))
 
     def parameters(self, *args, **kwargs):
-        return self.network.parameters()
+        """The network's parameters, a list (``Layer.parameters``, or a
+        plain ``torch.nn.Module``'s)."""
+        return list(self.network.parameters(*args, **kwargs))
 
     def summary(self, input_size=None, dtype=None):
         from .summary import summary

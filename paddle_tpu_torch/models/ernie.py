@@ -26,12 +26,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
-from ..nn.layer import (Dropout, Embedding, LayerNorm, Linear, TransformerEncoder,
+from ..nn.layer import (Dropout, Embedding, Layer, LayerNorm, Linear, TransformerEncoder,
                         TransformerEncoderLayer)
+from ..tensor import Parameter
 from ._weights import load_reference_state_dict
 
 __all__ = ["ErnieConfig", "ErnieEmbeddings", "ErniePooler", "ErnieModel",
@@ -80,7 +80,7 @@ class ErnieConfig:
         return cfg
 
 
-class ErnieEmbeddings(nn.Module):
+class ErnieEmbeddings(Layer):
     """word + position + token type (+ task type) embeddings, LayerNorm,
     dropout."""
 
@@ -114,7 +114,7 @@ class ErnieEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class ErniePooler(nn.Module):
+class ErniePooler(Layer):
     """``tanh(dense(hidden_states[:, 0]))``: the CLS token's state."""
 
     def __init__(self, hidden_size, *, device, dtype, generator):
@@ -126,7 +126,7 @@ class ErniePooler(nn.Module):
         return F.tanh(self.dense(hidden_states[:, 0]))
 
 
-class ErnieModel(nn.Module):
+class ErnieModel(Layer):
     """Embeddings, then the post-LN ``nn.TransformerEncoder`` (GELU
     feed-forward), then the pooler: ``(sequence_output [B, S, H],
     pooled_output [B, H])``.
@@ -169,7 +169,7 @@ class ErnieModel(nn.Module):
         return sequence_output, self.pooler(sequence_output)
 
 
-class _Head(nn.Module):
+class _Head(Layer):
     """An :class:`ErnieModel` and a linear ``classifier`` on its states,
     drawn from the model's generator."""
 
@@ -226,7 +226,7 @@ class ErnieForQuestionAnswering(_Head):
         return start, end
 
 
-class ErnieLMPredictionHead(nn.Module):
+class ErnieLMPredictionHead(Layer):
     """The MLM head: ``transform``, the activation, ``layer_norm``, then the
     product with the word embedding ``[vocab, hidden]`` transposed (held as
     ``_tied``: the same ``Parameter``, so one tensor gets both gradients
@@ -240,7 +240,7 @@ class ErnieLMPredictionHead(nn.Module):
         self.layer_norm = LayerNorm(config.hidden_size, epsilon=config.layer_norm_eps,
                                     device=device, dtype=dtype)
         self._tied = embedding_weights
-        self.decoder_bias = nn.Parameter(torch.zeros(config.vocab_size, device=device,
+        self.decoder_bias = Parameter(torch.zeros(config.vocab_size, device=device,
                                                      dtype=dtype))
 
     def forward(self, hidden_states):
@@ -248,7 +248,7 @@ class ErnieLMPredictionHead(nn.Module):
         return F.linear(h, self._tied.T) + self.decoder_bias
 
 
-class ErnieForMaskedLM(nn.Module):
+class ErnieForMaskedLM(Layer):
     """The masked LM: vocabulary logits ``[B, S, vocab]`` from a decoder
     tied to the word embedding."""
 

@@ -27,7 +27,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch import nn
 
 from .. import random as R
 from ..amp import cast_inputs
@@ -38,7 +37,7 @@ from ..distributed.recompute import recompute
 from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..nn import functional as F
 from ..nn.functional.norm import rms_norm_composed
-from ..nn.layer import Embedding, Linear, RMSNorm
+from ..nn.layer import Embedding, Layer, LayerList, Linear, RMSNorm
 from ..ops.quant_matmul import int8_matmul
 from ._weights import load_reference_state_dict
 
@@ -103,7 +102,7 @@ class LlamaConfig:
 # ---------------------------------------------------------------------------
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
         self.config = config
@@ -156,7 +155,7 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
         mk = dict(bias_attr=False, device=device, dtype=dtype, generator=generator)
@@ -168,7 +167,7 @@ class LlamaMLP(nn.Module):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
         mk = dict(device=device, dtype=dtype, generator=generator)
@@ -202,13 +201,13 @@ class LlamaDecoderLayer(nn.Module):
         return self._inner(hidden_states, attention_mask, position_ids)
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size, device=device,
                                       dtype=dtype, generator=generator)
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [LlamaDecoderLayer(config, device=device, dtype=dtype, generator=generator)
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device=device,
@@ -221,7 +220,7 @@ class LlamaModel(nn.Module):
         return self.norm(hidden_states)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """Llama with the reference's parameter names and shapes:
     ``llama.embed_tokens.weight`` ``[vocab, hidden]``,
     ``llama.layers.{i}.self_attn.{q,k,v,o}_proj.weight`` and

@@ -7,8 +7,9 @@ reference's formula where torch's own op rounds or clips another way
 ``amp.auto_cast`` every one first casts its tensor inputs as the
 reference's op of the same name (``softmax`` and ``log_softmax`` are
 black-list ops: to f32). The random ones (``rrelu`` in training,
-``gumbel_softmax``) draw from the caller's ``generator`` (torch bits,
-not the reference's).
+``gumbel_softmax``) draw from the caller's ``generator``, else from the
+port's generator of the input's device (torch bits, not the
+reference's).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 
 from ...amp import cast_inputs
 from ...dtype import convert_dtype
+from ...framework.random import generator_for
 
 __all__ = ["relu", "relu6", "sigmoid", "tanh", "silu", "swish", "mish", "hardswish",
            "hardsigmoid", "softsign", "tanhshrink", "log_sigmoid", "gelu", "leaky_relu",
@@ -97,7 +99,8 @@ def rrelu(x, lower=1.0 / 8.0, upper=1.0 / 3.0, training=False, name=None, *, gen
     uniform in ``[lower, upper)``; otherwise the slope is their mean."""
     x, = cast_inputs("rrelu", x)
     if training:
-        slope = torch.empty_like(x).uniform_(lower, upper, generator=generator)
+        slope = torch.empty_like(x).uniform_(lower, upper,
+                                             generator=generator_for(x.device, generator))
     else:
         slope = (lower + upper) / 2.0
     return torch.where(x >= 0, x, slope * x)
@@ -157,7 +160,8 @@ def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None, *, genera
     ``hard`` gives the one-hot of the argmax in the forward and the soft
     gradient (straight-through)."""
     x, = cast_inputs("gumbel_softmax", x)
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    u = torch.rand(x.shape, generator=generator_for(x.device, generator), device=x.device,
+                   dtype=torch.float32)
     tiny = torch.finfo(torch.float32).tiny
     g = (-torch.log(-torch.log(u.clamp_min(tiny)))).to(x.dtype)
     y = torch.softmax((x + g) / temperature, dim=axis)

@@ -10,6 +10,7 @@ import math
 import torch
 
 from ...amp import cast_inputs
+from ...framework.random import generator_for
 from ...ops.flash_attention import flash_attention_bsnd
 
 __all__ = ["flash_attention", "scaled_dot_product_attention", "sdpa_ref"]
@@ -40,7 +41,8 @@ def sdpa_ref(q, k, v, mask=None, dropout_p=0.0, causal=False, scale=None, genera
             logits = logits + mask.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     if dropout_p > 0.0:
-        keep = torch.rand(probs.shape, generator=generator, device=probs.device) < 1.0 - dropout_p
+        keep = torch.rand(probs.shape, generator=generator_for(probs.device, generator),
+                          device=probs.device) < 1.0 - dropout_p
         probs = torch.where(keep, probs / (1.0 - dropout_p), torch.zeros((), dtype=probs.dtype,
                                                                           device=probs.device))
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)

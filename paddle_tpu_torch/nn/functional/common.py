@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ...amp import cast_inputs
+from ...framework.random import generator_for
 
 __all__ = ["linear", "embedding", "dropout", "dropout2d", "dropout3d", "alpha_dropout"]
 
@@ -36,7 +37,7 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
 
 def _keep(shape, p, generator, device):
     """The keep mask: each element kept with probability ``1 - p``."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+    return torch.rand(shape, generator=generator_for(device, generator), device=device) < 1.0 - p
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train", name=None, *,
@@ -50,7 +51,8 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train", name=No
     ``upscale_in_train``, returns ``x`` itself (the reference returns a
     copy of it, and no op, so nothing is cast there); ``p == 1`` in
     training gives zeros. The mask is torch's bits, drawn from
-    ``generator`` (the reference draws from its global key). Under
+    ``generator``, else from the port's generator of x's device
+    (``framework.random``; the reference draws from its global key). Under
     ``amp.auto_cast`` x is first cast as the op ``dropout``."""
     if not training or p == 0:
         if mode == "downscale_in_infer" and not training:

@@ -1,5 +1,5 @@
-"""Layers of the port (counterpart of ``paddle_tpu/nn/layer``) as
-``torch.nn.Module``s."""
+"""Layers of the port (counterpart of ``paddle_tpu/nn/layer``): ``Layer``
+(a ``torch.nn.Module`` with Paddle's methods) and its subclasses."""
 
 from . import loss
 from .activation import (CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigmoid, Hardswish,
@@ -8,7 +8,7 @@ from .activation import (CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigmoid, Ha
                          Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU)
 from .common import AlphaDropout, Dropout, Dropout2D, Dropout3D, Embedding, Linear
 from .conv import Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D, Conv3DTranspose
-from .layers import Identity, LayerList, Sequential
+from .layers import Identity, Layer, LayerDict, LayerList, ParameterList, Sequential
 from .loss import (AdaptiveLogSoftmaxWithLoss, BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
                    CrossEntropyLoss, CTCLoss, GaussianNLLLoss, HingeEmbeddingLoss, HSigmoidLoss,
                    KLDivLoss, L1Loss, MarginRankingLoss, MSELoss, MultiLabelSoftMarginLoss,
@@ -28,7 +28,8 @@ __all__ = ["CELU", "ELU", "GELU", "GLU", "SELU", "Hardshrink", "Hardsigmoid", "H
            "Softsign", "Swish", "Tanh", "Tanhshrink", "ThresholdedReLU",
            "AlphaDropout", "Dropout", "Dropout2D", "Dropout3D", "Embedding", "Linear",
            "Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D", "Conv3DTranspose",
-           "Identity", "LayerList", "Sequential", *loss.__all__,
+           "Identity", "Layer", "LayerDict", "LayerList", "ParameterList", "Sequential",
+           *loss.__all__,
            "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "LayerNorm", "RMSNorm",
            "SyncBatchNorm",
            "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D", "AdaptiveMaxPool1D",

@@ -5,10 +5,10 @@ built with."""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import functional as F
-from .common import _no_attr, make_parameter
+from .. import initializer as I
+from .layers import Layer
 
 __all__ = ["ReLU", "ReLU6", "Sigmoid", "Tanh", "Silu", "Mish", "Hardswish", "Hardsigmoid",
            "Softsign", "Tanhshrink", "LogSigmoid", "GLU", "GELU", "LeakyReLU", "ELU", "CELU",
@@ -23,7 +23,7 @@ def _layer(cls_name, fn, doc, **params):
     names = tuple(params)
 
     def __init__(self, *args, name=None, **kw):
-        nn.Module.__init__(self)
+        Layer.__init__(self)
         unknown = sorted(set(kw) - set(names))
         if len(args) > len(names) or unknown:
             raise TypeError(f"{cls_name} takes {names}, got {len(args)} positional and "
@@ -36,9 +36,9 @@ def _layer(cls_name, fn, doc, **params):
     def extra_repr(self):
         return ", ".join(f"{k}={v}" for k, v in self._kw.items())
 
-    return type(cls_name, (nn.Module,), {"__init__": __init__, "forward": forward,
-                                         "extra_repr": extra_repr, "__doc__": doc,
-                                         "__module__": __name__})
+    return type(cls_name, (Layer,), {"__init__": __init__, "forward": forward,
+                                     "extra_repr": extra_repr, "__doc__": doc,
+                                     "__module__": __name__})
 
 
 ReLU = _layer("ReLU", F.relu, "``F.relu``.")
@@ -72,24 +72,22 @@ ThresholdedReLU = _layer("ThresholdedReLU", F.thresholded_relu,
 Maxout = _layer("Maxout", F.maxout, "``F.maxout``.", groups=None, axis=1)
 
 
-class PReLU(nn.Module):
+class PReLU(Layer):
     """``F.prelu`` with a learned ``weight [num_parameters]``, every entry
     ``init`` at the start."""
 
     def __init__(self, num_parameters=1, init=0.25, weight_attr=None, data_format="NCHW",
                  name=None, *, device="cuda", dtype=torch.float32):
         super().__init__()
-        _no_attr(weight_attr, "weight_attr")
         self._data_format = data_format
-        self.weight = make_parameter((num_parameters,), "zeros", device=device, dtype=dtype)
-        with torch.no_grad():
-            self.weight.fill_(init)
+        self.weight = self.create_parameter((num_parameters,), weight_attr, dtype,
+                                            default_initializer=I.Constant(init), device=device)
 
     def forward(self, x):
         return F.prelu(x, self.weight, self._data_format)
 
 
-class RReLU(nn.Module):
+class RReLU(Layer):
     """``F.rrelu``: random slopes in training, drawn from ``generator``."""
 
     def __init__(self, lower=1.0 / 8.0, upper=1.0 / 3.0, name=None, *, generator=None):

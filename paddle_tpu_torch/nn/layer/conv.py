@@ -7,10 +7,10 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
 from .. import functional as F
-from .common import _no_attr, make_parameter
+from .. import initializer as I
+from .layers import Layer
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
            "Conv3DTranspose"]
@@ -22,11 +22,12 @@ def _ntuple(v, n):
     return (v,) * n
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     """The reference's ``_ConvNd`` (``conv.py:17-49``): the weight drawn
     Kaiming-uniform with ``negative_slope = sqrt(5)``, that is uniform in
     ``+-1/sqrt(fan_in)``, and the bias uniform in the same bound, both from
-    ``generator``; ``bias_attr=False`` drops the bias."""
+    ``generator``, unless ``weight_attr`` / ``bias_attr`` say otherwise;
+    ``bias_attr=False`` drops the bias."""
 
     _spatial = 2
     _transpose = False
@@ -35,9 +36,6 @@ class _ConvNd(nn.Module):
                  output_padding=0, dilation=1, groups=1, weight_attr=None, bias_attr=None,
                  data_format="NCHW", *, device="cuda", dtype=torch.float32, generator=None):
         super().__init__()
-        _no_attr(weight_attr, "weight_attr")
-        if bias_attr is not False:
-            _no_attr(bias_attr, "bias_attr")
         self._in_channels = in_channels
         self._out_channels = out_channels
         self._kernel_size = _ntuple(kernel_size, self._spatial)
@@ -51,10 +49,10 @@ class _ConvNd(nn.Module):
                  else (out_channels, in_channels // groups)) + self._kernel_size
         fan_in = (in_channels // groups) * math.prod(self._kernel_size)
         bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
-        kw = dict(device=device, dtype=dtype, generator=generator, bound=bound)
-        self.weight = make_parameter(shape, "uniform", **kw)
-        self.bias = None if bias_attr is False else make_parameter((out_channels,), "uniform",
-                                                                   **kw)
+        kw = dict(default_initializer=I.Uniform(-bound, bound), device=device,
+                  generator=generator)
+        self.weight = self.create_parameter(shape, weight_attr, dtype, **kw)
+        self.bias = self.create_parameter((out_channels,), bias_attr, dtype, is_bias=True, **kw)
 
     def extra_repr(self):
         return (f"{self._in_channels}, {self._out_channels}, kernel_size={self._kernel_size}, "

@@ -7,12 +7,11 @@ drawn from an explicit ``generator`` on ``device``."""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...amp import cast_inputs
 from .. import functional as F
 from ..functional.loss import _adaptive_head
-from .common import make_parameter
+from .layers import Layer
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss", "BCEWithLogitsLoss",
            "SmoothL1Loss", "KLDivLoss", "MarginRankingLoss", "HingeEmbeddingLoss",
@@ -22,7 +21,7 @@ __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss", "BCEWi
            "GaussianNLLLoss", "AdaptiveLogSoftmaxWithLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean", soft_label=False,
                  axis=-1, use_softmax=True, label_smoothing=0.0, name=None):
         super().__init__()
@@ -40,7 +39,7 @@ class CrossEntropyLoss(nn.Module):
                                self.label_smoothing)
 
 
-class MSELoss(nn.Module):
+class MSELoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -49,7 +48,7 @@ class MSELoss(nn.Module):
         return F.mse_loss(input, label, self.reduction)
 
 
-class L1Loss(nn.Module):
+class L1Loss(Layer):
     def __init__(self, reduction="mean", name=None):
         super().__init__()
         self.reduction = reduction
@@ -58,7 +57,7 @@ class L1Loss(nn.Module):
         return F.l1_loss(input, label, self.reduction)
 
 
-class NLLLoss(nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean", name=None):
         super().__init__()
         self.weight = weight
@@ -69,7 +68,7 @@ class NLLLoss(nn.Module):
         return F.nll_loss(input, label, self.weight, self.ignore_index, self.reduction)
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean", name=None):
         super().__init__()
         self.weight = weight
@@ -79,7 +78,7 @@ class BCELoss(nn.Module):
         return F.binary_cross_entropy(input, label, self.weight, self.reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None, name=None):
         super().__init__()
         self.weight = weight
@@ -91,7 +90,7 @@ class BCEWithLogitsLoss(nn.Module):
                                                   self.pos_weight)
 
 
-class SmoothL1Loss(nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction="mean", delta=1.0, name=None):
         super().__init__()
         self.reduction = reduction
@@ -101,7 +100,7 @@ class SmoothL1Loss(nn.Module):
         return F.smooth_l1_loss(input, label, self.reduction, self.delta)
 
 
-class KLDivLoss(nn.Module):
+class KLDivLoss(Layer):
     def __init__(self, reduction="mean", log_target=False):
         super().__init__()
         self.reduction = reduction
@@ -111,7 +110,7 @@ class KLDivLoss(nn.Module):
         return F.kl_div(input, label, self.reduction, self.log_target)
 
 
-class MarginRankingLoss(nn.Module):
+class MarginRankingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -121,7 +120,7 @@ class MarginRankingLoss(nn.Module):
         return F.margin_ranking_loss(input, other, label, self.margin, self.reduction)
 
 
-class HingeEmbeddingLoss(nn.Module):
+class HingeEmbeddingLoss(Layer):
     def __init__(self, margin=1.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -131,7 +130,7 @@ class HingeEmbeddingLoss(nn.Module):
         return F.hinge_embedding_loss(input, label, self.margin, self.reduction)
 
 
-class CosineEmbeddingLoss(nn.Module):
+class CosineEmbeddingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -141,7 +140,7 @@ class CosineEmbeddingLoss(nn.Module):
         return F.cosine_embedding_loss(input1, input2, label, self.margin, self.reduction)
 
 
-class TripletMarginLoss(nn.Module):
+class TripletMarginLoss(Layer):
     def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False, reduction="mean",
                  name=None):
         super().__init__()
@@ -153,7 +152,7 @@ class TripletMarginLoss(nn.Module):
                                      self.epsilon, self.swap, self.reduction)
 
 
-class CTCLoss(nn.Module):
+class CTCLoss(Layer):
     """Over :func:`F.ctc_loss` (warp-ctc's semantics: a softmax inside)."""
 
     def __init__(self, blank=0, reduction="mean"):
@@ -166,7 +165,7 @@ class CTCLoss(nn.Module):
                           self.reduction, norm_by_times)
 
 
-class HSigmoidLoss(nn.Module):
+class HSigmoidLoss(Layer):
     """Hierarchical sigmoid over :func:`F.hsigmoid_loss`, owning ``weight
     [num_classes - 1, feature_size]`` and ``bias [num_classes - 1, 1]``
     (``bias_attr=False``: none)."""
@@ -180,10 +179,10 @@ class HSigmoidLoss(nn.Module):
         self.num_classes = num_classes
         self.is_custom = is_custom
         self.is_sparse = is_sparse
-        self.weight = make_parameter((num_classes - 1, feature_size), "xavier", device=device,
-                                     dtype=dtype, generator=generator)
-        self.bias = (None if bias_attr is False else
-                     make_parameter((num_classes - 1, 1), "zeros", device=device, dtype=dtype))
+        self.weight = self.create_parameter((num_classes - 1, feature_size), weight_attr,
+                                            dtype, device=device, generator=generator)
+        self.bias = self.create_parameter((num_classes - 1, 1), bias_attr, dtype, is_bias=True,
+                                          device=device, generator=generator)
 
     def forward(self, input, label, path_table=None, path_code=None):
         return F.hsigmoid_loss(input, label, self.num_classes, self.weight, bias=self.bias,
@@ -191,7 +190,7 @@ class HSigmoidLoss(nn.Module):
                                is_sparse=self.is_sparse)
 
 
-class PoissonNLLLoss(nn.Module):
+class PoissonNLLLoss(Layer):
     def __init__(self, log_input=True, full=False, epsilon=1e-8, reduction="mean", name=None):
         super().__init__()
         self.log_input = log_input
@@ -204,7 +203,7 @@ class PoissonNLLLoss(nn.Module):
                                   epsilon=self.epsilon, reduction=self.reduction)
 
 
-class RNNTLoss(nn.Module):
+class RNNTLoss(Layer):
     def __init__(self, blank=0, fastemit_lambda=0.001, reduction="mean", name=None):
         super().__init__()
         self.blank = blank
@@ -216,7 +215,7 @@ class RNNTLoss(nn.Module):
                            fastemit_lambda=self.fastemit_lambda, reduction=self.reduction)
 
 
-class MultiLabelSoftMarginLoss(nn.Module):
+class MultiLabelSoftMarginLoss(Layer):
     def __init__(self, weight=None, reduction="mean", name=None):
         super().__init__()
         self.weight = weight
@@ -227,7 +226,7 @@ class MultiLabelSoftMarginLoss(nn.Module):
                                               reduction=self.reduction)
 
 
-class TripletMarginWithDistanceLoss(nn.Module):
+class TripletMarginWithDistanceLoss(Layer):
     def __init__(self, distance_function=None, margin=1.0, swap=False, reduction="mean",
                  name=None):
         super().__init__()
@@ -242,7 +241,7 @@ class TripletMarginWithDistanceLoss(nn.Module):
             margin=self.margin, swap=self.swap, reduction=self.reduction)
 
 
-class MultiMarginLoss(nn.Module):
+class MultiMarginLoss(Layer):
     def __init__(self, p=1, margin=1.0, weight=None, reduction="mean", name=None):
         super().__init__()
         self.p = p
@@ -255,7 +254,7 @@ class MultiMarginLoss(nn.Module):
                                    weight=self.weight, reduction=self.reduction)
 
 
-class SoftMarginLoss(nn.Module):
+class SoftMarginLoss(Layer):
     def __init__(self, reduction="mean", name=None):
         super().__init__()
         self.reduction = reduction
@@ -264,7 +263,7 @@ class SoftMarginLoss(nn.Module):
         return F.soft_margin_loss(input, label, reduction=self.reduction)
 
 
-class GaussianNLLLoss(nn.Module):
+class GaussianNLLLoss(Layer):
     def __init__(self, full=False, epsilon=1e-6, reduction="mean", name=None):
         super().__init__()
         self.full = full
@@ -276,7 +275,7 @@ class GaussianNLLLoss(nn.Module):
                                    epsilon=self.epsilon, reduction=self.reduction)
 
 
-class AdaptiveLogSoftmaxWithLoss(nn.Module):
+class AdaptiveLogSoftmaxWithLoss(Layer):
     """The efficient softmax approximation (Grave et al.) over
     :func:`F.adaptive_log_softmax_with_loss`, owning ``head_weight [in,
     shortlist + clusters]``, ``head_bias`` (with ``head_bias=True``) and per
@@ -291,22 +290,22 @@ class AdaptiveLogSoftmaxWithLoss(nn.Module):
                 or len(set(cutoffs)) != len(cutoffs)):
             raise ValueError("cutoffs must be a sorted list of unique positive integers "
                              "< n_classes - 1")
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(dtype=dtype, device=device, generator=generator)
         self.in_features = in_features
         self.n_classes = n_classes
         self.cutoffs = cutoffs + [n_classes]
         self.div_value = div_value
         self.n_clusters = len(self.cutoffs) - 1
         head = cutoffs[0] + self.n_clusters
-        self.head_weight = make_parameter((in_features, head), "xavier", generator=generator,
-                                          **kw)
-        self.head_bias = make_parameter((head,), "zeros", **kw) if head_bias else None
+        self.head_weight = self.create_parameter((in_features, head), **kw)
+        self.head_bias = (self.create_parameter((head,), is_bias=True, **kw) if head_bias
+                          else None)
         self.tail_weights = []
         for i in range(self.n_clusters):
             hsz = max(1, int(in_features // (div_value ** (i + 1))))
             osz = self.cutoffs[i + 1] - self.cutoffs[i]
-            w1 = make_parameter((in_features, hsz), "xavier", generator=generator, **kw)
-            w2 = make_parameter((hsz, osz), "xavier", generator=generator, **kw)
+            w1 = self.create_parameter((in_features, hsz), **kw)
+            w2 = self.create_parameter((hsz, osz), **kw)
             setattr(self, f"tail_w1_{i}", w1)
             setattr(self, f"tail_w2_{i}", w2)
             self.tail_weights.append([w1, w2])

@@ -4,17 +4,17 @@
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...device import resolve_device
 from .. import functional as F
-from .common import _no_attr, make_parameter
+from .. import initializer as I
+from .layers import Layer
 
 __all__ = ["LayerNorm", "RMSNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "SyncBatchNorm"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """``F.layer_norm`` over the trailing ``normalized_shape`` axes:
     ``weight`` of ones and ``bias`` of zeros, each of that shape;
     ``weight_attr=False`` / ``bias_attr=False`` drop them."""
@@ -26,14 +26,10 @@ class LayerNorm(nn.Module):
             normalized_shape = (normalized_shape,)
         self._normalized_shape = tuple(normalized_shape)
         self._epsilon = epsilon
-        for what, attr in (("weight_attr", weight_attr), ("bias_attr", bias_attr)):
-            if attr is not False:
-                _no_attr(attr, what)
         shape = self._normalized_shape
-        self.weight = (None if weight_attr is False else
-                       make_parameter(shape, "ones", device=device, dtype=dtype))
-        self.bias = (None if bias_attr is False else
-                     make_parameter(shape, "zeros", device=device, dtype=dtype))
+        self.weight = self.create_parameter(shape, weight_attr, dtype,
+                                            default_initializer=I.Constant(1.0), device=device)
+        self.bias = self.create_parameter(shape, bias_attr, dtype, is_bias=True, device=device)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight, self.bias, self._epsilon)
@@ -42,21 +38,21 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self._normalized_shape}, epsilon={self._epsilon}"
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """The Llama norm: ``weight [hidden]`` of ones, ``F.rms_norm``."""
 
     def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None, name=None, *,
                  device="cuda", dtype=torch.float32):
         super().__init__()
-        _no_attr(weight_attr, "weight_attr")
         self._epsilon = epsilon
-        self.weight = make_parameter((hidden_size,), "ones", device=device, dtype=dtype)
+        self.weight = self.create_parameter((hidden_size,), weight_attr, dtype,
+                                            default_initializer=I.Constant(1.0), device=device)
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self._epsilon)
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     """``F.batch_norm`` with ``weight`` of ones and ``bias`` of zeros
     ``[num_features]`` (``weight_attr=False`` / ``bias_attr=False`` drop
     them) and the running statistics as the buffers ``_mean`` (zeros) and
@@ -68,19 +64,15 @@ class _BatchNormBase(nn.Module):
                  bias_attr=None, data_format="NCHW", use_global_stats=None, name=None, *,
                  device="cuda", dtype=torch.float32):
         super().__init__()
-        for what, attr in (("weight_attr", weight_attr), ("bias_attr", bias_attr)):
-            if attr is not False:
-                _no_attr(attr, what)
         self._num_features = num_features
         self._momentum = momentum
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
         shape = (num_features,)
-        self.weight = (None if weight_attr is False else
-                       make_parameter(shape, "ones", device=device, dtype=dtype))
-        self.bias = (None if bias_attr is False else
-                     make_parameter(shape, "zeros", device=device, dtype=dtype))
+        self.weight = self.create_parameter(shape, weight_attr, dtype,
+                                            default_initializer=I.Constant(1.0), device=device)
+        self.bias = self.create_parameter(shape, bias_attr, dtype, is_bias=True, device=device)
         dev = resolve_device(device)
         self.register_buffer("_mean", torch.zeros(shape, device=dev))
         self.register_buffer("_variance", torch.ones(shape, device=dev))

@@ -3,16 +3,16 @@ each calls its functional with the arguments it was built with."""
 
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
            "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D"]
 
 
-class _Pool(nn.Module):
+class _Pool(Layer):
     def __init__(self, kernel_size, stride, padding, **kw):
         super().__init__()
         self.kernel_size = kernel_size
@@ -85,7 +85,7 @@ class AvgPool3D(_Pool):
                          exclusive=exclusive, data_format=data_format)
 
 
-class _Adaptive(nn.Module):
+class _Adaptive(Layer):
     def __init__(self, output_size, **kw):
         super().__init__()
         self.output_size = output_size

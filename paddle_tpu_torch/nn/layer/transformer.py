@@ -19,12 +19,11 @@ from __future__ import annotations
 import copy
 
 import torch
-from torch import nn
 
 from ...device import resolve_device
 from .. import functional as F
 from .common import Dropout, Linear
-from .layers import LayerList
+from .layers import Layer, LayerList
 from .norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer", "TransformerEncoder",
@@ -40,7 +39,7 @@ def clones(layer, n: int) -> list:
     return [copy.deepcopy(layer, dict(shared)) for _ in range(n)]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """Attention with ``q_proj``, ``k_proj``, ``v_proj`` (from ``kdim`` and
     ``vdim`` when given) and ``out_proj``, each ``[in, out]`` with a bias
     unless ``bias_attr=False``; ``dropout`` is the attention probabilities'
@@ -113,7 +112,7 @@ class MultiHeadAttention(nn.Module):
         return self.Cache(empty, empty.clone())
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self-attention then a feed-forward block (``linear1``, the
     activation named by ``activation`` in ``nn.functional``, ``linear2``),
     each in a residual with ``dropout``; post-LN, or pre-LN with
@@ -163,7 +162,7 @@ class TransformerEncoderLayer(nn.Module):
         return self.self_attn.gen_cache(src)
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer`` (:func:`clones`) in turn,
     then ``norm`` if given."""
 
@@ -190,7 +189,7 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self-attention, cross-attention over ``memory``, then the
     feed-forward block, each in a residual; post-LN, or pre-LN with
     ``normalize_before``."""
@@ -250,7 +249,7 @@ class TransformerDecoderLayer(nn.Module):
         return (self.self_attn.gen_cache(memory),)
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` copies of ``decoder_layer`` (:func:`clones`) in turn,
     then ``norm`` if given."""
 
@@ -277,7 +276,7 @@ class TransformerDecoder(nn.Module):
         return [layer.gen_cache(memory) for layer in self.layers]
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """An encoder and a decoder stack (or the caller's ``custom_encoder`` /
     ``custom_decoder``); pre-LN stacks end in a ``LayerNorm``."""
 

@@ -26,10 +26,10 @@ of ``paddle_tpu/nn/quant.py``).
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..amp import cast_inputs
 from ..ops import quant_matmul as QM
+from .layer.layers import Layer
 
 __all__ = ["weight_quantize", "weight_dequantize", "weight_only_linear", "QuantizedLinear"]
 
@@ -122,7 +122,7 @@ def weight_only_linear(x, weight, bias=None, weight_scale=None, weight_dtype: st
     return out
 
 
-class QuantizedLinear(nn.Module):
+class QuantizedLinear(Layer):
     """A frozen quantized linear built from a float ``Linear`` (``weight
     [in, out]``). ``algo``: ``weight_only_int8``, ``weight_only_int4`` or
     ``weight_only_fp8``. The quantized ``weight``, the f32 ``weight_scale``

@@ -14,9 +14,8 @@ weights in construction order.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from ..nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear, MaxPool2D, ReLU,
+from ..nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Layer, Linear, MaxPool2D, ReLU,
                   Sequential)
 
 __all__ = ["LeNet", "BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resnet34",
@@ -25,7 +24,7 @@ __all__ = ["LeNet", "BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resn
            "wide_resnet50_2", "wide_resnet101_2"]
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     """``paddle.vision.models.LeNet``: two convolutions with ReLU and 2x2
     max pools over a ``[N, 1, 28, 28]`` input, then three linear layers
     (no activation between them, as the reference has it)."""
@@ -48,7 +47,7 @@ class LeNet(nn.Module):
         return x
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     """Two 3x3 convolutions with batch norms and a residual; ``groups``,
     ``base_width`` and ``dilation`` are taken and ignored, as in the
     reference."""
@@ -79,7 +78,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     """1x1, 3x3 (grouped, dilated) and 1x1 convolutions with batch norms
     and a residual; the inner width is ``planes * base_width / 64 *
     groups``."""
@@ -114,7 +113,7 @@ class BottleneckBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     """``paddle.vision.models.ResNet``: a 7x7 stride-2 stem with batch norm,
     ReLU and a 3x3 stride-2 max pool, four stages of ``block`` (depths 18,
     34, 50, 101 or 152), then (``with_pool``) a global average pool and

@@ -263,7 +263,11 @@ def test_attrs_and_dtypes():
     assert bn._mean.dtype == torch.float32
     out = bn(torch.randn(2, 4, 3, 3).bfloat16())
     assert out.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
+    held = pnn.BatchNorm2D(4, bias_attr=pnn.ParamAttr(
+        initializer=pnn.initializer.Constant(0.5), learning_rate=0.1), device="cpu")
+    assert torch.equal(held.bias, torch.full((4,), 0.5))
+    assert held.bias.optimize_attr == {"learning_rate": 0.1}
+    with pytest.raises(TypeError):
         pnn.BatchNorm2D(4, weight_attr=object(), device="cpu")
     bn = pnn.BatchNorm2D(4, device="cpu").bfloat16()
     assert bn._mean.dtype == torch.bfloat16 and "num_batches_tracked" not in bn.state_dict()

@@ -15,7 +15,7 @@
   before its one rounding);
 - the layers: parameter names, shapes and dtypes, the initial draw's
   bound ``1/sqrt(fan_in)`` (Kaiming-uniform with ``negative_slope =
-  sqrt(5)``), ``bias_attr=False``, a ``ParamAttr`` refused, seeded draws
+  sqrt(5)``), ``bias_attr=False``, a ``ParamAttr`` honoured, seeded draws
   equal, forward against the reference layer with its weights by key;
 - ``amp.auto_cast`` O1 runs conv in bf16 (a white-list op) on both
   sides; ``full_f32`` leaves cuDNN's TF32 setting as it found it.
@@ -258,8 +258,14 @@ def test_conv_layer_initial_draw():
     assert grouped.weight.dtype == torch.bfloat16
     assert float(grouped.weight.detach().abs().max()) <= 1.0 / np.sqrt(2 * 9)
     for attr in ("weight_attr", "bias_attr"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError):
             pnn.Conv2D(2, 2, 3, **{attr: object()}, device="cpu")
+    dirac = pnn.Conv2D(2, 2, 3, padding=1, weight_attr=pnn.initializer.Dirac(),
+                       bias_attr=pnn.ParamAttr(name="b", initializer=pnn.initializer.Constant(0.0)),
+                       device="cpu")
+    assert dirac.bias.paddle_name == "b"
+    x = torch.randn(1, 2, 5, 5)
+    assert torch.equal(dirac(x), x)
     with pytest.raises(NotImplementedError):
         pnn.Conv2D(2, 2, 3, padding_mode="reflect", device="cpu")
 

@@ -274,3 +274,29 @@ def test_model_save_and_load_across_the_packages(tmp_path):
         np.testing.assert_array_equal(v.detach().numpy(), _state(ref2.network)[k])
     with pytest.raises(ValueError, match="shape"):
         ptorch.Model(pvision.LeNet(num_classes=3, device="cpu")).load(str(tmp_path / "ref" / "m"))
+
+
+def test_model_takes_a_plain_torch_module(tmp_path):
+    """A ``torch.nn.Module`` that is not an ``nn.Layer`` is a network too:
+    ``parameters`` is a list, ``save`` writes a tied weight once under its
+    first name, ``load`` reads it back by key."""
+
+    class Tied(torch.nn.Module):
+        def __init__(self, seed):
+            super().__init__()
+            gen = torch.Generator().manual_seed(seed)
+            self.emb = torch.nn.Parameter(torch.randn(5, 3, generator=gen))
+            self.head = torch.nn.Linear(3, 5)
+            self.head.weight = self.emb
+
+    net = Tied(0)
+    model = ptorch.Model(net)
+    params = model.parameters()
+    assert isinstance(params, list) and len(params) == 2
+    model.save(str(tmp_path / "m"), training=False)
+    saved = ptorch.load(str(tmp_path / "m.pdparams"))
+    assert sorted(saved) == ["emb", "head.bias"]
+    back = ptorch.Model(Tied(1))
+    back.load(str(tmp_path / "m"))
+    assert torch.equal(back.network.head.weight, net.emb)
+    assert torch.equal(back.network.head.bias, net.head.bias)

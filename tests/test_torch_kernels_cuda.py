@@ -48,7 +48,11 @@ optimizer once a step; and the Mixture-of-Experts layer: dense and sort
 dispatch on the card (decisions, aux losses and two sort runs bit for bit,
 values in f32), an MoE Llama on the card against the CPU in f32, and step
 1's gradients under each recompute policy against none's with the
-recomputed forwards' launches counted.
+recomputed forwards' launches counted; and the op surface: each op's
+first case of ``paddle_tpu_torch.tools.op_cases`` on the card against the
+CPU, and one eager step of chip_smoke's ``OpsLlama`` (nn.Layer,
+create_parameter, public ops) with its flash, RMSNorm and fused-update
+launches counted.
 """
 
 import contextlib
@@ -1863,3 +1867,80 @@ def test_moe_recompute_policies_on_the_card(dev):
     out = cs.moe_recompute_grads(model, cs.token_batch(np.random.RandomState(1), 512, 4096))
     print(f"moe recompute card test: {out}")
     assert set(out) == {"none", "every_layer", "selective"}
+
+
+# the op surface: each op's first case of paddle_tpu_torch.tools.op_cases on
+# the card against the CPU (chip_smoke.py phase 23b runs every case), one
+# test a group of the registry's modules; drawing ops by shape, dtype, their
+# check of values and replay from one generator state
+OP_GROUPS = (("math", "logic"), ("manipulation", "search"), ("creation", "linalg"), ("nn_",))
+
+
+@pytest.mark.parametrize("group", OP_GROUPS, ids=[g[0] for g in OP_GROUPS])
+def test_op_surface_on_the_card_matches_the_cpu(dev, group):
+    from paddle_tpu_torch.ops.registry import OP_REGISTRY
+    from paddle_tpu_torch.tools import op_cases as oc
+
+    firsts = {}
+    for n, case in enumerate(oc.CASES):
+        if case.op not in firsts and OP_REGISTRY[case.op].module.startswith(group):
+            firsts[case.op] = n
+    res = oc.card_vs_cpu(0, only=sorted(firsts.values()))
+    print(f"op surface card test {group}: {res['held']} held, worst {res['worst']} "
+          f"at {res['worst_case']}")
+    assert res["failures"] == [] and res["held"] == len(firsts) > 0
+
+
+# a layer's default draw on the card comes from the port's generator of the
+# card: seed(0) twice gives the same Linear, Conv2D (bias included) and
+# Embedding, and torch's own CUDA generator is neither read nor advanced
+def test_layer_default_draws_follow_the_ports_seed_on_the_card(dev):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+
+    def build():
+        paddle.seed(0)
+        layers = (nn.Linear(64, 32), nn.Conv2D(4, 8, 3), nn.Embedding(16, 8))
+        return [t.detach().clone() for m in layers for t in m.state_dict().values()]
+
+    saved = torch.cuda.get_rng_state()
+    try:
+        a = build()
+        assert torch.equal(torch.cuda.get_rng_state(), saved)
+        torch.cuda.manual_seed(12345)
+        b = build()
+    finally:
+        torch.cuda.set_rng_state(saved)
+    assert all(t.is_cuda for t in a) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# chip_smoke.py phase 23a at a small width (hidden 512, 4 heads of 128, 2
+# layers, S 512): OpsLlama's eager step (loss.backward(); opt.step();
+# opt.clear_grad()) launches flash forward and backward once a layer, RMSNorm
+# fused 2 L + 1 times each way and the fused update once; its loss equals
+# LlamaForCausalLM's with the same weights bit for bit
+def test_ops_llama_eager_step_launches_the_kernels(dev):
+    import chip_smoke as cs
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig.tiny(hidden_size=512, intermediate_size=1024, num_attention_heads=4,
+                           num_key_value_heads=2, vocab_size=4096)
+    model = cs.ops_llama_class()(cfg, dtype="bfloat16")
+    ref = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    assert model.set_state_dict(ref.state_dict()) == ([], [])
+    assert model.parameters()[0].device.type == "cuda"
+    ids, labels = cs.token_batch(np.random.RandomState(0), 512, 4096)
+    opt = AdamW(3e-4, parameters=model.parameters(), weight_decay=0.1,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    counters = cs.training_counters()
+    cs.zero_counts(counters)
+    loss = model(ids, labels=labels)[0]
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    want = cs.expected_launches(cfg.num_hidden_layers, traced=False)
+    want.update(multi_tensor_update=1, multi_tensor_update_direct=1)
+    assert cs.read_counts(counters) == want
+    assert float(loss) == float(ref(ids, labels=labels)[0])

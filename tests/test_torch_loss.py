@@ -230,8 +230,12 @@ def _ref_call(name, arrays, kw):
     return fn(*args, **_kw(kw, Tensor))
 
 
-# these cases' reference functionals read some inputs on the host: they cannot be jitted
-_HOST_READS = ("hsigmoid_custom", "adaptive_log_softmax")
+# these cases' reference functionals run eagerly: two read some inputs on the
+# host, and hsigmoid's default tree is memoized (functools.lru_cache on
+# _hsigmoid_tree), so built under jit it would cache a tracer that the next
+# eager caller in the process reads (tests/test_nn_layers_r4.py's hsigmoid
+# test failed after this file in one process)
+_HOST_READS = ("hsigmoid", "hsigmoid_custom", "adaptive_log_softmax")
 
 
 def _reference(cid, name, arrays, diff, cot, kw):

@@ -124,7 +124,11 @@ def test_layer_norm_layer():
     np.testing.assert_allclose(port_ln(_t(x)).detach().numpy(),
                                ref_ln(paddle.to_tensor(x)).numpy(), rtol=FUNC_TOL,
                                atol=FUNC_TOL)
-    with pytest.raises(NotImplementedError, match="ParamAttr"):
+    # a ParamAttr is honoured (its initializer, trainable); a non-attribute raises
+    held = pnn.LayerNorm(16, weight_attr=pnn.ParamAttr(initializer=pnn.initializer.Constant(2.0),
+                                                        trainable=False), device="cpu")
+    assert torch.equal(held.weight, torch.full((16,), 2.0)) and not held.weight.requires_grad
+    with pytest.raises(TypeError, match="ParamAttr"):
         pnn.LayerNorm(16, weight_attr=object(), device="cpu")
 
 
