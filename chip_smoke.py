@@ -340,7 +340,34 @@ Phases, each printing one line of numbers:
    bit-identical ``create_parameter`` draws, layers' default draws and
    dropout masks on the card,
    ``get_cuda_rng_state`` / ``set_cuda_rng_state`` replay, and a
-   ``PyLayer``'s gradient equals the plain composition's.
+   ``PyLayer``'s gradient equals the plain composition's;
+24. multi-process training (``paddle_tpu_torch/tools/dist_train.py``, its
+   ranks started through ``python -m paddle_tpu_torch.distributed.launch``
+   after the parent frees its cached memory; a rank's non-zero exit fails
+   the phase): (24a) one rank on NCCL: ``fleet.init`` with
+   ``sharding_degree=1``, ``group_sharded_parallel(level="p_g_os")`` and
+   ``TrainStep`` on the sharded model with phase 7's AdamW and clip; at
+   the step-check cell step 1's loss and every parameter bit for bit
+   against a plain ``TrainStep`` (one rank: no collective runs, and the
+   clip's squared norms are summed in the same order), then phase 7's cell (4 layers, batch 1 x 8192): a warm-up and 3
+   timed steps with exact launches (flash 4 each way a step, RMSNorm
+   ``round_first`` 9 each way, the fused update 1), the collectives a step
+   by kind (the port's counters), step ms beside phase 7's ``TrainStep``,
+   peak memory and one profiled step's busy share; (24b) two ranks on the
+   one card over gloo: ``DataParallel`` with the bucketed reducer at the
+   step-check cell, each rank on its row of a batch of 2 x 2048, one eager
+   AdamW step: the gradients after the reduce and the parameters after the
+   step bit-identical across the ranks (a checksum each), rank 0's
+   reduced gradients against a one-process backward on the whole batch
+   (each leaf's largest difference within ``dist_train.GRAD_TOL`` of its
+   largest entry) and two planted faults, the gradient not divided by the
+   world and rank 0's local gradient, refused by that check; rank 0's
+   parameters against a one-process ``TrainStep`` on the whole batch
+   within 2 lr plus one bf16 rounding (loose: AdamW's first step is about
+   lr times the gradient's sign), the buckets fired and
+   ``comm_buffer_size``, exact launches
+   each rank (flash 2 each way, RMSNorm fused 5 each way, the fused update
+   1).
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -366,7 +393,9 @@ and in its master mode from phase 18's O2 steps and phase 19e's, with its
 numbers from 18d; flash and
 RMSNorm also count phase 18's and phase 23a's timed steps, flash, RMSNorm's ``round_first``
 mode and the fused optimizer phase 22a's timed steps, the optimizer 22d's
-steps too), and last ``{"ok": true,
+steps too; flash, RMSNorm's ``round_first`` mode and the fused optimizer
+phase 24a's three timed steps, flash, RMSNorm's fused mode and the fused
+optimizer phase 24b's step on each of its two ranks), and last ``{"ok": true,
 "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
@@ -6987,6 +7016,110 @@ def ops_phase(seed: int, train_step_ms: float) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 24: multi-process training through the launcher
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT_S = 400
+DIST_COMM_BUFFER_MB = 25
+
+
+def run_ranks(phase: str, nproc: int, seed: int, env: dict | None = None) -> list:
+    """Launch ``nproc`` ranks of ``tools/dist_train.py --phase <phase>``
+    through the port's launcher; print their ``[dist-...]`` lines and return
+    each rank's results. A non-zero exit, or the time limit (every rank is
+    then stopped), raises."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix=f"dist_{phase}_")
+    log = os.path.join(out, "log")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch", "--nproc_per_node",
+           str(nproc), "--log_dir", log, "paddle_tpu_torch/tools/dist_train.py", "--phase",
+           phase, "--out", out, "--seed", str(seed), "--comm-buffer-size",
+           str(DIST_COMM_BUFFER_MB), "--layers", str(TRAIN_LAYERS), "--seq", str(TRAIN_SEQ),
+           "--steps", str(TRAIN_STEPS), "--check-layers", str(CHECK_LAYERS), "--check-seq",
+           str(CHECK_SEQ)]
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=dict(os.environ, **(env or {})),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        text, _ = proc.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGTERM)
+        text, _ = proc.communicate(timeout=60)
+        text = f"timed out after {DIST_TIMEOUT_S} s\n{text}"
+    logs = []
+    for r in range(nproc):
+        path = os.path.join(log, f"workerlog.{r}")
+        logs.append(open(path).read() if os.path.exists(path) else "")
+        for line in logs[-1].splitlines():
+            if line.startswith("[dist-"):
+                print(line, flush=True)
+    if proc.returncode != 0:
+        tails = "\n".join(f"--- rank {r} ---\n" + "\n".join(lg.splitlines()[-40:])
+                          for r, lg in enumerate(logs))
+        raise AssertionError(f"phase 24{phase}: the launch exited with {proc.returncode}\n"
+                             f"{text[-3000:]}\n{tails}")
+    res = [json.load(open(os.path.join(out, f"dist_{phase}.{r}.json"))) for r in range(nproc)]
+    shutil.rmtree(out, ignore_errors=True)
+    return res
+
+
+def dist_phase(seed: int, train_step_ms: float) -> dict:
+    """Phase 24 (24a, 24b): returns the launches of each."""
+    import torch
+
+    torch.cuda.empty_cache()
+    (a,) = run_ranks("a", 1, seed)
+    per_step = expected_launches(TRAIN_LAYERS)
+    want = {"flash_wgmma_fwd": per_step["flash_wgmma_fwd"] * TRAIN_STEPS,
+            "flash_wgmma_bwd": per_step["flash_wgmma_bwd"] * TRAIN_STEPS,
+            "rms_norm_fwd_round_first": per_step["rms_norm_fwd_round_first"] * TRAIN_STEPS,
+            "rms_norm_bwd_dx_round_first": per_step["rms_norm_bwd_dx_round_first"] * TRAIN_STEPS,
+            "rms_norm_fwd_fused": 0, "rms_norm_bwd_dx_fused": 0,
+            "multi_tensor_update": per_step["multi_tensor_update"] * TRAIN_STEPS}
+    if a["launches"] != want:
+        raise AssertionError(f"phase 24a launched {a['launches']}, expected {want}")
+    if a["backend"] != "nccl" or a["world"] != 1:
+        raise AssertionError(f"phase 24a ran on {a['backend']} at world {a['world']}")
+    say("dist-a", step_ms_mean=a["step_ms_mean"], train_step_ms=round(train_step_ms, 3),
+        step_ms_ratio_to_train=round(a["step_ms_mean"] / train_step_ms, 4),
+        collectives_per_step=json.dumps(a["collectives_per_step"]),
+        check_params_equal=f"{a['check_params_equal']}/{a['check_params']}")
+    ranks = run_ranks("b", 2, seed, {"PADDLE_DISTRI_BACKEND": "gloo"})
+    b0, b1 = ranks
+    for key in ("grad_checksums", "param_checksums"):
+        if b0[key] != b1[key]:
+            bad = [n for n in b0[key] if b0[key][n] != b1[key][n]]
+            raise AssertionError(f"phase 24b: the ranks' {key} differ at {bad}")
+    per_rank = expected_launches(CHECK_LAYERS, traced=False)
+    want_b = {"flash_wgmma_fwd": per_rank["flash_wgmma_fwd"],
+              "flash_wgmma_bwd": per_rank["flash_wgmma_bwd"],
+              "rms_norm_fwd_round_first": 0, "rms_norm_bwd_dx_round_first": 0,
+              "rms_norm_fwd_fused": per_rank["rms_norm_fwd_fused"],
+              "rms_norm_bwd_dx_fused": per_rank["rms_norm_bwd_dx_fused"],
+              "multi_tensor_update": 1}
+    for r in ranks:
+        if r["launches"] != want_b or r["backend"] != "gloo":
+            raise AssertionError(f"phase 24b rank {r['rank']} launched {r['launches']} on "
+                                 f"{r['backend']}, expected {want_b} on gloo")
+    say("dist-b", ranks=len(ranks), devices=json.dumps([r["device"] for r in ranks]),
+        grads_bit_identical=True, params_bit_identical=True,
+        buckets=json.dumps(b0["buckets"]), comm_buffer_size_mb=b0["comm_buffer_size_mb"],
+        grad_vs_ref_max_rel=b0["grad_vs_ref_max_rel"],
+        grad_vs_ref_worst_leaf=b0["grad_vs_ref_worst_leaf"],
+        grad_vs_ref_tol=b0["grad_vs_ref_tol"],
+        planted_faults_max_rel=json.dumps(b0["planted_faults_max_rel"]),
+        vs_trainstep_max_abs_diff=b0["vs_trainstep_max_abs_diff"],
+        vs_trainstep_tol=b0["vs_trainstep_tol"])
+    launches = {k: a["launches"][k] + sum(r["launches"][k] for r in ranks)
+                for k in a["launches"]}
+    return {"a": a["launches"], "b": {k: sum(r["launches"][k] for r in ranks)
+                                      for k in want_b}, "all": launches}
+
+
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
 
 
@@ -7278,6 +7411,8 @@ def main(argv=None) -> int:
     lap("22")
     ops_launches = ops_phase(args.seed, trained["step_ms"])
     lap("23")
+    dist_launches = dist_phase(args.seed, trained["step_ms"])["all"]
+    lap("24")
     amp_launches = {k: amp_o2["launches"][k] + amp_o1["launches"][k] for k in amp_o2["launches"]}
 
     kernels = [
@@ -7312,18 +7447,22 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": f"paddle_tpu/ops/pallas/{replaces}",
             "launches": (train_launches[wrapper] + amp_launches[wrapper]
-                         + moe_launches["train"][wrapper] + ops_launches[wrapper]), **nums})
+                         + moe_launches["train"][wrapper] + ops_launches[wrapper]
+                         + dist_launches[wrapper]), **nums})
         kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                               f"({TRAIN_LAYERS} layers), the {TRAIN_STEPS} timed AMP steps "
                               f"of each level (phase 18, bf16), the {MOE_STEPS} timed steps "
                               f"of the Mixtral cell (phase 22a, {MOE_LAYERS} layers, S "
-                              f"{MOE_SEQ}) and the {TRAIN_STEPS} timed eager steps of "
-                              f"OpsLlama (phase 23a: scaled_dot_product_attention)")
+                              f"{MOE_SEQ}), the {TRAIN_STEPS} timed eager steps of "
+                              f"OpsLlama (phase 23a: scaled_dot_product_attention), the "
+                              f"{TRAIN_STEPS} timed steps of phase 24a (one NCCL rank, "
+                              f"{TRAIN_LAYERS} layers) and phase 24b's step on each of its two "
+                              f"gloo ranks ({CHECK_LAYERS} layers, S {CHECK_SEQ})")
     for name, nums, launches in (
             ("rms_norm_fwd", norm_fwd, norm_launches["fwd"] + amp_launches["rms_norm_fwd_fused"]
-             + ops_launches["rms_norm_fwd_fused"]),
+             + ops_launches["rms_norm_fwd_fused"] + dist_launches["rms_norm_fwd_fused"]),
             ("rms_norm_bwd", norm_bwd, norm_launches["bwd"] + amp_launches["rms_norm_bwd_dx_fused"]
-             + ops_launches["rms_norm_bwd_dx_fused"])):
+             + ops_launches["rms_norm_bwd_dx_fused"] + dist_launches["rms_norm_bwd_dx_fused"])):
         kernels.append({
             "name": name, "route": "cuda", "source": "paddle_tpu_torch/csrc/rms_norm.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_norm.py:79", "launches": launches, **nums})
@@ -7331,7 +7470,8 @@ def main(argv=None) -> int:
                               "takes round_first): launches from phase 5's checks, in f32 "
                               "(amp casts a norm's inputs to f32) the timed AMP steps of "
                               "phase 18, and in bf16 the timed eager steps of OpsLlama (phase "
-                              "23a: nn.functional.rms_norm)")
+                              "23a: nn.functional.rms_norm) and phase 24b's eager step on each "
+                              "of its two ranks")
     for name, source, replaces, nums, launches in (
             ("flash_attention_fwd_f32", "flash_attention.cu", "flash_attention.py:112",
              f32_fwd, f32_launches["flash_f32_fwd"]),
@@ -7379,14 +7519,17 @@ def main(argv=None) -> int:
              fp16_tc_launches, "phase 2's held calls (no serving path runs M > 64)"),
             ("rms_norm_fwd_round_first", "rms_norm.cu", "fused_norm.py:79", rms_rf[0],
              train_launches["rms_norm_fwd_round_first"]
-             + moe_launches["train"]["rms_norm_fwd_round_first"],
+             + moe_launches["train"]["rms_norm_fwd_round_first"]
+             + dist_launches["rms_norm_fwd_round_first"],
              f"the {TRAIN_STEPS} timed training steps (TrainStep runs the composed form's "
-             f"rounding) and the {MOE_STEPS} timed steps of the Mixtral cell (phase 22a)"),
+             f"rounding), the {MOE_STEPS} timed steps of the Mixtral cell (phase 22a) and the "
+             f"{TRAIN_STEPS} timed steps of phase 24a (TrainStep on the sharded model)"),
             ("rms_norm_bwd_round_first", "rms_norm.cu", "fused_norm.py:79", rms_rf[1],
              train_launches["rms_norm_bwd_dx_round_first"]
-             + moe_launches["train"]["rms_norm_bwd_dx_round_first"],
-             f"the {TRAIN_STEPS} timed training steps and the {MOE_STEPS} timed steps of the "
-             "Mixtral cell (phase 22a)"),
+             + moe_launches["train"]["rms_norm_bwd_dx_round_first"]
+             + dist_launches["rms_norm_bwd_dx_round_first"],
+             f"the {TRAIN_STEPS} timed training steps, the {MOE_STEPS} timed steps of the "
+             f"Mixtral cell (phase 22a) and the {TRAIN_STEPS} timed steps of phase 24a"),
             ("flash_attention_fwd_wide", "flash_attention.cu", "flash_attention.py:112",
              wide_flash[0], wide_flash_launches,
              "nn.functional.flash_attention past 256 columns (no model path runs them)"),
@@ -7430,7 +7573,8 @@ def main(argv=None) -> int:
                      + amp_launches["multi_tensor_update_direct"] + ernie_launches["direct"]
                      + vision_launches["resnet50"] + vision_launches["lenet"]
                      + sum(hapi_launches.values()) + moe_launches["train"]["multi_tensor_update"]
-                     + moe_launches["bench"] + ops_launches["multi_tensor_update"]),
+                     + moe_launches["bench"] + ops_launches["multi_tensor_update"]
+                     + dist_launches["multi_tensor_update"]),
         **fused_opt})
     kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                           f"({TRAIN_LAYERS} layers, one AdamW update a step), the "
@@ -7453,7 +7597,9 @@ def main(argv=None) -> int:
                           f"{MOE_BENCH_TENSORS} tensors, one a step), and phase 23a: OpsLlama's "
                           f"{TRAIN_STEPS} timed eager steps ({ops_launches['multi_tensor_update']}"
                           f": opt.step() of AdamW over {9 * TRAIN_LAYERS + 3} bf16 tensors, one "
-                          "a step)")
+                          f"a step), and phase 24: 24a's {TRAIN_STEPS} timed steps (the sharded "
+                          "update over one NCCL rank, one a step) and 24b's eager step on each "
+                          "of its two gloo ranks (one each)")
     kernels.append({
         "name": "multi_tensor_update_master", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",

@@ -1,20 +1,42 @@
-"""``paddle.distributed`` of the port, for one process so far.
+"""``paddle.distributed`` of the port (counterpart of
+``paddle_tpu/distributed/__init__.py:13-38``).
 
-Counterpart of ``paddle_tpu/distributed/``: the mesh (``ProcessMesh``,
-``set_mesh``, ``get_mesh``, ``auto_mesh``), ``parallelize``, activation
-recompute (``recompute``, ``recompute_sequential``; the module
-``distributed/recompute.py`` also holds the policies), and under ``fleet`` the ring's context
-parallelism (``fleet.sequence_parallel``) and the Mixture-of-Experts layer
-(``fleet.moe``, its experts on this device). A mesh holds the virtual
-ranks of one process on one device; process groups, collectives, expert
-parallelism across devices and the other strategies wait for the
-distributed slice of the port.
+One process a device, as Paddle runs: the environment
+(``init_parallel_env``, ``get_rank``, ``get_world_size``, ``ParallelEnv``),
+the launcher (``python -m paddle_tpu_torch.distributed.launch``) and
+``spawn``, the collectives over ``torch.distributed`` (NCCL on the card,
+gloo on the CPU), ``DataParallel`` with its bucketed reducer, the mesh
+(``ProcessMesh`` and the meshes of fleet and of the partitioning tier),
+``parallelize`` with the ZeRO stages, ``shard_dataloader``, activation
+recompute, sharded checkpoints (:mod:`.checkpoint`), the partitioning tier
+(:mod:`.partitioning`) and :mod:`.fleet` (``fleet.init``, the topology,
+``group_sharded_parallel``, the ring's context attention on one device and
+the Mixture-of-Experts layer). Tensor parallelism, the pipeline, ``sep``
+across processes and experts across devices wait for later slices and
+raise.
 """
 
-from . import fleet  # noqa: F401
-from .mesh import ProcessMesh, auto_mesh, get_mesh, set_mesh
-from .parallelize import parallelize
+from . import checkpoint, env, fleet, partitioning  # noqa: F401
+from .collective import (P2POp, ReduceOp, Group, all_gather, all_gather_object, all_reduce,
+                         all_to_all, all_to_all_single, barrier, batch_isend_irecv, broadcast,
+                         broadcast_object_list, destroy_process_group, fused_allreduce, gather,
+                         get_group, irecv, isend, new_group, recv, reduce, reduce_scatter,
+                         scatter, send, split_group, wait)
+from .data_parallel import DataParallel
+from .env import ParallelEnv, get_rank, get_world_size, init_parallel_env, is_initialized
+from .mesh import (ProcessMesh, auto_mesh, build_program_mesh, get_mesh, init_hybrid_mesh,
+                   init_mesh_from_topology, set_mesh)
+from .parallelize import ShardDataloader, parallelize, shard_dataloader
 from .recompute import recompute, recompute_sequential
+from .spawn import spawn
 
-__all__ = ["ProcessMesh", "auto_mesh", "get_mesh", "set_mesh", "parallelize", "fleet",
-           "recompute", "recompute_sequential"]
+__all__ = ["ProcessMesh", "auto_mesh", "get_mesh", "set_mesh", "init_hybrid_mesh",
+           "init_mesh_from_topology", "build_program_mesh", "parallelize", "ShardDataloader",
+           "shard_dataloader", "fleet", "checkpoint", "partitioning", "env", "recompute",
+           "recompute_sequential", "init_parallel_env", "get_rank", "get_world_size",
+           "is_initialized", "ParallelEnv", "spawn", "DataParallel", "ReduceOp", "Group",
+           "P2POp", "new_group", "get_group", "split_group", "all_reduce", "all_gather",
+           "all_gather_object", "reduce_scatter", "all_to_all", "all_to_all_single",
+           "broadcast", "broadcast_object_list", "reduce", "scatter", "gather", "send", "recv",
+           "isend", "irecv", "batch_isend_irecv", "barrier", "wait", "fused_allreduce",
+           "destroy_process_group"]

@@ -1,0 +1,418 @@
+"""Parameters kept as shards, and the optimizer step over them: the
+machinery of the ZeRO stages (``fleet.sharding``, ``parallelize``) and of
+the partitioning tier (``partitioning``).
+
+A sharded tensor carries a :class:`ShardInfo`: its full shape, the one dim
+cut over a group of ``k`` ranks (the shard axis, ``fsdp`` or ``sharding``),
+this rank's slice of it, and the replica group, the data ranks that hold
+the same slice. Each parameter stays a tensor of its own; nothing is
+flattened across parameters at rest.
+
+- **Stage 3** (``at_rest``): the parameter's data is its slice.
+  :func:`install_gathers` wraps each block of the model (the children of
+  its ``LayerList``s, as ``distributed.recompute`` finds them; the rest of
+  the parameters gather at the model's own forward) so that its sliced
+  parameters are all-gathered, one collective a dtype, just before the
+  block runs, and their gradients reduce-scattered to the slices in the
+  backward (then summed over the replica group and divided by the number
+  of data ranks). Under a recompute policy the gather sits inside the
+  recomputed function: the backward gathers again, and no full parameter
+  outlives the forward. Without one, autograd keeps the gathered
+  parameters that the backward reads until it has run.
+- **Stages 1 and 2**: the parameter stays whole; the optimizer state
+  covers its slice. Stage 1 all-reduces the gradient, stage 2
+  reduce-scatters it to the slice; after the update the slices are
+  all-gathered into the parameter.
+- A parameter without a divisible dim stays whole. Its gradient, and
+  stage 1's, is all-reduced over the data ranks by one
+  ``fused_allreduce`` a dtype after the backward, not overlapped with it
+  (``DataParallel``'s buckets are); at one data rank there is nothing to
+  sum and no collective runs.
+
+:class:`ShardedUpdate` is one optimizer step: reduce, clip (the global
+norm sums the squared norms of the slices over the shard group, and those
+of the whole parameters once, before the square root), update every
+slice in place with the fused kernel (``optimizer.fused_step``: one launch
+for up to 128 tensors), then gather stages 1 and 2. A two-byte float
+gradient is reduced in f32 over gloo, whose reductions run on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import collective as _c
+
+__all__ = ["ShardInfo", "info_of", "place", "gather_full", "install_gathers",
+           "ShardedUpdate"]
+
+
+@dataclasses.dataclass(eq=False)
+class ShardInfo:
+    full_shape: tuple
+    dim: int | None            # the dim cut over ``group`` (None: whole)
+    group: object              # the shard axis's group (k ranks)
+    replica_group: object      # the data ranks holding the same slice
+    at_rest: bool              # the tensor's data is the slice (stage 3)
+
+    @property
+    def k(self) -> int:
+        return self.group.nranks if self.dim is not None else 1
+
+    @property
+    def index(self) -> tuple:
+        """This rank's slice of the full tensor."""
+        idx = [slice(0, n) for n in self.full_shape]
+        if self.dim is not None:
+            n = self.full_shape[self.dim] // self.k
+            c = self.group.rank
+            idx[self.dim] = slice(c * n, (c + 1) * n)
+        return tuple(idx)
+
+    @property
+    def shard_shape(self) -> tuple:
+        return tuple(s.stop - s.start for s in self.index)
+
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes the slice to a checkpoint (the first
+        of its replicas)."""
+        rg = self.replica_group
+        return rg is None or rg.rank == 0
+
+
+def register(t, info) -> None:
+    t.dist_shard = info
+
+
+def info_of(t) -> ShardInfo | None:
+    """The :class:`ShardInfo` that ``t`` carries (``Layer.state_dict()``
+    carries it onto its detached copies), None when it has none."""
+    return getattr(t, "dist_shard", None)
+
+
+def divisible_dim(shape, k, largest=False):
+    """The dim to cut over ``k`` ranks: the first divisible one, or the
+    largest (the first of equals); None when none divides."""
+    dims = range(len(shape))
+    if largest:
+        dims = sorted(dims, key=lambda d: -shape[d])
+    for d in dims:
+        if k > 1 and shape[d] % k == 0:
+            return d
+    return None
+
+
+def place(p, info: ShardInfo) -> None:
+    """Record ``info`` on parameter ``p``; at rest, keep only its slice."""
+    if info.at_rest and info.dim is not None:
+        with torch.no_grad():
+            p.data = p.data[info.index].clone()
+    register(p, info)
+
+
+def _reduce_dtype(dtype, group):
+    if dtype in (torch.bfloat16, torch.float16) and group is not None \
+            and group.backend == "gloo":
+        return torch.float32
+    return dtype
+
+
+def _to_rows(full, info):
+    """``full`` as [k, numel / k], row r the slice of rank r."""
+    d, k = info.dim, info.k
+    shape = full.shape
+    return full.reshape(shape[:d] + (k, shape[d] // k) + shape[d + 1:]).movedim(d, 0) \
+        .reshape(k, -1)
+
+
+def _from_rows(rows, info):
+    """The full tensor from [k, numel / k] rows of slices."""
+    d, k = info.dim, info.k
+    shard = info.shard_shape
+    return rows.reshape((k,) + shard).movedim(0, d).reshape(info.full_shape)
+
+
+def gather_many(shards, infos):
+    """The full tensors of ``shards`` (all cut over one group), one
+    all-gather a dtype."""
+    group = infos[0].group
+    out = [None] * len(shards)
+    by_dtype: dict = {}
+    for i, s in enumerate(shards):
+        by_dtype.setdefault(s.dtype, []).append(i)
+    for dtype in sorted(by_dtype, key=str):
+        idx = by_dtype[dtype]
+        flat = torch.cat([shards[i].reshape(-1) for i in idx])
+        rows = torch.empty((group.nranks, flat.numel()), dtype=dtype, device=flat.device)
+        _c.all_gather(rows, flat, group=group)
+        off = 0
+        for i in idx:
+            n = shards[i].numel()
+            out[i] = _from_rows(rows[:, off:off + n], infos[i])
+            off += n
+    return out
+
+
+def reduce_many(fulls, infos, divisor):
+    """Each full gradient's slice summed over the shard group (one
+    reduce-scatter a dtype), then over the replica group, then divided by
+    ``divisor``: the mean over the data ranks, in the gradients' dtypes."""
+    group, replicas = infos[0].group, infos[0].replica_group
+    out = [None] * len(fulls)
+    by_dtype: dict = {}
+    for i, g in enumerate(fulls):
+        by_dtype.setdefault(g.dtype, []).append(i)
+    for dtype in sorted(by_dtype, key=str):
+        idx = by_dtype[dtype]
+        rdt = _reduce_dtype(dtype, group)
+        rows = torch.cat([_to_rows(fulls[i].to(rdt), infos[i]) for i in idx], dim=1)
+        flat = torch.empty(rows.shape[1], dtype=rdt, device=rows.device)
+        _c.reduce_scatter(flat, rows.reshape(-1), group=group)
+        if replicas is not None and replicas.nranks > 1:
+            _c.all_reduce(flat, group=replicas)
+        flat = flat / divisor
+        off = 0
+        for i in idx:
+            n = fulls[i].numel() // infos[i].k
+            out[i] = flat[off:off + n].reshape(infos[i].shard_shape).to(dtype)
+            off += n
+    return out
+
+
+def gather_full(t, info=None):
+    """The full tensor of shard ``t`` (``t`` itself when whole)."""
+    info = info or info_of(t)
+    if info is None or info.dim is None or not info.at_rest:
+        return t
+    return gather_many([t.detach()], [info])[0]
+
+
+class _Block:
+    """The sliced parameters one block gathers: ``slots`` of (module,
+    attribute name, parameter)."""
+
+    def __init__(self, slots, divisor):
+        self.slots = slots
+        self.divisor = divisor
+        self.infos = [info_of(p) for _, _, p in slots]
+
+    def gather(self, shards):
+        out = [None] * len(shards)
+        for idx in self._by_group():
+            got = gather_many([shards[i] for i in idx], [self.infos[i] for i in idx])
+            for i, g in zip(idx, got):
+                out[i] = g
+        return out
+
+    def reduce(self, grads):
+        out = [None] * len(grads)
+        for idx in self._by_group():
+            fulls = [torch.zeros(self.infos[i].full_shape, dtype=self.slots[i][2].dtype,
+                                 device=self.slots[i][2].device)
+                     if grads[i] is None else grads[i] for i in idx]
+            got = reduce_many(fulls, [self.infos[i] for i in idx], self.divisor)
+            for i, g in zip(idx, got):
+                out[i] = g
+        return out
+
+    def _by_group(self):
+        groups: dict = {}
+        for i, info in enumerate(self.infos):
+            groups.setdefault((info.group.id, id(info.replica_group)), []).append(i)
+        return list(groups.values())
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, *shards):
+        ctx.block = block
+        return tuple(block.gather(shards))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + tuple(ctx.block.reduce(grads))
+
+
+def _blocks_of(model):
+    from .recompute import remat_targets
+
+    return [b for b in remat_targets(model) if b is not model]
+
+
+def install_gathers(model, divisor: int) -> int:
+    """Wrap the forward of each block of ``model`` (and of ``model``
+    itself, for the sliced parameters outside every block) so that its
+    sliced parameters are whole while it runs (see the module docstring);
+    returns the number of blocks that gather."""
+    claimed: set = set()
+    wrapped = 0
+    for block in _blocks_of(model) + [model]:
+        slots = []
+        for mod in block.modules():
+            for name, p in mod._parameters.items():
+                info = info_of(p) if p is not None else None
+                if info is None or not info.at_rest or info.dim is None or id(p) in claimed:
+                    continue
+                claimed.add(id(p))
+                slots.append((mod, name, p))
+        if not slots:
+            continue
+        _wrap(block, _Block(slots, divisor))
+        wrapped += 1
+    return wrapped
+
+
+def _wrap(module, block):
+    inner = module.forward
+
+    def forward(*args, **kwargs):
+        fulls = _Gather.apply(block, *[p for _, _, p in block.slots])
+        for (mod, name, _), full in zip(block.slots, fulls):
+            mod._parameters[name] = full
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            for mod, name, p in block.slots:
+                mod._parameters[name] = p
+
+    module.forward = forward
+
+
+class ShardedUpdate:
+    """One optimizer step over the parameters of a sharded model: see the
+    module docstring. ``data_group`` holds every data rank (``divisor`` of
+    them); ``infos[id(p)]`` is each parameter's :class:`ShardInfo` (absent:
+    whole and replicated); ``stage`` 1 all-reduces the gradients of the
+    parameters that stay whole, 2 and 3 reduce-scatter them. The optimizer
+    state of each parameter lives on its slice, in :attr:`states`."""
+
+    def __init__(self, infos: dict, data_group, divisor: int, stage: int):
+        self.infos = infos
+        self.data_group = data_group
+        self.divisor = divisor
+        self.stage = stage
+        self.states: dict = {}
+        self.slices: dict = {}      # id(p) -> the slice of a whole parameter
+        self._layout = (None, None)
+        self.last_clip_scale = None  # the global-norm clip's last scale
+
+    def _sliced(self, p) -> bool:
+        info = self.infos.get(id(p))
+        return info is not None and info.dim is not None
+
+    def _slice(self, p):
+        info = self.infos.get(id(p))
+        if info is None or info.dim is None or info.at_rest:
+            return p.detach()
+        s = self.slices.get(id(p))
+        if s is None:
+            s = p.detach()[info.index].contiguous().clone()
+            self.slices[id(p)] = s
+        return s
+
+    def state_of(self, cls, p) -> dict:
+        st = self.states.get(id(p))
+        if st is None:
+            st = cls.init_state(self._slice(p))
+            info = self.infos.get(id(p))
+            if self._sliced(p):
+                for v in st.values():
+                    if torch.is_tensor(v):
+                        register(v, dataclasses.replace(info, at_rest=True))
+            self.states[id(p)] = st
+        return st
+
+    def _reduce(self, params, grads):
+        """Each gradient as the update reads it: the mean over the data
+        ranks, of the slice where the state is sliced."""
+        out = list(grads)
+        whole, scatter = [], {}
+        for i, p in enumerate(params):
+            info = self.infos.get(id(p))
+            if info is not None and info.at_rest and info.dim is not None:
+                continue            # reduced by the gather's backward
+            if info is None or info.dim is None or self.stage == 1:
+                whole.append(i)
+            else:
+                scatter.setdefault((info.group.id, id(info.replica_group)), []).append(i)
+        if whole:
+            dtypes = [grads[i].dtype for i in whole]
+            summed = [grads[i] for i in whole]
+            if self.data_group.nranks > 1:      # one data rank: nothing to sum
+                summed = _c.fused_allreduce(
+                    [g.to(_reduce_dtype(d, self.data_group)) for g, d in zip(summed, dtypes)],
+                    group=self.data_group)
+            for i, s, d in zip(whole, summed, dtypes):
+                g = (s if self.divisor == 1 else s / self.divisor).to(d)
+                out[i] = g[self.infos[id(params[i])].index].contiguous() \
+                    if self._sliced(params[i]) else g
+        for idx in scatter.values():
+            got = reduce_many([grads[i] for i in idx],
+                              [self.infos[id(params[i])] for i in idx], self.divisor)
+            for i, g in zip(idx, got):
+                out[i] = g
+        return out
+
+    def _clip(self, desc, params, grads, need_clip):
+        """``(grads, scales)`` under the clip ``desc``, every norm that of
+        the whole parameter's gradient."""
+        from ..nn.clip import scale_grad
+
+        none = [None] * len(grads)
+        if desc is None:
+            return grads, none
+        if desc[0] == "value":
+            return [torch.clamp(g, desc[1], desc[2]) for g in grads], none
+        sq = [torch.linalg.vector_norm(g, dtype=torch.float32).square() for g in grads]
+        by_group: dict = {}
+        for i, p in enumerate(params):
+            if self._sliced(p):
+                group = self.infos[id(p)].group
+                by_group.setdefault(group.id, (group, []))[1].append(i)
+        for group, idx in by_group.values():
+            vec = torch.stack([sq[i] for i in idx])
+            _c.all_reduce(vec, group=group)
+            for j, i in enumerate(idx):
+                sq[i] = vec[j]
+        if desc[0] == "global_norm":
+            chosen = [s for s, nc in zip(sq, need_clip) if nc]
+            if not chosen:
+                return grads, none
+            total = chosen[0]
+            for s in chosen[1:]:
+                total = total + s
+            scale = desc[1] / torch.clamp_min(torch.sqrt(total), desc[1])
+            self.last_clip_scale = scale
+            return grads, [scale if nc else None for nc in need_clip]
+        if desc[0] == "norm":
+            return [scale_grad(g, torch.clamp_max(desc[1] / torch.clamp_min(torch.sqrt(s), 1e-12),
+                                                  1.0)) for g, s in zip(grads, sq)], none
+        raise NotImplementedError(f"unknown clip descriptor {desc!r}")
+
+    def step(self, cls, params, grads, lrs, hypers, need_clip, clip_desc, t: int) -> None:
+        """Reduce, clip, update and (stages 1 and 2) gather; ``lrs``,
+        ``hypers`` and ``need_clip`` are per parameter."""
+        from ..ops import fused_optimizer as fo
+        from ..optimizer import fused_step
+
+        grads = self._reduce(params, grads)
+        grads, scales = self._clip(clip_desc, params, grads, need_clip)
+        entries = [fo.Entry(self._slice(p), g, self.state_of(cls, p), lr, hyper, scale)
+                   for p, g, lr, hyper, scale in zip(params, grads, lrs, hypers, scales)]
+        sig = tuple(map(fo.signature, entries))
+        if self._layout[0] != sig:
+            self._layout = (sig, fused_step.layout_of(cls, entries))
+        with torch.no_grad():
+            fused_step.apply_update(cls, entries, t, self._layout[1])
+            by_group: dict = {}
+            for p in params:
+                if id(p) in self.slices:
+                    by_group.setdefault(self.infos[id(p)].group.id, []).append(p)
+            for ps in by_group.values():
+                fulls = gather_many([self.slices[id(p)] for p in ps],
+                                    [self.infos[id(p)] for p in ps])
+                for p, f in zip(ps, fulls):
+                    p.data.copy_(f)

@@ -3,8 +3,8 @@
 Counterpart of ``paddle_tpu/distributed/fleet/sequence_parallel.py``
 :139-169 ``ring_context_attention`` only. Megatron-style sequence
 parallelism and the Ulysses all-to-all change nothing inside one process
-and wait, with the transport that moves shards between cards, for the
-distributed slice of the port.
+and wait, with the ring's send and receive between processes, for the
+port's sep-across-processes slice.
 """
 
 from __future__ import annotations

@@ -1,22 +1,52 @@
-"""Process mesh of one process.
+"""The process mesh (counterpart of ``paddle_tpu/distributed/mesh.py:22-202``).
 
-Counterpart of ``paddle_tpu/distributed/mesh.py:22-111`` (``ProcessMesh``,
-``set_mesh``, ``get_mesh``, ``auto_mesh``). There the mesh wraps the
-devices that its axes shard over. Here, until the distributed slice of the
-port, it is a plain descriptor of the virtual ranks of one process on one
-device: a ``sep`` (context-parallel) axis of any size, which the ring
-attention folds into its batch, and a ``dp`` axis and other axes of size 1.
-Anything else needs process groups (``torch.distributed``) and raises
-``NotImplementedError``.
+A :class:`ProcessMesh` lays the world's processes (one a device) out on
+named axes. Its groups are made once, on first use, and kept:
+:meth:`ProcessMesh.get_group` gives this process's group along one axis or
+several (every process asks for the same groups in the same order, as
+``torch.distributed.new_group`` needs). The meshes of the partitioning
+tier (:func:`build_program_mesh`: ``dp``, ``pipe``, ``fsdp``, ``tensor``)
+and of fleet's topology (:func:`init_mesh_from_topology`) are built here.
+
+The axes that need what later slices of the port bring raise
+``NotImplementedError`` above size 1: ``tensor`` / ``mp`` / ``model``
+(tensor parallelism), ``pipe`` / ``pp`` (the pipeline), ``ep`` (experts
+across devices) and ``cp``, and ``sep`` beside any other axis above 1
+(``sep`` across processes). A mesh whose only axis above 1 is ``sep`` is
+the one-process ring (``ops.ring_attention``): virtual ranks of this
+process on its device, which the ring attention folds into its batch.
 """
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 
-__all__ = ["ProcessMesh", "set_mesh", "get_mesh", "auto_mesh"]
+__all__ = ["ProcessMesh", "set_mesh", "get_mesh", "auto_mesh", "init_mesh_from_topology",
+           "init_hybrid_mesh", "build_program_mesh"]
 
 _default_mesh: "ProcessMesh | None" = None
+
+#: axis name -> the later slice of the port that brings it
+WAITING_AXES = {"tensor": "tensor parallelism", "mp": "tensor parallelism",
+                "model": "tensor parallelism", "pipe": "the pipeline", "pp": "the pipeline",
+                "ep": "expert parallelism across devices", "cp": "sep across processes"}
+
+
+def check_axes(names, sizes) -> None:
+    """Raise ``NotImplementedError`` for an axis above 1 that a later
+    slice brings."""
+    wide = {n: s for n, s in zip(names, sizes) if s > 1}
+    for name, size in wide.items():
+        if name in WAITING_AXES:
+            raise NotImplementedError(
+                f"mesh axis {name}={size} waits for the port's {WAITING_AXES[name]} slice")
+    if "sep" in wide and len(wide) > 1:
+        raise NotImplementedError(
+            f"mesh axes {wide}: sep beside other axes means sep across processes, which "
+            "waits for the port's sep-across-processes slice; a one-process mesh takes a "
+            "'sep' axis of any size alone (the ring's virtual ranks)")
 
 
 class ProcessMesh:
@@ -31,7 +61,7 @@ class ProcessMesh:
             if arr.ndim == 0:
                 arr = arr.reshape(1)
             shape = arr.shape
-            self.process_ids = arr.reshape(-1).tolist()
+            self.process_ids = [int(x) for x in arr.reshape(-1)]
         else:
             if shape is None:
                 raise ValueError("ProcessMesh needs mesh or shape")
@@ -43,14 +73,8 @@ class ProcessMesh:
         if len(self.dim_names) != len(self._shape):
             raise ValueError(f"{len(self.dim_names)} dim_names for a mesh of shape "
                              f"{list(self._shape)}")
-        wide = [f"{n}={s}" for n, s in zip(self.dim_names, self._shape)
-                if s != 1 and n != "sep"]
-        if wide:
-            raise NotImplementedError(
-                f"mesh axes {', '.join(wide)} need process groups across devices, which "
-                "wait for the distributed slice of the port; a one-process mesh has "
-                "only a 'sep' axis of any size (the ring's virtual ranks) and axes of "
-                "size 1")
+        check_axes(self.dim_names, self._shape)
+        self._groups: dict = {}
 
     @property
     def shape(self):
@@ -60,8 +84,59 @@ class ProcessMesh:
     def ndim(self):
         return len(self._shape)
 
+    @property
+    def mesh(self):
+        return np.asarray(self.process_ids).reshape(self._shape)
+
+    @property
+    def size(self) -> int:
+        return len(self.process_ids)
+
     def get_dim_size(self, name: str) -> int:
         return self._shape[self.dim_names.index(name)]
+
+    def get_rank_by_dim_and_process_id(self, dim, process_id) -> int:
+        """The coordinate of ``process_id`` along ``dim`` (a name or an
+        index)."""
+        coords = np.unravel_index(self.process_ids.index(process_id), self._shape)
+        return int(coords[self.dim_names.index(dim) if isinstance(dim, str) else dim])
+
+    def coordinate(self, process_id=None) -> dict:
+        """``{axis: coordinate}`` of ``process_id`` (this process)."""
+        from . import env as _env
+
+        pid = _env.get_rank() if process_id is None else process_id
+        coords = np.unravel_index(self.process_ids.index(pid), self._shape)
+        return {n: int(c) for n, c in zip(self.dim_names, coords)}
+
+    def get_group(self, dims):
+        """This process's group along ``dims`` (an axis name or a tuple of
+        them): the processes whose coordinates on the other axes are its
+        own, ordered by their coordinates on ``dims``. Made the first time
+        it is asked for (by every process of the world) and kept."""
+        from . import collective as _c
+        from . import env as _env
+
+        key = (dims,) if isinstance(dims, str) else tuple(dims)
+        if key in self._groups:
+            return self._groups[key]
+        _c._world()
+        if self.size != _env.get_world_size():
+            raise ValueError(f"{self} holds {self.size} processes, the world "
+                             f"{_env.get_world_size()}")
+        axes = [self.dim_names.index(d) for d in key]
+        others = [i for i in range(self.ndim) if i not in axes]
+        arr = self.mesh
+        lists = []
+        for rest in itertools.product(*[range(self._shape[i]) for i in others]):
+            idx = [slice(None)] * self.ndim
+            for i, c in zip(others, rest):
+                idx[i] = c
+            sub = np.transpose(arr[tuple(idx)] if others else arr,
+                               [sorted(axes).index(a) for a in axes])
+            lists.append([int(x) for x in sub.reshape(-1)])
+        self._groups[key] = _c.make_groups(lists)
+        return self._groups[key]
 
     def __eq__(self, other):
         return (isinstance(other, ProcessMesh) and self._shape == other._shape
@@ -94,6 +169,27 @@ def get_mesh() -> ProcessMesh | None:
 
 
 def auto_mesh(**axis_sizes) -> ProcessMesh:
-    """A mesh from named axis sizes, e.g. ``auto_mesh(dp=1, sep=4)``."""
+    """A mesh from named axis sizes, e.g. ``auto_mesh(dp=2, fsdp=2)``."""
     names = list(axis_sizes)
     return ProcessMesh(shape=[int(axis_sizes[n]) for n in names], dim_names=names)
+
+
+def init_mesh_from_topology(dp=1, mp=1, pp=1, sharding=1, sep=1) -> ProcessMesh:
+    """Fleet's axis order: ``pp``, ``dp``, ``sharding``, ``sep``, ``mp``."""
+    return ProcessMesh(shape=[pp, dp, sharding, sep, mp],
+                       dim_names=["pp", "dp", "sharding", "sep", "mp"])
+
+
+def init_hybrid_mesh(dcn=1, pp=1, dp=1, sharding=1, sep=1, mp=1) -> ProcessMesh:
+    """Fleet's order behind a leading ``dcn`` axis (the nodes): the
+    processes of one node are consecutive ranks, as the launcher numbers
+    them."""
+    return ProcessMesh(shape=[dcn, pp, dp, sharding, sep, mp],
+                       dim_names=["dcn", "pp", "dp", "sharding", "sep", "mp"])
+
+
+def build_program_mesh(dp=1, fsdp=1, tensor=1, pipe=1) -> ProcessMesh:
+    """The partitioning tier's mesh: axes ``("dp", "pipe", "fsdp",
+    "tensor")``, ``dp`` outermost (its gradient all-reduce is the
+    collective that tolerates the slowest links), ``tensor`` innermost."""
+    return ProcessMesh(shape=[dp, pipe, fsdp, tensor], dim_names=["dp", "pipe", "fsdp", "tensor"])

@@ -1,29 +1,123 @@
-"""``dist.parallelize``: counterpart of
-``paddle_tpu/distributed/parallelize.py:44-88``.
+"""``dist.parallelize`` (counterpart of
+``paddle_tpu/distributed/parallelize.py:24-123``).
 
-The reference places each parameter on the mesh by its shard axes. On a
-one-process mesh (:class:`~paddle_tpu_torch.distributed.mesh.ProcessMesh`,
-which refuses axes that would need process groups) every parameter stays
-where it is, so this makes the mesh current and returns what the
-reference returns.
+``parallelize(model, optimizer, mesh, config)`` makes ``mesh`` current and
+applies ``config["sharding_config"]["stage"]`` (1, 2 or 3) over the mesh's
+``sharding`` axis, as ``fleet.group_sharded_parallel`` does: stage 3 cuts
+each parameter on its largest dim the axis divides (the reference's
+``parallelize.py:65-75``), stages 1 and 2 on the first. With an optimizer
+it returns ``(model, optimizer)``, the optimizer a
+``fleet.sharding.GroupShardedOptimizer`` when a stage applies. A mesh of
+one process with only a ``sep`` axis (the one-process ring) changes no
+parameter. ``dp_config``, ``mp_config`` and ``pp_config`` wait for the
+slices that bring those axes.
+
+:func:`shard_dataloader` gives each rank its part of every batch: the rows
+of dim 0 that its coordinates on the mesh's data axes (``dcn``, ``dp``,
+``sharding``) select.
 """
 
 from __future__ import annotations
 
+import torch
+
 from .mesh import ProcessMesh, get_mesh, set_mesh
 
-__all__ = ["parallelize"]
+__all__ = ["param_spec", "parallelize", "ShardDataloader", "shard_dataloader"]
+
+
+def param_spec(param, mesh: ProcessMesh, extra_axes=()):
+    """The placement of ``param`` from its ``shard_axes`` ({dim: axis or
+    axes in order of preference}): the first axis the mesh has above 1
+    that divides the dim."""
+    from .partitioning.rules import PartitionSpec
+
+    shape = tuple(param.shape)
+    spec = [None] * len(shape)
+    for dim, names in (getattr(param, "shard_axes", None) or {}).items():
+        for name in names if isinstance(names, (list, tuple)) else (names,):
+            if name in mesh.dim_names and mesh.get_dim_size(name) > 1 \
+                    and shape[int(dim)] % mesh.get_dim_size(name) == 0:
+                spec[int(dim)] = name
+                break
+    return PartitionSpec(*spec)
 
 
 def parallelize(model, optimizer=None, mesh: ProcessMesh | None = None, config=None):
-    """Make ``mesh`` (or the current mesh) current; ``(model, optimizer)``
-    with an optimizer, else ``model``. ``config`` (the reference's
-    ``dp_config``/``mp_config``/``pp_config``/``sharding_config``) asks
-    for nothing a one-process mesh could shard over."""
+    """See the module docstring."""
     mesh = mesh or get_mesh()
     if mesh is None:
         raise ValueError("parallelize needs a mesh (dist.auto_mesh / set_mesh)")
     if not isinstance(mesh, ProcessMesh):
         raise TypeError(f"parallelize takes a ProcessMesh, got {type(mesh).__name__}")
     set_mesh(mesh)
+    config = config or {}
+    for key in ("dp_config", "mp_config", "pp_config"):
+        if config.get(key):
+            raise NotImplementedError(f"parallelize({key}=...) waits for the slice of the "
+                                      "port that brings its axis")
+    stage = int((config.get("sharding_config") or {}).get("stage", 0))
+    if stage:
+        if stage not in (1, 2, 3):
+            raise ValueError(f"sharding stage {stage}: one of 1, 2, 3")
+        if "sharding" not in mesh.dim_names:
+            raise ValueError(f"sharding stage {stage} needs a 'sharding' axis on {mesh}")
+        from .fleet.sharding import GroupShardedOptimizer, data_groups, plan
+
+        shard, replicas, whole, n = data_groups(mesh)
+        update = plan(model.parameters(), stage, shard, replicas, whole, n, model)
+        if optimizer is not None:
+            optimizer = GroupShardedOptimizer(optimizer, update)
     return (model, optimizer) if optimizer is not None else model
+
+
+class ShardDataloader:
+    """``dist.shard_dataloader``: each batch's tensors cut along dim 0 to
+    this rank's rows (see the module docstring)."""
+
+    def __init__(self, dataloader, meshes=None, shard_dims=None, input_keys=None,
+                 dense_tensor_idx=None):
+        self.dataloader = dataloader
+        self.mesh = meshes[0] if isinstance(meshes, (list, tuple)) else meshes
+        self.shard_dims = shard_dims
+
+    def _part(self):
+        from .fleet.sharding import DATA_AXES
+
+        mesh = self.mesh or get_mesh()
+        if mesh is None:
+            return 0, 1
+        axes = [n for n in mesh.dim_names if n in DATA_AXES[:3]]
+        coord = mesh.coordinate()
+        index, size = 0, 1
+        for a in axes:
+            index = index * mesh.get_dim_size(a) + coord[a]
+            size *= mesh.get_dim_size(a)
+        return index, size
+
+    def _shard(self, t, index, size):
+        if not torch.is_tensor(t) or t.ndim == 0 or size == 1:
+            return t
+        if t.shape[0] % size:
+            raise ValueError(f"a batch of {t.shape[0]} rows does not split over {size} "
+                             "data ranks")
+        n = t.shape[0] // size
+        return t[index * n:(index + 1) * n]
+
+    def __iter__(self):
+        index, size = self._part()
+        for batch in self.dataloader:
+            if isinstance(batch, (list, tuple)):
+                yield type(batch)(self._shard(b, index, size) for b in batch)
+            elif isinstance(batch, dict):
+                yield {k: self._shard(v, index, size) for k, v in batch.items()}
+            else:
+                yield self._shard(batch, index, size)
+
+    def __len__(self):
+        return len(self.dataloader)
+
+
+def shard_dataloader(dataloader, meshes=None, shard_dims=None, input_keys=None,
+                     dense_tensor_idx=None):
+    return ShardDataloader(dataloader, meshes, shard_dims, input_keys, dense_tensor_idx)

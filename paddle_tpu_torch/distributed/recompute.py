@@ -113,8 +113,9 @@ def remat_scope(model, policy):
     """Route every block of :func:`remat_targets` through :func:`recompute`
     with ``policy`` for the duration of the body (an unknown policy raises
     before any block is touched). Each block gets an instance ``forward``
-    that is always removed on exit, so one model runs under several
-    policies in turn."""
+    around the one it had (a sharded model's gather, ``distributed._sharded``,
+    so that the gather is recomputed too) and always gets that one back on
+    exit, so one model runs under several policies in turn."""
     if policy in (None, "none", ""):
         yield []
         return
@@ -128,12 +129,15 @@ def remat_scope(model, policy):
             def wrapped(*a, _inner=inner, **k):
                 return recompute(_inner, *a, checkpoint_policy=policy, **k)
 
+            installed.append((layer, layer.__dict__.get("forward")))
             layer.forward = wrapped
-            installed.append(layer)
         yield targets
     finally:
-        for layer in installed:
-            layer.__dict__.pop("forward", None)
+        for layer, prev in installed:
+            if prev is None:
+                layer.__dict__.pop("forward", None)
+            else:
+                layer.forward = prev
 
 
 def recompute_sequential(ctx, functions, *args, **kwargs):

@@ -228,8 +228,10 @@ class DistributedBatchSampler(BatchSampler):
     """The batches of rank ``rank`` of ``num_replicas``: indices padded to
     a multiple of the replicas by repeating the first, then every
     ``num_replicas``-th from ``rank``; shuffled with
-    ``RandomState(epoch)`` (:meth:`set_epoch`). Without a distributed
-    environment in the port yet, the defaults are one replica, rank 0."""
+    ``RandomState(epoch)`` (:meth:`set_epoch`). ``num_replicas`` and
+    ``rank`` default to the world's size and this process's rank
+    (``distributed.env``: ``PADDLE_TRAINERS_NUM`` / ``PADDLE_TRAINER_ID``
+    before the process group starts)."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None, shuffle=False,
                  drop_last=False):
@@ -237,8 +239,13 @@ class DistributedBatchSampler(BatchSampler):
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
-        self.nranks = max(1 if num_replicas is None else num_replicas, 1)
-        self.local_rank = 0 if rank is None else rank
+        if num_replicas is None or rank is None:
+            from ..distributed import env as _env
+
+            num_replicas = _env.get_world_size() if num_replicas is None else num_replicas
+            rank = _env.get_rank() if rank is None else rank
+        self.nranks = max(num_replicas, 1)
+        self.local_rank = rank
         self.epoch = 0
         self.num_samples = int(math.ceil(len(dataset) / self.nranks))
         self.total_size = self.num_samples * self.nranks

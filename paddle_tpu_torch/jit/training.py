@@ -14,8 +14,17 @@ launch for up to 128 tensors, the global-norm clip's scale applied inside
 it), so the state is allocated once and updated in place. The step count
 and the learning rate come from the optimizer. With ``accumulate_steps=k``
 the gradients of k calls are summed in f32 and the k-th call applies their
-mean; the calls in between leave the parameters, the step count and the
-learning rate alone.
+mean (their sum with ``gradient_merge``'s ``avg=False``, which
+``fleet.distributed_optimizer`` leaves on the optimizer with ``k_steps``,
+the default of ``accumulate_steps``); the calls in between leave the
+parameters, the step count and the learning rate alone.
+
+Distributed: a ``DataParallel`` model's gradients are averaged over its
+group (:meth:`~paddle_tpu_torch.distributed.DataParallel.reduce_gradients`)
+before the clip; a sharded optimizer
+(``distributed.fleet.sharding.GroupShardedOptimizer``: ZeRO stages,
+``PartitionedTrainStep``) takes the gradients and runs its own sharded
+update.
 
 ``recompute_policy`` ("none", "every_layer" or "selective", see
 ``distributed.recompute``) recomputes every repeated block of the model
@@ -51,7 +60,7 @@ _LATER = {"telemetry_export_every": "profiler.telemetry",
           "telemetry_logdir": "profiler.telemetry",
           "numerics": "profiler.numerics",
           "offload_optimizer": "autopilot",
-          "checkpoint_root": "distributed.checkpoint"}
+          "checkpoint_root": "distributed.resilience.verified"}
 
 
 def _later(name):
@@ -84,7 +93,8 @@ class TrainStep:
         self.loss_fn = loss_fn
         self._cast_fn = cast_fn  # stored and never read, as in the reference
         self._ctor_policy = recompute_policy
-        self._accum_k = int(accumulate_steps or 1)
+        self._accum_k = int(accumulate_steps or getattr(optimizer, "_accumulate_steps", 1) or 1)
+        self._accum_avg = bool(getattr(optimizer, "_accumulate_avg", True))
         self._micro = 0
         self._acc = None
         self._opt_state = None
@@ -118,9 +128,17 @@ class TrainStep:
                 for a, g in zip(self._acc, grads):
                     a.add_(g.float())
                 return loss
-            grads = [(a + g.float()) / self._accum_k for a, g in zip(self._acc, grads)]
+            denom = self._accum_k if self._accum_avg else 1
+            grads = [(a + g.float()) / denom for a, g in zip(self._acc, grads)]
             self._acc = None
+        sync = getattr(self.model, "reduce_gradients", None)
+        if sync is not None:
+            grads = sync([p for _, p in params], grads)
         opt._step_count += 1
+        sharded = getattr(opt, "apply_sharded", None)
+        if sharded is not None:
+            sharded([p for _, p in params], grads)
+            return loss
         lr = opt.get_lr()
         t = opt._step_count
         if self._opt_state is None:

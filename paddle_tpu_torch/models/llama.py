@@ -33,6 +33,7 @@ from ..amp import cast_inputs
 from ..device import resolve_device
 from ..distributed.fleet.moe import MoELayer
 from ..distributed.fleet.sequence_parallel import ring_context_attention
+from ..distributed.partitioning.rules import mark_logical
 from ..distributed.recompute import recompute
 from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..nn import functional as F
@@ -115,6 +116,9 @@ class LlamaAttention(Layer):
         self.k_proj = Linear(hidden, kv, **mk)
         self.v_proj = Linear(hidden, kv, **mk)
         self.o_proj = Linear(hidden, hidden, **mk)
+        for proj, logical in ((self.q_proj, ("embed", "heads")), (self.k_proj, ("embed", "kv")),
+                              (self.v_proj, ("embed", "kv")), (self.o_proj, ("heads", "embed"))):
+            mark_logical(proj.weight, logical)
 
     def forward(self, hidden_states, attention_mask=None, position_ids=None,
                 past_key_value=None):
@@ -162,6 +166,9 @@ class LlamaMLP(Layer):
         self.gate_proj = Linear(config.hidden_size, config.intermediate_size, **mk)
         self.up_proj = Linear(config.hidden_size, config.intermediate_size, **mk)
         self.down_proj = Linear(config.intermediate_size, config.hidden_size, **mk)
+        mark_logical(self.gate_proj.weight, ("embed", "mlp"))
+        mark_logical(self.up_proj.weight, ("embed", "mlp"))
+        mark_logical(self.down_proj.weight, ("mlp", "embed"))
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -182,6 +189,8 @@ class LlamaDecoderLayer(Layer):
                                        device=device, dtype=dtype)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                                                 device=device, dtype=dtype)
+        mark_logical(self.input_layernorm.weight, ("norm",))
+        mark_logical(self.post_attention_layernorm.weight, ("norm",))
         self._recompute = config.recompute
 
     def _inner(self, hidden_states, attention_mask=None, position_ids=None):
@@ -212,6 +221,8 @@ class LlamaModel(Layer):
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device=device,
                             dtype=dtype)
+        mark_logical(self.embed_tokens.weight, ("vocab", "embed"))
+        mark_logical(self.norm.weight, ("norm",))
 
     def forward(self, input_ids, attention_mask=None, position_ids=None):
         hidden_states = self.embed_tokens(input_ids)
@@ -244,8 +255,8 @@ class LlamaForCausalLM(Layer):
         super().__init__()
         if config.sequence_parallel or config.context_parallel not in (None, "ring"):
             raise NotImplementedError(
-                "sequence parallelism and context parallelism other than the ring wait "
-                "for the distributed slice of the port")
+                "sequence parallelism and context parallelism other than the one-process "
+                "ring wait for the port's sep-across-processes slice")
         self.config = config
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
@@ -254,6 +265,8 @@ class LlamaForCausalLM(Layer):
         self.lm_head = (None if config.tie_word_embeddings else
                         Linear(config.hidden_size, config.vocab_size, bias_attr=False,
                                device=dev, dtype=dtype, generator=gen))
+        if self.lm_head is not None:
+            mark_logical(self.lm_head.weight, ("embed", "vocab"))
 
     def forward(self, input_ids, attention_mask=None, position_ids=None, labels=None):
         """input_ids [b, s] -> logits [b, s, vocab]; with ``labels`` [b, s],

@@ -57,6 +57,16 @@ def _dtype_arg(a):
     return _dt.convert_dtype(a) if isinstance(a, str) and a in _dt._STR_ALIASES else a
 
 
+def _detached(p):
+    """``p.detach()``, carrying the shard layout of a parameter that the
+    distributed tier keeps as a slice (``dist_shard``)."""
+    d = p.detach()
+    info = getattr(p, "dist_shard", None)
+    if info is not None:
+        d.dist_shard = info
+    return d
+
+
 def reference_state_dict(model) -> dict:
     """``model``'s state by the reference's names, the tensors themselves:
     a ``Layer``'s ``state_dict(keep_vars=True)``; for another
@@ -181,7 +191,7 @@ class Layer(nn.Module):
                                       keep_vars=keep_vars)
         dest = collections.OrderedDict() if destination is None else destination
         for name, p in self.named_parameters(include_sublayers=include_sublayers):
-            dest[structured_name_prefix + name] = p if keep_vars else p.detach()
+            dest[structured_name_prefix + name] = p if keep_vars else _detached(p)
         for name, b in self.named_buffers(include_sublayers=include_sublayers):
             owner, _, short = name.rpartition(".")
             if short in self.get_submodule(owner)._non_persistent_buffers_set:

@@ -17,8 +17,8 @@ is then one launch over the ranks that see a K/V shard, and the rotation
 becomes indexing. What the reference computes stays: the shard pairs of
 each step, the causal gate, the merge order per rank, the f32 dQ/dK/dV
 accumulators per owner and the GQA handling. Moving shards between cards
-(``torch.distributed`` P2P over NCCL) waits for the distributed slice of
-the port and a machine with more than one card.
+(``torch.distributed`` P2P over NCCL) waits for the port's
+sep-across-processes slice and a machine with more than one card.
 
 **Causal ring.** At step s the visible (query rank, K/V owner) pairs are
 ranks ``[s, P)`` against owners ``[0, P - s)``: both contiguous slices of the

@@ -1,0 +1,338 @@
+"""Multi-process Llama training on the card, one rank of it: the worker of
+``chip_smoke.py``'s phase 24 and of the distributed card tests.
+
+Run through the launcher, e.g. ``python -m
+paddle_tpu_torch.distributed.launch --nproc_per_node 1
+paddle_tpu_torch/tools/dist_train.py --phase a --out DIR``. Each rank
+prints its numbers as ``[dist-<phase>] k=v`` lines and writes them to
+``DIR/dist_<phase>.<rank>.json``: the launches of the flash, RMSNorm and
+fused-optimizer kernels, counted from zero just before its main path runs
+and read just after, and the collectives by kind (``distributed.collective``'s
+counters).
+
+- ``--phase a`` (one rank, NCCL): ``fleet.init`` with ``sharding_degree=1``,
+  ``group_sharded_parallel(level="p_g_os")`` and ``TrainStep`` on the
+  sharded model, with ``AdamW(3e-4, weight_decay=0.1)`` and
+  ``ClipGradByGlobalNorm(1.0)``. First the step-check cell (``--check-layers``
+  layers, ``--check-seq`` tokens): step 1's loss and every parameter held
+  bit for bit against a plain ``TrainStep`` on the same batch (at one
+  rank no collective runs and the sharded step sums the clip's squared
+  norms in the same order); then the timed cell
+  (``--layers`` layers, batch 1 x ``--seq``): a warm-up, ``--steps`` timed
+  steps and one profiled step.
+- ``--phase b`` (two ranks on one card, gloo): ``DataParallel`` with the
+  bucketed reducer at the step-check cell, each rank on its row of a
+  batch of 2 x ``--check-seq`` tokens; one eager step (``loss.backward();
+  opt.step()``). Each rank writes a checksum of every gradient after the
+  reduce and of every parameter after the step. Rank 0 holds its reduced
+  gradients against a one-process backward on the whole batch: each
+  leaf's largest difference over the leaf's largest entry must stay
+  within ``GRAD_TOL`` (see there). The same check is run on two planted
+  faults, which it must refuse: the reduced gradient not divided by the
+  world (twice the mean), and rank 0's local gradient (a reduce that
+  never ran, or one that covers half the batch). Rank 0 then holds its
+  parameters against a one-process ``TrainStep`` on the whole batch
+  within 2 lr plus one bf16 rounding of the parameter. That check is
+  loose by nature: AdamW's first step moves a weight by lr * g / (|g| +
+  eps), about lr times g's sign, whatever g's size, so it holds that the
+  update ran once with the right rate, not the gradient; the gradient
+  check holds the reduce.
+
+``--tiny`` runs ``LlamaConfig.tiny()`` widths with head_dim 64 (the card
+tests).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+import time
+
+LR = 3e-4
+# Phase b's gradient check: max |g - g_ref| / max |g_ref| for each leaf.
+# Both are bf16 sums of the same per-token terms, rounded in different
+# places (two half-batch partials each rounded to bf16, summed in f32,
+# halved and rounded again, against one rounding of the whole-batch sum),
+# and the two runs' activations differ by bf16 roundings of their own, so
+# an entry differs by a few units of bf16's roundoff (2^-9 relative) of
+# the leaf's largest; 2^-5 is 16 of them. The planted faults miss by
+# about half the leaf's largest or more.
+GRAD_TOL = 2.0 ** -5
+
+
+def say(phase, **nums):
+    print(f"[dist-{phase}] " + " ".join(f"{k}={v}" for k, v in nums.items()), flush=True)
+
+
+def counters():
+    """{name: (dict, key)}: where each kernel's launches are counted."""
+    from ..ops import flash_attention as fa
+    from ..ops import fused_norm as fn
+    from ..ops import fused_optimizer as fo
+
+    return {"flash_wgmma_fwd": (fa.flash_attention_fwd.by_route, "wgmma"),
+            "flash_wgmma_bwd": (fa.flash_attention_bwd.by_route, "wgmma"),
+            **{f"{n}_{m}": (w.by_mode, m) for m in ("fused", "round_first")
+               for n, w in (("rms_norm_fwd", fn.rms_norm_fwd),
+                            ("rms_norm_bwd_dx", fn.rms_norm_bwd_dx))},
+            "multi_tensor_update": (vars(fo.multi_tensor_update), "launches")}
+
+
+def read(c):
+    return {k: d[key] for k, (d, key) in c.items()}
+
+
+def zero(c):
+    for d, key in c.values():
+        d[key] = 0
+
+
+def config(args, layers):
+    from ..models.llama import LlamaConfig
+
+    if args.tiny:      # head_dim 64: flash's wgmma route
+        return LlamaConfig.tiny(num_hidden_layers=layers, num_attention_heads=4,
+                                num_key_value_heads=2)
+    return LlamaConfig.llama3_8b(num_hidden_layers=layers)
+
+
+def build(args, layers):
+    import torch
+
+    from ..models.llama import LlamaForCausalLM
+    from ..nn import ClipGradByGlobalNorm
+    from ..optimizer import AdamW
+
+    model = LlamaForCausalLM(config(args, layers), device="cuda", dtype=torch.bfloat16,
+                             seed=args.seed)
+    opt = AdamW(LR, parameters=model.parameters(), weight_decay=0.1,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return model, opt
+
+
+def tokens(seed, rows, seq, vocab):
+    import numpy as np
+    import torch
+
+    toks = np.random.RandomState(seed).randint(0, vocab, (rows, seq + 1)).astype("int64")
+    t = torch.from_numpy(toks).cuda()
+    return t[:, :-1], t[:, 1:]
+
+
+def loss_fn(model):
+    return lambda ids, labels: model(ids, labels=labels)[0]
+
+
+def checksum(t) -> int:
+    """An exact checksum of ``t``'s bits (position-weighted)."""
+    import torch
+
+    words = t.detach().reshape(-1).view(torch.int16).to(torch.int64)
+    weights = torch.arange(words.numel(), device=words.device) % 65521 + 1
+    return int((words * weights).sum())
+
+
+def phase_a(args, out):
+    import torch
+
+    from .. import distributed as dist
+    from ..distributed import collective
+    from ..jit import TrainStep
+
+    strategy = dist.fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
+                               "sharding_degree": 1, "sep_degree": 1}
+    dist.fleet.init(is_collective=True, strategy=strategy)
+    res = {"backend": dist.env.backend(), "world": dist.get_world_size()}
+    # the step-check cell: the sharded step against a plain TrainStep
+    cfg = config(args, args.check_layers)
+    ids, labels = tokens(args.seed + 2, 1, args.check_seq, cfg.vocab_size)
+    plain, popt = build(args, args.check_layers)
+    want = TrainStep(plain, popt, loss_fn(plain))(ids, labels)
+    model, opt = build(args, args.check_layers)
+    model, opt = dist.fleet.group_sharded_parallel(model, opt, level="p_g_os")
+    got = TrainStep(model, opt, loss_fn(model))(ids, labels)
+    torch.cuda.synchronize()
+    pw = dict(plain.named_parameters())
+    diffs = {n: (p.detach().float() - pw[n].detach().float()).abs().max().item()
+             for n, p in model.named_parameters()}
+    res.update(check_loss=got.item(), check_loss_plain=want.item(),
+               check_params=len(diffs), check_params_equal=sum(d == 0 for d in diffs.values()),
+               check_max_abs_diff=max(diffs.values()))
+    say("a", **{k: v for k, v in res.items()})
+    if got.item() != want.item() or res["check_params_equal"] != len(diffs):
+        raise AssertionError(f"the sharded step differs from TrainStep: loss {got.item()} vs "
+                             f"{want.item()}, parameters {diffs}")
+    del plain, popt, model, opt, pw
+    torch.cuda.empty_cache()
+    # the timed cell: phase 7's
+    torch.cuda.reset_peak_memory_stats()
+    cfg = config(args, args.layers)
+    model, opt = build(args, args.layers)
+    model, opt = dist.fleet.group_sharded_parallel(model, opt, level="p_g_os")
+    step = TrainStep(model, opt, loss_fn(model))
+    c = counters()
+    losses, times = [], []
+    for i in range(args.steps + 1):
+        ids, labels = tokens(args.seed + 3 + i, 1, args.seq, cfg.vocab_size)
+        if i == 1:
+            torch.cuda.synchronize()
+            zero(c)
+            collective.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = read(c)
+    stats = collective.stats()
+    from torch.profiler import ProfilerActivity, profile
+
+    ids, labels = tokens(args.seed + 99, 1, args.seq, cfg.vocab_size)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    n = args.steps
+    res.update(layers=args.layers, seq=args.seq, warmup_step_ms=round(1e3 * times[0], 3),
+               step_ms=[round(1e3 * t, 3) for t in times[1:]],
+               step_ms_mean=round(1e3 * sum(times[1:]) / n, 3), losses=losses,
+               launches=launches,
+               collectives_per_step={k: v / n for k, v in stats["calls"].items()},
+               collective_bytes_per_step={k: v / n for k, v in stats["bytes"].items()},
+               max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+               profiled_step_ms=round(1e3 * wall, 3), device_busy_ms=round(1e3 * busy, 3),
+               device_busy_share=round(busy / wall, 4) if busy else "not measured")
+    say("a", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                for k, v in res.items() if not k.startswith("check")})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses are not finite: {losses}")
+    return res
+
+
+def grad_errors(got, want) -> dict:
+    """{leaf: max |got - want| / max |want|}."""
+    out = {}
+    for n, w in want.items():
+        w = w.detach().float()
+        scale = w.abs().max().item()
+        out[n] = (got[n].detach().float() - w).abs().max().item() / (scale or 1.0)
+    return out
+
+
+def phase_b(args, out):
+    import torch
+
+    from .. import distributed as dist
+    from ..jit import TrainStep
+
+    dist.init_parallel_env()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = config(args, args.check_layers)
+    ids, labels = tokens(args.seed + 2, world, args.check_seq, cfg.vocab_size)
+    model, opt = build(args, args.check_layers)
+    model = dist.DataParallel(model, comm_buffer_size=args.comm_buffer_size)
+    c = counters()
+    torch.cuda.synchronize()
+    zero(c)
+    loss = model(ids[rank:rank + 1], labels=labels[rank:rank + 1])[0]
+    loss.backward()
+    grads = {n: checksum(p.grad) for n, p in model._layers.named_parameters()}
+    held = ({n: p.grad.detach().clone() for n, p in model._layers.named_parameters()}
+            if rank == 0 else None)
+    opt.step()
+    torch.cuda.synchronize()
+    launches = read(c)
+    res = {"backend": dist.env.backend(), "world": world, "rank": rank,
+           "device": str(dist.env.device()), "loss": loss.item(),
+           "comm_buffer_size_mb": args.comm_buffer_size, "buckets": model.bucket_stats(),
+           "grad_checksums": grads, "launches": launches,
+           "param_checksums": {n: checksum(p) for n, p in model._layers.named_parameters()}}
+    say("b", rank=rank, device=res["device"], loss=res["loss"],
+        buckets=json.dumps(res["buckets"]), comm_buffer_size_mb=args.comm_buffer_size,
+        launches=json.dumps(launches))
+    if rank == 0:
+        ref, _ = build(args, args.check_layers)
+        ref(ids, labels=labels)[0].backward()
+        want = {n: p.grad for n, p in ref.named_parameters()}
+        errs = grad_errors(held, want)
+        local = dict(ref.named_parameters())
+        for p in local.values():
+            p.grad = None
+        ref(ids[:1], labels=labels[:1])[0].backward()
+        faults = {"no_division": max(grad_errors({n: 2 * g for n, g in held.items()},
+                                                 want).values()),
+                  "no_reduce": max(grad_errors({n: p.grad for n, p in local.items()},
+                                               want).values())}
+        worst = max(errs, key=errs.get)
+        res.update(grad_vs_ref_max_rel=errs[worst], grad_vs_ref_worst_leaf=worst,
+                   grad_vs_ref_tol=GRAD_TOL, grad_vs_ref_beyond_tol=sum(
+                       e > GRAD_TOL for e in errs.values()),
+                   planted_faults_max_rel=faults)
+        say("b", grad_vs_ref_max_rel=errs[worst], grad_vs_ref_worst_leaf=worst,
+            grad_vs_ref_tol=GRAD_TOL, planted_faults_max_rel=json.dumps(faults))
+        if res["grad_vs_ref_beyond_tol"]:
+            raise AssertionError("the reduced gradients differ from the one-process backward "
+                                 f"on the whole batch beyond {GRAD_TOL} of a leaf's largest: "
+                                 f"{ {n: e for n, e in errs.items() if e > GRAD_TOL} }")
+        caught = [k for k, e in faults.items() if e > GRAD_TOL]
+        if len(caught) != len(faults):
+            raise AssertionError(f"the gradient check does not tell the planted faults apart: "
+                                 f"{faults} against {GRAD_TOL}")
+        del ref, want, local, held
+        torch.cuda.empty_cache()
+        ref, ropt = build(args, args.check_layers)
+        TrainStep(ref, ropt, loss_fn(ref))(ids, labels)
+        torch.cuda.synchronize()
+        rp = dict(ref.named_parameters())
+        worst, beyond = 0.0, 0
+        for n, p in model._layers.named_parameters():
+            d = (p.detach().float() - rp[n].detach().float()).abs()
+            tol = 2 * LR + rp[n].detach().float().abs() * 2.0 ** -8
+            worst = max(worst, d.max().item())
+            beyond += int((d > tol).sum())
+        res.update(vs_trainstep_max_abs_diff=worst, vs_trainstep_beyond_tol=beyond,
+                   vs_trainstep_tol="2 lr + |p| 2^-8")
+        say("b", vs_trainstep_max_abs_diff=worst, vs_trainstep_beyond_tol=beyond)
+        if beyond:
+            raise AssertionError(f"{beyond} parameters differ from the one-process TrainStep "
+                                 "by more than 2 lr + one bf16 rounding")
+    dist.barrier()
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phase", choices=("a", "b"), required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=8192)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--check-layers", type=int, default=2)
+    ap.add_argument("--check-seq", type=int, default=2048)
+    ap.add_argument("--comm-buffer-size", type=float, default=25)
+    ap.add_argument("--tiny", action="store_true")
+    args = ap.parse_args(argv)
+    res = (phase_a if args.phase == "a" else phase_b)(args, args.out)
+    from .. import distributed as dist
+
+    with open(os.path.join(args.out, f"dist_{args.phase}.{dist.get_rank()}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.getcwd())
+    from paddle_tpu_torch.tools import dist_train
+
+    sys.exit(dist_train.main())

@@ -52,7 +52,10 @@ recomputed forwards' launches counted; and the op surface: each op's
 first case of ``paddle_tpu_torch.tools.op_cases`` on the card against the
 CPU, and one eager step of chip_smoke's ``OpsLlama`` (nn.Layer,
 create_parameter, public ops) with its flash, RMSNorm and fused-update
-launches counted.
+launches counted; and the distributed tier through the launcher: one
+NCCL rank training the sharded model bit for bit as ``TrainStep`` with
+exact launches, ``DataParallel`` over two gloo ranks on the one card with
+bit-identical gradients, and NCCL refusing two ranks on one card.
 """
 
 import contextlib
@@ -1944,3 +1947,70 @@ def test_ops_llama_eager_step_launches_the_kernels(dev):
     want.update(multi_tensor_update=1, multi_tensor_update_direct=1)
     assert cs.read_counts(counters) == want
     assert float(loss) == float(ref(ids, labels=labels)[0])
+
+
+def _dist_ranks(tmp_path, nproc, phase, env=None):
+    """Launch ``paddle_tpu_torch/tools/dist_train.py`` at tiny widths through
+    the launcher: (exit code, launcher output and logs, each rank's json)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch", "--nproc_per_node",
+           str(nproc), "--log_dir", str(tmp_path / "log"), "paddle_tpu_torch/tools/dist_train.py",
+           "--phase", phase, "--out", str(tmp_path), "--tiny", "--layers", "2", "--seq", "512",
+           "--steps", "2", "--check-seq", "256"]
+    out = subprocess.run(cmd, cwd=str(root), env=dict(os.environ, **(env or {})),
+                         capture_output=True, text=True, timeout=300)
+    logs = out.stdout + out.stderr + "".join(
+        p.read_text() for p in sorted((tmp_path / "log").glob("workerlog.*")))
+    res = [json.loads((tmp_path / f"dist_{phase}.{r}.json").read_text()) for r in range(nproc)
+           if (tmp_path / f"dist_{phase}.{r}.json").exists()]
+    return out.returncode, logs, res
+
+
+# one NCCL rank: fleet.init, group_sharded_parallel("p_g_os"), TrainStep on the
+# sharded model: step 1 bit for bit as TrainStep, then exact launches a step
+def test_dist_nccl_world_one_through_launch(dev, tmp_path):
+    rc, logs, res = _dist_ranks(tmp_path, 1, "a")
+    assert rc == 0, logs
+    (a,) = res
+    assert a["backend"] == "nccl" and a["check_params_equal"] == a["check_params"]
+    assert a["check_loss"] == a["check_loss_plain"]
+    assert a["launches"] == {"flash_wgmma_fwd": 4, "flash_wgmma_bwd": 4,
+                             "rms_norm_fwd_fused": 0, "rms_norm_bwd_dx_fused": 0,
+                             "rms_norm_fwd_round_first": 10, "rms_norm_bwd_dx_round_first": 10,
+                             "multi_tensor_update": 2}
+    assert not a["collectives_per_step"]     # one data rank: nothing to sum
+
+
+# two gloo ranks on the one card: DataParallel's reduced gradients and the
+# parameters after one step bit-identical across the ranks; rank 0's reduced
+# gradients within GRAD_TOL of a leaf's largest entry of the one-process
+# backward on the whole batch, and the two planted faults (no division by
+# the world, no reduce) beyond it
+def test_dist_data_parallel_two_gloo_ranks_on_the_card(dev, tmp_path):
+    from paddle_tpu_torch.tools.dist_train import GRAD_TOL
+
+    rc, logs, res = _dist_ranks(tmp_path, 2, "b", {"PADDLE_DISTRI_BACKEND": "gloo"})
+    assert rc == 0, logs
+    assert res[0]["grad_checksums"] == res[1]["grad_checksums"]
+    assert res[0]["param_checksums"] == res[1]["param_checksums"]
+    assert res[0]["backend"] == "gloo" and res[0]["device"] == res[1]["device"] == "cuda:0"
+    assert res[0]["grad_vs_ref_beyond_tol"] == 0
+    assert res[0]["grad_vs_ref_max_rel"] <= GRAD_TOL
+    assert all(e > GRAD_TOL for e in res[0]["planted_faults_max_rel"].values())
+    assert res[0]["vs_trainstep_beyond_tol"] == 0
+
+
+# NCCL with more ranks than cards raises and names the card, never falls
+# back to gloo
+def test_dist_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):
+    if torch.cuda.device_count() != 1:
+        pytest.skip("needs a machine with exactly one card")
+    rc, logs, _ = _dist_ranks(tmp_path, 2, "a")
+    assert rc == 1
+    assert "would share cuda:0" in logs

@@ -119,7 +119,7 @@ def test_state_dict_keys_are_checked():
     with pytest.raises(KeyError, match="extra"):
         port.load_reference_state_dict(pmodel, dict(state, extra=np.zeros(3)))
     for bad in ({"sequence_parallel": True}, {"context_parallel": "ulysses"}):
-        with pytest.raises(NotImplementedError, match="distributed slice"):
+        with pytest.raises(NotImplementedError, match="sep-across-processes slice"):
             port.LlamaForCausalLM(port.LlamaConfig.tiny(**bad), device="cpu")
 
 
