@@ -367,7 +367,29 @@ Phases, each printing one line of numbers:
    lr times the gradient's sign), the buckets fired and
    ``comm_buffer_size``, exact launches
    each rank (flash 2 each way, RMSNorm fused 5 each way, the fused update
-   1).
+   1);
+25. tensor parallelism (``tools/dist_train.py --phase t``: two gloo ranks
+   sharing the card, launched as phase 24's, over
+   ``Partitioner(build_program_mesh(tensor=2))`` and
+   ``PartitionedTrainStep``, each rank on 16 query heads and 4 KV heads,
+   its MLP columns and its vocabulary rows): (25c) the semi-auto API on
+   CUDA tensors, ``shard_tensor`` then ``reshard`` to ``Replicate`` equal
+   to the input in f32 and bf16 and the gradient back whole; (25b) at the
+   step-check cell (batch 1 x 2048 on both ranks) each rank's slices of the
+   reduced gradients against a one-process ``TrainStep``'s backward on the
+   card (each leaf within ``dist_train.GRAD_TOL`` of its largest entry),
+   two planted faults refused by that check (the row-parallel products'
+   all-reduce skipped; the column-parallel inputs' backward all-reduce
+   skipped), one step after which the uncut parameters (the norms) have
+   the same bits on both ranks, and the same with ``sequence_parallel``;
+   (25a) phase 7's cell (4 layers, batch 1 x 8192, phase 7's AdamW and
+   clip) at tensor 2: a warm-up and 3 timed steps (gloo's transport through
+   the host included), exact launches on each rank (flash 4 each way a
+   step, RMSNorm ``round_first`` 9 each way, the fused update 1), the
+   collectives a step by kind and bytes, per-rank peak memory and one
+   profiled step's busy share; and, in this process, flash at the rank's
+   shape (H 16, Hk 4, hd 128, S 8192, causal, bf16) held and timed alone
+   with SDPA's time and the bound.
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -395,7 +417,9 @@ RMSNorm also count phase 18's and phase 23a's timed steps, flash, RMSNorm's ``ro
 mode and the fused optimizer phase 22a's timed steps, the optimizer 22d's
 steps too; flash, RMSNorm's ``round_first`` mode and the fused optimizer
 phase 24a's three timed steps, flash, RMSNorm's fused mode and the fused
-optimizer phase 24b's step on each of its two ranks), and last ``{"ok": true,
+optimizer phase 24b's step on each of its two ranks, and flash, RMSNorm's
+``round_first`` mode and the fused optimizer phase 25a's three timed steps
+on each of its two ranks), and last ``{"ok": true,
 "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
@@ -2672,7 +2696,8 @@ def check_flash(gen):
     return time_flash(gen)
 
 
-def time_flash(gen, f32: bool = False):
+def time_flash(gen, f32: bool = False, H: int = 32, Hk: int = 8,
+               case: str = "training_shape"):
     """The kernels at the training shape (B 1, S 8192, H 32, Hk 8, hd 128,
     causal) on the card, in bf16 (phase 7's calls) or in f32 (phase 14's:
     the f32 route), the plain versions on the same inputs (one call per
@@ -2681,13 +2706,14 @@ def time_flash(gen, f32: bool = False):
     yardstick: SDPA forward, and its backward alone (``torch.autograd.grad``
     of one forward kept alive); bf16 through ``enable_gqa``, f32 over K/V
     expanded to every head, as phase 5's f32 case (faster in f32 than
-    ``enable_gqa`` at S 2048 on the H100)."""
+    ``enable_gqa`` at S 2048 on the H100). ``H`` / ``Hk``: the heads (phase
+    25's rank at tensor 2 computes 16 and 4)."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    B, S, H, Hk, hd = 1, TRAIN_SEQ, 32, 8, 128
+    B, S, hd = 1, TRAIN_SEQ, 128
     rep = H // Hk
     q, k, v, do = flash_inputs(gen, B, S, H, Hk, hd, f32)
     out, lse = fa.flash_attention_fwd(q, k, v, True)
@@ -2715,8 +2741,7 @@ def time_flash(gen, f32: bool = False):
         return o, g
 
     ref_fwd, ref_grads = plain()
-    errs = hold_flash("training_shape" + ("_f32" if f32 else ""), (out, lse), ref_fwd, grads,
-                      ref_grads)
+    errs = hold_flash(case + ("_f32" if f32 else ""), (out, lse), ref_fwd, grads, ref_grads)
     control = tf32_control(plain_out_grads, ref_fwd[0], ref_grads) if f32 else {}
     del ref_fwd, ref_grads, grads
     ms_fwd = device_ms(lambda i: fa.flash_attention_fwd(q, k, v, True), 1, 5)
@@ -2750,7 +2775,7 @@ def time_flash(gen, f32: bool = False):
     bf, byf = bound_ms(fwd_b, fwd_f, peak)
     bb, byb = bound_ms(bwd_b, bwd_f, peak)
     dt = "f32" if f32 else "bf16"
-    say("train-kernels", kernel="flash_attention", case="training_shape", B=B, S=S, H=H,
+    say("train-kernels", kernel="flash_attention", case=case, B=B, S=S, H=H,
         Hk=Hk, hd=hd, causal=True, dtype=dt, route=fa.route(q),
         **{k_: v_ for k_, v_ in errs.items() if k_ not in ("fwd_err", "bwd_err")}, **control,
         ms_fwd=round(ms_fwd, 5), bound_ms_fwd=round(bf, 5),
@@ -7060,7 +7085,7 @@ def run_ranks(phase: str, nproc: int, seed: int, env: dict | None = None) -> lis
     if proc.returncode != 0:
         tails = "\n".join(f"--- rank {r} ---\n" + "\n".join(lg.splitlines()[-40:])
                           for r, lg in enumerate(logs))
-        raise AssertionError(f"phase 24{phase}: the launch exited with {proc.returncode}\n"
+        raise AssertionError(f"dist phase {phase}: the launch exited with {proc.returncode}\n"
                              f"{text[-3000:]}\n{tails}")
     res = [json.load(open(os.path.join(out, f"dist_{phase}.{r}.json"))) for r in range(nproc)]
     shutil.rmtree(out, ignore_errors=True)
@@ -7118,6 +7143,58 @@ def dist_phase(seed: int, train_step_ms: float) -> dict:
                 for k in a["launches"]}
     return {"a": a["launches"], "b": {k: sum(r["launches"][k] for r in ranks)
                                       for k in want_b}, "all": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: tensor parallelism over two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TP = 2
+
+
+def tensor_phase(seed: int, train_step_ms: float) -> dict:
+    """Phase 25 (25a-c): returns the launches of 25a's timed steps over
+    both ranks."""
+    import torch
+
+    torch.cuda.empty_cache()
+    ranks = run_ranks("t", TP, seed, {"PADDLE_DISTRI_BACKEND": "gloo"})
+    per_step = expected_launches(TRAIN_LAYERS)
+    want = {k: per_step[k] * TRAIN_STEPS for k in (
+        "flash_wgmma_fwd", "flash_wgmma_bwd", "rms_norm_fwd_round_first",
+        "rms_norm_bwd_dx_round_first", "multi_tensor_update")}
+    want.update(rms_norm_fwd_fused=0, rms_norm_bwd_dx_fused=0)
+    for r in ranks:
+        if r["launches"] != want or r["backend"] != "gloo" or r["world"] != TP:
+            raise AssertionError(f"phase 25a rank {r['rank']} launched {r['launches']} on "
+                                 f"{r['backend']} at world {r['world']}, expected {want}")
+    for key in ("check", "check_sp"):
+        sums = [r[key]["uncut_checksums"] for r in ranks]
+        if any(s != sums[0] for s in sums) or not sums[0]:
+            bad = [n for n in sums[0] if any(s.get(n) != sums[0][n] for s in sums)]
+            raise AssertionError(f"phase 25b ({key}): the ranks' uncut parameters differ at "
+                                 f"{bad}")
+    r0 = ranks[0]
+    for key in ("check", "check_sp"):
+        c = r0[key]
+        say("tensor-b", case=key, loss=c["loss"], loss_plain=c["loss_plain"],
+            grad_vs_ref_max_rel=c["grad_vs_ref_max_rel"],
+            grad_vs_ref_worst_leaf=c["grad_vs_ref_worst_leaf"],
+            grad_vs_ref_tol=c["grad_vs_ref_tol"],
+            leaves=c["leaves"], cut_on_rank=c["cut"],
+            uncut_bit_identical=f"{len(c['uncut_checksums'])}/{len(c['uncut_checksums'])}",
+            planted_faults_max_rel=json.dumps(c.get("planted_faults_max_rel", {})))
+    say("tensor-c", **r0["semi_auto"])
+    say("tensor-a", ranks=TP, step_ms_mean=json.dumps([r["step_ms_mean"] for r in ranks]),
+        train_step_ms=round(train_step_ms, 3),
+        step_ms_ratio_to_train=round(max(r["step_ms_mean"] for r in ranks) / train_step_ms, 4),
+        max_memory_allocated_gib=json.dumps([r["max_memory_allocated_gib"] for r in ranks]),
+        device_busy_share=json.dumps([r["device_busy_share"] for r in ranks]),
+        params_on_rank=r0["params_on_rank"],
+        collectives_per_step=json.dumps(r0["collectives_per_step"]),
+        collective_bytes_per_step=json.dumps(r0["collective_bytes_per_step"]),
+        launches_per_rank=json.dumps(r0["launches"]))
+    return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
@@ -7413,6 +7490,9 @@ def main(argv=None) -> int:
     lap("23")
     dist_launches = dist_phase(args.seed, trained["step_ms"])["all"]
     lap("24")
+    tp_launches = tensor_phase(args.seed, trained["step_ms"])
+    tp_flash = time_flash(gen, H=32 // TP, Hk=8 // TP, case=f"tensor{TP}_rank_shape")
+    lap("25")
     amp_launches = {k: amp_o2["launches"][k] + amp_o1["launches"][k] for k in amp_o2["launches"]}
 
     kernels = [
@@ -7448,7 +7528,11 @@ def main(argv=None) -> int:
             "replaces": f"paddle_tpu/ops/pallas/{replaces}",
             "launches": (train_launches[wrapper] + amp_launches[wrapper]
                          + moe_launches["train"][wrapper] + ops_launches[wrapper]
-                         + dist_launches[wrapper]), **nums})
+                         + dist_launches[wrapper] + tp_launches[wrapper]), **nums})
+        kernels[-1][f"at_tensor{TP}_rank_shape"] = {
+            k: v for k, v in tp_flash[0 if name.endswith("fwd") else 1].items()
+            if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "at")}
         kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                               f"({TRAIN_LAYERS} layers), the {TRAIN_STEPS} timed AMP steps "
                               f"of each level (phase 18, bf16), the {MOE_STEPS} timed steps "
@@ -7456,8 +7540,10 @@ def main(argv=None) -> int:
                               f"{MOE_SEQ}), the {TRAIN_STEPS} timed eager steps of "
                               f"OpsLlama (phase 23a: scaled_dot_product_attention), the "
                               f"{TRAIN_STEPS} timed steps of phase 24a (one NCCL rank, "
-                              f"{TRAIN_LAYERS} layers) and phase 24b's step on each of its two "
-                              f"gloo ranks ({CHECK_LAYERS} layers, S {CHECK_SEQ})")
+                              f"{TRAIN_LAYERS} layers), phase 24b's step on each of its two "
+                              f"gloo ranks ({CHECK_LAYERS} layers, S {CHECK_SEQ}) and the "
+                              f"{TRAIN_STEPS} timed steps of phase 25a on each of its {TP} "
+                              f"ranks (tensor {TP}: H {32 // TP}, Hk {8 // TP} a rank)")
     for name, nums, launches in (
             ("rms_norm_fwd", norm_fwd, norm_launches["fwd"] + amp_launches["rms_norm_fwd_fused"]
              + ops_launches["rms_norm_fwd_fused"] + dist_launches["rms_norm_fwd_fused"]),
@@ -7520,16 +7606,20 @@ def main(argv=None) -> int:
             ("rms_norm_fwd_round_first", "rms_norm.cu", "fused_norm.py:79", rms_rf[0],
              train_launches["rms_norm_fwd_round_first"]
              + moe_launches["train"]["rms_norm_fwd_round_first"]
-             + dist_launches["rms_norm_fwd_round_first"],
+             + dist_launches["rms_norm_fwd_round_first"]
+             + tp_launches["rms_norm_fwd_round_first"],
              f"the {TRAIN_STEPS} timed training steps (TrainStep runs the composed form's "
-             f"rounding), the {MOE_STEPS} timed steps of the Mixtral cell (phase 22a) and the "
-             f"{TRAIN_STEPS} timed steps of phase 24a (TrainStep on the sharded model)"),
+             f"rounding), the {MOE_STEPS} timed steps of the Mixtral cell (phase 22a), the "
+             f"{TRAIN_STEPS} timed steps of phase 24a (TrainStep on the sharded model) and "
+             f"those of phase 25a on each of its {TP} ranks"),
             ("rms_norm_bwd_round_first", "rms_norm.cu", "fused_norm.py:79", rms_rf[1],
              train_launches["rms_norm_bwd_dx_round_first"]
              + moe_launches["train"]["rms_norm_bwd_dx_round_first"]
-             + dist_launches["rms_norm_bwd_dx_round_first"],
+             + dist_launches["rms_norm_bwd_dx_round_first"]
+             + tp_launches["rms_norm_bwd_dx_round_first"],
              f"the {TRAIN_STEPS} timed training steps, the {MOE_STEPS} timed steps of the "
-             f"Mixtral cell (phase 22a) and the {TRAIN_STEPS} timed steps of phase 24a"),
+             f"Mixtral cell (phase 22a), the {TRAIN_STEPS} timed steps of phase 24a and "
+             f"those of phase 25a on each of its {TP} ranks"),
             ("flash_attention_fwd_wide", "flash_attention.cu", "flash_attention.py:112",
              wide_flash[0], wide_flash_launches,
              "nn.functional.flash_attention past 256 columns (no model path runs them)"),
@@ -7574,7 +7664,7 @@ def main(argv=None) -> int:
                      + vision_launches["resnet50"] + vision_launches["lenet"]
                      + sum(hapi_launches.values()) + moe_launches["train"]["multi_tensor_update"]
                      + moe_launches["bench"] + ops_launches["multi_tensor_update"]
-                     + dist_launches["multi_tensor_update"]),
+                     + dist_launches["multi_tensor_update"] + tp_launches["multi_tensor_update"]),
         **fused_opt})
     kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                           f"({TRAIN_LAYERS} layers, one AdamW update a step), the "
@@ -7599,7 +7689,9 @@ def main(argv=None) -> int:
                           f": opt.step() of AdamW over {9 * TRAIN_LAYERS + 3} bf16 tensors, one "
                           f"a step), and phase 24: 24a's {TRAIN_STEPS} timed steps (the sharded "
                           "update over one NCCL rank, one a step) and 24b's eager step on each "
-                          "of its two gloo ranks (one each)")
+                          f"of its two gloo ranks (one each), and phase 25a's {TRAIN_STEPS} timed "
+                          f"steps on each of its {TP} ranks (the sharded update over the rank's "
+                          "slices, one a step)")
     kernels.append({
         "name": "multi_tensor_update_master", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",

@@ -9,14 +9,19 @@ gloo on the CPU), ``DataParallel`` with its bucketed reducer, the mesh
 (``ProcessMesh`` and the meshes of fleet and of the partitioning tier),
 ``parallelize`` with the ZeRO stages, ``shard_dataloader``, activation
 recompute, sharded checkpoints (:mod:`.checkpoint`), the partitioning tier
-(:mod:`.partitioning`) and :mod:`.fleet` (``fleet.init``, the topology,
+(:mod:`.partitioning`: dp x fsdp x tensor), tensor parallelism
+(:mod:`.tensor_parallel`), the semi-auto API (:mod:`.api`: ``shard_tensor``,
+``reshard``, the placements) and :mod:`.fleet` (``fleet.init``, the
+topology, the mp layers, Megatron's sequence parallelism,
 ``group_sharded_parallel``, the ring's context attention on one device and
-the Mixture-of-Experts layer). Tensor parallelism, the pipeline, ``sep``
-across processes and experts across devices wait for later slices and
-raise.
+the Mixture-of-Experts layer). The pipeline, ``sep`` across processes and
+experts across devices wait for later slices and raise.
 """
 
-from . import checkpoint, env, fleet, partitioning  # noqa: F401
+from . import checkpoint, env, fleet, partitioning, tensor_parallel  # noqa: F401
+from .api import (DistAttr, Partial, Placement, Replicate, Shard, dtensor_from_fn,
+                  placements_to_spec, reshard, shard_layer, shard_tensor, sharding_constraint,
+                  unshard_dtensor)
 from .collective import (P2POp, ReduceOp, Group, all_gather, all_gather_object, all_reduce,
                          all_to_all, all_to_all_single, barrier, batch_isend_irecv, broadcast,
                          broadcast_object_list, destroy_process_group, fused_allreduce, gather,
@@ -39,4 +44,6 @@ __all__ = ["ProcessMesh", "auto_mesh", "get_mesh", "set_mesh", "init_hybrid_mesh
            "all_gather_object", "reduce_scatter", "all_to_all", "all_to_all_single",
            "broadcast", "broadcast_object_list", "reduce", "scatter", "gather", "send", "recv",
            "isend", "irecv", "batch_isend_irecv", "barrier", "wait", "fused_allreduce",
-           "destroy_process_group"]
+           "destroy_process_group", "tensor_parallel", "Placement", "Shard", "Replicate",
+           "Partial", "DistAttr", "placements_to_spec", "shard_tensor", "reshard",
+           "dtensor_from_fn", "unshard_dtensor", "shard_layer", "sharding_constraint"]

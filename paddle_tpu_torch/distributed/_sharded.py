@@ -2,10 +2,15 @@
 machinery of the ZeRO stages (``fleet.sharding``, ``parallelize``) and of
 the partitioning tier (``partitioning``).
 
-A sharded tensor carries a :class:`ShardInfo`: its full shape, the one dim
-cut over a group of ``k`` ranks (the shard axis, ``fsdp`` or ``sharding``),
-this rank's slice of it, and the replica group, the data ranks that hold
-the same slice. Each parameter stays a tensor of its own; nothing is
+A sharded tensor carries a :class:`ShardInfo`: its full shape, the dim
+cut over a group of ``k`` ranks (the shard axis, ``fsdp`` or ``sharding``:
+gathered where it runs), the dim cut over the tensor axis (``tensor`` /
+``mp``: resident, each rank computing on its columns or rows), this rank's
+slice, and the replica group: the ranks holding the same slice whose
+gradients are summed (the data ranks, and the tensor ranks where the
+gradient of a parameter replicated across them is partial: the norms
+under sequence parallelism, K and V when the tensor size does not divide
+their heads). Each parameter stays a tensor of its own; nothing is
 flattened across parameters at rest.
 
 - **Stage 3** (``at_rest``): the parameter's data is its slice.
@@ -30,10 +35,11 @@ flattened across parameters at rest.
   sum and no collective runs.
 
 :class:`ShardedUpdate` is one optimizer step: reduce, clip (the global
-norm sums the squared norms of the slices over the shard group, and those
-of the whole parameters once, before the square root), update every
-slice in place with the fused kernel (``optimizer.fused_step``: one launch
-for up to 128 tensors), then gather stages 1 and 2. A two-byte float
+norm sums the squared norms of the slices over the groups that cut them,
+and those of the parameters that no axis cuts once, before the square
+root), update every slice in place with the fused kernel
+(``optimizer.fused_step``: one launch for up to 128 tensors), then gather
+stages 1 and 2. A two-byte float
 gradient is reduced in f32 over gloo, whose reductions run on the host.
 """
 
@@ -41,34 +47,61 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import collective as _c
 
 __all__ = ["ShardInfo", "info_of", "place", "gather_full", "install_gathers",
-           "ShardedUpdate"]
+           "ShardedUpdate", "plan_specs"]
 
 
 @dataclasses.dataclass(eq=False)
 class ShardInfo:
     full_shape: tuple
-    dim: int | None            # the dim cut over ``group`` (None: whole)
-    group: object              # the shard axis's group (k ranks)
-    replica_group: object      # the data ranks holding the same slice
+    dim: int | None            # the dim cut over ``group`` (None: not cut there)
+    group: object              # the shard axis's group (k ranks), gathered where it runs
+    replica_group: object      # the ranks holding this slice whose gradients are summed
     at_rest: bool              # the tensor's data is the slice (stage 3)
+    tdim: int | None = None    # the dim cut over ``tgroup`` (the tensor axis), resident
+    tgroup: object = None
+    copies: object = None      # ranks holding this slice whose gradients are not summed
+    norm_group: object = None  # the ranks whose slices make the whole parameter
 
     @property
     def k(self) -> int:
         return self.group.nranks if self.dim is not None else 1
 
     @property
+    def tk(self) -> int:
+        return self.tgroup.nranks if self.tdim is not None else 1
+
+    @property
+    def local_shape(self) -> tuple:
+        """The shape of this rank's tensor slice: what the shard axis
+        gathers, and what the rank computes on."""
+        return tuple(n // self.tk if d == self.tdim else n for d, n in enumerate(self.full_shape))
+
+    @property
     def index(self) -> tuple:
-        """This rank's slice of the full tensor."""
-        idx = [slice(0, n) for n in self.full_shape]
+        """This rank's slice of :attr:`local_shape` along the shard axis."""
+        idx = [slice(0, n) for n in self.local_shape]
         if self.dim is not None:
-            n = self.full_shape[self.dim] // self.k
+            n = self.local_shape[self.dim] // self.k
             c = self.group.rank
             idx[self.dim] = slice(c * n, (c + 1) * n)
+        return tuple(idx)
+
+    @property
+    def held_index(self) -> tuple:
+        """The part of the full tensor this rank holds: its tensor slice,
+        and at rest its slice of that along the shard axis."""
+        idx = list(self.index if self.at_rest else [slice(0, n) for n in self.local_shape])
+        if self.tdim is not None:
+            n = self.local_shape[self.tdim]
+            off = self.tgroup.rank * n
+            s = idx[self.tdim]
+            idx[self.tdim] = slice(off + s.start, off + s.stop)
         return tuple(idx)
 
     @property
@@ -76,11 +109,21 @@ class ShardInfo:
         return tuple(s.stop - s.start for s in self.index)
 
     @property
+    def sliced(self) -> bool:
+        return self.dim is not None or self.tdim is not None
+
+    @property
+    def cut_group(self):
+        """The group over whose slices the parameter's norm is summed."""
+        if self.norm_group is not None:
+            return self.norm_group
+        return self.group if self.dim is not None else None
+
+    @property
     def writer(self) -> bool:
         """Whether this rank writes the slice to a checkpoint (the first
-        of its replicas)."""
-        rg = self.replica_group
-        return rg is None or rg.rank == 0
+        of the ranks that hold it)."""
+        return all(g is None or g.rank == 0 for g in (self.replica_group, self.copies))
 
 
 def register(t, info) -> None:
@@ -106,10 +149,11 @@ def divisible_dim(shape, k, largest=False):
 
 
 def place(p, info: ShardInfo) -> None:
-    """Record ``info`` on parameter ``p``; at rest, keep only its slice."""
-    if info.at_rest and info.dim is not None:
+    """Record ``info`` on parameter ``p`` (of the full shape); keep only its
+    tensor slice, and at rest only its slice of that."""
+    if info.tdim is not None or (info.at_rest and info.dim is not None):
         with torch.no_grad():
-            p.data = p.data[info.index].clone()
+            p.data = p.data[info.held_index].clone()
     register(p, info)
 
 
@@ -132,7 +176,7 @@ def _from_rows(rows, info):
     """The full tensor from [k, numel / k] rows of slices."""
     d, k = info.dim, info.k
     shard = info.shard_shape
-    return rows.reshape((k,) + shard).movedim(0, d).reshape(info.full_shape)
+    return rows.reshape((k,) + shard).movedim(0, d).reshape(info.local_shape)
 
 
 def gather_many(shards, infos):
@@ -183,11 +227,18 @@ def reduce_many(fulls, infos, divisor):
 
 
 def gather_full(t, info=None):
-    """The full tensor of shard ``t`` (``t`` itself when whole)."""
+    """The full tensor of shard ``t`` (``t`` itself when whole): gathered
+    over the shard axis, then over the tensor axis."""
     info = info or info_of(t)
-    if info is None or info.dim is None or not info.at_rest:
+    if info is None:
         return t
-    return gather_many([t.detach()], [info])[0]
+    if info.dim is not None and info.at_rest:
+        t = gather_many([t.detach()], [info])[0]
+    if info.tdim is not None:
+        from .tensor_parallel import gather_dim
+
+        t = gather_dim(t.detach(), info.tdim, info.tgroup)
+    return t
 
 
 class _Block:
@@ -210,7 +261,7 @@ class _Block:
     def reduce(self, grads):
         out = [None] * len(grads)
         for idx in self._by_group():
-            fulls = [torch.zeros(self.infos[i].full_shape, dtype=self.slots[i][2].dtype,
+            fulls = [torch.zeros(self.infos[i].local_shape, dtype=self.slots[i][2].dtype,
                                  device=self.slots[i][2].device)
                      if grads[i] is None else grads[i] for i in idx]
             got = reduce_many(fulls, [self.infos[i] for i in idx], self.divisor)
@@ -318,7 +369,7 @@ class ShardedUpdate:
         if st is None:
             st = cls.init_state(self._slice(p))
             info = self.infos.get(id(p))
-            if self._sliced(p):
+            if info is not None and info.sliced:
                 for v in st.values():
                     if torch.is_tensor(v):
                         register(v, dataclasses.replace(info, at_rest=True))
@@ -329,23 +380,26 @@ class ShardedUpdate:
         """Each gradient as the update reads it: the mean over the data
         ranks, of the slice where the state is sliced."""
         out = list(grads)
-        whole, scatter = [], {}
+        whole, scatter = {}, {}
         for i, p in enumerate(params):
             info = self.infos.get(id(p))
             if info is not None and info.at_rest and info.dim is not None:
                 continue            # reduced by the gather's backward
-            if info is None or info.dim is None or self.stage == 1:
-                whole.append(i)
+            if info is None or self.stage == 1:
+                whole.setdefault(id(self.data_group), (self.data_group, []))[1].append(i)
+            elif info.dim is None:  # summed over its replicas: the data ranks (and tensor)
+                group = info.replica_group or self.data_group
+                whole.setdefault(id(group), (group, []))[1].append(i)
             else:
                 scatter.setdefault((info.group.id, id(info.replica_group)), []).append(i)
-        if whole:
-            dtypes = [grads[i].dtype for i in whole]
-            summed = [grads[i] for i in whole]
-            if self.data_group.nranks > 1:      # one data rank: nothing to sum
+        for group, idx in whole.values():
+            dtypes = [grads[i].dtype for i in idx]
+            summed = [grads[i] for i in idx]
+            if group.nranks > 1:                # one rank: nothing to sum
                 summed = _c.fused_allreduce(
-                    [g.to(_reduce_dtype(d, self.data_group)) for g, d in zip(summed, dtypes)],
-                    group=self.data_group)
-            for i, s, d in zip(whole, summed, dtypes):
+                    [g.to(_reduce_dtype(d, group)) for g, d in zip(summed, dtypes)],
+                    group=group)
+            for i, s, d in zip(idx, summed, dtypes):
                 g = (s if self.divisor == 1 else s / self.divisor).to(d)
                 out[i] = g[self.infos[id(params[i])].index].contiguous() \
                     if self._sliced(params[i]) else g
@@ -369,8 +423,9 @@ class ShardedUpdate:
         sq = [torch.linalg.vector_norm(g, dtype=torch.float32).square() for g in grads]
         by_group: dict = {}
         for i, p in enumerate(params):
-            if self._sliced(p):
-                group = self.infos[id(p)].group
+            info = self.infos.get(id(p))
+            group = info.cut_group if info is not None else None
+            if group is not None and group.nranks > 1:
                 by_group.setdefault(group.id, (group, []))[1].append(i)
         for group, idx in by_group.values():
             vec = torch.stack([sq[i] for i in idx])
@@ -416,3 +471,62 @@ class ShardedUpdate:
                                     [self.infos[id(p)] for p in ps])
                 for p, f in zip(ps, fulls):
                     p.data.copy_(f)
+
+
+def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str) -> ShardedUpdate:
+    """Cut every parameter of ``model`` by its placement (``specs[id(p)]``,
+    one entry a dim): the dim on ``tensor_axis`` stays resident (each rank
+    computes on its slice through the collectives that
+    :mod:`~paddle_tpu_torch.distributed.tensor_parallel` installs in the
+    model), the dim on any other axis is kept at rest as a slice and
+    gathered where its block runs. Returns the model's
+    :class:`ShardedUpdate` over the data ranks (``data_axes``)."""
+    from . import tensor_parallel
+
+    tsize = mesh.get_dim_size(tensor_axis) if tensor_axis in mesh.dim_names else 1
+    tgroup = mesh.get_group(tensor_axis) if tsize > 1 else None
+    partial = set()
+    if tgroup is not None:
+        partial = tensor_parallel.install(model, tgroup, specs, tensor_axis) | {
+            id(p) for p in model.parameters() if getattr(p, "sequence_parallel", False)}
+    data_axes = tuple(a for a in data_axes if a in mesh.dim_names)
+    divisor = int(np.prod([mesh.get_dim_size(a) for a in data_axes])) if data_axes else 1
+    infos = {}
+    for p in model.parameters():
+        if id(p) in infos:
+            continue
+        held = info_of(p)
+        if held is not None:        # cut already (a tensor-parallel layer's own slice)
+            infos[id(p)] = held
+            continue
+        dim = tdim = None
+        shard_axes: tuple = ()
+        for d, entry in enumerate(specs.get(id(p), ())):
+            if entry is None:
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            if tensor_axis in axes:
+                if len(axes) > 1:
+                    raise NotImplementedError(f"dim {d} cut over {axes}: the tensor axis shares "
+                                              "a dim with no other axis")
+                tdim = d
+            elif dim is not None:
+                raise NotImplementedError(f"dims {dim} and {d} both gathered: a parameter is "
+                                          "cut over one gathered dim")
+            else:
+                dim, shard_axes = d, axes
+        part = id(p) in partial
+        if dim is None and tdim is None and not part:
+            continue
+        rest = tuple(a for a in data_axes if a not in shard_axes) + ((tensor_axis,) if part else ())
+        cut = shard_axes + ((tensor_axis,) if tdim is not None else ())
+        info = ShardInfo(tuple(p.shape), dim,
+                         mesh.get_group(shard_axes) if dim is not None else None,
+                         mesh.get_group(rest) if rest else None, at_rest=True, tdim=tdim,
+                         tgroup=tgroup if tdim is not None else None,
+                         copies=tgroup if tdim is None and not part else None,
+                         norm_group=mesh.get_group(cut) if cut else None)
+        place(p, info)
+        infos[id(p)] = info
+    install_gathers(model, divisor)
+    return ShardedUpdate(infos, mesh.get_group(data_axes), divisor, 3)

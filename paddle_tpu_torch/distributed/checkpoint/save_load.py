@@ -13,15 +13,17 @@ other's checkpoints:
   (those with its ``save_id``, a nonce rank 0 draws and broadcasts).
 
 A tensor's shard is what this rank holds of it: the slice of a sharded
-parameter or optimizer state (``distributed._sharded``), written by the
-first of the ranks that hold that slice; a whole tensor is written by
-rank 0. bfloat16 shards are raw 2-byte words (``uint16`` in the ``.npy``)
-with the manifest's ``dtype`` saying "bfloat16", since numpy has no such
-type here. Every rank writes into one shared directory.
+parameter or optimizer state (``distributed._sharded``: its tensor slice,
+and of that its slice along the shard axis), written by the first of the
+ranks that hold that slice; a whole tensor is written by rank 0.
+bfloat16 shards are raw 2-byte words (``uint16`` in the ``.npy``) with
+the manifest's ``dtype`` saying "bfloat16", since numpy has no such type
+here. Every rank writes into one shared directory.
 
 ``load_state_dict`` fills each target tensor in place with the part of
 it that this rank holds, assembled from whatever shards were written: a
-checkpoint saved by 2 ranks loads into 1 or 4. A shard whose bytes fail
+checkpoint saved by 2 ranks loads into 1 or 4, one saved at fsdp 2 x
+tensor 2 into tensor 1. A shard whose bytes fail
 their crc32, or that is missing, raises :class:`CheckpointCorruptError`.
 ``async_save=True`` copies the state to the host now and writes on a
 thread; the next save or load of that path, or :func:`wait_async_save`,
@@ -132,10 +134,10 @@ def _from_numpy(a: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def _part(t):
-    """(index, writer) of what this rank holds of ``t``."""
+    """(index, writer, full shape) of what this rank holds of ``t``."""
     info = _sharded.info_of(t) if torch.is_tensor(t) else None
-    if info is not None and info.at_rest and info.dim is not None:
-        return info.index, info.writer, tuple(info.full_shape)
+    if info is not None and (info.tdim is not None or (info.at_rest and info.dim is not None)):
+        return info.held_index, info.writer, tuple(info.full_shape)
     shape = tuple(t.shape)
     return tuple(slice(0, n) for n in shape), _env.get_rank() == 0, shape
 

@@ -4,31 +4,43 @@
 ``fleet.init(strategy=...)`` joins the process group, lays the world out
 on ``strategy.hybrid_configs``' degrees (:class:`CommunicateTopology`),
 makes every axis's group (:class:`HybridCommunicateGroup`) and makes the
-topology's mesh current. ``distributed_model`` wraps the model in
-``DataParallel`` when the mode is data parallel over more than one rank,
-and shards it (stage 3) when ``sharding_configs["stage"]`` is 3;
+topology's mesh current (its ``mp`` axis the model group).
+``distributed_model`` wraps the model in ``DataParallel`` when the mode is
+data parallel over more than one rank, shards it (stage 3) when
+``sharding_configs["stage"]`` is 3, and in the model-parallel mode
+(``mp_degree`` above 1) cuts it over the ``mp`` axis by its marks, as the
+reference's ``parallelize`` (``parallelize(mp_config=...)``);
 ``distributed_optimizer`` carries ``gradient_merge``'s ``k_steps`` to
 ``TrainStep(accumulate_steps=)`` and, in the sharding mode, returns the
 sharded optimizer (stage 1 or 2 from ``sharding_configs``, 3 after a
-stage-3 model). ``localsgd`` waits for ``incubate.optimizer.LocalSGD``.
+stage-3 model), and in the model-parallel mode the optimizer over the
+cut model, which averages over the data ranks and sums the gradients
+that are partial across the model group. ``localsgd`` waits for
+``incubate.optimizer.LocalSGD``.
 
-Also here: :mod:`.sequence_parallel`'s ring context attention, the
-Mixture-of-Experts layer (:mod:`.moe`, its experts on this device),
-:mod:`.sharding`, :mod:`.topology` and :mod:`.random`.
+Also here: the tensor-parallel layers (:mod:`.mp_layers`),
+:mod:`.sequence_parallel` (Megatron's sequence parallelism and the
+ring's context attention), the Mixture-of-Experts layer (:mod:`.moe`, its
+experts on this device), :mod:`.sharding`, :mod:`.topology` and
+:mod:`.random`.
 """
 
 from __future__ import annotations
 
 from .. import env as _env
 from ..mesh import set_mesh
-from . import moe, random, sequence_parallel, sharding, topology  # noqa: F401
+from . import moe, mp_layers, random, sequence_parallel, sharding, topology  # noqa: F401
 from .moe import MoELayer
+from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy, ParallelLinear,
+                        RowParallelLinear, VocabParallelEmbedding)
 from .random import RNGStatesTracker, get_rng_state_tracker, model_parallel_random_seed
 from .sequence_parallel import ring_context_attention
 from .sharding import DygraphShardingOptimizer, group_sharded_parallel
 from .topology import CommunicateTopology, HybridCommunicateGroup
 
-__all__ = ["moe", "sequence_parallel", "sharding", "topology", "random", "MoELayer",
+__all__ = ["moe", "mp_layers", "sequence_parallel", "sharding", "topology", "random",
+           "MoELayer", "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
+           "ParallelCrossEntropy", "ParallelLinear",
            "ring_context_attention", "DistributedStrategy", "Fleet", "fleet", "init",
            "distributed_model", "distributed_optimizer", "get_hybrid_communicate_group",
            "worker_num", "worker_index", "is_first_worker", "barrier_worker",
@@ -123,9 +135,18 @@ class Fleet:
     def distributed_model(self, model):
         """``DataParallel`` over the data group in the data-parallel mode
         with more than one rank; the model sharded when the strategy's
-        sharding stage is 3; else the model."""
+        sharding stage is 3; in the model-parallel mode the model on its
+        slices of the ``mp`` axis; else the model."""
         self._need_init()
         hcg = self._hcg
+        if hcg.get_model_parallel_world_size() > 1:
+            if hcg.get_parallel_mode() != "model_parallel":
+                raise NotImplementedError(f"mp_degree beside the {hcg.get_parallel_mode()} "
+                                          "mode waits for a later slice of the port")
+            from ..parallelize import plan_tensor
+
+            self._model_update = plan_tensor(model, self._mesh)
+            return model
         if hcg.get_parallel_mode() == "sharding_parallel" and self._sharding_stage() == 3:
             from .sharding import data_groups, plan
 
@@ -151,7 +172,15 @@ class Fleet:
             if k > 1:
                 optimizer._accumulate_steps = k
                 optimizer._accumulate_avg = bool(cfg.get("avg", True))
-        if self._hcg is not None and self._hcg.get_parallel_mode() == "sharding_parallel":
+        if self._hcg is not None and self._hcg.get_parallel_mode() == "model_parallel":
+            from .sharding import GroupShardedOptimizer
+
+            if self._model_update is None:
+                raise ValueError("the model-parallel mode cuts the model: call "
+                                 "fleet.distributed_model(model) before distributed_optimizer")
+            update, self._model_update = self._model_update, None
+            optimizer = GroupShardedOptimizer(optimizer, update)
+        elif self._hcg is not None and self._hcg.get_parallel_mode() == "sharding_parallel":
             from .sharding import GroupShardedOptimizer, data_groups, plan
 
             if self._model_update is not None:

@@ -5,7 +5,8 @@
 over fleet's axes (``data``, ``pipe``, ``sharding``, ``sep``, ``model``);
 :class:`HybridCommunicateGroup` makes the process group of every axis
 (every rank makes every group, in the axes' order) and answers the rank
-and world-size getters. ``model``, ``pipe`` and ``sep`` above 1 wait for
+and world-size getters, the model group's (tensor parallelism) among
+them. ``pipe`` above 1, and ``sep`` beside another axis above 1, wait for
 later slices of the port and raise.
 """
 

@@ -8,13 +8,16 @@ several (every process asks for the same groups in the same order, as
 tier (:func:`build_program_mesh`: ``dp``, ``pipe``, ``fsdp``, ``tensor``)
 and of fleet's topology (:func:`init_mesh_from_topology`) are built here.
 
-The axes that need what later slices of the port bring raise
-``NotImplementedError`` above size 1: ``tensor`` / ``mp`` / ``model``
-(tensor parallelism), ``pipe`` / ``pp`` (the pipeline), ``ep`` (experts
-across devices) and ``cp``, and ``sep`` beside any other axis above 1
-(``sep`` across processes). A mesh whose only axis above 1 is ``sep`` is
-the one-process ring (``ops.ring_attention``): virtual ranks of this
-process on its device, which the ring attention folds into its batch.
+The tensor axis (``tensor`` on the partitioning tier's mesh, ``mp`` /
+``model`` on fleet's) is a group like any other: the partitioner, fleet's
+mp layers and ``parallelize(mp_config=...)`` place its collectives
+(``distributed.tensor_parallel``). The axes that need what later slices
+of the port bring raise ``NotImplementedError`` above size 1: ``pipe`` /
+``pp`` (the pipeline), ``ep`` (experts across devices) and ``cp``, and
+``sep`` beside any other axis above 1 (``sep`` across processes). A mesh
+whose only axis above 1 is ``sep`` is the one-process ring
+(``ops.ring_attention``): virtual ranks of this process on its device,
+which the ring attention folds into its batch.
 """
 
 from __future__ import annotations
@@ -29,9 +32,11 @@ __all__ = ["ProcessMesh", "set_mesh", "get_mesh", "auto_mesh", "init_mesh_from_t
 _default_mesh: "ProcessMesh | None" = None
 
 #: axis name -> the later slice of the port that brings it
-WAITING_AXES = {"tensor": "tensor parallelism", "mp": "tensor parallelism",
-                "model": "tensor parallelism", "pipe": "the pipeline", "pp": "the pipeline",
+WAITING_AXES = {"pipe": "the pipeline", "pp": "the pipeline",
                 "ep": "expert parallelism across devices", "cp": "sep across processes"}
+
+#: the names of the tensor axis
+TENSOR_AXES = ("tensor", "mp", "model")
 
 
 def check_axes(names, sizes) -> None:

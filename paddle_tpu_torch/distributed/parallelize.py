@@ -5,12 +5,19 @@
 applies ``config["sharding_config"]["stage"]`` (1, 2 or 3) over the mesh's
 ``sharding`` axis, as ``fleet.group_sharded_parallel`` does: stage 3 cuts
 each parameter on its largest dim the axis divides (the reference's
-``parallelize.py:65-75``), stages 1 and 2 on the first. With an optimizer
-it returns ``(model, optimizer)``, the optimizer a
-``fleet.sharding.GroupShardedOptimizer`` when a stage applies. A mesh of
-one process with only a ``sep`` axis (the one-process ring) changes no
-parameter. ``dp_config``, ``mp_config`` and ``pp_config`` wait for the
-slices that bring those axes.
+``parallelize.py:65-75``), stages 1 and 2 on the first. A mesh with a
+tensor axis above 1 (or ``mp_config``) cuts each parameter by its marks
+(``shard_axes``: a dim on the mesh's tensor axis, ``mp`` / ``model`` /
+``tensor``, where the axis divides it, as the reference's
+:func:`param_spec`) and hands the axis to the model
+(``distributed.tensor_parallel``); the gradients are averaged over the
+mesh's data axes in the sharded update. With an optimizer it returns
+``(model, optimizer)``, the optimizer a
+``fleet.sharding.GroupShardedOptimizer`` when a stage or ``mp_config``
+applies. A mesh of one process with only a ``sep`` axis (the one-process
+ring) changes no parameter. ``dp_config`` and ``pp_config`` wait for the
+slices that bring those axes, and ``mp_config`` beside a sharding stage
+for a later slice.
 
 :func:`shard_dataloader` gives each rank its part of every batch: the rows
 of dim 0 that its coordinates on the mesh's data axes (``dcn``, ``dp``,
@@ -33,6 +40,9 @@ def param_spec(param, mesh: ProcessMesh, extra_axes=()):
     from .partitioning.rules import PartitionSpec
 
     shape = tuple(param.shape)
+    units = getattr(param, "logical_units", None)
+    if units is not None:
+        shape = tuple(n if u is None else u for n, u in zip(shape, units))
     spec = [None] * len(shape)
     for dim, names in (getattr(param, "shard_axes", None) or {}).items():
         for name in names if isinstance(names, (list, tuple)) else (names,):
@@ -52,12 +62,25 @@ def parallelize(model, optimizer=None, mesh: ProcessMesh | None = None, config=N
         raise TypeError(f"parallelize takes a ProcessMesh, got {type(mesh).__name__}")
     set_mesh(mesh)
     config = config or {}
-    for key in ("dp_config", "mp_config", "pp_config"):
+    for key in ("dp_config", "pp_config"):
         if config.get(key):
             raise NotImplementedError(f"parallelize({key}=...) waits for the slice of the "
                                       "port that brings its axis")
     stage = int((config.get("sharding_config") or {}).get("stage", 0))
-    if stage:
+    from .mesh import TENSOR_AXES
+
+    tensor = any(a in mesh.dim_names and mesh.get_dim_size(a) > 1 for a in TENSOR_AXES)
+    if config.get("mp_config") is not None or tensor:
+        if stage:
+            raise NotImplementedError("parallelize(mp_config=..., sharding_config=...) waits "
+                                      "for a later slice of the port; the partitioner cuts "
+                                      "fsdp x tensor")
+        update = plan_tensor(model, mesh)
+        if optimizer is not None:
+            from .fleet.sharding import GroupShardedOptimizer
+
+            optimizer = GroupShardedOptimizer(optimizer, update)
+    elif stage:
         if stage not in (1, 2, 3):
             raise ValueError(f"sharding stage {stage}: one of 1, 2, 3")
         if "sharding" not in mesh.dim_names:
@@ -69,6 +92,23 @@ def parallelize(model, optimizer=None, mesh: ProcessMesh | None = None, config=N
         if optimizer is not None:
             optimizer = GroupShardedOptimizer(optimizer, update)
     return (model, optimizer) if optimizer is not None else model
+
+
+def plan_tensor(model, mesh: ProcessMesh):
+    """Cut ``model`` over ``mesh``'s tensor axis by its parameters' marks
+    (see the module docstring); returns its ``ShardedUpdate``."""
+    from . import _sharded
+    from .fleet.sharding import DATA_AXES
+    from .mesh import TENSOR_AXES
+
+    axis = next((a for a in TENSOR_AXES if a in mesh.dim_names and mesh.get_dim_size(a) > 1),
+                None)
+    if axis is None:
+        raise ValueError(f"mp_config needs a tensor axis ({', '.join(TENSOR_AXES)}) above 1 "
+                         f"on {mesh}")
+    specs = {id(p): param_spec(p, mesh) for p in model.parameters()}
+    return _sharded.plan_specs(model, mesh, specs,
+                               tuple(a for a in mesh.dim_names if a in DATA_AXES), axis)
 
 
 class ShardDataloader:

@@ -5,13 +5,18 @@ placed by it (counterpart of
 ``Partitioner(mesh, rules)`` derives each parameter's
 :class:`~.rules.PartitionSpec` from its ``logical_axes`` (else its
 ``shard_axes``, else replicated) and the batch's from the ``batch`` rule.
+A dim whose parameter carries ``logical_units`` (a projection's heads) is
+cut only where the axis divides the units, so no head is split.
 :meth:`Partitioner.shard_model` keeps on each rank the slice of each
 parameter that its spec gives it (on the default table: the ``embed`` dim
-over ``fsdp``), each parameter its own tensor, and wraps the model's
-blocks so that their slices are gathered where they run
-(``distributed._sharded``). :meth:`Partitioner.shard_batch` gives a rank
-its rows of a batch: its coordinates on the batch's axes (``dp``, then
-``fsdp``) select them.
+over ``fsdp``, gathered where its block runs, and the ``vocab``,
+``heads``, ``kv`` and ``mlp`` dims over ``tensor``, resident), each
+parameter its own tensor (``distributed._sharded.plan_specs``), and
+hands the tensor axis to the model (``distributed.tensor_parallel``: the
+Llama computes on its heads, columns and vocabulary rows).
+:meth:`Partitioner.shard_batch` gives a rank its rows of a batch: its
+coordinates on the batch's axes (``dp``, then ``fsdp``) select them;
+the tensor ranks of one data rank see the same rows.
 """
 
 from __future__ import annotations
@@ -75,6 +80,9 @@ class Partitioner:
                       if getattr(param, "dist_shard", None) is not None else param.shape)
         logical = getattr(param, "logical_axes", None)
         if logical:
+            units = getattr(param, "logical_units", None)
+            if units is not None:
+                shape = tuple(n if u is None else u for n, u in zip(shape, units))
             return self.spec_for(logical, shape)
         out, used = [None] * len(shape), set()
         for dim, names in (getattr(param, "shard_axes", None) or {}).items():
@@ -97,26 +105,17 @@ class Partitioner:
             axes = tuple(a for a in self.table.mesh_axes("batch") if a in self.mesh.dim_names)
         except KeyError:
             axes = ()
-        divisor = self.data_axis_size()
-        infos = {}
+        from ..fleet.moe import MoELayer
+
+        if self.mesh.get_dim_size("tensor") > 1 and any(isinstance(m, MoELayer)
+                                                         for m in model.modules()):
+            raise NotImplementedError(
+                "a Mixture-of-Experts model under a tensor axis: the rules put its experts on "
+                "it (expert -> tensor), which waits for the port's expert-parallel slice")
+        specs = {}
         for p in model.parameters():
-            spec = self.param_spec(p)
-            p.parallel_spec = spec
-            dims = [d for d, s in enumerate(spec) if s is not None]
-            if not dims:
-                continue
-            if len(dims) > 1:
-                raise NotImplementedError(f"a parameter cut on dims {dims} ({spec}) waits for "
-                                          "the port's tensor-parallel slice")
-            shard_axes = spec[dims[0]] if isinstance(spec[dims[0]], tuple) else (spec[dims[0]],)
-            rest = tuple(a for a in axes if a not in shard_axes)
-            info = _sharded.ShardInfo(tuple(p.shape), dims[0], self.mesh.get_group(shard_axes),
-                                      self.mesh.get_group(rest) if rest else None, at_rest=True)
-            _sharded.place(p, info)
-            infos[id(p)] = info
-        _sharded.install_gathers(model, divisor)
-        whole = self.mesh.get_group(axes or tuple(self.mesh.dim_names))
-        self.update = _sharded.ShardedUpdate(infos, whole, divisor, 3)
+            p.parallel_spec = specs[id(p)] = self.param_spec(p)
+        self.update = _sharded.plan_specs(model, self.mesh, specs, axes, "tensor")
         return model
 
     def batch_part(self) -> tuple:

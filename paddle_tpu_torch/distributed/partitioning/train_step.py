@@ -4,13 +4,16 @@ shards (counterpart of
 
 The model is sharded at construction (:meth:`Partitioner.shard_model`:
 the ``fsdp`` slices at rest, each decoder layer's slices all-gathered just
-before it runs and its gradients reduce-scattered to them). A call takes
-the global batch (every tensor leads with it, divisible by
-:meth:`Partitioner.data_axis_size`), runs this rank's rows of it
-(the ``("dp", "fsdp")`` data axes), and returns the global mean loss. The
+before it runs and its gradients reduce-scattered to them; the ``tensor``
+slices resident, the model computing on them through Megatron's
+collectives). A call takes the global batch (every tensor leads with it,
+divisible by :meth:`Partitioner.data_axis_size`), runs this rank's rows
+of it (the ``("dp", "fsdp")`` data axes; the tensor ranks of a data rank
+run the same rows), and returns the global mean loss. The gradients that
+are partial across the tensor ranks are summed inside the step. The
 update is the fused kernel over this rank's slices (one launch for up to
 128 tensors), after the global-norm clip summed the squared norms of the
-slices over the ``fsdp`` group. The optimizer state lives on the slices
+slices over the groups that cut them. The optimizer state lives on the slices
 only. Under ``recompute_policy`` the gathers run again in the backward
 (they sit inside the recomputed blocks); without one, autograd keeps the
 gathered parameters its backward reads.

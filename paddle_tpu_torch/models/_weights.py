@@ -18,12 +18,21 @@ __all__ = ["load_reference_state_dict", "reference_state_dict", "set_state_dict"
 
 def load_reference_state_dict(model, state: dict):
     """Load ``{key: array}`` (the reference's ``model.state_dict()`` read as
-    numpy) into ``model`` by key (:func:`set_state_dict`). A key that is
-    missing or extra, or a shape that differs, raises."""
+    numpy) into ``model`` by key (:func:`set_state_dict`). A parameter that
+    the distributed tier keeps as a slice (``dist_shard``: its tensor slice,
+    at rest its slice of that) takes its part of the full array. A key that
+    is missing or extra, or a shape that differs, raises."""
     own = reference_state_dict(model)
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:
         raise KeyError(f"state dict keys differ: missing {missing}, extra {extra}")
+    state = dict(state)
+    for key, target in own.items():
+        info = getattr(target, "dist_shard", None)
+        value = state[key]
+        if info is not None and tuple(value.shape) == tuple(info.full_shape) \
+                and tuple(target.shape) != tuple(info.full_shape):
+            state[key] = value[info.held_index]
     set_state_dict(model, state)
     return model

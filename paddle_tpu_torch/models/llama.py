@@ -12,7 +12,11 @@ Counterpart of ``paddle_tpu/models/llama.py``:
   through ``distributed.recompute``),
   ``LlamaModel`` and ``LlamaForCausalLM`` (untied or tied head, the
   cross-entropy loss), with the reference's parameter names, ``[in, out]``
-  weight layout and initializers, trained by torch autograd;
+  weight layout and initializers, trained by torch autograd; under a
+  tensor axis (:meth:`LlamaForCausalLM.install_tensor_parallel`, which the
+  partitioner calls) each rank computes on its heads, its MLP columns and
+  its vocabulary rows, with Megatron's collectives and, with
+  ``sequence_parallel``, the norms on its part of the sequence;
 - the functional single-token decode (``decode_weights`` ..
   ``decode_step``, reference lines 299-526) that both the dense greedy
   generator and the paged serving engine run. Projections of an int8
@@ -34,6 +38,7 @@ from ..device import resolve_device
 from ..distributed.fleet.moe import MoELayer
 from ..distributed.fleet.sequence_parallel import ring_context_attention
 from ..distributed.partitioning.rules import mark_logical
+from ..distributed.tensor_parallel import parallel_cross_entropy, vocab_embedding
 from ..distributed.recompute import recompute
 from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..nn import functional as F
@@ -52,6 +57,32 @@ __all__ = [
 ]
 
 _PROJ = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def _mark(param, shard_axes, logical, units=None):
+    """The reference's two marks (``models/llama.py:71-80``): the mesh axes
+    ``parallelize`` reads (``shard_axes``) and the logical names the
+    partitioner's rule table resolves; ``units`` (per dim, None for the
+    dim's size) is what a cut must divide: the heads of a projection, so
+    that no head is split."""
+    param.shard_axes = dict(shard_axes)
+    mark_logical(param, logical)
+    if units is not None:
+        param.logical_units = tuple(units)
+    return param
+
+
+def kv_heads_for(rank: int, size: int, heads: int, kv_heads: int):
+    """The KV heads that the query heads of tensor rank ``rank`` of
+    ``size`` attend when the KV heads are not cut: ``(first, count)`` when
+    each local KV head serves a run of consecutive local query heads (GQA
+    on the local heads), else the list of one KV head a query head."""
+    local, group = heads // size, heads // kv_heads
+    idx = [(rank * local + j) // group for j in range(local)]
+    first, n = idx[0], idx[-1] - idx[0] + 1
+    if local % n == 0 and idx == [first + j // (local // n) for j in range(local)]:
+        return first, n
+    return idx
 
 
 @dataclass
@@ -116,9 +147,14 @@ class LlamaAttention(Layer):
         self.k_proj = Linear(hidden, kv, **mk)
         self.v_proj = Linear(hidden, kv, **mk)
         self.o_proj = Linear(hidden, hidden, **mk)
-        for proj, logical in ((self.q_proj, ("embed", "heads")), (self.k_proj, ("embed", "kv")),
-                              (self.v_proj, ("embed", "kv")), (self.o_proj, ("heads", "embed"))):
-            mark_logical(proj.weight, logical)
+        h, hk = self.num_heads, self.num_kv_heads
+        _mark(self.q_proj.weight, {1: "mp", 0: "fsdp"}, ("embed", "heads"), (None, h))
+        _mark(self.k_proj.weight, {1: "mp", 0: "fsdp"}, ("embed", "kv"), (None, hk))
+        _mark(self.v_proj.weight, {1: "mp", 0: "fsdp"}, ("embed", "kv"), (None, hk))
+        _mark(self.o_proj.weight, {0: "mp", 1: "fsdp"}, ("heads", "embed"), (h, None))
+        self._tp = None             # the tensor axis (install_tensor_parallel)
+        self._tp_cut = False        # whether it cuts the heads
+        self._kv_pick = None        # the KV heads of the local query heads, when not cut
 
     def forward(self, hidden_states, attention_mask=None, position_ids=None,
                 past_key_value=None):
@@ -128,12 +164,17 @@ class LlamaAttention(Layer):
         ``context_parallel="ring"``, causal ring attention over the current
         mesh's ``sep`` axis (reference lines 134-148): RoPE stays on the
         global positions, since the ring's ranks live in this process."""
+        tp = self._tp
+        if tp is not None:
+            hidden_states = tp.enter(hidden_states, self._tp_cut)
         b, s = hidden_states.shape[0], hidden_states.shape[1]
-        q = self.q_proj(hidden_states).reshape(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(hidden_states).reshape(b, s, self.num_kv_heads, self.head_dim)
+        q = self.q_proj(hidden_states).reshape(b, s, -1, self.head_dim)
+        k = self.k_proj(hidden_states).reshape(b, s, -1, self.head_dim)
+        v = self.v_proj(hidden_states).reshape(b, s, -1, self.head_dim)
         q, k, _ = fused_rotary_position_embedding(q, k, None,
                                                   rotary_emb_base=self.config.rope_theta)
+        if self._kv_pick is not None:
+            k, v = _pick_heads(k, self._kv_pick), _pick_heads(v, self._kv_pick)
         if past_key_value is not None:
             k = torch.cat([past_key_value[0], k], dim=1)
             v = torch.cat([past_key_value[1], v], dim=1)
@@ -156,7 +197,15 @@ class LlamaAttention(Layer):
             out = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attention_mask,
                 is_causal=causal and attention_mask is None, training=self.training)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        out = self.o_proj(out.reshape(b, s, -1))
+        return out if tp is None else tp.exit(out, self._tp_cut)
+
+
+def _pick_heads(t, pick):
+    """``t`` [b, s, Hk, d] on the KV heads ``pick`` (kv_heads_for's)."""
+    if isinstance(pick, tuple):
+        return t.narrow(2, pick[0], pick[1])
+    return t[:, :, pick]
 
 
 class LlamaMLP(Layer):
@@ -166,12 +215,17 @@ class LlamaMLP(Layer):
         self.gate_proj = Linear(config.hidden_size, config.intermediate_size, **mk)
         self.up_proj = Linear(config.hidden_size, config.intermediate_size, **mk)
         self.down_proj = Linear(config.intermediate_size, config.hidden_size, **mk)
-        mark_logical(self.gate_proj.weight, ("embed", "mlp"))
-        mark_logical(self.up_proj.weight, ("embed", "mlp"))
-        mark_logical(self.down_proj.weight, ("mlp", "embed"))
+        _mark(self.gate_proj.weight, {1: "mp", 0: "fsdp"}, ("embed", "mlp"))
+        _mark(self.up_proj.weight, {1: "mp", 0: "fsdp"}, ("embed", "mlp"))
+        _mark(self.down_proj.weight, {0: "mp", 1: "fsdp"}, ("mlp", "embed"))
+        self._tp, self._tp_cut = None, False
 
     def forward(self, x):
-        return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
+        tp = self._tp
+        if tp is not None:
+            x = tp.enter(x, self._tp_cut)
+        out = self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
+        return out if tp is None else tp.exit(out, self._tp_cut)
 
 
 class LlamaDecoderLayer(Layer):
@@ -189,8 +243,8 @@ class LlamaDecoderLayer(Layer):
                                        device=device, dtype=dtype)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                                                 device=device, dtype=dtype)
-        mark_logical(self.input_layernorm.weight, ("norm",))
-        mark_logical(self.post_attention_layernorm.weight, ("norm",))
+        _mark(self.input_layernorm.weight, {}, ("norm",))
+        _mark(self.post_attention_layernorm.weight, {}, ("norm",))
         self._recompute = config.recompute
 
     def _inner(self, hidden_states, attention_mask=None, position_ids=None):
@@ -221,11 +275,22 @@ class LlamaModel(Layer):
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device=device,
                             dtype=dtype)
-        mark_logical(self.embed_tokens.weight, ("vocab", "embed"))
-        mark_logical(self.norm.weight, ("norm",))
+        _mark(self.embed_tokens.weight, {0: "mp", 1: "fsdp"}, ("vocab", "embed"))
+        _mark(self.norm.weight, {}, ("norm",))
+        self._tp, self._tp_cut = None, False     # the tensor axis; whether it cuts the vocab
 
     def forward(self, input_ids, attention_mask=None, position_ids=None):
-        hidden_states = self.embed_tokens(input_ids)
+        tp = self._tp
+        if tp is None:
+            hidden_states = self.embed_tokens(input_ids)
+        else:
+            if tp.sequence_parallel and input_ids.shape[1] % tp.size:
+                raise ValueError(f"sequence parallelism cuts {input_ids.shape[1]} positions "
+                                 f"over {tp.size} tensor ranks: they must divide")
+            w = self.embed_tokens.weight
+            hidden_states = (vocab_embedding(input_ids, w, tp.rank * w.shape[0])
+                             if self._tp_cut else self.embed_tokens(input_ids))
+            hidden_states = tp.exit(hidden_states, self._tp_cut)
         for layer in self.layers:
             hidden_states = layer(hidden_states, attention_mask, position_ids)
         return self.norm(hidden_states)
@@ -253,10 +318,10 @@ class LlamaForCausalLM(Layer):
     def __init__(self, config: LlamaConfig, *, device="cuda",
                  dtype=torch.float32, seed: int = 0):
         super().__init__()
-        if config.sequence_parallel or config.context_parallel not in (None, "ring"):
+        if config.context_parallel not in (None, "ring"):
             raise NotImplementedError(
-                "sequence parallelism and context parallelism other than the one-process "
-                "ring wait for the port's sep-across-processes slice")
+                f"context_parallel={config.context_parallel!r}: context parallelism other "
+                "than the one-process ring waits for the port's sep-across-processes slice")
         self.config = config
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
@@ -266,12 +331,20 @@ class LlamaForCausalLM(Layer):
                         Linear(config.hidden_size, config.vocab_size, bias_attr=False,
                                device=dev, dtype=dtype, generator=gen))
         if self.lm_head is not None:
-            mark_logical(self.lm_head.weight, ("embed", "vocab"))
+            _mark(self.lm_head.weight, {1: "mp", 0: "fsdp"}, ("embed", "vocab"))
+        self._tp, self._tp_cut = None, False
 
     def forward(self, input_ids, attention_mask=None, position_ids=None, labels=None):
         """input_ids [b, s] -> logits [b, s, vocab]; with ``labels`` [b, s],
-        ``(loss, logits)`` where loss is the mean cross entropy (f32)."""
+        ``(loss, logits)`` where loss is the mean cross entropy (f32). Under
+        a tensor axis that cuts the vocabulary the logits are this rank's
+        columns ``[b, s, vocab / t]`` and the loss is the vocab-parallel
+        cross entropy's mean."""
         hidden_states = self.llama(input_ids, attention_mask, position_ids)
+        tp = self._tp
+        head_cut = tp is not None and self._tp_cut
+        if tp is not None:
+            hidden_states = tp.enter(hidden_states, head_cut)
         if self.lm_head is None:
             h, w = cast_inputs("matmul", hidden_states, self.llama.embed_tokens.weight)
             logits = torch.matmul(h, w.T)
@@ -279,9 +352,65 @@ class LlamaForCausalLM(Layer):
             logits = self.lm_head(hidden_states)
         if labels is None:
             return logits
-        loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
-                               labels.reshape(-1), reduction="mean")
+        if head_cut:
+            per = parallel_cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                         labels.reshape(-1), tp.group)
+            loss = per.sum() / torch.clamp_min((labels.reshape(-1) != -100).sum(), 1)
+        else:
+            loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                                   labels.reshape(-1), reduction="mean")
         return loss, logits
+
+    def install_tensor_parallel(self, tp, is_cut) -> set:
+        """Compute on this rank's slices over the tensor axis ``tp``
+        (``distributed.tensor_parallel.TensorParallel``; ``is_cut(p)``:
+        whether the axis cuts parameter ``p``): the attention on its query
+        heads (and its KV heads, or where the axis does not divide them all
+        KV heads, attended by the local query heads' groups), the MLP on
+        its columns, the embedding and the head on its vocabulary rows,
+        each block between ``f`` and ``g`` (or, with
+        ``config.sequence_parallel``, between the sequence's all-gather and
+        reduce-scatter, the norms on this rank's positions). Returns the
+        ids of the parameters whose gradients are partial across the axis:
+        uncut K and V under cut heads, and the norms under sequence
+        parallelism."""
+        c = self.config
+        if c.moe_num_experts > 0:
+            raise NotImplementedError("a Mixture-of-Experts Llama under a tensor axis: the "
+                                      "rules put its experts on it, which waits for the "
+                                      "port's expert-parallel slice")
+        if c.context_parallel is not None:
+            raise NotImplementedError("context_parallel beside a tensor axis waits for the "
+                                      "port's sep-across-processes slice")
+        partial = set()
+        m = self.llama
+        head = m.embed_tokens.weight if self.lm_head is None else self.lm_head.weight
+        vocab_cut = is_cut(m.embed_tokens.weight)
+        if vocab_cut != is_cut(head):
+            raise ValueError("the embedding and the head must be cut alike over the tensor axis")
+        for lyr in m.layers:
+            a, f = lyr.self_attn, lyr.mlp
+            heads_cut = is_cut(a.q_proj.weight)
+            kv_cut = is_cut(a.k_proj.weight)
+            mlp_cut = is_cut(f.gate_proj.weight)
+            if heads_cut != is_cut(a.o_proj.weight) or is_cut(a.v_proj.weight) != kv_cut \
+                    or (kv_cut and not heads_cut):
+                raise ValueError("the attention's projections are cut unlike each other")
+            if not (is_cut(f.up_proj.weight) == is_cut(f.down_proj.weight) == mlp_cut):
+                raise ValueError("the MLP's projections are cut unlike each other")
+            a._tp, a._tp_cut = tp, heads_cut
+            f._tp, f._tp_cut = tp, mlp_cut
+            if heads_cut and not kv_cut:
+                a._kv_pick = kv_heads_for(tp.rank, tp.size, a.num_heads, a.num_kv_heads)
+                partial |= {id(a.k_proj.weight), id(a.v_proj.weight)}
+            if tp.sequence_parallel:
+                partial |= {id(lyr.input_layernorm.weight),
+                            id(lyr.post_attention_layernorm.weight)}
+        m._tp, m._tp_cut = tp, vocab_cut
+        self._tp, self._tp_cut = tp, vocab_cut
+        if tp.sequence_parallel:
+            partial.add(id(m.norm.weight))
+        return partial
 
     def num_params(self) -> int:
         return int(sum(p.numel() for p in self.parameters()))

@@ -38,6 +38,24 @@ counters).
   update ran once with the right rate, not the gradient; the gradient
   check holds the reduce.
 
+- ``--phase t`` (two ranks on one card, gloo; tensor parallelism over
+  ``Partitioner(build_program_mesh(tensor=world))`` and
+  ``PartitionedTrainStep``): (c) the semi-auto API on CUDA tensors
+  (``shard_tensor`` then ``reshard`` to ``Replicate`` equals the input,
+  in f32 and bf16, and the gradient flows back whole); (b) the step-check
+  cell, batch 1 x ``--check-seq`` on both ranks: the loss and every leaf's
+  gradient after the step's reductions, gathered whole from the ranks,
+  held on rank 0 against a one-process ``TrainStep``'s backward on the
+  same card within ``GRAD_TOL`` of the leaf's largest entry; two planted
+  faults refused by that check (the row-parallel products' all-reduce
+  skipped, and the column-parallel inputs' backward all-reduce skipped);
+  one optimizer step, after which every parameter the tensor axis does
+  not cut (the norms) has the same bits on both ranks (a checksum each);
+  then the same with ``sequence_parallel``; (a) the timed cell (phase
+  7's, ``--layers`` layers, batch 1 x ``--seq``): a warm-up, ``--steps``
+  timed steps (the host's transport of gloo included) and one profiled
+  step, with exact launches and the collectives by kind.
+
 ``--tiny`` runs ``LlamaConfig.tiny()`` widths with head_dim 64 (the card
 tests).
 """
@@ -99,15 +117,17 @@ def config(args, layers):
     return LlamaConfig.llama3_8b(num_hidden_layers=layers)
 
 
-def build(args, layers):
+def build(args, layers, **overrides):
     import torch
 
     from ..models.llama import LlamaForCausalLM
     from ..nn import ClipGradByGlobalNorm
     from ..optimizer import AdamW
 
-    model = LlamaForCausalLM(config(args, layers), device="cuda", dtype=torch.bfloat16,
-                             seed=args.seed)
+    cfg = config(args, layers)
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=args.seed)
     opt = AdamW(LR, parameters=model.parameters(), weight_decay=0.1,
                 grad_clip=ClipGradByGlobalNorm(1.0))
     return model, opt
@@ -309,9 +329,214 @@ def phase_b(args, out):
     return res
 
 
+def tensor_step(args, layers, **overrides):
+    """(model, PartitionedTrainStep) over the tensor axis of the world."""
+    from .. import distributed as dist
+    from ..distributed.partitioning import PartitionedTrainStep, Partitioner
+
+    model, opt = build(args, layers, **overrides)
+    mesh = dist.build_program_mesh(tensor=dist.get_world_size())
+    return model, PartitionedTrainStep(model, opt, loss_fn(model),
+                                       partitioner=Partitioner(mesh))
+
+
+def reduced_grads(step, ids, labels) -> tuple:
+    """(loss, {leaf: (this rank's slice of its gradient, the slice's index
+    in the whole)}) of one batch through the step's own backward and
+    reductions."""
+    from ..distributed import _sharded
+
+    params = step._params()
+    loss, grads = step._loss_and_grads(params, (ids, labels))
+    grads = step.optimizer._update._reduce([p for _, p in params], grads)
+    out = {}
+    for (n, p), g in zip(params, grads):
+        info = _sharded.info_of(p)
+        out[n] = (g, info.held_index if info is not None else tuple(slice(None) for _ in g.shape))
+    return loss, out
+
+
+def sliced_grad_errors(got, want) -> dict:
+    """{leaf: max |g - g_ref| / max |g_ref|} over the whole leaf: each rank
+    holds its slice (``reduced_grads``) against the same slice of the
+    one-process gradient, and the ranks' largest differences are
+    gathered."""
+    from .. import distributed as dist
+
+    local = {n: (g.float() - want[n][idx].float()).abs().max().item()
+             for n, (g, idx) in got.items()}
+    every = []
+    dist.all_gather_object(every, local)
+    return {n: max(e[n] for e in every) / (want[n].float().abs().max().item() or 1.0)
+            for n in want}
+
+
+def semi_auto_check() -> dict:
+    """(25c) shard_tensor -> reshard(Replicate) on CUDA tensors over the
+    world's one axis, and the gradient through shard_tensor."""
+    import torch
+
+    from .. import distributed as dist
+
+    n = dist.get_world_size()
+    mesh = dist.ProcessMesh(shape=[n], dim_names=["mp"])
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.arange(8 * n * 4, device="cuda").reshape(8 * n, 4).to(dtype)
+        xs = dist.shard_tensor(x, mesh, [dist.Shard(0)])
+        xr = dist.reshard(xs, mesh, [dist.Replicate()])
+        out[f"round_trip_equal_{str(dtype)[6:]}"] = bool(torch.equal(xr, x)) and \
+            xs.shape[0] == 8 and xs.device == x.device
+    y = torch.ones(8 * n, 4, device="cuda", requires_grad=True)
+    dist.shard_tensor(y, mesh, [dist.Shard(0)]).sum().backward()
+    out["grad_all_ones"] = bool(torch.equal(y.grad, torch.ones_like(y)))
+    if not all(out.values()):
+        raise AssertionError(f"phase 25c: the semi-auto API on the card: {out}")
+    return out
+
+
+def step_check(args, ids, labels, want, sequence_parallel: bool) -> dict:
+    """(25b) at the step-check cell: the reduced gradients against the
+    one-process ``want``, the planted faults (without sequence
+    parallelism), one step, and the checksums of the uncut parameters."""
+    import torch
+
+    from ..distributed import _sharded
+    from ..distributed import tensor_parallel as tp
+
+    model, step = tensor_step(args, args.check_layers, sequence_parallel=sequence_parallel)
+    loss, got = reduced_grads(step, ids, labels)
+    errs = sliced_grad_errors(got, want["grads"])
+    worst = max(errs, key=errs.get)
+    res = {"loss": loss.item(), "loss_plain": want["loss"], "grad_vs_ref_max_rel": errs[worst],
+           "grad_vs_ref_worst_leaf": worst, "grad_vs_ref_tol": GRAD_TOL,
+           "grad_vs_ref_beyond_tol": sum(e > GRAD_TOL for e in errs.values()),
+           "leaves": len(errs)}
+    del got
+    if not sequence_parallel:
+        faults = {}
+        keep = tp.reduce_from, tp.copy_to
+        for name, attr in (("row_without_allreduce", "reduce_from"),
+                           ("column_backward_without_allreduce", "copy_to")):
+            setattr(tp, attr, lambda x, group: x)
+            try:
+                _, bad = reduced_grads(step, ids, labels)
+            finally:
+                tp.reduce_from, tp.copy_to = keep
+            faults[name] = max(sliced_grad_errors(bad, want["grads"]).values())
+            del bad
+        res["planted_faults_max_rel"] = faults
+    torch.cuda.empty_cache()
+    step(ids, labels)
+    torch.cuda.synchronize()
+    res["uncut_checksums"] = {n: checksum(p) for n, p in model.named_parameters()
+                              if (_sharded.info_of(p) is None
+                                  or _sharded.info_of(p).tdim is None)}
+    res["cut"] = sum(1 for p in model.parameters()
+                     if _sharded.info_of(p) is not None and _sharded.info_of(p).tdim is not None)
+    del model, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_t(args, out):
+    import torch
+
+    from .. import distributed as dist
+    from ..distributed import collective
+
+    dist.init_parallel_env()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    res = {"backend": dist.env.backend(), "world": world, "rank": rank,
+           "device": str(dist.env.device())}
+    res["semi_auto"] = semi_auto_check()
+    say("t", rank=rank, semi_auto=json.dumps(res["semi_auto"]))
+    # (25b) the step check, against one process's TrainStep backward (each
+    # rank makes it, and holds its slices against it)
+    from ..jit import TrainStep
+
+    cfg = config(args, args.check_layers)
+    ids, labels = tokens(args.seed + 2, 1, args.check_seq, cfg.vocab_size)
+    plain, popt = build(args, args.check_layers)
+    ref = TrainStep(plain, popt, loss_fn(plain))
+    loss, grads = ref._loss_and_grads(ref._params(), (ids, labels))
+    want = {"loss": loss.item(), "grads": {n: g for (n, _), g in zip(ref._params(), grads)}}
+    del plain, popt, ref, grads
+    for sp in (False, True):
+        key = "check_sp" if sp else "check"
+        res[key] = step_check(args, ids, labels, want, sp)
+        say("t", rank=rank, case=key, **{k: json.dumps(v) if isinstance(v, dict) else v
+                                          for k, v in res[key].items()
+                                          if k != "uncut_checksums"})
+        r = res[key]
+        if r["grad_vs_ref_beyond_tol"]:
+            raise AssertionError(f"phase 25b ({key}): {r['grad_vs_ref_beyond_tol']} leaves "
+                                 f"differ from the one-process backward beyond {GRAD_TOL} of "
+                                 f"their largest (worst {r['grad_vs_ref_worst_leaf']}: "
+                                 f"{r['grad_vs_ref_max_rel']})")
+        faults = r.get("planted_faults_max_rel", {})
+        if any(e <= GRAD_TOL for e in faults.values()):
+            raise AssertionError(f"phase 25b: the gradient check does not refuse the planted "
+                                 f"faults: {faults}")
+    del want
+    torch.cuda.empty_cache()
+    # (25a) the timed cell
+    torch.cuda.reset_peak_memory_stats()
+    cfg = config(args, args.layers)
+    model, step = tensor_step(args, args.layers)
+    c = counters()
+    losses, times = [], []
+    for i in range(args.steps + 1):
+        ids, labels = tokens(args.seed + 3 + i, 1, args.seq, cfg.vocab_size)
+        if i == 1:
+            torch.cuda.synchronize()
+            zero(c)
+            collective.reset_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = read(c)
+    stats = collective.stats()
+    from torch.profiler import ProfilerActivity, profile
+
+    ids, labels = tokens(args.seed + 99, 1, args.seq, cfg.vocab_size)
+    dist.barrier()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    n = args.steps
+    res.update(layers=args.layers, seq=args.seq, warmup_step_ms=round(1e3 * times[0], 3),
+               step_ms=[round(1e3 * t, 3) for t in times[1:]],
+               step_ms_mean=round(1e3 * sum(times[1:]) / n, 3), losses=losses,
+               launches=launches,
+               collectives_per_step={k: v / n for k, v in stats["calls"].items()
+                                     if k != "barrier"},
+               collective_bytes_per_step={k: v / n for k, v in stats["bytes"].items()
+                                          if k != "barrier"},
+               max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+               params_on_rank=sum(p.numel() for p in model.parameters()),
+               profiled_step_ms=round(1e3 * wall, 3), device_busy_ms=round(1e3 * busy, 3),
+               device_busy_share=round(busy / wall, 4) if busy else "not measured")
+    say("t", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                for k, v in res.items() if not k.startswith(("check", "semi"))})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses are not finite: {losses}")
+    dist.barrier()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("a", "b"), required=True)
+    ap.add_argument("--phase", choices=("a", "b", "t"), required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=4)
@@ -322,7 +547,7 @@ def main(argv=None) -> int:
     ap.add_argument("--comm-buffer-size", type=float, default=25)
     ap.add_argument("--tiny", action="store_true")
     args = ap.parse_args(argv)
-    res = (phase_a if args.phase == "a" else phase_b)(args, args.out)
+    res = {"a": phase_a, "b": phase_b, "t": phase_t}[args.phase](args, args.out)
     from .. import distributed as dist
 
     with open(os.path.join(args.out, f"dist_{args.phase}.{dist.get_rank()}.json"), "w") as f:

@@ -223,28 +223,46 @@ def test_no_fallback_hides_the_device(port_device, monkeypatch):
     assert not env.is_initialized()
 
 
-@pytest.mark.parametrize("case", ["tensor", "mp", "pipe", "pp", "ep", "cp", "sep_and_dp",
-                                  "program_tensor", "topology_mp", "llama_sep", "elastic",
-                                  "localsgd"])
+@pytest.mark.parametrize("case", ["pipe", "pp", "ep", "cp", "sep_and_dp", "elastic",
+                                  "localsgd", "llama_ulysses", "moe_tensor"])
 def test_the_axes_that_wait_raise(case):
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed import launch
-    from paddle_tpu_torch.distributed.fleet import topology
+    from paddle_tpu_torch.distributed.partitioning import Partitioner
     from paddle_tpu_torch.models import llama
 
     calls = {
         "sep_and_dp": lambda: dist.ProcessMesh(shape=[2, 2], dim_names=["dp", "sep"]),
-        "program_tensor": lambda: dist.build_program_mesh(fsdp=2, tensor=2),
-        "topology_mp": lambda: topology.HybridCommunicateGroup(
-            topology.CommunicateTopology(dims=[2, 1, 1, 1, 2])),
-        "llama_sep": lambda: llama.LlamaForCausalLM(
-            llama.LlamaConfig.tiny(sequence_parallel=True), device="cpu"),
         "elastic": lambda: launch.launch(["--max_restart", "1", "x.py"]),
         "localsgd": lambda: _localsgd(dist),
+        "llama_ulysses": lambda: llama.LlamaForCausalLM(
+            llama.LlamaConfig.tiny(context_parallel="ulysses"), device="cpu"),
+        "moe_tensor": lambda: Partitioner(dist.build_program_mesh(tensor=2)).shard_model(
+            llama.LlamaForCausalLM(llama.LlamaConfig.tiny(moe_num_experts=2), device="cpu")),
     }
     call = calls.get(case, lambda: dist.ProcessMesh(shape=[2], dim_names=[case]))
     with pytest.raises(NotImplementedError, match="wait"):
         call()
+
+
+@pytest.mark.parametrize("case", ["tensor", "mp", "program_tensor", "topology_mp", "llama_sep"])
+def test_the_tensor_axes_build(ranks, case):
+    """What waited for the tensor-parallel slice builds over worlds of 2 and
+    4: a mesh's ``tensor`` / ``mp`` axis and its group (every rank in
+    order), the program mesh's tensor group, fleet's topology at mp 2 (the
+    model group's size, rank and source) and a Llama with sequence
+    parallelism."""
+    for n, rank, got in [(n, r, g) for n in (2, 4) for r, g in enumerate(ranks[n])]:
+        row = list(got[f"axis_{case}"])
+        if case in ("tensor", "mp"):
+            assert row == [n] + list(range(n))
+        elif case == "program_tensor":
+            assert row == [1, 1, n // 2, 2, rank - rank % 2, rank - rank % 2 + 1]
+        elif case == "topology_mp":
+            src = rank - rank % 2
+            assert row == [2, rank % 2, src, src, src + 1, 1]
+        else:
+            assert row[0] == 1 and row[1] > 0
 
 
 def _localsgd(dist):

@@ -385,6 +385,8 @@ BF16, FP16 = torch.bfloat16, torch.float16
     # fp16 at head_dim 64
     (1, 1000, 8, 2, 64, True, FP16, False),
     (2, 63, 4, 1, 64, False, FP16, False),
+    # a rank's heads of Llama-3-8B at tensor 2
+    (1, 2048, 16, 4, 128, True, BF16, False),
 ])
 def test_flash_attention_matches_plain(dev, B, S, H, Hk, hd, causal, dtype, fused):
     q, k, v, do = _flash_inputs(dev, B, S, H, Hk, hd, dtype, seed=S + H + hd, fused=fused)
@@ -2004,6 +2006,30 @@ def test_dist_data_parallel_two_gloo_ranks_on_the_card(dev, tmp_path):
     assert res[0]["grad_vs_ref_max_rel"] <= GRAD_TOL
     assert all(e > GRAD_TOL for e in res[0]["planted_faults_max_rel"].values())
     assert res[0]["vs_trainstep_beyond_tol"] == 0
+
+
+# two gloo ranks on the one card at tensor 2: the semi-auto API's round trip
+# on CUDA tensors; each rank's slices of the reduced gradients within
+# GRAD_TOL of a one-process backward, the two planted faults beyond it, the
+# uncut parameters bit-identical across the ranks after a step, with and
+# without sequence parallelism; exact launches of the timed steps
+def test_dist_tensor_parallel_two_gloo_ranks_on_the_card(dev, tmp_path):
+    from paddle_tpu_torch.tools.dist_train import GRAD_TOL
+
+    rc, logs, res = _dist_ranks(tmp_path, 2, "t", {"PADDLE_DISTRI_BACKEND": "gloo"})
+    assert rc == 0, logs
+    assert all(res[0]["semi_auto"].values())
+    for key in ("check", "check_sp"):
+        assert res[0][key]["uncut_checksums"] == res[1][key]["uncut_checksums"]
+        assert res[0][key]["grad_vs_ref_max_rel"] <= GRAD_TOL
+    assert all(e > GRAD_TOL for e in res[0]["check"]["planted_faults_max_rel"].values())
+    for r in res:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert r["launches"] == {"flash_wgmma_fwd": 4, "flash_wgmma_bwd": 4,
+                                 "rms_norm_fwd_fused": 0, "rms_norm_bwd_dx_fused": 0,
+                                 "rms_norm_fwd_round_first": 10,
+                                 "rms_norm_bwd_dx_round_first": 10, "multi_tensor_update": 2}
+        assert r["collectives_per_step"]["all_reduce"] > 0
 
 
 # NCCL with more ranks than cards raises and names the card, never falls

@@ -118,9 +118,13 @@ def test_state_dict_keys_are_checked():
         port.load_reference_state_dict(pmodel, dict(list(state.items())[1:]))
     with pytest.raises(KeyError, match="extra"):
         port.load_reference_state_dict(pmodel, dict(state, extra=np.zeros(3)))
-    for bad in ({"sequence_parallel": True}, {"context_parallel": "ulysses"}):
-        with pytest.raises(NotImplementedError, match="sep-across-processes slice"):
-            port.LlamaForCausalLM(port.LlamaConfig.tiny(**bad), device="cpu")
+    with pytest.raises(NotImplementedError, match="sep-across-processes slice"):
+        port.LlamaForCausalLM(port.LlamaConfig.tiny(context_parallel="ulysses"), device="cpu")
+    # without a tensor axis, sequence parallelism changes nothing
+    sp = port.LlamaForCausalLM(port.LlamaConfig.tiny(sequence_parallel=True), device="cpu")
+    port.load_reference_state_dict(sp, state)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 1024, (2, 8)))
+    np.testing.assert_array_equal(sp(ids).detach().numpy(), pmodel(ids).detach().numpy())
 
 
 @pytest.mark.parametrize("neox", [True, False])

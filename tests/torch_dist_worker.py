@@ -130,9 +130,33 @@ def collectives(out):
     res["fused_b0_dtype"] = np.array(str(fused["b"][0].dtype))
     dist.barrier()
     stats = C.stats()
+    res.update(tensor_axes(n))
     res["stat_kinds"] = np.array(sorted(stats["calls"]))
     res["stat_fused_calls"] = np.array(stats["calls"]["fused_allreduce"])
     _save(out, "collectives", **res)
+
+
+def tensor_axes(n):
+    """The tensor axes build over the world: a mesh's ``tensor`` / ``mp``
+    group, the program mesh's, fleet's topology's model group, and a Llama
+    with sequence parallelism."""
+    from paddle_tpu_torch.distributed.fleet import topology
+    from paddle_tpu_torch.models import llama
+
+    out = {}
+    for name in ("tensor", "mp"):
+        mesh = dist.ProcessMesh(shape=[n], dim_names=[name])
+        out[f"axis_{name}"] = np.array(mesh.shape + mesh.get_group(name).ranks)
+    mesh = dist.build_program_mesh(fsdp=n // 2, tensor=2)
+    out["axis_program_tensor"] = np.array(mesh.shape + mesh.get_group("tensor").ranks)
+    hcg = topology.HybridCommunicateGroup(topology.CommunicateTopology(dims=[n // 2, 1, 1, 1, 2]))
+    out["axis_topology_mp"] = np.array([
+        hcg.get_model_parallel_world_size(), hcg.get_model_parallel_rank(),
+        hcg.get_model_parallel_group_src_rank(), *hcg.get_model_parallel_group().ranks,
+        hcg.get_parallel_mode() == "model_parallel"])
+    model = llama.LlamaForCausalLM(llama.LlamaConfig.tiny(sequence_parallel=True), device="cpu")
+    out["axis_llama_sep"] = np.array([model.config.sequence_parallel, model.num_params()])
+    return out
 
 
 class MLP(paddle.nn.Layer):
@@ -419,6 +443,258 @@ def fleet_merge(out, weights, data):
     _save(out, "fleet_merge", **res)
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def _params_of(layer, d, prefix):
+    """Load the full arrays ``d[prefix + key]`` into ``layer``'s slices."""
+    from paddle_tpu_torch.models import _weights
+
+    _weights.load_reference_state_dict(layer, {k: d[prefix + k] for k in
+                                               _weights.reference_state_dict(layer)})
+    return layer
+
+
+def _vjp(layer, x, cot, *args):
+    """(output, input gradient, {param: gradient}) of ``sum(layer(x) * cot)``."""
+    x = x.clone().requires_grad_(x.is_floating_point())
+    y = layer(x, *args)
+    (y * cot).sum().backward()
+    grads = {k: p.grad.clone() for k, p in layer.named_parameters()}
+    return y.detach(), (x.grad if x.is_floating_point() else torch.zeros(0)), grads
+
+
+def _local(t, dim, n, r):
+    return t.chunk(n, dim)[r].contiguous()
+
+
+def mp_layers(out, data):
+    """The four mp layers at tensor = world (the mesh's mp axis), every
+    gather_output / input_is_parallel / bias case: outputs and gradients;
+    and two planted faults, a row layer without its all-reduce and a
+    column layer whose backward skips its all-reduce."""
+    from paddle_tpu_torch.distributed import tensor_parallel as TP
+    from paddle_tpu_torch.distributed.fleet import mp_layers as M
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    d = {k: _t(v) for k, v in np.load(data).items()}
+    dist.set_mesh(dist.ProcessMesh(shape=[n], dim_names=["mp"]))
+    res = {}
+    for bias in (False, True):
+        for gather in (False, True):
+            col = _params_of(M.ColumnParallelLinear(8, 16, has_bias=bias, gather_output=gather,
+                                                    device="cpu"), d, f"col{int(bias)}.")
+            cot = d["cot_col"] if gather else _local(d["cot_col"], -1, n, r)
+            y, gx, gw = _vjp(col, d["x8"], cot)
+            key = f"col.b{int(bias)}.g{int(gather)}"
+            res.update({f"{key}.y": y, f"{key}.gx": gx,
+                        **{f"{key}.grad.{k}": v for k, v in gw.items()}})
+        for parallel in (False, True):
+            row = _params_of(M.RowParallelLinear(16, 8, has_bias=bias,
+                                                 input_is_parallel=parallel, device="cpu"),
+                             d, f"row{int(bias)}.")
+            x = _local(d["x16"], -1, n, r) if parallel else d["x16"]
+            y, gx, gw = _vjp(row, x, d["cot_row"])
+            key = f"row.b{int(bias)}.p{int(parallel)}"
+            res.update({f"{key}.y": y, f"{key}.gx": gx,
+                        **{f"{key}.grad.{k}": v for k, v in gw.items()}})
+    emb = _params_of(M.VocabParallelEmbedding(32, 8, device="cpu"), d, "emb.")
+    y, _, gw = _vjp(emb, d["ids"], d["cot_emb"])
+    res.update({"emb.y": y, "emb.grad.weight": gw["weight"]})
+    ce = M.ParallelCrossEntropy()
+    logits = _local(d["logits"], -1, n, r).requires_grad_()
+    loss = ce(logits, d["labels"])
+    (loss * d["cot_ce"]).sum().backward()
+    res.update({"ce.loss": loss.detach(), "ce.grad": logits.grad})
+    # sequence parallelism: the two SP layers, the bias's gradient summed by the hooks
+    from paddle_tpu_torch.distributed.fleet import sequence_parallel as SP
+
+    net = paddle.nn.Sequential(
+        _params_of(SP.ColumnSequenceParallelLinear(8, 16, has_bias=True, device="cpu"), d,
+                   "col1."),
+        _params_of(SP.RowSequenceParallelLinear(16, 8, has_bias=True, device="cpu"), d, "row1."))
+    SP.register_sequence_parallel_allreduce_hooks(net)
+    y, gx, gw = _vjp(net, _local(d["xs"], 1, n, r), _local(d["cot_sp"], 1, n, r))
+    res.update({"sp.y": y, "sp.gx": gx, **{f"sp.grad.{k}": v for k, v in gw.items()}})
+    # planted faults
+    col = _params_of(M.ColumnParallelLinear(8, 16, has_bias=True, device="cpu"), d, "col1.")
+    row = _params_of(M.RowParallelLinear(16, 8, has_bias=True, device="cpu"), d, "row1.")
+    keep = TP.reduce_from, TP.copy_to
+    try:
+        TP.reduce_from = lambda x, group: x
+        res["fault.no_allreduce.y"] = row(d["x16"]).detach()
+        TP.reduce_from, TP.copy_to = keep[0], lambda x, group: x
+        _, res["fault.no_backward_allreduce.gx"], _ = _vjp(col, d["x8"], d["cot_col"])
+    finally:
+        TP.reduce_from, TP.copy_to = keep
+    dist.set_mesh(None)
+    _save(out, f"mp_layers{n}", **res)
+
+
+def _tp_llama(cfg_name, weights, seq_parallel=False):
+    from paddle_tpu_torch.models import llama as L
+
+    cfg = (L.LlamaConfig.tiny(vocab_size=64, hidden_size=32, intermediate_size=48,
+                              num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
+                              max_position_embeddings=8, use_flash_attention=False)
+           if cfg_name == "micro" else L.LlamaConfig.tiny())
+    cfg.sequence_parallel = bool(seq_parallel)
+    model = L.LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32, seed=0)
+    return model, dict(np.load(weights))
+
+
+def _tp_opt(model, opt_name):
+    if opt_name == "sgd":
+        return paddle.optimizer.SGD(learning_rate=0.01, parameters=model.parameters())
+    return paddle.optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                                  weight_decay=0.1, grad_clip=paddle.nn.ClipGradByGlobalNorm(0.5))
+
+
+def _tp_step(model, weights, opt_name, axes, seq_parallel=False):
+    from paddle_tpu_torch.distributed.partitioning import Partitioner, PartitionedTrainStep
+    from paddle_tpu_torch.models import llama as L
+
+    step = PartitionedTrainStep(model, _tp_opt(model, opt_name),
+                                lambda ids, lab: model(ids, labels=lab)[0],
+                                partitioner=Partitioner(dist.build_program_mesh(**axes)))
+    L.load_reference_state_dict(model, weights)
+    return step
+
+
+def tp_partitioned(out, cfg_name, weights, data, opt_name, axes, seq_parallel=0):
+    """PartitionedTrainStep over ``axes`` (a JSON of build_program_mesh's),
+    3 steps: losses, the parameters gathered whole, each rank's own slices,
+    the specs, the reduced gradients of the first batch and the
+    collectives."""
+    import json
+
+    axes = json.loads(axes) if isinstance(axes, str) else axes
+    d = np.load(data)
+    model, weights = _tp_llama(cfg_name, weights, seq_parallel)
+    step = _tp_step(model, weights, opt_name, axes, seq_parallel)
+    update = step.optimizer._update
+    params = step._params()
+    loss0, grads = step._loss_and_grads(params, (_t(d["ids0"]), _t(d["labels0"])))
+    grads = update._reduce([p for _, p in params], grads)
+    res = {"loss0": loss0, **{f"grad.{n}": g for (n, _), g in zip(params, grads)}}
+    C.reset_stats()
+    res["losses"] = torch.stack([step(_t(d[f"ids{i}"]), _t(d[f"labels{i}"])) for i in range(3)])
+    stats = C.stats()
+    res["collectives"] = np.array(json.dumps(stats))
+    for k, v in _gathered(model).items():
+        res[f"param.{k}"] = v
+    for k, p in model.named_parameters():
+        info = dist._sharded.info_of(p)
+        index = info.held_index if info is not None else [slice(0, n) for n in p.shape]
+        res[f"local.{k}"] = p.detach()
+        res[f"index.{k}"] = np.array([[s.start, s.stop] for s in index])
+        res[f"spec.{k}"] = np.array(repr(p.parallel_spec))
+    tag = "_".join(f"{a}{v}" for a, v in sorted(axes.items()))
+    _save(out, f"tp_{cfg_name}_{opt_name}_{tag}_sp{int(seq_parallel)}", **res)
+
+
+def tp_ckpt(out, weights, data, path):
+    """The micro Llama at fsdp 2 x tensor 2 with AdamW: 2 steps, save, a
+    third (the unbroken run); then a fresh model at fsdp 4 (tensor 1)
+    loads the checkpoint and runs the third step."""
+    d = np.load(data)
+    batch = [(_t(d[f"ids{i}"]), _t(d[f"labels{i}"])) for i in range(3)]
+    model, w = _tp_llama("micro", weights)
+    step = _tp_step(model, w, "adamw", {"fsdp": 2, "tensor": 2})
+    losses = [step(*b) for b in batch[:2]]
+    saved = {f"saved.{k}": v.clone() for k, v in _gathered(model).items()}
+    dist.partitioning.save_partitioned(step, path)
+    losses.append(step(*batch[2]))
+    model4, w = _tp_llama("micro", weights)
+    step4 = _tp_step(model4, w, "adamw", {"fsdp": 4})
+    info = dist.partitioning.load_partitioned(step4, path)
+    res = {"losses": torch.stack(losses), "loss3_loaded": step4(*batch[2]),
+           "resharded": np.array(info["resharded"]), **saved}
+    for k, v in _gathered(model4).items():
+        res[f"loaded.{k}"] = v
+    _save(out, "tp_ckpt", **res)
+
+
+def tp_fleet(out, weights, data):
+    """fleet.init at mp_degree = world: the model group, distributed_model /
+    distributed_optimizer over the tiny Llama, 3 TrainStep calls; the
+    model-parallel RNG; parallelize(mp_config) over an mp mesh, 3 calls."""
+    n = dist.get_world_size()
+    d = np.load(data)
+    strategy = dist.fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": n, "pp_degree": 1,
+                               "sharding_degree": 1, "sep_degree": 1}
+    dist.fleet.init(is_collective=True, strategy=strategy)
+    hcg = dist.fleet.get_hybrid_communicate_group()
+    res = {"hcg": np.array([hcg.get_model_parallel_world_size(), hcg.get_model_parallel_rank(),
+                            hcg.get_model_parallel_group_src_rank()]),
+           "mode": np.array(hcg.get_parallel_mode())}
+    batch = [(_t(d[f"ids{i}"]), _t(d[f"labels{i}"])) for i in range(3)]
+    from paddle_tpu_torch.models import llama as L
+
+    for how in ("fleet", "parallelize"):
+        model, w = _tp_llama("tiny", weights)
+        L.load_reference_state_dict(model, w)
+        opt = paddle.optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                                     weight_decay=0.1)
+        if how == "fleet":
+            model = dist.fleet.distributed_model(model)
+            opt = dist.fleet.distributed_optimizer(opt)
+        else:
+            model, opt = dist.parallelize(model, opt, mesh=dist.auto_mesh(mp=n),
+                                          config={"mp_config": {}})
+        step = paddle.jit.TrainStep(model, opt, lambda ids, lab: model(ids, labels=lab)[0])
+        res[f"{how}.losses"] = torch.stack([step(*b) for b in batch])
+        res[f"{how}.q_shape"] = np.array(model.llama.layers[0].self_attn.q_proj.weight.shape)
+    # a model without its own tensor-parallel schedule: parallelize makes each
+    # cut Linear column- or row-parallel and the cut Embedding vocab-parallel
+    torch.manual_seed(1)
+    emb = paddle.nn.Embedding(16, 8, device="cpu")
+    lin_c, lin_r = paddle.nn.Linear(8, 12, device="cpu"), paddle.nn.Linear(12, 8, device="cpu")
+    emb.weight.shard_axes, lin_c.weight.shard_axes = {0: "mp"}, {1: "mp"}
+    lin_r.weight.shard_axes = {0: "mp"}
+    net = paddle.nn.Sequential(emb, lin_c, lin_r)
+    ids = torch.arange(16).reshape(2, 8)
+    res["generic.whole"] = net(ids).detach()
+    dist.parallelize(net, mesh=dist.auto_mesh(mp=n))
+    res["generic.cut"] = net(ids).detach()
+    res["generic.shapes"] = np.array([list(p.shape) for p in
+                                      (emb.weight, lin_c.weight, lin_r.weight)])
+    from paddle_tpu_torch.distributed.fleet import random as R
+
+    R.model_parallel_random_seed(7)
+    with R.get_rng_state_tracker().rng_state():
+        res["rng.mp"] = paddle.rand([4])
+    res["rng.shared"] = paddle.rand([4])
+    dist.set_mesh(None)
+    _save(out, "tp_fleet", **res)
+
+
+def semi_auto(out):
+    """The semi-auto API on a dp 2 x mp 2 mesh, as the reference's
+    ``test_shard_and_reshard``."""
+    mesh = dist.ProcessMesh(shape=[2, 2], dim_names=["dp", "mp"])
+    x = torch.arange(32, dtype=torch.float32).reshape(8, 4)
+    xs = dist.shard_tensor(x, mesh, [dist.Shard(0), dist.Shard(1)])
+    xr = dist.reshard(xs, mesh, [dist.Replicate(), dist.Replicate()])
+    y = torch.ones(8, 4, requires_grad=True)
+    ys = dist.shard_tensor(y, mesh, [dist.Shard(0), dist.Replicate()])
+    ys.sum().backward()
+    try:
+        dist.shard_tensor(x, mesh, [dist.Partial(), dist.Replicate()])
+        partial = "no raise"
+    except NotImplementedError as e:
+        partial = str(e)
+    lin = paddle.nn.Linear(4, 3, device="cpu")
+    dist.shard_layer(lin, mesh)
+    _save(out, "semi_auto", local=xs.detach(), full=dist.unshard_dtensor(xs).detach(),
+          replicated=xr.detach(), grad=y.grad, has_attr=np.array(xs.dist_attr is not None),
+          partial=np.array(partial),
+          layer=np.array([repr(p.dist_attr.placements) for p in lin.parameters()]))
+
+
 def fail(out):
     """Rank 1 raises at once; the others would sleep a minute."""
     if dist.get_rank() == 1:
@@ -438,7 +714,8 @@ def spawned(out):
 CASES = {"collectives": collectives, "dp": dp, "zero": zero, "partitioned": partitioned,
          "fleet_sharding": fleet_sharding,
          "ckpt_save": ckpt_save, "ckpt_load": ckpt_load, "fleet_merge": fleet_merge,
-         "fail": fail}
+         "mp_layers": mp_layers, "tp_partitioned": tp_partitioned, "tp_ckpt": tp_ckpt,
+         "tp_fleet": tp_fleet, "semi_auto": semi_auto, "fail": fail}
 
 
 def main():
