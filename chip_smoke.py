@@ -389,7 +389,31 @@ Phases, each printing one line of numbers:
    collectives a step by kind and bytes, per-rank peak memory and one
    profiled step's busy share; and, in this process, flash at the rank's
    shape (H 16, Hk 4, hd 128, S 8192, causal, bf16) held and timed alone
-   with SDPA's time and the bound.
+   with SDPA's time and the bound;
+26. the pipeline (``tools/dist_train.py --phase p``: two gloo ranks
+   sharing the card, launched as phase 24's, over
+   ``ProcessMesh(shape=[2], dim_names=["pp"])``, the Llama split into the
+   embedding, the decoder layers and the final norm with the head): (26b)
+   at the step-check widths with 4 layers, batch 4 x 2048, for each of
+   ``1f1b`` (M 4), ``fthenb`` (M 2), ``zero_bubble`` (M 4) and ``vpp`` (2
+   chunks, M 4) the loss and every leaf's gradient of
+   ``forward_backward_pipeline``, reassembled from both ranks, against a
+   one-process traced forward and backward of the whole batch on the card
+   (each leaf within ``dist_train.GRAD_TOL`` of its largest entry), and
+   two planted faults refused by that check (the last stage seeding its
+   backward with 1 instead of 1/M; stage 0 taking the cotangents of
+   microbatches 0 and 1 through each other's graph); (26c) phase 7's widths
+   and depth at 8 microbatches of 1 x 1024: each stage's peak memory above
+   its resting state over one pass of the schedule under ``fthenb`` and
+   ``1f1b``, 1F1B's below FThenB's on stage 0; (26a) phase 7's widths and
+   depth (4 layers, 8192 tokens a step) as batch 4 x 2048 in 4
+   microbatches under ``1f1b``, ``PipelineParallel.train_batch`` with
+   AdamW(3e-4, weight_decay 0.1) and no clip (the reference's
+   ``train_batch`` reads none): a warm-up and 3 timed steps (the host's
+   transport included), exact launches on each rank (a step: flash 8
+   each way, RMSNorm ``round_first`` 16 each way on stage 0 and 20 on
+   stage 1, the fused update 1), the sends and receives a step and their
+   bytes, per-rank peak memory and one profiled step's busy share.
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -419,7 +443,7 @@ steps too; flash, RMSNorm's ``round_first`` mode and the fused optimizer
 phase 24a's three timed steps, flash, RMSNorm's fused mode and the fused
 optimizer phase 24b's step on each of its two ranks, and flash, RMSNorm's
 ``round_first`` mode and the fused optimizer phase 25a's three timed steps
-on each of its two ranks), and last ``{"ok": true,
+on each of its two ranks and phase 26a's on each of its two stages), and last ``{"ok": true,
 "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
@@ -7197,6 +7221,81 @@ def tensor_phase(seed: int, train_step_ms: float) -> dict:
     return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the pipeline over two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+def pipe_expected(rank: int, steps: int = TRAIN_STEPS) -> dict:
+    """Launches on stage ``rank`` of phase 26a's timed steps: per microbatch
+    flash once each way a layer of the stage and RMSNorm (``round_first``:
+    a pipeline stage runs traced) twice each way a layer, plus the final
+    norm on the last stage; one fused update a step (a stage's tensors fit
+    one launch)."""
+    from paddle_tpu_torch.tools.dist_train import PIPE, PIPE_M
+
+    layers = TRAIN_LAYERS // PIPE
+    norms = 2 * layers + (rank == PIPE - 1)
+    return {"flash_wgmma_fwd": PIPE_M * layers * steps, "flash_wgmma_bwd": PIPE_M * layers * steps,
+            "rms_norm_fwd_fused": 0, "rms_norm_bwd_dx_fused": 0,
+            "rms_norm_fwd_round_first": PIPE_M * norms * steps,
+            "rms_norm_bwd_dx_round_first": PIPE_M * norms * steps,
+            "multi_tensor_update": steps}
+
+
+def pipe_phase(seed: int, train_step_ms: float) -> dict:
+    """Phase 26 (26a-c): returns the launches of 26a's timed steps over
+    both ranks."""
+    import torch
+
+    from paddle_tpu_torch.tools.dist_train import GRAD_TOL, PIPE, PIPE_M, PIPE_STYLES
+
+    torch.cuda.empty_cache()
+    ranks = run_ranks("p", PIPE, seed, {"PADDLE_DISTRI_BACKEND": "gloo"})
+    for r in ranks:
+        want = pipe_expected(r["rank"])
+        if r["launches"] != want or r["backend"] != "gloo" or r["world"] != PIPE:
+            raise AssertionError(f"phase 26a rank {r['rank']} launched {r['launches']} on "
+                                 f"{r['backend']} at world {r['world']}, expected {want}")
+    r0 = ranks[0]
+    for style, m, chunks in PIPE_STYLES:
+        c = r0["check"][style]
+        if c["grad_vs_ref_beyond_tol"] or not c["leaves_checked"]:
+            raise AssertionError(f"phase 26b ({style}): {c}")
+        say("pipe-b", schedule=style, microbatches=m, chunks=chunks, loss=c["loss"],
+            loss_plain=c["loss_plain"], grad_vs_ref_max_rel=c["grad_vs_ref_max_rel"],
+            grad_vs_ref_worst_leaf=c["grad_vs_ref_worst_leaf"], grad_vs_ref_tol=GRAD_TOL,
+            leaves=c["leaves"],
+            peak_in_flight=json.dumps([r["check"][style]["peak_in_flight"] for r in ranks]),
+            ring=c["ring"])
+    faults = r0["check"]["planted_faults_max_rel"]
+    if any(e <= GRAD_TOL for e in faults.values()):
+        raise AssertionError(f"phase 26b: the planted faults pass the check: {faults}")
+    say("pipe-b", planted_faults_max_rel=json.dumps(faults), grad_vs_ref_tol=GRAD_TOL)
+    mem = [r["memory"] for r in ranks]
+    say("pipe-c", microbatches=8, stage0=json.dumps(mem[0]), stage1=json.dumps(mem[1]))
+    if not mem[0]["1f1b"]["peak_above_rest_gib"] < mem[0]["fthenb"]["peak_above_rest_gib"]:
+        raise AssertionError(f"phase 26c: stage 0's peak under 1F1B is not below FThenB's: "
+                             f"{mem[0]}")
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    seq = TRAIN_SEQ // PIPE_M
+    reckoned = PIPE_M * seq * LlamaConfig.llama3_8b().hidden_size * 2
+    say("pipe-a", ranks=PIPE, microbatches=PIPE_M, rows=f"{PIPE_M} x {seq}",
+        step_ms_mean=json.dumps([r["step_ms_mean"] for r in ranks]),
+        step_ms=json.dumps([r["step_ms"] for r in ranks]), host_transport_included=True,
+        train_step_ms=round(train_step_ms, 3),
+        step_ms_ratio_to_train=round(max(r["step_ms_mean"] for r in ranks) / train_step_ms, 4),
+        max_memory_allocated_gib=json.dumps([r["max_memory_allocated_gib"] for r in ranks]),
+        device_busy_share=json.dumps([r["device_busy_share"] for r in ranks]),
+        params_on_rank=json.dumps([r["params_on_rank"] for r in ranks]),
+        transfers_per_step=json.dumps([r["transfers_per_step"] for r in ranks]),
+        transfer_bytes_per_step=json.dumps([r["transfer_bytes_per_step"] for r in ranks]),
+        reckoned_bytes_each_way=reckoned, losses=json.dumps([r["losses"] for r in ranks]),
+        launches_per_rank=json.dumps([r["launches"] for r in ranks]))
+    return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+
+
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
 
 
@@ -7493,6 +7592,8 @@ def main(argv=None) -> int:
     tp_launches = tensor_phase(args.seed, trained["step_ms"])
     tp_flash = time_flash(gen, H=32 // TP, Hk=8 // TP, case=f"tensor{TP}_rank_shape")
     lap("25")
+    pp_launches = pipe_phase(args.seed, trained["step_ms"])
+    lap("26")
     amp_launches = {k: amp_o2["launches"][k] + amp_o1["launches"][k] for k in amp_o2["launches"]}
 
     kernels = [
@@ -7528,7 +7629,8 @@ def main(argv=None) -> int:
             "replaces": f"paddle_tpu/ops/pallas/{replaces}",
             "launches": (train_launches[wrapper] + amp_launches[wrapper]
                          + moe_launches["train"][wrapper] + ops_launches[wrapper]
-                         + dist_launches[wrapper] + tp_launches[wrapper]), **nums})
+                         + dist_launches[wrapper] + tp_launches[wrapper]
+                         + pp_launches[wrapper]), **nums})
         kernels[-1][f"at_tensor{TP}_rank_shape"] = {
             k: v for k, v in tp_flash[0 if name.endswith("fwd") else 1].items()
             if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -7543,7 +7645,10 @@ def main(argv=None) -> int:
                               f"{TRAIN_LAYERS} layers), phase 24b's step on each of its two "
                               f"gloo ranks ({CHECK_LAYERS} layers, S {CHECK_SEQ}) and the "
                               f"{TRAIN_STEPS} timed steps of phase 25a on each of its {TP} "
-                              f"ranks (tensor {TP}: H {32 // TP}, Hk {8 // TP} a rank)")
+                              f"ranks (tensor {TP}: H {32 // TP}, Hk {8 // TP} a rank) and "
+                              f"those of phase 26a on each of its two pipeline stages "
+                              f"({TRAIN_LAYERS // 2} layers a stage, 4 microbatches of 1 x "
+                              f"{TRAIN_SEQ // 4})")
     for name, nums, launches in (
             ("rms_norm_fwd", norm_fwd, norm_launches["fwd"] + amp_launches["rms_norm_fwd_fused"]
              + ops_launches["rms_norm_fwd_fused"] + dist_launches["rms_norm_fwd_fused"]),
@@ -7607,19 +7712,23 @@ def main(argv=None) -> int:
              train_launches["rms_norm_fwd_round_first"]
              + moe_launches["train"]["rms_norm_fwd_round_first"]
              + dist_launches["rms_norm_fwd_round_first"]
-             + tp_launches["rms_norm_fwd_round_first"],
+             + tp_launches["rms_norm_fwd_round_first"]
+             + pp_launches["rms_norm_fwd_round_first"],
              f"the {TRAIN_STEPS} timed training steps (TrainStep runs the composed form's "
              f"rounding), the {MOE_STEPS} timed steps of the Mixtral cell (phase 22a), the "
-             f"{TRAIN_STEPS} timed steps of phase 24a (TrainStep on the sharded model) and "
-             f"those of phase 25a on each of its {TP} ranks"),
+             f"{TRAIN_STEPS} timed steps of phase 24a (TrainStep on the sharded model), "
+             f"those of phase 25a on each of its {TP} ranks and those of phase 26a on each of "
+             f"its two pipeline stages (a stage runs traced)"),
             ("rms_norm_bwd_round_first", "rms_norm.cu", "fused_norm.py:79", rms_rf[1],
              train_launches["rms_norm_bwd_dx_round_first"]
              + moe_launches["train"]["rms_norm_bwd_dx_round_first"]
              + dist_launches["rms_norm_bwd_dx_round_first"]
-             + tp_launches["rms_norm_bwd_dx_round_first"],
+             + tp_launches["rms_norm_bwd_dx_round_first"]
+             + pp_launches["rms_norm_bwd_dx_round_first"],
              f"the {TRAIN_STEPS} timed training steps, the {MOE_STEPS} timed steps of the "
-             f"Mixtral cell (phase 22a), the {TRAIN_STEPS} timed steps of phase 24a and "
-             f"those of phase 25a on each of its {TP} ranks"),
+             f"Mixtral cell (phase 22a), the {TRAIN_STEPS} timed steps of phase 24a, "
+             f"those of phase 25a on each of its {TP} ranks and those of phase 26a on each of "
+             f"its two pipeline stages"),
             ("flash_attention_fwd_wide", "flash_attention.cu", "flash_attention.py:112",
              wide_flash[0], wide_flash_launches,
              "nn.functional.flash_attention past 256 columns (no model path runs them)"),
@@ -7664,7 +7773,8 @@ def main(argv=None) -> int:
                      + vision_launches["resnet50"] + vision_launches["lenet"]
                      + sum(hapi_launches.values()) + moe_launches["train"]["multi_tensor_update"]
                      + moe_launches["bench"] + ops_launches["multi_tensor_update"]
-                     + dist_launches["multi_tensor_update"] + tp_launches["multi_tensor_update"]),
+                     + dist_launches["multi_tensor_update"] + tp_launches["multi_tensor_update"]
+                     + pp_launches["multi_tensor_update"]),
         **fused_opt})
     kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps "
                           f"({TRAIN_LAYERS} layers, one AdamW update a step), the "
@@ -7691,7 +7801,9 @@ def main(argv=None) -> int:
                           "update over one NCCL rank, one a step) and 24b's eager step on each "
                           f"of its two gloo ranks (one each), and phase 25a's {TRAIN_STEPS} timed "
                           f"steps on each of its {TP} ranks (the sharded update over the rank's "
-                          "slices, one a step)")
+                          f"slices, one a step), and phase 26a's {TRAIN_STEPS} timed steps on each "
+                          "of its two pipeline stages (PipelineParallel.train_batch over the "
+                          "stage's tensors, one a step)")
     kernels.append({
         "name": "multi_tensor_update_master", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",

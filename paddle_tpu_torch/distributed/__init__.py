@@ -13,9 +13,12 @@ recompute, sharded checkpoints (:mod:`.checkpoint`), the partitioning tier
 (:mod:`.tensor_parallel`), the semi-auto API (:mod:`.api`: ``shard_tensor``,
 ``reshard``, the placements) and :mod:`.fleet` (``fleet.init``, the
 topology, the mp layers, Megatron's sequence parallelism,
-``group_sharded_parallel``, the ring's context attention on one device and
-the Mixture-of-Experts layer). The pipeline, ``sep`` across processes and
-experts across devices wait for later slices and raise.
+``group_sharded_parallel``, the ring's context attention on one device,
+the Mixture-of-Experts layer and the pipeline: the schedules,
+``PipelineParallel``, ``PipelineLayer`` and ``pipeline_apply`` over a
+``pp`` / ``pipe`` axis alone or beside the data axes). ``sep`` across
+processes, experts across devices and the pipeline beside the tensor,
+sharding or sep axis wait for later slices and raise.
 """
 
 from . import checkpoint, env, fleet, partitioning, tensor_parallel  # noqa: F401

@@ -15,13 +15,18 @@ reference's ``parallelize`` (``parallelize(mp_config=...)``);
 sharded optimizer (stage 1 or 2 from ``sharding_configs``, 3 after a
 stage-3 model), and in the model-parallel mode the optimizer over the
 cut model, which averages over the data ranks and sums the gradients
-that are partial across the model group. ``localsgd`` waits for
-``incubate.optimizer.LocalSGD``.
+that are partial across the model group. At ``pp_degree`` above 1 (the
+pipeline mode, beside ``dp_degree`` only) the mesh has its ``pp`` axis and
+``distributed_model`` returns the model, as the reference's: pipelines are
+built with :class:`PipelineParallel` or ``partitioning.pipeline_from_rules``.
+``localsgd`` waits for ``incubate.optimizer.LocalSGD``.
 
 Also here: the tensor-parallel layers (:mod:`.mp_layers`),
 :mod:`.sequence_parallel` (Megatron's sequence parallelism and the
 ring's context attention), the Mixture-of-Experts layer (:mod:`.moe`, its
-experts on this device), :mod:`.sharding`, :mod:`.topology` and
+experts on this device), the pipeline (:mod:`.pipeline_parallel`: the
+schedules and :class:`PipelineParallel`; :mod:`.pp_layers`;
+:mod:`.pipeline_engine`), :mod:`.sharding`, :mod:`.topology` and
 :mod:`.random`.
 """
 
@@ -29,8 +34,14 @@ from __future__ import annotations
 
 from .. import env as _env
 from ..mesh import set_mesh
-from . import moe, mp_layers, random, sequence_parallel, sharding, topology  # noqa: F401
+from . import (moe, mp_layers, pipeline_engine, pipeline_parallel, pp_layers,  # noqa: F401
+               random, sequence_parallel, sharding, topology)
 from .moe import MoELayer
+from .pipeline_engine import pipeline_apply, scan_layers, stack_stage_params
+from .pipeline_parallel import (PipelineParallel, PipelineSchedule, build_pipeline_schedule,
+                                gather_pipeline_tree, make_pipeline_step, schedule_cost,
+                                verify_schedule)
+from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy, ParallelLinear,
                         RowParallelLinear, VocabParallelEmbedding)
 from .random import RNGStatesTracker, get_rng_state_tracker, model_parallel_random_seed
@@ -46,7 +57,11 @@ __all__ = ["moe", "mp_layers", "sequence_parallel", "sharding", "topology", "ran
            "worker_num", "worker_index", "is_first_worker", "barrier_worker",
            "CommunicateTopology", "HybridCommunicateGroup", "RNGStatesTracker",
            "get_rng_state_tracker", "model_parallel_random_seed",
-           "DygraphShardingOptimizer", "group_sharded_parallel"]
+           "DygraphShardingOptimizer", "group_sharded_parallel", "pipeline_engine",
+           "pipeline_parallel", "pp_layers", "pipeline_apply", "scan_layers",
+           "stack_stage_params", "PipelineParallel", "PipelineSchedule",
+           "build_pipeline_schedule", "gather_pipeline_tree", "make_pipeline_step",
+           "schedule_cost", "verify_schedule", "LayerDesc", "PipelineLayer", "SharedLayerDesc"]
 
 
 class DistributedStrategy:
@@ -136,7 +151,8 @@ class Fleet:
         """``DataParallel`` over the data group in the data-parallel mode
         with more than one rank; the model sharded when the strategy's
         sharding stage is 3; in the model-parallel mode the model on its
-        slices of the ``mp`` axis; else the model."""
+        slices of the ``mp`` axis; else (the pipeline mode among them) the
+        model."""
         self._need_init()
         hcg = self._hcg
         if hcg.get_model_parallel_world_size() > 1:

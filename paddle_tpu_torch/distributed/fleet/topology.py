@@ -6,8 +6,13 @@ over fleet's axes (``data``, ``pipe``, ``sharding``, ``sep``, ``model``);
 :class:`HybridCommunicateGroup` makes the process group of every axis
 (every rank makes every group, in the axes' order) and answers the rank
 and world-size getters, the model group's (tensor parallelism) among
-them. ``pipe`` above 1, and ``sep`` beside another axis above 1, wait for
-later slices of the port and raise.
+them. At ``pipe`` above 1 the mode is "pipeline": the stage id, the pipe
+group (this rank's stages, in stage order) and the previous and next
+stage's global ranks (cyclic, as Paddle's ``_set_p2p_prev_next``: the
+interleaved schedule sends from the last stage to the first) come from
+the real pipe group. ``pipe`` beside the model, sharding or sep axis above
+1, and ``sep`` beside another axis above 1, wait for later slices of the
+port and raise.
 """
 
 from __future__ import annotations
@@ -95,6 +100,10 @@ class HybridCommunicateGroup:
         self._pp_degree = topology.get_dim("pipe")
         self._sharding_degree = topology.get_dim("sharding")
         self._sep_degree = topology.get_dim("sep") if "sep" in names else 1
+        stages = next(g for g in topology.get_comm_list("pipe") if self.global_rank in g)
+        i = stages.index(self.global_rank)
+        self.prev_rank = stages[(i - 1) % self._pp_degree]
+        self.next_rank = stages[(i + 1) % self._pp_degree]
 
     def get_parallel_mode(self):
         if self._pp_degree > 1:
@@ -142,6 +151,15 @@ class HybridCommunicateGroup:
 
     def get_pipe_parallel_group(self):
         return self._groups["pipe"]
+
+    def _get_p2p_prev_rank(self):
+        """The previous stage's global rank (the last stage's before the
+        first), Paddle's name."""
+        return self.prev_rank
+
+    def _get_p2p_next_rank(self):
+        """The next stage's global rank (the first stage's after the last)."""
+        return self.next_rank
 
     def is_first_stage(self):
         return self.get_stage_id() == 0

@@ -11,11 +11,16 @@ and of fleet's topology (:func:`init_mesh_from_topology`) are built here.
 The tensor axis (``tensor`` on the partitioning tier's mesh, ``mp`` /
 ``model`` on fleet's) is a group like any other: the partitioner, fleet's
 mp layers and ``parallelize(mp_config=...)`` place its collectives
-(``distributed.tensor_parallel``). The axes that need what later slices
-of the port bring raise ``NotImplementedError`` above size 1: ``pipe`` /
-``pp`` (the pipeline), ``ep`` (experts across devices) and ``cp``, and
-``sep`` beside any other axis above 1 (``sep`` across processes). A mesh
-whose only axis above 1 is ``sep`` is the one-process ring
+(``distributed.tensor_parallel``). The pipe axis (``pipe`` on the
+partitioning tier's mesh, ``pp`` on fleet's) carries the pipeline's
+stages (``fleet.pipeline_parallel``), alone or beside the data axes; its
+group (:meth:`ProcessMesh.get_group`) holds this rank's stages and
+:meth:`ProcessMesh.axis_ranks` their global ranks in stage order. The
+axes that need what later slices of the port bring raise
+``NotImplementedError`` above size 1: ``ep`` (experts across devices) and
+``cp``, ``sep`` beside any other axis above 1 (``sep`` across processes),
+and the pipe axis beside the tensor, sharding or sep axis. A mesh whose
+only axis above 1 is ``sep`` is the one-process ring
 (``ops.ring_attention``): virtual ranks of this process on its device,
 which the ring attention folds into its batch.
 """
@@ -32,11 +37,16 @@ __all__ = ["ProcessMesh", "set_mesh", "get_mesh", "auto_mesh", "init_mesh_from_t
 _default_mesh: "ProcessMesh | None" = None
 
 #: axis name -> the later slice of the port that brings it
-WAITING_AXES = {"pipe": "the pipeline", "pp": "the pipeline",
-                "ep": "expert parallelism across devices", "cp": "sep across processes"}
+WAITING_AXES = {"ep": "expert parallelism across devices", "cp": "sep across processes"}
 
 #: the names of the tensor axis
 TENSOR_AXES = ("tensor", "mp", "model")
+
+#: the names of the pipe axis
+PIPE_AXES = ("pipe", "pp")
+
+#: the axes that the pipeline does not run beside yet
+NOT_BESIDE_PIPE = TENSOR_AXES + ("fsdp", "sharding", "sep")
 
 
 def check_axes(names, sizes) -> None:
@@ -47,6 +57,13 @@ def check_axes(names, sizes) -> None:
         if name in WAITING_AXES:
             raise NotImplementedError(
                 f"mesh axis {name}={size} waits for the port's {WAITING_AXES[name]} slice")
+    pipe = [n for n in wide if n in PIPE_AXES]
+    beside = [n for n in wide if n in NOT_BESIDE_PIPE]
+    if pipe and beside:
+        raise NotImplementedError(
+            f"mesh axes {wide}: a pipe axis beside {', '.join(beside)} waits for the port's "
+            "later slice of the pipeline beside the tensor / sharding / sep axis; the pipe axis "
+            "runs alone or beside the data axes")
     if "sep" in wide and len(wide) > 1:
         raise NotImplementedError(
             f"mesh axes {wide}: sep beside other axes means sep across processes, which "
@@ -113,6 +130,16 @@ class ProcessMesh:
         pid = _env.get_rank() if process_id is None else process_id
         coords = np.unravel_index(self.process_ids.index(pid), self._shape)
         return {n: int(c) for n, c in zip(self.dim_names, coords)}
+
+    def axis_ranks(self, dim: str) -> list:
+        """The global ranks along ``dim`` through this process, in the order
+        of their coordinates on ``dim`` (a pipeline's stage order)."""
+        from . import env as _env
+
+        coords = list(np.unravel_index(self.process_ids.index(_env.get_rank()), self._shape))
+        ax = self.dim_names.index(dim)
+        coords[ax] = slice(None)
+        return [int(x) for x in self.mesh[tuple(coords)]]
 
     def get_group(self, dims):
         """This process's group along ``dims`` (an axis name or a tuple of

@@ -15,9 +15,10 @@ mesh's data axes in the sharded update. With an optimizer it returns
 ``(model, optimizer)``, the optimizer a
 ``fleet.sharding.GroupShardedOptimizer`` when a stage or ``mp_config``
 applies. A mesh of one process with only a ``sep`` axis (the one-process
-ring) changes no parameter. ``dp_config`` and ``pp_config`` wait for the
-slices that bring those axes, and ``mp_config`` beside a sharding stage
-for a later slice.
+ring) changes no parameter. ``dp_config`` and ``pp_config`` are taken and
+read no further, as in the reference (a pipeline is built with
+``fleet.PipelineParallel`` or ``partitioning.pipeline_from_rules``);
+``mp_config`` beside a sharding stage waits for a later slice.
 
 :func:`shard_dataloader` gives each rank its part of every batch: the rows
 of dim 0 that its coordinates on the mesh's data axes (``dcn``, ``dp``,
@@ -62,10 +63,6 @@ def parallelize(model, optimizer=None, mesh: ProcessMesh | None = None, config=N
         raise TypeError(f"parallelize takes a ProcessMesh, got {type(mesh).__name__}")
     set_mesh(mesh)
     config = config or {}
-    for key in ("dp_config", "pp_config"):
-        if config.get(key):
-            raise NotImplementedError(f"parallelize({key}=...) waits for the slice of the "
-                                      "port that brings its axis")
     stage = int((config.get("sharding_config") or {}).get("stage", 0))
     from .mesh import TENSOR_AXES
 

@@ -56,6 +56,29 @@ counters).
   timed steps (the host's transport of gloo included) and one profiled
   step, with exact launches and the collectives by kind.
 
+- ``--phase p`` (two ranks on one card, gloo; the pipeline at pp 2 over
+  ``ProcessMesh(shape=[2], dim_names=["pp"])``, the Llama split here into
+  ``first`` (the embedding), ``layers`` (the decoder layers) and ``last``
+  (the final norm and the head, :func:`llama_stages`), the loss the
+  model's mean cross entropy): (b) the step check at ``PIPE_CHECK_LAYERS`` layers,
+  batch ``PIPE_M`` x ``--check-seq``: for each of ``PIPE_STYLES`` the loss
+  and every leaf's gradient of ``forward_backward_pipeline``, reassembled
+  by ``gather_pipeline_tree``, held on rank 0 against a one-process traced
+  forward and backward of the whole batch on the same card within
+  ``GRAD_TOL`` of the leaf's largest entry; two planted faults refused by
+  that check (the last stage seeding its backward with 1 instead of 1/M,
+  and stage 0 taking the cotangents of microbatches 0 and 1 through each
+  other's graph); (c) the memory bound at the timed cell's widths and
+  ``--layers``, ``PIPE_MEM_M`` microbatches of 1 x ``--seq / PIPE_MEM_M``:
+  each stage's peak memory above its resting state over one pass of the
+  schedule, under ``fthenb`` and ``1f1b``; (a) the timed cell: batch
+  ``PIPE_M`` x ``--seq / PIPE_M`` in ``PIPE_M`` microbatches under
+  ``1f1b``, ``PipelineParallel.train_batch`` with ``AdamW(3e-4,
+  weight_decay=0.1)`` and no clip (the reference's ``train_batch`` reads
+  none): a warm-up, ``--steps`` timed steps (the host's transport
+  included) and one profiled step, with exact launches and the transfers
+  by kind.
+
 ``--tiny`` runs ``LlamaConfig.tiny()`` widths with head_dim 64 (the card
 tests).
 """
@@ -534,9 +557,244 @@ def phase_t(args, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase p: the pipeline
+# ---------------------------------------------------------------------------
+
+PIPE = 2                # stages
+PIPE_M = 4              # microbatches of the timed cell and the step check
+PIPE_CHECK_LAYERS = 4   # vpp at 2 stages x 2 chunks: one layer a chunk
+PIPE_MEM_M = 8          # microbatches of the memory bound
+#: (schedule, microbatches, chunks) of the step check
+PIPE_STYLES = (("1f1b", 4, 1), ("fthenb", 2, 1), ("zero_bubble", 4, 1), ("vpp", 4, 2))
+
+
+def llama_stages(model):
+    """(first, layers, last) of an untied Llama: the embedding, the decoder
+    layers, and the final norm with the head (the model's own Layers)."""
+    from ..nn import Sequential
+
+    return (model.llama.embed_tokens, list(model.llama.layers),
+            Sequential(("norm", model.llama.norm), ("lm_head", model.lm_head)))
+
+
+def llama_loss(logits, labels):
+    from ..nn import functional as F
+
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                           reduction="mean")
+
+
+def tree_by_name(tree, num_chunks: int) -> dict:
+    """{the model's parameter name: gradient} of a reassembled pipeline tree."""
+    out = {"llama.embed_tokens.weight": tree["first"]["weight"],
+           "llama.norm.weight": tree["last"]["norm.weight"],
+           "lm_head.weight": tree["last"]["lm_head.weight"]}
+    for k, leaf in tree["stack"].items():
+        P = leaf.shape[0]
+        for p in range(P):
+            chunks = [leaf[p]] if num_chunks == 1 else list(leaf[p])
+            for v, chunk in enumerate(chunks):
+                for j in range(chunk.shape[0]):
+                    out[f"llama.layers.{(v * P + p) * chunk.shape[0] + j}.{k}"] = chunk[j]
+    return out
+
+
+def pipe_check(args, mesh) -> dict:
+    """(26b): see the module docstring."""
+    import torch
+
+    from .. import distributed as dist
+    from .. import tracing
+    from ..distributed.fleet import PipelineParallel, gather_pipeline_tree
+    from ..distributed.fleet import pipeline_parallel as ppmod
+
+    rank = dist.get_rank()
+    cfg = config(args, PIPE_CHECK_LAYERS)
+    ids, labels = tokens(args.seed + 2, PIPE_M, args.check_seq, cfg.vocab_size)
+    model, _ = build(args, PIPE_CHECK_LAYERS)
+    want = None
+    if rank == 0:
+        named = list(model.named_parameters())
+        with tracing.traced():
+            loss = model(ids, labels=labels)[0].float()
+            grads = torch.autograd.grad(loss, [q for _, q in named])
+        want = {"loss": loss.item(), "grads": {n: g for (n, _), g in zip(named, grads)}}
+        del loss, grads
+    first, layers, last = llama_stages(model)
+
+    def run(style, m, chunks):
+        pp = PipelineParallel(first, layers, last, llama_loss, mesh=mesh, num_microbatches=m,
+                              schedule=style, num_chunks=chunks)
+        loss, grads = pp.forward_backward_pipeline(ids, labels)
+        tree = gather_pipeline_tree(grads, pp)
+        del grads
+        got = tree_by_name(tree, chunks) if rank == 0 else None
+        return loss.item(), got, pp.peak_in_flight, pp._sched.ring
+
+    res = {}
+    for style, m, chunks in PIPE_STYLES:
+        loss, got, peak, ring = run(style, m, chunks)
+        r = {"loss": loss, "microbatches": m, "chunks": chunks, "peak_in_flight": peak,
+             "ring": ring}
+        if rank == 0:
+            errs = grad_errors(got, want["grads"])
+            worst = max(errs, key=errs.get)
+            r.update(loss_plain=want["loss"], leaves=len(errs), grad_vs_ref_max_rel=errs[worst],
+                     grad_vs_ref_worst_leaf=worst, grad_vs_ref_tol=GRAD_TOL,
+                     grad_vs_ref_beyond_tol=sum(e > GRAD_TOL for e in errs.values()),
+                     leaves_checked=sorted(got) == sorted(want["grads"]))
+        del got
+        torch.cuda.empty_cache()
+        res[style] = r
+        say("p", rank=rank, case=f"check_{style}", **{k: v for k, v in r.items()})
+    faults = {}
+    keep = ppmod._loss_seed, ppmod._graph_of
+    planted = {"seed_one_not_one_over_m": ("_loss_seed", lambda M: 1.0),
+               "stage0_cotangents_swapped": (
+                   "_graph_of", lambda v, m: (1 - m) if (rank == 0 and v == 0 and m < 2) else m)}
+    for name, (attr, fn) in planted.items():
+        setattr(ppmod, attr, fn)
+        try:
+            _, got, _, _ = run("1f1b", PIPE_M, 1)
+        finally:
+            ppmod._loss_seed, ppmod._graph_of = keep
+        if rank == 0:
+            faults[name] = max(grad_errors(got, want["grads"]).values())
+        del got
+        torch.cuda.empty_cache()
+    if rank == 0:
+        res["planted_faults_max_rel"] = faults
+        say("p", rank=rank, planted_faults_max_rel=json.dumps(faults))
+    del model, first, layers, last, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def pipe_memory(args, mesh, first, layers, last, vocab) -> dict:
+    """(26c): each stage's peak memory above its resting state over one
+    pass of the schedule under fthenb and 1f1b."""
+    import gc
+
+    import torch
+
+    from ..distributed.fleet import PipelineParallel
+
+    ids, labels = tokens(args.seed + 50, PIPE_MEM_M, args.seq // PIPE_MEM_M, vocab)
+    out = {}
+    for style in ("fthenb", "1f1b"):
+        pp = PipelineParallel(first, layers, last, llama_loss, mesh=mesh,
+                              num_microbatches=PIPE_MEM_M, schedule=style)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resting = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pp._forward_backward(ids, labels)
+        torch.cuda.synchronize()
+        out[style] = {"peak_above_rest_gib": round((torch.cuda.max_memory_allocated() - resting)
+                                                   / 2**30, 4),
+                      "resting_gib": round(resting / 2**30, 4),
+                      "peak_in_flight": pp.peak_in_flight, "ring": pp._sched.ring}
+        del pp
+    return out
+
+
+def phase_p(args, out):
+    import torch
+
+    from .. import distributed as dist
+    from ..distributed import collective
+    from ..distributed.fleet import PipelineParallel
+    from ..models.llama import LlamaForCausalLM
+    from ..optimizer import AdamW
+
+    dist.init_parallel_env(timeout=120)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if world != PIPE:
+        raise ValueError(f"phase p runs {PIPE} ranks, got {world}")
+    mesh = dist.ProcessMesh(shape=[PIPE], dim_names=["pp"])
+    res = {"backend": dist.env.backend(), "world": world, "rank": rank,
+           "device": str(dist.env.device())}
+    res["check"] = pipe_check(args, mesh)
+    if rank == 0:
+        bad = {k: v["grad_vs_ref_max_rel"] for k, v in res["check"].items()
+               if k in dict((s[0], 1) for s in PIPE_STYLES) and v["grad_vs_ref_beyond_tol"]}
+        if bad:
+            raise AssertionError(f"phase 26b: the pipeline's gradients differ from the "
+                                 f"one-process backward beyond {GRAD_TOL} of a leaf's largest: "
+                                 f"{bad}")
+        faults = res["check"]["planted_faults_max_rel"]
+        if any(e <= GRAD_TOL for e in faults.values()):
+            raise AssertionError(f"phase 26b: the gradient check does not refuse the planted "
+                                 f"faults: {faults}")
+    cfg = config(args, args.layers)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=args.seed)
+    first, layers, last = llama_stages(model)
+    res["memory"] = pipe_memory(args, mesh, first, layers, last, cfg.vocab_size)
+    say("p", rank=rank, memory=json.dumps(res["memory"]))
+    # (26a) the timed cell
+    pp = PipelineParallel(first, layers, last, llama_loss, mesh=mesh, num_microbatches=PIPE_M,
+                          schedule="1f1b")
+    opt = AdamW(LR, parameters=model.parameters(), weight_decay=0.1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c = counters()
+    losses, times = [], []
+    for i in range(args.steps + 1):
+        ids, labels = tokens(args.seed + 3 + i, PIPE_M, args.seq // PIPE_M, cfg.vocab_size)
+        if i == 1:
+            torch.cuda.synchronize()
+            zero(c)
+            collective.reset_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = pp.train_batch((ids, labels), opt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = read(c)
+    stats = collective.stats()
+    from torch.profiler import ProfilerActivity, profile
+
+    ids, labels = tokens(args.seed + 99, PIPE_M, args.seq // PIPE_M, cfg.vocab_size)
+    dist.barrier()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pp.train_batch((ids, labels), opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    n = args.steps
+    res.update(layers=args.layers, seq=args.seq, microbatches=PIPE_M, schedule="1f1b",
+               stage_layers=len(pp.chunks[0]), warmup_step_ms=round(1e3 * times[0], 3),
+               step_ms=[round(1e3 * t, 3) for t in times[1:]],
+               step_ms_mean=round(1e3 * sum(times[1:]) / n, 3), losses=losses,
+               launches=launches,
+               transfers_per_step={k: v / n for k, v in stats["calls"].items()
+                                   if k != "barrier"},
+               transfer_bytes_per_step={k: v / n for k, v in stats["bytes"].items()
+                                        if k != "barrier"},
+               max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+               params_on_rank=sum(q.numel() for _, _, q in pp._owned()),
+               tensors_on_rank=len(pp._owned()),
+               profiled_step_ms=round(1e3 * wall, 3), device_busy_ms=round(1e3 * busy, 3),
+               device_busy_share=round(busy / wall, 4) if busy else "not measured")
+    say("p", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                for k, v in res.items() if k not in ("check", "memory")})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses are not finite: {losses}")
+    dist.barrier()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("a", "b", "t"), required=True)
+    ap.add_argument("--phase", choices=("a", "b", "t", "p"), required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=4)
@@ -547,7 +805,7 @@ def main(argv=None) -> int:
     ap.add_argument("--comm-buffer-size", type=float, default=25)
     ap.add_argument("--tiny", action="store_true")
     args = ap.parse_args(argv)
-    res = {"a": phase_a, "b": phase_b, "t": phase_t}[args.phase](args, args.out)
+    res = {"a": phase_a, "b": phase_b, "t": phase_t, "p": phase_p}[args.phase](args, args.out)
     from .. import distributed as dist
 
     with open(os.path.join(args.out, f"dist_{args.phase}.{dist.get_rank()}.json"), "w") as f:

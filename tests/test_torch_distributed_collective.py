@@ -223,8 +223,9 @@ def test_no_fallback_hides_the_device(port_device, monkeypatch):
     assert not env.is_initialized()
 
 
-@pytest.mark.parametrize("case", ["pipe", "pp", "ep", "cp", "sep_and_dp", "elastic",
-                                  "localsgd", "llama_ulysses", "moe_tensor"])
+@pytest.mark.parametrize("case", ["ep", "cp", "sep_and_dp", "elastic", "localsgd",
+                                  "llama_ulysses", "moe_tensor", "pipe_and_tensor",
+                                  "pipe_and_fsdp", "activation_spec"])
 def test_the_axes_that_wait_raise(case):
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed import launch
@@ -233,6 +234,11 @@ def test_the_axes_that_wait_raise(case):
 
     calls = {
         "sep_and_dp": lambda: dist.ProcessMesh(shape=[2, 2], dim_names=["dp", "sep"]),
+        "pipe_and_tensor": lambda: dist.build_program_mesh(pipe=2, tensor=2),
+        "pipe_and_fsdp": lambda: dist.build_program_mesh(pipe=2, fsdp=2),
+        "activation_spec": lambda: dist.fleet.PipelineParallel(
+            None, [None, None], None, None, mesh=dist.ProcessMesh(shape=[2], dim_names=["pp"]),
+            activation_spec=("dp", "mp")),
         "elastic": lambda: launch.launch(["--max_restart", "1", "x.py"]),
         "localsgd": lambda: _localsgd(dist),
         "llama_ulysses": lambda: llama.LlamaForCausalLM(
@@ -243,6 +249,21 @@ def test_the_axes_that_wait_raise(case):
     call = calls.get(case, lambda: dist.ProcessMesh(shape=[2], dim_names=[case]))
     with pytest.raises(NotImplementedError, match="wait"):
         call()
+
+
+@pytest.mark.parametrize("case", ["pipe", "pp", "program_pipe"])
+def test_the_pipe_axes_build(ranks, case):
+    """What waited for the pipeline slice builds over worlds of 2 and 4: a
+    mesh's ``pipe`` / ``pp`` axis, its stage group (every rank, in stage
+    order) and the program mesh's pipe axis beside dp (its stage group and
+    its data group)."""
+    for n, rank, got in [(n, r, g) for n in (2, 4) for r, g in enumerate(ranks[n])]:
+        row = list(got[f"axis_{case}"])
+        if case in ("pipe", "pp"):
+            assert row == [n] + list(range(n)) + list(range(n))
+        else:
+            dp = rank // 2
+            assert row == [n // 2, 2, 1, 1, 2 * dp, 2 * dp + 1] + list(range(rank % 2, n, 2))
 
 
 @pytest.mark.parametrize("case", ["tensor", "mp", "program_tensor", "topology_mp", "llama_sep"])

@@ -55,7 +55,10 @@ create_parameter, public ops) with its flash, RMSNorm and fused-update
 launches counted; and the distributed tier through the launcher: one
 NCCL rank training the sharded model bit for bit as ``TrainStep`` with
 exact launches, ``DataParallel`` over two gloo ranks on the one card with
-bit-identical gradients, and NCCL refusing two ranks on one card.
+bit-identical gradients, tensor parallelism and the pipeline (pp 2, every
+schedule style's gradients against a one-process backward, two planted
+faults, 1F1B's memory below FThenB's) over two gloo ranks on the one
+card, and NCCL refusing two ranks on one card.
 """
 
 import contextlib
@@ -2030,6 +2033,33 @@ def test_dist_tensor_parallel_two_gloo_ranks_on_the_card(dev, tmp_path):
                                  "rms_norm_fwd_round_first": 10,
                                  "rms_norm_bwd_dx_round_first": 10, "multi_tensor_update": 2}
         assert r["collectives_per_step"]["all_reduce"] > 0
+
+
+# two gloo ranks on the one card at pp 2 (the Llama split into embedding,
+# decoder layers, norm and head): every style's reassembled gradients within
+# GRAD_TOL of a one-process traced backward, both planted faults beyond it,
+# 1F1B's peak memory on stage 0 below FThenB's, exact launches of the timed
+# steps on each stage
+def test_dist_pipeline_two_gloo_ranks_on_the_card(dev, tmp_path):
+    from paddle_tpu_torch.tools.dist_train import GRAD_TOL, PIPE_M, PIPE_STYLES
+
+    rc, logs, res = _dist_ranks(tmp_path, 2, "p", {"PADDLE_DISTRI_BACKEND": "gloo"})
+    assert rc == 0, logs
+    check = res[0]["check"]
+    for style, _, _ in PIPE_STYLES:
+        assert check[style]["grad_vs_ref_beyond_tol"] == 0 and check[style]["leaves_checked"]
+        assert check[style]["grad_vs_ref_max_rel"] <= GRAD_TOL
+    assert all(e > GRAD_TOL for e in check["planted_faults_max_rel"].values())
+    mem = res[0]["memory"]
+    assert mem["1f1b"]["peak_above_rest_gib"] < mem["fthenb"]["peak_above_rest_gib"]
+    for r in res:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        norms = PIPE_M * (2 + r["rank"]) * 2
+        assert r["launches"] == {"flash_wgmma_fwd": PIPE_M * 2, "flash_wgmma_bwd": PIPE_M * 2,
+                                 "rms_norm_fwd_fused": 0, "rms_norm_bwd_dx_fused": 0,
+                                 "rms_norm_fwd_round_first": norms,
+                                 "rms_norm_bwd_dx_round_first": norms, "multi_tensor_update": 2}
+        assert r["transfers_per_step"]["send"] == r["transfers_per_step"]["recv"] == PIPE_M
 
 
 # NCCL with more ranks than cards raises and names the card, never falls

@@ -131,6 +131,7 @@ def collectives(out):
     dist.barrier()
     stats = C.stats()
     res.update(tensor_axes(n))
+    res.update(pipe_axes(n))
     res["stat_kinds"] = np.array(sorted(stats["calls"]))
     res["stat_fused_calls"] = np.array(stats["calls"]["fused_allreduce"])
     _save(out, "collectives", **res)
@@ -156,6 +157,20 @@ def tensor_axes(n):
         hcg.get_parallel_mode() == "model_parallel"])
     model = llama.LlamaForCausalLM(llama.LlamaConfig.tiny(sequence_parallel=True), device="cpu")
     out["axis_llama_sep"] = np.array([model.config.sequence_parallel, model.num_params()])
+    return out
+
+
+def pipe_axes(n):
+    """The pipe axes build over the world: a mesh's ``pipe`` / ``pp`` axis,
+    its stage group and stage order, and the program mesh's at dp x pipe."""
+    out = {}
+    for name in ("pipe", "pp"):
+        mesh = dist.ProcessMesh(shape=[n], dim_names=[name])
+        out[f"axis_{name}"] = np.array(mesh.shape + mesh.get_group(name).ranks
+                                       + mesh.axis_ranks(name))
+    mesh = dist.build_program_mesh(dp=n // 2, pipe=2)
+    out["axis_program_pipe"] = np.array(mesh.shape + mesh.get_group("pipe").ranks
+                                        + mesh.get_group("dp").ranks)
     return out
 
 
@@ -695,6 +710,337 @@ def semi_auto(out):
           layer=np.array([repr(p.dist_attr.placements) for p in lin.parameters()]))
 
 
+# ---------------------------------------------------------------------------
+# the pipeline: the reference's tests/test_pipeline.py:25-77 model
+# ---------------------------------------------------------------------------
+
+PP_V, PP_H = 64, 16
+
+
+class PPBlock(paddle.nn.Layer):
+    def __init__(self, h=PP_H):
+        super().__init__()
+        self.fc1 = paddle.nn.Linear(h, 2 * h, device="cpu")
+        self.fc2 = paddle.nn.Linear(2 * h, h, device="cpu")
+
+    def forward(self, x):
+        return x + self.fc2(F.relu(self.fc1(x)))
+
+
+class PPHead(paddle.nn.Layer):
+    def __init__(self, h=PP_H, v=PP_V):
+        super().__init__()
+        self.norm = paddle.nn.LayerNorm(h, device="cpu")
+        self.proj = paddle.nn.Linear(h, v, device="cpu")
+
+    def forward(self, x):
+        return self.proj(self.norm(x))
+
+
+def pp_loss(logits, labels):
+    return F.cross_entropy(logits.reshape([-1, logits.shape[-1]]), labels.reshape([-1]),
+                           reduction="mean")
+
+
+def pp_model(weights, n_layers, v=PP_V, h=PP_H):
+    """(embedding, blocks, head) with the reference's weights (``emb.*``,
+    ``layers.<i>.*``, ``head.*`` of ``weights``)."""
+    d = dict(np.load(weights))
+    emb = paddle.nn.Embedding(v, h, device="cpu")
+    layers = [PPBlock(h) for _ in range(n_layers)]
+    head = PPHead(h, v)
+    for prefix, layer in [("emb.", emb), ("head.", head)] + [
+            (f"layers.{i}.", lyr) for i, lyr in enumerate(layers)]:
+        missing, _ = layer.set_state_dict({k[len(prefix):]: a for k, a in d.items()
+                                           if k.startswith(prefix)})
+        assert not missing, missing
+    return emb, layers, head
+
+
+def _pp_tokens(data, key):
+    d = np.load(data)
+    return _t(d[f"{key}_ids"]), _t(d[f"{key}_labels"])
+
+
+def _pp_mesh(n=None, axis="pp"):
+    return dist.ProcessMesh(shape=[n or dist.get_world_size()], dim_names=[axis])
+
+
+def _pp_save_tree(out, case, tree, **extra):
+    flat = {f"{part}/{k}": v.detach() for part in tree for k, v in tree[part].items()}
+    _save(out, case, **flat, **extra)
+
+
+def pp_grads(out, weights, data, key, style, M, chunks, n_layers):
+    """forward_backward_pipeline over the world's pp axis; the gradients
+    reassembled by gather_pipeline_tree on every rank."""
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel, gather_pipeline_tree
+
+    emb, layers, head = pp_model(weights, n_layers)
+    ids, labels = _pp_tokens(data, key)
+    pp = PipelineParallel(emb, layers, head, pp_loss, mesh=_pp_mesh(), num_microbatches=M,
+                          schedule=style, num_chunks=chunks)
+    C.reset_stats()
+    loss, grads = pp.forward_backward_pipeline(ids, labels)
+    stats = C.stats()
+    tree = gather_pipeline_tree(grads, pp)
+    _pp_save_tree(out, f"pp_grads_{style}_{M}", tree, loss=loss,
+                  local_keys=np.array(sorted(f"{p}/{k}" for p in grads for k in grads[p])),
+                  peak=np.array(pp.peak_in_flight), ring=np.array(pp._sched.ring),
+                  sends=np.array(stats["calls"].get("send", 0)),
+                  recvs=np.array(stats["calls"].get("recv", 0)))
+
+
+def _all_params(emb, layers, head):
+    out = {f"emb.{k}": v for k, v in emb.named_parameters()}
+    for i, lyr in enumerate(layers):
+        out.update({f"layers.{i}.{k}": v for k, v in lyr.named_parameters()})
+    out.update({f"head.{k}": v for k, v in head.named_parameters()})
+    return out
+
+
+def pp_train(out, weights, data, key, style, M, chunks, n_layers, steps):
+    """train_batch with AdamW(1e-2), then sync_to_model: the losses and
+    every parameter, on every rank."""
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel
+
+    emb, layers, head = pp_model(weights, n_layers)
+    ids, labels = _pp_tokens(data, key)
+    pp = PipelineParallel(emb, layers, head, pp_loss, mesh=_pp_mesh(), num_microbatches=M,
+                          schedule=style, num_chunks=chunks)
+    params = list(_all_params(emb, layers, head).values())
+    opt = paddle.optimizer.AdamW(learning_rate=1e-2, parameters=params)
+    losses = [pp.train_batch((ids, labels), opt).item() for _ in range(steps)]
+    pp.sync_to_model()
+    _save(out, f"pp_train_{style}", losses=np.array(losses),
+          **{k: v.detach() for k, v in _all_params(emb, layers, head).items()})
+
+
+def pp_frozen(out, weights, data, key):
+    """A frozen embedding through 3 steps; then switching the optimizer's
+    class raises TypeError."""
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel
+
+    emb, layers, head = pp_model(weights, 4)
+    emb.weight.stop_gradient = True
+    emb.weight.trainable = False
+    ids, labels = _pp_tokens(data, key)
+    pp = PipelineParallel(emb, layers, head, pp_loss, mesh=_pp_mesh(), num_microbatches=2,
+                          schedule="1f1b")
+    params = list(_all_params(emb, layers, head).values())
+    opt = paddle.optimizer.AdamW(learning_rate=1e-2, parameters=params)
+    before = emb.weight.detach().clone()
+    proj = head.proj.weight.detach().clone()
+    for _ in range(3):
+        pp.train_batch((ids, labels), opt)
+    try:
+        pp.train_batch((ids, labels), paddle.optimizer.SGD(learning_rate=0.1,
+                                                           parameters=params))
+        switched = "no error"
+    except TypeError as e:
+        switched = str(e)
+    _save(out, "pp_frozen", emb_before=before, emb_after=emb.weight.detach(),
+          proj_before=proj, proj_after=head.proj.weight.detach(), switched=np.array(switched))
+
+
+def pp_remat(out, weights, data, key):
+    """remat=True against remat=False, 1F1B at M 4."""
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel, gather_pipeline_tree
+
+    res = {}
+    for remat in (False, True):
+        emb, layers, head = pp_model(weights, 4)
+        ids, labels = _pp_tokens(data, key)
+        pp = PipelineParallel(emb, layers, head, pp_loss, mesh=_pp_mesh(), num_microbatches=4,
+                              schedule="1f1b", remat=remat)
+        loss, grads = pp.forward_backward_pipeline(ids, labels)
+        tree = gather_pipeline_tree(grads, pp)
+        res[f"loss_{remat}"] = loss
+        res.update({f"{remat}/{part}/{k}": v for part in tree for k, v in tree[part].items()})
+    _save(out, "pp_remat", **res)
+
+
+def pp_apply(out, data):
+    """pipeline_apply over the world's pp axis (the reference's
+    tests/test_distributed.py:300-335)."""
+    from paddle_tpu_torch.distributed.fleet import (pipeline_apply, scan_layers,
+                                                    stack_stage_params)
+
+    d = np.load(data)
+    n = dist.get_world_size()
+    stacked = stack_stage_params([{"w": _t(d[f"w{i}"])} for i in range(8)], n)
+    p = dist.get_rank()
+    mesh = _pp_mesh()
+    with mesh:
+        got = pipeline_apply(lambda sp, h: scan_layers(lambda q, x: torch.tanh(x @ q["w"]), sp, h),
+                             {"w": stacked["w"][p:p + 1]}, _t(d["x"]), num_stages=n,
+                             num_microbatches=4, axis_name="pp")
+        last_only = pipeline_apply(
+            lambda sp, h: scan_layers(lambda q, x: torch.tanh(x @ q["w"]), sp, h),
+            {"w": stacked["w"][p:p + 1]}, _t(d["x"]), num_stages=n, num_microbatches=4,
+            axis_name="pp", broadcast_output=False)
+    _save(out, "pp_apply", output=got, last_only=last_only)
+
+
+def pp_dp(out, weights, data, key, steps):
+    """pp 2 x dp 2: each replica on its half of the batch; the gradients
+    after the data average on every rank, then train_batch's losses."""
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel
+
+    mesh = dist.ProcessMesh(shape=[2, 2], dim_names=["pp", "dp"])
+    emb, layers, head = pp_model(weights, 4)
+    ids, labels = _pp_tokens(data, key)
+    pp = PipelineParallel(emb, layers, head, pp_loss, mesh=mesh, num_microbatches=2,
+                          schedule="1f1b")
+    loss, grads = pp.forward_backward_pipeline(ids, labels)
+    flat = {f"{part}/{k}": v for part in grads for k, v in grads[part].items()}
+    params = list(_all_params(emb, layers, head).values())
+    opt = paddle.optimizer.AdamW(learning_rate=1e-2, parameters=params)
+    losses = [pp.train_batch((ids, labels), opt).item() for _ in range(steps)]
+    _save(out, "pp_dp", loss=loss, losses=np.array(losses), **flat,
+          coord=np.array([mesh.coordinate()["pp"], mesh.coordinate()["dp"]]))
+
+
+def pp_rules(out, weights, data):
+    """pipeline_from_rules on build_program_mesh(pipe=2), a direct
+    PipelineParallel over a pp axis, and one over fleet's mesh at
+    pp_degree 2: the same loss and gradients; fleet's topology getters."""
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel
+    from paddle_tpu_torch.distributed.partitioning import Partitioner, pipeline_from_rules
+
+    ids, labels = _pp_tokens(data, "shim")
+    res = {}
+    emb, layers, head = pp_model(weights, 2, v=32)
+    pp = pipeline_from_rules(emb, layers, head, pp_loss,
+                             partitioner=Partitioner(dist.build_program_mesh(pipe=2)),
+                             num_microbatches=2)
+    res["rules_axis"] = np.array([pp.axis_name, str(pp.num_stages), str(pp.mesh.dim_names)])
+    runs = {"rules": pp}
+    emb, layers, head = pp_model(weights, 2, v=32)
+    runs["direct"] = PipelineParallel(emb, layers, head, pp_loss, mesh=_pp_mesh(),
+                                      num_microbatches=2)
+    strategy = dist.fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 2,
+                               "sharding_degree": 1, "sep_degree": 1}
+    dist.fleet.init(is_collective=True, strategy=strategy)
+    hcg = dist.fleet.get_hybrid_communicate_group()
+    res["fleet_hcg"] = np.array([str(x) for x in (
+        hcg.get_parallel_mode(), hcg.get_stage_id(), hcg.get_pipe_parallel_rank(),
+        hcg.get_pipe_parallel_world_size(), hcg.get_pipe_parallel_group().ranks,
+        hcg.is_first_stage(), hcg.is_last_stage(), hcg._get_p2p_prev_rank(),
+        hcg._get_p2p_next_rank())])
+    emb, layers, head = pp_model(weights, 2, v=32)
+    res["fleet_model_same"] = np.array(dist.fleet.distributed_model(head) is head)
+    fleet_mesh = dist.get_mesh()
+    res["fleet_mesh"] = np.array(fleet_mesh.dim_names + [str(x) for x in fleet_mesh.shape])
+    runs["fleet"] = PipelineParallel(emb, layers, head, pp_loss, mesh=fleet_mesh,
+                                     num_microbatches=2)
+    for name, run in runs.items():
+        loss, grads = run.forward_backward_pipeline(ids, labels)
+        res[f"{name}/loss"] = loss
+        res.update({f"{name}/{part}/{k}": v for part in grads for k, v in grads[part].items()})
+    dist.set_mesh(None)
+    res.update(_pp_functional(weights, ids, labels))
+    # one stage over both ranks as data replicas: vpp's chunks hand over
+    # within the rank
+    emb, layers, head = pp_model(weights, 2, v=32)
+    one = PipelineParallel(emb, layers, head, pp_loss,
+                           mesh=dist.ProcessMesh(shape=[1, 2], dim_names=["pp", "dp"]),
+                           num_microbatches=2, schedule="vpp", num_chunks=2)
+    loss, grads = one.forward_backward_pipeline(ids, labels)
+    res["one_stage/loss"] = loss
+    res.update({f"one_stage/{part}/{k}": v for part in grads for k, v in grads[part].items()})
+    _save(out, "pp_rules", **res)
+
+
+def _pp_functional(weights, ids, labels):
+    """make_pipeline_step over the same model as functions of parameter
+    trees (torch.func.functional_call; the chunk through scan_layers)."""
+    from paddle_tpu_torch.distributed.fleet import make_pipeline_step, scan_layers
+
+    emb, layers, head = pp_model(weights, 2, v=32)
+    p = dist.get_rank()
+    params = {"first": dict(emb.named_parameters()) if p == 0 else {},
+              "stack": {k: v.detach()[None, None] for k, v in layers[p].named_parameters()},
+              "last": dict(head.named_parameters()) if p == 1 else {}}
+    step = make_pipeline_step(
+        lambda w, x: torch.func.functional_call(emb, w, (x,)),
+        lambda w, h: scan_layers(layers[p], w, h),
+        lambda w, h, y: pp_loss(torch.func.functional_call(head, w, (h,)), y),
+        mesh=_pp_mesh(), num_stages=2, num_microbatches=2)
+    loss, grads = step(params, ids, labels)
+    out = {"functional/loss": loss}
+    out.update({f"functional/{part}/{k}": v for part in grads for k, v in grads[part].items()})
+    return out
+
+
+class _LlamaLast(paddle.nn.Layer):
+    """A Llama's last stage: the final norm and the head."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.norm = model.llama.norm
+        self.lm_head = model.lm_head
+
+    def forward(self, h):
+        return self.lm_head(self.norm(h))
+
+
+def pp_llama(out, weights, data, dtype):
+    """The tiny Llama as embedding / decoder layers / norm + head at pp 2,
+    M 2. f32: the loss and every gradient, reassembled. bf16: each stage's
+    outputs (stage 0's activation, stage 1's logits and loss) for every
+    microbatch, against a one-process traced forward of the same
+    microbatch, and the same forward untraced as the control."""
+    from paddle_tpu_torch import tracing
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel, gather_pipeline_tree
+    from paddle_tpu_torch.models import llama as L
+
+    dt = getattr(torch, dtype)
+    model = L.LlamaForCausalLM(L.LlamaConfig.tiny(), device="cpu", dtype=dt, seed=0)
+    L.load_reference_state_dict(model, dict(np.load(weights)))
+    if dtype == "bfloat16":     # norm weights away from 1, where both roundings agree
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for name, q in model.named_parameters():
+                if "norm" in name:
+                    q.mul_(1 + 0.1 * torch.randn(q.shape, generator=g).to(dt))
+    ids, labels = _pp_tokens(data, "llama")
+    emb, layers, last = model.llama.embed_tokens, list(model.llama.layers), _LlamaLast(model)
+    captured = {"act": [], "logits": [], "loss": []}
+
+    def loss_fn(logits, lab):
+        loss = pp_loss(logits, lab)
+        captured["logits"].append(logits.detach().clone())
+        captured["loss"].append(loss.detach().clone())
+        return loss
+
+    hook = layers[0].register_forward_hook(
+        lambda m, i, o: captured["act"].append(o.detach().clone()))
+    pp = PipelineParallel(emb, layers, last, loss_fn, mesh=_pp_mesh(), num_microbatches=2)
+    loss, grads = pp.forward_backward_pipeline(ids, labels)
+    hook.remove()
+    res = {"loss": loss.float()}
+    if dtype == "float32":
+        tree = gather_pipeline_tree(grads, pp)
+        res.update({f"{part}/{k}": v for part in tree for k, v in tree[part].items()})
+    else:
+        rank = dist.get_rank()
+        mine = ["act"] if rank == 0 else ["logits", "loss"]
+        for traced in (True, False):
+            same = []
+            for m in range(2):
+                rows = slice(2 * m, 2 * m + 2)
+                with torch.no_grad(), tracing.marked(traced):
+                    act = layers[0](emb(ids[rows]))
+                    logits = last(layers[1](act))
+                    want = {"act": act, "logits": logits,
+                            "loss": pp_loss(logits, labels[rows])}
+                same += [bool(torch.equal(captured[k][m], want[k])) for k in mine]
+            res[f"equal_{'traced' if traced else 'untraced'}"] = np.array(same)
+    _save(out, f"pp_llama_{dtype}", **res)
+
+
 def fail(out):
     """Rank 1 raises at once; the others would sleep a minute."""
     if dist.get_rank() == 1:
@@ -715,7 +1061,9 @@ CASES = {"collectives": collectives, "dp": dp, "zero": zero, "partitioned": part
          "fleet_sharding": fleet_sharding,
          "ckpt_save": ckpt_save, "ckpt_load": ckpt_load, "fleet_merge": fleet_merge,
          "mp_layers": mp_layers, "tp_partitioned": tp_partitioned, "tp_ckpt": tp_ckpt,
-         "tp_fleet": tp_fleet, "semi_auto": semi_auto, "fail": fail}
+         "tp_fleet": tp_fleet, "semi_auto": semi_auto, "fail": fail, "pp_grads": pp_grads,
+         "pp_train": pp_train, "pp_frozen": pp_frozen, "pp_remat": pp_remat,
+         "pp_apply": pp_apply, "pp_dp": pp_dp, "pp_rules": pp_rules, "pp_llama": pp_llama}
 
 
 def main():
@@ -723,6 +1071,9 @@ def main():
 
     out, spec = sys.argv[1], json.loads(sys.argv[2])
     paddle.set_device("cpu")
+    # one intra-op thread a rank: up to 4 ranks share the cores with the
+    # other test processes, and the cases are small
+    torch.set_num_threads(1)
     torch.manual_seed(0)
     dist.init_parallel_env(timeout=120)
     for case, *args in spec:
@@ -733,6 +1084,24 @@ def main():
 
 if __name__ == "__main__":
     main()
+
+
+class Launch:
+    """``run_ranks`` in a thread, so that the test computes the reference's
+    side meanwhile; ``str()`` waits for the ranks and gives ``tmp``."""
+
+    def __init__(self, tmp, nproc, spec):
+        import concurrent.futures
+
+        self.tmp = tmp
+        self._pool = concurrent.futures.ThreadPoolExecutor(1)
+        self._fut = self._pool.submit(run_ranks, tmp, nproc, spec)
+
+    def __str__(self):
+        rc, logs = self._fut.result()
+        self._pool.shutdown()
+        assert rc == 0, logs
+        return self.tmp
 
 
 def run_ranks(tmp, nproc, spec, timeout=240):
