@@ -413,7 +413,29 @@ Phases, each printing one line of numbers:
    transport included), exact launches on each rank (a step: flash 8
    each way, RMSNorm ``round_first`` 16 each way on stage 0 and 20 on
    stage 1, the fused update 1), the sends and receives a step and their
-   bytes, per-rank peak memory and one profiled step's busy share.
+   bytes, per-rank peak memory and one profiled step's busy share;
+27. hybrid parallelism (``tools/dist_train.py --phase h``: four gloo ranks
+   sharing the card over ``ProcessMesh([2, 2], ["pp", "mp"])``, the
+   Llama's stages from ``LlamaForCausalLM.pipeline_stages``, each rank on
+   its heads, MLP columns and vocabulary rows, the loss
+   ``ParallelCrossEntropy`` on the head's vocabulary columns): (27b) at
+   the step-check widths with 4 layers, batch 4 x 2048, for 1F1B with
+   sequence parallelism and ``activation_spec``, without them, and vpp at
+   2 chunks with them, the loss and every leaf's gradient gathered over
+   pipe and tensor against a one-process traced backward on the card
+   (each leaf within ``GRAD_TOL``), and two planted faults refused (the
+   gradients partial over tensor left unsummed; stage 1 taking the
+   sequence shards of stage 0's other tensor rank); (27a) phase 7's widths
+   and depth (2 layers a stage) as batch 4 x 2048 in 4 microbatches under
+   1F1B with sequence parallelism and ``activation_spec``, ``train_batch``
+   with AdamW: a warm-up and 3 timed steps (the host's transport
+   included), exact launches on each rank (a step: flash 8 each way at H
+   16, Hk 4; RMSNorm ``round_first`` on [1024, 4096] 16 each way on stage
+   0 and 20 on stage 1; the fused update 1), the sends and receives a step
+   with their bytes (33,554,432 each way, exactly: half the sequence),
+   per-rank peak memory and a profiled step's busy share; (27c) pp 2 x
+   sharding 2 through fleet (sharding stage 1) at 2 layers: the gradient
+   check, and each rank's optimizer state exactly half of its stage's.
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -443,7 +465,8 @@ steps too; flash, RMSNorm's ``round_first`` mode and the fused optimizer
 phase 24a's three timed steps, flash, RMSNorm's fused mode and the fused
 optimizer phase 24b's step on each of its two ranks, and flash, RMSNorm's
 ``round_first`` mode and the fused optimizer phase 25a's three timed steps
-on each of its two ranks and phase 26a's on each of its two stages), and last ``{"ok": true,
+on each of its two ranks, phase 26a's on each of its two stages and phase
+27a's on each of its four ranks), and last ``{"ok": true,
 "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
@@ -7296,6 +7319,82 @@ def pipe_phase(seed: int, train_step_ms: float) -> dict:
     return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: hybrid parallelism over four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+def hybrid_phase(seed: int, train_step_ms: float) -> dict:
+    """Phase 27 (27a-c): returns the launches of 27a's timed steps over
+    the four ranks."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.tools.dist_train import GRAD_TOL, HY_M, HY_STYLES, HYBRID
+
+    torch.cuda.empty_cache()
+    ranks = run_ranks("h", HYBRID, seed, {"PADDLE_DISTRI_BACKEND": "gloo"})
+    cfg = LlamaConfig.llama3_8b()
+    # activations and cotangents between stages: each rank's half of the sequence
+    reckoned = HY_M * (TRAIN_SEQ // HY_M // 2) * cfg.hidden_size * 2
+    for r in ranks:
+        # a stage's launches as in phase 26a (rank r runs stage r // 2), each
+        # flash at the rank's heads (H 16, Hk 4), each RMSNorm on its part of
+        # the sequence ([1024, 4096] a microbatch), one fused update a step
+        want = pipe_expected(r["rank"] // 2)
+        if r["launches"] != want or r["backend"] != "gloo" or r["world"] != HYBRID:
+            raise AssertionError(f"phase 27a rank {r['rank']} launched {r['launches']} on "
+                                 f"{r['backend']} at world {r['world']}, expected {want}")
+        sent = r["transfer_bytes_per_step"]
+        if sent.get("send") != reckoned or sent.get("recv") != reckoned:
+            raise AssertionError(f"phase 27a rank {r['rank']} moved {sent} a step between "
+                                 f"stages, expected {reckoned} each way")
+    r0 = ranks[0]
+    for style, m, chunks, spec in HY_STYLES:
+        c = r0["check"][f"{style}_spec{int(spec)}"]
+        if c["grad_vs_ref_beyond_tol"] or not c["leaves_checked"]:
+            raise AssertionError(f"phase 27b ({style}, activation_spec {spec}): {c}")
+        say("hybrid-b", schedule=style, microbatches=m, chunks=chunks, activation_spec=spec,
+            sequence_parallel=spec, loss=c["loss"], loss_plain=c["loss_plain"],
+            grad_vs_ref_max_rel=c["grad_vs_ref_max_rel"],
+            grad_vs_ref_worst_leaf=c["grad_vs_ref_worst_leaf"], grad_vs_ref_tol=GRAD_TOL,
+            leaves=c["leaves"])
+    faults = {k: v["grad_vs_ref_max_rel"] for k, v in r0["check"].items()
+              if k.endswith(("_unsummed", "_wrong_peer"))}
+    if len(faults) != 2 or any(e <= GRAD_TOL for e in faults.values()):
+        raise AssertionError(f"phase 27b: the planted faults pass the check: {faults}")
+    say("hybrid-b", planted_faults_max_rel=json.dumps(faults), grad_vs_ref_tol=GRAD_TOL)
+    shard = [r["shard"] for r in ranks]
+    c0 = shard[0]
+    if c0["grad_vs_ref_beyond_tol"] or not c0["leaves_checked"]:
+        raise AssertionError(f"phase 27c: {c0}")
+    for c in shard:
+        if c["state_numel"] * 2 != c["pp2_state_numel"]:
+            raise AssertionError(f"phase 27c: the optimizer state on a rank is not half of "
+                                 f"pp 2's: {c}")
+    say("hybrid-c", mode=c0["mode"], sharding_stage=c0["sharding_stage"], loss=c0["loss"],
+        loss_plain=c0["loss_plain"], grad_vs_ref_max_rel=c0["grad_vs_ref_max_rel"],
+        grad_vs_ref_worst_leaf=c0["grad_vs_ref_worst_leaf"], grad_vs_ref_tol=GRAD_TOL,
+        state_numel=json.dumps([c["state_numel"] for c in shard]),
+        pp2_state_numel=json.dumps([c["pp2_state_numel"] for c in shard]),
+        state_ratio_to_pp2=json.dumps([c["state_ratio_to_pp2"] for c in shard]))
+    say("hybrid-a", ranks=HYBRID, mesh="pp 2 x tensor 2", microbatches=HY_M,
+        rows=f"{HY_M} x {TRAIN_SEQ // HY_M}", activation_spec=True, sequence_parallel=True,
+        coords=json.dumps([r["coord"] for r in ranks]),
+        step_ms_mean=json.dumps([r["step_ms_mean"] for r in ranks]),
+        step_ms=json.dumps([r["step_ms"] for r in ranks]), host_transport_included=True,
+        train_step_ms=round(train_step_ms, 3),
+        step_ms_ratio_to_train=round(max(r["step_ms_mean"] for r in ranks) / train_step_ms, 4),
+        max_memory_allocated_gib=json.dumps([r["max_memory_allocated_gib"] for r in ranks]),
+        device_busy_share=json.dumps([r["device_busy_share"] for r in ranks]),
+        params_on_rank=json.dumps([r["params_on_rank"] for r in ranks]),
+        transfers_per_step=json.dumps([r["transfers_per_step"] for r in ranks]),
+        transfer_bytes_per_step=json.dumps([r["transfer_bytes_per_step"] for r in ranks]),
+        reckoned_bytes_each_way=reckoned, losses=json.dumps([r["losses"] for r in ranks]),
+        launches_per_rank=json.dumps([r["launches"] for r in ranks]))
+    return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+
+
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
 
 
@@ -7594,6 +7693,9 @@ def main(argv=None) -> int:
     lap("25")
     pp_launches = pipe_phase(args.seed, trained["step_ms"])
     lap("26")
+    hy_launches = hybrid_phase(args.seed, trained["step_ms"])
+    pp_launches = {k: pp_launches[k] + hy_launches[k] for k in pp_launches}
+    lap("27")
     amp_launches = {k: amp_o2["launches"][k] + amp_o1["launches"][k] for k in amp_o2["launches"]}
 
     kernels = [
@@ -7648,7 +7750,8 @@ def main(argv=None) -> int:
                               f"ranks (tensor {TP}: H {32 // TP}, Hk {8 // TP} a rank) and "
                               f"those of phase 26a on each of its two pipeline stages "
                               f"({TRAIN_LAYERS // 2} layers a stage, 4 microbatches of 1 x "
-                              f"{TRAIN_SEQ // 4})")
+                              f"{TRAIN_SEQ // 4}) and of phase 27a on each of its four ranks "
+                              f"(pp 2 x tensor 2: H {32 // TP}, Hk {8 // TP} a rank)")
     for name, nums, launches in (
             ("rms_norm_fwd", norm_fwd, norm_launches["fwd"] + amp_launches["rms_norm_fwd_fused"]
              + ops_launches["rms_norm_fwd_fused"] + dist_launches["rms_norm_fwd_fused"]),
@@ -7717,8 +7820,10 @@ def main(argv=None) -> int:
              f"the {TRAIN_STEPS} timed training steps (TrainStep runs the composed form's "
              f"rounding), the {MOE_STEPS} timed steps of the Mixtral cell (phase 22a), the "
              f"{TRAIN_STEPS} timed steps of phase 24a (TrainStep on the sharded model), "
-             f"those of phase 25a on each of its {TP} ranks and those of phase 26a on each of "
-             f"its two pipeline stages (a stage runs traced)"),
+             f"those of phase 25a on each of its {TP} ranks, those of phase 26a on each of "
+             f"its two pipeline stages (a stage runs traced) and those of phase 27a on each "
+             f"of its four ranks (pp 2 x tensor 2, [{TRAIN_SEQ // 8}, 4096] a microbatch "
+             "under sequence parallelism)"),
             ("rms_norm_bwd_round_first", "rms_norm.cu", "fused_norm.py:79", rms_rf[1],
              train_launches["rms_norm_bwd_dx_round_first"]
              + moe_launches["train"]["rms_norm_bwd_dx_round_first"]
@@ -7727,8 +7832,8 @@ def main(argv=None) -> int:
              + pp_launches["rms_norm_bwd_dx_round_first"],
              f"the {TRAIN_STEPS} timed training steps, the {MOE_STEPS} timed steps of the "
              f"Mixtral cell (phase 22a), the {TRAIN_STEPS} timed steps of phase 24a, "
-             f"those of phase 25a on each of its {TP} ranks and those of phase 26a on each of "
-             f"its two pipeline stages"),
+             f"those of phase 25a on each of its {TP} ranks, those of phase 26a on each of "
+             f"its two pipeline stages and those of phase 27a on each of its four ranks"),
             ("flash_attention_fwd_wide", "flash_attention.cu", "flash_attention.py:112",
              wide_flash[0], wide_flash_launches,
              "nn.functional.flash_attention past 256 columns (no model path runs them)"),
@@ -7803,7 +7908,9 @@ def main(argv=None) -> int:
                           f"steps on each of its {TP} ranks (the sharded update over the rank's "
                           f"slices, one a step), and phase 26a's {TRAIN_STEPS} timed steps on each "
                           "of its two pipeline stages (PipelineParallel.train_batch over the "
-                          "stage's tensors, one a step)")
+                          f"stage's tensors, one a step) and phase 27a's {TRAIN_STEPS} on each of "
+                          "its four ranks (the sharded update over the stage's tensor slices, "
+                          "one a step)")
     kernels.append({
         "name": "multi_tensor_update_master", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",

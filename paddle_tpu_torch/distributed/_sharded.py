@@ -27,7 +27,10 @@ flattened across parameters at rest.
 - **Stages 1 and 2**: the parameter stays whole; the optimizer state
   covers its slice. Stage 1 all-reduces the gradient, stage 2
   reduce-scatters it to the slice; after the update the slices are
-  all-gathered into the parameter.
+  all-gathered into the parameter. Beside a tensor axis the parameter is
+  its tensor slice and the state a slice of that (:func:`plan_specs`); a
+  gradient partial over tensor is summed over data and tensor
+  (``sum_group``).
 - A parameter without a divisible dim stays whole. Its gradient, and
   stage 1's, is all-reduced over the data ranks by one
   ``fused_allreduce`` a dtype after the backward, not overlapped with it
@@ -67,6 +70,8 @@ class ShardInfo:
     tgroup: object = None
     copies: object = None      # ranks holding this slice whose gradients are not summed
     norm_group: object = None  # the ranks whose slices make the whole parameter
+    sum_group: object = None   # stage 1: the ranks whose whole gradients are summed, when
+                               # not the data ranks (a gradient partial over the tensor axis)
 
     @property
     def k(self) -> int:
@@ -385,10 +390,13 @@ class ShardedUpdate:
             info = self.infos.get(id(p))
             if info is not None and info.at_rest and info.dim is not None:
                 continue            # reduced by the gather's backward
-            if info is None or self.stage == 1:
+            if info is None:
                 whole.setdefault(id(self.data_group), (self.data_group, []))[1].append(i)
-            elif info.dim is None:  # summed over its replicas: the data ranks (and tensor)
-                group = info.replica_group or self.data_group
+            elif info.dim is None or self.stage == 1:
+                # summed whole over the data ranks (and tensor where partial): at stage 1
+                # the sum group, else the slice's replicas
+                group = (info.sum_group or (info.replica_group if info.dim is None else None)
+                         or self.data_group)
                 whole.setdefault(id(group), (group, []))[1].append(i)
             else:
                 scatter.setdefault((info.group.id, id(info.replica_group)), []).append(i)
@@ -473,35 +481,46 @@ class ShardedUpdate:
                     p.data.copy_(f)
 
 
-def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str) -> ShardedUpdate:
-    """Cut every parameter of ``model`` by its placement (``specs[id(p)]``,
-    one entry a dim): the dim on ``tensor_axis`` stays resident (each rank
-    computes on its slice through the collectives that
+def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str, *, stage: int = 3,
+               partial: set | None = None) -> ShardedUpdate:
+    """Cut every parameter of ``model`` (a Layer, or a list of them: a
+    pipeline stage's pieces) by its placement (``specs[id(p)]``, one entry
+    a dim): the dim on ``tensor_axis`` stays resident (each rank computes on
+    its slice through the collectives that
     :mod:`~paddle_tpu_torch.distributed.tensor_parallel` installs in the
-    model), the dim on any other axis is kept at rest as a slice and
-    gathered where its block runs. Returns the model's
-    :class:`ShardedUpdate` over the data ranks (``data_axes``)."""
+    model, unless ``partial`` says they are installed already and which
+    parameters' gradients they leave partial), the dim on any other axis is
+    kept at rest as a slice and gathered where its block runs. At ``stage``
+    1 or 2 a parameter that no such axis cuts keeps its optimizer state on
+    its slice of the ``sharding`` axis (the first dim of its tensor slice
+    that the axis divides): stage 1 all-reduces its gradient, stage 2
+    reduce-scatters it. Returns the model's :class:`ShardedUpdate` over the
+    data ranks (``data_axes``)."""
     from . import tensor_parallel
 
+    pieces = list(model) if isinstance(model, (list, tuple)) else [model]
+    params = [p for piece in pieces for p in piece.parameters()]
     tsize = mesh.get_dim_size(tensor_axis) if tensor_axis in mesh.dim_names else 1
     tgroup = mesh.get_group(tensor_axis) if tsize > 1 else None
-    partial = set()
+    installed = partial is not None
+    partial = set(partial or ())
     if tgroup is not None:
-        partial = tensor_parallel.install(model, tgroup, specs, tensor_axis) | {
-            id(p) for p in model.parameters() if getattr(p, "sequence_parallel", False)}
+        if not installed:
+            for piece in pieces:
+                partial |= tensor_parallel.install(piece, tgroup, specs, tensor_axis)
+        partial |= {id(p) for p in params if getattr(p, "sequence_parallel", False)}
     data_axes = tuple(a for a in data_axes if a in mesh.dim_names)
     divisor = int(np.prod([mesh.get_dim_size(a) for a in data_axes])) if data_axes else 1
+    state_group = (mesh.get_group("sharding") if stage in (1, 2) and "sharding" in data_axes
+                   and mesh.get_dim_size("sharding") > 1 else None)
     infos = {}
-    for p in model.parameters():
+    for p in params:
         if id(p) in infos:
             continue
-        held = info_of(p)
-        if held is not None:        # cut already (a tensor-parallel layer's own slice)
-            infos[id(p)] = held
-            continue
-        dim = tdim = None
-        shard_axes: tuple = ()
-        for d, entry in enumerate(specs.get(id(p), ())):
+        held = info_of(p)          # cut already: a tensor-parallel layer's own slice
+        dim, shard_axes, at_rest = None, (), True
+        tdim = held.tdim if held is not None else None
+        for d, entry in enumerate(specs.get(id(p), ()) if held is None else ()):
             if entry is None:
                 continue
             axes = entry if isinstance(entry, tuple) else (entry,)
@@ -515,18 +534,32 @@ def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str) -> 
                                           "cut over one gathered dim")
             else:
                 dim, shard_axes = d, axes
+        full = held.full_shape if held is not None else tuple(p.shape)
+        if dim is None and state_group is not None:
+            local = tuple(n // tsize if d == tdim else n for d, n in enumerate(full))
+            dim = divisible_dim(local, state_group.nranks)
+            if dim is not None:
+                shard_axes, at_rest = ("sharding",), False
         part = id(p) in partial
+        if held is not None and dim is None:
+            infos[id(p)] = held
+            continue
         if dim is None and tdim is None and not part:
             continue
         rest = tuple(a for a in data_axes if a not in shard_axes) + ((tensor_axis,) if part else ())
         cut = shard_axes + ((tensor_axis,) if tdim is not None else ())
-        info = ShardInfo(tuple(p.shape), dim,
-                         mesh.get_group(shard_axes) if dim is not None else None,
-                         mesh.get_group(rest) if rest else None, at_rest=True, tdim=tdim,
+        info = ShardInfo(full, dim, mesh.get_group(shard_axes) if dim is not None else None,
+                         mesh.get_group(rest) if rest else None, at_rest=at_rest, tdim=tdim,
                          tgroup=tgroup if tdim is not None else None,
                          copies=tgroup if tdim is None and not part else None,
-                         norm_group=mesh.get_group(cut) if cut else None)
-        place(p, info)
+                         norm_group=mesh.get_group(cut) if cut else None,
+                         sum_group=(mesh.get_group(data_axes + (tensor_axis,))
+                                    if part and not at_rest else None))
+        if held is not None:
+            register(p, info)
+        else:
+            place(p, info)
         infos[id(p)] = info
-    install_gathers(model, divisor)
-    return ShardedUpdate(infos, mesh.get_group(data_axes), divisor, 3)
+    for piece in pieces:
+        install_gathers(piece, divisor)
+    return ShardedUpdate(infos, mesh.get_group(data_axes), divisor, stage)

@@ -7,19 +7,25 @@ makes every axis's group (:class:`HybridCommunicateGroup`) and makes the
 topology's mesh current (its ``mp`` axis the model group).
 ``distributed_model`` wraps the model in ``DataParallel`` when the mode is
 data parallel over more than one rank, shards it (stage 3) when
-``sharding_configs["stage"]`` is 3, and in the model-parallel mode
-(``mp_degree`` above 1) cuts it over the ``mp`` axis by its marks, as the
-reference's ``parallelize`` (``parallelize(mp_config=...)``);
+``sharding_configs["stage"]`` is 3, and at ``mp_degree`` above 1 (the
+model-parallel mode, or the sharding mode beside it) cuts it over the
+``mp`` axis by its marks, as the reference's ``parallelize``
+(``parallelize(mp_config=..., sharding_config=...)``: at stages 1 and 2
+the optimizer state on its slice of the ``sharding`` axis, at 3 the
+parameters that ``mp`` does not cut kept at rest over it);
 ``distributed_optimizer`` carries ``gradient_merge``'s ``k_steps`` to
 ``TrainStep(accumulate_steps=)`` and, in the sharding mode, returns the
 sharded optimizer (stage 1 or 2 from ``sharding_configs``, 3 after a
-stage-3 model), and in the model-parallel mode the optimizer over the
-cut model, which averages over the data ranks and sums the gradients
-that are partial across the model group. At ``pp_degree`` above 1 (the
-pipeline mode, beside ``dp_degree`` only) the mesh has its ``pp`` axis and
-``distributed_model`` returns the model, as the reference's: pipelines are
-built with :class:`PipelineParallel` or ``partitioning.pipeline_from_rules``.
-``localsgd`` waits for ``incubate.optimizer.LocalSGD``.
+stage-3 model), and beside ``mp`` the optimizer over the cut model, which
+averages over the data ranks and sums the gradients that are partial
+across the model group. At ``pp_degree`` above 1 (the pipeline mode,
+beside any of ``dp_degree``, ``sharding_degree`` and ``mp_degree``) the
+mesh has its ``pp`` axis and ``distributed_model`` and
+``distributed_optimizer`` return the model and the optimizer, as the
+reference's: pipelines are built with :class:`PipelineParallel` or
+``partitioning.pipeline_from_rules``, which place each rank's stages over
+the ``mp`` and ``sharding`` axes (its optimizer state at the strategy's
+sharding stage). ``localsgd`` waits for ``incubate.optimizer.LocalSGD``.
 
 Also here: the tensor-parallel layers (:mod:`.mp_layers`),
 :mod:`.sequence_parallel` (Megatron's sequence parallelism and the
@@ -148,20 +154,20 @@ class Fleet:
         return int((self._strategy.sharding_configs or {}).get("stage", 1))
 
     def distributed_model(self, model):
-        """``DataParallel`` over the data group in the data-parallel mode
-        with more than one rank; the model sharded when the strategy's
-        sharding stage is 3; in the model-parallel mode the model on its
-        slices of the ``mp`` axis; else (the pipeline mode among them) the
-        model."""
+        """The model in the pipeline mode; at ``mp_degree`` above 1 the
+        model on its slices of the ``mp`` axis (beside the sharding stage);
+        ``DataParallel`` over the data group in the data-parallel mode with
+        more than one rank; the model sharded when the strategy's sharding
+        stage is 3; else the model."""
         self._need_init()
         hcg = self._hcg
+        if hcg.get_parallel_mode() == "pipeline":
+            return model
         if hcg.get_model_parallel_world_size() > 1:
-            if hcg.get_parallel_mode() != "model_parallel":
-                raise NotImplementedError(f"mp_degree beside the {hcg.get_parallel_mode()} "
-                                          "mode waits for a later slice of the port")
             from ..parallelize import plan_tensor
 
-            self._model_update = plan_tensor(model, self._mesh)
+            stage = self._sharding_stage() if hcg.get_sharding_parallel_world_size() > 1 else 0
+            self._model_update = plan_tensor(model, self._mesh, stage)
             return model
         if hcg.get_parallel_mode() == "sharding_parallel" and self._sharding_stage() == 3:
             from .sharding import data_groups, plan
@@ -188,15 +194,17 @@ class Fleet:
             if k > 1:
                 optimizer._accumulate_steps = k
                 optimizer._accumulate_avg = bool(cfg.get("avg", True))
-        if self._hcg is not None and self._hcg.get_parallel_mode() == "model_parallel":
+        mode = self._hcg.get_parallel_mode() if self._hcg is not None else None
+        if mode in ("model_parallel", "sharding_parallel") \
+                and self._hcg.get_model_parallel_world_size() > 1:
             from .sharding import GroupShardedOptimizer
 
             if self._model_update is None:
-                raise ValueError("the model-parallel mode cuts the model: call "
+                raise ValueError("mp_degree above 1 cuts the model: call "
                                  "fleet.distributed_model(model) before distributed_optimizer")
             update, self._model_update = self._model_update, None
             optimizer = GroupShardedOptimizer(optimizer, update)
-        elif self._hcg is not None and self._hcg.get_parallel_mode() == "sharding_parallel":
+        elif mode == "sharding_parallel":
             from .sharding import GroupShardedOptimizer, data_groups, plan
 
             if self._model_update is not None:

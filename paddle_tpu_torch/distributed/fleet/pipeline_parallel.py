@@ -38,28 +38,54 @@ stage ``P - 1`` chunk ``v`` to stage 0 chunk ``v + 1``, cotangents the
 other way) and keeps what arrives in the ``(chunk, microbatch)`` slot the
 reference computes (``lslot`` / ``rslot``): :mod:`._pipe_p2p`. The loss is
 the last stage's sum over microbatches over ``M``, given to every stage
-(the reference's ``psum``). Over a mesh whose other axes above 1 are data
-axes (pp x dp) each data replica takes its contiguous share of the batch
-rows, and the stage gradients and the loss are averaged over the data
-group with one ``fused_allreduce``. The pipe axis beside the tensor,
-sharding or sep axis, and ``activation_spec`` (Megatron sequence
-parallelism between stages), wait for a later slice and raise.
+(the reference's ``psum``).
+
+Beside the pipe axis (the reference leaves them to GSPMD inside its
+manual pipe region, ``:27-29``): each replica of the data axes (``dp``,
+``sharding``, ``fsdp``) takes its contiguous share of the batch rows, and
+the ranks of the tensor axis (``mp`` / ``tensor`` / ``model``) of a stage
+take the same rows and compute on slices of its Layers. Every group of
+those axes is made up front, in the mesh's order (``_Link``). After the
+schedule, gradients replicated across tensor but partial on each rank
+(uncut K / V under cut heads, the norms under sequence parallelism) are
+summed over the tensor group, and the stage gradients and the loss are
+averaged over the data group, one ``fused_allreduce`` each.
+``activation_spec`` (``P("dp", "mp")``, the reference's ``:502-510``)
+cuts the activations between stages on the dim it puts on the tensor axis
+(the sequence): where a stage's Layers give the whole activation the
+runtime sends this rank's part (``scatter_seq``, whose backward gathers
+the cotangent) and the receiver gathers it (``gather_seq``); where they
+give this rank's part already (a Llama with ``sequence_parallel``) it
+goes as it is. Stage 0 tells which at the first tick.
 
 :class:`PipelineParallel` takes the reference's arguments, checks and
 messages; a rank keeps only its own stages' parameters and optimizer state
-on its device (the other stages' Layers are moved to the CPU).
-``train_batch`` takes one optimizer step through the fused update
-(``optimizer.fused_step``) over the stage's trainable tensors, as the
-reference's ``opt_cls.update`` leaf by leaf: frozen parameters are masked
-out, no ``grad_clip`` is read (the reference's ``train_batch`` reads
-none), the step count and learning rate as at ``:768-773``.
-``sync_to_model`` broadcasts each stage's trained tensors over the pipe
-group into the Layers of every rank; :func:`gather_pipeline_tree`
-reassembles a tree of per-rank leaves into the reference's global layout.
+on its device (the other stages' Layers are moved to the CPU). On a mesh
+with a tensor, sharding or fsdp axis it places its stages by their
+parameters' specs (the reference stacks them ``P(pp, None, *spec)``,
+``:644-651``) through ``distributed._sharded.plan_specs``: tensor-cut
+Layers compute on their slices with the collectives of
+``distributed.tensor_parallel`` (the last stage's head keeps its
+vocabulary columns when the loss is ``ParallelCrossEntropy``, whose
+per-token losses over them are averaged; any other loss gets the logits
+gathered), fsdp-cut weights stay at rest and are gathered where their
+block runs, and beside a ``sharding`` axis the optimizer state lives on a
+slice of it (fleet's ``sharding_configs["stage"]``, 1 or 2; 3 cuts the
+rest of the weights at rest). ``train_batch`` takes one optimizer step
+through the fused update (``optimizer.fused_step``; on such a mesh the
+sharded update, ``_sharded.ShardedUpdate``) over the stage's trainable
+tensors, as the reference's ``opt_cls.update`` leaf by leaf: frozen
+parameters are masked out, no ``grad_clip`` is read (the reference's
+``train_batch`` reads none), the step count and learning rate as at
+``:768-773``. ``sync_to_model`` broadcasts each stage's trained tensors,
+whole over tensor and fsdp, over the pipe group into the Layers of every
+rank that does not run it; :func:`gather_pipeline_tree` reassembles a
+tree of per-rank leaves into the reference's global layout.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -69,6 +95,7 @@ from ... import tracing
 from .. import collective as C
 from .. import env as _env
 from ._pipe_p2p import StageLink
+from .sequence_parallel import deferred_hooks
 
 __all__ = ["PipelineSchedule", "build_pipeline_schedule", "verify_schedule", "schedule_cost",
            "make_pipeline_step", "PipelineParallel", "gather_pipeline_tree"]
@@ -299,14 +326,14 @@ def _graph_of(v: int, m: int) -> int:
     return m
 
 
-def _not_yet(what: str):
-    return NotImplementedError(f"{what} waits for the port's later slice of the pipeline "
-                               "beside the tensor / sharding / sep axis")
-
-
 class _Link:
-    """A mesh's pipe group for this rank: the transport, the stage, the
-    data group (the other axes above 1), and the device."""
+    """A mesh's pipe group for this rank: the transport and the stage; the
+    tensor axis beside it (its name and group: this stage's ranks that
+    compute on slices of its Layers); the data axes (every other axis above
+    1: ``dp``, ``sharding``, ``fsdp``), their group and this rank's part of
+    the batch; and the device. Every group of the mesh's axes beside the
+    pipe is made here, up front, in the mesh's order on every rank: a
+    stage's placement asks for them in the order of its own parameters."""
 
     def __init__(self, mesh, axis_name: str, num_stages: int):
         if axis_name not in mesh.dim_names:
@@ -315,22 +342,44 @@ class _Link:
             raise ValueError(f"num_stages={num_stages}: the port runs one process a stage, so "
                              f"it must be the size of the mesh's {axis_name!r} axis "
                              f"({mesh.get_dim_size(axis_name)})")
-        from ..mesh import NOT_BESIDE_PIPE
+        from ..mesh import TENSOR_AXES
 
         others = [n for n, s in zip(mesh.dim_names, mesh.shape) if n != axis_name and s > 1]
-        beside = [n for n in others if n in NOT_BESIDE_PIPE]
-        if beside:
-            raise _not_yet(f"a pipeline over {axis_name!r} beside the axes {beside}")
+        tensor = [n for n in others if n in TENSOR_AXES]
+        if len(tensor) > 1:
+            raise ValueError(f"{mesh} has two tensor axes above 1: {tensor}")
+        self.tensor_axis = tensor[0] if tensor else None
+        self.data_axes = tuple(n for n in others if n != self.tensor_axis)
         self.device = _env.device()
         group = mesh.get_group(axis_name)
+        for k in range(len(others) + 1):
+            for axes in itertools.combinations(others, k):
+                mesh.get_group(axes)
         self.p2p = StageLink(group, mesh.axis_ranks(axis_name), self.device)
         self.stage = self.p2p.stage
-        self.data_group = mesh.get_group(tuple(others)) if others else None
+        self.tensor_group = mesh.get_group(self.tensor_axis) if self.tensor_axis else None
+        self.data_group = mesh.get_group(self.data_axes) if self.data_axes else None
         coords = mesh.coordinate()
         self.data_index, self.data_size = 0, 1
-        for n in others:
+        for n in self.data_axes:
             self.data_index = self.data_index * mesh.get_dim_size(n) + coords[n]
             self.data_size *= mesh.get_dim_size(n)
+        self.seq_dim = None     # the activations' dim that activation_spec cuts over tensor
+
+    def cut_by(self, activation_spec) -> None:
+        """Read ``activation_spec`` (one entry a dim of the activations
+        between stages): the dim it puts on a tensor axis is cut over this
+        mesh's tensor axis; its data entries are the rows the data axes
+        already split."""
+        from ..mesh import TENSOR_AXES
+
+        if activation_spec is None or self.tensor_group is None:
+            return
+        for d, entry in enumerate(tuple(activation_spec)):
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            if any(a in TENSOR_AXES for a in axes if a is not None):
+                self.seq_dim = d
+                return
 
 
 def _rows(x, link: _Link, num_microbatches: int, device):
@@ -349,20 +398,25 @@ def _rows(x, link: _Link, num_microbatches: int, device):
 
 
 def _run_schedule(sched: PipelineSchedule, link: _Link, M: int, forward: Callable,
-                  params_of: Callable, meta: dict, key) -> tuple:
+                  params_of: Callable, meta: dict, key, full_len: int | None) -> tuple:
     """Walk this rank's column of ``sched``. ``forward(v, m, x)`` -> (the
     chunk's output, None) or, on the last virtual stage, (None, f32 loss);
     ``params_of(v)``: the tensors chunk v's backward accumulates ``.grad``
-    into. ``meta[key]`` caches the activations' (shape, dtype), which stage
-    0 gives the pipe group at the first tick. Returns (the last stage's
-    loss sum / M, else None; the most microbatches in flight on a chunk)."""
+    into. ``meta[key]`` caches the activations' (shape, dtype, cut), which
+    stage 0 gives the pipe group at the first tick; ``cut`` says whether
+    the runtime cuts them on ``link.seq_dim`` over the tensor axis (a whole
+    activation, of ``full_len`` there, the microbatch's) or the stages'
+    Layers already give this rank's part. Returns (the last stage's loss
+    sum / M, else None; the most microbatches in flight on a chunk)."""
+    from ..tensor_parallel import gather_seq, scatter_seq
+
     P, V, p = link.p2p.num_stages, sched.num_chunks, link.stage
     split = bool((sched.action == _WGT).any())
     recv_act, recv_grad, stash = {}, {}, {}
     live = [0] * V
     peak = 0
     loss_sum = None
-    dev = link.device
+    dev, d = link.device, link.seq_dim
     tell = key not in meta and P > 1     # the same on every rank: the same batches so far
     for t in range(sched.action.shape[0]):
         a, m, v = (int(sched.action[t, p]), int(sched.mb[t, p]), int(sched.chunk[t, p]))
@@ -371,13 +425,17 @@ def _run_schedule(sched: PipelineSchedule, link: _Link, M: int, forward: Callabl
         if a == _FWD:
             x = None if is_first else recv_act.pop((v, m)).requires_grad_(True)
             with tracing.traced():
-                out, loss = forward(v, m, x)
+                h = x if x is None or not meta[key][2] else gather_seq(x, link.tensor_group, d)
+                out, loss = forward(v, m, h)
+                if not is_last:
+                    if key not in meta:
+                        meta[key] = _layout(out, d, link, full_len)
+                    if meta[key][2]:
+                        out = scatter_seq(out, link.tensor_group, d)
             if is_last:
                 stash[(v, m)] = [x, loss, None]
                 loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             else:
-                if key not in meta:
-                    meta[key] = (tuple(out.shape), out.dtype)
                 stash[(v, m)] = [x, out, None]
                 send_act = out.detach().to(meta[key][1])
             live[v] += 1
@@ -420,6 +478,25 @@ def _run_schedule(sched: PipelineSchedule, link: _Link, M: int, forward: Callabl
     return (None if loss_sum is None else loss_sum / M), peak
 
 
+def _layout(out, d, link: _Link, full_len) -> tuple:
+    """(shape, dtype, cut) of the activations between stages, from stage
+    0's first output (see :func:`_run_schedule`)."""
+    if d is None:
+        return tuple(out.shape), out.dtype, False
+    n, k = out.shape[d], link.tensor_group.nranks
+    if n == full_len:
+        if n % k:
+            raise ValueError(f"activation_spec cuts dim {d} of size {n} over {k} tensor ranks: "
+                             "they must divide")
+        shape = list(out.shape)
+        shape[d] //= k
+        return tuple(shape), out.dtype, True
+    if n * k == full_len:
+        return tuple(out.shape), out.dtype, False
+    raise ValueError(f"activation_spec cuts dim {d} of the activations {tuple(out.shape)}: it "
+                     f"is neither the microbatch's {full_len} nor this rank's part of it")
+
+
 def _exchange(sched, link, t, send_act, send_grad, recv_act, recv_grad, meta) -> None:
     """Tick ``t``'s transfers for this rank, from the table alone (the
     reference's ``:519-544``): what it sends, and what its neighbours' row
@@ -448,16 +525,36 @@ def _exchange(sched, link, t, send_act, send_grad, recv_act, recv_grad, meta) ->
         store[slot] = got
 
 
-def _finish(link: _Link, loss, grads: list) -> tuple:
-    """The loss on every rank of the pipe group (from the last stage), and
-    with a data group the loss and ``grads`` averaged over it (one
-    ``fused_allreduce``)."""
+def _finish(link: _Link, loss, grads: list, partial=(), done=()) -> tuple:
+    """The loss on every rank of the pipe group (from the last stage); the
+    gradients at the indices ``partial`` (replicated across the tensor
+    axis, each rank's partial) summed over the tensor group; and with a
+    data group the loss and the gradients not at the indices ``done``
+    (reduced already, by the gathers of parameters kept at rest) averaged
+    over it, one ``fused_allreduce`` a group (a two-byte float in f32
+    over gloo)."""
+    from .._sharded import _reduce_dtype
+
     buf = (loss.reshape(1).clone() if loss is not None
            else torch.zeros(1, dtype=torch.float32, device=link.device))
     link.p2p.broadcast([buf], link.p2p.num_stages - 1)
+    grads = list(grads)
+
+    def reduce(idx, group, op):
+        if not idx:
+            return
+        got = C.fused_allreduce([grads[i].to(_reduce_dtype(grads[i].dtype, group))
+                                 for i in idx], op=op, group=group)
+        for i, g in zip(idx, got):
+            grads[i] = g.to(grads[i].dtype)
+
+    if link.tensor_group is not None:
+        reduce(sorted(partial), link.tensor_group, C.ReduceOp.SUM)
     if link.data_group is not None:
-        reduced = C.fused_allreduce([buf] + grads, op=C.ReduceOp.AVG, group=link.data_group)
-        buf, grads = reduced[0], reduced[1:]
+        idx = [i for i in range(len(grads)) if i not in set(done)]
+        grads.append(buf)
+        reduce(idx + [len(grads) - 1], link.data_group, C.ReduceOp.AVG)
+        buf = grads.pop()
     return buf.reshape(()), grads
 
 
@@ -472,14 +569,19 @@ def make_pipeline_step(first_fn, chunk_fn, last_fn, *, mesh, num_stages: int,
     on the last. ``params`` is this rank's tree: ``first`` (on stage 0,
     else empty), ``stack`` with the local stage dim ``[1, Lc, ...]``
     (``[1, V, Lc, ...]`` when ``num_chunks=V > 1``) and ``last`` (on the
-    last stage). ``ids`` and ``labels`` are the whole batch on every rank.
-    Returns the loss on every rank and the gradients of this rank's tree,
-    in its shape (:func:`gather_pipeline_tree` reassembles the reference's
-    global one)."""
-    if activation_spec is not None:
-        raise _not_yet("activation_spec (Megatron sequence parallelism between stages)")
+    last stage). ``ids`` and ``labels`` are the whole batch on every rank;
+    the ranks of a tensor axis take the same rows (the functions place
+    their own tensor collectives), and ``activation_spec`` cuts the
+    activations between stages over it. Returns the loss on every rank and
+    the gradients of this rank's tree, in its shape, each carrying the
+    layout (``dist_shard``) of the leaf it is taken for
+    (:func:`gather_pipeline_tree` reassembles the reference's global
+    one)."""
+    from .. import _sharded
+
     sched = build_pipeline_schedule(num_stages, num_microbatches, schedule, num_chunks)
     link = _Link(mesh, axis_name, num_stages)
+    link.cut_by(activation_spec)
     V, M = num_chunks, num_microbatches
     meta: dict = {}
 
@@ -512,7 +614,10 @@ def make_pipeline_step(first_fn, chunk_fn, last_fn, *, mesh, num_stages: int,
                 ws += list(w_last.values())
             return [w for w in ws if w.requires_grad]
 
-        loss, _ = _run_schedule(sched, link, M, forward, params_of, meta, tuple(x_mb.shape))
+        full = None if link.seq_dim is None else x_mb.shape[1 + link.seq_dim]
+        with deferred_hooks():
+            loss, _ = _run_schedule(sched, link, M, forward, params_of, meta,
+                                    tuple(x_mb.shape), full)
         gf = {k: _grad(w) for k, w in w_first.items()}
         gl = {k: _grad(w) for k, w in w_last.items()}
         gc = [{k: _grad(w) for k, w in c.items()} for c in w_chunks]
@@ -524,7 +629,13 @@ def make_pipeline_step(first_fn, chunk_fn, last_fn, *, mesh, num_stages: int,
         gl = {k: next(it) for k in gl}
         gs = {k: (gc[0][k] if V == 1 else torch.stack([c[k] for c in gc]))[None]
               for k in stack}
-        return loss, {"first": gf, "stack": gs, "last": gl}
+        out = {"first": gf, "stack": gs, "last": gl}
+        for part, tree in out.items():
+            for k, g in tree.items():
+                info = _sharded.info_of((params.get(part) or {})[k])
+                if info is not None:
+                    _sharded.register(g, info)
+        return loss, out
 
     step.schedule = sched
     step.link = link
@@ -543,15 +654,24 @@ class PipelineParallel:
              ``s = v * P + p`` (chunk v of stage p) holds layers
              ``[s * Lc, (s + 1) * Lc)``.
     last:    Layer mapping hidden -> output (e.g. norm + head). Last stage.
-    loss_fn: (output, labels) -> scalar loss, run with ``last``.
+    loss_fn: (output, labels) -> scalar loss, run with ``last``; or
+             ``ParallelCrossEntropy``, whose per-token losses over the
+             head's vocabulary columns are averaged over the tokens that
+             are not ``ignore_index``.
 
     Every rank builds the same Layers; this rank's stages are moved to its
-    device and the rest to the CPU (see the module docstring)."""
+    device and the rest to the CPU, and on a mesh with a tensor, sharding
+    or fsdp axis this rank's stages are placed by their parameters' specs
+    (``param_spec(p)``, default the marks ``shard_axes`` through
+    :func:`~paddle_tpu_torch.distributed.parallelize.param_spec`; see the
+    module docstring)."""
 
     def __init__(self, first, layers: Sequence, last, loss_fn: Callable, *,
                  mesh, num_stages: int | None = None, num_microbatches: int = 1,
                  schedule: str = "1f1b", axis_name: str = "pp", remat: bool = False,
-                 activation_spec=None, num_chunks: int = 1):
+                 activation_spec=None, num_chunks: int = 1, param_spec: Callable | None = None):
+        from .mp_layers import ParallelCrossEntropy
+
         self.first, self.layers, self.last = first, list(layers), last
         self.loss_fn = loss_fn
         self.mesh = mesh
@@ -568,14 +688,13 @@ class PipelineParallel:
                 f"schedule={schedule!r} does not use model chunks; "
                 "pass schedule='vpp' for interleaved chunking")
         self.num_chunks = num_chunks
-        if activation_spec is not None:
-            raise _not_yet("activation_spec (Megatron sequence parallelism between stages)")
         self.activation_spec = activation_spec
         Pn, V, L = self.num_stages, self.num_chunks, len(self.layers)
         assert L % (Pn * V) == 0, \
             f"{L} layers not divisible by {Pn} stages x {V} chunks"
         self._sched = build_pipeline_schedule(Pn, num_microbatches, schedule, num_chunks)
         self.link = _Link(mesh, axis_name, Pn)
+        self.link.cut_by(activation_spec)
         self.stage = p = self.link.stage
         Lc = L // (Pn * V)
         self._lc = Lc
@@ -592,6 +711,57 @@ class PipelineParallel:
         self._opt_state = None
         self._layout = (None, None)
         self.peak_in_flight = 0
+        self._pce = isinstance(loss_fn, ParallelCrossEntropy)
+        self._update = None
+        self._partial, self._done = set(), set()
+        if self.link.tensor_axis is not None or {"sharding", "fsdp"} & set(self.link.data_axes):
+            self._place(param_spec)
+
+    # ---- this rank's placement ----
+    def _pieces(self) -> list:
+        p, P = self.stage, self.num_stages
+        return (([self.first] if p == 0 else []) + [m for c in self.chunks for m in c]
+                + ([self.last] if p == P - 1 else []))
+
+    def _place(self, param_spec) -> None:
+        """Cut this rank's stages by their parameters' specs over the tensor
+        axis (resident: the Layers compute on their slices through the
+        tensor collectives, the last stage's head keeping its columns for
+        ``ParallelCrossEntropy``) and the fsdp / sharding axes (kept at
+        rest and gathered where their block runs), and keep the optimizer
+        state on a slice of the sharding axis at fleet's sharding stage 1
+        or 2 (``distributed._sharded.plan_specs``). The pipe axis neither
+        cuts nor reduces them."""
+        from .. import _sharded
+        from .. import tensor_parallel as TP
+        from ..parallelize import param_spec as marks_spec, stage3_specs
+        from ..partitioning.rules import PartitionSpec
+        from . import fleet as _fleet
+
+        mesh, link = self.mesh, self.link
+        spec_of = param_spec or (lambda q: marks_spec(q, mesh))
+        pieces = self._pieces()
+        params = [q for piece in pieces for q in piece.parameters()]
+        specs = {}
+        for q in params:
+            specs[id(q)] = PartitionSpec(*[None if e in (self.axis_name,) or (
+                isinstance(e, tuple) and self.axis_name in e) else e for e in spec_of(q)])
+        stage = _fleet._sharding_stage() if _fleet._mesh is mesh else 1
+        if stage == 3:
+            stage3_specs(params, specs, mesh)
+        partial = set()
+        if link.tensor_group is not None:
+            for piece in pieces:
+                partial |= TP.install(piece, link.tensor_group, specs, link.tensor_axis,
+                                      gather_output=not (self._pce and piece is self.last))
+        partial |= {id(q) for q in params if getattr(q, "sequence_parallel", False)}
+        self._update = _sharded.plan_specs(pieces, mesh, specs, link.data_axes,
+                                           link.tensor_axis or "", stage=stage,
+                                           partial=partial)
+        self._partial = partial
+        self._done = {id(q) for q in params if (_sharded.info_of(q) is not None and
+                                                _sharded.info_of(q).at_rest and
+                                                _sharded.info_of(q).dim is not None)}
 
     # ---- this rank's tensors ----
     def _owned(self) -> list:
@@ -618,7 +788,9 @@ class PipelineParallel:
     def _tree(self, values: dict) -> dict:
         """``{(tree, key): tensor}`` of :meth:`_owned` -> the reference's
         tree of this rank: first, stack ``[1, Lc, ...]`` (``[1, V, Lc,
-        ...]``), last."""
+        ...]``), last; a leaf carries its parameter's layout."""
+        from .. import _sharded
+
         tree = {"first": {}, "stack": {}, "last": {}}
         for (part, key), t in values.items():
             if part != "stack":
@@ -627,12 +799,33 @@ class PipelineParallel:
             per = [torch.stack([values[("stack", (k, v, j))] for j in range(self._lc)])
                    for v in range(self.num_chunks)]
             tree["stack"][k] = (per[0] if self.num_chunks == 1 else torch.stack(per))[None]
+            info = _sharded.info_of(values[("stack", (k, 0, 0))])
+            if info is not None:
+                _sharded.register(tree["stack"][k], info)
         return tree
 
     # ---- the schedule ----
-    def _forward_backward(self, ids, labels) -> tuple:
+    def _loss(self, out, labels):
+        if not self._pce:
+            return self.loss_fn(out, labels)
+        ignore = self.loss_fn.ignore_index
+        flat = labels.reshape(-1)
+        if self.link.tensor_group is not None:
+            from ..tensor_parallel import parallel_cross_entropy
+
+            per = parallel_cross_entropy(out.reshape(-1, out.shape[-1]), flat,
+                                         self.link.tensor_group, ignore)
+        else:
+            per = self.loss_fn(out.reshape(-1, out.shape[-1]), flat)
+        return per.sum() / torch.clamp_min((flat != ignore).sum(), 1)
+
+    def _forward_backward(self, ids, labels, reduce: bool = True) -> tuple:
         """(loss on every rank, [(tree, key, parameter, gradient)] of this
-        rank, averaged over the data group)."""
+        rank): each gradient summed over the tensor axis where partial and
+        averaged over the data group (``reduce``), or this rank's own (for
+        the sharded update, which reduces them)."""
+        from .. import _sharded
+
         link, M, V = self.link, self.num_microbatches, self.num_chunks
         P, p = self.num_stages, self.stage
         owned = self._owned()
@@ -641,6 +834,7 @@ class PipelineParallel:
         x_mb = _rows(ids, link, M, link.device) if p == 0 else None
         y_mb = _rows(labels, link, M, link.device) if p == P - 1 else None
         key = tuple(np.shape(ids))
+        full = None if link.seq_dim is None or x_mb is None else x_mb.shape[1 + link.seq_dim]
         from ..recompute import recompute
 
         def forward(v, m, x):
@@ -648,16 +842,27 @@ class PipelineParallel:
             for layer in self.chunks[v]:
                 h = recompute(layer, h) if self.remat else layer(h)
             if p == P - 1 and v == V - 1:
-                return None, self.loss_fn(self.last(h), y_mb[m]).float()
+                return None, self._loss(self.last(h), y_mb[m]).float()
             return h, None
 
-        loss, peak = _run_schedule(self._sched, link, M, forward, self._params_of,
-                                   self._meta, key)
+        with deferred_hooks():
+            loss, peak = _run_schedule(self._sched, link, M, forward, self._params_of,
+                                       self._meta, key, full)
         self.peak_in_flight = peak
         grads = [_grad(q) for _, _, q in owned]
         for _, _, q in owned:
             q.grad = None
-        loss, grads = _finish(link, loss, grads)
+        if reduce:
+            done = [i for i, (_, _, q) in enumerate(owned) if id(q) in self._done]
+            partial = [i for i, (_, _, q) in enumerate(owned)
+                       if id(q) in self._partial and i not in done]
+            loss, grads = _finish(link, loss, grads, partial, done)
+        else:
+            loss, _ = _finish(link, loss, [])
+        for (_, _, q), g in zip(owned, grads):
+            info = _sharded.info_of(q)
+            if info is not None:
+                _sharded.register(g, info)
         return loss, [(part, key, q, g) for (part, key, q), g in zip(owned, grads)]
 
     def forward_backward_pipeline(self, ids, labels):
@@ -674,10 +879,8 @@ class PipelineParallel:
 
         ids, labels = data
         opt_cls = type(optimizer)
-        if self._opt_state is None:
+        if self._opt_cls is None:
             self._opt_cls = opt_cls
-            self._opt_state = {id(q): opt_cls.init_state(q.detach())
-                               for _, _, q in self._owned() if q.requires_grad}
         elif opt_cls is not self._opt_cls:
             raise TypeError(
                 f"train_batch was compiled for {self._opt_cls.__name__}; "
@@ -687,6 +890,16 @@ class PipelineParallel:
         lr = optimizer.get_lr()
         t = optimizer._step_count
         hyper = optimizer._hyper()
+        if self._update is not None:
+            loss, got = self._forward_backward(ids, labels, reduce=False)
+            train = [(q, g.to(q.dtype)) for _, _, q, g in got if q.requires_grad]
+            n = len(train)
+            self._update.step(opt_cls, [q for q, _ in train], [g for _, g in train], [lr] * n,
+                              [hyper] * n, [False] * n, None, t)
+            return loss.detach()
+        if self._opt_state is None:
+            self._opt_state = {id(q): opt_cls.init_state(q.detach())
+                               for _, _, q in self._owned() if q.requires_grad}
         loss, got = self._forward_backward(ids, labels)
         entries = [fused_optimizer.Entry(q.detach(), g.to(q.dtype), self._opt_state[id(q)],
                                          lr, hyper, None)
@@ -699,31 +912,57 @@ class PipelineParallel:
                 fused_step.apply_update(opt_cls, entries, t, self._layout[1])
         return loss.detach()
 
-    def sync_to_model(self):
-        """Write every stage's parameters into the Layers of every rank of
-        the pipe group (``:776-790``)."""
+    def _stage_params(self, q: int) -> list:
         P, V, Lc = self.num_stages, self.num_chunks, self._lc
-        for q in range(P):
-            ts = []
-            if q == 0:
-                ts += list(self.first.parameters())
-            for v in range(V):
-                for layer in self.layers[(v * P + q) * Lc:(v * P + q + 1) * Lc]:
-                    ts += list(layer.parameters())
-            if q == P - 1:
-                ts += list(self.last.parameters())
+        ts = list(self.first.parameters()) if q == 0 else []
+        for v in range(V):
+            for layer in self.layers[(v * P + q) * Lc:(v * P + q + 1) * Lc]:
+                ts += list(layer.parameters())
+        if q == P - 1:
+            ts += list(self.last.parameters())
+        return ts
+
+    def sync_to_model(self):
+        """Write every stage's parameters, whole (gathered over its tensor
+        and fsdp axes), into the Layers of every rank of the pipe group
+        that does not run that stage (``:776-790``); a rank's own stages
+        keep their slices, which its Layers compute on."""
+        from .. import _sharded
+
+        for q in range(self.num_stages):
+            ts = self._stage_params(q)
+            if q == self.stage:
+                ts = [_sharded.gather_full(t) for t in ts]
             self.link.p2p.broadcast(ts, q)
+
+
+def _whole(t, stacked: bool):
+    """Leaf ``t`` whole over its stage's tensor and fsdp axes (its layout
+    ``dist_shard``); a ``stack`` leaf layer by layer."""
+    from .. import _sharded
+
+    info = _sharded.info_of(t)
+    if info is None or not info.sliced:
+        return t
+    if not stacked:
+        return _sharded.gather_full(t, info)
+    lead = t.ndim - len(info.full_shape)
+    flat = t.reshape((-1,) + tuple(t.shape[lead:]))
+    whole = torch.stack([_sharded.gather_full(x, info) for x in flat])
+    return whole.reshape(tuple(t.shape[:lead]) + tuple(whole.shape[1:]))
 
 
 def gather_pipeline_tree(tree: dict, pipeline) -> dict:
     """Every rank's tree of ``first`` / ``stack`` / ``last`` leaves (as
     ``forward_backward_pipeline`` returns) reassembled on every rank of the
-    pipe group into the reference's global layout: ``first`` from stage 0,
-    ``last`` from the last stage, ``stack`` the stages' ``[1, ...]`` leaves
-    in stage order, ``[P, Lc, ...]`` (``[P, V, Lc, ...]`` under vpp).
-    ``pipeline`` is a :class:`PipelineParallel` or a step of
-    :func:`make_pipeline_step`."""
+    pipe group into the reference's global layout: each leaf whole over its
+    stage's tensor and fsdp axes, ``first`` from stage 0, ``last`` from the
+    last stage, ``stack`` the stages' ``[1, ...]`` leaves in stage order,
+    ``[P, Lc, ...]`` (``[P, V, Lc, ...]`` under vpp). ``pipeline`` is a
+    :class:`PipelineParallel` or a step of :func:`make_pipeline_step`."""
     link = pipeline.link.p2p
+    tree = {part: {k: _whole(t, part == "stack") for k, t in tree[part].items()}
+            for part in ("first", "stack", "last")}
     mine = {part: [(k, tuple(t.shape), str(t.dtype).replace("torch.", ""))
                    for k, t in tree[part].items()] for part in ("first", "stack", "last")}
     every = []

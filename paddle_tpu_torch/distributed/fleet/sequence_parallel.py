@@ -27,7 +27,10 @@ bias) has a partial gradient:
 the model group, for the eager loop (a hook after the gradient is
 accumulated) and for ``TrainStep``, whose ``autograd.grad`` fires no such
 hook (the model's ``reduce_gradients``); the partitioner's and
-``parallelize``'s sharded update sums it inside the step. The Llama
+``parallelize``'s sharded update sums it inside the step, and so does the
+pipeline once a step (its stages accumulate every microbatch's
+gradient: the hooks wait while it runs its schedule,
+:func:`deferred_hooks`). The Llama
 under a tensor axis with ``sequence_parallel`` runs this schedule itself
 (``models.llama``).
 
@@ -37,6 +40,8 @@ processes wait for the port's sep-across-processes slice.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -53,6 +58,7 @@ from .mp_layers import _cut, model_parallel_group
 __all__ = ["scatter", "all_gather", "ScatterOp", "GatherOp", "AllGatherOp", "ReduceScatterOp",
            "ColumnSequenceParallelLinear", "RowSequenceParallelLinear",
            "mark_as_sequence_parallel_parameter", "register_sequence_parallel_allreduce_hooks",
+           "deferred_hooks",
            "ring_context_attention"]
 
 
@@ -158,6 +164,21 @@ def mark_as_sequence_parallel_parameter(param):
     return param
 
 
+_deferred = [0]     # pipelines running their schedule (the hooks run in autograd's thread)
+
+
+@contextlib.contextmanager
+def deferred_hooks():
+    """Inside the block the hooks of
+    :func:`register_sequence_parallel_allreduce_hooks` do nothing: the
+    caller sums the marked gradients itself, once."""
+    _deferred[0] += 1
+    try:
+        yield
+    finally:
+        _deferred[0] -= 1
+
+
 def register_sequence_parallel_allreduce_hooks(model, fuse_grad=True, group=None):
     """Sum the gradients of ``model``'s sequence-parallel parameters over
     the model group: after ``backward()`` accumulates each (a hook), and in
@@ -168,7 +189,7 @@ def register_sequence_parallel_allreduce_hooks(model, fuse_grad=True, group=None
     ids = {id(p) for p in marked}
 
     def hook(p):
-        if p.grad is not None:
+        if p.grad is not None and not _deferred[0]:
             p.grad.copy_(tp.reduce_sum(p.grad, g))
 
     for p in marked:

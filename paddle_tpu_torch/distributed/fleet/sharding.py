@@ -13,7 +13,10 @@ eager loop: ``loss.backward(); opt.step(); opt.clear_grad()``) and whose
 use by ``TrainStep`` run the same sharded step: reduce over the data
 ranks, clip over the whole parameters, one fused update of the slices,
 gather. ``DygraphShardingOptimizer`` is stage 1 over fleet's sharding
-group.
+group. Beside a tensor axis (``parallelize(mp_config=...,
+sharding_config=...)``, fleet at ``mp_degree`` beside ``sharding_degree``)
+the optimizer wraps the update of ``_sharded.plan_specs``, which keeps
+each rank's state on its slice of its tensor slice.
 """
 
 from __future__ import annotations

@@ -10,9 +10,11 @@ them. At ``pipe`` above 1 the mode is "pipeline": the stage id, the pipe
 group (this rank's stages, in stage order) and the previous and next
 stage's global ranks (cyclic, as Paddle's ``_set_p2p_prev_next``: the
 interleaved schedule sends from the last stage to the first) come from
-the real pipe group. ``pipe`` beside the model, sharding or sep axis above
-1, and ``sep`` beside another axis above 1, wait for later slices of the
-port and raise.
+the real pipe group, at any mix of the degrees (dp x pp x sharding x
+mp); :meth:`HybridCommunicateGroup.get_parallel_mode` keeps the
+reference's precedence (pipeline, then sharding, sep, model, data).
+``sep`` beside another axis above 1 waits for the port's
+sep-across-processes slice and raises.
 """
 
 from __future__ import annotations

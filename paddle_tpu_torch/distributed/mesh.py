@@ -13,13 +13,13 @@ The tensor axis (``tensor`` on the partitioning tier's mesh, ``mp`` /
 mp layers and ``parallelize(mp_config=...)`` place its collectives
 (``distributed.tensor_parallel``). The pipe axis (``pipe`` on the
 partitioning tier's mesh, ``pp`` on fleet's) carries the pipeline's
-stages (``fleet.pipeline_parallel``), alone or beside the data axes; its
-group (:meth:`ProcessMesh.get_group`) holds this rank's stages and
-:meth:`ProcessMesh.axis_ranks` their global ranks in stage order. The
-axes that need what later slices of the port bring raise
+stages (``fleet.pipeline_parallel``), beside the data, sharding / fsdp
+and tensor axes; its group (:meth:`ProcessMesh.get_group`) holds this
+rank's stages and :meth:`ProcessMesh.axis_ranks` their global ranks in
+stage order. The axes that need what later slices of the port bring raise
 ``NotImplementedError`` above size 1: ``ep`` (experts across devices) and
-``cp``, ``sep`` beside any other axis above 1 (``sep`` across processes),
-and the pipe axis beside the tensor, sharding or sep axis. A mesh whose
+``cp``, and ``sep`` beside any other axis above 1, the pipe axis among
+them (``sep`` across processes). A mesh whose
 only axis above 1 is ``sep`` is the one-process ring
 (``ops.ring_attention``): virtual ranks of this process on its device,
 which the ring attention folds into its batch.
@@ -45,9 +45,6 @@ TENSOR_AXES = ("tensor", "mp", "model")
 #: the names of the pipe axis
 PIPE_AXES = ("pipe", "pp")
 
-#: the axes that the pipeline does not run beside yet
-NOT_BESIDE_PIPE = TENSOR_AXES + ("fsdp", "sharding", "sep")
-
 
 def check_axes(names, sizes) -> None:
     """Raise ``NotImplementedError`` for an axis above 1 that a later
@@ -57,13 +54,6 @@ def check_axes(names, sizes) -> None:
         if name in WAITING_AXES:
             raise NotImplementedError(
                 f"mesh axis {name}={size} waits for the port's {WAITING_AXES[name]} slice")
-    pipe = [n for n in wide if n in PIPE_AXES]
-    beside = [n for n in wide if n in NOT_BESIDE_PIPE]
-    if pipe and beside:
-        raise NotImplementedError(
-            f"mesh axes {wide}: a pipe axis beside {', '.join(beside)} waits for the port's "
-            "later slice of the pipeline beside the tensor / sharding / sep axis; the pipe axis "
-            "runs alone or beside the data axes")
     if "sep" in wide and len(wide) > 1:
         raise NotImplementedError(
             f"mesh axes {wide}: sep beside other axes means sep across processes, which "

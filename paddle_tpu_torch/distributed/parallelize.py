@@ -11,14 +11,17 @@ tensor axis above 1 (or ``mp_config``) cuts each parameter by its marks
 ``tensor``, where the axis divides it, as the reference's
 :func:`param_spec`) and hands the axis to the model
 (``distributed.tensor_parallel``); the gradients are averaged over the
-mesh's data axes in the sharded update. With an optimizer it returns
-``(model, optimizer)``, the optimizer a
+mesh's data axes in the sharded update. Beside it a sharding stage keeps
+at 1 and 2 each parameter's optimizer state on its slice of the
+``sharding`` axis (of the rank's tensor slice), and at 3 cuts every
+parameter that the tensor axis does not on its largest dim over
+``sharding``, at rest (the reference's ``parallelize.py:44-85``). With an
+optimizer it returns ``(model, optimizer)``, the optimizer a
 ``fleet.sharding.GroupShardedOptimizer`` when a stage or ``mp_config``
 applies. A mesh of one process with only a ``sep`` axis (the one-process
 ring) changes no parameter. ``dp_config`` and ``pp_config`` are taken and
 read no further, as in the reference (a pipeline is built with
-``fleet.PipelineParallel`` or ``partitioning.pipeline_from_rules``);
-``mp_config`` beside a sharding stage waits for a later slice.
+``fleet.PipelineParallel`` or ``partitioning.pipeline_from_rules``).
 
 :func:`shard_dataloader` gives each rank its part of every batch: the rows
 of dim 0 that its coordinates on the mesh's data axes (``dcn``, ``dp``,
@@ -68,11 +71,11 @@ def parallelize(model, optimizer=None, mesh: ProcessMesh | None = None, config=N
 
     tensor = any(a in mesh.dim_names and mesh.get_dim_size(a) > 1 for a in TENSOR_AXES)
     if config.get("mp_config") is not None or tensor:
-        if stage:
-            raise NotImplementedError("parallelize(mp_config=..., sharding_config=...) waits "
-                                      "for a later slice of the port; the partitioner cuts "
-                                      "fsdp x tensor")
-        update = plan_tensor(model, mesh)
+        if stage not in (0, 1, 2, 3):
+            raise ValueError(f"sharding stage {stage}: one of 1, 2, 3")
+        if stage and "sharding" not in mesh.dim_names:
+            raise ValueError(f"sharding stage {stage} needs a 'sharding' axis on {mesh}")
+        update = plan_tensor(model, mesh, stage)
         if optimizer is not None:
             from .fleet.sharding import GroupShardedOptimizer
 
@@ -91,9 +94,29 @@ def parallelize(model, optimizer=None, mesh: ProcessMesh | None = None, config=N
     return (model, optimizer) if optimizer is not None else model
 
 
-def plan_tensor(model, mesh: ProcessMesh):
+def stage3_specs(params, specs: dict, mesh: ProcessMesh) -> None:
+    """Stage 3 beside the tensor axis (the reference's
+    ``parallelize.py:65-75``): a parameter whose spec cuts nothing is cut on
+    its largest dim that the ``sharding`` axis divides."""
+    from . import _sharded
+    from .partitioning.rules import PartitionSpec
+
+    if "sharding" not in mesh.dim_names or mesh.get_dim_size("sharding") < 2:
+        return
+    for p in params:
+        spec = specs[id(p)]
+        if _sharded.info_of(p) is None and all(e is None for e in spec):
+            d = _sharded.divisible_dim(tuple(p.shape), mesh.get_dim_size("sharding"),
+                                       largest=True)
+            if d is not None:
+                specs[id(p)] = PartitionSpec(*["sharding" if i == d else None
+                                               for i in range(len(spec))])
+
+
+def plan_tensor(model, mesh: ProcessMesh, stage: int = 0):
     """Cut ``model`` over ``mesh``'s tensor axis by its parameters' marks
-    (see the module docstring); returns its ``ShardedUpdate``."""
+    (see the module docstring), beside the sharding ``stage`` (0: none);
+    returns its ``ShardedUpdate``."""
     from . import _sharded
     from .fleet.sharding import DATA_AXES
     from .mesh import TENSOR_AXES
@@ -103,9 +126,13 @@ def plan_tensor(model, mesh: ProcessMesh):
     if axis is None:
         raise ValueError(f"mp_config needs a tensor axis ({', '.join(TENSOR_AXES)}) above 1 "
                          f"on {mesh}")
-    specs = {id(p): param_spec(p, mesh) for p in model.parameters()}
+    params = list(model.parameters())
+    specs = {id(p): param_spec(p, mesh) for p in params}
+    if stage == 3:
+        stage3_specs(params, specs, mesh)
     return _sharded.plan_specs(model, mesh, specs,
-                               tuple(a for a in mesh.dim_names if a in DATA_AXES), axis)
+                               tuple(a for a in mesh.dim_names if a in DATA_AXES), axis,
+                               stage=stage or 3)
 
 
 class ShardDataloader:

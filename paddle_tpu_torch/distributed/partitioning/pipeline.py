@@ -5,9 +5,12 @@
 assigns to the logical ``stage`` axis (``pipe`` on the default table), or
 None when no axis of the mesh above 1 carries it; :func:`pipeline_from_rules`
 builds :class:`~..fleet.pipeline_parallel.PipelineParallel` over that
-axis, every other keyword passed through. When every other axis of the
-mesh is 1 the mesh is squeezed to the one stage axis (the same processes
-in the same order).
+axis, every other keyword passed through, and the table places each
+stage's parameters over the other axes (:meth:`Partitioner.param_spec`:
+``tensor`` resident, ``fsdp`` at rest; the reference's
+``partitioning/pipeline.py:40-63`` keeps them). When every other axis of
+the mesh is 1 the mesh is squeezed to the one stage axis (the same
+processes in the same order).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ def pipeline_from_rules(first, layers, last, loss_fn, *,
             "a pipeline needs a 'stage' rule naming an axis of size > 1; "
             "build the mesh with pipe>1 or retable 'stage'")
     kw.setdefault("num_stages", part.mesh.get_dim_size(axis))
+    kw.setdefault("param_spec", part.param_spec)
     mesh = part.mesh
     live = [n for n, s in zip(mesh.dim_names, mesh.shape) if int(s) > 1]
     if live == [axis]:

@@ -231,14 +231,17 @@ def parallel_cross_entropy(logits, labels, group, ignore_index=-100):
 
 class TensorParallel:
     """One model's view of the tensor axis: its ``group`` (this rank's
-    ``rank`` of ``size``) and whether activations between blocks are cut
-    on the sequence (``sequence_parallel``)."""
+    ``rank`` of ``size``), whether activations between blocks are cut on
+    the sequence (``sequence_parallel``) and whether a column-parallel head
+    gathers its output (``gather_output``; a pipeline's last stage keeps
+    its vocabulary columns for ``ParallelCrossEntropy``)."""
 
-    def __init__(self, group, sequence_parallel: bool = False):
+    def __init__(self, group, sequence_parallel: bool = False, gather_output: bool = True):
         self.group = group
         self.rank = group.rank
         self.size = group.nranks
         self.sequence_parallel = bool(sequence_parallel)
+        self.gather_output = bool(gather_output)
 
     def enter(self, x, active: bool = True):
         """The input of a block: whole (and under sequence parallelism
@@ -255,12 +258,13 @@ class TensorParallel:
         return reduce_from(x, self.group) if active else x
 
 
-def install(model, group, specs: dict, axis: str) -> set:
+def install(model, group, specs: dict, axis: str, gather_output: bool = True) -> set:
     """Hand the tensor axis (``group``) to ``model``, whose parameters are
     placed by ``specs`` (``{id(p): PartitionSpec}``, ``axis`` the tensor
     axis's name); returns the ids of the parameters replicated across the
     axis whose gradients are partial on each rank (summed over it by the
-    update)."""
+    update). Without ``gather_output`` a column-parallel ``Linear`` keeps
+    its output's columns (and adds its bias's)."""
     def cut_dims(p):
         return [d for d, e in enumerate(specs.get(id(p), ()))
                 if e == axis or (isinstance(e, tuple) and axis in e)]
@@ -269,26 +273,33 @@ def install(model, group, specs: dict, axis: str) -> set:
         return bool(cut_dims(p))
 
     config = getattr(model, "config", None)
-    tp = TensorParallel(group, getattr(config, "sequence_parallel", False))
+    tp = TensorParallel(group, getattr(config, "sequence_parallel", False), gather_output)
     own = getattr(model, "install_tensor_parallel", None)
     if own is not None:
         return own(tp, is_cut)
     from ..nn.layer import Embedding, Linear
 
+    partial = set()
     for mod in model.modules():
         if isinstance(mod, Linear) and is_cut(mod.weight):
             column = cut_dims(mod.weight) == [1]
             mod.forward = _column_forward(mod, tp) if column else _row_forward(mod, tp)
+            if column and not gather_output and mod.bias is not None:
+                partial.add(id(mod.bias))      # each rank adds its columns of the bias
         elif isinstance(mod, Embedding) and is_cut(mod.weight):
             mod.forward = _embedding_forward(mod, tp)
-    return set()
+    return partial
 
 
 def _column_forward(mod, tp):
     from ..nn import functional as F
 
     def forward(x):
-        out = gather_last(F.linear(copy_to(x, tp.group), mod.weight), tp.group)
+        out = F.linear(copy_to(x, tp.group), mod.weight)
+        if not tp.gather_output:
+            n = out.shape[-1]
+            return out if mod.bias is None else out + mod.bias.narrow(0, tp.rank * n, n)
+        out = gather_last(out, tp.group)
         return out if mod.bias is None else out + mod.bias
     return forward
 

@@ -38,7 +38,7 @@ from ..device import resolve_device
 from ..distributed.fleet.moe import MoELayer
 from ..distributed.fleet.sequence_parallel import ring_context_attention
 from ..distributed.partitioning.rules import mark_logical
-from ..distributed.tensor_parallel import parallel_cross_entropy, vocab_embedding
+from ..distributed.tensor_parallel import gather_last, parallel_cross_entropy, vocab_embedding
 from ..distributed.recompute import recompute
 from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..nn import functional as F
@@ -49,7 +49,7 @@ from ._weights import load_reference_state_dict
 
 __all__ = [
     "LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
-    "LlamaForCausalLM", "load_reference_state_dict",
+    "LlamaForCausalLM", "LlamaEmbedStage", "LlamaHeadStage", "load_reference_state_dict",
     "LlamaGreedyGenerator", "DenseDecodeKV",
     "decode_weights", "quantize_decode_weights", "weights_from_numpy", "map_weights",
     "decode_matmul", "decode_rms", "rope_tables", "rope_rotate",
@@ -245,7 +245,39 @@ class LlamaDecoderLayer(Layer):
                                                 device=device, dtype=dtype)
         _mark(self.input_layernorm.weight, {}, ("norm",))
         _mark(self.post_attention_layernorm.weight, {}, ("norm",))
+        self.config = config
         self._recompute = config.recompute
+
+    def install_tensor_parallel(self, tp, is_cut) -> set:
+        """This layer's part of :meth:`LlamaForCausalLM.install_tensor_parallel`
+        (also a pipeline stage's): returns the ids of its parameters whose
+        gradients are partial across the axis."""
+        a, f = self.self_attn, self.mlp
+        if not isinstance(f, LlamaMLP):
+            raise NotImplementedError("a Mixture-of-Experts Llama under a tensor axis: the "
+                                      "rules put its experts on it, which waits for the "
+                                      "port's expert-parallel slice")
+        if self.config.context_parallel is not None:
+            raise NotImplementedError("context_parallel beside a tensor axis waits for the "
+                                      "port's sep-across-processes slice")
+        heads_cut = is_cut(a.q_proj.weight)
+        kv_cut = is_cut(a.k_proj.weight)
+        mlp_cut = is_cut(f.gate_proj.weight)
+        if heads_cut != is_cut(a.o_proj.weight) or is_cut(a.v_proj.weight) != kv_cut \
+                or (kv_cut and not heads_cut):
+            raise ValueError("the attention's projections are cut unlike each other")
+        if not (is_cut(f.up_proj.weight) == is_cut(f.down_proj.weight) == mlp_cut):
+            raise ValueError("the MLP's projections are cut unlike each other")
+        a._tp, a._tp_cut = tp, heads_cut
+        f._tp, f._tp_cut = tp, mlp_cut
+        partial = set()
+        if heads_cut and not kv_cut:
+            a._kv_pick = kv_heads_for(tp.rank, tp.size, a.num_heads, a.num_kv_heads)
+            partial |= {id(a.k_proj.weight), id(a.v_proj.weight)}
+        if tp.sequence_parallel:
+            partial |= {id(self.input_layernorm.weight),
+                        id(self.post_attention_layernorm.weight)}
+        return partial
 
     def _inner(self, hidden_states, attention_mask=None, position_ids=None):
         residual = hidden_states
@@ -264,6 +296,20 @@ class LlamaDecoderLayer(Layer):
         return self._inner(hidden_states, attention_mask, position_ids)
 
 
+def _embed(embed, tp, cut: bool, input_ids):
+    """The embedding of ``input_ids``; under the tensor axis ``tp`` on
+    this rank's vocabulary rows (``cut``), the partial sums reduced (under
+    sequence parallelism reduce-scattered onto the sequence)."""
+    if tp is None:
+        return embed(input_ids)
+    if tp.sequence_parallel and input_ids.shape[1] % tp.size:
+        raise ValueError(f"sequence parallelism cuts {input_ids.shape[1]} positions "
+                         f"over {tp.size} tensor ranks: they must divide")
+    w = embed.weight
+    h = vocab_embedding(input_ids, w, tp.rank * w.shape[0]) if cut else embed(input_ids)
+    return tp.exit(h, cut)
+
+
 class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, *, device, dtype, generator):
         super().__init__()
@@ -280,17 +326,7 @@ class LlamaModel(Layer):
         self._tp, self._tp_cut = None, False     # the tensor axis; whether it cuts the vocab
 
     def forward(self, input_ids, attention_mask=None, position_ids=None):
-        tp = self._tp
-        if tp is None:
-            hidden_states = self.embed_tokens(input_ids)
-        else:
-            if tp.sequence_parallel and input_ids.shape[1] % tp.size:
-                raise ValueError(f"sequence parallelism cuts {input_ids.shape[1]} positions "
-                                 f"over {tp.size} tensor ranks: they must divide")
-            w = self.embed_tokens.weight
-            hidden_states = (vocab_embedding(input_ids, w, tp.rank * w.shape[0])
-                             if self._tp_cut else self.embed_tokens(input_ids))
-            hidden_states = tp.exit(hidden_states, self._tp_cut)
+        hidden_states = _embed(self.embed_tokens, self._tp, self._tp_cut, input_ids)
         for layer in self.layers:
             hidden_states = layer(hidden_states, attention_mask, position_ids)
         return self.norm(hidden_states)
@@ -374,14 +410,6 @@ class LlamaForCausalLM(Layer):
         ids of the parameters whose gradients are partial across the axis:
         uncut K and V under cut heads, and the norms under sequence
         parallelism."""
-        c = self.config
-        if c.moe_num_experts > 0:
-            raise NotImplementedError("a Mixture-of-Experts Llama under a tensor axis: the "
-                                      "rules put its experts on it, which waits for the "
-                                      "port's expert-parallel slice")
-        if c.context_parallel is not None:
-            raise NotImplementedError("context_parallel beside a tensor axis waits for the "
-                                      "port's sep-across-processes slice")
         partial = set()
         m = self.llama
         head = m.embed_tokens.weight if self.lm_head is None else self.lm_head.weight
@@ -389,28 +417,25 @@ class LlamaForCausalLM(Layer):
         if vocab_cut != is_cut(head):
             raise ValueError("the embedding and the head must be cut alike over the tensor axis")
         for lyr in m.layers:
-            a, f = lyr.self_attn, lyr.mlp
-            heads_cut = is_cut(a.q_proj.weight)
-            kv_cut = is_cut(a.k_proj.weight)
-            mlp_cut = is_cut(f.gate_proj.weight)
-            if heads_cut != is_cut(a.o_proj.weight) or is_cut(a.v_proj.weight) != kv_cut \
-                    or (kv_cut and not heads_cut):
-                raise ValueError("the attention's projections are cut unlike each other")
-            if not (is_cut(f.up_proj.weight) == is_cut(f.down_proj.weight) == mlp_cut):
-                raise ValueError("the MLP's projections are cut unlike each other")
-            a._tp, a._tp_cut = tp, heads_cut
-            f._tp, f._tp_cut = tp, mlp_cut
-            if heads_cut and not kv_cut:
-                a._kv_pick = kv_heads_for(tp.rank, tp.size, a.num_heads, a.num_kv_heads)
-                partial |= {id(a.k_proj.weight), id(a.v_proj.weight)}
-            if tp.sequence_parallel:
-                partial |= {id(lyr.input_layernorm.weight),
-                            id(lyr.post_attention_layernorm.weight)}
+            partial |= lyr.install_tensor_parallel(tp, is_cut)
         m._tp, m._tp_cut = tp, vocab_cut
         self._tp, self._tp_cut = tp, vocab_cut
         if tp.sequence_parallel:
             partial.add(id(m.norm.weight))
         return partial
+
+    def pipeline_stages(self) -> tuple:
+        """``(first, layers, last)`` for ``fleet.PipelineParallel``: the
+        embedding (:class:`LlamaEmbedStage`), the decoder layers, and the
+        final norm with the head (:class:`LlamaHeadStage`), over this
+        model's own parameters. Under a tensor axis each installs its part
+        of :meth:`install_tensor_parallel`; with ``sequence_parallel`` the
+        activations between the stages are this rank's part of the
+        sequence."""
+        if self.lm_head is None:
+            raise ValueError("a tied head would live on the first and the last stage: the "
+                             "pipeline's stages take an untied Llama")
+        return LlamaEmbedStage(self), list(self.llama.layers), LlamaHeadStage(self)
 
     def num_params(self) -> int:
         return int(sum(p.numel() for p in self.parameters()))
@@ -437,6 +462,50 @@ class LlamaForCausalLM(Layer):
             for p, mod in zip(_PROJ, _projections(lyr)):
                 mod.weight.copy_(lw[p])
         return self
+
+
+class LlamaEmbedStage(Layer):
+    """A pipeline's first piece of :meth:`LlamaForCausalLM.pipeline_stages`:
+    the embedding (its vocabulary rows under a tensor axis)."""
+
+    def __init__(self, model: LlamaForCausalLM):
+        super().__init__()
+        self.config = model.config
+        self.embed_tokens = model.llama.embed_tokens
+        self._tp, self._tp_cut = None, False
+
+    def install_tensor_parallel(self, tp, is_cut) -> set:
+        self._tp, self._tp_cut = tp, is_cut(self.embed_tokens.weight)
+        return set()
+
+    def forward(self, input_ids):
+        return _embed(self.embed_tokens, self._tp, self._tp_cut, input_ids)
+
+
+class LlamaHeadStage(Layer):
+    """A pipeline's last piece of :meth:`LlamaForCausalLM.pipeline_stages`:
+    the final norm and the head; under a tensor axis the head on its
+    vocabulary columns, gathered unless the pipeline's loss is
+    ``ParallelCrossEntropy`` (``TensorParallel.gather_output``)."""
+
+    def __init__(self, model: LlamaForCausalLM):
+        super().__init__()
+        self.config = model.config
+        self.norm = model.llama.norm
+        self.lm_head = model.lm_head
+        self._tp, self._tp_cut = None, False
+
+    def install_tensor_parallel(self, tp, is_cut) -> set:
+        self._tp, self._tp_cut = tp, is_cut(self.lm_head.weight)
+        return {id(self.norm.weight)} if tp.sequence_parallel else set()
+
+    def forward(self, hidden_states):
+        h = self.norm(hidden_states)
+        tp = self._tp
+        if tp is None:
+            return self.lm_head(h)
+        logits = self.lm_head(tp.enter(h, self._tp_cut))
+        return gather_last(logits, tp.group) if self._tp_cut and tp.gather_output else logits
 
 
 def _projections(lyr):

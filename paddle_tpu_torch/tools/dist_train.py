@@ -59,7 +59,7 @@ counters).
 - ``--phase p`` (two ranks on one card, gloo; the pipeline at pp 2 over
   ``ProcessMesh(shape=[2], dim_names=["pp"])``, the Llama split here into
   ``first`` (the embedding), ``layers`` (the decoder layers) and ``last``
-  (the final norm and the head, :func:`llama_stages`), the loss the
+  (the final norm and the head, ``LlamaForCausalLM.pipeline_stages``), the loss the
   model's mean cross entropy): (b) the step check at ``PIPE_CHECK_LAYERS`` layers,
   batch ``PIPE_M`` x ``--check-seq``: for each of ``PIPE_STYLES`` the loss
   and every leaf's gradient of ``forward_backward_pipeline``, reassembled
@@ -78,6 +78,34 @@ counters).
   none): a warm-up, ``--steps`` timed steps (the host's transport
   included) and one profiled step, with exact launches and the transfers
   by kind.
+
+- ``--phase h`` (four ranks on one card, gloo; hybrid parallelism at pp 2
+  x tensor 2 over ``ProcessMesh([2, 2], ["pp", "mp"])``, the Llama's
+  stages from ``LlamaForCausalLM.pipeline_stages``, each rank on its
+  heads, MLP columns and vocabulary rows, the loss ``ParallelCrossEntropy``
+  on the head's vocabulary columns): (b) the step check at
+  ``PIPE_CHECK_LAYERS`` layers, batch ``HY_M`` x ``--check-seq``, for each
+  of ``HY_STYLES`` (1F1B with sequence parallelism and
+  ``activation_spec``, without them, and vpp at 2 chunks with them): the
+  loss and every leaf's gradient of ``forward_backward_pipeline``
+  against a one-process traced backward of the whole batch on the same
+  card within ``GRAD_TOL`` of the leaf's largest entry: each rank runs
+  that backward itself (the ranks one after the other) and holds its
+  slices against the same slices of it, the largest differences gathered
+  to rank 0; for the first style rank 0 also holds the tree gathered over
+  pipe and tensor by ``gather_pipeline_tree``; two planted
+  faults refused by that check (the gradients partial over the tensor
+  axis, the norms under sequence parallelism, left unsummed; stage 1
+  taking the sequence shards that stage 0's other tensor rank sent); (a)
+  the timed cell: ``--layers`` layers, batch ``HY_M`` x ``--seq / HY_M``
+  in ``HY_M`` microbatches under 1F1B with sequence parallelism and
+  ``activation_spec``, ``train_batch`` with ``AdamW(3e-4,
+  weight_decay=0.1)``: a warm-up, ``--steps`` timed steps (the host's
+  transport included) and one profiled step, with exact launches and the
+  transfers by kind; (c) pp 2 x sharding 2 through fleet (sharding stage
+  1) at ``HY_SHARD_LAYERS`` layers: the same gradient check, and one
+  ``train_batch`` step's optimizer state on the rank against the stage's
+  whole state.
 
 ``--tiny`` runs ``LlamaConfig.tiny()`` widths with head_dim 64 (the card
 tests).
@@ -569,15 +597,6 @@ PIPE_MEM_M = 8          # microbatches of the memory bound
 PIPE_STYLES = (("1f1b", 4, 1), ("fthenb", 2, 1), ("zero_bubble", 4, 1), ("vpp", 4, 2))
 
 
-def llama_stages(model):
-    """(first, layers, last) of an untied Llama: the embedding, the decoder
-    layers, and the final norm with the head (the model's own Layers)."""
-    from ..nn import Sequential
-
-    return (model.llama.embed_tokens, list(model.llama.layers),
-            Sequential(("norm", model.llama.norm), ("lm_head", model.lm_head)))
-
-
 def llama_loss(logits, labels):
     from ..nn import functional as F
 
@@ -587,7 +606,7 @@ def llama_loss(logits, labels):
 
 def tree_by_name(tree, num_chunks: int) -> dict:
     """{the model's parameter name: gradient} of a reassembled pipeline tree."""
-    out = {"llama.embed_tokens.weight": tree["first"]["weight"],
+    out = {"llama.embed_tokens.weight": tree["first"]["embed_tokens.weight"],
            "llama.norm.weight": tree["last"]["norm.weight"],
            "lm_head.weight": tree["last"]["lm_head.weight"]}
     for k, leaf in tree["stack"].items():
@@ -621,7 +640,7 @@ def pipe_check(args, mesh) -> dict:
             grads = torch.autograd.grad(loss, [q for _, q in named])
         want = {"loss": loss.item(), "grads": {n: g for (n, _), g in zip(named, grads)}}
         del loss, grads
-    first, layers, last = llama_stages(model)
+    first, layers, last = model.pipeline_stages()
 
     def run(style, m, chunks):
         pp = PipelineParallel(first, layers, last, llama_loss, mesh=mesh, num_microbatches=m,
@@ -730,7 +749,7 @@ def phase_p(args, out):
                                  f"faults: {faults}")
     cfg = config(args, args.layers)
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=args.seed)
-    first, layers, last = llama_stages(model)
+    first, layers, last = model.pipeline_stages()
     res["memory"] = pipe_memory(args, mesh, first, layers, last, cfg.vocab_size)
     say("p", rank=rank, memory=json.dumps(res["memory"]))
     # (26a) the timed cell
@@ -792,9 +811,322 @@ def phase_p(args, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase h: hybrid parallelism
+# ---------------------------------------------------------------------------
+
+HYBRID = 4              # ranks: pp 2 x tensor 2
+HY_M = 4                # microbatches of the timed cell and the step check
+HY_SPEC = ("dp", "mp")  # activation_spec: the sequence over the tensor axis
+#: (schedule, microbatches, chunks, activation_spec with sequence parallelism) of the check
+HY_STYLES = (("1f1b", 4, 1, True), ("1f1b", 4, 1, False), ("vpp", 4, 2, True))
+HY_SHARD_LAYERS = 2     # 27c's depth
+HY_SHARD_M = 2          # 27c: each sharding replica's 2 rows in 2 microbatches
+
+
+def hybrid_mesh():
+    from .. import distributed as dist
+
+    return dist.ProcessMesh(shape=[2, 2], dim_names=["pp", "mp"])
+
+
+def hybrid_pipeline(args, layers, style, m, chunks, spec, mesh):
+    """(model, PipelineParallel) of a fresh Llama over ``mesh``, its stages
+    from ``pipeline_stages``, ParallelCrossEntropy on the head's
+    vocabulary columns; ``spec``: sequence parallelism and
+    activation_spec."""
+    from ..distributed.fleet import ParallelCrossEntropy, PipelineParallel
+
+    model, _ = build(args, layers, sequence_parallel=spec)
+    first, lyrs, last = model.pipeline_stages()
+    pp = PipelineParallel(first, lyrs, last, ParallelCrossEntropy(), mesh=mesh,
+                          num_microbatches=m, schedule=style, num_chunks=chunks,
+                          activation_spec=HY_SPEC if spec else None)
+    return model, pp
+
+
+def one_process(args, layers, ids, labels) -> dict:
+    """The loss and every gradient of a one-process traced backward of the
+    whole batch on the card (the reference of the step checks), on every
+    rank, one rank after the other (each holds its own: the ranks compare
+    their slices without moving gradients)."""
+    import torch
+
+    from .. import distributed as dist
+    from .. import tracing
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            model, _ = build(args, layers)
+            named = list(model.named_parameters())
+            with tracing.traced():
+                loss = model(ids, labels=labels)[0].float()
+                grads = torch.autograd.grad(loss, [q for _, q in named])
+            out = {"loss": loss.item(), "grads": {n: g for (n, _), g in zip(named, grads)}}
+            del model, loss, named, grads
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+class wrong_peer:
+    """A planted fault: stage 1 takes the activation shards that stage 0's
+    other tensor rank sent (``StageLink.exchange`` swapped over the tensor
+    group for the block)."""
+
+    def __init__(self, pp):
+        self.group = pp.link.tensor_group
+
+    def __enter__(self):
+        from ..distributed import tensor_parallel as tp
+        from ..distributed.fleet import _pipe_p2p
+
+        self.keep = keep = _pipe_p2p.StageLink.exchange
+        group = self.group
+
+        def exchange(link, sends, recvs):
+            got = keep(link, sends, recvs)
+            if link.stage == 1:
+                got = [tp.gather_dim(t[None], 0, group)[1 - group.rank] for t in got]
+            return got
+
+        _pipe_p2p.StageLink.exchange = exchange
+        return self
+
+    def __exit__(self, *exc):
+        from ..distributed.fleet import _pipe_p2p
+
+        _pipe_p2p.StageLink.exchange = self.keep
+        return False
+
+
+def hybrid_grads(args, model, pp, ids, labels, chunks, want, plant=None,
+                 gather=False) -> tuple:
+    """(loss, {leaf: max |g - g_ref| / max |g_ref|} on rank 0) of one
+    forward_backward_pipeline: every rank holds its gradients (its tensor
+    slices) against the same slices of its own ``want``, and the ranks'
+    largest differences are gathered; with ``gather`` rank 0 also holds the
+    tree gathered over pipe and tensor by ``gather_pipeline_tree``, and
+    each leaf's error is the larger of the two. ``plant`` a fault:
+    ``unsummed`` (the gradients partial over the tensor axis left
+    unsummed) or ``wrong_peer``."""
+    import contextlib
+
+    import torch
+
+    from .. import distributed as dist
+    from ..distributed import _sharded
+    from ..distributed.fleet import gather_pipeline_tree
+
+    if plant == "unsummed":
+        pp._partial = set()
+    with wrong_peer(pp) if plant == "wrong_peer" else contextlib.nullcontext():
+        loss, got = pp._forward_backward(ids, labels)
+    names = {id(q): n for n, q in model.named_parameters()}
+    local = {}
+    for _, _, q, g in got:
+        info = _sharded.info_of(q)
+        w = want["grads"][names[id(q)]]
+        w = w[info.held_index] if info is not None else w
+        local[names[id(q)]] = (g.float() - w.float()).abs().max().item()
+    every = []
+    dist.all_gather_object(every, local)
+    errs = None
+    if dist.get_rank() == 0:
+        scale = {n: w.float().abs().max().item() or 1.0 for n, w in want["grads"].items()}
+        errs = {n: max(e[n] for e in every if n in e) / scale[n] for n in want["grads"]
+                if any(n in e for e in every)}
+    if gather:
+        tree = gather_pipeline_tree(pp._tree({(part, key): g for part, key, _, g in got}), pp)
+        if dist.get_rank() == 0:
+            whole = tree_by_name(tree, chunks)
+            for n, g in whole.items():
+                e = (g.float() - want["grads"][n].float()).abs().max().item() / scale[n]
+                errs[n] = max(errs.get(n, 0.0), e)
+            errs["gathered_leaves"] = len(whole)
+        del tree
+    del got
+    torch.cuda.empty_cache()
+    return loss.item(), errs
+
+
+def hybrid_check(args, mesh) -> dict:
+    """(27b): see the module docstring."""
+    import torch
+
+    from .. import distributed as dist
+
+    rank = dist.get_rank()
+    cfg = config(args, PIPE_CHECK_LAYERS)
+    ids, labels = tokens(args.seed + 2, HY_M, args.check_seq, cfg.vocab_size)
+    t0 = time.perf_counter()
+    want = one_process(args, PIPE_CHECK_LAYERS, ids, labels)
+    res = {"one_process_s": round(time.perf_counter() - t0, 1)}
+    runs = [s + (None,) for s in HY_STYLES] + [("1f1b", HY_M, 1, True, plant)
+                                               for plant in ("unsummed", "wrong_peer")]
+    for k, (style, m, chunks, spec, plant) in enumerate(runs):
+        t0 = time.perf_counter()
+        model, pp = hybrid_pipeline(args, PIPE_CHECK_LAYERS, style, m, chunks, spec, mesh)
+        loss, errs = hybrid_grads(args, model, pp, ids, labels, chunks, want, plant,
+                                  gather=k == 0)
+        name = f"{style}_spec{int(spec)}" + (f"_{plant}" if plant else "")
+        r = {"loss": loss, "schedule": style, "microbatches": m, "chunks": chunks,
+             "activation_spec": spec, "sequence_parallel": spec,
+             "tree_gathered": k == 0, "seconds": round(time.perf_counter() - t0, 1)}
+        if rank == 0:
+            gathered = errs.pop("gathered_leaves", None)
+            worst = max(errs, key=errs.get) if errs else None
+            r.update(loss_plain=want["loss"], leaves=len(errs), gathered_leaves=gathered,
+                     leaves_checked=len(errs) == len(want["grads"]),
+                     grad_vs_ref_max_rel=errs[worst] if errs else None,
+                     grad_vs_ref_worst_leaf=worst, grad_vs_ref_tol=GRAD_TOL,
+                     grad_vs_ref_beyond_tol=sum(e > GRAD_TOL for e in errs.values()))
+        res[name] = r
+        say("h", rank=rank, case=f"check_{name}", **r)
+        del model, pp
+        torch.cuda.empty_cache()
+    del want
+    torch.cuda.empty_cache()
+    return res
+
+
+def hybrid_shard(args) -> dict:
+    """(27c) pp 2 x sharding 2 through fleet (sharding stage 1) at
+    ``HY_SHARD_LAYERS`` layers: the gradient check of
+    forward_backward_pipeline (each sharding replica on its half of the
+    batch), then one train_batch step: the optimizer state on the rank
+    against the same stage's whole state (AdamW's two moments)."""
+    import torch
+
+    from .. import distributed as dist
+    from ..distributed.fleet import (DistributedStrategy, ParallelCrossEntropy,
+                                     PipelineParallel)
+    from ..optimizer import AdamW
+
+    rank = dist.get_rank()
+    cfg = config(args, HY_SHARD_LAYERS)
+    ids, labels = tokens(args.seed + 4, HY_M, args.check_seq, cfg.vocab_size)
+    t0 = time.perf_counter()
+    want = one_process(args, HY_SHARD_LAYERS, ids, labels)
+    strategy = DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 2,
+                               "sharding_degree": 2, "sep_degree": 1}
+    strategy.sharding_configs = {"stage": 1}
+    dist.fleet.init(is_collective=True, strategy=strategy)
+    model, _ = build(args, HY_SHARD_LAYERS)
+    first, lyrs, last = model.pipeline_stages()
+    pp = PipelineParallel(first, lyrs, last, ParallelCrossEntropy(), mesh=dist.get_mesh(),
+                          num_microbatches=HY_SHARD_M)
+    loss, errs = hybrid_grads(args, model, pp, ids, labels, 1, want)
+    held = sum(q.numel() for _, _, q in pp._owned())
+    opt = AdamW(LR, parameters=model.parameters(), weight_decay=0.1)
+    pp.train_batch((ids, labels), opt)
+    torch.cuda.synchronize()
+    state = sum(v.numel() for st in pp._update.states.values() for v in st.values()
+                if torch.is_tensor(v))
+    res = {"loss": loss, "params_on_rank": held, "state_numel": state,
+           "pp2_state_numel": 2 * held, "state_ratio_to_pp2": state / (2 * held),
+           "sharding_stage": pp._update.stage, "mode": dist.fleet.get_hybrid_communicate_group()
+           .get_parallel_mode(), "seconds": round(time.perf_counter() - t0, 1)}
+    if rank == 0:
+        worst = max(errs, key=errs.get)
+        res.update(loss_plain=want["loss"], leaves=len(errs),
+                   leaves_checked=len(errs) == len(want["grads"]),
+                   grad_vs_ref_max_rel=errs[worst], grad_vs_ref_worst_leaf=worst,
+                   grad_vs_ref_tol=GRAD_TOL,
+                   grad_vs_ref_beyond_tol=sum(e > GRAD_TOL for e in errs.values()))
+    say("h", rank=rank, case="shard", **res)
+    del model, pp, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_h(args, out):
+    import torch
+
+    from .. import distributed as dist
+    from ..distributed import collective
+    from ..optimizer import AdamW
+
+    dist.init_parallel_env(timeout=120)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if world != HYBRID:
+        raise ValueError(f"phase h runs {HYBRID} ranks, got {world}")
+    mesh = hybrid_mesh()
+    res = {"backend": dist.env.backend(), "world": world, "rank": rank,
+           "device": str(dist.env.device()), "coord": mesh.coordinate()}
+    res["check"] = hybrid_check(args, mesh)
+    # (27a) the timed cell
+    t_a = time.perf_counter()
+    cfg = config(args, args.layers)
+    model, pp = hybrid_pipeline(args, args.layers, "1f1b", HY_M, 1, True, mesh)
+    opt = AdamW(LR, parameters=model.parameters(), weight_decay=0.1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c = counters()
+    losses, times = [], []
+    for i in range(args.steps + 1):
+        ids, labels = tokens(args.seed + 3 + i, HY_M, args.seq // HY_M, cfg.vocab_size)
+        if i == 1:
+            torch.cuda.synchronize()
+            zero(c)
+            collective.reset_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = pp.train_batch((ids, labels), opt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = read(c)
+    stats = collective.stats()
+    from torch.profiler import ProfilerActivity, profile
+
+    ids, labels = tokens(args.seed + 99, HY_M, args.seq // HY_M, cfg.vocab_size)
+    dist.barrier()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pp.train_batch((ids, labels), opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    n = args.steps
+    res.update(layers=args.layers, seq=args.seq, microbatches=HY_M, schedule="1f1b",
+               activation_spec=list(HY_SPEC), stage=pp.stage,
+               tensor_rank=pp.link.tensor_group.rank, stage_layers=len(pp.chunks[0]),
+               warmup_step_ms=round(1e3 * times[0], 3),
+               step_ms=[round(1e3 * t, 3) for t in times[1:]],
+               step_ms_mean=round(1e3 * sum(times[1:]) / n, 3), losses=losses,
+               launches=launches,
+               transfers_per_step={k: v / n for k, v in stats["calls"].items()
+                                   if k != "barrier"},
+               transfer_bytes_per_step={k: v / n for k, v in stats["bytes"].items()
+                                        if k != "barrier"},
+               max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+               params_on_rank=sum(q.numel() for _, _, q in pp._owned()),
+               tensors_on_rank=len(pp._owned()),
+               profiled_step_ms=round(1e3 * wall, 3), device_busy_ms=round(1e3 * busy, 3),
+               device_busy_share=round(busy / wall, 4) if busy else "not measured",
+               seconds=round(time.perf_counter() - t_a, 1))
+    say("h", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                for k, v in res.items() if k != "check"})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses are not finite: {losses}")
+    del model, pp, opt
+    torch.cuda.empty_cache()
+    dist.barrier()
+    res["shard"] = hybrid_shard(args)
+    dist.barrier()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("a", "b", "t", "p"), required=True)
+    ap.add_argument("--phase", choices=("a", "b", "t", "p", "h"), required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=4)
@@ -805,7 +1137,8 @@ def main(argv=None) -> int:
     ap.add_argument("--comm-buffer-size", type=float, default=25)
     ap.add_argument("--tiny", action="store_true")
     args = ap.parse_args(argv)
-    res = {"a": phase_a, "b": phase_b, "t": phase_t, "p": phase_p}[args.phase](args, args.out)
+    res = {"a": phase_a, "b": phase_b, "t": phase_t, "p": phase_p,
+           "h": phase_h}[args.phase](args, args.out)
     from .. import distributed as dist
 
     with open(os.path.join(args.out, f"dist_{args.phase}.{dist.get_rank()}.json"), "w") as f:

@@ -224,8 +224,7 @@ def test_no_fallback_hides_the_device(port_device, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["ep", "cp", "sep_and_dp", "elastic", "localsgd",
-                                  "llama_ulysses", "moe_tensor", "pipe_and_tensor",
-                                  "pipe_and_fsdp", "activation_spec"])
+                                  "llama_ulysses", "moe_tensor", "pipe_and_sep"])
 def test_the_axes_that_wait_raise(case):
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed import launch
@@ -234,11 +233,7 @@ def test_the_axes_that_wait_raise(case):
 
     calls = {
         "sep_and_dp": lambda: dist.ProcessMesh(shape=[2, 2], dim_names=["dp", "sep"]),
-        "pipe_and_tensor": lambda: dist.build_program_mesh(pipe=2, tensor=2),
-        "pipe_and_fsdp": lambda: dist.build_program_mesh(pipe=2, fsdp=2),
-        "activation_spec": lambda: dist.fleet.PipelineParallel(
-            None, [None, None], None, None, mesh=dist.ProcessMesh(shape=[2], dim_names=["pp"]),
-            activation_spec=("dp", "mp")),
+        "pipe_and_sep": lambda: dist.ProcessMesh(shape=[2, 2], dim_names=["pp", "sep"]),
         "elastic": lambda: launch.launch(["--max_restart", "1", "x.py"]),
         "localsgd": lambda: _localsgd(dist),
         "llama_ulysses": lambda: llama.LlamaForCausalLM(

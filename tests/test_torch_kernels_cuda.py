@@ -2062,6 +2062,38 @@ def test_dist_pipeline_two_gloo_ranks_on_the_card(dev, tmp_path):
         assert r["transfers_per_step"]["send"] == r["transfers_per_step"]["recv"] == PIPE_M
 
 
+# four gloo ranks on the one card at pp 2 x tensor 2 (phase 27's mesh at 2
+# layers, one a stage): every style's gradients gathered over pipe and tensor
+# within GRAD_TOL of a one-process traced backward, both planted faults
+# beyond it, exact launches and bytes between stages (half the sequence) on
+# each rank, and pp 2 x sharding 2's optimizer state half a stage's
+def test_dist_hybrid_four_gloo_ranks_on_the_card(dev, tmp_path):
+    from paddle_tpu_torch.tools.dist_train import GRAD_TOL, HY_M, HY_STYLES
+
+    rc, logs, res = _dist_ranks(tmp_path, 4, "h", {"PADDLE_DISTRI_BACKEND": "gloo"})
+    assert rc == 0, logs
+    check = res[0]["check"]
+    for style, _, _, spec in HY_STYLES:
+        c = check[f"{style}_spec{int(spec)}"]
+        assert c["grad_vs_ref_beyond_tol"] == 0 and c["leaves_checked"], c
+        assert c["grad_vs_ref_max_rel"] <= GRAD_TOL
+    assert all(check[f"1f1b_spec1_{p}"]["grad_vs_ref_max_rel"] > GRAD_TOL
+               for p in ("unsummed", "wrong_peer"))
+    assert res[0]["shard"]["grad_vs_ref_beyond_tol"] == 0
+    for r in res:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert r["shard"]["state_numel"] * 2 == r["shard"]["pp2_state_numel"]
+        stage = r["rank"] // 2
+        norms = HY_M * (2 + stage) * 2
+        assert r["launches"] == {"flash_wgmma_fwd": HY_M * 2, "flash_wgmma_bwd": HY_M * 2,
+                                 "rms_norm_fwd_fused": 0, "rms_norm_bwd_dx_fused": 0,
+                                 "rms_norm_fwd_round_first": norms,
+                                 "rms_norm_bwd_dx_round_first": norms, "multi_tensor_update": 2}
+        # 4 microbatches of [1, 64 of 128, 256] bf16 each way
+        assert r["transfer_bytes_per_step"]["send"] == HY_M * 64 * 256 * 2
+        assert r["transfer_bytes_per_step"]["recv"] == HY_M * 64 * 256 * 2
+
+
 # NCCL with more ranks than cards raises and names the card, never falls
 # back to gloo
 def test_dist_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):

@@ -224,18 +224,33 @@ def test_parallelize_takes_pp_config_and_dp_config():
 
 
 @pytest.mark.parametrize("how", ["step", "layer"])
-def test_activation_spec_waits_for_the_pipeline_beside_the_tensor_axis(how):
+def test_activation_spec_waits_for_the_pipeline_beside_the_tensor_axis(how, monkeypatch):
+    """activation_spec waited for the pipeline beside the tensor axis,
+    which has come: both entry points take it and go on to the mesh's
+    groups (here, with no process group, init_parallel_env's error), and
+    it cuts the dim that it puts on a tensor axis over the tensor group
+    beside the pipe, none without one (the runs:
+    tests/test_torch_hybrid_parallel.py)."""
+    import types
+
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed.fleet import PipelineParallel, make_pipeline_step
+    from paddle_tpu_torch.distributed.fleet import pipeline_parallel as ppmod
 
+    monkeypatch.setattr(ppmod._env, "device", lambda: torch.device("cpu"))
     mesh = dist.ProcessMesh(shape=[2], dim_names=["pp"])
-    with pytest.raises(NotImplementedError, match="pipeline beside the tensor"):
+    with pytest.raises(RuntimeError, match="init_parallel_env"):
         if how == "step":
             make_pipeline_step(None, None, None, mesh=mesh, num_stages=2, num_microbatches=2,
                                activation_spec=("dp", "mp"))
         else:
             PipelineParallel(None, [object()] * 2, None, None, mesh=mesh, num_microbatches=2,
                              activation_spec=("dp", "mp"))
+    for group, spec, want in ((object(), ("dp", "mp"), 1), (object(), (None, None, "tensor"), 2),
+                              (object(), ("dp", None), None), (None, ("dp", "mp"), None)):
+        link = types.SimpleNamespace(tensor_group=group, seq_dim=None)
+        ppmod._Link.cut_by(link, spec)
+        assert link.seq_dim == want, (spec, want)
 
 
 def test_the_references_argument_checks():

@@ -283,12 +283,12 @@ def test_mesh_parallelize_and_ring_context_attention():
 
 
 @pytest.mark.parametrize("shape,names", [([2, 4], ["dp", "sep"]), ([1, 2, 2], ["dp", "sep", "mp"]),
-                                         ([4], ["cp"]), ([2, 2], ["pp", "mp"])])
+                                         ([4], ["cp"]), ([2, 2], ["pp", "sep"])])
 def test_meshes_that_need_process_groups_wait_for_the_distributed_slice(shape, names):
-    # sep across processes, cp and the pipeline beside the tensor axis wait
-    # for later slices; a mesh over processes on the other axes is the
+    # sep across processes (beside dp, mp or the pipeline) and cp wait for
+    # later slices; a mesh over processes on the other axes is the
     # distributed slice's (tests/test_torch_distributed_*.py,
-    # tests/test_torch_pipeline*.py)
+    # tests/test_torch_pipeline*.py, tests/test_torch_hybrid_parallel.py)
     with pytest.raises(NotImplementedError, match="waits for the port's .* slice"):
         dist.ProcessMesh(shape=shape, dim_names=names)
 

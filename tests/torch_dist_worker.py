@@ -1041,6 +1041,269 @@ def pp_llama(out, weights, data, dtype):
     _save(out, f"pp_llama_{dtype}", **res)
 
 
+# ---------------------------------------------------------------------------
+# hybrid parallelism: the pipeline beside the tensor and sharding axes
+# ---------------------------------------------------------------------------
+
+HY_SPEC = ("dp", "mp")      # activation_spec: the sequence (dim 1) over the tensor axis
+
+
+def hy_marked(emb, layers, head):
+    """The pipeline model with Megatron's marks: fc1 column-parallel, fc2
+    row-parallel (each with an fsdp dim, as the Llama's), the head's
+    projection on its vocabulary columns."""
+    for lyr in layers:
+        lyr.fc1.weight.shard_axes = {1: "mp", 0: "fsdp"}
+        lyr.fc2.weight.shard_axes = {0: "mp", 1: "fsdp"}
+    head.proj.weight.shard_axes = {1: "mp"}
+    return emb, layers, head
+
+
+def _fleet_init(stage=1, **degrees):
+    f = dist.fleet.fleet
+    f._strategy = f._hcg = f._topology = f._mesh = f._model_update = None
+    strategy = dist.fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
+                               "sharding_degree": 1, "sep_degree": 1, **degrees}
+    strategy.sharding_configs = {"stage": stage}
+    dist.fleet.init(is_collective=True, strategy=strategy)
+    return dist.fleet.get_hybrid_communicate_group()
+
+
+def _fleet_reset():
+    f = dist.fleet.fleet
+    f._strategy = f._hcg = f._topology = f._mesh = f._model_update = None
+    dist.set_mesh(None)
+
+
+def _whole_params(named):
+    """{name: the whole tensor} of parameters some of which are this rank's
+    slices (every rank of a slice's groups gathers, in one order)."""
+    return {k: dist._sharded.gather_full(v).detach() for k, v in named.items()}
+
+
+def hybrid_axes(out):
+    """What waited for this slice builds over 4 ranks: the program mesh at
+    pipe x tensor and pipe x fsdp (the pipe and other axes' groups), a
+    pipeline with activation_spec (the cut dim), and fleet's topology at
+    pp x mp and pp x sharding (every getter)."""
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel
+
+    res = {}
+    for name, axes in (("pipe_and_tensor", {"pipe": 2, "tensor": 2}),
+                       ("pipe_and_fsdp", {"pipe": 2, "fsdp": 2})):
+        mesh = dist.build_program_mesh(**axes)
+        other = "tensor" if "tensor" in axes else "fsdp"
+        res[name] = np.array(mesh.shape + mesh.get_group("pipe").ranks
+                             + mesh.get_group(other).ranks + mesh.axis_ranks("pipe"))
+    emb, layers, head = hy_marked(*pp_model_random(2))
+    pp = PipelineParallel(emb, layers, head, pp_loss,
+                          mesh=dist.ProcessMesh(shape=[2, 2], dim_names=["pp", "mp"]),
+                          num_microbatches=2, activation_spec=HY_SPEC)
+    res["activation_spec"] = np.array([pp.link.seq_dim, pp.link.tensor_group.nranks,
+                                       len(pp.link.data_axes)])
+    for name, deg in (("topology_pp_mp", {"pp_degree": 2, "mp_degree": 2}),
+                      ("topology_pp_sharding", {"pp_degree": 2, "sharding_degree": 2}),
+                      ("topology_mp_sharding", {"mp_degree": 2, "sharding_degree": 2})):
+        hcg = _fleet_init(**deg)
+        res[name] = np.array([str(x) for x in (
+            hcg.get_parallel_mode(), hcg.get_stage_id(), hcg.get_pipe_parallel_group().ranks,
+            hcg.get_model_parallel_rank(), hcg.get_model_parallel_group().ranks,
+            hcg.get_sharding_parallel_rank(), hcg.get_sharding_parallel_group().ranks,
+            hcg.get_data_parallel_group().ranks, hcg._get_p2p_prev_rank(),
+            hcg._get_p2p_next_rank(), dist.get_mesh().dim_names, dist.get_mesh().shape)])
+    _fleet_reset()
+    _save(out, "hybrid_axes", **res)
+
+
+def pp_model_random(n_layers):
+    torch.manual_seed(0)
+    emb = paddle.nn.Embedding(PP_V, PP_H, device="cpu")
+    return emb, [PPBlock() for _ in range(n_layers)], PPHead()
+
+
+def _hy_mesh(kind):
+    shapes = {"pp_mp": ([2, 2], ["pp", "mp"]), "pp_dp_mp": ([2, 2, 2], ["pp", "dp", "mp"])}
+    shape, names = shapes[kind]
+    return dist.ProcessMesh(shape=shape, dim_names=names)
+
+
+def hy_grads(out, weights, data, key, style, M, chunks, n_layers, spec, loss, kind="pp_mp"):
+    """forward_backward_pipeline over ``kind``'s mesh, the stages cut by
+    their marks over ``mp``: the loss and the gradients gathered whole by
+    gather_pipeline_tree, and the bytes sent between stages; ``spec`` 1
+    with activation_spec, ``loss`` ``mean`` (the reference's
+    cross entropy on gathered logits) or ``pce`` (ParallelCrossEntropy on
+    the head's vocabulary columns)."""
+    from paddle_tpu_torch.distributed.fleet import (ParallelCrossEntropy, PipelineParallel,
+                                                    gather_pipeline_tree)
+
+    mesh = _hy_mesh(kind)
+    emb, layers, head = hy_marked(*pp_model(weights, n_layers))
+    ids, labels = _pp_tokens(data, key)
+    pp = PipelineParallel(emb, layers, head, pp_loss if loss == "mean" else ParallelCrossEntropy(),
+                          mesh=mesh, num_microbatches=M, schedule=style, num_chunks=chunks,
+                          activation_spec=HY_SPEC if spec else None)
+    C.reset_stats()
+    got_loss, grads = pp.forward_backward_pipeline(ids, labels)
+    stats = C.stats()
+    tree = gather_pipeline_tree(grads, pp)
+    _pp_save_tree(out, f"hy_grads_{kind}_{style}_{spec}_{loss}", tree, loss=got_loss,
+                  sent=np.array(stats["bytes"].get("send", 0)),
+                  proj_shape=np.array(head.proj.weight.shape if pp.stage == 1 else [0, 0]))
+
+
+def hy_train(out, weights, data, key, how, steps):
+    """train_batch with AdamW(1e-2), 3 steps, then sync_to_model: ``how``
+    ``sharding`` (fleet at pp 2 x sharding 2, stage 1: the optimizer state
+    on half of each tensor) or ``fsdp`` (pipeline_from_rules on
+    build_program_mesh(pipe=2, fsdp=2): the marked weights at rest, half
+    on each rank); the losses, every parameter whole, the state's size."""
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel
+    from paddle_tpu_torch.distributed.partitioning import Partitioner, pipeline_from_rules
+
+    emb, layers, head = hy_marked(*pp_model(weights, 4))
+    ids, labels = _pp_tokens(data, key)
+    if how == "sharding":
+        _fleet_init(pp_degree=2, sharding_degree=2)
+        pp = PipelineParallel(emb, layers, head, pp_loss, mesh=dist.get_mesh(),
+                              num_microbatches=2)
+    else:
+        pp = pipeline_from_rules(emb, layers, head, pp_loss, num_microbatches=2,
+                                 partitioner=Partitioner(dist.build_program_mesh(pipe=2, fsdp=2)))
+    params = _all_params(emb, layers, head)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-2, parameters=list(params.values()))
+    losses = [pp.train_batch((ids, labels), opt).item() for _ in range(steps)]
+    held = sum(q.numel() for _, _, q in pp._owned())
+    at_rest = [k for k, v in params.items() if dist._sharded.info_of(v) is not None
+               and dist._sharded.info_of(v).at_rest]
+    pp.sync_to_model()
+    _save(out, f"hy_train_{how}", losses=np.array(losses), held=np.array(held),
+          state=np.array(sum(v.numel() for st in pp._update.states.values()
+                             for v in st.values() if torch.is_tensor(v))),
+          at_rest=np.array(sorted(at_rest)),
+          **_whole_params(params))
+    _fleet_reset()
+
+
+def hy_mp_sharding(out, weights, data, how, stage):
+    """The micro Llama at mp 2 x sharding 2, 3 TrainStep calls with AdamW
+    under the global-norm clip, each rank on its sharding coordinate's rows:
+    ``how`` ``parallelize`` (mp_config and sharding_config at ``stage``
+    over ProcessMesh([2, 2], ["sharding", "mp"])) or ``fleet``
+    (mp_degree 2, sharding_degree 2); the losses, every parameter whole and
+    the optimizer state's size."""
+    d = np.load(data)
+    model, w = _tp_llama("micro", weights)
+    from paddle_tpu_torch.models import llama as L
+
+    L.load_reference_state_dict(model, w)
+    opt = _tp_opt(model, "adamw")
+    if how == "fleet":
+        hcg = _fleet_init(stage=stage, mp_degree=2, sharding_degree=2)
+        model = dist.fleet.distributed_model(model)
+        opt = dist.fleet.distributed_optimizer(opt)
+        row = hcg.get_sharding_parallel_rank()
+    else:
+        mesh = dist.ProcessMesh(shape=[2, 2], dim_names=["sharding", "mp"])
+        model, opt = dist.parallelize(model, opt, mesh=mesh, config={
+            "mp_config": {}, "sharding_config": {"stage": stage}})
+        row = mesh.coordinate()["sharding"]
+    step = paddle.jit.TrainStep(model, opt, lambda ids, lab: model(ids, labels=lab)[0])
+    half = slice(4 * row, 4 * row + 4)
+    losses = torch.stack([step(_t(d[f"ids{i}"])[half], _t(d[f"labels{i}"])[half])
+                          for i in range(3)])
+    state = sum(t.numel() for st in opt._update.states.values() for t in st.values()
+                if torch.is_tensor(t))
+    _save(out, f"hy_mps_{how}_{stage}", losses=losses, state=np.array(state),
+          stage=np.array(opt.stage), **_whole_params(dict(model.named_parameters())))
+    _fleet_reset()
+
+
+class MPBlock(paddle.nn.Layer):
+    """PPBlock on fleet's mp layers: fc1 column-parallel (output kept cut),
+    fc2 row-parallel (input cut)."""
+
+    def __init__(self, h=PP_H):
+        super().__init__()
+        M = dist.fleet.mp_layers
+        self.fc1 = M.ColumnParallelLinear(h, 2 * h, has_bias=True, gather_output=False,
+                                          device="cpu")
+        self.fc2 = M.RowParallelLinear(2 * h, h, input_is_parallel=True, device="cpu")
+
+    def forward(self, x):
+        return x + self.fc2(F.relu(self.fc1(x)))
+
+
+class MPHead(paddle.nn.Layer):
+    def __init__(self, h=PP_H, v=PP_V):
+        super().__init__()
+        self.norm = paddle.nn.LayerNorm(h, device="cpu")
+        self.proj = dist.fleet.mp_layers.ColumnParallelLinear(h, v, has_bias=True,
+                                                              gather_output=False, device="cpu")
+
+    def forward(self, x):
+        return self.proj(self.norm(x))
+
+
+def hy_pp_layers(out, data, key):
+    """PipelineLayer over LayerDescs of fleet's mp layers at pp 2 x mp 2
+    (fleet.init): its eager forward and backward on every rank (every
+    stage's layers, the tensor collectives inside them), then
+    PipelineParallel over its run_function with ParallelCrossEntropy; the
+    losses and every gradient whole."""
+    from paddle_tpu_torch.distributed.fleet import (LayerDesc, ParallelCrossEntropy,
+                                                    PipelineLayer, PipelineParallel,
+                                                    gather_pipeline_tree)
+
+    hcg = _fleet_init(pp_degree=2, mp_degree=2)
+    torch.manual_seed(3)
+    pce = ParallelCrossEntropy()
+    pl = PipelineLayer([LayerDesc(dist.fleet.VocabParallelEmbedding, PP_V, PP_H, device="cpu"),
+                        LayerDesc(MPBlock), LayerDesc(MPBlock), LayerDesc(MPHead)],
+                       topology=hcg.topology(), loss_fn=lambda y, t: pce(y, t).mean())
+    ids, labels = _pp_tokens(data, key)
+    loss = pl(ids, labels=labels)
+    loss.backward()
+    named = dict(pl.named_parameters())
+    res = {"eager_loss": loss.detach(), "stages": np.array(pl.segment_parts),
+           **{f"eager/{k}": dist._sharded.gather_full(q.grad, dist._sharded.info_of(q))
+              for k, q in named.items()}}
+    for q in named.values():
+        q.grad = None
+    layers = list(pl.run_function)
+    pp = PipelineParallel(layers[0], layers[1:-1], layers[-1], ParallelCrossEntropy(),
+                          mesh=dist.get_mesh(), num_microbatches=2)
+    got_loss, grads = pp.forward_backward_pipeline(ids, labels)
+    tree = gather_pipeline_tree(grads, pp)
+    _fleet_reset()
+    _pp_save_tree(out, "hy_pp_layers", tree, loss=got_loss, **res)
+
+
+def hy_llama(out, weights, data):
+    """The tiny Llama (f32) at pp 2 x tensor 2 with sequence parallelism
+    through its pipeline stages (LlamaForCausalLM.pipeline_stages), the
+    loss ParallelCrossEntropy and activation_spec on, M 2: the loss and
+    every gradient gathered whole, and the bytes sent between stages."""
+    from paddle_tpu_torch.distributed.fleet import (ParallelCrossEntropy, PipelineParallel,
+                                                    gather_pipeline_tree)
+    from paddle_tpu_torch.models import llama as L
+
+    model = L.LlamaForCausalLM(L.LlamaConfig.tiny(sequence_parallel=True), device="cpu",
+                               dtype=torch.float32, seed=0)
+    L.load_reference_state_dict(model, dict(np.load(weights)))
+    d = np.load(data)
+    ids, labels = _t(d["ids0"]), _t(d["labels0"])
+    first, layers, last = model.pipeline_stages()
+    pp = PipelineParallel(first, layers, last, ParallelCrossEntropy(),
+                          mesh=_hy_mesh("pp_mp"), num_microbatches=2, activation_spec=HY_SPEC)
+    C.reset_stats()
+    loss, grads = pp.forward_backward_pipeline(ids, labels)
+    stats = C.stats()
+    tree = gather_pipeline_tree(grads, pp)
+    _pp_save_tree(out, "hy_llama", tree, loss=loss, sent=np.array(stats["bytes"].get("send", 0)))
+
+
 def fail(out):
     """Rank 1 raises at once; the others would sleep a minute."""
     if dist.get_rank() == 1:
@@ -1063,7 +1326,9 @@ CASES = {"collectives": collectives, "dp": dp, "zero": zero, "partitioned": part
          "mp_layers": mp_layers, "tp_partitioned": tp_partitioned, "tp_ckpt": tp_ckpt,
          "tp_fleet": tp_fleet, "semi_auto": semi_auto, "fail": fail, "pp_grads": pp_grads,
          "pp_train": pp_train, "pp_frozen": pp_frozen, "pp_remat": pp_remat,
-         "pp_apply": pp_apply, "pp_dp": pp_dp, "pp_rules": pp_rules, "pp_llama": pp_llama}
+         "pp_apply": pp_apply, "pp_dp": pp_dp, "pp_rules": pp_rules, "pp_llama": pp_llama,
+         "hybrid_axes": hybrid_axes, "hy_grads": hy_grads, "hy_train": hy_train,
+         "hy_mp_sharding": hy_mp_sharding, "hy_llama": hy_llama, "hy_pp_layers": hy_pp_layers}
 
 
 def main():
