@@ -186,9 +186,11 @@ Phases, each printing one line of numbers:
    restores) and without one (drops), each bit for bit equal to the cold
    engine; the waves with int8 weights against the int8 cold engine;
 16. speculative decoding: the target of phase 15 and a draft at Meta's
-   Llama-3.2-1B widths (16 layers, hidden 2048, tied embeddings, random
-   weights from seed 1, its rope_scaling left out), ``DraftConfig(k=4)``,
-   8 lanes, 8 requests of 16-256 prompt tokens, 32 tokens each: the graphed
+   Llama-3.2-1B widths (hidden 2048, tied embeddings, random weights from
+   seed 1, its rope_scaling left out) cut to DRAFT_LAYERS = 4 of its 16
+   layers (the script's time limit), ``DraftConfig(k=4)``,
+   8 lanes, SPEC_REQUESTS = 4 requests of 16-256 prompt tokens (8 before
+   phase 28 took their time), 32 tokens each: the graphed
    engine (one capture each of draft decode, verify and prefill; each
    program's calls and device span, tokens/s, the accept rate) against
    the eager one, greedy tokens identical; one round's 5 verify logits a
@@ -435,7 +437,32 @@ Phases, each printing one line of numbers:
    with their bytes (33,554,432 each way, exactly: half the sequence),
    per-rank peak memory and a profiled step's busy share; (27c) pp 2 x
    sharding 2 through fleet (sharding stage 1) at 2 layers: the gradient
-   check, and each rank's optimizer state exactly half of its stage's.
+   check, and each rank's optimizer state exactly half of its stage's;
+28. context parallelism across processes (``tools/dist_train.py --phase
+   s``: gloo ranks sharing the card, the Llama's ``context_parallel``
+   through ``parallelize`` and ``TrainStep``, each rank of the ``sep``
+   axis on its half of the sequence, the loss the global token mean, the
+   gradients summed over sep): (28b) two ranks over ``ProcessMesh([2],
+   ["sep"])`` at the step-check widths (2 layers, batch 1 x 2048): the
+   ring and Ulysses, the loss and every leaf's reduced gradient against a
+   one-process traced backward on the card within ``GRAD_TOL``, and a
+   planted fault refused (RoPE at every rank's positions from 0); (28a)
+   the ring across the two processes against the one-process ring (phase
+   13's kernels) at the cell's layer shapes (q [1, 4096, 32, 128] a rank,
+   K/V at 8 heads, bf16, causal), output and dQ, dK, dV bit for bit; then
+   phase 13's cell (4 layers, batch 1 x 8192, AdamW with the clip) at sep
+   2: a warm-up and SEP_STEPS = 2 timed steps (the host's transport
+   included), exact
+   launches on each rank (a step: rank r flash r + 1 times each way a
+   layer and the merge r times, RMSNorm ``round_first`` 9 each way on its
+   [4096, 4096] rows, the fused update 1), the ring's bytes a step
+   exactly as the schedule reckons them (K/V bf16 P - 1 hops each way,
+   f32 dK/dV P hops: 402,653,184 each way) and the gradient all-reduce's
+   (4 bytes a parameter, f32 over gloo, and the loss's sum and count),
+   the ratio to phases 13 and 7, per-rank peak memory and a profiled
+   step's busy share; (28c) four ranks over ``ProcessMesh([2, 2], ["sep",
+   "mp"])`` (each rank on H 16, Hk 4; Ulysses then H 8, Hk 2): the step
+   check of 28b, each rank holding its tensor slices.
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -465,8 +492,9 @@ steps too; flash, RMSNorm's ``round_first`` mode and the fused optimizer
 phase 24a's three timed steps, flash, RMSNorm's fused mode and the fused
 optimizer phase 24b's step on each of its two ranks, and flash, RMSNorm's
 ``round_first`` mode and the fused optimizer phase 25a's three timed steps
-on each of its two ranks, phase 26a's on each of its two stages and phase
-27a's on each of its four ranks), and last ``{"ok": true,
+on each of its two ranks, phase 26a's on each of its two stages, phase
+27a's on each of its four ranks and phase 28a's on each of its two sep
+ranks, whose merges and ring launches the ring's rows count too), and last ``{"ok": true,
 "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
@@ -1885,7 +1913,9 @@ def check_prefix_cache(model, seed: int, gen):
 
 
 SPEC_K = 4
-SPEC_REQUESTS = 8
+# 4 of the trace's 8 requests since the context-parallel phase (28) took its
+# seconds: the draft takes each prompt token through its decode program
+SPEC_REQUESTS = 4
 SPEC_CFG = dict(num_lanes=8, block_size=16, max_seq_len=1024, prefill_chunk=16)
 SELF_DRAFT_LAYERS = 2
 SELF_DRAFT_ACCEPT = 0.95
@@ -1898,15 +1928,23 @@ SELF_DRAFT_ACCEPT = 0.95
 SPEC_LOGITS_TOL_FRAC = LOGITS_TOL_FRAC
 
 
+# the draft's depth, cut from Llama-3.2-1B's 16 layers to fit phase 28 in the
+# script's time limit: its eager decode calls took 67 of the eager
+# speculative engine's 78 s
+DRAFT_LAYERS = 4
+
+
 def draft_config():
     """Meta's Llama-3.2-1B widths (its config.json): vocab 128256, hidden
-    2048, FFN 8192, 16 layers, 32 heads, 8 KV heads (head dim 64), tied
-    embeddings, rope theta 5e5, RMSNorm eps 1e-5. Its llama3 rope_scaling
-    is left out: the port, like the reference, has none."""
+    2048, FFN 8192, 32 heads, 8 KV heads (head dim 64), tied embeddings,
+    rope theta 5e5, RMSNorm eps 1e-5, at DRAFT_LAYERS of its 16 layers. Its
+    llama3 rope_scaling is left out: the port, like the reference, has
+    none."""
     from paddle_tpu_torch.models.llama import LlamaConfig
 
     return LlamaConfig(vocab_size=128256, hidden_size=2048, intermediate_size=8192,
-                       num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+                       num_hidden_layers=DRAFT_LAYERS, num_attention_heads=32,
+                       num_key_value_heads=8,
                        max_position_embeddings=131072, rms_norm_eps=1e-5,
                        rope_theta=500000.0, tie_word_embeddings=True)
 
@@ -2064,7 +2102,8 @@ def check_speculative(model, seed: int):
     say("speculative", target_layers=model.config.num_hidden_layers,
         draft_layers=dcfg.num_hidden_layers, draft_hidden=dcfg.hidden_size,
         draft_params=draft.num_params(), k=SPEC_K,
-        cut="draft without Llama-3.2-1B's rope_scaling (the port has none)")
+        cut=f"draft at {DRAFT_LAYERS} of Llama-3.2-1B's 16 layers, without its "
+            "rope_scaling (the port has none)")
     cfg = dict(draft=DraftConfig(draft, SPEC_K), **SPEC_CFG)
     engine = ServingEngine(model, ServeConfig(**cfg))
     graphed = [r.generated for r in serve(engine, prompts, NEW_TOKENS, "spec")]
@@ -7096,11 +7135,12 @@ DIST_TIMEOUT_S = 400
 DIST_COMM_BUFFER_MB = 25
 
 
-def run_ranks(phase: str, nproc: int, seed: int, env: dict | None = None) -> list:
+def run_ranks(phase: str, nproc: int, seed: int, env: dict | None = None,
+              steps: int = TRAIN_STEPS) -> list:
     """Launch ``nproc`` ranks of ``tools/dist_train.py --phase <phase>``
-    through the port's launcher; print their ``[dist-...]`` lines and return
-    each rank's results. A non-zero exit, or the time limit (every rank is
-    then stopped), raises."""
+    through the port's launcher (``steps`` timed steps); print their
+    ``[dist-...]`` lines and return each rank's results. A non-zero exit,
+    or the time limit (every rank is then stopped), raises."""
     import os
     import shutil
     import signal
@@ -7112,7 +7152,7 @@ def run_ranks(phase: str, nproc: int, seed: int, env: dict | None = None) -> lis
            str(nproc), "--log_dir", log, "paddle_tpu_torch/tools/dist_train.py", "--phase",
            phase, "--out", out, "--seed", str(seed), "--comm-buffer-size",
            str(DIST_COMM_BUFFER_MB), "--layers", str(TRAIN_LAYERS), "--seq", str(TRAIN_SEQ),
-           "--steps", str(TRAIN_STEPS), "--check-layers", str(CHECK_LAYERS), "--check-seq",
+           "--steps", str(steps), "--check-layers", str(CHECK_LAYERS), "--check-seq",
            str(CHECK_SEQ)]
     proc = subprocess.Popen(cmd, cwd=str(ROOT), env=dict(os.environ, **(env or {})),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -7393,6 +7433,88 @@ def hybrid_phase(seed: int, train_step_ms: float) -> dict:
         reckoned_bytes_each_way=reckoned, losses=json.dumps([r["losses"] for r in ranks]),
         launches_per_rank=json.dumps([r["launches"] for r in ranks]))
     return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 28: context parallelism across ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+# 28a's timed steps: one fewer than the other cells', whose ~9 s each are
+# gloo's host transport of the gradients (the script's time limit)
+SEP_STEPS = 2
+
+
+def sep_phase(seed: int, train_step_ms: float, ring_step_ms: float) -> dict:
+    """Phase 28 (28a-c): returns the launches of 28a's timed steps over
+    both ranks, the ring's among them."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.tools.dist_train import (GRAD_TOL, SEP, SEP_RUNS, SEP_TENSOR,
+                                                   sep_bytes, sep_expected)
+
+    torch.cuda.empty_cache()
+    ranks = run_ranks("s", SEP, seed, {"PADDLE_DISTRI_BACKEND": "gloo"}, SEP_STEPS)
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS)
+    ring_bytes = sep_bytes(cfg, TRAIN_SEQ, SEP, TRAIN_LAYERS)
+    failures = []
+    for r in ranks:
+        # rank r of the causal ring: flash r + 1 times each way a layer, the
+        # merge r times, RMSNorm round_first on its [4096, 4096] rows
+        want = sep_expected(r["sep_index"], TRAIN_LAYERS, SEP_STEPS)
+        if r["launches"] != want or r["backend"] != "gloo" or r["world"] != SEP:
+            raise AssertionError(f"phase 28a rank {r['rank']} launched {r['launches']} on "
+                                 f"{r['backend']} at world {r['world']}, expected {want}")
+        moved = r["collective_bytes_per_step"]
+        reduce_bytes = 4 * r["params"] + 12     # f32 gradients over gloo, the loss's sum and count
+        if moved.get("send") != ring_bytes or moved.get("recv") != ring_bytes \
+                or moved.get("all_reduce") != reduce_bytes:
+            raise AssertionError(f"phase 28a rank {r['rank']} moved {moved} a step, expected "
+                                 f"{ring_bytes} each way around the ring and {reduce_bytes} "
+                                 "all-reduced")
+        if not all(r["vs_one_process"]["bit_identical"].values()):
+            failures.append(f"phase 28a rank {r['rank']}: the ring across processes is not "
+                            f"the one-process ring's bits: {r['vs_one_process']}")
+    r0 = ranks[0]
+    for part, group in (("28b", ranks), ("28c", None)):
+        if group is None:
+            group = run_ranks("s", SEP_TENSOR, seed, {"PADDLE_DISTRI_BACKEND": "gloo"})
+        c = group[0]["check"]
+        for cp, plant in SEP_RUNS:
+            name = cp + (f"_{plant}" if plant else "")
+            k = c[name]
+            say(f"sep-{part[-1]}", mesh="sep 2" if part == "28b" else "sep 2 x tensor 2",
+                context_parallel=cp, planted_fault=plant or "none", loss=k["loss"],
+                loss_plain=k["loss_plain"], grad_vs_ref_max_rel=k["grad_vs_ref_max_rel"],
+                grad_vs_ref_worst_leaf=k["grad_vs_ref_worst_leaf"], grad_vs_ref_tol=GRAD_TOL,
+                leaves=k["leaves"], seconds=k["seconds"])
+            if not k["leaves_checked"]:
+                failures.append(f"phase {part} ({name}): not every leaf checked: {k}")
+            elif plant is None and k["grad_vs_ref_beyond_tol"]:
+                failures.append(f"phase {part} ({name}): {k}")
+            elif plant is not None and not k["grad_vs_ref_max_rel"] > GRAD_TOL:
+                failures.append(f"phase {part}: the planted fault {plant} passes the check: {k}")
+    say("sep-a", ranks=SEP, mesh="sep 2", rows=f"1 x {TRAIN_SEQ}",
+        positions_on_rank=r0["positions_on_rank"],
+        vs_one_process=json.dumps([r["vs_one_process"] for r in ranks]),
+        step_ms_mean=json.dumps([r["step_ms_mean"] for r in ranks]),
+        step_ms=json.dumps([r["step_ms"] for r in ranks]), host_transport_included=True,
+        train_step_ms=round(train_step_ms, 3), ring_step_ms=round(ring_step_ms, 3),
+        step_ms_ratio_to_train=round(max(r["step_ms_mean"] for r in ranks) / train_step_ms, 4),
+        step_ms_ratio_to_ring=round(max(r["step_ms_mean"] for r in ranks) / ring_step_ms, 4),
+        max_memory_allocated_gib=json.dumps([r["max_memory_allocated_gib"] for r in ranks]),
+        device_busy_share=json.dumps([r["device_busy_share"] for r in ranks]),
+        collectives_per_step=json.dumps(r0["collectives_per_step"]),
+        collective_bytes_per_step=json.dumps(r0["collective_bytes_per_step"]),
+        reckoned_ring_bytes_each_way=ring_bytes, losses=json.dumps([r["losses"] for r in ranks]),
+        launches_per_rank=json.dumps([r["launches"] for r in ranks]))
+    if failures:
+        raise AssertionError("\n".join(failures))
+    out = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+    out["ring_flash_attention"] = sum(out[k] for k in ("flash_wgmma_fwd", "flash_wgmma_bwd",
+                                                       "ring_merge"))
+    return out
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
@@ -7696,6 +7818,11 @@ def main(argv=None) -> int:
     hy_launches = hybrid_phase(args.seed, trained["step_ms"])
     pp_launches = {k: pp_launches[k] + hy_launches[k] for k in pp_launches}
     lap("27")
+    sep_launches = sep_phase(args.seed, trained["step_ms"], ring_trained["step_ms"])
+    pp_launches = {k: pp_launches[k] + sep_launches[k] for k in pp_launches}
+    for name in ("ring_merge", "ring_flash_attention"):
+        ring_launches[name] += sep_launches[name]
+    lap("28")
     amp_launches = {k: amp_o2["launches"][k] + amp_o1["launches"][k] for k in amp_o2["launches"]}
 
     kernels = [
@@ -7751,7 +7878,10 @@ def main(argv=None) -> int:
                               f"those of phase 26a on each of its two pipeline stages "
                               f"({TRAIN_LAYERS // 2} layers a stage, 4 microbatches of 1 x "
                               f"{TRAIN_SEQ // 4}) and of phase 27a on each of its four ranks "
-                              f"(pp 2 x tensor 2: H {32 // TP}, Hk {8 // TP} a rank)")
+                              f"(pp 2 x tensor 2: H {32 // TP}, Hk {8 // TP} a rank) and of "
+                              f"phase 28a on each of its two sep ranks ({SEP_STEPS} steps, the "
+                              f"ring across processes on {TRAIN_SEQ // 2} positions a rank: "
+                              f"rank r launches r + 1 a layer each way)")
     for name, nums, launches in (
             ("rms_norm_fwd", norm_fwd, norm_launches["fwd"] + amp_launches["rms_norm_fwd_fused"]
              + ops_launches["rms_norm_fwd_fused"] + dist_launches["rms_norm_fwd_fused"]),
@@ -7804,7 +7934,10 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": f"paddle_tpu_torch/{source}",
             "replaces": f"paddle_tpu/ops/pallas/{replaces}", "launches": ring_launches[name],
             **nums})
-        kernels[-1]["at"] += (f" ({TRAIN_STEPS} steps, {TRAIN_LAYERS} layers, sep={RING})")
+        kernels[-1]["at"] += (f" ({TRAIN_STEPS} steps, {TRAIN_LAYERS} layers, sep={RING}), and "
+                              f"the {SEP_STEPS} timed steps of phase 28a on each of its two "
+                              "sep ranks (the ring across processes: rank r merges r times a "
+                              "layer)")
     for name, source, replaces, nums, launches, where in (
             ("int8_matmul_fp16", "quant_matmul.cu", "quant_matmul.py:117", fp16_step,
              fp16_launches, "the traced window of the graphed fp16 int8 engine "
@@ -7821,9 +7954,10 @@ def main(argv=None) -> int:
              f"rounding), the {MOE_STEPS} timed steps of the Mixtral cell (phase 22a), the "
              f"{TRAIN_STEPS} timed steps of phase 24a (TrainStep on the sharded model), "
              f"those of phase 25a on each of its {TP} ranks, those of phase 26a on each of "
-             f"its two pipeline stages (a stage runs traced) and those of phase 27a on each "
+             f"its two pipeline stages (a stage runs traced), those of phase 27a on each "
              f"of its four ranks (pp 2 x tensor 2, [{TRAIN_SEQ // 8}, 4096] a microbatch "
-             "under sequence parallelism)"),
+             f"under sequence parallelism) and those of phase 28a on each of its two sep "
+             f"ranks ([{TRAIN_SEQ // 2}, 4096] a step)"),
             ("rms_norm_bwd_round_first", "rms_norm.cu", "fused_norm.py:79", rms_rf[1],
              train_launches["rms_norm_bwd_dx_round_first"]
              + moe_launches["train"]["rms_norm_bwd_dx_round_first"]
@@ -7833,7 +7967,8 @@ def main(argv=None) -> int:
              f"the {TRAIN_STEPS} timed training steps, the {MOE_STEPS} timed steps of the "
              f"Mixtral cell (phase 22a), the {TRAIN_STEPS} timed steps of phase 24a, "
              f"those of phase 25a on each of its {TP} ranks, those of phase 26a on each of "
-             f"its two pipeline stages and those of phase 27a on each of its four ranks"),
+             f"its two pipeline stages, those of phase 27a on each of its four ranks and "
+             f"those of phase 28a on each of its two sep ranks"),
             ("flash_attention_fwd_wide", "flash_attention.cu", "flash_attention.py:112",
              wide_flash[0], wide_flash_launches,
              "nn.functional.flash_attention past 256 columns (no model path runs them)"),
@@ -7910,7 +8045,8 @@ def main(argv=None) -> int:
                           "of its two pipeline stages (PipelineParallel.train_batch over the "
                           f"stage's tensors, one a step) and phase 27a's {TRAIN_STEPS} on each of "
                           "its four ranks (the sharded update over the stage's tensor slices, "
-                          "one a step)")
+                          f"one a step) and phase 28a's {SEP_STEPS} on each of its two sep "
+                          "ranks (TrainStep's update of the whole model, one a step)")
     kernels.append({
         "name": "multi_tensor_update_master", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",

@@ -495,8 +495,11 @@ def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str, *, 
     its slice of the ``sharding`` axis (the first dim of its tensor slice
     that the axis divides): stage 1 all-reduces its gradient, stage 2
     reduce-scatters it. Returns the model's :class:`ShardedUpdate` over the
-    data ranks (``data_axes``)."""
+    data ranks (``data_axes``). A context axis across processes not among
+    ``data_axes`` (``sep``: the gradients partial over it) is summed over
+    with the data axes and left out of the divisor."""
     from . import tensor_parallel
+    from .mesh import context_axes
 
     pieces = list(model) if isinstance(model, (list, tuple)) else [model]
     params = [p for piece in pieces for p in piece.parameters()]
@@ -511,6 +514,11 @@ def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str, *, 
         partial |= {id(p) for p in params if getattr(p, "sequence_parallel", False)}
     data_axes = tuple(a for a in data_axes if a in mesh.dim_names)
     divisor = int(np.prod([mesh.get_dim_size(a) for a in data_axes])) if data_axes else 1
+    ctx = tuple(a for a in context_axes(mesh) if a not in data_axes)
+
+    def ordered(axes):          # a group's key in the mesh's order (made up front)
+        return tuple(a for a in mesh.dim_names if a in axes)
+
     state_group = (mesh.get_group("sharding") if stage in (1, 2) and "sharding" in data_axes
                    and mesh.get_dim_size("sharding") > 1 else None)
     infos = {}
@@ -546,14 +554,15 @@ def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str, *, 
             continue
         if dim is None and tdim is None and not part:
             continue
-        rest = tuple(a for a in data_axes if a not in shard_axes) + ((tensor_axis,) if part else ())
+        rest = ordered(tuple(a for a in data_axes if a not in shard_axes) + ctx
+                       + ((tensor_axis,) if part else ()))
         cut = shard_axes + ((tensor_axis,) if tdim is not None else ())
         info = ShardInfo(full, dim, mesh.get_group(shard_axes) if dim is not None else None,
                          mesh.get_group(rest) if rest else None, at_rest=at_rest, tdim=tdim,
                          tgroup=tgroup if tdim is not None else None,
                          copies=tgroup if tdim is None and not part else None,
                          norm_group=mesh.get_group(cut) if cut else None,
-                         sum_group=(mesh.get_group(data_axes + (tensor_axis,))
+                         sum_group=(mesh.get_group(ordered(data_axes + ctx + (tensor_axis,)))
                                     if part and not at_rest else None))
         if held is not None:
             register(p, info)
@@ -562,4 +571,4 @@ def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str, *, 
         infos[id(p)] = info
     for piece in pieces:
         install_gathers(piece, divisor)
-    return ShardedUpdate(infos, mesh.get_group(data_axes), divisor, stage)
+    return ShardedUpdate(infos, mesh.get_group(ordered(data_axes + ctx)), divisor, stage)

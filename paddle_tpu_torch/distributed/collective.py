@@ -367,7 +367,9 @@ def reduce_scatter(tensor, tensor_or_tensor_list, op=ReduceOp.SUM, group=None, s
 
 def all_to_all(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     """Send ``in_tensor_list[j]`` to rank j; ``out_tensor_list`` receives one
-    tensor from each rank (appended when empty)."""
+    tensor from each rank (appended when empty). Over gloo, whose list
+    ``alltoall`` some releases lack, the tensors travel as one flat
+    ``all_to_all_single`` (one dtype)."""
     g = _resolve(group)
     if len(in_tensor_list) != g.nranks:
         raise ValueError(f"all_to_all: {len(in_tensor_list)} inputs for {g.nranks} ranks")
@@ -375,13 +377,24 @@ def all_to_all(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     ins = [t.contiguous() for t in in_tensor_list]
     fresh = not out_tensor_list
     outs = [torch.empty_like(t) for t in ins] if fresh else list(out_tensor_list)
+    flat = None
     if g.process_group is None:
         outs[0].copy_(ins[0])
         work = None
+    elif g.backend == "gloo":
+        flat = torch.empty(sum(o.numel() for o in outs), dtype=ins[0].dtype,
+                           device=ins[0].device)
+        work = dist.all_to_all_single(flat, torch.cat([t.reshape(-1) for t in ins]),
+                                      output_split_sizes=[o.numel() for o in outs],
+                                      input_split_sizes=[t.numel() for t in ins],
+                                      group=g.process_group, async_op=True)
     else:
         work = dist.all_to_all(outs, ins, group=g.process_group, async_op=True)
 
     def then():
+        if flat is not None:
+            for o, part in zip(outs, flat.split([o.numel() for o in outs])):
+                o.copy_(part.view(o.shape))
         if fresh:
             out_tensor_list.extend(outs)
     return _finish([work], then, sync_op, out_tensor_list)

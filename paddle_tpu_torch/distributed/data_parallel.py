@@ -29,6 +29,11 @@ requires.
   that had one goes with them; a parameter no rank reached keeps no
   gradient. Ranks that reach different parameters then still agree.
 - ``scale_loss`` is the identity: the gradients are averaged.
+- Under a mesh with a context-parallel axis across processes (``sep``:
+  each rank holds its positions of the sequence, so its gradients are
+  partial there) the buckets are summed over the mesh's data and context
+  axes and divided by the data ranks alone: the mean over the data, the
+  sum over ``sep`` (``fleet.SegmentParallel``).
 - ``TrainStep``, which takes gradients with ``torch.autograd.grad`` and
   not into ``.grad``, reduces them through :meth:`DataParallel.reduce_gradients`,
   in buckets in the reverse order of the parameters.
@@ -37,6 +42,7 @@ requires.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 
 import torch
@@ -45,7 +51,7 @@ from ..nn.layer.layers import Layer
 from . import collective as _c
 from ._sharded import _reduce_dtype
 
-__all__ = ["DataParallel"]
+__all__ = ["DataParallel", "sum_over_context"]
 
 _MB = 1 << 20
 
@@ -61,10 +67,12 @@ class _Reducer:
     docstring); :attr:`stats` counts buckets fired (full and tail) and
     gradients bucketed."""
 
-    def __init__(self, params, group, comm_mb, last_mb, find_unused):
+    def __init__(self, params, group, comm_mb, last_mb, find_unused, divisor=None,
+                 max_inflight=None):
         self.params = params
         self.group = group
-        self.world = group.nranks
+        self.world = group.nranks if divisor is None else divisor
+        self.max_inflight = max_inflight      # buckets in flight at most (None: all)
         self.cap = int(comm_mb * _MB)
         self.last_cap = int(last_mb * _MB)
         self.find_unused = find_unused
@@ -128,6 +136,17 @@ class _Reducer:
         flat = torch.cat([g.reshape(-1).to(rdt) for _, g in entries])   # one dtype a bucket
         task = _c.all_reduce(flat, group=self.group, sync_op=False)
         self.inflight.append((task, flat, entries))
+        while self.max_inflight and len(self.inflight) > self.max_inflight:
+            self._settle(*self.inflight.pop(0))
+
+    def _settle(self, task, flat, entries):
+        """Wait for one bucket and write its means into its gradients."""
+        task.wait()
+        off = 0
+        for p, g in entries:
+            n = g.numel()
+            g.copy_((flat[off:off + n] / self.world).view_as(g).to(g.dtype))
+            off += n
 
     def flush(self):
         """End of a backward: send the rest, wait, write the means."""
@@ -142,13 +161,8 @@ class _Reducer:
     def _drain(self):
         try:
             self._fire("tail")
-            for task, flat, entries in self.inflight:
-                task.wait()
-                off = 0
-                for p, g in entries:
-                    n = g.numel()
-                    g.copy_((flat[off:off + n] / self.world).view_as(g).to(g.dtype))
-                    off += n
+            for entry in self.inflight:
+                self._settle(*entry)
         finally:
             self._reset()
 
@@ -164,10 +178,11 @@ class _Reducer:
                 p.grad = torch.zeros_like(p)
             self.deposit(p, p.grad)
 
-    def reduce(self, params, grads):
+    def reduce(self, params, grads, inplace=False):
         """The mean over the ranks of ``grads`` (one a parameter), in
-        buckets in the reverse order of ``params``; returns new tensors."""
-        out = [g.clone() for g in grads]
+        buckets in the reverse order of ``params``; returns new tensors
+        (``inplace``: ``grads`` themselves, written over)."""
+        out = list(grads) if inplace else [g.clone() for g in grads]
         for i in reversed(range(len(params))):
             if self.pergrad:
                 rdt = _reduce_dtype(out[i].dtype, self.group)
@@ -178,6 +193,50 @@ class _Reducer:
             self.deposit(params[i], out[i])
         self._drain()
         return out
+
+
+def _reduce_group(group):
+    """(the group the gradients are summed over, their divisor): ``group``
+    and its size, or under a mesh with a context axis across processes the
+    mesh's data and context axes and the data axes' size."""
+    from .fleet.sharding import DATA_AXES
+    from .mesh import context_axes, get_mesh
+
+    mesh = get_mesh()
+    ctx = context_axes(mesh)
+    if not ctx:
+        return group, None
+    data = tuple(a for a in mesh.dim_names if a in DATA_AXES and mesh.get_dim_size(a) > 1)
+    return (mesh.get_group(tuple(a for a in mesh.dim_names if a in data or a in ctx)),
+            math.prod(mesh.get_dim_size(a) for a in data))
+
+
+#: buckets in flight at most in :func:`sum_over_context`'s reduction
+SUM_INFLIGHT = 4
+
+
+def sum_over_context(model, comm_buffer_size=25, last_comm_buffer_size=1):
+    """Under the current mesh's context axis across processes: give
+    ``model`` a ``reduce_gradients`` (``TrainStep``'s) that sums its
+    gradients over the mesh's data and context axes and divides them by
+    the data ranks, in buckets as :class:`DataParallel`'s (at most
+    ``SUM_INFLIGHT`` in flight, written over ``TrainStep``'s gradients: a
+    model's worth of f32 buckets would double its memory), and the same
+    reduction after an eager backward (hooks). Returns ``model``."""
+    group, divisor = _reduce_group(None)
+    if group is None:
+        raise ValueError("sum_over_context needs a mesh with a context axis across processes")
+    reducer = _Reducer([p for p in model.parameters() if p.requires_grad], group,
+                       comm_buffer_size, last_comm_buffer_size, False, divisor, SUM_INFLIGHT)
+    inner = getattr(model, "reduce_gradients", None)
+
+    def reduce_gradients(params, grads):
+        if inner is not None:
+            grads = inner(params, grads)
+        return reducer.reduce(params, grads, inplace=True)
+
+    model.reduce_gradients = reduce_gradients
+    return model
 
 
 class DataParallel(Layer):
@@ -197,12 +256,13 @@ class DataParallel(Layer):
         self.find_unused_parameters = find_unused_parameters
         g = _c._resolve(group)
         self.group = g
+        g, divisor = _reduce_group(g)
         with torch.no_grad():
             for t in list(layers.parameters()) + list(layers.buffers()):
                 _c.broadcast(t.data, src=g.ranks[0], group=g)
         trainable = [p for p in layers.parameters() if p.requires_grad]
         self._reducer = _Reducer(trainable, g, comm_buffer_size, last_comm_buffer_size,
-                                 find_unused_parameters)
+                                 find_unused_parameters, divisor)
 
     def forward(self, *inputs, **kwargs):
         return self._layers(*inputs, **kwargs)

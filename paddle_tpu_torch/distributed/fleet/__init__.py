@@ -25,7 +25,12 @@ mesh has its ``pp`` axis and ``distributed_model`` and
 reference's: pipelines are built with :class:`PipelineParallel` or
 ``partitioning.pipeline_from_rules``, which place each rank's stages over
 the ``mp`` and ``sharding`` axes (its optimizer state at the strategy's
-sharding stage). ``localsgd`` waits for ``incubate.optimizer.LocalSGD``.
+sharding stage). At ``sep_degree`` above 1 (the segment-parallel mode:
+each rank of the ``sep`` axis on its positions of the sequence)
+``distributed_model`` returns :class:`SegmentParallel` (gradients summed
+over ``sep``, averaged over the data ranks), or beside ``mp`` / a
+sharding stage the cut or sharded model, whose update sums over ``sep``
+too. ``localsgd`` waits for ``incubate.optimizer.LocalSGD``.
 
 Also here: the tensor-parallel layers (:mod:`.mp_layers`),
 :mod:`.sequence_parallel` (Megatron's sequence parallelism and the
@@ -51,14 +56,14 @@ from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy, ParallelLinear,
                         RowParallelLinear, VocabParallelEmbedding)
 from .random import RNGStatesTracker, get_rng_state_tracker, model_parallel_random_seed
-from .sequence_parallel import ring_context_attention
+from .sequence_parallel import SegmentParallel, ring_context_attention
 from .sharding import DygraphShardingOptimizer, group_sharded_parallel
 from .topology import CommunicateTopology, HybridCommunicateGroup
 
 __all__ = ["moe", "mp_layers", "sequence_parallel", "sharding", "topology", "random",
            "MoELayer", "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
            "ParallelCrossEntropy", "ParallelLinear",
-           "ring_context_attention", "DistributedStrategy", "Fleet", "fleet", "init",
+           "ring_context_attention", "SegmentParallel", "DistributedStrategy", "Fleet", "fleet", "init",
            "distributed_model", "distributed_optimizer", "get_hybrid_communicate_group",
            "worker_num", "worker_index", "is_first_worker", "barrier_worker",
            "CommunicateTopology", "HybridCommunicateGroup", "RNGStatesTracker",
@@ -175,6 +180,9 @@ class Fleet:
             shard, replicas, whole, n = data_groups(self._mesh)
             self._model_update = plan(model.parameters(), 3, shard, replicas, whole, n, model)
             return model
+        if hcg.get_parallel_mode() == "segment_parallel":
+            return SegmentParallel(model, hcg,
+                                   find_unused_parameters=self._strategy.find_unused_parameters)
         if hcg.get_parallel_mode() == "data_parallel" and hcg.get_data_parallel_world_size() > 1:
             from ..data_parallel import DataParallel
 
@@ -195,7 +203,7 @@ class Fleet:
                 optimizer._accumulate_steps = k
                 optimizer._accumulate_avg = bool(cfg.get("avg", True))
         mode = self._hcg.get_parallel_mode() if self._hcg is not None else None
-        if mode in ("model_parallel", "sharding_parallel") \
+        if mode in ("model_parallel", "sharding_parallel", "segment_parallel") \
                 and self._hcg.get_model_parallel_world_size() > 1:
             from .sharding import GroupShardedOptimizer
 

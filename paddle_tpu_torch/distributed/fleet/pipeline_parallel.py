@@ -58,6 +58,16 @@ the cotangent) and the receiver gathers it (``gather_seq``); where they
 give this rank's part already (a Llama with ``sequence_parallel``) it
 goes as it is. Stage 0 tells which at the first tick.
 
+Beside a context-parallel axis (``sep`` / ``cp`` across processes) each
+rank of it takes its positions of every row (dim 1 of the ids and the
+labels, ``_rows``) and a stage sends them to the same ``sep`` coordinate
+of the next stage (the pipe group holds the ranks of one coordinate);
+the stages' decoder layers run the ring or Ulysses over the axis (the
+mesh must be the current one, as ``fleet.init`` makes it). The loss is
+each rank's mean over its positions, so the axis averages the loss and
+the gradients with the data axes: the global token mean where every rank
+counts its positions alike.
+
 :class:`PipelineParallel` takes the reference's arguments, checks and
 messages; a rank keeps only its own stages' parameters and optimizer state
 on its device (the other stages' Layers are moved to the CPU). On a mesh
@@ -342,14 +352,16 @@ class _Link:
             raise ValueError(f"num_stages={num_stages}: the port runs one process a stage, so "
                              f"it must be the size of the mesh's {axis_name!r} axis "
                              f"({mesh.get_dim_size(axis_name)})")
-        from ..mesh import TENSOR_AXES
+        from ..mesh import CONTEXT_AXES, TENSOR_AXES
 
         others = [n for n, s in zip(mesh.dim_names, mesh.shape) if n != axis_name and s > 1]
         tensor = [n for n in others if n in TENSOR_AXES]
         if len(tensor) > 1:
             raise ValueError(f"{mesh} has two tensor axes above 1: {tensor}")
         self.tensor_axis = tensor[0] if tensor else None
-        self.data_axes = tuple(n for n in others if n != self.tensor_axis)
+        self.context_axes = tuple(n for n in others if n in CONTEXT_AXES)
+        self.data_axes = tuple(n for n in others if n != self.tensor_axis
+                               and n not in self.context_axes)
         self.device = _env.device()
         group = mesh.get_group(axis_name)
         for k in range(len(others) + 1):
@@ -358,12 +370,18 @@ class _Link:
         self.p2p = StageLink(group, mesh.axis_ranks(axis_name), self.device)
         self.stage = self.p2p.stage
         self.tensor_group = mesh.get_group(self.tensor_axis) if self.tensor_axis else None
-        self.data_group = mesh.get_group(self.data_axes) if self.data_axes else None
+        # the loss and the gradients are averaged over the data and context axes
+        self.mean_axes = tuple(n for n in others if n in self.data_axes + self.context_axes)
+        self.data_group = mesh.get_group(self.mean_axes) if self.mean_axes else None
         coords = mesh.coordinate()
         self.data_index, self.data_size = 0, 1
         for n in self.data_axes:
             self.data_index = self.data_index * mesh.get_dim_size(n) + coords[n]
             self.data_size *= mesh.get_dim_size(n)
+        self.seq_index, self.seq_size = 0, 1
+        for n in self.context_axes:
+            self.seq_index = self.seq_index * mesh.get_dim_size(n) + coords[n]
+            self.seq_size *= mesh.get_dim_size(n)
         self.seq_dim = None     # the activations' dim that activation_spec cuts over tensor
 
     def cut_by(self, activation_spec) -> None:
@@ -383,7 +401,8 @@ class _Link:
 
 
 def _rows(x, link: _Link, num_microbatches: int, device):
-    """This data replica's rows of ``x`` on ``device``, cut into
+    """This data replica's rows of ``x`` on ``device`` (beside a context
+    axis, this rank's positions of them: dim 1), cut into
     ``num_microbatches`` contiguous microbatches ``[M, rows / M, ...]``."""
     x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
     if link.data_size > 1:
@@ -391,6 +410,12 @@ def _rows(x, link: _Link, num_microbatches: int, device):
             raise ValueError(f"a batch of {x.shape[0]} rows over {link.data_size} data replicas")
         n = x.shape[0] // link.data_size
         x = x[link.data_index * n:(link.data_index + 1) * n]
+    if link.seq_size > 1:
+        if x.dim() < 2 or x.shape[1] % link.seq_size:
+            raise ValueError(f"a batch of shape {tuple(x.shape)}: its positions (dim 1) over "
+                             f"{link.seq_size} context ranks must divide")
+        n = x.shape[1] // link.seq_size
+        x = x[:, link.seq_index * n:(link.seq_index + 1) * n]
     if x.shape[0] % num_microbatches:
         raise ValueError(f"a batch of {x.shape[0]} rows into {num_microbatches} microbatches")
     x = x.to(device)
@@ -755,7 +780,7 @@ class PipelineParallel:
                 partial |= TP.install(piece, link.tensor_group, specs, link.tensor_axis,
                                       gather_output=not (self._pce and piece is self.last))
         partial |= {id(q) for q in params if getattr(q, "sequence_parallel", False)}
-        self._update = _sharded.plan_specs(pieces, mesh, specs, link.data_axes,
+        self._update = _sharded.plan_specs(pieces, mesh, specs, link.mean_axes,
                                            link.tensor_axis or "", stage=stage,
                                            partial=partial)
         self._partial = partial

@@ -34,9 +34,30 @@ gradient: the hooks wait while it runs its schedule,
 under a tensor axis with ``sequence_parallel`` runs this schedule itself
 (``models.llama``).
 
-``ring_context_attention`` is the ring over the mesh's ``sep`` axis on
-one device. Ulysses' all-to-all and the ring's send and receive between
-processes wait for the port's sep-across-processes slice.
+Context parallelism over the mesh's ``sep`` axis (the reference's
+``:115-185``, which GSPMD lowers to collectives over the axis): in a
+world of several processes each rank of the axis holds S / P positions of
+the sequence (:func:`context_link`: its transport, ``_sep_p2p.SepLink``).
+
+- :func:`ring_context_attention`: the ring (``ops.ring_attention``: the
+  flash schedule, or the composed ring) over the axis's processes; q, k
+  and v are this rank's rows, heads and positions. The reference cuts the
+  global tensors' batch over ``dp`` and the heads over ``mp`` (``:139-169``,
+  ``batch_ax`` / ``head_ax``); here the rank holds its rows and heads
+  already. In a world of one process the axis is the one-process ring of
+  virtual ranks over the global sequence.
+- Ulysses: :func:`sep_all_to_all_qkv` exchanges ``[b, s/P, h, d]`` for
+  ``[b, s, h/P, d]`` (all positions, this rank's heads) and
+  :func:`sep_all_to_all_output` back, each an autograd function whose
+  backward is the inverse exchange; the heads must divide over the axis.
+- :func:`split_sequence`: this rank's positions of ``x`` (dim 1); its
+  backward gathers them.
+- :class:`SegmentParallel` (``meta_parallel/segment_parallel.py``): the
+  model's parameters broadcast over the data and ``sep`` ranks, its
+  gradients summed over ``sep`` (partial there: each rank's positions
+  reach every parameter) and averaged over the data ranks, in the backward
+  (buckets) and in ``TrainStep`` (``reduce_gradients``), as
+  ``DataParallel`` under such a mesh.
 """
 
 from __future__ import annotations
@@ -52,14 +73,16 @@ from ...nn.layer.layers import Layer
 from ...ops.ring_attention import ring_attention
 from .. import collective as _c
 from .. import tensor_parallel as tp
-from ..mesh import get_mesh
+from ..data_parallel import DataParallel
+from ..mesh import context_axes, get_mesh
+from ._sep_p2p import SepLink
 from .mp_layers import _cut, model_parallel_group
 
 __all__ = ["scatter", "all_gather", "ScatterOp", "GatherOp", "AllGatherOp", "ReduceScatterOp",
            "ColumnSequenceParallelLinear", "RowSequenceParallelLinear",
            "mark_as_sequence_parallel_parameter", "register_sequence_parallel_allreduce_hooks",
-           "deferred_hooks",
-           "ring_context_attention"]
+           "deferred_hooks", "context_link", "split_sequence", "sep_all_to_all_qkv",
+           "sep_all_to_all_output", "SegmentParallel", "ring_context_attention"]
 
 
 def _group(group):
@@ -211,16 +234,138 @@ def register_sequence_parallel_allreduce_hooks(model, fuse_grad=True, group=None
     return model
 
 
+def context_link(axis_name: str = "sep", mesh=None):
+    """This rank's :class:`~._sep_p2p.SepLink` on ``mesh``'s (the current
+    mesh's) context axis ``axis_name`` when it runs across processes (made
+    once a mesh and axis), else None (no mesh, no such axis above 1, or a
+    world of one process)."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if axis_name not in context_axes(mesh):
+        return None
+    links = mesh.__dict__.setdefault("_links", {})
+    if axis_name not in links:
+        group = mesh.get_group(axis_name)
+        if mesh.axis_ranks(axis_name) != group.ranks:
+            raise ValueError(f"{mesh}: the {axis_name!r} axis's ranks "
+                             f"{mesh.axis_ranks(axis_name)} must rise with their coordinate")
+        links[axis_name] = SepLink(group)
+    return links[axis_name]
+
+
+def _link(axis_name):
+    link = context_link(axis_name)
+    if link is None:
+        raise ValueError(f"no {axis_name!r} axis across processes on the current mesh "
+                         f"({get_mesh()})")
+    return link
+
+
+def split_sequence(x, axis_name: str = "sep"):
+    """This rank's part of ``x``'s sequence (dim 1) over the current mesh's
+    ``axis_name`` across processes (``x`` itself in a world of one
+    process); the backward gathers the parts."""
+    link = context_link(axis_name)
+    if link is None:
+        return x
+    if not x.is_floating_point():
+        n = x.shape[1]
+        if n % link.size:
+            raise ValueError(f"{n} positions over {link.size} {axis_name} ranks: they must "
+                             "divide")
+        return x.narrow(1, link.index * (n // link.size), n // link.size)
+    return tp.scatter_seq(x, link.group)
+
+
+class _SeqToHeads(torch.autograd.Function):
+    """[b, s/P, h, d] -> [b, s, h/P, d]; the backward the inverse."""
+
+    @staticmethod
+    def forward(ctx, x, link):
+        ctx.link = link
+        return _seq_to_heads(x, link)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _heads_to_seq(g, ctx.link), None
+
+
+class _HeadsToSeq(torch.autograd.Function):
+    """[b, s, h/P, d] -> [b, s/P, h, d]; the backward the inverse."""
+
+    @staticmethod
+    def forward(ctx, x, link):
+        ctx.link = link
+        return _heads_to_seq(x, link)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_to_heads(g, ctx.link), None
+
+
+def _seq_to_heads(x, link):
+    return torch.cat(link.all_to_all(list(x.chunk(link.size, dim=2))), dim=1)
+
+
+def _heads_to_seq(x, link):
+    return torch.cat(link.all_to_all(list(x.chunk(link.size, dim=1))), dim=2)
+
+
+def _check_heads(link, **heads):
+    bad = {k: h for k, h in heads.items() if h % link.size}
+    if bad:
+        raise ValueError(f"Ulysses cuts the heads over {link.size} sep ranks: "
+                         + ", ".join(f"{k} {h}" for k, h in bad.items())
+                         + " do not divide")
+
+
+def sep_all_to_all_qkv(q, k, v, axis_name: str = "sep"):
+    """DeepSpeed-Ulysses' exchange over the current mesh's ``axis_name``:
+    each of q, k, v from ``[b, s/P, h, d]`` (this rank's positions, every
+    head) to ``[b, s, h/P, d]`` (every position, this rank's heads); their
+    heads must divide over the axis (else ValueError naming them)."""
+    link = _link(axis_name)
+    _check_heads(link, **{"num_heads": q.shape[2], "num_kv_heads": k.shape[2]})
+    return tuple(_SeqToHeads.apply(t, link) for t in (q, k, v))
+
+
+def sep_all_to_all_output(o, axis_name: str = "sep"):
+    """The inverse exchange after attention: ``[b, s, h/P, d]`` ->
+    ``[b, s/P, h, d]``."""
+    return _HeadsToSeq.apply(o, _link(axis_name))
+
+
 def ring_context_attention(q, k, v, causal: bool = True, axis_name: str = "sep"):
-    """Attention of q [b, s, h, d] over k, v [b, s, hk, d] as a ring over
-    the current mesh's ``axis_name`` (its size is the number of ranks,
-    each holding s / size positions); returns [b, s, h, d]. GQA is handled
-    inside the ring. Under ``amp.auto_cast`` q, k and v are first cast as
-    the op ``ring_attention``."""
+    """Attention of q over k, v (GQA: fewer K/V heads) as a ring over the
+    current mesh's ``axis_name``. Across processes q [b, s/P, h, d] and k,
+    v [b, s/P, hk, d] are this rank's positions and the result its
+    [b, s/P, h, d]; in a world of one process they are the whole sequence,
+    which the one-process ring cuts into the axis's size of virtual ranks.
+    Under ``amp.auto_cast`` q, k and v are first cast as the op
+    ``ring_attention``."""
     mesh = get_mesh()
     if mesh is None:
         raise RuntimeError("ring_context_attention requires an active mesh")
     if axis_name not in mesh.dim_names:
         raise ValueError(f"mesh has no {axis_name!r} axis for context parallel")
     q, k, v = cast_inputs("ring_attention", q, k, v)
-    return ring_attention(q, k, v, mesh.get_dim_size(axis_name), causal=causal)
+    link = context_link(axis_name, mesh)
+    return ring_attention(q, k, v, mesh.get_dim_size(axis_name), causal=causal, link=link)
+
+
+class SegmentParallel(DataParallel):
+    """``SegmentParallel(layers, hcg=None)``: see the module docstring. The
+    data group is ``hcg``'s (fleet's), else the current mesh's data axes;
+    a model that takes the whole sequence and keeps its own positions (the
+    Llama under ``context_parallel``, ``takes_global_sequence``) gets its
+    inputs whole, any other its positions of each input of two or more
+    dims (:func:`split_sequence`)."""
+
+    def __init__(self, layers, hcg=None, **kwargs):
+        group = hcg.get_data_parallel_group() if hcg is not None else None
+        super().__init__(layers, group=group, **kwargs)
+
+    def forward(self, *inputs, **kwargs):
+        if not getattr(self._layers, "takes_global_sequence", False):
+            inputs = tuple(split_sequence(x) if torch.is_tensor(x) and x.ndim >= 2 else x
+                           for x in inputs)
+        return self._layers(*inputs, **kwargs)

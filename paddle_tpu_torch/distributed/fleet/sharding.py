@@ -21,6 +21,7 @@ each rank's state on its slice of its tensor slice.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _sharded
@@ -36,17 +37,23 @@ DATA_AXES = ("dcn", "dp", "sharding", "fsdp")
 
 
 def data_groups(mesh, axis="sharding", group=None):
-    """(shard group, replica group, data group, data ranks) over ``mesh``'s
-    ``axis`` and its data axes, or over ``group`` alone."""
+    """(shard group, replica group, reduce group, data ranks) over
+    ``mesh``'s ``axis`` and its data axes, or over ``group`` alone. A
+    context axis across processes (``sep``) joins the replica and reduce
+    groups but not the divisor: the gradients, partial over it, are summed
+    there and averaged over the data ranks."""
     if mesh is None or axis not in getattr(mesh, "dim_names", ()):
         g = _c._resolve(group)
         return g, None, g, g.nranks
+    from ..mesh import context_axes
+
     data = tuple(n for n in mesh.dim_names if n in DATA_AXES)
-    rest = tuple(n for n in data if n != axis)
+    ctx = context_axes(mesh)
+    rest = tuple(n for n in mesh.dim_names if (n in data and n != axis) or n in ctx)
     shard = mesh.get_group(axis)
     replicas = mesh.get_group(rest) if rest else None
-    whole = mesh.get_group(data)
-    return shard, replicas, whole, whole.nranks
+    whole = mesh.get_group(tuple(n for n in mesh.dim_names if n in data or n in ctx))
+    return shard, replicas, whole, int(np.prod([mesh.get_dim_size(n) for n in data]))
 
 
 def plan(params, stage, shard, replicas, whole, divisor, model=None):

@@ -11,10 +11,11 @@ group (this rank's stages, in stage order) and the previous and next
 stage's global ranks (cyclic, as Paddle's ``_set_p2p_prev_next``: the
 interleaved schedule sends from the last stage to the first) come from
 the real pipe group, at any mix of the degrees (dp x pp x sharding x
-mp); :meth:`HybridCommunicateGroup.get_parallel_mode` keeps the
-reference's precedence (pipeline, then sharding, sep, model, data).
-``sep`` beside another axis above 1 waits for the port's
-sep-across-processes slice and raises.
+mp, and sep beside any of them); :meth:`HybridCommunicateGroup.get_parallel_mode`
+keeps the reference's precedence (pipeline, then sharding, sep, model,
+data): at ``sep`` above 1 alone or beside data and model the mode is
+"segment_parallel", and the ``sep`` group (:meth:`get_sep_parallel_group`)
+carries the ring and Ulysses' all-to-all (``fleet.sequence_parallel``).
 """
 
 from __future__ import annotations

@@ -32,12 +32,12 @@ import itertools
 import numpy as np
 
 __all__ = ["ProcessMesh", "set_mesh", "get_mesh", "auto_mesh", "init_mesh_from_topology",
-           "init_hybrid_mesh", "build_program_mesh"]
+           "init_hybrid_mesh", "build_program_mesh", "context_axes"]
 
 _default_mesh: "ProcessMesh | None" = None
 
 #: axis name -> the later slice of the port that brings it
-WAITING_AXES = {"ep": "expert parallelism across devices", "cp": "sep across processes"}
+WAITING_AXES = {"ep": "expert-parallel"}
 
 #: the names of the tensor axis
 TENSOR_AXES = ("tensor", "mp", "model")
@@ -45,20 +45,28 @@ TENSOR_AXES = ("tensor", "mp", "model")
 #: the names of the pipe axis
 PIPE_AXES = ("pipe", "pp")
 
+#: the names of the context-parallel axes (the sequence cut over their ranks)
+CONTEXT_AXES = ("sep", "cp")
+
 
 def check_axes(names, sizes) -> None:
     """Raise ``NotImplementedError`` for an axis above 1 that a later
     slice brings."""
-    wide = {n: s for n, s in zip(names, sizes) if s > 1}
-    for name, size in wide.items():
-        if name in WAITING_AXES:
+    for name, size in zip(names, sizes):
+        if size > 1 and name in WAITING_AXES:
             raise NotImplementedError(
                 f"mesh axis {name}={size} waits for the port's {WAITING_AXES[name]} slice")
-    if "sep" in wide and len(wide) > 1:
-        raise NotImplementedError(
-            f"mesh axes {wide}: sep beside other axes means sep across processes, which "
-            "waits for the port's sep-across-processes slice; a one-process mesh takes a "
-            "'sep' axis of any size alone (the ring's virtual ranks)")
+
+
+def context_axes(mesh) -> tuple:
+    """``mesh``'s context-parallel axes above 1 that run across processes:
+    none in a world of one process (its ``sep`` axis is the one-process
+    ring's virtual ranks)."""
+    from . import env as _env
+
+    if mesh is None or not _env.is_initialized() or _env.get_world_size() < 2:
+        return ()
+    return tuple(n for n, s in zip(mesh.dim_names, mesh.shape) if n in CONTEXT_AXES and s > 1)
 
 
 class ProcessMesh:

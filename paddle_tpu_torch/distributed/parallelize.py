@@ -18,8 +18,13 @@ parameter that the tensor axis does not on its largest dim over
 ``sharding``, at rest (the reference's ``parallelize.py:44-85``). With an
 optimizer it returns ``(model, optimizer)``, the optimizer a
 ``fleet.sharding.GroupShardedOptimizer`` when a stage or ``mp_config``
-applies. A mesh of one process with only a ``sep`` axis (the one-process
-ring) changes no parameter. ``dp_config`` and ``pp_config`` are taken and
+applies. A context-parallel axis across processes (``sep``: each rank on
+its positions of the sequence, the gradients partial there) is summed
+over inside the sharded update, beside the data axes' mean; without a
+stage or a tensor axis the model's gradients are summed over it and
+averaged over the data axes (``data_parallel.sum_over_context``: the
+model's ``reduce_gradients``, which ``TrainStep`` calls). A mesh of one
+process with a ``sep`` axis (the one-process ring) changes no parameter. ``dp_config`` and ``pp_config`` are taken and
 read no further, as in the reference (a pipeline is built with
 ``fleet.PipelineParallel`` or ``partitioning.pipeline_from_rules``).
 
@@ -91,6 +96,13 @@ def parallelize(model, optimizer=None, mesh: ProcessMesh | None = None, config=N
         update = plan(model.parameters(), stage, shard, replicas, whole, n, model)
         if optimizer is not None:
             optimizer = GroupShardedOptimizer(optimizer, update)
+    else:
+        from .mesh import context_axes
+
+        if context_axes(mesh):
+            from .data_parallel import sum_over_context
+
+            sum_over_context(model)
     return (model, optimizer) if optimizer is not None else model
 
 

@@ -10,17 +10,19 @@ from ...nn.functional import swiglu  # noqa: F401 (re-export, as the reference d
 __all__ = ["fused_rotary_position_embedding", "rotary_tables", "swiglu"]
 
 
-def rotary_tables(seq: int, dim: int, base: float, device=None):
+def rotary_tables(seq: int, dim: int, base: float, device=None, offset: int = 0):
     """(sin, cos) ``[seq, dim / 2]`` in f32 of the angles
-    ``t * base^(-2i / dim)`` for ``t = 0..seq-1``."""
+    ``t * base^(-2i / dim)`` for ``t = offset..offset+seq-1``."""
     inv = 1.0 / (base ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
-    freqs = torch.outer(torch.arange(seq, dtype=torch.float32, device=device), inv)
+    t = torch.arange(offset, offset + seq, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv)
     return torch.sin(freqs), torch.cos(freqs)
 
 
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     position_ids=None, use_neox_rotary_style=True,
-                                    time_major=False, rotary_emb_base=10000.0):
+                                    time_major=False, rotary_emb_base=10000.0, *,
+                                    _position_offset: int = 0):
     """Rotary position embedding of q, k, v ``[batch, seq, heads, dim]``
     (each may be None), with the reference's semantics (``functional.py:50``):
 
@@ -34,6 +36,11 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
       interleaved pairs ``(0::2, 1::2)``;
     - under ``amp.auto_cast`` q, k and v are first cast as the op
       ``fused_rope``.
+
+    ``_position_offset`` (internal) starts the default angles there: a
+    rank of a context-parallel axis holds positions ``offset ..`` of the
+    sequence, whose global angles the reference's tensors, global under
+    GSPMD, get for free.
     """
     if time_major:
         raise NotImplementedError("time_major rotary embedding comes with a later slice "
@@ -42,7 +49,7 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     def rope(a):
         d = a.shape[-1]
         if sin is None:
-            s, c = rotary_tables(a.shape[1], d, rotary_emb_base, a.device)
+            s, c = rotary_tables(a.shape[1], d, rotary_emb_base, a.device, _position_offset)
         else:
             s = sin.reshape(sin.shape[-2], -1)[..., : d // 2]
             c = cos.reshape(cos.shape[-2], -1)[..., : d // 2]

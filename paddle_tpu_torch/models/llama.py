@@ -5,7 +5,10 @@ Counterpart of ``paddle_tpu/models/llama.py``:
 - the configuration;
 - the training half (reference lines 94-285): ``LlamaAttention`` (GQA,
   RoPE, flash attention through the gate, or with
-  ``context_parallel="ring"`` the ring over the mesh's ``sep`` axis),
+  ``context_parallel="ring"`` the ring over the mesh's ``sep`` axis, with
+  ``"ulysses"`` Ulysses' all-to-all around the attention; across
+  processes each rank of ``sep`` holds S / P positions, RoPE at their
+  global angles),
   ``LlamaMLP`` (SwiGLU) or, with ``moe_num_experts``, the
   Mixture-of-Experts ``fleet.MoELayer``,
   ``LlamaDecoderLayer`` (pre-norm residual blocks, optional recompute
@@ -36,9 +39,11 @@ from .. import random as R
 from ..amp import cast_inputs
 from ..device import resolve_device
 from ..distributed.fleet.moe import MoELayer
-from ..distributed.fleet.sequence_parallel import ring_context_attention
+from ..distributed.fleet.sequence_parallel import (context_link, ring_context_attention,
+                                                    sep_all_to_all_output, sep_all_to_all_qkv)
 from ..distributed.partitioning.rules import mark_logical
-from ..distributed.tensor_parallel import gather_last, parallel_cross_entropy, vocab_embedding
+from ..distributed.tensor_parallel import (gather_last, parallel_cross_entropy, reduce_from,
+                                           vocab_embedding)
 from ..distributed.recompute import recompute
 from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..nn import functional as F
@@ -70,6 +75,18 @@ def _mark(param, shard_axes, logical, units=None):
     if units is not None:
         param.logical_units = tuple(units)
     return param
+
+
+def _context(config):
+    """The ``sep`` axis's link when ``config`` is context-parallel across
+    processes (the current mesh's ``sep`` above 1 in a world of several
+    processes), else None."""
+    return context_link("sep") if config.context_parallel is not None else None
+
+
+def _rope_offset(link, positions: int) -> int:
+    """The first global position of this ``sep`` rank's ``positions``."""
+    return link.index * positions
 
 
 def kv_heads_for(rank: int, size: int, heads: int, kv_heads: int):
@@ -162,41 +179,54 @@ class LlamaAttention(Layer):
         reference does not read ``position_ids``); causal flash attention
         through the gate without a mask, the composed path with one. With
         ``context_parallel="ring"``, causal ring attention over the current
-        mesh's ``sep`` axis (reference lines 134-148): RoPE stays on the
-        global positions, since the ring's ranks live in this process."""
+        mesh's ``sep`` axis (reference lines 134-148); with ``"ulysses"``
+        the heads exchanged for the sequence over ``sep`` around the
+        attention (reference lines 129-160). Across processes
+        ``hidden_states`` holds this ``sep`` rank's positions, whose RoPE
+        angles start at its first global position; in one process the
+        ring's virtual ranks see the whole sequence, and Ulysses is the
+        plain attention."""
         tp = self._tp
         if tp is not None:
             hidden_states = tp.enter(hidden_states, self._tp_cut)
         b, s = hidden_states.shape[0], hidden_states.shape[1]
+        link = _context(self.config)
         q = self.q_proj(hidden_states).reshape(b, s, -1, self.head_dim)
         k = self.k_proj(hidden_states).reshape(b, s, -1, self.head_dim)
         v = self.v_proj(hidden_states).reshape(b, s, -1, self.head_dim)
-        q, k, _ = fused_rotary_position_embedding(q, k, None,
-                                                  rotary_emb_base=self.config.rope_theta)
+        q, k, _ = fused_rotary_position_embedding(
+            q, k, None, rotary_emb_base=self.config.rope_theta,
+            _position_offset=0 if link is None else _rope_offset(link, s))
         if self._kv_pick is not None:
             k, v = _pick_heads(k, self._kv_pick), _pick_heads(v, self._kv_pick)
+        cp = self.config.context_parallel
+        if cp == "ring" or (cp == "ulysses" and link is not None):
+            if attention_mask is not None:
+                raise ValueError(
+                    f"context_parallel={cp!r} computes pure causal attention; "
+                    f"padding attention_mask is not supported on the {cp} path")
+            if past_key_value is not None:
+                raise ValueError(
+                    f"context_parallel={cp!r} is a training-time schedule; cached decode "
+                    "(past_key_value) is not supported; export the model without "
+                    "context_parallel for generation")
         if past_key_value is not None:
             k = torch.cat([past_key_value[0], k], dim=1)
             v = torch.cat([past_key_value[1], v], dim=1)
         causal = past_key_value is None
-        if self.config.context_parallel == "ring":
-            if attention_mask is not None:
-                raise ValueError(
-                    "context_parallel='ring' computes pure causal attention; "
-                    "padding attention_mask is not supported on the ring path")
-            if past_key_value is not None:
-                raise ValueError(
-                    "context_parallel='ring' is a training-time schedule; cached decode "
-                    "(past_key_value) is not supported; export the model without "
-                    "context_parallel for generation")
+        if cp == "ring":
             out = ring_context_attention(q, k, v, causal=True)
-            return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
-        if self.config.use_flash_attention and attention_mask is None:
-            out, _ = F.flash_attention(q, k, v, causal=causal, training=self.training)
         else:
-            out = F.scaled_dot_product_attention(
-                q, k, v, attn_mask=attention_mask,
-                is_causal=causal and attention_mask is None, training=self.training)
+            if cp == "ulysses" and link is not None:
+                q, k, v = sep_all_to_all_qkv(q, k, v)
+            if self.config.use_flash_attention and attention_mask is None:
+                out, _ = F.flash_attention(q, k, v, causal=causal, training=self.training)
+            else:
+                out = F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=attention_mask,
+                    is_causal=causal and attention_mask is None, training=self.training)
+            if cp == "ulysses" and link is not None:
+                out = sep_all_to_all_output(out)
         out = self.o_proj(out.reshape(b, s, -1))
         return out if tp is None else tp.exit(out, self._tp_cut)
 
@@ -257,9 +287,6 @@ class LlamaDecoderLayer(Layer):
             raise NotImplementedError("a Mixture-of-Experts Llama under a tensor axis: the "
                                       "rules put its experts on it, which waits for the "
                                       "port's expert-parallel slice")
-        if self.config.context_parallel is not None:
-            raise NotImplementedError("context_parallel beside a tensor axis waits for the "
-                                      "port's sep-across-processes slice")
         heads_cut = is_cut(a.q_proj.weight)
         kv_cut = is_cut(a.k_proj.weight)
         mlp_cut = is_cut(f.gate_proj.weight)
@@ -351,13 +378,16 @@ class LlamaForCausalLM(Layer):
     :func:`load_reference_state_dict` or :meth:`load_decode_weights`.
     """
 
+    #: under context parallelism the model takes the whole sequence and
+    #: keeps its own positions (``fleet.SegmentParallel`` passes it whole)
+    takes_global_sequence = True
+
     def __init__(self, config: LlamaConfig, *, device="cuda",
                  dtype=torch.float32, seed: int = 0):
         super().__init__()
-        if config.context_parallel not in (None, "ring"):
-            raise NotImplementedError(
-                f"context_parallel={config.context_parallel!r}: context parallelism other "
-                "than the one-process ring waits for the port's sep-across-processes slice")
+        if config.context_parallel not in (None, "ring", "ulysses"):
+            raise ValueError(f"context_parallel={config.context_parallel!r}: one of None, "
+                             "'ring', 'ulysses'")
         self.config = config
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
@@ -375,7 +405,23 @@ class LlamaForCausalLM(Layer):
         ``(loss, logits)`` where loss is the mean cross entropy (f32). Under
         a tensor axis that cuts the vocabulary the logits are this rank's
         columns ``[b, s, vocab / t]`` and the loss is the vocab-parallel
-        cross entropy's mean."""
+        cross entropy's mean. Context-parallel across processes (a ``sep``
+        axis of P ranks), the model takes the whole ``[b, s]`` ids and
+        labels, as the reference's users pass them, and keeps this rank's
+        positions ``r * s / P ..``: the logits are this rank's
+        ``[b, s / P, vocab]`` and the loss the global token mean, the same
+        on every ``sep`` rank (each rank's sum summed over the axis, its
+        backward this rank's share)."""
+        link = _context(self.config)
+        if link is not None:
+            n = input_ids.shape[1]
+            if n % link.size:
+                raise ValueError(f"context parallelism cuts {n} positions over {link.size} "
+                                 "sep ranks: they must divide")
+            n //= link.size
+            input_ids = input_ids.narrow(1, link.index * n, n)
+            if labels is not None:
+                labels = labels.narrow(1, link.index * n, n)
         hidden_states = self.llama(input_ids, attention_mask, position_ids)
         tp = self._tp
         head_cut = tp is not None and self._tp_cut
@@ -391,11 +437,20 @@ class LlamaForCausalLM(Layer):
         if head_cut:
             per = parallel_cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                          labels.reshape(-1), tp.group)
-            loss = per.sum() / torch.clamp_min((labels.reshape(-1) != -100).sum(), 1)
+            count = (labels.reshape(-1) != -100).sum()
+        elif link is not None:
+            per = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                                  labels.reshape(-1), reduction="none")
+            count = (labels.reshape(-1) != -100).sum()
         else:
             loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
                                    labels.reshape(-1), reduction="mean")
-        return loss, logits
+            return loss, logits
+        total = per.float().sum()
+        if link is not None:
+            total = reduce_from(total, link.group)
+            count = reduce_from(count, link.group)
+        return total / torch.clamp_min(count, 1), logits
 
     def install_tensor_parallel(self, tp, is_cut) -> set:
         """Compute on this rank's slices over the tensor axis ``tp``

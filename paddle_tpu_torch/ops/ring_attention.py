@@ -22,6 +22,13 @@ no probe and no fallback: a tensor sent to the kernels launches them or
 raises (a head_dim past ``flash_attention.MAX_WIDE_HEAD_DIM``; the kernels' own
 checks name what they refuse, the counterpart of the reference's
 ValueError at :67-74).
+
+Across processes (``link``, the context axis's transport) q, k and v are
+this rank's shards, as in the reference's ``shard_map`` body: the flash
+schedule sends K/V (and in the backward dK/dV) around the ring, and the
+composed ring rotates K/V at their grouped head count with one hop a step
+(:func:`_rotate`, whose backward is the reverse hop: the ``ppermute``'s
+transpose), each rank masking by its own and the owner's positions.
 """
 
 from __future__ import annotations
@@ -47,21 +54,75 @@ def flash_runs(q) -> bool:
 
 def _block(q, k, v, scale, mask):
     """One K/V block per rank: (numerator p @ v, block max, block sum)."""
-    logits = torch.einsum("pbhqd,pbhkd->pbhqk", q, k).float() * scale
+    logits = torch.einsum("...hqd,...hkd->...hqk", q, k).float() * scale
     if mask is not None:
         logits = torch.where(mask, logits, torch.full((), NEG_INF, device=logits.device))
     m_b = logits.amax(dim=-1)
     p = torch.exp(logits - m_b[..., None])
-    a = torch.einsum("pbhqk,pbhkd->pbhqd", p.to(v.dtype), v).float()
+    a = torch.einsum("...hqk,...hkd->...hqd", p.to(v.dtype), v).float()
     return a, m_b, p.sum(dim=-1)
+
+
+def _expand(k, v, rep: int):
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    return k, v
+
+
+class _Rotate(torch.autograd.Function):
+    """K/V to the next rank of the ring, from the previous; the backward
+    sends the gradients the other way."""
+
+    @staticmethod
+    def forward(ctx, link, k, v):
+        ctx.link = link
+        return tuple(link.hop([k, v], "rot").wait())
+
+    @staticmethod
+    def backward(ctx, dk, dv):
+        return (None,) + tuple(ctx.link.hop([dk, dv], "rot", reverse=True).wait())
+
+
+def _rotate(k, v, link):
+    return _Rotate.apply(link, k, v)
+
+
+def _composed_link(q, k, v, link, causal: bool):
+    """The blockwise ring over the processes of ``link`` on this rank's
+    shards [B, S / P, H | Hk, D]."""
+    P, r = link.size, link.index
+    n, D = q.shape[1], q.shape[3]
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    scale = 1.0 / math.sqrt(D)
+    acc = torch.zeros(qt.shape, dtype=torch.float32, device=q.device)
+    m = torch.full(qt.shape[:-1], NEG_INF, dtype=torch.float32, device=q.device)
+    s = torch.zeros(qt.shape[:-1], dtype=torch.float32, device=q.device)
+    pos = torch.arange(n, device=q.device)
+    kc, vc = k, v
+    for step in range(P):
+        mask = None
+        if causal:
+            owner = (r - step) % P                # whose K/V shard this rank holds
+            mask = (r * n + pos)[:, None] >= (owner * n + pos)[None, :]
+        ke, ve = _expand(kc, vc, rep)
+        a, m_b, s_b = _block(qt, ke.transpose(1, 2), ve.transpose(1, 2), scale, mask)
+        m_new = torch.maximum(m, m_b)
+        w_old = torch.exp(m - m_new)
+        w_blk = torch.exp(m_b - m_new)
+        acc = acc * w_old[..., None] + a * w_blk[..., None]
+        s = s * w_old + s_b * w_blk
+        m = m_new
+        if step != P - 1:
+            kc, vc = _rotate(kc, vc, link)
+    out = (acc / torch.clamp_min(s, 1e-30)[..., None]).to(q.dtype)
+    return out.transpose(1, 2)
 
 
 def _composed(q, k, v, P: int, causal: bool):
     B, S, H, D = q.shape
-    rep = H // k.shape[2]
-    if rep > 1:
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
+    k, v = _expand(k, v, H // k.shape[2])
     n = S // P
 
     def ranks(t):  # [B, S, H, D] -> [P, B, H, S / P, D]
@@ -92,13 +153,19 @@ def _composed(q, k, v, P: int, causal: bool):
     return unfold(out.transpose(2, 3).reshape(P * B, n, H, D), P)
 
 
-def ring_attention(q, k, v, ring_size: int, causal: bool = False):
+def ring_attention(q, k, v, ring_size: int, causal: bool = False, link=None):
     """Attention of q [B, S, H, D] over k, v [B, S, Hk, D] computed as a
     ring of ``ring_size`` ranks of S / P positions each (S % P == 0, or
-    ValueError). Returns [B, S, H, D], equal to full-sequence attention."""
+    ValueError). Returns [B, S, H, D], equal to full-sequence attention.
+    With ``link`` (the ring across processes, ``ring_size`` its size) q, k
+    and v are this rank's shards [B, S / P, ...] and so is the result."""
     h, hk = q.shape[2], k.shape[2]
     if hk == 0 or h % hk:
         raise ValueError(f"GQA requires num_heads % num_kv_heads == 0, got {h} vs {hk}")
+    if link is not None and int(ring_size) != link.size:
+        raise ValueError(f"ring_size {ring_size} on a ring of {link.size} processes")
     if flash_runs(q):
-        return ring_flash_attention(q, k, v, ring_size, causal)
+        return ring_flash_attention(q, k, v, ring_size, causal, link=link)
+    if link is not None:
+        return _composed_link(q, k, v, link, causal)
     return _composed(q, k, v, int(ring_size), causal)

@@ -16,9 +16,22 @@ folded ``[P * B, S / P, H, D]`` (for B = 1 a view, no copy). Each ring step
 is then one launch over the ranks that see a K/V shard, and the rotation
 becomes indexing. What the reference computes stays: the shard pairs of
 each step, the causal gate, the merge order per rank, the f32 dQ/dK/dV
-accumulators per owner and the GQA handling. Moving shards between cards
-(``torch.distributed`` P2P over NCCL) waits for the port's
-sep-across-processes slice and a machine with more than one card.
+accumulators per owner and the GQA handling.
+
+**Across processes** (``link``: the context axis's transport,
+``distributed.fleet._sep_p2p.SepLink``): each rank holds its own q, k and
+v ``[B, S / P, H | Hk, D]`` and K/V travel around the ring, as the
+reference's ``ppermute``. At step s rank r holds the shard of owner ``(r -
+s) mod P``: the diagonal at s = 0 (causal), fully visible when the owner
+is before r, masked when after, where the rank launches nothing and still
+passes the shard on. K/V travel at their grouped head count and dtype,
+P - 1 hops; in the backward the f32 dK/dV accumulators travel with them,
+P hops, and so arrive home (``ring_flash.py:131-138``); dQ accumulates
+here in f32. Each hop is posted before the step's launch and waited for
+after it. A rank's steps are the one-process ring's steps of its rank in
+the same order (the same partials, the same merges, the same
+accumulation order), so the two agree bit for bit where the kernels give
+each batch entry the same bits whatever the batch.
 
 **Causal ring.** At step s the visible (query rank, K/V owner) pairs are
 ranks ``[s, P)`` against owners ``[0, P - s)``: both contiguous slices of the
@@ -70,7 +83,8 @@ from . import _build
 from . import flash_attention as fa
 
 __all__ = ["ring_merge", "ring_merge_ref", "ring_merge_plain", "ring_flash_fwd",
-           "ring_flash_bwd", "ring_flash_attention", "fold", "unfold"]
+           "ring_flash_bwd", "ring_flash_fwd_link", "ring_flash_bwd_link",
+           "ring_flash_attention", "fold", "unfold"]
 
 
 def _rows(t):
@@ -230,6 +244,76 @@ def ring_flash_bwd(q, k, v, out, lse, dout, ring_size: int, causal: bool, scale=
     return dq_acc.to(q.dtype), dk_acc.to(k.dtype), dv_acc.to(v.dtype)
 
 
+def _visible(link, s: int, causal: bool) -> bool:
+    """Whether rank ``link.index`` sees its step-``s`` shard (owner
+    ``(index - s) mod P``)."""
+    return not causal or s <= link.index
+
+
+def ring_flash_fwd_link(q, k, v, link, causal: bool, scale=None):
+    """``(out, lse)`` of this rank's queries over the ring of ``link``
+    (q [B, S / P, H, D], k and v [B, S / P, Hk, D] this rank's shards):
+    out in q's dtype, lse the merged f32 [B, H, S / P]."""
+    P = link.size
+    last = link.index if causal else P - 1     # the last step that sees a shard
+    kc, vc = k, v
+    out = lse = acc = None
+    for s in range(P):
+        pending = link.hop([kc, vc], "kv") if s < P - 1 else None
+        if _visible(link, s, causal):
+            out_b, lse_b = fa.flash_attention_fwd(q, kc, vc, causal and s == 0, scale)
+            if s == 0:
+                out, lse = out_b, lse_b
+                if last > 0:
+                    acc = out_b.float()
+            else:
+                ring_merge(acc, lse, out_b, lse_b, out if s == last else None)
+        if pending is not None:
+            kc, vc = pending.wait()
+    return out, lse
+
+
+def ring_flash_bwd_link(q, k, v, out, lse, dout, link, causal: bool, scale=None):
+    """``(dq, dk, dv)`` of this rank's shards over the ring of ``link``,
+    from the forward's rounded out and merged lse."""
+    P = link.size
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    kc, vc = k, v
+    dq_acc = dkc = dvc = None          # dK/dV: the accumulators of the shard held
+    for s in range(P):
+        kv = link.hop([kc, vc], "kv") if s < P - 1 else None
+        if _visible(link, s, causal):
+            dq_b, dk_b, dv_b = fa.flash_attention_bwd(q, kc, vc, dout, lse, delta,
+                                                      causal and s == 0, scale)
+            if s == 0:
+                dq_acc, dkc, dvc = dq_b.float(), dk_b.float(), dv_b.float()
+            else:
+                dq_acc.add_(dq_b)
+                dkc.add_(dk_b)
+                dvc.add_(dv_b)
+        dkv = link.hop([dkc, dvc], "dkv")
+        if kv is not None:
+            kc, vc = kv.wait()
+        dkc, dvc = dkv.wait()
+    return dq_acc.to(q.dtype), dkc.to(k.dtype), dvc.to(v.dtype)
+
+
+class _RingFlashLink(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, link, causal, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = ring_flash_fwd_link(q, k, v, link, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (link, causal, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = ring_flash_bwd_link(q, k, v, out, lse, dout.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 class _RingFlash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, ring_size, causal, scale):
@@ -246,14 +330,21 @@ class _RingFlash(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def ring_flash_attention(q, k, v, ring_size: int, causal: bool = False, scale=None):
+def ring_flash_attention(q, k, v, ring_size: int, causal: bool = False, scale=None,
+                         link=None):
     """Differentiable ring flash attention over the global sequence: q
     [B, S, H, D], k and v [B, S, Hk, D], split into ``ring_size`` ranks of
     S / P positions (S % P == 0, or ValueError). Returns [B, S, H, D],
-    equal to full attention over the sequence."""
+    equal to full attention over the sequence. With ``link`` (the ring
+    across processes, ``ring_size`` its size) q, k and v are this rank's
+    shards and so is the result."""
     h, hk = q.shape[2], k.shape[2]
     if hk == 0 or h % hk:
         raise ValueError(f"GQA requires num_heads % num_kv_heads == 0, got {h} vs {hk}")
     P = int(ring_size)
+    if link is not None:
+        if P != link.size:
+            raise ValueError(f"ring_size {P} on a ring of {link.size} processes")
+        return _RingFlashLink.apply(q, k, v, link, bool(causal), scale)
     out = _RingFlash.apply(fold(q, P), fold(k, P), fold(v, P), P, bool(causal), scale)
     return unfold(out, P)

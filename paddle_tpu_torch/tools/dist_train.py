@@ -107,6 +107,25 @@ counters).
   ``train_batch`` step's optimizer state on the rank against the stage's
   whole state.
 
+- ``--phase s`` (two or four ranks on one card, gloo; context parallelism
+  across processes, the Llama's ``context_parallel`` over
+  ``ProcessMesh([2], ["sep"])``, or at four ranks ``ProcessMesh([2, 2],
+  ["sep", "mp"])``, through ``parallelize`` and ``TrainStep``: each rank
+  keeps its half of the sequence, the loss is the global token mean, the
+  gradients are summed over sep): (b, c at four ranks) the step check at
+  ``--check-layers`` layers, batch 1 x ``--check-seq``: for the ring, for
+  Ulysses and for a planted fault (the ring with RoPE at every rank's
+  positions from 0, ``models.llama._rope_offset``), the loss and every
+  leaf's reduced gradient (this rank's slices beside the tensor axis)
+  against a one-process traced backward of the whole batch on the card,
+  each rank holding its own; (a, two ranks) the ring across processes
+  against the one-process ring at the cell's layer shapes, bit for bit,
+  then the timed cell: ``--layers`` layers, batch 1 x ``--seq`` (each rank
+  on ``--seq / 2`` positions), the ring, AdamW with the clip: a warm-up,
+  ``--steps`` timed steps (the host's transport included) and one
+  profiled step, with exact launches (``sep_expected``) and the
+  collectives by kind and bytes.
+
 ``--tiny`` runs ``LlamaConfig.tiny()`` widths with head_dim 64 (the card
 tests).
 """
@@ -1124,9 +1143,255 @@ def phase_h(args, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase s: context parallelism across processes
+# ---------------------------------------------------------------------------
+
+SEP = 2                 # ranks of the sep axis
+SEP_TENSOR = 4          # 28c's ranks: sep 2 x tensor 2
+#: (context_parallel, planted fault) of the step check
+SEP_RUNS = (("ring", None), ("ulysses", None), ("ring", "no_offset"))
+
+
+def sep_counters():
+    """:func:`counters` and the ring's merge."""
+    from ..ops import ring_flash as rf
+
+    return {**counters(), "ring_merge": (vars(rf.ring_merge), "launches")}
+
+
+def sep_expected(index: int, layers: int, steps: int) -> dict:
+    """Launches on sep rank ``index`` of ``steps`` TrainStep calls of the
+    ring at ``layers`` layers: flash forward and backward ``index + 1``
+    times a layer (the visible steps of a causal ring), the merge ``index``
+    times, RMSNorm's ``round_first`` mode 2 L + 1 each way on the rank's
+    positions, one fused update a step."""
+    norms = (2 * layers + 1) * steps
+    return {"flash_wgmma_fwd": (index + 1) * layers * steps,
+            "flash_wgmma_bwd": (index + 1) * layers * steps,
+            "rms_norm_fwd_fused": 0, "rms_norm_bwd_dx_fused": 0,
+            "rms_norm_fwd_round_first": norms, "rms_norm_bwd_dx_round_first": norms,
+            "multi_tensor_update": steps, "ring_merge": index * layers * steps}
+
+
+def sep_bytes(cfg, seq: int, size: int, layers: int) -> int:
+    """The ring's bytes sent a TrainStep call by one rank: K and V (bf16,
+    grouped heads) P - 1 hops forward and P - 1 in the backward, the f32
+    dK and dV accumulators P hops."""
+    kv = (seq // size) * cfg.num_key_value_heads * (cfg.hidden_size // cfg.num_attention_heads)
+    return layers * (2 * kv * 2 * (size - 1) * 2 + 2 * kv * 4 * size)
+
+
+def sep_mesh(world: int):
+    from .. import distributed as dist
+
+    if world == SEP:
+        return dist.ProcessMesh(shape=[SEP], dim_names=["sep"])
+    return dist.ProcessMesh(shape=[SEP, world // SEP], dim_names=["sep", "mp"])
+
+
+def sep_step(args, layers, cp, mesh):
+    """(model, TrainStep) of a fresh Llama under ``context_parallel=cp``,
+    parallelized over ``mesh`` (its tensor axis by ``mp_config``)."""
+    from .. import distributed as dist
+    from ..jit import TrainStep
+
+    model, opt = build(args, layers, context_parallel=cp)
+    config = {"mp_config": {}} if "mp" in mesh.dim_names else None
+    model, opt = dist.parallelize(model, opt, mesh=mesh, config=config)
+    return model, TrainStep(model, opt, loss_fn(model))
+
+
+def sep_grads(step, ids, labels) -> tuple:
+    """(loss, {leaf: (this rank's reduced gradient, its index in the
+    whole)}) through the step's reductions: the model's ``reduce_gradients``
+    (the sum over sep), or beside a tensor axis the sharded update's."""
+    upd = getattr(step.optimizer, "_update", None)
+    if upd is not None:
+        return reduced_grads(step, ids, labels)
+    params = step._params()
+    loss, grads = step._loss_and_grads(params, (ids, labels))
+    grads = step.model.reduce_gradients([p for _, p in params], grads)
+    return loss, {n: (g, tuple(slice(None) for _ in g.shape))
+                  for (n, _), g in zip(params, grads)}
+
+
+def sep_check(args, mesh) -> dict:
+    """(28b / 28c): see the module docstring."""
+    import torch
+
+    from .. import distributed as dist
+    from ..models import llama as L
+
+    rank = dist.get_rank()
+    cfg = config(args, args.check_layers)
+    ids, labels = tokens(args.seed + 2, 1, args.check_seq, cfg.vocab_size)
+    want = one_process(args, args.check_layers, ids, labels)
+    res = {}
+    keep = L._rope_offset
+    for cp, plant in SEP_RUNS:
+        t0 = time.perf_counter()
+        model, step = sep_step(args, args.check_layers, cp, mesh)
+        if plant == "no_offset":
+            L._rope_offset = lambda link, n: 0
+        try:
+            loss, got = sep_grads(step, ids, labels)
+        finally:
+            L._rope_offset = keep
+        errs = sliced_grad_errors(got, want["grads"])
+        worst = max(errs, key=errs.get)
+        name = cp + (f"_{plant}" if plant else "")
+        res[name] = {"loss": loss.item(), "loss_plain": want["loss"], "leaves": len(errs),
+                     "leaves_checked": len(errs) == len(want["grads"]),
+                     "grad_vs_ref_max_rel": errs[worst], "grad_vs_ref_worst_leaf": worst,
+                     "grad_vs_ref_tol": GRAD_TOL,
+                     "grad_vs_ref_beyond_tol": sum(e > GRAD_TOL for e in errs.values()),
+                     "seconds": round(time.perf_counter() - t0, 1)}
+        say("s", rank=rank, case=f"check_{name}", **res[name])
+        del model, step, got
+        torch.cuda.empty_cache()
+    del want
+    torch.cuda.empty_cache()
+    return res
+
+
+def ring_vs_one_process(args, cfg, link) -> dict:
+    """(28a) the ring across processes against the one-process ring on the
+    card, at the cell's layer shapes (q [1, seq, H, 128], K/V at Hk, bf16,
+    causal): this rank's output and dQ, dK, dV against its rows of the
+    one-process ring's, bit for bit."""
+    import torch
+
+    from ..ops import ring_flash as rf
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 5)
+    hd = cfg.hidden_size // cfg.num_attention_heads
+
+    def draw(heads):
+        return torch.randn(1, args.seq, heads, hd, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v = draw(cfg.num_attention_heads), draw(cfg.num_key_value_heads), \
+        draw(cfg.num_key_value_heads)
+    do = draw(cfg.num_attention_heads)
+    n = args.seq // link.size
+    rows = slice(link.index * n, (link.index + 1) * n)
+    whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    one = rf.ring_flash_attention(*whole, link.size, True)
+    one.backward(do)
+    mine = [t[:, rows].clone().requires_grad_(True) for t in (q, k, v)]
+    got = rf.ring_flash_attention(*mine, link.size, True, link=link)
+    got.backward(do[:, rows].contiguous())
+    torch.cuda.synchronize()
+    pairs = {"out": (got, one[:, rows])}
+    pairs.update({f"d{x}": (m.grad, w.grad[:, rows]) for x, m, w in zip("qkv", mine, whole)})
+    out = {"bit_identical": {k: bool(torch.equal(a, b)) for k, (a, b) in pairs.items()},
+           "max_abs_err": {k: (a.float() - b.float()).abs().max().item()
+                           for k, (a, b) in pairs.items()},
+           "shape": [1, n, cfg.num_attention_heads, hd]}
+    if args.tiny:       # the plain full attention over the whole inputs (small shapes)
+        from ..ops import flash_attention as fa
+
+        o, lse = fa.flash_attention_fwd_ref(q, k, v, True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        plain = (o,) + tuple(fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, True))
+        out["vs_plain_max_rel"] = {
+            key: ((a.float() - w[:, rows].float()).abs().max()
+                  / w[:, rows].float().abs().max()).item()
+            for key, (a, _), w in zip(pairs, pairs.values(), plain)}
+    del q, k, v, do, whole, one, mine, got, pairs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_s(args, out):
+    import torch
+
+    from .. import distributed as dist
+    from ..distributed import collective
+    from ..distributed.fleet.sequence_parallel import context_link
+
+    dist.init_parallel_env(timeout=120)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if world not in (SEP, SEP_TENSOR):
+        raise ValueError(f"phase s runs {SEP} or {SEP_TENSOR} ranks, got {world}")
+    mesh = sep_mesh(world)
+    dist.set_mesh(mesh)
+    link = context_link("sep", mesh)
+    res = {"backend": dist.env.backend(), "world": world, "rank": rank,
+           "device": str(dist.env.device()), "coord": mesh.coordinate(), "sep_index": link.index}
+    t0 = time.perf_counter()
+    res["check"] = sep_check(args, mesh)
+    res["check_s"] = round(time.perf_counter() - t0, 1)
+    if world != SEP:
+        dist.barrier()
+        return res
+    # (28a) the timed cell, after the ring against the one-process ring
+    t_a = time.perf_counter()
+    cfg = config(args, args.layers)
+    res["vs_one_process"] = ring_vs_one_process(args, cfg, link)
+    model, step = sep_step(args, args.layers, "ring", mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c = sep_counters()
+    losses, times = [], []
+    for i in range(args.steps + 1):
+        ids, labels = tokens(args.seed + 3 + i, 1, args.seq, cfg.vocab_size)
+        if i == 1:
+            torch.cuda.synchronize()
+            zero(c)
+            collective.reset_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = read(c)
+    stats = collective.stats()
+    from torch.profiler import ProfilerActivity, profile
+
+    ids, labels = tokens(args.seed + 99, 1, args.seq, cfg.vocab_size)
+    dist.barrier()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    n = args.steps
+    res.update(layers=args.layers, seq=args.seq, positions_on_rank=args.seq // link.size,
+               warmup_step_ms=round(1e3 * times[0], 3),
+               step_ms=[round(1e3 * t, 3) for t in times[1:]],
+               step_ms_mean=round(1e3 * sum(times[1:]) / n, 3), losses=losses,
+               launches=launches,
+               collectives_per_step={k: v / n for k, v in stats["calls"].items()
+                                     if k != "barrier"},
+               collective_bytes_per_step={k: v / n for k, v in stats["bytes"].items()
+                                          if k != "barrier"},
+               params=model.num_params(),
+               max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+               profiled_step_ms=round(1e3 * wall, 3), device_busy_ms=round(1e3 * busy, 3),
+               device_busy_share=round(busy / wall, 4) if busy else "not measured",
+               seconds=round(time.perf_counter() - t_a, 1))
+    say("s", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                for k, v in res.items() if k != "check"})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses are not finite: {losses}")
+    del model, step
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("a", "b", "t", "p", "h"), required=True)
+    ap.add_argument("--phase", choices=("a", "b", "t", "p", "h", "s"), required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=4)
@@ -1138,7 +1403,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tiny", action="store_true")
     args = ap.parse_args(argv)
     res = {"a": phase_a, "b": phase_b, "t": phase_t, "p": phase_p,
-           "h": phase_h}[args.phase](args, args.out)
+           "h": phase_h, "s": phase_s}[args.phase](args, args.out)
     from .. import distributed as dist
 
     with open(os.path.join(args.out, f"dist_{args.phase}.{dist.get_rank()}.json"), "w") as f:

@@ -72,6 +72,7 @@ def test_moves_are_exact(ranks, n):
         np.testing.assert_array_equal(got["all_gather_object"], np.arange(n))
         a2a = np.concatenate([bigs[j][2 * r:2 * r + 2] for j in range(n)])
         np.testing.assert_array_equal(got["all_to_all"], a2a)
+        np.testing.assert_array_equal(got["all_to_all_gloo_without_list"], a2a)
         np.testing.assert_array_equal(got["all_to_all_single"], a2a)
         # uneven: rank j sends rows [sum(1..r), +r+1) of its input to rank r
         start = sum(range(1, r + 1))
@@ -223,8 +224,7 @@ def test_no_fallback_hides_the_device(port_device, monkeypatch):
     assert not env.is_initialized()
 
 
-@pytest.mark.parametrize("case", ["ep", "cp", "sep_and_dp", "elastic", "localsgd",
-                                  "llama_ulysses", "moe_tensor", "pipe_and_sep"])
+@pytest.mark.parametrize("case", ["ep", "elastic", "localsgd", "moe_tensor"])
 def test_the_axes_that_wait_raise(case):
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed import launch
@@ -232,18 +232,37 @@ def test_the_axes_that_wait_raise(case):
     from paddle_tpu_torch.models import llama
 
     calls = {
-        "sep_and_dp": lambda: dist.ProcessMesh(shape=[2, 2], dim_names=["dp", "sep"]),
-        "pipe_and_sep": lambda: dist.ProcessMesh(shape=[2, 2], dim_names=["pp", "sep"]),
         "elastic": lambda: launch.launch(["--max_restart", "1", "x.py"]),
         "localsgd": lambda: _localsgd(dist),
-        "llama_ulysses": lambda: llama.LlamaForCausalLM(
-            llama.LlamaConfig.tiny(context_parallel="ulysses"), device="cpu"),
         "moe_tensor": lambda: Partitioner(dist.build_program_mesh(tensor=2)).shard_model(
             llama.LlamaForCausalLM(llama.LlamaConfig.tiny(moe_num_experts=2), device="cpu")),
     }
     call = calls.get(case, lambda: dist.ProcessMesh(shape=[2], dim_names=[case]))
     with pytest.raises(NotImplementedError, match="wait"):
         call()
+    if case in ("ep", "moe_tensor"):
+        with pytest.raises(NotImplementedError, match="expert-parallel slice"):
+            call()
+
+
+@pytest.mark.parametrize("case", ["cp", "sep_and_dp", "llama_ulysses", "pipe_and_sep"])
+def test_what_waited_for_sep_across_processes_now_builds(case):
+    """These ids raised until the context-parallel slice (sep across
+    processes): the cp axis, sep beside dp and beside the pipe axis build
+    (their groups over processes: tests/test_torch_context_parallel.py),
+    and a Llama takes context_parallel="ulysses"."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models import llama
+
+    if case == "llama_ulysses":
+        model = llama.LlamaForCausalLM(llama.LlamaConfig.tiny(context_parallel="ulysses"),
+                                       device="cpu")
+        assert model.config.context_parallel == "ulysses" and model.takes_global_sequence
+        return
+    shape, names = {"cp": ([2], ["cp"]), "sep_and_dp": ([2, 2], ["dp", "sep"]),
+                    "pipe_and_sep": ([2, 2], ["pp", "sep"])}[case]
+    mesh = dist.ProcessMesh(shape=shape, dim_names=names)
+    assert mesh.shape == shape and mesh.dim_names == names
 
 
 @pytest.mark.parametrize("case", ["pipe", "pp", "program_pipe"])

@@ -2094,6 +2094,32 @@ def test_dist_hybrid_four_gloo_ranks_on_the_card(dev, tmp_path):
         assert r["transfer_bytes_per_step"]["recv"] == HY_M * 64 * 256 * 2
 
 
+# two gloo ranks on the one card at sep 2 (phase 28's mesh at tiny widths):
+# the ring across processes bit for bit the one-process ring and within
+# GRAD_TOL of the largest entry of the plain full attention, the ring's and Ulysses' gradients
+# within GRAD_TOL of a one-process traced backward, the planted fault (RoPE
+# without the rank's offset) beyond it, exact launches and ring bytes
+def test_dist_sep_two_gloo_ranks_on_the_card(dev, tmp_path):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.tools.dist_train import GRAD_TOL, sep_bytes, sep_expected
+
+    rc, logs, res = _dist_ranks(tmp_path, 2, "s", {"PADDLE_DISTRI_BACKEND": "gloo"})
+    assert rc == 0, logs
+    check = res[0]["check"]
+    for name in ("ring", "ulysses"):
+        c = check[name]
+        assert c["grad_vs_ref_beyond_tol"] == 0 and c["leaves_checked"], c
+    assert check["ring_no_offset"]["grad_vs_ref_max_rel"] > GRAD_TOL
+    cfg = LlamaConfig.tiny(num_attention_heads=4, num_key_value_heads=2)
+    for r in res:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        v = r["vs_one_process"]
+        assert all(v["bit_identical"].values()), v
+        assert max(v["vs_plain_max_rel"].values()) <= GRAD_TOL, v
+        assert r["launches"] == sep_expected(r["sep_index"], 2, 2)
+        assert r["collective_bytes_per_step"]["send"] == sep_bytes(cfg, 512, 2, 2)
+
+
 # NCCL with more ranks than cards raises and names the card, never falls
 # back to gloo
 def test_dist_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):

@@ -118,8 +118,14 @@ def test_state_dict_keys_are_checked():
         port.load_reference_state_dict(pmodel, dict(list(state.items())[1:]))
     with pytest.raises(KeyError, match="extra"):
         port.load_reference_state_dict(pmodel, dict(state, extra=np.zeros(3)))
-    with pytest.raises(NotImplementedError, match="sep-across-processes slice"):
-        port.LlamaForCausalLM(port.LlamaConfig.tiny(context_parallel="ulysses"), device="cpu")
+    # Ulysses builds (the context-parallel slice); in one process it is the
+    # plain attention: the same logits
+    uly = port.LlamaForCausalLM(port.LlamaConfig.tiny(context_parallel="ulysses"), device="cpu")
+    port.load_reference_state_dict(uly, state)
+    ids8 = torch.from_numpy(np.random.RandomState(1).randint(0, 1024, (2, 8)))
+    np.testing.assert_array_equal(uly(ids8).detach().numpy(), pmodel(ids8).detach().numpy())
+    with pytest.raises(ValueError, match="one of None, 'ring', 'ulysses'"):
+        port.LlamaForCausalLM(port.LlamaConfig.tiny(context_parallel="zigzag"), device="cpu")
     # without a tensor axis, sequence parallelism changes nothing
     sp = port.LlamaForCausalLM(port.LlamaConfig.tiny(sequence_parallel=True), device="cpu")
     port.load_reference_state_dict(sp, state)

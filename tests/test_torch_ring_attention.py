@@ -18,7 +18,8 @@ through:
 - one case against the reference's ring-flash Pallas kernels in interpret
   mode;
 - the one-process mesh, ``parallelize``, ``ring_context_attention`` and
-  their errors.
+  their errors; the meshes over a context axis beside other axes, which
+  in one process are the one-process ring.
 
 Tolerances: outputs 2e-5 and gradients 5e-5 absolute, f32 sums in
 another order over at most 32 keys of order-1 terms (as the flash tests);
@@ -284,13 +285,18 @@ def test_mesh_parallelize_and_ring_context_attention():
 
 @pytest.mark.parametrize("shape,names", [([2, 4], ["dp", "sep"]), ([1, 2, 2], ["dp", "sep", "mp"]),
                                          ([4], ["cp"]), ([2, 2], ["pp", "sep"])])
-def test_meshes_that_need_process_groups_wait_for_the_distributed_slice(shape, names):
-    # sep across processes (beside dp, mp or the pipeline) and cp wait for
-    # later slices; a mesh over processes on the other axes is the
-    # distributed slice's (tests/test_torch_distributed_*.py,
-    # tests/test_torch_pipeline*.py, tests/test_torch_hybrid_parallel.py)
-    with pytest.raises(NotImplementedError, match="waits for the port's .* slice"):
-        dist.ProcessMesh(shape=shape, dim_names=names)
+def test_meshes_over_the_context_axis_build(shape, names):
+    # these waited for the sep-across-processes slice: sep beside dp, mp or
+    # the pipeline, and cp, now build (their groups over processes and the
+    # ring across them: tests/test_torch_context_parallel.py); in this
+    # process, without a world, the context axis is the one-process ring
+    mesh = dist.ProcessMesh(shape=shape, dim_names=names)
+    assert mesh.shape == shape and mesh.dim_names == names
+    axis = "cp" if "cp" in names else "sep"
+    (q, k, v, _), want, _ = _reference_ring(True, 2)
+    with mesh:
+        got = ring_context_attention(*(torch.from_numpy(a) for a in (q, k, v)), axis_name=axis)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
 
 
 @pytest.mark.parametrize("impl", ["flash", "composed"])

@@ -63,6 +63,20 @@ def collectives(out):
     a2a = []
     dist.all_to_all(a2a, [_t(big[2 * j:2 * j + 2]) for j in range(n)])
     res["all_to_all"] = torch.cat(a2a)
+    # a gloo without the list alltoall (some releases raise "Backend gloo
+    # does not support alltoall"): the port never calls it on gloo
+    keep = torch.distributed.all_to_all
+
+    def refuse(*a, **k):
+        raise RuntimeError("Backend gloo does not support alltoall")
+
+    torch.distributed.all_to_all = refuse
+    try:
+        a2a = []
+        dist.all_to_all(a2a, [_t(big[2 * j:2 * j + 2]) for j in range(n)])
+    finally:
+        torch.distributed.all_to_all = keep
+    res["all_to_all_gloo_without_list"] = torch.cat(a2a)
     single = torch.empty(n * 2, 3)
     dist.all_to_all_single(single, _t(big))
     res["all_to_all_single"] = single
@@ -1304,6 +1318,281 @@ def hy_llama(out, weights, data):
     _pp_save_tree(out, "hy_llama", tree, loss=loss, sent=np.array(stats["bytes"].get("send", 0)))
 
 
+# ---------------------------------------------------------------------------
+# context parallelism across processes: the ring, Ulysses, the Llama
+# ---------------------------------------------------------------------------
+
+#: the reference's tiny ring configuration (tests/test_distributed.py:263-270)
+TINY_RING = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+                 use_flash_attention=False)
+#: mesh kind -> (shape, names); "d0" holds independent replicas of a sep-2 world
+CP_MESHES = {"sep2": ([2, 2], ["d0", "sep"]), "sep4": ([4], ["sep"]),
+             "dp_sep": ([2, 2], ["dp", "sep"]), "sharding_sep": ([2, 2], ["sharding", "sep"]),
+             "sep_tensor": ([2, 2], ["sep", "mp"]), "pp_sep": ([2, 2], ["pp", "sep"]),
+             "cp4": ([4], ["cp"]), "sep4_tensor": ([4, 2], ["sep", "mp"])}
+
+
+def _cp_mesh(kind):
+    shape, names = CP_MESHES[kind]
+    return dist.ProcessMesh(shape=shape, dim_names=names)
+
+
+def _cp_local(t, link):
+    n = t.shape[1] // link.size
+    return t[:, link.index * n:(link.index + 1) * n].contiguous()
+
+
+def cp_ring(out, data):
+    """The ring across processes at P 2 and 4 (the cp axis at 4), causal
+    and not, Hk 1 / 2 / 4, on the flash schedule over the plain kernels and
+    on the composed ring: this rank's output, dQ, dK, dV of
+    ``sum(out * do)``, and the same rank's rows of the one-process ring
+    over the whole inputs; then the ring's bytes a hop at P 2."""
+    from paddle_tpu_torch.distributed.fleet.sequence_parallel import context_link
+    from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch.ops import ring_flash as rf
+
+    d = np.load(data)
+    res = {}
+    for kind, axis in (("sep2", "sep"), ("cp4", "cp")):
+        mesh = _cp_mesh(kind)
+        link = context_link(axis, mesh)
+        P = link.size
+        for causal in (True, False):
+            for hk in (1, 2, 4):
+                q, k, v, do = (_t(d[f"{x}_{int(causal)}_{hk}"]) for x in ("q", "k", "v", "do"))
+                for sched in ("flash", "composed"):
+                    fn = rf.ring_flash_attention if sched == "flash" else ra.ring_attention
+                    ts = [_cp_local(t, link).requires_grad_(True) for t in (q, k, v)]
+                    C.reset_stats()
+                    o = fn(*ts, P, causal, link=link)
+                    o.backward(_cp_local(do, link))
+                    tag = f"{P}_{sched}_{int(causal)}_{hk}"
+                    res[f"out_{tag}"] = o.detach()
+                    for name, t in zip("qkv", ts):
+                        res[f"d{name}_{tag}"] = t.grad
+                    res[f"sent_{tag}"] = np.array(C.stats()["bytes"].get("send", 0))
+                    gs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+                    one = fn(*gs, P, causal)
+                    one.backward(do)
+                    res[f"one_out_{tag}"] = _cp_local(one.detach(), link)
+                    for name, t in zip("qkv", gs):
+                        res[f"one_d{name}_{tag}"] = _cp_local(t.grad, link)
+    _save(out, "cp_ring", **res)
+
+
+def cp_ulysses(out, data):
+    """Ulysses over sep 2 (replicas on d0) and sep 4: the exchange and its
+    inverse on the gathered tensor, the gradient of the exchange, and
+    Ulysses attention against full attention (the plain flash over the
+    whole inputs), causal, H 4 / Hk 4 and Hk 2 where they divide."""
+    from paddle_tpu_torch.distributed.fleet import sequence_parallel as sp
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    d = np.load(data)
+    res = {}
+    for kind in ("sep2", "sep4"):
+        mesh = _cp_mesh(kind)
+        dist.set_mesh(mesh)
+        link = sp.context_link("sep")
+        P = link.size
+        x = _t(d["q_1_4"])                           # [B, S, 4, D]
+        mine = _cp_local(x, link).requires_grad_(True)
+        (heads, _, _) = sp.sep_all_to_all_qkv(mine, mine, mine)
+        h = x.shape[2] // P
+        res[f"exchange_{P}"] = np.array(torch.equal(heads, x[:, :, link.index * h:
+                                                             (link.index + 1) * h]))
+        back = sp.sep_all_to_all_output(heads)
+        res[f"inverse_{P}"] = np.array(torch.equal(back, mine))
+        back.backward(_cp_local(_t(d["do_1_4"]), link))
+        res[f"exchange_grad_{P}"] = np.array(torch.equal(mine.grad, _cp_local(_t(d["do_1_4"]), link)))
+        whole = x.clone().requires_grad_(True)
+        part = sp.split_sequence(whole)
+        part.backward(torch.ones_like(part))
+        res[f"split_{P}"] = np.array(torch.equal(part, _cp_local(x, link))
+                                     and float(whole.grad.sum()) == x.numel()
+                                     and torch.equal(sp.split_sequence(_t(d["q_1_4"]).long()),
+                                                     _cp_local(x.long(), link)))
+        for hk in (4, 2):
+            q, k, v, do = (_t(d[f"{n}_1_{hk}"]) for n in ("q", "k", "v", "do"))
+            try:
+                ts = [_cp_local(t, link).requires_grad_(True) for t in (q, k, v)]
+                a, b, c = sp.sep_all_to_all_qkv(*ts)
+                o = sp.sep_all_to_all_output(fa.flash_attention(a, b, c, True))
+                o.backward(_cp_local(do, link))
+            except ValueError as e:
+                res[f"refused_{P}_{hk}"] = np.array(str(e))
+                continue
+            gs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            full = fa.flash_attention(*gs, True)
+            full.backward(do)
+            res[f"out_{P}_{hk}"] = o.detach()
+            res[f"full_{P}_{hk}"] = _cp_local(full.detach(), link)
+            for name, t, g in zip("qkv", ts, gs):
+                res[f"d{name}_{P}_{hk}"] = t.grad
+                res[f"full_d{name}_{P}_{hk}"] = _cp_local(g.grad, link)
+    dist.set_mesh(None)
+    _save(out, "cp_ulysses", **res)
+
+
+def _cp_whole_grads(step, params, grads):
+    """{name: the whole reduced gradient} through the step's reductions
+    (the sharded update's, gathered over its slices, or the model's)."""
+    from paddle_tpu_torch.distributed import _sharded
+    from paddle_tpu_torch.distributed.tensor_parallel import gather_dim
+
+    ps = [p for _, p in params]
+    upd = getattr(step.optimizer, "_update", None)
+    if upd is None:
+        return {n: g for (n, _), g in zip(params, step.model.reduce_gradients(ps, grads))}
+    grads = upd._reduce(ps, grads)
+    out = {}
+    for (n, p), g in zip(params, grads):
+        info = _sharded.info_of(p)
+        if info is not None and info.dim is not None:
+            g = _sharded.gather_many([g.contiguous()], [info])[0]
+        if info is not None and info.tdim is not None:
+            g = gather_dim(g, info.tdim, info.tgroup)
+        out[n] = g
+    return out
+
+
+def _cp_llama(weights, cp):
+    from paddle_tpu_torch.models import llama as L
+
+    model = L.LlamaForCausalLM(L.LlamaConfig(**TINY_RING, context_parallel=cp), device="cpu")
+    return L.load_reference_state_dict(model, dict(np.load(weights)))
+
+
+def cp_llama(out, weights, data, kind, cp, fault=0):
+    """The reference's tiny ring config under ``context_parallel=cp`` on
+    mesh ``kind``: the loss and every reduced gradient (whole), then two
+    TrainStep calls (AdamW 0.01) and the parameters after them (whole); at
+    pp 2 x sep 2 the pipeline's loss and gathered gradients, then two
+    train_batch calls. ``fault`` 1: RoPE without the rank's offset. A
+    Ulysses mesh whose heads do not divide saves its ValueError."""
+    from paddle_tpu_torch.models import llama as L
+
+    d = np.load(data)
+    ids, labels = _t(d["ids"]), _t(d["labels"])
+    mesh = _cp_mesh(kind)
+    dist.set_mesh(mesh)
+    name = f"cp_llama_{kind}_{cp}_{int(fault)}"
+    keep = L._rope_offset
+    if fault:
+        L._rope_offset = lambda link, n: 0
+    try:
+        if kind == "pp_sep":
+            res = _cp_pipeline(weights, cp, ids, labels, mesh)
+        else:
+            res = _cp_train(weights, cp, ids, labels, mesh, kind)
+    except ValueError as e:
+        res = {"refused": np.array(str(e))}
+    finally:
+        L._rope_offset = keep
+        _fleet_reset()
+    _save(out, name, **res)
+
+
+def _cp_train(weights, cp, ids, labels, mesh, kind):
+    model = _cp_llama(weights, cp)
+    opt = paddle.optimizer.AdamW(learning_rate=0.01, parameters=model.parameters())
+    if kind == "dp_sep":              # fleet: SegmentParallel over dp 2 x sep 2
+        hcg = _fleet_init(dp_degree=2, sep_degree=2)
+        model = dist.fleet.distributed_model(model)
+        opt = dist.fleet.distributed_optimizer(opt)
+        mode = hcg.get_parallel_mode()
+    else:
+        config = {"sharding_config": {"stage": 1}} if kind == "sharding_sep" else \
+            {"mp_config": {}} if kind.endswith("tensor") else None
+        model, opt = dist.parallelize(model, opt, mesh=mesh, config=config)
+        mode = ""
+    coord = mesh.coordinate()
+    rows = slice(None)
+    for a in ("dp", "sharding"):                  # a data rank's rows
+        if a in coord:
+            n = ids.shape[0] // mesh.get_dim_size(a)
+            rows = slice(coord[a] * n, (coord[a] + 1) * n)
+    ids, labels = ids[rows], labels[rows]
+    step = paddle.jit.TrainStep(model, opt, lambda x, y: model(x, labels=y)[0])
+    params = step._params()
+    loss, grads = step._loss_and_grads(params, (ids, labels))
+    res = {"loss": loss, "mode": np.array(mode),
+           "wrapped": np.array(type(model).__name__),
+           **{f"grad/{n.removeprefix('_layers.')}": g
+              for n, g in _cp_whole_grads(step, params, grads).items()}}
+    res["losses"] = torch.stack([step(ids, labels) for _ in range(2)])
+    inner = getattr(model, "_layers", model)
+    for n, v in _whole_params(dict(inner.named_parameters())).items():
+        res[f"param/{n}"] = v
+    return res
+
+
+def _cp_pipeline(weights, cp, ids, labels, mesh):
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel, gather_pipeline_tree
+
+    model = _cp_llama(weights, cp)
+    first, layers, last = model.pipeline_stages()
+
+    def loss_fn(logits, lab):
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), lab.reshape(-1))
+
+    pp = PipelineParallel(first, layers, last, loss_fn, mesh=mesh, num_microbatches=2)
+    C.reset_stats()
+    loss, grads = pp.forward_backward_pipeline(ids, labels)
+    sent = C.stats()["bytes"].get("send", 0)
+    tree = gather_pipeline_tree(grads, pp)
+    named = {"llama.embed_tokens.weight": tree["first"]["embed_tokens.weight"],
+             "llama.norm.weight": tree["last"]["norm.weight"],
+             "lm_head.weight": tree["last"]["lm_head.weight"]}
+    for k, arr in tree["stack"].items():
+        for p in range(2):
+            named[f"llama.layers.{p}.{k}"] = arr[p, 0]
+    opt = paddle.optimizer.AdamW(learning_rate=0.01, parameters=model.parameters())
+    losses = torch.stack([pp.train_batch((ids, labels), opt) for _ in range(2)])
+    pp.sync_to_model()
+    res = {"loss": loss, "losses": losses, "sent": np.array(sent),
+           **{f"grad/{n}": g for n, g in named.items()}}
+    for n, v in model.named_parameters():
+        res[f"param/{n}"] = v.detach()
+    return res
+
+
+def cp_axes(out):
+    """What waited for this slice builds over 4 ranks: a mesh's sep beside
+    dp, sharding, fsdp, the tensor axis and the pipe axis (its groups), the
+    cp axis, fleet at sep_degree 2 beside dp (the mode, the sep group, the
+    wrapper distributed_model returns) and ep's refusal."""
+    from paddle_tpu_torch.distributed.fleet import SegmentParallel
+
+    res = {}
+    for name, (shape, names) in {"sep_dp": ([2, 2], ["dp", "sep"]),
+                                 "sep_sharding": ([2, 2], ["sharding", "sep"]),
+                                 "sep_fsdp": ([2, 2], ["fsdp", "sep"]),
+                                 "sep_mp": ([2, 2], ["sep", "mp"]),
+                                 "pipe_sep": ([2, 2], ["pp", "sep"]),
+                                 "cp": ([4], ["cp"])}.items():
+        mesh = dist.ProcessMesh(shape=shape, dim_names=names)
+        axis = "cp" if "cp" in names else "sep"
+        res[name] = np.array(mesh.shape + mesh.get_group(axis).ranks
+                             + [mesh.coordinate()[axis]])
+    hcg = _fleet_init(dp_degree=2, sep_degree=2)
+    model = dist.fleet.distributed_model(paddle.nn.Linear(4, 4, device="cpu"))
+    res["fleet"] = np.array([str(x) for x in (
+        hcg.get_parallel_mode(), hcg.get_sep_parallel_world_size(),
+        hcg.get_sep_parallel_rank(), hcg.get_sep_parallel_group().ranks,
+        hcg.get_data_parallel_group().ranks, isinstance(model, SegmentParallel),
+        type(model).__name__)])
+    _fleet_reset()
+    try:
+        dist.ProcessMesh(shape=[4], dim_names=["ep"])
+        res["ep"] = np.array("no raise")
+    except NotImplementedError as e:
+        res["ep"] = np.array(str(e))
+    _save(out, "cp_axes", **res)
+
+
 def fail(out):
     """Rank 1 raises at once; the others would sleep a minute."""
     if dist.get_rank() == 1:
@@ -1328,7 +1617,8 @@ CASES = {"collectives": collectives, "dp": dp, "zero": zero, "partitioned": part
          "pp_train": pp_train, "pp_frozen": pp_frozen, "pp_remat": pp_remat,
          "pp_apply": pp_apply, "pp_dp": pp_dp, "pp_rules": pp_rules, "pp_llama": pp_llama,
          "hybrid_axes": hybrid_axes, "hy_grads": hy_grads, "hy_train": hy_train,
-         "hy_mp_sharding": hy_mp_sharding, "hy_llama": hy_llama, "hy_pp_layers": hy_pp_layers}
+         "hy_mp_sharding": hy_mp_sharding, "hy_llama": hy_llama, "hy_pp_layers": hy_pp_layers,
+         "cp_ring": cp_ring, "cp_ulysses": cp_ulysses, "cp_llama": cp_llama, "cp_axes": cp_axes}
 
 
 def main():
