@@ -451,7 +451,7 @@ Phases, each printing one line of numbers:
    13's kernels) at the cell's layer shapes (q [1, 4096, 32, 128] a rank,
    K/V at 8 heads, bf16, causal), output and dQ, dK, dV bit for bit; then
    phase 13's cell (4 layers, batch 1 x 8192, AdamW with the clip) at sep
-   2: a warm-up and SEP_STEPS = 2 timed steps (the host's transport
+   2: a warm-up and SEP_STEPS = 1 timed step (the host's transport
    included), exact
    launches on each rank (a step: rank r flash r + 1 times each way a
    layer and the merge r times, RMSNorm ``round_first`` 9 each way on its
@@ -463,6 +463,26 @@ Phases, each printing one line of numbers:
    step's busy share; (28c) four ranks over ``ProcessMesh([2, 2], ["sep",
    "mp"])`` (each rank on H 16, Hk 4; Ulysses then H 8, Hk 2): the step
    check of 28b, each rank holding its tensor slices.
+29. expert parallelism (``tools/dist_train.py --phase e``: two gloo ranks
+   sharing the card, an MoE Llama at Mixtral-8x7B's widths cut to 2
+   layers, bf16, loss the cross entropy plus 0.02 x the layers' aux,
+   AdamW with the clip, ``PartitionedTrainStep``; every MoE layer routes
+   the global batch): the step checks, each rank's reduced gradients (its
+   slices) against a one-process traced backward of the whole batch on
+   the card within ``GRAD_TOL`` (the one process routing from the logits
+   the ranks computed): (29a) the experts over dp (the all-to-all, 4
+   experts a rank), a global batch of 2 x 4096; (29c) the same at
+   capacity factor 0.5 (tokens drop) and 2 x 2048, then the planted fault
+   of every rank routing its own rows, which the check must refuse;
+   (29b) the experts over tensor (partial sums, the attention cut by
+   heads), 1 x 2048; then 29a's cell: a warm-up and EP_STEPS = 2 timed
+   steps (the host's transport included), exact launches on each rank
+   (flash 2 each way, RMSNorm ``round_first`` 5 each way, the fused update
+   1 a step), the all-to-all's bytes exactly 2 x (rows sent + rows
+   received) x 4096 x 2 a layer, every kept choice of the global batch
+   sent and returned, the replicated gradients' all-reduce exactly 4
+   bytes a parameter, per-rank peak memory and a profiled step's busy
+   share.
 
 Then the total seconds and each phase's, the card's name and power limit
 again, one JSON line with every
@@ -493,8 +513,9 @@ phase 24a's three timed steps, flash, RMSNorm's fused mode and the fused
 optimizer phase 24b's step on each of its two ranks, and flash, RMSNorm's
 ``round_first`` mode and the fused optimizer phase 25a's three timed steps
 on each of its two ranks, phase 26a's on each of its two stages, phase
-27a's on each of its four ranks and phase 28a's on each of its two sep
-ranks, whose merges and ring launches the ring's rows count too), and last ``{"ok": true,
+27a's on each of its four ranks, phase 28a's on each of its two sep
+ranks, whose merges and ring launches the ring's rows count too, and
+phase 29a's on each of its two ranks), and last ``{"ok": true,
 "device": {...}}``. Any failure
 raises and exits non-zero. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. ``--seed`` changes the
@@ -6734,7 +6755,7 @@ def moe(seed: int, smi: str) -> dict:
     """Phase 22: 22b the checks (dense against sort, kernels against plain,
     the card against the CPU), 22a and 22c the Mixtral cell with and
     without recompute, 22d bench.py's MoE step. Returns the launches of
-    22a's timed steps and 22d's optimizer launches."""
+    22a's timed steps, 22d's optimizer launches and 22a's step ms."""
     moe_dispatch_check(seed)
     check_train_step(seed, moe=True)
     moe_card_vs_cpu(seed)
@@ -6747,7 +6768,7 @@ def moe(seed: int, smi: str) -> dict:
         peak_gib=round(none["peak_gib"], 3), dispatch=trained["policy"]["dispatch"],
         bench_tokens_per_s=bench["tokens_per_s"],
         bench_policy_efficiency=bench["policy_efficiency"])
-    return {"train": none["launches"], "bench": bench["launches"]}
+    return {"train": none["launches"], "bench": bench["launches"], "step_ms": none["step_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -7440,9 +7461,10 @@ def hybrid_phase(seed: int, train_step_ms: float) -> dict:
 # ---------------------------------------------------------------------------
 
 
-# 28a's timed steps: one fewer than the other cells', whose ~9 s each are
-# gloo's host transport of the gradients (the script's time limit)
-SEP_STEPS = 2
+# 28a's timed steps: two fewer than the other cells', whose ~9-12 s each
+# are gloo's host transport of the gradients (the script's time limit: cut
+# from 2 to 1 when phase 29 came; every check of phase 28 stays)
+SEP_STEPS = 1
 
 
 def sep_phase(seed: int, train_step_ms: float, ring_step_ms: float) -> dict:
@@ -7515,6 +7537,87 @@ def sep_phase(seed: int, train_step_ms: float, ring_step_ms: float) -> dict:
     out["ring_flash_attention"] = sum(out[k] for k in ("flash_wgmma_fwd", "flash_wgmma_bwd",
                                                        "ring_merge"))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 29: expert parallelism across ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# 29a's timed steps (each ~3.5 s, most of it gloo's host transport)
+EP_STEPS = 2
+
+
+def expert_phase(seed: int, train_step_ms: float, moe_step_ms: float) -> dict:
+    """Phase 29 (29a-c): two gloo ranks, a Mixtral-width MoE Llama at
+    ``EP_LAYERS`` layers through ``PartitionedTrainStep``; returns the
+    launches of 29a's timed steps over both ranks."""
+    import torch
+
+    from paddle_tpu_torch.tools.dist_train import EP, EP_FAULT_CF, EP_LAYERS, GRAD_TOL
+
+    torch.cuda.empty_cache()
+    ranks = run_ranks("e", EP, seed, {"PADDLE_DISTRI_BACKEND": "gloo"}, EP_STEPS)
+    failures = []
+    r0 = ranks[0]
+    for name, part, mesh, rows in (("check_dp", "29a", "dp 2", f"2 x {TRAIN_SEQ // 2}"),
+                                   ("check_fault", "29c", "dp 2", f"2 x {CHECK_SEQ}"),
+                                   ("check_tensor", "29b", "tensor 2", f"1 x {CHECK_SEQ}")):
+        for case, k in r0[name].items():
+            say(f"expert-{part[-1]}", mesh=mesh, rows=rows, case=case,
+                capacity_factor=EP_FAULT_CF if name == "check_fault" else 1.5,
+                loss=k["loss"], loss_plain=k["loss_plain"], loss_rel_diff=k["loss_rel_diff"],
+                loss_rtol=k["loss_rtol"], grad_vs_ref_max_rel=k["grad_vs_ref_max_rel"],
+                grad_vs_ref_worst_leaf=k["grad_vs_ref_worst_leaf"], grad_vs_ref_tol=GRAD_TOL,
+                leaves=k["leaves"], logits_differing=f"{k['logits_differing']}/{k['logits']}",
+                logits_max_ulps=k["logits_max_ulps"], logits_tol_ulps=k["logits_tol_ulps"],
+                seconds=k["seconds"])
+            if not k["leaves_checked"]:
+                failures.append(f"phase {part} ({case}): not every leaf checked: {k}")
+            elif case == "check" and (k["grad_vs_ref_beyond_tol"]
+                                      or k["logits_max_ulps"] > k["logits_tol_ulps"]
+                                      or k["loss_rel_diff"] > k["loss_rtol"]):
+                failures.append(f"phase {part}: {k}")
+            elif case != "check" and not k["grad_vs_ref_max_rel"] > GRAD_TOL:
+                failures.append(f"phase {part}: the planted fault {case} passes the check: {k}")
+    hidden = r0["hidden"]
+    for r in ranks:
+        if r["launches"] != r["expected_launches"] or r["backend"] != "gloo" \
+                or r["world"] != EP:
+            raise AssertionError(f"phase 29a rank {r['rank']} launched {r['launches']} on "
+                                 f"{r['backend']} at world {r['world']}, expected "
+                                 f"{r['expected_launches']}")
+        # a layer's forward sends the rank's kept rows and returns what it
+        # received; its backward sends both back: bf16 rows of H
+        a2a = 2 * sum(r["a2a_rows"]) * hidden * 2
+        reduced = 4 * r["replicated_params"] * EP_STEPS     # f32 over gloo
+        moved = r["collective_bytes"]
+        if moved.get("all_to_all_single") != a2a or moved.get("fused_allreduce") != reduced:
+            raise AssertionError(f"phase 29a rank {r['rank']} moved {moved}, expected {a2a} "
+                                 f"through the all-to-all and {reduced} all-reduced")
+    for layer in range(EP_LAYERS):      # every kept choice leaves its rank and comes back
+        moved_rows = sum(r["a2a_rows"][layer] for r in ranks)
+        if moved_rows != 2 * r0["kept_rows"][layer]:
+            raise AssertionError(f"phase 29a layer {layer}: {moved_rows} rows through the "
+                                 f"all-to-all, {r0['kept_rows'][layer]} kept choices")
+    step_ms = max(r["step_ms_mean"] for r in ranks)
+    say("expert-a", ranks=EP, mesh="dp 2 (experts on dp)", rows=f"2 x {TRAIN_SEQ // 2}",
+        layers=EP_LAYERS, step_ms_mean=json.dumps([r["step_ms_mean"] for r in ranks]),
+        step_ms=json.dumps([r["step_ms"] for r in ranks]), host_transport_included=True,
+        train_step_ms=round(train_step_ms, 3), moe_step_ms=round(moe_step_ms, 3),
+        step_ms_ratio_to_train=round(step_ms / train_step_ms, 4),
+        step_ms_ratio_to_moe=round(step_ms / moe_step_ms, 4),
+        tokens_per_s=round(2 * (TRAIN_SEQ // 2) / step_ms * 1e3, 1),
+        max_memory_allocated_gib=json.dumps([r["max_memory_allocated_gib"] for r in ranks]),
+        device_busy_share=json.dumps([r["device_busy_share"] for r in ranks]),
+        params_on_rank=r0["params_on_rank"], expert_params_on_rank=r0["expert_params_on_rank"],
+        a2a_rows=json.dumps([r["a2a_rows"] for r in ranks]), kept_rows=r0["kept_rows"],
+        collective_bytes=json.dumps([r["collective_bytes"] for r in ranks]),
+        collectives_per_step=json.dumps(r0["collectives_per_step"]),
+        losses=json.dumps([r["losses"] for r in ranks]),
+        launches_per_rank=json.dumps([r["launches"] for r in ranks]))
+    if failures:
+        raise AssertionError("\n".join(failures))
+    return {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")
@@ -7823,6 +7926,10 @@ def main(argv=None) -> int:
     for name in ("ring_merge", "ring_flash_attention"):
         ring_launches[name] += sep_launches[name]
     lap("28")
+    ep_launches = expert_phase(args.seed, trained["step_ms"], moe_launches["step_ms"])
+    from paddle_tpu_torch.tools.dist_train import EP_LAYERS
+    pp_launches = {k: pp_launches[k] + ep_launches[k] for k in pp_launches}
+    lap("29")
     amp_launches = {k: amp_o2["launches"][k] + amp_o1["launches"][k] for k in amp_o2["launches"]}
 
     kernels = [
@@ -7881,7 +7988,10 @@ def main(argv=None) -> int:
                               f"(pp 2 x tensor 2: H {32 // TP}, Hk {8 // TP} a rank) and of "
                               f"phase 28a on each of its two sep ranks ({SEP_STEPS} steps, the "
                               f"ring across processes on {TRAIN_SEQ // 2} positions a rank: "
-                              f"rank r launches r + 1 a layer each way)")
+                              f"rank r launches r + 1 a layer each way) and of phase 29a on "
+                              f"each of its two ranks ({EP_STEPS} steps, the Mixtral-width "
+                              f"MoE at {EP_LAYERS} layers, experts over dp, 1 x "
+                              f"{TRAIN_SEQ // 2} a rank)")
     for name, nums, launches in (
             ("rms_norm_fwd", norm_fwd, norm_launches["fwd"] + amp_launches["rms_norm_fwd_fused"]
              + ops_launches["rms_norm_fwd_fused"] + dist_launches["rms_norm_fwd_fused"]),
@@ -7956,8 +8066,9 @@ def main(argv=None) -> int:
              f"those of phase 25a on each of its {TP} ranks, those of phase 26a on each of "
              f"its two pipeline stages (a stage runs traced), those of phase 27a on each "
              f"of its four ranks (pp 2 x tensor 2, [{TRAIN_SEQ // 8}, 4096] a microbatch "
-             f"under sequence parallelism) and those of phase 28a on each of its two sep "
-             f"ranks ([{TRAIN_SEQ // 2}, 4096] a step)"),
+             f"under sequence parallelism), those of phase 28a on each of its two sep "
+             f"ranks ([{TRAIN_SEQ // 2}, 4096] a step) and those of phase 29a on each of "
+             f"its two ranks ([{TRAIN_SEQ // 2}, 4096] a step)"),
             ("rms_norm_bwd_round_first", "rms_norm.cu", "fused_norm.py:79", rms_rf[1],
              train_launches["rms_norm_bwd_dx_round_first"]
              + moe_launches["train"]["rms_norm_bwd_dx_round_first"]
@@ -7967,8 +8078,9 @@ def main(argv=None) -> int:
              f"the {TRAIN_STEPS} timed training steps, the {MOE_STEPS} timed steps of the "
              f"Mixtral cell (phase 22a), the {TRAIN_STEPS} timed steps of phase 24a, "
              f"those of phase 25a on each of its {TP} ranks, those of phase 26a on each of "
-             f"its two pipeline stages, those of phase 27a on each of its four ranks and "
-             f"those of phase 28a on each of its two sep ranks"),
+             f"its two pipeline stages, those of phase 27a on each of its four ranks, "
+             f"those of phase 28a on each of its two sep ranks and those of phase 29a on "
+             f"each of its two ranks"),
             ("flash_attention_fwd_wide", "flash_attention.cu", "flash_attention.py:112",
              wide_flash[0], wide_flash_launches,
              "nn.functional.flash_attention past 256 columns (no model path runs them)"),
@@ -8046,7 +8158,9 @@ def main(argv=None) -> int:
                           f"stage's tensors, one a step) and phase 27a's {TRAIN_STEPS} on each of "
                           "its four ranks (the sharded update over the stage's tensor slices, "
                           f"one a step) and phase 28a's {SEP_STEPS} on each of its two sep "
-                          "ranks (TrainStep's update of the whole model, one a step)")
+                          "ranks (TrainStep's update of the whole model, one a step) and phase "
+                          f"29a's {EP_STEPS} on each of its two ranks (the sharded update over "
+                          "the rank's expert slices and the replicated rest, one a step)")
     kernels.append({
         "name": "multi_tensor_update_master", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",

@@ -16,9 +16,10 @@ topology, the mp layers, Megatron's sequence parallelism,
 ``group_sharded_parallel``, the ring's context attention on one device,
 the Mixture-of-Experts layer and the pipeline: the schedules,
 ``PipelineParallel``, ``PipelineLayer`` and ``pipeline_apply`` over a
-``pp`` / ``pipe`` axis alone or beside the data axes). ``sep`` across
-processes, experts across devices and the pipeline beside the tensor,
-sharding or sep axis wait for later slices and raise.
+``pp`` / ``pipe`` axis beside the data, tensor, sharding and sep axes;
+context parallelism across processes; expert parallelism: the MoE layer
+routing the global batch, its experts over ``dp`` through the all-to-all
+or over ``tensor`` / ``ep`` with partial sums).
 """
 
 from . import checkpoint, env, fleet, partitioning, tensor_parallel  # noqa: F401

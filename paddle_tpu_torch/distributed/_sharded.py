@@ -31,6 +31,13 @@ flattened across parameters at rest.
   its tensor slice and the state a slice of that (:func:`plan_specs`); a
   gradient partial over tensor is summed over data and tensor
   (``sum_group``).
+- A Mixture-of-Experts layer's expert weights cut over a data axis
+  (``dp``: :func:`plan_specs`) are resident slices, as the tensor axis's:
+  each rank runs its experts on the rows the all-to-all brings it
+  (``fleet.moe``), so a slice's gradient is complete after the exchange's
+  backward (``ShardInfo.expert``): it is summed over the other data axes
+  only and divided like the data mean. Cut over the tensor axis (or a
+  legacy mesh's ``ep``) they are tensor slices.
 - A parameter without a divisible dim stays whole. Its gradient, and
   stage 1's, is all-reduced over the data ranks by one
   ``fused_allreduce`` a dtype after the backward, not overlapped with it
@@ -72,6 +79,8 @@ class ShardInfo:
     norm_group: object = None  # the ranks whose slices make the whole parameter
     sum_group: object = None   # stage 1: the ranks whose whole gradients are summed, when
                                # not the data ranks (a gradient partial over the tensor axis)
+    expert: bool = False       # an expert slice over a data axis (``tgroup``): its gradient
+                               # complete here, summed over ``replica_group`` only
 
     @property
     def k(self) -> int:
@@ -392,6 +401,8 @@ class ShardedUpdate:
                 continue            # reduced by the gather's backward
             if info is None:
                 whole.setdefault(id(self.data_group), (self.data_group, []))[1].append(i)
+            elif info.expert:
+                whole.setdefault(id(info.replica_group), (info.replica_group, []))[1].append(i)
             elif info.dim is None or self.stage == 1:
                 # summed whole over the data ranks (and tensor where partial): at stage 1
                 # the sum group, else the slice's replicas
@@ -403,7 +414,7 @@ class ShardedUpdate:
         for group, idx in whole.values():
             dtypes = [grads[i].dtype for i in idx]
             summed = [grads[i] for i in idx]
-            if group.nranks > 1:                # one rank: nothing to sum
+            if group is not None and group.nranks > 1:     # one rank: nothing to sum
                 summed = _c.fused_allreduce(
                     [g.to(_reduce_dtype(d, group)) for g, d in zip(summed, dtypes)],
                     group=group)
@@ -497,12 +508,26 @@ def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str, *, 
     reduce-scatters it. Returns the model's :class:`ShardedUpdate` over the
     data ranks (``data_axes``). A context axis across processes not among
     ``data_axes`` (``sep``: the gradients partial over it) is summed over
-    with the data axes and left out of the divisor."""
+    with the data axes and left out of the divisor.
+
+    A Mixture-of-Experts layer's expert weights whose dim 0 (the expert
+    axis) alone is on a data axis stay resident slices there
+    (``ShardInfo.expert``), reached by the all-to-all; on ``tensor_axis``
+    they are its slices; cut on another dim, or on none, they are any
+    parameter's (gathered where their block runs, their state on the
+    ``sharding`` slice at stages 1 and 2) and every expert runs here. Each layer gets its
+    :class:`~paddle_tpu_torch.distributed.fleet.moe.ExpertPlan`: routing
+    over the data ranks, its experts' axis and the load-balance loss's
+    backward factor (the data ranks over the tensor ranks that sum the
+    router's gradient)."""
     from . import tensor_parallel
+    from .fleet.moe import MoELayer
     from .mesh import context_axes
 
     pieces = list(model) if isinstance(model, (list, tuple)) else [model]
     params = [p for piece in pieces for p in piece.parameters()]
+    moes = [m for piece in pieces for m in piece.modules() if isinstance(m, MoELayer)]
+    experts = {id(w) for m in moes for w in (m.w_gate, m.w_up, m.w_down)}
     tsize = mesh.get_dim_size(tensor_axis) if tensor_axis in mesh.dim_names else 1
     tgroup = mesh.get_group(tensor_axis) if tsize > 1 else None
     installed = partial is not None
@@ -515,6 +540,12 @@ def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str, *, 
     data_axes = tuple(a for a in data_axes if a in mesh.dim_names)
     divisor = int(np.prod([mesh.get_dim_size(a) for a in data_axes])) if data_axes else 1
     ctx = tuple(a for a in context_axes(mesh) if a not in data_axes)
+    if moes and (ctx or installed):
+        raise NotImplementedError(
+            "a Mixture-of-Experts layer beside " + ("a context axis across processes" if ctx
+                                                    else "the pipe axis")
+            + ": the reference's tests reach no such program, and the port routes only over "
+            "the data ranks of one program")
 
     def ordered(axes):          # a group's key in the mesh's order (made up front)
         return tuple(a for a in mesh.dim_names if a in axes)
@@ -543,6 +574,16 @@ def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str, *, 
             else:
                 dim, shard_axes = d, axes
         full = held.full_shape if held is not None else tuple(p.shape)
+        if id(p) in experts and dim == 0 and tdim is None and len(shard_axes) == 1 \
+                and shard_axes[0] in data_axes:
+            axis = shard_axes[0]
+            rest = ordered(tuple(a for a in data_axes if a != axis) + ctx)
+            info = ShardInfo(full, None, None, mesh.get_group(rest) if rest else None,
+                             at_rest=True, tdim=0, tgroup=mesh.get_group(axis),
+                             copies=tgroup, norm_group=mesh.get_group(axis), expert=True)
+            place(p, info)
+            infos[id(p)] = info
+            continue
         if dim is None and state_group is not None:
             local = tuple(n // tsize if d == tdim else n for d, n in enumerate(full))
             dim = divisible_dim(local, state_group.nranks)
@@ -571,4 +612,25 @@ def plan_specs(model, mesh, specs: dict, data_axes: tuple, tensor_axis: str, *, 
         infos[id(p)] = info
     for piece in pieces:
         install_gathers(piece, divisor)
+    _plan_experts(moes, infos, partial, mesh.get_group(ordered(data_axes)) if divisor > 1
+                  else None, divisor, tsize)
     return ShardedUpdate(infos, mesh.get_group(ordered(data_axes + ctx)), divisor, stage)
+
+
+def _plan_experts(moes, infos, partial, route, divisor: int, tsize: int) -> None:
+    """Each MoE layer's ``ExpertPlan`` (see :func:`plan_specs`)."""
+    from .fleet._ep_a2a import ExpertLink
+    from .fleet.moe import ExpertPlan
+
+    for m in moes:
+        info = infos.get(id(m.w_gate))
+        if info is not None and info.expert:
+            plan = ExpertPlan(route, "data", ExpertLink(info.tgroup, route))
+        elif info is not None and info.tdim == 0:
+            plan = ExpertPlan(route, "tensor")
+        elif route is not None:
+            plan = ExpertPlan(route, "whole")
+        else:
+            continue                    # one data rank, every expert here: one program's layer
+        plan.aux_scale = divisor / (tsize if id(m.gate.gate.weight) in partial else 1)
+        m._ep = plan

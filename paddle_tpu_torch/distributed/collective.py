@@ -369,7 +369,7 @@ def all_to_all(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     """Send ``in_tensor_list[j]`` to rank j; ``out_tensor_list`` receives one
     tensor from each rank (appended when empty). Over gloo, whose list
     ``alltoall`` some releases lack, the tensors travel as one flat
-    ``all_to_all_single`` (one dtype)."""
+    :func:`all_to_all_single` (one dtype, staged as it stages)."""
     g = _resolve(group)
     if len(in_tensor_list) != g.nranks:
         raise ValueError(f"all_to_all: {len(in_tensor_list)} inputs for {g.nranks} ranks")
@@ -384,10 +384,8 @@ def all_to_all(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     elif g.backend == "gloo":
         flat = torch.empty(sum(o.numel() for o in outs), dtype=ins[0].dtype,
                            device=ins[0].device)
-        work = dist.all_to_all_single(flat, torch.cat([t.reshape(-1) for t in ins]),
-                                      output_split_sizes=[o.numel() for o in outs],
-                                      input_split_sizes=[t.numel() for t in ins],
-                                      group=g.process_group, async_op=True)
+        work = _single(flat, torch.cat([t.reshape(-1) for t in ins]),
+                       [o.numel() for o in outs], [t.numel() for t in ins], g)
     else:
         work = dist.all_to_all(outs, ins, group=g.process_group, async_op=True)
 
@@ -400,20 +398,66 @@ def all_to_all(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     return _finish([work], then, sync_op, out_tensor_list)
 
 
+_pinned: dict = {}
+
+
+def host_buffer(cache: dict, key, shape, dtype):
+    """A pinned host tensor of ``shape`` and ``dtype``, a view of the
+    buffer kept in ``cache`` under ``key`` (made anew when too short): where
+    a device tensor is staged for gloo, which takes no CUDA tensor. Tensors
+    in flight together take different keys."""
+    numel = 1
+    for n in shape:
+        numel *= int(n)
+    buf = cache.get(key)
+    if buf is None or buf.numel() < numel or buf.dtype != dtype:
+        buf = torch.empty(max(numel, 1), dtype=dtype, pin_memory=True)
+        cache[key] = buf
+    return buf[:numel].view(shape)
+
+
+def _single(out, src, out_splits, in_splits, g):
+    """One ``all_to_all_single`` of ``src`` into ``out`` over ``g``'s
+    process group; returns its work, or None where it finished: over gloo a
+    CUDA tensor or a two-byte float goes through host tensors (pinned
+    buffers for a CUDA tensor), a two-byte float as f32, counted under
+    ``host_stage`` each way."""
+    two_byte = src.dtype in (torch.bfloat16, torch.float16)
+    if g.backend != "gloo" or (src.device.type != "cuda" and not two_byte):
+        return dist.all_to_all_single(out, src, output_split_sizes=out_splits,
+                                      input_split_sizes=in_splits, group=g.process_group,
+                                      async_op=True)
+    wire = torch.float32 if two_byte else src.dtype
+    if src.device.type == "cuda":
+        send = host_buffer(_pinned, "a2a_send", src.shape, wire)
+        send.copy_(src)
+        recv = host_buffer(_pinned, "a2a_recv", out.shape, wire)
+    else:
+        send = src.to(wire)
+        recv = torch.empty(out.shape, dtype=wire)
+    _count("host_stage", send)
+    dist.all_to_all_single(recv, send, output_split_sizes=out_splits,
+                           input_split_sizes=in_splits, group=g.process_group)
+    _count("host_stage", recv)
+    out.copy_(recv)
+    return None
+
+
 def all_to_all_single(out_tensor, in_tensor, out_split_sizes=None, in_split_sizes=None,
                       group=None, sync_op=True):
     """``in_tensor`` cut along dim 0 (``in_split_sizes`` rows a rank, even
-    when None) to the ranks; ``out_tensor`` their parts in rank order."""
+    when None; a split may be 0) to the ranks; ``out_tensor`` their parts in
+    rank order. Over gloo, which takes neither a CUDA tensor nor a two-byte
+    float here, the rows travel through host tensors (pinned buffers for a
+    CUDA tensor), a two-byte float as f32, counted under ``host_stage``
+    each way; such a call finishes before it returns."""
     g = _resolve(group)
     _count("all_to_all_single", in_tensor)
     if g.process_group is None:
         out_tensor.copy_(in_tensor)
         return _finish([], None, sync_op, out_tensor)
-    work = dist.all_to_all_single(out_tensor, in_tensor.contiguous(),
-                                  output_split_sizes=out_split_sizes,
-                                  input_split_sizes=in_split_sizes,
-                                  group=g.process_group, async_op=True)
-    return _finish(work, None, sync_op, out_tensor)
+    work = _single(out_tensor, in_tensor.contiguous(), out_split_sizes, in_split_sizes, g)
+    return _finish([work], None, sync_op, out_tensor)
 
 
 def _member(peer: int, g: Group, what: str) -> int:

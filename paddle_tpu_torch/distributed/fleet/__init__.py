@@ -34,8 +34,9 @@ too. ``localsgd`` waits for ``incubate.optimizer.LocalSGD``.
 
 Also here: the tensor-parallel layers (:mod:`.mp_layers`),
 :mod:`.sequence_parallel` (Megatron's sequence parallelism and the
-ring's context attention), the Mixture-of-Experts layer (:mod:`.moe`, its
-experts on this device), the pipeline (:mod:`.pipeline_parallel`: the
+ring's context attention), the Mixture-of-Experts layer (:mod:`.moe`;
+across processes its experts cut over a data axis reached through
+:mod:`._ep_a2a`'s all-to-all, or over the tensor axis), the pipeline (:mod:`.pipeline_parallel`: the
 schedules and :class:`PipelineParallel`; :mod:`.pp_layers`;
 :mod:`.pipeline_engine`), :mod:`.sharding`, :mod:`.topology` and
 :mod:`.random`.

@@ -17,9 +17,10 @@ table in one order (activations before cotangents); a stage sends at most
 one tensor a tick, so a pair carries at most one a tick each way.
 
 On NCCL device tensors go directly. On gloo a device tensor is staged
-through a pinned host buffer (copied out before the send, in after the
-receive), which ``collective.stats()`` counts under ``pipe_host_stage``
-(calls and bytes), beside the ``send`` and ``recv`` of the host buffers;
+through a pinned host buffer (``collective.host_buffer``, reused tick
+after tick: copied out before the send, in after the receive), which
+``collective.stats()`` counts under ``pipe_host_stage`` (calls and
+bytes), beside the ``send`` and ``recv`` of the host buffers;
 the stages' compute stays on their devices. :meth:`StageLink.broadcast`
 moves a list of tensors from one stage to the whole pipe group as one
 buffer a dtype (``sync_to_model``, ``gather_pipeline_tree``, the loss).
@@ -49,14 +50,6 @@ class StageLink:
         self.staged = group.backend == "gloo" and self.device.type == "cuda"
         self._pinned: dict = {}
 
-    def _host(self, key, shape, dtype):
-        """A pinned host buffer kept for ``key`` (reused tick after tick)."""
-        buf = self._pinned.get(key)
-        if buf is None or buf.shape != shape or buf.dtype != dtype:
-            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
-            self._pinned[key] = buf
-        return buf
-
     def exchange(self, sends, recvs) -> list:
         """Post ``sends`` ([(stage, tensor)]) and ``recvs`` ([(stage, shape,
         dtype)]) at once and wait for them; returns the received tensors on
@@ -69,7 +62,7 @@ class StageLink:
                 continue
             t = t.detach().contiguous()
             if self.staged:
-                host = self._host(("s", i), t.shape, t.dtype)
+                host = C.host_buffer(self._pinned, ("s", i), t.shape, t.dtype)
                 host.copy_(t)
                 C._count("pipe_host_stage", t)
                 t = host
@@ -79,7 +72,7 @@ class StageLink:
                 got.append(local.pop(0))
                 continue
             shape = torch.Size(shape)
-            buf = (self._host(("r", i), shape, dtype) if self.staged
+            buf = (C.host_buffer(self._pinned, ("r", i), shape, dtype) if self.staged
                    else torch.empty(shape, dtype=dtype, device=self.device))
             ops.append(C.P2POp(C.irecv, buf, self.ranks[q], self.group))
             got.append(buf)

@@ -17,11 +17,12 @@ coordinate (``index``) and its neighbours on the ring.
   gives the part each rank sent here, in coordinate order.
 
 On NCCL device tensors go directly. On gloo, which aborts on a CUDA
-``send``, a device tensor is staged through a pinned host buffer (copied
-out before the send, in after the receive), and the all-to-all through
-host tensors; ``collective.stats()`` counts each staging under
-``sep_host_stage`` (calls and bytes), beside the ``send`` / ``recv`` /
-``all_to_all`` of the host tensors.
+``send``, a hop's device tensor is staged through a pinned host buffer
+(``collective.host_buffer``: copied out before the send, in after the
+receive), which ``collective.stats()`` counts under ``sep_host_stage``
+(calls and bytes), beside the ``send`` / ``recv`` of the host tensors; the
+all-to-all is ``collective.all_to_all``, which stages as
+``collective.all_to_all_single`` does (``host_stage``).
 """
 
 from __future__ import annotations
@@ -67,14 +68,6 @@ class SepLink:
     def _staged(self, t) -> bool:
         return self.group.backend == "gloo" and t.device.type == "cuda"
 
-    def _host(self, key, t):
-        """A pinned host buffer like ``t`` kept for ``key``."""
-        buf = self._pinned.get(key)
-        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._pinned[key] = buf
-        return buf
-
     def hop(self, tensors, key: str = "", reverse: bool = False) -> Hop:
         """Post one hop of ``tensors`` around the ring (see the module
         docstring); ``reverse``: to the previous rank, from the next (the
@@ -86,11 +79,12 @@ class SepLink:
         ops, bufs = [], []
         for i, t in enumerate(tensors):
             if staged:
-                host = self._host((key, "s", i), t)
+                host = C.host_buffer(self._pinned, (key, "s", i), t.shape, t.dtype)
                 host.copy_(t)
                 C._count("sep_host_stage", t)
                 t = host
-            buf = self._host((key, "r", i), t) if staged else torch.empty_like(t)
+            buf = (C.host_buffer(self._pinned, (key, "r", i), t.shape, t.dtype) if staged
+                   else torch.empty_like(t))
             ops.append(C.P2POp(C.isend, t, dst, self.group))
             ops.append(C.P2POp(C.irecv, buf, src, self.group))
             bufs.append(buf)
@@ -99,19 +93,8 @@ class SepLink:
     def all_to_all(self, parts) -> list:
         """``parts[j]`` to rank ``j`` of the axis; returns what each rank
         sent here, in order (a failed exchange raises)."""
-        parts = [p.contiguous() for p in parts]
         if len(parts) != self.size:
             raise ValueError(f"all_to_all over {self.size} ranks got {len(parts)} parts")
-        device = parts[0].device
-        staged = self._staged(parts[0])
-        if staged:
-            for p in parts:
-                C._count("sep_host_stage", p)
-            parts = [p.cpu() for p in parts]
         got: list = []
-        C.all_to_all(got, parts, group=self.group)
-        if staged:
-            for g in got:
-                C._count("sep_host_stage", g)
-            got = [g.to(device) for g in got]
+        C.all_to_all(got, [p.contiguous() for p in parts], group=self.group)
         return got

@@ -16,6 +16,8 @@ keeps the reference's precedence (pipeline, then sharding, sep, model,
 data): at ``sep`` above 1 alone or beside data and model the mode is
 "segment_parallel", and the ``sep`` group (:meth:`get_sep_parallel_group`)
 carries the ring and Ulysses' all-to-all (``fleet.sequence_parallel``).
+Fleet has no ``ep_degree``, as the reference has none: experts go on a
+mesh's ``ep`` or ``dp`` axis (``parallelize``, the partitioner).
 """
 
 from __future__ import annotations

@@ -16,13 +16,13 @@ partitioning tier's mesh, ``pp`` on fleet's) carries the pipeline's
 stages (``fleet.pipeline_parallel``), beside the data, sharding / fsdp
 and tensor axes; its group (:meth:`ProcessMesh.get_group`) holds this
 rank's stages and :meth:`ProcessMesh.axis_ranks` their global ranks in
-stage order. The axes that need what later slices of the port bring raise
-``NotImplementedError`` above size 1: ``ep`` (experts across devices) and
-``cp``, and ``sep`` beside any other axis above 1, the pipe axis among
-them (``sep`` across processes). A mesh whose
-only axis above 1 is ``sep`` is the one-process ring
-(``ops.ring_attention``): virtual ranks of this process on its device,
-which the ring attention folds into its batch.
+stage order. The context axes (``sep``, ``cp``) cut the sequence over
+their ranks across processes (``fleet.sequence_parallel``). The expert
+axis ``ep`` holds a Mixture-of-Experts layer's experts, its ranks the same
+rows (``fleet.moe``): its groups are made like any other. In a world of
+one process a mesh whose only axis above 1 is ``sep`` is the one-process
+ring (``ops.ring_attention``): virtual ranks of this process on its
+device, which the ring attention folds into its batch.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ __all__ = ["ProcessMesh", "set_mesh", "get_mesh", "auto_mesh", "init_mesh_from_t
 
 _default_mesh: "ProcessMesh | None" = None
 
-#: axis name -> the later slice of the port that brings it
-WAITING_AXES = {"ep": "expert-parallel"}
+#: axis name -> the later slice of the port that brings it (none waits)
+WAITING_AXES: dict = {}
 
 #: the names of the tensor axis
 TENSOR_AXES = ("tensor", "mp", "model")

@@ -15,7 +15,13 @@ mesh's data axes in the sharded update. Beside it a sharding stage keeps
 at 1 and 2 each parameter's optimizer state on its slice of the
 ``sharding`` axis (of the rank's tensor slice), and at 3 cuts every
 parameter that the tensor axis does not on its largest dim over
-``sharding``, at rest (the reference's ``parallelize.py:44-85``). With an
+``sharding``, at rest (the reference's ``parallelize.py:44-85``). A
+Mixture-of-Experts model on a mesh with ``ep`` or, across processes, a
+data axis above 1 is planned the same way (:func:`plan_tensor`): its
+experts on ``ep`` if the mesh names it, else on ``dp`` (the reference's
+``parallelize.py:24-41`` preference), else whole on every rank (a
+sharding stage then cuts them, or their state, as any parameter),
+routing over the global batch of the data axes (``fleet.moe``). With an
 optimizer it returns ``(model, optimizer)``, the optimizer a
 ``fleet.sharding.GroupShardedOptimizer`` when a stage or ``mp_config``
 applies. A context-parallel axis across processes (``sep``: each rank on
@@ -75,7 +81,7 @@ def parallelize(model, optimizer=None, mesh: ProcessMesh | None = None, config=N
     from .mesh import TENSOR_AXES
 
     tensor = any(a in mesh.dim_names and mesh.get_dim_size(a) > 1 for a in TENSOR_AXES)
-    if config.get("mp_config") is not None or tensor:
+    if config.get("mp_config") is not None or tensor or _expert_parallel(model, mesh):
         if stage not in (0, 1, 2, 3):
             raise ValueError(f"sharding stage {stage}: one of 1, 2, 3")
         if stage and "sharding" not in mesh.dim_names:
@@ -125,16 +131,40 @@ def stage3_specs(params, specs: dict, mesh: ProcessMesh) -> None:
                                                for i in range(len(spec))])
 
 
+def _expert_parallel(model, mesh: ProcessMesh) -> bool:
+    """Whether ``model`` holds a Mixture-of-Experts layer and ``mesh`` an
+    ``ep`` axis or, across processes, a data axis above 1."""
+    from . import env as _env
+    from .fleet.moe import MoELayer
+    from .fleet.sharding import DATA_AXES
+
+    if not any(isinstance(m, MoELayer) for m in model.modules()):
+        return False
+    axes = ("ep",) + (DATA_AXES if _env.get_world_size() > 1 else ())
+    return any(a in mesh.dim_names and mesh.get_dim_size(a) > 1 for a in axes)
+
+
 def plan_tensor(model, mesh: ProcessMesh, stage: int = 0):
     """Cut ``model`` over ``mesh``'s tensor axis by its parameters' marks
     (see the module docstring), beside the sharding ``stage`` (0: none);
-    returns its ``ShardedUpdate``."""
+    returns its ``ShardedUpdate``. A Mixture-of-Experts model's experts go
+    on ``ep`` where the mesh has it (the axis of the layers' ``f`` and
+    ``g``; its ranks hold the same rows), else on ``dp`` (resident slices
+    reached by the all-to-all), and every layer routes over the global
+    batch of the data axes."""
     from . import _sharded
     from .fleet.sharding import DATA_AXES
     from .mesh import TENSOR_AXES
 
     axis = next((a for a in TENSOR_AXES if a in mesh.dim_names and mesh.get_dim_size(a) > 1),
                 None)
+    if "ep" in mesh.dim_names and mesh.get_dim_size("ep") > 1:
+        if axis is not None:
+            raise NotImplementedError(f"an ep axis beside the tensor axis {axis!r} on {mesh}: "
+                                      "the port places the experts on one resident axis")
+        axis = "ep"
+    elif axis is None and _expert_parallel(model, mesh):
+        axis = "ep"                     # absent or 1: the experts over dp, if anywhere
     if axis is None:
         raise ValueError(f"mp_config needs a tensor axis ({', '.join(TENSOR_AXES)}) above 1 "
                          f"on {mesh}")

@@ -8,7 +8,8 @@ its slices) and step count (``step.count``) through
 rank its slices, and rank 0 a ``sharding_manifest.json`` (the mesh, the
 rules, every entry's shape and spec). :func:`load_partitioned` restores
 them into a step over any mesh: each rank reads its slices from whatever
-shards were written.
+shards were written (a Mixture-of-Experts layer's expert slices over
+``dp`` or ``tensor`` too: saved at dp 2, loaded whole at one rank).
 """
 
 from __future__ import annotations

@@ -13,7 +13,12 @@ over ``fsdp``, gathered where its block runs, and the ``vocab``,
 ``heads``, ``kv`` and ``mlp`` dims over ``tensor``, resident), each
 parameter its own tensor (``distributed._sharded.plan_specs``), and
 hands the tensor axis to the model (``distributed.tensor_parallel``: the
-Llama computes on its heads, columns and vocabulary rows).
+Llama computes on its heads, columns and vocabulary rows). A
+Mixture-of-Experts layer's experts (marked ``("ep", "dp")``, ``ep``
+meaning ``tensor`` here, as in the reference) go on ``tensor`` when it is
+above 1 and divides them, else on ``dp``: resident slices either way,
+reached through ``f`` / ``g`` or through the all-to-all, and every layer
+routes over the global batch of the data axes (``fleet.moe``).
 :meth:`Partitioner.shard_batch` gives a rank its rows of a batch: its
 coordinates on the batch's axes (``dp``, then ``fsdp``) select them;
 the tensor ranks of one data rank see the same rows.
@@ -105,13 +110,6 @@ class Partitioner:
             axes = tuple(a for a in self.table.mesh_axes("batch") if a in self.mesh.dim_names)
         except KeyError:
             axes = ()
-        from ..fleet.moe import MoELayer
-
-        if self.mesh.get_dim_size("tensor") > 1 and any(isinstance(m, MoELayer)
-                                                         for m in model.modules()):
-            raise NotImplementedError(
-                "a Mixture-of-Experts model under a tensor axis: the rules put its experts on "
-                "it (expert -> tensor), which waits for the port's expert-parallel slice")
         specs = {}
         for p in model.parameters():
             p.parallel_spec = specs[id(p)] = self.param_spec(p)

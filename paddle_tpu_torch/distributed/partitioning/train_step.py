@@ -14,7 +14,9 @@ are partial across the tensor ranks are summed inside the step. The
 update is the fused kernel over this rank's slices (one launch for up to
 128 tensors), after the global-norm clip summed the squared norms of the
 slices over the groups that cut them. The optimizer state lives on the slices
-only. Under ``recompute_policy`` the gathers run again in the backward
+only. A Mixture-of-Experts layer routes the global batch and keeps its
+experts as resident slices (``fleet.moe``; their gradients complete
+after the all-to-all's backward). Under ``recompute_policy`` the gathers run again in the backward
 (they sit inside the recomputed blocks); without one, autograd keeps the
 gathered parameters its backward reads.
 """

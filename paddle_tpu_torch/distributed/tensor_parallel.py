@@ -36,7 +36,10 @@ gathered and cut). :func:`install` hands it to a model: one that defines
 collectives and names its parameters whose gradients are partial across
 the axis; in any other model each ``Linear`` whose weight is cut becomes
 column-parallel (output gathered) or row-parallel (input cut, output
-reduced), and each ``Embedding`` cut on its rows vocab-parallel.
+reduced), each ``Embedding`` cut on its rows vocab-parallel, and each
+Mixture-of-Experts layer whose experts are cut runs its own between ``f``
+and ``g`` (``MoELayer.install_tensor_parallel``). The axis may be a
+legacy mesh's ``ep``, which cuts only experts.
 """
 
 from __future__ import annotations
@@ -278,10 +281,13 @@ def install(model, group, specs: dict, axis: str, gather_output: bool = True) ->
     if own is not None:
         return own(tp, is_cut)
     from ..nn.layer import Embedding, Linear
+    from .fleet.moe import MoELayer
 
     partial = set()
     for mod in model.modules():
-        if isinstance(mod, Linear) and is_cut(mod.weight):
+        if isinstance(mod, MoELayer):
+            partial |= mod.install_tensor_parallel(tp, is_cut)
+        elif isinstance(mod, Linear) and is_cut(mod.weight):
             column = cut_dims(mod.weight) == [1]
             mod.forward = _column_forward(mod, tp) if column else _row_forward(mod, tp)
             if column and not gather_output and mod.bias is not None:

@@ -10,7 +10,8 @@ Counterpart of ``paddle_tpu/models/llama.py``:
   processes each rank of ``sep`` holds S / P positions, RoPE at their
   global angles),
   ``LlamaMLP`` (SwiGLU) or, with ``moe_num_experts``, the
-  Mixture-of-Experts ``fleet.MoELayer``,
+  Mixture-of-Experts ``fleet.MoELayer`` (under a tensor axis on its
+  experts, where the MLP sits),
   ``LlamaDecoderLayer`` (pre-norm residual blocks, optional recompute
   through ``distributed.recompute``),
   ``LlamaModel`` and ``LlamaForCausalLM`` (untied or tied head, the
@@ -283,21 +284,20 @@ class LlamaDecoderLayer(Layer):
         (also a pipeline stage's): returns the ids of its parameters whose
         gradients are partial across the axis."""
         a, f = self.self_attn, self.mlp
-        if not isinstance(f, LlamaMLP):
-            raise NotImplementedError("a Mixture-of-Experts Llama under a tensor axis: the "
-                                      "rules put its experts on it, which waits for the "
-                                      "port's expert-parallel slice")
         heads_cut = is_cut(a.q_proj.weight)
         kv_cut = is_cut(a.k_proj.weight)
-        mlp_cut = is_cut(f.gate_proj.weight)
         if heads_cut != is_cut(a.o_proj.weight) or is_cut(a.v_proj.weight) != kv_cut \
                 or (kv_cut and not heads_cut):
             raise ValueError("the attention's projections are cut unlike each other")
-        if not (is_cut(f.up_proj.weight) == is_cut(f.down_proj.weight) == mlp_cut):
-            raise ValueError("the MLP's projections are cut unlike each other")
         a._tp, a._tp_cut = tp, heads_cut
-        f._tp, f._tp_cut = tp, mlp_cut
-        partial = set()
+        if isinstance(f, MoELayer):     # its experts on the axis, the router partial
+            partial = f.install_tensor_parallel(tp, is_cut)
+        else:
+            mlp_cut = is_cut(f.gate_proj.weight)
+            if not (is_cut(f.up_proj.weight) == is_cut(f.down_proj.weight) == mlp_cut):
+                raise ValueError("the MLP's projections are cut unlike each other")
+            f._tp, f._tp_cut = tp, mlp_cut
+            partial = set()
         if heads_cut and not kv_cut:
             a._kv_pick = kv_heads_for(tp.rank, tp.size, a.num_heads, a.num_kv_heads)
             partial |= {id(a.k_proj.weight), id(a.v_proj.weight)}
@@ -414,6 +414,11 @@ class LlamaForCausalLM(Layer):
         backward this rank's share)."""
         link = _context(self.config)
         if link is not None:
+            if self.config.moe_num_experts > 0:
+                raise NotImplementedError(
+                    "a Mixture-of-Experts Llama under context parallelism across processes: "
+                    "the reference's tests reach no such program, and the port routes a "
+                    "layer's tokens over the data ranks only")
             n = input_ids.shape[1]
             if n % link.size:
                 raise ValueError(f"context parallelism cuts {n} positions over {link.size} "

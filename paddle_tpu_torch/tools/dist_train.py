@@ -126,6 +126,24 @@ counters).
   profiled step, with exact launches (``sep_expected``) and the
   collectives by kind and bytes.
 
+- ``--phase e`` (two ranks on one card, gloo; expert parallelism, an MoE
+  Llama at Mixtral-8x7B's widths (``MIXTRAL``, ``EP_LAYERS`` layers),
+  loss the cross entropy plus 0.02 x the layers' aux, through
+  ``PartitionedTrainStep``): the step checks (``ep_check``), each rank's
+  reduced gradients (its slices) against a one-process traced backward of
+  the whole batch on the card within ``GRAD_TOL``: (29a's check) the
+  experts over dp (``build_program_mesh(dp=2)``: the all-to-all), a global
+  batch of 2 x ``--seq / 2`` (a row a rank); (29c) the same at capacity factor
+  ``EP_FAULT_CF`` and 2 x ``--check-seq``, with the planted fault of
+  every rank routing its rows alone, which the check must refuse; (29b)
+  the experts over tensor (``build_program_mesh(tensor=2)``: partial
+  sums, the attention cut by heads), 1 x ``--check-seq`` on both ranks;
+  then (29a) the timed cell at dp 2, a global batch of 2 x ``--seq / 2``: a
+  warm-up, ``--steps`` timed steps (the host's transport included) and
+  one profiled step, with exact launches (``ep_expected``), the
+  collectives' calls and bytes, the all-to-all's rows and the global
+  batch's kept choices.
+
 ``--tiny`` runs ``LlamaConfig.tiny()`` widths with head_dim 64 (the card
 tests).
 """
@@ -133,6 +151,7 @@ tests).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1389,9 +1408,312 @@ def phase_s(args, out):
     return res
 
 
+EP = 2                  # ranks of phase e
+EP_LAYERS = 2           # 29's depth, cut from Mixtral's 32
+EP_AUX = 0.02           # Mixtral's router_aux_loss_coef
+EP_FAULT_CF = 0.5       # 29c's capacity factor: tokens drop
+# Phase e's router check: the one process's own logits against the
+# program's, in units of bf16's rounding at each layer's largest |logit|
+# (2^-7 of the power of two at or below it). Both are bf16 products of
+# hidden states that differ by a few roundings (the batch cut otherwise,
+# the attention's partial sums added in another order), so the largest
+# logit moves by a unit or two; a fault in the router's forward moves
+# them by its own size.
+EP_LOGIT_ULPS = 4
+# Phase e's loss check, relative: both are f32 means over the global
+# batch of cross entropies of bf16 logits that differ by roundings, plus
+# 0.02 x the aux; 2^-8 is one unit of bf16's roundoff.
+EP_LOSS_RTOL = 2.0 ** -8
+#: Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1 config.json), as
+#: chip_smoke's phase 22 types them in
+MIXTRAL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+               num_attention_heads=32, num_key_value_heads=8, max_position_embeddings=32768,
+               rms_norm_eps=1e-5, rope_theta=1e6, tie_word_embeddings=False,
+               moe_num_experts=8, moe_top_k=2, moe_capacity_factor=1.5)
+
+
+def ep_config(args, layers, cf=None):
+    from ..models.llama import LlamaConfig
+
+    if args.tiny:       # head_dim 64, 4 experts
+        cfg = LlamaConfig.tiny(num_hidden_layers=layers, num_attention_heads=4,
+                               num_key_value_heads=2, moe_num_experts=4)
+    else:
+        cfg = LlamaConfig(num_hidden_layers=layers, **MIXTRAL)
+    if cf is not None:
+        cfg.moe_capacity_factor = cf
+    return cfg
+
+
+def ep_loss(model):
+    """The cross entropy plus ``EP_AUX`` times the layers' load-balance
+    losses."""
+    def loss(ids, labels):
+        ce = model(ids, labels=labels)[0]
+        return ce + EP_AUX * sum(lyr.mlp.aux_loss for lyr in model.llama.layers)
+    return loss
+
+
+def ep_build(args, cfg):
+    import torch
+
+    from ..models.llama import LlamaForCausalLM
+    from ..nn import ClipGradByGlobalNorm
+    from ..optimizer import AdamW
+
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=args.seed)
+    return model, AdamW(LR, parameters=model.parameters(), weight_decay=0.1,
+                        grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def ep_step(args, cfg, axes):
+    """(model, PartitionedTrainStep) of a fresh MoE Llama over
+    ``build_program_mesh(**axes)``."""
+    from .. import distributed as dist
+    from ..distributed.partitioning import PartitionedTrainStep, Partitioner
+
+    model, opt = ep_build(args, cfg)
+    part = Partitioner(dist.build_program_mesh(**axes))
+    return model, PartitionedTrainStep(model, opt, ep_loss(model), partitioner=part)
+
+
+class routing_alone:
+    """A planted fault: every rank routes its rows as if they were the
+    batch (its own capacity, slots from 0, its own load-balance means), as
+    the port did before it routed the global batch; the collectives stay
+    those of the global routing, so no rank waits on another."""
+
+    def __enter__(self):
+        import torch
+
+        from ..distributed.fleet import moe
+
+        class Alone(moe.GlobalView):
+            def of(self, r):
+                return torch.zeros_like(self.counts[r]), self.counts[r], self.token_counts[r]
+
+        self.keep = keep = moe.route_view
+
+        def route_view(ids, probs, group):
+            v = keep(ids, probs, group)
+            return Alone(v.counts, v.token_counts, v.index, probs.mean(0))
+
+        moe.route_view = route_view
+        return self
+
+    def __exit__(self, *exc):
+        from ..distributed.fleet import moe
+
+        moe.route_view = self.keep
+        return False
+
+
+def _gate_hooks(model, fn):
+    return [lyr.mlp.gate.register_forward_hook(fn(i))
+            for i, lyr in enumerate(model.llama.layers)]
+
+
+def ep_check(args, cfg, axes, rows, seq, faults=()) -> dict:
+    """(29a's check, 29b, 29c) the loss and every leaf's reduced gradient
+    of ``PartitionedTrainStep`` over ``axes`` on a global batch of ``rows``
+    x ``seq`` (this rank's slices), against a one-process traced backward
+    of the whole batch on the card within ``GRAD_TOL`` of the leaf's
+    largest entry; then each planted fault (``"alone"``: every rank routes
+    its rows alone) against the same. The one process routes from the
+    logits the ranks computed (each layer's router output gathered over the
+    data ranks, its value taken and its gradient passed through): a bf16
+    logit one unit off on a near-tie would move a token to another expert,
+    and the check holds the routing of one set of logits. Its own logits
+    are held against the program's within ``EP_LOGIT_ULPS`` units of bf16's
+    rounding at the layer's largest, and the loss within ``EP_LOSS_RTOL``;
+    how many logits differ in their bits is reported."""
+    import torch
+
+    from .. import distributed as dist
+    from .. import tracing
+    from ..distributed.tensor_parallel import gather_dim
+    from ..models.llama import LlamaForCausalLM
+
+    rank = dist.get_rank()
+    ids, labels = tokens(args.seed + 6, rows, seq, cfg.vocab_size)
+    res, held, logits = {}, {}, None
+    for plant in (None,) + tuple(faults):
+        t0 = time.perf_counter()
+        model, step = ep_step(args, cfg, axes)
+        part = step.partitioner
+        seen = []
+        hooks = _gate_hooks(model, lambda i: lambda m, a, o: seen.append(o.detach()))
+        try:
+            with routing_alone() if plant == "alone" else contextlib.nullcontext():
+                loss, got = reduced_grads(step, part.shard_batch(ids), part.shard_batch(labels))
+        finally:
+            for h in hooks:
+                h.remove()
+        losses = []
+        dist.all_gather_object(losses, loss.item())
+        data = part.update.data_group
+        if logits is None:      # the global batch's logits, in its order
+            logits = [gather_dim(t, 0, data) for t in seen]
+        held[plant] = ({n: (g.detach().clone(), idx) for n, (g, idx) in got.items()},
+                       sum(losses) / len(losses), round(time.perf_counter() - t0, 1))
+        del model, step, got, seen
+        torch.cuda.empty_cache()
+    errs = {p: {} for p in held}
+    for r in range(dist.get_world_size()):      # the one process, rank after rank
+        if r == rank:
+            model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=args.seed)
+            named = list(model.named_parameters())
+            mine = []
+            hooks = _gate_hooks(model, lambda i: lambda m, a, o: (
+                mine.append(o.detach()), o + (logits[i] - o).detach())[1])
+            with tracing.traced():
+                loss = ep_loss(model)(ids, labels).float()
+                grads = torch.autograd.grad(loss, [q for _, q in named])
+            for h in hooks:
+                h.remove()
+            want = {n: g for (n, _), g in zip(named, grads)}
+            plain_loss = loss.item()
+            differ = sum(int((a != b).sum()) for a, b in zip(mine, logits))
+            ulps = max((a.float() - b.float()).abs().max().item()
+                       / 2.0 ** (math.floor(math.log2(b.float().abs().max().item())) - 7)
+                       for a, b in zip(mine, logits))
+            for p, (got, _, _) in held.items():
+                errs[p] = {n: (g.float() - want[n][idx].float()).abs().max().item()
+                           / (want[n].float().abs().max().item() or 1.0)
+                           for n, (g, idx) in got.items()}
+            del model, named, grads, want, loss, mine
+            torch.cuda.empty_cache()
+        dist.barrier()
+    for p, (got, loss, secs) in held.items():
+        every = []
+        dist.all_gather_object(every, errs[p])
+        worst_of = {n: max(e[n] for e in every) for n in every[0]}
+        worst = max(worst_of, key=worst_of.get)
+        res[p or "check"] = {
+            "loss": loss, "loss_plain": plain_loss,
+            "loss_rel_diff": abs(loss - plain_loss) / abs(plain_loss),
+            "loss_rtol": EP_LOSS_RTOL, "leaves": len(worst_of),
+            "leaves_checked": len(worst_of) == len(list(held[None][0])),
+            "grad_vs_ref_max_rel": worst_of[worst], "grad_vs_ref_worst_leaf": worst,
+            "grad_vs_ref_tol": GRAD_TOL,
+            "grad_vs_ref_beyond_tol": sum(e > GRAD_TOL for e in worst_of.values()),
+            "logits_differing": differ, "logits": sum(t.numel() for t in logits),
+            "logits_max_ulps": ulps, "logits_tol_ulps": EP_LOGIT_ULPS, "seconds": secs}
+    del held, logits
+    torch.cuda.empty_cache()
+    return res
+
+
+def ep_expected(layers: int, steps: int) -> dict:
+    """Launches on one rank of ``steps`` PartitionedTrainStep calls at
+    ``layers`` layers: flash once each way a layer, RMSNorm's
+    ``round_first`` mode 2 L + 1 each way, one fused update a step (the
+    rank's 10 L + 3 tensors, the expert slices among them)."""
+    norms = (2 * layers + 1) * steps
+    return {"flash_wgmma_fwd": layers * steps, "flash_wgmma_bwd": layers * steps,
+            "rms_norm_fwd_fused": 0, "rms_norm_bwd_dx_fused": 0,
+            "rms_norm_fwd_round_first": norms, "rms_norm_bwd_dx_round_first": norms,
+            "multi_tensor_update": steps}
+
+
+def phase_e(args, out):
+    import torch
+
+    from .. import distributed as dist
+    from ..distributed import collective
+
+    dist.init_parallel_env(timeout=300)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if world != EP:
+        raise ValueError(f"phase e runs {EP} ranks, got {world}")
+    res = {"backend": dist.env.backend(), "world": world, "rank": rank,
+           "device": str(dist.env.device())}
+    cfg = ep_config(args, EP_LAYERS)
+    seq = args.seq // EP            # a global batch of --seq tokens, a row a rank
+    t0 = time.perf_counter()
+    # (29a's check) experts over dp: the all-to-all
+    res["check_dp"] = ep_check(args, cfg, {"dp": EP}, EP, seq)
+    # (29c) at a capacity where tokens drop: routing each rank's rows alone is refused
+    res["check_fault"] = ep_check(args, ep_config(args, EP_LAYERS, EP_FAULT_CF), {"dp": EP},
+                                  EP, args.check_seq, faults=("alone",))
+    # (29b) experts over tensor: partial sums, the attention cut by heads
+    res["check_tensor"] = ep_check(args, cfg, {"tensor": EP}, 1, args.check_seq)
+    res["check_s"] = round(time.perf_counter() - t0, 1)
+    for name in ("check_dp", "check_fault", "check_tensor"):
+        for case, k in res[name].items():
+            say("e", rank=rank, case=f"{name}_{case}", **k)
+    # (29a) the timed cell
+    t_a = time.perf_counter()
+    model, step = ep_step(args, cfg, {"dp": EP})
+    links = [lyr.mlp._ep.link for lyr in model.llama.layers]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c = counters()
+    losses, times = [], []
+    for i in range(args.steps + 1):
+        ids, labels = tokens(args.seed + 3 + i, EP, seq, cfg.vocab_size)
+        if i == 1:
+            torch.cuda.synchronize()
+            zero(c)
+            collective.reset_stats()
+            for link in links:
+                link.rows = link.kept = 0
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = read(c)
+    stats = collective.stats()
+    rows = [link.rows for link in links]
+    kept = [link.kept for link in links]
+    from torch.profiler import ProfilerActivity, profile
+
+    ids, labels = tokens(args.seed + 99, EP, seq, cfg.vocab_size)
+    dist.barrier()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    n = args.steps
+    held = sum(p.numel() for p in model.parameters())
+    experts = sum(p.numel() for lyr in model.llama.layers
+                  for p in (lyr.mlp.w_gate, lyr.mlp.w_up, lyr.mlp.w_down))
+    res.update(layers=EP_LAYERS, rows=EP, seq=seq, tokens_on_rank=seq,
+               warmup_step_ms=round(1e3 * times[0], 3),
+               step_ms=[round(1e3 * t, 3) for t in times[1:]],
+               step_ms_mean=round(1e3 * sum(times[1:]) / n, 3), losses=losses,
+               launches=launches, expected_launches=ep_expected(EP_LAYERS, n),
+               a2a_rows=rows, kept_rows=kept, hidden=cfg.hidden_size,
+               collectives_per_step={k: v / n for k, v in stats["calls"].items()
+                                     if k != "barrier"},
+               collective_bytes={k: v for k, v in stats["bytes"].items() if k != "barrier"},
+               params_on_rank=held, expert_params_on_rank=experts,
+               replicated_params=held - experts,
+               max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+               profiled_step_ms=round(1e3 * wall, 3), device_busy_ms=round(1e3 * busy, 3),
+               device_busy_share=round(busy / wall, 4) if busy else "not measured",
+               seconds=round(time.perf_counter() - t_a, 1))
+    say("e", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                for k, v in res.items() if not k.startswith("check")})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses are not finite: {losses}")
+    del model, step
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("a", "b", "t", "p", "h", "s"), required=True)
+    ap.add_argument("--phase", choices=("a", "b", "t", "p", "h", "s", "e"), required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=4)
@@ -1403,7 +1725,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tiny", action="store_true")
     args = ap.parse_args(argv)
     res = {"a": phase_a, "b": phase_b, "t": phase_t, "p": phase_p,
-           "h": phase_h, "s": phase_s}[args.phase](args, args.out)
+           "h": phase_h, "s": phase_s, "e": phase_e}[args.phase](args, args.out)
     from .. import distributed as dist
 
     with open(os.path.join(args.out, f"dist_{args.phase}.{dist.get_rank()}.json"), "w") as f:

@@ -37,7 +37,8 @@ meanwhile. Each rank of a ``sep`` axis holds S / P positions:
   runs where the mesh's head cut divides H 4 and Hk 2; at sep 4 and at sep
   2 x tensor 2 it raises. A planted fault, RoPE without the rank's offset,
   fails the gradient check;
-- the meshes and fleet's topology that now build, and ``ep``'s refusal.
+- the meshes and fleet's topology that now build, and the ``ep`` axis
+  (which the expert-parallel slice brought).
 
 The 8-rank sep 4 x tensor 2 case runs in the slow tier; its tier-1
 sibling is ``test_tiny_llama_matches_the_reference[sep_tensor-ring]``.
@@ -321,7 +322,7 @@ def test_fleet_at_sep_degree_2_is_segment_parallel(cp4):
         assert sep == str([rank - rank % 2, rank - rank % 2 + 1])
         assert dp == str([rank % 2, rank % 2 + 2])
         assert wrapped == "True" and name == "SegmentParallel"
-        assert "expert-parallel slice" in str(got["ep"])
+        assert list(got["ep"]) == [4, 0, 1, 2, 3]           # the ep axis builds
 
 
 @pytest.mark.parametrize("neox", [True, False])

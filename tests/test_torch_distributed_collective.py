@@ -224,25 +224,40 @@ def test_no_fallback_hides_the_device(port_device, monkeypatch):
     assert not env.is_initialized()
 
 
-@pytest.mark.parametrize("case", ["ep", "elastic", "localsgd", "moe_tensor"])
+@pytest.mark.parametrize("case", ["elastic", "localsgd"])
 def test_the_axes_that_wait_raise(case):
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed import launch
-    from paddle_tpu_torch.distributed.partitioning import Partitioner
-    from paddle_tpu_torch.models import llama
 
     calls = {
         "elastic": lambda: launch.launch(["--max_restart", "1", "x.py"]),
         "localsgd": lambda: _localsgd(dist),
-        "moe_tensor": lambda: Partitioner(dist.build_program_mesh(tensor=2)).shard_model(
-            llama.LlamaForCausalLM(llama.LlamaConfig.tiny(moe_num_experts=2), device="cpu")),
     }
-    call = calls.get(case, lambda: dist.ProcessMesh(shape=[2], dim_names=[case]))
     with pytest.raises(NotImplementedError, match="wait"):
-        call()
-    if case in ("ep", "moe_tensor"):
-        with pytest.raises(NotImplementedError, match="expert-parallel slice"):
-            call()
+        calls[case]()
+
+
+@pytest.mark.parametrize("case", ["ep", "moe_tensor"])
+def test_what_waited_for_expert_parallelism_now_builds(case):
+    """These ids raised until the expert-parallel slice: an ``ep`` axis,
+    and an MoE Llama under the partitioner's tensor axis (the rules put
+    its experts there). Building needs no process group; placing needs the
+    world (``tests/test_torch_expert_parallel.py``)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.partitioning import Partitioner
+    from paddle_tpu_torch.models import llama
+
+    assert "ep" not in M.WAITING_AXES and not M.WAITING_AXES
+    if case == "ep":
+        mesh = dist.ProcessMesh(shape=[2], dim_names=["ep"])
+        assert mesh.get_dim_size("ep") == 2 and mesh.dim_names == ["ep"]
+        return
+    part = Partitioner(dist.build_program_mesh(tensor=2))
+    model = llama.LlamaForCausalLM(llama.LlamaConfig.tiny(moe_num_experts=2), device="cpu")
+    specs = {n: part.param_spec(p) for n, p in model.named_parameters()}
+    assert specs["llama.layers.0.mlp.w_gate"][0] == "tensor"
+    assert specs["llama.layers.0.mlp.gate.gate.weight"] == (None, None)
 
 
 @pytest.mark.parametrize("case", ["cp", "sep_and_dp", "llama_ulysses", "pipe_and_sep"])

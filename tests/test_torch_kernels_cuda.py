@@ -2120,6 +2120,33 @@ def test_dist_sep_two_gloo_ranks_on_the_card(dev, tmp_path):
         assert r["collective_bytes_per_step"]["send"] == sep_bytes(cfg, 512, 2, 2)
 
 
+# two gloo ranks on the one card, expert parallelism (phase 29's checks at
+# tiny widths, 4 experts): the experts over dp (the all-to-all), at a capacity
+# where tokens drop with the planted fault of per-rank routing, and over
+# tensor, each within GRAD_TOL of a one-process traced backward (the fault
+# beyond it), its router logits and loss within their bounds; exact launches, the all-to-all's bytes from its rows and every
+# kept choice sent and returned
+def test_dist_ep_two_gloo_ranks_on_the_card(dev, tmp_path):
+    from paddle_tpu_torch.tools.dist_train import GRAD_TOL, ep_expected
+
+    rc, logs, res = _dist_ranks(tmp_path, 2, "e", {"PADDLE_DISTRI_BACKEND": "gloo"})
+    assert rc == 0, logs
+    r0 = res[0]
+    for name in ("check_dp", "check_fault", "check_tensor"):
+        c = r0[name]["check"]
+        assert c["grad_vs_ref_beyond_tol"] == 0 and c["leaves_checked"], (name, c)
+        assert c["logits_max_ulps"] <= c["logits_tol_ulps"], (name, c)
+        assert c["loss_rel_diff"] <= c["loss_rtol"], (name, c)
+    assert r0["check_fault"]["alone"]["grad_vs_ref_max_rel"] > GRAD_TOL
+    for r in res:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert r["launches"] == ep_expected(2, 2) == r["expected_launches"]
+        assert r["collective_bytes"]["all_to_all_single"] == 2 * sum(r["a2a_rows"]) * 256 * 2
+        assert r["collective_bytes"]["fused_allreduce"] == 4 * r["replicated_params"] * 2
+    for layer in range(2):
+        assert sum(r["a2a_rows"][layer] for r in res) == 2 * r0["kept_rows"][layer] > 0
+
+
 # NCCL with more ranks than cards raises and names the card, never falls
 # back to gloo
 def test_dist_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):

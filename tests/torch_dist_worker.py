@@ -1563,7 +1563,7 @@ def cp_axes(out):
     """What waited for this slice builds over 4 ranks: a mesh's sep beside
     dp, sharding, fsdp, the tensor axis and the pipe axis (its groups), the
     cp axis, fleet at sep_degree 2 beside dp (the mode, the sep group, the
-    wrapper distributed_model returns) and ep's refusal."""
+    wrapper distributed_model returns), and the ep axis (its group)."""
     from paddle_tpu_torch.distributed.fleet import SegmentParallel
 
     res = {}
@@ -1585,12 +1585,259 @@ def cp_axes(out):
         hcg.get_data_parallel_group().ranks, isinstance(model, SegmentParallel),
         type(model).__name__)])
     _fleet_reset()
-    try:
-        dist.ProcessMesh(shape=[4], dim_names=["ep"])
-        res["ep"] = np.array("no raise")
-    except NotImplementedError as e:
-        res["ep"] = np.array(str(e))
+    mesh = dist.ProcessMesh(shape=[4], dim_names=["ep"])
+    res["ep"] = np.array(mesh.shape + mesh.get_group("ep").ranks)
     _save(out, "cp_axes", **res)
+
+
+#: the tiny MoE Llama of the expert-parallel tests: 4 experts, a capacity
+#: factor at which tokens drop (C 16 of the global batch's 64 tokens)
+TINY_MOE = dict(TINY_RING, moe_num_experts=4, moe_capacity_factor=0.5)
+MOE_AUX = 0.02
+#: kind -> (how, axes): the partitioner's program mesh or parallelize's
+EP_MESHES = {"dp2": ("part", {"dp": 2}), "tensor2": ("part", {"tensor": 2}),
+             "par_dp2": ("par", {"dp": 2}), "par_ep2": ("par", {"ep": 2}),
+             "dp2_tensor2": ("part", {"dp": 2, "tensor": 2}),
+             "dp2_fsdp2": ("part", {"dp": 2, "fsdp": 2}),
+             "par_dp2_ep2": ("par", {"dp": 2, "ep": 2}), "one": ("part", {"dp": 1}),
+             "par_sh2s1": ("par", {"sharding": 2}), "par_sh2s3": ("par", {"sharding": 2})}
+#: kind -> parallelize's sharding stage (else none)
+EP_STAGES = {"par_sh2s1": 1, "par_sh2s3": 3}
+
+
+def _moe_llama(weights, top_k=2):
+    from paddle_tpu_torch.models import llama as L
+
+    model = L.LlamaForCausalLM(L.LlamaConfig(**TINY_MOE, moe_top_k=int(top_k)), device="cpu")
+    return L.load_reference_state_dict(model, dict(np.load(weights)))
+
+
+def _moe_loss(model):
+    inner = getattr(model, "_layers", model)
+
+    def loss_fn(ids, labels):
+        ce = model(ids, labels=labels)[0]
+        return ce + MOE_AUX * sum(lyr.mlp.aux_loss for lyr in inner.llama.layers)
+    return loss_fn
+
+
+def _moe_opt(model):
+    return paddle.optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                                  weight_decay=0.1, grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+
+
+def _ep_step(model, kind):
+    """``(step, rows)``: the train step of ``kind`` and the function giving
+    a batch as the step takes it and as this rank computes on it."""
+    from paddle_tpu_torch.distributed.partitioning import Partitioner, PartitionedTrainStep
+
+    how, axes = EP_MESHES[kind]
+    opt = _moe_opt(model)
+    if how == "part":
+        part = Partitioner(dist.build_program_mesh(**axes))
+        step = PartitionedTrainStep(model, opt, _moe_loss(model), partitioner=part)
+        return step, (lambda t: t), part.shard_batch
+    mesh = dist.auto_mesh(**axes)
+    model, opt = dist.parallelize(model, opt, mesh=mesh,
+                                  config={"sharding_config": {"stage": EP_STAGES.get(kind, 0)}})
+    coord, index, n = mesh.coordinate(), 0, 1
+    for a in mesh.dim_names:        # the batch axes, in order
+        if a in ("dcn", "dp", "sharding"):
+            index, n = index * mesh.get_dim_size(a) + coord[a], n * mesh.get_dim_size(a)
+
+    def rows(t):
+        k = t.shape[0] // n
+        return t[index * k:(index + 1) * k]
+    return paddle.jit.TrainStep(model, opt, _moe_loss(model)), rows, rows
+
+
+class _Decisions:
+    """Records what the routing functions of ``fleet.moe`` return while
+    active: each call's logits, and the dense combine or the sort's slots."""
+
+    def __init__(self):
+        from paddle_tpu_torch.distributed.fleet import moe
+
+        self.moe, self.calls, self.keep = moe, [], {}
+
+    def __enter__(self):
+        for name in ("topk_routing", "top1_gating", "top2_gating", "sort_slots"):
+            fn = self.keep[name] = getattr(self.moe, name)
+            setattr(self.moe, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def call(*a, **k):
+            got = fn(*a, **k)
+            if name == "topk_routing":
+                self.calls.append({"logits": a[0].detach().clone()})
+            elif name == "sort_slots":
+                order, se, stok, cpos, valid = got
+                self.calls[-1]["sort"] = torch.stack([stok, se, cpos, valid.long()])
+            else:
+                self.calls[-1]["dense"] = got[0].detach().clone()
+            return got
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.keep.items():
+            setattr(self.moe, name, fn)
+
+
+def ep_llama(out, weights, data, kind, dispatch, top_k=2, fault=0):
+    """The tiny MoE Llama (``TINY_MOE``, loss plus 0.02 x the layers' aux)
+    on mesh ``kind`` under ``dispatch``: the first batch's loss, each
+    layer's routing on this rank's rows (logits and decisions), the bytes of
+    the all-to-all, every reduced gradient (whole), then 3 steps and the
+    parameters after them (whole). ``fault`` 1: every rank routes its rows
+    alone (``dist_train.routing_alone``)."""
+    import contextlib
+    import json
+
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.distributed import _sharded
+    from paddle_tpu_torch.tools.dist_train import routing_alone
+
+    d = np.load(data)
+    flags.set_flags({"moe_dispatch": dispatch})
+    try:
+        model = _moe_llama(weights, top_k)
+        step, batch, rows = _ep_step(model, kind)
+        params = step._params()
+        C.reset_stats()
+        with routing_alone() if int(fault) else contextlib.nullcontext(), \
+                _Decisions() as rec:
+            loss, grads = step._loss_and_grads(params, (rows(_t(d["ids0"])),
+                                                        rows(_t(d["labels0"]))))
+        stats = C.stats()
+        res = {"loss0": loss, "stats": np.array(json.dumps(stats)),
+               **{f"grad/{n.removeprefix('_layers.')}": g
+                  for n, g in _cp_whole_grads(step, params, grads).items()}}
+        for i, call in enumerate(rec.calls):
+            res.update({f"route{i}/{k}": v for k, v in call.items()})
+        res["losses"] = torch.stack([step(batch(_t(d[f"ids{i}"])), batch(_t(d[f"labels{i}"])))
+                                     for i in range(3)])
+        inner = getattr(step.model, "_layers", step.model)
+        for n, v in _whole_params(dict(inner.named_parameters())).items():
+            res[f"param/{n}"] = v
+        plans = [lyr.mlp._ep for lyr in inner.llama.layers]
+        res["plan"] = np.array([p.experts if p is not None else "none" for p in plans])
+        w = inner.llama.layers[0].mlp.w_gate
+        res["local_experts"] = np.array(w.shape[0])
+        # the share of an expert weight's AdamW moment this rank keeps
+        info = _sharded.info_of(w)
+        moments = [v for v in step.optimizer._update.state_of(type(step.optimizer._inner_opt),
+                                                              w).values()
+                   if torch.is_tensor(v) and v.ndim]
+        res["expert_state"] = np.array(moments[0].numel() / np.prod(
+            info.full_shape if info is not None else w.shape))
+    finally:
+        flags.set_flags({"moe_dispatch": ""})
+        _fleet_reset()
+    _save(out, f"ep_llama_{kind}_{dispatch}_{top_k}_{int(fault)}", **res)
+
+
+def ep_dp(out, weights, data):
+    """Eager DataParallel over the world: rank r routes its batch r alone,
+    as the reference's eager DataParallel does; the reduced gradients."""
+    d = np.load(data)
+    model = dist.DataParallel(_moe_llama(weights))
+    step = paddle.jit.TrainStep(model, _moe_opt(model), _moe_loss(model))
+    r = dist.get_rank()
+    params = step._params()
+    loss, grads = step._loss_and_grads(params, (_t(d[f"ids{r}"]), _t(d[f"labels{r}"])))
+    _save(out, "ep_dp", loss0=loss,
+          **{f"grad/{n.removeprefix('_layers.')}": g
+             for n, g in _cp_whole_grads(step, params, grads).items()})
+
+
+def _ep_state(step):
+    """Every parameter and optimizer moment of the step, whole."""
+    from paddle_tpu_torch.distributed import _sharded
+
+    out = {f"param/{k}": v.clone()
+           for k, v in _whole_params(dict(step.model.named_parameters())).items()}
+    inner = step.optimizer._inner_opt
+    for name, p in step.model.named_parameters():
+        for slot, v in step.optimizer._update.state_of(type(inner), p).items():
+            if torch.is_tensor(v) and v.ndim:
+                out[f"opt/{name}/{slot}"] = _sharded.gather_full(v).detach().clone()
+    return out
+
+
+def ep_ckpt(out, weights, data, load_from, save_to, tag):
+    """The partitioned step at dp = world: load ``load_from`` (or take 2
+    steps), save the state to ``save_to`` (if any), record it whole, then
+    run the third batch."""
+    d = np.load(data)
+    model = _moe_llama(weights)
+    step, _, _ = _ep_step(model, "dp2" if dist.get_world_size() == 2 else "one")
+    if load_from:
+        info = dist.partitioning.load_partitioned(step, load_from)
+    else:
+        info = {"resharded": False}
+        for i in range(2):
+            step(_t(d[f"ids{i}"]), _t(d[f"labels{i}"]))
+    if save_to:
+        dist.partitioning.save_partitioned(step, save_to)
+    res = {**_ep_state(step), "resharded": np.array(info["resharded"]),
+           "count": np.array(step.optimizer._inner_opt._step_count)}
+    res["loss3"] = step(_t(d["ids2"]), _t(d["labels2"]))
+    res["plan"] = np.array(str(model.llama.layers[0].mlp._ep is not None))
+    _save(out, f"ep_ckpt_{tag}", **res)
+
+
+def ep_axes(out):
+    """What waited for this slice builds: a mesh's ep axis and its group,
+    ep beside dp, and a MoE Llama under a tensor axis."""
+    from paddle_tpu_torch.distributed.partitioning import Partitioner
+    from paddle_tpu_torch.models import llama as L
+
+    n = dist.get_world_size()
+    res = {}
+    mesh = dist.ProcessMesh(shape=[n], dim_names=["ep"])
+    res["ep"] = np.array(mesh.shape + mesh.get_group("ep").ranks)
+    mesh = dist.auto_mesh(dp=n // 2, ep=2)
+    res["dp_ep"] = np.array(mesh.shape + mesh.get_group("ep").ranks + mesh.get_group("dp").ranks)
+    model = L.LlamaForCausalLM(L.LlamaConfig(**TINY_MOE), device="cpu")
+    Partitioner(dist.build_program_mesh(tensor=2, dp=n // 2)).shard_model(model)
+    res["moe_tensor"] = np.array(list(model.llama.layers[0].mlp.w_gate.shape)
+                                 + [model.llama.layers[0].mlp._ep.experts == "tensor"])
+    dist.set_mesh(None)
+    # all_to_all_single with a split of 0 rows, in bf16 (gloo: staged as f32)
+    r = dist.get_rank()
+    src = torch.arange(6, dtype=torch.bfloat16).reshape(3, 2) + 10 * r
+    send = [3, 0] if r == 0 else [2, 0]
+    got = torch.empty(((3 + 2) if r == 0 else 0, 2), dtype=torch.bfloat16)
+    C.all_to_all_single(got, src[:sum(send)], out_split_sizes=[3, 2] if r == 0 else [0, 0],
+                        in_split_sizes=send)
+    res["a2a_zero"] = got.float()
+    # an MoE Llama under context parallelism across processes is refused
+    with dist.ProcessMesh(shape=[n], dim_names=["sep"]):
+        model = L.LlamaForCausalLM(L.LlamaConfig(**TINY_MOE, context_parallel="ring"),
+                                   device="cpu")
+        try:
+            model(torch.zeros(1, 8, dtype=torch.long))
+            res["moe_sep"] = np.array("no raise")
+        except NotImplementedError as e:
+            res["moe_sep"] = np.array(str(e))
+    # the measured dispatch of a layer routed over the world: the probe (forced
+    # at a tiny shape) is keyed on the global batch's T
+    from paddle_tpu_torch.distributed.fleet import moe
+
+    keep = moe._SMALL, dict(moe._DISPATCH_CHOICE)
+    moe._SMALL = 0
+    moe._DISPATCH_CHOICE.clear()
+    try:
+        layer = moe.MoELayer(16, 24, 4, device="cpu")
+        layer._ep = moe.ExpertPlan(C._world())
+        layer(torch.randn(3 + r, 8, 16))
+        res["dispatch_keys"] = np.array([k[:3] for k in moe._DISPATCH_CHOICE])
+    finally:
+        moe._SMALL = keep[0]
+        moe._DISPATCH_CHOICE.clear()
+        moe._DISPATCH_CHOICE.update(keep[1])
+    _save(out, "ep_axes", **res)
 
 
 def fail(out):
@@ -1618,7 +1865,8 @@ CASES = {"collectives": collectives, "dp": dp, "zero": zero, "partitioned": part
          "pp_apply": pp_apply, "pp_dp": pp_dp, "pp_rules": pp_rules, "pp_llama": pp_llama,
          "hybrid_axes": hybrid_axes, "hy_grads": hy_grads, "hy_train": hy_train,
          "hy_mp_sharding": hy_mp_sharding, "hy_llama": hy_llama, "hy_pp_layers": hy_pp_layers,
-         "cp_ring": cp_ring, "cp_ulysses": cp_ulysses, "cp_llama": cp_llama, "cp_axes": cp_axes}
+         "cp_ring": cp_ring, "cp_ulysses": cp_ulysses, "cp_llama": cp_llama, "cp_axes": cp_axes,
+         "ep_llama": ep_llama, "ep_dp": ep_dp, "ep_ckpt": ep_ckpt, "ep_axes": ep_axes}
 
 
 def main():
