@@ -68,7 +68,13 @@ Phases, each printing one line of numbers:
    greedy requests and a ``top_k=1`` run equal to the greedy engine's, a
    decode step's device ms by kind (the vocabulary sort among them); and
    (3g) the NaN guard: one lane's K pages poisoned with NaN, that request
-   failed with "nonfinite logits", the others equal to a clean run;
+   failed with "nonfinite logits", the others equal to a clean run. The
+   served trace also holds the observability plane (``profiler``): the
+   registry's ``serve.admitted`` / ``completed`` / ``steps`` equal
+   ``stats()``, ``serve.ttft_us`` counts a request each, the
+   ``serve.decode.dispatch`` spans the decode calls, ``serve.compiles``
+   the captures, and ``serve.decode_roofline_frac`` lies in (0, 1] and its
+   ratio before the clamp in (0, ROOFLINE_CEIL];
 4. int8 engine: the same trace with ``weight_dtype="int8"``; one capture
    each; greedy tokens equal to the eager int8 engine's; greedy agreement
    with phase 3 is printed; the profiled decode steps must run the weight
@@ -102,6 +108,9 @@ Phases, each printing one line of numbers:
    layers, S = 2048, bf16, the same weights on both paths; the loss and
    every parameter's gradient agree within stated tolerances, then one
    ``TrainStep`` (AdamW) on each, whose losses and moments (m, v) agree;
+   then one parameter group poisoned with NaN on the card: the numerics
+   watchdog names it, ``train.numerics_events{kind=nonfinite}`` counts 1
+   and the flight ring is dumped;
 7. training: Llama-3-8B widths at 4 layers, batch 1 x seq 8192 seeded
    tokens, bf16, ``AdamW(3e-4, weight_decay=0.1)`` with global-norm
    clipping in ``TrainStep``: one warm-up and three timed steps, finite
@@ -109,7 +118,20 @@ Phases, each printing one line of numbers:
    per step, RMSNorm forward and backward 2 L + 1 times, the fused
    optimizer once per step, as in phases 10, 13 and 14), step time,
    tokens/s, model FLOPs share of bf16 peak, peak memory, and one profiled
-   step's device-busy share;
+   step's device-busy share. Numerics are at the default ``summary``: the
+   sentinels' kernel runs once a step (exact), and on the profiled step
+   (through ``paddle_tpu_torch.profiler.Profiler``) their ``grad_norm``
+   agrees with the global-norm clip's norm of the same gradients within
+   SENTINEL_NORM_RTOL, the nonfinite counts are 0 and the digest equals a
+   host recomputation from copies of those gradients; the exported Chrome
+   trace names the step's hand kernels; ``device_trace_summary`` of
+   ``jit.dispatch`` agrees with the device's busy ms within
+   DEVICE_TRACE_RTOL; ``jit.program_mfu{program=step}`` with the FLOPs
+   share within MFU_RTOL, it and the roofline fraction before the clamp in
+   (0, ROOFLINE_CEIL]; the goodput fraction lies in (0, 1]; two steps
+   with ``telemetry_export_every=1`` write one snapshot each. Then a
+   ``TrainStep(numerics="off")`` over the same model runs as many steps:
+   both step times, the sentinels' device ms a step and both peaks;
 8. fine-tuning kernels: the int8 GEMM's tensor-core kernel (wgmma fed by
    TMA), forward (M > 64) and dX, against their plain versions in bf16 at
    the seven Llama-3-8B projection shapes with M = 8192 tokens and a ragged
@@ -212,6 +234,10 @@ Phases, each printing one line of numbers:
    steps, one launch a step; then the update alone timed (CUDA events
    around eager calls) beside its byte bound, its plain version, both
    whole steps and ``torch.optim.AdamW(fused=True)`` on the same tensors;
+   (17s) the numerics sentinels' kernel (``csrc/sentinels.cu``) over
+   phase 7's 39 gradients and 39 parameters with a NaN and Infs put in:
+   digests and counts exactly its plain version's, sums of squares within
+   SENTINEL_SQ_RTOL; timed beside its byte bound and the plain version;
 18. mixed-precision training, Paddle's eager AMP loop
    (``paddle_tpu_torch.amp``: forward and loss under ``auto_cast``,
    ``GradScaler`` scale, backward, step, update, ``clear_grad``) with
@@ -242,7 +268,12 @@ Phases, each printing one line of numbers:
    tensors, no other kernel: the mask sends attention to the composed
    path), one profiled step's device ms by kind and top kernels, the
    masked attention's share (its own forward and backward timed at the
-   step's shapes) and the optimizer's; (19d) ``EvalStep`` forwards at 32 x
+   step's shapes) and the optimizer's; then the observability plane's
+   cost: turns of steps with numerics at ``summary``, ``off``, and off
+   with telemetry off (no spans, no attribution), each step split into
+   its host time and its wait for the device, the ``summary`` steps into
+   the sentinels' enqueue, the wait before their copy and the host fold;
+   (19d) ``EvalStep`` forwards at 32 x
    128 and 8 x 512: ms a batch and sequences/s; (19b) the config's dropout
    0.1 / 0.1: step ms, and from one set of weights two steps from one
    state of the model's generator give one loss, another state another;
@@ -293,8 +324,10 @@ Phases, each printing one line of numbers:
    ``ToTensor``, ``Resize(224)``, ``RandomHorizontalFlip``, ``Normalize``
    on 4 worker processes, ``Momentum(0.01, momentum=0.9)``, one epoch of
    15 steps: ms a step, images/s, the consumer's wait for the loader, the
-   device's busy share and ms by kind, peak memory, exact launches; then
-   ``evaluate`` and ``predict`` on the test split, the loader alone (an
+   device's busy share and ms by kind, peak memory, exact launches, the
+   loader's ``dataload.fetch`` spans (one a batch and the epoch's end)
+   and its goodput stall; then ``evaluate`` and ``predict`` on the test
+   split, the loader alone (an
    epoch with no model) and the same steps through ``TrainStep`` over
    batches already on the card; (21d) an epoch of the device loader with
    0 and 4 workers equal to the CPU loader's bit for bit, and an
@@ -382,8 +415,11 @@ Phases, each printing one line of numbers:
    card (each leaf within ``dist_train.GRAD_TOL`` of its largest entry),
    two planted faults refused by that check (the row-parallel products'
    all-reduce skipped; the column-parallel inputs' backward all-reduce
-   skipped), one step after which the uncut parameters (the norms) have
-   the same bits on both ranks, and the same with ``sequence_parallel``;
+   skipped), one step whose numerics sentinels publish the same loss,
+   grad norm and digest on both ranks (the norm the one-process
+   gradients' within ``dist_train.SENTINEL_NORM_TOL``) and after which the
+   uncut parameters (the norms) have the same bits on both ranks, and the
+   same with ``sequence_parallel``;
    (25a) phase 7's cell (4 layers, batch 1 x 8192, phase 7's AdamW and
    clip) at tensor 2: a warm-up and 3 timed steps (gloo's transport through
    the host included), exact launches on each rank (flash 4 each way a
@@ -529,6 +565,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -711,6 +748,32 @@ F32_LAYERS = 2
 CHECK_SEQ = 2048
 CHECK_LAYERS = 2
 LR = 3e-4
+
+# the observability plane (phases 3, 6, 7, 17s, 21c). The sentinels' sums of
+# squares: the same f32 terms as the plain version's, summed in another
+# order (digests and counts are integers, held exactly). Their grad_norm
+# against the global-norm clip's norm of the same gradients: two f32 sums
+# of 1.9e9 squares in different orders. The device time under the
+# jit.dispatch span against the step's busy time: the span holds every
+# launch of the step but the sentinels' one read-back copy. The program's
+# MFU gauge (counted FLOPs over the step program's device time) against the
+# phase's model-FLOPs share (model FLOPs over the host's step time): the
+# counted FLOPs add the elementwise work, the update's and the sentinels',
+# and the device time excludes the host's tail.
+SENTINEL_SQ_RTOL = 1e-5
+SENTINEL_NORM_RTOL = 1e-3
+DEVICE_TRACE_RTOL = 0.05
+MFU_RTOL = 0.15
+# attribution's MFU and roofline fractions before the gauges' clamp to 1: a
+# reading past this means the counted FLOPs or bytes exceed the work the
+# device can have done in the measured time (5% for the event timer's edges)
+ROOFLINE_CEIL = 1.05
+# the step's hand kernels the exported Chrome trace must name
+TRACE_KERNELS = ("flash_fwd_kernel", "flash_bwd_kv_kernel", "flash_bwd_dq_kernel",
+                 "rms_fwd_kernel", "rms_bwd_dx_kernel", "multi_tensor_update_kernel",
+                 "sentinel_stats_kernel")
+# telemetry snapshots written by TrainStep(telemetry_export_every=1) in phase 7
+EXPORT_STEPS = 2
 
 # int8 fine-tuning: the kernel checks' token counts (the training shape and a
 # ragged one), and SwiGLU's cases [N, H]
@@ -2208,6 +2271,8 @@ KERNEL_KINDS = (("paged attention (port)", ("paged_decode_kernel",)),
                 ("int8 dX (port)", ("int8_tc_kernel<true", "prepass_kernel")),
                 ("swiglu (port)", ("swiglu_fwd_kernel", "swiglu_bwd_kernel")),
                 ("fused optimizer (port)", ("multi_tensor_update_kernel",)),
+                ("numerics sentinels (port)", ("sentinel_stats_kernel",
+                                               "sentinel_finish_kernel")),
                 ("conv forward (cuDNN)", ("fprop",)),
                 ("conv dgrad (cuDNN)", ("dgrad",)),
                 ("conv wgrad (cuDNN)", ("wgrad",)),
@@ -2242,7 +2307,10 @@ def kernel_times(prof, counts: dict | None = None) -> tuple[dict, int]:
     per_kernel: dict = {}
     launches = 0
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # a host range's device-side shadow (a span's gpu_user_annotation
+        # while the port's Profiler records) is no device work of its own
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
             launches += 1
             if counts is not None:
@@ -3875,7 +3943,7 @@ def llama_loss(model, ids, labels, aux: float = 0.0):
     return loss
 
 
-def make_train_step(model, aux: float = 0.0, recompute_policy: str | None = None):
+def make_train_step(model, aux: float = 0.0, recompute_policy: str | None = None, **kw):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
@@ -3883,7 +3951,7 @@ def make_train_step(model, aux: float = 0.0, recompute_policy: str | None = None
     opt = AdamW(LR, parameters=model.parameters(), weight_decay=0.1,
                 grad_clip=ClipGradByGlobalNorm(1.0))
     return TrainStep(model, opt, lambda x, y: llama_loss(model, x, y, aux),
-                     recompute_policy=recompute_policy)
+                     recompute_policy=recompute_policy, **kw)
 
 
 def f32_matmuls() -> str:
@@ -4003,6 +4071,8 @@ def check_train_step(seed: int, int8: bool = False, f32: bool = False, moe: bool
             if not (math.isfinite(frac) and frac <= tol):
                 raise AssertionError(f"after one TrainStep, AdamW's {key} of {n} differs by "
                                      f"{frac} of its largest magnitude (tol {tol})")
+    if phase == "train-step-check":
+        hold_watchdog(steps["kernel"], kern, ids, labels, phase)
     say(phase, layers=CHECK_LAYERS, seq=CHECK_SEQ, trainable=n_trainable, **extra,
         loss_kernel=loss_k, loss_plain=loss_p, loss_rel_diff=loss_rel, loss_tol=loss_tol,
         worst_grad_frac=worst[0], worst_grad=worst[1], grad_tol=grad_tol,
@@ -4080,8 +4150,10 @@ def train(seed: int, int8: bool = False, ring: int = 0, f32: bool = False,
     4-layer run; phase 14 with ``f32``: the model at its default f32 with
     F32_LAYERS layers. Returns the launch counts of the three timed steps,
     the mean step time and the profiled step's device ms by kind. Without
-    ``count`` it reads no launch counter, so that ``tools/train_ab.py`` can
-    time an older checkout's package with it."""
+    ``count`` it reads no launch counter and profiles through the bare
+    ``torch.profiler``, so that ``tools/train_ab.py`` can time an older
+    checkout's package with it. Phase 7 also holds the observability plane
+    (:func:`hold_train_observability`)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4114,9 +4186,14 @@ def train(seed: int, int8: bool = False, ring: int = 0, f32: bool = False,
     rng = np.random.RandomState(seed + 3)
     counters = training_counters() if count else {}
     per_step = expected_launches(layers, int8, ring, f32) if count else {}
+    observe = count and phase == "train"
+    if count:
+        from paddle_tpu_torch.ops import sentinels
 
-    def run(n_steps):
+    def run(n_steps, step):
         zero_counts(counters)
+        if count:
+            sentinels.tensor_stats.launches = 0
         losses, times = [], []
         for _ in range(n_steps):
             ids, labels = token_batch(rng, TRAIN_SEQ, cfg.vocab_size)
@@ -4132,10 +4209,19 @@ def train(seed: int, int8: bool = False, ring: int = 0, f32: bool = False,
             raise AssertionError(f"{phase} launched {counts}, expected {want}")
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{phase} losses are not finite: {losses}")
+        if count:
+            # the sentinels' kernel: once a step at numerics "summary", never at "off"
+            want_sent = n_steps if step._numerics_mode != "off" else 0
+            if sentinels.tensor_stats.launches != want_sent:
+                raise AssertionError(f"{phase}: the sentinels launched "
+                                     f"{sentinels.tensor_stats.launches} times in {n_steps} "
+                                     f"steps, expected {want_sent}")
+            counts = dict(counts, sentinel_stats=sentinels.tensor_stats.launches)
         return losses, times, counts
 
-    warm_losses, warm_times, _ = run(1)
-    losses, times, counts = run(TRAIN_STEPS)
+    warm_losses, warm_times, _ = run(1, step)
+    losses, times, counts = run(TRAIN_STEPS, step)
+    steps_peak = torch.cuda.max_memory_allocated() / 2**30
     step_s = sum(times) / len(times)
     tokens = TRAIN_SEQ
     attn_flops = layers * 3.5 * flash_counts(True, 1, TRAIN_SEQ, cfg.num_attention_heads,
@@ -4157,7 +4243,14 @@ def train(seed: int, int8: bool = False, ring: int = 0, f32: bool = False,
         launches=counts, **({"sep": ring} if ring else {}))
     ids, labels = token_batch(rng, TRAIN_SEQ, cfg.vocab_size)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    if count:
+        from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
+
+        profiler = Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU])
+    else:
+        profiler = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with profiler as prof, (capture_sentinels() if observe
+                            else contextlib.nullcontext({})) as captured:
         s0 = time.perf_counter()
         step(ids, labels)
         torch.cuda.synchronize()
@@ -4171,11 +4264,332 @@ def train(seed: int, int8: bool = False, ring: int = 0, f32: bool = False,
     say(phase, device_ms_by_kind=json.dumps(by_kind(per_kernel)))
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {phase} top kernel: {us / 1e3:.4f} ms/step {name[:90]}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    obs = None
+    if observe:
+        obs = hold_train_observability(step, prof, captured, per_kernel, busy,
+                                       model_flops / step_s / BF16_FLOP_PER_S)
+        obs["sentinel_launches"] = counts["sentinel_stats"]
+        del captured, step
+        step = hold_numerics_off(model, step_s, steps_peak, obs, run)
     del step, model
     torch.cuda.empty_cache()
     return {"launches": counts, "step_ms": 1e3 * step_s, "device_ms_by_kind": by_kind(per_kernel),
-            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "device_busy_share": busy / wall if busy else None}
+            "max_memory_allocated_gib": peak,
+            "device_busy_share": busy / wall if busy else None, "observability": obs}
+
+
+# ---------------------------------------------------------------------------
+# the observability plane (profiler), held inside phases 3, 6, 7 and 21c
+# ---------------------------------------------------------------------------
+
+def reset_observability():
+    """Zero the port's registry (and with it the goodput ledger and the
+    attribution caches) and empty its span ring."""
+    from paddle_tpu_torch.profiler import spans, telemetry
+
+    telemetry.reset()
+    spans.clear()
+
+
+@contextlib.contextmanager
+def capture_sentinels():
+    """Within: the gradients the TrainStep's sentinels read (``grads``) and
+    the host values the step fetched (``host``)."""
+    from paddle_tpu_torch.profiler import numerics
+
+    got: dict = {}
+    tree, host = numerics.sentinel_tree, numerics.host_sentinels
+
+    def tree_(loss, grads, params, mode, reduce=None):
+        got["grads"] = dict(grads)
+        return tree(loss, grads, params, mode, reduce=reduce)
+
+    def host_(sent):
+        got["host"] = host(sent)
+        return got["host"]
+
+    numerics.sentinel_tree, numerics.host_sentinels = tree_, host_
+    try:
+        yield got
+    finally:
+        numerics.sentinel_tree, numerics.host_sentinels = tree, host
+
+
+def host_digest(grads: dict) -> int:
+    """The digest of ``grads`` recomputed on the host from copies: the
+    wrapping u32 sum of every element's f32 bit pattern (a bf16's bits
+    shifted left by 16)."""
+    import numpy as np
+    import torch
+
+    total = 0
+    for g in grads.values():
+        a = g.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            total += int(np.sum(a.view(torch.int16).numpy().view(np.uint16),
+                                dtype=np.uint64)) << 16
+        else:
+            total += int(np.sum(a.float().numpy().view(np.uint32), dtype=np.uint64))
+    return total % 2**32
+
+
+def hold_train_observability(step, prof, captured: dict, per_kernel: dict, busy_s: float,
+                             peak_share: float) -> dict:
+    """Phase 7's profiled step through the port's Profiler: the sentinels
+    against the clip's norm, zero counts and a host digest; the exported
+    Chrome trace; the device time under ``jit.dispatch`` against the busy
+    time; the MFU gauge against the model-FLOPs share, the MFU and roofline
+    fraction before the clamp at most ROOFLINE_CEIL; the goodput fraction;
+    then EXPORT_STEPS steps writing one telemetry snapshot each.
+    Returns the readings."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.nn.clip import _norm
+    from paddle_tpu_torch.profiler import goodput, telemetry
+
+    host, grads = captured["host"], captured["grads"]
+    clip_norm = torch.sqrt(sum(_norm(g).square() for g in grads.values())).item()
+    norm_rel = abs(host["grad_norm"] - clip_norm) / clip_norm
+    if not norm_rel <= SENTINEL_NORM_RTOL:
+        raise AssertionError(f"train: the sentinels' grad_norm {host['grad_norm']} against the "
+                             f"clip's {clip_norm} ({norm_rel} relative)")
+    counts = {k: host[k] for k in ("loss_nonfinite", "grad_nonfinite", "param_nonfinite")}
+    if any(counts.values()):
+        raise AssertionError(f"train: nonfinite counts {counts}")
+    digest = host_digest(grads)
+    if digest != host["digest"]:
+        raise AssertionError(f"train: the sentinels' digest {host['digest']}, the host's "
+                             f"recomputation {digest}")
+    captured.clear()
+    del grads
+    sentinel_ms = sum(us for name, us in per_kernel.items() if "sentinel_" in name) / 1e3
+    with tempfile.TemporaryDirectory() as d:
+        path = prof.export(os.path.join(d, "step.json"))
+        names = {e.get("name", "") for e in json.load(open(path))["traceEvents"]}
+    missing = [k for k in TRACE_KERNELS if not any(k in n for n in names)]
+    if missing:
+        raise AssertionError(f"train: the exported Chrome trace names no {missing}")
+    dev = prof.device_trace_summary(("jit.dispatch",))
+    under = dev["annotations"]["jit.dispatch"]
+    busy_ms = 1e3 * busy_s
+    if not abs(under["device_ms"] - busy_ms) <= DEVICE_TRACE_RTOL * busy_ms:
+        raise AssertionError(f"train: device time under jit.dispatch {under} against the "
+                             f"step's busy {busy_ms} ms")
+    mfu = telemetry.gauge("jit.program_mfu", program="step").value
+    if not abs(mfu - peak_share) <= MFU_RTOL * peak_share:
+        raise AssertionError(f"train: jit.program_mfu {mfu} against the model-FLOPs share "
+                             f"{peak_share}")
+    raw = step._prog_costs.unclamped["step"]
+    if not all(0 < v <= ROOFLINE_CEIL for v in raw.values()):
+        raise AssertionError(f"train: the step's MFU and roofline fraction before the clamp "
+                             f"{raw}")
+    fraction = goodput.fraction()
+    if not (fraction is not None and 0 < fraction <= 1):
+        raise AssertionError(f"train: goodput fraction {fraction}")
+    cost = step._prog_costs.get("step")
+    out = {"grad_norm": host["grad_norm"], "clip_norm": clip_norm, "norm_rel_diff": norm_rel,
+           "digest": digest, "sentinel_device_ms": sentinel_ms,
+           "dispatch_device_ms": under["device_ms"], "dispatch_kernels": under["kernels"],
+           "dispatch_linked": under["linked"], "device_busy_ms": busy_ms,
+           "program_mfu": mfu, "bf16_peak_share": peak_share,
+           "program_roofline_frac": telemetry.gauge("jit.program_roofline_frac",
+                                                    program="step").value,
+           "program_roofline_frac_unclamped": raw["roofline_frac"],
+           "counted_tflop": cost.flops / 1e12, "counted_gb": cost.hbm_bytes / 1e9,
+           "goodput_fraction": fraction}
+    # the JSONL export: one snapshot a step
+    with tempfile.TemporaryDirectory() as d:
+        step._tel_every, step._tel_dir = 1, d
+        ids = torch.zeros((1, TRAIN_SEQ), dtype=torch.int64,
+                          device=step.model.parameters()[0].device)
+        for _ in range(EXPORT_STEPS):
+            step(ids, ids)
+        step._tel_every = 0
+        recs = [json.loads(line) for f in os.listdir(d) if f.endswith(".jsonl")
+                for line in open(os.path.join(d, f))]
+    by_step: dict = {}
+    for r in recs:
+        by_step[r["step"]] = by_step.get(r["step"], 0) + 1
+    if sorted(by_step) != list(range(1, EXPORT_STEPS + 1)) or len(set(by_step.values())) != 1:
+        raise AssertionError(f"train: telemetry export records by step {by_step}")
+    out["export_records_per_step"] = next(iter(by_step.values()))
+    say("train-observability", **{k: (round(v, 6) if isinstance(v, float) else v)
+                                  for k, v in out.items()})
+    return out
+
+
+def hold_numerics_off(model, step_s: float, steps_peak: float, obs: dict, run):
+    """Phase 7 again with ``TrainStep(numerics="off")`` over the same model
+    (a fresh optimizer state, the caller's freed first): one warm-up and
+    TRAIN_STEPS timed steps, the sentinels never launched; both step-time
+    means, their ratio and both peaks. Returns the new step."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    off = make_train_step(model, numerics="off")
+    run(1, off)
+    _, times, _ = run(TRAIN_STEPS, off)
+    off_s = sum(times) / len(times)
+    off_peak = torch.cuda.max_memory_allocated() / 2**30
+    obs.update(summary_step_ms=1e3 * step_s, off_step_ms=1e3 * off_s,
+               summary_to_off=step_s / off_s, summary_peak_gib=steps_peak,
+               off_peak_gib=off_peak, peak_gib_above_off=steps_peak - off_peak)
+    say("train-numerics", summary_step_ms=round(1e3 * step_s, 3),
+        off_step_ms=round(1e3 * off_s, 3), summary_to_off=round(step_s / off_s, 4),
+        sentinel_device_ms=round(obs["sentinel_device_ms"], 5),
+        summary_peak_gib=round(steps_peak, 3), off_peak_gib=round(off_peak, 3),
+        peak_gib_above_off=round(steps_peak - off_peak, 3))
+    return off
+
+
+def check_sentinels(seed: int) -> dict:
+    """Phase 17s: the numerics sentinels' kernel (``ops.sentinels.
+    tensor_stats``) over phase 7's gradients and parameters (78 bf16
+    tensors, 2 x 1.923e9 elements; a NaN, two Infs and an -Inf put in),
+    against its plain version: digests and counts exactly, sums of
+    squares within SENTINEL_SQ_RTOL; timed (CUDA events around eager
+    calls: its metadata goes through pinned memory each call) beside its
+    byte bound and the plain version. No PyTorch call computes the same
+    function (library_ms null)."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.ops import sentinels
+
+    shapes = llama_shapes(LlamaConfig.llama3_8b(num_hidden_layers=TRAIN_LAYERS))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 29)
+    ts = [(0.02 * torch.randn(s, generator=gen, device="cuda")).bfloat16()
+          for s in shapes * 2]
+    ts[0].view(-1)[12345] = float("nan")
+    ts[3].view(-1)[-1] = float("inf")
+    ts[len(shapes)].view(-1)[0] = float("-inf")
+    ts[-1].view(-1)[0] = float("inf")
+    sq, ints = sentinels.tensor_stats(ts)
+    psq, pints = sentinels.tensor_stats_plain(ts)
+    torch.cuda.synchronize()
+    if not torch.equal(ints, pints):
+        bad = (ints != pints).nonzero().tolist()[:8]
+        raise AssertionError(f"sentinels: digests or counts differ from the plain version at {bad}")
+    want = [0] * len(ts)
+    for i in (0, 3, len(shapes), len(ts) - 1):
+        want[i] = 1
+    if ints[1].tolist() != want:
+        raise AssertionError(f"sentinels: counts {ints[1].tolist()}, expected {want}")
+    fin = torch.isfinite(psq)
+    if not torch.equal(fin, torch.isfinite(sq)):
+        raise AssertionError("sentinels: the finite sums of squares differ from the plain "
+                             "version's")
+    rel = ((sq[fin] - psq[fin]).abs() / psq[fin]).max().item()
+    if not rel <= SENTINEL_SQ_RTOL:
+        raise AssertionError(f"sentinels: sums of squares {rel} relative from the plain version")
+    max_err = (sq[fin] - psq[fin]).abs().max().item()
+    ms = eager_ms(lambda i: sentinels.tensor_stats(ts), 1, iters=10, warmup=2)
+    plain = eager_ms(lambda i: sentinels.tensor_stats_plain(ts), 1, iters=3, warmup=1)
+    n = sum(t.numel() for t in ts)
+    nbytes = sum(t.numel() * t.element_size() for t in ts)
+    bound, bound_by = bound_ms(nbytes, 3 * n)
+    out = {"max_abs_err": max_err, "ms": round(ms, 5), "plain_ms": round(plain, 5),
+           "bound_ms": round(bound, 5), "bound_by": bound_by, "library_ms": None,
+           "at": f"one read of phase 7's {len(shapes)} bf16 gradients and {len(shapes)} "
+                 f"parameters ({n} elements): each tensor's sum of squares, digest and "
+                 "NaN/Inf count; digests and counts held exactly against the plain "
+                 f"version, sums of squares to {SENTINEL_SQ_RTOL} relative; no PyTorch "
+                 "call computes the same function"}
+    say("sentinels", tensors=len(ts), elements=n, max_abs_err=max_err, sq_max_rel=rel,
+        ms=out["ms"], bound_ms=out["bound_ms"], bound_by=bound_by,
+        bound_share=round(bound / ms, 4), plain_ms=out["plain_ms"])
+    del ts, sq, psq
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_watchdog(step, model, ids, labels, phase: str) -> dict:
+    """Phase 6's model after its TrainStep: ``lm_head`` (its own tensor
+    group) poisoned with NaN on the card; the next step's watchdog event
+    names that group alone among the parameters, counts one nonfinite
+    event and dumps the flight ring (into a temporary PADDLE_FLIGHT_DIR)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.profiler import telemetry
+
+    d = tempfile.mkdtemp(prefix="flight_")
+    old = os.environ.get("PADDLE_FLIGHT_DIR")
+    os.environ["PADDLE_FLIGHT_DIR"] = d
+    try:
+        reset_observability()
+        with torch.no_grad():
+            model.lm_head.weight[0, :4] = float("nan")
+        step(ids, labels)
+        torch.cuda.synchronize()
+        ev = step._num_watchdog.last_event
+        named = {g for g, c in ev["groups"].items() if "param" in c}
+        events = telemetry.snapshot().get('train.numerics_events{kind="nonfinite"}')
+        with open(os.path.join(d, "flight.0.jsonl")) as f:
+            header = json.loads(f.readline())
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_FLIGHT_DIR", None)
+        else:
+            os.environ["PADDLE_FLIGHT_DIR"] = old
+        shutil.rmtree(d, ignore_errors=True)
+    if (ev["kind"], named, ev["groups"]["lm_head"].get("param")) != ("nonfinite", {"lm_head"}, 4):
+        raise AssertionError(f"{phase}: the watchdog's event {ev}")
+    if events != 1 or header["reason"] != "numerics:nonfinite":
+        raise AssertionError(f"{phase}: numerics events {events}, flight dump {header}")
+    out = {"named": sorted(named), "param_nonfinite": ev["param_nonfinite"],
+           "grad_nonfinite": ev["grad_nonfinite"], "numerics_events": events,
+           "flight_dump_reason": header["reason"]}
+    say(phase, watchdog=json.dumps(out))
+    return out
+
+
+def hold_serving_telemetry(engine, reqs, phase: str) -> dict:
+    """Phase 3's served trace against the registry and the span ring:
+    ``serve.admitted`` / ``completed`` / ``steps`` equal ``stats()``,
+    ``serve.ttft_us`` counts a request each, the ``serve.decode.dispatch``
+    spans the decode calls, ``serve.compiles`` the captures, and the decode
+    roofline fraction lies in (0, 1], its ratio before the gauge's clamp in
+    (0, ROOFLINE_CEIL]."""
+    from paddle_tpu_torch.profiler import spans, telemetry
+
+    snap = telemetry.snapshot()
+    st = engine.stats()
+    done = sum(r.status == "done" for r in reqs)
+    dispatch = sum(e["name"] == "serve.decode.dispatch" for e in spans.entries())
+    got = {"admitted": snap["serve.admitted"], "completed": snap["serve.completed"],
+           "steps": snap["serve.steps"], "ttft_count": snap["serve.ttft_us.count"],
+           "decode_dispatch_spans": dispatch,
+           "compiles": sum(v for k, v in snap.items() if k.startswith("serve.compiles{"))}
+    want = {"admitted": len(reqs), "completed": done, "steps": st["steps"],
+            "ttft_count": len(reqs), "decode_dispatch_spans": st["program_calls"]["decode"],
+            "compiles": sum(st["captures"].values())}
+    frac = snap.get("serve.decode_roofline_frac")
+    # the gauge is clamped to 1, so a byte count too low would pass as 1:
+    # its ratio before the clamp must lie in (0, ROOFLINE_CEIL]
+    raw = engine._prog_costs.unclamped.get("decode_roofline_frac")
+    if got != want or not (frac is not None and 0 < frac <= 1) \
+            or not (raw is not None and 0 < raw <= ROOFLINE_CEIL):
+        raise AssertionError(f"{phase}: telemetry {got}, expected {want}; decode roofline "
+                             f"fraction {frac}, {raw} before the clamp")
+    out = dict(got, decode_roofline_frac=frac, decode_roofline_frac_unclamped=raw,
+               decode_roofline_tok_s=snap.get("serve.decode_roofline_tok_s"),
+               decode_mfu=snap.get('jit.program_mfu{program="decode"}'),
+               prefill_mfu=snap.get('jit.program_mfu{program="prefill"}'),
+               ttft_us_p50=snap.get("serve.ttft_us.p50"),
+               inter_token_us_p50=snap.get("serve.inter_token_us.p50"))
+    say(phase, telemetry=json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4866,6 +5280,125 @@ def ernie_flops(model, tokens: int, b: int, s: int) -> float:
     return 6 * n * tokens + attn
 
 
+# 19a's A/B of the observability plane: ERNIE_AB_ROUNDS rounds of turns
+# summary, off, bare, bare, off, summary of ERNIE_STEPS steps each (bare:
+# numerics off and PADDLE_TELEMETRY=0, so no spans and no attribution)
+ERNIE_AB_ROUNDS = 2
+ERNIE_AB_ORDER = ("summary", "off", "bare", "bare", "off", "summary")
+
+
+def hold_ernie_numerics(model, step, rng, busy_ms: float) -> dict:
+    """Phase 19a's observability A/B on the host-bound ERNIE step: ``step``
+    (numerics at the default ``summary``) against a ``TrainStep(numerics=
+    "off")`` over the same model and that one with telemetry off ("bare":
+    no spans, no attribution, the nearest to the step before the plane),
+    in ERNIE_AB_ORDER turns. Each step is timed as 19a's (synchronised
+    before and after) and split on the host: the time until the step
+    returns, and the wait for the device after it. In ``summary`` turns
+    the step's numerics are split too: the sentinels' enqueue, the wait
+    for the device before their one copy (made explicit, so that the copy
+    itself waits for nothing) and the host fold (the copy, ``publish`` and
+    the watchdog). Prints every turn and the means by mode; the device's
+    idle share is 1 - ``busy_ms`` (the profiled step's) over the step."""
+    import statistics
+
+    import torch
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import spans
+
+    phase = "ernie-numerics"
+    cfg = model.ernie.config
+    off = TrainStep(model, AdamW(ERNIE_LR, parameters=model.parameters()),
+                    lambda ids, y: F.cross_entropy(model(ids), y), numerics="off")
+    split = {"sentinels_enqueue": [], "wait": [], "fold": []}
+    enqueue, handle = step._sentinels, step._handle_numerics
+
+    def timed_sentinels(*a, **k):
+        t0 = time.perf_counter()
+        out = enqueue(*a, **k)
+        split["sentinels_enqueue"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_handle(loss, sent):
+        t0 = time.perf_counter()
+        torch.cuda.current_stream().synchronize()
+        t1 = time.perf_counter()
+        handle(loss, sent)
+        split["wait"].append(t1 - t0)
+        split["fold"].append(time.perf_counter() - t1)
+
+    step._sentinels, step._handle_numerics = timed_sentinels, timed_handle
+
+    def turn(mode, n):
+        which = step if mode == "summary" else off
+        env = os.environ.get("PADDLE_TELEMETRY")
+        if mode == "bare":
+            os.environ["PADDLE_TELEMETRY"] = "0"
+        spans.enabled(refresh=True)
+        host, tail = [], []
+        try:
+            for _ in range(n):
+                ids, labels, _ = ernie_batch(rng, ERNIE_BATCH, ERNIE_SEQ, cfg.vocab_size)
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                loss = which(ids, labels)
+                s1 = time.perf_counter()
+                torch.cuda.synchronize()
+                host.append(s1 - s0)
+                tail.append(time.perf_counter() - s1)
+                if not math.isfinite(loss.item()):
+                    raise AssertionError(f"{phase}: a {mode} step's loss {loss.item()}")
+        finally:
+            if env is None:
+                os.environ.pop("PADDLE_TELEMETRY", None)
+            else:
+                os.environ["PADDLE_TELEMETRY"] = env
+            spans.enabled(refresh=True)
+        return host, tail
+
+    try:
+        for mode in ("off", "bare"):
+            turn(mode, ERNIE_WARMUP)
+        for v in split.values():
+            v.clear()
+        turns = []
+        for _ in range(ERNIE_AB_ROUNDS):
+            for mode in ERNIE_AB_ORDER:
+                host, tail = turn(mode, ERNIE_STEPS)
+                steps = [h + t for h, t in zip(host, tail)]
+                turns.append({"mode": mode, "step_ms": 1e3 * statistics.mean(steps),
+                              "host_ms": 1e3 * statistics.mean(host),
+                              "tail_wait_ms": 1e3 * statistics.mean(tail)})
+                say(phase, turn=len(turns), mode=mode,
+                    steps_ms=[round(1e3 * t, 3) for t in steps],
+                    **{k: round(v, 3) for k, v in turns[-1].items() if k != "mode"})
+    finally:
+        del step._sentinels, step._handle_numerics
+    out = {}
+    for mode in ("summary", "off", "bare"):
+        ms = [t["step_ms"] for t in turns if t["mode"] == mode]
+        out[mode] = {"step_ms": statistics.mean(ms), "turn_spread": max(ms) / min(ms) - 1,
+                     "host_ms": statistics.mean(t["host_ms"] for t in turns
+                                                if t["mode"] == mode),
+                     "tail_wait_ms": statistics.mean(t["tail_wait_ms"] for t in turns
+                                                     if t["mode"] == mode),
+                     "device_idle_share": 1 - busy_ms / statistics.mean(ms)}
+    out["summary_split_ms"] = {k: 1e3 * statistics.mean(v) for k, v in split.items()}
+    out["summary_to_off"] = out["summary"]["step_ms"] / out["off"]["step_ms"]
+    out["off_to_bare"] = out["off"]["step_ms"] / out["bare"]["step_ms"]
+    say(phase, summary_to_off=round(out["summary_to_off"], 4),
+        off_to_bare=round(out["off_to_bare"], 4), busy_ms=round(busy_ms, 3),
+        by_mode=json.dumps({m: {k: round(v, 4) for k, v in out[m].items()}
+                            for m in ("summary", "off", "bare")}),
+        summary_split_ms=json.dumps({k: round(v, 4) for k, v in
+                                     out["summary_split_ms"].items()}))
+    del off
+    return out
+
+
 def ernie_finetune(seed: int, smi: str) -> dict:
     """Phase 19a: bench.py's ERNIE finetune on the card with ragged rows:
     ERNIE_WARMUP and ERNIE_STEPS timed steps (host clock, synchronised):
@@ -4958,6 +5491,7 @@ def ernie_finetune(seed: int, smi: str) -> dict:
              "profiled step's device ms")
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {phase} top kernel: {us / 1e3:.4f} ms/step {name[:90]}", flush=True)
+    hold_ernie_numerics(model, step, rng, busy)
     del step
     return {"model": model, "launches": counts, "step_ms": 1e3 * step_s, "peak_gib": peak}
 
@@ -5867,6 +6401,16 @@ def make_timed_loader(*args, warmup: int, **kwargs):
     return TimedLoader(*args, **kwargs)
 
 
+def loader_observability() -> tuple:
+    """(dataload.fetch spans in the ring, the goodput stall booked for the
+    loader in microseconds)."""
+    from paddle_tpu_torch.profiler import spans, telemetry
+
+    fetches = sum(e["name"] == "dataload.fetch" for e in spans.entries())
+    stall = telemetry.snapshot().get('goodput.lost_us{reason="stall",site="dataload"}', 0)
+    return fetches, stall
+
+
 def host_rss_gib() -> float:
     """This process's resident host memory (``VmRSS``), GiB."""
     for line in Path("/proc/self/status").read_text().splitlines():
@@ -5909,8 +6453,10 @@ def flowers_epoch(seed: int, workers: int = FLOWERS_WORKERS) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(counters)
+    reset_observability()
     hist = model.fit(loader, epochs=1, verbose=0)
     counts = read_counts(counters)
+    fetch_spans, stall_us = loader_observability()
     timed = len(hist["loss"]) - FLOWERS_WARMUP
     per_kernel, ops = kernel_times(loader.prof)
     return {"model": model, "net": net, "twin": twin, "train": train, "loader_kw": loader_kw,
@@ -5918,7 +6464,8 @@ def flowers_epoch(seed: int, workers: int = FLOWERS_WORKERS) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "step_s": loader.window_s / timed, "window_s": loader.window_s,
             "first_wait_s": loader.waits[0], "wait_s": sum(loader.waits[FLOWERS_WARMUP:]),
-            "busy_s": sum(per_kernel.values()) / 1e6, "per_kernel": per_kernel, "ops": ops}
+            "busy_s": sum(per_kernel.values()) / 1e6, "per_kernel": per_kernel, "ops": ops,
+            "fetch_spans": fetch_spans, "stall_us": stall_us}
 
 
 def flowers_fit(seed: int, smi: str) -> dict:
@@ -5969,6 +6516,14 @@ def flowers_fit(seed: int, smi: str) -> dict:
         raise AssertionError(f"{phase} launched {counts}, expected {want}")
     if steps != len(train) // FLOWERS_BATCH or not all(math.isfinite(v) for v in hist["loss"]):
         raise AssertionError(f"{phase}: {steps} steps, losses {hist['loss']}")
+    # the loader's dataload.fetch spans: one a batch and the epoch's end
+    # (the fetch that finds it), as the reference's; its waits booked as
+    # goodput stall
+    say(phase, dataload_fetch_spans=ep["fetch_spans"], batches=steps,
+        stall_ms=round(ep["stall_us"] / 1e3, 3))
+    if ep["fetch_spans"] != steps + 1 or not ep["stall_us"] > 0:
+        raise AssertionError(f"{phase}: {ep['fetch_spans']} dataload.fetch spans for {steps} "
+                             f"batches, stall {ep['stall_us']} us")
 
     t0 = time.perf_counter()
     res = model.evaluate(test, batch_size=FLOWERS_BATCH, verbose=0)
@@ -7291,7 +7846,11 @@ def tensor_phase(seed: int, train_step_ms: float) -> dict:
             grad_vs_ref_tol=c["grad_vs_ref_tol"],
             leaves=c["leaves"], cut_on_rank=c["cut"],
             uncut_bit_identical=f"{len(c['uncut_checksums'])}/{len(c['uncut_checksums'])}",
-            planted_faults_max_rel=json.dumps(c.get("planted_faults_max_rel", {})))
+            planted_faults_max_rel=json.dumps(c.get("planted_faults_max_rel", {})),
+            sentinel_grad_norm=c["sentinel_grad_norm"],
+            sentinel_plain_norm=c["sentinel_plain_norm"],
+            sentinel_norm_rel=c["sentinel_norm_rel"],
+            sentinel_ranks_agree=c["sentinel_ranks_agree"])
     say("tensor-c", **r0["semi_auto"])
     say("tensor-a", ranks=TP, step_ms_mean=json.dumps([r["step_ms_mean"] for r in ranks]),
         train_step_ms=round(train_step_ms, 3),
@@ -7787,7 +8346,9 @@ def main(argv=None) -> int:
     prompts = trace(REQUESTS, args.seed, cfg.vocab_size)
     engine = ServingEngine(model, ServeConfig(**serve_cfg))
     paged_decode_attention.launches = 0
+    reset_observability()
     bf16_reqs = serve(engine, prompts, NEW_TOKENS, "bf16-engine")
+    serve_obs = hold_serving_telemetry(engine, bf16_reqs, "bf16-engine")
     # a graph's replays run the kernels its capture recorded, and the
     # wrappers count only where they call the launch: the warm-up and the
     # capture. The launches the device ran are read from a device trace.
@@ -7890,6 +8451,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lap("16")
     fused_opt = check_fused_optimizer(args.seed)
+    sentinel_kern = check_sentinels(args.seed)
     lap("17")
     amp_o2 = train_amp(args.seed, "O2", TRAIN_LAYERS)
     amp_o1 = train_amp(args.seed, "O1", AMP_O1_LAYERS)
@@ -8171,6 +8733,14 @@ def main(argv=None) -> int:
                           "(the kernel's master mode, one a step) and the ERNIE steps of "
                           f"phase 19e under amp O2 ({ernie_launches['master']}, "
                           f"{ERNIE_LEARN_LAYERS} layers: one a step)")
+    kernels.append({
+        "name": "sentinel_stats", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/sentinels.cu",
+        "replaces": "paddle_tpu/profiler/numerics.py:103 (part of an XLA program: no TPU kernel)",
+        "launches": train_launches["sentinel_stats"], **sentinel_kern})
+    kernels[-1]["at"] += (f"; launches from the {TRAIN_STEPS} timed training steps of phase 7 "
+                          "(TrainStep at numerics 'summary': one a step over the gradients and "
+                          "the parameters before the update)")
     say("done", total_s=round(time.perf_counter() - t_start, 1), phase_s=json.dumps(phase_s))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,7 +25,10 @@ amp surfaces, the vision models, the high-level API and the op surface:
 - :mod:`paddle_tpu_torch.distributed`: recompute, the Mixture-of-Experts
   layer (``distributed.fleet.MoELayer``) and the ring, on one device;
 - ``Model`` (``hapi``), ``io.DataLoader``, ``metric``, ``save`` and
-  ``load``, ``get_flags`` and ``set_flags``.
+  ``load``, ``get_flags`` and ``set_flags``;
+- :mod:`paddle_tpu_torch.profiler`: the observability plane (telemetry,
+  spans, goodput, the flight recorder, the timeline, the numerics
+  sentinels, attribution, ``Profiler`` and ``RecordEvent``).
 
 Nothing is patched onto ``torch.Tensor``: Paddle's tensor methods
 (``x.astype``, ``x.stop_gradient``, ...) are the top-level functions here
@@ -52,8 +55,8 @@ from .framework.random import (get_cuda_rng_state, get_rng_state, seed, set_cuda
 from .framework.misc import (CPUPlace, CUDAPinnedPlace, CUDAPlace, LazyGuard, batch,
                              check_shape, create_parameter, disable_signal_handler, finfo,
                              iinfo, set_printoptions, tolist)
-from . import (amp, distributed, flags, hapi, io, jit, metric, models, nn, optimizer, utils,
-               vision)
+from . import (amp, distributed, flags, hapi, io, jit, metric, models, nn, optimizer,
+               profiler, utils, vision)
 from .framework.io import load, save
 from .hapi import Model, summary
 from .nn import ParamAttr

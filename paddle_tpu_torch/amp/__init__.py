@@ -27,31 +27,52 @@
   a gradient and one host read a step; ``PADDLE_OPT_FUSED=0`` keeps the
   reference's per-gradient loop (one host read a gradient).
 
-Counts the reference keeps in its telemetry registry are plain integers
-here (:func:`stats`).
+Its counts are the reference's registry counters: ``amp.unscale_dispatches``
+(read by :func:`stats`) and ``amp.overflow{group}``, which, with a
+flight-ring record, names the first parameter whose unscaled gradient
+came out NaN or Inf.
 """
 
 from __future__ import annotations
 
-import copy
 import threading
 
 import torch
 
 from ..dtype import convert_dtype
+from ..profiler import telemetry as _telemetry
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "GradScaler", "amp_guard", "amp_state", "auto_cast",
            "cast_inputs", "debugging", "decorate", "should_cast", "stats"]
 
-_stats = {"unscale_dispatches": 0}
+_UNSCALE_DISPATCHES = _telemetry.counter("amp.unscale_dispatches")
 
 
 def stats() -> dict:
-    """Counts since import: ``unscale_dispatches`` (a fused unscale is one;
-    the per-gradient loop one a gradient). The reference also counts hits
-    of its cache of compiled unscales; the port compiles nothing, so it
-    has no such cache to count."""
-    return copy.deepcopy(_stats)
+    """Counts since import (or the registry's last reset):
+    ``unscale_dispatches`` (a fused unscale is one; the per-gradient loop
+    one a gradient). The reference also counts hits of its cache of
+    compiled unscales; the port compiles nothing, so it has no such cache
+    to count."""
+    return {"unscale_dispatches": _UNSCALE_DISPATCHES.value}
+
+
+def _attribute_overflow(params, fin_flags) -> None:
+    """Name the FIRST parameter whose unscaled gradient went nonfinite in
+    an ``amp.overflow{group}`` counter and a flight-ring record (kind
+    ``numerics``); the verdicts came back with the unscale's one read."""
+    from ..profiler import flight_recorder as _flight
+    from ..profiler import numerics as _numerics
+
+    for i, (p, fin) in enumerate(zip(params, fin_flags)):
+        if bool(fin):
+            continue
+        name = getattr(p, "paddle_name", "") or f"param_{i}"
+        group = _numerics.group_of(name)
+        _telemetry.counter("amp.overflow", group=group).bump()
+        _flight.recorder().record("numerics", op="amp.unscale",
+                                  extra={"group": group, "param": name, "index": i})
+        return
 
 
 # ≙ amp_lists.py white/black lists: ops that should run in low precision
@@ -251,18 +272,20 @@ class GradScaler:
         from ..optimizer.fused_step import fused_enabled
 
         inv = 1.0 / self._scale
-        grads = [p.grad for p in optimizer._parameter_list if p.grad is not None]
+        params = [p for p in optimizer._parameter_list if p.grad is not None]
+        grads = [p.grad for p in params]
         if fused_enabled() and grads:
             fin = _fused_unscale(grads, inv)
-            _stats["unscale_dispatches"] += 1
-            if not all(fin):
-                self._found_inf = True
+            _UNSCALE_DISPATCHES.value += 1
         else:
+            fin = []
             for g in grads:
                 g.mul_(_inv_as(inv, g.dtype, g.device))
-                _stats["unscale_dispatches"] += 1
-                if not bool(_finite(g)):
-                    self._found_inf = True
+                _UNSCALE_DISPATCHES.value += 1
+                fin.append(bool(_finite(g)))
+        if not all(fin):
+            self._found_inf = True
+            _attribute_overflow(params, fin)
         self._unscaled.add(id(optimizer))
 
     def step(self, optimizer):

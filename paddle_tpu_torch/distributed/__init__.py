@@ -22,7 +22,7 @@ routing the global batch, its experts over ``dp`` through the all-to-all
 or over ``tensor`` / ``ep`` with partial sums).
 """
 
-from . import checkpoint, env, fleet, partitioning, tensor_parallel  # noqa: F401
+from . import checkpoint, env, fleet, partitioning, resilience, tensor_parallel  # noqa: F401
 from .api import (DistAttr, Partial, Placement, Replicate, Shard, dtensor_from_fn,
                   placements_to_spec, reshard, shard_layer, shard_tensor, sharding_constraint,
                   unshard_dtensor)

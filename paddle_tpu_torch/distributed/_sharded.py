@@ -466,13 +466,51 @@ class ShardedUpdate:
                                                   1.0)) for g, s in zip(grads, sq)], none
         raise NotImplementedError(f"unknown clip descriptor {desc!r}")
 
-    def step(self, cls, params, grads, lrs, hypers, need_clip, clip_desc, t: int) -> None:
-        """Reduce, clip, update and (stages 1 and 2) gather; ``lrs``,
+    def sentinel_parts(self, params) -> tuple:
+        """What a sharded step's numerics sentinels read beside the reduced
+        gradients: ``(parts, fold)``. ``parts`` is this rank's part of each
+        parameter before the update, the part :meth:`_reduce` leaves of its
+        gradient; ``fold`` is ``profiler.numerics.sentinel_tree``'s
+        ``reduce``: it sums the per-tensor statistics (and takes the largest
+        of the maxima) over each tensor's :attr:`ShardInfo.cut_group`, the
+        groups the clip's norm is summed over, so every rank reads the whole
+        tensors' values."""
+        groups = {}
+        for n, p in params.items():
+            info = self.infos.get(id(p))
+            group = info.cut_group if info is not None else None
+            if group is not None and group.nranks > 1:
+                groups[n] = group
+
+        def fold(names, sums, maxes):
+            by_group: dict = {}
+            for j, n in enumerate(names):
+                g = groups.get(n)
+                if g is not None:
+                    by_group.setdefault(g.id, (g, []))[1].append(j)
+            for group, cols in by_group.values():
+                idx = torch.tensor(cols, device=sums.device)
+                part = sums[:, idx]
+                _c.all_reduce(part, group=group)
+                sums[:, idx] = part
+                if maxes is not None:
+                    part = maxes[:, idx]
+                    _c.all_reduce(part, op=_c.ReduceOp.MAX, group=group)
+                    maxes[:, idx] = part
+            return sums, maxes
+
+        return [self._slice(p) for p in params.values()], fold
+
+    def step(self, cls, params, grads, lrs, hypers, need_clip, clip_desc, t: int,
+             reduced: bool = False) -> None:
+        """Reduce (unless ``reduced``: the gradients are :meth:`_reduce`'s
+        already), clip, update and (stages 1 and 2) gather; ``lrs``,
         ``hypers`` and ``need_clip`` are per parameter."""
         from ..ops import fused_optimizer as fo
         from ..optimizer import fused_step
 
-        grads = self._reduce(params, grads)
+        if not reduced:
+            grads = self._reduce(params, grads)
         grads, scales = self._clip(clip_desc, params, grads, need_clip)
         entries = [fo.Entry(self._slice(p), g, self.state_of(cls, p), lr, hyper, scale)
                    for p, g, lr, hyper, scale in zip(params, grads, lrs, hypers, scales)]

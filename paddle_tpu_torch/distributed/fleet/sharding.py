@@ -125,13 +125,24 @@ class GroupShardedOptimizer:
             self._update.step(type(opt), params, grads, lrs, hypers, clips, self._desc(),
                               opt._step_count)
 
-    def apply_sharded(self, params, grads):
+    def reduce_sharded(self, params, grads):
+        """``TrainStep``'s gradients as the sharded update reads them: the
+        mean over the data ranks, of the slice where the state is sliced."""
+        return self._update._reduce(params, grads)
+
+    def sentinel_parts(self, params: dict) -> tuple:
+        """``{name: parameter}``'s parts and cross-rank fold for the
+        numerics sentinels (:meth:`ShardedUpdate.sentinel_parts`)."""
+        return self._update.sentinel_parts(params)
+
+    def apply_sharded(self, params, grads, reduced: bool = False):
         """``TrainStep``'s update (its step count already advanced): one
-        rate and hyperparameter tuple for every parameter, as there."""
+        rate and hyperparameter tuple for every parameter, as there;
+        ``reduced``: the gradients are :meth:`reduce_sharded`'s."""
         opt = self._inner_opt
         n = len(params)
         self._update.step(type(opt), params, grads, [opt.get_lr()] * n, [opt._hyper()] * n,
-                          [True] * n, self._desc(), opt._step_count)
+                          [True] * n, self._desc(), opt._step_count, reduced=reduced)
 
     def clear_grad(self, set_to_zero: bool = False):
         self._inner_opt.clear_grad(set_to_zero)

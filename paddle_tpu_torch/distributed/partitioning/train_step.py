@@ -19,6 +19,12 @@ experts as resident slices (``fleet.moe``; their gradients complete
 after the all-to-all's backward). Under ``recompute_policy`` the gathers run again in the backward
 (they sit inside the recomputed blocks); without one, autograd keeps the
 gathered parameters its backward reads.
+
+The numerics sentinels read the gradients after the step's reduction
+(each rank its slices, the per-tensor statistics summed over the ranks
+whose slices make the whole tensor) and the global mean loss, so
+``train.loss``, ``train.grad_norm``, the digest and the watchdog's events
+are the same on every rank, those of the reference's one program.
 """
 
 from __future__ import annotations
@@ -51,7 +57,11 @@ class PartitionedTrainStep(TrainStep):
     def __call__(self, *batch):
         part = self._partitioner
         local = [part.shard_batch(t) if torch.is_tensor(t) and t.ndim else t for t in batch]
-        loss = super().__call__(*local)
+        return super().__call__(*local)
+
+    def _global_loss(self, loss):
+        """The mean of the data ranks' losses: what the call returns, and
+        what the numerics plane publishes and watches."""
         loss = loss.clone()
-        _c.all_reduce(loss, group=part.update.data_group)
-        return loss / part.data_axis_size()
+        _c.all_reduce(loss, group=self._partitioner.update.data_group)
+        return loss / self._partitioner.data_axis_size()

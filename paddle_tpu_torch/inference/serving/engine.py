@@ -48,10 +48,33 @@ graphs do not change. With ``ServeConfig(draft=DraftConfig(...))`` the
 decode program gives way to :mod:`.speculative`'s draft decode and verify,
 each one CUDA graph beside prefill.
 
+Observability, as the reference's (``profiler``): the ``serve.*``
+counters, gauges and histograms (admitted, completed, steps, prefill
+chunks, prefix hits and misses, speculative rounds; occupancy, waiting,
+KV blocks in use, accept rate; TTFT, inter-token time split into the
+decode's dispatch, sampling push and sync, deadline slack), the spans
+``serve.admit``, ``serve.prefill_chunk``, ``serve.decode.dispatch``,
+``serve.decode.sync``, ``serve.spec.draft`` and ``serve.spec.verify``,
+one goodput ``step`` a scheduler step and an ``eviction`` loss a lane's
+thrown-away work. ``serve.compiles{program}`` counts the CUDA-graph
+captures, where the reference counts compiles. Attribution counts each
+program's FLOPs and bytes in its first, eager call (never inside a
+capture) and divides each call's device time (a CUDA event pair around the
+call or the replay, read after the step's sync) into
+``jit.program_mfu{program}`` / ``jit.program_roofline_frac{program}``,
+and the decode's into ``serve.decode_roofline_tok_s`` /
+``serve.decode_roofline_frac``. A counter or span inside a captured
+function would run once, at the capture: every one sits in the host code
+around the programs.
+
 Sharding comes with a later slice of the port: ``lane_shards`` and
-``weight_shards`` raise unless 1. Telemetry, spans, chaos sites and
-autopilot knobs of the reference are left out; :meth:`ServingEngine.stats`
-reports the host-side counts and the captures.
+``weight_shards`` raise unless 1. Chaos sites and autopilot knobs of the
+reference are left out; :meth:`ServingEngine.stats` reports the
+host-side counts and the captures. Its counts of prefill chunks, prefix
+hits and misses and speculative rounds are the engine's own: the
+registry's ``serve.*`` counters are process-wide, shared by every engine
+of the process and zeroed by ``telemetry.reset()``. One :class:`_Tally`
+an event bumps both, so the two cannot drift.
 """
 
 from __future__ import annotations
@@ -65,6 +88,10 @@ import numpy as np
 import torch
 
 from ... import random as R
+from ...profiler import attribution as _attrib
+from ...profiler import goodput as _goodput
+from ...profiler import spans as _spans
+from ...profiler import telemetry as _telemetry
 from ...models.llama import (
     decode_matmul, decode_rms, decode_step, decode_weights, map_weights,
     quantize_decode_weights, resolve_device, rope_rotate, rope_tables,
@@ -160,6 +187,27 @@ class ServeConfig:
                     f"PyTorch port; this slice serves {name}={default!r}")
 
 
+class _Tally:
+    """An engine's own count of one event and the registry's counter of it
+    (process-wide), bumped together: :meth:`ServingEngine.stats` reads
+    :attr:`n`."""
+
+    __slots__ = ("n", "_counter")
+
+    def __init__(self, name: str):
+        self.n = 0
+        self._counter = _telemetry.counter(name)
+
+    def bump(self, k: int = 1) -> None:
+        self.n += k
+        self._counter.bump(k)
+
+    @property
+    def total(self) -> int:
+        """The process's count (the registry's), as the reference reads it."""
+        return self._counter.value
+
+
 def _weak(method):
     """``method`` called through a weak reference to its object."""
     ref = weakref.WeakMethod(method)
@@ -176,9 +224,15 @@ class _Program:
     every call runs ``fn`` eagerly. ``calls`` counts the calls. A kernel
     wrapper counts its launches where it calls the launch: in the warm-up
     and while the capture records; a replay runs the recorded kernels and
-    counts nothing (a device trace sees them)."""
+    counts nothing (a device trace sees them).
 
-    def __init__(self, name: str, fn, graphed: bool):
+    Each call is timed on the device (a :class:`~paddle_tpu_torch.profiler.
+    attribution.DeviceTimer`, appended to ``pending`` for the engine to
+    attribute once the device has passed it); the first call, eager, runs
+    under the attribution's counting pass when ``costs`` wants it; a
+    capture bumps ``serve.compiles{program}``."""
+
+    def __init__(self, name: str, fn, graphed: bool, costs=None, device=None, pending=None):
         self.name = name
         # a weak reference: an engine holds its programs, and a program that
         # held the engine would keep its pages and graph pools alive past
@@ -186,16 +240,31 @@ class _Program:
         self._fn = weakref.WeakMethod(fn)
         self._graphed = graphed
         self._graph = None
+        self._costs = costs
+        self._device = device if device is not None else torch.device("cpu")
+        self._pending = pending if pending is not None else []
+        self._c_compiles = _telemetry.counter("serve.compiles", program=name)
         self.captures = 0
         self.calls = 0
 
     def __call__(self):
         self.calls += 1
+        timer = _attrib.DeviceTimer(self._device)
+        timer.start()
         if self._graph is not None:
             self._graph.replay()
+            timer.stop()
+            self._pending.append((self.name, timer))
             return
         fn = self._fn()
-        fn()
+        if self._costs is not None and self._costs.wants(self.name):
+            with _attrib.counting() as counter:
+                fn()
+            self._costs.record(self.name, counter, self._device)
+        else:
+            fn()
+        timer.stop()
+        self._pending.append((self.name, timer))
         if not self._graphed:
             return
         graph = torch.cuda.CUDAGraph()
@@ -203,6 +272,7 @@ class _Program:
             fn()
         self._graph = graph
         self.captures += 1
+        self._c_compiles.bump()
 
 
 class ServingEngine:
@@ -247,6 +317,10 @@ class ServingEngine:
             num_lanes=cfg.num_lanes, max_blocks_per_lane=mb,
             dtype=w["embed"].dtype, device=self.device)
         self._sched = Scheduler(cfg.num_lanes)
+        # attribution: each program's counted cost, and the device timers
+        # of calls not yet attributed
+        self._prog_costs = _attrib.ProgramCosts()
+        self._prog_pending: list = []
         L = cfg.num_lanes
         self._spec = cfg.draft is not None
         if self._spec and cfg.draft.model.config.vocab_size != m.vocab_size:
@@ -288,13 +362,12 @@ class ServingEngine:
             self._init_spec(cfg.draft, graphed)
             self._decode_prog = None
         else:
-            self._decode_prog = _Program("decode", self._decode_fn, graphed)
-        self._prefill_prog = _Program("prefill", self._prefill_fn, graphed)
+            self._decode_prog = self._program("decode", self._decode_fn, graphed)
+        self._prefill_prog = self._program("prefill", self._prefill_fn, graphed)
         self._eos = -1 if cfg.eos_token_id is None else int(cfg.eos_token_id)
         self._requests: list = []
         self._next_id = 0
         self._steps = 0
-        self._prefill_chunks = 0
         self._tokens = 0
         # the prefix cache: its fork, offload and restore are indexed
         # copies on the engine's stream, outside the two programs' graphs
@@ -312,7 +385,75 @@ class ServingEngine:
             if self._host_kv_blocks > 0:
                 self._prefix.offload = _weak(self._offload_block)
                 self._prefix.restore = _weak(self._restore_block)
-            self._prefix_hits = self._prefix_misses = 0
+        # metric handles held once: the hot path pays attribute bumps only
+        self._c_admitted = _telemetry.counter("serve.admitted")
+        self._c_completed = _telemetry.counter("serve.completed")
+        self._n_prefill_chunks = _Tally("serve.prefill_chunks")
+        self._c_steps = _telemetry.counter("serve.steps")
+        self._g_occupancy = _telemetry.gauge("serve.batch_occupancy")
+        self._g_waiting = _telemetry.gauge("serve.waiting")
+        self._g_blocks = _telemetry.gauge("serve.kv_blocks_in_use")
+        # inter_token_us is host-sync inclusive; decode_dispatch_us,
+        # sample_us (a sampling engine's state push) and decode_sync_us
+        # split it exactly (the same clock reads)
+        self._h_inter_token = _telemetry.histogram("serve.inter_token_us")
+        self._h_dispatch = _telemetry.histogram("serve.decode_dispatch_us")
+        self._h_sync = _telemetry.histogram("serve.decode_sync_us")
+        self._h_sample = _telemetry.histogram("serve.sample_us")
+        self._h_slack = _telemetry.histogram("serve.deadline_slack_us")
+        self._h_ttft = _telemetry.histogram("serve.ttft_us")
+        if self._prefix is not None:
+            self._n_prefix_hits = _Tally("serve.prefix_hits")
+            self._n_prefix_misses = _Tally("serve.prefix_misses")
+            self._g_prefix_hit_frac = _telemetry.gauge("serve.prefix_hit_frac")
+            self._g_blocks_shared = _telemetry.gauge("serve.kv_blocks_shared")
+        if self._spec:
+            # draft + verify partition a round's wall exactly
+            self._h_spec_draft = _telemetry.histogram("serve.spec_draft_us")
+            self._h_spec_verify = _telemetry.histogram("serve.spec_verify_us")
+            self._n_spec = {k: _Tally(f"serve.spec_{k}")
+                            for k in ("rounds", "proposed", "accepted")}
+            self._g_spec_accept = _telemetry.gauge("serve.spec_accept_rate")
+        # an SLO-miss burst (PADDLE_SLO_BURST misses within
+        # PADDLE_SLO_BURST_WINDOW steps; 0 = off) dumps the flight ring
+        self._slo_burst_n = _env_int("PADDLE_SLO_BURST", 4)
+        self._slo_burst_window = max(_env_int("PADDLE_SLO_BURST_WINDOW", 8), 1)
+        self._slo_miss_steps: list = []
+        # PADDLE_KV_AUDIT=N re-proves the allocator's invariants on the live
+        # pool every N steps; a violation is a flight record and a count,
+        # not a crash
+        self._audit_every = max(_env_int("PADDLE_KV_AUDIT", 0), 0)
+        self._c_audit_failures = _telemetry.counter("serve.audit_failures")
+
+    def _audit_tick(self) -> None:
+        """Audit the paged allocator (and the prefix cache's custody); a
+        violation bumps ``serve.audit_failures`` and is a flight record."""
+        try:
+            self._kv.audit(self._prefix.cached_blocks if self._prefix is not None else None)
+        except AssertionError as e:
+            from ...profiler import flight_recorder as _flight
+
+            self._c_audit_failures.bump()
+            _flight.recorder().record("kv_audit", op="serve.audit",
+                                      extra={"step": self._steps, "error": str(e)})
+
+    def _program(self, name: str, fn, graphed: bool) -> "_Program":
+        return _Program(name, fn, graphed, costs=self._prog_costs, device=self.device,
+                        pending=self._prog_pending)
+
+    def _note_programs(self, decode_tokens: int = 0) -> None:
+        """Attribute every timed program call the device has passed: the
+        MFU and roofline gauges, and for the decode (or the verify, which
+        emits a speculative round's tokens) the tokens/s pair."""
+        pending, self._prog_pending[:] = list(self._prog_pending), []
+        for name, timer in pending:
+            if not timer.ready():
+                self._prog_pending.append((name, timer))
+                continue
+            wall_us = timer.elapsed_us()
+            self._prog_costs.note_dispatch(name, wall_us)
+            if decode_tokens and name in ("decode", "verify"):
+                self._prog_costs.note_decode_tokens(name, wall_us, decode_tokens)
 
     def _init_spec(self, draft: DraftConfig, graphed: bool):
         cfg, dev, L = self.config, self.device, self.config.num_lanes
@@ -350,9 +491,8 @@ class ServingEngine:
         self._draft_step = build_draft_fn(dcfg, K, self._draft_max_len)
         self._verify_step = build_verify_fn(self._mcfg, K, cfg.block_size,
                                             self._kv.max_blocks_per_lane)
-        self._draft_prog = _Program("draft_decode", self._draft_fn, graphed)
-        self._verify_prog = _Program("verify", self._verify_fn, graphed)
-        self._spec_counts = {"rounds": 0, "proposed": 0, "accepted": 0}
+        self._draft_prog = self._program("draft_decode", self._draft_fn, graphed)
+        self._verify_prog = self._program("verify", self._verify_fn, graphed)
 
     @property
     def _programs(self) -> list:
@@ -518,14 +658,16 @@ class ServingEngine:
         self._validate(prompt, max_new_tokens, sampling)
         now = time.perf_counter()
         deadline = None if deadline_us is None else now + float(deadline_us) / 1e6
+        trace_id = f"{os.getpid():x}-{id(self) & 0xffffff:x}-{self._next_id}"
         req = Request(id=self._next_id, prompt=prompt,
                       max_new_tokens=max_new_tokens,
                       submitted_step=self._steps, priority=int(priority),
                       deadline=deadline, slo_class=slo_class,
-                      sampling=sampling, submit_time=now)
+                      sampling=sampling, trace_id=trace_id, submit_time=now)
         self._next_id += 1
         self._requests.append(req)
         self._sched.submit(req)
+        self._g_waiting.set(len(self._sched.waiting))
         return req
 
     def enqueue(self, req: Request) -> Request:
@@ -537,6 +679,7 @@ class ServingEngine:
         self._next_id = max(self._next_id, req.id + 1)
         self._requests.append(req)
         self._sched.submit(req)
+        self._g_waiting.set(len(self._sched.waiting))
         return req
 
     def cancel(self, req: Request) -> Request:
@@ -547,17 +690,37 @@ class ServingEngine:
                 req.status = CANCELLED
                 req.finished_step = self._steps
                 req.finish_time = time.perf_counter()
+                _telemetry.counter("serve.evicted", reason="cancel").bump()
+                self._trace_retire(req)
             else:
-                self._evict(req.lane, CANCELLED, None)
+                self._evict(req.lane, CANCELLED, None, reason="cancel")
+        self._g_waiting.set(len(self._sched.waiting))
         return req
 
     def step(self) -> int:
         """One scheduler iteration: admit, prefill, then at most one decode
         step. Returns the number of tokens emitted."""
+        t0 = time.perf_counter()
         self._admit()
         self._prefill()
         emitted = self._decode_spec() if self._spec else self._decode()
         self._steps += 1
+        self._c_steps.bump()
+        if self._audit_every and self._steps % self._audit_every == 0:
+            self._audit_tick()
+        # one scheduler iteration is one serve step; eviction losses noted
+        # during it subtract from productive
+        _goodput.step((time.perf_counter() - t0) * 1e6, kind="serve", scope=id(self))
+        if self._prog_pending:
+            self._note_programs()
+        self._g_occupancy.set(len(self._sched.running_lanes()))
+        self._g_blocks.set(self._kv.blocks_in_use)
+        self._g_waiting.set(len(self._sched.waiting))
+        if self._prefix is not None:
+            hits, misses = self._n_prefix_hits.total, self._n_prefix_misses.total
+            if hits + misses:
+                self._g_prefix_hit_frac.set(hits / (hits + misses))
+            self._g_blocks_shared.set(self._kv.shared_blocks)
         return emitted
 
     def run(self, max_steps: int | None = None) -> list:
@@ -586,7 +749,7 @@ class ServingEngine:
             if t_end is not None and time.perf_counter() > t_end:
                 for lane in self._sched.occupied_lanes():
                     stranded.append(self._sched.lanes[lane])
-                    self._evict(lane, FAILED, "drain deadline exceeded")
+                    self._evict(lane, FAILED, "drain deadline exceeded", reason="drain")
                 break
             self.step()
         return stranded
@@ -605,7 +768,7 @@ class ServingEngine:
             "occupied_lanes": len(self._sched.occupied_lanes()),
             "free_blocks": self._kv.free_blocks,
             "requests": len(self._requests),
-            "prefill_chunks": self._prefill_chunks,
+            "prefill_chunks": self._n_prefill_chunks.n,
             "tokens": self._tokens,
             "weight_dtype": self.config.weight_dtype,
             "device": str(self.device),
@@ -613,16 +776,15 @@ class ServingEngine:
             "program_calls": {p.name: p.calls for p in self._programs},
         }
         if self._spec:
-            sc = self._spec_counts
+            sc = {k: t.n for k, t in self._n_spec.items()}
             out["spec"] = dict(sc, k=self._spec_k, accept_rate=(
                 sc["accepted"] / sc["proposed"] if sc["proposed"] else 0.0))
         if self._prefix is not None:
-            looked = self._prefix_hits + self._prefix_misses
+            hits, misses = self._n_prefix_hits.n, self._n_prefix_misses.n
             out["prefix_cache"] = dict(
                 self._prefix.stats(), shared_blocks=self._kv.shared_blocks,
-                host_budget=self._host_kv_blocks, hits=self._prefix_hits,
-                misses=self._prefix_misses,
-                hit_frac=self._prefix_hits / looked if looked else 0.0)
+                host_budget=self._host_kv_blocks, hits=hits, misses=misses,
+                hit_frac=hits / (hits + misses) if hits + misses else 0.0)
             out["kv_calls"] = dict(self._kv_calls)
         return out
 
@@ -644,36 +806,40 @@ class ServingEngine:
             return self._kv.can_admit(total, shard=s)
 
         for req, lane in self._sched.pick_admissions(can):
-            total = len(req.prompt) + req.max_new_tokens
-            s = self._kv.shard_of(lane)
-            # match again: the probe judged the whole batch before any
-            # allocation, so its verdicts can be stale within the batch
-            plan = pc.match(req.prompt, total, s) if pc is not None else None
-            ok = (pc.admissible(plan, total) if plan is not None
-                  else self._kv.can_admit(total, shard=s))
-            if not ok:
-                # an earlier admission of this batch took the blocks the
-                # probe counted on: requeue untouched
-                self._sched.release(lane)
-                self._sched.submit(req)
-                continue
-            if plan is not None:
-                prefix_blocks, owned = pc.take(plan)
-                self._kv.allocate_lane(lane, total, prefix=prefix_blocks,
-                                       prefix_owned=owned)
-                req.prefill_pos = min(plan.tokens, len(req.prompt) - 1)
-                self._prefix_hits += 1
-            else:
-                self._kv.allocate_lane(lane, total)
-                req.prefill_pos = 0
-                if pc is not None:
-                    self._prefix_misses += 1
-            req.status = PREFILLING
-            req.admit_time = time.perf_counter()
-            if self._has_sampling:
-                self._seed_lane(lane, req)
-            if req.prefill_pos >= len(req.prompt) - 1:
-                self._activate(lane, req)
+            with _spans.span("serve.admit", step=self._steps, req=req.id, lane=lane,
+                             trace=req.trace_id) as sp:
+                total = len(req.prompt) + req.max_new_tokens
+                s = self._kv.shard_of(lane)
+                # match again: the probe judged the whole batch before any
+                # allocation, so its verdicts can be stale within the batch
+                plan = pc.match(req.prompt, total, s) if pc is not None else None
+                ok = (pc.admissible(plan, total) if plan is not None
+                      else self._kv.can_admit(total, shard=s))
+                if not ok:
+                    # an earlier admission of this batch took the blocks the
+                    # probe counted on: requeue untouched
+                    self._sched.release(lane)
+                    self._sched.submit(req)
+                    continue
+                if plan is not None:
+                    prefix_blocks, owned = pc.take(plan)
+                    self._kv.allocate_lane(lane, total, prefix=prefix_blocks,
+                                           prefix_owned=owned)
+                    req.prefill_pos = min(plan.tokens, len(req.prompt) - 1)
+                    self._n_prefix_hits.bump()
+                    sp.set(prefix_tokens=plan.tokens)
+                else:
+                    self._kv.allocate_lane(lane, total)
+                    req.prefill_pos = 0
+                    if pc is not None:
+                        self._n_prefix_misses.bump()
+                req.status = PREFILLING
+                req.admit_time = time.perf_counter()
+                if self._has_sampling:
+                    self._seed_lane(lane, req)
+                self._c_admitted.bump()
+                if req.prefill_pos >= len(req.prompt) - 1:
+                    self._activate(lane, req)
 
     def _seed_lane(self, lane: int, req: Request):
         """Write the lane's sampling strategy and ``PRNGKey(seed)`` into the
@@ -714,9 +880,11 @@ class ServingEngine:
             while budget > 0 and req.prefill_pos < target:
                 start = req.prefill_pos
                 n = min(self.config.prefill_chunk, target - start)
-                self._prefill_chunk(lane, req.prompt[start:start + n], start)
+                with _spans.span("serve.prefill_chunk", step=self._steps, req=req.id,
+                                 lane=lane, start=start, tokens=n, trace=req.trace_id):
+                    self._prefill_chunk(lane, req.prompt[start:start + n], start)
                 req.prefill_pos = start + n
-                self._prefill_chunks += 1
+                self._n_prefill_chunks.bump()
                 budget -= 1
             if req.prefill_pos >= target:
                 self._activate(lane, req)
@@ -736,24 +904,42 @@ class ServingEngine:
     @torch.no_grad()
     def _decode(self) -> int:
         running = self._sched.running_lanes()
+        self._g_occupancy.set(len(running))
         if not running:
             return 0
         self._kv.active[...] = False
         self._kv.active[running] = True
-        self._kv.device_tables()
-        if self._samp_dirty:
-            self._in.push()
-            self._in.host["reseed"][...] = False
-            self._samp_dirty = False
-        else:
-            self._in.push("tok")
-        self._decode_prog()
-        # one device-to-host copy of the outputs, then wait for it
-        self._out_host.copy_(self._out, non_blocking=self._read is not None)
-        if self._read is not None:
-            self._read.record()
-            self._read.synchronize()
-        nxt, fin = self._out_host.numpy()
+        # the dispatch (host work that launches the step) and the sync (the
+        # wait for the device) are separate spans and histograms; a sampling
+        # engine's state push is booked as serve.sample_us, outside both
+        t0 = time.perf_counter()
+        samp = 0.0
+        with _spans.span("serve.decode.dispatch", step=self._steps, lanes=len(running)):
+            self._kv.device_tables()
+            if self._samp_dirty:
+                s0 = time.perf_counter()
+                self._in.push()
+                self._in.host["reseed"][...] = False
+                self._samp_dirty = False
+                samp = time.perf_counter() - s0
+            else:
+                self._in.push("tok")
+            self._decode_prog()
+            # one device-to-host copy of the outputs
+            self._out_host.copy_(self._out, non_blocking=self._read is not None)
+            if self._read is not None:
+                self._read.record()
+        t1 = time.perf_counter()
+        with _spans.span("serve.decode.sync", step=self._steps, lanes=len(running)):
+            if self._read is not None:
+                self._read.synchronize()
+            nxt, fin = self._out_host.numpy()
+        t2 = time.perf_counter()
+        self._h_dispatch.observe((t1 - t0 - samp) * 1e6)
+        self._h_sync.observe((t2 - t1) * 1e6)
+        if self.config.sampling:
+            self._h_sample.observe(samp * 1e6)
+        self._h_inter_token.observe((t2 - t0) * 1e6)
         now = time.perf_counter()
         emitted = 0
         for lane in running:
@@ -761,7 +947,12 @@ class ServingEngine:
             if self.config.nan_guard and not fin[lane]:
                 # non-finite logits are lane-local: evict only this lane,
                 # without its garbage token; the others keep their streams
-                self._evict(lane, FAILED, "nonfinite logits")
+                from ...profiler import flight_recorder as _flight
+
+                _flight.recorder().record("numerics", op="serve.decode",
+                                          extra={"lane": lane, "req": req.id,
+                                                 "step": self._steps})
+                self._evict(lane, FAILED, "nonfinite logits", reason="nonfinite")
                 continue
             self._kv.lengths[lane] += 1
             t = int(nxt[lane])
@@ -770,9 +961,12 @@ class ServingEngine:
             emitted += 1
             if len(req.generated) == 1:
                 req.first_token_time = now
+                if req.submit_time is not None:
+                    self._h_ttft.observe((now - req.submit_time) * 1e6)
             if t == self._eos or len(req.generated) >= req.max_new_tokens:
                 self._retire(lane, req)
         self._tokens += emitted
+        self._note_programs(emitted)
         return emitted
 
     def _dispatch_draft(self, tok_push, adv, pos, j: int, round_start):
@@ -788,24 +982,14 @@ class ServingEngine:
         self._draft_prog()
 
     @torch.no_grad()
-    def _decode_spec(self) -> int:
-        """One speculative round (reference ``_decode_spec``): catch-up
-        replays until each lane's draft cache holds its committed length,
-        k draft calls ahead, one verify of all k+1 positions, then the host
-        harvest. ``lengths`` advances by the accepted count only: that is
-        the rollback. The live lookahead is ``DraftConfig.k``, the
-        reference's value when its ``serve.spec_k`` autopilot knob is unset
-        (the port has no autopilot)."""
-        running = self._sched.running_lanes()
-        if not running:
-            return 0
+    def _draft_ahead(self, running):
+        """A round's draft phase: the catch-up replay, then k draft calls
+        ahead; returns the lanes' round-start lengths."""
         kv = self._kv
-        kv.active[...] = False
-        kv.active[running] = True
         if self._samp_dirty:
             self._in.push()
             self._samp_dirty = False
-        K = nd = self._spec_k
+        nd = self._spec_k
         L = self.config.num_lanes
         # catch-up: committed tokens stream through the draft program until
         # each lane's dense cache reaches its round-start length (a fresh
@@ -830,13 +1014,39 @@ class ServingEngine:
         L0 = kv.lengths.astype(np.int64)
         for j in range(nd):
             self._dispatch_draft(self._lane_tok, kv.active, L0 + j, j, L0)
-        kv.device_tables()
-        self._verify_prog()
-        self._spec_out_host.copy_(self._spec_out, non_blocking=self._read is not None)
-        if self._read is not None:
-            self._read.record()
-            self._read.synchronize()
-        res = self._spec_out_host.numpy()
+        return L0
+
+    @torch.no_grad()
+    def _decode_spec(self) -> int:
+        """One speculative round (reference ``_decode_spec``): catch-up
+        replays until each lane's draft cache holds its committed length,
+        k draft calls ahead, one verify of all k+1 positions, then the host
+        harvest. ``lengths`` advances by the accepted count only: that is
+        the rollback. The live lookahead is ``DraftConfig.k``, the
+        reference's value when its ``serve.spec_k`` autopilot knob is unset
+        (the port has no autopilot)."""
+        running = self._sched.running_lanes()
+        self._g_occupancy.set(len(running))
+        if not running:
+            return 0
+        kv = self._kv
+        kv.active[...] = False
+        kv.active[running] = True
+        K = nd = self._spec_k
+        t0 = time.perf_counter()
+        with _spans.span("serve.spec.draft", step=self._steps, lanes=len(running),
+                         k=self._spec_k):
+            L0 = self._draft_ahead(running)
+        t1 = time.perf_counter()
+        with _spans.span("serve.spec.verify", step=self._steps, lanes=len(running), k=nd):
+            kv.device_tables()
+            self._verify_prog()
+            self._spec_out_host.copy_(self._spec_out, non_blocking=self._read is not None)
+            if self._read is not None:
+                self._read.record()
+                self._read.synchronize()
+            res = self._spec_out_host.numpy()
+        t2 = time.perf_counter()
         now = time.perf_counter()
         emitted = accepted = 0
         for lane in running:
@@ -851,6 +1061,8 @@ class ServingEngine:
                 last = t
                 if len(req.generated) == 1:
                     req.first_token_time = now
+                    if req.submit_time is not None:
+                        self._h_ttft.observe((now - req.submit_time) * 1e6)
                 if t == self._eos or len(req.generated) >= req.max_new_tokens:
                     retired = True
                     break
@@ -861,17 +1073,61 @@ class ServingEngine:
                 kv.lengths[lane] += took
                 self._draft_len[lane] = int(L0[lane]) + min(nd, took)
                 self._lane_tok[lane] = last
-        sc = self._spec_counts
-        sc["rounds"] += 1
-        sc["proposed"] += nd * len(running)
-        sc["accepted"] += max(accepted, 0)
+        sc = self._n_spec
+        sc["rounds"].bump()
+        sc["proposed"].bump(nd * len(running))
+        sc["accepted"].bump(max(accepted, 0))
         self._tokens += emitted
+        self._h_spec_draft.observe((t1 - t0) * 1e6)
+        self._h_spec_verify.observe((t2 - t1) * 1e6)
+        self._h_inter_token.observe((t2 - t0) * 1e6)
+        if sc["proposed"].n:
+            self._g_spec_accept.set(sc["accepted"].n / sc["proposed"].n)
+        self._note_programs(emitted)
         return emitted
+
+    def _note_slo(self, req: Request):
+        """Book the request's deadline outcome at its DONE / FAILED
+        terminal: a miss bumps ``serve.slo_miss{class}``, the remaining
+        slack (0-clamped) lands in ``serve.deadline_slack_us``, and a burst
+        of misses dumps the flight ring."""
+        if req.deadline is None:
+            return
+        slack_us = (req.deadline - time.perf_counter()) * 1e6
+        if slack_us < 0:
+            _telemetry.counter("serve.slo_miss", **{"class": req.slo_label}).bump()
+            self._slo_miss_steps.append(self._steps)
+            self._slo_miss_steps = [s for s in self._slo_miss_steps
+                                    if self._steps - s < self._slo_burst_window]
+            if self._slo_burst_n > 0 and len(self._slo_miss_steps) >= self._slo_burst_n:
+                self._slo_miss_steps.clear()
+                _telemetry.counter("serve.slo_burst_dumps").bump()
+                from ...profiler import flight_recorder as _flight
+
+                _flight.recorder().dump(reason=f"slo_miss_burst:{req.slo_label}")
+        self._h_slack.observe(max(slack_us, 0.0))
+
+    def _trace_retire(self, req: Request):
+        """The terminal ``serve.retire`` event: the request's queue,
+        prefill and decode times and its TTFT, cut from its stamps."""
+        if req.submit_time is None:
+            return
+        now = req.finish_time if req.finish_time is not None else time.perf_counter()
+        adm = req.admit_time if req.admit_time is not None else now
+        ft = req.first_token_time if req.first_token_time is not None else now
+        _spans.event(
+            "serve.retire", step=self._steps, req=req.id, trace=req.trace_id,
+            status=req.status, tokens=len(req.generated),
+            queue_us=round((adm - req.submit_time) * 1e6, 1),
+            prefill_us=round(max(ft - adm, 0.0) * 1e6, 1),
+            decode_us=round(max(now - ft, 0.0) * 1e6, 1),
+            ttft_us=round(max(ft - req.submit_time, 0.0) * 1e6, 1))
 
     def _retire(self, lane: int, req: Request):
         req.status = DONE
         req.finished_step = self._steps
         req.finish_time = time.perf_counter()
+        self._note_slo(req)
         if self._prefix is not None:
             # donate the lane's prefill-written blocks before their counts
             # drop: the cache retains them as they reach 0
@@ -879,8 +1135,10 @@ class ServingEngine:
                                 self._kv.lane_blocks(lane))
         self._kv.free_lane(lane)
         self._sched.release(lane)
+        self._c_completed.bump()
+        self._trace_retire(req)
 
-    def _evict(self, lane: int, status: str, error: str | None):
+    def _evict(self, lane: int, status: str, error: str | None, reason: str):
         req = self._sched.lanes[lane]
         self._kv.free_lane(lane)
         self._sched.release(lane)
@@ -890,3 +1148,15 @@ class ServingEngine:
                 req.error = error
             req.finished_step = self._steps
             req.finish_time = time.perf_counter()
+            if status == FAILED:
+                # a failed deadline-bearing request is an SLO outcome; a
+                # caller's cancel is not
+                self._note_slo(req)
+            # the lane's time since admission is thrown-away work
+            if req.admit_time is not None:
+                busy_us = (time.perf_counter() - req.admit_time) * 1e6
+                _goodput.note_loss("eviction", busy_us, site=f"serve.{reason}")
+                _spans.event("serve.evict", step=self._steps, req=req.id, lane=lane,
+                             fault=f"serve.{reason}", busy_us=round(busy_us, 1))
+            self._trace_retire(req)
+        _telemetry.counter("serve.evicted", reason=reason).bump()

@@ -91,6 +91,11 @@ class PagedKVCache:
         return sum(len(f) for f in self._free)
 
     @property
+    def blocks_in_use(self) -> int:
+        """Blocks off the free lists (the trash block of each shard aside)."""
+        return self.num_shards * (self.num_blocks - 1) - self.free_blocks
+
+    @property
     def lane_capacity(self) -> int:
         """Max tokens a single lane can ever hold."""
         return self.max_blocks_per_lane * self.block_size

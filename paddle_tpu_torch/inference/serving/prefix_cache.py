@@ -44,8 +44,10 @@ probe calls it); :meth:`PrefixCache.take` pins the matched entries,
 restores host-resident links, forks, and hands ``allocate_lane`` the
 prefix rows and their ownership flags.
 
-The reference's telemetry counters are plain counts here, in
-:meth:`PrefixCache.stats`.
+The reference's telemetry counters (``serve.prefix_inserts``,
+``serve.prefix_restores``, ``serve.prefix_evictions{tier}`` and the
+``serve.prefix_restore_us`` histogram) move in the registry; each cache
+also keeps its own counts, in :meth:`PrefixCache.stats`.
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from ...profiler import telemetry as _telemetry
 
 __all__ = ["PrefixCache", "PrefixPlan"]
 
@@ -121,6 +125,11 @@ class PrefixCache:
         self._counts = dict(inserts=0, forks=0, restores=0, evictions_host=0,
                             evictions_drop=0)
         self._restore_s = 0.0
+        self._c_inserts = _telemetry.counter("serve.prefix_inserts")
+        self._c_restores = _telemetry.counter("serve.prefix_restores")
+        self._c_evict_host = _telemetry.counter("serve.prefix_evictions", tier="host")
+        self._c_evict_drop = _telemetry.counter("serve.prefix_evictions", tier="drop")
+        self._h_restore_us = _telemetry.histogram("serve.prefix_restore_us")
 
     def _stamp(self) -> int:
         self._seq += 1
@@ -248,8 +257,11 @@ class PrefixCache:
                 nb = kv.take_block(s)
                 t0 = time.perf_counter()
                 self.restore(s, e.host, nb)
-                self._restore_s += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self._restore_s += dt
+                self._h_restore_us.observe(dt * 1e6)
                 self._counts["restores"] += 1
+                self._c_restores.value += 1
                 if fork_this:
                     self._counts["forks"] += 1
                 else:
@@ -286,6 +298,7 @@ class PrefixCache:
                 if parent is not None:
                     parent.children.add(k)
                 self._counts["inserts"] += 1
+                self._c_inserts.value += 1
             elif e.chunk != chunk:
                 break  # a digest collision: the incumbent stays
             elif e.block is None and b not in self._by_block[shard]:
@@ -316,10 +329,12 @@ class PrefixCache:
                 self._host_used += 1
                 self._kv._free[shard].append(b)
                 self._counts["evictions_host"] += 1
+                self._c_evict_host.value += 1
                 return
         self._drop(shard, e.key)
         self._kv._free[shard].append(b)
         self._counts["evictions_drop"] += 1
+        self._c_evict_drop.value += 1
 
     def _evict_host_lru(self) -> None:
         """Free one host slot: the LRU host entry, childless preferred

@@ -72,12 +72,20 @@ class Request:
     deadline: float | None = None
     slo_class: str | None = None
     sampling: SamplingParams | None = None
+    #: the request's id in the timeline's spans and events, minted at submit
+    trace_id: str | None = None
     #: perf_counter seconds at submit: the zero point of TTFT
     submit_time: float | None = None
     #: perf_counter seconds when the first decoded token landed
     first_token_time: float | None = None
     #: perf_counter seconds at the terminal transition
     finish_time: float | None = None
+
+    @property
+    def slo_label(self) -> str:
+        """The SLO class, else ``p<priority>`` (the label of
+        ``serve.slo_miss{class}``)."""
+        return self.slo_class if self.slo_class else f"p{self.priority}"
 
     @property
     def tokens(self) -> list:

@@ -9,6 +9,8 @@ pinned host memory and copies each batch to the device on a side stream,
 ``max(2, prefetch_factor)`` batches ahead of the consumer, which waits on
 the copy's event before it uses a batch. ``num_workers > 0`` loads and
 collates in worker processes (``io/worker.py``) that never touch CUDA.
+The consumer's wait for each batch is a ``dataload.fetch`` span; a wait
+past a millisecond is booked as goodput ``stall`` (site ``dataload``).
 
 The shuffling samplers draw from the ``generator`` they are given: a
 ``torch.Generator``, a numpy ``Generator`` or ``RandomState``, or None
@@ -27,6 +29,8 @@ import torch
 from torch.utils.data import Dataset
 
 from ..device import resolve_device
+from ..profiler import goodput as _goodput
+from ..profiler import spans as _spans
 
 __all__ = ["Dataset", "IterableDataset", "TensorDataset", "ComposeDataset", "ChainDataset",
            "Subset", "random_split", "Sampler", "SequenceSampler", "RandomSampler",
@@ -384,7 +388,13 @@ class _PrefetchIterator:
     def __next__(self):
         if self._thread is None:
             raise StopIteration
-        kind, val, event = self._q.get()
+        # the consumer's wait is the dataload.fetch span; a wait past 1 ms
+        # is a stall (sub-ms pops are a warm buffer), booked as lost goodput
+        with _spans.span("dataload.fetch") as sp:
+            kind, val, event = self._q.get()
+            waited_us = sp.elapsed_us()
+        if waited_us > 1000:
+            _goodput.note_loss("stall", waited_us, site="dataload")
         if kind == "end":
             self.close()
             raise StopIteration

@@ -9,12 +9,18 @@ step, ``TrainStep`` and the fused optimizer step. The global-norm clipper's
 scale is one 0-dim f32 tensor (:func:`global_norm_scale`) and a gradient
 is scaled as :func:`scale_grad` does, ``round(g * scale)`` in f32 rounded
 once to the gradient's dtype, which the fused step's kernel repeats
-element by element; so the two regimes agree in every bit.
+element by element; so the two regimes agree in every bit. A clipper's
+call in the fused regime (``PADDLE_OPT_FUSED`` not 0) counts
+``clip.fused_calls`` in the registry, as the reference's one-dispatch
+clippers do (its compiled-clip cache counters have no counterpart: the
+port compiles nothing).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..profiler import telemetry as _telemetry
 
 __all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue", "clip_descriptor",
            "clip_grad_norm_", "functional_clip_leaves", "global_norm_scale",
@@ -87,8 +93,15 @@ def functional_clip_leaves(desc, grads, need_clip):
     raise NotImplementedError(f"unknown clip descriptor {desc!r}")
 
 
+_CLIP_CALLS = _telemetry.counter("clip.fused_calls")
+
+
 class _ClipBase:
     def __call__(self, params_grads):
+        from ..optimizer.fused_step import fused_enabled
+
+        if fused_enabled():
+            _CLIP_CALLS.value += 1
         idx = [i for i, (_, g) in enumerate(params_grads) if g is not None]
         flags = [getattr(params_grads[i][0], "need_clip", True) for i in idx]
         desc = clip_descriptor(self)

@@ -33,7 +33,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 KERNELS = ("paged_attention", "quant_matmul", "flash_attention", "rms_norm", "swiglu",
-           "ring_merge", "fused_optimizer")
+           "ring_merge", "fused_optimizer", "sentinels")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # sources compiled in parts: {name: number of parts}

@@ -45,6 +45,7 @@ import math
 
 import torch
 
+from ..profiler import attribution as _attrib
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bsnd", "flash_attention_fwd",
@@ -300,6 +301,36 @@ def _count(fn, q):
     fn.by_route[route(q)] += 1
 
 
+def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs the mask keeps: all, or causally the keys up to
+    each query's diagonal aligned bottom-right."""
+    if not causal:
+        return Sq * Sk
+    off = Sk - Sq
+    first = max(0, -off)          # queries that see no key
+    n = Sq - first
+    lo, hi = off + first + 1, off + Sq
+    return (lo + min(hi, Sk)) * n // 2 if hi <= Sk else Sk * n
+
+
+def _report(q, k, causal: bool, backward: bool):
+    """The call's cost to an open attribution pass: 4 FLOPs a kept
+    (query, key, dim) forward, 10 backward; every input read and every
+    output written once (chip_smoke.py's ``flash_counts``)."""
+    if not _attrib.counting_active():
+        return
+    B, Sq, H, D = q.shape
+    es = q.element_size()
+    pairs = attention_pairs(Sq, k.shape[1], causal)
+    qo, kv, stats = B * Sq * H * D * es, B * k.shape[1] * k.shape[2] * D * es, B * H * Sq * 4
+    if backward:
+        _attrib.note_kernel(10 * pairs * B * H * D, 3 * qo + 4 * kv + 2 * stats,
+                            f32=q.dtype == torch.float32)
+    else:
+        _attrib.note_kernel(4 * pairs * B * H * D, 2 * qo + 2 * kv + stats,
+                            f32=q.dtype == torch.float32)
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     """``(out [B, Sq, H, D], lse f32 [B, H, Sq])`` of softmax attention: one
     kernel launch on the card (with f32's split pre-pass), counted in
@@ -321,6 +352,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")
     _count(flash_attention_fwd, q)
+    _report(q, k, causal, False)
     return out, lse
 
 
@@ -357,6 +389,7 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, causal: bool = False, scale=N
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
     _count(flash_attention_bwd, q)
+    _report(q, k, causal, True)
     return dq, dk, dv
 
 

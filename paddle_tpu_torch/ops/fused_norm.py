@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from ..profiler import attribution as _attrib
 from . import _build
 
 __all__ = ["rms_norm_2d", "rms_norm_fwd", "rms_norm_fwd_ref", "rms_norm_bwd_dx",
@@ -119,6 +120,8 @@ def rms_norm_fwd(x, w, eps: float, round_first: bool = False):
         raise RuntimeError(f"rms_norm_fwd kernel launch failed: CUDA error {rc}")
     rms_norm_fwd.launches += 1
     rms_norm_fwd.by_mode[MODES[round_first]] += 1
+    _attrib.note_kernel(4 * n * h, 2 * x.numel() * x.element_size() + h * w.element_size()
+                        + 4 * n)
     rms_norm_fwd.by_dtype[str(x.dtype).removeprefix("torch.")] += 1
     return out, inv
 
@@ -146,6 +149,8 @@ def rms_norm_bwd_dx(x, w, inv, dout, round_first: bool = False):
         raise RuntimeError(f"rms_norm_bwd_dx kernel launch failed: CUDA error {rc}")
     rms_norm_bwd_dx.launches += 1
     rms_norm_bwd_dx.by_mode[MODES[round_first]] += 1
+    _attrib.note_kernel(8 * n * h, 3 * x.numel() * x.element_size() + h * w.element_size()
+                        + 4 * n)
     rms_norm_bwd_dx.by_dtype[str(x.dtype).removeprefix("torch.")] += 1
     return dx
 
@@ -235,6 +240,7 @@ def swiglu_fwd(a, b):
     if rc != 0:
         raise RuntimeError(f"swiglu_fwd kernel launch failed: CUDA error {rc}")
     swiglu_fwd.launches += 1
+    _attrib.note_kernel(6 * a.numel(), 3 * a.numel() * a.element_size())
     return out
 
 
@@ -255,6 +261,7 @@ def swiglu_bwd(a, b, dout):
     if rc != 0:
         raise RuntimeError(f"swiglu_bwd kernel launch failed: CUDA error {rc}")
     swiglu_bwd.launches += 1
+    _attrib.note_kernel(10 * a.numel(), 5 * a.numel() * a.element_size())
     return da, db
 
 

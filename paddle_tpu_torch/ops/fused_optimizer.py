@@ -28,6 +28,7 @@ import torch
 
 from ..nn.clip import scale_grad
 from ..optimizer.optimizer import as_dtype
+from ..profiler import attribution as _attrib
 from . import _build
 
 __all__ = ["Entry", "Layout", "MAX_TENSORS", "kernel_op", "layout", "multi_tensor_update",
@@ -266,6 +267,15 @@ def multi_tensor_update(cls, entries, t: int, lay: Layout | None = None):
         multi_tensor_update.launches += 1
         master = any(entries[i].low is not None for i in range(a, b))
         multi_tensor_update.by_mode["master" if master else "direct"] += 1
+    if _attrib.counting_active():
+        # every operand read once, every result written once (chip_smoke.py's
+        # ``update_bytes``); about 16 operations an element
+        n = sum(e.param.numel() for e in entries)
+        _attrib.note_kernel(16 * n, sum(
+            e.param.numel() * (2 * e.param.element_size() + e.grad.element_size()
+                               + 2 * sum(v.element_size() for v in e.state.values())
+                               + (0 if e.low is None else e.low.element_size()))
+            for e in entries))
     return lay
 
 

@@ -34,6 +34,7 @@ import math
 import torch
 
 from ..models.llama import masked_attend
+from ..profiler import attribution as _attrib
 from . import _build
 
 __all__ = ["MODES", "chunk_units", "grid_size", "heads_per_pass", "mode",
@@ -329,6 +330,16 @@ def paged_decode_attention(q, pages_k, pages_v, block_table, lengths):
         raise RuntimeError(f"paged_decode_attention kernel launch failed: error {rc}")
     paged_decode_attention.launches += 1
     paged_decode_attention.by_route[route] += 1
+    if _attrib.counting_active():
+        # the call's cost: q and out once, each visible K and V row once,
+        # the visible table entries and the lengths (chip_smoke.py's
+        # ``paged_bound``); one read of the lengths, in the counted call only
+        vis = [min(int(n) + 1, mb * bs) for n in lengths.tolist()]
+        es = q.element_size()
+        _attrib.note_kernel(sum(vis) * H * hd * 4,
+                            lanes * H * hd * es * 2 + sum(vis) * Hk * hd * es * 2
+                            + sum(-(-n // bs) for n in vis) * 4 + lanes * 4,
+                            f32=q.dtype == torch.float32)
     return out
 
 

@@ -42,6 +42,7 @@ import ctypes
 
 import torch
 
+from ..profiler import attribution as _attrib
 from . import _build
 
 __all__ = ["int8_matmul", "int8_matmul_ref", "int8_matmul_large_m", "int8_matmul_dx",
@@ -231,6 +232,7 @@ def int8_matmul(x, w_int8, scales):
     if rc != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {rc}")
     int8_matmul.launches += 1
+    _report(M, K, N, x.element_size(), x.dtype == torch.float32)
     return out
 
 
@@ -285,7 +287,14 @@ def int8_prepass(x, scales=None):
     if rc != 0:
         raise RuntimeError(f"int8_prepass kernel launch failed: CUDA error {rc}")
     int8_prepass.launches += 1
+    _attrib.note_kernel(out.numel(), x.numel() * x.element_size() + out.numel() * 2)
     return out
+
+
+def _report(M: int, K: int, N: int, es: int, f32: bool):
+    """An int8 product's cost to an open attribution pass: 2·M·K·N FLOPs;
+    the int8 weight, its f32 scales, the activation and the output once."""
+    _attrib.note_kernel(2 * M * K * N, K * N + 4 * N + (M * K + M * N) * es, f32=f32)
 
 
 def _tensor_core(act, w_int8, scales, out, dx: bool):
@@ -320,6 +329,7 @@ def int8_matmul_large_m(x, w_int8, scales):
         return out
     _tensor_core(x, w_int8, scales, out, dx=False)
     int8_matmul_large_m.launches += 1
+    _report(M, *w_int8.shape, x.element_size(), x.dtype == torch.float32)
     return out
 
 
@@ -338,6 +348,7 @@ def int8_matmul_dx(dout, w_int8, scales):
         return dx
     _tensor_core(dout, w_int8, scales, dx, dx=True)
     int8_matmul_dx.launches += 1
+    _report(M, *w_int8.shape, dout.element_size(), dout.dtype == torch.float32)
     return dx
 
 

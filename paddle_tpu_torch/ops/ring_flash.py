@@ -79,6 +79,7 @@ import ctypes
 
 import torch
 
+from ..profiler import attribution as _attrib
 from . import _build
 from . import flash_attention as fa
 
@@ -169,6 +170,9 @@ def ring_merge(acc, lse, out_b, lse_b, out=None):
     if rc != 0:
         raise RuntimeError(f"ring_merge kernel launch failed: CUDA error {rc}")
     ring_merge.launches += 1
+    rows = N * S * H
+    _attrib.note_kernel(10 * rows * D, rows * D * (8 + out_b.element_size()) + 12 * N * H * S
+                        + out_rows * D * (0 if out is None else out.element_size()))
 
 
 #: kernel launches since the last reset (the CPU path never counts)

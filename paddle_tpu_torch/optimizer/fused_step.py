@@ -32,14 +32,20 @@ from __future__ import annotations
 
 import copy
 import os
+import time
 
 from ..nn.clip import clip_descriptor, functional_clip_leaves, global_norm_scale
+from ..profiler import telemetry as _telemetry
 
 __all__ = ["apply_update", "clear_cache", "clip", "fused_enabled", "run_fused_step", "stats"]
 
 _cache: dict = {}
-_stats = {"fused_cache_hits": 0, "fused_cache_misses": 0, "dispatches": 0, "fused_steps": 0,
-          "by_route": {"kernel": 0, "composed": 0}}
+# the reference's counters, in the registry
+_HITS = _telemetry.counter("opt.fused_cache_hits")
+_MISSES = _telemetry.counter("opt.fused_cache_misses")
+_DISPATCHES = _telemetry.counter("opt.dispatches")
+_FUSED_STEPS = _telemetry.counter("opt.fused_steps")
+_by_route = {"kernel": 0, "composed": 0}
 
 
 def fused_enabled() -> bool:
@@ -54,16 +60,19 @@ def clear_cache() -> None:
 
 
 def stats() -> dict:
-    """Counts since import: ``fused_cache_hits``, ``fused_cache_misses``,
-    ``dispatches`` (a fused step is one; the per-parameter loop one per
-    parameter), ``fused_steps`` and ``by_route`` (multi-tensor updates by
-    route, "kernel" or "composed")."""
-    return copy.deepcopy(_stats)
+    """Counts since import (or the registry's last reset): the registry's
+    ``opt.fused_cache_hits``, ``opt.fused_cache_misses``, ``opt.dispatches``
+    (a fused step is one; the per-parameter loop one per parameter) and
+    ``opt.fused_steps``, and ``by_route`` (multi-tensor updates by route,
+    "kernel" or "composed")."""
+    return {"fused_cache_hits": _HITS.value, "fused_cache_misses": _MISSES.value,
+            "dispatches": _DISPATCHES.value, "fused_steps": _FUSED_STEPS.value,
+            "by_route": copy.deepcopy(_by_route)}
 
 
 def count_dispatch() -> None:
     """One per-parameter update of the per-parameter loop."""
-    _stats["dispatches"] += 1
+    _DISPATCHES.value += 1
 
 
 def clip(desc, grads, need_clip):
@@ -84,10 +93,10 @@ def apply_update(cls, entries, t: int, lay=None):
     from ..ops import fused_optimizer as fo
 
     if fo.kernel_op(cls) is None:
-        _stats["by_route"]["composed"] += 1
+        _by_route["composed"] += 1
         fo.multi_tensor_update_plain(cls, entries, t)
         return None
-    _stats["by_route"]["kernel"] += 1
+    _by_route["kernel"] += 1
     return fo.multi_tensor_update(cls, entries, t, lay)
 
 
@@ -100,9 +109,11 @@ def layout_of(cls, entries):
 
 def run_fused_step(opt) -> bool:
     """One whole ``opt.step()`` as a multi-tensor update; False when there
-    is nothing to update or the clip has no functional form."""
+    is nothing to update or the clip has no functional form. Observes
+    the host time of the step in ``opt.step_us{regime="fused"}``."""
     from ..ops import fused_optimizer as fo
 
+    t0 = time.perf_counter()
     desc = clip_descriptor(opt._grad_clip)
     entries, sigs, groups = [], [], []
     for group in opt._param_groups:
@@ -133,11 +144,13 @@ def run_fused_step(opt) -> bool:
     cls = type(opt)
     key = (cls, tuple(sigs), tuple(groups))
     if key in _cache:
-        _stats["fused_cache_hits"] += 1
+        _HITS.value += 1
     else:
-        _stats["fused_cache_misses"] += 1
+        _MISSES.value += 1
         _cache[key] = layout_of(cls, entries)
-    _stats["dispatches"] += 1
+    _DISPATCHES.value += 1
     apply_update(cls, entries, opt._step_count, _cache[key])
-    _stats["fused_steps"] += 1
+    _FUSED_STEPS.value += 1
+    _telemetry.histogram("opt.step_us", regime="fused").observe(
+        (time.perf_counter() - t0) * 1e6)
     return True

@@ -22,11 +22,14 @@ parameter's Paddle name is its ``paddle_name`` attribute (torch keeps
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
+from ..profiler import spans as _spans
+from ..profiler import telemetry as _telemetry
 from . import fused_step as _fused
 from .lr import LRScheduler
 
@@ -100,20 +103,30 @@ class Optimizer:
         multi-tensor update unless ``PADDLE_OPT_FUSED=0`` or the clip is a
         callable of its own, else parameter by parameter."""
         self._step_count += 1
-        if _fused.fused_enabled() and _fused.run_fused_step(self):
-            return
-        for group in self._param_groups:
-            params_grads = [(p, p.grad) for p in group["params"]
-                            if p.grad is not None and p.requires_grad]
-            if not params_grads:
-                continue
-            if self._grad_clip is not None:
-                params_grads = self._grad_clip(params_grads)
-            lr = group.get("learning_rate", None)
-            base_lr = self.get_lr() if lr is None else float(lr() if callable(lr) else lr)
-            wd = group.get("weight_decay", None)
-            for p, g in params_grads:
-                self._apply_one(p, g, base_lr, wd)
+        # the whole step is one "opt.step" span, its regime stamped once known
+        with _spans.span("opt.step", step=self._step_count) as sp:
+            if _fused.fused_enabled() and _fused.run_fused_step(self):
+                sp.set(regime="fused")
+                return
+            t0 = time.perf_counter()
+            applied = False
+            for group in self._param_groups:
+                params_grads = [(p, p.grad) for p in group["params"]
+                                if p.grad is not None and p.requires_grad]
+                if not params_grads:
+                    continue
+                if self._grad_clip is not None:
+                    params_grads = self._grad_clip(params_grads)
+                lr = group.get("learning_rate", None)
+                base_lr = self.get_lr() if lr is None else float(lr() if callable(lr) else lr)
+                wd = group.get("weight_decay", None)
+                for p, g in params_grads:
+                    self._apply_one(p, g, base_lr, wd)
+                    applied = True
+            sp.set(regime="perparam")
+            if applied:
+                _telemetry.histogram("opt.step_us", regime="perparam").observe(
+                    (time.perf_counter() - t0) * 1e6)
 
     def _state_of(self, p) -> dict:
         """``p``'s state, made on first use (with its f32 master copy under

@@ -49,8 +49,11 @@ counters).
   same card within ``GRAD_TOL`` of the leaf's largest entry; two planted
   faults refused by that check (the row-parallel products' all-reduce
   skipped, and the column-parallel inputs' backward all-reduce skipped);
-  one optimizer step, after which every parameter the tensor axis does
-  not cut (the norms) has the same bits on both ranks (a checksum each);
+  one optimizer step, whose numerics sentinels publish the same loss,
+  grad norm and digest on both ranks, the norm the one-process
+  gradients' within ``SENTINEL_NORM_TOL``, and after which every
+  parameter the tensor axis does not cut (the norms) has the same bits on
+  both ranks (a checksum each);
   then the same with ``sequence_parallel``; (a) the timed cell (phase
   7's, ``--layers`` layers, batch 1 x ``--seq``): a warm-up, ``--steps``
   timed steps (the host's transport of gloo included) and one profiled
@@ -168,6 +171,11 @@ LR = 3e-4
 # the leaf's largest; 2^-5 is 16 of them. The planted faults miss by
 # about half the leaf's largest or more.
 GRAD_TOL = 2.0 ** -5
+# the numerics sentinels' grad norm of a sharded step against the norm of
+# the one-process gradients: the entries differ by a few bf16 roundings
+# (see GRAD_TOL), which a norm over millions of them averages down; 2^-7
+# is four of bf16's roundoff units relative
+SENTINEL_NORM_TOL = 2.0 ** -7
 
 
 def say(phase, **nums):
@@ -484,10 +492,49 @@ def semi_auto_check() -> dict:
     return out
 
 
+def sentinel_check(step, ids, labels, want_grads) -> dict:
+    """One call of ``step`` with its numerics fold captured: the published
+    loss, grad norm, digest and nonfinite count must be the same on every
+    rank (the sentinels read the reduced gradients and fold their
+    statistics over the ranks), and the grad norm that of the one-process
+    gradients ``want_grads`` within SENTINEL_NORM_TOL."""
+    import torch
+
+    from .. import distributed as dist
+    from ..profiler import numerics
+
+    seen, publish = [], numerics.publish
+
+    def capture(sent, loss=None):
+        seen.append({"grad_norm": sent["grad_norm"], "digest": sent["digest"],
+                     "nonfinite": sent["nonfinite"], "loss": loss})
+        publish(sent, loss=loss)
+
+    numerics.publish = capture
+    try:
+        step(ids, labels)
+    finally:
+        numerics.publish = publish
+    torch.cuda.synchronize()
+    every = []
+    dist.all_gather_object(every, seen)
+    plain = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in want_grads.values())).item()
+    got = seen[0]["grad_norm"] if len(seen) == 1 else None
+    rel = abs(got - plain) / plain if got is not None else None
+    if len(seen) != 1 or any(e != seen for e in every) or seen[0]["nonfinite"] \
+            or not rel <= SENTINEL_NORM_TOL:
+        raise AssertionError(f"the sentinels of a partitioned step: every rank's {every}, "
+                             f"the one-process grad norm {plain}")
+    return {"sentinel_grad_norm": got, "sentinel_plain_norm": plain,
+            "sentinel_norm_rel": rel, "sentinel_digest": seen[0]["digest"],
+            "sentinel_ranks_agree": True}
+
+
 def step_check(args, ids, labels, want, sequence_parallel: bool) -> dict:
     """(25b) at the step-check cell: the reduced gradients against the
     one-process ``want``, the planted faults (without sequence
-    parallelism), one step, and the checksums of the uncut parameters."""
+    parallelism), one step with its numerics sentinels held
+    (:func:`sentinel_check`), and the checksums of the uncut parameters."""
     import torch
 
     from ..distributed import _sharded
@@ -516,8 +563,7 @@ def step_check(args, ids, labels, want, sequence_parallel: bool) -> dict:
             del bad
         res["planted_faults_max_rel"] = faults
     torch.cuda.empty_cache()
-    step(ids, labels)
-    torch.cuda.synchronize()
+    res.update(sentinel_check(step, ids, labels, want["grads"]))
     res["uncut_checksums"] = {n: checksum(p) for n, p in model.named_parameters()
                               if (_sharded.info_of(p) is None
                                   or _sharded.info_of(p).tdim is None)}

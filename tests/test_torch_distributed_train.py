@@ -95,7 +95,8 @@ def world2(files, tmp_path_factory):
     f = files
     return _launch(tmp_path_factory, 2, [["dp", f["mlp"], f["data"]],
                                          ["fleet_merge", f["mlp"], f["data"]],
-                                         ["ckpt_save", f["llama"], f["tok"], f["ckpt"]]])
+                                         ["ckpt_save", f["llama"], f["tok"], f["ckpt"]],
+                                         ["partitioned_accum", f["llama"], f["tok"]]])
 
 
 @pytest.fixture(scope="module")
@@ -327,6 +328,72 @@ def test_partitioned_clip_and_resting_bytes(world4, files):
         assert (rank["clip_scales"] < 1).all() and (rank["clip_scales"] > 0).all()
         assert int(rank["param_bytes"]) == (whole - norms) // 2 + norms
         assert int(rank["moment_bytes"]) == 2 * int(rank["param_bytes"])
+
+
+def test_partitioned_numerics_are_the_global_steps(world4, files):
+    """The numerics plane under PartitionedTrainStep at dp 2 x fsdp 2: every
+    rank publishes the same loss (the returned global mean), grad norm,
+    digest and nonfinite count each step, as the reference's one program
+    does: the sentinels read the reduced gradients, their statistics summed
+    over the fsdp slices. Step 0's digest is that of the first batch's
+    reduced gradients gathered whole, its norm theirs (1e-6: f32 sums
+    against f64); the norms are the clip's (1e-5) and those of the port's
+    one-process TrainStep on the whole batches (1e-5: the same f32 sums in
+    another order, and parameters that differ by that rounding after a
+    step), the losses that step's (LOSS_RTOL)."""
+    from paddle_tpu_torch.jit import TrainStep as PortTrainStep
+
+    tok = np.load(files["tok"])
+    model = W._llama(files["llama"])
+    opt = W.paddle.optimizer.AdamW(learning_rate=LLAMA_LR, parameters=model.parameters(),
+                                   weight_decay=0.1,
+                                   grad_clip=W.paddle.nn.ClipGradByGlobalNorm(LLAMA_CLIP))
+    step = PortTrainStep(model, opt, lambda ids, lab: model(ids, labels=lab)[0])
+    with W.published() as pub:
+        for i in range(3):
+            step(W._t(tok[f"ids{i}"]), W._t(tok[f"labels{i}"]))
+    one = pub.arrays()
+    ranks = W.load(world4, "partitioned_2x2_none", 4)
+    for rank in ranks:
+        for k in ("sent_grad_norm", "sent_digest", "sent_loss", "sent_nonfinite"):
+            np.testing.assert_array_equal(rank[k], ranks[0][k], err_msg=k)
+        np.testing.assert_array_equal(rank["sent_loss"], rank["losses"].astype(np.float64))
+        assert not rank["sent_nonfinite"].any()
+        assert int(rank["sent_digest"][0]) == int(rank["reduced_digest0"])
+        np.testing.assert_allclose(rank["sent_grad_norm"][0], rank["reduced_norm0"], rtol=1e-6)
+        np.testing.assert_allclose(rank["sent_grad_norm"], LLAMA_CLIP / rank["clip_scales"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(rank["sent_grad_norm"], one["sent_grad_norm"], rtol=1e-5)
+        np.testing.assert_allclose(rank["sent_loss"], one["sent_loss"], rtol=LOSS_RTOL)
+
+
+def test_partitioned_numerics_under_accumulation(world2, files):
+    """PartitionedTrainStep at fsdp 2 with accumulate_steps=2: a micro-step's
+    sentinels read its own gradients reduced over the ranks, as the merge
+    step's do, so both ranks publish the same values every call; the norms
+    are those of the port's one-process TrainStep(accumulate_steps=2) on
+    the whole batches (1e-5, as above), the losses its (LOSS_RTOL)."""
+    from paddle_tpu_torch.jit import TrainStep as PortTrainStep
+
+    tok = np.load(files["tok"])
+    model = W._llama(files["llama"])
+    opt = W.paddle.optimizer.AdamW(learning_rate=LLAMA_LR, parameters=model.parameters(),
+                                   weight_decay=0.1,
+                                   grad_clip=W.paddle.nn.ClipGradByGlobalNorm(LLAMA_CLIP))
+    step = PortTrainStep(model, opt, lambda ids, lab: model(ids, labels=lab)[0],
+                         accumulate_steps=2)
+    with W.published() as pub:
+        for i in (0, 1, 2, 0):
+            step(W._t(tok[f"ids{i}"]), W._t(tok[f"labels{i}"]))
+    one = pub.arrays()
+    ranks = W.load(world2, "partitioned_accum", 2)
+    for rank in ranks:
+        assert len(rank["sent_grad_norm"]) == 4
+        for k in ("sent_grad_norm", "sent_digest", "sent_loss", "sent_nonfinite"):
+            np.testing.assert_array_equal(rank[k], ranks[0][k], err_msg=k)
+        np.testing.assert_array_equal(rank["sent_loss"], rank["losses"].astype(np.float64))
+        np.testing.assert_allclose(rank["sent_grad_norm"], one["sent_grad_norm"], rtol=1e-5)
+        np.testing.assert_allclose(rank["sent_loss"], one["sent_loss"], rtol=LOSS_RTOL)
 
 
 def test_partitioned_recompute_gathers_again_in_the_backward(world4):

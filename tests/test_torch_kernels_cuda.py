@@ -2155,3 +2155,99 @@ def test_dist_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):
     rc, logs, _ = _dist_ranks(tmp_path, 2, "a")
     assert rc == 1
     assert "would share cuda:0" in logs
+
+
+# the numerics sentinels' reduction: digests and counts are integers (exact
+# on both sides); a sum of squares is the same f32 terms summed in another
+# order, at most 1e-5 relative over these sizes.
+SENTINEL_SQ_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_profiler_sentinel_stats_match_the_plain_version(dev, dtype):
+    from paddle_tpu_torch.ops import sentinels
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    sizes = (1, 7, 4097, 65536, 65536 + 3, 2 ** 20 + 5)
+    ts = [torch.randn(n, device=dev, generator=g, dtype=torch.float32).to(dtype) for n in sizes]
+    ts[2][5] = float("nan")
+    ts[4][-1] = float("-inf")
+    ts[5][::100003] = float("inf")
+    ts.append(torch.randn(64, 3, device=dev, generator=g).to(dtype).t())  # not contiguous
+    ts.append(torch.randn(33, device=dev, generator=g).to(dtype)[1:])     # not 16-byte aligned
+    before = sentinels.tensor_stats.launches
+    sq, ints = sentinels.tensor_stats(ts)
+    sq2, ints2 = sentinels.tensor_stats(ts)
+    assert sentinels.tensor_stats.launches == before + 2
+    psq, pints = sentinels.tensor_stats_plain(ts)
+    assert torch.equal(ints, pints)
+    # the same bits twice (NaN sums included: compared as bits)
+    assert torch.equal(sq.view(torch.int32), sq2.view(torch.int32)) and torch.equal(ints, ints2)
+    fin = torch.isfinite(psq)
+    assert torch.equal(fin, torch.isfinite(sq))
+    torch.testing.assert_close(sq[fin], psq[fin], rtol=SENTINEL_SQ_RTOL, atol=0)
+    assert int(ints[1, 2]) == 1 and int(ints[1, 4]) == 1 and int(ints[1, 5]) == 11
+
+
+def test_profiler_train_step_sentinels_on_the_card(dev):
+    """A tiny Llama TrainStep on the card: the sentinels launch once a step,
+    the step's bits do not depend on them, grad_norm is the global-norm
+    clip's norm of the same gradients, and a poisoned group is named."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import sentinels
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import telemetry
+
+    cfg = LlamaConfig.tiny()
+    ids = torch.randint(0, cfg.vocab_size, (2, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    runs = {}
+    for mode in ("off", "summary"):
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+        opt = AdamW(1e-3, parameters=model.parameters(), grad_clip=ClipGradByGlobalNorm(1.0))
+        step = TrainStep(model, opt, lambda x, y, m=model: m(x, labels=y)[0], numerics=mode)
+        before = sentinels.tensor_stats.launches
+        losses = [step(ids, ids).item() for _ in range(3)]
+        launched = sentinels.tensor_stats.launches - before
+        runs[mode] = (losses, [p.detach().clone() for p in model.parameters()], launched, step)
+    assert runs["off"][0] == runs["summary"][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs["off"][1], runs["summary"][1]))
+    assert (runs["off"][2], runs["summary"][2]) == (0, 3)
+    step = runs["summary"][3]
+    model = step.model
+    loss = model(ids, labels=ids)[0].float()
+    grads = torch.autograd.grad(loss, [p for p in model.parameters()])
+    want = torch.sqrt(sum(torch.linalg.vector_norm(g, dtype=torch.float32) ** 2
+                          for g in grads)).item()
+    telemetry.reset()
+    step(ids, ids)
+    assert telemetry.gauge("train.grad_norm").value == pytest.approx(want, rel=1e-3)
+    with torch.no_grad():
+        model.lm_head.weight[0, 0] = float("nan")
+    step(ids, ids)
+    assert step._num_watchdog.last_event["groups"]["lm_head"]["param"] == 1
+
+
+def test_profiler_gpu_target_times_the_kernels_under_each_span(dev, tmp_path):
+    """Profiler(targets=[CPU, GPU]) on the card: the kernels of a flash
+    call run under a span are in the trace by name and linked to it."""
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget, spans
+
+    q, k, v = (torch.randn(1, 512, 4, 64, device=dev, dtype=torch.bfloat16) for _ in range(3))
+    fa.flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    with Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU]) as prof:
+        with spans.span("jit.dispatch"):
+            fa.flash_attention_fwd(q, k, v, True)
+            (q.float() @ k.float().transpose(-1, -2)).sum()
+        torch.cuda.synchronize()
+    summary = prof.device_trace_summary(("jit.dispatch",))
+    row = summary["annotations"]["jit.dispatch"]
+    assert row["kernels"] >= 2 and row["device_ms"] > 0
+    assert row["device_ms"] == pytest.approx(summary["device_ms"], rel=0.05)
+    names = {e["name"] for e in __import__("json").load(open(prof.export(
+        str(tmp_path / "t.json"))))["traceEvents"]}
+    assert any("flash_fwd_kernel" in n for n in names)

@@ -251,12 +251,14 @@ def test_train_step_trajectory_matches_reference():
 def test_train_step_refuses_what_it_does_not_do_and_eval_step_runs():
     _, pmodel = _pair()
     opt = AdamW(parameters=pmodel.parameters())
-    for kw in ({"telemetry_export_every": 5}, {"offload_optimizer": False},
-               {"offload_optimizer": True}, {"numerics": "summary"},
+    for kw in ({"offload_optimizer": False}, {"offload_optimizer": True},
                {"checkpoint_root": "ckpt"}):
         with pytest.raises(NotImplementedError, match="comes with the port's .* module"):
             TrainStep(pmodel, opt, lambda: None, **kw)
-    TrainStep(pmodel, opt, lambda: None, donate=False, numerics="off")
+    # the profiler slice brought these
+    for kw in ({"telemetry_export_every": 5, "telemetry_logdir": "runs"},
+               {"numerics": "summary"}, {"numerics": "trace"}, {"numerics": "off"}):
+        TrainStep(pmodel, opt, lambda: None, donate=False, **kw)
     ids, labels = _batch(4, 1024)
     out = EvalStep(pmodel, lambda x, y: pmodel(x, labels=y))(torch.from_numpy(ids),
                                                              torch.from_numpy(labels))

@@ -441,6 +441,41 @@ def test_partitioned_gradients_and_replicas(files, tp2, tp4, cfg, opt, axes, n):
             "PartitionSpec('fsdp', None)"
 
 
+# the sentinels' f32 sums of squares against an f64 sum of the same gradients
+NORM_RTOL = 1e-6
+NUMERICS_CASES = [c + (0,) for c in CASES] + [("tiny", "adamw", "tiny2", 2, 1)]
+
+
+@pytest.mark.parametrize("cfg,opt,axes,n,sp", NUMERICS_CASES,
+                         ids=[f"{c}-{o}-{a}-sp{s}" for c, o, a, _, s in NUMERICS_CASES])
+def test_partitioned_numerics_read_the_reduced_gradients(files, tp2, tp4, cfg, opt, axes, n,
+                                                         sp):
+    """The numerics plane of PartitionedTrainStep over the tensor axis:
+    every rank publishes the same loss (the returned global mean), grad
+    norm, digest and nonfinite count each step; the first step's digest is
+    that of the first batch's reduced gradients gathered whole (the
+    tensor-partial ones summed), its grad norm their norm (NORM_RTOL) and
+    the reference's backward's (2e-5); under AdamW's clip the norm is the
+    clip's."""
+    ranks = W.load(tp2 if n == 2 else tp4, _run_name(cfg, opt, AXES[axes], sp), n)
+    for rank in ranks:
+        for k in ("sent_grad_norm", "sent_digest", "sent_loss", "sent_nonfinite"):
+            np.testing.assert_array_equal(rank[k], ranks[0][k], err_msg=k)
+        np.testing.assert_array_equal(rank["sent_loss"], rank["losses"].astype(np.float64))
+        assert not rank["sent_nonfinite"].any()
+        assert int(rank["sent_digest"][0]) == int(rank["reduced_digest0"])
+        np.testing.assert_allclose(rank["sent_grad_norm"][0], rank["reduced_norm0"],
+                                   rtol=NORM_RTOL)
+        if "clip_scales" in rank:
+            clipped = rank["clip_scales"] < 1
+            np.testing.assert_allclose(rank["sent_grad_norm"][clipped],
+                                       0.5 / rank["clip_scales"][clipped], rtol=1e-5)
+            assert (rank["sent_grad_norm"][~clipped] <= 0.5).all()
+    _, want = _ref_grads(files, cfg)
+    ref_norm = np.sqrt(sum(np.sum(np.asarray(w, np.float64) ** 2) for w in want.values()))
+    np.testing.assert_allclose(ranks[0]["sent_grad_norm"][0], ref_norm, rtol=LOSS_RTOL)
+
+
 def test_sequence_parallel_matches_the_reference(files, tp2):
     """The tiny Llama with sequence_parallel at tensor 2: the norms on half
     the positions, their gradients summed over the tensor ranks inside the

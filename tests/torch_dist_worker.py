@@ -389,19 +389,73 @@ def _gathered(model):
             for k, p in model.named_parameters()}
 
 
+class published:
+    """Records the host sentinels and the loss of every step's numerics
+    fold (``profiler.numerics.publish``) while open: :attr:`steps`, one
+    ``(sentinels, loss)`` a call."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.profiler import numerics
+
+        self._orig, self.steps = numerics.publish, []
+
+        def publish(sent, loss=None):
+            self.steps.append((dict(sent), loss))
+            self._orig(sent, loss=loss)
+
+        numerics.publish = publish
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.profiler import numerics
+
+        numerics.publish = self._orig
+
+    def arrays(self) -> dict:
+        """``sent_grad_norm`` / ``sent_digest`` / ``sent_nonfinite`` /
+        ``sent_loss`` over the steps."""
+        return {"sent_grad_norm": np.array([s["grad_norm"] for s, _ in self.steps]),
+                "sent_digest": np.array([s["digest"] for s, _ in self.steps], np.int64),
+                "sent_nonfinite": np.array([s["nonfinite"] for s, _ in self.steps]),
+                "sent_loss": np.array([loss for _, loss in self.steps])}
+
+
+def reduced_whole(params, grads) -> dict:
+    """The numerics digest (the wrapping u32 sum of the f32 bits) and the
+    f64 L2 norm of the reduced gradients ``grads`` (a sharded step's
+    ``_reduce``), each gathered whole."""
+    from paddle_tpu_torch.ops.sentinels import _digest_plain
+
+    whole = [dist._sharded.gather_full(g, dist._sharded.info_of(p))
+             for (_, p), g in zip(params, grads)]
+    return {"reduced_digest0": np.array(sum(int(_digest_plain(t)) for t in whole)
+                                        & 0xFFFFFFFF, np.int64),
+            "reduced_norm0": np.sqrt(sum(float(torch.sum(t.double() ** 2)) for t in whole))}
+
+
 def partitioned(out, weights, data, dp_, fsdp, clip, policy="none"):
     """PartitionedTrainStep on a tiny Llama over dp x fsdp, 3 steps, under
-    the recompute ``policy``."""
+    the recompute ``policy``; the numerics plane's published loss, grad norm
+    and digest of every step, and the digest of the first batch's reduced
+    gradients gathered whole."""
     d = np.load(data)
     mesh = dist.build_program_mesh(dp=int(dp_), fsdp=int(fsdp))
     model = _llama(weights)
     step = _llama_step(model, float(clip), mesh, policy)
+    update = step.optimizer._update
+    params = step._params()
+    # this rank's rows, as the step runs them
+    rows = [step.partitioner.shard_batch(_t(d[k])) for k in ("ids0", "labels0")]
+    _, grads = step._loss_and_grads(params, rows)
+    first = reduced_whole(params, update._reduce([p for _, p in params], grads))
     C.reset_stats()
     res = {"losses": [], "clip_scales": []}
-    for i in range(3):
-        res["losses"].append(step(_t(d[f"ids{i}"]), _t(d[f"labels{i}"])))
-        res["clip_scales"].append(step.optimizer._update.last_clip_scale)
+    with published() as pub:
+        for i in range(3):
+            res["losses"].append(step(_t(d[f"ids{i}"]), _t(d[f"labels{i}"])))
+            res["clip_scales"].append(update.last_clip_scale)
     res = {k: torch.stack(v) for k, v in res.items()}
+    res.update(pub.arrays(), **first)
     res["param_bytes"] = np.array(_bytes(model.parameters()))
     res["moment_bytes"] = np.array(_bytes(t for st in step.optimizer._update.states.values()
                                           for t in st.values()))
@@ -409,6 +463,25 @@ def partitioned(out, weights, data, dp_, fsdp, clip, policy="none"):
     for k, v in _gathered(model).items():
         res[f"param.{k}"] = v
     _save(out, f"partitioned_{dp_}x{fsdp}_{policy}", **res)
+
+
+def partitioned_accum(out, weights, data):
+    """PartitionedTrainStep at fsdp over the world with
+    ``accumulate_steps=2``, 4 calls (the batches 0, 1, 2, 0): the numerics
+    plane's published values of every call, micro-steps included."""
+    d = np.load(data)
+    model = _llama(weights)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                                 weight_decay=0.1,
+                                 grad_clip=paddle.nn.ClipGradByGlobalNorm(0.5))
+    from paddle_tpu_torch.distributed.partitioning import Partitioner, PartitionedTrainStep
+
+    step = PartitionedTrainStep(
+        model, opt, lambda ids, lab: model(ids, labels=lab)[0], accumulate_steps=2,
+        partitioner=Partitioner(dist.build_program_mesh(fsdp=dist.get_world_size())))
+    with published() as pub:
+        losses = [step(_t(d[f"ids{i}"]), _t(d[f"labels{i}"])) for i in (0, 1, 2, 0)]
+    _save(out, "partitioned_accum", losses=torch.stack(losses), **pub.arrays())
 
 
 def ckpt_save(out, weights, data, path):
@@ -608,8 +681,19 @@ def tp_partitioned(out, cfg_name, weights, data, opt_name, axes, seq_parallel=0)
     loss0, grads = step._loss_and_grads(params, (_t(d["ids0"]), _t(d["labels0"])))
     grads = update._reduce([p for _, p in params], grads)
     res = {"loss0": loss0, **{f"grad.{n}": g for (n, _), g in zip(params, grads)}}
+    # the same on this rank's rows, as the step runs them
+    _, grads = step._loss_and_grads(params, [step.partitioner.shard_batch(_t(d[k]))
+                                             for k in ("ids0", "labels0")])
+    res.update(reduced_whole(params, update._reduce([p for _, p in params], grads)))
     C.reset_stats()
-    res["losses"] = torch.stack([step(_t(d[f"ids{i}"]), _t(d[f"labels{i}"])) for i in range(3)])
+    losses, scales = [], []
+    with published() as pub:
+        for i in range(3):
+            losses.append(step(_t(d[f"ids{i}"]), _t(d[f"labels{i}"])))
+            scales.append(update.last_clip_scale)
+    res.update(pub.arrays(), losses=torch.stack(losses))
+    if scales[0] is not None:       # the global-norm clip's (AdamW's; SGD has none)
+        res["clip_scales"] = torch.stack(scales)
     stats = C.stats()
     res["collectives"] = np.array(json.dumps(stats))
     for k, v in _gathered(model).items():
@@ -1856,7 +1940,7 @@ def spawned(out):
     _save(out, "spawned", total=t)
 
 
-CASES = {"collectives": collectives, "dp": dp, "zero": zero, "partitioned": partitioned,
+CASES = {"collectives": collectives, "dp": dp, "zero": zero, "partitioned": partitioned, "partitioned_accum": partitioned_accum,
          "fleet_sharding": fleet_sharding,
          "ckpt_save": ckpt_save, "ckpt_load": ckpt_load, "fleet_merge": fleet_merge,
          "mp_layers": mp_layers, "tp_partitioned": tp_partitioned, "tp_ckpt": tp_ckpt,

@@ -202,3 +202,44 @@ def port_globals(monkeypatch):
         gens[d].set_state(state)
     pinit._global.update(inits)
     torch.set_grad_enabled(grad_mode)
+
+
+@pytest.fixture
+def observability(monkeypatch, tmp_path):
+    """Both packages' process-wide observability state, reset before and
+    after a test: the telemetry registries (and through their reset hooks
+    the goodput ledgers and attribution caches), the span rings, the flight
+    recorders and the RecordEvent statistics; flight dumps and timeline
+    exports go under ``tmp_path``. The goodput ledgers' step hooks are
+    emptied for the test (an autopilot an earlier test of the process left
+    installed would act on the reference's folds), and the stall factor is
+    the default."""
+    from paddle_tpu.profiler import flight_recorder as ref_flight
+    from paddle_tpu.profiler import goodput as ref_goodput
+    from paddle_tpu.profiler import spans as ref_spans
+    from paddle_tpu.profiler import statistic as ref_stat
+    from paddle_tpu.profiler import telemetry as ref_tel
+    from paddle_tpu_torch.profiler import flight_recorder as port_flight
+    from paddle_tpu_torch.profiler import goodput as port_goodput
+    from paddle_tpu_torch.profiler import spans as port_spans
+    from paddle_tpu_torch.profiler import statistic as port_stat
+    from paddle_tpu_torch.profiler import telemetry as port_tel
+
+    monkeypatch.setenv("PADDLE_FLIGHT_DIR", str(tmp_path / "flight"))
+    monkeypatch.setenv("PADDLE_TRACE_DIR", str(tmp_path / "trace"))
+    monkeypatch.delenv("PADDLE_GOODPUT_STALL_FACTOR", raising=False)
+    for goodput in (ref_goodput, port_goodput):
+        monkeypatch.setattr(goodput, "_step_hooks", [])
+
+    def reset():
+        for tel, spans, flight, stat in ((ref_tel, ref_spans, ref_flight, ref_stat),
+                                         (port_tel, port_spans, port_flight, port_stat)):
+            tel.reset()
+            spans.enabled(refresh=True)
+            spans.clear()
+            flight.recorder().clear()
+            stat.global_statistics().clear()
+
+    reset()
+    yield
+    reset()
